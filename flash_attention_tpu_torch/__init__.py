@@ -1,0 +1,22 @@
+"""flash_attention_tpu_torch — the PyTorch and CUDA port of flash_attention_tpu.
+
+The JAX package ``flash_attention_tpu`` is the reference; this package mirrors
+its layout so each module's counterpart is found by name:
+
+  ops/       attention ops: a hand-written CUDA kernel per op (csrc/) beside
+             its plain PyTorch version, plus the fp32 oracle
+  models/    RoPE, the GQA attention layer with its KV cache, the transformer
+  serving/   continuous-batching engine, sampling, scheduler wrapper
+  native/    ctypes loader of the shared C++ scheduler sources
+  utils/     seeded inputs and the oracle-diff harness
+
+Public layouts follow the JAX package: attention tensors are [B, H, S, D],
+caches [B, Hkv, max_seq, D], decode queries [B, Hq, D]. Importing the package
+builds nothing: a kernel is compiled with nvcc on its first CUDA launch.
+"""
+
+from flash_attention_tpu_torch.ops.decode import decode_attention
+from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+from flash_attention_tpu_torch.ops.reference import reference_attention
+
+__all__ = ["flash_attention", "decode_attention", "reference_attention"]

@@ -1,0 +1,247 @@
+// K1: fused attention forward (causal or not, MHA or GQA) for Hopper.
+//
+// Replaces flash_attention_tpu/ops/flash_attention.py:_fwd_kernel, the Pallas
+// forward. Same function: S = Q K^T in fp32, an online exp2 softmax with
+// scale2 = sm_scale * log2(e), P V accumulated in fp32, the output normalised
+// by l (0 where l == 0), and optionally the base-2 LSE m + log2(l) (-inf
+// where l == 0). Causal masking is end-aligned: row i sees columns
+// j <= i + (kv_len - q_len). The kv head of q head h is h / group.
+//
+// What bounds it on this card: at long kv the score and PV products are
+// O(q_len * kv_len * D) against O((q_len + kv_len) * D) bytes, so arithmetic
+// bounds it. This first version does that arithmetic as fp32 FMAs over
+// shared-memory tiles, not on the tensor cores, so it runs far below the
+// card's bf16 rate; wgmma with TMA-fed tiles is later work.
+//
+// Design:
+//  * one block per (batch * q_head, 64-row q tile); 128 threads, each owning
+//    4 query rows x 8 score columns of a 64 x 64 score tile and 4 rows x D/8
+//    output columns; the rows' m, l and accumulators stay in registers;
+//  * the block loops over 64-row kv tiles and stops at the causal diagonal
+//    of its last row, so tiles above the diagonal are never loaded;
+//  * K and V take turns in one fp32 shared tile (rows padded by one float
+//    against bank conflicts); P goes through shared memory for the PV step;
+//  * q, k and v are read through their batch, head and row strides, so a
+//    slice of a KV cache is attended in place without a copy.
+#include "common.cuh"
+
+namespace {
+
+constexpr int BM = 64;        // query rows per block
+constexpr int BN = 64;        // kv rows per tile
+constexpr int THREADS = 128;  // 16 row groups x 8 column lanes
+constexpr int ROWS = 4;       // query rows per thread: 16 * 4 == BM
+constexpr int COLS = 8;       // score columns per thread: 8 * 8 == BN
+
+struct FwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;     // [B, Hq, Sq, D], contiguous
+  float* lse;  // [B, Hq, Sq] or nullptr
+  int64_t q_sb, q_sh, q_sr;
+  int64_t k_sb, k_sh, k_sr;
+  int64_t v_sb, v_sh, v_sr;
+  int num_q_heads, group, q_len, kv_len, causal;
+  float scale2;
+};
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (BM * (D + 1) + BN * (D + 1) + BM * (BN + 1));
+}
+
+// Loads rows [n0, n0 + BN) of a [rows, D] matrix with row stride `sr` into
+// the fp32 tile `dst` (row pitch D + 1); rows at or past `n` read as 0.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t sr, int n0,
+                                          int n, float scale) {
+  for (int i = threadIdx.x; i < BN * D; i += THREADS) {
+    const int r = i / D, d = i % D;
+    const int row = n0 + r;
+    dst[r * (D + 1) + d] = row < n ? fat::to_float(src[row * sr + d]) * scale : 0.f;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
+  constexpr int LD = D + 1;
+  constexpr int LDP = BN + 1;
+  constexpr int DC = D / COLS;  // output columns per thread
+  extern __shared__ float smem[];
+  float* s_q = smem;              // [BM][LD], pre-scaled by scale2
+  float* s_kv = s_q + BM * LD;    // [BN][LD], K then V of the current tile
+  float* s_p = s_kv + BN * LD;    // [BM][LDP], probabilities of the tile
+
+  const int tid = threadIdx.x;
+  const int ty = tid / COLS, tx = tid % COLS;
+  const int bh = blockIdx.y;
+  const int b = bh / p.num_q_heads, h = bh % p.num_q_heads;
+  const int hk = h / p.group;
+  // Causal tiles grow with the row index: start the longest ones first.
+  const int m0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int diag = p.kv_len - p.q_len;
+
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  load_tile<T, D>(s_q, q + m0 * p.q_sr, p.q_sr, 0, p.q_len - m0, p.scale2);
+
+  float m[ROWS], l[ROWS], acc[ROWS][DC];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    m[i] = fat::M_FLOOR;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+
+  const int last_row = min(m0 + BM, p.q_len) - 1;
+  const int n_end = p.causal ? min(p.kv_len, last_row + diag + 1) : p.kv_len;
+
+  for (int n0 = 0; n0 < n_end; n0 += BN) {
+    __syncthreads();  // the previous tile's V and P are no longer read
+    load_tile<T, D>(s_kv, k, p.k_sr, n0, p.kv_len, 1.f);
+    __syncthreads();
+
+    float s[ROWS][COLS];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float a[ROWS], kk[COLS];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) a[i] = s_q[(ty * ROWS + i) * LD + d];
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) kk[j] = s_kv[(tx + COLS * j) * LD + d];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+        for (int j = 0; j < COLS; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
+    }
+
+    // Online softmax; the 8 lanes of a row group share its rows, so row
+    // reductions are three xor-shuffles within the group.
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const int row = m0 + ty * ROWS + i;
+      float mx = fat::MASK_VALUE;
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) {
+        const int col = n0 + tx + COLS * j;
+        const bool ok = col < p.kv_len && (!p.causal || col <= row + diag);
+        if (!ok) s[i][j] = fat::MASK_VALUE;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < COLS; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(fat::FULL_MASK, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = exp2f(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) {
+        s[i][j] = exp2f(s[i][j] - m_new);
+        rs += s[i][j];
+      }
+#pragma unroll
+      for (int off = 1; off < COLS; off <<= 1) rs += __shfl_xor_sync(fat::FULL_MASK, rs, off);
+      l[i] = l[i] * alpha + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) s_p[(ty * ROWS + i) * LDP + tx + COLS * j] = s[i][j];
+    }
+    __syncthreads();  // K is no longer read; P is complete
+    load_tile<T, D>(s_kv, v, p.v_sr, n0, p.kv_len, 1.f);
+    __syncthreads();
+
+#pragma unroll 4
+    for (int j = 0; j < BN; ++j) {
+      float pr[ROWS], vv[DC];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) pr[i] = s_p[(ty * ROWS + i) * LDP + j];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) vv[c] = s_kv[j * LD + tx + COLS * c];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pr[i], vv[c], acc[i][c]);
+    }
+  }
+
+  T* o = static_cast<T*>(p.o) + static_cast<int64_t>(bh) * p.q_len * D;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int row = m0 + ty * ROWS + i;
+    if (row >= p.q_len) continue;
+    const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      o[static_cast<int64_t>(row) * D + tx + COLS * c] = fat::from_float<T>(acc[i][c] * inv);
+    if (p.lse != nullptr && tx == 0)
+      p.lse[static_cast<int64_t>(bh) * p.q_len + row] =
+          l[i] == 0.f ? -CUDART_INF_F : m[i] + log2f(l[i]);
+  }
+}
+
+struct FwdLaunch {
+  FwdParams p;
+  int64_t batch;
+  cudaStream_t stream;
+
+  template <typename T, int D>
+  cudaError_t launch() const {
+    constexpr size_t smem = smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.q_len + BM - 1) / BM, static_cast<unsigned>(batch * p.num_q_heads));
+    flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+    return cudaGetLastError();
+  }
+};
+
+}  // namespace
+
+// q [B, Hq, Sq, D], k and v [B, Hkv, Skv, D], each with unit stride on D and
+// the given batch / head / row strides (in elements); o [B, Hq, Sq, D]
+// contiguous; lse [B, Hq, Sq] fp32 or null. Returns a cudaError_t.
+extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                             int64_t batch, int64_t num_q_heads, int64_t num_kv_heads,
+                             int64_t q_len, int64_t kv_len, int64_t head_dim, int64_t q_sb,
+                             int64_t q_sh, int64_t q_sr, int64_t k_sb, int64_t k_sh, int64_t k_sr,
+                             int64_t v_sb, int64_t v_sh, int64_t v_sr, float scale2,
+                             int32_t causal, int32_t dtype, void* stream) {
+  FwdParams p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.lse = lse;
+  p.q_sb = q_sb;
+  p.q_sh = q_sh;
+  p.q_sr = q_sr;
+  p.k_sb = k_sb;
+  p.k_sh = k_sh;
+  p.k_sr = k_sr;
+  p.v_sb = v_sb;
+  p.v_sh = v_sh;
+  p.v_sr = v_sr;
+  p.num_q_heads = static_cast<int>(num_q_heads);
+  p.group = static_cast<int>(num_q_heads / num_kv_heads);
+  p.q_len = static_cast<int>(q_len);
+  p.kv_len = static_cast<int>(kv_len);
+  p.causal = causal;
+  p.scale2 = scale2;
+  const FwdLaunch launcher{p, batch, static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(fat::dispatch(dtype, head_dim, launcher));
+}
+
+extern "C" const char* fat_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,180 @@
+"""LLaMA-class decoder-only transformer built on the port's attention layer.
+
+Counterpart of ``flash_attention_tpu/models/transformer.py`` for the serving
+path: ``prefill``, ``prefill_chunk``, ``decode_step_logits`` and
+``decode_step`` over a params dict with the JAX package's tree and shapes
+(``models/convert.py`` maps one onto the other). The embedding is tied.
+
+Matmuls stay ``torch.matmul`` / ``einsum``, as the JAX package left them to
+XLA. One numerical difference: where JAX asks XLA for fp32 products of bf16
+operands (``preferred_element_type``), a bf16 ``torch.matmul`` rounds its
+output to bf16. fp32 configurations are unaffected.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from flash_attention_tpu_torch.models.attention import (
+    AttentionConfig,
+    _normal,
+    attention_decode,
+    attention_prefill,
+    attention_prefill_chunk,
+    init_attention_params,
+    init_kv_cache,
+    require_supported,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    vocab_size: int = 32000
+    model_dim: int = 4096
+    num_layers: int = 32
+    num_q_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    mlp_dim: int = 11008
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    kv_quant: str = "none"
+    weight_quant: str = "none"
+    dtype: str = "bfloat16"
+    sliding_window: int | None = None
+    logit_softcap: float | None = None
+    rolling: bool = False
+    attention_sinks: int = 0
+
+    def __post_init__(self):
+        require_supported(self)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    def attention_config(self) -> AttentionConfig:
+        return AttentionConfig(
+            model_dim=self.model_dim,
+            num_q_heads=self.num_q_heads,
+            num_kv_heads=self.num_kv_heads,
+            head_dim=self.head_dim,
+            rope_theta=self.rope_theta,
+            kv_quant=self.kv_quant,
+            dtype=self.dtype,
+            sliding_window=self.sliding_window,
+            logit_softcap=self.logit_softcap,
+            rolling=self.rolling,
+            attention_sinks=self.attention_sinks,
+        )
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, params) -> torch.Tensor:
+    gate = torch.matmul(x, params["w_gate"]).float()
+    up = torch.matmul(x, params["w_up"]).float()
+    act = (F.silu(gate) * up).to(x.dtype)
+    return torch.matmul(act, params["w_down"]).to(x.dtype)
+
+
+def init_model_params(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    """Random parameters on the generator's device, drawn from it, with the
+    JAX package's tree, shapes and scales (the draws themselves differ)."""
+    dt = cfg.torch_dtype
+    device = generator.device
+    acfg = cfg.attention_config()
+    s_in = 1.0 / math.sqrt(cfg.model_dim)
+    s_mlp = 1.0 / math.sqrt(cfg.mlp_dim)
+
+    def init_layer():
+        return {
+            "attn": init_attention_params(generator, acfg),
+            "attn_norm": torch.ones((cfg.model_dim,), dtype=dt, device=device),
+            "mlp_norm": torch.ones((cfg.model_dim,), dtype=dt, device=device),
+            "mlp": {
+                "w_gate": _normal(generator, (cfg.model_dim, cfg.mlp_dim), s_in, dt),
+                "w_up": _normal(generator, (cfg.model_dim, cfg.mlp_dim), s_in, dt),
+                "w_down": _normal(generator, (cfg.mlp_dim, cfg.model_dim), s_mlp, dt),
+            },
+        }
+
+    return {
+        "embed": _normal(generator, (cfg.vocab_size, cfg.model_dim), s_in, dt),
+        "layers": [init_layer() for _ in range(cfg.num_layers)],
+        "final_norm": torch.ones((cfg.model_dim,), dtype=dt, device=device),
+    }
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> list:
+    acfg = cfg.attention_config()
+    return [init_kv_cache(acfg, batch, max_seq, device=device) for _ in range(cfg.num_layers)]
+
+
+def _trunk(params, cfg: ModelConfig, tokens: torch.Tensor, attn_fn, caches):
+    """Shared decoder trunk: embed -> N x (pre-norm attention via ``attn_fn``
+    + pre-norm SwiGLU, both residual) -> final norm -> tied-embedding logits.
+
+    ``attn_fn(layer_attn_params, acfg, h, cache) -> (attn_out, new_cache)``
+    is the one piece the entry points differ in. Returns (logits
+    [B, T, vocab] fp32, new caches).
+    """
+    acfg = cfg.attention_config()
+    emb = params["embed"]
+    x = emb[tokens].to(cfg.torch_dtype)
+    new_caches = []
+    for lp, cache in zip(params["layers"], caches):
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        attn_out, cache = attn_fn(lp["attn"], acfg, h, cache)
+        x = x + attn_out
+        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        x = x + swiglu(h, lp["mlp"])
+        new_caches.append(cache)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = torch.matmul(x, emb.t()).float()
+    return logits, new_caches
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list, *, decode: bool = False):
+    """Run the model over [B, T] tokens (T=1 when decode=True).
+
+    Returns (logits [B, T, vocab], updated caches).
+    """
+    attn = attention_decode if decode else attention_prefill
+    return _trunk(params, cfg, tokens, attn, caches)
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list):
+    return forward(params, cfg, tokens, caches, decode=False)
+
+
+def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list, slot: int, start: int, kv_end: int):
+    """Prefill ONE CHUNK ([1, T] tokens at positions [start, start+T)) of one
+    sequence into its slot of the batched caches (start + T == kv_end).
+    Returns (logits [1, T, vocab], updated caches)."""
+    return _trunk(
+        params, cfg, tokens,
+        lambda p, acfg, h, c: attention_prefill_chunk(p, acfg, h, c, slot, start, kv_end),
+        caches,
+    )
+
+
+def decode_step_logits(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list):
+    """One decode step returning raw last-position logits [B, vocab] (the
+    sampling layer chooses the token; see serving/sampling.py)."""
+    logits, caches = forward(params, cfg, tokens, caches, decode=True)
+    return logits[:, -1, :], caches
+
+
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list):
+    """One greedy decode step: tokens [B, 1] -> (next_tokens [B, 1], caches)."""
+    logits, caches = forward(params, cfg, tokens, caches, decode=True)
+    return torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32), caches

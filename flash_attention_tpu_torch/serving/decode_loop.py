@@ -1,0 +1,225 @@
+"""Host loop of the serving engine: chunked prefill and blocked decode.
+
+Counterpart of ``flash_attention_tpu/serving/decode_loop.py``. A decode
+BLOCK is up to ``decode_block_steps`` model steps issued back to back on the
+device (``lax.scan`` there, a Python loop of k steps here), with ONE
+device-to-host token readback per block. Blocks are pipelined: block i+1 is
+dispatched before block i's tokens are read, and the readback is an
+asynchronous copy into pinned memory with an event, so the host waits on
+block i's tokens only, not on block i+1's work.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from flash_attention_tpu_torch.models.transformer import prefill_chunk
+from flash_attention_tpu_torch.serving.sampling import sample_tokens
+
+
+def start_prefill(eng, req, slot: int) -> None:
+    """Admit one request into a prefill state.
+
+    The prompt is right-padded to the engine's chunk grid, CLAMPED to the
+    slot capacity: the grid need not divide max_seq, so the final chunk may
+    be shorter.
+    """
+    from flash_attention_tpu_torch.serving.engine import _PrefillState
+
+    n_chunks = max(1, -(-len(req.prompt) // eng.chunk))
+    padded_len = min(n_chunks * eng.chunk, eng.max_seq)
+    padded = np.zeros((padded_len,), np.int32)
+    padded[: len(req.prompt)] = req.prompt
+    eng._prefills[slot] = _PrefillState(req=req, padded=padded)
+    eng._dev_dirty = True
+    sp = req.sampling
+    eng._temps[slot] = sp.temperature
+    eng._topk[slot] = sp.top_k
+    eng._topp[slot] = sp.top_p
+    eng._seeds[slot] = sp.seed
+
+
+def advance_prefill(eng, slot: int, out) -> None:
+    """Run ONE chunk of the pending prefill on ``slot``; after the last
+    chunk, fix the slot's true length and sample its first token."""
+    from flash_attention_tpu_torch.serving.engine import Completion, _set_slot_length
+
+    st = eng._prefills[slot]
+    c = st.next_chunk
+    lo = c * eng.chunk
+    hi = min((c + 1) * eng.chunk, len(st.padded))
+    toks = torch.as_tensor(st.padded[None, lo:hi], device=eng.device)
+    logits, eng.caches = prefill_chunk(eng.params, eng.cfg, toks, eng.caches, slot, lo, hi)
+    st.next_chunk += 1
+    eng.events.append(("chunk", slot))
+    if st.next_chunk * eng.chunk < len(st.padded):
+        return
+    req = st.req
+    true_len = len(req.prompt)
+    eng.caches = _set_slot_length(eng.caches, slot, true_len)
+    local_idx = (true_len - 1) - (st.next_chunk - 1) * eng.chunk
+    first = int(eng._sample_first(logits[:, local_idx], slot, true_len))
+    del eng._prefills[slot]
+    eng.sched.prefill_done(slot)
+    eng._dev_dirty = True
+    eng._cur_len[slot] = true_len
+    eng._remaining[slot] = req.max_new_tokens - 1
+    out.setdefault(req.id, Completion(req.id, [], False))
+    out[req.id].tokens.append(first)
+    eng.last_token[slot] = first
+    is_eos = eng.eos_id is not None and first == eng.eos_id
+    if is_eos:
+        out[req.id].finished_by_eos = True
+    eng.sched.record_token(slot, is_eos)
+
+
+def make_decode_multi(model_cfg, decode_logits_fn):
+    """Build the k-step decode block for one engine.
+
+    Returns a function (params, last_tok, caches, active, temps, topk, topp,
+    seeds, k, greedy) -> ([k, slots] token block, final last-token row,
+    caches): k decode steps issued back to back on the device. Inactive
+    slots keep their lengths and tokens each step (their lanes ride along in
+    the batched kernels).
+    """
+
+    def _decode_multi(params, last_tok, caches, active, temps, topk, topp, seeds, k, greedy=False):
+        tok = last_tok
+        block = []
+        for _ in range(k):
+            old_lengths = [c.lengths for c in caches]
+            logits, new_caches = decode_logits_fn(params, model_cfg, tok[:, None], caches)
+            if greedy:
+                # Every active slot is temperature 0: skip the sampling sorts.
+                nt = torch.argmax(logits, dim=-1).to(torch.int32)
+            else:
+                # The position the sampled token will OCCUPY (old length + 1):
+                # the first token already used position == prompt length.
+                nt = sample_tokens(logits, temps, topk, topp, seeds, old_lengths[0] + 1)
+            tok = torch.where(active, nt, tok)
+            caches = [
+                c._replace(lengths=torch.where(active, c.lengths, old))
+                for c, old in zip(new_caches, old_lengths)
+            ]
+            block.append(tok)
+        return torch.stack(block), tok, caches
+
+    return _decode_multi
+
+
+def _start_readback(toks: torch.Tensor):
+    """Start the block's one device-to-host copy; returns (host, event)."""
+    if toks.device.type != "cuda":
+        return toks, None
+    host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+    host.copy_(toks, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def retire_decode_block(eng, out) -> None:
+    """Read back the in-flight decode block (if any) and do its host-side
+    bookkeeping: append tokens, detect EOS / budget completion, finish slots.
+
+    Tokens of a slot whose request ended BEFORE this block was dispatched
+    (the pipelined overrun block) are dropped: the dispatch-time slot ->
+    request snapshot no longer matches the scheduler's. Tokens past a
+    completion found WITHIN this block are dropped by the ``finished`` set.
+    """
+    pend = eng._pending_block
+    if pend is None:
+        return
+    t0 = time.perf_counter()
+    eng._pending_block = None
+    (host, done), block_active, slot_req = pend
+    if done is not None:
+        done.synchronize()
+    toks_np = host.numpy()  # [k_run, max_slots]
+    finished: set[int] = set()
+    appended = 0
+    for j in range(toks_np.shape[0]):
+        for slot in block_active:
+            if slot in finished:
+                continue
+            req_id = slot_req[slot]
+            if eng.sched.slot_request(slot) != req_id:
+                continue  # finished before this block was dispatched
+            tok = int(toks_np[j, slot])
+            out[req_id].tokens.append(tok)
+            eng.last_token[slot] = tok
+            appended += 1
+            is_eos = eng.eos_id is not None and tok == eng.eos_id
+            if is_eos:
+                out[req_id].finished_by_eos = True
+            if eng.sched.record_token(slot, is_eos):
+                eng._dev_dirty = True
+                finished.add(slot)
+    eng.decode_tokens += appended
+    eng.events.append(("decode", appended))
+    eng.decode_time_s += time.perf_counter() - t0
+
+
+def run_decode_block(eng, active, out) -> None:
+    """Advance every active slot by one decode BLOCK (host side).
+
+    Pipelined (``eng.pipeline_decode``): the next block is dispatched before
+    the previous block's tokens are read back. Budgets and capacity are
+    decremented at dispatch, so the next block's length bound never
+    overshoots the cache; a membership change (prefill done, EOS, slot
+    released) forces the in-flight block's retirement before the sampling
+    state is re-uploaded from ``last_token``.
+    """
+    if eng._dev_dirty:
+        retire_decode_block(eng, out)
+        active = eng.sched.active_slots()
+        if not active:
+            return
+    t0 = time.perf_counter()
+    if eng._dev_dirty:
+        active_mask = np.zeros((eng.max_slots,), bool)
+        active_mask[active] = True
+        eng._dev = tuple(
+            torch.as_tensor(a, device=eng.device)
+            for a in (eng.last_token, active_mask, eng._temps, eng._topk, eng._topp, eng._seeds)
+        )
+        # Exact fast path: every ACTIVE slot greedy (temperature 0).
+        eng._dev_greedy = bool((eng._temps[active] == 0).all())
+        eng._dev_dirty = False
+    d_last, d_active, d_t, d_k, d_p, d_s = eng._dev
+    # Block length: bounded by every active slot's scheduled token budget
+    # and cache headroom, then rounded DOWN to a power of two (as the JAX
+    # engine does to bound its compiles; kept so both engines step alike).
+    k_run = int(
+        min(
+            eng.decode_block_steps,
+            min(eng._remaining[s] for s in active),
+            min(eng.max_seq - eng._cur_len[s] for s in active),
+        )
+    )
+    k_run = max(1, k_run)
+    k_run = 1 << (k_run.bit_length() - 1)
+    toks_dev, d_last, eng.caches = eng._decode_multi(
+        eng.params, d_last, eng.caches, d_active, d_t, d_k, d_p, d_s, k_run, eng._dev_greedy,
+    )
+    eng._dev = (d_last, d_active, d_t, d_k, d_p, d_s)
+    for s in active:
+        eng._cur_len[s] += k_run
+        eng._remaining[s] -= k_run
+    eng.steps += k_run
+    eng.decode_time_s += time.perf_counter() - t0
+    next_pending = (
+        _start_readback(toks_dev),
+        list(active),
+        {s: eng.sched.slot_request(s) for s in active},
+    )
+    if eng.pipeline_decode:
+        # Retire the PREVIOUS block now that this one is in flight.
+        retire_decode_block(eng, out)
+        eng._pending_block = next_pending
+    else:
+        eng._pending_block = next_pending
+        retire_decode_block(eng, out)
