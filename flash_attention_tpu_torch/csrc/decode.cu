@@ -1,12 +1,23 @@
-// K6: single-token decode attention over a dense KV cache, for Hopper.
+// K6 and K7: single-token decode attention over a dense or a paged KV cache,
+// for Hopper.
 //
-// Replaces flash_attention_tpu/ops/decode.py:_decode_kernel (the bf16, fp16
-// and fp32 cache path; int8/fp8 dequant, window, softcap, ring buffer, sinks
-// and the LSE output come with later work). One query token per sequence
-// attends to rows [0, lengths[b]) of its cache; the new token's K/V must
-// already be written at lengths[b] - 1. Same numerics as K1: fp32 scores and
-// accumulators, exp2 softmax with scale2 = sm_scale * log2(e), the running
-// max floored at M_FLOOR, and output 0 for lengths[b] == 0.
+// Replaces flash_attention_tpu/ops/decode.py:_decode_kernel (K6, the bf16,
+// fp16 and fp32 cache path) and flash_attention_tpu/ops/paged.py:
+// _paged_decode_kernel_hb (:980) and _paged_decode_kernel (:1104) (K7,
+// decode through a page table, output and base-2 LSE). int8/fp8 dequant,
+// window, softcap, ring buffer and sinks come with later work. One query
+// token per sequence attends to rows [0, lengths[b]) of its cache. Same
+// numerics as K1: fp32 scores and accumulators, exp2 softmax with scale2 =
+// sm_scale * log2(e), the running max floored at M_FLOOR, output 0 and LSE
+// -inf for lengths[b] == 0.
+//
+// One body serves both caches through an address policy (Rows below): row r
+// of (b, kv head h) is
+//   dense:  base + b * sb + h * sh + r * sr
+//   paged:  pages + clamp(table[b, r / page_size]) * sb + h * sh + (r % page_size) * sr
+// The page id is clamped into [0, num_pages): a released slot keeps its
+// length while its table points at dump page 0, and its lane still rides in
+// the batched step, so an unclamped id would be an illegal address.
 //
 // What bounds it on this card: every cache row is used once per query group,
 // about 4 flops a byte, so the bytes of the cache read bound it.
@@ -18,7 +29,9 @@
 //  * rows are read only up to lengths[b]; the 8 warps take interleaved runs
 //    of 4 rows, issuing all 4 rows' loads before using them, and each warp
 //    keeps its own online-softmax state (lane i holds D/32 elements of the
-//    row); the warps merge through shared memory at the end;
+//    row); the warps merge through shared memory at the end. A run of 4 rows
+//    never straddles a page (page_size is a multiple of 4), so the page
+//    table is read once a run;
 //  * at batch 8 with 8 kv heads this is 64 blocks for 132 SMs; splitting the
 //    kv range across blocks (flash-decoding, with an LSE merge) to fill the
 //    card at small batch is later work.
@@ -35,16 +48,34 @@ struct DecodeParams {
   const void* q;  // [B, Hq, D], unit stride on D
   const void* k;
   const void* v;
-  void* o;  // [B, Hq, D], contiguous
+  void* o;       // [B, Hq, D], contiguous
+  float* lse;    // [B, Hq] or nullptr
   const int32_t* lengths;
+  const int32_t* table;  // paged: [B, pages_per_slot]; dense: unused
   int64_t q_sb, q_sh;
-  int64_t k_sb, k_sh, k_sr;
+  int64_t k_sb, k_sh, k_sr;  // paged: sb is the page stride
   int64_t v_sb, v_sh, v_sr;
   int num_q_heads, group, max_seq;
+  int page_size, pages_per_slot, num_pages;
   float scale2;
 };
 
-template <typename T, int D>
+// The first of UNROLL rows starting at r0 (a multiple of UNROLL) of batch
+// row b, kv head hk; the run's rows follow at stride sr.
+template <typename T, bool PAGED>
+__device__ __forceinline__ const T* run_base(const DecodeParams& p, const void* base, int64_t sb,
+                                             int64_t sh, int64_t sr, int b, int hk, int r0) {
+  const T* x = static_cast<const T*>(base) + hk * sh;
+  if constexpr (PAGED) {
+    const int page = p.table[static_cast<int64_t>(b) * p.pages_per_slot + r0 / p.page_size];
+    const int phys = min(max(page, 0), p.num_pages - 1);
+    return x + phys * sb + (r0 % p.page_size) * sr;
+  } else {
+    return x + b * sb + r0 * sr;
+  }
+}
+
+template <typename T, int D, bool PAGED>
 __global__ void __launch_bounds__(THREADS) decode_kernel(const DecodeParams p) {
   constexpr int EPL = D / 32;  // elements of a row per lane
   __shared__ float s_m[WARPS][MAX_G];
@@ -59,8 +90,6 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const DecodeParams p) {
   const int h0 = hk * p.group + g0;  // first q head of this block
 
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + lane * EPL;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh + lane * EPL;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh + lane * EPL;
 
   float qv[MAX_G][EPL], m[MAX_G], l[MAX_G], acc[MAX_G][EPL];
 #pragma unroll
@@ -75,14 +104,16 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const DecodeParams p) {
   }
 
   for (int r0 = warp * UNROLL; r0 < length; r0 += WARPS * UNROLL) {
+    const T* k = run_base<T, PAGED>(p, p.k, p.k_sb, p.k_sh, p.k_sr, b, hk, r0) + lane * EPL;
+    const T* v = run_base<T, PAGED>(p, p.v, p.v_sb, p.v_sh, p.v_sr, b, hk, r0) + lane * EPL;
     float kr[UNROLL][EPL], vr[UNROLL][EPL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const int r = r0 + u;
+      const bool live = r0 + u < length;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
-        kr[u][e] = r < length ? fat::to_float(k[r * p.k_sr + e]) : 0.f;
-        vr[u][e] = r < length ? fat::to_float(v[r * p.v_sr + e]) : 0.f;
+        kr[u][e] = live ? fat::to_float(k[u * p.k_sr + e]) : 0.f;
+        vr[u][e] = live ? fat::to_float(v[u * p.v_sr + e]) : 0.f;
       }
     }
 #pragma unroll
@@ -127,7 +158,8 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const DecodeParams p) {
   }
   __syncthreads();
 
-  T* o = static_cast<T*>(p.o) + (static_cast<int64_t>(b) * p.num_q_heads + h0) * D;
+  const int64_t row0 = static_cast<int64_t>(b) * p.num_q_heads + h0;
+  T* o = static_cast<T*>(p.o) + row0 * D;
   for (int i = threadIdx.x; i < ng * D; i += THREADS) {
     const int g = i / D, d = i % D;
     float mx = fat::M_FLOOR;
@@ -141,9 +173,12 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const DecodeParams p) {
       sum_o = fmaf(s_acc[w][g][d], wt, sum_o);
     }
     o[i] = fat::from_float<T>(sum_l == 0.f ? 0.f : sum_o / sum_l);
+    if (p.lse != nullptr && d == 0)
+      p.lse[row0 + g] = sum_l == 0.f ? -CUDART_INF_F : mx + log2f(sum_l);
   }
 }
 
+template <bool PAGED>
 struct DecodeLaunch {
   DecodeParams p;
   int64_t batch, num_kv_heads;
@@ -153,27 +188,21 @@ struct DecodeLaunch {
   cudaError_t launch() const {
     const dim3 grid(static_cast<unsigned>(num_kv_heads), static_cast<unsigned>(batch),
                     (p.group + MAX_G - 1) / MAX_G);
-    decode_kernel<T, D><<<grid, THREADS, 0, stream>>>(p);
+    decode_kernel<T, D, PAGED><<<grid, THREADS, 0, stream>>>(p);
     return cudaGetLastError();
   }
 };
 
-}  // namespace
-
-// q [B, Hq, D] with unit stride on D; k and v caches [B, Hkv, max_seq, D]
-// with unit stride on D and the given batch / head / row strides (in
-// elements); lengths [B] int32; o [B, Hq, D] contiguous. Returns a
-// cudaError_t.
-extern "C" int fat_decode(const void* q, const void* k, const void* v, void* o,
-                          const int32_t* lengths, int64_t batch, int64_t num_q_heads,
-                          int64_t num_kv_heads, int64_t max_seq, int64_t head_dim, int64_t q_sb,
-                          int64_t q_sh, int64_t k_sb, int64_t k_sh, int64_t k_sr, int64_t v_sb,
-                          int64_t v_sh, int64_t v_sr, float scale2, int32_t dtype, void* stream) {
-  DecodeParams p;
+DecodeParams make_params(const void* q, const void* k, const void* v, void* o, float* lse,
+                         const int32_t* lengths, int64_t num_q_heads, int64_t num_kv_heads,
+                         int64_t q_sb, int64_t q_sh, int64_t k_sb, int64_t k_sh, int64_t k_sr,
+                         int64_t v_sb, int64_t v_sh, int64_t v_sr, float scale2) {
+  DecodeParams p{};
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.lengths = lengths;
   p.q_sb = q_sb;
   p.q_sh = q_sh;
@@ -185,8 +214,47 @@ extern "C" int fat_decode(const void* q, const void* k, const void* v, void* o,
   p.v_sr = v_sr;
   p.num_q_heads = static_cast<int>(num_q_heads);
   p.group = static_cast<int>(num_q_heads / num_kv_heads);
-  p.max_seq = static_cast<int>(max_seq);
   p.scale2 = scale2;
-  const DecodeLaunch launcher{p, batch, num_kv_heads, static_cast<cudaStream_t>(stream)};
+  return p;
+}
+
+}  // namespace
+
+// K6. q [B, Hq, D] with unit stride on D; k and v caches [B, Hkv, max_seq, D]
+// with unit stride on D and the given batch / head / row strides (in
+// elements); lengths [B] int32; o [B, Hq, D] contiguous; lse [B, Hq] fp32 or
+// null. Returns a cudaError_t.
+extern "C" int fat_decode(const void* q, const void* k, const void* v, void* o, float* lse,
+                          const int32_t* lengths, int64_t batch, int64_t num_q_heads,
+                          int64_t num_kv_heads, int64_t max_seq, int64_t head_dim, int64_t q_sb,
+                          int64_t q_sh, int64_t k_sb, int64_t k_sh, int64_t k_sr, int64_t v_sb,
+                          int64_t v_sh, int64_t v_sr, float scale2, int32_t dtype, void* stream) {
+  DecodeParams p = make_params(q, k, v, o, lse, lengths, num_q_heads, num_kv_heads, q_sb, q_sh,
+                               k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, scale2);
+  p.max_seq = static_cast<int>(max_seq);
+  const DecodeLaunch<false> launcher{p, batch, num_kv_heads, static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(fat::dispatch(dtype, head_dim, launcher));
+}
+
+// K7. q [S, Hq, D] with unit stride on D; k and v pages [num_pages, Hkv,
+// page_size, D] with unit stride on D and the given page / head / row
+// strides; table [S, pages_per_slot] int32 contiguous; lengths [S] int32
+// (rows past pages_per_slot * page_size are not read); o [S, Hq, D]
+// contiguous; lse [S, Hq] fp32 or null. page_size must be a multiple of 4.
+extern "C" int fat_paged_decode(const void* q, const void* k, const void* v, void* o, float* lse,
+                                const int32_t* lengths, const int32_t* table, int64_t num_slots,
+                                int64_t num_q_heads, int64_t num_kv_heads, int64_t num_pages,
+                                int64_t page_size, int64_t pages_per_slot, int64_t head_dim,
+                                int64_t q_sb, int64_t q_sh, int64_t k_sp, int64_t k_sh,
+                                int64_t k_sr, int64_t v_sp, int64_t v_sh, int64_t v_sr,
+                                float scale2, int32_t dtype, void* stream) {
+  DecodeParams p = make_params(q, k, v, o, lse, lengths, num_q_heads, num_kv_heads, q_sb, q_sh,
+                               k_sp, k_sh, k_sr, v_sp, v_sh, v_sr, scale2);
+  p.table = table;
+  p.page_size = static_cast<int>(page_size);
+  p.pages_per_slot = static_cast<int>(pages_per_slot);
+  p.num_pages = static_cast<int>(num_pages);
+  p.max_seq = static_cast<int>(page_size * pages_per_slot);
+  const DecodeLaunch<true> launcher{p, num_slots, num_kv_heads, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(fat::dispatch(dtype, head_dim, launcher));
 }

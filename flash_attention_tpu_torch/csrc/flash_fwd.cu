@@ -1,11 +1,22 @@
-// K1: fused attention forward (causal or not, MHA or GQA) for Hopper.
+// K1 and K8: fused attention forward (causal or not, MHA or GQA) over dense
+// K/V or, in place, over a slot's KV pages, for Hopper.
 //
-// Replaces flash_attention_tpu/ops/flash_attention.py:_fwd_kernel, the Pallas
-// forward. Same function: S = Q K^T in fp32, an online exp2 softmax with
-// scale2 = sm_scale * log2(e), P V accumulated in fp32, the output normalised
-// by l (0 where l == 0), and optionally the base-2 LSE m + log2(l) (-inf
-// where l == 0). Causal masking is end-aligned: row i sees columns
-// j <= i + (kv_len - q_len). The kv head of q head h is h / group.
+// Replaces flash_attention_tpu/ops/flash_attention.py:_fwd_kernel (K1, the
+// Pallas forward) and flash_attention_tpu/ops/paged.py:_paged_prefill_kernel
+// (:580, K8, chunked-prefill attention reading K/V pages in place). Same
+// function: S = Q K^T in fp32, an online exp2 softmax with scale2 = sm_scale
+// * log2(e), P V accumulated in fp32, the output normalised by l (0 where
+// l == 0), and optionally the base-2 LSE m + log2(l) (-inf where l == 0).
+// Causal masking is end-aligned: row i sees columns j <= i + (kv_len -
+// q_len); for K8, kv_len is the chunk's kv_end and the chunk's rows sit at
+// positions [kv_end - q_len, kv_end). The kv head of q head h is h / group.
+//
+// One body serves both through a kv address policy (kv_tile below): the
+// 64-row kv tile starting at row n0 of (b, kv head h) is
+//   dense:  base + b * sb + h * sh + n0 * sr
+//   paged:  pages + clamp(table[n0 / page_size]) * sb + h * sh + (n0 % page_size) * sr
+// A tile never straddles a page (page_size is a multiple of 64), so the
+// table is read once a tile, and the page id is clamped into [0, num_pages).
 //
 // What bounds it on this card: at long kv the score and PV products are
 // O(q_len * kv_len * D) against O((q_len + kv_len) * D) bytes, so arithmetic
@@ -18,7 +29,8 @@
 //    4 query rows x 8 score columns of a 64 x 64 score tile and 4 rows x D/8
 //    output columns; the rows' m, l and accumulators stay in registers;
 //  * the block loops over 64-row kv tiles and stops at the causal diagonal
-//    of its last row, so tiles above the diagonal are never loaded;
+//    of its last row, so tiles (and pages) above the diagonal are never
+//    loaded;
 //  * K and V take turns in one fp32 shared tile (rows padded by one float
 //    against bank conflicts); P goes through shared memory for the PV step;
 //  * q, k and v are read through their batch, head and row strides, so a
@@ -39,10 +51,12 @@ struct FwdParams {
   const void* v;
   void* o;     // [B, Hq, Sq, D], contiguous
   float* lse;  // [B, Hq, Sq] or nullptr
+  const int32_t* table;  // paged: the slot's [pages_per_slot] row; dense: unused
   int64_t q_sb, q_sh, q_sr;
-  int64_t k_sb, k_sh, k_sr;
+  int64_t k_sb, k_sh, k_sr;  // paged: sb is the page stride
   int64_t v_sb, v_sh, v_sr;
   int num_q_heads, group, q_len, kv_len, causal;
+  int page_size, num_pages;
   float scale2;
 };
 
@@ -51,19 +65,31 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (BM * (D + 1) + BN * (D + 1) + BM * (BN + 1));
 }
 
-// Loads rows [n0, n0 + BN) of a [rows, D] matrix with row stride `sr` into
+// Loads BN rows of a matrix with row stride `sr`, starting at `src`, into
 // the fp32 tile `dst` (row pitch D + 1); rows at or past `n` read as 0.
 template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t sr, int n0,
-                                          int n, float scale) {
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t sr, int n,
+                                          float scale) {
   for (int i = threadIdx.x; i < BN * D; i += THREADS) {
     const int r = i / D, d = i % D;
-    const int row = n0 + r;
-    dst[r * (D + 1) + d] = row < n ? fat::to_float(src[row * sr + d]) * scale : 0.f;
+    dst[r * (D + 1) + d] = r < n ? fat::to_float(src[r * sr + d]) * scale : 0.f;
   }
 }
 
-template <typename T, int D>
+// The first row of the kv tile starting at row n0 of batch row b, kv head hk.
+template <typename T, bool PAGED>
+__device__ __forceinline__ const T* kv_tile(const FwdParams& p, const void* base, int64_t sb,
+                                            int64_t sh, int64_t sr, int b, int hk, int n0) {
+  const T* x = static_cast<const T*>(base) + hk * sh;
+  if constexpr (PAGED) {
+    const int phys = min(max(p.table[n0 / p.page_size], 0), p.num_pages - 1);
+    return x + phys * sb + (n0 % p.page_size) * sr;
+  } else {
+    return x + b * sb + n0 * sr;
+  }
+}
+
+template <typename T, int D, bool PAGED>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   constexpr int LD = D + 1;
   constexpr int LDP = BN + 1;
@@ -83,10 +109,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   const int diag = p.kv_len - p.q_len;
 
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  load_tile<T, D>(s_q, q + m0 * p.q_sr, p.q_sr, 0, p.q_len - m0, p.scale2);
+  load_tile<T, D>(s_q, q + m0 * p.q_sr, p.q_sr, p.q_len - m0, p.scale2);
 
   float m[ROWS], l[ROWS], acc[ROWS][DC];
 #pragma unroll
@@ -102,7 +126,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
 
   for (int n0 = 0; n0 < n_end; n0 += BN) {
     __syncthreads();  // the previous tile's V and P are no longer read
-    load_tile<T, D>(s_kv, k, p.k_sr, n0, p.kv_len, 1.f);
+    load_tile<T, D>(s_kv, kv_tile<T, PAGED>(p, p.k, p.k_sb, p.k_sh, p.k_sr, b, hk, n0), p.k_sr,
+                    p.kv_len - n0, 1.f);
     __syncthreads();
 
     float s[ROWS][COLS];
@@ -157,7 +182,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
       for (int j = 0; j < COLS; ++j) s_p[(ty * ROWS + i) * LDP + tx + COLS * j] = s[i][j];
     }
     __syncthreads();  // K is no longer read; P is complete
-    load_tile<T, D>(s_kv, v, p.v_sr, n0, p.kv_len, 1.f);
+    load_tile<T, D>(s_kv, kv_tile<T, PAGED>(p, p.v, p.v_sb, p.v_sh, p.v_sr, b, hk, n0), p.v_sr,
+                    p.kv_len - n0, 1.f);
     __syncthreads();
 
 #pragma unroll 4
@@ -189,6 +215,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   }
 }
 
+template <bool PAGED>
 struct FwdLaunch {
   FwdParams p;
   int64_t batch;
@@ -198,26 +225,21 @@ struct FwdLaunch {
   cudaError_t launch() const {
     constexpr size_t smem = smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        flash_fwd_kernel<T, D, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const dim3 grid((p.q_len + BM - 1) / BM, static_cast<unsigned>(batch * p.num_q_heads));
-    flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+    flash_fwd_kernel<T, D, PAGED><<<grid, THREADS, smem, stream>>>(p);
     return cudaGetLastError();
   }
 };
 
-}  // namespace
-
-// q [B, Hq, Sq, D], k and v [B, Hkv, Skv, D], each with unit stride on D and
-// the given batch / head / row strides (in elements); o [B, Hq, Sq, D]
-// contiguous; lse [B, Hq, Sq] fp32 or null. Returns a cudaError_t.
-extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                             int64_t batch, int64_t num_q_heads, int64_t num_kv_heads,
-                             int64_t q_len, int64_t kv_len, int64_t head_dim, int64_t q_sb,
-                             int64_t q_sh, int64_t q_sr, int64_t k_sb, int64_t k_sh, int64_t k_sr,
-                             int64_t v_sb, int64_t v_sh, int64_t v_sr, float scale2,
-                             int32_t causal, int32_t dtype, void* stream) {
-  FwdParams p;
+FwdParams make_params(const void* q, const void* k, const void* v, void* o, float* lse,
+                      int64_t num_q_heads, int64_t num_kv_heads, int64_t q_len, int64_t kv_len,
+                      int64_t q_sb, int64_t q_sh, int64_t q_sr, int64_t k_sb, int64_t k_sh,
+                      int64_t k_sr, int64_t v_sb, int64_t v_sh, int64_t v_sr, float scale2,
+                      int32_t causal) {
+  FwdParams p{};
   p.q = q;
   p.k = k;
   p.v = v;
@@ -238,7 +260,44 @@ extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* 
   p.kv_len = static_cast<int>(kv_len);
   p.causal = causal;
   p.scale2 = scale2;
-  const FwdLaunch launcher{p, batch, static_cast<cudaStream_t>(stream)};
+  return p;
+}
+
+}  // namespace
+
+// K1. q [B, Hq, Sq, D], k and v [B, Hkv, Skv, D], each with unit stride on D
+// and the given batch / head / row strides (in elements); o [B, Hq, Sq, D]
+// contiguous; lse [B, Hq, Sq] fp32 or null. Returns a cudaError_t.
+extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                             int64_t batch, int64_t num_q_heads, int64_t num_kv_heads,
+                             int64_t q_len, int64_t kv_len, int64_t head_dim, int64_t q_sb,
+                             int64_t q_sh, int64_t q_sr, int64_t k_sb, int64_t k_sh, int64_t k_sr,
+                             int64_t v_sb, int64_t v_sh, int64_t v_sr, float scale2,
+                             int32_t causal, int32_t dtype, void* stream) {
+  const FwdParams p = make_params(q, k, v, o, lse, num_q_heads, num_kv_heads, q_len, kv_len, q_sb,
+                                  q_sh, q_sr, k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, scale2, causal);
+  const FwdLaunch<false> launcher{p, batch, static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(fat::dispatch(dtype, head_dim, launcher));
+}
+
+// K8. q [1, Hq, T, D] with unit stride on D; k and v pages [num_pages, Hkv,
+// page_size, D] with unit stride on D and the given page / head / row
+// strides; table the slot's [pages_per_slot] int32 row; causal over
+// kv_end rows, the chunk's rows at [kv_end - T, kv_end); o [1, Hq, T, D]
+// contiguous. page_size must be a multiple of 64. Returns a cudaError_t.
+extern "C" int fat_paged_prefill(const void* q, const void* k, const void* v, void* o,
+                                 const int32_t* table, int64_t num_q_heads, int64_t num_kv_heads,
+                                 int64_t num_pages, int64_t page_size, int64_t q_len,
+                                 int64_t kv_end, int64_t head_dim, int64_t q_sh, int64_t q_sr,
+                                 int64_t k_sp, int64_t k_sh, int64_t k_sr, int64_t v_sp,
+                                 int64_t v_sh, int64_t v_sr, float scale2, int32_t dtype,
+                                 void* stream) {
+  FwdParams p = make_params(q, k, v, o, nullptr, num_q_heads, num_kv_heads, q_len, kv_end, 0, q_sh,
+                            q_sr, k_sp, k_sh, k_sr, v_sp, v_sh, v_sr, scale2, 1);
+  p.table = table;
+  p.page_size = static_cast<int>(page_size);
+  p.num_pages = static_cast<int>(num_pages);
+  const FwdLaunch<true> launcher{p, 1, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(fat::dispatch(dtype, head_dim, launcher));
 }
 

@@ -1,16 +1,18 @@
 """GQA attention layer with a decode KV cache, built on the port's kernels.
 
-Counterpart of ``flash_attention_tpu/models/attention.py``: prefill runs
-through ``ops.flash_attention`` (K1, causal) and decode through
-``ops.decode.decode_attention`` (K6). The functional surface is kept (params
-dict and cache in, new cache out) so the tests compare like with like, but
-the cache's K/V buffers are updated IN PLACE: a fresh multi-GiB cache per
-step is what JAX's buffer donation avoids, and in-place writes are how
-PyTorch avoids it. Lengths are replaced, not mutated, so a caller holding an
-old cache tuple still sees its old lengths.
+Counterpart of ``flash_attention_tpu/models/attention.py``. Over the dense
+cache, prefill runs through ``ops.flash_attention`` (K1, causal) and decode
+through ``ops.decode.decode_attention`` (K6); over the paged cache
+(``ops/paged.py``), chunked prefill through K8 and decode through K7 with
+the deferred write (K10 after the layer stack). The functional surface is
+kept (params dict and cache in, new cache out) so the tests compare like
+with like, but the caches' K/V buffers are updated IN PLACE: a fresh
+multi-GiB cache per step is what JAX's buffer donation avoids, and in-place
+writes are how PyTorch avoids it. Lengths are replaced, not mutated, so a
+caller holding an old cache tuple still sees its old lengths.
 
-The slice covers the dense bf16/fp16/fp32 cache; the configurations it does
-not implement raise NotImplementedError naming their ROADMAP.md item.
+The port covers bf16/fp16/fp32 caches; the configurations it does not
+implement raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -22,8 +24,17 @@ from typing import NamedTuple
 import torch
 
 from flash_attention_tpu_torch.models.rope import apply_rope
+from flash_attention_tpu_torch.ops.common import LOG2E
 from flash_attention_tpu_torch.ops.decode import decode_attention
 from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+from flash_attention_tpu_torch.ops.merge import merge_two
+from flash_attention_tpu_torch.ops.paged import (
+    PagedKVCache,
+    paged_decode_attention,
+    paged_prefill_attention,
+    paged_write_prefill,
+    paged_write_tokens,
+)
 
 _QUANT_ITEM = "ROADMAP.md queue 1 item 2 (KV and weight quantization)"
 _MASK_ITEM = "ROADMAP.md queue 1 item 3 (window, softcap, rolling cache and sinks)"
@@ -209,3 +220,67 @@ def attention_decode(params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCac
     cache = write_cache(cfg, cache, k, v, cache.lengths)
     o = decode_attention(q[:, :, 0, :], cache.k, cache.v, cache.lengths)
     return _output_proj_decode(params, o, x.dtype), cache
+
+
+def attention_prefill_paged(params, cfg: AttentionConfig, x: torch.Tensor, paged_cache: PagedKVCache, slot: int, true_len):
+    """Causal prefill of ONE sequence ([1, T, model_dim], T a multiple of the
+    page size) writing its K/V into ``slot``'s pages.
+
+    Returns (output [1, T, model_dim], updated cache).
+    """
+    _, t, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x, torch.arange(t, device=x.device)[None, None, :])
+    o = flash_attention(q, k, v, causal=True)
+    out = _output_proj(params, o, x.dtype)
+    return out, paged_write_prefill(paged_cache, k[0], v[0], slot, true_len)
+
+
+def attention_prefill_chunk_paged(
+    params, cfg: AttentionConfig, x: torch.Tensor, paged_cache: PagedKVCache, slot: int, start: int, kv_end: int
+):
+    """Chunked prefill over a paged cache: one chunk ([1, T, model_dim], T a
+    page multiple) of one sequence, attending the slot's rows [0, kv_end)
+    (start + T == kv_end; host integers). Returns (output, updated cache)."""
+    _, t, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x, start + torch.arange(t, device=x.device)[None, None, :])
+    paged_cache = paged_write_prefill(paged_cache, k[0], v[0], slot, start + t, start=start)
+    # K8 reads the slot's pages in place, up to the chunk's diagonal.
+    o = paged_prefill_attention(q, paged_cache, slot, kv_end, chunk_len=t)
+    return _output_proj(params, o, x.dtype), paged_cache
+
+
+def attention_decode_paged_deferred(params, cfg: AttentionConfig, x: torch.Tensor, paged_cache: PagedKVCache):
+    """Decode-step attention WITHOUT the cache write.
+
+    K7 attends over the cache as it is (the new token is not in it yet, so
+    ``lengths`` excludes it and may be 0), and the token's self term, score
+    q·k_new in fp32 and output v_new, is folded in with ``merge_two`` in the
+    base-2 LSE domain. The caller writes every layer's (k_new, v_new) in one
+    ``paged_write_tokens_multi`` launch after the layer stack.
+
+    Returns (output [num_slots, 1, model_dim], (k_new, v_new) each
+    [num_slots, kv_heads, head_dim]).
+    """
+    q, k, v = _project_qkv(params, cfg, x, paged_cache.lengths[:, None, None])
+    q1, k1, v1 = q[:, :, 0, :], k[:, :, 0, :], v[:, :, 0, :]
+    o_c, lse_c = paged_decode_attention(q1, paged_cache, save_residuals=True)
+    group = cfg.num_q_heads // cfg.num_kv_heads
+    k_exp = k1.repeat_interleave(group, dim=1)  # [n, Hq, D]
+    v_exp = v1.repeat_interleave(group, dim=1)
+    s_raw = (q1.float() * k_exp.float()).sum(dim=-1)  # [n, Hq]
+    lse_self = s_raw * (1.0 / math.sqrt(cfg.head_dim)) * LOG2E  # a single score's LSE is the score
+    o, _ = merge_two(o_c, lse_c, v_exp, lse_self)
+    return _output_proj_decode(params, o, x.dtype), (k1, v1)
+
+
+def attention_decode_paged(params, cfg: AttentionConfig, x: torch.Tensor, paged_cache: PagedKVCache):
+    """One write-first decode step over [num_slots, 1, model_dim]: every
+    slot's new K/V row goes to its current length (K9), then K7 attends.
+
+    Returns (output [num_slots, 1, model_dim], updated cache).
+    """
+    q, k, v = _project_qkv(params, cfg, x, paged_cache.lengths[:, None, None])
+    slots = torch.arange(x.shape[0], device=x.device)
+    paged_cache = paged_write_tokens(paged_cache, k[:, :, 0, :], v[:, :, 0, :], slots)
+    o = paged_decode_attention(q[:, :, 0, :], paged_cache)
+    return _output_proj_decode(params, o, x.dtype), paged_cache

@@ -22,8 +22,9 @@ def _tensor(leaf, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)  # a writable copy
 
 
-def params_from_jax(tree, *, device: str | torch.device = "cpu"):
-    """The same tree with every array leaf as a torch tensor on ``device``."""
+def params_from_jax(tree, *, device: str | torch.device = "cuda"):
+    """The same tree with every array leaf as a torch tensor on ``device``
+    (the card by default; the CPU parity tests pass ``device="cpu"``)."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device=device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -1,9 +1,11 @@
 """LLaMA-class decoder-only transformer built on the port's attention layer.
 
 Counterpart of ``flash_attention_tpu/models/transformer.py`` for the serving
-path: ``prefill``, ``prefill_chunk``, ``decode_step_logits`` and
-``decode_step`` over a params dict with the JAX package's tree and shapes
-(``models/convert.py`` maps one onto the other). The embedding is tied.
+paths: ``prefill``, ``prefill_chunk``, ``decode_step_logits`` and
+``decode_step`` over dense caches, and their ``*_paged`` twins over the
+paged model cache (``ops/paged.PagedModelCache``), with a params dict of
+the JAX package's tree and shapes (``models/convert.py`` maps one onto the
+other). The embedding is tied.
 
 Matmuls stay ``torch.matmul`` / ``einsum``, as the JAX package left them to
 XLA. One numerical difference: where JAX asks XLA for fp32 products of bf16
@@ -23,12 +25,16 @@ from flash_attention_tpu_torch.models.attention import (
     AttentionConfig,
     _normal,
     attention_decode,
+    attention_decode_paged_deferred,
     attention_prefill,
     attention_prefill_chunk,
+    attention_prefill_chunk_paged,
+    attention_prefill_paged,
     init_attention_params,
     init_kv_cache,
     require_supported,
 )
+from flash_attention_tpu_torch.ops.paged import PagedModelCache, init_paged_model_cache, paged_write_tokens_multi
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,3 +184,77 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list):
     """One greedy decode step: tokens [B, 1] -> (next_tokens [B, 1], caches)."""
     logits, caches = forward(params, cfg, tokens, caches, decode=True)
     return torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32), caches
+
+
+def init_paged_caches(
+    cfg: ModelConfig, *, num_pages: int, num_slots: int, pages_per_slot: int, page_size: int = 128, device="cuda"
+) -> PagedModelCache:
+    """The model's zeroed PagedModelCache on ``device`` (the card by
+    default): one [num_layers, num_pages, ...] pool per K and V, one page
+    table and one lengths tensor, so K10 writes every layer in one launch.
+    (The JAX package returns one PagedKVCache per layer; ``.layers()``
+    gives those views.)"""
+    return init_paged_model_cache(
+        cfg.num_layers, num_pages=num_pages, num_slots=num_slots, pages_per_slot=pages_per_slot,
+        kv_heads=cfg.num_kv_heads, page_size=page_size, head_dim=cfg.head_dim, dtype=cfg.torch_dtype,
+        kv_quant=cfg.kv_quant, device=device,
+    )
+
+
+def _trunk_paged(params, cfg: ModelConfig, tokens: torch.Tensor, attn_fn, cache: PagedModelCache):
+    """``_trunk`` over the model cache's layer views. Every layer's write
+    sets the same lengths, so the last layer's are the model's."""
+    logits, layers = _trunk(params, cfg, tokens, attn_fn, cache.layers())
+    return logits, cache._replace(lengths=layers[-1].lengths)
+
+
+def prefill_paged(params, cfg: ModelConfig, tokens: torch.Tensor, cache: PagedModelCache, slot: int, true_len):
+    """Prefill ONE sequence ([1, T] tokens, T a page multiple) into its slot's
+    pages. Returns (logits [1, T, vocab], updated cache)."""
+    return _trunk_paged(
+        params, cfg, tokens, lambda p, acfg, h, c: attention_prefill_paged(p, acfg, h, c, slot, true_len), cache
+    )
+
+
+def prefill_chunk_paged(
+    params, cfg: ModelConfig, tokens: torch.Tensor, cache: PagedModelCache, slot: int, start: int, kv_end: int
+):
+    """Chunked prefill over the paged cache: [1, T] tokens at positions
+    [start, start+T), T a page multiple, start + T == kv_end (host ints).
+    Returns (logits [1, T, vocab], updated cache)."""
+    return _trunk_paged(
+        params, cfg, tokens,
+        lambda p, acfg, h, c: attention_prefill_chunk_paged(p, acfg, h, c, slot, start, kv_end),
+        cache,
+    )
+
+
+def decode_step_logits_paged(params, cfg: ModelConfig, tokens: torch.Tensor, cache: PagedModelCache):
+    """One paged decode step returning raw last-position logits [S, vocab].
+
+    The deferred-write path: every layer attends over the cache as it is,
+    with the current token's self term merged in
+    (``attention_decode_paged_deferred``, K7), and ALL layers' K/V rows land
+    in one ``paged_write_tokens_multi`` launch (K10) after the layer stack.
+    (The JAX package keeps a write-first path for sliding_window <= 1; the
+    port has no sliding window yet, so it has no such branch.)
+    """
+    k_rows, v_rows = [], []
+
+    def attn(lp, acfg, h, layer):
+        out, (k, v) = attention_decode_paged_deferred(lp, acfg, h, layer)
+        k_rows.append(k)
+        v_rows.append(v)
+        return out, layer
+
+    logits, _ = _trunk(params, cfg, tokens, attn, cache.layers())
+    slots = torch.arange(tokens.shape[0], device=tokens.device)
+    cache = paged_write_tokens_multi(cache, torch.stack(k_rows), torch.stack(v_rows), slots)
+    return logits[:, -1, :], cache
+
+
+def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor, cache: PagedModelCache):
+    """One greedy decode step over all slots ([S, 1] tokens) against the
+    paged cache. Returns (next_tokens [S, 1], updated cache)."""
+    logits, cache = decode_step_logits_paged(params, cfg, tokens, cache)
+    return torch.argmax(logits[:, None, :], dim=-1).to(torch.int32), cache

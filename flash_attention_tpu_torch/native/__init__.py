@@ -70,7 +70,8 @@ def load() -> ctypes.CDLL:
             path = build_shared(
                 "libfat_native",
                 [SRC_DIR / s for s in _SOURCES],
-                ["g++", "-O2", "-std=c++17", "-shared", "-fPIC"],
+                ["g++", "-O2", "-std=c++17", "-fPIC"],
+                ["g++", "-shared"],
             )
             lib = ctypes.CDLL(str(path))
             _declare(lib)

@@ -1,10 +1,11 @@
 """Build the port's native code at first use, and bind it with ctypes.
 
-The CUDA kernels (``csrc/*.cu``) compile with nvcc into one shared library
-with a plain C interface; the C++ scheduler compiles with g++
-(``native/__init__.py``). Both land in ``flash_attention_tpu_torch/_build/``,
-keyed by a hash of their sources and command, so an edited source rebuilds
-and an unchanged one loads at once. Nothing is built when a module is
+The CUDA kernels (``csrc/*.cu``) compile with nvcc, one process per source
+file, all started together, and link into one shared library with a plain C
+interface; the C++ scheduler compiles with g++ (``native/__init__.py``).
+Both land in ``flash_attention_tpu_torch/_build/``, keyed by a hash of their
+sources and commands, so an edited source rebuilds and an unchanged one
+loads at once. Nothing is built when a module is
 imported: ``kernels()`` runs on the first CUDA launch.
 
 Each C entry returns ``cudaGetLastError()`` after its launch; ``check``
@@ -28,10 +29,7 @@ import torch
 PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 # Element types the kernels are instantiated for, by csrc/common.cuh's codes;
 # head_dim is instantiated for 32, 64 and 128.
@@ -42,33 +40,37 @@ _LOCK = threading.Lock()
 _KERNELS: ctypes.CDLL | None = None
 
 
-def build_shared(stem: str, sources, command, *, headers=()) -> pathlib.Path:
-    """Compile ``sources`` with ``command + sources + ['-o', out]`` into
-    BUILD_DIR unless a library of the same sources and command exists."""
+def build_shared(stem: str, sources, compile_cmd, link_cmd, *, headers=()) -> pathlib.Path:
+    """Compile each of ``sources`` with ``compile_cmd + ['-c', src, '-o',
+    obj]``, all at once in parallel, and link the objects with ``link_cmd``
+    into a shared library in BUILD_DIR, unless a library of the same
+    sources, headers and commands exists."""
     digest = hashlib.sha256()
     for p in [*sources, *headers]:
         digest.update(p.name.encode() + b"\0" + p.read_bytes() + b"\0")
-    digest.update(" ".join(command).encode())
+    digest.update(" ".join([*compile_cmd, "|", *link_cmd]).encode())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
-    # Build into a temporary name in the same directory, then rename: the
+    # Build in a temporary directory beside the library, then rename: the
     # publish is atomic, so a concurrent process never loads a partial file.
-    fd, tmp_name = tempfile.mkstemp(prefix=out.stem + ".", suffix=".tmp.so", dir=BUILD_DIR)
-    os.close(fd)
-    tmp = pathlib.Path(tmp_name)
-    try:
-        cmd = [*command, *[str(p) for p in sources], "-o", str(tmp)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode:
-            raise RuntimeError(
-                f"build of {stem} failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}{res.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        tmp.unlink(missing_ok=True)
+    with tempfile.TemporaryDirectory(prefix=out.stem + ".", dir=BUILD_DIR) as tmp_dir:
+        tmp = pathlib.Path(tmp_dir)
+        objs = [tmp / f"{src.stem}.o" for src in sources]
+        procs = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for cmd in ([*compile_cmd, "-c", str(src), "-o", str(obj)] for src, obj in zip(sources, objs))
+        ]
+        results = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+        link = [*link_cmd, *map(str, objs), "-o", str(tmp / out.name)]
+        if all(rc == 0 for _, _, rc in results):
+            res = subprocess.run(link, capture_output=True, text=True)
+            results.append((link, res.stdout + res.stderr, res.returncode))
+        for cmd, output, rc in results:
+            if rc:
+                raise RuntimeError(f"build of {stem} failed ({rc}): {' '.join(cmd)}\n{output}")
+        os.replace(tmp / out.name, out)
     return out
 
 
@@ -94,12 +96,33 @@ def _declare(lib: ctypes.CDLL) -> None:
         i64, i64, i64, i64, i64, i64, i64, i64, i64,  # q/k/v strides
         f32, i32, i32, ptr,  # scale2, causal, dtype, stream
     ]
+    lib.fat_paged_prefill.restype = c.c_int
+    lib.fat_paged_prefill.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,  # q, k pages, v pages, o, table row
+        i64, i64, i64, i64, i64, i64, i64,  # Hq, Hkv, num_pages, page_size, T, kv_end, D
+        i64, i64, i64, i64, i64, i64, i64, i64,  # q/k/v strides
+        f32, i32, ptr,  # scale2, dtype, stream
+    ]
     lib.fat_decode.restype = c.c_int
     lib.fat_decode.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,  # q, k, v, o, lengths
+        ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, o, lse, lengths
         i64, i64, i64, i64, i64,  # batch, Hq, Hkv, max_seq, D
         i64, i64, i64, i64, i64, i64, i64, i64,  # q/k/v strides
         f32, i32, ptr,  # scale2, dtype, stream
+    ]
+    lib.fat_paged_decode.restype = c.c_int
+    lib.fat_paged_decode.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k pages, v pages, o, lse, lengths, table
+        i64, i64, i64, i64, i64, i64, i64,  # slots, Hq, Hkv, num_pages, page_size, pages_per_slot, D
+        i64, i64, i64, i64, i64, i64, i64, i64,  # q/k/v strides
+        f32, i32, ptr,  # scale2, dtype, stream
+    ]
+    lib.fat_paged_write.restype = c.c_int
+    lib.fat_paged_write.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # k/v new, k/v pool, lengths, table, slots, valid
+        i64, i64, i64, i64,  # layers, n, heads, row bytes
+        i64, i64, i64,  # num_pages, page_size, pages_per_slot
+        i64, i64, i64, i64, ptr,  # pool byte strides (layer, page, head, row), stream
     ]
     lib.fat_error_string.restype = c.c_char_p
     lib.fat_error_string.argtypes = [c.c_int]
@@ -114,6 +137,7 @@ def kernels() -> ctypes.CDLL:
                 "libfat_kernels",
                 sorted(CSRC_DIR.glob("*.cu")),
                 [nvcc(), *NVCC_FLAGS],
+                [nvcc(), "-shared"],
                 headers=sorted(CSRC_DIR.glob("*.cuh")),
             )
             lib = ctypes.CDLL(str(path))

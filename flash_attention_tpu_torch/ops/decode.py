@@ -9,8 +9,10 @@ about it is written at the top of csrc/decode.cu.
 CUDA kernel for CUDA tensors; there is no fallback from one to the other.
 ``decode_attention.launches`` counts kernel launches.
 
-Quantized caches, sliding window, softcap, ring buffer, attention sinks, the
-LSE output and ``decode_attention_split`` are queued in ROADMAP.md.
+``save_residuals`` also returns the base-2 LSE, which the kernel body shares
+with the paged decode K7 (ops/paged.py). Quantized caches, sliding window,
+softcap, ring buffer, attention sinks and ``decode_attention_split`` are
+queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -30,10 +32,11 @@ def decode_attention_plain(
     lengths: torch.Tensor,
     *,
     sm_scale: float,
-) -> torch.Tensor:
+    save_residuals: bool = False,
+):
     """The function K6 computes, in plain fp32 PyTorch: each row of q
-    attends to rows [0, lengths[b]) of its kv head's cache; output 0 where
-    lengths[b] == 0."""
+    attends to rows [0, lengths[b]) of its kv head's cache; output 0 (and
+    base-2 LSE -inf) where lengths[b] == 0."""
     batch, num_q_heads, head_dim = q.shape
     num_kv_heads, max_seq = k_cache.shape[1], k_cache.shape[2]
     group = num_q_heads // num_kv_heads
@@ -45,8 +48,11 @@ def decode_attention_plain(
     p = torch.exp2(s2 - m)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float())
-    out = torch.where(l == 0, 0.0, acc / l)
-    return out.reshape(batch, num_q_heads, head_dim).to(q.dtype)
+    out = torch.where(l == 0, 0.0, acc / l).reshape(batch, num_q_heads, head_dim).to(q.dtype)
+    if not save_residuals:
+        return out
+    lse = torch.where(l == 0, -torch.inf, m + torch.log2(l))
+    return out, lse.reshape(batch, num_q_heads)
 
 
 def decode_attention(
@@ -56,7 +62,8 @@ def decode_attention(
     lengths: torch.Tensor,
     *,
     sm_scale: float | None = None,
-) -> torch.Tensor:
+    save_residuals: bool = False,
+):
     """Single-token decode attention over a dense KV cache.
 
     Args:
@@ -65,9 +72,11 @@ def decode_attention(
         and row strides); q_heads % kv_heads == 0.
       lengths: [batch] integer — valid KV prefix per sequence (the new
         token's K/V must already be written at position lengths - 1).
+      save_residuals: also return the base-2 LSE [batch, q_heads] fp32
+        (-inf where lengths == 0).
 
     Returns:
-      [batch, q_heads, head_dim] in q's dtype.
+      [batch, q_heads, head_dim] in q's dtype, plus the LSE if asked.
     """
     if q.ndim != 3 or k_cache.ndim != 4:
         raise ValueError("expected q [batch, heads, head_dim] and a [batch, heads, seq, head_dim] cache")
@@ -84,7 +93,9 @@ def decode_attention(
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(head_dim)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, lengths, sm_scale=sm_scale)
+        return decode_attention_plain(
+            q, k_cache, v_cache, lengths, sm_scale=sm_scale, save_residuals=save_residuals
+        )
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda tensors, got {q.device}")
 
@@ -94,12 +105,16 @@ def decode_attention(
     q, k_cache, v_cache = (_build.unit_last_stride(x) for x in (q, k_cache, v_cache))
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty((batch, num_q_heads, head_dim), dtype=q.dtype, device=q.device)
+    lse = (
+        torch.empty((batch, num_q_heads), dtype=torch.float32, device=q.device)
+        if save_residuals else None
+    )
     if out.numel():
         lib = _build.kernels()
         with torch.cuda.device(q.device):
             err = lib.fat_decode(
                 q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-                lengths.data_ptr(), batch, num_q_heads, num_kv_heads, max_seq, head_dim,
+                None if lse is None else lse.data_ptr(), lengths.data_ptr(), batch, num_q_heads, num_kv_heads, max_seq, head_dim,
                 q.stride(0), q.stride(1),
                 k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
                 v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
@@ -108,7 +123,7 @@ def decode_attention(
             )
         _build.check(err, "decode_attention (K6)")
         decode_attention.launches += 1
-    return out
+    return (out, lse) if save_residuals else out
 
 
 decode_attention.launches = 0

@@ -1,0 +1,389 @@
+"""Paged KV cache: kernels K7, K8 and K9/K10 and their plain versions.
+
+Counterpart of ``flash_attention_tpu/ops/paged.py``. KV lives in fixed-size
+pages ``[num_pages, kv_heads, page_size, head_dim]``; a slot's
+``page_table`` row maps its logical pages to physical ones, and ``lengths``
+counts its valid rows.
+
+  * ``paged_decode_attention`` — K7 (csrc/decode.cu, the body K6 uses, read
+    through the page table), replacing ``_paged_decode_kernel_hb`` (:980)
+    and ``_paged_decode_kernel`` (:1104); output and base-2 LSE.
+  * ``paged_prefill_attention`` — K8 (csrc/flash_fwd.cu, the body K1 uses,
+    read through the page table), replacing ``_paged_prefill_kernel``
+    (:580): causal chunk attention over the slot's pages in place.
+  * ``paged_write_tokens_multi`` — K9/K10 (csrc/paged_write.cu), replacing
+    ``_make_multi_write_kernel`` (:257) and, as its one-layer case through
+    ``paged_write_tokens``, ``_write_rows_kernel`` (:130).
+
+Each wrapper runs its plain PyTorch version for CPU tensors and its CUDA
+kernel for CUDA tensors, with no fallback from one to the other, and counts
+kernel launches in ``.launches``. Page ids are clamped into
+``[0, num_pages)`` everywhere, as the JAX package's index maps clamp them:
+a released slot's table points at dump page 0 while its lane still rides in
+the batched decode step.
+
+A model's layers live in one ``PagedModelCache``: one ``[num_layers,
+num_pages, ...]`` pool per K and V, one page table and one lengths tensor,
+so K10 writes every layer in one launch; each layer's ``PagedKVCache``
+holds views of it. Pages and the page table are updated in place;
+``lengths`` is replaced, not mutated (as in the dense cache). Quantized
+pages are queued in ROADMAP.md (queue 1 item 2); sliding window, softcap
+and sinks in item 3.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from flash_attention_tpu_torch.ops import _build
+from flash_attention_tpu_torch.ops.common import LOG2E
+from flash_attention_tpu_torch.ops.decode import decode_attention_plain
+from flash_attention_tpu_torch.ops.flash_attention import flash_attention_plain
+
+QUANT_ITEM = "ROADMAP.md queue 1 item 2 (KV and weight quantization)"
+# The kernels read a page in runs of rows that must not straddle it: K8 in
+# 64-row kv tiles, K7 in 4-row runs.
+KERNEL_PAGE_MULTIPLE = 64
+
+
+class PagedKVCache(NamedTuple):
+    """Paged KV storage of one layer.
+
+    k_pages, v_pages: [num_pages, kv_heads, page_size, head_dim].
+    page_table: [num_slots, pages_per_slot] int32 physical page per logical
+      page; entries past a slot's last page are unused.
+    lengths: [num_slots] int32 valid rows per slot.
+    """
+
+    k_pages: torch.Tensor
+    v_pages: torch.Tensor
+    page_table: torch.Tensor
+    lengths: torch.Tensor
+
+    @property
+    def page_size(self) -> int:
+        return self.k_pages.shape[2]
+
+    @property
+    def pages_per_slot(self) -> int:
+        return self.page_table.shape[1]
+
+
+class PagedModelCache(NamedTuple):
+    """Paged KV storage of every layer of a model: one pool per K and V,
+    and one page table and one lengths tensor that all layers share.
+
+    k_pool, v_pool: [num_layers, num_pages, kv_heads, page_size, head_dim].
+    page_table, lengths: as in PagedKVCache.
+    """
+
+    k_pool: torch.Tensor
+    v_pool: torch.Tensor
+    page_table: torch.Tensor
+    lengths: torch.Tensor
+
+    def layers(self) -> list[PagedKVCache]:
+        """Each layer's PagedKVCache: views of its pages, and the shared
+        table and lengths."""
+        return [
+            PagedKVCache(k, v, self.page_table, self.lengths)
+            for k, v in zip(self.k_pool.unbind(0), self.v_pool.unbind(0))
+        ]
+
+
+def init_paged_model_cache(
+    num_layers: int,
+    *,
+    num_pages: int,
+    num_slots: int,
+    pages_per_slot: int,
+    kv_heads: int,
+    page_size: int = 512,
+    head_dim: int = 128,
+    dtype: torch.dtype = torch.bfloat16,
+    kv_quant: str = "none",
+    device: str | torch.device = "cuda",
+) -> PagedModelCache:
+    """A zeroed PagedModelCache of ``num_layers`` layers on ``device`` (the
+    card by default)."""
+    if kv_quant != "none":
+        raise NotImplementedError(f"kv_quant={kv_quant!r} is not ported yet: {QUANT_ITEM}")
+    if dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"paged pages are float32, float16 or bfloat16, got {dtype}")
+    shape = (num_layers, num_pages, kv_heads, page_size, head_dim)
+    return PagedModelCache(
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros((num_slots, pages_per_slot), dtype=torch.int32, device=device),
+        torch.zeros((num_slots,), dtype=torch.int32, device=device),
+    )
+
+
+def init_paged_cache(**kwargs) -> PagedKVCache:
+    """One layer's zeroed cache (``init_paged_model_cache``'s keyword
+    arguments)."""
+    return init_paged_model_cache(1, **kwargs).layers()[0]
+
+
+def _clamped(table: torch.Tensor, num_pages: int) -> torch.Tensor:
+    return table.long().clamp(0, num_pages - 1)
+
+
+def _gather_slots(pages: torch.Tensor, table_rows: torch.Tensor) -> torch.Tensor:
+    """[S, n] page ids -> the pages as dense [S, kv_heads, n * page_size, D]."""
+    x = pages[_clamped(table_rows, pages.shape[0])]  # [S, n, H, page, D]
+    s, n, h, page, d = x.shape
+    return x.transpose(1, 2).reshape(s, h, n * page, d)
+
+
+def paged_gather_kv(cache: PagedKVCache, slot: int, kv_end: int, dtype=None):
+    """``slot``'s first ``kv_end`` rows (a page multiple) as dense
+    [1, kv_heads, kv_end, head_dim] K and V."""
+    if kv_end % cache.page_size:
+        raise ValueError(f"kv_end={kv_end} not a multiple of page_size {cache.page_size}")
+    rows = cache.page_table[slot : slot + 1, : kv_end // cache.page_size]
+    dtype = dtype or cache.k_pages.dtype
+    return _gather_slots(cache.k_pages, rows).to(dtype), _gather_slots(cache.v_pages, rows).to(dtype)
+
+
+def paged_write_prefill(
+    cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor, slot: int, true_len, start: int = 0
+) -> PagedKVCache:
+    """Write [kv_heads, T, head_dim] K/V rows (T a page multiple) at logical
+    positions [start, start + T) of ``slot`` (start a page multiple), in
+    place, and set ``lengths[slot] = true_len``. Returns the cache."""
+    page = cache.page_size
+    heads, t, d = k_new.shape
+    if t % page:
+        raise ValueError(f"prefill length {t} not a multiple of page_size {page}")
+    n = t // page
+    phys = _clamped(cache.page_table[slot, start // page : start // page + n], cache.k_pages.shape[0])
+    for pages, new in ((cache.k_pages, k_new), (cache.v_pages, v_new)):
+        pages[phys] = new.reshape(heads, n, page, d).transpose(0, 1).to(pages.dtype)
+    lengths = cache.lengths.clone()
+    lengths[slot] = true_len
+    return cache._replace(lengths=lengths)
+
+
+def paged_write_tokens_plain(cache: PagedModelCache, k_new, v_new, slots: torch.Tensor) -> torch.Tensor:
+    """The function K9/K10 computes, by index assignment: every layer's row
+    for listed slot i goes to its slot's next position, where the slot has
+    room for it; returns that ``valid`` [n] as int32."""
+    page = cache.k_pool.shape[3]
+    pos = cache.lengths[slots].long()
+    valid = pos < cache.page_table.shape[1] * page
+    keep = valid.nonzero()[:, 0]
+    pos = pos[keep]
+    phys = _clamped(cache.page_table[slots[keep], pos // page], cache.k_pool.shape[1])
+    for pool, new in ((cache.k_pool, k_new), (cache.v_pool, v_new)):
+        pool[:, phys, :, pos % page] = new[:, keep].transpose(0, 1).to(pool.dtype)  # [n_keep, L, H, D]
+    return valid.to(torch.int32)
+
+
+def _write_tokens_kernel(cache: PagedModelCache, k_new, v_new, slots: torch.Tensor) -> torch.Tensor:
+    num_layers, num_pages, heads, page, d = cache.k_pool.shape
+    _build.check_operands("paged_write_tokens_multi", d, cache.k_pool, cache.v_pool)
+    if cache.k_pool.stride() != cache.v_pool.stride() or cache.k_pool.stride(-1) != 1:
+        raise ValueError("the CUDA page write takes K and V pools of one layout with contiguous rows")
+    item = cache.k_pool.element_size()
+    k_new = k_new.to(cache.k_pool.dtype).contiguous()
+    v_new = v_new.to(cache.v_pool.dtype).contiguous()
+    if k_new.shape != (num_layers, slots.numel(), heads, d) or v_new.shape != k_new.shape:
+        raise ValueError(
+            f"new rows {tuple(k_new.shape)} / {tuple(v_new.shape)} != ({num_layers}, {slots.numel()}, {heads}, {d})"
+        )
+    strides = [s * item for s in cache.k_pool.stride()[:4]]
+    ptrs = [k_new, v_new, cache.k_pool, cache.v_pool]
+    if (d * item) % 16 or any(s % 16 for s in strides) or any(t.data_ptr() % 16 for t in ptrs):
+        raise ValueError("the CUDA page write copies 16-byte words: rows, strides and pointers must be 16-byte aligned")
+    table = cache.page_table.to(torch.int32).contiguous()
+    lengths = cache.lengths.to(torch.int32).contiguous()
+    slots32 = slots.to(torch.int32).contiguous()
+    valid = torch.empty(slots.shape, dtype=torch.int32, device=slots.device)
+    lib = _build.kernels()
+    with torch.cuda.device(slots.device):
+        err = lib.fat_paged_write(
+            k_new.data_ptr(), v_new.data_ptr(), cache.k_pool.data_ptr(), cache.v_pool.data_ptr(),
+            lengths.data_ptr(), table.data_ptr(), slots32.data_ptr(), valid.data_ptr(),
+            num_layers, slots.numel(), heads, d * item, num_pages, page, table.shape[1],
+            *strides, torch.cuda.current_stream(slots.device).cuda_stream,
+        )
+    _build.check(err, "paged_write_tokens_multi (K9/K10)")
+    paged_write_tokens_multi.launches += 1
+    return valid
+
+
+def paged_write_tokens_multi(cache: PagedModelCache, k_new: torch.Tensor, v_new: torch.Tensor, slots) -> PagedModelCache:
+    """Append ONE token of K/V per listed slot to EVERY layer's pages.
+
+    k_new, v_new: [num_layers, n, kv_heads, head_dim]; slots: [n] slot ids,
+    each at most once. A slot writes only where it has room (position <
+    pages_per_slot * page_size): a slot at capacity writes nothing and its
+    length stays. Pages are written in place; returns the cache with its
+    one lengths tensor advanced by one where the slot wrote.
+    """
+    device = cache.k_pool.device
+    slots = torch.as_tensor(slots, device=device).long()
+    if device.type == "cpu":
+        valid = paged_write_tokens_plain(cache, k_new, v_new, slots)
+    elif device.type == "cuda":
+        valid = (
+            _write_tokens_kernel(cache, k_new, v_new, slots) if slots.numel()
+            else torch.zeros((0,), dtype=torch.int32, device=device)
+        )
+    else:
+        raise ValueError(f"paged_write_tokens_multi runs on cpu or cuda tensors, got {device}")
+    return cache._replace(lengths=cache.lengths.index_add(0, slots, valid.to(cache.lengths.dtype)))
+
+
+paged_write_tokens_multi.launches = 0
+
+
+def paged_write_tokens(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor, slots) -> PagedKVCache:
+    """Append ONE token of K/V ([n, kv_heads, head_dim]) per listed slot at
+    its current length: ``paged_write_tokens_multi`` with one layer."""
+    one = PagedModelCache(cache.k_pages[None], cache.v_pages[None], cache.page_table, cache.lengths)
+    return cache._replace(lengths=paged_write_tokens_multi(one, k_new[None], v_new[None], slots).lengths)
+
+
+def _check_kernel_pages(what: str, cache: PagedKVCache, head_dim: int, *tensors) -> None:
+    _build.check_operands(what, head_dim, *tensors, cache.k_pages, cache.v_pages)
+    if cache.page_size % KERNEL_PAGE_MULTIPLE:
+        raise ValueError(f"{what}: the CUDA kernel takes page_size a multiple of {KERNEL_PAGE_MULTIPLE}, got {cache.page_size}")
+    if cache.page_table.dtype != torch.int32 or not cache.page_table.is_contiguous():
+        raise ValueError(f"{what}: the CUDA kernel takes a contiguous int32 page table")
+
+
+def paged_decode_attention_plain(q: torch.Tensor, cache: PagedKVCache, *, sm_scale: float, save_residuals: bool = False):
+    """The function K7 computes: the slots' pages gathered densely, then
+    the decode math of ``decode_attention_plain``."""
+    k = _gather_slots(cache.k_pages, cache.page_table)
+    v = _gather_slots(cache.v_pages, cache.page_table)
+    return decode_attention_plain(q, k, v, cache.lengths, sm_scale=sm_scale, save_residuals=save_residuals)
+
+
+def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache, *, sm_scale: float | None = None, save_residuals: bool = False):
+    """Single-token decode over the paged cache.
+
+    Args:
+      q: [num_slots, q_heads, head_dim] current-token queries of every slot;
+        q_heads % kv_heads == 0. Slot b attends its rows [0, lengths[b]).
+      save_residuals: also return the base-2 LSE [num_slots, q_heads] fp32
+        (-inf for a slot of length 0, whose output is 0).
+
+    Returns:
+      [num_slots, q_heads, head_dim] in q's dtype, plus the LSE if asked.
+    """
+    if q.ndim != 3:
+        raise ValueError("expected q [num_slots, q_heads, head_dim]")
+    num_slots, num_q_heads, head_dim = q.shape
+    num_pages, num_kv_heads, page, d = cache.k_pages.shape
+    if num_q_heads % num_kv_heads:
+        raise ValueError(f"q_heads={num_q_heads} % kv_heads={num_kv_heads} != 0")
+    if d != head_dim or cache.v_pages.shape != cache.k_pages.shape:
+        raise ValueError(f"q {tuple(q.shape)} / pages {tuple(cache.k_pages.shape)}, {tuple(cache.v_pages.shape)} mismatch")
+    if cache.page_table.shape[0] != num_slots or cache.lengths.shape != (num_slots,):
+        raise ValueError(f"{num_slots} query slots against a table of {tuple(cache.page_table.shape)}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(head_dim)
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, cache, sm_scale=sm_scale, save_residuals=save_residuals)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on cpu or cuda tensors, got {q.device}")
+
+    _check_kernel_pages("paged_decode_attention", cache, head_dim, q)
+    q = _build.unit_last_stride(q)
+    k_pages, v_pages = (_build.unit_last_stride(x) for x in (cache.k_pages, cache.v_pages))
+    lengths = cache.lengths.to(torch.int32).contiguous()
+    out = torch.empty((num_slots, num_q_heads, head_dim), dtype=q.dtype, device=q.device)
+    lse = torch.empty((num_slots, num_q_heads), dtype=torch.float32, device=q.device) if save_residuals else None
+    if out.numel():
+        lib = _build.kernels()
+        with torch.cuda.device(q.device):
+            err = lib.fat_paged_decode(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), lengths.data_ptr(), cache.page_table.data_ptr(),
+                num_slots, num_q_heads, num_kv_heads, num_pages, page, cache.pages_per_slot, head_dim,
+                q.stride(0), q.stride(1), *k_pages.stride()[:3], *v_pages.stride()[:3],
+                sm_scale * LOG2E, _build.DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        _build.check(err, "paged_decode_attention (K7)")
+        paged_decode_attention.launches += 1
+    return (out, lse) if save_residuals else out
+
+
+paged_decode_attention.launches = 0
+
+
+def paged_prefill_attention_plain(q: torch.Tensor, cache: PagedKVCache, slot: int, kv_end: int, *, sm_scale: float):
+    """The function K8 computes: the slot's first kv_end rows gathered
+    densely, then causal ``flash_attention_plain``, end-aligned."""
+    n = -(-kv_end // cache.page_size)
+    rows = cache.page_table[slot : slot + 1, :n]
+    k = _gather_slots(cache.k_pages, rows)[:, :, :kv_end]
+    v = _gather_slots(cache.v_pages, rows)[:, :, :kv_end]
+    return flash_attention_plain(q, k, v, causal=True, sm_scale=sm_scale, save_residuals=False)
+
+
+def paged_prefill_attention(
+    q: torch.Tensor, cache: PagedKVCache, slot: int, kv_end: int, *, chunk_len: int, sm_scale: float | None = None
+) -> torch.Tensor:
+    """Causal chunk attention over ``slot``'s pages, read in place.
+
+    Args:
+      q: [1, q_heads, chunk_len, head_dim], the chunk whose rows sit at
+        positions [kv_end - chunk_len, kv_end); its own K/V must already be
+        written to the slot's pages.
+      slot, kv_end: host integers; kv_end is the exclusive end of the
+        visible rows, at least chunk_len and at most the slot's capacity.
+      chunk_len: any length (the JAX package's Pallas grid needs a
+        multiple of 128; K8 tiles q in 64-row blocks bounded by T).
+
+    Returns:
+      [1, q_heads, chunk_len, head_dim] in q's dtype.
+    """
+    _, num_q_heads, t, head_dim = q.shape
+    num_pages, num_kv_heads, page, _ = cache.k_pages.shape
+    if t != chunk_len:
+        raise ValueError(f"q chunk length {t} != chunk_len {chunk_len}")
+    if num_q_heads % num_kv_heads:
+        raise ValueError(f"q_heads={num_q_heads} % kv_heads={num_kv_heads} != 0")
+    kv_end = int(kv_end)
+    if kv_end < chunk_len:
+        raise ValueError(
+            f"kv_end={kv_end} < chunk_len={chunk_len}: the chunk's rows occupy "
+            "[kv_end - chunk_len, kv_end), which must not be negative"
+        )
+    if kv_end > cache.pages_per_slot * page:
+        raise ValueError(f"kv_end={kv_end} exceeds slot capacity {cache.pages_per_slot} pages x {page} rows")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(head_dim)
+    if q.device.type == "cpu":
+        return paged_prefill_attention_plain(q, cache, slot, kv_end, sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_prefill_attention runs on cpu or cuda tensors, got {q.device}")
+
+    _check_kernel_pages("paged_prefill_attention", cache, head_dim, q)
+    q = _build.unit_last_stride(q)
+    k_pages, v_pages = (_build.unit_last_stride(x) for x in (cache.k_pages, cache.v_pages))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if out.numel():
+        lib = _build.kernels()
+        with torch.cuda.device(q.device):
+            err = lib.fat_paged_prefill(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+                cache.page_table[slot].data_ptr(), num_q_heads, num_kv_heads, num_pages, page, t,
+                kv_end, head_dim, q.stride(1), q.stride(2), *k_pages.stride()[:3], *v_pages.stride()[:3],
+                sm_scale * LOG2E, _build.DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        _build.check(err, "paged_prefill_attention (K8)")
+        paged_prefill_attention.launches += 1
+    return out
+
+
+paged_prefill_attention.launches = 0

@@ -16,7 +16,6 @@ import time
 import numpy as np
 import torch
 
-from flash_attention_tpu_torch.models.transformer import prefill_chunk
 from flash_attention_tpu_torch.serving.sampling import sample_tokens
 
 
@@ -44,22 +43,27 @@ def start_prefill(eng, req, slot: int) -> None:
 
 def advance_prefill(eng, slot: int, out) -> None:
     """Run ONE chunk of the pending prefill on ``slot``; after the last
-    chunk, fix the slot's true length and sample its first token."""
-    from flash_attention_tpu_torch.serving.engine import Completion, _set_slot_length
+    chunk, fix the slot's true length and sample its first token.
+
+    The engine-specific pieces are hooks on ``eng``, as in the JAX loop:
+    ``_prefill_chunk_step`` (dense or paged chunk), ``_set_slot_length_fn``
+    and ``_on_slot_finished`` (the paged engine releases the slot's pages).
+    """
+    from flash_attention_tpu_torch.serving.engine import Completion
 
     st = eng._prefills[slot]
     c = st.next_chunk
     lo = c * eng.chunk
     hi = min((c + 1) * eng.chunk, len(st.padded))
     toks = torch.as_tensor(st.padded[None, lo:hi], device=eng.device)
-    logits, eng.caches = prefill_chunk(eng.params, eng.cfg, toks, eng.caches, slot, lo, hi)
+    logits, eng.caches = eng._prefill_chunk_step(eng.params, toks, eng.caches, slot, lo, hi)
     st.next_chunk += 1
     eng.events.append(("chunk", slot))
     if st.next_chunk * eng.chunk < len(st.padded):
         return
     req = st.req
     true_len = len(req.prompt)
-    eng.caches = _set_slot_length(eng.caches, slot, true_len)
+    eng.caches = eng._set_slot_length_fn(eng.caches, slot, true_len)
     local_idx = (true_len - 1) - (st.next_chunk - 1) * eng.chunk
     first = int(eng._sample_first(logits[:, local_idx], slot, true_len))
     del eng._prefills[slot]
@@ -73,37 +77,37 @@ def advance_prefill(eng, slot: int, out) -> None:
     is_eos = eng.eos_id is not None and first == eng.eos_id
     if is_eos:
         out[req.id].finished_by_eos = True
-    eng.sched.record_token(slot, is_eos)
+    if eng.sched.record_token(slot, is_eos):
+        eng._on_slot_finished(slot)
 
 
-def make_decode_multi(model_cfg, decode_logits_fn):
+def make_decode_multi(model_cfg, decode_logits_fn, lengths_of, with_lengths):
     """Build the k-step decode block for one engine.
 
     Returns a function (params, last_tok, caches, active, temps, topk, topp,
     seeds, k, greedy) -> ([k, slots] token block, final last-token row,
     caches): k decode steps issued back to back on the device. Inactive
     slots keep their lengths and tokens each step (their lanes ride along in
-    the batched kernels).
+    the batched kernels). ``lengths_of(caches)`` reads the slots' [S]
+    lengths and ``with_lengths(caches, lengths)`` sets them: the dense
+    engine's layers each hold the same lengths, the paged cache holds one.
     """
 
     def _decode_multi(params, last_tok, caches, active, temps, topk, topp, seeds, k, greedy=False):
         tok = last_tok
         block = []
         for _ in range(k):
-            old_lengths = [c.lengths for c in caches]
-            logits, new_caches = decode_logits_fn(params, model_cfg, tok[:, None], caches)
+            old_lengths = lengths_of(caches)
+            logits, caches = decode_logits_fn(params, model_cfg, tok[:, None], caches)
             if greedy:
                 # Every active slot is temperature 0: skip the sampling sorts.
                 nt = torch.argmax(logits, dim=-1).to(torch.int32)
             else:
                 # The position the sampled token will OCCUPY (old length + 1):
                 # the first token already used position == prompt length.
-                nt = sample_tokens(logits, temps, topk, topp, seeds, old_lengths[0] + 1)
+                nt = sample_tokens(logits, temps, topk, topp, seeds, old_lengths + 1)
             tok = torch.where(active, nt, tok)
-            caches = [
-                c._replace(lengths=torch.where(active, c.lengths, old))
-                for c, old in zip(new_caches, old_lengths)
-            ]
+            caches = with_lengths(caches, torch.where(active, lengths_of(caches), old_lengths))
             block.append(tok)
         return torch.stack(block), tok, caches
 
@@ -156,7 +160,7 @@ def retire_decode_block(eng, out) -> None:
             if is_eos:
                 out[req_id].finished_by_eos = True
             if eng.sched.record_token(slot, is_eos):
-                eng._dev_dirty = True
+                eng._on_slot_finished(slot)
                 finished.add(slot)
     eng.decode_tokens += appended
     eng.events.append(("decode", appended))

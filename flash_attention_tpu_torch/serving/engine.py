@@ -28,6 +28,7 @@ from flash_attention_tpu_torch.models.transformer import (
     ModelConfig,
     decode_step_logits,
     init_caches,
+    prefill_chunk,
 )
 from flash_attention_tpu_torch.serving.decode_loop import (
     advance_prefill,
@@ -90,15 +91,22 @@ class ServingEngine:
         decode_block_steps: int = 16,
         pipeline_decode: bool = True,
     ):
+        self._init_host_loop(params, cfg, max_slots, max_seq, eos_id, min(prefill_chunk, max_seq),
+                             decode_block_steps, pipeline_decode)
+        self.caches = init_caches(cfg, max_slots, max_seq, device=self.device)
+        self._decode_multi = make_decode_multi(cfg, decode_step_logits, self._lengths_of, self._with_lengths)
+
+    def _init_host_loop(self, params, cfg, max_slots, max_seq, eos_id, chunk, decode_block_steps, pipeline_decode):
+        """The host state the shared loop (serving/decode_loop.py) reads and
+        writes, common to the dense and the paged engine."""
         self.params = params
         self.cfg = cfg
         self.device = params["embed"].device
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.eos_id = eos_id
-        self.chunk = min(prefill_chunk, max_seq)
+        self.chunk = chunk
         self.sched = ContinuousBatchScheduler(max_slots, max_seq)
-        self.caches = init_caches(cfg, max_slots, max_seq, device=self.device)
         self.last_token = np.zeros((max_slots,), np.int32)
         # Per-slot sampling parameters (set at admission).
         self._temps = np.zeros((max_slots,), np.float32)
@@ -120,7 +128,27 @@ class ServingEngine:
         # host token bookkeeping) — denominator of engine-level tokens/s.
         self.decode_time_s = 0.0
         self.events: list[tuple] = []  # ("chunk", slot) / ("decode", n_appended)
-        self._decode_multi = make_decode_multi(cfg, decode_step_logits)
+
+    # Hooks of the shared host loop (serving/decode_loop.py).
+    def _prefill_chunk_step(self, params, tokens, caches, slot: int, start: int, kv_end: int):
+        return prefill_chunk(params, self.cfg, tokens, caches, slot, start, kv_end)
+
+    def _set_slot_length_fn(self, caches, slot: int, true_len: int):
+        """Every layer's cache with ``lengths[slot] = true_len``."""
+        lengths = self._lengths_of(caches).clone()
+        lengths[slot] = true_len
+        return self._with_lengths(caches, lengths)
+
+    @staticmethod
+    def _lengths_of(caches) -> torch.Tensor:
+        return caches[0].lengths  # every layer holds the same lengths
+
+    @staticmethod
+    def _with_lengths(caches, lengths: torch.Tensor):
+        return [c._replace(lengths=lengths) for c in caches]
+
+    def _on_slot_finished(self, slot: int) -> None:
+        self._dev_dirty = True
 
     def _sample_first(self, logits: torch.Tensor, slot: int, position: int) -> torch.Tensor:
         """The first token of ``slot`` from its prompt's last logits [1, vocab]."""
@@ -171,13 +199,3 @@ class ServingEngine:
             run_decode_block(self, active, out)
 
         return out
-
-
-def _set_slot_length(caches, slot: int, true_len: int):
-    """Every layer's cache with ``lengths[slot] = true_len``."""
-    fixed = []
-    for c in caches:
-        lengths = c.lengths.clone()
-        lengths[slot] = true_len
-        fixed.append(c._replace(lengths=lengths))
-    return fixed

@@ -27,9 +27,10 @@ def make_qkv(
     num_kv_heads: int | None = None,
     kv_seq: int | None = None,
     dtype: torch.dtype = torch.bfloat16,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ):
-    """Seeded U(-0.5, 0.5) q [B, Hq, seq, D] and k, v [B, Hkv, kv_seq, D]."""
+    """Seeded U(-0.5, 0.5) q [B, Hq, seq, D] and k, v [B, Hkv, kv_seq, D] on
+    ``device`` (the card by default)."""
     num_kv_heads = num_kv_heads or num_q_heads
     kv_seq = kv_seq or seq
     rng = np.random.default_rng(seed)

@@ -39,7 +39,7 @@ MAX_SEQ = 64
 def model():
     jcfg, tcfg = jt.ModelConfig(**CFG), tt.ModelConfig(**CFG)
     jparams = jt.init_model_params(jax.random.key(0), jcfg)
-    return jcfg, tcfg, jparams, params_from_jax(jax.tree.map(np.asarray, jparams))
+    return jcfg, tcfg, jparams, params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 def _diff(got: torch.Tensor, want) -> float:
@@ -75,7 +75,7 @@ def test_rms_norm_and_swiglu_match_jax(model):
 def test_params_from_jax_keeps_tree_and_bf16_bits():
     jcfg = jt.ModelConfig(**{**CFG, "dtype": "bfloat16"})
     jparams = jt.init_model_params(jax.random.key(3), jcfg)
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     j_leaves, j_tree = jax.tree.flatten(jparams)
     t_leaves = jax.tree.leaves(tparams)
     assert jax.tree.structure(jax.tree.map(lambda _: 0, tparams)) == j_tree

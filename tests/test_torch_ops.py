@@ -104,7 +104,7 @@ def test_sm_scale_matches_jax():
 def test_flash_attention_cache_view_matches_copy():
     """A strided slice of a cache (the chunked-prefill operand) gives the
     same result as its contiguous copy."""
-    q, k, v = make_qkv(1, 1, 4, 32, 32, num_kv_heads=2, kv_seq=96, dtype=torch.float32)
+    q, k, v = make_qkv(1, 1, 4, 32, 32, num_kv_heads=2, kv_seq=96, dtype=torch.float32, device="cpu")
     cache = torch.zeros((3, 2, 128, 32))
     cache[1, :, :96] = k[0]
     view = cache[1:2, :, :96]
@@ -147,7 +147,7 @@ def test_reference_attention_matches_jax(causal):
 
 
 def test_plain_versions_match_oracle():
-    q, k, v = make_qkv(3, 2, 8, 64, 64, num_kv_heads=2, kv_seq=160, dtype=torch.float32)
+    q, k, v = make_qkv(3, 2, 8, 64, 64, num_kv_heads=2, kv_seq=160, dtype=torch.float32, device="cpu")
     out, lse = flash_attention_plain(q, k, v, causal=True, sm_scale=0.125, save_residuals=True)
     want, want_lse = reference_attention_with_lse(q, k, v, causal=True, sm_scale=0.125)
     assert _max_diff(out, want) <= FP32_TOL and _max_diff(lse, want_lse) <= FP32_TOL * 10
@@ -191,8 +191,8 @@ def test_constants_match_jax():
 
 
 def test_make_qkv_is_seeded():
-    a = make_qkv(7, 1, 4, 16, 32, num_kv_heads=2)
-    b = make_qkv(7, 1, 4, 16, 32, num_kv_heads=2)
+    a = make_qkv(7, 1, 4, 16, 32, num_kv_heads=2, device="cpu")
+    b = make_qkv(7, 1, 4, 16, 32, num_kv_heads=2, device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert a[0].dtype == torch.bfloat16 and a[1].shape == (1, 2, 16, 32)
     assert float(a[0].float().abs().max()) <= 0.5

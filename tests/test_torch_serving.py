@@ -41,7 +41,7 @@ REQS = [  # 5 requests for 3 slots: two wait in the queue
 def model():
     jcfg = jt.ModelConfig(**CFG)
     jparams = jt.init_model_params(jax.random.key(0), jcfg)
-    return jcfg, jparams, tt.ModelConfig(**CFG), params_from_jax(jax.tree.map(np.asarray, jparams))
+    return jcfg, jparams, tt.ModelConfig(**CFG), params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 def _serve(mod, cfg, params, reqs=REQS, **kw):
