@@ -35,6 +35,30 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 phase 5's requests, then requests sharing a 1024-token
                 prefix through the prefix cache; K7, K8 and K10 launched,
                 K1 and K6 not.
+  9. quant    — the quantized kernels with bf16 queries, for int8, fp8
+                e4m3 and fp8 e5m2 caches whose rows are scaled one by one:
+                K6q and K7q at phase 3's and 6's shapes and at 32 slots x
+                8192 rows, K8q at kv_end 256 / 1024 / 2048, K9q/K10q (32
+                layers x 8 slots, bit-equal to plain, payload and scales);
+                each against its plain version, the fp32 oracle on the
+                dequantized cache and, as information, the oracle on the
+                unquantized rows. K6q and K7q at 8192 rows must allocate
+                under 1 % of a bf16 copy of the cache; K6 over every finite
+                code of each payload type must return the codes exactly.
+                Then every (query dtype, payload, head_dim) instantiation
+                of K6q, K7q, K8q and K9q/K10q at ragged shapes.
+ 10. tiny quant — the tiny fp32 model with each kv_quant mode and with int8
+                weights through both engines on the card and on the CPU:
+                each engine's tokens identical on both; paged and dense
+                agree on every prefill token (after it, over a quantized
+                cache, the paged engine merges the current token at full
+                precision and the dense one attends it quantized, as in the
+                JAX package; where they part is printed); prefix cache on
+                == off.
+ 11. full quant — phase 5's weights at full width: ServingEngine with int8
+                weights and an int8 cache on phase 5's requests, and
+                PagedServingEngine with an fp8_e4m3 cache on phase 8's runs;
+                K6q, K7q, K8q and K10q launched, K6, K7, K8 and K10 not.
 
 Every phase prints kernel, plain-version, library-call and bound times
 (the bound: the larger of the bytes over 3.35 TB/s and the operations over
@@ -51,6 +75,10 @@ import statistics
 import subprocess
 import time
 
+# The JAX package's name. The kernels' report labels each CUDA kernel with
+# the file:line of the TPU kernel it replaces, under that package's
+# directory; the script reads nothing there.
+REFERENCE = "flash_attention_tpu"
 ORACLE_BAR = 0.1  # the repository's pass bar against the fp32 oracle
 PLAIN_BAR = 1e-2  # kernel vs plain in bf16: the same fp32 math in another order
 # Base-2 LSE, fp32, kernel vs plain and oracle: measured within 2e-6 on the
@@ -69,6 +97,8 @@ TINY_CFG = dict(
 FULL_PROMPT_LENS = (1, 37, 255, 256, 257, 600, 1024, 1100, 1500, 1791)
 FULL_NEW_TOKENS = 32
 PAGED_LENGTHS = (0, 1, 127, 128, 129, 1000, 2047, 2048)  # phase 6, K7; slot 0 on the dump page
+QUANT_MODES = ("int8", "fp8_e4m3", "fp8_e5m2")
+LONG = dict(slots=32, rows=8192)  # BASELINE config 4: 32 slots x 8192 rows, 32 q / 8 kv heads, head_dim 128
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 
@@ -213,7 +243,7 @@ def phase_k1(card: str) -> dict:
     return {
         "name": "flash_fwd (K1)", "route": "cuda",
         "source": "flash_attention_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "flash_attention_tpu/ops/flash_attention.py:57",
+        "replaces": f"{REFERENCE}/ops/flash_attention.py:57",
         "max_abs_err": worst_plain, "ms": rep[0], "plain_ms": rep[1],
         "library_ms": rep[2], "bound_ms": rep[3], "bound_by": rep[4],
     }
@@ -266,7 +296,7 @@ def phase_k6(card: str) -> dict:
     return {
         "name": "decode (K6)", "route": "cuda",
         "source": "flash_attention_tpu_torch/csrc/decode.cu",
-        "replaces": "flash_attention_tpu/ops/decode.py:56",
+        "replaces": f"{REFERENCE}/ops/decode.py:56",
         "max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms,
         "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
     }
@@ -312,12 +342,18 @@ def phase_kernel_sweep() -> None:
     )
 
 
-def _leaves(tree):
+def _tensors(tree) -> list:
+    """The tensors of a tree of dicts, lists and tuples (NamedTuples: caches,
+    QuantizedTensors), skipping None."""
     if isinstance(tree, dict):
         tree = list(tree.values())
-    if isinstance(tree, list):
-        return [leaf for sub in tree for leaf in _leaves(sub)]
-    return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [t for sub in tree for t in _tensors(sub)]
+    return [] if tree is None else [tree]
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
 
 
 def _to_device(tree, device):
@@ -325,7 +361,43 @@ def _to_device(tree, device):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to_device(v, device) for v in tree]
+    if isinstance(tree, tuple):  # a QuantizedTensor
+        return type(tree)(*(_to_device(v, device) for v in tree))
     return tree.to(device)
+
+
+def _counters() -> dict:
+    """Every kernel's launch count, by name: (wrapper, attribute). A wrapper
+    counts the launches over an unquantized cache in .launches and those over
+    a quantized one (the K*q instantiations) in .quant_launches."""
+    from flash_attention_tpu_torch.ops.decode import decode_attention
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+    from flash_attention_tpu_torch.ops.paged import paged_decode_attention, paged_prefill_attention, paged_write_tokens_multi
+
+    return {
+        "K1": (flash_attention, "launches"),
+        "K6": (decode_attention, "launches"), "K6q": (decode_attention, "quant_launches"),
+        "K7": (paged_decode_attention, "launches"), "K7q": (paged_decode_attention, "quant_launches"),
+        "K8": (paged_prefill_attention, "launches"), "K8q": (paged_prefill_attention, "quant_launches"),
+        "K9/K10": (paged_write_tokens_multi, "launches"), "K9q/K10q": (paged_write_tokens_multi, "quant_launches"),
+    }
+
+
+def zero_counts() -> None:
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
+
+
+def check_launches(what: str, launches: dict, used) -> None:
+    """The path launched every kernel in ``used`` and no other."""
+    missing = [k for k in used if launches[k] < 1]
+    stray = [k for k, n in launches.items() if n and k not in used]
+    if missing or stray:
+        raise RuntimeError(f"{what}: kernels {missing} not launched, {stray} launched: {launches}")
 
 
 def tiny_requests():
@@ -363,28 +435,36 @@ def phase_tiny() -> dict:
 
 
 def phase_full(card: str):
-    """ModelConfig() at full width on 8 slots x 2048 positions. Returns the
-    launch counts of the served run, the params and the engine's numbers."""
-    import numpy as np
+    """ModelConfig() at full width, bf16, on 8 slots x 2048 positions.
+    Returns the launch counts of the served run, the params and the
+    engine's numbers."""
     import torch
 
-    from flash_attention_tpu_torch.models.transformer import (
-        ModelConfig,
-        decode_step_logits,
-        init_caches,
-        init_model_params,
-        prefill,
-    )
-    from flash_attention_tpu_torch.ops.decode import decode_attention
-    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
-    from flash_attention_tpu_torch.serving.engine import Request, ServingEngine
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
 
     cfg = ModelConfig()
     t0 = time.perf_counter()
     params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in _tensors(params))
     log(f"[full] ModelConfig() bf16: {n_params / 1e9:.3f} B params initialised on the card in {time.perf_counter() - t0:.1f} s")
+    launches, numbers = serve_full_dense(card, "full", cfg, params, used=("K1", "K6"))
+    return launches, params, numbers
+
+
+def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | None = None):
+    """ServingEngine over ``cfg`` / ``params`` at full width: a prefill-only
+    run, then the main path (phase 5's 10 requests on 8 slots x 2048
+    positions) with every launch count set to 0 just before and read just
+    after; it must launch the kernels in ``used`` and no other. ``ref``: the
+    bf16 run's numbers of this call, printed beside these. Returns the
+    launch counts and the engine's numbers."""
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.models.transformer import decode_step_logits, init_caches, prefill
+    from flash_attention_tpu_torch.serving.engine import Request, ServingEngine
+
     rng = np.random.default_rng(0)
     prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n)) for n in FULL_PROMPT_LENS]
     eng = ServingEngine(params, cfg, max_slots=8, max_seq=2048, prefill_chunk=256)
@@ -403,27 +483,32 @@ def phase_full(card: str):
     # The main path: counters to 0, serve, read the counters.
     eng.steps, eng.decode_tokens, eng.decode_time_s = 0, 0, 0.0
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    decode_attention.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = eng.run([Request(id=100 + i, prompt=p, max_new_tokens=FULL_NEW_TOKENS) for i, p in enumerate(prompts)])
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = {"K1": flash_attention.launches, "K6": decode_attention.launches}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(f"[full] 10 requests on 8 slots: kernel launches {launches}; decode steps {eng.steps}")
+    log(f"[{label}] 10 requests on 8 slots: kernel launches {launches}; decode steps {eng.steps}")
     for i in range(len(prompts)):
         toks = done[100 + i].tokens
         if len(toks) != FULL_NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in toks):
             raise RuntimeError(f"request {100 + i}: {len(toks)} tokens, want {FULL_NEW_TOKENS} in vocab")
         if toks[0] != first[i].tokens[0]:
             raise RuntimeError(f"request {100 + i}: first greedy token differs between runs")
-    if min(launches.values()) < 1:
-        raise RuntimeError(f"the main path did not launch every kernel: {launches}")
+    check_launches(f"[{label}] the main path", launches, used)
+    numbers = {
+        "prefill_tok_s": n_prompt / prefill_s, "decode_tok_s": eng.decode_tokens / eng.decode_time_s,
+        "peak_gib": peak / 2**30, "cache_gb": _nbytes([(c.k, c.v, c.k_scales, c.v_scales) for c in eng.caches]) / 1e9,
+        "weights_gb": _nbytes(params) / 1e9,
+    }
+    decode_tokens, decode_s = eng.decode_tokens, eng.decode_time_s
+    del eng
 
     # Logits of the same model, straight from the model functions: finite
-    # and of the expected shape, one-shot prefill (K1) then one decode step (K6).
+    # and of the expected shape, one-shot prefill (K1) then one decode step.
     caches = init_caches(cfg, 1, 2048, device="cuda")
     toks = torch.as_tensor(prompts[5], device="cuda")[None]
     logits, caches = prefill(params, cfg, toks, caches)
@@ -432,33 +517,38 @@ def phase_full(card: str):
         raise RuntimeError(f"logits shapes {tuple(logits.shape)} {tuple(step_logits.shape)}")
     if not (bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step_logits).all())):
         raise RuntimeError("non-finite logits at full width")
+    del caches, logits, step_logits
+
+    def beside(key: str, fmt: str = ".1f") -> str:
+        return "" if ref is None else f" (bf16, phase 5: {ref[key]:{fmt}})"
 
     n_gen = sum(len(c.tokens) for c in done.values())
     log(
-        f"[full] prefill: {n_prompt} prompt tokens in {prefill_s:.3f} s = {n_prompt / prefill_s:.1f} tok/s "
-        f"(max_new_tokens=1 run, wall clock) ({card})"
+        f"[{label}] prefill: {n_prompt} prompt tokens in {prefill_s:.3f} s = {numbers['prefill_tok_s']:.1f} tok/s"
+        f"{beside('prefill_tok_s')} (max_new_tokens=1 run, wall clock) ({card})"
     )
     log(
-        f"[full] decode: {eng.decode_tokens} tokens in {eng.decode_time_s:.3f} s of decode section = "
-        f"{eng.decode_tokens / eng.decode_time_s:.1f} tok/s; whole run {n_gen} tokens in {run_s:.3f} s ({card})"
+        f"[{label}] decode: {decode_tokens} tokens in {decode_s:.3f} s of decode section = "
+        f"{numbers['decode_tok_s']:.1f} tok/s{beside('decode_tok_s')}; whole run {n_gen} tokens in {run_s:.3f} s ({card})"
     )
-    log(f"[full] peak device memory (max_memory_allocated) {peak / 2**30:.2f} GiB ({card})")
-    numbers = {
-        "prefill_tok_s": n_prompt / prefill_s, "decode_tok_s": eng.decode_tokens / eng.decode_time_s,
-        "peak_gib": peak / 2**30,
-    }
-    return launches, params, numbers
+    log(
+        f"[{label}] allocated: weights {numbers['weights_gb']:.3f} GB{beside('weights_gb', '.3f')}, KV cache with its "
+        f"scales {numbers['cache_gb']:.4f} GB{beside('cache_gb', '.4f')}; peak device memory (max_memory_allocated) "
+        f"{numbers['peak_gib']:.2f} GiB{beside('peak_gib', '.2f')} ({card})"
+    )
+    return launches, numbers
 
 
-def _shuffled_table(rng, num_slots: int, pages_per_slot: int, num_pages: int):
+def _shuffled_table(rng, num_slots: int, pages_per_slot: int, num_pages: int, *, dump_slot: bool = True):
     """The slots' page tables as a random permutation of pages 1..num_pages-1,
-    so a kernel reading pages in order fails; slot 0's row is all dump page
-    0, like a released slot's."""
+    so a kernel reading pages in order fails; with ``dump_slot``, slot 0's
+    row is all dump page 0, like a released slot's."""
     import numpy as np
 
     table = rng.permutation(np.arange(1, num_pages))[: num_slots * pages_per_slot]
     table = table.reshape(num_slots, pages_per_slot).astype(np.int32)
-    table[0] = 0
+    if dump_slot:
+        table[0] = 0
     return table
 
 
@@ -550,7 +640,7 @@ def phase_paged_kernels(card: str):
     k7 = {
         "name": "paged_decode (K7)", "route": "cuda",
         "source": "flash_attention_tpu_torch/csrc/decode.cu",
-        "replaces": "flash_attention_tpu/ops/paged.py:980",
+        "replaces": f"{REFERENCE}/ops/paged.py:980",
         "max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
@@ -582,7 +672,7 @@ def phase_paged_kernels(card: str):
     k8 = {
         "name": "paged_prefill (K8)", "route": "cuda",
         "source": "flash_attention_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "flash_attention_tpu/ops/paged.py:580",
+        "replaces": f"{REFERENCE}/ops/paged.py:580",
         "max_abs_err": worst_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
@@ -636,7 +726,7 @@ def phase_paged_kernels(card: str):
     k10 = {
         "name": "paged_write (K9/K10)", "route": "cuda",
         "source": "flash_attention_tpu_torch/csrc/paged_write.cu",
-        "replaces": "flash_attention_tpu/ops/paged.py:257",
+        "replaces": f"{REFERENCE}/ops/paged.py:257",
         "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
@@ -781,26 +871,28 @@ def phase_tiny_paged(dense_tokens: dict) -> None:
     log("[tiny paged] paged card tokens == paged CPU tokens == dense card tokens")
 
 
-def phase_full_paged(card: str, params, dense: dict) -> dict:
-    """PagedServingEngine at full width on phase 5's weights; the dense
-    engine and its caches are gone. Returns the paged run's launch counts."""
+def serve_full_paged(card: str, label: str, cfg, params, *, used, dense: dict, ref: dict | None = None):
+    """PagedServingEngine over ``cfg`` / ``params`` at full width (phase 8;
+    the dense engine and its caches are gone): a prefill-only run, then the
+    main path, runs A and B, with every launch count set to 0 just before
+    and read just after; it must launch the kernels in ``used`` and no
+    other. ``dense``: the dense run's numbers of the same weights and cache
+    type; ``ref``: the bf16 paged run's. Returns the launch counts and the
+    engine's numbers."""
     import numpy as np
     import torch
 
-    from flash_attention_tpu_torch.models.transformer import ModelConfig, decode_step_logits_paged, prefill_chunk_paged
-    from flash_attention_tpu_torch.ops.decode import decode_attention
-    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
-    from flash_attention_tpu_torch.ops.paged import paged_decode_attention, paged_prefill_attention, paged_write_tokens_multi
+    from flash_attention_tpu_torch.models.transformer import decode_step_logits_paged, prefill_chunk_paged
     from flash_attention_tpu_torch.serving.engine import Request
     from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
 
-    cfg = ModelConfig()
     torch.cuda.empty_cache()
     rng = np.random.default_rng(0)
     prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n)) for n in FULL_PROMPT_LENS]  # phase 5's
     eng = PagedServingEngine(params, cfg, max_slots=8, num_pages=129, pages_per_slot=16, page_size=128,
                              prefill_chunk=256, prefix_cache=True)
-    pool_gb = (eng.caches.k_pool.numel() + eng.caches.v_pool.numel()) * 2 / 1e9
+    pc = eng.caches
+    pool_gb = _nbytes((pc.k_pool, pc.v_pool, pc.k_scales, pc.v_scales)) / 1e9
 
     # Prefill-only run with the prefix cache off (nothing registered):
     # measures paged prefill throughput and warms the path.
@@ -815,12 +907,9 @@ def phase_full_paged(card: str, params, dense: dict) -> dict:
         raise RuntimeError("paged prefill-only run: every request must give exactly one token")
 
     # The paged main path: counters to 0, runs A and B, read the counters.
-    counted = {"K1": flash_attention, "K6": decode_attention, "K7": paged_decode_attention,
-               "K8": paged_prefill_attention, "K9/K10": paged_write_tokens_multi}
-    for fn in counted.values():
-        fn.launches = 0
     eng.steps, eng.decode_tokens, eng.decode_time_s = 0, 0, 0.0
     torch.cuda.reset_peak_memory_stats()
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run_a = eng.run([Request(id=100 + i, prompt=p, max_new_tokens=FULL_NEW_TOKENS) for i, p in enumerate(prompts)])
@@ -833,25 +922,24 @@ def phase_full_paged(card: str, params, dense: dict) -> dict:
     solo = eng.run([Request(id=200, prompt=shared + tails[0], max_new_tokens=FULL_NEW_TOKENS)])
     group = eng.run([Request(id=201 + i, prompt=shared + tails[1 + i], max_new_tokens=FULL_NEW_TOKENS) for i in range(8)])
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counted.items()}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     hits_b = eng.prefix_hits - hits_before
-    log(f"[full paged] runs A and B: kernel launches {launches}; decode steps {eng.steps}; prefix_hits in run B {hits_b}")
+    log(f"[{label}] runs A and B: kernel launches {launches}; decode steps {eng.steps}; prefix_hits in run B {hits_b}")
     for rid, c in {**run_a, **solo, **group}.items():
         if len(c.tokens) != FULL_NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in c.tokens):
             raise RuntimeError(f"paged request {rid}: {len(c.tokens)} tokens, want {FULL_NEW_TOKENS} in vocab")
     if any(run_a[100 + i].tokens[0] != first[i].tokens[0] for i in range(len(prompts))):
         raise RuntimeError("paged run A: first greedy token differs from the prefill-only run")
-    if hits_b < 8:
-        raise RuntimeError(f"run B: prefix_hits {hits_b} < 8")
-    if min(launches[k] for k in ("K7", "K8", "K9/K10")) < 1 or launches["K1"] or launches["K6"]:
-        raise RuntimeError(f"the paged path must launch K7, K8 and K10 and neither K1 nor K6: {launches}")
+    if hits_b != 8 * 1024 // 128:
+        raise RuntimeError(f"run B: prefix_hits {hits_b}, want 64 (8 requests x 8 shared pages)")
+    check_launches(f"[{label}] the paged main path", launches, used)
 
     # The same 8 prompts without the prefix cache: the same first tokens.
     eng.prefix_cache_enabled = False
-    ref = eng.run([Request(id=301 + i, prompt=shared + tails[1 + i], max_new_tokens=1) for i in range(8)])
+    cold = eng.run([Request(id=301 + i, prompt=shared + tails[1 + i], max_new_tokens=1) for i in range(8)])
     eng.prefix_cache_enabled = True
-    if any(group[201 + i].tokens[0] != ref[301 + i].tokens[0] for i in range(8)):
+    if any(group[201 + i].tokens[0] != cold[301 + i].tokens[0] for i in range(8)):
         raise RuntimeError("run B: a first token through shared pages differs from the one without the cache")
 
     # Logits straight from the paged model functions: finite, of the
@@ -873,28 +961,535 @@ def phase_full_paged(card: str, params, dense: dict) -> dict:
         raise RuntimeError("paged prefill logits disagree with the engine's first token")
 
     n_prompt = sum(FULL_PROMPT_LENS)
+    numbers = {"prefill_tok_s": n_prompt / prefill_s, "decode_tok_s": a_decode[0] / a_decode[1], "peak_gib": peak / 2**30,
+               "cache_gb": pool_gb}
+
+    def beside(key: str, fmt: str = ".1f") -> str:
+        also = "" if ref is None else f"; bf16 paged, phase 8: {ref[key]:{fmt}}"
+        return f" (bf16 dense, phase 5: {dense[key]:{fmt}}{also})"
+
     log(
-        f"[full paged] PagedServingEngine(max_slots=8, num_pages=129, pages_per_slot=16, page_size=128, "
-        f"prefill_chunk=256, prefix_cache=True), pool {pool_gb:.2f} GB ({card})"
+        f"[{label}] PagedServingEngine(max_slots=8, num_pages=129, pages_per_slot=16, page_size=128, "
+        f"prefill_chunk=256, prefix_cache=True), pool with its scales {pool_gb:.4f} GB{beside('cache_gb', '.4f')} ({card})"
     )
     log(
-        f"[full paged] prefill: {n_prompt} prompt tokens in {prefill_s:.3f} s = {n_prompt / prefill_s:.1f} tok/s "
-        f"(dense, phase 5: {dense['prefill_tok_s']:.1f}) ({card})"
+        f"[{label}] prefill: {n_prompt} prompt tokens in {prefill_s:.3f} s = {numbers['prefill_tok_s']:.1f} tok/s"
+        f"{beside('prefill_tok_s')} ({card})"
     )
     log(
-        f"[full paged] decode, run A: {a_decode[0]} tokens in {a_decode[1]:.3f} s of decode section = "
-        f"{a_decode[0] / a_decode[1]:.1f} tok/s (dense, phase 5: {dense['decode_tok_s']:.1f}); run A whole "
-        f"{a_s:.3f} s ({card})"
+        f"[{label}] decode, run A: {a_decode[0]} tokens in {a_decode[1]:.3f} s of decode section = "
+        f"{numbers['decode_tok_s']:.1f} tok/s{beside('decode_tok_s')}; run A whole {a_s:.3f} s ({card})"
     )
     log(
-        f"[full paged] peak device memory (max_memory_allocated) over runs A and B {peak / 2**30:.2f} GiB "
-        f"(dense, phase 5: {dense['peak_gib']:.2f}); prefix_hits {eng.prefix_hits} ({card})"
+        f"[{label}] peak device memory (max_memory_allocated) over runs A and B {numbers['peak_gib']:.2f} GiB"
+        f"{beside('peak_gib', '.2f')}; prefix_hits {eng.prefix_hits} ({card})"
     )
-    return launches
+    return launches, numbers
+
+
+def scaled_rows(shape, gen):
+    """fp32 rows U(-0.5, 0.5), each multiplied by its own 2^U(-4, 4): the
+    quantization scales of neighbouring rows differ by up to 2^8, so a kernel
+    that applied another row's scale would fail any bar."""
+    import torch
+
+    x = torch.rand(shape, generator=gen, device="cuda") - 0.5
+    return x * torch.exp2(torch.rand((*shape[:-1], 1), generator=gen, device="cuda") * 8 - 4)
+
+
+def _hold_quant(what: str, out, plain, oracle, lse=None, p_lse=None, o_lse=None, *, dtype: str = "bfloat16"):
+    """A quantized kernel's output against its plain version and the fp32
+    oracle on the dequantized cache: row by row relative to the row's largest
+    value (rows span 2^8 in scale, so an absolute bar says little;
+    REL_BAR[dtype]), within ORACLE_BAR of the oracle, and the base-2 LSE
+    within LSE_BAR of both. Returns (|out - plain|, |out - oracle|,
+    row-relative, |lse|)."""
+    d_plain, d_oracle = _max_diff(out, plain), _max_diff(out, oracle)
+    d_rel = max(_rel_diff(out, plain), _rel_diff(out, oracle))
+    d_lse = 0.0 if lse is None else max(_max_diff(lse, p_lse), _max_diff(lse, o_lse))
+    if not (d_oracle < ORACLE_BAR and d_rel < REL_BAR[dtype] and d_lse < LSE_BAR):
+        raise RuntimeError(f"{what} disagrees: |out-oracle| {d_oracle:.3e}, row-relative {d_rel:.3e}, |lse| {d_lse:.3e}")
+    return d_plain, d_oracle, d_rel, d_lse
+
+
+def _no_copy(what: str, fn, out_bytes: int, copy_bytes: int) -> int:
+    """``fn`` (one kernel call) allocates its outputs and less than 1 % of a
+    bf16 copy of the cache it reads (``copy_bytes``) besides: the payload is
+    read in place, not dequantized into a copy. Returns the bytes ``fn``
+    allocated beyond what was allocated before it, at its peak."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    if extra - out_bytes >= 0.01 * copy_bytes:
+        raise RuntimeError(f"{what} allocated {extra} bytes beside {out_bytes} of output: a dequantized copy?")
+    return extra
+
+
+def _quant_decode_case(card: str, what: str, mode: str, q, k_x, v_x, lengths, *, no_copy: bool = False) -> dict:
+    """K6q over the fp32 rows k_x, v_x [B, 8, S, 128] quantized to ``mode``."""
+    import torch
+    import torch.nn.functional as F
+
+    from flash_attention_tpu_torch.ops.decode import decode_attention, decode_attention_plain
+    from flash_attention_tpu_torch.ops.quant import dequantize, payload_dtype, quantize_values
+    from flash_attention_tpu_torch.ops.reference import reference_attention, reference_attention_with_lse
+
+    scale = 128**-0.5
+    kq, vq = quantize_values(k_x, payload_dtype(mode)), quantize_values(v_x, payload_dtype(mode))
+    out, lse = decode_attention(q, kq, vq, lengths, save_residuals=True)
+    p_out, p_lse = decode_attention_plain(q, kq, vq, lengths, sm_scale=scale, save_residuals=True)
+    kd, vd = dequantize(kq), dequantize(vq)
+    o_out, o_lse = reference_attention_with_lse(q[:, :, None], kd, vd, kv_length=lengths)
+    d_plain, d_oracle, d_rel, d_lse = _hold_quant(f"K6q {mode} {what}", out, p_out, o_out[:, :, 0], lse, p_lse, o_lse[:, :, 0])
+    d_quant = _max_diff(out, reference_attention(q[:, :, None], k_x, v_x, kv_length=lengths)[:, :, 0])
+    del p_out, o_out
+    batch, hq, d = q.shape
+    copy_bytes = 2 * kd.numel() * 2
+    extra = _no_copy(f"K6q {mode} {what}", lambda: decode_attention(q, kq, vq, lengths, save_residuals=True),
+                     out.numel() * out.element_size() + lse.numel() * 4, copy_bytes) if no_copy else None
+    ms = cuda_ms(lambda: decode_attention(q, kq, vq, lengths, save_residuals=True))
+    plain_ms = cuda_ms(lambda: decode_attention_plain(q, kq, vq, lengths, sm_scale=scale, save_residuals=True))
+    # Context, not a yardstick: no single PyTorch call reads a quantized
+    # cache; SDPA on a bf16 cache of the same (dequantized) values.
+    kb, vb = kd.to(torch.bfloat16), vd.to(torch.bfloat16)
+    del kd, vd
+    mask = (torch.arange(kb.shape[2], device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kb, vb, attn_mask=mask, enable_gqa=True))
+    bf16_ms = cuda_ms(lambda: decode_attention(q, kb, vb, lengths, save_residuals=True))  # K6 on the same values
+    del kb, vb
+    rows, hkv = int(lengths.sum()), k_x.shape[1]
+    item = kq.values.element_size()
+    nbytes = 2 * rows * hkv * (d * item + 4) + 2 * 2 * q.numel() + 4 * (lse.numel() + batch)
+    bound_ms, bound_by = bound(4 * d * hq * rows + 2 * 2 * d * hkv * rows, nbytes)
+    log(
+        f"[K6q] {mode} {what}: |out-plain| {d_plain:.3e}, |out-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), "
+        f"row-relative {d_rel:.3e} (bar {REL_BAR['bfloat16']}), |lse| {d_lse:.3e} (bar {LSE_BAR}); quantization "
+        f"error |out - oracle on unquantized rows| {d_quant:.3e} (information)"
+        + ("" if extra is None else f"; allocated {extra / 1e6:.3f} MB in the call (a bf16 copy: {copy_bytes / 1e6:.0f} MB)")
+        + f"; kernel {ms:.4f} ms (K6 on a bf16 copy {bf16_ms:.4f} ms), plain {plain_ms:.4f} ms, library none (SDPA on "
+        f"a bf16 copy {sdpa_ms:.4f} ms), bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB) ({card})"
+    )
+    return {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _quant_pages(mode: str, num_layers: int, num_pages: int, num_slots: int, pages_per_slot: int, gen, rng,
+                 *, kv_heads: int = 8, head_dim: int = 128, dump_slot: bool = True):
+    """A quantized PagedModelCache (pages of 128 rows) filled from scaled
+    fp32 rows over a shuffled table; and the fp32 rows (pools [L, P,
+    kv_heads, 128, head_dim]) it was quantized from."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.paged import init_paged_model_cache
+    from flash_attention_tpu_torch.ops.quant import bits, quantize_values
+
+    cache = init_paged_model_cache(num_layers, num_pages=num_pages, num_slots=num_slots, pages_per_slot=pages_per_slot,
+                                   kv_heads=kv_heads, page_size=128, head_dim=head_dim, kv_quant=mode, device="cuda")
+    rows = []
+    for pool, scales in ((cache.k_pool, cache.k_scales), (cache.v_pool, cache.v_scales)):
+        x = scaled_rows(tuple(pool.shape), gen)
+        qt = quantize_values(x, pool.dtype)
+        bits(pool).copy_(bits(qt.values))
+        scales.copy_(qt.scales[..., 0])
+        rows.append(x)
+    table = torch.from_numpy(_shuffled_table(rng, num_slots, pages_per_slot, num_pages, dump_slot=dump_slot)).cuda()
+    cache.page_table.copy_(table)
+    return cache, rows
+
+
+def _dequant_pool(pages, scales):
+    return pages.float() * scales[..., None]
+
+
+def _quant_paged_decode_case(card: str, what: str, mode: str, layer, x_rows, q, *, no_copy: bool = False) -> dict:
+    """K7q over one layer's quantized pages (PagedKVCache ``layer``, its
+    lengths and table set), made from the fp32 pools ``x_rows``."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.paged import paged_decode_attention, paged_decode_attention_plain
+    from flash_attention_tpu_torch.ops.reference import reference_attention, reference_attention_with_lse
+
+    scale = 128**-0.5
+    table, lengths = layer.page_table, layer.lengths
+    out, lse = paged_decode_attention(q, layer, save_residuals=True)
+    p_out, p_lse = paged_decode_attention_plain(q, layer, sm_scale=scale, save_residuals=True)
+    kd = _dense_from_pages(_dequant_pool(layer.k_pages, layer.k_scales), table)
+    vd = _dense_from_pages(_dequant_pool(layer.v_pages, layer.v_scales), table)
+    o_out, o_lse = reference_attention_with_lse(q[:, :, None], kd, vd, kv_length=lengths)
+    del kd, vd
+    d_plain, d_oracle, d_rel, d_lse = _hold_quant(f"K7q {mode} {what}", out, p_out, o_out[:, :, 0], lse, p_lse, o_lse[:, :, 0])
+    del p_out, o_out
+    ku, vu = (_dense_from_pages(x, table) for x in x_rows)
+    d_quant = _max_diff(out, reference_attention(q[:, :, None], ku, vu, kv_length=lengths)[:, :, 0])
+    del ku, vu
+    if not (bool((out[lengths == 0] == 0).all()) and bool(torch.isneginf(lse[lengths == 0]).all())):
+        raise RuntimeError(f"K7q {mode} {what}: a slot of length 0 must give output 0 and LSE -inf")
+    slots, hq, d = q.shape
+    rows = int(lengths.sum())
+    copy_bytes = 2 * rows * 8 * d * 2
+    extra = _no_copy(f"K7q {mode} {what}", lambda: paged_decode_attention(q, layer, save_residuals=True),
+                     out.numel() * out.element_size() + lse.numel() * 4, copy_bytes) if no_copy else None
+    ms = cuda_ms(lambda: paged_decode_attention(q, layer, save_residuals=True))
+    plain_ms = cuda_ms(lambda: paged_decode_attention_plain(q, layer, sm_scale=scale, save_residuals=True))
+    # K7 over bf16 pages of the same values, for comparison.
+    bf16_pages = [_dequant_pool(layer.k_pages, layer.k_scales).to(torch.bfloat16),
+                  _dequant_pool(layer.v_pages, layer.v_scales).to(torch.bfloat16)]
+    as_bf16 = layer._replace(k_pages=bf16_pages[0], v_pages=bf16_pages[1], k_scales=None, v_scales=None)
+    bf16_ms = cuda_ms(lambda: paged_decode_attention(q, as_bf16, save_residuals=True))
+    del bf16_pages, as_bf16
+    pages_read = sum(-(-n // 128) for n in lengths.tolist())
+    item = layer.k_pages.element_size()
+    nbytes = 2 * rows * 8 * (d * item + 4) + 2 * 2 * q.numel() + 4 * (lse.numel() + slots + pages_read)
+    bound_ms, bound_by = bound(4 * d * hq * rows + 2 * 2 * d * 8 * rows, nbytes)
+    log(
+        f"[K7q] {mode} {what}: |out-plain| {d_plain:.3e}, |out-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), "
+        f"row-relative {d_rel:.3e} (bar {REL_BAR['bfloat16']}), |lse| {d_lse:.3e} (bar {LSE_BAR}); quantization "
+        f"error {d_quant:.3e} (information)"
+        + ("" if extra is None else f"; allocated {extra / 1e6:.3f} MB in the call (a bf16 copy: {copy_bytes / 1e6:.0f} MB)")
+        + f"; kernel {ms:.4f} ms (K7 on bf16 pages {bf16_ms:.4f} ms), plain {plain_ms:.4f} ms, library none, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB) ({card})"
+    )
+    return {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _widen_exact() -> None:
+    """T1's counterpart: K6 with fp32 queries, length 1 and scale 1 over V
+    rows that hold every finite code of each payload type returns the codes
+    exactly (one row's softmax weight is exactly 1), which pins the widen."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.decode import decode_attention
+    from flash_attention_tpu_torch.ops.quant import QuantizedTensor, payload_dtype
+
+    for mode in QUANT_MODES:
+        payload = payload_dtype(mode)
+        every = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+        codes = every[torch.isfinite(every.view(payload).float())]  # int8: all 256; fp8: not NaN or inf
+        n = codes.numel()
+        padded = torch.zeros(2 * 128, dtype=torch.uint8)
+        padded[:n] = codes
+        v = padded.view(payload).reshape(2, 1, 1, 128).cuda()
+        k = torch.zeros_like(v)
+        ones = torch.ones((2, 1, 1, 1), dtype=torch.float32, device="cuda")
+        q = torch.ones((2, 1, 128), dtype=torch.float32, device="cuda")
+        out = decode_attention(q, QuantizedTensor(k, ones), QuantizedTensor(v, ones),
+                               torch.ones(2, dtype=torch.int32, device="cuda"))
+        want = v.float().reshape(2, 1, 128)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            bad = (out != want).nonzero()[:4].tolist()
+            raise RuntimeError(f"K6 widen of {mode}: output differs from the codes at {bad}")
+        log(f"[quant] K6 widen, {mode}: all {n} finite codes returned exactly (fp32 queries, one row, scale 1)")
+
+
+def phase_quant_kernels(card: str):
+    """Phase 9: K6q, K7q, K8q and K9q/K10q with bf16 queries for every
+    payload type, over caches whose rows are scaled one by one; queries are
+    scaled by 8 so the softmax is peaked. Returns the report entries of K6q
+    (int8), K7q, K8q and K10q (fp8 e4m3): the types the phase-11 paths use."""
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.ops.paged import (
+        PagedModelCache,
+        paged_prefill_attention,
+        paged_prefill_attention_plain,
+        paged_write_tokens,
+        paged_write_tokens_multi,
+        paged_write_tokens_plain,
+    )
+    from flash_attention_tpu_torch.ops.quant import bits
+    from flash_attention_tpu_torch.ops.reference import reference_attention
+
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(9)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    report = {}
+    _widen_exact()
+
+    # K6q at phase 3's shape and lengths, then at 32 slots x 8192 rows.
+    lengths = torch.tensor([0, 1, 255, 256, 1000, 2047, 2048, 7], dtype=torch.int32, device="cuda")
+    q = (torch_uniform((8, 32, 128), torch.float32, gen) * 8).to(bf16)
+    for mode in QUANT_MODES:
+        k_x, v_x = scaled_rows((8, 8, 2048, 128), gen), scaled_rows((8, 8, 2048, 128), gen)
+        entry = _quant_decode_case(card, "q [8,32,128] cache [8,8,2048,128], phase 3's lengths", mode, q, k_x, v_x, lengths)
+        if mode == "int8":
+            report["K6q"] = entry
+    slots, rows = LONG["slots"], LONG["rows"]
+    q = (torch_uniform((slots, 32, 128), torch.float32, gen) * 8).to(bf16)
+    lengths = torch.full((slots,), rows, dtype=torch.int32, device="cuda")
+    for mode in QUANT_MODES:
+        k_x, v_x = scaled_rows((slots, 8, rows, 128), gen), scaled_rows((slots, 8, rows, 128), gen)
+        _quant_decode_case(card, f"q [{slots},32,128] cache [{slots},8,{rows},128], every slot full", mode, q, k_x, v_x,
+                           lengths, no_copy=True)
+        del k_x, v_x
+
+    # K7q at phase 6's shape and lengths (slot 0 on the dump page), then at
+    # 32 slots x 64 pages of 128 rows; K8q over phase 6's cache.
+    q = (torch_uniform((8, 32, 128), torch.float32, gen) * 8).to(bf16)
+    for mode in QUANT_MODES:
+        cache, x_rows = _quant_pages(mode, 1, 129, 8, 16, gen, rng)
+        layer = cache._replace(lengths=torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device="cuda")).layers()[0]
+        x_rows = [x[0] for x in x_rows]
+        entry = _quant_paged_decode_case(card, f"q [8,32,128] pages [129,8,128,128], lengths {list(PAGED_LENGTHS)}",
+                                         mode, layer, x_rows, q)
+        if mode == "fp8_e4m3":
+            report["K7q"] = entry
+        kd = _dense_from_pages(_dequant_pool(layer.k_pages, layer.k_scales), layer.page_table)
+        vd = _dense_from_pages(_dequant_pool(layer.v_pages, layer.v_scales), layer.page_table)
+        ku, vu = (_dense_from_pages(x, layer.page_table)[7:8] for x in x_rows)
+        for kv_end in (256, 1024, 2048):
+            qc = (torch_uniform((1, 32, 256, 128), torch.float32, gen) * 8).to(bf16)
+            out = paged_prefill_attention(qc, layer, 7, kv_end, chunk_len=256)
+            p_out = paged_prefill_attention_plain(qc, layer, 7, kv_end, sm_scale=128**-0.5)
+            o_out = reference_attention(qc, kd[7:8, :, :kv_end], vd[7:8, :, :kv_end], causal=True)
+            d_plain, d_oracle, d_rel, _ = _hold_quant(f"K8q {mode} kv_end {kv_end}", out, p_out, o_out)
+            d_quant = _max_diff(out, reference_attention(qc, ku[:, :, :kv_end], vu[:, :, :kv_end], causal=True))
+            copy_bytes = 2 * kv_end * 8 * 128 * 2
+            extra = _no_copy(f"K8q {mode} kv_end {kv_end}", lambda: paged_prefill_attention(qc, layer, 7, kv_end, chunk_len=256),
+                             out.numel() * out.element_size(), copy_bytes)
+            ms = cuda_ms(lambda: paged_prefill_attention(qc, layer, 7, kv_end, chunk_len=256))
+            plain_ms = cuda_ms(lambda: paged_prefill_attention_plain(qc, layer, 7, kv_end, sm_scale=128**-0.5))
+            item = layer.k_pages.element_size()
+            nbytes = 2 * (2 * qc.numel()) + 2 * kv_end * 8 * (128 * item + 4) + 4 * (kv_end // 128)
+            bound_ms, bound_by = bound(4 * 128 * 32 * causal_pairs(256, kv_end) + 2 * 2 * 128 * 8 * kv_end, nbytes)
+            log(
+                f"[K8q] {mode} q [1,32,256,128] over slot 7's pages to kv_end {kv_end}: |out-plain| {d_plain:.3e}, "
+                f"|out-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), row-relative {d_rel:.3e} (bar "
+                f"{REL_BAR['bfloat16']}); quantization error {d_quant:.3e} (information); allocated "
+                f"{extra / 1e6:.3f} MB in the call, its output "
+                f"{out.numel() * 2 / 1e6:.3f} MB; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
+                f"bound {bound_ms:.4f} ms by {bound_by} ({card})"
+            )
+            if mode == "fp8_e4m3" and kv_end == 2048:
+                report["K8q"] = {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                                 "bound_ms": bound_ms, "bound_by": bound_by}
+        del cache, layer, x_rows, kd, vd, ku, vu
+    q = (torch_uniform((slots, 32, 128), torch.float32, gen) * 8).to(bf16)
+    pages_per_slot = rows // 128
+    for mode in QUANT_MODES:
+        cache, x_rows = _quant_pages(mode, 1, 1 + slots * pages_per_slot, slots, pages_per_slot, gen, rng, dump_slot=False)
+        layer = cache._replace(lengths=torch.full((slots,), rows, dtype=torch.int32, device="cuda")).layers()[0]
+        _quant_paged_decode_case(card, f"q [{slots},32,128] pages [{1 + slots * pages_per_slot},8,128,128], "
+                                 f"every slot {rows} rows", mode, layer, [x[0] for x in x_rows], q, no_copy=True)
+        del cache, layer, x_rows
+
+    # K10q: one bf16 row per slot quantized into 32 layers; slot 0 is a
+    # released slot (dump-page table, frozen length 37), slot 1 at capacity.
+    num_layers = 32
+    for mode in QUANT_MODES:
+        cache, _ = _quant_pages(mode, num_layers, 129, 8, 16, gen, rng)
+        w_lengths = torch.tensor([37, 2048, 5, 127, 128, 129, 1000, 2047], dtype=torch.int32, device="cuda")
+        cache = cache._replace(lengths=w_lengths)
+        slots8 = torch.arange(8, device="cuda")
+        k_new = scaled_rows((num_layers, 8, 8, 128), gen).to(bf16)
+        v_new = scaled_rows((num_layers, 8, 8, 128), gen).to(bf16)
+        plain = PagedModelCache(*(t.clone() for t in cache))
+        written = paged_write_tokens_multi(cache, k_new, v_new, slots8)
+        valid = paged_write_tokens_plain(plain, k_new, v_new, slots8)
+        torch.cuda.synchronize()
+
+        def same() -> bool:
+            return (all(torch.equal(bits(a), bits(b)) for a, b in ((cache.k_pool, plain.k_pool), (cache.v_pool, plain.v_pool)))
+                    and torch.equal(cache.k_scales, plain.k_scales) and torch.equal(cache.v_scales, plain.v_scales))
+
+        if not (same() and valid.tolist() == [1, 0, 1, 1, 1, 1, 1, 1] and torch.equal(written.lengths, w_lengths + valid)):
+            raise RuntimeError(f"K10q {mode}: payload or scales not bit-equal to plain, or lengths advanced wrongly")
+        ms = cuda_ms(lambda: paged_write_tokens_multi(cache, k_new, v_new, slots8))
+        plain_ms = cuda_ms(lambda: paged_write_tokens_plain(plain, k_new, v_new, slots8))
+        n_valid = int(valid.sum())
+        item = cache.k_pool.element_size()
+        nbytes = 2 * num_layers * n_valid * 8 * (128 * 2 + 128 * item + 4) + 4 * 4 * 8
+        bound_ms, bound_by = bound(0, nbytes)
+        # K9q: the same kernel with one layer, new rows into layer 0.
+        k_one, v_one = scaled_rows((8, 8, 128), gen).to(bf16), scaled_rows((8, 8, 128), gen).to(bf16)
+        plain_one = PagedModelCache(*(None if t is None else t[:1] if t.dim() > 2 else t for t in plain))
+        paged_write_tokens(cache.layers()[0], k_one, v_one, slots8)
+        paged_write_tokens_plain(plain_one, k_one[None], v_one[None], slots8)
+        torch.cuda.synchronize()
+        if not same():
+            raise RuntimeError(f"K9q {mode} (one layer): not bit-equal to plain")
+        ms9 = cuda_ms(lambda: paged_write_tokens(cache.layers()[0], k_one, v_one, slots8))
+        plain9 = cuda_ms(lambda: paged_write_tokens_plain(plain_one, k_one[None], v_one[None], slots8))
+        bound9, by9 = bound(0, 2 * n_valid * 8 * (128 * 2 + 128 * item + 4) + 4 * 4 * 8)
+        log(
+            f"[K10q] {mode}: 32 layers x 8 slots x bf16 rows [8,128] quantized into pools [32,129,8,128,128], one "
+            f"slot at capacity, one on the dump page: payload and scales bit-equal to plain, lengths advanced where "
+            f"valid {valid.tolist()}; wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
+            f"{bound_ms:.5f} ms by {bound_by} ({nbytes / 1e6:.2f} MB); K9q (one layer) bit-equal, wrapper "
+            f"{ms9:.4f} ms, plain {plain9:.4f} ms, bound {bound9:.6f} ms by {by9} ({card})"
+        )
+        if mode == "fp8_e4m3":
+            report["K10q"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                              "bound_ms": bound_ms, "bound_by": bound_by}
+        del cache, plain, plain_one
+    torch.cuda.empty_cache()
+    source = "flash_attention_tpu_torch/csrc/"
+    names = {
+        "K6q": ("decode_quant (K6q)", "decode.cu", "ops/decode.py:56"),
+        "K7q": ("paged_decode_quant (K7q)", "decode.cu", "ops/paged.py:980"),
+        "K8q": ("paged_prefill_quant (K8q)", "flash_fwd.cu", "ops/paged.py:580"),
+        "K10q": ("paged_write_quant (K9q/K10q)", "paged_write.cu", "ops/paged.py:257"),
+    }
+    return {key: {"name": names[key][0], "route": "cuda", "source": source + names[key][1],
+                  "replaces": f"{REFERENCE}/{names[key][2]}", **entry} for key, entry in report.items()}
+
+
+def phase_quant_sweep() -> None:
+    """Every (query dtype, payload, head_dim) instantiation of K6q, K7q, K8q
+    and K9q/K10q at ragged shapes: lengths off the 64-row tiles, GQA groups
+    of 1 and 16, an empty slot on the dump page, a slot at capacity."""
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.ops.decode import decode_attention, decode_attention_plain
+    from flash_attention_tpu_torch.ops.paged import (
+        PagedModelCache,
+        paged_decode_attention,
+        paged_decode_attention_plain,
+        paged_prefill_attention,
+        paged_prefill_attention_plain,
+        paged_write_tokens_multi,
+        paged_write_tokens_plain,
+    )
+    from flash_attention_tpu_torch.ops.quant import bits, dequantize, payload_dtype, quantize_values
+    from flash_attention_tpu_torch.ops.reference import reference_attention, reference_attention_with_lse
+
+    rng = np.random.default_rng(10)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    worst = 0.0
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for d in (32, 64, 128):
+            for hq, hkv in ((4, 4), (16, 1)):
+                for mode in QUANT_MODES:
+                    what = f"{mode} {dtype} d={d} {hq}/{hkv}"
+
+                    def hold(kernel, *outs):
+                        return _hold_quant(f"{kernel} {what}", *outs, dtype=name)[2] / REL_BAR[name]
+
+                    # K6q over a dense [2, hkv, 130, d] cache, lengths {0, 130}.
+                    kq, vq = (quantize_values(scaled_rows((2, hkv, 130, d), gen), payload_dtype(mode)) for _ in range(2))
+                    q = (torch_uniform((2, hq, d), torch.float32, gen) * 8).to(dtype)
+                    lengths = torch.tensor([0, 130], dtype=torch.int32, device="cuda")
+                    out, lse = decode_attention(q, kq, vq, lengths, save_residuals=True)
+                    p_out, p_lse = decode_attention_plain(q, kq, vq, lengths, sm_scale=d**-0.5, save_residuals=True)
+                    o_out, o_lse = reference_attention_with_lse(q[:, :, None], dequantize(kq), dequantize(vq), kv_length=lengths)
+                    worst = max(worst, hold("K6q", out, p_out, o_out[:, :, 0], lse, p_lse, o_lse[:, :, 0]))
+                    # K7q, K8q and K10q over two layers of 3 slots x 2 pages.
+                    cache, _ = _quant_pages(mode, 2, 7, 3, 2, gen, rng, kv_heads=hkv, head_dim=d)
+                    layer = cache._replace(lengths=torch.tensor([0, 37, 200], dtype=torch.int32, device="cuda")).layers()[0]
+                    kd = _dense_from_pages(_dequant_pool(layer.k_pages, layer.k_scales), layer.page_table)
+                    vd = _dense_from_pages(_dequant_pool(layer.v_pages, layer.v_scales), layer.page_table)
+                    q = (torch_uniform((3, hq, d), torch.float32, gen) * 8).to(dtype)
+                    out, lse = paged_decode_attention(q, layer, save_residuals=True)
+                    p_out, p_lse = paged_decode_attention_plain(q, layer, sm_scale=d**-0.5, save_residuals=True)
+                    o_out, o_lse = reference_attention_with_lse(q[:, :, None], kd, vd, kv_length=layer.lengths)
+                    worst = max(worst, hold("K7q", out, p_out, o_out[:, :, 0], lse, p_lse, o_lse[:, :, 0]))
+                    qc = (torch_uniform((1, hq, 128, d), torch.float32, gen) * 8).to(dtype)
+                    out = paged_prefill_attention(qc, layer, 2, 200, chunk_len=128)
+                    p_out = paged_prefill_attention_plain(qc, layer, 2, 200, sm_scale=d**-0.5)
+                    o_out = reference_attention(qc, kd[2:3, :, :200], vd[2:3, :, :200], causal=True)
+                    worst = max(worst, hold("K8q", out, p_out, o_out))
+                    cache = cache._replace(lengths=torch.tensor([5, 127, 256], dtype=torch.int32, device="cuda"))
+                    k_new, v_new = (scaled_rows((2, 3, hkv, d), gen).to(dtype) for _ in range(2))
+                    plain = PagedModelCache(*(t.clone() for t in cache))
+                    slots = torch.tensor([2, 0, 1], device="cuda")
+                    written = paged_write_tokens_multi(cache, k_new, v_new, slots)
+                    valid = paged_write_tokens_plain(plain, k_new, v_new, slots)
+                    if not (all(torch.equal(bits(a), bits(b)) for a, b in zip(cache, plain))
+                            and valid.tolist() == [0, 1, 1] and written.lengths.tolist() == [6, 128, 256]):
+                        raise RuntimeError(f"K10q {what}: not bit-equal to plain")
+    torch.cuda.synchronize()
+    log(
+        "[quant sweep] K6q, K7q, K8q and K9q/K10q at fp32/fp16/bf16 queries x int8/e4m3/e5m2 payloads x head_dim "
+        "32/64/128 x groups 1/16, lengths {0 (dump page), 37, 200 | 130}: all within 0.1 of the oracle on the "
+        f"dequantized cache, LSE within {LSE_BAR}, writes bit-equal (payload and scales); worst row-relative "
+        f"difference at {worst:.3f} of its bar {REL_BAR}"
+    )
+
+
+def phase_tiny_quant() -> None:
+    """Phase 10: the tiny fp32 model with each kv_quant mode and with int8
+    weights through both engines on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+    from flash_attention_tpu_torch.serving.engine import Request, ServingEngine
+    from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
+
+    rng = np.random.default_rng(23)
+    prefix = tuple(int(t) for t in rng.integers(0, TINY_CFG["vocab_size"], 256))
+    shared = [Request(id=10 + i, prompt=prefix + tuple(int(t) for t in rng.integers(0, TINY_CFG["vocab_size"], 40)),
+                      max_new_tokens=8) for i in range(3)]
+    for variant in [{"kv_quant": m} for m in QUANT_MODES] + [{"weight_quant": "int8"}]:
+        cfg = ModelConfig(**TINY_CFG, **variant)
+        params = init_model_params(torch.Generator().manual_seed(0), cfg)
+        tokens = {}
+        for device in ("cuda", "cpu"):
+            on = _to_device(params, device)
+            dense = ServingEngine(on, cfg, max_slots=3, max_seq=64, prefill_chunk=16)
+            paged = PagedServingEngine(on, cfg, max_slots=3, num_pages=16, pages_per_slot=2, page_size=128)
+            for name, eng in (("dense", dense), ("paged", paged)):
+                tokens[name, device] = {rid: c.tokens for rid, c in eng.run(tiny_requests()).items()}
+        label = ", ".join(f"{k}={v}" for k, v in variant.items())
+        for name in ("dense", "paged"):
+            if tokens[name, "cuda"] != tokens[name, "cpu"]:
+                raise RuntimeError(f"[tiny quant] {label}, {name}: card tokens {tokens[name, 'cuda']} != CPU "
+                                   f"{tokens[name, 'cpu']}")
+        # Over a quantized cache the paged engine merges the current token's
+        # self term at full precision and the dense engine attends it as
+        # stored, quantized, as in the JAX package, whose two engines diverge
+        # on this model too: the engines must agree on the prefill's token
+        # and the rest is information. Over an unquantized cache they agree.
+        dense, paged = tokens["dense", "cuda"], tokens["paged", "cuda"]
+        if ("kv_quant" not in variant and paged != dense) or any(paged[r][0] != dense[r][0] for r in dense):
+            raise RuntimeError(f"[tiny quant] {label}: paged tokens {paged} vs dense {dense}")
+        diverge = {rid: next((i for i, (a, b) in enumerate(zip(dense[rid], paged[rid])) if a != b), None) for rid in dense}
+        on_card = _to_device(params, "cuda")
+        hits, with_cache = {}, {}
+        for cached in (False, True):
+            eng = PagedServingEngine(on_card, cfg, max_slots=2, num_pages=16, pages_per_slot=4, page_size=128,
+                                     prefill_chunk=128, prefix_cache=cached)
+            with_cache[cached] = {r.id: eng.run([r])[r.id].tokens for r in shared}
+            hits[cached] = eng.prefix_hits
+        if hits[True] <= 0 or with_cache[True] != with_cache[False]:
+            raise RuntimeError(f"[tiny quant] {label}: prefix cache hits {hits[True]}, tokens "
+                               f"{with_cache[True]} vs {with_cache[False]}")
+        log(
+            f"[tiny quant] {label}: both engines' tokens on the card == on the CPU; paged vs dense, first "
+            f"differing token per request {diverge} (None: identical); shared 256-token prefix: prefix_hits "
+            f"{hits[True]}, tokens with cache == without"
+        )
+
+
+def phase_full_quant(card: str, params, dense: dict, paged: dict) -> dict:
+    """Phase 11: phase 5's weights at full width, (a) int8 weights and an
+    int8 cache through ServingEngine on phase 5's requests, (b) an fp8_e4m3
+    cache through PagedServingEngine on phase 8's runs. Returns the launch
+    counts of both main paths."""
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, quantize_model_weights
+
+    params_w8 = quantize_model_weights(params)
+    launches_a, _ = serve_full_dense(card, "full quant a", ModelConfig(kv_quant="int8", weight_quant="int8"), params_w8,
+                                     used=("K1", "K6q"), ref=dense)
+    del params_w8
+    launches_b, _ = serve_full_paged(card, "full quant b", ModelConfig(kv_quant="fp8_e4m3"), params,
+                                     used=("K7q", "K8q", "K9q/K10q"), dense=dense, ref=paged)
+    return {"K6q": launches_a["K6q"], "K7q": launches_b["K7q"], "K8q": launches_b["K8q"], "K10q": launches_b["K9q/K10q"]}
 
 
 def main() -> None:
     import torch
+
+    from flash_attention_tpu_torch.models.transformer import ModelConfig
 
     t_start = time.perf_counter()
     card = phase_device()
@@ -908,10 +1503,15 @@ def main() -> None:
     k7, k8, k10 = phase_paged_kernels(card)
     phase_paged_sweep()
     phase_tiny_paged(dense_tiny)
-    paged = phase_full_paged(card, params, dense)
-    k7["launches"], k8["launches"], k10["launches"] = paged["K7"], paged["K8"], paged["K9/K10"]
+    launches, paged = serve_full_paged(card, "full paged", ModelConfig(), params, used=("K7", "K8", "K9/K10"), dense=dense)
+    k7["launches"], k8["launches"], k10["launches"] = launches["K7"], launches["K8"], launches["K9/K10"]
+    quant = phase_quant_kernels(card)
+    phase_quant_sweep()
+    phase_tiny_quant()
+    for key, n in phase_full_quant(card, params, dense, paged).items():
+        quant[key]["launches"] = n
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k6, k7, k8, k10]}))
+    print(json.dumps({"kernels": [k1, k6, k7, k8, k10, *quant.values()]}))
     print(card)
     print(json.dumps({
         "ok": True,

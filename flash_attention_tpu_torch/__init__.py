@@ -1,4 +1,4 @@
-"""flash_attention_tpu_torch — the PyTorch and CUDA port of flash_attention_tpu.
+"""flash_attention_tpu_torch — the PyTorch and CUDA port of the JAX package.
 
 The JAX package ``flash_attention_tpu`` is the reference; this package mirrors
 its layout so each module's counterpart is found by name:
@@ -7,7 +7,8 @@ its layout so each module's counterpart is found by name:
              its plain PyTorch version, plus the fp32 oracle
   models/    RoPE, the GQA attention layer with its KV cache, the transformer
   serving/   continuous-batching engine, sampling, scheduler wrapper
-  native/    ctypes loader of the shared C++ scheduler sources
+  native/    the C++ scheduler, allocator and oracle sources and their
+             ctypes loader
   utils/     seeded inputs and the oracle-diff harness
 
 Public layouts follow the JAX package: attention tensors are [B, H, S, D],

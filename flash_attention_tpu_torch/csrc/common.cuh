@@ -1,16 +1,19 @@
 // Shared numerics of the attention kernels: the contract of
 // flash_attention_tpu_torch/ops/common.py (fp32 accumulators, exp2-domain
 // softmax with sm_scale * log2(e) folded into one constant, a finite mask
-// value, the running row max floored at M_FLOOR) and the element-type
-// conversions the kernels are templated over.
+// value, the running row max floored at M_FLOOR), the element-type
+// conversions the kernels are templated over, and the widening of the
+// quantized KV payloads (int8, fp8 e4m3 and e5m2; ops/quant.py).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace fat {
 
@@ -18,12 +21,22 @@ constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 constexpr float M_FLOOR = -1e30f;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-// Element types, in the codes the Python wrappers pass.
-enum DType : int { kFloat32 = 0, kFloat16 = 1, kBFloat16 = 2 };
+// Element types, in the codes the Python wrappers pass (ops/_build.py):
+// the query / output types, then the payload types of a quantized cache.
+enum DType : int { kFloat32 = 0, kFloat16 = 1, kBFloat16 = 2, kInt8 = 3, kFp8E4M3 = 4, kFp8E5M2 = 5 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+// Payload widens are exact: every int8 and every finite fp8 code is a float.
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_float(__nv_fp8_e5m2 x) { return static_cast<float>(x); }
+
+// True for the payload types of a quantized cache, whose rows carry a scale.
+template <typename P>
+inline constexpr bool is_payload =
+    std::is_same_v<P, int8_t> || std::is_same_v<P, __nv_fp8_e4m3> || std::is_same_v<P, __nv_fp8_e5m2>;
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -41,25 +54,46 @@ struct TypeTag {
   using type = T;
 };
 
-// Calls fn.template launch<T, D>() for the runtime (dtype, head_dim); returns
-// cudaErrorInvalidValue for a pair with no instantiation.
+// Calls fn(TypeTag<T>{}) for the runtime element type code of a query /
+// output type; cudaErrorInvalidValue for any other code.
 template <typename Fn>
-cudaError_t dispatch(int dtype, int64_t head_dim, const Fn& fn) {
-  auto by_dim = [&](auto tag) -> cudaError_t {
-    using T = typename decltype(tag)::type;
-    switch (head_dim) {
-      case 32: return fn.template launch<T, 32>();
-      case 64: return fn.template launch<T, 64>();
-      case 128: return fn.template launch<T, 128>();
-      default: return cudaErrorInvalidValue;
-    }
-  };
+cudaError_t by_type(int dtype, const Fn& fn) {
   switch (dtype) {
-    case kFloat32: return by_dim(TypeTag<float>{});
-    case kFloat16: return by_dim(TypeTag<__half>{});
-    case kBFloat16: return by_dim(TypeTag<__nv_bfloat16>{});
+    case kFloat32: return fn(TypeTag<float>{});
+    case kFloat16: return fn(TypeTag<__half>{});
+    case kBFloat16: return fn(TypeTag<__nv_bfloat16>{});
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Calls fn.template launch<T, P, D>() for the runtime (dtype, payload,
+// head_dim): P is T itself when payload == dtype (an unquantized cache), else
+// the payload type of the code. With QUANT false only P == T is instantiated.
+// Returns cudaErrorInvalidValue for a combination with no instantiation.
+template <bool QUANT = true, typename Fn>
+cudaError_t dispatch(int dtype, int payload, int64_t head_dim, const Fn& fn) {
+  return by_type(dtype, [&](auto tag) -> cudaError_t {
+    using T = typename decltype(tag)::type;
+    auto by_dim = [&](auto ptag) -> cudaError_t {
+      using P = typename decltype(ptag)::type;
+      switch (head_dim) {
+        case 32: return fn.template launch<T, P, 32>();
+        case 64: return fn.template launch<T, P, 64>();
+        case 128: return fn.template launch<T, P, 128>();
+        default: return cudaErrorInvalidValue;
+      }
+    };
+    if (payload == dtype) return by_dim(TypeTag<T>{});
+    if constexpr (QUANT) {
+      switch (payload) {
+        case kInt8: return by_dim(TypeTag<int8_t>{});
+        case kFp8E4M3: return by_dim(TypeTag<__nv_fp8_e4m3>{});
+        case kFp8E5M2: return by_dim(TypeTag<__nv_fp8_e5m2>{});
+        default: break;
+      }
+    }
+    return cudaErrorInvalidValue;
+  });
 }
 
 }  // namespace fat

@@ -1,26 +1,29 @@
 // K6 and K7: single-token decode attention over a dense or a paged KV cache,
-// for Hopper.
+// bf16 / fp16 / fp32 or quantized (int8, fp8 e4m3, fp8 e5m2 with one fp32
+// scale per row and head), for Hopper.
 //
-// Replaces flash_attention_tpu/ops/decode.py:_decode_kernel (K6, the bf16,
-// fp16 and fp32 cache path) and flash_attention_tpu/ops/paged.py:
-// _paged_decode_kernel_hb (:980) and _paged_decode_kernel (:1104) (K7,
-// decode through a page table, output and base-2 LSE). int8/fp8 dequant,
-// window, softcap, ring buffer and sinks come with later work. One query
-// token per sequence attends to rows [0, lengths[b]) of its cache. Same
-// numerics as K1: fp32 scores and accumulators, exp2 softmax with scale2 =
-// sm_scale * log2(e), the running max floored at M_FLOOR, output 0 and LSE
-// -inf for lengths[b] == 0.
+// Replaces the JAX package's ops/decode.py:_decode_kernel (K6, and its
+// dequant branch) and ops/paged.py:_paged_decode_kernel_hb (:980) and
+// _paged_decode_kernel (:1104) (K7, decode through a page table, output and
+// base-2 LSE, and their dequant branches). Window, softcap, ring buffer and
+// sinks come with later work. One query token per sequence attends to rows
+// [0, lengths[b]) of its cache. Same numerics as K1: fp32 scores and
+// accumulators, exp2 softmax with scale2 = sm_scale * log2(e), the running
+// max floored at M_FLOOR, output 0 and LSE -inf for lengths[b] == 0.
 //
-// One body serves both caches through an address policy (Rows below): row r
-// of (b, kv head h) is
+// One body serves both caches through an address policy (run_index below):
+// row r of (b, kv head h) is
 //   dense:  base + b * sb + h * sh + r * sr
 //   paged:  pages + clamp(table[b, r / page_size]) * sb + h * sh + (r % page_size) * sr
-// The page id is clamped into [0, num_pages): a released slot keeps its
-// length while its table points at dump page 0, and its lane still rides in
-// the batched step, so an unclamped id would be an illegal address.
+// and a quantized row's scale lies at the same (b or page, h, row) of the
+// scale tensor through its own strides. The page id is clamped into
+// [0, num_pages): a released slot keeps its length while its table points at
+// dump page 0, and its lane still rides in the batched step, so an unclamped
+// id would be an illegal address.
 //
 // What bounds it on this card: every cache row is used once per query group,
-// about 4 flops a byte, so the bytes of the cache read bound it.
+// about 4 flops a byte (8 for a 1-byte payload), so the bytes of the cache
+// read bound it; a quantized cache halves them against bf16.
 //
 // Design:
 //  * one block per (kv head, batch row, chunk of up to 8 query rows of the
@@ -32,6 +35,10 @@
 //    row); the warps merge through shared memory at the end. A run of 4 rows
 //    never straddles a page (page_size is a multiple of 4), so the page
 //    table is read once a run;
+//  * a quantized payload is widened and multiplied by its row's scale as it
+//    is loaded (early scaling; the TPU kernel scales the scores and p, late,
+//    which is the same up to fp32 rounding), so nothing but the payload and
+//    one scale a row comes from memory and no dequantized copy exists;
 //  * at batch 8 with 8 kv heads this is 64 blocks for 132 SMs; splitting the
 //    kv range across blocks (flash-decoding, with an LSE merge) to fill the
 //    card at small batch is later work.
@@ -48,6 +55,8 @@ struct DecodeParams {
   const void* q;  // [B, Hq, D], unit stride on D
   const void* k;
   const void* v;
+  const float* ks;  // quantized: K's scales, one a row; else nullptr
+  const float* vs;
   void* o;       // [B, Hq, D], contiguous
   float* lse;    // [B, Hq] or nullptr
   const int32_t* lengths;
@@ -55,28 +64,31 @@ struct DecodeParams {
   int64_t q_sb, q_sh;
   int64_t k_sb, k_sh, k_sr;  // paged: sb is the page stride
   int64_t v_sb, v_sh, v_sr;
+  int64_t ks_sb, ks_sh, ks_sr;  // the scales' strides, indexed as the payload's
+  int64_t vs_sb, vs_sh, vs_sr;
   int num_q_heads, group, max_seq;
   int page_size, pages_per_slot, num_pages;
   float scale2;
 };
 
-// The first of UNROLL rows starting at r0 (a multiple of UNROLL) of batch
-// row b, kv head hk; the run's rows follow at stride sr.
-template <typename T, bool PAGED>
-__device__ __forceinline__ const T* run_base(const DecodeParams& p, const void* base, int64_t sb,
-                                             int64_t sh, int64_t sr, int b, int hk, int r0) {
-  const T* x = static_cast<const T*>(base) + hk * sh;
+// Where the run of UNROLL rows starting at r0 (a multiple of UNROLL) of
+// batch row b lies: .x is what the first stride indexes (the batch row, or
+// the clamped physical page), .y the run's first row in it.
+template <bool PAGED>
+__device__ __forceinline__ int2 run_index(const DecodeParams& p, int b, int r0) {
   if constexpr (PAGED) {
     const int page = p.table[static_cast<int64_t>(b) * p.pages_per_slot + r0 / p.page_size];
-    const int phys = min(max(page, 0), p.num_pages - 1);
-    return x + phys * sb + (r0 % p.page_size) * sr;
+    return make_int2(min(max(page, 0), p.num_pages - 1), r0 % p.page_size);
   } else {
-    return x + b * sb + r0 * sr;
+    return make_int2(b, r0);
   }
 }
 
-template <typename T, int D, bool PAGED>
+// T: query and output type; P: the cache's element type (T, or a payload
+// type whose rows are scaled).
+template <typename T, typename P, int D, bool PAGED>
 __global__ void __launch_bounds__(THREADS) decode_kernel(const DecodeParams p) {
+  constexpr bool QUANT = fat::is_payload<P>;
   constexpr int EPL = D / 32;  // elements of a row per lane
   __shared__ float s_m[WARPS][MAX_G];
   __shared__ float s_l[WARPS][MAX_G];
@@ -104,16 +116,26 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const DecodeParams p) {
   }
 
   for (int r0 = warp * UNROLL; r0 < length; r0 += WARPS * UNROLL) {
-    const T* k = run_base<T, PAGED>(p, p.k, p.k_sb, p.k_sh, p.k_sr, b, hk, r0) + lane * EPL;
-    const T* v = run_base<T, PAGED>(p, p.v, p.v_sb, p.v_sh, p.v_sr, b, hk, r0) + lane * EPL;
+    const int2 at = run_index<PAGED>(p, b, r0);
+    const P* k = static_cast<const P*>(p.k) + at.x * p.k_sb + hk * p.k_sh + at.y * p.k_sr + lane * EPL;
+    const P* v = static_cast<const P*>(p.v) + at.x * p.v_sb + hk * p.v_sh + at.y * p.v_sr + lane * EPL;
     float kr[UNROLL][EPL], vr[UNROLL][EPL];
+    float ksc[UNROLL], vsc[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const bool live = r0 + u < length;
+      if constexpr (QUANT) {
+        ksc[u] = live ? p.ks[at.x * p.ks_sb + hk * p.ks_sh + (at.y + u) * p.ks_sr] : 0.f;
+        vsc[u] = live ? p.vs[at.x * p.vs_sb + hk * p.vs_sh + (at.y + u) * p.vs_sr] : 0.f;
+      }
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
         kr[u][e] = live ? fat::to_float(k[u * p.k_sr + e]) : 0.f;
         vr[u][e] = live ? fat::to_float(v[u * p.v_sr + e]) : 0.f;
+        if constexpr (QUANT) {
+          kr[u][e] *= ksc[u];
+          vr[u][e] *= vsc[u];
+        }
       }
     }
 #pragma unroll
@@ -184,34 +206,43 @@ struct DecodeLaunch {
   int64_t batch, num_kv_heads;
   cudaStream_t stream;
 
-  template <typename T, int D>
+  template <typename T, typename P, int D>
   cudaError_t launch() const {
+    if (fat::is_payload<P> && (p.ks == nullptr || p.vs == nullptr)) return cudaErrorInvalidValue;
     const dim3 grid(static_cast<unsigned>(num_kv_heads), static_cast<unsigned>(batch),
                     (p.group + MAX_G - 1) / MAX_G);
-    decode_kernel<T, D, PAGED><<<grid, THREADS, 0, stream>>>(p);
+    decode_kernel<T, P, D, PAGED><<<grid, THREADS, 0, stream>>>(p);
     return cudaGetLastError();
   }
 };
 
-DecodeParams make_params(const void* q, const void* k, const void* v, void* o, float* lse,
-                         const int32_t* lengths, int64_t num_q_heads, int64_t num_kv_heads,
-                         int64_t q_sb, int64_t q_sh, int64_t k_sb, int64_t k_sh, int64_t k_sr,
-                         int64_t v_sb, int64_t v_sh, int64_t v_sr, float scale2) {
+DecodeParams make_params(const void* q, const void* k, const void* v, const float* ks,
+                         const float* vs, void* o, float* lse, const int32_t* lengths,
+                         int64_t num_q_heads, int64_t num_kv_heads, int64_t q_sb, int64_t q_sh,
+                         const int64_t* kv_strides, float scale2) {
   DecodeParams p{};
   p.q = q;
   p.k = k;
   p.v = v;
+  p.ks = ks;
+  p.vs = vs;
   p.o = o;
   p.lse = lse;
   p.lengths = lengths;
   p.q_sb = q_sb;
   p.q_sh = q_sh;
-  p.k_sb = k_sb;
-  p.k_sh = k_sh;
-  p.k_sr = k_sr;
-  p.v_sb = v_sb;
-  p.v_sh = v_sh;
-  p.v_sr = v_sr;
+  p.k_sb = kv_strides[0];
+  p.k_sh = kv_strides[1];
+  p.k_sr = kv_strides[2];
+  p.v_sb = kv_strides[3];
+  p.v_sh = kv_strides[4];
+  p.v_sr = kv_strides[5];
+  p.ks_sb = kv_strides[6];
+  p.ks_sh = kv_strides[7];
+  p.ks_sr = kv_strides[8];
+  p.vs_sb = kv_strides[9];
+  p.vs_sh = kv_strides[10];
+  p.vs_sr = kv_strides[11];
   p.num_q_heads = static_cast<int>(num_q_heads);
   p.group = static_cast<int>(num_q_heads / num_kv_heads);
   p.scale2 = scale2;
@@ -220,41 +251,48 @@ DecodeParams make_params(const void* q, const void* k, const void* v, void* o, f
 
 }  // namespace
 
+// kv_strides, in elements: K's batch (K7: page) / head / row strides, then
+// V's, then those of K's scales and V's scales (read only when quantized).
+
 // K6. q [B, Hq, D] with unit stride on D; k and v caches [B, Hkv, max_seq, D]
-// with unit stride on D and the given batch / head / row strides (in
-// elements); lengths [B] int32; o [B, Hq, D] contiguous; lse [B, Hq] fp32 or
-// null. Returns a cudaError_t.
-extern "C" int fat_decode(const void* q, const void* k, const void* v, void* o, float* lse,
-                          const int32_t* lengths, int64_t batch, int64_t num_q_heads,
-                          int64_t num_kv_heads, int64_t max_seq, int64_t head_dim, int64_t q_sb,
-                          int64_t q_sh, int64_t k_sb, int64_t k_sh, int64_t k_sr, int64_t v_sb,
-                          int64_t v_sh, int64_t v_sr, float scale2, int32_t dtype, void* stream) {
-  DecodeParams p = make_params(q, k, v, o, lse, lengths, num_q_heads, num_kv_heads, q_sb, q_sh,
-                               k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, scale2);
+// with unit stride on D; ks and vs their scales [B, Hkv, max_seq(, 1)] fp32
+// when payload is a quantized type, else null; lengths [B] int32; o [B, Hq,
+// D] contiguous; lse [B, Hq] fp32 or null. dtype is q's and o's element
+// type, payload the cache's (equal to dtype when not quantized). Returns a
+// cudaError_t.
+extern "C" int fat_decode(const void* q, const void* k, const void* v, const float* ks,
+                          const float* vs, void* o, float* lse, const int32_t* lengths,
+                          int64_t batch, int64_t num_q_heads, int64_t num_kv_heads,
+                          int64_t max_seq, int64_t head_dim, int64_t q_sb, int64_t q_sh,
+                          const int64_t* kv_strides, float scale2, int32_t dtype, int32_t payload,
+                          void* stream) {
+  DecodeParams p = make_params(q, k, v, ks, vs, o, lse, lengths, num_q_heads, num_kv_heads, q_sb,
+                               q_sh, kv_strides, scale2);
   p.max_seq = static_cast<int>(max_seq);
   const DecodeLaunch<false> launcher{p, batch, num_kv_heads, static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(fat::dispatch(dtype, head_dim, launcher));
+  return static_cast<int>(fat::dispatch(dtype, payload, head_dim, launcher));
 }
 
 // K7. q [S, Hq, D] with unit stride on D; k and v pages [num_pages, Hkv,
-// page_size, D] with unit stride on D and the given page / head / row
-// strides; table [S, pages_per_slot] int32 contiguous; lengths [S] int32
-// (rows past pages_per_slot * page_size are not read); o [S, Hq, D]
-// contiguous; lse [S, Hq] fp32 or null. page_size must be a multiple of 4.
-extern "C" int fat_paged_decode(const void* q, const void* k, const void* v, void* o, float* lse,
-                                const int32_t* lengths, const int32_t* table, int64_t num_slots,
-                                int64_t num_q_heads, int64_t num_kv_heads, int64_t num_pages,
-                                int64_t page_size, int64_t pages_per_slot, int64_t head_dim,
-                                int64_t q_sb, int64_t q_sh, int64_t k_sp, int64_t k_sh,
-                                int64_t k_sr, int64_t v_sp, int64_t v_sh, int64_t v_sr,
-                                float scale2, int32_t dtype, void* stream) {
-  DecodeParams p = make_params(q, k, v, o, lse, lengths, num_q_heads, num_kv_heads, q_sb, q_sh,
-                               k_sp, k_sh, k_sr, v_sp, v_sh, v_sr, scale2);
+// page_size, D] with unit stride on D; ks and vs their scales [num_pages,
+// Hkv, page_size] fp32 when quantized, else null; table [S, pages_per_slot]
+// int32 contiguous; lengths [S] int32 (rows past pages_per_slot * page_size
+// are not read); o [S, Hq, D] contiguous; lse [S, Hq] fp32 or null.
+// page_size must be a multiple of 4.
+extern "C" int fat_paged_decode(const void* q, const void* k, const void* v, const float* ks,
+                                const float* vs, void* o, float* lse, const int32_t* lengths,
+                                const int32_t* table, int64_t num_slots, int64_t num_q_heads,
+                                int64_t num_kv_heads, int64_t num_pages, int64_t page_size,
+                                int64_t pages_per_slot, int64_t head_dim, int64_t q_sb,
+                                int64_t q_sh, const int64_t* kv_strides, float scale2,
+                                int32_t dtype, int32_t payload, void* stream) {
+  DecodeParams p = make_params(q, k, v, ks, vs, o, lse, lengths, num_q_heads, num_kv_heads, q_sb,
+                               q_sh, kv_strides, scale2);
   p.table = table;
   p.page_size = static_cast<int>(page_size);
   p.pages_per_slot = static_cast<int>(pages_per_slot);
   p.num_pages = static_cast<int>(num_pages);
   p.max_seq = static_cast<int>(page_size * pages_per_slot);
   const DecodeLaunch<true> launcher{p, num_slots, num_kv_heads, static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(fat::dispatch(dtype, head_dim, launcher));
+  return static_cast<int>(fat::dispatch(dtype, payload, head_dim, launcher));
 }

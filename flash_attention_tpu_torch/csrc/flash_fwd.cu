@@ -1,9 +1,12 @@
 // K1 and K8: fused attention forward (causal or not, MHA or GQA) over dense
-// K/V or, in place, over a slot's KV pages, for Hopper.
+// K/V or, in place, over a slot's KV pages (bf16 / fp16 / fp32, or K8 over
+// quantized pages: int8, fp8 e4m3, fp8 e5m2 with one fp32 scale per row and
+// head), for Hopper.
 //
-// Replaces flash_attention_tpu/ops/flash_attention.py:_fwd_kernel (K1, the
-// Pallas forward) and flash_attention_tpu/ops/paged.py:_paged_prefill_kernel
-// (:580, K8, chunked-prefill attention reading K/V pages in place). Same
+// Replaces the JAX package's ops/flash_attention.py:_fwd_kernel (K1, the
+// Pallas forward) and ops/paged.py:_paged_prefill_kernel (:580, K8,
+// chunked-prefill attention reading K/V pages in place, and its dequant
+// branch). Same
 // function: S = Q K^T in fp32, an online exp2 softmax with scale2 = sm_scale
 // * log2(e), P V accumulated in fp32, the output normalised by l (0 where
 // l == 0), and optionally the base-2 LSE m + log2(l) (-inf where l == 0).
@@ -11,12 +14,17 @@
 // q_len); for K8, kv_len is the chunk's kv_end and the chunk's rows sit at
 // positions [kv_end - q_len, kv_end). The kv head of q head h is h / group.
 //
-// One body serves both through a kv address policy (kv_tile below): the
+// One body serves both through a kv address policy (tile_index below): the
 // 64-row kv tile starting at row n0 of (b, kv head h) is
 //   dense:  base + b * sb + h * sh + n0 * sr
 //   paged:  pages + clamp(table[n0 / page_size]) * sb + h * sh + (n0 % page_size) * sr
-// A tile never straddles a page (page_size is a multiple of 64), so the
-// table is read once a tile, and the page id is clamped into [0, num_pages).
+// and a quantized tile's row scales lie at the same (page, h, row) of the
+// scale pool. A tile never straddles a page (page_size is a multiple of 64),
+// so the table is read once a tile, and the page id is clamped into
+// [0, num_pages). A quantized payload is widened and multiplied by its row's
+// scale as the tile is loaded into shared memory (the TPU kernel scales the
+// score tile and p instead; the same up to fp32 rounding), so only the
+// payload and the scales are read and no dequantized copy exists.
 //
 // What bounds it on this card: at long kv the score and PV products are
 // O(q_len * kv_len * D) against O((q_len + kv_len) * D) bytes, so arithmetic
@@ -49,12 +57,16 @@ struct FwdParams {
   const void* q;
   const void* k;
   const void* v;
+  const float* ks;  // K8 quantized: the pages' row scales; else nullptr
+  const float* vs;
   void* o;     // [B, Hq, Sq, D], contiguous
   float* lse;  // [B, Hq, Sq] or nullptr
   const int32_t* table;  // paged: the slot's [pages_per_slot] row; dense: unused
   int64_t q_sb, q_sh, q_sr;
   int64_t k_sb, k_sh, k_sr;  // paged: sb is the page stride
   int64_t v_sb, v_sh, v_sr;
+  int64_t ks_sp, ks_sh, ks_sr;  // the scale pools' page / head / row strides
+  int64_t vs_sp, vs_sh, vs_sr;
   int num_q_heads, group, q_len, kv_len, causal;
   int page_size, num_pages;
   float scale2;
@@ -66,30 +78,38 @@ constexpr size_t smem_bytes() {
 }
 
 // Loads BN rows of a matrix with row stride `sr`, starting at `src`, into
-// the fp32 tile `dst` (row pitch D + 1); rows at or past `n` read as 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t sr, int n,
-                                          float scale) {
+// the fp32 tile `dst` (row pitch D + 1), each multiplied by `scale` and, for
+// a quantized payload, by its row's scale row_scale[r * ssr]; rows at or
+// past `n` read as 0.
+template <typename P, int D>
+__device__ __forceinline__ void load_tile(float* dst, const P* src, int64_t sr, int n, float scale,
+                                          const float* row_scale = nullptr, int64_t ssr = 0) {
   for (int i = threadIdx.x; i < BN * D; i += THREADS) {
     const int r = i / D, d = i % D;
-    dst[r * (D + 1) + d] = r < n ? fat::to_float(src[r * sr + d]) * scale : 0.f;
+    float x = 0.f;
+    if (r < n) {
+      x = fat::to_float(src[r * sr + d]) * scale;
+      if constexpr (fat::is_payload<P>) x *= row_scale[r * ssr];
+    }
+    dst[r * (D + 1) + d] = x;
   }
 }
 
-// The first row of the kv tile starting at row n0 of batch row b, kv head hk.
-template <typename T, bool PAGED>
-__device__ __forceinline__ const T* kv_tile(const FwdParams& p, const void* base, int64_t sb,
-                                            int64_t sh, int64_t sr, int b, int hk, int n0) {
-  const T* x = static_cast<const T*>(base) + hk * sh;
+// Where the kv tile starting at row n0 of batch row b lies: .x is what the
+// first stride indexes (the batch row, or the clamped physical page), .y the
+// tile's first row in it.
+template <bool PAGED>
+__device__ __forceinline__ int2 tile_index(const FwdParams& p, int b, int n0) {
   if constexpr (PAGED) {
-    const int phys = min(max(p.table[n0 / p.page_size], 0), p.num_pages - 1);
-    return x + phys * sb + (n0 % p.page_size) * sr;
+    return make_int2(min(max(p.table[n0 / p.page_size], 0), p.num_pages - 1), n0 % p.page_size);
   } else {
-    return x + b * sb + n0 * sr;
+    return make_int2(b, n0);
   }
 }
 
-template <typename T, int D, bool PAGED>
+// T: query and output type; P: the K/V element type (T, or a payload type
+// whose rows are scaled; K8 only).
+template <typename T, typename P, int D, bool PAGED>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   constexpr int LD = D + 1;
   constexpr int LDP = BN + 1;
@@ -111,6 +131,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
 
   load_tile<T, D>(s_q, q + m0 * p.q_sr, p.q_sr, p.q_len - m0, p.scale2);
+  const P* k_base = static_cast<const P*>(p.k) + hk * p.k_sh;
+  const P* v_base = static_cast<const P*>(p.v) + hk * p.v_sh;
 
   float m[ROWS], l[ROWS], acc[ROWS][DC];
 #pragma unroll
@@ -125,9 +147,10 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   const int n_end = p.causal ? min(p.kv_len, last_row + diag + 1) : p.kv_len;
 
   for (int n0 = 0; n0 < n_end; n0 += BN) {
+    const int2 at = tile_index<PAGED>(p, b, n0);
     __syncthreads();  // the previous tile's V and P are no longer read
-    load_tile<T, D>(s_kv, kv_tile<T, PAGED>(p, p.k, p.k_sb, p.k_sh, p.k_sr, b, hk, n0), p.k_sr,
-                    p.kv_len - n0, 1.f);
+    load_tile<P, D>(s_kv, k_base + at.x * p.k_sb + at.y * p.k_sr, p.k_sr, p.kv_len - n0, 1.f,
+                    p.ks + (at.x * p.ks_sp + hk * p.ks_sh + at.y * p.ks_sr), p.ks_sr);
     __syncthreads();
 
     float s[ROWS][COLS];
@@ -182,8 +205,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
       for (int j = 0; j < COLS; ++j) s_p[(ty * ROWS + i) * LDP + tx + COLS * j] = s[i][j];
     }
     __syncthreads();  // K is no longer read; P is complete
-    load_tile<T, D>(s_kv, kv_tile<T, PAGED>(p, p.v, p.v_sb, p.v_sh, p.v_sr, b, hk, n0), p.v_sr,
-                    p.kv_len - n0, 1.f);
+    load_tile<P, D>(s_kv, v_base + at.x * p.v_sb + at.y * p.v_sr, p.v_sr, p.kv_len - n0, 1.f,
+                    p.vs + (at.x * p.vs_sp + hk * p.vs_sh + at.y * p.vs_sr), p.vs_sr);
     __syncthreads();
 
 #pragma unroll 4
@@ -221,15 +244,16 @@ struct FwdLaunch {
   int64_t batch;
   cudaStream_t stream;
 
-  template <typename T, int D>
+  template <typename T, typename P, int D>
   cudaError_t launch() const {
+    if (fat::is_payload<P> && (p.ks == nullptr || p.vs == nullptr)) return cudaErrorInvalidValue;
     constexpr size_t smem = smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<T, P, D, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const dim3 grid((p.q_len + BM - 1) / BM, static_cast<unsigned>(batch * p.num_q_heads));
-    flash_fwd_kernel<T, D, PAGED><<<grid, THREADS, smem, stream>>>(p);
+    flash_fwd_kernel<T, P, D, PAGED><<<grid, THREADS, smem, stream>>>(p);
     return cudaGetLastError();
   }
 };
@@ -277,28 +301,42 @@ extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* 
   const FwdParams p = make_params(q, k, v, o, lse, num_q_heads, num_kv_heads, q_len, kv_len, q_sb,
                                   q_sh, q_sr, k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, scale2, causal);
   const FwdLaunch<false> launcher{p, batch, static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(fat::dispatch(dtype, head_dim, launcher));
+  return static_cast<int>(fat::dispatch<false>(dtype, dtype, head_dim, launcher));
 }
 
 // K8. q [1, Hq, T, D] with unit stride on D; k and v pages [num_pages, Hkv,
 // page_size, D] with unit stride on D and the given page / head / row
-// strides; table the slot's [pages_per_slot] int32 row; causal over
-// kv_end rows, the chunk's rows at [kv_end - T, kv_end); o [1, Hq, T, D]
-// contiguous. page_size must be a multiple of 64. Returns a cudaError_t.
-extern "C" int fat_paged_prefill(const void* q, const void* k, const void* v, void* o,
-                                 const int32_t* table, int64_t num_q_heads, int64_t num_kv_heads,
-                                 int64_t num_pages, int64_t page_size, int64_t q_len,
-                                 int64_t kv_end, int64_t head_dim, int64_t q_sh, int64_t q_sr,
-                                 int64_t k_sp, int64_t k_sh, int64_t k_sr, int64_t v_sp,
-                                 int64_t v_sh, int64_t v_sr, float scale2, int32_t dtype,
-                                 void* stream) {
+// strides; ks and vs their scales [num_pages, Hkv, page_size] fp32 when
+// payload is a quantized type (scale_strides: K's page / head / row
+// strides, then V's), else null; table the slot's [pages_per_slot] int32
+// row; causal over kv_end rows, the chunk's rows at [kv_end - T, kv_end);
+// o [1, Hq, T, D] contiguous. page_size must be a multiple of 64. Returns a
+// cudaError_t.
+extern "C" int fat_paged_prefill(const void* q, const void* k, const void* v, const float* ks,
+                                 const float* vs, void* o, const int32_t* table,
+                                 int64_t num_q_heads, int64_t num_kv_heads, int64_t num_pages,
+                                 int64_t page_size, int64_t q_len, int64_t kv_end,
+                                 int64_t head_dim, int64_t q_sh, int64_t q_sr, int64_t k_sp,
+                                 int64_t k_sh, int64_t k_sr, int64_t v_sp, int64_t v_sh,
+                                 int64_t v_sr, const int64_t* scale_strides, float scale2,
+                                 int32_t dtype, int32_t payload, void* stream) {
   FwdParams p = make_params(q, k, v, o, nullptr, num_q_heads, num_kv_heads, q_len, kv_end, 0, q_sh,
                             q_sr, k_sp, k_sh, k_sr, v_sp, v_sh, v_sr, scale2, 1);
+  p.ks = ks;
+  p.vs = vs;
+  if (ks != nullptr) {
+    p.ks_sp = scale_strides[0];
+    p.ks_sh = scale_strides[1];
+    p.ks_sr = scale_strides[2];
+    p.vs_sp = scale_strides[3];
+    p.vs_sh = scale_strides[4];
+    p.vs_sr = scale_strides[5];
+  }
   p.table = table;
   p.page_size = static_cast<int>(page_size);
   p.num_pages = static_cast<int>(num_pages);
   const FwdLaunch<true> launcher{p, 1, static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(fat::dispatch(dtype, head_dim, launcher));
+  return static_cast<int>(fat::dispatch(dtype, payload, head_dim, launcher));
 }
 
 extern "C" const char* fat_error_string(int err) {

@@ -1,9 +1,11 @@
 // K9 and K10: append one token's K/V row per slot to the KV pages of L
-// layers in one launch, for Hopper.
+// layers in one launch, for Hopper; K9q and K10q quantize the rows as they
+// write them.
 //
-// Replaces flash_attention_tpu/ops/paged.py:_write_rows_kernel (:130, K9,
-// one layer) and _make_multi_write_kernel (:257, K10, all layers of the
-// deferred decode step; its non-quantized branch). For listed slot i, layer
+// Replaces the JAX package's ops/paged.py:_write_rows_kernel (:130, K9,
+// one layer), _write_rows_kernel_quant (:145, K9q) and
+// _make_multi_write_kernel (:257, K10, all layers of the deferred decode
+// step, and its quantized branch K10q, :280-287). For listed slot i, layer
 // l: pos = lengths[slot], and where pos < pages_per_slot * page_size the
 // row's kv_heads x head_dim K and V elements go to
 //   pool_l[clamp(table[slot, pos / page_size]), h, pos % page_size, :]
@@ -21,6 +23,20 @@
 // the row straight into place, so nothing else in the page is touched (the
 // TPU kernel read and rewrote 8-row slabs because Mosaic wants blocks of
 // whole sublanes). The kernel is type-agnostic: it copies bytes.
+//
+// K9q/K10q (paged_write_quant_kernel): the JAX package quantizes the rows in
+// XLA and its kernel writes payload rows and scale lanes; here the kernel
+// takes the rows in the model's dtype and quantizes them itself, so the
+// quantized rows never pass through device memory. One warp takes one
+// (K or V, head) row of one (slot, layer): its absmax by a shuffle
+// reduction, the scale absmax / QMAX in fp32 (1 for an all-zero row), then
+// each element divided by it (IEEE division: the build has no fast math),
+// and for int8 rounded half to even (rintf) and clipped to [-127, 127], for
+// fp8 cast with __nv_cvt_float_to_fp8(..., __NV_SATFINITE, ...), which
+// rounds to nearest even as torch's cast does; the rows' values never reach
+// the saturation. The output is bit-equal to ops/quant.py's quantize_values
+// followed by the plain write. The scale is one 4-byte store per (row,
+// head) into the [L, num_pages, H, page_size] scale pools.
 #include "common.cuh"
 
 namespace {
@@ -59,6 +75,72 @@ __global__ void __launch_bounds__(THREADS) paged_write_kernel(const WriteParams 
   }
 }
 
+// The payload code of x, quantized by the row scale `scale`.
+template <typename P>
+__device__ __forceinline__ P quantize(float x, float scale) {
+  const float y = x / scale;
+  P out;
+  if constexpr (std::is_same_v<P, int8_t>) {
+    out = static_cast<int8_t>(fminf(fmaxf(rintf(y), -127.f), 127.f));
+  } else {
+    constexpr __nv_fp8_interpretation_t kind =
+        std::is_same_v<P, __nv_fp8_e4m3> ? __NV_E4M3 : __NV_E5M2;
+    out.__x = __nv_cvt_float_to_fp8(y, __NV_SATFINITE, kind);
+  }
+  return out;
+}
+
+struct QuantWriteParams {
+  const void* k_new;  // [L, n, H, D] in the model's dtype, contiguous
+  const void* v_new;
+  void* k_pool;  // layer 0's [num_pages, H, page_size, D] payload pages
+  void* v_pool;
+  float* k_scales;  // layer 0's [num_pages, H, page_size] scale pages
+  float* v_scales;
+  const int32_t* lengths;
+  const int32_t* table;
+  const int32_t* slots;
+  int32_t* valid;
+  int64_t layer_stride, page_stride, head_stride, row_stride;  // payload strides, in elements
+  int64_t s_layer_stride, s_page_stride, s_head_stride;        // scale strides (rows contiguous)
+  int n, num_heads, head_dim, num_pages, page_size, pages_per_slot;
+  float qmax;
+};
+
+template <typename T, typename P>
+__global__ void __launch_bounds__(THREADS) paged_write_quant_kernel(const QuantWriteParams p) {
+  const int i = blockIdx.x, layer = blockIdx.y;
+  const int slot = p.slots[i];
+  const int pos = p.lengths[slot];
+  const bool ok = pos >= 0 && pos < p.page_size * p.pages_per_slot;
+  if (layer == 0 && threadIdx.x == 0) p.valid[i] = ok;
+  if (!ok) return;
+  const int page = p.table[static_cast<int64_t>(slot) * p.pages_per_slot + pos / p.page_size];
+  const int phys = min(max(page, 0), p.num_pages - 1);
+  const int row = pos % p.page_size;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // Units: (K or V, head) rows of this (slot, layer), one warp each.
+  for (int unit = warp; unit < 2 * p.num_heads; unit += THREADS / 32) {
+    const bool is_v = unit >= p.num_heads;
+    const int h = unit % p.num_heads;
+    const T* src = static_cast<const T*>(is_v ? p.v_new : p.k_new) +
+                   ((static_cast<int64_t>(layer) * p.n + i) * p.num_heads + h) * p.head_dim;
+    float absmax = 0.f;
+    for (int e = lane; e < p.head_dim; e += 32) absmax = fmaxf(absmax, fabsf(fat::to_float(src[e])));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      absmax = fmaxf(absmax, __shfl_xor_sync(fat::FULL_MASK, absmax, off));
+    const float scale = absmax == 0.f ? 1.f : absmax / p.qmax;
+    P* dst = static_cast<P*>(is_v ? p.v_pool : p.k_pool) + layer * p.layer_stride +
+             phys * p.page_stride + h * p.head_stride + row * p.row_stride;
+    for (int e = lane; e < p.head_dim; e += 32) dst[e] = quantize<P>(fat::to_float(src[e]), scale);
+    if (lane == 0) {
+      float* sc = is_v ? p.v_scales : p.k_scales;
+      sc[layer * p.s_layer_stride + phys * p.s_page_stride + h * p.s_head_stride + row] = scale;
+    }
+  }
+}
+
 }  // namespace
 
 // k_new, v_new [L, n, H, D] contiguous; k_pool, v_pool point at layer 0 of
@@ -94,4 +176,70 @@ extern "C" int fat_paged_write(const void* k_new, const void* v_new, void* k_poo
   const dim3 grid(static_cast<unsigned>(n), static_cast<unsigned>(num_layers));
   paged_write_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K9q/K10q. k_new, v_new [L, n, H, D] contiguous in the model's dtype
+// (dtype: float32, float16 or bfloat16); k_pool, v_pool point at layer 0 of
+// payload pools (payload: int8, fp8 e4m3 or fp8 e5m2) whose layers, pages,
+// heads and rows lie at the given element strides, rows contiguous; k_scales,
+// v_scales at layer 0 of [L, num_pages, H, page_size] fp32 scale pools with
+// the given layer / page / head strides and contiguous rows; lengths, table,
+// slots and valid as in fat_paged_write. Returns a cudaError_t.
+extern "C" int fat_paged_write_quant(const void* k_new, const void* v_new, void* k_pool,
+                                     void* v_pool, float* k_scales, float* v_scales,
+                                     const int32_t* lengths, const int32_t* table,
+                                     const int32_t* slots, int32_t* valid, int64_t num_layers,
+                                     int64_t n, int64_t num_heads, int64_t head_dim,
+                                     int64_t num_pages, int64_t page_size, int64_t pages_per_slot,
+                                     int64_t layer_stride, int64_t page_stride,
+                                     int64_t head_stride, int64_t row_stride,
+                                     int64_t s_layer_stride, int64_t s_page_stride,
+                                     int64_t s_head_stride, int32_t dtype, int32_t payload,
+                                     void* stream) {
+  QuantWriteParams p{};
+  p.k_new = k_new;
+  p.v_new = v_new;
+  p.k_pool = k_pool;
+  p.v_pool = v_pool;
+  p.k_scales = k_scales;
+  p.v_scales = v_scales;
+  p.lengths = lengths;
+  p.table = table;
+  p.slots = slots;
+  p.valid = valid;
+  p.layer_stride = layer_stride;
+  p.page_stride = page_stride;
+  p.head_stride = head_stride;
+  p.row_stride = row_stride;
+  p.s_layer_stride = s_layer_stride;
+  p.s_page_stride = s_page_stride;
+  p.s_head_stride = s_head_stride;
+  p.n = static_cast<int>(n);
+  p.num_heads = static_cast<int>(num_heads);
+  p.head_dim = static_cast<int>(head_dim);
+  p.num_pages = static_cast<int>(num_pages);
+  p.page_size = static_cast<int>(page_size);
+  p.pages_per_slot = static_cast<int>(pages_per_slot);
+  const dim3 grid(static_cast<unsigned>(n), static_cast<unsigned>(num_layers));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(fat::by_type(dtype, [&](auto tag) -> cudaError_t {
+    using T = typename decltype(tag)::type;
+    switch (payload) {
+      case fat::kInt8:
+        p.qmax = 127.f;
+        paged_write_quant_kernel<T, int8_t><<<grid, THREADS, 0, st>>>(p);
+        break;
+      case fat::kFp8E4M3:
+        p.qmax = 448.f;
+        paged_write_quant_kernel<T, __nv_fp8_e4m3><<<grid, THREADS, 0, st>>>(p);
+        break;
+      case fat::kFp8E5M2:
+        p.qmax = 57344.f;
+        paged_write_quant_kernel<T, __nv_fp8_e5m2><<<grid, THREADS, 0, st>>>(p);
+        break;
+      default:
+        return cudaErrorInvalidValue;
+    }
+    return cudaGetLastError();
+  }));
 }

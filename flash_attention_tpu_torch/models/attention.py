@@ -1,6 +1,6 @@
 """GQA attention layer with a decode KV cache, built on the port's kernels.
 
-Counterpart of ``flash_attention_tpu/models/attention.py``. Over the dense
+Counterpart of the JAX package's ``models/attention.py``. Over the dense
 cache, prefill runs through ``ops.flash_attention`` (K1, causal) and decode
 through ``ops.decode.decode_attention`` (K6); over the paged cache
 (``ops/paged.py``), chunked prefill through K8 and decode through K7 with
@@ -11,8 +11,14 @@ multi-GiB cache per step is what JAX's buffer donation avoids, and in-place
 writes are how PyTorch avoids it. Lengths are replaced, not mutated, so a
 caller holding an old cache tuple still sees its old lengths.
 
-The port covers bf16/fp16/fp32 caches; the configurations it does not
-implement raise NotImplementedError naming their ROADMAP.md item.
+Caches are bf16/fp16/fp32 or quantized (``kv_quant``: int8, fp8_e4m3,
+fp8_e5m2; ``ops/quant.py``): each row is stored as a payload with an fp32
+scale, decode reads it through K6's and K7's dequant, K10 quantizes the
+paged decode rows as it writes them, and the dense chunk prefill
+dequantizes the visible slice in plain PyTorch before K1, as the JAX
+package does in XLA. Projection weights may be int8 (``weight_quant``,
+``w8_dequant``). The mask options the port does not implement raise
+NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -35,16 +41,14 @@ from flash_attention_tpu_torch.ops.paged import (
     paged_write_prefill,
     paged_write_tokens,
 )
+from flash_attention_tpu_torch.ops.quant import QuantizedTensor, bits, payload_dtype, quantize_values, w8_dequant
 
-_QUANT_ITEM = "ROADMAP.md queue 1 item 2 (KV and weight quantization)"
 _MASK_ITEM = "ROADMAP.md queue 1 item 3 (window, softcap, rolling cache and sinks)"
 
 
 def require_supported(cfg) -> None:
     """Raise NotImplementedError for a feature this slice of the port lacks."""
     unsupported = [
-        ("kv_quant", cfg.kv_quant != "none", _QUANT_ITEM),
-        ("weight_quant", getattr(cfg, "weight_quant", "none") != "none", _QUANT_ITEM),
         ("sliding_window", cfg.sliding_window is not None, _MASK_ITEM),
         ("logit_softcap", cfg.logit_softcap is not None, _MASK_ITEM),
         ("rolling", cfg.rolling, _MASK_ITEM),
@@ -78,11 +82,24 @@ class AttentionConfig:
 
 
 class KVCache(NamedTuple):
-    """Decode cache: [B, Hkv, max_seq, D] K and V, and [B] int32 lengths."""
+    """Decode cache: [B, Hkv, max_seq, D] K and V (the model's dtype, or a
+    quantized payload with fp32 scales [B, Hkv, max_seq, 1]) and [B] int32
+    lengths."""
 
     k: torch.Tensor
     v: torch.Tensor
     lengths: torch.Tensor
+    k_scales: torch.Tensor | None = None
+    v_scales: torch.Tensor | None = None
+
+    def quantized(self) -> bool:
+        return self.k_scales is not None
+
+    def k_view(self):
+        return QuantizedTensor(self.k, self.k_scales) if self.quantized() else self.k
+
+    def v_view(self):
+        return QuantizedTensor(self.v, self.v_scales) if self.quantized() else self.v
 
 
 def _normal(generator: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
@@ -105,37 +122,64 @@ def init_attention_params(generator: torch.Generator, cfg: AttentionConfig) -> d
 
 
 def init_kv_cache(cfg: AttentionConfig, batch: int, max_seq: int, *, device) -> KVCache:
+    """A zeroed cache; with ``cfg.kv_quant`` a zeroed payload and scales of 1."""
+    payload = payload_dtype(cfg.kv_quant)
     shape = (batch, cfg.num_kv_heads, max_seq, cfg.head_dim)
+    scales = [None, None]
+    if payload is not None:
+        scales = [torch.ones(shape[:-1] + (1,), dtype=torch.float32, device=device) for _ in range(2)]
     return KVCache(
-        k=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-        lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+        torch.zeros(shape, dtype=payload or cfg.torch_dtype, device=device),
+        torch.zeros(shape, dtype=payload or cfg.torch_dtype, device=device),
+        torch.zeros((batch,), dtype=torch.int32, device=device),
+        *scales,
     )
 
 
+def _quantize_for_cache(cfg: AttentionConfig, x: torch.Tensor):
+    """Rows as the cache stores them: (payload, scales), or (x, None)."""
+    payload = payload_dtype(cfg.kv_quant)
+    if payload is None:
+        return x.to(cfg.torch_dtype), None
+    return quantize_values(x, payload)
+
+
 def write_cache(cfg: AttentionConfig, cache: KVCache, k_new, v_new, start_positions) -> KVCache:
-    """Insert [B, Hkv, T, D] new K/V rows at per-sequence start positions.
+    """Insert [B, Hkv, T, D] new K/V rows at per-sequence start positions,
+    quantized per row into a quantized cache (payload and scale).
 
     Decode writes (T == 1) at or past capacity are DROPPED and the length
     stays at max_seq: clamping the position would overwrite the last live
     row. Prefill writes (T > 1) clamp their start so the rows fit, as JAX's
     dynamic_update_slice does. Lengths clamp to max_seq either way.
     """
+    kq, ks = _quantize_for_cache(cfg, k_new)
+    vq, vs = _quantize_for_cache(cfg, v_new)
+    writes = [(cache.k, kq), (cache.v, vq)]
+    if cache.quantized():
+        writes += [(cache.k_scales, ks), (cache.v_scales, vs)]
     t = k_new.shape[2]
     max_seq = cache.k.shape[2]
     batch_idx = torch.arange(k_new.shape[0], device=cache.k.device)
     if t == 1:
         keep = (start_positions < max_seq)[:, None, None]
         pos = start_positions.clamp(max=max_seq - 1)
-        for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+        for buf, new in writes:
             # Rewrite the old row where the write is dropped: no host sync.
-            buf[batch_idx, :, pos] = torch.where(keep, new[:, :, 0].to(buf.dtype), buf[batch_idx, :, pos])
+            new, buf = bits(new[:, :, 0].to(buf.dtype)), bits(buf)
+            buf[batch_idx, :, pos] = torch.where(keep, new, buf[batch_idx, :, pos])
     else:
         start = start_positions.clamp(0, max_seq - t)
         pos = start[:, None] + torch.arange(t, device=cache.k.device)[None, :]  # [B, T]
-        for buf, new in ((cache.k, k_new), (cache.v, v_new)):
-            buf[batch_idx[:, None], :, pos] = new.transpose(1, 2).to(buf.dtype)
+        for buf, new in writes:
+            bits(buf)[batch_idx[:, None], :, pos] = bits(new.transpose(1, 2).to(buf.dtype))
     return cache._replace(lengths=(start_positions + t).clamp(max=max_seq).to(torch.int32))
+
+
+def _weight(w, dtype: torch.dtype) -> torch.Tensor:
+    """A matmul weight in ``dtype``; an int8 one widens through bf16 first
+    (``w8_dequant``), as in the JAX package."""
+    return w8_dequant(w).to(dtype)
 
 
 def _project_qkv(params, cfg: AttentionConfig, x: torch.Tensor, positions):
@@ -145,9 +189,9 @@ def _project_qkv(params, cfg: AttentionConfig, x: torch.Tensor, positions):
     Returns (q, k, v) as [B, H, T, D] in the config dtype, q and k rotated.
     """
     dt = cfg.torch_dtype
-    q = torch.einsum("btm,mhd->bhtd", x, params["wq"]).to(dt)
-    k = torch.einsum("btm,mhd->bhtd", x, params["wk"]).to(dt)
-    v = torch.einsum("btm,mhd->bhtd", x, params["wv"]).to(dt)
+    q = torch.einsum("btm,mhd->bhtd", x, _weight(params["wq"], x.dtype)).to(dt)
+    k = torch.einsum("btm,mhd->bhtd", x, _weight(params["wk"], x.dtype)).to(dt)
+    v = torch.einsum("btm,mhd->bhtd", x, _weight(params["wv"], x.dtype)).to(dt)
     q = apply_rope(q, positions, theta=cfg.rope_theta)
     k = apply_rope(k, positions, theta=cfg.rope_theta)
     return q, k, v
@@ -155,12 +199,12 @@ def _project_qkv(params, cfg: AttentionConfig, x: torch.Tensor, positions):
 
 def _output_proj(params, o: torch.Tensor, out_dtype) -> torch.Tensor:
     """wo projection of [B, H, T, D] attention output -> [B, T, model_dim]."""
-    return torch.einsum("bhtd,hdm->btm", o, params["wo"]).to(out_dtype)
+    return torch.einsum("bhtd,hdm->btm", o, _weight(params["wo"], o.dtype)).to(out_dtype)
 
 
 def _output_proj_decode(params, o: torch.Tensor, out_dtype) -> torch.Tensor:
     """wo projection of single-token [B, H, D] output -> [B, 1, model_dim]."""
-    return torch.einsum("bhd,hdm->bm", o, params["wo"])[:, None, :].to(out_dtype)
+    return torch.einsum("bhd,hdm->bm", o, _weight(params["wo"], o.dtype))[:, None, :].to(out_dtype)
 
 
 def attention_prefill(params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCache):
@@ -201,13 +245,27 @@ def attention_prefill_chunk(
         raise ValueError(f"chunk rows [{start}, {start + t}) exceed the cache's {cache.k.shape[2]}")
     q, k, v = _project_qkv(params, cfg, x, start + torch.arange(t, device=x.device)[None, None, :])
     # Write the chunk's K/V FIRST so the visible slice [0, kv_end) holds it.
-    cache.k[slot, :, start:start + t] = k[0].to(cache.k.dtype)
-    cache.v[slot, :, start:start + t] = v[0].to(cache.v.dtype)
+    kq, ks = _quantize_for_cache(cfg, k[0])
+    vq, vs = _quantize_for_cache(cfg, v[0])
+    bits(cache.k)[slot, :, start:start + t] = bits(kq.to(cache.k.dtype))
+    bits(cache.v)[slot, :, start:start + t] = bits(vq.to(cache.v.dtype))
+    if cache.quantized():
+        cache.k_scales[slot, :, start:start + t] = ks
+        cache.v_scales[slot, :, start:start + t] = vs
     lengths = cache.lengths.clone()
     lengths[slot] = start + t
     cache = cache._replace(lengths=lengths)
-    # The visible prefix goes to the kernel as a strided view, not a copy.
-    o = flash_attention(q, cache.k[slot:slot + 1, :, :kv_end], cache.v[slot:slot + 1, :, :kv_end], causal=True)
+
+    def visible(buf, scales):
+        # The visible prefix goes to the kernel as a strided view, not a
+        # copy; a quantized one is dequantized here, in plain PyTorch, as
+        # the JAX package does in XLA (models/attention.py:496-511).
+        vis = buf[slot:slot + 1, :, :kv_end]
+        if scales is None:
+            return vis
+        return (vis.float() * scales[slot:slot + 1, :, :kv_end]).to(cfg.torch_dtype)
+
+    o = flash_attention(q, visible(cache.k, cache.k_scales), visible(cache.v, cache.v_scales), causal=True)
     return _output_proj(params, o, x.dtype), cache
 
 
@@ -218,7 +276,9 @@ def attention_decode(params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCac
     """
     q, k, v = _project_qkv(params, cfg, x, cache.lengths[:, None, None])
     cache = write_cache(cfg, cache, k, v, cache.lengths)
-    o = decode_attention(q[:, :, 0, :], cache.k, cache.v, cache.lengths)
+    # A quantized cache goes to K6 as payload and scales: the kernel
+    # dequantizes, and the current token is attended as stored, quantized.
+    o = decode_attention(q[:, :, 0, :], cache.k_view(), cache.v_view(), cache.lengths)
     return _output_proj_decode(params, o, x.dtype), cache
 
 
@@ -255,7 +315,9 @@ def attention_decode_paged_deferred(params, cfg: AttentionConfig, x: torch.Tenso
     K7 attends over the cache as it is (the new token is not in it yet, so
     ``lengths`` excludes it and may be 0), and the token's self term, score
     q·k_new in fp32 and output v_new, is folded in with ``merge_two`` in the
-    base-2 LSE domain. The caller writes every layer's (k_new, v_new) in one
+    base-2 LSE domain. The self term is at full precision even over a
+    quantized cache, where K10 stores the token quantized, as in the JAX
+    package. The caller writes every layer's (k_new, v_new) in one
     ``paged_write_tokens_multi`` launch after the layer stack.
 
     Returns (output [num_slots, 1, model_dim], (k_new, v_new) each

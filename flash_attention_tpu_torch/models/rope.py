@@ -1,6 +1,6 @@
 """Rotary position embeddings (decode-aware).
 
-Counterpart of ``flash_attention_tpu/models/rope.py``: angles in fp32, the
+Counterpart of the JAX package's ``models/rope.py``: angles in fp32, the
 even/odd feature pairs rotated, the result cast back to the input's dtype.
 """
 

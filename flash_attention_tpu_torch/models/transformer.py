@@ -1,11 +1,16 @@
 """LLaMA-class decoder-only transformer built on the port's attention layer.
 
-Counterpart of ``flash_attention_tpu/models/transformer.py`` for the serving
+Counterpart of the JAX package's ``models/transformer.py`` for the serving
 paths: ``prefill``, ``prefill_chunk``, ``decode_step_logits`` and
 ``decode_step`` over dense caches, and their ``*_paged`` twins over the
 paged model cache (``ops/paged.PagedModelCache``), with a params dict of
 the JAX package's tree and shapes (``models/convert.py`` maps one onto the
-other). The embedding is tied.
+other). The embedding is tied. With ``weight_quant="int8"`` the matmul
+weights and the embedding are stored int8 with one fp32 scale per output
+channel (per vocabulary row for the embedding), W8A16: each matmul widens
+its weight through bf16 first (``ops/quant.w8_dequant``), as the JAX package
+does; the JAX package has no kernel for it (XLA fuses the widen into the
+matmul), so the port's is plain PyTorch.
 
 Matmuls stay ``torch.matmul`` / ``einsum``, as the JAX package left them to
 XLA. One numerical difference: where JAX asks XLA for fp32 products of bf16
@@ -24,6 +29,7 @@ import torch.nn.functional as F
 from flash_attention_tpu_torch.models.attention import (
     AttentionConfig,
     _normal,
+    _weight,
     attention_decode,
     attention_decode_paged_deferred,
     attention_prefill,
@@ -35,6 +41,7 @@ from flash_attention_tpu_torch.models.attention import (
     require_supported,
 )
 from flash_attention_tpu_torch.ops.paged import PagedModelCache, init_paged_model_cache, paged_write_tokens_multi
+from flash_attention_tpu_torch.ops.quant import QuantizedTensor, quantize_weight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,15 +93,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def swiglu(x: torch.Tensor, params) -> torch.Tensor:
-    gate = torch.matmul(x, params["w_gate"]).float()
-    up = torch.matmul(x, params["w_up"]).float()
+    gate = torch.matmul(x, _weight(params["w_gate"], x.dtype)).float()
+    up = torch.matmul(x, _weight(params["w_up"], x.dtype)).float()
     act = (F.silu(gate) * up).to(x.dtype)
-    return torch.matmul(act, params["w_down"]).to(x.dtype)
+    return torch.matmul(act, _weight(params["w_down"], x.dtype)).to(x.dtype)
 
 
 def init_model_params(generator: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters on the generator's device, drawn from it, with the
-    JAX package's tree, shapes and scales (the draws themselves differ)."""
+    JAX package's tree, shapes and scales (the draws themselves differ);
+    quantized by ``quantize_model_weights`` when ``cfg.weight_quant`` is
+    "int8"."""
     dt = cfg.torch_dtype
     device = generator.device
     acfg = cfg.attention_config()
@@ -113,10 +122,34 @@ def init_model_params(generator: torch.Generator, cfg: ModelConfig) -> dict:
             },
         }
 
-    return {
+    if cfg.weight_quant not in ("none", "int8"):
+        raise ValueError(f"unknown weight_quant {cfg.weight_quant!r}")
+    params = {
         "embed": _normal(generator, (cfg.vocab_size, cfg.model_dim), s_in, dt),
         "layers": [init_layer() for _ in range(cfg.num_layers)],
         "final_norm": torch.ones((cfg.model_dim,), dtype=dt, device=device),
+    }
+    return quantize_model_weights(params) if cfg.weight_quant == "int8" else params
+
+
+def quantize_model_weights(params: dict) -> dict:
+    """Weight-only int8 (W8A16) copy of a parameter tree: every matmul
+    weight becomes a QuantizedTensor with one fp32 scale per output channel
+    (the absmax over the dims the matmul contracts); norms stay as they are.
+    The embedding quantizes per vocabulary row, so one payload serves the
+    lookup and the tied unembed."""
+
+    def q_layer(lp):
+        attn = dict(lp["attn"])
+        for name, dims in (("wq", 0), ("wk", 0), ("wv", 0), ("wo", (0, 1))):
+            attn[name] = quantize_weight(attn[name], contract_dims=dims)
+        mlp = {name: quantize_weight(w, contract_dims=0) for name, w in lp["mlp"].items()}
+        return {**lp, "attn": attn, "mlp": mlp}
+
+    return {
+        **params,
+        "embed": quantize_weight(params["embed"], contract_dims=1),
+        "layers": [q_layer(lp) for lp in params["layers"]],
     }
 
 
@@ -135,7 +168,14 @@ def _trunk(params, cfg: ModelConfig, tokens: torch.Tensor, attn_fn, caches):
     """
     acfg = cfg.attention_config()
     emb = params["embed"]
-    x = emb[tokens].to(cfg.torch_dtype)
+    dt = cfg.torch_dtype
+    if isinstance(emb, QuantizedTensor):
+        # Per-vocab-row scales serve both directions: a looked-up row widens
+        # with its own scale; the unembed contracts over model_dim and the
+        # scale lands on the output's vocab axis, in fp32.
+        x = emb.values[tokens].to(dt) * emb.scales[tokens].to(dt)
+    else:
+        x = emb[tokens].to(dt)
     new_caches = []
     for lp, cache in zip(params["layers"], caches):
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -145,7 +185,10 @@ def _trunk(params, cfg: ModelConfig, tokens: torch.Tensor, attn_fn, caches):
         x = x + swiglu(h, lp["mlp"])
         new_caches.append(cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = torch.matmul(x, emb.t()).float()
+    if isinstance(emb, QuantizedTensor):
+        logits = torch.matmul(x, emb.values.to(dt).t()).float() * emb.scales[:, 0].float()
+    else:
+        logits = torch.matmul(x, emb.t()).float()
     return logits, new_caches
 
 

@@ -1,9 +1,9 @@
 """Native (C++) runtime components, built on demand and loaded via ctypes.
 
-The port shares the JAX package's C++ sources
-(``flash_attention_tpu/native/src/{scheduler,oracle,allocator}.cpp``),
-compiled by path with g++ into the port's build directory. This loader does
-not import ``flash_attention_tpu``: that package's ``__init__`` imports jax.
+The scheduler, page allocator and oracle are C++ (``native/src/{scheduler,
+oracle,allocator}.cpp``), copies of the JAX package's sources kept in the
+port, so the port reads no file of that package. g++ compiles them into the
+port's build directory.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import threading
 
 from flash_attention_tpu_torch.ops._build import PKG_DIR, build_shared
 
-SRC_DIR = PKG_DIR.parent / "flash_attention_tpu" / "native" / "src"
+SRC_DIR = PKG_DIR / "native" / "src"
 _SOURCES = ["scheduler.cpp", "oracle.cpp", "allocator.cpp"]
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None

@@ -31,9 +31,12 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-# Element types the kernels are instantiated for, by csrc/common.cuh's codes;
-# head_dim is instantiated for 32, 64 and 128.
+# Element types the kernels are instantiated for, by csrc/common.cuh's codes:
+# the query / output types, and the payload types of a quantized KV cache
+# (int8, fp8 e4m3 and e5m2, each row with an fp32 scale); head_dim is
+# instantiated for 32, 64 and 128.
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+PAYLOAD_CODES = {torch.int8: 3, torch.float8_e4m3fn: 4, torch.float8_e5m2: 5}
 HEAD_DIMS = (32, 64, 128)
 
 _LOCK = threading.Lock()
@@ -67,9 +70,9 @@ def build_shared(stem: str, sources, compile_cmd, link_cmd, *, headers=()) -> pa
         if all(rc == 0 for _, _, rc in results):
             res = subprocess.run(link, capture_output=True, text=True)
             results.append((link, res.stdout + res.stderr, res.returncode))
-        for cmd, output, rc in results:
-            if rc:
-                raise RuntimeError(f"build of {stem} failed ({rc}): {' '.join(cmd)}\n{output}")
+        failed = [f"({rc}): {' '.join(cmd)}\n{output}" for cmd, output, rc in results if rc]
+        if failed:
+            raise RuntimeError(f"build of {stem} failed " + "\n".join(failed))
         os.replace(tmp / out.name, out)
     return out
 
@@ -98,24 +101,25 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.fat_paged_prefill.restype = c.c_int
     lib.fat_paged_prefill.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,  # q, k pages, v pages, o, table row
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k pages, v pages, k/v scales, o, table row
         i64, i64, i64, i64, i64, i64, i64,  # Hq, Hkv, num_pages, page_size, T, kv_end, D
         i64, i64, i64, i64, i64, i64, i64, i64,  # q/k/v strides
-        f32, i32, ptr,  # scale2, dtype, stream
+        c.POINTER(i64), f32, i32, i32, ptr,  # scale strides, scale2, dtype, payload, stream
     ]
+    strides = c.POINTER(i64)
     lib.fat_decode.restype = c.c_int
     lib.fat_decode.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, o, lse, lengths
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, k/v scales, o, lse, lengths
         i64, i64, i64, i64, i64,  # batch, Hq, Hkv, max_seq, D
-        i64, i64, i64, i64, i64, i64, i64, i64,  # q/k/v strides
-        f32, i32, ptr,  # scale2, dtype, stream
+        i64, i64, strides,  # q strides, k/v and scale strides
+        f32, i32, i32, ptr,  # scale2, dtype, payload, stream
     ]
     lib.fat_paged_decode.restype = c.c_int
     lib.fat_paged_decode.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k pages, v pages, o, lse, lengths, table
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k/v pages, k/v scales, o, lse, lengths, table
         i64, i64, i64, i64, i64, i64, i64,  # slots, Hq, Hkv, num_pages, page_size, pages_per_slot, D
-        i64, i64, i64, i64, i64, i64, i64, i64,  # q/k/v strides
-        f32, i32, ptr,  # scale2, dtype, stream
+        i64, i64, strides,  # q strides, k/v and scale strides
+        f32, i32, i32, ptr,  # scale2, dtype, payload, stream
     ]
     lib.fat_paged_write.restype = c.c_int
     lib.fat_paged_write.argtypes = [
@@ -123,6 +127,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         i64, i64, i64, i64,  # layers, n, heads, row bytes
         i64, i64, i64,  # num_pages, page_size, pages_per_slot
         i64, i64, i64, i64, ptr,  # pool byte strides (layer, page, head, row), stream
+    ]
+    lib.fat_paged_write_quant.restype = c.c_int
+    lib.fat_paged_write_quant.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,  # k/v new, k/v payload pools, k/v scale pools
+        ptr, ptr, ptr, ptr,  # lengths, table, slots, valid
+        i64, i64, i64, i64,  # layers, n, heads, head_dim
+        i64, i64, i64,  # num_pages, page_size, pages_per_slot
+        i64, i64, i64, i64,  # payload element strides (layer, page, head, row)
+        i64, i64, i64,  # scale strides (layer, page, head)
+        i32, i32, ptr,  # dtype, payload, stream
     ]
     lib.fat_error_string.restype = c.c_char_p
     lib.fat_error_string.argtypes = [c.c_int]
@@ -159,6 +173,31 @@ def check_operands(what: str, head_dim: int, *tensors: torch.Tensor) -> None:
                 f"{what}: operands differ in dtype or device "
                 f"({first.dtype} on {first.device} vs {t.dtype} on {t.device})"
             )
+
+
+def kv_payload_code(what: str, head_dim: int, q, k, v, k_scales=None, v_scales=None) -> int:
+    """Raise on a query and K/V cache no kernel instantiation takes, and
+    return the cache's element code for the C entries: q's own dtype code
+    for an unquantized cache, else the payload's (``k_scales``/``v_scales``
+    given, fp32)."""
+    if k_scales is None:
+        check_operands(what, head_dim, q, k, v)
+        return DTYPE_CODES[q.dtype]
+    check_operands(what, head_dim, q)
+    if k.dtype not in PAYLOAD_CODES or v.dtype != k.dtype:
+        raise ValueError(f"{what}: a quantized cache is int8, float8_e4m3fn or float8_e5m2, got {k.dtype} / {v.dtype}")
+    for t in (k, v, k_scales, v_scales):
+        if t.device != q.device:
+            raise ValueError(f"{what}: operands on {t.device} and {q.device}")
+    if k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32:
+        raise ValueError(f"{what}: scales must be float32, got {k_scales.dtype} / {v_scales.dtype}")
+    return PAYLOAD_CODES[k.dtype]
+
+
+def int64_array(values) -> ctypes.Array:
+    """``values`` as a C int64 array, for the entries that take strides by pointer."""
+    values = list(values)
+    return (ctypes.c_int64 * len(values))(*values)
 
 
 def unit_last_stride(x: torch.Tensor) -> torch.Tensor:

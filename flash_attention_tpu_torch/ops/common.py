@@ -1,6 +1,6 @@
 """Shared numerics constants of the attention kernels.
 
-The contract of ``flash_attention_tpu/ops/common.py``: fp32 accumulators, an
+The contract of the JAX package's ``ops/common.py``: fp32 accumulators, an
 exp2-domain softmax with log2(e) folded into the scale, and a large finite
 negative mask value rather than -inf, so exp2 of a masked score underflows to
 exactly 0. The CUDA sources (csrc/common.cuh) carry the same three numbers.

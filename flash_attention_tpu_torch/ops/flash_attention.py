@@ -1,6 +1,6 @@
 """Fused attention forward: kernel K1 (csrc/flash_fwd.cu) and its plain version.
 
-Replaces ``flash_attention_tpu/ops/flash_attention.py:_fwd_kernel``, reached
+Replaces the JAX package's ``ops/flash_attention.py:_fwd_kernel``, reached
 from ``flash_attention`` (:1718). What bounds the kernel on an H100 (tensor-
 core arithmetic at long kv) and what its design does about it is written at
 the top of csrc/flash_fwd.cu.

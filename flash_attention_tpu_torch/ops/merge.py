@@ -1,6 +1,6 @@
 """Partial-attention merge (log-sum-exp combine), plain PyTorch.
 
-Counterpart of ``flash_attention_tpu/ops/merge.py``, which has no kernel
+Counterpart of the JAX package's ``ops/merge.py``, which has no kernel
 either: partial outputs over disjoint KV ranges, each already normalised by
 its own softmax sum, combine into the full result through their base-2 LSE
 (``lse = m + log2(l)``, the residual the kernels emit). A part with

@@ -1,6 +1,6 @@
 """Paged KV cache: kernels K7, K8 and K9/K10 and their plain versions.
 
-Counterpart of ``flash_attention_tpu/ops/paged.py``. KV lives in fixed-size
+Counterpart of the JAX package's ``ops/paged.py``. KV lives in fixed-size
 pages ``[num_pages, kv_heads, page_size, head_dim]``; a slot's
 ``page_table`` row maps its logical pages to physical ones, and ``lengths``
 counts its valid rows.
@@ -17,7 +17,8 @@ counts its valid rows.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and its CUDA
 kernel for CUDA tensors, with no fallback from one to the other, and counts
-kernel launches in ``.launches``. Page ids are clamped into
+kernel launches in ``.launches`` (unquantized pages) and ``.quant_launches``
+(quantized pages: K7q, K8q, K9q/K10q). Page ids are clamped into
 ``[0, num_pages)`` everywhere, as the JAX package's index maps clamp them:
 a released slot's table points at dump page 0 while its lane still rides in
 the batched decode step.
@@ -26,9 +27,17 @@ A model's layers live in one ``PagedModelCache``: one ``[num_layers,
 num_pages, ...]`` pool per K and V, one page table and one lengths tensor,
 so K10 writes every layer in one launch; each layer's ``PagedKVCache``
 holds views of it. Pages and the page table are updated in place;
-``lengths`` is replaced, not mutated (as in the dense cache). Quantized
-pages are queued in ROADMAP.md (queue 1 item 2); sliding window, softcap
-and sinks in item 3.
+``lengths`` is replaced, not mutated (as in the dense cache).
+
+Quantized pages (``kv_quant`` int8, fp8_e4m3 or fp8_e5m2) hold an int8 / fp8
+payload and one fp32 scale per row and head in scale pools ``[num_layers,
+num_pages, kv_heads, page_size]`` (a layer's view ``[num_pages, kv_heads,
+page_size]``: the JAX package's ``[num_pages, kv_heads, 1, page_size]`` in
+the same memory order, without the size-1 lane axis). K7 and K8 widen and
+scale the payload as they read it; K10 quantizes the new rows as it writes
+them. Scales are indexed by physical page, so pages shared through the
+prefix cache carry theirs. Sliding window, softcap and sinks are queued in
+ROADMAP.md item 3.
 """
 
 from __future__ import annotations
@@ -40,10 +49,10 @@ import torch
 
 from flash_attention_tpu_torch.ops import _build
 from flash_attention_tpu_torch.ops.common import LOG2E
-from flash_attention_tpu_torch.ops.decode import decode_attention_plain
+from flash_attention_tpu_torch.ops.decode import decode_attention_plain, scale_strides
 from flash_attention_tpu_torch.ops.flash_attention import flash_attention_plain
+from flash_attention_tpu_torch.ops.quant import bits, payload_dtype, quantize_values
 
-QUANT_ITEM = "ROADMAP.md queue 1 item 2 (KV and weight quantization)"
 # The kernels read a page in runs of rows that must not straddle it: K8 in
 # 64-row kv tiles, K7 in 4-row runs.
 KERNEL_PAGE_MULTIPLE = 64
@@ -52,16 +61,24 @@ KERNEL_PAGE_MULTIPLE = 64
 class PagedKVCache(NamedTuple):
     """Paged KV storage of one layer.
 
-    k_pages, v_pages: [num_pages, kv_heads, page_size, head_dim].
+    k_pages, v_pages: [num_pages, kv_heads, page_size, head_dim], the
+      model's dtype or a quantized payload (int8 / fp8).
     page_table: [num_slots, pages_per_slot] int32 physical page per logical
       page; entries past a slot's last page are unused.
     lengths: [num_slots] int32 valid rows per slot.
+    k_scales, v_scales: None, or [num_pages, kv_heads, page_size] fp32, one
+      scale per row of a quantized payload.
     """
 
     k_pages: torch.Tensor
     v_pages: torch.Tensor
     page_table: torch.Tensor
     lengths: torch.Tensor
+    k_scales: torch.Tensor | None = None
+    v_scales: torch.Tensor | None = None
+
+    def quantized(self) -> bool:
+        return self.k_scales is not None
 
     @property
     def page_size(self) -> int:
@@ -78,19 +95,29 @@ class PagedModelCache(NamedTuple):
 
     k_pool, v_pool: [num_layers, num_pages, kv_heads, page_size, head_dim].
     page_table, lengths: as in PagedKVCache.
+    k_scales, v_scales: None, or [num_layers, num_pages, kv_heads,
+      page_size] fp32 for quantized pools.
     """
 
     k_pool: torch.Tensor
     v_pool: torch.Tensor
     page_table: torch.Tensor
     lengths: torch.Tensor
+    k_scales: torch.Tensor | None = None
+    v_scales: torch.Tensor | None = None
+
+    def quantized(self) -> bool:
+        return self.k_scales is not None
 
     def layers(self) -> list[PagedKVCache]:
-        """Each layer's PagedKVCache: views of its pages, and the shared
-        table and lengths."""
+        """Each layer's PagedKVCache: views of its pages (and scales), and the
+        shared table and lengths."""
+        n = self.k_pool.shape[0]
+        ks = self.k_scales.unbind(0) if self.quantized() else [None] * n
+        vs = self.v_scales.unbind(0) if self.quantized() else [None] * n
         return [
-            PagedKVCache(k, v, self.page_table, self.lengths)
-            for k, v in zip(self.k_pool.unbind(0), self.v_pool.unbind(0))
+            PagedKVCache(k, v, self.page_table, self.lengths, k_s, v_s)
+            for k, v, k_s, v_s in zip(self.k_pool.unbind(0), self.v_pool.unbind(0), ks, vs)
         ]
 
 
@@ -108,17 +135,21 @@ def init_paged_model_cache(
     device: str | torch.device = "cuda",
 ) -> PagedModelCache:
     """A zeroed PagedModelCache of ``num_layers`` layers on ``device`` (the
-    card by default)."""
-    if kv_quant != "none":
-        raise NotImplementedError(f"kv_quant={kv_quant!r} is not ported yet: {QUANT_ITEM}")
+    card by default). With ``kv_quant`` (int8, fp8_e4m3 or fp8_e5m2) the
+    pools hold that payload, zeroed, and scale pools of ones."""
     if dtype not in _build.DTYPE_CODES:
         raise ValueError(f"paged pages are float32, float16 or bfloat16, got {dtype}")
+    payload = payload_dtype(kv_quant)
     shape = (num_layers, num_pages, kv_heads, page_size, head_dim)
+    scales = [None, None]
+    if payload is not None:
+        scales = [torch.ones(shape[:-1], dtype=torch.float32, device=device) for _ in range(2)]
     return PagedModelCache(
-        torch.zeros(shape, dtype=dtype, device=device),
-        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=payload or dtype, device=device),
+        torch.zeros(shape, dtype=payload or dtype, device=device),
         torch.zeros((num_slots, pages_per_slot), dtype=torch.int32, device=device),
         torch.zeros((num_slots,), dtype=torch.int32, device=device),
+        *scales,
     )
 
 
@@ -132,21 +163,36 @@ def _clamped(table: torch.Tensor, num_pages: int) -> torch.Tensor:
     return table.long().clamp(0, num_pages - 1)
 
 
-def _gather_slots(pages: torch.Tensor, table_rows: torch.Tensor) -> torch.Tensor:
-    """[S, n] page ids -> the pages as dense [S, kv_heads, n * page_size, D]."""
-    x = pages[_clamped(table_rows, pages.shape[0])]  # [S, n, H, page, D]
+def _gather_slots(pages: torch.Tensor, table_rows: torch.Tensor, scales: torch.Tensor | None = None) -> torch.Tensor:
+    """[S, n] page ids -> the pages as dense [S, kv_heads, n * page_size, D],
+    dequantized to fp32 when ``scales`` ([num_pages, kv_heads, page_size])
+    are given."""
+    ids = _clamped(table_rows, pages.shape[0])
+    x = bits(pages)[ids]  # [S, n, H, page, D]
     s, n, h, page, d = x.shape
-    return x.transpose(1, 2).reshape(s, h, n * page, d)
+    x = x.transpose(1, 2).reshape(s, h, n * page, d).view(pages.dtype)
+    if scales is None:
+        return x
+    return x.float() * scales[ids].transpose(1, 2).reshape(s, h, n * page, 1)
+
+
+def _gather_kv(cache: PagedKVCache, table_rows: torch.Tensor):
+    """K and V of the slots in ``table_rows``, gathered densely (and
+    dequantized to fp32 for a quantized cache)."""
+    return (_gather_slots(cache.k_pages, table_rows, cache.k_scales),
+            _gather_slots(cache.v_pages, table_rows, cache.v_scales))
 
 
 def paged_gather_kv(cache: PagedKVCache, slot: int, kv_end: int, dtype=None):
     """``slot``'s first ``kv_end`` rows (a page multiple) as dense
-    [1, kv_heads, kv_end, head_dim] K and V."""
+    [1, kv_heads, kv_end, head_dim] K and V, dequantized (to bf16 unless
+    ``dtype`` says otherwise, as in the JAX package) for a quantized cache."""
     if kv_end % cache.page_size:
         raise ValueError(f"kv_end={kv_end} not a multiple of page_size {cache.page_size}")
     rows = cache.page_table[slot : slot + 1, : kv_end // cache.page_size]
-    dtype = dtype or cache.k_pages.dtype
-    return _gather_slots(cache.k_pages, rows).to(dtype), _gather_slots(cache.v_pages, rows).to(dtype)
+    dtype = dtype or (torch.bfloat16 if cache.quantized() else cache.k_pages.dtype)
+    k, v = _gather_kv(cache, rows)
+    return k.to(dtype), v.to(dtype)
 
 
 def paged_write_prefill(
@@ -161,8 +207,14 @@ def paged_write_prefill(
         raise ValueError(f"prefill length {t} not a multiple of page_size {page}")
     n = t // page
     phys = _clamped(cache.page_table[slot, start // page : start // page + n], cache.k_pages.shape[0])
-    for pages, new in ((cache.k_pages, k_new), (cache.v_pages, v_new)):
-        pages[phys] = new.reshape(heads, n, page, d).transpose(0, 1).to(pages.dtype)
+    writes = ((cache.k_pages, cache.k_scales, k_new), (cache.v_pages, cache.v_scales, v_new))
+    for pages, scales, new in writes:
+        if scales is not None:
+            # Per row, so quantizing all T rows at once is the JAX package's
+            # page-by-page scan (ops/paged.py:512-546) to the bit.
+            new, new_scales = quantize_values(new, pages.dtype)
+            scales[phys] = new_scales.reshape(heads, n, page).transpose(0, 1)
+        bits(pages)[phys] = bits(new.reshape(heads, n, page, d).transpose(0, 1).to(pages.dtype))
     lengths = cache.lengths.clone()
     lengths[slot] = true_len
     return cache._replace(lengths=lengths)
@@ -171,30 +223,34 @@ def paged_write_prefill(
 def paged_write_tokens_plain(cache: PagedModelCache, k_new, v_new, slots: torch.Tensor) -> torch.Tensor:
     """The function K9/K10 computes, by index assignment: every layer's row
     for listed slot i goes to its slot's next position, where the slot has
-    room for it; returns that ``valid`` [n] as int32."""
+    room for it, quantized per row (``quantize_values``) into a quantized
+    cache with its scale beside it; returns that ``valid`` [n] as int32."""
     page = cache.k_pool.shape[3]
     pos = cache.lengths[slots].long()
     valid = pos < cache.page_table.shape[1] * page
     keep = valid.nonzero()[:, 0]
     pos = pos[keep]
     phys = _clamped(cache.page_table[slots[keep], pos // page], cache.k_pool.shape[1])
-    for pool, new in ((cache.k_pool, k_new), (cache.v_pool, v_new)):
-        pool[:, phys, :, pos % page] = new[:, keep].transpose(0, 1).to(pool.dtype)  # [n_keep, L, H, D]
+    for pool, scales, new in ((cache.k_pool, cache.k_scales, k_new), (cache.v_pool, cache.v_scales, v_new)):
+        new = new[:, keep].transpose(0, 1)  # [n_keep, L, H, D]
+        if scales is not None:
+            new, new_scales = quantize_values(new, pool.dtype)
+            scales[:, phys, :, pos % page] = new_scales[..., 0]
+        bits(pool)[:, phys, :, pos % page] = bits(new.to(pool.dtype))
     return valid.to(torch.int32)
 
 
 def _write_tokens_kernel(cache: PagedModelCache, k_new, v_new, slots: torch.Tensor) -> torch.Tensor:
     num_layers, num_pages, heads, page, d = cache.k_pool.shape
+    if cache.quantized():
+        return _write_tokens_quant_kernel(cache, k_new, v_new, slots)
     _build.check_operands("paged_write_tokens_multi", d, cache.k_pool, cache.v_pool)
     if cache.k_pool.stride() != cache.v_pool.stride() or cache.k_pool.stride(-1) != 1:
         raise ValueError("the CUDA page write takes K and V pools of one layout with contiguous rows")
     item = cache.k_pool.element_size()
     k_new = k_new.to(cache.k_pool.dtype).contiguous()
     v_new = v_new.to(cache.v_pool.dtype).contiguous()
-    if k_new.shape != (num_layers, slots.numel(), heads, d) or v_new.shape != k_new.shape:
-        raise ValueError(
-            f"new rows {tuple(k_new.shape)} / {tuple(v_new.shape)} != ({num_layers}, {slots.numel()}, {heads}, {d})"
-        )
+    _check_new_rows(cache, k_new, v_new, slots)
     strides = [s * item for s in cache.k_pool.stride()[:4]]
     ptrs = [k_new, v_new, cache.k_pool, cache.v_pool]
     if (d * item) % 16 or any(s % 16 for s in strides) or any(t.data_ptr() % 16 for t in ptrs):
@@ -216,13 +272,53 @@ def _write_tokens_kernel(cache: PagedModelCache, k_new, v_new, slots: torch.Tens
     return valid
 
 
+def _check_new_rows(cache: PagedModelCache, k_new, v_new, slots) -> None:
+    num_layers, _, heads, _, d = cache.k_pool.shape
+    if k_new.shape != (num_layers, slots.numel(), heads, d) or v_new.shape != k_new.shape:
+        raise ValueError(
+            f"new rows {tuple(k_new.shape)} / {tuple(v_new.shape)} != ({num_layers}, {slots.numel()}, {heads}, {d})"
+        )
+
+
+def _write_tokens_quant_kernel(cache: PagedModelCache, k_new, v_new, slots: torch.Tensor) -> torch.Tensor:
+    """K9q/K10q: the rows in the model's dtype, quantized by the kernel."""
+    num_layers, num_pages, heads, page, d = cache.k_pool.shape
+    payload = _build.kv_payload_code(
+        "paged_write_tokens_multi", d, k_new, cache.k_pool, cache.v_pool, cache.k_scales, cache.v_scales
+    )
+    k_new, v_new = k_new.contiguous(), v_new.to(k_new.dtype).contiguous()
+    _check_new_rows(cache, k_new, v_new, slots)
+    if cache.k_pool.stride() != cache.v_pool.stride() or cache.k_pool.stride(-1) != 1:
+        raise ValueError("the CUDA page write takes K and V pools of one layout with contiguous rows")
+    if cache.k_scales.stride() != cache.v_scales.stride() or cache.k_scales.stride(-1) != 1:
+        raise ValueError("the CUDA page write takes K and V scale pools of one layout with contiguous rows")
+    table = cache.page_table.to(torch.int32).contiguous()
+    lengths = cache.lengths.to(torch.int32).contiguous()
+    slots32 = slots.to(torch.int32).contiguous()
+    valid = torch.empty(slots.shape, dtype=torch.int32, device=slots.device)
+    lib = _build.kernels()
+    with torch.cuda.device(slots.device):
+        err = lib.fat_paged_write_quant(
+            k_new.data_ptr(), v_new.data_ptr(), cache.k_pool.data_ptr(), cache.v_pool.data_ptr(),
+            cache.k_scales.data_ptr(), cache.v_scales.data_ptr(),
+            lengths.data_ptr(), table.data_ptr(), slots32.data_ptr(), valid.data_ptr(),
+            num_layers, slots.numel(), heads, d, num_pages, page, table.shape[1],
+            *cache.k_pool.stride()[:4], *cache.k_scales.stride()[:3],
+            _build.DTYPE_CODES[k_new.dtype], payload, torch.cuda.current_stream(slots.device).cuda_stream,
+        )
+    _build.check(err, "paged_write_tokens_multi (K9q/K10q)")
+    paged_write_tokens_multi.quant_launches += 1
+    return valid
+
+
 def paged_write_tokens_multi(cache: PagedModelCache, k_new: torch.Tensor, v_new: torch.Tensor, slots) -> PagedModelCache:
     """Append ONE token of K/V per listed slot to EVERY layer's pages.
 
     k_new, v_new: [num_layers, n, kv_heads, head_dim]; slots: [n] slot ids,
     each at most once. A slot writes only where it has room (position <
     pages_per_slot * page_size): a slot at capacity writes nothing and its
-    length stays. Pages are written in place; returns the cache with its
+    length stays. A quantized cache stores each row quantized (its payload
+    and its scale). Pages are written in place; returns the cache with its
     one lengths tensor advanced by one where the slot wrote.
     """
     device = cache.k_pool.device
@@ -240,28 +336,40 @@ def paged_write_tokens_multi(cache: PagedModelCache, k_new: torch.Tensor, v_new:
 
 
 paged_write_tokens_multi.launches = 0
+paged_write_tokens_multi.quant_launches = 0
 
 
 def paged_write_tokens(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor, slots) -> PagedKVCache:
     """Append ONE token of K/V ([n, kv_heads, head_dim]) per listed slot at
     its current length: ``paged_write_tokens_multi`` with one layer."""
-    one = PagedModelCache(cache.k_pages[None], cache.v_pages[None], cache.page_table, cache.lengths)
+    scales = [None, None] if not cache.quantized() else [cache.k_scales[None], cache.v_scales[None]]
+    one = PagedModelCache(cache.k_pages[None], cache.v_pages[None], cache.page_table, cache.lengths, *scales)
     return cache._replace(lengths=paged_write_tokens_multi(one, k_new[None], v_new[None], slots).lengths)
 
 
-def _check_kernel_pages(what: str, cache: PagedKVCache, head_dim: int, *tensors) -> None:
-    _build.check_operands(what, head_dim, *tensors, cache.k_pages, cache.v_pages)
+def _check_kernel_pages(what: str, cache: PagedKVCache, q: torch.Tensor) -> int:
+    """Raise on pages the CUDA kernels do not take; return the payload code."""
+    payload = _build.kv_payload_code(what, q.shape[-1], q, cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales)
+    if cache.quantized() and not cache.k_scales.shape == cache.v_scales.shape == cache.k_pages.shape[:3]:
+        raise ValueError(f"{what}: scales {tuple(cache.k_scales.shape)} / {tuple(cache.v_scales.shape)} "
+                         f"!= pages' {tuple(cache.k_pages.shape[:3])}")
     if cache.page_size % KERNEL_PAGE_MULTIPLE:
         raise ValueError(f"{what}: the CUDA kernel takes page_size a multiple of {KERNEL_PAGE_MULTIPLE}, got {cache.page_size}")
     if cache.page_table.dtype != torch.int32 or not cache.page_table.is_contiguous():
         raise ValueError(f"{what}: the CUDA kernel takes a contiguous int32 page table")
+    return payload
+
+
+def _scale_ptrs(cache: PagedKVCache) -> list:
+    if not cache.quantized():
+        return [None, None]
+    return [cache.k_scales.data_ptr(), cache.v_scales.data_ptr()]
 
 
 def paged_decode_attention_plain(q: torch.Tensor, cache: PagedKVCache, *, sm_scale: float, save_residuals: bool = False):
-    """The function K7 computes: the slots' pages gathered densely, then
-    the decode math of ``decode_attention_plain``."""
-    k = _gather_slots(cache.k_pages, cache.page_table)
-    v = _gather_slots(cache.v_pages, cache.page_table)
+    """The function K7 computes: the slots' pages gathered densely (and
+    dequantized to fp32), then the decode math of ``decode_attention_plain``."""
+    k, v = _gather_kv(cache, cache.page_table)
     return decode_attention_plain(q, k, v, cache.lengths, sm_scale=sm_scale, save_residuals=save_residuals)
 
 
@@ -294,7 +402,7 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache, *, sm_scale: fl
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cpu or cuda tensors, got {q.device}")
 
-    _check_kernel_pages("paged_decode_attention", cache, head_dim, q)
+    payload = _check_kernel_pages("paged_decode_attention", cache, q)
     q = _build.unit_last_stride(q)
     k_pages, v_pages = (_build.unit_last_stride(x) for x in (cache.k_pages, cache.v_pages))
     lengths = cache.lengths.to(torch.int32).contiguous()
@@ -304,29 +412,34 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache, *, sm_scale: fl
         lib = _build.kernels()
         with torch.cuda.device(q.device):
             err = lib.fat_paged_decode(
-                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *_scale_ptrs(cache), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), lengths.data_ptr(), cache.page_table.data_ptr(),
                 num_slots, num_q_heads, num_kv_heads, num_pages, page, cache.pages_per_slot, head_dim,
-                q.stride(0), q.stride(1), *k_pages.stride()[:3], *v_pages.stride()[:3],
-                sm_scale * LOG2E, _build.DTYPE_CODES[q.dtype],
+                q.stride(0), q.stride(1),
+                _build.int64_array([*k_pages.stride()[:3], *v_pages.stride()[:3],
+                                    *scale_strides(cache.k_scales, cache.v_scales)]),
+                sm_scale * LOG2E, _build.DTYPE_CODES[q.dtype], payload,
                 torch.cuda.current_stream(q.device).cuda_stream,
             )
         _build.check(err, "paged_decode_attention (K7)")
-        paged_decode_attention.launches += 1
+        if cache.quantized():
+            paged_decode_attention.quant_launches += 1
+        else:
+            paged_decode_attention.launches += 1
     return (out, lse) if save_residuals else out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.quant_launches = 0
 
 
 def paged_prefill_attention_plain(q: torch.Tensor, cache: PagedKVCache, slot: int, kv_end: int, *, sm_scale: float):
     """The function K8 computes: the slot's first kv_end rows gathered
-    densely, then causal ``flash_attention_plain``, end-aligned."""
+    densely (and dequantized to fp32), then causal ``flash_attention_plain``,
+    end-aligned."""
     n = -(-kv_end // cache.page_size)
-    rows = cache.page_table[slot : slot + 1, :n]
-    k = _gather_slots(cache.k_pages, rows)[:, :, :kv_end]
-    v = _gather_slots(cache.v_pages, rows)[:, :, :kv_end]
-    return flash_attention_plain(q, k, v, causal=True, sm_scale=sm_scale, save_residuals=False)
+    k, v = _gather_kv(cache, cache.page_table[slot : slot + 1, :n])
+    return flash_attention_plain(q, k[:, :, :kv_end], v[:, :, :kv_end], causal=True, sm_scale=sm_scale, save_residuals=False)
 
 
 def paged_prefill_attention(
@@ -367,7 +480,7 @@ def paged_prefill_attention(
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention runs on cpu or cuda tensors, got {q.device}")
 
-    _check_kernel_pages("paged_prefill_attention", cache, head_dim, q)
+    payload = _check_kernel_pages("paged_prefill_attention", cache, q)
     q = _build.unit_last_stride(q)
     k_pages, v_pages = (_build.unit_last_stride(x) for x in (cache.k_pages, cache.v_pages))
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -375,15 +488,20 @@ def paged_prefill_attention(
         lib = _build.kernels()
         with torch.cuda.device(q.device):
             err = lib.fat_paged_prefill(
-                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *_scale_ptrs(cache), out.data_ptr(),
                 cache.page_table[slot].data_ptr(), num_q_heads, num_kv_heads, num_pages, page, t,
                 kv_end, head_dim, q.stride(1), q.stride(2), *k_pages.stride()[:3], *v_pages.stride()[:3],
-                sm_scale * LOG2E, _build.DTYPE_CODES[q.dtype],
+                _build.int64_array(scale_strides(cache.k_scales, cache.v_scales)),
+                sm_scale * LOG2E, _build.DTYPE_CODES[q.dtype], payload,
                 torch.cuda.current_stream(q.device).cuda_stream,
             )
         _build.check(err, "paged_prefill_attention (K8)")
-        paged_prefill_attention.launches += 1
+        if cache.quantized():
+            paged_prefill_attention.quant_launches += 1
+        else:
+            paged_prefill_attention.launches += 1
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.quant_launches = 0

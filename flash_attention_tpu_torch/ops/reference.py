@@ -1,6 +1,6 @@
 """fp32 reference ("oracle") attention.
 
-Counterpart of ``flash_attention_tpu/ops/reference.py``: a naive, fully
+Counterpart of the JAX package's ``ops/reference.py``: a naive, fully
 materialised attention in fp32 that judges every kernel. Grouped-query heads
 broadcast (kv head = q head // group), causal masking is aligned at the END
 of the KV sequence (the last query row sees the last key), and ``kv_length``

@@ -1,7 +1,7 @@
 """ctypes wrapper over the native page allocator.
 
-Counterpart of ``flash_attention_tpu/serving/allocator.py``, over the port's
-own loader of the shared C++ sources (``native.load()``).
+Counterpart of the JAX package's ``serving/allocator.py``, over the port's
+own loader of its copy of the C++ sources (``native.load()``).
 """
 
 from __future__ import annotations

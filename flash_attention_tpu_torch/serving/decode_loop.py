@@ -1,6 +1,6 @@
 """Host loop of the serving engine: chunked prefill and blocked decode.
 
-Counterpart of ``flash_attention_tpu/serving/decode_loop.py``. A decode
+Counterpart of the JAX package's ``serving/decode_loop.py``. A decode
 BLOCK is up to ``decode_block_steps`` model steps issued back to back on the
 device (``lax.scan`` there, a Python loop of k steps here), with ONE
 device-to-host token readback per block. Blocks are pipelined: block i+1 is

@@ -1,9 +1,9 @@
 """Continuous-batching serving engine.
 
-Counterpart of ``flash_attention_tpu/serving/engine.py``: a fixed-slot batch
+Counterpart of the JAX package's ``serving/engine.py``: a fixed-slot batch
 of sequences advances one decode block per iteration while finished slots
-are refilled from the queue. The C++ scheduler (shared with the JAX package)
-owns the request lifecycle; this module owns the device work:
+are refilled from the queue. The C++ scheduler (the port's copy of the JAX
+package's) owns the request lifecycle; this module owns the device work:
 
   * CHUNKED prefill: prompts are split into fixed-size chunks; each engine
     iteration advances every pending prefill by ONE chunk and then runs ONE

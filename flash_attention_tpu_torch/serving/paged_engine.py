@@ -1,6 +1,6 @@
 """Continuous-batching serving engine over a PAGED KV cache.
 
-Counterpart of ``flash_attention_tpu/serving/paged_engine.py``, the JAX
+Counterpart of the JAX package's ``serving/paged_engine.py``, the JAX
 package's production memory model: instead of reserving max_seq rows per
 slot (the dense engine, serving/engine.py), KV lives in fixed-size pages
 owned by the native free-list allocator. A request's page budget,
@@ -17,10 +17,12 @@ Page-table discipline:
     lanes (they ride along in the batched kernels) land there harmlessly.
 
 The table row of a slot is written in place into the shared table tensor.
-The paged ring for sliding-window models and attention sinks, quantized
-pages and sharded caches are not ported yet and raise NotImplementedError
-naming their ROADMAP.md item. There is no ``warmup``: eager PyTorch has no
-programs to compile ahead of a run.
+With ``cfg.kv_quant`` the pages are quantized (payload and scale pools,
+``ops/paged.py``); the scales are indexed by physical page, so shared
+prefix pages carry theirs. The paged ring for sliding-window models and
+attention sinks, and sharded caches, are not ported yet and raise
+NotImplementedError naming their ROADMAP.md item. There is no ``warmup``:
+eager PyTorch has no programs to compile ahead of a run.
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ class PagedServingEngine(ServingEngine):
         shard_caches=None,
         prefix_cache: bool = False,
     ):
-        require_supported(cfg)  # kv_quant, sliding window (the paged ring), sinks
+        require_supported(cfg)  # sliding window (the paged ring), sinks
         if shard_caches is not None:
             raise NotImplementedError(f"shard_caches is not ported yet: {SHARD_ITEM}")
         max_seq = pages_per_slot * page_size

@@ -1,6 +1,6 @@
 """Per-request token sampling for the serving engine.
 
-Counterpart of ``flash_attention_tpu/serving/sampling.py``: temperature,
+Counterpart of the JAX package's ``serving/sampling.py``: temperature,
 top-k and top-p (nucleus), vectorised over the slot batch with per-slot
 parameters.
 

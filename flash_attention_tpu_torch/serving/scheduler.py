@@ -1,7 +1,7 @@
 """ctypes wrapper over the native C++ continuous-batching scheduler.
 
-Counterpart of ``flash_attention_tpu/serving/scheduler.py``, over the same
-C++ state machine (flash_attention_tpu/native/src/scheduler.cpp), loaded
+Counterpart of the JAX package's ``serving/scheduler.py``, over the same
+C++ state machine (the port's copy, ``native/src/scheduler.cpp``), loaded
 through the port's own native loader.
 """
 

@@ -1,6 +1,6 @@
 """Seeded input generation and oracle-diff checking.
 
-Counterpart of ``flash_attention_tpu/utils/testing.py``: inputs uniform in
+Counterpart of the JAX package's ``utils/testing.py``: inputs uniform in
 (-0.5, 0.5) and a pass bar of max-abs-diff < 0.1 against the fp32 oracle.
 The inputs come from numpy's ``default_rng(seed)``, so the same seed gives
 the same numbers on any device and in either package's tests.

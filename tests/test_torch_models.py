@@ -152,8 +152,8 @@ def test_decode_write_drops_at_capacity(start):
 @pytest.mark.parametrize(
     "override",
     [
-        {"kv_quant": "int8"},
-        {"weight_quant": "int8"},
+        {"kv_quant": "int8", "sliding_window": 32},  # quantization is ported, the masks are not
+        {"weight_quant": "int8", "logit_softcap": 30.0},
         {"sliding_window": 32},
         {"logit_softcap": 30.0},
         {"sliding_window": 32, "rolling": True},

@@ -202,6 +202,7 @@ def test_import_leaves_jax_out_and_builds_nothing():
     code = (
         "import sys\n"
         "import flash_attention_tpu_torch, flash_attention_tpu_torch.serving.engine\n"
+        "import flash_attention_tpu_torch.ops.quant, flash_attention_tpu_torch.models.convert\n"
         "from flash_attention_tpu_torch.ops import _build\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert _build._KERNELS is None\n"

@@ -237,8 +237,17 @@ def test_init_paged_model_cache_layers_share_table_lengths_and_pool():
     assert tuple(cache.page_table.shape) == want.page_table.shape and cache.page_table.dtype == torch.int32
     assert all(c.page_table is cache.page_table and c.lengths is cache.lengths for c in layers)
     assert layers[3].v_pages.data_ptr() == cache.v_pool[3].data_ptr()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpaged.init_paged_cache(num_pages=5, num_slots=2, pages_per_slot=2, kv_heads=2, kv_quant="int8", device="cpu")
+    assert not cache.quantized() and layers[0].k_scales is None
+    # A quantized cache: int8 payload zeroed, scales of one in JAX's memory
+    # order without its size-1 lane axis, and per-layer views of both.
+    quant = tpaged.init_paged_model_cache(4, num_pages=5, num_slots=2, pages_per_slot=2, kv_heads=2,
+                                          page_size=PAGE, head_dim=HEAD_DIM, kv_quant="int8", device="cpu")
+    want = jpaged.init_paged_cache(num_pages=5, num_slots=2, pages_per_slot=2, kv_heads=2, page_size=PAGE,
+                                   head_dim=HEAD_DIM, kv_quant="int8")
+    layer = quant.layers()[3]
+    assert layer.k_pages.dtype == torch.int8 and tuple(layer.k_pages.shape) == want.k_pages.shape
+    assert np.array_equal(layer.v_scales.numpy(), np.asarray(want.v_scales).reshape(5, 2, PAGE))
+    assert layer.k_scales.data_ptr() == quant.k_scales[3].data_ptr()
 
 
 def test_wrappers_refuse_other_devices():

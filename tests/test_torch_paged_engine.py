@@ -180,7 +180,7 @@ def test_first_token_eos_releases_pages(model):
 @pytest.mark.parametrize(
     "field, value, kw",
     [
-        ("kv_quant", "int8", {}),
+        ("rolling", True, {}),
         ("sliding_window", 64, {}),
         ("attention_sinks", 4, {}),
         (None, None, {"shard_caches": lambda caches: caches}),
