@@ -59,6 +59,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 weights and an int8 cache on phase 5's requests, and
                 PagedServingEngine with an fp8_e4m3 cache on phase 8's runs;
                 K6q, K7q, K8q and K10q launched, K6, K7, K8 and K10 not.
+ 12. backward — K3, K4 and K5 (flash_bwd.cu) in bf16 through
+                flash_attention's autograd Function (whose card output must
+                carry it): K4 + K5 at q [1,32,2048,128] over kv
+                [1,8,2048,128] and at q_len 256 end-aligned, K3 at
+                [1,32,2048,128] causal and not; dq, dk and dv within 0.1 of
+                autograd through the fp32 oracle and row by row within
+                REL_BAR of flash_attention_bwd_plain; kernel, plain,
+                SDPA-backward and bound times. Then every (dtype, head_dim)
+                instantiation at lengths 1, 63, 129 and 1000.
+ 13. tiny train — the tiny fp32 model, GQA (K1, K4, K5) and MHA (K1, K3):
+                loss and every parameter's gradient on the card equal the
+                CPU's within 1e-4 of each leaf's largest gradient.
+ 14. full train — ModelConfig() on phase 5's weights at B=1, T=2048: three
+                steps of forward + backward with finite loss and gradients
+                and no all-zero weight gradient, then an SGD step along -g
+                that lowers the loss; exactly K1, K4 and K5 launched. Then
+                ModelConfig(num_kv_heads=32, num_layers=4) one step, K1
+                and K3 launched. Step ms, training tokens/s, peak memory.
 
 Every phase prints kernel, plain-version, library-call and bound times
 (the bound: the larger of the bytes over 3.35 TB/s and the operations over
@@ -176,13 +194,14 @@ def _max_diff(a, b) -> float:
     return float((a[finite].float() - b[finite].float()).abs().max()) if finite.any() else 0.0
 
 
-def _rel_diff(a, b) -> float:
+def _rel_diff(a, b, floor: float = 0.0) -> float:
     """max over rows (all dims but the last) of max|a - b| / max|b| in the
-    row; a row where b is all 0 (an empty slot's) must be 0 in a as well."""
+    row, that max taken no smaller than ``floor``; a row where b is all 0 (an
+    empty slot's) must be 0 in a as well."""
     import torch
 
     a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
-    err, scale = (a - b).abs().amax(1), b.abs().amax(1)
+    err, scale = (a - b).abs().amax(1), b.abs().amax(1).clamp(min=floor)
     empty = torch.where(err > 0, torch.full_like(err, float("inf")), torch.zeros_like(err))
     rel = torch.where(scale > 0, err / scale.clamp(min=1e-30), empty)
     return float(rel.max()) if rel.numel() else 0.0
@@ -370,12 +389,14 @@ def _counters() -> dict:
     """Every kernel's launch count, by name: (wrapper, attribute). A wrapper
     counts the launches over an unquantized cache in .launches and those over
     a quantized one (the K*q instantiations) in .quant_launches."""
+    from flash_attention_tpu_torch.ops.attention_bwd import launch_dkv, launch_dq, launch_fused
     from flash_attention_tpu_torch.ops.decode import decode_attention
     from flash_attention_tpu_torch.ops.flash_attention import flash_attention
     from flash_attention_tpu_torch.ops.paged import paged_decode_attention, paged_prefill_attention, paged_write_tokens_multi
 
     return {
         "K1": (flash_attention, "launches"),
+        "K3": (launch_fused, "launches"), "K4": (launch_dq, "launches"), "K5": (launch_dkv, "launches"),
         "K6": (decode_attention, "launches"), "K6q": (decode_attention, "quant_launches"),
         "K7": (paged_decode_attention, "launches"), "K7q": (paged_decode_attention, "quant_launches"),
         "K8": (paged_prefill_attention, "launches"), "K8q": (paged_prefill_attention, "quant_launches"),
@@ -1486,6 +1507,343 @@ def phase_full_quant(card: str, params, dense: dict, paged: dict) -> dict:
     return {"K6q": launches_a["K6q"], "K7q": launches_b["K7q"], "K8q": launches_b["K8q"], "K10q": launches_b["K9q/K10q"]}
 
 
+# The backward kernels' cases at the training path's shapes: (hq, hkv,
+# q_len, kv_len, causal). ModelConfig() trains through K4 + K5 (32 q over 8
+# kv heads); an MHA model (LLaMA-2-7B's 32 heads over 32) through K3.
+BWD_CASES = (
+    (32, 8, 2048, 2048, True),
+    (32, 8, 256, 2048, True),
+    (32, 32, 2048, 2048, True),
+    (32, 32, 2048, 2048, False),
+)
+# Gradients, row by row against the plain version: max|kernel - plain| in
+# the row over the row's largest |plain|, as REL_BAR does for the forward.
+# A row whose largest value is under GRAD_FLOOR of the largest value of the
+# three gradients is held to that floor instead: its terms cancel (the first
+# causal row's dq is 0 up to rounding, and with a single key dq and dk are 0
+# everywhere), so it has no scale of its own.
+GRAD_FLOOR = 1e-3
+TRAIN_TOKENS = 2048  # the training sequence of the JAX package's benchmark (bench.py:483)
+SGD_LRS = (1.0, 0.3, 0.1, 0.03)  # the SGD check's steps, largest first
+
+
+def _bwd_inputs(seed: int, hq: int, hkv: int, q_len: int, kv_len: int, d: int, dtype, *, strided_do: bool = True):
+    """U(-0.5, 0.5) q, k, v and an N(0, 1) cotangent dO. With ``strided_do``
+    dO is a [B, S, H, D] buffer seen as [B, H, S, D] (unit last stride,
+    strided heads and rows), as a cotangent coming back through the output
+    projection's einsum may be."""
+    import torch
+
+    from flash_attention_tpu_torch.utils.testing import make_qkv
+
+    q, k, v = make_qkv(seed, 1, hq, q_len, d, num_kv_heads=hkv, kv_seq=kv_len, dtype=dtype, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if strided_do:
+        do = torch.randn((1, q_len, hq, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    else:
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def _hold_bwd(what: str, q, k, v, do, causal: bool, *, rel_bar: float):
+    """The card's gradients through flash_attention's autograd Function (K1
+    with LSE, then K3 or K4 + K5) against flash_attention_bwd_plain on the
+    same residuals (row by row, ``rel_bar``) and autograd through the fp32
+    oracle (ORACLE_BAR). Returns (the grads, the residuals, |g - plain|,
+    row-relative, |g - oracle|)."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.attention_bwd import flash_attention_bwd_plain
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+    from flash_attention_tpu_torch.ops.reference import reference_attention
+
+    scale = q.shape[-1] ** -0.5
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal)
+    if type(out.grad_fn).__name__ != "FlashAttentionFunctionBackward":
+        raise RuntimeError(f"{what}: the card's output has grad_fn {out.grad_fn}, not the port's autograd Function")
+    grads = torch.autograd.grad(out, leaves, do)
+    with torch.no_grad():
+        out_r, lse = flash_attention(q, k, v, causal=causal, save_residuals=True)
+        plain = flash_attention_bwd_plain(q, k, v, out_r, lse, do, causal=causal, sm_scale=scale)
+    oracle_in = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    oracle = torch.autograd.grad(reference_attention(*oracle_in, causal=causal), oracle_in, do.float())
+    torch.cuda.synchronize()
+    d_plain = max(_max_diff(g, w) for g, w in zip(grads, plain))
+    floor = GRAD_FLOOR * max(float(w.abs().max()) for w in plain if w.numel())
+    d_rel = max(_rel_diff(g, w, floor) for g, w in zip(grads, plain))
+    d_oracle = max(_max_diff(g, w) for g, w in zip(grads, oracle))
+    if not (d_oracle < ORACLE_BAR and d_rel < rel_bar):
+        raise RuntimeError(f"{what}: |grad-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), row-relative to plain "
+                           f"{d_rel:.3e} (bar {rel_bar})")
+    return grads, (out_r, lse), d_plain, d_rel, d_oracle
+
+
+def phase_bwd_kernels(card: str) -> dict:
+    """Phase 12: K3, K4 and K5 in bf16 at BWD_CASES, each through the
+    autograd path and against its plain version and the oracle; kernel,
+    plain, SDPA-backward and bound times. Returns the report entries."""
+    import torch
+    import torch.nn.functional as F
+
+    from flash_attention_tpu_torch.ops.attention_bwd import (
+        _delta,
+        _guard_lse,
+        bwd_route,
+        flash_attention_bwd_plain,
+        launch_dkv,
+        launch_dq,
+        launch_fused,
+    )
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+
+    bf16, d = torch.bfloat16, 128
+    report = {}
+    for hq, hkv, q_len, kv_len, causal in BWD_CASES:
+        route = bwd_route(hq, hkv, q_len, kv_len)
+        shape = f"q [1,{hq},{q_len},{d}] kv [1,{hkv},{kv_len},{d}] bf16 {'causal' if causal else 'non-causal'}"
+        q, k, v, do = _bwd_inputs(12, hq, hkv, q_len, kv_len, d, bf16)
+        _, (out, lse), d_plain, d_rel, d_oracle = _hold_bwd(f"backward {shape}", q, k, v, do, causal,
+                                                            rel_bar=REL_BAR["bfloat16"])
+        args = (q, k, v, do, _guard_lse(lse).contiguous(), _delta(out, do).contiguous())
+        kw = dict(causal=causal, sm_scale=d**-0.5)
+        kernels = {"K3": launch_fused} if route == "fused" else {"K4": launch_dq, "K5": launch_dkv}
+        times = {name: cuda_ms(lambda fn=fn: fn(*args, **kw)) for name, fn in kernels.items()}
+        # The forward of the same autograd call (K1 with its LSE), for the step's breakdown.
+        fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal, save_residuals=True))
+        plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, out, lse, do, **kw), warmup=2, iters=5)
+        # The library yardstick: the backward of one SDPA call over the same dO.
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        if causal and q_len != kv_len:  # SDPA's is_causal aligns the mask at the top
+            mask = torch.arange(kv_len, device="cuda")[None, :] <= torch.arange(q_len, device="cuda")[:, None] + (kv_len - q_len)
+            lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=hq != hkv)
+        else:
+            lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=hq != hkv)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True))
+        del leaves, lib_out
+        pairs = causal_pairs(q_len, kv_len) if causal else q_len * kv_len
+        q_bytes, kv_bytes = 2 * q.numel(), 2 * k.numel()
+        in_bytes = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * hq * q_len  # q, dO, k, v, lse, delta
+        products = {"K3": 5, "K4": 3, "K5": 4}
+        outs = {"K3": q_bytes + 2 * kv_bytes, "K4": q_bytes, "K5": 2 * kv_bytes}
+        parts = []
+        for name, ms in times.items():
+            flops = 2 * d * pairs * hq * products[name]
+            bound_ms, bound_by = bound(flops, in_bytes + outs[name])
+            parts.append(f"{name} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; bound {bound_ms:.4f} ms by {bound_by})")
+            if (hq, hkv, q_len, kv_len, causal) in (BWD_CASES[0], BWD_CASES[2]):
+                report[name] = {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                "bound_ms": bound_ms, "bound_by": bound_by}
+        log(
+            f"[backward] {shape}, {route}: |grad-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), |grad-plain| "
+            f"{d_plain:.3e}, row-relative to plain {d_rel:.3e} (bar {REL_BAR['bfloat16']}); "
+            + ", ".join(parts) + f"; plain (dq, dk, dv) {plain_ms:.4f} ms, SDPA backward (library, dq, dk, dv) "
+            f"{lib_ms:.4f} ms; its forward, K1 with LSE, {fwd_ms:.4f} ms ({card})"
+        )
+        del q, k, v, do, out, lse, args
+    torch.cuda.empty_cache()
+    names = {"K3": ("flash_bwd_fused (K3)", 594), "K4": ("flash_bwd_dq (K4)", 65), "K5": ("flash_bwd_dkv (K5)", 317)}
+    return {key: {"name": names[key][0], "route": "cuda", "source": "flash_attention_tpu_torch/csrc/flash_bwd.cu",
+                  "replaces": f"{REFERENCE}/ops/attention_bwd.py:{names[key][1]}", **report[key]} for key in names}
+
+
+def phase_bwd_sweep() -> None:
+    """Every (dtype, head_dim) instantiation of K3, K4 and K5 at ragged
+    lengths (1, 63, 129, 1000): MHA self-attention causal and not (K3),
+    GQA group 4 self-attention and group 2 with q_len < kv_len end-aligned
+    (K4 + K5), MHA cross-length (K4 + K5); a cotangent with a strided last
+    dimension (copied by the wrapper) on the fp32 cases."""
+    import torch
+
+    worst, n = 0.0, 0
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for d in (32, 64, 128):
+            for length in (1, 63, 129, 1000):
+                short = min(length, 63)
+                cases = [(4, 4, length, length, True), (4, 4, length, length, False), (4, 1, length, length, True),
+                         (4, 2, short, length, True), (4, 4, short, length, False)]
+                for hq, hkv, q_len, kv_len, causal in cases:
+                    what = f"backward {name} d={d} {hq}/{hkv} q {q_len} kv {kv_len} causal={causal}"
+                    q, k, v, do = _bwd_inputs(n, hq, hkv, q_len, kv_len, d, dtype, strided_do=False)
+                    if dtype == torch.float32:
+                        do = do.transpose(-1, -2).contiguous().transpose(-1, -2)  # last stride q_len
+                    _, _, _, d_rel, _ = _hold_bwd(what, q, k, v, do, causal, rel_bar=REL_BAR[name])
+                    worst = max(worst, d_rel / REL_BAR[name])
+                    n += 1
+    log(
+        f"[backward sweep] K3, K4 and K5 at fp32/fp16/bf16 x head_dim 32/64/128 x lengths 1/63/129/1000, MHA, "
+        f"GQA 4 and 2, cross-length, {n} cases: all within {ORACLE_BAR} of the oracle's gradients; worst "
+        f"row-relative difference to plain at {worst:.3f} of its bar {REL_BAR}"
+    )
+
+
+def _lm_loss(logits, targets):
+    import torch.nn.functional as F
+
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(), targets.reshape(-1))
+
+
+def phase_tiny_train() -> None:
+    """Phase 13: the tiny fp32 model, GQA (K4 + K5) and MHA (K3), on the card
+    and on the CPU: the loss and every parameter's gradient agree within
+    1e-4 of the leaf's largest gradient (fp32 sums in another order, and
+    K3's atomics in a run-dependent one), and the card launched exactly the
+    kernels of its route."""
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params, train_forward
+
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(0, TINY_CFG["vocab_size"], (2, 101)))
+    for kv_heads, used in ((2, ("K1", "K4", "K5")), (4, ("K1", "K3"))):
+        cfg = ModelConfig(**{**TINY_CFG, "num_kv_heads": kv_heads})
+        params = init_model_params(torch.Generator().manual_seed(0), cfg)
+        result = {}
+        for device in ("cuda", "cpu"):
+            params_d = _to_device(params, device)
+            leaves = _tensors(params_d)
+            for t in leaves:
+                t.requires_grad_()
+            toks = tokens.to(device)
+            zero_counts()
+            loss = _lm_loss(train_forward(params_d, cfg, toks[:, :-1]), toks[:, 1:])
+            grads = torch.autograd.grad(loss, leaves)
+            result[device] = (float(loss.detach()), [g.cpu() for g in grads], read_counts())
+        check_launches(f"[tiny train] {kv_heads} kv heads, on the card", result["cuda"][2], used)
+        worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(result["cuda"][1], result["cpu"][1]))
+        d_loss = abs(result["cuda"][0] - result["cpu"][0])
+        zero = [i for i, g in enumerate(result["cuda"][1]) if not bool(g.abs().max() > 0)]
+        log(
+            f"[tiny train] fp32, 4 q / {kv_heads} kv heads, 2 x 100 tokens: loss card {result['cuda'][0]:.6f} CPU "
+            f"{result['cpu'][0]:.6f}; worst leaf |grad card - grad CPU| / max|grad CPU| {worst:.3e} (bar 1e-4) "
+            f"over {len(result['cpu'][1])} leaves; kernels {used}"
+        )
+        if not (d_loss < 1e-5 and worst < 1e-4) or zero:
+            raise RuntimeError(f"[tiny train] {kv_heads} kv heads: loss diff {d_loss}, grads {worst}, all-zero leaves {zero}")
+
+
+def _check_grads(what: str, params) -> None:
+    """Every gradient finite, and no weight matrix's all zero."""
+    import torch
+
+    leaves = _tensors(params)
+    finite = torch.stack([torch.isfinite(t.grad).all() for t in leaves])
+    nonzero = torch.stack([t.grad.abs().amax() > 0 for t in leaves if t.ndim >= 2])
+    if not bool(finite.all()) or not bool(nonzero.all()):
+        raise RuntimeError(f"{what}: {int((~finite).sum())} leaves with non-finite gradients, "
+                           f"{int((~nonzero).sum())} weight matrices with an all-zero gradient")
+
+
+def _train_step(params, cfg, tokens) -> float:
+    """One forward + backward of the next-token loss; returns the loss."""
+    from flash_attention_tpu_torch.models.transformer import train_forward
+
+    for t in _tensors(params):
+        t.grad = None
+    loss = _lm_loss(train_forward(params, cfg, tokens[:, :-1]), tokens[:, 1:])
+    loss.backward()
+    return float(loss.detach())
+
+
+def phase_full_train(card: str, params) -> dict:
+    """Phase 14: ModelConfig() trained at full width and depth on phase 5's
+    weights (the engines and caches of phases 5-11 are released): three
+    steps of forward + backward at B=1, T=2048 with next-token cross
+    entropy, then one SGD step in the script that must lower the loss on the
+    last batch; then ModelConfig(num_kv_heads=32, num_layers=4), the MHA
+    route, one step. Returns the launch counts of the GQA steps and of the
+    MHA step."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params, train_forward
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ModelConfig()
+    rng = np.random.default_rng(14)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, TRAIN_TOKENS + 1))).cuda() for _ in range(3)]
+    leaves = _tensors(params)
+    for t in leaves:
+        t.requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times, losses = [], []
+    for tokens in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(_train_step(params, cfg, tokens))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not np.isfinite(losses[-1]):
+            raise RuntimeError(f"[full train] non-finite loss {losses[-1]}")
+        _check_grads("[full train]", params)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("[full train] ModelConfig() steps", launches, ("K1", "K4", "K5"))
+    step_s = statistics.median(times)
+    log(
+        f"[full train] ModelConfig() bf16, B=1, T={TRAIN_TOKENS}, 3 steps of forward + backward: losses "
+        f"{[round(x, 4) for x in losses]}, step {[round(t * 1e3, 1) for t in times]} ms, median {step_s * 1e3:.1f} ms "
+        f"= {TRAIN_TOKENS / step_s:.1f} training tokens/s; peak device memory (max_memory_allocated) "
+        f"{peak / 2**30:.2f} GiB, weights {_nbytes(params) / 1e9:.3f} GB and their gradients as much; kernel "
+        f"launches {launches} ({card})"
+    )
+
+    # SGD along -g on the last batch, in the script: the largest step of
+    # SGD_LRS that lowers the loss, from the weights as they were.
+    tokens = batches[-1]
+    g2 = float(sum((t.grad.float() ** 2).sum() for t in leaves))
+    kept = [t.detach().clone() for t in leaves]
+    with torch.no_grad():
+        for lr in SGD_LRS:
+            for t in leaves:
+                t.sub_(t.grad, alpha=lr)
+            after = float(_lm_loss(train_forward(params, cfg, tokens[:, :-1]), tokens[:, 1:]))
+            for t, w in zip(leaves, kept):
+                t.copy_(w)
+            log(f"[full train] SGD lr {lr}: loss {losses[-1]:.4f} -> {after:.4f} (first order: "
+                f"-{lr * g2:.4f}; |g|^2 {g2:.4e})")
+            if after < losses[-1]:
+                break
+        else:
+            raise RuntimeError("[full train] no SGD step along -g lowered the loss")
+    del kept
+    for t in leaves:
+        t.grad = None
+        t.requires_grad_(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg_mha = ModelConfig(num_kv_heads=32, num_layers=4)
+    p_mha = init_model_params(torch.Generator(device="cuda").manual_seed(1), cfg_mha)
+    for t in _tensors(p_mha):
+        t.requires_grad_()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = _train_step(p_mha, cfg_mha, batches[0])
+    torch.cuda.synchronize()
+    mha_s = time.perf_counter() - t0
+    mha_launches = read_counts()
+    if not np.isfinite(loss):
+        raise RuntimeError(f"[full train] MHA: non-finite loss {loss}")
+    _check_grads("[full train] MHA", p_mha)
+    check_launches("[full train] ModelConfig(num_kv_heads=32, num_layers=4) step", mha_launches, ("K1", "K3"))
+    log(
+        f"[full train] ModelConfig(num_kv_heads=32, num_layers=4) bf16, one step: loss {loss:.4f}, "
+        f"{mha_s * 1e3:.1f} ms (first step, warm kernels); kernel launches {mha_launches} ({card})"
+    )
+    del p_mha
+    torch.cuda.empty_cache()
+    return {"gqa": launches, "mha": mha_launches}
+
+
 def main() -> None:
     import torch
 
@@ -1510,8 +1868,14 @@ def main() -> None:
     phase_tiny_quant()
     for key, n in phase_full_quant(card, params, dense, paged).items():
         quant[key]["launches"] = n
+    bwd = phase_bwd_kernels(card)
+    phase_bwd_sweep()
+    phase_tiny_train()
+    train = phase_full_train(card, params)
+    bwd["K3"]["launches"] = train["mha"]["K3"]
+    bwd["K4"]["launches"], bwd["K5"]["launches"] = train["gqa"]["K4"], train["gqa"]["K5"]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k6, k7, k8, k10, *quant.values()]}))
+    print(json.dumps({"kernels": [k1, k6, k7, k8, k10, *quant.values(), *bwd.values()]}))
     print(card)
     print(json.dumps({
         "ok": True,

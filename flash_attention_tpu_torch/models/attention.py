@@ -1,6 +1,8 @@
 """GQA attention layer with a decode KV cache, built on the port's kernels.
 
-Counterpart of the JAX package's ``models/attention.py``. Over the dense
+Counterpart of the JAX package's ``models/attention.py``. Training
+(``attention_forward``, no cache) runs K1 forward and its backward kernels
+through ``ops.flash_attention``'s autograd Function. Over the dense
 cache, prefill runs through ``ops.flash_attention`` (K1, causal) and decode
 through ``ops.decode.decode_attention`` (K6); over the paged cache
 (``ops/paged.py``), chunked prefill through K8 and decode through K7 with
@@ -44,6 +46,7 @@ from flash_attention_tpu_torch.ops.paged import (
 from flash_attention_tpu_torch.ops.quant import QuantizedTensor, bits, payload_dtype, quantize_values, w8_dequant
 
 _MASK_ITEM = "ROADMAP.md queue 1 item 3 (window, softcap, rolling cache and sinks)"
+_SEGMENT_ITEM = "ROADMAP.md queue 1 item 3 (segment ids)"
 
 
 def require_supported(cfg) -> None:
@@ -218,6 +221,24 @@ def attention_prefill(params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCa
     out = _output_proj(params, o, x.dtype)
     cache = write_cache(cfg, cache, k, v, torch.zeros((batch,), dtype=torch.int32, device=x.device))
     return out, cache
+
+
+def attention_forward(params, cfg: AttentionConfig, x: torch.Tensor, *, positions=None, segment_ids=None):
+    """Training-mode causal self-attention over [B, T, model_dim] (no cache).
+
+    positions: optional [B, T] integer RoPE positions, default arange(T).
+    segment_ids: packed-sequence ids; not ported yet (NotImplementedError).
+
+    Returns [B, T, model_dim]; differentiable end to end (the attention's
+    gradient runs the backward kernels, ``ops/attention_bwd.py``).
+    """
+    if segment_ids is not None:
+        raise NotImplementedError(f"segment_ids is not ported yet: {_SEGMENT_ITEM}")
+    _, t, _ = x.shape
+    pos = torch.arange(t, device=x.device)[None, None, :] if positions is None else positions[:, None, :]
+    q, k, v = _project_qkv(params, cfg, x, pos)
+    o = flash_attention(q, k, v, causal=True)
+    return _output_proj(params, o, x.dtype)
 
 
 def attention_prefill_chunk(

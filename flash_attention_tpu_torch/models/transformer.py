@@ -1,7 +1,8 @@
 """LLaMA-class decoder-only transformer built on the port's attention layer.
 
-Counterpart of the JAX package's ``models/transformer.py`` for the serving
-paths: ``prefill``, ``prefill_chunk``, ``decode_step_logits`` and
+Counterpart of the JAX package's ``models/transformer.py``: the training
+forward ``train_forward`` (no caches; differentiate it with autograd), and
+the serving paths ``prefill``, ``prefill_chunk``, ``decode_step_logits`` and
 ``decode_step`` over dense caches, and their ``*_paged`` twins over the
 paged model cache (``ops/paged.PagedModelCache``), with a params dict of
 the JAX package's tree and shapes (``models/convert.py`` maps one onto the
@@ -32,6 +33,7 @@ from flash_attention_tpu_torch.models.attention import (
     _weight,
     attention_decode,
     attention_decode_paged_deferred,
+    attention_forward,
     attention_prefill,
     attention_prefill_chunk,
     attention_prefill_chunk_paged,
@@ -158,12 +160,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> list:
     return [init_kv_cache(acfg, batch, max_seq, device=device) for _ in range(cfg.num_layers)]
 
 
-def _trunk(params, cfg: ModelConfig, tokens: torch.Tensor, attn_fn, caches):
+def _trunk(params, cfg: ModelConfig, tokens: torch.Tensor, attn_fn, caches=None):
     """Shared decoder trunk: embed -> N x (pre-norm attention via ``attn_fn``
     + pre-norm SwiGLU, both residual) -> final norm -> tied-embedding logits.
 
     ``attn_fn(layer_attn_params, acfg, h, cache) -> (attn_out, new_cache)``
-    is the one piece the entry points differ in. Returns (logits
+    is the one piece the entry points differ in (cache is None throughout
+    on the cache-free training path, ``caches=None``). Returns (logits
     [B, T, vocab] fp32, new caches).
     """
     acfg = cfg.attention_config()
@@ -177,6 +180,8 @@ def _trunk(params, cfg: ModelConfig, tokens: torch.Tensor, attn_fn, caches):
     else:
         x = emb[tokens].to(dt)
     new_caches = []
+    if caches is None:
+        caches = [None] * len(params["layers"])
     for lp, cache in zip(params["layers"], caches):
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         attn_out, cache = attn_fn(lp["attn"], acfg, h, cache)
@@ -203,6 +208,19 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list, *, dec
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list):
     return forward(params, cfg, tokens, caches, decode=False)
+
+
+def train_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, segment_ids=None) -> torch.Tensor:
+    """Training-mode forward (no KV caches): causal LM logits [B, T, vocab]
+    fp32 over [B, T] tokens; differentiate a loss of them with autograd.
+    ``segment_ids`` (packed batches) is not ported yet and raises
+    NotImplementedError, as ``attention_forward`` does."""
+
+    def attn(p, acfg, h, cache):
+        return attention_forward(p, acfg, h, segment_ids=segment_ids), cache
+
+    logits, _ = _trunk(params, cfg, tokens, attn)
+    return logits
 
 
 def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list, slot: int, start: int, kv_end: int):

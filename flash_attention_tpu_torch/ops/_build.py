@@ -138,6 +138,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         i64, i64, i64,  # scale strides (layer, page, head)
         i32, i32, ptr,  # dtype, payload, stream
     ]
+    bwd_args = [
+        i64, i64, i64, i64, i64, i64,  # batch, Hq, Hkv, Sq, Skv, D
+        i64, i64, i64, i64, i64, i64, i64, i64, i64, i64, i64, i64,  # q/k/v/dO strides
+        f32, f32, i32, i32, ptr,  # scale2, sm_scale, causal, dtype, stream
+    ]
+    # q, k, v, dO, lse, delta, then the outputs: dq (K4); dk, dv (K5); fp32
+    # dq accumulator, dk, dv (K3).
+    for entry, n_out in (("fat_flash_bwd_dq", 1), ("fat_flash_bwd_dkv", 2), ("fat_flash_bwd_fused", 3)):
+        fn = getattr(lib, entry)
+        fn.restype = c.c_int
+        fn.argtypes = [ptr] * (6 + n_out) + bwd_args
     lib.fat_error_string.restype = c.c_char_p
     lib.fat_error_string.argtypes = [c.c_int]
 

@@ -9,8 +9,12 @@ the top of csrc/flash_fwd.cu.
 CUDA kernel for CUDA tensors; there is no fallback from one to the other.
 ``flash_attention.launches`` counts kernel launches.
 
-Serving takes no gradient, so there is no autograd ``Function`` yet; the
-backward kernels K3-K5 are queued in ROADMAP.md.
+Under grad the call goes through ``FlashAttentionFunction``, the
+counterpart of the JAX package's custom VJP (``_fa``/``_fa_fwd``/``_fa_bwd``,
+:1650-1702): the forward runs once with its LSE and saves (q, k, v, out,
+lse2), and the backward is ``ops/attention_bwd.flash_attention_bwd`` (K3, or
+K4 + K5). The CPU takes the same Function with the plain forward and
+backward, so the CPU tests run the card's wiring.
 """
 
 from __future__ import annotations
@@ -18,8 +22,10 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from flash_attention_tpu_torch.ops import _build
+from flash_attention_tpu_torch.ops.attention_bwd import flash_attention_bwd
 from flash_attention_tpu_torch.ops.common import LOG2E, M_FLOOR, MASK_VALUE
 
 
@@ -74,37 +80,10 @@ def _validate(q, k, v, causal):
         raise ValueError("causal requires kv_seq >= q_seq")
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = False,
-    sm_scale: float | None = None,
-    save_residuals: bool = False,
-):
-    """Fused multi-head attention forward.
-
-    Args:
-      q: [batch, q_heads, q_seq, head_dim].
-      k, v: [batch, kv_heads, kv_seq, head_dim]; q_heads % kv_heads == 0.
-        Any batch, head and row strides (a slice of a KV cache goes in as a
-        view); the CUDA kernel copies an operand only if its last dimension
-        is strided.
-      causal: lower-triangular mask aligned so the last query row sees the
-        whole KV sequence (the decode / chunked-prefill convention).
-      sm_scale: softmax scale, default 1/sqrt(head_dim).
-      save_residuals: also return the base-2 LSE [batch, q_heads, q_seq]
-        fp32 (-inf for a row that sees no key).
-
-    Returns:
-      [batch, q_heads, q_seq, head_dim] in q's dtype, plus the LSE if asked.
-    """
-    _validate(q, k, v, causal)
+def _forward(q, k, v, causal: bool, sm_scale: float, save_residuals: bool):
+    """K1 for CUDA tensors, the plain version for CPU tensors."""
     batch, num_q_heads, q_len, head_dim = q.shape
     num_kv_heads, kv_len = k.shape[1], k.shape[2]
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(head_dim)
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, sm_scale=sm_scale, save_residuals=save_residuals
@@ -135,6 +114,64 @@ def flash_attention(
         _build.check(err, "flash_attention (K1)")
         flash_attention.launches += 1
     return (out, lse) if save_residuals else out
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention with the backward kernels: one forward with its LSE, then
+    ``flash_attention_bwd`` on the saved residuals. The backward is not
+    itself differentiable, on either device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        out, lse2 = _forward(q, k, v, causal, sm_scale, save_residuals=True)
+        ctx.save_for_backward(q, k, v, out, lse2)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse2 = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse2, do, causal=ctx.causal, sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: float | None = None,
+    save_residuals: bool = False,
+):
+    """Fused multi-head attention forward, differentiable in q, k and v.
+
+    Args:
+      q: [batch, q_heads, q_seq, head_dim].
+      k, v: [batch, kv_heads, kv_seq, head_dim]; q_heads % kv_heads == 0.
+        Any batch, head and row strides (a slice of a KV cache goes in as a
+        view); the CUDA kernel copies an operand only if its last dimension
+        is strided.
+      causal: lower-triangular mask aligned so the last query row sees the
+        whole KV sequence (the decode / chunked-prefill convention).
+      sm_scale: softmax scale, default 1/sqrt(head_dim).
+      save_residuals: also return the base-2 LSE [batch, q_heads, q_seq]
+        fp32 (-inf for a row that sees no key). Not differentiable, as in
+        the JAX package: under grad it raises.
+
+    Returns:
+      [batch, q_heads, q_seq, head_dim] in q's dtype, plus the LSE if asked.
+    """
+    _validate(q, k, v, causal)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    if needs_grad and save_residuals:
+        raise ValueError("flash_attention: save_residuals=True is not differentiable; call it under torch.no_grad()")
+    if needs_grad:
+        return FlashAttentionFunction.apply(q, k, v, causal, sm_scale)
+    return _forward(q, k, v, causal, sm_scale, save_residuals)
 
 
 flash_attention.launches = 0
