@@ -77,6 +77,30 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 that lowers the loss; exactly K1, K4 and K5 launched. Then
                 ModelConfig(num_kv_heads=32, num_layers=4) one step, K1
                 and K3 launched. Step ms, training tokens/s, peak memory.
+ 15. masked   — the masked kernels in bf16 against their plain versions
+                (row-relative), the fp32 oracle with the same masks and
+                their LSE: K1 with window 4096 (q 256 end-aligned over kv
+                9216) and with softcap 50; K2 (window 64) beside K1 at the
+                JAX band's window 128; K6 over a dense window, a ring of
+                4352 rows and a ring with 4 sinks, lengths past the ring,
+                K6q int8 on the ring; K7 and K8 with window 4096 and 4
+                sinks over a shuffled paged ring whose rolled-out logical
+                pages alias live ones. Then every (dtype, head_dim)
+                instantiation at windows 1, 63, 64, 65 and 1000.
+ 16. tiny masked — the tiny fp32 model on the card and the CPU, identical
+                tokens, through a dense window (96, and 48: K2), the rolling
+                cache, rolling + 32 sinks, softcap 30, the paged ring and
+                paged + sinks; rolling == dense window == paged ring, and
+                paged sinks == rolling sinks.
+ 17. full masked — ModelConfig(mlp_dim=14336, sliding_window=4096)
+                (Mistral-7B v0.1's shape, tied embedding), bf16, seed 0:
+                prompts of {1, 255, 1024, 4095, 4096, 4097, 6000, 9000}
+                tokens, 32 new each, through (a) the rolling ServingEngine
+                (4352-row ring, K1 and K6 only), (b) the same without the
+                ring at max_seq 9216 (last-chunk logits within LOGIT_BAR of
+                (a)), (c) PagedServingEngine with 4 sinks (at most 37 pages a
+                slot, the pool full again after; K7, K8, K10 only) and (d)
+                softcap 50 on phase 5's requests.
 
 Every phase prints kernel, plain-version, library-call and bound times
 (the bound: the larger of the bytes over 3.35 TB/s and the operations over
@@ -395,7 +419,7 @@ def _counters() -> dict:
     from flash_attention_tpu_torch.ops.paged import paged_decode_attention, paged_prefill_attention, paged_write_tokens_multi
 
     return {
-        "K1": (flash_attention, "launches"),
+        "K1": (flash_attention, "launches"), "K2": (flash_attention, "band_launches"),
         "K3": (launch_fused, "launches"), "K4": (launch_dq, "launches"), "K5": (launch_dkv, "launches"),
         "K6": (decode_attention, "launches"), "K6q": (decode_attention, "quant_launches"),
         "K7": (paged_decode_attention, "launches"), "K7q": (paged_decode_attention, "quant_launches"),
@@ -1844,6 +1868,674 @@ def phase_full_train(card: str, params) -> dict:
     return {"gqa": launches, "mha": mha_launches}
 
 
+# Masked serving (phases 15-17). Mistral-7B v0.1's shape (config.json:
+# hidden 4096, 32 layers, 32 q / 8 kv heads, head_dim 128, intermediate 14336,
+# vocab 32000, rope_theta 10000, sliding_window 4096) with the repository's
+# tied embedding.
+MISTRAL = dict(mlp_dim=14336, sliding_window=4096)
+WINDOW = 4096
+SINKS = 4  # StreamingLLM's four sink tokens
+RING_ROWS = 4352  # rolling_buffer_len at window 4096 and chunk 256: ceil128(4096 + 256)
+DENSE_LENGTHS = (0, 1, 100, 4095, 4096, 4097, 9000, 9216)  # K6 dense window over 9216 rows; K7's logical rows
+RING_LENGTHS = (0, 1, 4095, 4096, 4352, 4353, 9000, 20000)  # K6 over the ring: lengths pass its rows
+MASKED_PROMPT_LENS = (1, 255, 1024, 4095, 4096, 4097, 6000, 9000)  # phase 17, run A
+SWEEP_WINDOWS = (1, 63, 64, 65, 1000)
+
+
+def _ring_row(p: int, rows: int, sinks: int = 0) -> int:
+    """The row of a rolling cache of ``rows`` rows that holds position p, as
+    the cache writes it: p % rows; with sinks, p below them and sinks_pad +
+    (p - sinks) % (rows - sinks_pad) above (sinks_pad = sinks rounded up to
+    128)."""
+    if not sinks:
+        return p % rows
+    spad = -(-sinks // 128) * 128
+    return p if p < sinks else spad + (p - sinks) % (rows - spad)
+
+
+def _visible_positions(length: int, window: int, sinks: int = 0) -> list[int]:
+    """The positions a decode query at ``length`` attends: the window's and
+    the sinks'."""
+    return sorted(set(range(max(0, length - window), length)) | set(range(min(sinks, length))))
+
+
+def _oracle_rows(q, k, v, rows_per_seq, *, softcap=None):
+    """fp32 oracle of single-token decode over the cache rows each sequence
+    sees: the rows gathered, then reference_attention_with_lse with the
+    count as kv_length. Returns (out [B, Hq, D], lse [B, Hq]) and the
+    boolean [B, rows] mask of those rows (for the library call)."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.reference import reference_attention_with_lse
+
+    batch, hkv, rows, d = k.shape
+    n = max(1, max(len(r) for r in rows_per_seq))
+    idx = torch.zeros((batch, n), dtype=torch.long)
+    mask = torch.zeros((batch, rows), dtype=torch.bool)
+    for b, r in enumerate(rows_per_seq):
+        idx[b, : len(r)] = torch.tensor(r, dtype=torch.long)
+        mask[b, r] = True
+    idx, mask = idx.to(k.device), mask.to(k.device)
+    gather = lambda x: torch.gather(x.float(), 2, idx[:, None, :, None].expand(batch, hkv, n, d))  # noqa: E731
+    counts = torch.tensor([len(r) for r in rows_per_seq], device=k.device)
+    out, lse = reference_attention_with_lse(q[:, :, None].float(), gather(k), gather(v), kv_length=counts,
+                                            logit_softcap=softcap)
+    return out[:, :, 0], lse[:, :, 0], mask
+
+
+def _oracle_mask(q, k, v, mask, *, sm_scale, softcap=None):
+    """fp32 attention of q [B, Hq, Sq, D] over k, v [B, Hkv, Skv, D] under an
+    explicit boolean mask [Sq, Skv]: (out, base-2 LSE), 0 and -inf where a
+    row sees nothing."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.common import LOG2E
+
+    group = q.shape[1] // k.shape[1]
+    kf, vf = (x.float().repeat_interleave(group, dim=1) for x in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * sm_scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s2 = torch.where(mask, s * LOG2E, -torch.inf)
+    m = s2.amax(-1, keepdim=True)
+    live = torch.isfinite(m)
+    p = torch.exp2(s2 - torch.where(live, m, 0.0))
+    l = p.sum(-1, keepdim=True)
+    out = torch.where(live, torch.einsum("bhqk,bhkd->bhqd", p, vf) / torch.where(live, l, 1.0), 0.0)
+    lse = torch.where(live, m + torch.log2(torch.where(live, l, 1.0)), -torch.inf)[..., 0]
+    return out, lse
+
+
+def _window_pairs(q_len: int, kv_len: int, window: int | None) -> int:
+    """(query, key) pairs an end-aligned causal mask with a window leaves."""
+    diag = kv_len - q_len
+    return sum(min(kv_len, i + diag + 1) - (0 if window is None else max(0, i + diag - window + 1)) for i in range(q_len))
+
+
+def _hold(what: str, out, plain, oracle, lse=None, p_lse=None, o_lse=None, *, dtype: str = "bfloat16"):
+    """Row by row within REL_BAR of plain and oracle, within ORACLE_BAR of
+    the oracle, the LSE within LSE_BAR of both; returns (|out - plain|,
+    row-relative, |lse|)."""
+    d_plain, d_oracle = _max_diff(out, plain), _max_diff(out, oracle)
+    d_rel = max(_rel_diff(out, plain), _rel_diff(out, oracle))
+    d_lse = 0.0 if lse is None else max(_max_diff(lse, p_lse), _max_diff(lse, o_lse))
+    if not (d_oracle < ORACLE_BAR and d_rel < REL_BAR[dtype] and d_lse < LSE_BAR):
+        raise RuntimeError(f"{what} disagrees: |out-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), row-relative "
+                           f"{d_rel:.3e} (bar {REL_BAR[dtype]}), |lse| {d_lse:.3e} (bar {LSE_BAR})")
+    return d_plain, d_rel, d_lse
+
+
+def _k1_masked(card: str, what: str, q, k, v, *, window=None, softcap=None, lib_mask=None, want="K1") -> dict:
+    """K1 (or K2) with a window and/or softcap, causal, end-aligned, with its
+    LSE: against flash_attention_plain and the fp32 oracle with the same
+    masks; kernel, plain, library and bound times."""
+    import torch
+    import torch.nn.functional as F
+
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from flash_attention_tpu_torch.ops.reference import reference_attention_with_lse
+
+    scale = q.shape[-1] ** -0.5
+    kw = dict(causal=True, sliding_window=window, logit_softcap=softcap)
+    zero_counts()
+    out, lse = flash_attention(q, k, v, save_residuals=True, **kw)
+    torch.cuda.synchronize()
+    check_launches(f"[masked] {what}", read_counts(), (want,))
+    p_out, p_lse = flash_attention_plain(q, k, v, sm_scale=scale, save_residuals=True, causal=True,
+                                         sliding_window=window, logit_softcap=softcap)
+    o_out, o_lse = reference_attention_with_lse(q, k, v, causal=True, sliding_window=window, logit_softcap=softcap)
+    d_plain, d_rel, d_lse = _hold(f"{want} {what}", out, p_out, o_out, lse, p_lse, o_lse)
+    del p_out, p_lse, o_out, o_lse
+    ms = cuda_ms(lambda: flash_attention(q, k, v, save_residuals=True, **kw))
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, sm_scale=scale, save_residuals=True, causal=True,
+                                                     sliding_window=window, logit_softcap=softcap), warmup=2, iters=5)
+    lib_ms = None
+    if lib_mask is not None:
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask, enable_gqa=True))
+    b, hq, q_len, d = q.shape
+    hkv, kv_len = k.shape[1], k.shape[2]
+    pairs = _window_pairs(q_len, kv_len, window)
+    first = 0 if window is None else max(0, kv_len - q_len - window + 1)
+    nbytes = 2 * 2 * q.numel() + 4 * lse.numel() + 2 * 2 * b * hkv * (kv_len - first) * d
+    bound_ms, bound_by = bound(4 * d * hq * b * pairs, nbytes)
+    log(
+        f"[masked] {want} {what}: |out-plain| {d_plain:.3e}, row-relative vs plain and oracle {d_rel:.3e} (bar "
+        f"{REL_BAR['bfloat16']}), |lse| {d_lse:.3e} (bar {LSE_BAR}); kernel {ms:.4f} ms "
+        f"({4 * d * hq * b * pairs / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library "
+        + ("none" if lib_ms is None else f"{lib_ms:.4f} ms (SDPA, boolean band mask)")
+        + f", bound {bound_ms:.4f} ms by {bound_by} ({pairs} visible pairs a head) ({card})"
+    )
+    return {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _k6_masked(card: str, what: str, q, k, v, lengths, *, ring: bool, sinks: int = 0, window=WINDOW,
+               softcap=None, want="K6") -> dict:
+    """K6 (K6q for a QuantizedTensor cache) with a window over a dense or
+    ring cache, with or without sinks: against decode_attention_plain and
+    the oracle over the rows holding the visible positions."""
+    import torch
+    import torch.nn.functional as F
+
+    from flash_attention_tpu_torch.ops.decode import decode_attention, decode_attention_plain
+    from flash_attention_tpu_torch.ops.quant import QuantizedTensor, dequantize
+
+    quant = isinstance(k, QuantizedTensor)
+    kd, vd = (dequantize(x) if quant else x for x in (k, v))
+    rows = kd.shape[2]
+    kw = dict(sliding_window=window, logit_softcap=softcap, ring_buffer=ring, attention_sinks=sinks)
+    zero_counts()
+    out, lse = decode_attention(q, k, v, lengths, save_residuals=True, **kw)
+    torch.cuda.synchronize()
+    check_launches(f"[masked] {want} {what}", read_counts(), (want,))
+    p_out, p_lse = decode_attention_plain(q, k, v, lengths, sm_scale=q.shape[-1] ** -0.5, save_residuals=True, **kw)
+    row_of = (lambda p: _ring_row(p, rows, sinks)) if ring else (lambda p: p)
+    seen = [[row_of(p) for p in _visible_positions(n, window, sinks)] for n in lengths.tolist()]
+    o_out, o_lse, mask = _oracle_rows(q, kd, vd, seen, softcap=softcap)
+    d_plain, d_rel, d_lse = _hold(f"{want} {what}", out, p_out, o_out, lse, p_lse, o_lse)
+    empty = lengths == 0
+    if not (bool((out[empty] == 0).all()) and bool(torch.isneginf(lse[empty]).all())):
+        raise RuntimeError(f"{want} {what}: a sequence of length 0 must give output 0 and LSE -inf")
+    ms = cuda_ms(lambda: decode_attention(q, k, v, lengths, save_residuals=True, **kw))
+    plain_ms = cuda_ms(lambda: decode_attention_plain(q, k, v, lengths, sm_scale=q.shape[-1] ** -0.5,
+                                                      save_residuals=True, **kw))
+    lib_ms = None
+    if not quant and softcap is None:
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kd, vd, attn_mask=mask[:, None, None],
+                                                                enable_gqa=True))
+    batch, hq, d = q.shape
+    hkv = kd.shape[1]
+    n_rows = sum(len(r) for r in seen)
+    row_bytes = d * (k.values.element_size() if quant else 2) + (4 if quant else 0)
+    nbytes = 2 * n_rows * hkv * row_bytes + 2 * 2 * q.numel() + 4 * (lse.numel() + batch)
+    bound_ms, bound_by = bound(4 * d * hq * n_rows, nbytes)
+    log(
+        f"[masked] {want} {what}, lengths {lengths.tolist()}: |out-plain| {d_plain:.3e}, row-relative "
+        f"{d_rel:.3e} (bar {REL_BAR['bfloat16']}), |lse| {d_lse:.3e} (bar {LSE_BAR}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library " + ("none" if lib_ms is None else f"{lib_ms:.4f} ms (SDPA, boolean mask)")
+        + f", bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB) ({card})"
+    )
+    return {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _ring_table(rng, num_slots: int, pages_per_slot: int, n_ring: int, *, sinks: bool):
+    """The paged ring's table over a shuffled pool: slot b owns n_ring pages
+    (one more, pinned as logical page 0, with sinks) and maps logical page
+    lp onto them modulo their count, as PagedServingEngine does; returns
+    the table and the pool's page count (page 0 the dump page)."""
+    import numpy as np
+
+    owned = n_ring + (1 if sinks else 0)
+    perm = rng.permutation(np.arange(1, 1 + num_slots * owned)).reshape(num_slots, owned)
+    table = np.zeros((num_slots, pages_per_slot), np.int32)
+    for b in range(num_slots):
+        if sinks:
+            table[b, 0] = perm[b, 0]
+            table[b, 1:] = [perm[b, 1 + (lp - 1) % n_ring] for lp in range(1, pages_per_slot)]
+        else:
+            table[b] = [perm[b, lp % n_ring] for lp in range(pages_per_slot)]
+    return table, 1 + num_slots * owned
+
+
+def phase_masked_kernels(card: str) -> dict:
+    """Phase 15: the masked kernels at the masked serving path's shapes in
+    bf16, each against its plain version (row-relative, REL_BAR), the fp32
+    oracle with the same masks (ORACLE_BAR) and its LSE (LSE_BAR). Returns
+    the report entries."""
+    return {**masked_k1_cases(card), **masked_k6_cases(card), **masked_paged_cases(card)}
+
+
+def masked_k1_cases(card: str) -> dict:
+    """K1 with window 4096 and with softcap 50; K2 beside K1 at the JAX
+    band's window."""
+    import torch
+
+    from flash_attention_tpu_torch.utils.testing import make_qkv
+
+    bf16, dev = torch.bfloat16, torch.device("cuda")
+    report = {}
+    # K1, window 4096: a 256-row chunk end-aligned at kv 9216.
+    q, k, v = make_qkv(15, 1, 32, 256, 128, num_kv_heads=8, kv_seq=9216, dtype=bf16, device=dev)
+    col, row = torch.arange(9216, device=dev)[None, :], torch.arange(256, device=dev)[:, None] + 8960
+    band = (col <= row) & (col > row - WINDOW)
+    report["K1w"] = _k1_masked(card, "window 4096, q [1,32,256,128] kv [1,8,9216,128]", q, k, v, window=WINDOW,
+                               lib_mask=band)
+    # K1, softcap 50 at phase 3's shape; q scaled up so the scores reach the cap.
+    q, k, v = make_qkv(16, 1, 32, 256, 128, num_kv_heads=8, kv_seq=2048, dtype=bf16, device=dev)
+    q = (q.float() * 256).to(bf16)
+    report["K1c"] = _k1_masked(card, "softcap 50, q [1,32,256,128] x 256, kv [1,8,2048,128]", q, k, v, softcap=50.0)
+    # K2: window 64 (the port's kv tile) against window 128 (the JAX band's block, K1).
+    q, k, v = make_qkv(17, 1, 32, 2048, 128, num_kv_heads=32, dtype=bf16, device=dev)
+    for window, want in ((128, "K1"), (64, "K2")):
+        col, row = torch.arange(2048, device=dev)[None, :], torch.arange(2048, device=dev)[:, None]
+        entry = _k1_masked(card, f"window {window}, q, kv [1,32,2048,128]", q, k, v, window=window,
+                           lib_mask=(col <= row) & (col > row - window), want=want)
+        if want == "K2":
+            report["K2"] = entry
+    return report
+
+
+def masked_k6_cases(card: str) -> dict:
+    """K6 over a dense window, the ring and the ring with sinks; K6q int8 on
+    the ring."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.quant import payload_dtype, quantize_values
+
+    bf16, dev = torch.bfloat16, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    report = {}
+    # K6: a dense window over 9216 rows, the ring of 4352 rows and the ring
+    # with 4 sinks in front (4480 rows), lengths past the ring's rows.
+    q = torch_uniform((8, 32, 128), bf16, gen)
+    k, v = torch_uniform((8, 8, 9216, 128), bf16, gen), torch_uniform((8, 8, 9216, 128), bf16, gen)
+    lengths = torch.tensor(DENSE_LENGTHS, dtype=torch.int32, device=dev)
+    _k6_masked(card, "dense window 4096, cache [8,8,9216,128]", q, k, v, lengths, ring=False)
+    lengths = torch.tensor(RING_LENGTHS, dtype=torch.int32, device=dev)
+    ring_k, ring_v = k[:, :, :RING_ROWS].contiguous(), v[:, :, :RING_ROWS].contiguous()
+    report["K6r"] = _k6_masked(card, f"ring of {RING_ROWS} rows, window 4096", q, ring_k, ring_v, lengths, ring=True)
+    rows = RING_ROWS + 128
+    _k6_masked(card, f"ring of {rows} rows with {SINKS} sinks, window 4096", q, k[:, :, :rows].contiguous(),
+               v[:, :, :rows].contiguous(), lengths, ring=True, sinks=SINKS)
+    _k6_masked(card, f"ring of {RING_ROWS} rows, window 4096, softcap 50", q, ring_k, ring_v, lengths, ring=True,
+               softcap=50.0)
+    kx, vx = scaled_rows((8, 8, RING_ROWS, 128), gen), scaled_rows((8, 8, RING_ROWS, 128), gen)
+    kq, vq = quantize_values(kx, payload_dtype("int8")), quantize_values(vx, payload_dtype("int8"))
+    _k6_masked(card, f"int8 ring of {RING_ROWS} rows, window 4096", q, kq, vq, lengths, ring=True, want="K6q")
+    return report
+
+
+def masked_paged_cases(card: str) -> dict:
+    """K7 and K8 with window 4096 and 4 sinks over a shuffled paged ring."""
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.ops.paged import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+        paged_prefill_attention,
+        paged_prefill_attention_plain,
+    )
+
+    bf16, dev = torch.bfloat16, torch.device("cuda")
+    rng = np.random.default_rng(15)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q = torch_uniform((8, 32, 128), bf16, gen)
+    report = {}
+    # K7 and K8 over the paged ring with 4 sinks: 8 slots of 72 logical pages
+    # over 36 + 1 physical pages each, shuffled; rolled-out logical pages
+    # alias live ones.
+    page, per_slot = 128, 72
+    n_ring = -(-(WINDOW + 256) // page) + 2
+    table, num_pages = _ring_table(rng, 8, per_slot, n_ring, sinks=True)
+    cache = _filled_cache(1, num_pages=num_pages, num_slots=8, pages_per_slot=per_slot, kv_heads=8, head_dim=128,
+                          dtype=bf16, gen=gen).layers()[0]
+    table = torch.from_numpy(table).to(dev)
+    cache.page_table.copy_(table)
+    lengths = torch.tensor(DENSE_LENGTHS, dtype=torch.int32, device=dev)
+    cache = cache._replace(lengths=lengths)
+    k_log, v_log = _dense_from_pages(cache.k_pages, table), _dense_from_pages(cache.v_pages, table)
+    kw = dict(sliding_window=WINDOW, attention_sinks=SINKS)
+    zero_counts()
+    out, lse = paged_decode_attention(q, cache, save_residuals=True, **kw)
+    torch.cuda.synchronize()
+    check_launches("[masked] K7", read_counts(), ("K7",))
+    p_out, p_lse = paged_decode_attention_plain(q, cache, sm_scale=128**-0.5, save_residuals=True, **kw)
+    seen = [_visible_positions(n, WINDOW, SINKS) for n in DENSE_LENGTHS]
+    o_out, o_lse, _ = _oracle_rows(q, k_log, v_log, seen)
+    d_plain, d_rel, d_lse = _hold("K7 paged ring, window 4096, 4 sinks", out, p_out, o_out, lse, p_lse, o_lse)
+    ms = cuda_ms(lambda: paged_decode_attention(q, cache, save_residuals=True, **kw))
+    plain_ms = cuda_ms(lambda: paged_decode_attention_plain(q, cache, sm_scale=128**-0.5, save_residuals=True, **kw))
+    n_rows = sum(len(r) for r in seen)
+    nbytes = 2 * n_rows * 8 * 128 * 2 + 2 * 2 * q.numel() + 4 * (lse.numel() + 8 + 8 * 36)
+    bound_ms, bound_by = bound(4 * 128 * 32 * n_rows, nbytes)
+    log(
+        f"[masked] K7 q [8,32,128] over the paged ring ({n_ring} + 1 pinned pages a slot of 128 rows, table [8,{per_slot}] "
+        f"shuffled), window 4096, {SINKS} sinks, lengths {list(DENSE_LENGTHS)}: |out-plain| {d_plain:.3e}, row-relative "
+        f"{d_rel:.3e}, |lse| {d_lse:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB) ({card})"
+    )
+    report["K7s"] = {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    slot, kv_end = 6, 9000
+    qc = torch_uniform((1, 32, 256, 128), bf16, gen)
+    zero_counts()
+    out = paged_prefill_attention(qc, cache, slot, kv_end, chunk_len=256, **kw)
+    torch.cuda.synchronize()
+    check_launches("[masked] K8", read_counts(), ("K8",))
+    p_out = paged_prefill_attention_plain(qc, cache, slot, kv_end, sm_scale=128**-0.5, **kw)
+    col = torch.arange(kv_end, device=dev)[None, :]
+    row = torch.arange(256, device=dev)[:, None] + kv_end - 256
+    mask = (col <= row) & ((col > row - WINDOW) | (col < SINKS))
+    o_out, _ = _oracle_mask(qc, k_log[slot:slot + 1, :, :kv_end], v_log[slot:slot + 1, :, :kv_end], mask,
+                            sm_scale=128**-0.5)
+    d_plain, d_rel, _ = _hold("K8 paged ring, window 4096, 4 sinks", out, p_out, o_out)
+    ms = cuda_ms(lambda: paged_prefill_attention(qc, cache, slot, kv_end, chunk_len=256, **kw))
+    plain_ms = cuda_ms(lambda: paged_prefill_attention_plain(qc, cache, slot, kv_end, sm_scale=128**-0.5, **kw),
+                       warmup=2, iters=5)
+    pairs = int(mask.sum())
+    kv_rows = kv_end - (kv_end - 256 - WINDOW + 1) + SINKS
+    nbytes = 2 * 2 * qc.numel() + 2 * 2 * kv_rows * 8 * 128 + 4 * (kv_rows // page + 2)
+    bound_ms, bound_by = bound(4 * 128 * 32 * pairs, nbytes)
+    log(
+        f"[masked] K8 q [1,32,256,128] over slot {slot}'s paged ring to kv_end {kv_end}, window 4096, {SINKS} sinks: "
+        f"|out-plain| {d_plain:.3e}, row-relative {d_rel:.3e}; kernel {ms:.4f} ms "
+        f"({4 * 128 * 32 * pairs / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library none, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({card})"
+    )
+    report["K8s"] = {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    del cache, k_log, v_log
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_masked_sweep() -> None:
+    """Every (dtype, head_dim) instantiation of the masked bodies at ragged
+    shapes and windows 1, 63, 64, 65 and 1000: K1 / K2 (q 100 end-aligned
+    over kv 1100, GQA 2; a softcap on window 65), K6 over a dense window and
+    over a ring (with 3 sinks at the odd windows), K7 and K8 over a paged
+    ring of 64-row pages with 3 sinks."""
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.ops.decode import decode_attention, decode_attention_plain
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from flash_attention_tpu_torch.ops.paged import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+        paged_prefill_attention,
+        paged_prefill_attention_plain,
+    )
+    from flash_attention_tpu_torch.ops.reference import reference_attention_with_lse
+    from flash_attention_tpu_torch.utils.testing import make_qkv
+
+    rng = np.random.default_rng(16)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    worst, n = 0.0, 0
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for d in (32, 64, 128):
+            q, k, v = make_qkv(n, 2, 4, 100, d, num_kv_heads=2, kv_seq=1100, dtype=dtype, device="cuda")
+            q = (q.float() * 4).to(dtype)
+            qd = q[:, :, -1].contiguous()
+            lengths = torch.tensor([37, 1100], dtype=torch.int32, device="cuda")
+            page_rows = 64
+            table, num_pages = _ring_table(rng, 2, 1152 // page_rows, 6, sinks=True)
+            cache = _filled_cache(1, num_pages=num_pages, num_slots=2, pages_per_slot=1152 // page_rows, kv_heads=2,
+                                  head_dim=d, dtype=dtype, gen=gen, page_size=page_rows).layers()[0]
+            cache.page_table.copy_(torch.from_numpy(table).cuda())
+            cache = cache._replace(lengths=lengths)
+            k_log, v_log = (_dense_from_pages(x, cache.page_table) for x in (cache.k_pages, cache.v_pages))
+            for window in SWEEP_WINDOWS:
+                what = f"{name} d={d} window {window}"
+                softcap = 5.0 if window == 65 else None
+                kw = dict(causal=True, sliding_window=window, logit_softcap=softcap)
+                out, lse = flash_attention(q, k, v, save_residuals=True, **kw)
+                p_out, p_lse = flash_attention_plain(q, k, v, sm_scale=d**-0.5, save_residuals=True, **kw)
+                o_out, o_lse = reference_attention_with_lse(q, k, v, **kw)
+                worst = max(worst, _hold(f"K1/K2 {what}", out, p_out, o_out, lse, p_lse, o_lse, dtype=name)[1] / REL_BAR[name])
+                # K6: the dense window, then a ring holding the window (256
+                # rows; 128 + 256 with 3 sinks at the odd windows).
+                cases = [(k, v, False, 0)]
+                if window <= 256:
+                    sinks = 3 if window % 2 else 0
+                    rows = 256 + (128 if sinks else 0)
+                    cases.append((k[:, :, :rows].contiguous(), v[:, :, :rows].contiguous(), True, sinks))
+                for kc, vc, ring, sinks in cases:
+                    dkw = dict(sliding_window=window, logit_softcap=softcap, ring_buffer=ring, attention_sinks=sinks)
+                    out, lse = decode_attention(qd, kc, vc, lengths, save_residuals=True, **dkw)
+                    p_out, p_lse = decode_attention_plain(qd, kc, vc, lengths, sm_scale=d**-0.5, save_residuals=True, **dkw)
+                    row_of = (lambda p, r=kc.shape[2], s=sinks: _ring_row(p, r, s)) if ring else (lambda p: p)
+                    seen = [[row_of(p) for p in _visible_positions(L, window, sinks)] for L in lengths.tolist()]
+                    o_out, o_lse, _ = _oracle_rows(qd, kc, vc, seen, softcap=softcap)
+                    worst = max(worst, _hold(f"K6 {what} ring={ring} sinks={sinks}", out, p_out, o_out, lse, p_lse,
+                                             o_lse, dtype=name)[1] / REL_BAR[name])
+                # K7 and K8 over the paged ring with 3 sinks.
+                pkw = dict(sliding_window=window, logit_softcap=softcap, attention_sinks=3)
+                out, lse = paged_decode_attention(qd, cache, save_residuals=True, **pkw)
+                p_out, p_lse = paged_decode_attention_plain(qd, cache, sm_scale=d**-0.5, save_residuals=True, **pkw)
+                seen = [_visible_positions(L, window, 3) for L in lengths.tolist()]
+                o_out, o_lse, _ = _oracle_rows(qd, k_log, v_log, seen, softcap=softcap)
+                worst = max(worst, _hold(f"K7 {what}", out, p_out, o_out, lse, p_lse, o_lse, dtype=name)[1] / REL_BAR[name])
+                qc = q[1:, :, :64].contiguous()
+                out = paged_prefill_attention(qc, cache, 1, 1000, chunk_len=64, **pkw)
+                p_out = paged_prefill_attention_plain(qc, cache, 1, 1000, sm_scale=d**-0.5, **pkw)
+                col, row = torch.arange(1000, device="cuda")[None, :], torch.arange(64, device="cuda")[:, None] + 936
+                mask = (col <= row) & ((col > row - window) | (col < 3))
+                o_out, _ = _oracle_mask(qc, k_log[1:, :, :1000], v_log[1:, :, :1000], mask, sm_scale=d**-0.5,
+                                        softcap=softcap)
+                worst = max(worst, _hold(f"K8 {what}", out, p_out, o_out, dtype=name)[1] / REL_BAR[name])
+            n += 1
+    torch.cuda.synchronize()
+    log(
+        f"[masked sweep] K1/K2, K6 (dense window, ring, ring + 3 sinks), K7 and K8 (paged ring, 3 sinks) at "
+        f"fp32/fp16/bf16 x head_dim 32/64/128 x windows {list(SWEEP_WINDOWS)} (softcap 5 at 65), ragged lengths: all "
+        f"within {ORACLE_BAR} of the masked oracle, LSE within {LSE_BAR}; worst row-relative difference at {worst:.3f} "
+        f"of its bar {REL_BAR}"
+    )
+
+
+TINY_MASKED = {  # phase 16: (label, engine, ModelConfig fields, the kernels the card run launches)
+    "dense window 96": ("dense", dict(sliding_window=96), ("K1", "K6")),
+    "dense window 48": ("dense", dict(sliding_window=48), ("K2", "K6")),
+    "rolling": ("dense", dict(sliding_window=96, rolling=True), ("K1", "K6")),
+    "rolling + sinks 32": ("dense", dict(sliding_window=96, rolling=True, attention_sinks=32), ("K1", "K6")),
+    "softcap 30": ("dense", dict(logit_softcap=30.0), ("K1", "K6")),
+    "paged ring": ("paged", dict(sliding_window=96), ("K7", "K8", "K9/K10")),
+    "paged + sinks 32": ("paged", dict(sliding_window=96, attention_sinks=32), ("K7", "K8", "K9/K10")),
+}
+# Phase 16's pairs that must give the same tokens (the JAX package's
+# tests/test_rolling.py:334-444): the ring changes memory, not numbers.
+TINY_MASKED_EQUAL = (("rolling", "dense window 96"), ("paged ring", "dense window 96"),
+                     ("paged + sinks 32", "rolling + sinks 32"))
+
+
+def phase_tiny_masked() -> int:
+    """Phase 16: the tiny fp32 model with each mask through its engine on
+    the card and on the CPU, greedy tokens identical; prompts of 700, 150
+    and 40 tokens, so windows and rings roll. Returns K2's launches in the
+    window-48 run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+    from flash_attention_tpu_torch.serving.engine import Request, ServingEngine
+    from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
+
+    rng = np.random.default_rng(16)
+    reqs = [Request(id=i, prompt=tuple(int(t) for t in rng.integers(0, TINY_CFG["vocab_size"], n)), max_new_tokens=m)
+            for i, (n, m) in enumerate(((700, 24), (150, 24), (40, 16)))]
+    base = ModelConfig(**TINY_CFG)
+    params = init_model_params(torch.Generator().manual_seed(0), base)
+    tokens, k2 = {}, 0
+    for label, (kind, fields, used) in TINY_MASKED.items():
+        cfg = dataclasses.replace(base, **fields)
+        got = {}
+        for device in ("cuda", "cpu"):
+            on = _to_device(params, device)
+            if kind == "dense":
+                eng = ServingEngine(on, cfg, max_slots=2, max_seq=1024, prefill_chunk=64)
+            else:
+                eng = PagedServingEngine(on, cfg, max_slots=2, num_pages=16, pages_per_slot=8, page_size=128,
+                                         prefill_chunk=128)
+            zero_counts()
+            got[device] = {rid: c.tokens for rid, c in eng.run(reqs).items()}
+            if device == "cuda":
+                launches = read_counts()
+                check_launches(f"[tiny masked] {label}, on the card", launches, used)
+                k2 += launches["K2"]
+            if kind == "paged" and eng.alloc.free_count != 15:
+                raise RuntimeError(f"[tiny masked] {label}: {eng.alloc.free_count} pages free after the run, want 15")
+        if got["cuda"] != got["cpu"]:
+            raise RuntimeError(f"[tiny masked] {label}: card tokens {got['cuda']} != CPU {got['cpu']}")
+        if any(len(got["cuda"][r.id]) != r.max_new_tokens for r in reqs):
+            raise RuntimeError(f"[tiny masked] {label}: completions of the wrong length")
+        tokens[label] = got["cuda"]
+        log(f"[tiny masked] {label} ({kind} engine): card tokens == CPU tokens; kernels {used}")
+    for a, b in TINY_MASKED_EQUAL:
+        if tokens[a] != tokens[b]:
+            raise RuntimeError(f"[tiny masked] {a} tokens {tokens[a]} != {b} tokens {tokens[b]}")
+    log("[tiny masked] rolling == dense window, paged ring == dense window, paged sinks == rolling sinks: "
+        "tokens identical")
+    return k2
+
+
+LOGIT_BAR = 0.1  # phase 17: last-chunk logits, ring vs dense cache, row by row relative to the row's largest
+
+
+def _serve_masked(card: str, label: str, eng, prompts, *, used, new_tokens: int = FULL_NEW_TOKENS) -> dict:
+    """One served run of ``prompts`` (greedy, ``new_tokens`` each) on
+    ``eng``, every launch count set to 0 just before and read just after; it
+    must launch exactly ``used``. The prefill chunks are timed one by one
+    (synchronised) and the logits of each request's last chunk are kept.
+    Returns tokens, logits, launches and the run's numbers."""
+    import torch
+
+    from flash_attention_tpu_torch.serving.engine import Request
+
+    chunk_s, last = [], {}
+    inner = eng._prefill_chunk_step
+
+    def step(params, tokens, caches, slot, start, kv_end):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = inner(params, tokens, caches, slot, start, kv_end)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+        st = eng._prefills[slot]
+        if kv_end >= len(st.padded):
+            last[st.req.id] = logits[0, : len(st.req.prompt) - start].cpu()
+        return logits, caches
+
+    eng._prefill_chunk_step = step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    done = eng.run([Request(id=i, prompt=p, max_new_tokens=new_tokens) for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = {rid: c.tokens for rid, c in done.items()}
+    bad = [rid for rid, t in tokens.items() if len(t) != new_tokens]
+    if bad or not all(bool(torch.isfinite(x).all()) for x in last.values()) or len(last) != len(prompts):
+        raise RuntimeError(f"[{label}] requests {bad} without {new_tokens} tokens, or non-finite prefill logits")
+    check_launches(f"[{label}] the main path", launches, used)
+    n_prompt = sum(len(p) for p in prompts)
+    numbers = {"prefill_tok_s": n_prompt / sum(chunk_s), "decode_tok_s": eng.decode_tokens / eng.decode_time_s,
+               "peak_gib": peak / 2**30}
+    log(
+        f"[{label}] {len(prompts)} requests, {n_prompt} prompt tokens: prefill {numbers['prefill_tok_s']:.1f} tok/s "
+        f"({len(chunk_s)} chunks in {sum(chunk_s):.3f} s, each synchronised), decode {eng.decode_tokens} tokens in "
+        f"{eng.decode_time_s:.3f} s of decode section = {numbers['decode_tok_s']:.1f} tok/s, whole run {run_s:.3f} s; "
+        f"peak device memory (max_memory_allocated) {numbers['peak_gib']:.2f} GiB; kernel launches {launches} ({card})"
+    )
+    return {"tokens": tokens, "last": last, "launches": launches, **numbers}
+
+
+def phase_full_masked(card: str) -> dict:
+    """Phase 17: ModelConfig(mlp_dim=14336, sliding_window=4096) (Mistral-7B
+    v0.1's shape, tied embedding), bf16, weights from seed 0. (a) the
+    rolling dense engine, (b) the same without the ring at max_seq 9216,
+    (c) the paged ring with 4 sinks, each on run A's 8 requests; (d) a
+    softcap of 50 on phase 5's requests. Returns each run's launches."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, decode_step_logits, init_model_params
+    from flash_attention_tpu_torch.serving.engine import ServingEngine
+    from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ModelConfig(**MISTRAL)
+    t0 = time.perf_counter()
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(params))
+    log(f"[full masked] ModelConfig(mlp_dim=14336, sliding_window=4096) bf16: {n_params / 1e9:.3f} B params "
+        f"({_nbytes(params) / 1e9:.3f} GB) initialised on the card in {time.perf_counter() - t0:.1f} s ({card})")
+    rng = np.random.default_rng(17)
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n)) for n in MASKED_PROMPT_LENS]
+    runs = {}
+
+    def cache_gb(eng) -> float:
+        return _nbytes([(c.k, c.v, c.k_scales, c.v_scales) for c in eng.caches]) / 1e9
+
+    # (a) the rolling dense engine: a ring of window + one chunk of rows.
+    rolling = dataclasses.replace(cfg, rolling=True)
+    eng = ServingEngine(params, rolling, max_slots=8, max_seq=16384, prefill_chunk=256)
+    if eng.caches[0].k.shape[2] != RING_ROWS:
+        raise RuntimeError(f"rolling cache of {eng.caches[0].k.shape[2]} rows, want {RING_ROWS}")
+    log(f"[full masked a] ServingEngine(max_slots=8, max_seq=16384, prefill_chunk=256), rolling: {RING_ROWS} rows a "
+        f"slot, KV cache {cache_gb(eng):.4f} GB ({card})")
+    runs["a"] = _serve_masked(card, "full masked a", eng, prompts, used=("K1", "K6"))
+    step_logits, _ = decode_step_logits(params, rolling, torch.zeros((8, 1), dtype=torch.int32, device="cuda"), eng.caches)
+    if not bool(torch.isfinite(step_logits).all()):
+        raise RuntimeError("[full masked a] non-finite decode logits over the ring")
+    del eng, step_logits
+    torch.cuda.empty_cache()
+
+    # (b) the same model without the ring, at the 9216 positions run A needs.
+    eng = ServingEngine(params, cfg, max_slots=8, max_seq=9216, prefill_chunk=256)
+    log(f"[full masked b] ServingEngine(max_slots=8, max_seq=9216, prefill_chunk=256), no ring: KV cache "
+        f"{cache_gb(eng):.4f} GB ({card})")
+    runs["b"] = _serve_masked(card, "full masked b", eng, prompts, used=("K1", "K6"))
+    del eng
+    torch.cuda.empty_cache()
+    worst = max(_rel_diff(runs["a"]["last"][i], runs["b"]["last"][i]) for i in range(len(prompts)))
+    part = {len(prompts[i]): next((j for j, (x, y) in enumerate(zip(runs["a"]["tokens"][i], runs["b"]["tokens"][i]))
+                                   if x != y), None) for i in range(len(prompts))}
+    log(f"[full masked] ring vs no ring: last-chunk prefill logits row-relative {worst:.3e} (bar {LOGIT_BAR}); first "
+        f"differing greedy token by prompt length {part} (None: all {FULL_NEW_TOKENS} equal; bf16 flips argmax ties)")
+    if worst >= LOGIT_BAR:
+        raise RuntimeError(f"[full masked] ring and dense logits differ by {worst:.3e} row-relative")
+
+    # (c) the paged ring with StreamingLLM's 4 sinks.
+    sinks = dataclasses.replace(cfg, attention_sinks=SINKS)
+    eng = PagedServingEngine(params, sinks, max_slots=8, num_pages=297, pages_per_slot=72, page_size=128,
+                             prefill_chunk=256)
+    owned = []
+    admit = eng._admit_one
+
+    def admit_one(req, slot):
+        ok = admit(req, slot)
+        if ok:
+            owned.append(len(eng.slot_pages[slot]))
+        return ok
+
+    eng._admit_one = admit_one
+    pc = eng.caches
+    pool_gb = _nbytes((pc.k_pool, pc.v_pool)) / 1e9
+    runs["c"] = _serve_masked(card, "full masked c", eng, prompts, used=("K7", "K8", "K9/K10"))
+    if max(owned) > 37 or eng.alloc.free_count != 296:
+        raise RuntimeError(f"[full masked c] pages owned {owned} (at most 37), {eng.alloc.free_count} free after the run")
+    log(f"[full masked c] PagedServingEngine(max_slots=8, num_pages=297, pages_per_slot=72, page_size=128, "
+        f"prefill_chunk=256), attention_sinks=4: pool {pool_gb:.4f} GB, pages owned per slot {owned} (at most "
+        f"37), all 296 back in the pool after the run ({card})")
+    del eng, pc
+    torch.cuda.empty_cache()
+
+    # (d) a logit softcap of 50 on phase 5's requests.
+    capped = dataclasses.replace(cfg, logit_softcap=50.0)
+    rng5 = np.random.default_rng(0)  # phase 5's prompts
+    prompts5 = [tuple(int(t) for t in rng5.integers(0, cfg.vocab_size, n)) for n in FULL_PROMPT_LENS]
+    eng = ServingEngine(params, capped, max_slots=8, max_seq=2048, prefill_chunk=256)
+    runs["d"] = _serve_masked(card, "full masked d", eng, prompts5, used=("K1", "K6"))
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {key: run["launches"] for key, run in runs.items()}
+
+
 def main() -> None:
     import torch
 
@@ -1874,8 +2566,27 @@ def main() -> None:
     train = phase_full_train(card, params)
     bwd["K3"]["launches"] = train["mha"]["K3"]
     bwd["K4"]["launches"], bwd["K5"]["launches"] = train["gqa"]["K4"], train["gqa"]["K5"]
+    del params  # phase 17 brings its own model, and its peak memory is its own
+    masked = phase_masked_kernels(card)
+    phase_masked_sweep()
+    masked["K2"]["launches"] = phase_tiny_masked()
+    full = phase_full_masked(card)
+    masked["K1w"]["launches"], masked["K1c"]["launches"] = full["a"]["K1"], full["d"]["K1"]
+    masked["K6r"]["launches"] = full["a"]["K6"]
+    masked["K7s"]["launches"], masked["K8s"]["launches"] = full["c"]["K7"], full["c"]["K8"]
+    source = "flash_attention_tpu_torch/csrc/"
+    names = {
+        "K2": ("flash_fwd_band (K2)", "flash_fwd.cu", "ops/flash_attention.py:795"),
+        "K1w": ("flash_fwd, window 4096 (K1)", "flash_fwd.cu", "ops/flash_attention.py:57"),
+        "K1c": ("flash_fwd, softcap 50 (K1)", "flash_fwd.cu", "ops/flash_attention.py:57"),
+        "K6r": ("decode, ring of 4352 rows (K6)", "decode.cu", "ops/decode.py:56"),
+        "K7s": ("paged_decode, window + sinks (K7)", "decode.cu", "ops/paged.py:980"),
+        "K8s": ("paged_prefill, window + sinks (K8)", "flash_fwd.cu", "ops/paged.py:580"),
+    }
+    masked = [{"name": names[key][0], "route": "cuda", "source": source + names[key][1],
+               "replaces": f"{REFERENCE}/{names[key][2]}", **masked[key]} for key in names]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k6, k7, k8, k10, *quant.values(), *bwd.values()]}))
+    print(json.dumps({"kernels": [k1, k6, k7, k8, k10, *quant.values(), *bwd.values(), *masked]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -1,18 +1,37 @@
-// K1 and K8: fused attention forward (causal or not, MHA or GQA) over dense
-// K/V or, in place, over a slot's KV pages (bf16 / fp16 / fp32, or K8 over
-// quantized pages: int8, fp8 e4m3, fp8 e5m2 with one fp32 scale per row and
-// head), for Hopper.
+// K1, K2 and K8: fused attention forward (causal or not, MHA or GQA) over
+// dense K/V or, in place, over a slot's KV pages (bf16 / fp16 / fp32, or K8
+// over quantized pages: int8, fp8 e4m3, fp8 e5m2 with one fp32 scale per row
+// and head), with an optional sliding window and logit softcap, for Hopper.
 //
 // Replaces the JAX package's ops/flash_attention.py:_fwd_kernel (K1, the
-// Pallas forward) and ops/paged.py:_paged_prefill_kernel (:580, K8,
-// chunked-prefill attention reading K/V pages in place, and its dequant
-// branch). Same
-// function: S = Q K^T in fp32, an online exp2 softmax with scale2 = sm_scale
-// * log2(e), P V accumulated in fp32, the output normalised by l (0 where
-// l == 0), and optionally the base-2 LSE m + log2(l) (-inf where l == 0).
-// Causal masking is end-aligned: row i sees columns j <= i + (kv_len -
-// q_len); for K8, kv_len is the chunk's kv_end and the chunk's rows sit at
-// positions [kv_end - q_len, kv_end). The kv head of q head h is h / group.
+// Pallas forward, with its window and softcap branches, :318-331, :408-490),
+// ops/flash_attention.py:_band_kernel (:795, K2, the window == block band
+// case) and ops/paged.py:_paged_prefill_kernel (:580, K8, chunked-prefill
+// attention reading K/V pages in place, with its dequant, window, softcap
+// and sink branches, :642, :666-682). Same function: S = Q K^T in fp32, an
+// online exp2 softmax with scale2 = sm_scale * log2(e), P V accumulated in
+// fp32, the output normalised by l (0 where l == 0), and optionally the
+// base-2 LSE m + log2(l) (-inf where l == 0). Causal masking is
+// end-aligned: row i sees columns j <= i + (kv_len - q_len); for K8, kv_len
+// is the chunk's kv_end and the chunk's rows sit at positions [kv_end -
+// q_len, kv_end). The kv head of q head h is h / group.
+//
+// Masks (runtime parameters of the body's masked instantiation; the
+// unmasked one is compiled without them):
+//  * softcap: the fp32 score becomes softcap2 * tanhf(s / softcap2), with
+//    softcap2 = cap * log2(e), i.e. cap * tanh(qk * sm_scale / cap) in the
+//    exp2 domain, before any mask (exact tanhf, not tanh.approx);
+//  * window w: row i (at position i + kv_len - q_len) also needs column
+//    j > i + kv_len - q_len - w. Each q tile starts its kv walk at the tile
+//    holding its first row's first visible column, so tiles below the band
+//    are skipped, not masked: a chunk past the window costs O(window);
+//  * sinks s (K8, StreamingLLM): columns j < s are visible beside the
+//    window band, so the walk also takes the tiles holding [0, s).
+// K2 is this body when the window fits one kv tile (w <= 64): rows [m0, m0
+// + 64) see at most 64 - 1 + w <= 127 columns from the first row's first
+// visible one, so the walk is two tiles starting at that column (unaligned;
+// dense K/V only), unrolled. The TPU kernel's sub-tiled leading edge,
+// diag_pipe and window_lead are not ported.
 //
 // One body serves both through a kv address policy (tile_index below): the
 // 64-row kv tile starting at row n0 of (b, kv head h) is
@@ -27,18 +46,22 @@
 // payload and the scales are read and no dequantized copy exists.
 //
 // What bounds it on this card: at long kv the score and PV products are
-// O(q_len * kv_len * D) against O((q_len + kv_len) * D) bytes, so arithmetic
-// bounds it. This first version does that arithmetic as fp32 FMAs over
-// shared-memory tiles, not on the tensor cores, so it runs far below the
-// card's bf16 rate; wgmma with TMA-fed tiles is later work.
+// O(q_len * kv_len * D) (O(q_len * window * D) with a window) against
+// O((q_len + kv_len) * D) bytes, so arithmetic bounds it. This first
+// version does that arithmetic as fp32 FMAs over shared-memory tiles, not on
+// the tensor cores, so it runs far below the card's bf16 rate; wgmma with
+// TMA-fed tiles is later work. K2's band at window 64 does ~128 columns a
+// row against a bound set by its bytes, and is launch- and latency-bound.
 //
 // Design:
 //  * one block per (batch * q_head, 64-row q tile); 128 threads, each owning
 //    4 query rows x 8 score columns of a 64 x 64 score tile and 4 rows x D/8
 //    output columns; the rows' m, l and accumulators stay in registers;
-//  * the block loops over 64-row kv tiles and stops at the causal diagonal
-//    of its last row, so tiles (and pages) above the diagonal are never
-//    loaded;
+//  * the block loops over 64-row kv tiles from the window's first tile (0
+//    without a window) and stops at the causal diagonal of its last row, so
+//    tiles (and pages) above the diagonal or below the window are never
+//    loaded; over the paged ring a rolled-out logical page aliases a newer
+//    physical one, and it is never read because it lies below the band;
 //  * K and V take turns in one fp32 shared tile (rows padded by one float
 //    against bank conflicts); P goes through shared memory for the PV step;
 //  * q, k and v are read through their batch, head and row strides, so a
@@ -69,7 +92,10 @@ struct FwdParams {
   int64_t vs_sp, vs_sh, vs_sr;
   int num_q_heads, group, q_len, kv_len, causal;
   int page_size, num_pages;
+  int window;  // 0: no window
+  int sinks;   // K8: columns [0, sinks) are visible beside the window
   float scale2;
+  float softcap2;  // cap * log2(e); 0: no softcap
 };
 
 template <int D>
@@ -107,12 +133,116 @@ __device__ __forceinline__ int2 tile_index(const FwdParams& p, int b, int n0) {
   }
 }
 
-// T: query and output type; P: the K/V element type (T, or a payload type
-// whose rows are scaled; K8 only).
-template <typename T, typename P, int D, bool PAGED>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
+// One kv tile, rows [n0, n0 + BN), folded into the online softmax of the
+// block's q rows: scores, softcap, mask, exp2 update, then P V. m, l and acc
+// are the calling thread's rows' state (registers once inlined). MASKED: a
+// window, sinks or softcap is set; the unmasked instantiation has none of
+// their instructions (with them as runtime parameters of one instantiation
+// the unmasked K1 ran ~8 % slower, PERF.md).
+template <typename P, int D, bool PAGED, bool MASKED>
+__device__ __forceinline__ void attend_tile(const FwdParams& p, int b, int hk, int m0, int n0, const P* k_base,
+                                            const P* v_base, const float* s_q, float* s_kv, float* s_p,
+                                            float (&m)[ROWS], float (&l)[ROWS], float (&acc)[ROWS][D / COLS]) {
   constexpr int LD = D + 1;
   constexpr int LDP = BN + 1;
+  constexpr int DC = D / COLS;
+  const int tid = threadIdx.x;
+  const int ty = tid / COLS, tx = tid % COLS;
+  const int diag = p.kv_len - p.q_len;
+
+  const int2 at = tile_index<PAGED>(p, b, n0);
+  __syncthreads();  // the previous tile's V and P are no longer read
+  load_tile<P, D>(s_kv, k_base + at.x * p.k_sb + at.y * p.k_sr, p.k_sr, p.kv_len - n0, 1.f,
+                  p.ks + (at.x * p.ks_sp + hk * p.ks_sh + at.y * p.ks_sr), p.ks_sr);
+  __syncthreads();
+
+  float s[ROWS][COLS];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float a[ROWS], kk[COLS];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) a[i] = s_q[(ty * ROWS + i) * LD + d];
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) kk[j] = s_kv[(tx + COLS * j) * LD + d];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
+  }
+  if constexpr (MASKED) {
+    if (p.softcap2 > 0.f) {  // uniform across the block
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+        for (int j = 0; j < COLS; ++j) s[i][j] = p.softcap2 * tanhf(s[i][j] / p.softcap2);
+    }
+  }
+
+  // Online softmax; the 8 lanes of a row group share its rows, so row
+  // reductions are three xor-shuffles within the group.
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int pos = m0 + ty * ROWS + i + diag;  // the row's position among the columns
+    float mx = fat::MASK_VALUE;
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      const int col = n0 + tx + COLS * j;
+      bool ok = col < p.kv_len && (!p.causal || col <= pos);
+      if constexpr (MASKED) ok = ok && (p.window == 0 || col > pos - p.window || col < p.sinks);
+      if (!ok) s[i][j] = fat::MASK_VALUE;
+      mx = fmaxf(mx, s[i][j]);
+    }
+#pragma unroll
+    for (int off = 1; off < COLS; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(fat::FULL_MASK, mx, off));
+    const float m_new = fmaxf(m[i], mx);
+    const float alpha = exp2f(m[i] - m_new);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      s[i][j] = exp2f(s[i][j] - m_new);
+      rs += s[i][j];
+    }
+#pragma unroll
+    for (int off = 1; off < COLS; off <<= 1) rs += __shfl_xor_sync(fat::FULL_MASK, rs, off);
+    l[i] = l[i] * alpha + rs;
+    m[i] = m_new;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) s_p[(ty * ROWS + i) * LDP + tx + COLS * j] = s[i][j];
+  }
+  __syncthreads();  // K is no longer read; P is complete
+  load_tile<P, D>(s_kv, v_base + at.x * p.v_sb + at.y * p.v_sr, p.v_sr, p.kv_len - n0, 1.f,
+                  p.vs + (at.x * p.vs_sp + hk * p.vs_sh + at.y * p.vs_sr), p.vs_sr);
+  __syncthreads();
+
+#pragma unroll 4
+  for (int j = 0; j < BN; ++j) {
+    float pr[ROWS], vv[DC];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) pr[i] = s_p[(ty * ROWS + i) * LDP + j];
+#pragma unroll
+    for (int c = 0; c < DC; ++c) vv[c] = s_kv[j * LD + tx + COLS * c];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pr[i], vv[c], acc[i][c]);
+  }
+}
+
+// T: query and output type; P: the K/V element type (T, or a payload type
+// whose rows are scaled; K8 only). MASKED as for attend_tile; BAND: K2, the
+// two-tile walk of a window no wider than a kv tile (dense K/V only).
+template <typename T, typename P, int D, bool PAGED, bool MASKED, bool BAND>
+__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
+  static_assert(!(PAGED && BAND), "K2 walks unaligned tiles, which may straddle a page");
+  static_assert(MASKED || !BAND, "K2 is a window's walk");
+  constexpr int LD = D + 1;
   constexpr int DC = D / COLS;  // output columns per thread
   extern __shared__ float smem[];
   float* s_q = smem;              // [BM][LD], pre-scaled by scale2
@@ -145,82 +275,26 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
 
   const int last_row = min(m0 + BM, p.q_len) - 1;
   const int n_end = p.causal ? min(p.kv_len, last_row + diag + 1) : p.kv_len;
-
-  for (int n0 = 0; n0 < n_end; n0 += BN) {
-    const int2 at = tile_index<PAGED>(p, b, n0);
-    __syncthreads();  // the previous tile's V and P are no longer read
-    load_tile<P, D>(s_kv, k_base + at.x * p.k_sb + at.y * p.k_sr, p.k_sr, p.kv_len - n0, 1.f,
-                    p.ks + (at.x * p.ks_sp + hk * p.ks_sh + at.y * p.ks_sr), p.ks_sr);
-    __syncthreads();
-
-    float s[ROWS][COLS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[ROWS], kk[COLS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) a[i] = s_q[(ty * ROWS + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) kk[j] = s_kv[(tx + COLS * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
+  if constexpr (MASKED) {
+    // The first column the tile's first row sees through the window.
+    const int w_lo = p.window > 0 ? max(0, m0 + diag - p.window + 1) : 0;
+    if constexpr (BAND) {
+      // n_end - w_lo <= BM - 1 + window <= 2 * BN - 1: two tiles from w_lo.
+      attend_tile<P, D, PAGED, true>(p, b, hk, m0, w_lo, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
+      if (w_lo + BN < n_end)  // uniform across the block
+        attend_tile<P, D, PAGED, true>(p, b, hk, m0, w_lo + BN, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
+    } else {
+      const int first = w_lo / BN * BN;
+      // K8's sinks: the tiles holding [0, sinks) below the window's first.
+      const int sink_end = min((p.sinks + BN - 1) / BN * BN, first);
+      for (int n0 = 0; n0 < sink_end; n0 += BN)
+        attend_tile<P, D, PAGED, true>(p, b, hk, m0, n0, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
+      for (int n0 = first; n0 < n_end; n0 += BN)
+        attend_tile<P, D, PAGED, true>(p, b, hk, m0, n0, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
     }
-
-    // Online softmax; the 8 lanes of a row group share its rows, so row
-    // reductions are three xor-shuffles within the group.
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int row = m0 + ty * ROWS + i;
-      float mx = fat::MASK_VALUE;
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        const int col = n0 + tx + COLS * j;
-        const bool ok = col < p.kv_len && (!p.causal || col <= row + diag);
-        if (!ok) s[i][j] = fat::MASK_VALUE;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < COLS; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(fat::FULL_MASK, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = exp2f(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        s[i][j] = exp2f(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-#pragma unroll
-      for (int off = 1; off < COLS; off <<= 1) rs += __shfl_xor_sync(fat::FULL_MASK, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) s_p[(ty * ROWS + i) * LDP + tx + COLS * j] = s[i][j];
-    }
-    __syncthreads();  // K is no longer read; P is complete
-    load_tile<P, D>(s_kv, v_base + at.x * p.v_sb + at.y * p.v_sr, p.v_sr, p.kv_len - n0, 1.f,
-                    p.vs + (at.x * p.vs_sp + hk * p.vs_sh + at.y * p.vs_sr), p.vs_sr);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BN; ++j) {
-      float pr[ROWS], vv[DC];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) pr[i] = s_p[(ty * ROWS + i) * LDP + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = s_kv[j * LD + tx + COLS * c];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pr[i], vv[c], acc[i][c]);
-    }
+  } else {
+    for (int n0 = 0; n0 < n_end; n0 += BN)
+      attend_tile<P, D, PAGED, false>(p, b, hk, m0, n0, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
   }
 
   T* o = static_cast<T*>(p.o) + static_cast<int64_t>(bh) * p.q_len * D;
@@ -242,19 +316,35 @@ template <bool PAGED>
 struct FwdLaunch {
   FwdParams p;
   int64_t batch;
+  bool band;  // K2 (dense only): a causal window of at most BN columns
   cudaStream_t stream;
+
+  template <typename T, typename P, int D, bool MASKED, bool BAND>
+  cudaError_t run() const {
+    constexpr size_t smem = smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<T, P, D, PAGED, MASKED, BAND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.q_len + BM - 1) / BM, static_cast<unsigned>(batch * p.num_q_heads));
+    flash_fwd_kernel<T, P, D, PAGED, MASKED, BAND><<<grid, THREADS, smem, stream>>>(p);
+    return cudaGetLastError();
+  }
 
   template <typename T, typename P, int D>
   cudaError_t launch() const {
     if (fat::is_payload<P> && (p.ks == nullptr || p.vs == nullptr)) return cudaErrorInvalidValue;
-    constexpr size_t smem = smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, P, D, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.q_len + BM - 1) / BM, static_cast<unsigned>(batch * p.num_q_heads));
-    flash_fwd_kernel<T, P, D, PAGED><<<grid, THREADS, smem, stream>>>(p);
-    return cudaGetLastError();
+    if (p.window < 0 || (p.window > 0 && !p.causal) || p.sinks < 0) return cudaErrorInvalidValue;
+    if constexpr (!PAGED) {
+      if (band) {
+        if (p.window < 1 || p.window > BN) return cudaErrorInvalidValue;
+        return run<T, P, D, true, true>();
+      }
+    } else {
+      if (band) return cudaErrorInvalidValue;
+    }
+    if (p.window > 0 || p.sinks > 0 || p.softcap2 > 0.f) return run<T, P, D, true, false>();
+    return run<T, P, D, false, false>();
   }
 };
 
@@ -289,18 +379,23 @@ FwdParams make_params(const void* q, const void* k, const void* v, void* o, floa
 
 }  // namespace
 
-// K1. q [B, Hq, Sq, D], k and v [B, Hkv, Skv, D], each with unit stride on D
-// and the given batch / head / row strides (in elements); o [B, Hq, Sq, D]
-// contiguous; lse [B, Hq, Sq] fp32 or null. Returns a cudaError_t.
+// K1 and K2. q [B, Hq, Sq, D], k and v [B, Hkv, Skv, D], each with unit
+// stride on D and the given batch / head / row strides (in elements); o [B,
+// Hq, Sq, D] contiguous; lse [B, Hq, Sq] fp32 or null. window: 0, or the
+// causal sliding window; softcap2: 0, or cap * log2(e); band: 1 for K2
+// (requires 1 <= window <= 64). Returns a cudaError_t.
 extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                              int64_t batch, int64_t num_q_heads, int64_t num_kv_heads,
                              int64_t q_len, int64_t kv_len, int64_t head_dim, int64_t q_sb,
                              int64_t q_sh, int64_t q_sr, int64_t k_sb, int64_t k_sh, int64_t k_sr,
                              int64_t v_sb, int64_t v_sh, int64_t v_sr, float scale2,
-                             int32_t causal, int32_t dtype, void* stream) {
-  const FwdParams p = make_params(q, k, v, o, lse, num_q_heads, num_kv_heads, q_len, kv_len, q_sb,
-                                  q_sh, q_sr, k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, scale2, causal);
-  const FwdLaunch<false> launcher{p, batch, static_cast<cudaStream_t>(stream)};
+                             int32_t causal, int32_t window, float softcap2, int32_t band,
+                             int32_t dtype, void* stream) {
+  FwdParams p = make_params(q, k, v, o, lse, num_q_heads, num_kv_heads, q_len, kv_len, q_sb, q_sh,
+                            q_sr, k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, scale2, causal);
+  p.window = window;
+  p.softcap2 = softcap2;
+  const FwdLaunch<false> launcher{p, batch, band != 0, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(fat::dispatch<false>(dtype, dtype, head_dim, launcher));
 }
 
@@ -309,9 +404,10 @@ extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* 
 // strides; ks and vs their scales [num_pages, Hkv, page_size] fp32 when
 // payload is a quantized type (scale_strides: K's page / head / row
 // strides, then V's), else null; table the slot's [pages_per_slot] int32
-// row; causal over kv_end rows, the chunk's rows at [kv_end - T, kv_end);
-// o [1, Hq, T, D] contiguous. page_size must be a multiple of 64. Returns a
-// cudaError_t.
+// row; causal over kv_end rows, the chunk's rows at [kv_end - T, kv_end),
+// with window (0: none), sinks (columns [0, sinks) visible beside the
+// window) and softcap2 (0, or cap * log2(e)); o [1, Hq, T, D] contiguous.
+// page_size must be a multiple of 64. Returns a cudaError_t.
 extern "C" int fat_paged_prefill(const void* q, const void* k, const void* v, const float* ks,
                                  const float* vs, void* o, const int32_t* table,
                                  int64_t num_q_heads, int64_t num_kv_heads, int64_t num_pages,
@@ -319,7 +415,8 @@ extern "C" int fat_paged_prefill(const void* q, const void* k, const void* v, co
                                  int64_t head_dim, int64_t q_sh, int64_t q_sr, int64_t k_sp,
                                  int64_t k_sh, int64_t k_sr, int64_t v_sp, int64_t v_sh,
                                  int64_t v_sr, const int64_t* scale_strides, float scale2,
-                                 int32_t dtype, int32_t payload, void* stream) {
+                                 int32_t window, int32_t sinks, float softcap2, int32_t dtype,
+                                 int32_t payload, void* stream) {
   FwdParams p = make_params(q, k, v, o, nullptr, num_q_heads, num_kv_heads, q_len, kv_end, 0, q_sh,
                             q_sr, k_sp, k_sh, k_sr, v_sp, v_sh, v_sr, scale2, 1);
   p.ks = ks;
@@ -335,7 +432,10 @@ extern "C" int fat_paged_prefill(const void* q, const void* k, const void* v, co
   p.table = table;
   p.page_size = static_cast<int>(page_size);
   p.num_pages = static_cast<int>(num_pages);
-  const FwdLaunch<true> launcher{p, 1, static_cast<cudaStream_t>(stream)};
+  p.window = window;
+  p.sinks = sinks;
+  p.softcap2 = softcap2;
+  const FwdLaunch<true> launcher{p, 1, false, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(fat::dispatch(dtype, payload, head_dim, launcher));
 }
 

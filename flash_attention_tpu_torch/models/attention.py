@@ -19,8 +19,18 @@ scale, decode reads it through K6's and K7's dequant, K10 quantizes the
 paged decode rows as it writes them, and the dense chunk prefill
 dequantizes the visible slice in plain PyTorch before K1, as the JAX
 package does in XLA. Projection weights may be int8 (``weight_quant``,
-``w8_dequant``). The mask options the port does not implement raise
-NotImplementedError naming their ROADMAP.md item.
+``w8_dequant``).
+
+Masks (the JAX package's ``models/attention.py``): a sliding window and a
+logit softcap on every serving entry; the ROLLING cache (``rolling``): a
+ring of ``rolling_buffer_len`` rows a slot holding position p at row p %
+rows, with ``lengths`` counting every position written, never clamped to
+the ring; and StreamingLLM attention SINKS in front of the ring (positions
+[0, sinks) kept in their own 128-padded rows). Over the paged cache the
+window makes the engine's paged ring (``serving/paged_engine.py``) and the
+sinks pin logical page 0. The training entry has no masked backward yet:
+``attention_forward`` with a window or a softcap, and segment ids, raise
+NotImplementedError naming ROADMAP.md item 3b.
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ from typing import NamedTuple
 import torch
 
 from flash_attention_tpu_torch.models.rope import apply_rope
-from flash_attention_tpu_torch.ops.common import LOG2E
+from flash_attention_tpu_torch.ops.common import LOG2E, ceil_to
 from flash_attention_tpu_torch.ops.decode import decode_attention
 from flash_attention_tpu_torch.ops.flash_attention import flash_attention
 from flash_attention_tpu_torch.ops.merge import merge_two
@@ -45,21 +55,7 @@ from flash_attention_tpu_torch.ops.paged import (
 )
 from flash_attention_tpu_torch.ops.quant import QuantizedTensor, bits, payload_dtype, quantize_values, w8_dequant
 
-_MASK_ITEM = "ROADMAP.md queue 1 item 3 (window, softcap, rolling cache and sinks)"
-_SEGMENT_ITEM = "ROADMAP.md queue 1 item 3 (segment ids)"
-
-
-def require_supported(cfg) -> None:
-    """Raise NotImplementedError for a feature this slice of the port lacks."""
-    unsupported = [
-        ("sliding_window", cfg.sliding_window is not None, _MASK_ITEM),
-        ("logit_softcap", cfg.logit_softcap is not None, _MASK_ITEM),
-        ("rolling", cfg.rolling, _MASK_ITEM),
-        ("attention_sinks", cfg.attention_sinks != 0, _MASK_ITEM),
-    ]
-    for name, used, item in unsupported:
-        if used:
-            raise NotImplementedError(f"{name}={getattr(cfg, name)!r} is not ported yet: {item}")
+_TRAIN_MASK_ITEM = "ROADMAP.md queue 1 item 3b (training masks: window, softcap and segment ids)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,13 +67,10 @@ class AttentionConfig:
     rope_theta: float = 10000.0
     kv_quant: str = "none"
     dtype: str = "bfloat16"
-    sliding_window: int | None = None
-    logit_softcap: float | None = None
-    rolling: bool = False
-    attention_sinks: int = 0
-
-    def __post_init__(self):
-        require_supported(self)
+    sliding_window: int | None = None  # Mistral-style local attention
+    logit_softcap: float | None = None  # Gemma-2-style attention logit cap
+    rolling: bool = False  # O(window) ring-buffer KV cache (needs sliding_window)
+    attention_sinks: int = 0  # StreamingLLM sinks (dense: needs rolling)
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -124,10 +117,37 @@ def init_attention_params(generator: torch.Generator, cfg: AttentionConfig) -> d
     }
 
 
-def init_kv_cache(cfg: AttentionConfig, batch: int, max_seq: int, *, device) -> KVCache:
-    """A zeroed cache; with ``cfg.kv_quant`` a zeroed payload and scales of 1."""
+def rolling_buffer_len(cfg: AttentionConfig, max_seq: int, prefill_chunk: int = 0) -> int:
+    """Ring rows a slot: the window plus one prefill chunk of slack (a chunk
+    of T rows overwrites rows T behind the write head, so the ring must hold
+    window + T rows for the chunk's own lookback), 128-aligned, capped at
+    the logical context; attention sinks add their own 128-padded rows in
+    front of the ring."""
+    ring = ceil_to(cfg.sliding_window + max(prefill_chunk, 1), 128)
+    if cfg.attention_sinks:
+        ring += ceil_to(cfg.attention_sinks, 128)
+    return min(max_seq, ring)
+
+
+def init_kv_cache(cfg: AttentionConfig, batch: int, max_seq: int, *, device, prefill_chunk: int = 0) -> KVCache:
+    """A zeroed cache for ``max_seq`` positions a slot (a rolling cache holds
+    ``rolling_buffer_len`` rows of them); with ``cfg.kv_quant`` a zeroed
+    payload and scales of 1."""
+    if cfg.rolling and cfg.sliding_window is None:
+        raise ValueError("rolling cache requires sliding_window")
+    if cfg.attention_sinks:
+        if not cfg.rolling:
+            raise ValueError("attention_sinks requires rolling=True")
+        if cfg.attention_sinks + max(prefill_chunk, 1) > cfg.sliding_window:
+            # The chunked-prefill sink merge needs every chunk past the
+            # window to start at or after the sink rows.
+            raise ValueError(
+                f"attention_sinks ({cfg.attention_sinks}) + prefill chunk ({prefill_chunk}) must not exceed "
+                f"sliding_window ({cfg.sliding_window})"
+            )
+    rows = rolling_buffer_len(cfg, max_seq, prefill_chunk) if cfg.rolling else max_seq
     payload = payload_dtype(cfg.kv_quant)
-    shape = (batch, cfg.num_kv_heads, max_seq, cfg.head_dim)
+    shape = (batch, cfg.num_kv_heads, rows, cfg.head_dim)
     scales = [None, None]
     if payload is not None:
         scales = [torch.ones(shape[:-1] + (1,), dtype=torch.float32, device=device) for _ in range(2)]
@@ -147,11 +167,26 @@ def _quantize_for_cache(cfg: AttentionConfig, x: torch.Tensor):
     return quantize_values(x, payload)
 
 
+def _ring_rows(cfg: AttentionConfig, rows: int, positions: torch.Tensor) -> torch.Tensor:
+    """The row of a rolling cache of ``rows`` rows that holds each position:
+    p % rows; with sinks, p itself below the sinks and sinks_pad + (p -
+    sinks) % (rows - sinks_pad) above."""
+    sinks = cfg.attention_sinks
+    if not sinks:
+        return positions % rows
+    spad = ceil_to(sinks, 128)
+    return torch.where(positions < sinks, positions, spad + (positions - sinks) % (rows - spad))
+
+
 def write_cache(cfg: AttentionConfig, cache: KVCache, k_new, v_new, start_positions) -> KVCache:
     """Insert [B, Hkv, T, D] new K/V rows at per-sequence start positions,
     quantized per row into a quantized cache (payload and scale).
 
-    Decode writes (T == 1) at or past capacity are DROPPED and the length
+    A rolling cache stores position p at its ring row (``_ring_rows``) and
+    its lengths count every position written, never clamped to the ring; a
+    write longer than the ring keeps only the rows the ring can hold (with
+    sinks: the sink positions and the last ring-modulus rows). Otherwise,
+    decode writes (T == 1) at or past capacity are DROPPED and the length
     stays at max_seq: clamping the position would overwrite the last live
     row. Prefill writes (T > 1) clamp their start so the rows fit, as JAX's
     dynamic_update_slice does. Lengths clamp to max_seq either way.
@@ -164,6 +199,21 @@ def write_cache(cfg: AttentionConfig, cache: KVCache, k_new, v_new, start_positi
     t = k_new.shape[2]
     max_seq = cache.k.shape[2]
     batch_idx = torch.arange(k_new.shape[0], device=cache.k.device)
+    if cfg.rolling:
+        p = start_positions.long()[:, None] + torch.arange(t, device=cache.k.device)[None, :]  # [B, T]
+        if cfg.attention_sinks:
+            keep = (p < cfg.attention_sinks) | (p >= p[:, -1:] + 1 - (max_seq - ceil_to(cfg.attention_sinks, 128)))
+        else:
+            keep = p >= p[:, -1:] + 1 - max_seq
+        rows = _ring_rows(cfg, max_seq, p)
+        if t == 1:  # a single row is always kept: no host sync for the mask
+            for buf, new in writes:
+                bits(buf)[batch_idx, :, rows[:, 0]] = bits(new[:, :, 0].to(buf.dtype))
+        else:
+            b_idx, t_idx = keep.nonzero(as_tuple=True)
+            for buf, new in writes:
+                bits(buf)[b_idx, :, rows[b_idx, t_idx]] = bits(new[b_idx, :, t_idx].to(buf.dtype))
+        return cache._replace(lengths=(start_positions + t).to(torch.int32))
     if t == 1:
         keep = (start_positions < max_seq)[:, None, None]
         pos = start_positions.clamp(max=max_seq - 1)
@@ -210,14 +260,23 @@ def _output_proj_decode(params, o: torch.Tensor, out_dtype) -> torch.Tensor:
     return torch.einsum("bhd,hdm->bm", o, _weight(params["wo"], o.dtype))[:, None, :].to(out_dtype)
 
 
+def _masks(cfg: AttentionConfig) -> dict:
+    return dict(sliding_window=cfg.sliding_window, logit_softcap=cfg.logit_softcap)
+
+
 def attention_prefill(params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCache):
     """Causal prefill over [B, T, model_dim]; fills the cache from position 0.
 
     Returns (output [B, T, model_dim], updated cache).
     """
     batch, t, _ = x.shape
+    if cfg.attention_sinks and t > cfg.sliding_window:
+        raise ValueError(
+            "attention_sinks prompts longer than the window must prefill in chunks (attention_prefill_chunk "
+            "applies the sinks and window mask; the one-shot path would mask the sinks out)"
+        )
     q, k, v = _project_qkv(params, cfg, x, torch.arange(t, device=x.device)[None, None, :])
-    o = flash_attention(q, k, v, causal=True)
+    o = flash_attention(q, k, v, causal=True, **_masks(cfg))
     out = _output_proj(params, o, x.dtype)
     cache = write_cache(cfg, cache, k, v, torch.zeros((batch,), dtype=torch.int32, device=x.device))
     return out, cache
@@ -227,13 +286,18 @@ def attention_forward(params, cfg: AttentionConfig, x: torch.Tensor, *, position
     """Training-mode causal self-attention over [B, T, model_dim] (no cache).
 
     positions: optional [B, T] integer RoPE positions, default arange(T).
-    segment_ids: packed-sequence ids; not ported yet (NotImplementedError).
+    segment_ids: packed-sequence ids; not ported yet (NotImplementedError),
+      nor are a window or a softcap in ``cfg``: the backward kernels have no
+      masked branches yet.
 
     Returns [B, T, model_dim]; differentiable end to end (the attention's
     gradient runs the backward kernels, ``ops/attention_bwd.py``).
     """
     if segment_ids is not None:
-        raise NotImplementedError(f"segment_ids is not ported yet: {_SEGMENT_ITEM}")
+        raise NotImplementedError(f"segment_ids is not ported yet: {_TRAIN_MASK_ITEM}")
+    for name in ("sliding_window", "logit_softcap"):
+        if getattr(cfg, name) is not None:
+            raise NotImplementedError(f"training with {name}={getattr(cfg, name)!r} is not ported yet: {_TRAIN_MASK_ITEM}")
     _, t, _ = x.shape
     pos = torch.arange(t, device=x.device)[None, None, :] if positions is None else positions[:, None, :]
     q, k, v = _project_qkv(params, cfg, x, pos)
@@ -250,6 +314,12 @@ def attention_prefill_chunk(
     (the kernel's kv_len > q_len diagonal offset); the caller schedules
     chunks so ``start + T == kv_end``.
 
+    Over a rolling cache the chunk's rows go to their ring rows (a chunk may
+    wrap the ring's end) and the chunk attends the last min(kv_end, window +
+    T) positions, gathered from the ring in position order. With sinks, a
+    chunk past the window attends its window band (causal + window) and the
+    sink positions (non-causal) in two passes, combined with ``merge_two``.
+
     Args:
       x: [1, T, model_dim] — the chunk (right-padded on the LAST chunk only;
         padded rows write K/V past the true length, which no later chunk or
@@ -262,36 +332,82 @@ def attention_prefill_chunk(
       (output [1, T, model_dim], updated cache).
     """
     _, t, _ = x.shape
-    if start + t > cache.k.shape[2]:
-        raise ValueError(f"chunk rows [{start}, {start + t}) exceed the cache's {cache.k.shape[2]}")
+    rows = cache.k.shape[2]
+    sinks = cfg.attention_sinks
+    if cfg.rolling:
+        ring_mod = rows - (ceil_to(sinks, 128) if sinks else 0)
+        if ring_mod < cfg.sliding_window + t:
+            raise ValueError(
+                f"rolling ring ({ring_mod} of buffer {rows}) must hold window ({cfg.sliding_window}) + chunk ({t}) "
+                "rows: init the cache with prefill_chunk set"
+            )
+    elif start + t > rows:
+        raise ValueError(f"chunk rows [{start}, {start + t}) exceed the cache's {rows}")
     q, k, v = _project_qkv(params, cfg, x, start + torch.arange(t, device=x.device)[None, None, :])
-    # Write the chunk's K/V FIRST so the visible slice [0, kv_end) holds it.
+    # Write the chunk's K/V FIRST so the visible rows hold it.
     kq, ks = _quantize_for_cache(cfg, k[0])
     vq, vs = _quantize_for_cache(cfg, v[0])
-    bits(cache.k)[slot, :, start:start + t] = bits(kq.to(cache.k.dtype))
-    bits(cache.v)[slot, :, start:start + t] = bits(vq.to(cache.v.dtype))
+    writes = [(cache.k, kq), (cache.v, vq)]
     if cache.quantized():
-        cache.k_scales[slot, :, start:start + t] = ks
-        cache.v_scales[slot, :, start:start + t] = vs
+        writes += [(cache.k_scales, ks), (cache.v_scales, vs)]
+    if cfg.rolling:
+        ring_rows = _ring_rows(cfg, rows, start + torch.arange(t, device=x.device))
+        for buf, new in writes:
+            bits(buf)[slot][:, ring_rows] = bits(new.to(buf.dtype))
+    else:
+        for buf, new in writes:
+            bits(buf)[slot, :, start:start + t] = bits(new.to(buf.dtype))
     lengths = cache.lengths.clone()
     lengths[slot] = start + t
     cache = cache._replace(lengths=lengths)
 
-    def visible(buf, scales):
-        # The visible prefix goes to the kernel as a strided view, not a
-        # copy; a quantized one is dequantized here, in plain PyTorch, as
-        # the JAX package does in XLA (models/attention.py:496-511).
-        vis = buf[slot:slot + 1, :, :kv_end]
-        if scales is None:
-            return vis
-        return (vis.float() * scales[slot:slot + 1, :, :kv_end]).to(cfg.torch_dtype)
+    def dequant(vis, scales):
+        # A quantized cache is dequantized here, in plain PyTorch, as the
+        # JAX package does in XLA (models/attention.py:496-511).
+        return vis if scales is None else (vis.float() * scales).to(cfg.torch_dtype)
 
-    o = flash_attention(q, visible(cache.k, cache.k_scales), visible(cache.v, cache.v_scales), causal=True)
+    def gather(positions):
+        """The slot's rows holding ``positions``, in position order, as
+        [1, Hkv, n, D] K and V (a copy)."""
+        idx = _ring_rows(cfg, rows, positions)
+        return tuple(
+            dequant(bits(buf)[slot][:, idx][None].view(buf.dtype), None if sc is None else sc[slot][:, idx][None])
+            for buf, sc in ((cache.k, cache.k_scales), (cache.v, cache.v_scales))
+        )
+
+    def arange(lo, hi):
+        return torch.arange(lo, hi, device=x.device)
+
+    if cfg.rolling and sinks and kv_end > cfg.sliding_window:
+        # Every row attends the sinks and its window band: the band pass and
+        # the sink pass (every chunk past the window starts at or after the
+        # sinks, which init_kv_cache's check guarantees), merged by LSE.
+        g = min(cfg.sliding_window + t, kv_end - sinks)
+        k_band, v_band = gather(arange(kv_end - g, kv_end))
+        o_band, lse_band = flash_attention(q, k_band, v_band, causal=True, save_residuals=True, **_masks(cfg))
+        k_sink, v_sink = gather(arange(0, sinks))
+        o_sink, lse_sink = flash_attention(q, k_sink, v_sink, causal=False, logit_softcap=cfg.logit_softcap,
+                                           save_residuals=True)
+        o, _ = merge_two(o_band, lse_band, o_sink, lse_sink)
+        return _output_proj(params, o.to(q.dtype), x.dtype), cache
+    if cfg.rolling:
+        # Only the last min(kv_end, window + T) positions are visible (with
+        # sinks, kv_end <= window here, so nothing has rolled out yet).
+        g = min(kv_end, cfg.sliding_window + t)
+        k_vis, v_vis = gather(arange(kv_end - g, kv_end))
+    else:
+        # The visible prefix goes to the kernel as a strided view, not a copy.
+        k_vis, v_vis = (
+            dequant(buf[slot:slot + 1, :, :kv_end], None if sc is None else sc[slot:slot + 1, :, :kv_end])
+            for buf, sc in ((cache.k, cache.k_scales), (cache.v, cache.v_scales))
+        )
+    o = flash_attention(q, k_vis, v_vis, causal=True, **_masks(cfg))
     return _output_proj(params, o, x.dtype), cache
 
 
 def attention_decode(params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCache):
-    """One decode step over [B, 1, model_dim] against the cache.
+    """One decode step over [B, 1, model_dim] against the cache (a rolling
+    one masked by the positions its rows hold).
 
     Returns (output [B, 1, model_dim], updated cache).
     """
@@ -299,7 +415,10 @@ def attention_decode(params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCac
     cache = write_cache(cfg, cache, k, v, cache.lengths)
     # A quantized cache goes to K6 as payload and scales: the kernel
     # dequantizes, and the current token is attended as stored, quantized.
-    o = decode_attention(q[:, :, 0, :], cache.k_view(), cache.v_view(), cache.lengths)
+    o = decode_attention(
+        q[:, :, 0, :], cache.k_view(), cache.v_view(), cache.lengths, ring_buffer=cfg.rolling,
+        attention_sinks=cfg.attention_sinks, **_masks(cfg),
+    )
     return _output_proj_decode(params, o, x.dtype), cache
 
 
@@ -311,7 +430,7 @@ def attention_prefill_paged(params, cfg: AttentionConfig, x: torch.Tensor, paged
     """
     _, t, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, torch.arange(t, device=x.device)[None, None, :])
-    o = flash_attention(q, k, v, causal=True)
+    o = flash_attention(q, k, v, causal=True, **_masks(cfg))
     out = _output_proj(params, o, x.dtype)
     return out, paged_write_prefill(paged_cache, k[0], v[0], slot, true_len)
 
@@ -325,8 +444,11 @@ def attention_prefill_chunk_paged(
     _, t, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, start + torch.arange(t, device=x.device)[None, None, :])
     paged_cache = paged_write_prefill(paged_cache, k[0], v[0], slot, start + t, start=start)
-    # K8 reads the slot's pages in place, up to the chunk's diagonal.
-    o = paged_prefill_attention(q, paged_cache, slot, kv_end, chunk_len=t)
+    # K8 reads the slot's pages in place, from the window's first page (and
+    # the sinks' page 0) up to the chunk's diagonal: over the paged ring the
+    # pages below the band alias newer ones and are never read.
+    o = paged_prefill_attention(q, paged_cache, slot, kv_end, chunk_len=t, attention_sinks=cfg.attention_sinks,
+                                **_masks(cfg))
     return _output_proj(params, o, x.dtype), paged_cache
 
 
@@ -335,23 +457,36 @@ def attention_decode_paged_deferred(params, cfg: AttentionConfig, x: torch.Tenso
 
     K7 attends over the cache as it is (the new token is not in it yet, so
     ``lengths`` excludes it and may be 0), and the token's self term, score
-    q·k_new in fp32 and output v_new, is folded in with ``merge_two`` in the
-    base-2 LSE domain. The self term is at full precision even over a
-    quantized cache, where K10 stores the token quantized, as in the JAX
-    package. The caller writes every layer's (k_new, v_new) in one
-    ``paged_write_tokens_multi`` launch after the layer stack.
+    q·k_new in fp32 (through the softcap) and output v_new, is folded in
+    with ``merge_two`` in the base-2 LSE domain. The window goes down by
+    one, since ``lengths`` does not count the current token. The self term
+    is at full precision even over a quantized cache, where K10 stores the
+    token quantized, as in the JAX package. The caller writes every layer's
+    (k_new, v_new) in one ``paged_write_tokens_multi`` launch after the
+    layer stack.
 
     Returns (output [num_slots, 1, model_dim], (k_new, v_new) each
     [num_slots, kv_heads, head_dim]).
     """
+    window = cfg.sliding_window
+    if window is not None:
+        if window <= 1:
+            raise ValueError("deferred decode requires sliding_window > 1; use attention_decode_paged")
+        window -= 1
     q, k, v = _project_qkv(params, cfg, x, paged_cache.lengths[:, None, None])
     q1, k1, v1 = q[:, :, 0, :], k[:, :, 0, :], v[:, :, 0, :]
-    o_c, lse_c = paged_decode_attention(q1, paged_cache, save_residuals=True)
+    o_c, lse_c = paged_decode_attention(q1, paged_cache, save_residuals=True, sliding_window=window,
+                                        logit_softcap=cfg.logit_softcap, attention_sinks=cfg.attention_sinks)
     group = cfg.num_q_heads // cfg.num_kv_heads
     k_exp = k1.repeat_interleave(group, dim=1)  # [n, Hq, D]
     v_exp = v1.repeat_interleave(group, dim=1)
     s_raw = (q1.float() * k_exp.float()).sum(dim=-1)  # [n, Hq]
-    lse_self = s_raw * (1.0 / math.sqrt(cfg.head_dim)) * LOG2E  # a single score's LSE is the score
+    # A single score's LSE is the score, through the kernels' softcap.
+    sm_scale = 1.0 / math.sqrt(cfg.head_dim)
+    if cfg.logit_softcap is None:
+        lse_self = s_raw * sm_scale * LOG2E
+    else:
+        lse_self = cfg.logit_softcap * torch.tanh(s_raw * sm_scale / cfg.logit_softcap) * LOG2E
     o, _ = merge_two(o_c, lse_c, v_exp, lse_self)
     return _output_proj_decode(params, o, x.dtype), (k1, v1)
 
@@ -365,5 +500,5 @@ def attention_decode_paged(params, cfg: AttentionConfig, x: torch.Tensor, paged_
     q, k, v = _project_qkv(params, cfg, x, paged_cache.lengths[:, None, None])
     slots = torch.arange(x.shape[0], device=x.device)
     paged_cache = paged_write_tokens(paged_cache, k[:, :, 0, :], v[:, :, 0, :], slots)
-    o = paged_decode_attention(q[:, :, 0, :], paged_cache)
+    o = paged_decode_attention(q[:, :, 0, :], paged_cache, attention_sinks=cfg.attention_sinks, **_masks(cfg))
     return _output_proj_decode(params, o, x.dtype), paged_cache

@@ -56,7 +56,11 @@ def kv_cache_from_jax(cache, *, device: str | torch.device = "cuda"):
     ``PagedKVCache`` (k_pages, v_pages, page_table, lengths, k_scales,
     v_scales) as the port's, payload and scales with the same bits. Paged
     scales drop the JAX package's size-1 lane axis: [P, Hkv, 1, page] ->
-    [P, Hkv, page], the same memory order."""
+    [P, Hkv, page], the same memory order. A rolling (ring) cache comes
+    across as it is: its rows in ring order and lengths that count every
+    position written, past the ring's rows; the ring's layout (window,
+    sinks) lives in the AttentionConfig both packages share, and a paged
+    ring's in its page table."""
 
     def get(name):
         x = getattr(cache, name)

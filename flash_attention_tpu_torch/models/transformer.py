@@ -32,6 +32,7 @@ from flash_attention_tpu_torch.models.attention import (
     _normal,
     _weight,
     attention_decode,
+    attention_decode_paged,
     attention_decode_paged_deferred,
     attention_forward,
     attention_prefill,
@@ -40,7 +41,6 @@ from flash_attention_tpu_torch.models.attention import (
     attention_prefill_paged,
     init_attention_params,
     init_kv_cache,
-    require_supported,
 )
 from flash_attention_tpu_torch.ops.paged import PagedModelCache, init_paged_model_cache, paged_write_tokens_multi
 from flash_attention_tpu_torch.ops.quant import QuantizedTensor, quantize_weight
@@ -60,13 +60,10 @@ class ModelConfig:
     kv_quant: str = "none"
     weight_quant: str = "none"
     dtype: str = "bfloat16"
-    sliding_window: int | None = None
-    logit_softcap: float | None = None
-    rolling: bool = False
-    attention_sinks: int = 0
-
-    def __post_init__(self):
-        require_supported(self)
+    sliding_window: int | None = None  # Mistral-style local attention
+    logit_softcap: float | None = None  # Gemma-2-style attention logit cap
+    rolling: bool = False  # O(window) ring-buffer KV cache (needs sliding_window)
+    attention_sinks: int = 0  # StreamingLLM sinks (dense: needs rolling)
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -155,9 +152,11 @@ def quantize_model_weights(params: dict) -> dict:
     }
 
 
-def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> list:
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *, device, prefill_chunk: int = 0) -> list:
+    """Every layer's zeroed KVCache; a rolling one holds window + one
+    ``prefill_chunk`` of rows (``rolling_buffer_len``)."""
     acfg = cfg.attention_config()
-    return [init_kv_cache(acfg, batch, max_seq, device=device) for _ in range(cfg.num_layers)]
+    return [init_kv_cache(acfg, batch, max_seq, device=device, prefill_chunk=prefill_chunk) for _ in range(cfg.num_layers)]
 
 
 def _trunk(params, cfg: ModelConfig, tokens: torch.Tensor, attn_fn, caches=None):
@@ -213,8 +212,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list):
 def train_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, segment_ids=None) -> torch.Tensor:
     """Training-mode forward (no KV caches): causal LM logits [B, T, vocab]
     fp32 over [B, T] tokens; differentiate a loss of them with autograd.
-    ``segment_ids`` (packed batches) is not ported yet and raises
-    NotImplementedError, as ``attention_forward`` does."""
+    ``segment_ids`` (packed batches), a window and a softcap are not ported
+    to training yet and raise NotImplementedError, as ``attention_forward``
+    does (ROADMAP.md item 3b)."""
 
     def attn(p, acfg, h, cache):
         return attention_forward(p, acfg, h, segment_ids=segment_ids), cache
@@ -297,9 +297,12 @@ def decode_step_logits_paged(params, cfg: ModelConfig, tokens: torch.Tensor, cac
     with the current token's self term merged in
     (``attention_decode_paged_deferred``, K7), and ALL layers' K/V rows land
     in one ``paged_write_tokens_multi`` launch (K10) after the layer stack.
-    (The JAX package keeps a write-first path for sliding_window <= 1; the
-    port has no sliding window yet, so it has no such branch.)
+    A window of 1 (the deferred window would be 0) takes the write-first
+    path instead: each layer writes its row (K9), then K7 attends.
     """
+    if cfg.sliding_window is not None and cfg.sliding_window <= 1:
+        logits, cache = _trunk_paged(params, cfg, tokens, attention_decode_paged, cache)
+        return logits[:, -1, :], cache
     k_rows, v_rows = [], []
 
     def attn(lp, acfg, h, layer):

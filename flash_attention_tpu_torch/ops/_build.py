@@ -29,7 +29,11 @@ import torch
 PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# --split-compile=0: each nvcc spreads its device-code optimisation over the
+# machine's cores; the masked and unmasked instantiations of every kernel
+# body made one-thread-per-file builds take minutes.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "--split-compile=0"]
 
 # Element types the kernels are instantiated for, by csrc/common.cuh's codes:
 # the query / output types, and the payload types of a quantized KV cache
@@ -97,14 +101,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         ptr, ptr, ptr, ptr, ptr,  # q, k, v, o, lse
         i64, i64, i64, i64, i64, i64,  # batch, Hq, Hkv, Sq, Skv, D
         i64, i64, i64, i64, i64, i64, i64, i64, i64,  # q/k/v strides
-        f32, i32, i32, ptr,  # scale2, causal, dtype, stream
+        f32, i32,  # scale2, causal
+        i32, f32, i32,  # window, softcap2, band (K2)
+        i32, ptr,  # dtype, stream
     ]
     lib.fat_paged_prefill.restype = c.c_int
     lib.fat_paged_prefill.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k pages, v pages, k/v scales, o, table row
         i64, i64, i64, i64, i64, i64, i64,  # Hq, Hkv, num_pages, page_size, T, kv_end, D
         i64, i64, i64, i64, i64, i64, i64, i64,  # q/k/v strides
-        c.POINTER(i64), f32, i32, i32, ptr,  # scale strides, scale2, dtype, payload, stream
+        c.POINTER(i64), f32,  # scale strides, scale2
+        i32, i32, f32,  # window, sinks, softcap2
+        i32, i32, ptr,  # dtype, payload, stream
     ]
     strides = c.POINTER(i64)
     lib.fat_decode.restype = c.c_int
@@ -112,14 +120,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, k/v scales, o, lse, lengths
         i64, i64, i64, i64, i64,  # batch, Hq, Hkv, max_seq, D
         i64, i64, strides,  # q strides, k/v and scale strides
-        f32, i32, i32, ptr,  # scale2, dtype, payload, stream
+        f32, i32, i32, i32, f32,  # scale2, window, ring, sinks, softcap2
+        i32, i32, ptr,  # dtype, payload, stream
     ]
     lib.fat_paged_decode.restype = c.c_int
     lib.fat_paged_decode.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k/v pages, k/v scales, o, lse, lengths, table
         i64, i64, i64, i64, i64, i64, i64,  # slots, Hq, Hkv, num_pages, page_size, pages_per_slot, D
         i64, i64, strides,  # q strides, k/v and scale strides
-        f32, i32, i32, ptr,  # scale2, dtype, payload, stream
+        f32, i32, i32, f32,  # scale2, window, sinks, softcap2
+        i32, i32, ptr,  # dtype, payload, stream
     ]
     lib.fat_paged_write.restype = c.c_int
     lib.fat_paged_write.argtypes = [

@@ -29,7 +29,7 @@ import torch
 from flash_attention_tpu_torch.ops import _build
 from flash_attention_tpu_torch.ops.common import LOG2E
 
-_MASK_ITEM = "ROADMAP.md queue 1 item 3 (window, softcap and segment ids of the backward)"
+_MASK_ITEM = "ROADMAP.md queue 1 item 3b (window, softcap and segment ids of the backward)"
 
 
 def bwd_route(num_q_heads: int, num_kv_heads: int, q_len: int, kv_len: int) -> str:

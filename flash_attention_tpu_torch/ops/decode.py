@@ -14,9 +14,12 @@ CUDA kernel for CUDA tensors; there is no fallback from one to the other.
 ``decode_attention.quant_launches`` those over a quantized one (K6q).
 
 ``save_residuals`` also returns the base-2 LSE, which the kernel body shares
-with the paged decode K7 (ops/paged.py). Sliding window, softcap, ring
-buffer, attention sinks and ``decode_attention_split`` are queued in
-ROADMAP.md.
+with the paged decode K7 (ops/paged.py). The masks are the JAX kernel's
+(:91-200): a sliding window, a logit softcap, a rolling ring-buffer cache
+(``ring_buffer``: position p at row p % rows, ``lengths`` counting every
+position written) and StreamingLLM attention sinks in front of the ring;
+the kernel masks by each row's reconstructed POSITION and walks only the
+live rows. ``decode_attention_split`` is queued in ROADMAP.md (item 4).
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import math
 import torch
 
 from flash_attention_tpu_torch.ops import _build
-from flash_attention_tpu_torch.ops.common import LOG2E, M_FLOOR, MASK_VALUE
+from flash_attention_tpu_torch.ops.common import LOG2E, M_FLOOR, MASK_VALUE, ceil_to
+from flash_attention_tpu_torch.ops.flash_attention import mask_window, softcap2
 from flash_attention_tpu_torch.ops.quant import QuantizedTensor, dequantize
 
 
@@ -45,6 +49,36 @@ def scale_strides(k_scales, v_scales) -> list[int]:
     return [*k_scales.stride()[:3], *v_scales.stride()[:3]]
 
 
+def visible_rows(lengths: torch.Tensor, rows: int, *, sliding_window=None, ring_buffer=False, attention_sinks=0):
+    """[B, rows] bool: which cache rows each sequence attends, by the
+    position each row holds (the JAX kernel's masks, ops/decode.py:166-199,
+    and the paged kernels' sinks):
+
+      * not a ring: row r holds position r, visible when r < L and (no
+        window, or r >= L - window, or r < sinks: logical page 0's sinks);
+      * a ring: row r holds L - 1 - ((L - 1 - r) mod rows), visible when
+        that is >= max(0, L - window);
+      * a ring with sinks: rows [0, sinks_pad) hold positions [0, sinks)
+        (visible when r < sinks and r < L) and the rest is a ring of modulus
+        rows - sinks_pad over positions >= sinks, visible when the position
+        is >= max(sinks, L - window).
+    """
+    col = torch.arange(rows, device=lengths.device)[None, :]
+    L = lengths.long()[:, None]
+    if not ring_buffer:
+        ok = col < L
+        if sliding_window is not None:
+            ok = ok & ((col >= L - sliding_window) | (col < attention_sinks))
+        return ok
+    if not attention_sinks:
+        pos = L - 1 - torch.remainder(L - 1 - col, rows)
+        return pos >= (L - sliding_window).clamp(min=0)
+    spad = ceil_to(attention_sinks, 128)
+    pos = L - 1 - torch.remainder(L - 1 - attention_sinks - (col - spad), rows - spad)
+    ring_ok = pos >= (L - sliding_window).clamp(min=attention_sinks)
+    return torch.where(col < spad, (col < attention_sinks) & (col < L), ring_ok)
+
+
 def decode_attention_plain(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -53,19 +87,30 @@ def decode_attention_plain(
     *,
     sm_scale: float,
     save_residuals: bool = False,
+    sliding_window: int | None = None,
+    logit_softcap: float | None = None,
+    ring_buffer: bool = False,
+    attention_sinks: int = 0,
 ):
     """The function K6 computes, in plain fp32 PyTorch: each row of q
-    attends to rows [0, lengths[b]) of its kv head's cache; output 0 (and
-    base-2 LSE -inf) where lengths[b] == 0. A quantized cache is
-    dequantized to fp32 first."""
+    attends to the rows of its kv head's cache that ``visible_rows`` admits
+    (rows [0, lengths[b]) without masks); output 0 (and base-2 LSE -inf)
+    where it sees none. The softcap maps the score to cap * tanh(qk *
+    sm_scale / cap) before the mask. A quantized cache is dequantized to
+    fp32 first."""
     if isinstance(k_cache, QuantizedTensor):
         k_cache, v_cache = dequantize(k_cache), dequantize(v_cache)
     batch, num_q_heads, head_dim = q.shape
     num_kv_heads, max_seq = k_cache.shape[1], k_cache.shape[2]
     group = num_q_heads // num_kv_heads
     qg = q.float().reshape(batch, num_kv_heads, group, head_dim)
-    s2 = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float()) * (sm_scale * LOG2E)
-    live = torch.arange(max_seq, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    if logit_softcap is None:
+        s2 = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float()) * (sm_scale * LOG2E)
+    else:
+        s = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float()) * sm_scale
+        s2 = logit_softcap * torch.tanh(s / logit_softcap) * LOG2E
+    live = visible_rows(lengths.to(q.device), max_seq, sliding_window=sliding_window, ring_buffer=ring_buffer,
+                        attention_sinks=attention_sinks)
     s2 = torch.where(live[:, None, None, :], s2, MASK_VALUE)
     m = s2.amax(dim=-1, keepdim=True).clamp_min(M_FLOOR)
     p = torch.exp2(s2 - m)
@@ -86,6 +131,10 @@ def decode_attention(
     *,
     sm_scale: float | None = None,
     save_residuals: bool = False,
+    sliding_window: int | None = None,
+    logit_softcap: float | None = None,
+    ring_buffer: bool = False,
+    attention_sinks: int = 0,
 ):
     """Single-token decode attention over a dense KV cache.
 
@@ -99,6 +148,14 @@ def decode_attention(
         token's K/V must already be written at position lengths - 1).
       save_residuals: also return the base-2 LSE [batch, q_heads] fp32
         (-inf where lengths == 0).
+      sliding_window: attend only positions >= lengths - window.
+      logit_softcap: scores become cap * tanh(score / cap).
+      ring_buffer: the cache is a rolling buffer: position p at row p %
+        max_seq, and ``lengths`` counts every position written (it may pass
+        max_seq). Requires the window, which the ring (less the sink
+        region) must hold, and a 128-multiple max_seq.
+      attention_sinks: StreamingLLM sinks in front of a ring: rows [0,
+        ceil_to(sinks, 128)) hold positions [0, sinks), always attended.
 
     Returns:
       [batch, q_heads, head_dim] in q's dtype, plus the LSE if asked.
@@ -119,11 +176,28 @@ def decode_attention(
         raise ValueError(f"scales {tuple(k_scales.shape)} / {tuple(v_scales.shape)} != {(batch, num_kv_heads, max_seq, 1)}")
     if lengths.shape != (batch,):
         raise ValueError(f"lengths shape {tuple(lengths.shape)} != ({batch},)")
+    # The JAX wrapper's checks (ops/decode.py:357-392).
+    if attention_sinks and not ring_buffer:
+        raise ValueError("attention_sinks requires ring_buffer=True")
+    if ring_buffer:
+        if sliding_window is None:
+            raise ValueError("ring_buffer requires sliding_window")
+        if max_seq % 128:
+            raise ValueError(f"ring_buffer requires a 128-multiple buffer, got {max_seq}")
+        ring_cap = max_seq - (ceil_to(attention_sinks, 128) if attention_sinks else 0)
+        if sliding_window > ring_cap:
+            raise ValueError(f"ring region ({ring_cap} of buffer {max_seq}) must hold the whole window ({sliding_window})")
+    if sliding_window is not None and sliding_window < 1:
+        raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
+    if logit_softcap is not None and logit_softcap <= 0:
+        raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(head_dim)
+    masks = dict(sliding_window=sliding_window, logit_softcap=logit_softcap, ring_buffer=ring_buffer,
+                 attention_sinks=attention_sinks)
     if q.device.type == "cpu":
         return decode_attention_plain(
-            q, k_cache, v_cache, lengths, sm_scale=sm_scale, save_residuals=save_residuals
+            q, k_cache, v_cache, lengths, sm_scale=sm_scale, save_residuals=save_residuals, **masks
         )
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda tensors, got {q.device}")
@@ -148,7 +222,8 @@ def decode_attention(
                 None if lse is None else lse.data_ptr(), lengths.data_ptr(),
                 batch, num_q_heads, num_kv_heads, max_seq, head_dim, q.stride(0), q.stride(1),
                 _build.int64_array([*k_vals.stride()[:3], *v_vals.stride()[:3], *scale_strides(k_scales, v_scales)]),
-                sm_scale * LOG2E, _build.DTYPE_CODES[q.dtype], payload,
+                sm_scale * LOG2E, mask_window(sliding_window), int(ring_buffer), attention_sinks,
+                softcap2(logit_softcap), _build.DTYPE_CODES[q.dtype], payload,
                 torch.cuda.current_stream(q.device).cuda_stream,
             )
         _build.check(err, "decode_attention (K6)")

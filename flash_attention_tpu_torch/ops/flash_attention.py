@@ -1,20 +1,25 @@
-"""Fused attention forward: kernel K1 (csrc/flash_fwd.cu) and its plain version.
+"""Fused attention forward: kernels K1 and K2 (csrc/flash_fwd.cu) and their plain version.
 
-Replaces the JAX package's ``ops/flash_attention.py:_fwd_kernel``, reached
-from ``flash_attention`` (:1718). What bounds the kernel on an H100 (tensor-
-core arithmetic at long kv) and what its design does about it is written at
-the top of csrc/flash_fwd.cu.
+Replaces the JAX package's ``ops/flash_attention.py:_fwd_kernel`` and, for a
+causal sliding window no wider than the kernel's 64-row kv tile,
+``_band_kernel`` (:795, K2), both reached from ``flash_attention`` (:1718),
+with their sliding-window and logit-softcap branches. What bounds the
+kernels on an H100 (tensor-core arithmetic at long kv) and what their design
+does about it is written at the top of csrc/flash_fwd.cu.
 
 ``flash_attention`` runs the plain PyTorch version for CPU tensors and the
 CUDA kernel for CUDA tensors; there is no fallback from one to the other.
-``flash_attention.launches`` counts kernel launches.
+``flash_attention.launches`` counts K1 launches and
+``flash_attention.band_launches`` K2's.
 
 Under grad the call goes through ``FlashAttentionFunction``, the
 counterpart of the JAX package's custom VJP (``_fa``/``_fa_fwd``/``_fa_bwd``,
 :1650-1702): the forward runs once with its LSE and saves (q, k, v, out,
 lse2), and the backward is ``ops/attention_bwd.flash_attention_bwd`` (K3, or
 K4 + K5). The CPU takes the same Function with the plain forward and
-backward, so the CPU tests run the card's wiring.
+backward, so the CPU tests run the card's wiring. The backward kernels have
+no window or softcap branch yet, so under grad a window or a softcap raises
+(ROADMAP.md item 3b) rather than return the unmasked gradient.
 """
 
 from __future__ import annotations
@@ -28,6 +33,10 @@ from flash_attention_tpu_torch.ops import _build
 from flash_attention_tpu_torch.ops.attention_bwd import flash_attention_bwd
 from flash_attention_tpu_torch.ops.common import LOG2E, M_FLOOR, MASK_VALUE
 
+# K2 takes a causal window no wider than K1's kv tile (csrc/flash_fwd.cu BN).
+BAND_MAX_WINDOW = 64
+_BWD_MASK_ITEM = "ROADMAP.md queue 1 item 3b (window and softcap of the backward kernels)"
+
 
 def flash_attention_plain(
     q: torch.Tensor,
@@ -37,22 +46,36 @@ def flash_attention_plain(
     causal: bool,
     sm_scale: float,
     save_residuals: bool,
+    sliding_window: int | None = None,
+    logit_softcap: float | None = None,
+    sinks: int = 0,
 ):
-    """The function K1 computes, in plain fp32 PyTorch.
+    """The function K1 and K2 compute, in plain fp32 PyTorch.
 
     Materialises the [B, Hq, Sq, Skv] scores: the kernel's contract (exp2
     softmax, finite mask, max floored at M_FLOOR, 0 output and -inf LSE for a
-    row that sees no key) without its tiling.
+    row that sees no key) without its tiling. The softcap maps the score to
+    s2 = cap * tanh(qk * sm_scale / cap) * log2(e) before the mask; the
+    window keeps column j for end-aligned row i when j > i + kv_len - q_len
+    - window, and with ``sinks`` (K8's StreamingLLM sinks) also when j <
+    sinks.
     """
     batch, num_q_heads, q_len, head_dim = q.shape
     num_kv_heads, kv_len = k.shape[1], k.shape[2]
     group = num_q_heads // num_kv_heads
     qf = q.float().reshape(batch, num_kv_heads, group, q_len, head_dim)
-    s2 = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * (sm_scale * LOG2E)
+    if logit_softcap is None:
+        s2 = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * (sm_scale * LOG2E)
+    else:
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * sm_scale
+        s2 = logit_softcap * torch.tanh(s / logit_softcap) * LOG2E
     if causal:
         row = torch.arange(q_len, device=q.device)[:, None] + (kv_len - q_len)
         col = torch.arange(kv_len, device=q.device)[None, :]
-        s2 = torch.where(col <= row, s2, MASK_VALUE)
+        ok = col <= row
+        if sliding_window is not None:
+            ok = ok & ((col > row - sliding_window) | (col < sinks))
+        s2 = torch.where(ok, s2, MASK_VALUE)
     m = s2.amax(dim=-1, keepdim=True).clamp_min(M_FLOOR)
     p = torch.exp2(s2 - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -64,8 +87,8 @@ def flash_attention_plain(
     return out, lse.reshape(batch, num_q_heads, q_len)
 
 
-def _validate(q, k, v, causal):
-    """The input checks of the JAX wrapper (ops/flash_attention.py:1761-1799)."""
+def _validate(q, k, v, causal, sliding_window, logit_softcap):
+    """The input checks of the JAX wrapper (ops/flash_attention.py:1761-1779)."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("expected [batch, heads, seq, head_dim] inputs")
     batch, num_q_heads, q_len, head_dim = q.shape
@@ -78,15 +101,24 @@ def _validate(q, k, v, causal):
         raise ValueError(f"q/kv shape mismatch: {tuple(q.shape)} vs {tuple(k.shape)}")
     if causal and kv_len < q_len:
         raise ValueError("causal requires kv_seq >= q_seq")
+    if sliding_window is not None:
+        if not causal:
+            raise ValueError("sliding_window requires causal=True")
+        if sliding_window < 1:
+            raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
+    if logit_softcap is not None and logit_softcap <= 0:
+        raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
 
 
-def _forward(q, k, v, causal: bool, sm_scale: float, save_residuals: bool):
-    """K1 for CUDA tensors, the plain version for CPU tensors."""
+def _forward(q, k, v, causal: bool, sm_scale: float, save_residuals: bool, sliding_window=None, logit_softcap=None):
+    """K1 (K2 for a window of at most BAND_MAX_WINDOW) for CUDA tensors, the
+    plain version for CPU tensors."""
     batch, num_q_heads, q_len, head_dim = q.shape
     num_kv_heads, kv_len = k.shape[1], k.shape[2]
     if q.device.type == "cpu":
         return flash_attention_plain(
-            q, k, v, causal=causal, sm_scale=sm_scale, save_residuals=save_residuals
+            q, k, v, causal=causal, sm_scale=sm_scale, save_residuals=save_residuals,
+            sliding_window=sliding_window, logit_softcap=logit_softcap,
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
@@ -98,6 +130,7 @@ def _forward(q, k, v, causal: bool, sm_scale: float, save_residuals: bool):
         torch.empty((batch, num_q_heads, q_len), dtype=torch.float32, device=q.device)
         if save_residuals else None
     )
+    band = sliding_window is not None and sliding_window <= BAND_MAX_WINDOW
     if out.numel():
         lib = _build.kernels()
         with torch.cuda.device(q.device):
@@ -108,12 +141,26 @@ def _forward(q, k, v, causal: bool, sm_scale: float, save_residuals: bool):
                 q.stride(0), q.stride(1), q.stride(2),
                 k.stride(0), k.stride(1), k.stride(2),
                 v.stride(0), v.stride(1), v.stride(2),
-                sm_scale * LOG2E, int(causal), _build.DTYPE_CODES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream,
+                sm_scale * LOG2E, int(causal), mask_window(sliding_window), softcap2(logit_softcap), int(band),
+                _build.DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
             )
-        _build.check(err, "flash_attention (K1)")
-        flash_attention.launches += 1
+        _build.check(err, "flash_attention (K2)" if band else "flash_attention (K1)")
+        if band:
+            flash_attention.band_launches += 1
+        else:
+            flash_attention.launches += 1
     return (out, lse) if save_residuals else out
+
+
+def mask_window(sliding_window: int | None) -> int:
+    """The kernels' window argument: 0 for none."""
+    return 0 if sliding_window is None else int(sliding_window)
+
+
+def softcap2(logit_softcap: float | None) -> float:
+    """The kernels' softcap argument: cap * log2(e), the cap in the exp2
+    domain of their scores, or 0 for none."""
+    return 0.0 if logit_softcap is None else float(logit_softcap) * LOG2E
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -144,6 +191,8 @@ def flash_attention(
     causal: bool = False,
     sm_scale: float | None = None,
     save_residuals: bool = False,
+    sliding_window: int | None = None,
+    logit_softcap: float | None = None,
 ):
     """Fused multi-head attention forward, differentiable in q, k and v.
 
@@ -159,19 +208,31 @@ def flash_attention(
       save_residuals: also return the base-2 LSE [batch, q_heads, q_seq]
         fp32 (-inf for a row that sees no key). Not differentiable, as in
         the JAX package: under grad it raises.
+      sliding_window: causal only; row i also needs column j > i + kv_seq -
+        q_seq - window (local attention, Mistral-style). A window of at most
+        BAND_MAX_WINDOW runs K2 on the card.
+      logit_softcap: > 0; scores become cap * tanh(score / cap) (Gemma-2).
+        Neither has a backward kernel yet: under grad either raises
+        NotImplementedError (ROADMAP.md item 3b).
 
     Returns:
       [batch, q_heads, q_seq, head_dim] in q's dtype, plus the LSE if asked.
     """
-    _validate(q, k, v, causal)
+    _validate(q, k, v, causal, sliding_window, logit_softcap)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
     if needs_grad and save_residuals:
         raise ValueError("flash_attention: save_residuals=True is not differentiable; call it under torch.no_grad()")
     if needs_grad:
+        if sliding_window is not None or logit_softcap is not None:
+            raise NotImplementedError(
+                f"flash_attention under grad with sliding_window={sliding_window!r}, "
+                f"logit_softcap={logit_softcap!r} is not ported yet: {_BWD_MASK_ITEM}"
+            )
         return FlashAttentionFunction.apply(q, k, v, causal, sm_scale)
-    return _forward(q, k, v, causal, sm_scale, save_residuals)
+    return _forward(q, k, v, causal, sm_scale, save_residuals, sliding_window, logit_softcap)
 
 
 flash_attention.launches = 0
+flash_attention.band_launches = 0

@@ -36,8 +36,16 @@ page_size]``: the JAX package's ``[num_pages, kv_heads, 1, page_size]`` in
 the same memory order, without the size-1 lane axis). K7 and K8 widen and
 scale the payload as they read it; K10 quantizes the new rows as it writes
 them. Scales are indexed by physical page, so pages shared through the
-prefix cache carry theirs. Sliding window, softcap and sinks are queued in
-ROADMAP.md item 3.
+prefix cache carry theirs.
+
+K7 and K8 take the JAX kernels' masks (K7 :1033, :1065-1066, :1152,
+:1188-1189; K8 :642, :680-681): a sliding window and a logit softcap, and
+StreamingLLM attention sinks, logical rows [0, sinks) on the pinned logical
+page 0, visible beside the window. Their page walks are band-limited (from
+max(length - window, 0) // page, plus page 0 with sinks). Over the paged
+ring (``serving/paged_engine.py``) a logical page that rolled out of the
+window aliases the physical page now holding newer rows; the kernels and
+their plain versions mask by logical POSITION, so it is never scored.
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ import torch
 from flash_attention_tpu_torch.ops import _build
 from flash_attention_tpu_torch.ops.common import LOG2E
 from flash_attention_tpu_torch.ops.decode import decode_attention_plain, scale_strides
-from flash_attention_tpu_torch.ops.flash_attention import flash_attention_plain
+from flash_attention_tpu_torch.ops.flash_attention import flash_attention_plain, mask_window, softcap2
 from flash_attention_tpu_torch.ops.quant import bits, payload_dtype, quantize_values
 
 # The kernels read a page in runs of rows that must not straddle it: K8 in
@@ -366,14 +374,37 @@ def _scale_ptrs(cache: PagedKVCache) -> list:
     return [cache.k_scales.data_ptr(), cache.v_scales.data_ptr()]
 
 
-def paged_decode_attention_plain(q: torch.Tensor, cache: PagedKVCache, *, sm_scale: float, save_residuals: bool = False):
-    """The function K7 computes: the slots' pages gathered densely (and
-    dequantized to fp32), then the decode math of ``decode_attention_plain``."""
+def _check_masks(cache: PagedKVCache, sliding_window, logit_softcap, attention_sinks) -> None:
+    """The JAX wrappers' mask checks (ops/paged.py:962-970, :1265-1274)."""
+    if sliding_window is not None and sliding_window < 1:
+        raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
+    if logit_softcap is not None and logit_softcap <= 0:
+        raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
+    if attention_sinks:
+        if sliding_window is None:
+            raise ValueError("attention_sinks requires sliding_window")
+        if attention_sinks >= cache.page_size:
+            raise ValueError(f"attention_sinks ({attention_sinks}) must fit the pinned first page ({cache.page_size} rows)")
+
+
+def paged_decode_attention_plain(
+    q: torch.Tensor, cache: PagedKVCache, *, sm_scale: float, save_residuals: bool = False,
+    sliding_window: int | None = None, logit_softcap: float | None = None, attention_sinks: int = 0,
+):
+    """The function K7 computes: the slots' pages gathered densely in
+    logical order (and dequantized to fp32), then the decode math of
+    ``decode_attention_plain`` over logical positions."""
     k, v = _gather_kv(cache, cache.page_table)
-    return decode_attention_plain(q, k, v, cache.lengths, sm_scale=sm_scale, save_residuals=save_residuals)
+    return decode_attention_plain(
+        q, k, v, cache.lengths, sm_scale=sm_scale, save_residuals=save_residuals,
+        sliding_window=sliding_window, logit_softcap=logit_softcap, attention_sinks=attention_sinks,
+    )
 
 
-def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache, *, sm_scale: float | None = None, save_residuals: bool = False):
+def paged_decode_attention(
+    q: torch.Tensor, cache: PagedKVCache, *, sm_scale: float | None = None, save_residuals: bool = False,
+    sliding_window: int | None = None, logit_softcap: float | None = None, attention_sinks: int = 0,
+):
     """Single-token decode over the paged cache.
 
     Args:
@@ -381,6 +412,10 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache, *, sm_scale: fl
         q_heads % kv_heads == 0. Slot b attends its rows [0, lengths[b]).
       save_residuals: also return the base-2 LSE [num_slots, q_heads] fp32
         (-inf for a slot of length 0, whose output is 0).
+      sliding_window: attend only logical rows >= lengths - window.
+      logit_softcap: scores become cap * tanh(score / cap).
+      attention_sinks: logical rows [0, sinks) stay visible beside the
+        window (requires the window; sinks < page_size).
 
     Returns:
       [num_slots, q_heads, head_dim] in q's dtype, plus the LSE if asked.
@@ -395,10 +430,14 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache, *, sm_scale: fl
         raise ValueError(f"q {tuple(q.shape)} / pages {tuple(cache.k_pages.shape)}, {tuple(cache.v_pages.shape)} mismatch")
     if cache.page_table.shape[0] != num_slots or cache.lengths.shape != (num_slots,):
         raise ValueError(f"{num_slots} query slots against a table of {tuple(cache.page_table.shape)}")
+    _check_masks(cache, sliding_window, logit_softcap, attention_sinks)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(head_dim)
     if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, cache, sm_scale=sm_scale, save_residuals=save_residuals)
+        return paged_decode_attention_plain(
+            q, cache, sm_scale=sm_scale, save_residuals=save_residuals, sliding_window=sliding_window,
+            logit_softcap=logit_softcap, attention_sinks=attention_sinks,
+        )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cpu or cuda tensors, got {q.device}")
 
@@ -418,7 +457,8 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache, *, sm_scale: fl
                 q.stride(0), q.stride(1),
                 _build.int64_array([*k_pages.stride()[:3], *v_pages.stride()[:3],
                                     *scale_strides(cache.k_scales, cache.v_scales)]),
-                sm_scale * LOG2E, _build.DTYPE_CODES[q.dtype], payload,
+                sm_scale * LOG2E, mask_window(sliding_window), attention_sinks, softcap2(logit_softcap),
+                _build.DTYPE_CODES[q.dtype], payload,
                 torch.cuda.current_stream(q.device).cuda_stream,
             )
         _build.check(err, "paged_decode_attention (K7)")
@@ -433,17 +473,24 @@ paged_decode_attention.launches = 0
 paged_decode_attention.quant_launches = 0
 
 
-def paged_prefill_attention_plain(q: torch.Tensor, cache: PagedKVCache, slot: int, kv_end: int, *, sm_scale: float):
-    """The function K8 computes: the slot's first kv_end rows gathered
-    densely (and dequantized to fp32), then causal ``flash_attention_plain``,
-    end-aligned."""
+def paged_prefill_attention_plain(
+    q: torch.Tensor, cache: PagedKVCache, slot: int, kv_end: int, *, sm_scale: float,
+    sliding_window: int | None = None, logit_softcap: float | None = None, attention_sinks: int = 0,
+):
+    """The function K8 computes: the slot's first kv_end logical rows
+    gathered densely (and dequantized to fp32), then causal
+    ``flash_attention_plain``, end-aligned, with the masks."""
     n = -(-kv_end // cache.page_size)
     k, v = _gather_kv(cache, cache.page_table[slot : slot + 1, :n])
-    return flash_attention_plain(q, k[:, :, :kv_end], v[:, :, :kv_end], causal=True, sm_scale=sm_scale, save_residuals=False)
+    return flash_attention_plain(
+        q, k[:, :, :kv_end], v[:, :, :kv_end], causal=True, sm_scale=sm_scale, save_residuals=False,
+        sliding_window=sliding_window, logit_softcap=logit_softcap, sinks=attention_sinks,
+    )
 
 
 def paged_prefill_attention(
-    q: torch.Tensor, cache: PagedKVCache, slot: int, kv_end: int, *, chunk_len: int, sm_scale: float | None = None
+    q: torch.Tensor, cache: PagedKVCache, slot: int, kv_end: int, *, chunk_len: int, sm_scale: float | None = None,
+    sliding_window: int | None = None, logit_softcap: float | None = None, attention_sinks: int = 0,
 ) -> torch.Tensor:
     """Causal chunk attention over ``slot``'s pages, read in place.
 
@@ -455,6 +502,8 @@ def paged_prefill_attention(
         visible rows, at least chunk_len and at most the slot's capacity.
       chunk_len: any length (the JAX package's Pallas grid needs a
         multiple of 128; K8 tiles q in 64-row blocks bounded by T).
+      sliding_window, logit_softcap, attention_sinks: as in
+        ``paged_decode_attention``; the window is end-aligned per row.
 
     Returns:
       [1, q_heads, chunk_len, head_dim] in q's dtype.
@@ -473,10 +522,14 @@ def paged_prefill_attention(
         )
     if kv_end > cache.pages_per_slot * page:
         raise ValueError(f"kv_end={kv_end} exceeds slot capacity {cache.pages_per_slot} pages x {page} rows")
+    _check_masks(cache, sliding_window, logit_softcap, attention_sinks)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(head_dim)
     if q.device.type == "cpu":
-        return paged_prefill_attention_plain(q, cache, slot, kv_end, sm_scale=sm_scale)
+        return paged_prefill_attention_plain(
+            q, cache, slot, kv_end, sm_scale=sm_scale, sliding_window=sliding_window,
+            logit_softcap=logit_softcap, attention_sinks=attention_sinks,
+        )
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention runs on cpu or cuda tensors, got {q.device}")
 
@@ -492,7 +545,8 @@ def paged_prefill_attention(
                 cache.page_table[slot].data_ptr(), num_q_heads, num_kv_heads, num_pages, page, t,
                 kv_end, head_dim, q.stride(1), q.stride(2), *k_pages.stride()[:3], *v_pages.stride()[:3],
                 _build.int64_array(scale_strides(cache.k_scales, cache.v_scales)),
-                sm_scale * LOG2E, _build.DTYPE_CODES[q.dtype], payload,
+                sm_scale * LOG2E, mask_window(sliding_window), attention_sinks, softcap2(logit_softcap),
+                _build.DTYPE_CODES[q.dtype], payload,
                 torch.cuda.current_stream(q.device).cuda_stream,
             )
         _build.check(err, "paged_prefill_attention (K8)")

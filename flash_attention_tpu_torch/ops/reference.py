@@ -7,7 +7,9 @@ of the KV sequence (the last query row sees the last key), and ``kv_length``
 masks each batch row to its valid prefix. A row that sees no key gives output
 0 (and LSE -inf), the kernels' ``l == 0`` guard.
 
-Sliding window, softcap and segment ids come with their kernels (ROADMAP).
+``sliding_window`` (causal only) keeps column j for row i when j > i +
+(kv_len - q_len) - window; ``logit_softcap`` maps the scaled score s to
+cap * tanh(s / cap) before any mask.
 """
 
 from __future__ import annotations
@@ -29,13 +31,18 @@ def _expand_kv(q, k, v):
     return q.float(), kf, vf
 
 
-def _mask(q_len, kv_len, causal, kv_length, device):
+def _mask(q_len, kv_len, causal, kv_length, device, sliding_window=None):
     """Boolean [B or 1, 1, Sq, Skv] visibility mask, or None."""
+    if sliding_window is not None and not causal:
+        raise ValueError("sliding_window requires causal=True")
     mask = None
     if causal:
         row = torch.arange(q_len, device=device)[:, None] + (kv_len - q_len)
         col = torch.arange(kv_len, device=device)[None, :]
-        mask = (col <= row)[None, None]
+        mask = col <= row
+        if sliding_window is not None:
+            mask = mask & (col > row - sliding_window)
+        mask = mask[None, None]
     if kv_length is not None:
         len_mask = (
             torch.arange(kv_len, device=device)[None, :]
@@ -53,6 +60,8 @@ def reference_attention(
     causal: bool = False,
     sm_scale: float | None = None,
     kv_length: torch.Tensor | None = None,
+    sliding_window: int | None = None,
+    logit_softcap: float | None = None,
 ) -> torch.Tensor:
     """Naive fp32 attention over [B, H, S, D] inputs; returns [B, Hq, Sq, D].
 
@@ -64,7 +73,9 @@ def reference_attention(
     if sm_scale is None:
         sm_scale = 1.0 / head_dim**0.5
     scores = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
-    mask = _mask(q_len, kv_len, causal, kv_length, q.device)
+    if logit_softcap is not None:
+        scores = logit_softcap * torch.tanh(scores / logit_softcap)
+    mask = _mask(q_len, kv_len, causal, kv_length, q.device, sliding_window)
     if mask is not None:
         scores = torch.where(mask, scores, MASK_VALUE)
     weights = torch.softmax(scores, dim=-1)
@@ -82,6 +93,8 @@ def reference_attention_with_lse(
     causal: bool = False,
     sm_scale: float | None = None,
     kv_length: torch.Tensor | None = None,
+    sliding_window: int | None = None,
+    logit_softcap: float | None = None,
 ):
     """Like :func:`reference_attention`, also returning the base-2 LSE.
 
@@ -92,8 +105,12 @@ def reference_attention_with_lse(
     q_len, kv_len, head_dim = q.shape[2], k.shape[2], q.shape[3]
     if sm_scale is None:
         sm_scale = 1.0 / head_dim**0.5
-    s2 = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * (sm_scale * LOG2E)
-    mask = _mask(q_len, kv_len, causal, kv_length, q.device)
+    if logit_softcap is None:
+        s2 = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * (sm_scale * LOG2E)
+    else:
+        scores = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+        s2 = logit_softcap * torch.tanh(scores / logit_softcap) * LOG2E
+    mask = _mask(q_len, kv_len, causal, kv_length, q.device, sliding_window)
     if mask is not None:
         s2 = torch.where(mask, s2, MASK_VALUE)
     m = s2.amax(dim=-1)

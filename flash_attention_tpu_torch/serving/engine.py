@@ -71,10 +71,13 @@ class ServingEngine:
         engine runs on their device.
       cfg: ModelConfig.
       max_slots: concurrent sequences (the decode batch size).
-      max_seq: KV capacity per slot; admission requires
-        prompt_len + max_new_tokens <= max_seq.
+      max_seq: the logical context per slot; admission requires
+        prompt_len + max_new_tokens <= max_seq. A rolling cache
+        (``cfg.rolling``) holds only window + one chunk of its rows.
       eos_id: optional end-of-sequence token id.
-      prefill_chunk: tokens per prefill chunk.
+      prefill_chunk: tokens per prefill chunk; with attention sinks at most
+        sliding_window - attention_sinks, so every chunk past the window
+        starts after the sinks.
       decode_block_steps: most decode steps per block (one readback each).
       pipeline_decode: dispatch block i+1 before reading block i's tokens.
     """
@@ -91,9 +94,11 @@ class ServingEngine:
         decode_block_steps: int = 16,
         pipeline_decode: bool = True,
     ):
-        self._init_host_loop(params, cfg, max_slots, max_seq, eos_id, min(prefill_chunk, max_seq),
-                             decode_block_steps, pipeline_decode)
-        self.caches = init_caches(cfg, max_slots, max_seq, device=self.device)
+        chunk = min(prefill_chunk, max_seq)
+        if cfg.attention_sinks:
+            chunk = min(chunk, cfg.sliding_window - cfg.attention_sinks)
+        self._init_host_loop(params, cfg, max_slots, max_seq, eos_id, chunk, decode_block_steps, pipeline_decode)
+        self.caches = init_caches(cfg, max_slots, max_seq, device=self.device, prefill_chunk=chunk)
         self._decode_multi = make_decode_multi(cfg, decode_step_logits, self._lengths_of, self._with_lengths)
 
     def _init_host_loop(self, params, cfg, max_slots, max_seq, eos_id, chunk, decode_block_steps, pipeline_decode):

@@ -19,8 +19,11 @@ Page-table discipline:
 The table row of a slot is written in place into the shared table tensor.
 With ``cfg.kv_quant`` the pages are quantized (payload and scale pools,
 ``ops/paged.py``); the scales are indexed by physical page, so shared
-prefix pages carry theirs. The paged ring for sliding-window models and
-attention sinks, and sharded caches, are not ported yet and raise
+prefix pages carry theirs. A sliding-window model gets the PAGED RING: a
+slot owns ceil((window + chunk) / page) + 2 physical pages (one more, pinned
+as logical page 0, with attention sinks) and its table maps its whole
+logical range onto them modulo their count, so its KV memory is O(window)
+however long the context. Sharded caches are not ported yet and raise
 NotImplementedError naming their ROADMAP.md item. There is no ``warmup``:
 eager PyTorch has no programs to compile ahead of a run.
 """
@@ -32,7 +35,6 @@ import hashlib
 import numpy as np
 import torch
 
-from flash_attention_tpu_torch.models.attention import require_supported
 from flash_attention_tpu_torch.models.transformer import (
     ModelConfig,
     decode_step_logits_paged,
@@ -75,7 +77,8 @@ class PagedServingEngine(ServingEngine):
         table at the shared pages and skips the covered prefill chunks.
         Shared pages are refcounted and go back to the pool only when evicted
         under pool pressure. Decode writes land past the last full prompt
-        page, so shared pages never change.
+        page, so shared pages never change. Not with a sliding window,
+        whose paged ring rewrites prompt pages in place.
     """
 
     def __init__(
@@ -94,7 +97,14 @@ class PagedServingEngine(ServingEngine):
         shard_caches=None,
         prefix_cache: bool = False,
     ):
-        require_supported(cfg)  # sliding window (the paged ring), sinks
+        if cfg.attention_sinks:
+            if cfg.sliding_window is None:
+                raise ValueError("attention_sinks requires sliding_window")
+            if cfg.attention_sinks >= page_size:
+                raise ValueError(f"attention_sinks ({cfg.attention_sinks}) must fit the pinned first page ({page_size} rows)")
+        if prefix_cache and cfg.sliding_window is not None:
+            raise ValueError("prefix_cache is incompatible with sliding-window configs (the paged ring recycles "
+                             "prompt pages in place)")
         if shard_caches is not None:
             raise NotImplementedError(f"shard_caches is not ported yet: {SHARD_ITEM}")
         max_seq = pages_per_slot * page_size
@@ -142,8 +152,34 @@ class PagedServingEngine(ServingEngine):
 
     # ------------------------------------------------------------------
     def _admit_one(self, req: Request, slot: int) -> bool:
-        """Acquire the slot's page budget; False if the pool is exhausted."""
+        """Acquire the slot's page budget; False if the pool is exhausted.
+
+        A sliding-window model gets the paged ring: n = ceil((window +
+        chunk) / page) + 2 physical pages, and logical page lp maps to
+        pages[lp % n] over the request's whole logical range (with sinks,
+        logical page 0 is pinned to one more page and the rest cycle over
+        the other n). The kernels mask by position, so a rolled-out logical
+        page aliasing a newer one is never scored, and the live span
+        (window + one chunk + a page straddle) always fits the ring.
+        """
         n_logical = min(-(-(len(req.prompt) + req.max_new_tokens) // self.page_size), self.pages_per_slot)
+        window = self.cfg.sliding_window
+        if window is not None:
+            ring = -(-(window + self.chunk) // self.page_size) + 2
+            sinks = self.cfg.attention_sinks
+            n_phys = min(n_logical, ring + (1 if sinks else 0))
+            pages = self.alloc.acquire(n_phys)
+            if pages is None:
+                return False
+            self.slot_pages[slot] = pages
+            row = np.zeros((self.pages_per_slot,), np.int32)  # the rest -> dump page
+            if sinks and n_phys > 1:
+                row[0] = pages[0]
+                row[1:n_logical] = [pages[1 + (lp - 1) % (n_phys - 1)] for lp in range(1, n_logical)]
+            else:
+                row[:n_logical] = [pages[lp % n_phys] for lp in range(n_logical)]
+            self._set_slot_table(row, slot)
+            return True
         shared_keys: list[bytes] = []
         shared_phys: list[int] = []
         if self.prefix_cache_enabled:

@@ -152,7 +152,7 @@ def test_decode_write_drops_at_capacity(start):
 @pytest.mark.parametrize(
     "override",
     [
-        {"kv_quant": "int8", "sliding_window": 32},  # quantization is ported, the masks are not
+        {"kv_quant": "int8", "sliding_window": 32},
         {"weight_quant": "int8", "logit_softcap": 30.0},
         {"sliding_window": 32},
         {"logit_softcap": 30.0},
@@ -161,9 +161,14 @@ def test_decode_write_drops_at_capacity(start):
     ],
 )
 def test_unported_configs_raise(override):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tt.ModelConfig(**{**CFG, **override})
+    """The masks serve, but training under them is not ported (the backward
+    kernels have no masked branches): train_forward and attention_forward
+    raise naming ROADMAP.md item 3b instead of returning unmasked grads."""
+    cfg = tt.ModelConfig(**{**CFG, **override})
+    params = tt.init_model_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 3b"):
+        tt.train_forward(params, cfg, torch.zeros((1, 8), dtype=torch.long))
     attn_override = {k: v for k, v in override.items() if k != "weight_quant"}
-    if attn_override:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            dataclasses.replace(tt.ModelConfig(**CFG).attention_config(), **attn_override)
+    acfg = dataclasses.replace(tt.ModelConfig(**CFG).attention_config(), **attn_override)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 3b"):
+        tattn.attention_forward(params["layers"][0]["attn"], acfg, torch.zeros((1, 8, CFG["model_dim"])))

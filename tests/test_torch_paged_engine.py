@@ -187,12 +187,25 @@ def test_first_token_eos_releases_pages(model):
     ],
 )
 def test_unported_options_raise(model, field, value, kw):
+    """shard_caches is not ported and raises naming its ROADMAP.md item. The
+    masks are: ``rolling`` is the dense cache's layout and leaves the paged
+    engine as it is, a window builds the paged ring, and sinks without a
+    window are refused as in the JAX engine."""
     _, _, tcfg, tparams = model
     if field is not None:
-        tcfg = dataclasses.replace(tcfg)
-        object.__setattr__(tcfg, field, value)  # past ModelConfig's own check
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item [238]"):
-        torch_paged.PagedServingEngine(tparams, tcfg, **POOL, **kw)
+        tcfg = dataclasses.replace(tcfg, **{field: value})
+    if field is None:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 8"):
+            torch_paged.PagedServingEngine(tparams, tcfg, **POOL, **kw)
+    elif field == "attention_sinks":
+        with pytest.raises(ValueError, match="requires sliding_window"):
+            torch_paged.PagedServingEngine(tparams, tcfg, **POOL, **kw)
+    else:
+        eng = torch_paged.PagedServingEngine(tparams, tcfg, **POOL, **kw)
+        assert eng._admit_one(torch_engine.Request(id=0, prompt=(1, 2, 3), max_new_tokens=200), 0)
+        assert len(eng.slot_pages[0]) == 2  # 203 rows: two logical pages, fewer than the ring's 5
+        eng._release(0)
+        assert eng.alloc.free_count == 15
 
 
 def test_eviction_under_pressure_keeps_the_matched_prefix(model):
