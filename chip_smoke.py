@@ -22,6 +22,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 seed; ServingEngine serves 10 greedy requests on 8 slots;
                 every completion must have 32 tokens, the logits must be
                 finite, and both kernels must have been launched by the run.
+                Then sampling on the card: the Gumbel noise and sample_tokens'
+                tokens at temperature > 0 with top-k and top-p bit-equal to
+                the CPU's, with no host sync; one decode step of 8 slots
+                timed greedy and sampled.
   6. paged    — K7 (decode.cu, paged), K8 (flash_fwd.cu, paged) and K9/K10
                 (paged_write.cu) at the paged path's shapes in bf16 over a
                 shuffled page table, against their plain versions (K9/K10
@@ -101,6 +105,37 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 (a)), (c) PagedServingEngine with 4 sinks (at most 37 pages a
                 slot, the pool full again after; K7, K8, K10 only) and (d)
                 softcap 50 on phase 5's requests.
+ 18. masked backward — K1d (flash_fwd.cu, segment ids) and the masked
+                K3, K4 and K5 (flash_bwd.cu: K3m, K4m, K5m) in bf16 through
+                flash_attention's autograd Function, each call launching
+                exactly its route's kernels: gradients row by row within
+                REL_BAR of flash_attention_bwd_plain and within 0.1 of
+                autograd through the fp32 oracle with the same masks, at
+                windows 1, 63, 64 (K2's forward), 65, 1000 and 4096, softcap
+                5 with q x 32 (so 1 - tanh^2 spans most of (0, 1]), packed
+                documents, a (q_ids, kv_ids) pair with kv_len > q_len, a q
+                id absent from kv (finite, zero gradient rows) and all three
+                together, GQA and MHA; then at the training shapes (q
+                [1,32,8192,128] kv [1,8,8192,128], window 4096, unpacked and
+                packed as documents {5000, 1800, 900, 492}; for K3m q = kv
+                [1,32,8192,128] packed, as phase 20d runs it, and
+                [1,32,4096,128] at window 1024) the
+                forward and backward held against plain and the oracle
+                a few kv heads at a time and timed beside plain, SDPA with the
+                equivalent boolean mask and the unwindowed causal K4 / K5.
+                Then every (dtype, head_dim) instantiation at ragged
+                shapes.
+ 19. tiny masked train — the tiny fp32 model with window 24 and softcap
+                30, packed and not, GQA and MHA: loss and every gradient on
+                the card equal the CPU's within 1e-4 of each leaf's largest.
+ 20. full masked train — ModelConfig(mlp_dim=14336, sliding_window=4096)
+                (Mistral-7B's shape, 32 layers) at B=1, T=8192 after phase
+                17's engines are released: (a) three steps and the SGD
+                check, exactly K1, K4m, K5m; (b) one packed step, exactly
+                K1d, K4m, K5m; (c) softcap 50, one step; (d) the MHA route
+                at 4 layers, one packed step, exactly K1d and K3m. Losses,
+                step ms, tokens/s, peak memory, the attention kernels' share
+                of (a)'s step and (b)'s attention over (a)'s.
 
 Every phase prints kernel, plain-version, library-call and bound times
 (the bound: the larger of the bytes over 3.35 TB/s and the operations over
@@ -412,7 +447,10 @@ def _to_device(tree, device):
 def _counters() -> dict:
     """Every kernel's launch count, by name: (wrapper, attribute). A wrapper
     counts the launches over an unquantized cache in .launches and those over
-    a quantized one (the K*q instantiations) in .quant_launches."""
+    a quantized one (the K*q instantiations) in .quant_launches; the forward
+    counts K1d (segment ids) in .segment_launches, and the backward
+    launchers their masked instantiations (K3m, K4m, K5m: a window, softcap
+    or segment ids) in .masked_launches."""
     from flash_attention_tpu_torch.ops.attention_bwd import launch_dkv, launch_dq, launch_fused
     from flash_attention_tpu_torch.ops.decode import decode_attention
     from flash_attention_tpu_torch.ops.flash_attention import flash_attention
@@ -420,7 +458,10 @@ def _counters() -> dict:
 
     return {
         "K1": (flash_attention, "launches"), "K2": (flash_attention, "band_launches"),
+        "K1d": (flash_attention, "segment_launches"),
         "K3": (launch_fused, "launches"), "K4": (launch_dq, "launches"), "K5": (launch_dkv, "launches"),
+        "K3m": (launch_fused, "masked_launches"), "K4m": (launch_dq, "masked_launches"),
+        "K5m": (launch_dkv, "masked_launches"),
         "K6": (decode_attention, "launches"), "K6q": (decode_attention, "quant_launches"),
         "K7": (paged_decode_attention, "launches"), "K7q": (paged_decode_attention, "quant_launches"),
         "K8": (paged_prefill_attention, "launches"), "K8q": (paged_prefill_attention, "quant_launches"),
@@ -495,6 +536,60 @@ def phase_full(card: str):
     log(f"[full] ModelConfig() bf16: {n_params / 1e9:.3f} B params initialised on the card in {time.perf_counter() - t0:.1f} s")
     launches, numbers = serve_full_dense(card, "full", cfg, params, used=("K1", "K6"))
     return launches, params, numbers
+
+
+def phase_sampling(card: str, params) -> None:
+    """Phase 5's sampling on the card, ModelConfig() on phase 5's weights:
+    ``gumbel_noise`` for seeds and positions at the edges of their int32
+    ranges, and ``sample_tokens`` at temperature > 0 with top-k and top-p on
+    the logits of one decode step of 8 slots, each bit-equal to the same
+    function on the CPU (which the CPU tests hold to jax.random's bits);
+    the card's ``sample_tokens`` must not synchronise with the host (the
+    sync debug mode raises if it does). Then that decode step timed with
+    the greedy pick and with sampling, and the sampling alone."""
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, decode_step_logits, init_caches
+    from flash_attention_tpu_torch.serving.sampling import gumbel_noise, sample_tokens
+
+    cfg, slots, length = ModelConfig(), 8, 1024
+    seeds = torch.tensor([0, 1, 7, 12345, 2**31 - 1, -1, -2**31, 99], dtype=torch.int32)
+    positions = torch.tensor([0, 1, 2, 1000, 2047, 4096, 2**31 - 1, length + 1], dtype=torch.int32)
+    noise = gumbel_noise(seeds.cuda(), positions.cuda(), cfg.vocab_size)
+    if not torch.equal(noise.cpu(), gumbel_noise(seeds, positions, cfg.vocab_size)):
+        raise RuntimeError("[sampling] the card's Gumbel noise differs from the CPU's")
+    sampling = dict(
+        temperature=torch.tensor([0.7, 1.0, 1.3, 0.5, 1.0, 2.0, 0.9, 1.0]),
+        top_k=torch.tensor([0, 40, 0, 5, 1000, 0, 50, 0], dtype=torch.int32),
+        top_p=torch.tensor([1.0, 1.0, 0.9, 0.95, 0.8, 1.0, 0.5, 0.99]),
+        seeds=seeds, positions=torch.full((slots,), length + 1, dtype=torch.int32))
+    on_card = {key: t.cuda() for key, t in sampling.items()}
+    caches = [c._replace(lengths=torch.full((slots,), length, dtype=torch.int32, device="cuda"))
+              for c in init_caches(cfg, slots, 2048, device="cuda")]
+    tok = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (slots, 1))).to("cuda", torch.int32)
+    with torch.no_grad():
+        logits, _ = decode_step_logits(params, cfg, tok, caches)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card_tok = sample_tokens(logits, **on_card)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        cpu_tok = sample_tokens(logits.cpu(), **sampling)
+        if not torch.equal(card_tok.cpu(), cpu_tok):
+            raise RuntimeError(f"[sampling] card tokens {card_tok.tolist()} != CPU tokens {cpu_tok.tolist()}")
+        greedy_ms = cuda_ms(lambda: torch.argmax(decode_step_logits(params, cfg, tok, caches)[0], dim=-1))
+        sampled_ms = cuda_ms(lambda: sample_tokens(decode_step_logits(params, cfg, tok, caches)[0], **on_card))
+        sample_ms = cuda_ms(lambda: sample_tokens(logits, **on_card))
+        noise_ms = cuda_ms(lambda: gumbel_noise(on_card["seeds"], on_card["positions"], cfg.vocab_size))
+    del caches
+    torch.cuda.empty_cache()
+    log(f"[sampling] Gumbel noise [8, {cfg.vocab_size}] and sample_tokens (temperature > 0, top-k, top-p) card == "
+        f"CPU bit for bit, no host sync; tokens {card_tok.tolist()}")
+    log(f"[sampling] ModelConfig() decode step, {slots} slots at {length} positions: greedy (argmax) {greedy_ms:.4f} ms, "
+        f"sampled {sampled_ms:.4f} ms ({sampled_ms / greedy_ms:.3f}x); sample_tokens alone {sample_ms:.4f} ms, "
+        f"gumbel_noise alone {noise_ms:.4f} ms ({card})")
 
 
 def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | None = None):
@@ -1569,29 +1664,60 @@ def _bwd_inputs(seed: int, hq: int, hkv: int, q_len: int, kv_len: int, d: int, d
     return q, k, v, do
 
 
-def _hold_bwd(what: str, q, k, v, do, causal: bool, *, rel_bar: float):
-    """The card's gradients through flash_attention's autograd Function (K1
-    with LSE, then K3 or K4 + K5) against flash_attention_bwd_plain on the
-    same residuals (row by row, ``rel_bar``) and autograd through the fp32
-    oracle (ORACLE_BAR). Returns (the grads, the residuals, |g - plain|,
-    row-relative, |g - oracle|)."""
+def _route(hq: int, hkv: int, q_len: int, kv_len: int, window=None, softcap=None, segment_ids=None) -> tuple:
+    """The kernels one causal-or-not call under grad launches: its forward
+    (K1d with segment ids, K2 for a window of at most 64, else K1) and its
+    backward (K3 for MHA self-attention, else K4 + K5; K3m, K4m, K5m, their
+    masked instantiations, with any mask)."""
+    if segment_ids is not None:
+        fwd = "K1d"
+    else:
+        fwd = "K2" if window is not None and window <= 64 else "K1"
+    bwd = ("K3",) if hq == hkv and q_len == kv_len else ("K4", "K5")
+    masked = window is not None or softcap is not None or segment_ids is not None
+    return (fwd, *(name + "m" if masked else name for name in bwd))
+
+
+def _hold_bwd(what: str, q, k, v, do, causal: bool = True, *, rel_bar: float, window=None, softcap=None,
+              segment_ids=None):
+    """The card's gradients through flash_attention's autograd Function (the
+    forward with LSE, then K3 or K4 + K5), under an optional window, softcap
+    and segment ids, against flash_attention_bwd_plain on the same
+    residuals (row by row, ``rel_bar``) and autograd through the fp32
+    oracle with the same masks (ORACLE_BAR), both ``_by_kv_head``; the call
+    must launch exactly its route's kernels (``_route``). Returns (the
+    grads, the residuals, |g - plain|, row-relative, |g - oracle|)."""
     import torch
 
     from flash_attention_tpu_torch.ops.attention_bwd import flash_attention_bwd_plain
+    from flash_attention_tpu_torch.ops.common import segment_pair
     from flash_attention_tpu_torch.ops.flash_attention import flash_attention
     from flash_attention_tpu_torch.ops.reference import reference_attention
 
     scale = q.shape[-1] ** -0.5
+    masks = dict(sliding_window=window, logit_softcap=softcap, segment_ids=segment_ids)
+    segments = segment_pair(segment_ids, q.shape[0], q.shape[2], k.shape[2])
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    out = flash_attention(*leaves, causal=causal)
+    zero_counts()
+    out = flash_attention(*leaves, causal=causal, **masks)
     if type(out.grad_fn).__name__ != "FlashAttentionFunctionBackward":
         raise RuntimeError(f"{what}: the card's output has grad_fn {out.grad_fn}, not the port's autograd Function")
     grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    check_launches(what, read_counts(), _route(q.shape[1], k.shape[1], q.shape[2], k.shape[2], window, softcap,
+                                               segment_ids))
+    del leaves, out
     with torch.no_grad():
-        out_r, lse = flash_attention(q, k, v, causal=causal, save_residuals=True)
-        plain = flash_attention_bwd_plain(q, k, v, out_r, lse, do, causal=causal, sm_scale=scale)
-    oracle_in = [x.detach().float().requires_grad_() for x in (q, k, v)]
-    oracle = torch.autograd.grad(reference_attention(*oracle_in, causal=causal), oracle_in, do.float())
+        out_r, lse = flash_attention(q, k, v, causal=causal, save_residuals=True, **masks)
+        plain = _by_kv_head(lambda qh, oh, lh, dh, kh, vh: flash_attention_bwd_plain(
+            qh, kh, vh, oh, lh, dh, causal=causal, sm_scale=scale, window=window, softcap=softcap, segments=segments),
+            (q, out_r, lse, do), (k, v))
+
+    def oracle_grads(qh, dh, kh, vh):
+        inputs = [x.detach().float().requires_grad_() for x in (qh, kh, vh)]
+        return torch.autograd.grad(reference_attention(*inputs, causal=causal, **masks), inputs, dh.float())
+
+    oracle = _by_kv_head(oracle_grads, (q, do), (k, v))
     torch.cuda.synchronize()
     d_plain = max(_max_diff(g, w) for g, w in zip(grads, plain))
     floor = GRAD_FLOOR * max(float(w.abs().max()) for w in plain if w.numel())
@@ -1708,20 +1834,23 @@ def _lm_loss(logits, targets):
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(), targets.reshape(-1))
 
 
-def phase_tiny_train() -> None:
-    """Phase 13: the tiny fp32 model, GQA (K4 + K5) and MHA (K3), on the card
-    and on the CPU: the loss and every parameter's gradient agree within
-    1e-4 of the leaf's largest gradient (fp32 sums in another order, and
-    K3's atomics in a run-dependent one), and the card launched exactly the
-    kernels of its route."""
+def _tiny_train(label: str, seed: int, runs, **masks) -> None:
+    """The tiny fp32 model (``masks``: ModelConfig fields) on the card and on
+    the CPU, for each (kv heads, segment ids of tokens [2, 100] or None,
+    kernels the card launches) of ``runs``: the loss and every parameter's
+    gradient agree within 1e-4 of the leaf's largest gradient (fp32 sums in
+    another order, and K3's atomics in a run-dependent one), and the card
+    launched exactly the kernels of its route."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params, train_forward
 
-    tokens = torch.from_numpy(np.random.default_rng(13).integers(0, TINY_CFG["vocab_size"], (2, 101)))
-    for kv_heads, used in ((2, ("K1", "K4", "K5")), (4, ("K1", "K3"))):
-        cfg = ModelConfig(**{**TINY_CFG, "num_kv_heads": kv_heads})
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(0, TINY_CFG["vocab_size"], (2, 101)))
+    for kv_heads, seg, used in runs:
+        cfg = dataclasses.replace(ModelConfig(**{**TINY_CFG, "num_kv_heads": kv_heads}), **masks)
         params = init_model_params(torch.Generator().manual_seed(0), cfg)
         result = {}
         for device in ("cuda", "cpu"):
@@ -1731,21 +1860,26 @@ def phase_tiny_train() -> None:
                 t.requires_grad_()
             toks = tokens.to(device)
             zero_counts()
-            loss = _lm_loss(train_forward(params_d, cfg, toks[:, :-1]), toks[:, 1:])
+            ids = None if seg is None else seg.to(device)
+            loss = _lm_loss(train_forward(params_d, cfg, toks[:, :-1], segment_ids=ids), toks[:, 1:])
             grads = torch.autograd.grad(loss, leaves)
             result[device] = (float(loss.detach()), [g.cpu() for g in grads], read_counts())
-        check_launches(f"[tiny train] {kv_heads} kv heads, on the card", result["cuda"][2], used)
+        what = f"{label} {kv_heads} kv heads{', packed' if seg is not None else ''}"
+        check_launches(f"{what}, on the card", result["cuda"][2], used)
         worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                     for a, b in zip(result["cuda"][1], result["cpu"][1]))
         d_loss = abs(result["cuda"][0] - result["cpu"][0])
         zero = [i for i, g in enumerate(result["cuda"][1]) if not bool(g.abs().max() > 0)]
-        log(
-            f"[tiny train] fp32, 4 q / {kv_heads} kv heads, 2 x 100 tokens: loss card {result['cuda'][0]:.6f} CPU "
-            f"{result['cpu'][0]:.6f}; worst leaf |grad card - grad CPU| / max|grad CPU| {worst:.3e} (bar 1e-4) "
-            f"over {len(result['cpu'][1])} leaves; kernels {used}"
-        )
+        log(f"{what}, 2 x 100 tokens: loss card {result['cuda'][0]:.6f} CPU {result['cpu'][0]:.6f}; worst leaf |grad "
+            f"card - grad CPU| / max|grad CPU| {worst:.3e} (bar 1e-4) over {len(result['cpu'][1])} leaves; kernels {used}")
         if not (d_loss < 1e-5 and worst < 1e-4) or zero:
-            raise RuntimeError(f"[tiny train] {kv_heads} kv heads: loss diff {d_loss}, grads {worst}, all-zero leaves {zero}")
+            raise RuntimeError(f"{what}: loss diff {d_loss}, grads {worst}, all-zero leaves {zero}")
+
+
+def phase_tiny_train() -> None:
+    """Phase 13: the tiny fp32 model, GQA (K4 + K5) and MHA (K3), on the card
+    and on the CPU (``_tiny_train``)."""
+    _tiny_train("[tiny train] fp32, 4 q /", 13, ((2, None, ("K1", "K4", "K5")), (4, None, ("K1", "K3"))))
 
 
 def _check_grads(what: str, params) -> None:
@@ -1760,15 +1894,75 @@ def _check_grads(what: str, params) -> None:
                            f"{int((~nonzero).sum())} weight matrices with an all-zero gradient")
 
 
-def _train_step(params, cfg, tokens) -> float:
-    """One forward + backward of the next-token loss; returns the loss."""
+def _train_step(params, cfg, tokens, segment_ids=None) -> float:
+    """One forward + backward of the next-token loss; returns the loss.
+    With ``segment_ids`` (the ids of ``tokens[:, :-1]``) the batch is packed."""
     from flash_attention_tpu_torch.models.transformer import train_forward
 
     for t in _tensors(params):
         t.grad = None
-    loss = _lm_loss(train_forward(params, cfg, tokens[:, :-1]), tokens[:, 1:])
+    loss = _lm_loss(train_forward(params, cfg, tokens[:, :-1], segment_ids=segment_ids), tokens[:, 1:])
     loss.backward()
     return float(loss.detach())
+
+
+def _sgd_check(label: str, params, cfg, tokens, loss: float, segment_ids=None) -> None:
+    """SGD along -g (the gradients of the last step, on ``tokens``), in the
+    script: the largest step of SGD_LRS must lower the loss, from the weights
+    as they were; the weights are put back after each try."""
+    import torch
+
+    from flash_attention_tpu_torch.models.transformer import train_forward
+
+    leaves = _tensors(params)
+    g2 = float(sum((t.grad.float() ** 2).sum() for t in leaves))
+    kept = [t.detach().clone() for t in leaves]
+    with torch.no_grad():
+        for lr in SGD_LRS:
+            for t in leaves:
+                t.sub_(t.grad, alpha=lr)
+            after = float(_lm_loss(train_forward(params, cfg, tokens[:, :-1], segment_ids=segment_ids), tokens[:, 1:]))
+            for t, w in zip(leaves, kept):
+                t.copy_(w)
+            log(f"{label} SGD lr {lr}: loss {loss:.4f} -> {after:.4f} (first order: -{lr * g2:.4f}; |g|^2 {g2:.4e})")
+            if after < loss:
+                return
+    raise RuntimeError(f"{label} no SGD step along -g lowered the loss")
+
+
+def _train_steps(card: str, label: str, params, cfg, batches, *, used, segment_ids=None) -> dict:
+    """Forward + backward steps of ``cfg`` on ``batches`` ([1, T + 1] tokens
+    each), every launch count set to 0 just before and read just after; the
+    steps must launch exactly ``used``, with finite losses and gradients.
+    Returns the losses, step times, launches and peak memory."""
+    import numpy as np
+    import torch
+
+    for t in _tensors(params):
+        t.requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times, losses = [], []
+    for tokens in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(_train_step(params, cfg, tokens, segment_ids))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not np.isfinite(losses[-1]):
+            raise RuntimeError(f"{label} non-finite loss {losses[-1]}")
+        _check_grads(label, params)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(f"{label} steps", launches, used)
+    step_s = statistics.median(times)
+    n_tok = batches[0].shape[1] - 1
+    log(f"{label} B=1, T={n_tok}, {len(batches)} step(s) of forward + backward: losses {[round(x, 4) for x in losses]}, "
+        f"step {[round(t * 1e3, 1) for t in times]} ms, median {step_s * 1e3:.1f} ms = {n_tok / step_s:.1f} training "
+        f"tokens/s; peak device memory (max_memory_allocated) {peak / 2**30:.2f} GiB; kernel launches {launches} "
+        f"({card})")
+    return {"losses": losses, "step_s": step_s, "launches": launches, "peak_gib": peak / 2**30}
 
 
 def phase_full_train(card: str, params) -> dict:
@@ -1784,61 +1978,17 @@ def phase_full_train(card: str, params) -> dict:
     import numpy as np
     import torch
 
-    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params, train_forward
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
 
     gc.collect()
     torch.cuda.empty_cache()
     cfg = ModelConfig()
     rng = np.random.default_rng(14)
     batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, TRAIN_TOKENS + 1))).cuda() for _ in range(3)]
-    leaves = _tensors(params)
-    for t in leaves:
-        t.requires_grad_()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    times, losses = [], []
-    for tokens in batches:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses.append(_train_step(params, cfg, tokens))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if not np.isfinite(losses[-1]):
-            raise RuntimeError(f"[full train] non-finite loss {losses[-1]}")
-        _check_grads("[full train]", params)
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    check_launches("[full train] ModelConfig() steps", launches, ("K1", "K4", "K5"))
-    step_s = statistics.median(times)
-    log(
-        f"[full train] ModelConfig() bf16, B=1, T={TRAIN_TOKENS}, 3 steps of forward + backward: losses "
-        f"{[round(x, 4) for x in losses]}, step {[round(t * 1e3, 1) for t in times]} ms, median {step_s * 1e3:.1f} ms "
-        f"= {TRAIN_TOKENS / step_s:.1f} training tokens/s; peak device memory (max_memory_allocated) "
-        f"{peak / 2**30:.2f} GiB, weights {_nbytes(params) / 1e9:.3f} GB and their gradients as much; kernel "
-        f"launches {launches} ({card})"
-    )
-
-    # SGD along -g on the last batch, in the script: the largest step of
-    # SGD_LRS that lowers the loss, from the weights as they were.
-    tokens = batches[-1]
-    g2 = float(sum((t.grad.float() ** 2).sum() for t in leaves))
-    kept = [t.detach().clone() for t in leaves]
-    with torch.no_grad():
-        for lr in SGD_LRS:
-            for t in leaves:
-                t.sub_(t.grad, alpha=lr)
-            after = float(_lm_loss(train_forward(params, cfg, tokens[:, :-1]), tokens[:, 1:]))
-            for t, w in zip(leaves, kept):
-                t.copy_(w)
-            log(f"[full train] SGD lr {lr}: loss {losses[-1]:.4f} -> {after:.4f} (first order: "
-                f"-{lr * g2:.4f}; |g|^2 {g2:.4e})")
-            if after < losses[-1]:
-                break
-        else:
-            raise RuntimeError("[full train] no SGD step along -g lowered the loss")
-    del kept
-    for t in leaves:
+    gqa = _train_steps(card, f"[full train] ModelConfig() bf16, weights {_nbytes(params) / 1e9:.3f} GB and their "
+                       "gradients as much,", params, cfg, batches, used=("K1", "K4", "K5"))
+    _sgd_check("[full train]", params, cfg, batches[-1], gqa["losses"][-1])
+    for t in _tensors(params):
         t.grad = None
         t.requires_grad_(False)
     gc.collect()
@@ -1846,26 +1996,11 @@ def phase_full_train(card: str, params) -> dict:
 
     cfg_mha = ModelConfig(num_kv_heads=32, num_layers=4)
     p_mha = init_model_params(torch.Generator(device="cuda").manual_seed(1), cfg_mha)
-    for t in _tensors(p_mha):
-        t.requires_grad_()
-    zero_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss = _train_step(p_mha, cfg_mha, batches[0])
-    torch.cuda.synchronize()
-    mha_s = time.perf_counter() - t0
-    mha_launches = read_counts()
-    if not np.isfinite(loss):
-        raise RuntimeError(f"[full train] MHA: non-finite loss {loss}")
-    _check_grads("[full train] MHA", p_mha)
-    check_launches("[full train] ModelConfig(num_kv_heads=32, num_layers=4) step", mha_launches, ("K1", "K3"))
-    log(
-        f"[full train] ModelConfig(num_kv_heads=32, num_layers=4) bf16, one step: loss {loss:.4f}, "
-        f"{mha_s * 1e3:.1f} ms (first step, warm kernels); kernel launches {mha_launches} ({card})"
-    )
+    mha = _train_steps(card, "[full train] ModelConfig(num_kv_heads=32, num_layers=4) bf16, first step (warm kernels),",
+                       p_mha, cfg_mha, batches[:1], used=("K1", "K3"))
     del p_mha
     torch.cuda.empty_cache()
-    return {"gqa": launches, "mha": mha_launches}
+    return {"gqa": gqa["launches"], "mha": mha["launches"]}
 
 
 # Masked serving (phases 15-17). Mistral-7B v0.1's shape (config.json:
@@ -1952,6 +2087,42 @@ def _window_pairs(q_len: int, kv_len: int, window: int | None) -> int:
     return sum(min(kv_len, i + diag + 1) - (0 if window is None else max(0, i + diag - window + 1)) for i in range(q_len))
 
 
+def _visible_pairs(q_len: int, kv_len: int, window: int | None, segments=None) -> int:
+    """(query, key) pairs a batch row's causal mask leaves, with the window
+    and, for segment ids (a (q_ids, kv_ids) pair of one batch row), only the
+    pairs of equal ids: what this run's data needs."""
+    if segments is None:
+        return _window_pairs(q_len, kv_len, window)
+    from flash_attention_tpu_torch.ops.common import visible_mask
+
+    return int(visible_mask(q_len, kv_len, segments[0].device, causal=True, window=window, segments=segments).sum())
+
+
+SCORES_BUDGET = 2**30  # bytes of fp32 [B, heads, Sq, Skv] scores a plain or oracle call may hold
+
+
+def _by_kv_head(fn, q_like, kv_like):
+    """``fn(*q_like, *kv_like)`` over as many kv heads (with their q heads) at
+    a time as keep one call's fp32 scores under SCORES_BUDGET: q_like are
+    tensors [B, Hq, Sq, ...], kv_like [B, Hkv, Skv, ...], and each output is
+    concatenated along dimension 1 (q heads or kv heads). The same function;
+    at T=8192 the plain versions' and the oracle's [Sq, Skv] intermediates
+    of all 32 heads at once would not fit beside the rest."""
+    import torch
+
+    batch, hq, q_len = q_like[0].shape[:3]
+    hkv, kv_len = kv_like[0].shape[1], kv_like[0].shape[2]
+    group = hq // hkv
+    step = max(1, SCORES_BUDGET // (4 * batch * group * q_len * kv_len))
+    if step >= hkv:
+        return fn(*q_like, *kv_like)
+    parts = [fn(*(x[:, h * group:(h + step) * group] for x in q_like), *(x[:, h:h + step] for x in kv_like))
+             for h in range(0, hkv, step)]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim=1)
+    return tuple(torch.cat(group_parts, dim=1) for group_parts in zip(*parts))
+
+
 def _hold(what: str, out, plain, oracle, lse=None, p_lse=None, o_lse=None, *, dtype: str = "bfloat16"):
     """Row by row within REL_BAR of plain and oracle, within ORACLE_BAR of
     the oracle, the LSE within LSE_BAR of both; returns (|out - plain|,
@@ -1965,36 +2136,45 @@ def _hold(what: str, out, plain, oracle, lse=None, p_lse=None, o_lse=None, *, dt
     return d_plain, d_rel, d_lse
 
 
-def _k1_masked(card: str, what: str, q, k, v, *, window=None, softcap=None, lib_mask=None, want="K1") -> dict:
-    """K1 (or K2) with a window and/or softcap, causal, end-aligned, with its
-    LSE: against flash_attention_plain and the fp32 oracle with the same
-    masks; kernel, plain, library and bound times."""
+def _k1_masked(card: str, what: str, q, k, v, *, window=None, softcap=None, segment_ids=None, lib_mask=None,
+               want="K1") -> dict:
+    """K1 (or K2, or K1d with segment ids) with a window, softcap and / or
+    segment ids, causal, end-aligned, with its LSE: against
+    flash_attention_plain and the fp32 oracle with the same masks (a few kv
+    heads at a time at long sequences, ``_by_kv_head``); kernel, plain,
+    library and bound times."""
     import torch
     import torch.nn.functional as F
 
+    from flash_attention_tpu_torch.ops.common import segment_pair
     from flash_attention_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
     from flash_attention_tpu_torch.ops.reference import reference_attention_with_lse
 
     scale = q.shape[-1] ** -0.5
-    kw = dict(causal=True, sliding_window=window, logit_softcap=softcap)
+    kw = dict(causal=True, sliding_window=window, logit_softcap=softcap, segment_ids=segment_ids)
+    segments = segment_pair(segment_ids, q.shape[0], q.shape[2], k.shape[2])
     zero_counts()
     out, lse = flash_attention(q, k, v, save_residuals=True, **kw)
     torch.cuda.synchronize()
     check_launches(f"[masked] {what}", read_counts(), (want,))
-    p_out, p_lse = flash_attention_plain(q, k, v, sm_scale=scale, save_residuals=True, causal=True,
-                                         sliding_window=window, logit_softcap=softcap)
-    o_out, o_lse = reference_attention_with_lse(q, k, v, causal=True, sliding_window=window, logit_softcap=softcap)
+
+    def plain():
+        return _by_kv_head(lambda qh, kh, vh: flash_attention_plain(
+            qh, kh, vh, sm_scale=scale, save_residuals=True, causal=True, sliding_window=window,
+            logit_softcap=softcap, segments=segments), (q,), (k, v))
+
+    p_out, p_lse = plain()
+    o_out, o_lse = _by_kv_head(lambda qh, kh, vh: reference_attention_with_lse(qh, kh, vh, **kw), (q,), (k, v))
     d_plain, d_rel, d_lse = _hold(f"{want} {what}", out, p_out, o_out, lse, p_lse, o_lse)
     del p_out, p_lse, o_out, o_lse
     ms = cuda_ms(lambda: flash_attention(q, k, v, save_residuals=True, **kw))
-    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, sm_scale=scale, save_residuals=True, causal=True,
-                                                     sliding_window=window, logit_softcap=softcap), warmup=2, iters=5)
+    plain_ms = cuda_ms(plain, warmup=2, iters=5)
     lib_ms = None
     if lib_mask is not None:
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask, enable_gqa=True))
     b, hq, q_len, d = q.shape
     hkv, kv_len = k.shape[1], k.shape[2]
-    pairs = _window_pairs(q_len, kv_len, window)
+    pairs = _visible_pairs(q_len, kv_len, window, segments)
     first = 0 if window is None else max(0, kv_len - q_len - window + 1)
     nbytes = 2 * 2 * q.numel() + 4 * lse.numel() + 2 * 2 * b * hkv * (kv_len - first) * d
     bound_ms, bound_by = bound(4 * d * hq * b * pairs, nbytes)
@@ -2270,7 +2450,7 @@ def phase_masked_sweep() -> None:
             k_log, v_log = (_dense_from_pages(x, cache.page_table) for x in (cache.k_pages, cache.v_pages))
             for window in SWEEP_WINDOWS:
                 what = f"{name} d={d} window {window}"
-                softcap = 5.0 if window == 65 else None
+                softcap = BITE_CAP if window == 65 else None
                 kw = dict(causal=True, sliding_window=window, logit_softcap=softcap)
                 out, lse = flash_attention(q, k, v, save_residuals=True, **kw)
                 p_out, p_lse = flash_attention_plain(q, k, v, sm_scale=d**-0.5, save_residuals=True, **kw)
@@ -2536,6 +2716,313 @@ def phase_full_masked(card: str) -> dict:
     return {key: run["launches"] for key, run in runs.items()}
 
 
+# Masked training (phases 18-20): Mistral-7B's window at twice its length,
+# so the window masks half the rows, and one packed row of four documents.
+TRAIN_T = 8192
+PACKED_DOCS = (5000, 1800, 900, 492)  # one packed 8192-token row
+CAP = 50.0  # Gemma-2's attention logit cap
+# A cap the kernel cases can see: make_qkv's scaled scores have a standard
+# deviation of 1/12, so with q scaled x32 they reach |s| / cap of about 0.5
+# and 1 - tanh^2 spans most of (0, 1]. (At cap 50 they would need scores of
+# about 50, whose bf16 gradients would outgrow the oracle's absolute bar.)
+BITE_CAP, BITE_Q = 5.0, 32
+
+
+def _packed_ids(docs, device="cuda"):
+    """Segment ids [1, sum(docs)] int32: document i's tokens carry id i."""
+    import torch
+
+    return torch.cat([torch.full((n,), i, dtype=torch.int32) for i, n in enumerate(docs)])[None].to(device)
+
+
+def masked_bwd_cases() -> None:
+    """Phase 18's correctness cases in bf16 at small shapes: K4m + K5m (GQA
+    8/2) and K3m (MHA 4/4) at windows 1, 63, 64 (K2's forward), 65, 1000 and
+    4096; a softcap that bites (BITE_CAP with q scaled by BITE_Q); packed
+    documents; a (q_ids, kv_ids) pair with kv_len > q_len; a q id absent
+    from kv, whose gradient rows must be finite and exactly 0; all three
+    masks together."""
+    import torch
+
+    bf16, d, bar = torch.bfloat16, 128, REL_BAR["bfloat16"]
+    cases = []
+    for hq, hkv in ((8, 2), (4, 4)):
+        for window in SWEEP_WINDOWS:
+            cases.append((f"{hq}/{hkv} heads, T 1024, window {window}", hq, hkv, 1024, 1024, dict(window=window)))
+        cases.append((f"{hq}/{hkv} heads, T 4608, window 4096", hq, hkv, 4608, 4608, dict(window=WINDOW)))
+        cases.append((f"{hq}/{hkv} heads, T 1024, softcap {BITE_CAP}, q x {BITE_Q}", hq, hkv, 1024, 1024,
+                      dict(softcap=BITE_CAP)))
+        cases.append((f"{hq}/{hkv} heads, T 1024, documents (500, 300, 150, 74)", hq, hkv, 1024, 1024,
+                      dict(segment_ids=_packed_ids((500, 300, 150, 74)))))
+        cases.append((f"{hq}/{hkv} heads, T 1024, window 300 + softcap {BITE_CAP}, q x {BITE_Q} + documents "
+                      "(500, 300, 150, 74)", hq, hkv, 1024, 1024,
+                      dict(window=300, softcap=BITE_CAP, segment_ids=_packed_ids((500, 300, 150, 74)))))
+    kv_ids = _packed_ids((600, 424))
+    cases.append(("8/2 heads, q 256 over kv 1024, (q_ids, kv_ids) pair", 8, 2, 256, 1024,
+                  dict(segment_ids=(kv_ids[:, -256:].contiguous(), kv_ids))))
+    absent = kv_ids[:, -256:].clone()
+    absent[:, 100:140] = 7  # no kv row has id 7
+    cases.append(("8/2 heads, q 256 over kv 1024, q rows 100-139 of an id absent from kv", 8, 2, 256, 1024,
+                  dict(segment_ids=(absent, kv_ids), window=700)))
+    for n, (what, hq, hkv, q_len, kv_len, masks) in enumerate(cases):
+        q, k, v, do = _bwd_inputs(180 + n, hq, hkv, q_len, kv_len, d, bf16)
+        if masks.get("softcap"):
+            q = (q.float() * BITE_Q).to(bf16)
+        grads, _, d_plain, d_rel, d_oracle = _hold_bwd(f"[masked backward] {what}", q, k, v, do, **masks,
+                                                       rel_bar=bar)
+        if "absent" in what:
+            if not (bool(torch.isfinite(grads[0]).all()) and bool((grads[0][:, :, 100:140] == 0).all())):
+                raise RuntimeError(f"[masked backward] {what}: the absent id's dq rows are not finite zeros")
+        route = _route(hq, hkv, q_len, kv_len, **masks)
+        log(f"[masked backward] {what}: {route}; |grad-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), |grad-plain| "
+            f"{d_plain:.3e}, row-relative to plain {d_rel:.3e} (bar {bar})")
+        del q, k, v, do, grads
+    torch.cuda.empty_cache()
+
+
+def _bwd_bound(name: str, d: int, hq: int, pairs: int, q, k) -> tuple[float, str]:
+    """K3's, K4's or K5's bound from the visible pairs and its bytes (q, dO,
+    k, v, lse and delta read once, its outputs written once)."""
+    products = {"K3m": 5, "K4m": 3, "K5m": 4}
+    q_bytes, kv_bytes = 2 * q.numel(), 2 * k.numel()
+    in_bytes = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * q.numel() // d
+    outs = {"K3m": q_bytes + 2 * kv_bytes, "K4m": q_bytes, "K5m": 2 * kv_bytes}
+    return bound(2 * d * pairs * hq * products[name], in_bytes + outs[name])
+
+
+def _time_bwd(card: str, label: str, q, k, v, do, *, window=None, softcap=None, segment_ids=None,
+              lib_mask=None) -> dict:
+    """The masked backward kernels of one call's route at the main path's
+    shape: held against plain and the oracle (``_by_kv_head``), then
+    timed alone on the forward's residuals, beside the plain backward and
+    SDPA's backward under the equivalent boolean mask (k and v repeated to
+    the q heads outside the timed call, so SDPA takes its memory-efficient
+    kernel). Returns report entries by kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from flash_attention_tpu_torch.ops.attention_bwd import (
+        BwdMasks,
+        _delta,
+        _guard_lse,
+        flash_attention_bwd_plain,
+        launch_dkv,
+        launch_dq,
+        launch_fused,
+    )
+    from flash_attention_tpu_torch.ops.common import segment_pair
+
+    b, hq, q_len, d = q.shape
+    hkv, kv_len = k.shape[1], k.shape[2]
+    scale = d**-0.5
+    _, (out, lse), d_plain, d_rel, d_oracle = _hold_bwd(
+        f"[masked backward] {label}", q, k, v, do, window=window, softcap=softcap, segment_ids=segment_ids,
+        rel_bar=REL_BAR["bfloat16"])
+    segments = segment_pair(segment_ids, b, q_len, kv_len)
+    masks = BwdMasks(window, softcap, segments, q.device)
+    args = (q, k, v, do, _guard_lse(lse).contiguous(), _delta(out, do).contiguous())
+    kw = dict(causal=True, sm_scale=scale, masks=masks)
+    route = _route(hq, hkv, q_len, kv_len, window, softcap, segment_ids)[1:]
+    fns = {"K3m": launch_fused, "K4m": launch_dq, "K5m": launch_dkv}
+    times = {name: cuda_ms(lambda fn=fns[name]: fn(*args, **kw)) for name in route}
+    plain_ms = cuda_ms(lambda: _by_kv_head(lambda qh, oh, lh, dh, kh, vh: flash_attention_bwd_plain(
+        qh, kh, vh, oh, lh, dh, causal=True, sm_scale=scale, window=window, softcap=softcap, segments=segments),
+        (q, out, lse, do), (k, v)), warmup=1, iters=3)
+    lib_ms = None
+    if lib_mask is not None:
+        group = hq // hkv
+        leaves = [x.detach().clone().requires_grad_() for x in
+                  (q, k.repeat_interleave(group, dim=1), v.repeat_interleave(group, dim=1))]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True))
+        del leaves, lib_out
+    pairs = _visible_pairs(q_len, kv_len, window, None if segments is None else (segments[0][0:1], segments[1][0:1]))
+    report, parts = {}, []
+    for name, ms in times.items():
+        bound_ms, bound_by = _bwd_bound(name, d, hq, pairs, q, k)
+        flops = 2 * d * pairs * hq * {"K3m": 5, "K4m": 3, "K5m": 4}[name]
+        parts.append(f"{name} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; bound {bound_ms:.4f} ms by {bound_by})")
+        report[name] = {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"[masked backward] {label}: |grad-oracle| {d_oracle:.3e}, |grad-plain| {d_plain:.3e}, row-relative "
+        f"{d_rel:.3e}; " + ", ".join(parts) + f"; plain (dq, dk, dv) {plain_ms:.4f} ms, SDPA backward (library) "
+        + ("none" if lib_ms is None else f"{lib_ms:.4f} ms") + f"; {pairs} visible pairs a head ({card})")
+    return report
+
+
+def phase_masked_bwd(card: str) -> dict:
+    """Phase 18: the masked backward kernels and K1d. First the correctness
+    cases (``masked_bwd_cases``); then, at the training path's shapes in
+    bf16 (q [1,32,8192,128], kv [1,8,8192,128], window 4096; the same
+    packed as documents PACKED_DOCS; MHA q = kv [1,32,8192,128] packed, as
+    phase 20d runs it, and [1,32,4096,128] at window 1024): the forward
+    (K1, K1d) and the backward (K4m + K5m, K3m) held
+    against plain and the oracle, and timed beside the plain versions, SDPA
+    with the equivalent boolean mask, the unwindowed causal K4 and K5 at
+    T=8192, and their bounds. Returns the report entries and the times the
+    step breakdown of phase 20 reads."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.attention_bwd import _delta, _guard_lse, launch_dkv, launch_dq
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+
+    masked_bwd_cases()
+    bf16, d, dev = torch.bfloat16, 128, torch.device("cuda")
+    q, k, v, do = _bwd_inputs(18, 32, 8, TRAIN_T, TRAIN_T, d, bf16)
+    col, row = torch.arange(TRAIN_T, device=dev)[None, :], torch.arange(TRAIN_T, device=dev)[:, None]
+    band = (col <= row) & (col > row - WINDOW)
+    ids = _packed_ids(PACKED_DOCS)
+    same_doc = ids[0][:, None] == ids[0][None, :]
+    shape = f"q [1,32,{TRAIN_T},128] kv [1,8,{TRAIN_T},128]"
+    fwd = {"window": _k1_masked(card, f"window {WINDOW}, {shape}", q, k, v, window=WINDOW, lib_mask=band),
+           "packed": _k1_masked(card, f"window {WINDOW} + documents {PACKED_DOCS}, {shape}", q, k, v, window=WINDOW,
+                                segment_ids=ids, lib_mask=band & same_doc, want="K1d")}
+    bwd = {"window": _time_bwd(card, f"window {WINDOW}, {shape}", q, k, v, do, window=WINDOW, lib_mask=band),
+           "packed": _time_bwd(card, f"window {WINDOW} + documents {PACKED_DOCS}, {shape}", q, k, v, do,
+                               window=WINDOW, segment_ids=ids, lib_mask=band & same_doc)}
+    # The same shape unwindowed (causal only, the unmasked K4 and K5): what
+    # the window's tile skip saves.
+    with torch.no_grad():
+        out, lse = flash_attention(q, k, v, causal=True, save_residuals=True)
+    args = (q, k, v, do, _guard_lse(lse).contiguous(), _delta(out, do).contiguous())
+    causal_ms = {name: cuda_ms(lambda fn=fn: fn(*args, causal=True, sm_scale=d**-0.5))
+                 for name, fn in (("K4", launch_dq), ("K5", launch_dkv))}
+    log(f"[masked backward] {shape} causal, no window (K4, K5 unmasked): K4 {causal_ms['K4']:.4f} ms, K5 "
+        f"{causal_ms['K5']:.4f} ms; window {WINDOW}: K4m {bwd['window']['K4m']['ms']:.4f} ms "
+        f"({bwd['window']['K4m']['ms'] / causal_ms['K4']:.3f} of causal), K5m {bwd['window']['K5m']['ms']:.4f} ms "
+        f"({bwd['window']['K5m']['ms'] / causal_ms['K5']:.3f}); visible pairs {_window_pairs(TRAIN_T, TRAIN_T, WINDOW)} "
+        f"of {_window_pairs(TRAIN_T, TRAIN_T, None)} ({card})")
+    del q, k, v, do, out, lse, args
+    torch.cuda.empty_cache()
+    # K3m at phase 20d's shape: MHA, q = kv [1,32,8192,128], window 4096, packed.
+    q, k, v, do = _bwd_inputs(20, 32, 32, TRAIN_T, TRAIN_T, d, bf16)
+    mha = _time_bwd(card, f"window {WINDOW} + documents {PACKED_DOCS}, q = kv [1,32,{TRAIN_T},128] (MHA)", q, k, v,
+                    do, window=WINDOW, segment_ids=ids, lib_mask=band & same_doc)
+    del q, k, v, do, band, same_doc
+    torch.cuda.empty_cache()
+    # K3m at T=4096, window 1024.
+    q, k, v, do = _bwd_inputs(19, 32, 32, 4096, 4096, d, bf16)
+    col, row = torch.arange(4096, device=dev)[None, :], torch.arange(4096, device=dev)[:, None]
+    _time_bwd(card, "window 1024, q = kv [1,32,4096,128] (MHA)", q, k, v, do, window=1024,
+              lib_mask=(col <= row) & (col > row - 1024))
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    report = {"K1d": fwd["packed"], "K3m": mha["K3m"], "K4m": bwd["window"]["K4m"], "K5m": bwd["window"]["K5m"]}
+    step = {"window": fwd["window"]["ms"] + bwd["window"]["K4m"]["ms"] + bwd["window"]["K5m"]["ms"],
+            "packed": fwd["packed"]["ms"] + bwd["packed"]["K4m"]["ms"] + bwd["packed"]["K5m"]["ms"]}
+    log(f"[masked backward] attention kernels a layer at T={TRAIN_T}: window {step['window']:.4f} ms (K1 + K4m + "
+        f"K5m), packed {step['packed']:.4f} ms (K1d + K4m + K5m), packed / window {step['packed'] / step['window']:.3f} "
+        f"({card})")
+    return report, step
+
+
+def phase_masked_bwd_sweep() -> None:
+    """Every (dtype, head_dim) instantiation of the masked K3, K4 and K5 (and
+    K1d's forward) at ragged shapes: windows 1, 63, 64, 65 and 1000 (at 65
+    softcap BITE_CAP with q scaled by BITE_Q, else q x 4), MHA
+    self-attention (K3m), GQA 4/2 self-attention and q 100
+    end-aligned over kv 300 (K4m + K5m); segment ids of three documents at
+    windows 63 and 1000."""
+    import torch
+
+    worst, n = 0.0, 0
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for d in (32, 64, 128):
+            for window in SWEEP_WINDOWS:
+                softcap = BITE_CAP if window == 65 else None
+                for hq, hkv, q_len, kv_len in ((4, 4, 300, 300), (4, 2, 300, 300), (4, 2, 100, 300)):
+                    ids = None
+                    if window in (63, 1000):
+                        kv_ids = _packed_ids((130, 101, 69))
+                        ids = kv_ids if q_len == kv_len else (kv_ids[:, -q_len:].contiguous(), kv_ids)
+                    what = f"[masked backward sweep] {name} d={d} {hq}/{hkv} q {q_len} kv {kv_len} window {window}"
+                    q, k, v, do = _bwd_inputs(n, hq, hkv, q_len, kv_len, d, dtype, strided_do=False)
+                    q = (q.float() * (BITE_Q if softcap else 4)).to(dtype)
+                    _, _, _, d_rel, _ = _hold_bwd(what, q, k, v, do, window=window, softcap=softcap,
+                                                  segment_ids=ids, rel_bar=REL_BAR[name])
+                    worst = max(worst, d_rel / REL_BAR[name])
+                    n += 1
+    log(f"[masked backward sweep] K3m, K4m and K5m (forward K1, K2 or K1d) at fp32/fp16/bf16 x head_dim 32/64/128 x "
+        f"windows {list(SWEEP_WINDOWS)} (softcap {BITE_CAP} with q x {BITE_Q} at 65, three documents at 63 and 1000), "
+        f"MHA, GQA, cross-length, {n} cases: all within {ORACLE_BAR} of the masked oracle's gradients; worst "
+        f"row-relative difference to plain at {worst:.3f} of its bar {REL_BAR}")
+
+
+def phase_tiny_train_masked() -> None:
+    """Phase 19: the tiny fp32 model with a window of 24 and softcap 30 on
+    the card and on the CPU (``_tiny_train``): packed (three documents a
+    row, then two) through K1d and K4m + K5m (GQA) or K3m (MHA), and
+    unpacked through K2 and K4m + K5m."""
+    import torch
+
+    ids = torch.cat([_packed_ids((40, 35, 25), "cpu"), _packed_ids((70, 30), "cpu")])
+    runs = ((2, ids, ("K1d", "K4m", "K5m")), (4, ids, ("K1d", "K3m")), (2, None, ("K2", "K4m", "K5m")))
+    _tiny_train("[tiny train masked] window 24, softcap 30, 4 q /", 19, runs, sliding_window=24, logit_softcap=30.0)
+
+
+def phase_full_train_masked(card: str, attn_ms: dict) -> dict:
+    """Phase 20: ModelConfig(mlp_dim=14336, sliding_window=4096) (Mistral-7B
+    v0.1's shape) trained at full width and depth, bf16, weights from seed
+    0, B=1, T=8192 (phase 17's engines released): (a) three steps and the
+    SGD check, exactly K1, K4m and K5m; (b) one step of one packed row of
+    documents PACKED_DOCS on the same weights, exactly K1d, K4m and K5m;
+    (c) softcap 50 added, one step; (d) the MHA route,
+    ModelConfig(mlp_dim=14336, sliding_window=4096, num_kv_heads=32,
+    num_layers=4), one packed step, exactly K1d and K3m. Prints the
+    attention kernels' share of (a)'s step from phase 18's kernel times
+    (``attn_ms``, one layer's forward + backward kernels at these shapes)
+    and (b)'s attention over (a)'s. Returns each run's launches."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ModelConfig(**MISTRAL)
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    n_params = sum(t.numel() for t in _tensors(params))
+    log(f"[full train masked] ModelConfig(mlp_dim=14336, sliding_window=4096) bf16: {n_params / 1e9:.3f} B params, "
+        f"{_nbytes(params) / 1e9:.3f} GB and their gradients as much ({card})")
+    rng = np.random.default_rng(20)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, TRAIN_T + 1))).cuda() for _ in range(3)]
+    ids = _packed_ids(PACKED_DOCS)
+    runs = {}
+    runs["a"] = _train_steps(card, "[full train masked a] window 4096", params, cfg, batches,
+                                    used=("K1", "K4m", "K5m"))
+    share = cfg.num_layers * attn_ms["window"] / (runs["a"]["step_s"] * 1e3)
+    log(f"[full train masked a] attention kernels (K1 + K4m + K5m, phase 18's times at this shape) "
+        f"{cfg.num_layers} x {attn_ms['window']:.2f} ms = {cfg.num_layers * attn_ms['window']:.1f} ms, "
+        f"{share:.3f} of the median step ({card})")
+    _sgd_check("[full train masked a]", params, cfg, batches[-1], runs["a"]["losses"][-1])
+    runs["b"] = _train_steps(card, f"[full train masked b] window 4096, packed {PACKED_DOCS}", params, cfg,
+                                    batches[:1], used=("K1d", "K4m", "K5m"), segment_ids=ids)
+    log(f"[full train masked b] attention kernels packed / unpacked (phase 18, K1d + K4m + K5m over K1 + K4m + K5m): "
+        f"{attn_ms['packed'] / attn_ms['window']:.3f}; step packed / unpacked "
+        f"{runs['b']['step_s'] / runs['a']['step_s']:.3f} ({card})")
+    runs["c"] = _train_steps(card, f"[full train masked c] window 4096, softcap {CAP}", params,
+                                    dataclasses.replace(cfg, logit_softcap=CAP), batches[:1],
+                                    used=("K1", "K4m", "K5m"))
+    for t in _tensors(params):
+        t.grad = None
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg_mha = ModelConfig(**MISTRAL, num_kv_heads=32, num_layers=4)
+    p_mha = init_model_params(torch.Generator(device="cuda").manual_seed(1), cfg_mha)
+    runs["d"] = _train_steps(card, f"[full train masked d] ModelConfig(mlp_dim=14336, sliding_window=4096, "
+                                    f"num_kv_heads=32, num_layers=4), packed {PACKED_DOCS}", p_mha, cfg_mha,
+                                    batches[:1], used=("K1d", "K3m"), segment_ids=ids)
+    del p_mha
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {key: run["launches"] for key, run in runs.items()}
+
+
 def main() -> None:
     import torch
 
@@ -2550,6 +3037,7 @@ def main() -> None:
     dense_tiny = phase_tiny()
     launches, params, dense = phase_full(card)
     k1["launches"], k6["launches"] = launches["K1"], launches["K6"]
+    phase_sampling(card, params)
     k7, k8, k10 = phase_paged_kernels(card)
     phase_paged_sweep()
     phase_tiny_paged(dense_tiny)
@@ -2574,6 +3062,12 @@ def main() -> None:
     masked["K1w"]["launches"], masked["K1c"]["launches"] = full["a"]["K1"], full["d"]["K1"]
     masked["K6r"]["launches"] = full["a"]["K6"]
     masked["K7s"]["launches"], masked["K8s"]["launches"] = full["c"]["K7"], full["c"]["K8"]
+    train_masked, attn_ms = phase_masked_bwd(card)
+    phase_masked_bwd_sweep()
+    phase_tiny_train_masked()
+    runs = phase_full_train_masked(card, attn_ms)
+    for key in train_masked:
+        train_masked[key]["launches"] = sum(run[key] for run in runs.values())
     source = "flash_attention_tpu_torch/csrc/"
     names = {
         "K2": ("flash_fwd_band (K2)", "flash_fwd.cu", "ops/flash_attention.py:795"),
@@ -2582,7 +3076,12 @@ def main() -> None:
         "K6r": ("decode, ring of 4352 rows (K6)", "decode.cu", "ops/decode.py:56"),
         "K7s": ("paged_decode, window + sinks (K7)", "decode.cu", "ops/paged.py:980"),
         "K8s": ("paged_prefill, window + sinks (K8)", "flash_fwd.cu", "ops/paged.py:580"),
+        "K1d": ("flash_fwd, segment ids (K1d)", "flash_fwd.cu", "ops/flash_attention.py:61"),
+        "K3m": ("flash_bwd_fused, masked (K3)", "flash_bwd.cu", "ops/attention_bwd.py:594"),
+        "K4m": ("flash_bwd_dq, masked (K4)", "flash_bwd.cu", "ops/attention_bwd.py:65"),
+        "K5m": ("flash_bwd_dkv, masked (K5)", "flash_bwd.cu", "ops/attention_bwd.py:317"),
     }
+    masked.update(train_masked)
     masked = [{"name": names[key][0], "route": "cuda", "source": source + names[key][1],
                "replaces": f"{REFERENCE}/{names[key][2]}", **masked[key]} for key in names]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -13,11 +13,24 @@ its layout so each module's counterpart is found by name:
 
 Public layouts follow the JAX package: attention tensors are [B, H, S, D],
 caches [B, Hkv, max_seq, D], decode queries [B, Hq, D]. Importing the package
-builds nothing: a kernel is compiled with nvcc on its first CUDA launch.
+builds nothing: a kernel is compiled with nvcc on its first CUDA launch. The
+top level exports the names of the JAX package's ``__all__`` that are ported,
+with the JAX package's keywords.
 """
 
 from flash_attention_tpu_torch.ops.decode import decode_attention
 from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+from flash_attention_tpu_torch.ops.merge import merge_partial_attention, merge_two
+from flash_attention_tpu_torch.ops.quant import QuantizedTensor, quantize_kv, quantize_weight
 from flash_attention_tpu_torch.ops.reference import reference_attention
 
-__all__ = ["flash_attention", "decode_attention", "reference_attention"]
+__all__ = [
+    "reference_attention",
+    "flash_attention",
+    "decode_attention",
+    "quantize_weight",
+    "merge_partial_attention",
+    "merge_two",
+    "QuantizedTensor",
+    "quantize_kv",
+]

@@ -49,6 +49,18 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// Packed sequences: whether q tile iq and kv tile ikv of batch row b can hold
+// a pair with equal segment ids. q_rng [B, nq, 2] and kv_rng [B, nkv, 2] hold
+// each 64-row tile's smallest and largest id (ops/common.segment_tile_ranges);
+// tiles whose id ranges are disjoint share no id, so skipping them is exact
+// for any ids.
+__device__ __forceinline__ bool segment_tiles_meet(const int32_t* q_rng, const int32_t* kv_rng, int b,
+                                                   int nq, int nkv, int iq, int ikv) {
+  const int32_t* qr = q_rng + 2 * (static_cast<int64_t>(b) * nq + iq);
+  const int32_t* kr = kv_rng + 2 * (static_cast<int64_t>(b) * nkv + ikv);
+  return qr[0] <= kr[1] && kr[0] <= qr[1];
+}
+
 template <typename T>
 struct TypeTag {
   using type = T;

@@ -1,8 +1,11 @@
 // K3, K4 and K5: the attention backward (causal or not, MHA or GQA, bf16 /
-// fp16 / fp32), for Hopper.
+// fp16 / fp32; with an optional sliding window, logit softcap and
+// packed-sequence segment ids), for Hopper.
 //
 // Replaces the JAX package's three Pallas backward kernels, reached from
-// ops/attention_bwd.py:flash_attention_bwd (:978):
+// ops/attention_bwd.py:flash_attention_bwd (:978), with their window,
+// softcap and segment branches (:131-132, :171-189, :206-240, :440-445,
+// :474-495, :764-821, :1222-1225, :1682-1686):
 //   K4  ops/attention_bwd.py:65   _bwd_dq_kernel     -> flash_bwd_dq_kernel
 //   K5  ops/attention_bwd.py:317  _bwd_dkv_kernel    -> flash_bwd_dkv_kernel<FUSED = false>
 //   K3  ops/attention_bwd.py:594  _bwd_fused_kernel  -> flash_bwd_dkv_kernel<FUSED = true>
@@ -15,8 +18,23 @@
 // under the forward's end-aligned causal mask (row i sees columns j <= i +
 // kv_len - q_len); a masked or out-of-range pair has P = 0. The kv head of q
 // head h is h / group. What the TPU kernels do to fit Mosaic (head blocks,
-// sub-tiles, the diagonal pipeline, the chunked whole-KV accumulators) is
-// not carried over.
+// sub-tiles, the diagonal pipeline, the chunked whole-KV accumulators, the
+// scalar-prefetched liveness tables) is not carried over.
+//
+// Masks (runtime parameters of each body's masked instantiation; the
+// unmasked one is compiled without them, as in csrc/flash_fwd.cu):
+//  * window w: the forward's predicate, column j > i + kv_len - q_len - w;
+//  * softcap: the score is recomputed as the forward does, softcap2 *
+//    tanhf(S * scale2 / softcap2) (exact tanhf), and tanh's derivative is
+//    folded into the score gradient, dS = P * (dP - delta) * (1 - t^2),
+//    before the dQ and dK products;
+//  * segment ids: a pair is visible only where seg_q[i] == seg_kv[j].
+// The walks narrow to the live tiles: K4 starts at the window's first kv
+// tile for its tile's first row; K5 and K3 stop at the last q tile whose
+// rows' window still holds the kv tile's last column; and every kernel
+// skips a (q tile, kv tile) pair whose segment-id ranges are disjoint
+// (fat::segment_tiles_meet) before loading it. A window or a packed batch
+// therefore costs O(window) or O(document) per row, not O(row).
 //
 // What bounds them on this card: every (q, kv) pair the mask leaves costs
 // 3 (K4), 4 (K5) or 5 (K3) products of 2 * D FLOPs against O((q_len +
@@ -71,6 +89,12 @@ struct BwdParams {
   int64_t o_sb, o_sh, o_sr;  // dO's strides
   int num_q_heads, num_kv_heads, group, q_len, kv_len, causal;
   float scale2, sm_scale;
+  int window;             // 0: none
+  float softcap2;         // cap * log2(e); 0: none
+  const int32_t* seg_q;   // [B, Sq] segment ids, or nullptr
+  const int32_t* seg_kv;  // [B, Skv]
+  const int32_t* q_rng;   // [B, ceil(Sq / 64), 2]: each q tile's min / max id
+  const int32_t* kv_rng;  // [B, ceil(Skv / 64), 2]
 };
 
 // K4: Q, dO, K, V tiles and one score tile (dS).
@@ -80,10 +104,10 @@ constexpr size_t dq_smem_bytes() {
 }
 
 // K5 / K3: K, V, Q, dO tiles, two score tiles (P^T, dS^T), the q tile's
-// lse and delta.
+// lse, delta and segment ids.
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (4 * 64 * (D + 1) + 2 * 64 * LDP + 2 * BM);
+  return sizeof(float) * (4 * 64 * (D + 1) + 2 * 64 * LDP + 3 * BM);
 }
 
 // Loads 64 rows of a matrix with row stride `sr`, starting at `src`, into the
@@ -96,11 +120,46 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t sr, 
   }
 }
 
-__device__ __forceinline__ bool visible(const BwdParams& p, int row, int col) {
-  return row < p.q_len && col < p.kv_len && (!p.causal || col <= row + p.kv_len - p.q_len);
+// Whether q row `row` sees kv column `col` under the forward's mask; the ids
+// are the row's and the column's segment ids (equal, 0, without segments).
+template <bool MASKED>
+__device__ __forceinline__ bool visible(const BwdParams& p, int row, int col, int32_t row_id, int32_t col_id) {
+  const int pos = row + p.kv_len - p.q_len;
+  bool ok = row < p.q_len && col < p.kv_len && (!p.causal || col <= pos);
+  if constexpr (MASKED) ok = ok && (p.window == 0 || col > pos - p.window) && row_id == col_id;
+  return ok;
 }
 
-template <typename T, int D>
+// P of one pair from its raw score s = q . k: exp2 of the forward's base-2
+// score less the row's LSE. With a softcap the score is capped as the
+// forward caps it, and *dcap gets tanh's derivative 1 - t^2 (else it stays
+// 1).
+template <bool MASKED>
+__device__ __forceinline__ float recompute_p(const BwdParams& p, float s, float lse, float& dcap) {
+  if constexpr (MASKED) {
+    if (p.softcap2 > 0.f) {  // uniform across the block
+      const float t = tanhf(s * p.scale2 / p.softcap2);
+      dcap = 1.f - t * t;
+      return exp2f(p.softcap2 * t - lse);
+    }
+  }
+  return exp2f(fmaf(s, p.scale2, -lse));
+}
+
+// The segment id of row `i` of `ids` (this batch row's), 0 without segments
+// or past `n`.
+template <bool MASKED>
+__device__ __forceinline__ int32_t segment_id(const int32_t* ids, int i, int n) {
+  if constexpr (MASKED) return ids != nullptr && i < n ? ids[i] : 0;
+  return 0;
+}
+
+__device__ __forceinline__ bool tiles_meet(const BwdParams& p, int b, int m0, int n0) {
+  return fat::segment_tiles_meet(p.q_rng, p.kv_rng, b, (p.q_len + BM - 1) / BM, (p.kv_len + BN - 1) / BN, m0 / BM,
+                                 n0 / BN);
+}
+
+template <typename T, int D, bool MASKED>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const BwdParams p) {
   constexpr int LD = D + 1;
   constexpr int DC = D / COLS;  // accumulator columns per thread
@@ -126,21 +185,29 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const BwdParams p
   load_tile<T, D>(s_q, q + m0 * p.q_sr, p.q_sr, p.q_len - m0);
   load_tile<T, D>(s_do, dout + m0 * p.o_sr, p.o_sr, p.q_len - m0);
 
+  const int32_t* seg_q = MASKED && p.seg_q != nullptr ? p.seg_q + static_cast<int64_t>(b) * p.q_len : nullptr;
+  const int32_t* seg_kv = MASKED && p.seg_q != nullptr ? p.seg_kv + static_cast<int64_t>(b) * p.kv_len : nullptr;
   float lse[ROWS], delta[ROWS], acc[ROWS][DC];
+  int32_t row_id[ROWS];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     const int row = m0 + ty * ROWS + i;
     const int64_t at = static_cast<int64_t>(bh) * p.q_len + row;
     lse[i] = row < p.q_len ? p.lse[at] : 0.f;
     delta[i] = row < p.q_len ? p.delta[at] : 0.f;
+    row_id[i] = segment_id<MASKED>(seg_q, row, p.q_len);
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
+  const int diag = p.kv_len - p.q_len;
   const int last_row = min(m0 + BM, p.q_len) - 1;
-  const int n_end = p.causal ? min(p.kv_len, last_row + p.kv_len - p.q_len + 1) : p.kv_len;
+  const int n_end = p.causal ? min(p.kv_len, last_row + diag + 1) : p.kv_len;
+  // Window: start at the tile of the first column the tile's first row sees.
+  const int n_begin = MASKED && p.window > 0 ? max(0, m0 + diag - p.window + 1) / BN * BN : 0;
 
-  for (int n0 = 0; n0 < n_end; n0 += BN) {
+  for (int n0 = n_begin; n0 < n_end; n0 += BN) {
+    if (seg_q != nullptr && !tiles_meet(p, b, m0, n0)) continue;  // uniform: a dead tile pair
     __syncthreads();  // the previous tile's K and dS are no longer read
     load_tile<T, D>(s_k, k + n0 * p.k_sr, p.k_sr, p.kv_len - n0);
     load_tile<T, D>(s_v, v + n0 * p.v_sr, p.v_sr, p.kv_len - n0);
@@ -173,14 +240,18 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const BwdParams p
         }
     }
 
+    int32_t col_id[COLS];
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) col_id[j] = segment_id<MASKED>(seg_kv, n0 + tx + COLS * j, p.kv_len);
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
       const int row = m0 + ty * ROWS + i;
 #pragma unroll
       for (int j = 0; j < COLS; ++j) {
         const int col = n0 + tx + COLS * j;
-        const float pr = visible(p, row, col) ? exp2f(fmaf(s[i][j], p.scale2, -lse[i])) : 0.f;
-        s_ds[(ty * ROWS + i) * LDP + tx + COLS * j] = pr * (dp[i][j] - delta[i]);
+        float dcap = 1.f;
+        const float pr = visible<MASKED>(p, row, col, row_id[i], col_id[j]) ? recompute_p<MASKED>(p, s[i][j], lse[i], dcap) : 0.f;
+        s_ds[(ty * ROWS + i) * LDP + tx + COLS * j] = pr * (dp[i][j] - delta[i]) * dcap;
       }
     }
     __syncthreads();  // dS is complete
@@ -210,7 +281,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const BwdParams p
   }
 }
 
-template <typename T, int D, bool FUSED>
+template <typename T, int D, bool FUSED, bool MASKED>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const BwdParams p) {
   constexpr int LD = D + 1;
   constexpr int DC = D / COLS;
@@ -223,6 +294,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const BwdParams 
   float* s_ds = s_p + BN * LDP;    // [BN][LDP], dS^T
   float* s_lse = s_ds + BN * LDP;  // [BM]
   float* s_delta = s_lse + BM;     // [BM]
+  int32_t* s_qid = reinterpret_cast<int32_t*>(s_delta + BM);  // [BM], the q rows' segment ids
 
   const int tid = threadIdx.x;
   const int ty = tid / COLS, tx = tid % COLS;
@@ -237,20 +309,29 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const BwdParams 
   load_tile<T, D>(s_v, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh + n0 * p.v_sr, p.v_sr,
                   p.kv_len - n0);
 
+  const int32_t* seg_q = MASKED && p.seg_q != nullptr ? p.seg_q + static_cast<int64_t>(b) * p.q_len : nullptr;
+  const int32_t* seg_kv = MASKED && p.seg_q != nullptr ? p.seg_kv + static_cast<int64_t>(b) * p.kv_len : nullptr;
   float dk[ROWS][DC], dv[ROWS][DC];
+  int32_t col_id[ROWS];
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i)
+  for (int i = 0; i < ROWS; ++i) {
+    col_id[i] = segment_id<MASKED>(seg_kv, n0 + ty * ROWS + i, p.kv_len);
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
+  }
 
-  // The first q tile holding a row that sees this tile's first column.
+  // The first q tile holding a row that sees this tile's first column, and,
+  // with a window, the end of the last rows whose window holds its last
+  // column (row + diag - window < n0 + BN - 1).
   const int m_first = p.causal ? max(0, n0 - diag) / BM * BM : 0;
+  const int m_end = MASKED && p.window > 0 ? min(p.q_len, n0 + BN - 1 + p.window - diag) : p.q_len;
   for (int g = 0; g < p.group; ++g) {
     const int h = hk * p.group + g;
     const int64_t rows_at = static_cast<int64_t>(b * p.num_q_heads + h) * p.q_len;
     const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
     const T* dout = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
-    for (int m0 = m_first; m0 < p.q_len; m0 += BM) {
+    for (int m0 = m_first; m0 < m_end; m0 += BM) {
+      if (seg_q != nullptr && !tiles_meet(p, b, m0, n0)) continue;  // uniform: a dead tile pair
       __syncthreads();  // the previous pair's Q, dO, P^T and dS^T are no longer read
       load_tile<T, D>(s_q, q + m0 * p.q_sr, p.q_sr, p.q_len - m0);
       load_tile<T, D>(s_do, dout + m0 * p.o_sr, p.o_sr, p.q_len - m0);
@@ -258,6 +339,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const BwdParams 
         const int row = m0 + tid;
         s_lse[tid] = row < p.q_len ? p.lse[rows_at + row] : 0.f;
         s_delta[tid] = row < p.q_len ? p.delta[rows_at + row] : 0.f;
+        if constexpr (MASKED) s_qid[tid] = segment_id<MASKED>(seg_q, row, p.q_len);
       }
       __syncthreads();
 
@@ -294,9 +376,12 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const BwdParams 
 #pragma unroll
         for (int j = 0; j < COLS; ++j) {
           const int qi = tx + COLS * j;
-          const float pr = visible(p, m0 + qi, col) ? exp2f(fmaf(s[i][j], p.scale2, -s_lse[qi])) : 0.f;
+          float dcap = 1.f;
+          const int32_t row_id = MASKED ? s_qid[qi] : 0;
+          const float pr =
+              visible<MASKED>(p, m0 + qi, col, row_id, col_id[i]) ? recompute_p<MASKED>(p, s[i][j], s_lse[qi], dcap) : 0.f;
           s_p[(ty * ROWS + i) * LDP + qi] = pr;
-          s_ds[(ty * ROWS + i) * LDP + qi] = pr * (dp[i][j] - s_delta[qi]);
+          s_ds[(ty * ROWS + i) * LDP + qi] = pr * (dp[i][j] - s_delta[qi]) * dcap;
         }
       }
       __syncthreads();  // P^T and dS^T are complete
@@ -379,35 +464,55 @@ struct BwdLaunch {
   int64_t batch;
   cudaStream_t stream;
 
-  template <typename T, typename P, int D>
-  cudaError_t launch() const {
+  template <typename T, int D, bool MASKED>
+  cudaError_t run() const {
     if constexpr (PASS == Pass::kDq) {
       constexpr size_t smem = dq_smem_bytes<D>();
-      cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+      cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D, MASKED>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(smem));
       if (err != cudaSuccess) return err;
       const dim3 grid((p.q_len + BM - 1) / BM, static_cast<unsigned>(batch * p.num_q_heads));
-      flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+      flash_bwd_dq_kernel<T, D, MASKED><<<grid, THREADS, smem, stream>>>(p);
     } else {
       constexpr bool fused = PASS == Pass::kFused;
       constexpr size_t smem = dkv_smem_bytes<D>();
-      cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D, fused>,
+      cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D, fused, MASKED>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(smem));
       if (err != cudaSuccess) return err;
       const dim3 grid((p.kv_len + BN - 1) / BN, static_cast<unsigned>(batch * p.num_kv_heads));
-      flash_bwd_dkv_kernel<T, D, fused><<<grid, THREADS, smem, stream>>>(p);
+      flash_bwd_dkv_kernel<T, D, fused, MASKED><<<grid, THREADS, smem, stream>>>(p);
     }
     return cudaGetLastError();
   }
+
+  template <typename T, typename P, int D>
+  cudaError_t launch() const {
+    if (p.window < 0 || (p.window > 0 && !p.causal)) return cudaErrorInvalidValue;
+    if (p.seg_q != nullptr && (p.seg_kv == nullptr || p.q_rng == nullptr || p.kv_rng == nullptr))
+      return cudaErrorInvalidValue;
+    if (p.window > 0 || p.softcap2 > 0.f || p.seg_q != nullptr) return run<T, D, true>();
+    return run<T, D, false>();
+  }
+};
+
+// The masks of one call: window (0: none), softcap2 (0: none), and the
+// segment ids with their tile ranges (all null: none).
+struct BwdMasks {
+  int32_t window;
+  float softcap2;
+  const int32_t* seg_q;
+  const int32_t* seg_kv;
+  const int32_t* q_rng;
+  const int32_t* kv_rng;
 };
 
 template <Pass PASS>
 int run(const void* q, const void* k, const void* v, const void* dout, const float* lse,
         const float* delta, void* dq, void* dk, void* dv, int64_t batch, int64_t num_q_heads,
         int64_t num_kv_heads, int64_t q_len, int64_t kv_len, int64_t head_dim, const int64_t* st,
-        float scale2, float sm_scale, int32_t causal, int32_t dtype, void* stream) {
+        float scale2, float sm_scale, int32_t causal, const BwdMasks& masks, int32_t dtype, void* stream) {
   BwdParams p{};
   p.q = q;
   p.k = k;
@@ -438,6 +543,12 @@ int run(const void* q, const void* k, const void* v, const void* dout, const flo
   p.causal = causal;
   p.scale2 = scale2;
   p.sm_scale = sm_scale;
+  p.window = masks.window;
+  p.softcap2 = masks.softcap2;
+  p.seg_q = masks.seg_q;
+  p.seg_kv = masks.seg_kv;
+  p.q_rng = masks.q_rng;
+  p.kv_rng = masks.kv_rng;
   if (PASS == Pass::kFused && p.group != 1) return static_cast<int>(cudaErrorInvalidValue);
   const BwdLaunch<PASS> launcher{p, batch, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(fat::dispatch<false>(dtype, dtype, head_dim, launcher));
@@ -449,15 +560,21 @@ int run(const void* q, const void* k, const void* v, const void* dout, const flo
 // [B, Hkv, Skv, D] and dout (dO, q's shape), each with unit stride on D and
 // the given batch / head / row strides (in elements, q's, k's, v's, then
 // dO's); lse (base-2, -inf replaced by 0) and delta [B, Hq, Sq] fp32
-// contiguous; outputs contiguous. scale2 = sm_scale * log2(e). Each returns
-// a cudaError_t.
+// contiguous; outputs contiguous. scale2 = sm_scale * log2(e). Masks as the
+// forward's (csrc/flash_fwd.cu fat_flash_fwd): window (0: none), softcap2
+// (0, or cap * log2(e)), seg_q [B, Sq] and seg_kv [B, Skv] int32 contiguous
+// with their 64-row tile ranges q_rng and kv_rng, or all four null. Each
+// returns a cudaError_t.
 #define FAT_BWD_ARGS                                                                              \
   int64_t batch, int64_t num_q_heads, int64_t num_kv_heads, int64_t q_len, int64_t kv_len,        \
       int64_t head_dim, int64_t q_sb, int64_t q_sh, int64_t q_sr, int64_t k_sb, int64_t k_sh,     \
       int64_t k_sr, int64_t v_sb, int64_t v_sh, int64_t v_sr, int64_t o_sb, int64_t o_sh,         \
-      int64_t o_sr, float scale2, float sm_scale, int32_t causal, int32_t dtype, void *stream
-#define FAT_BWD_STRIDES \
-  const int64_t st[12] = {q_sb, q_sh, q_sr, k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, o_sb, o_sh, o_sr}
+      int64_t o_sr, float scale2, float sm_scale, int32_t causal, int32_t window, float softcap2, \
+      const int32_t *seg_q, const int32_t *seg_kv, const int32_t *q_rng, const int32_t *kv_rng,   \
+      int32_t dtype, void *stream
+#define FAT_BWD_STRIDES                                                                       \
+  const int64_t st[12] = {q_sb, q_sh, q_sr, k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, o_sb, o_sh, o_sr}; \
+  const BwdMasks masks{window, softcap2, seg_q, seg_kv, q_rng, kv_rng}
 #define FAT_BWD_SHAPE batch, num_q_heads, num_kv_heads, q_len, kv_len, head_dim, st
 
 // K4: dq [B, Hq, Sq, D] in q's dtype.
@@ -465,7 +582,7 @@ extern "C" int fat_flash_bwd_dq(const void* q, const void* k, const void* v, con
                                 const float* lse, const float* delta, void* dq, FAT_BWD_ARGS) {
   FAT_BWD_STRIDES;
   return run<Pass::kDq>(q, k, v, dout, lse, delta, dq, nullptr, nullptr, FAT_BWD_SHAPE, scale2,
-                        sm_scale, causal, dtype, stream);
+                        sm_scale, causal, masks, dtype, stream);
 }
 
 // K5: dk and dv [B, Hkv, Skv, D], summed over each kv head's q heads.
@@ -474,7 +591,7 @@ extern "C" int fat_flash_bwd_dkv(const void* q, const void* k, const void* v, co
                                  FAT_BWD_ARGS) {
   FAT_BWD_STRIDES;
   return run<Pass::kDkv>(q, k, v, dout, lse, delta, nullptr, dk, dv, FAT_BWD_SHAPE, scale2,
-                         sm_scale, causal, dtype, stream);
+                         sm_scale, causal, masks, dtype, stream);
 }
 
 // K3 (Hq == Hkv): dq_acc [B, Hq, Sq, D] fp32, zeroed by the caller, gets dq
@@ -484,5 +601,5 @@ extern "C" int fat_flash_bwd_fused(const void* q, const void* k, const void* v, 
                                    void* dv, FAT_BWD_ARGS) {
   FAT_BWD_STRIDES;
   return run<Pass::kFused>(q, k, v, dout, lse, delta, dq_acc, dk, dv, FAT_BWD_SHAPE, scale2,
-                           sm_scale, causal, dtype, stream);
+                           sm_scale, causal, masks, dtype, stream);
 }

@@ -1,10 +1,13 @@
-// K1, K2 and K8: fused attention forward (causal or not, MHA or GQA) over
-// dense K/V or, in place, over a slot's KV pages (bf16 / fp16 / fp32, or K8
-// over quantized pages: int8, fp8 e4m3, fp8 e5m2 with one fp32 scale per row
-// and head), with an optional sliding window and logit softcap, for Hopper.
+// K1, K1d, K2 and K8: fused attention forward (causal or not, MHA or GQA)
+// over dense K/V or, in place, over a slot's KV pages (bf16 / fp16 / fp32, or
+// K8 over quantized pages: int8, fp8 e4m3, fp8 e5m2 with one fp32 scale per
+// row and head), with an optional sliding window, logit softcap and (dense
+// only) packed-sequence segment ids, for Hopper.
 //
 // Replaces the JAX package's ops/flash_attention.py:_fwd_kernel (K1, the
-// Pallas forward, with its window and softcap branches, :318-331, :408-490),
+// Pallas forward, with its window and softcap branches, :318-331, :408-490,
+// and its segment branch K1d, :61-62, :336-337, :495-496, with the packed
+// tile skip of :1313-1330 and :1428-1431),
 // ops/flash_attention.py:_band_kernel (:795, K2, the window == block band
 // case) and ops/paged.py:_paged_prefill_kernel (:580, K8, chunked-prefill
 // attention reading K/V pages in place, with its dequant, window, softcap
@@ -26,7 +29,14 @@
 //    holding its first row's first visible column, so tiles below the band
 //    are skipped, not masked: a chunk past the window costs O(window);
 //  * sinks s (K8, StreamingLLM): columns j < s are visible beside the
-//    window band, so the walk also takes the tiles holding [0, s).
+//    window band, so the walk also takes the tiles holding [0, s);
+//  * segment ids (K1d, packed sequences): row i sees column j only where
+//    seg_q[i] == seg_kv[j]. The walk skips a (q tile, kv tile) pair whose id
+//    ranges [min, max] are disjoint (the wrapper reduces each 64-row tile's
+//    ids to its range), before its K/V are loaded: exact for any ids, and
+//    for contiguous documents the walk costs O(document), not O(row). The
+//    TPU kernel's scalar-prefetch triangular enumeration (:919-1000), which
+//    Mosaic needed to skip grid steps, is not carried over.
 // K2 is this body when the window fits one kv tile (w <= 64): rows [m0, m0
 // + 64) see at most 64 - 1 + w <= 127 columns from the first row's first
 // visible one, so the walk is two tiles starting at that column (unaligned;
@@ -96,6 +106,10 @@ struct FwdParams {
   int sinks;   // K8: columns [0, sinks) are visible beside the window
   float scale2;
   float softcap2;  // cap * log2(e); 0: no softcap
+  const int32_t* seg_q;   // K1d: [B, Sq] segment ids; else nullptr
+  const int32_t* seg_kv;  // K1d: [B, Skv]
+  const int32_t* q_rng;   // K1d: [B, ceil(Sq / 64), 2], each q tile's min / max id
+  const int32_t* kv_rng;  // K1d: [B, ceil(Skv / 64), 2]
 };
 
 template <int D>
@@ -136,9 +150,9 @@ __device__ __forceinline__ int2 tile_index(const FwdParams& p, int b, int n0) {
 // One kv tile, rows [n0, n0 + BN), folded into the online softmax of the
 // block's q rows: scores, softcap, mask, exp2 update, then P V. m, l and acc
 // are the calling thread's rows' state (registers once inlined). MASKED: a
-// window, sinks or softcap is set; the unmasked instantiation has none of
-// their instructions (with them as runtime parameters of one instantiation
-// the unmasked K1 ran ~8 % slower, PERF.md).
+// window, sinks, softcap or segment ids are set; the unmasked instantiation
+// has none of their instructions (with them as runtime parameters of one
+// instantiation the unmasked K1 ran ~8 % slower, PERF.md).
 template <typename P, int D, bool PAGED, bool MASKED>
 __device__ __forceinline__ void attend_tile(const FwdParams& p, int b, int hk, int m0, int n0, const P* k_base,
                                             const P* v_base, const float* s_q, float* s_kv, float* s_p,
@@ -182,6 +196,20 @@ __device__ __forceinline__ void attend_tile(const FwdParams& p, int b, int hk, i
     }
   }
 
+  // K1d: this batch row's ids (a row past q_len reads none).
+  const int32_t* seg_kv = nullptr;
+  int32_t row_id[ROWS] = {};
+  if constexpr (MASKED) {
+    if (p.seg_q != nullptr) {  // uniform across the block
+      seg_kv = p.seg_kv + static_cast<int64_t>(b) * p.kv_len;
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+        const int row = m0 + ty * ROWS + i;
+        row_id[i] = row < p.q_len ? p.seg_q[static_cast<int64_t>(b) * p.q_len + row] : 0;
+      }
+    }
+  }
+
   // Online softmax; the 8 lanes of a row group share its rows, so row
   // reductions are three xor-shuffles within the group.
 #pragma unroll
@@ -192,7 +220,10 @@ __device__ __forceinline__ void attend_tile(const FwdParams& p, int b, int hk, i
     for (int j = 0; j < COLS; ++j) {
       const int col = n0 + tx + COLS * j;
       bool ok = col < p.kv_len && (!p.causal || col <= pos);
-      if constexpr (MASKED) ok = ok && (p.window == 0 || col > pos - p.window || col < p.sinks);
+      if constexpr (MASKED) {
+        ok = ok && (p.window == 0 || col > pos - p.window || col < p.sinks);
+        if (seg_kv != nullptr) ok = ok && row_id[i] == seg_kv[col];
+      }
       if (!ok) s[i][j] = fat::MASK_VALUE;
       mx = fmaxf(mx, s[i][j]);
     }
@@ -289,8 +320,13 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
       const int sink_end = min((p.sinks + BN - 1) / BN * BN, first);
       for (int n0 = 0; n0 < sink_end; n0 += BN)
         attend_tile<P, D, PAGED, true>(p, b, hk, m0, n0, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
-      for (int n0 = first; n0 < n_end; n0 += BN)
+      const int nq = (p.q_len + BM - 1) / BM, nkv = (p.kv_len + BN - 1) / BN;
+      for (int n0 = first; n0 < n_end; n0 += BN) {
+        // K1d: a tile pair of disjoint id ranges is skipped, K/V unloaded.
+        if (p.seg_q != nullptr && !fat::segment_tiles_meet(p.q_rng, p.kv_rng, b, nq, nkv, m0 / BM, n0 / BN))
+          continue;  // uniform across the block
         attend_tile<P, D, PAGED, true>(p, b, hk, m0, n0, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
+      }
     }
   } else {
     for (int n0 = 0; n0 < n_end; n0 += BN)
@@ -316,7 +352,7 @@ template <bool PAGED>
 struct FwdLaunch {
   FwdParams p;
   int64_t batch;
-  bool band;  // K2 (dense only): a causal window of at most BN columns
+  bool band;  // K2 (dense only, no segment ids): a causal window of at most BN columns
   cudaStream_t stream;
 
   template <typename T, typename P, int D, bool MASKED, bool BAND>
@@ -335,6 +371,8 @@ struct FwdLaunch {
   cudaError_t launch() const {
     if (fat::is_payload<P> && (p.ks == nullptr || p.vs == nullptr)) return cudaErrorInvalidValue;
     if (p.window < 0 || (p.window > 0 && !p.causal) || p.sinks < 0) return cudaErrorInvalidValue;
+    if (p.seg_q != nullptr && (PAGED || band || p.seg_kv == nullptr || p.q_rng == nullptr || p.kv_rng == nullptr))
+      return cudaErrorInvalidValue;
     if constexpr (!PAGED) {
       if (band) {
         if (p.window < 1 || p.window > BN) return cudaErrorInvalidValue;
@@ -343,7 +381,7 @@ struct FwdLaunch {
     } else {
       if (band) return cudaErrorInvalidValue;
     }
-    if (p.window > 0 || p.sinks > 0 || p.softcap2 > 0.f) return run<T, P, D, true, false>();
+    if (p.window > 0 || p.sinks > 0 || p.softcap2 > 0.f || p.seg_q != nullptr) return run<T, P, D, true, false>();
     return run<T, P, D, false, false>();
   }
 };
@@ -379,13 +417,17 @@ FwdParams make_params(const void* q, const void* k, const void* v, void* o, floa
 
 }  // namespace
 
-// K1 and K2. q [B, Hq, Sq, D], k and v [B, Hkv, Skv, D], each with unit
+// K1, K1d and K2. q [B, Hq, Sq, D], k and v [B, Hkv, Skv, D], each with unit
 // stride on D and the given batch / head / row strides (in elements); o [B,
-// Hq, Sq, D] contiguous; lse [B, Hq, Sq] fp32 or null. window: 0, or the
-// causal sliding window; softcap2: 0, or cap * log2(e); band: 1 for K2
-// (requires 1 <= window <= 64). Returns a cudaError_t.
+// Hq, Sq, D] contiguous; lse [B, Hq, Sq] fp32 or null. seg_q [B, Sq] and
+// seg_kv [B, Skv] int32 contiguous with their tile ranges q_rng [B,
+// ceil(Sq / 64), 2] and kv_rng [B, ceil(Skv / 64), 2] (K1d), or all null.
+// window: 0, or the causal sliding window; softcap2: 0, or cap * log2(e);
+// band: 1 for K2 (requires 1 <= window <= 64 and no segment ids). Returns a
+// cudaError_t.
 extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                             int64_t batch, int64_t num_q_heads, int64_t num_kv_heads,
+                             const int32_t* seg_q, const int32_t* seg_kv, const int32_t* q_rng,
+                             const int32_t* kv_rng, int64_t batch, int64_t num_q_heads, int64_t num_kv_heads,
                              int64_t q_len, int64_t kv_len, int64_t head_dim, int64_t q_sb,
                              int64_t q_sh, int64_t q_sr, int64_t k_sb, int64_t k_sh, int64_t k_sr,
                              int64_t v_sb, int64_t v_sh, int64_t v_sr, float scale2,
@@ -395,6 +437,10 @@ extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* 
                             q_sr, k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, scale2, causal);
   p.window = window;
   p.softcap2 = softcap2;
+  p.seg_q = seg_q;
+  p.seg_kv = seg_kv;
+  p.q_rng = q_rng;
+  p.kv_rng = kv_rng;
   const FwdLaunch<false> launcher{p, batch, band != 0, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(fat::dispatch<false>(dtype, dtype, head_dim, launcher));
 }

@@ -28,9 +28,10 @@ rows, with ``lengths`` counting every position written, never clamped to
 the ring; and StreamingLLM attention SINKS in front of the ring (positions
 [0, sinks) kept in their own 128-padded rows). Over the paged cache the
 window makes the engine's paged ring (``serving/paged_engine.py``) and the
-sinks pin logical page 0. The training entry has no masked backward yet:
-``attention_forward`` with a window or a softcap, and segment ids, raise
-NotImplementedError naming ROADMAP.md item 3b.
+sinks pin logical page 0. The training entry ``attention_forward`` takes the
+window and the softcap of its config and packed-sequence segment ids, under
+grad as well (the backward kernels apply the forward's mask); the sinks are
+a serving feature and are not applied there, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,8 +55,6 @@ from flash_attention_tpu_torch.ops.paged import (
     paged_write_tokens,
 )
 from flash_attention_tpu_torch.ops.quant import QuantizedTensor, bits, payload_dtype, quantize_values, w8_dequant
-
-_TRAIN_MASK_ITEM = "ROADMAP.md queue 1 item 3b (training masks: window, softcap and segment ids)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -285,23 +284,18 @@ def attention_prefill(params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCa
 def attention_forward(params, cfg: AttentionConfig, x: torch.Tensor, *, positions=None, segment_ids=None):
     """Training-mode causal self-attention over [B, T, model_dim] (no cache).
 
-    positions: optional [B, T] integer RoPE positions, default arange(T).
-    segment_ids: packed-sequence ids; not ported yet (NotImplementedError),
-      nor are a window or a softcap in ``cfg``: the backward kernels have no
-      masked branches yet.
+    positions: optional [B, T] integer RoPE positions (packed sequences
+      restart them per document), default arange(T).
+    segment_ids: optional [B, T] integer packed-sequence ids, masked in the
+      kernels (K1d forward) beside ``cfg``'s window and softcap.
 
     Returns [B, T, model_dim]; differentiable end to end (the attention's
     gradient runs the backward kernels, ``ops/attention_bwd.py``).
     """
-    if segment_ids is not None:
-        raise NotImplementedError(f"segment_ids is not ported yet: {_TRAIN_MASK_ITEM}")
-    for name in ("sliding_window", "logit_softcap"):
-        if getattr(cfg, name) is not None:
-            raise NotImplementedError(f"training with {name}={getattr(cfg, name)!r} is not ported yet: {_TRAIN_MASK_ITEM}")
     _, t, _ = x.shape
     pos = torch.arange(t, device=x.device)[None, None, :] if positions is None else positions[:, None, :]
     q, k, v = _project_qkv(params, cfg, x, pos)
-    o = flash_attention(q, k, v, causal=True)
+    o = flash_attention(q, k, v, causal=True, segment_ids=segment_ids, **_masks(cfg))
     return _output_proj(params, o, x.dtype)
 
 

@@ -17,6 +17,12 @@ Matmuls stay ``torch.matmul`` / ``einsum``, as the JAX package left them to
 XLA. One numerical difference: where JAX asks XLA for fp32 products of bf16
 operands (``preferred_element_type``), a bf16 ``torch.matmul`` rounds its
 output to bf16. fp32 configurations are unaffected.
+
+Under autograd the norms and the SwiGLU activation are autograd Functions
+(``_RMSNorm``, ``_SwiGLUAct``) with their gradients written out: they keep
+their inputs in the model's dtype (and the norm's fp32 rstd), not the fp32
+copies autograd would keep of the elementwise work in between, and their
+backward runs no second forward.
 """
 
 from __future__ import annotations
@@ -85,16 +91,67 @@ class ModelConfig:
         )
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+def _grad_needed(*args) -> bool:
+    return torch.is_grad_enabled() and any(a.requires_grad for a in args)
+
+
+def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float):
+    """(the norm of x in x's dtype, its fp32 rstd [..., 1])."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+    rstd = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (xf * rstd * weight.float()).to(x.dtype), rstd
+
+
+class _RMSNorm(torch.autograd.Function):
+    """rms_norm under autograd, keeping x and the fp32 rstd for the backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        y, rstd = _rms_norm(x, weight, eps)
+        ctx.save_for_backward(x, weight, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        # Each product of a bf16 and an fp32 tensor runs in fp32 in one pass.
+        x, weight, rstd = ctx.saved_tensors
+        x_hat = x * rstd
+        g = dy * weight.float()
+        dx = torch.addcmul(g, x_hat, (g * x_hat).mean(dim=-1, keepdim=True), value=-1.0).mul_(rstd)
+        dw = (dy * x_hat).reshape(-1, x.shape[-1]).sum(dim=0)
+        return dx.to(x.dtype), dw.to(weight.dtype), None
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    if _grad_needed(x, weight):
+        return _RMSNorm.apply(x, weight, eps)
+    return _rms_norm(x, weight, eps)[0]
+
+
+def _swiglu_act(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return (F.silu(gate.float()) * up.float()).to(gate.dtype)
+
+
+class _SwiGLUAct(torch.autograd.Function):
+    """silu(gate) * up under autograd, keeping gate and up for the backward."""
+
+    @staticmethod
+    def forward(ctx, gate, up):
+        ctx.save_for_backward(gate, up)
+        return _swiglu_act(gate, up)
+
+    @staticmethod
+    def backward(ctx, da):
+        gate, up = ctx.saved_tensors
+        g, d = gate.float(), da.float()
+        d_gate = torch.ops.aten.silu_backward(d * up, g)  # autograd's own silu gradient
+        return d_gate.to(gate.dtype), (d * F.silu(g)).to(up.dtype)
 
 
 def swiglu(x: torch.Tensor, params) -> torch.Tensor:
-    gate = torch.matmul(x, _weight(params["w_gate"], x.dtype)).float()
-    up = torch.matmul(x, _weight(params["w_up"], x.dtype)).float()
-    act = (F.silu(gate) * up).to(x.dtype)
+    gate = torch.matmul(x, _weight(params["w_gate"], x.dtype))
+    up = torch.matmul(x, _weight(params["w_up"], x.dtype))
+    act = _SwiGLUAct.apply(gate, up) if _grad_needed(gate, up) else _swiglu_act(gate, up)
     return torch.matmul(act, _weight(params["w_down"], x.dtype)).to(x.dtype)
 
 
@@ -141,13 +198,13 @@ def quantize_model_weights(params: dict) -> dict:
     def q_layer(lp):
         attn = dict(lp["attn"])
         for name, dims in (("wq", 0), ("wk", 0), ("wv", 0), ("wo", (0, 1))):
-            attn[name] = quantize_weight(attn[name], contract_dims=dims)
-        mlp = {name: quantize_weight(w, contract_dims=0) for name, w in lp["mlp"].items()}
+            attn[name] = quantize_weight(attn[name], contract_axes=dims)
+        mlp = {name: quantize_weight(w, contract_axes=0) for name, w in lp["mlp"].items()}
         return {**lp, "attn": attn, "mlp": mlp}
 
     return {
         **params,
-        "embed": quantize_weight(params["embed"], contract_dims=1),
+        "embed": quantize_weight(params["embed"], contract_axes=1),
         "layers": [q_layer(lp) for lp in params["layers"]],
     }
 
@@ -209,15 +266,30 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list):
     return forward(params, cfg, tokens, caches, decode=False)
 
 
+def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Per-document RoPE positions for a packed [B, T] segment-id tensor:
+    positions restart at 0 at every change of id (ids are contiguous runs),
+    as the JAX package's ``segment_positions`` (``lax.cummax`` there,
+    ``torch.cummax`` here)."""
+    t = segment_ids.shape[-1]
+    idx = torch.arange(t, device=segment_ids.device)[None, :]
+    is_start = torch.cat(
+        [torch.ones_like(segment_ids[:, :1], dtype=torch.bool), segment_ids[:, 1:] != segment_ids[:, :-1]], dim=1
+    )
+    seg_start = torch.cummax(torch.where(is_start, idx, 0), dim=1).values
+    return idx - seg_start
+
+
 def train_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, segment_ids=None) -> torch.Tensor:
     """Training-mode forward (no KV caches): causal LM logits [B, T, vocab]
     fp32 over [B, T] tokens; differentiate a loss of them with autograd.
-    ``segment_ids`` (packed batches), a window and a softcap are not ported
-    to training yet and raise NotImplementedError, as ``attention_forward``
-    does (ROADMAP.md item 3b)."""
+    With ``segment_ids`` (packed pretraining batches) attention is masked
+    per document and RoPE positions restart at each document's start;
+    ``cfg``'s window and softcap apply throughout."""
+    positions = None if segment_ids is None else segment_positions(segment_ids)
 
     def attn(p, acfg, h, cache):
-        return attention_forward(p, acfg, h, segment_ids=segment_ids), cache
+        return attention_forward(p, acfg, h, positions=positions, segment_ids=segment_ids), cache
 
     logits, _ = _trunk(params, cfg, tokens, attn)
     return logits

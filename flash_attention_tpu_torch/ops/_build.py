@@ -99,6 +99,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fat_flash_fwd.restype = c.c_int
     lib.fat_flash_fwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr,  # q, k, v, o, lse
+        ptr, ptr, ptr, ptr,  # segment ids of q and kv, their tile ranges (K1d)
         i64, i64, i64, i64, i64, i64,  # batch, Hq, Hkv, Sq, Skv, D
         i64, i64, i64, i64, i64, i64, i64, i64, i64,  # q/k/v strides
         f32, i32,  # scale2, causal
@@ -151,7 +152,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     bwd_args = [
         i64, i64, i64, i64, i64, i64,  # batch, Hq, Hkv, Sq, Skv, D
         i64, i64, i64, i64, i64, i64, i64, i64, i64, i64, i64, i64,  # q/k/v/dO strides
-        f32, f32, i32, i32, ptr,  # scale2, sm_scale, causal, dtype, stream
+        f32, f32, i32,  # scale2, sm_scale, causal
+        i32, f32, ptr, ptr, ptr, ptr,  # window, softcap2, segment ids of q and kv, their tile ranges
+        i32, ptr,  # dtype, stream
     ]
     # q, k, v, dO, lse, delta, then the outputs: dq (K4); dk, dv (K5); fp32
     # dq accumulator, dk, dv (K3).

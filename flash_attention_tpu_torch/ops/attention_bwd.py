@@ -3,23 +3,31 @@
 Counterpart of the JAX package's ``ops/attention_bwd.py:flash_attention_bwd``
 (:978). Replaces its three Pallas kernels: ``_bwd_fused_kernel`` (K3, :594,
 one pass for dq, dk and dv), ``_bwd_dq_kernel`` (K4, :65) and
-``_bwd_dkv_kernel`` (K5, :317, dk and dv summed over the GQA group). What
-bounds each on an H100 and what its design does about it is written at the
-top of csrc/flash_bwd.cu.
+``_bwd_dkv_kernel`` (K5, :317, dk and dv summed over the GQA group), with
+their window, softcap and segment-id branches. What bounds each on an H100
+and what its design does about it is written at the top of
+csrc/flash_bwd.cu.
 
 The recurrence (S = Q Kᵀ, P recomputed from the forward's base-2 LSE):
 
-    P = exp2(S · sm_scale · log2(e) − lse2)   under the forward's causal mask
+    P = exp2(S · sm_scale · log2(e) − lse2)   under the forward's mask
     delta = rowsum(dO ∘ O)
     dV = Pᵀ dO;  dP = dO Vᵀ;  dS = P ∘ (dP − delta)
     dQ = sm_scale · dS K;  dK = sm_scale · dSᵀ Q
+
+The mask is the forward's: causal, a sliding window and segment ids. With a
+logit softcap the score is the forward's capped one, cap · tanh(S · sm_scale
+/ cap) · log2(e), and tanh's derivative folds into the score gradient: dS =
+P ∘ (dP − delta) ∘ (1 − t²) with t = tanh(S · sm_scale / cap) (JAX :131-132,
+:206-207, :239).
 
 ``flash_attention_bwd`` takes the plain version for CPU tensors and launches
 the kernels for CUDA tensors; there is no fallback from one to the other. It
 routes as the JAX package does: K3 for MHA self-attention (group 1, q_len ==
 kv_len), K4 + K5 otherwise. ``launch_fused.launches``,
 ``launch_dq.launches`` and ``launch_dkv.launches`` count the launches of
-K3, K4 and K5.
+K3, K4 and K5's unmasked instantiations, and ``.masked_launches`` those of
+their masked ones (a window, a softcap or segment ids).
 """
 
 from __future__ import annotations
@@ -27,9 +35,7 @@ from __future__ import annotations
 import torch
 
 from flash_attention_tpu_torch.ops import _build
-from flash_attention_tpu_torch.ops.common import LOG2E
-
-_MASK_ITEM = "ROADMAP.md queue 1 item 3b (window, softcap and segment ids of the backward)"
+from flash_attention_tpu_torch.ops.common import LOG2E, mask_window, segment_operands, softcap2, visible_mask
 
 
 def bwd_route(num_q_heads: int, num_kv_heads: int, q_len: int, kv_len: int) -> str:
@@ -51,11 +57,14 @@ def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * out.float()).sum(dim=-1)
 
 
-def flash_attention_bwd_plain(q, k, v, out, lse2, do, *, causal: bool, sm_scale: float):
+def flash_attention_bwd_plain(
+    q, k, v, out, lse2, do, *, causal: bool, sm_scale: float, window=None, softcap=None, segments=None
+):
     """The function K3, K4 and K5 compute, in plain fp32 PyTorch.
 
-    Materialises the [B, Hq, Sq, Skv] scores. Returns (dq, dk, dv) in the
-    dtypes of q, k and v; dk and dv are summed over each kv head's group.
+    Materialises the [B, Hq, Sq, Skv] scores under the forward's mask (with
+    ``segments`` a (q_ids, kv_ids) pair). Returns (dq, dk, dv) in the dtypes
+    of q, k and v; dk and dv are summed over each kv head's group.
     """
     batch, num_q_heads, q_len, head_dim = q.shape
     num_kv_heads, kv_len = k.shape[1], k.shape[2]
@@ -66,15 +75,21 @@ def flash_attention_bwd_plain(q, k, v, out, lse2, do, *, causal: bool, sm_scale:
     kf, vf = k.float(), v.float()
     lse = _guard_lse(lse2).reshape(batch, num_kv_heads, group, q_len, 1)
     delta = _delta(out, do).reshape(batch, num_kv_heads, group, q_len, 1)
-    s2 = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * (sm_scale * LOG2E)
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf)
+    if softcap is None:
+        s2 = scores * (sm_scale * LOG2E)
+    else:
+        t = torch.tanh(scores * (sm_scale / softcap))
+        s2 = t * (softcap * LOG2E)
     p = torch.exp2(s2 - lse)
-    if causal:
-        row = torch.arange(q_len, device=q.device)[:, None] + (kv_len - q_len)
-        col = torch.arange(kv_len, device=q.device)[None, :]
-        p = torch.where(col <= row, p, 0.0)
+    ok = visible_mask(q_len, kv_len, q.device, causal=causal, window=window, segments=segments)
+    if ok is not None:
+        p = torch.where(ok[:, None, None], p, 0.0)
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
     ds = p * (dp - delta)
+    if softcap is not None:
+        ds = ds * (1.0 - t * t)
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * sm_scale
     dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * sm_scale
     return dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -84,9 +99,9 @@ def _strides(*tensors) -> list[int]:
     return [s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))]
 
 
-def _launch(entry: str, what: str, q, k, v, do, lse, delta, outs, *, causal, sm_scale) -> None:
+def _launch(entry: str, what: str, q, k, v, do, lse, delta, outs, *, causal, sm_scale, masks) -> None:
     """One C entry of csrc/flash_bwd.cu over (q, k, v, dO, lse, delta) into
-    the output tensors ``outs``."""
+    the output tensors ``outs``, under ``masks`` (``BwdMasks``)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what} launches on cuda tensors, got {q.device}")
     batch, num_q_heads, q_len, head_dim = q.shape
@@ -98,18 +113,48 @@ def _launch(entry: str, what: str, q, k, v, do, lse, delta, outs, *, causal, sm_
             *(t.data_ptr() for t in outs),
             batch, num_q_heads, num_kv_heads, q_len, kv_len, head_dim,
             *_strides(q, k, v, do),
-            sm_scale * LOG2E, sm_scale, int(causal), _build.DTYPE_CODES[q.dtype],
+            sm_scale * LOG2E, sm_scale, int(causal), *masks.c_args(), _build.DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, what)
 
 
+class BwdMasks:
+    """The backward kernels' mask arguments for CUDA tensors on ``device``:
+    window (None or >= 1), softcap (None or > 0) and segments (None or a
+    (q_ids, kv_ids) pair, made int32 contiguous with their tile ranges).
+    ``BwdMasks.NONE`` is the unmasked call; ``active`` says whether the
+    kernels take their masked instantiation."""
+
+    def __init__(self, window=None, softcap=None, segments=None, device=None):
+        self.window, self.softcap = window, softcap
+        self.seg = segment_operands(segments, device)
+        self.active = window is not None or softcap is not None or segments is not None
+
+    def count(self, launcher) -> None:
+        """One launch of ``launcher``, counted by instantiation."""
+        if self.active:
+            launcher.masked_launches += 1
+        else:
+            launcher.launches += 1
+
+    def c_args(self) -> list:
+        return [
+            mask_window(self.window), softcap2(self.softcap),
+            *(None if t is None else t.data_ptr() for t in self.seg),
+        ]
+
+
+BwdMasks.NONE = BwdMasks()
+
+
 # The three launchers take what flash_attention_bwd prepares: CUDA operands
 # with a unit last stride, the guarded LSE and delta [B, Hq, Sq] fp32
-# contiguous. Each counts its launches in ``.launches``.
+# contiguous. Each counts its launches in ``.launches`` (unmasked) or
+# ``.masked_launches``.
 
 
-def launch_fused(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float):
+def launch_fused(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float, masks: BwdMasks = BwdMasks.NONE):
     """K3: (dq, dk, dv) of MHA self-attention in one pass. Each (kv tile, q
     tile) adds its dq partial into an fp32 buffer with atomics, so dq sums in
     a run-dependent order; dk and dv are written once."""
@@ -117,34 +162,34 @@ def launch_fused(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float):
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch("fat_flash_bwd_fused", "flash_attention_bwd (K3)", q, k, v, do, lse, delta, (dq_acc, dk, dv),
-            causal=causal, sm_scale=sm_scale)
-    launch_fused.launches += 1
+            causal=causal, sm_scale=sm_scale, masks=masks)
+    masks.count(launch_fused)
     return dq_acc.to(q.dtype), dk, dv
 
 
-def launch_dq(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float):
+def launch_dq(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float, masks: BwdMasks = BwdMasks.NONE):
     """K4: dq, one block per 64-row q tile walking the kv tiles it sees."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch("fat_flash_bwd_dq", "flash_attention_bwd (K4)", q, k, v, do, lse, delta, (dq,),
-            causal=causal, sm_scale=sm_scale)
-    launch_dq.launches += 1
+            causal=causal, sm_scale=sm_scale, masks=masks)
+    masks.count(launch_dq)
     return dq
 
 
-def launch_dkv(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float):
+def launch_dkv(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float, masks: BwdMasks = BwdMasks.NONE):
     """K5: (dk, dv) summed over the GQA group, one block per 64-row kv tile
     walking its group's q heads and the q tiles that see it."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch("fat_flash_bwd_dkv", "flash_attention_bwd (K5)", q, k, v, do, lse, delta, (dk, dv),
-            causal=causal, sm_scale=sm_scale)
-    launch_dkv.launches += 1
+            causal=causal, sm_scale=sm_scale, masks=masks)
+    masks.count(launch_dkv)
     return dk, dv
 
 
-launch_fused.launches = 0
-launch_dq.launches = 0
-launch_dkv.launches = 0
+for _launcher in (launch_fused, launch_dq, launch_dkv):
+    _launcher.launches = 0
+    _launcher.masked_launches = 0
 
 
 def flash_attention_bwd(
@@ -171,16 +216,16 @@ def flash_attention_bwd(
       do: the output's cotangent, out's shape; a strided last dimension is
         copied.
       causal, sm_scale: as in the forward.
-      window, softcap, segments: not ported yet; raise NotImplementedError.
+      window, softcap: the forward's sliding window and logit softcap.
+      segments: the forward's (q_ids [B, Sq], kv_ids [B, Skv]) pair, or None.
 
     Returns:
       dq [B, Hq, Sq, D], dk and dv [B, Hkv, Skv, D], in q's, k's and v's dtypes.
     """
-    for name, used in (("window", window), ("softcap", softcap), ("segments", segments)):
-        if used is not None:
-            raise NotImplementedError(f"{name}={used!r} is not ported yet: {_MASK_ITEM}")
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse2, do, causal=causal, sm_scale=sm_scale)
+        return flash_attention_bwd_plain(
+            q, k, v, out, lse2, do, causal=causal, sm_scale=sm_scale, window=window, softcap=softcap, segments=segments
+        )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cpu or cuda tensors, got {q.device}")
 
@@ -193,7 +238,7 @@ def flash_attention_bwd(
     if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     args = (q, k, v, do, lse, delta)
-    launch = dict(causal=causal, sm_scale=sm_scale)
+    launch = dict(causal=causal, sm_scale=sm_scale, masks=BwdMasks(window, softcap, segments, q.device))
     if bwd_route(num_q_heads, num_kv_heads, q_len, kv_len) == "fused":
         return launch_fused(*args, **launch)
     return (launch_dq(*args, **launch), *launch_dkv(*args, **launch))

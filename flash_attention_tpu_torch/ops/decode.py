@@ -29,8 +29,7 @@ import math
 import torch
 
 from flash_attention_tpu_torch.ops import _build
-from flash_attention_tpu_torch.ops.common import LOG2E, M_FLOOR, MASK_VALUE, ceil_to
-from flash_attention_tpu_torch.ops.flash_attention import mask_window, softcap2
+from flash_attention_tpu_torch.ops.common import LOG2E, M_FLOOR, MASK_VALUE, ceil_to, mask_window, softcap2
 from flash_attention_tpu_torch.ops.quant import QuantizedTensor, dequantize
 
 

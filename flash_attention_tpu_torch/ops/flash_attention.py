@@ -1,25 +1,26 @@
-"""Fused attention forward: kernels K1 and K2 (csrc/flash_fwd.cu) and their plain version.
+"""Fused attention forward: kernels K1, K1d and K2 (csrc/flash_fwd.cu) and their plain version.
 
 Replaces the JAX package's ``ops/flash_attention.py:_fwd_kernel`` and, for a
 causal sliding window no wider than the kernel's 64-row kv tile,
 ``_band_kernel`` (:795, K2), both reached from ``flash_attention`` (:1718),
-with their sliding-window and logit-softcap branches. What bounds the
-kernels on an H100 (tensor-core arithmetic at long kv) and what their design
-does about it is written at the top of csrc/flash_fwd.cu.
+with their sliding-window, logit-softcap and segment-id branches (K1d:
+packed sequences, each document attending only within itself). What bounds
+the kernels on an H100 (tensor-core arithmetic at long kv) and what their
+design does about it is written at the top of csrc/flash_fwd.cu.
 
 ``flash_attention`` runs the plain PyTorch version for CPU tensors and the
 CUDA kernel for CUDA tensors; there is no fallback from one to the other.
-``flash_attention.launches`` counts K1 launches and
-``flash_attention.band_launches`` K2's.
+``flash_attention.launches`` counts K1 launches,
+``flash_attention.band_launches`` K2's and
+``flash_attention.segment_launches`` K1d's (any call with segment ids).
 
 Under grad the call goes through ``FlashAttentionFunction``, the
 counterpart of the JAX package's custom VJP (``_fa``/``_fa_fwd``/``_fa_bwd``,
 :1650-1702): the forward runs once with its LSE and saves (q, k, v, out,
-lse2), and the backward is ``ops/attention_bwd.flash_attention_bwd`` (K3, or
-K4 + K5). The CPU takes the same Function with the plain forward and
-backward, so the CPU tests run the card's wiring. The backward kernels have
-no window or softcap branch yet, so under grad a window or a softcap raises
-(ROADMAP.md item 3b) rather than return the unmasked gradient.
+lse2) and the segment ids, and the backward is
+``ops/attention_bwd.flash_attention_bwd`` (K3, or K4 + K5) under the same
+window, softcap and ids. The CPU takes the same Function with the plain
+forward and backward, so the CPU tests run the card's wiring.
 """
 
 from __future__ import annotations
@@ -31,11 +32,19 @@ from torch.autograd.function import once_differentiable
 
 from flash_attention_tpu_torch.ops import _build
 from flash_attention_tpu_torch.ops.attention_bwd import flash_attention_bwd
-from flash_attention_tpu_torch.ops.common import LOG2E, M_FLOOR, MASK_VALUE
+from flash_attention_tpu_torch.ops.common import (
+    LOG2E,
+    M_FLOOR,
+    MASK_VALUE,
+    mask_window,
+    segment_operands,
+    segment_pair,
+    softcap2,
+    visible_mask,
+)
 
 # K2 takes a causal window no wider than K1's kv tile (csrc/flash_fwd.cu BN).
 BAND_MAX_WINDOW = 64
-_BWD_MASK_ITEM = "ROADMAP.md queue 1 item 3b (window and softcap of the backward kernels)"
 
 
 def flash_attention_plain(
@@ -49,8 +58,9 @@ def flash_attention_plain(
     sliding_window: int | None = None,
     logit_softcap: float | None = None,
     sinks: int = 0,
+    segments=None,
 ):
-    """The function K1 and K2 compute, in plain fp32 PyTorch.
+    """The function K1, K1d and K2 compute, in plain fp32 PyTorch.
 
     Materialises the [B, Hq, Sq, Skv] scores: the kernel's contract (exp2
     softmax, finite mask, max floored at M_FLOOR, 0 output and -inf LSE for a
@@ -58,7 +68,8 @@ def flash_attention_plain(
     s2 = cap * tanh(qk * sm_scale / cap) * log2(e) before the mask; the
     window keeps column j for end-aligned row i when j > i + kv_len - q_len
     - window, and with ``sinks`` (K8's StreamingLLM sinks) also when j <
-    sinks.
+    sinks; ``segments``, a (q_ids [B, Sq], kv_ids [B, Skv]) pair, keeps only
+    the pairs of equal ids.
     """
     batch, num_q_heads, q_len, head_dim = q.shape
     num_kv_heads, kv_len = k.shape[1], k.shape[2]
@@ -69,13 +80,9 @@ def flash_attention_plain(
     else:
         s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * sm_scale
         s2 = logit_softcap * torch.tanh(s / logit_softcap) * LOG2E
-    if causal:
-        row = torch.arange(q_len, device=q.device)[:, None] + (kv_len - q_len)
-        col = torch.arange(kv_len, device=q.device)[None, :]
-        ok = col <= row
-        if sliding_window is not None:
-            ok = ok & ((col > row - sliding_window) | (col < sinks))
-        s2 = torch.where(ok, s2, MASK_VALUE)
+    ok = visible_mask(q_len, kv_len, q.device, causal=causal, window=sliding_window, sinks=sinks, segments=segments)
+    if ok is not None:
+        s2 = torch.where(ok[:, None, None], s2, MASK_VALUE)
     m = s2.amax(dim=-1, keepdim=True).clamp_min(M_FLOOR)
     p = torch.exp2(s2 - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -110,15 +117,18 @@ def _validate(q, k, v, causal, sliding_window, logit_softcap):
         raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
 
 
-def _forward(q, k, v, causal: bool, sm_scale: float, save_residuals: bool, sliding_window=None, logit_softcap=None):
-    """K1 (K2 for a window of at most BAND_MAX_WINDOW) for CUDA tensors, the
-    plain version for CPU tensors."""
+def _forward(
+    q, k, v, causal: bool, sm_scale: float, save_residuals: bool, sliding_window=None, logit_softcap=None,
+    segments=None,
+):
+    """K1 (K2 for a window of at most BAND_MAX_WINDOW, K1d with segment ids)
+    for CUDA tensors, the plain version for CPU tensors."""
     batch, num_q_heads, q_len, head_dim = q.shape
     num_kv_heads, kv_len = k.shape[1], k.shape[2]
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, sm_scale=sm_scale, save_residuals=save_residuals,
-            sliding_window=sliding_window, logit_softcap=logit_softcap,
+            sliding_window=sliding_window, logit_softcap=logit_softcap, segments=segments,
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
@@ -130,13 +140,15 @@ def _forward(q, k, v, causal: bool, sm_scale: float, save_residuals: bool, slidi
         torch.empty((batch, num_q_heads, q_len), dtype=torch.float32, device=q.device)
         if save_residuals else None
     )
-    band = sliding_window is not None and sliding_window <= BAND_MAX_WINDOW
+    band = sliding_window is not None and sliding_window <= BAND_MAX_WINDOW and segments is None
     if out.numel():
+        seg = segment_operands(segments, q.device)
         lib = _build.kernels()
         with torch.cuda.device(q.device):
             err = lib.fat_flash_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(),
+                *(None if t is None else t.data_ptr() for t in seg),
                 batch, num_q_heads, num_kv_heads, q_len, kv_len, head_dim,
                 q.stride(0), q.stride(1), q.stride(2),
                 k.stride(0), k.stride(1), k.stride(2),
@@ -144,43 +156,42 @@ def _forward(q, k, v, causal: bool, sm_scale: float, save_residuals: bool, slidi
                 sm_scale * LOG2E, int(causal), mask_window(sliding_window), softcap2(logit_softcap), int(band),
                 _build.DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
             )
-        _build.check(err, "flash_attention (K2)" if band else "flash_attention (K1)")
-        if band:
+        if segments is not None:
+            _build.check(err, "flash_attention (K1d)")
+            flash_attention.segment_launches += 1
+        elif band:
+            _build.check(err, "flash_attention (K2)")
             flash_attention.band_launches += 1
         else:
+            _build.check(err, "flash_attention (K1)")
             flash_attention.launches += 1
     return (out, lse) if save_residuals else out
 
 
-def mask_window(sliding_window: int | None) -> int:
-    """The kernels' window argument: 0 for none."""
-    return 0 if sliding_window is None else int(sliding_window)
-
-
-def softcap2(logit_softcap: float | None) -> float:
-    """The kernels' softcap argument: cap * log2(e), the cap in the exp2
-    domain of their scores, or 0 for none."""
-    return 0.0 if logit_softcap is None else float(logit_softcap) * LOG2E
-
-
 class FlashAttentionFunction(torch.autograd.Function):
     """Attention with the backward kernels: one forward with its LSE, then
-    ``flash_attention_bwd`` on the saved residuals. The backward is not
+    ``flash_attention_bwd`` on the saved residuals under the forward's
+    masks. The segment ids (q_ids, kv_ids; both None without segments) get
+    no gradient, as the JAX package's float0 cotangents. The backward is not
     itself differentiable, on either device."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
-        out, lse2 = _forward(q, k, v, causal, sm_scale, save_residuals=True)
-        ctx.save_for_backward(q, k, v, out, lse2)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float, window, softcap, q_ids, kv_ids):
+        segments = None if q_ids is None else (q_ids, kv_ids)
+        out, lse2 = _forward(q, k, v, causal, sm_scale, True, window, softcap, segments)
+        ctx.save_for_backward(q, k, v, out, lse2, q_ids, kv_ids)
+        ctx.causal, ctx.sm_scale, ctx.window, ctx.softcap = causal, sm_scale, window, softcap
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, do):
-        q, k, v, out, lse2 = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse2, do, causal=ctx.causal, sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None
+        q, k, v, out, lse2, q_ids, kv_ids = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse2, do, causal=ctx.causal, sm_scale=ctx.sm_scale, window=ctx.window,
+            softcap=ctx.softcap, segments=None if q_ids is None else (q_ids, kv_ids),
+        )
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -193,6 +204,7 @@ def flash_attention(
     save_residuals: bool = False,
     sliding_window: int | None = None,
     logit_softcap: float | None = None,
+    segment_ids=None,
 ):
     """Fused multi-head attention forward, differentiable in q, k and v.
 
@@ -212,27 +224,30 @@ def flash_attention(
         q_seq - window (local attention, Mistral-style). A window of at most
         BAND_MAX_WINDOW runs K2 on the card.
       logit_softcap: > 0; scores become cap * tanh(score / cap) (Gemma-2).
-        Neither has a backward kernel yet: under grad either raises
-        NotImplementedError (ROADMAP.md item 3b).
+      segment_ids: packed-sequence ids, one [batch, seq] integer tensor
+        (needs q_seq == kv_seq) or a (q_ids [batch, q_seq], kv_ids [batch,
+        kv_seq]) pair: a row sees only the columns of its own id, with
+        causal and the window; a row whose id no column has gives 0 (and
+        LSE -inf). Runs K1d on the card, whatever the window.
+      Window, softcap and segment ids all hold under grad: the backward
+      kernels apply the forward's mask.
 
     Returns:
       [batch, q_heads, q_seq, head_dim] in q's dtype, plus the LSE if asked.
     """
     _validate(q, k, v, causal, sliding_window, logit_softcap)
+    segments = segment_pair(segment_ids, q.shape[0], q.shape[2], k.shape[2])
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
     if needs_grad and save_residuals:
         raise ValueError("flash_attention: save_residuals=True is not differentiable; call it under torch.no_grad()")
     if needs_grad:
-        if sliding_window is not None or logit_softcap is not None:
-            raise NotImplementedError(
-                f"flash_attention under grad with sliding_window={sliding_window!r}, "
-                f"logit_softcap={logit_softcap!r} is not ported yet: {_BWD_MASK_ITEM}"
-            )
-        return FlashAttentionFunction.apply(q, k, v, causal, sm_scale)
-    return _forward(q, k, v, causal, sm_scale, save_residuals, sliding_window, logit_softcap)
+        q_ids, kv_ids = segments or (None, None)
+        return FlashAttentionFunction.apply(q, k, v, causal, sm_scale, sliding_window, logit_softcap, q_ids, kv_ids)
+    return _forward(q, k, v, causal, sm_scale, save_residuals, sliding_window, logit_softcap, segments)
 
 
 flash_attention.launches = 0
 flash_attention.band_launches = 0
+flash_attention.segment_launches = 0

@@ -56,9 +56,9 @@ from typing import NamedTuple
 import torch
 
 from flash_attention_tpu_torch.ops import _build
-from flash_attention_tpu_torch.ops.common import LOG2E
+from flash_attention_tpu_torch.ops.common import LOG2E, mask_window, softcap2
 from flash_attention_tpu_torch.ops.decode import decode_attention_plain, scale_strides
-from flash_attention_tpu_torch.ops.flash_attention import flash_attention_plain, mask_window, softcap2
+from flash_attention_tpu_torch.ops.flash_attention import flash_attention_plain
 from flash_attention_tpu_torch.ops.quant import bits, payload_dtype, quantize_values
 
 # The kernels read a page in runs of rows that must not straddle it: K8 in

@@ -66,18 +66,19 @@ def _scale(absmax: torch.Tensor, qmax: float) -> torch.Tensor:
     return torch.where(absmax == 0.0, torch.ones_like(absmax), absmax / torch.full_like(absmax, qmax))
 
 
-def quantize_int8(x: torch.Tensor, *, dim=-1) -> QuantizedTensor:
-    """Symmetric int8 quantization, one scale per row over ``dim``."""
+def quantize_int8(x: torch.Tensor, *, axis: int = -1) -> QuantizedTensor:
+    """Symmetric int8 quantization, one scale per row over ``axis``."""
     xf = x.float()
-    scale = _scale(xf.abs().amax(dim=dim, keepdim=True), 127.0)
+    scale = _scale(xf.abs().amax(dim=axis, keepdim=True), 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return QuantizedTensor(q, scale)
 
 
-def quantize_fp8(x: torch.Tensor, *, dim=-1, dtype=torch.float8_e4m3fn) -> QuantizedTensor:
-    """fp8 quantization: each row scaled onto the format's finite range."""
+def quantize_fp8(x: torch.Tensor, *, axis: int = -1, dtype=torch.float8_e4m3fn) -> QuantizedTensor:
+    """fp8 quantization: each row over ``axis`` scaled onto the format's
+    finite range."""
     xf = x.float()
-    scale = _scale(xf.abs().amax(dim=dim, keepdim=True), payload_max(dtype))
+    scale = _scale(xf.abs().amax(dim=axis, keepdim=True), payload_max(dtype))
     return QuantizedTensor((xf / scale).to(dtype), scale)
 
 
@@ -107,11 +108,11 @@ def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
     return (qt.values.float() * qt.scales).to(dtype)
 
 
-def quantize_weight(w: torch.Tensor, *, contract_dims) -> QuantizedTensor:
+def quantize_weight(w: torch.Tensor, *, contract_axes) -> QuantizedTensor:
     """Weight-only symmetric int8 (W8A16), one scale per OUTPUT channel:
-    the absmax runs over ``contract_dims`` (the dims the matmul contracts),
+    the absmax runs over ``contract_axes`` (the axes the matmul contracts),
     which the scales keep with size 1 so ``values * scales`` broadcasts."""
-    dims = contract_dims if isinstance(contract_dims, (tuple, list)) else (contract_dims,)
+    dims = contract_axes if isinstance(contract_axes, (tuple, list)) else (contract_axes,)
     xf = w.float()
     scale = _scale(xf.abs().amax(dim=tuple(d % w.ndim for d in dims), keepdim=True), 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)

@@ -9,7 +9,9 @@ masks each batch row to its valid prefix. A row that sees no key gives output
 
 ``sliding_window`` (causal only) keeps column j for row i when j > i +
 (kv_len - q_len) - window; ``logit_softcap`` maps the scaled score s to
-cap * tanh(s / cap) before any mask.
+cap * tanh(s / cap) before any mask; ``segment_ids`` (packed sequences), one
+[B, S] tensor or a (q_ids [B, Sq], kv_ids [B, Skv]) pair, keeps only the
+pairs whose ids are equal. The masks combine by AND.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ def _expand_kv(q, k, v):
     return q.float(), kf, vf
 
 
-def _mask(q_len, kv_len, causal, kv_length, device, sliding_window=None):
+def _mask(q_len, kv_len, causal, kv_length, device, sliding_window=None, segment_ids=None):
     """Boolean [B or 1, 1, Sq, Skv] visibility mask, or None."""
     if sliding_window is not None and not causal:
         raise ValueError("sliding_window requires causal=True")
@@ -49,6 +51,10 @@ def _mask(q_len, kv_len, causal, kv_length, device, sliding_window=None):
             < kv_length.to(device)[:, None]
         )[:, None, None, :]
         mask = len_mask if mask is None else (mask & len_mask)
+    if segment_ids is not None:
+        q_ids, kv_ids = segment_ids if isinstance(segment_ids, (tuple, list)) else (segment_ids, segment_ids)
+        seg_mask = (q_ids.to(device)[:, :, None] == kv_ids.to(device)[:, None, :])[:, None]
+        mask = seg_mask if mask is None else (mask & seg_mask)
     return mask
 
 
@@ -60,13 +66,15 @@ def reference_attention(
     causal: bool = False,
     sm_scale: float | None = None,
     kv_length: torch.Tensor | None = None,
+    out_dtype: torch.dtype | None = None,
     sliding_window: int | None = None,
     logit_softcap: float | None = None,
+    segment_ids=None,
 ) -> torch.Tensor:
     """Naive fp32 attention over [B, H, S, D] inputs; returns [B, Hq, Sq, D].
 
     ``kv_length`` is an optional [B] integer tensor, the valid KV prefix per
-    batch row. The output has q's dtype.
+    batch row. The output has ``out_dtype``, q's dtype by default.
     """
     qf, kf, vf = _expand_kv(q, k, v)
     q_len, kv_len, head_dim = q.shape[2], k.shape[2], q.shape[3]
@@ -75,14 +83,14 @@ def reference_attention(
     scores = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
     if logit_softcap is not None:
         scores = logit_softcap * torch.tanh(scores / logit_softcap)
-    mask = _mask(q_len, kv_len, causal, kv_length, q.device, sliding_window)
+    mask = _mask(q_len, kv_len, causal, kv_length, q.device, sliding_window, segment_ids)
     if mask is not None:
         scores = torch.where(mask, scores, MASK_VALUE)
     weights = torch.softmax(scores, dim=-1)
     if mask is not None:
         weights = torch.where(mask.any(dim=-1, keepdim=True), weights, 0.0)
     out = torch.einsum("bhqk,bhkd->bhqd", weights, vf)
-    return out.to(q.dtype)
+    return out.to(out_dtype or q.dtype)
 
 
 def reference_attention_with_lse(
@@ -93,8 +101,10 @@ def reference_attention_with_lse(
     causal: bool = False,
     sm_scale: float | None = None,
     kv_length: torch.Tensor | None = None,
+    out_dtype: torch.dtype | None = None,
     sliding_window: int | None = None,
     logit_softcap: float | None = None,
+    segment_ids=None,
 ):
     """Like :func:`reference_attention`, also returning the base-2 LSE.
 
@@ -110,7 +120,7 @@ def reference_attention_with_lse(
     else:
         scores = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
         s2 = logit_softcap * torch.tanh(scores / logit_softcap) * LOG2E
-    mask = _mask(q_len, kv_len, causal, kv_length, q.device, sliding_window)
+    mask = _mask(q_len, kv_len, causal, kv_length, q.device, sliding_window, segment_ids)
     if mask is not None:
         s2 = torch.where(mask, s2, MASK_VALUE)
     m = s2.amax(dim=-1)
@@ -122,4 +132,4 @@ def reference_attention_with_lse(
         live = mask.any(dim=-1).expand_as(lse2)
         out = torch.where(live[..., None], out, 0.0)
         lse2 = torch.where(live, lse2, -torch.inf)
-    return out.to(q.dtype), lse2
+    return out.to(out_dtype or q.dtype), lse2

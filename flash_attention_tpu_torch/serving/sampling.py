@@ -10,13 +10,17 @@ parameters.
   * randomness is stateless: a slot's noise depends only on (seed,
     position), so completions are reproducible across runs and devices.
 
-The keep masks and greedy picks match the JAX package exactly; the Gumbel
-noise does not (see ``gumbel_noise``).
+The keep masks, the greedy picks and the Gumbel noise match the JAX
+package's bit for bit: ``gumbel_noise`` draws what ``jax.random.gumbel(
+jax.random.fold_in(jax.random.key(seed), position), (vocab,))`` draws
+(threefry2x32, partitionable random bits), on the logits' device, with no
+host sync, so sampled tokens are the JAX package's too.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import struct
 
 import torch
 
@@ -49,34 +53,110 @@ class SamplingParams:
 GREEDY = SamplingParams()
 
 
-_MASK64 = (1 << 64) - 1
+_U32 = 0xFFFFFFFF
+# threefry2x32's rotations, alternating by group of four rounds, and its key
+# schedule's parity constant (jax/_src/prng.py, Salmon et al. 2011).
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
 
 
-def _generator_seed(seed: int, pos: int) -> int:
-    """A 32-bit seed that depends on all bits of (seed, position): the CPU
-    generator (mt19937) keeps only the low 32 bits of what it is given, so
-    the pair goes through splitmix64's finaliser first."""
-    z = ((((seed & 0xFFFFFFFF) << 32) | (pos & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) & 0xFFFFFFFF
+def _threefry2x32(k1, k2, x1, x2):
+    """threefry2x32's 20 rounds on uint32 words carried in int64 tensors
+    (PyTorch has no full uint32 arithmetic): every sum is masked back to 32
+    bits. The inputs broadcast; returns the two output words."""
+
+    def rotl(x, d):
+        return ((x << d) | (x >> (32 - d))) & _U32
+
+    ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
+    x1 = (x1 + ks[0]) & _U32
+    x2 = (x2 + ks[1]) & _U32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _U32
+            x2 = rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _U32
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & _U32
+    return x1, x2
+
+
+def _f32(value: float) -> float:
+    """``value`` rounded to the nearest float32, as a Python float: as a
+    scalar operand it is exact in float32 and float64 arithmetic alike."""
+    return struct.unpack("f", struct.pack("f", value))[0]
+
+
+# _log's constants in float32, as XLA holds them: Python scalars, so a call
+# copies nothing to the device.
+_SQRT_HALF = _f32(0.707106781186547524)
+_LOG_POLY = tuple(_f32(c) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1, 1.4249322787e-1,
+    -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1))
+_LN2_LO, _LN2_HI = _f32(-2.12194440e-4), _f32(0.693359375)
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to float32 (each a float32 tensor or a float32
+    value as a Python float): the product of two float32 values is exact in
+    float64, so only the sum rounds (twice, which differs from one rounding
+    only for a sum that lands exactly between two float32 neighbours after
+    the first)."""
+
+    def wide(x):
+        return x.double() if isinstance(x, torch.Tensor) else x
+
+    return (wide(a) * wide(b) + wide(c)).float()
+
+
+def _log(x: torch.Tensor) -> torch.Tensor:
+    """float32 natural log of positive x as XLA's CPU backend computes it
+    (Cephes' logf polynomial with the multiply-adds it fuses), which is not
+    always the correctly rounded log that ``torch.log`` gives: the Gumbel
+    noise then matches jax.random's bit for bit. Inputs below the smallest
+    normal float32 are raised to it, as XLA does."""
+    x = x.float().clamp_min(torch.finfo(torch.float32).tiny)
+    bits = x.view(torch.int32)
+    # frexp: mantissa in [0.5, 1) and exponent; then centre on sqrt(1/2).
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
+    e = (((bits >> 23) & 0xFF) - 126).float()
+    low = m < _SQRT_HALF
+    e = e - low.float()
+    m = (m - 1.0) + torch.where(low, m, 0.0)
+    x2 = m * m
+    x3 = x2 * m
+    p = _LOG_POLY
+    y0 = _fma(_fma(p[0], m, p[1]), m, p[2])
+    y1 = _fma(_fma(p[3], m, p[4]), m, p[5])
+    y2 = _fma(_fma(p[6], m, p[7]), m, p[8])
+    y0 = _fma(_fma(y0, x3, y1), x3, y2)
+    y = _fma(y0, x3, e * _LN2_LO)
+    m = _fma(-0.5, x2, m) + y
+    return _fma(_LN2_HI, e, m)
 
 
 def gumbel_noise(seeds: torch.Tensor, positions: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Standard Gumbel noise [batch, vocab] on the CPU, one row per (seed,
-    position) pair, from a CPU ``torch.Generator`` seeded with both.
+    """Standard Gumbel noise [batch, vocab] fp32 on the seeds' device, row i
+    from (seeds[i], positions[i]) alone, bit-equal to the JAX package's
+    ``jax.random.gumbel(fold_in(key(seed), position), (vocab,))`` under
+    threefry2x32 with partitionable bits:
 
-    The same pair gives the same row on every run and device. It does NOT
-    reproduce the JAX package's bits (jax.random's threefry keys), so sampled
-    (temperature > 0) tokens differ between the packages; greedy tokens do
-    not. Reading the seeds and positions waits for the device.
+      key = (0, seed);  key' = threefry(key, (0, position))     fold_in
+      bits[j] = xor of threefry(key', (0, j))                   random_bits
+      u = max(tiny, (bits >> 9 | 1.0's bits) as float - 1 + tiny)  uniform
+      g = -log(-log(u))
+
+    All rows at once in integer tensor ops: no host sync, no loop over rows.
     """
-    rows = []
-    for seed, pos in zip(seeds.tolist(), positions.tolist()):
-        gen = torch.Generator().manual_seed(_generator_seed(seed, pos))
-        u = torch.rand(vocab, generator=gen).clamp_min(torch.finfo(torch.float32).tiny)
-        rows.append(-torch.log(-torch.log(u)))
-    return torch.stack(rows)
+    seed = seeds.to(torch.int64) & _U32
+    pos = positions.to(device=seed.device, dtype=torch.int64) & _U32
+    zero = torch.zeros_like(seed)
+    k1, k2 = _threefry2x32(zero, seed, zero, pos)
+    count = torch.arange(vocab, dtype=torch.int64, device=seed.device)[None, :]
+    b1, b2 = _threefry2x32(k1[:, None], k2[:, None], torch.zeros_like(count), count)
+    mantissa = (((b1 ^ b2) >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    tiny = torch.finfo(torch.float32).tiny
+    u = (mantissa * (1.0 - tiny) + tiny).clamp_min(tiny)
+    return -_log(-_log(u))
 
 
 def sample_tokens(
@@ -124,6 +204,6 @@ def sample_tokens(
     keep_p = logits >= thresh
 
     masked = torch.where(keep_k & keep_p, logits, -torch.inf)
-    g = gumbel_noise(seeds, positions, vocab).to(logits.device)
+    g = gumbel_noise(seeds.to(logits.device), positions, vocab)
     sampled_tok = torch.argmax(masked / temp_safe + g, dim=-1).to(torch.int32)
     return torch.where(temperature > 0, sampled_tok, greedy_tok)

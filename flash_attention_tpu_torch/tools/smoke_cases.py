@@ -70,6 +70,47 @@ def k6_split(card: str) -> dict:
     return {"ms": ms, "device_ms": device_ms, "host_us": host_us}
 
 
+def _model(cfg):
+    import torch
+
+    from flash_attention_tpu_torch.models.transformer import init_model_params
+
+    return init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+
+
+def full_train(card: str) -> dict:
+    """Phase 14 (ModelConfig() trained at B=1, T=2048, then the 4-layer MHA
+    step) on fresh weights from seed 0."""
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.models.transformer import ModelConfig
+
+    return cs.phase_full_train(card, _model(ModelConfig()))
+
+
+def sampling(card: str) -> None:
+    """Phase 5's sampling check and decode-step times on fresh ModelConfig()
+    weights from seed 0."""
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.models.transformer import ModelConfig
+
+    cs.phase_sampling(card, _model(ModelConfig()))
+
+
+def mistral_steps(card: str) -> dict:
+    """Two steps of phase 20a (Mistral-7B's shape, window 4096, B=1, T=8192)
+    on fresh weights from seed 0: step times and peak memory."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.models.transformer import ModelConfig
+
+    cfg = ModelConfig(**cs.MISTRAL)
+    rng = np.random.default_rng(20)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, cs.TRAIN_T + 1))).cuda() for _ in range(2)]
+    return cs._train_steps(card, "[mistral steps] window 4096", _model(cfg), cfg, batches, used=("K1", "K4m", "K5m"))
+
+
 def _one(funcs: list[str]) -> None:
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs

@@ -187,11 +187,22 @@ def test_cpu_output_carries_the_autograd_function():
 
 
 def test_backward_options_not_ported_raise():
+    """The wrapper's gradients under each mask option of the JAX backward
+    (a window, a softcap, segment ids) equal autograd's through the plain
+    forward under the same mask."""
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(6, 1, 2, 2, 8, 8, 32))
-    out, lse = flash_attention_plain(q, k, v, causal=True, sm_scale=0.2, save_residuals=True)
-    for option in ({"window": 4}, {"softcap": 30.0}, {"segments": (torch.zeros(1, 8), torch.zeros(1, 8))}):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            flash_attention_bwd(q, k, v, out, lse, do, causal=True, sm_scale=0.2, **option)
+    ids = torch.tensor([[0, 0, 0, 1, 1, 2, 2, 2]])
+    options = ({"window": 4}, {"softcap": 0.5}, {"segments": (ids, ids)})
+    for option in options:
+        fwd = dict(sliding_window=option.get("window"), logit_softcap=option.get("softcap"),
+                   segments=option.get("segments"))
+        out, lse = flash_attention_plain(q, k, v, causal=True, sm_scale=0.2, save_residuals=True, **fwd)
+        got = flash_attention_bwd(q, k, v, out, lse, do, causal=True, sm_scale=0.2, **option)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        plain_out = flash_attention_plain(*leaves, causal=True, sm_scale=0.2, save_residuals=False, **fwd)
+        want = torch.autograd.grad(plain_out, leaves, do)
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= 1e-5, option
 
 
 def test_backward_wrapper_refuses_other_devices():

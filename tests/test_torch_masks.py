@@ -122,13 +122,17 @@ def test_reference_masks_match_jax():
 
 
 def test_masks_under_grad_raise():
-    """The backward kernels have no masked branches yet: under grad a window
-    or a softcap raises instead of returning the unmasked gradient."""
+    """Under grad a window or a softcap runs the port's autograd Function
+    and gives the masked oracle's gradient, not the unmasked one."""
     q, k, v = (torch.rand(1, 2, 16, D) - 0.5 for _ in range(3))
     q.requires_grad_()
-    for kw in ({"sliding_window": 4}, {"logit_softcap": 30.0}):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 3b"):
-            flash_attention(q, k, v, causal=True, **kw)
+    for kw in ({"sliding_window": 4}, {"logit_softcap": 0.3}):
+        out = flash_attention(q, k, v, causal=True, **kw)
+        assert out.grad_fn is not None
+        (got,) = torch.autograd.grad(out.sum(), q)
+        (want,) = torch.autograd.grad(reference_attention(q, k, v, causal=True, **kw).sum(), q)
+        (unmasked,) = torch.autograd.grad(reference_attention(q, k, v, causal=True).sum(), q)
+        assert float((got - want).abs().max()) <= FP32_TOL < float((got - unmasked).abs().max())
         with torch.no_grad():
             assert flash_attention(q, k, v, causal=True, **kw).grad_fn is None
     assert flash_attention(q, k, v, causal=True).grad_fn is not None

@@ -25,6 +25,7 @@ from flash_attention_tpu_torch.models import attention as tattn
 from flash_attention_tpu_torch.models import transformer as tt
 from flash_attention_tpu_torch.models.convert import params_from_jax
 from flash_attention_tpu_torch.models.rope import apply_rope
+from flash_attention_tpu_torch.ops.reference import reference_attention
 
 OP_TOL = 1e-4
 LOGIT_TOL = 1e-3
@@ -161,14 +162,25 @@ def test_decode_write_drops_at_capacity(start):
     ],
 )
 def test_unported_configs_raise(override):
-    """The masks serve, but training under them is not ported (the backward
-    kernels have no masked branches): train_forward and attention_forward
-    raise naming ROADMAP.md item 3b instead of returning unmasked grads."""
+    """Training under the serving configs' masks: attention_forward applies
+    the config's window and softcap (the cache options rolling, sinks and
+    kv_quant do not touch the cache-free path, as in the JAX package) and
+    equals the masked oracle over the same projections; train_forward's
+    loss has a finite gradient for every float leaf."""
     cfg = tt.ModelConfig(**{**CFG, **override})
     params = tt.init_model_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 3b"):
-        tt.train_forward(params, cfg, torch.zeros((1, 8), dtype=torch.long))
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, CFG["vocab_size"], (1, 41)))
+    leaves = [t for t in jax.tree.leaves(params) if t.is_floating_point()]
+    for t in leaves:
+        t.requires_grad_()
+    logits = tt.train_forward(params, cfg, tokens[:, :-1])
+    loss = torch.nn.functional.cross_entropy(logits[0], tokens[0, 1:])
+    assert all(bool(torch.isfinite(g).all()) for g in torch.autograd.grad(loss, leaves))
     attn_override = {k: v for k, v in override.items() if k != "weight_quant"}
     acfg = dataclasses.replace(tt.ModelConfig(**CFG).attention_config(), **attn_override)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 3b"):
-        tattn.attention_forward(params["layers"][0]["attn"], acfg, torch.zeros((1, 8, CFG["model_dim"])))
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(1, 80, CFG["model_dim"])).astype(np.float32))
+    lp = params["layers"][0]["attn"]
+    got = tattn.attention_forward(lp, acfg, x)
+    q, k, v = tattn._project_qkv(lp, acfg, x, torch.arange(80)[None, None, :])
+    o = reference_attention(q, k, v, causal=True, sliding_window=acfg.sliding_window, logit_softcap=acfg.logit_softcap)
+    assert float((got - tattn._output_proj(lp, o, x.dtype)).detach().abs().max()) <= OP_TOL

@@ -4,8 +4,8 @@ The port's ServingEngine (plain attention versions on the CPU) must give
 the same greedy tokens as the JAX ServingEngine (Pallas kernels in interpret
 mode) on the same parameters, with more requests than slots so slots get
 refilled. fp32 weights keep argmax ties deterministic. Sampling masks are
-compared exactly; the Gumbel noise is the port's own (see
-serving/sampling.py) and is checked for reproducibility, not for JAX's bits.
+compared exactly, and the Gumbel noise is equal to JAX's bits (see
+serving/sampling.py).
 """
 
 import jax
@@ -142,6 +142,10 @@ def test_sampling_is_reproducible_and_truncated():
     noise = gumbel_noise(torch.tensor([3, 3, 4]), torch.tensor([7, 8, 7]), 64)
     again = gumbel_noise(torch.tensor([3]), torch.tensor([7]), 64)
     assert torch.equal(noise[0], again[0])
+    # Reproducible across packages too: each row is JAX's draw, bit for bit.
+    want = [np.asarray(jax.random.gumbel(jax.random.fold_in(jax.random.key(s), p), (64,), jnp.float32))
+            for s, p in ((3, 7), (3, 8), (4, 7))]
+    assert np.array_equal(noise.numpy().view(np.uint32), np.stack(want).view(np.uint32))
     assert not torch.equal(noise[0], noise[1]) and not torch.equal(noise[0], noise[2])
     assert bool(torch.isfinite(noise).all())
 

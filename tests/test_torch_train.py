@@ -125,11 +125,16 @@ def test_loss_and_every_gradient_match_jax(kv_heads, t):
 
 
 def test_segment_ids_raise_naming_the_roadmap_item():
+    """A batch that is one document gives the unpacked logits and attention
+    output, and two documents give others."""
     jcfg, tcfg, _, tparams = _model(2)
     tokens = torch.from_numpy(_tokens(5, (1, 16))).long()
-    segments = torch.zeros((1, 16), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tt.train_forward(tparams, tcfg, tokens, segment_ids=segments)
-    x = torch.zeros((1, 16, CFG["model_dim"]))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tattn.attention_forward(tparams["layers"][0]["attn"], tcfg.attention_config(), x, segment_ids=segments)
+    one_doc = torch.zeros((1, 16), dtype=torch.int32)
+    two_docs = torch.tensor([[0] * 9 + [1] * 7], dtype=torch.int32)
+    plain = tt.train_forward(tparams, tcfg, tokens)
+    assert _diff(tt.train_forward(tparams, tcfg, tokens, segment_ids=one_doc), plain.detach()) <= OUT_TOL
+    assert _diff(tt.train_forward(tparams, tcfg, tokens, segment_ids=two_docs), plain.detach()) > OUT_TOL
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(1, 16, CFG["model_dim"])).astype(np.float32))
+    lp, acfg = tparams["layers"][0]["attn"], tcfg.attention_config()
+    want = tattn.attention_forward(lp, acfg, x).detach()
+    assert _diff(tattn.attention_forward(lp, acfg, x, segment_ids=one_doc), want) <= OUT_TOL
