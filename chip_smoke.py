@@ -136,6 +136,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 at 4 layers, one packed step, exactly K1d and K3m. Losses,
                 step ms, tokens/s, peak memory, the attention kernels' share
                 of (a)'s step and (b)'s attention over (a)'s.
+ 21. probes   — P1-P6 (csrc/probes.cu: body T for P1, P3, P4, body S for
+                P2, P5, P6) through each tool's ``run`` on a shortened
+                sweep (P1 at seq 2048 over the four tile shapes and at 8192
+                over one; P2, P5, P6 at 512 and 1024; P3 at 1024 over four
+                tiles and 8192 over two; P4 at 8192 over one), 32 heads,
+                head_dim 128: every variant within its tool's row-relative
+                bar of its plain version and, where it computes attention,
+                within 0.1 of the fp32 oracle, timed beside its plain
+                version, bound and SDPA; each probe's run launches exactly
+                its body (P5 also K1). The whole sweeps run from
+                ``python3 -m flash_attention_tpu_torch.tools.<probe>``.
 
 Every phase prints kernel, plain-version, library-call and bound times
 (the bound: the larger of the bytes over 3.35 TB/s and the operations over
@@ -450,11 +461,13 @@ def _counters() -> dict:
     a quantized one (the K*q instantiations) in .quant_launches; the forward
     counts K1d (segment ids) in .segment_launches, and the backward
     launchers their masked instantiations (K3m, K4m, K5m: a window, softcap
-    or segment ids) in .masked_launches."""
+    or segment ids) in .masked_launches; the probes' bodies T and S count as
+    PT and PS."""
     from flash_attention_tpu_torch.ops.attention_bwd import launch_dkv, launch_dq, launch_fused
     from flash_attention_tpu_torch.ops.decode import decode_attention
     from flash_attention_tpu_torch.ops.flash_attention import flash_attention
     from flash_attention_tpu_torch.ops.paged import paged_decode_attention, paged_prefill_attention, paged_write_tokens_multi
+    from flash_attention_tpu_torch.tools.probes import launch_single, launch_tiled
 
     return {
         "K1": (flash_attention, "launches"), "K2": (flash_attention, "band_launches"),
@@ -466,6 +479,7 @@ def _counters() -> dict:
         "K7": (paged_decode_attention, "launches"), "K7q": (paged_decode_attention, "quant_launches"),
         "K8": (paged_prefill_attention, "launches"), "K8q": (paged_prefill_attention, "quant_launches"),
         "K9/K10": (paged_write_tokens_multi, "launches"), "K9q/K10q": (paged_write_tokens_multi, "quant_launches"),
+        "PT": (launch_tiled, "launches"), "PS": (launch_single, "launches"),
     }
 
 
@@ -3022,6 +3036,59 @@ def phase_full_train_masked(card: str, attn_ms: dict) -> dict:
     torch.cuda.empty_cache()
     return {key: run["launches"] for key, run in runs.items()}
 
+# Phase 21: each probe tool's shortened sweep, its variant that stands for it
+# in the kernels' line, and the kernels its run must launch.
+PROBES = (
+    ("P1", "softmax_probe", "SMOKE_SWEEP", "softmax_probe.py:29", (8192, "c=1 128x64 f32"), ("PT",)),
+    ("P2", "mfu_probe", "SEQS", "mfu_probe.py:36", (1024, "full"), ("PS",)),
+    ("P3", "grid_probe", "SMOKE_SWEEP", "grid_probe.py:23", (8192, "128x128 par"), ("PT",)),
+    ("P4", "causal_probe", "SMOKE_TILES", "causal_probe.py:28", (8192, "128x128 skip=1 mask=cond"), ("PT",)),
+    ("P5", "gap_probe", "SEQS", "gap_probe.py:27", (1024, "bare S"), ("PS", "K1")),
+    ("P6", "epilogue_probe", "SEQS", "epilogue_probe.py:25", (1024, "after_pv"), ("PS",)),
+)
+
+
+def phase_probes(card: str) -> list:
+    """Phase 21: the probes P1-P6 (csrc/probes.cu, bodies T and S) through
+    their tools' ``run`` on a shortened sweep: every variant's output on the
+    card against its plain version, row by row within the bar its tool
+    states (``tools/probes.py``: PLAIN_BAR, BF16_BAR), and, where it
+    computes attention, within ORACLE_BAR of the fp32 oracle; each timed
+    beside its plain version, its bound and SDPA. Each probe's run starts
+    with every launch count at 0 and must launch exactly its kernels (P5's
+    real rows also K1). Returns the kernels' line entries, one a probe."""
+    import importlib
+
+    import torch
+
+    entries = []
+    t0 = time.perf_counter()
+    for probe, module, sweep, replaces, (seq, variant), used in PROBES:
+        tool = importlib.import_module(f"flash_attention_tpu_torch.tools.{module}")
+        t_probe = time.perf_counter()
+        zero_counts()
+        rows = tool.run(getattr(tool, sweep), quick=True, log=lambda line: log(f"[probes] {line}"))
+        launches = read_counts()
+        check_launches(f"[probes] {probe}", launches, used)
+        timed = [r for r in rows if "ms" in r]
+        rep = next(r for r in timed if r["seq"] == seq and r["variant"] == variant)
+        log(f"[probes] {probe} ({module}): {len(timed)} variants within their bars, worst row-relative "
+            f"{max(r['rel_plain'] / r['bar'] for r in timed):.3f} of its bar, worst |kernel - oracle| "
+            f"{max((r['oracle_err'] for r in timed if r['oracle_err'] is not None), default=0.0):.3e}; "
+            f"launches {launches}; {time.perf_counter() - t_probe:.1f} s ({card})")
+        body = "T" if used[0] == "PT" else "S"
+        entries.append({
+            "name": f"probe {probe}, body {body}: {variant} at seq {seq}", "route": "cuda",
+            "source": "flash_attention_tpu_torch/csrc/probes.cu", "replaces": f"tools/{replaces}",
+            "launches": launches[used[0]], "max_abs_err": max(r["abs_plain"] for r in timed),
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": rep["sdpa_ms"],
+        })
+        del rows, timed
+        torch.cuda.empty_cache()
+    log(f"[probes] phase 21 took {time.perf_counter() - t0:.1f} s ({card})")
+    return entries
+
 
 def main() -> None:
     import torch
@@ -3084,8 +3151,9 @@ def main() -> None:
     masked.update(train_masked)
     masked = [{"name": names[key][0], "route": "cuda", "source": source + names[key][1],
                "replaces": f"{REFERENCE}/{names[key][2]}", **masked[key]} for key in names]
+    probes = phase_probes(card)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k6, k7, k8, k10, *quant.values(), *bwd.values(), *masked]}))
+    print(json.dumps({"kernels": [k1, k6, k7, k8, k10, *quant.values(), *bwd.values(), *masked, *probes]}))
     print(card)
     print(json.dumps({
         "ok": True,

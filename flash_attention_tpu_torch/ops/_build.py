@@ -162,6 +162,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, entry)
         fn.restype = c.c_int
         fn.argtypes = [ptr] * (6 + n_out) + bwd_args
+    # The probes' bodies (csrc/probes.cu; flash_attention_tpu_torch/tools/probes.py).
+    lib.fat_probe_tiled.restype = c.c_int
+    lib.fat_probe_tiled.argtypes = [
+        ptr, ptr, ptr, ptr, i64, i64,  # q, k, v, o, heads, seq
+        i32, i32, i32, i32, i32, i32, ptr,  # bm, bn, arith, skip, mask, grid, stream
+    ]
+    lib.fat_probe_single.restype = c.c_int
+    lib.fat_probe_single.argtypes = [
+        ptr, ptr, ptr, ptr, i64, i64, f32,  # q, k, v, o, heads, seq, scale2
+        i32, i32, i32, i32, ptr,  # stage, epilogue, mask, hb, stream
+    ]
     lib.fat_error_string.restype = c.c_char_p
     lib.fat_error_string.argtypes = [c.c_int]
 
