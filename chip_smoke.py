@@ -63,22 +63,28 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 weights and an int8 cache on phase 5's requests, and
                 PagedServingEngine with an fp8_e4m3 cache on phase 8's runs;
                 K6q, K7q, K8q and K10q launched, K6, K7, K8 and K10 not.
- 12. backward — K3, K4 and K5 (flash_bwd.cu) in bf16 through
+ 12. backward — K3 (flash_bwd.cu) and K4, K5 and K5's split sum K5s
+                (flash_bwd_sm90.cu: wgmma on TMA-fed tiles in bf16 / fp16;
+                flash_bwd.cu's FMA bodies in fp32) in bf16 through
                 flash_attention's autograd Function (whose card output must
                 carry it): K4 + K5 at q [1,32,2048,128] over kv
                 [1,8,2048,128] and at q_len 256 end-aligned, K3 at
                 [1,32,2048,128] causal and not; dq, dk and dv within 0.1 of
                 autograd through the fp32 oracle and row by row within
-                REL_BAR of flash_attention_bwd_plain; kernel, plain,
-                SDPA-backward and bound times. Then every (dtype, head_dim)
-                instantiation at lengths 1, 63, 129 and 1000.
+                REL_BAR of flash_attention_bwd_plain; K4 and K5 bit-identical
+                over two calls; kernel, plain, SDPA-backward and bound times,
+                TFLOP/s, share of 989 and K4 + K5 over SDPA; K5s alone,
+                exactly its plain version. Then every (dtype, head_dim)
+                instantiation at lengths 1, 63, 129 and 1000, and across the
+                128- and 64-row tile edges (lengths 127-257, GQA groups
+                1-8, q_len < kv_len, K5 split and not, batch 2).
  13. tiny train — the tiny fp32 model, GQA (K1, K4, K5) and MHA (K1, K3):
                 loss and every parameter's gradient on the card equal the
                 CPU's within 1e-4 of each leaf's largest gradient.
  14. full train — ModelConfig() on phase 5's weights at B=1, T=2048: three
                 steps of forward + backward with finite loss and gradients
                 and no all-zero weight gradient, then an SGD step along -g
-                that lowers the loss; exactly K1, K4 and K5 launched. Then
+                that lowers the loss; exactly K1, K4, K5 and K5s launched. Then
                 ModelConfig(num_kv_heads=32, num_layers=4) one step, K1
                 and K3 launched. Step ms, training tokens/s, peak memory.
  15. masked   — the masked kernels in bf16 against their plain versions
@@ -106,7 +112,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 slot, the pool full again after; K7, K8, K10 only) and (d)
                 softcap 50 on phase 5's requests.
  18. masked backward — K1d (flash_fwd.cu, segment ids) and the masked
-                K3, K4 and K5 (flash_bwd.cu: K3m, K4m, K5m) in bf16 through
+                K3, K4 and K5 (K3m in flash_bwd.cu, K4m and K5m in
+                flash_bwd_sm90.cu; K4m and K5m bit-identical over two
+                calls) in bf16 through
                 flash_attention's autograd Function, each call launching
                 exactly its route's kernels: gradients row by row within
                 REL_BAR of flash_attention_bwd_plain and within 0.1 of
@@ -124,7 +132,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 a few kv heads at a time and timed beside plain, SDPA with the
                 equivalent boolean mask and the unwindowed causal K4 / K5.
                 Then every (dtype, head_dim) instantiation at ragged
-                shapes.
+                shapes and windows 1-129 and 1000.
  19. tiny masked train — the tiny fp32 model with window 24 and softcap
                 30, packed and not, GQA and MHA: loss and every gradient on
                 the card equal the CPU's within 1e-4 of each leaf's largest.
@@ -189,6 +197,7 @@ QUANT_MODES = ("int8", "fp8_e4m3", "fp8_e5m2")
 LONG = dict(slots=32, rows=8192)  # BASELINE config 4: 32 slots x 8192 rows, 32 q / 8 kv heads, head_dim 128
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+PEAK_FP32 = 67e12  # H100 SXM fp32 rate off the tensor cores
 
 
 def log(msg: str) -> None:
@@ -461,9 +470,9 @@ def _counters() -> dict:
     a quantized one (the K*q instantiations) in .quant_launches; the forward
     counts K1d (segment ids) in .segment_launches, and the backward
     launchers their masked instantiations (K3m, K4m, K5m: a window, softcap
-    or segment ids) in .masked_launches; the probes' bodies T and S count as
-    PT and PS."""
-    from flash_attention_tpu_torch.ops.attention_bwd import launch_dkv, launch_dq, launch_fused
+    or segment ids) in .masked_launches, and K5's split sum counts as K5s;
+    the probes' bodies T and S count as PT and PS."""
+    from flash_attention_tpu_torch.ops.attention_bwd import launch_dkv, launch_dkv_sum, launch_dq, launch_fused
     from flash_attention_tpu_torch.ops.decode import decode_attention
     from flash_attention_tpu_torch.ops.flash_attention import flash_attention
     from flash_attention_tpu_torch.ops.paged import paged_decode_attention, paged_prefill_attention, paged_write_tokens_multi
@@ -474,7 +483,7 @@ def _counters() -> dict:
         "K1d": (flash_attention, "segment_launches"),
         "K3": (launch_fused, "launches"), "K4": (launch_dq, "launches"), "K5": (launch_dkv, "launches"),
         "K3m": (launch_fused, "masked_launches"), "K4m": (launch_dq, "masked_launches"),
-        "K5m": (launch_dkv, "masked_launches"),
+        "K5m": (launch_dkv, "masked_launches"), "K5s": (launch_dkv_sum, "launches"),
         "K6": (decode_attention, "launches"), "K6q": (decode_attention, "quant_launches"),
         "K7": (paged_decode_attention, "launches"), "K7q": (paged_decode_attention, "quant_launches"),
         "K8": (paged_prefill_attention, "launches"), "K8q": (paged_prefill_attention, "quant_launches"),
@@ -1660,7 +1669,8 @@ TRAIN_TOKENS = 2048  # the training sequence of the JAX package's benchmark (ben
 SGD_LRS = (1.0, 0.3, 0.1, 0.03)  # the SGD check's steps, largest first
 
 
-def _bwd_inputs(seed: int, hq: int, hkv: int, q_len: int, kv_len: int, d: int, dtype, *, strided_do: bool = True):
+def _bwd_inputs(seed: int, hq: int, hkv: int, q_len: int, kv_len: int, d: int, dtype, *, strided_do: bool = True,
+                batch: int = 1):
     """U(-0.5, 0.5) q, k, v and an N(0, 1) cotangent dO. With ``strided_do``
     dO is a [B, S, H, D] buffer seen as [B, H, S, D] (unit last stride,
     strided heads and rows), as a cotangent coming back through the output
@@ -1669,27 +1679,42 @@ def _bwd_inputs(seed: int, hq: int, hkv: int, q_len: int, kv_len: int, d: int, d
 
     from flash_attention_tpu_torch.utils.testing import make_qkv
 
-    q, k, v = make_qkv(seed, 1, hq, q_len, d, num_kv_heads=hkv, kv_seq=kv_len, dtype=dtype, device="cuda")
+    q, k, v = make_qkv(seed, batch, hq, q_len, d, num_kv_heads=hkv, kv_seq=kv_len, dtype=dtype, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     if strided_do:
-        do = torch.randn((1, q_len, hq, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+        do = torch.randn((batch, q_len, hq, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
     else:
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
     return q, k, v, do
 
 
-def _route(hq: int, hkv: int, q_len: int, kv_len: int, window=None, softcap=None, segment_ids=None) -> tuple:
+def _splits(batch: int, hq: int, hkv: int, kv_len: int, dtype) -> int:
+    """The blocks K5 splits a kv tile's GQA group over on this card: 1 in
+    fp32 (the FMA body), ``dkv_splits`` in bf16 / fp16."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.attention_bwd import TENSOR_CORE_DTYPES, dkv_splits
+
+    if dtype not in TENSOR_CORE_DTYPES:
+        return 1
+    return dkv_splits(batch, hkv, kv_len, hq // hkv, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def _route(hq: int, hkv: int, q_len: int, kv_len: int, window=None, softcap=None, segment_ids=None, *, dtype=None,
+           batch: int = 1) -> tuple:
     """The kernels one causal-or-not call under grad launches: its forward
     (K1d with segment ids, K2 for a window of at most 64, else K1) and its
     backward (K3 for MHA self-attention, else K4 + K5; K3m, K4m, K5m, their
-    masked instantiations, with any mask)."""
+    masked instantiations, with any mask; and K5s, K5's split sum, where
+    ``_splits`` of a bf16 / fp16 call is above 1)."""
     if segment_ids is not None:
         fwd = "K1d"
     else:
         fwd = "K2" if window is not None and window <= 64 else "K1"
     bwd = ("K3",) if hq == hkv and q_len == kv_len else ("K4", "K5")
     masked = window is not None or softcap is not None or segment_ids is not None
-    return (fwd, *(name + "m" if masked else name for name in bwd))
+    split = ("K5s",) if bwd != ("K3",) and _splits(batch, hq, hkv, kv_len, dtype) > 1 else ()
+    return (fwd, *(name + "m" if masked else name for name in bwd), *split)
 
 
 def _hold_bwd(what: str, q, k, v, do, causal: bool = True, *, rel_bar: float, window=None, softcap=None,
@@ -1719,7 +1744,7 @@ def _hold_bwd(what: str, q, k, v, do, causal: bool = True, *, rel_bar: float, wi
     grads = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
     check_launches(what, read_counts(), _route(q.shape[1], k.shape[1], q.shape[2], k.shape[2], window, softcap,
-                                               segment_ids))
+                                               segment_ids, dtype=q.dtype, batch=q.shape[0]))
     del leaves, out
     with torch.no_grad():
         out_r, lse = flash_attention(q, k, v, causal=causal, save_residuals=True, **masks)
@@ -1743,10 +1768,29 @@ def _hold_bwd(what: str, q, k, v, do, causal: bool = True, *, rel_bar: float, wi
     return grads, (out_r, lse), d_plain, d_rel, d_oracle
 
 
+def _same_twice(what: str, fn) -> None:
+    """Two calls of ``fn`` on the same inputs return bit-identical tensors."""
+    import torch
+
+    first, second = fn(), fn()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise RuntimeError(f"{what}: two calls on the same inputs differ")
+
+
+def _rates(flops: float, ms: float) -> str:
+    return f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * flops / ms / 1e9 / (PEAK_FLOPS / 1e12):.1f} % of 989"
+
+
 def phase_bwd_kernels(card: str) -> dict:
     """Phase 12: K3, K4 and K5 in bf16 at BWD_CASES, each through the
     autograd path and against its plain version and the oracle; kernel,
-    plain, SDPA-backward and bound times. Returns the report entries."""
+    plain, SDPA-backward and bound times, each kernel's TFLOP/s and share
+    of the 989 TFLOP/s peak, K4 + K5 over SDPA's backward; K4 and K5 twice
+    on the same inputs, bit-identical (K5 split and not); then K5's split
+    sum (K5s) alone on the T=2048 case's workspace against its plain
+    version. Returns the report entries."""
     import torch
     import torch.nn.functional as F
 
@@ -1754,8 +1798,10 @@ def phase_bwd_kernels(card: str) -> dict:
         _delta,
         _guard_lse,
         bwd_route,
+        dkv_split_sum_plain,
         flash_attention_bwd_plain,
         launch_dkv,
+        launch_dkv_sum,
         launch_dq,
         launch_fused,
     )
@@ -1772,6 +1818,9 @@ def phase_bwd_kernels(card: str) -> dict:
         args = (q, k, v, do, _guard_lse(lse).contiguous(), _delta(out, do).contiguous())
         kw = dict(causal=causal, sm_scale=d**-0.5)
         kernels = {"K3": launch_fused} if route == "fused" else {"K4": launch_dq, "K5": launch_dkv}
+        if route != "fused":
+            for name, fn in kernels.items():
+                _same_twice(f"backward {shape} {name}", lambda fn=fn: fn(*args, **kw))
         times = {name: cuda_ms(lambda fn=fn: fn(*args, **kw)) for name, fn in kernels.items()}
         # The forward of the same autograd call (K1 with its LSE), for the step's breakdown.
         fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal, save_residuals=True))
@@ -1794,21 +1843,54 @@ def phase_bwd_kernels(card: str) -> dict:
         for name, ms in times.items():
             flops = 2 * d * pairs * hq * products[name]
             bound_ms, bound_by = bound(flops, in_bytes + outs[name])
-            parts.append(f"{name} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; bound {bound_ms:.4f} ms by {bound_by})")
+            parts.append(f"{name} {ms:.4f} ms ({_rates(flops, ms)}; bound {bound_ms:.4f} ms by {bound_by})")
             if (hq, hkv, q_len, kv_len, causal) in (BWD_CASES[0], BWD_CASES[2]):
                 report[name] = {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                                 "bound_ms": bound_ms, "bound_by": bound_by}
+        split = _splits(1, hq, hkv, kv_len, bf16)
+        ratio = f"{sum(times.values()) / lib_ms:.3f}"
         log(
             f"[backward] {shape}, {route}: |grad-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), |grad-plain| "
             f"{d_plain:.3e}, row-relative to plain {d_rel:.3e} (bar {REL_BAR['bfloat16']}); "
-            + ", ".join(parts) + f"; plain (dq, dk, dv) {plain_ms:.4f} ms, SDPA backward (library, dq, dk, dv) "
-            f"{lib_ms:.4f} ms; its forward, K1 with LSE, {fwd_ms:.4f} ms ({card})"
+            + ", ".join(parts) + (f" (K5 over {split} split(s), its sum included)" if route != "fused" else "")
+            + f"; {' + '.join(times)} over SDPA's backward {ratio}; plain (dq, dk, dv) {plain_ms:.4f} ms, SDPA "
+            f"backward (library, dq, dk, dv) {lib_ms:.4f} ms; its forward, K1 with LSE, {fwd_ms:.4f} ms ({card})"
         )
         del q, k, v, do, out, lse, args
+    # K5s alone, at the T=2048 case's workspace [2, 1, 8, splits, 2048, 128].
+    hq, hkv, q_len, kv_len, _ = BWD_CASES[0]
+    splits = _splits(1, hq, hkv, kv_len, bf16)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    ws = torch.randn((2, 1, hkv, splits, kv_len, d), generator=gen, device="cuda")
+    dk, dv = (torch.empty((1, hkv, kv_len, d), dtype=bf16, device="cuda") for _ in range(2))
+    launch_dkv_sum(ws, dk, dv)
+    plain = dkv_split_sum_plain(ws, bf16)
+    err = max(_max_diff(a, b) for a, b in zip((dk, dv), plain))
+    if err != 0.0:
+        raise RuntimeError(f"K5s: |sum - plain| {err} (the same additions in the same order must agree exactly)")
+    sum_ms = cuda_ms(lambda: launch_dkv_sum(ws, dk, dv))
+    sum_plain_ms = cuda_ms(lambda: dkv_split_sum_plain(ws, bf16))
+    # fp32 adds off the tensor cores (67 TFLOP/s) against the bytes.
+    sum_ops_ms, sum_bytes_ms = ws.numel() / PEAK_FP32 * 1e3, (4 * ws.numel() + 2 * 2 * dk.numel()) / PEAK_BYTES * 1e3
+    sum_bound, sum_by = (sum_ops_ms, "operations") if sum_ops_ms >= sum_bytes_ms else (sum_bytes_ms, "bytes")
+    log(f"[backward] K5s (K5's split sum) over workspace {list(ws.shape)} fp32: {sum_ms:.4f} ms, plain {sum_plain_ms:.4f} "
+        f"ms, bound {sum_bound:.4f} ms by {sum_by}; |sum - plain| {err} ({card})")
+    report["K5s"] = {"max_abs_err": err, "ms": sum_ms, "plain_ms": sum_plain_ms, "library_ms": None,
+                     "bound_ms": sum_bound, "bound_by": sum_by}
+    del ws, dk, dv, plain
     torch.cuda.empty_cache()
-    names = {"K3": ("flash_bwd_fused (K3)", 594), "K4": ("flash_bwd_dq (K4)", 65), "K5": ("flash_bwd_dkv (K5)", 317)}
-    return {key: {"name": names[key][0], "route": "cuda", "source": "flash_attention_tpu_torch/csrc/flash_bwd.cu",
+    sm90 = "flash_attention_tpu_torch/csrc/flash_bwd_sm90.cu"
+    names = {"K3": ("flash_bwd_fused (K3)", 594, "flash_attention_tpu_torch/csrc/flash_bwd.cu"),
+             "K4": ("dq_kernel, wgmma + TMA (K4)", 65, sm90), "K5": ("dkv_kernel, wgmma + TMA (K5)", 317, sm90),
+             "K5s": ("split_sum_kernel, K5's split sum (K5s)", 317, sm90)}
+    return {key: {"name": names[key][0], "route": "cuda", "source": names[key][2],
                   "replaces": f"{REFERENCE}/ops/attention_bwd.py:{names[key][1]}", **report[key]} for key in names}
+
+
+# Phase 12's sweep across the tensor-core bodies' tile edges (64 and 128
+# rows): lengths, GQA groups and q_len < kv_len end-aligned.
+EDGE_LENGTHS = (127, 128, 129, 255, 257)
+EDGE_GROUPS = (1, 2, 4, 8)
 
 
 def phase_bwd_sweep() -> None:
@@ -1816,7 +1898,13 @@ def phase_bwd_sweep() -> None:
     lengths (1, 63, 129, 1000): MHA self-attention causal and not (K3),
     GQA group 4 self-attention and group 2 with q_len < kv_len end-aligned
     (K4 + K5), MHA cross-length (K4 + K5); a cotangent with a strided last
-    dimension (copied by the wrapper) on the fp32 cases."""
+    dimension (copied by the wrapper) on the fp32 cases. Then across the
+    tensor-core tiles' edges: lengths EDGE_LENGTHS at GQA groups 2, 4 and 8
+    of 8 q heads (self-attention, K5 split over every q head) and q_len <
+    kv_len end-aligned at groups EDGE_GROUPS (group 1 is K4 + K5 without a
+    split); one case of 64 q over 8 kv heads at T=1100, where K5 splits the
+    group of 8 over 4 blocks of 2 heads; one of batch 2. Every case within
+    ORACLE_BAR of the oracle's gradients and REL_BAR of plain."""
     import torch
 
     worst, n = 0.0, 0
@@ -1839,6 +1927,32 @@ def phase_bwd_sweep() -> None:
         f"[backward sweep] K3, K4 and K5 at fp32/fp16/bf16 x head_dim 32/64/128 x lengths 1/63/129/1000, MHA, "
         f"GQA 4 and 2, cross-length, {n} cases: all within {ORACLE_BAR} of the oracle's gradients; worst "
         f"row-relative difference to plain at {worst:.3f} of its bar {REL_BAR}"
+    )
+    worst, n0 = 0.0, n
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for d in (32, 64, 128):
+            for length in EDGE_LENGTHS:
+                cases = [(8, 8 // g, length, length, True) for g in EDGE_GROUPS[1:]]
+                cases += [(8, 8 // g, length - 66, length, True) for g in EDGE_GROUPS]
+                cases.append((8, 2, length, length, False))
+                for hq, hkv, q_len, kv_len, causal in cases:
+                    what = f"backward edges {name} d={d} {hq}/{hkv} q {q_len} kv {kv_len} causal={causal}"
+                    q, k, v, do = _bwd_inputs(n, hq, hkv, q_len, kv_len, d, dtype)
+                    _, _, _, d_rel, _ = _hold_bwd(what, q, k, v, do, causal, rel_bar=REL_BAR[name])
+                    worst = max(worst, d_rel / REL_BAR[name])
+                    n += 1
+            for hq, hkv, length, batch in ((64, 8, 1100, 1), (8, 2, 300, 2)):
+                what = f"backward edges {name} d={d} batch {batch} {hq}/{hkv} T {length}"
+                q, k, v, do = _bwd_inputs(n, hq, hkv, length, length, d, dtype, batch=batch)
+                _, _, _, d_rel, _ = _hold_bwd(what, q, k, v, do, True, rel_bar=REL_BAR[name])
+                worst = max(worst, d_rel / REL_BAR[name])
+                n += 1
+    log(
+        f"[backward sweep] across the tile edges: lengths {list(EDGE_LENGTHS)}, groups {list(EDGE_GROUPS)}, q_len < "
+        f"kv_len end-aligned, non-causal, 64/8 heads at T=1100 (K5 over {_splits(1, 64, 8, 1100, torch.bfloat16)} "
+        f"splits of the group of 8), batch 2, at fp32/fp16/bf16 x head_dim 32/64/128, {n - n0} cases: all within "
+        f"{ORACLE_BAR} of the oracle's gradients; worst row-relative difference to plain at {worst:.3f} of its bar"
     )
 
 
@@ -1999,8 +2113,9 @@ def phase_full_train(card: str, params) -> dict:
     cfg = ModelConfig()
     rng = np.random.default_rng(14)
     batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, TRAIN_TOKENS + 1))).cuda() for _ in range(3)]
+    used = _route(cfg.num_q_heads, cfg.num_kv_heads, TRAIN_TOKENS, TRAIN_TOKENS, dtype=torch.bfloat16)
     gqa = _train_steps(card, f"[full train] ModelConfig() bf16, weights {_nbytes(params) / 1e9:.3f} GB and their "
-                       "gradients as much,", params, cfg, batches, used=("K1", "K4", "K5"))
+                       "gradients as much,", params, cfg, batches, used=used)
     _sgd_check("[full train]", params, cfg, batches[-1], gqa["losses"][-1])
     for t in _tensors(params):
         t.grad = None
@@ -2029,6 +2144,8 @@ DENSE_LENGTHS = (0, 1, 100, 4095, 4096, 4097, 9000, 9216)  # K6 dense window ove
 RING_LENGTHS = (0, 1, 4095, 4096, 4352, 4353, 9000, 20000)  # K6 over the ring: lengths pass its rows
 MASKED_PROMPT_LENS = (1, 255, 1024, 4095, 4096, 4097, 6000, 9000)  # phase 17, run A
 SWEEP_WINDOWS = (1, 63, 64, 65, 1000)
+# Phase 18's sweep: also the windows either side of the tensor-core bodies' 128-row tiles.
+BWD_SWEEP_WINDOWS = (1, 63, 64, 65, 127, 128, 129, 1000)
 
 
 def _ring_row(p: int, rows: int, sinks: int = 0) -> int:
@@ -2787,7 +2904,7 @@ def masked_bwd_cases() -> None:
         if "absent" in what:
             if not (bool(torch.isfinite(grads[0]).all()) and bool((grads[0][:, :, 100:140] == 0).all())):
                 raise RuntimeError(f"[masked backward] {what}: the absent id's dq rows are not finite zeros")
-        route = _route(hq, hkv, q_len, kv_len, **masks)
+        route = _route(hq, hkv, q_len, kv_len, **masks, dtype=bf16)
         log(f"[masked backward] {what}: {route}; |grad-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), |grad-plain| "
             f"{d_plain:.3e}, row-relative to plain {d_rel:.3e} (bar {bar})")
         del q, k, v, do, grads
@@ -2836,8 +2953,11 @@ def _time_bwd(card: str, label: str, q, k, v, do, *, window=None, softcap=None, 
     masks = BwdMasks(window, softcap, segments, q.device)
     args = (q, k, v, do, _guard_lse(lse).contiguous(), _delta(out, do).contiguous())
     kw = dict(causal=True, sm_scale=scale, masks=masks)
-    route = _route(hq, hkv, q_len, kv_len, window, softcap, segment_ids)[1:]
     fns = {"K3m": launch_fused, "K4m": launch_dq, "K5m": launch_dkv}
+    route = [name for name in _route(hq, hkv, q_len, kv_len, window, softcap, segment_ids) if name in fns]
+    for name in route:
+        if name != "K3m":  # K3 adds dq with atomics, in a run-dependent order
+            _same_twice(f"[masked backward] {label} {name}", lambda fn=fns[name]: fn(*args, **kw))
     times = {name: cuda_ms(lambda fn=fns[name]: fn(*args, **kw)) for name in route}
     plain_ms = cuda_ms(lambda: _by_kv_head(lambda qh, oh, lh, dh, kh, vh: flash_attention_bwd_plain(
         qh, kh, vh, oh, lh, dh, causal=True, sm_scale=scale, window=window, softcap=softcap, segments=segments),
@@ -2855,12 +2975,13 @@ def _time_bwd(card: str, label: str, q, k, v, do, *, window=None, softcap=None, 
     for name, ms in times.items():
         bound_ms, bound_by = _bwd_bound(name, d, hq, pairs, q, k)
         flops = 2 * d * pairs * hq * {"K3m": 5, "K4m": 3, "K5m": 4}[name]
-        parts.append(f"{name} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; bound {bound_ms:.4f} ms by {bound_by})")
+        parts.append(f"{name} {ms:.4f} ms ({_rates(flops, ms)}; bound {bound_ms:.4f} ms by {bound_by})")
         report[name] = {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by}
+    ratio = "" if lib_ms is None else f", {' + '.join(times)} over it {sum(times.values()) / lib_ms:.3f}"
     log(f"[masked backward] {label}: |grad-oracle| {d_oracle:.3e}, |grad-plain| {d_plain:.3e}, row-relative "
         f"{d_rel:.3e}; " + ", ".join(parts) + f"; plain (dq, dk, dv) {plain_ms:.4f} ms, SDPA backward (library) "
-        + ("none" if lib_ms is None else f"{lib_ms:.4f} ms") + f"; {pairs} visible pairs a head ({card})")
+        + ("none" if lib_ms is None else f"{lib_ms:.4f} ms") + ratio + f"; {pairs} visible pairs a head ({card})")
     return report
 
 
@@ -2932,9 +3053,9 @@ def phase_masked_bwd(card: str) -> dict:
 
 def phase_masked_bwd_sweep() -> None:
     """Every (dtype, head_dim) instantiation of the masked K3, K4 and K5 (and
-    K1d's forward) at ragged shapes: windows 1, 63, 64, 65 and 1000 (at 65
+    K1d's forward) at ragged shapes: windows BWD_SWEEP_WINDOWS (at 65
     softcap BITE_CAP with q scaled by BITE_Q, else q x 4), MHA
-    self-attention (K3m), GQA 4/2 self-attention and q 100
+    self-attention (K3m), GQA 4/2 and 8/1 self-attention and q 100
     end-aligned over kv 300 (K4m + K5m); segment ids of three documents at
     windows 63 and 1000."""
     import torch
@@ -2943,9 +3064,9 @@ def phase_masked_bwd_sweep() -> None:
     for dtype in (torch.float32, torch.float16, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         for d in (32, 64, 128):
-            for window in SWEEP_WINDOWS:
+            for window in BWD_SWEEP_WINDOWS:
                 softcap = BITE_CAP if window == 65 else None
-                for hq, hkv, q_len, kv_len in ((4, 4, 300, 300), (4, 2, 300, 300), (4, 2, 100, 300)):
+                for hq, hkv, q_len, kv_len in ((4, 4, 300, 300), (4, 2, 300, 300), (8, 1, 300, 300), (4, 2, 100, 300)):
                     ids = None
                     if window in (63, 1000):
                         kv_ids = _packed_ids((130, 101, 69))
@@ -2958,7 +3079,7 @@ def phase_masked_bwd_sweep() -> None:
                     worst = max(worst, d_rel / REL_BAR[name])
                     n += 1
     log(f"[masked backward sweep] K3m, K4m and K5m (forward K1, K2 or K1d) at fp32/fp16/bf16 x head_dim 32/64/128 x "
-        f"windows {list(SWEEP_WINDOWS)} (softcap {BITE_CAP} with q x {BITE_Q} at 65, three documents at 63 and 1000), "
+        f"windows {list(BWD_SWEEP_WINDOWS)} (softcap {BITE_CAP} with q x {BITE_Q} at 65, three documents at 63 and 1000), "
         f"MHA, GQA, cross-length, {n} cases: all within {ORACLE_BAR} of the masked oracle's gradients; worst "
         f"row-relative difference to plain at {worst:.3f} of its bar {REL_BAR}")
 
@@ -3121,6 +3242,7 @@ def main() -> None:
     train = phase_full_train(card, params)
     bwd["K3"]["launches"] = train["mha"]["K3"]
     bwd["K4"]["launches"], bwd["K5"]["launches"] = train["gqa"]["K4"], train["gqa"]["K5"]
+    bwd["K5s"]["launches"] = train["gqa"]["K5s"]
     del params  # phase 17 brings its own model, and its peak memory is its own
     masked = phase_masked_kernels(card)
     phase_masked_sweep()
@@ -3145,8 +3267,8 @@ def main() -> None:
         "K8s": ("paged_prefill, window + sinks (K8)", "flash_fwd.cu", "ops/paged.py:580"),
         "K1d": ("flash_fwd, segment ids (K1d)", "flash_fwd.cu", "ops/flash_attention.py:61"),
         "K3m": ("flash_bwd_fused, masked (K3)", "flash_bwd.cu", "ops/attention_bwd.py:594"),
-        "K4m": ("flash_bwd_dq, masked (K4)", "flash_bwd.cu", "ops/attention_bwd.py:65"),
-        "K5m": ("flash_bwd_dkv, masked (K5)", "flash_bwd.cu", "ops/attention_bwd.py:317"),
+        "K4m": ("dq_kernel, wgmma + TMA, masked (K4)", "flash_bwd_sm90.cu", "ops/attention_bwd.py:65"),
+        "K5m": ("dkv_kernel, wgmma + TMA, masked (K5)", "flash_bwd_sm90.cu", "ops/attention_bwd.py:317"),
     }
     masked.update(train_masked)
     masked = [{"name": names[key][0], "route": "cuda", "source": source + names[key][1],

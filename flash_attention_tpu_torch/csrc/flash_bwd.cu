@@ -9,6 +9,10 @@
 //   K4  ops/attention_bwd.py:65   _bwd_dq_kernel     -> flash_bwd_dq_kernel
 //   K5  ops/attention_bwd.py:317  _bwd_dkv_kernel    -> flash_bwd_dkv_kernel<FUSED = false>
 //   K3  ops/attention_bwd.py:594  _bwd_fused_kernel  -> flash_bwd_dkv_kernel<FUSED = true>
+// K4 and K5 run these bodies in fp32 only: in bf16 and fp16 the C entries
+// fat_flash_bwd_dq and fat_flash_bwd_dkv dispatch to the tensor-core bodies
+// of csrc/flash_bwd_sm90.cu, which round P and dS to the input type before
+// their products. K3 runs these bodies in every dtype.
 // Same function, the flash-attention-2 recurrence in fp32 with P recomputed
 // from the forward's base-2 LSE (the caller has replaced an LSE of -inf by 0
 // and computed delta = rowsum(dO * O) in fp32):
@@ -39,9 +43,10 @@
 // What bounds them on this card: every (q, kv) pair the mask leaves costs
 // 3 (K4), 4 (K5) or 5 (K3) products of 2 * D FLOPs against O((q_len +
 // kv_len) * D) bytes, so at training lengths arithmetic bounds all three.
-// This first version does that arithmetic as fp32 FMAs over shared-memory
-// tiles, not on the tensor cores, so it runs far below the card's bf16
-// rate; wgmma with TMA-fed tiles is later work.
+// These bodies do that arithmetic as fp32 FMAs over shared-memory tiles,
+// not on the tensor cores, so they run far below the card's bf16 rate; K3's
+// redesign on wgmma with TMA-fed tiles, as flash_bwd_sm90.cu's for K4 and
+// K5, is later work.
 //
 // Design (256 threads a block; each thread owns 2 rows x 8 columns of a
 // 64 x 64 score tile and 2 rows x D/8 columns of a 64 x D accumulator):
@@ -63,6 +68,7 @@
 //    bank conflicts; q, k, v and dO are read through their batch, head and
 //    row strides, so a strided cotangent or a view is not copied.
 #include "common.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
@@ -489,11 +495,17 @@ struct BwdLaunch {
 
   template <typename T, typename P, int D>
   cudaError_t launch() const {
-    if (p.window < 0 || (p.window > 0 && !p.causal)) return cudaErrorInvalidValue;
-    if (p.seg_q != nullptr && (p.seg_kv == nullptr || p.q_rng == nullptr || p.kv_rng == nullptr))
+    // K4 and K5 take this body in fp32 only (bf16 / fp16: flash_bwd_sm90.cu),
+    // so only K3 is instantiated for the 16-bit types.
+    if constexpr (PASS != Pass::kFused && !std::is_same_v<T, float>) {
       return cudaErrorInvalidValue;
-    if (p.window > 0 || p.softcap2 > 0.f || p.seg_q != nullptr) return run<T, D, true>();
-    return run<T, D, false>();
+    } else {
+      if (p.window < 0 || (p.window > 0 && !p.causal)) return cudaErrorInvalidValue;
+      if (p.seg_q != nullptr && (p.seg_kv == nullptr || p.q_rng == nullptr || p.kv_rng == nullptr))
+        return cudaErrorInvalidValue;
+      if (p.window > 0 || p.softcap2 > 0.f || p.seg_q != nullptr) return run<T, D, true>();
+      return run<T, D, false>();
+    }
   }
 };
 
@@ -577,19 +589,41 @@ int run(const void* q, const void* k, const void* v, const void* dout, const flo
   const BwdMasks masks{window, softcap2, seg_q, seg_kv, q_rng, kv_rng}
 #define FAT_BWD_SHAPE batch, num_q_heads, num_kv_heads, q_len, kv_len, head_dim, st
 
-// K4: dq [B, Hq, Sq, D] in q's dtype.
+// The tensor-core bodies' call (csrc/flash_bwd_sm90.cu) for K4 or K5 in
+// bf16 / fp16: outputs out0, out1, lse and delta rows lse_pitch apart.
+#define FAT_BWD_SM90_CALL(out0, out1, splits)                                                       \
+  fat::Sm90BwdCall{q,        k,         v,       dout,     lse,      delta,    out0,   out1,      \
+                   batch,    num_q_heads, num_kv_heads, q_len, kv_len, head_dim, lse_pitch, st,    \
+                   scale2,   sm_scale,  causal,  window,   softcap2, seg_q,    seg_kv, q_rng,     \
+                   kv_rng,   splits,    dtype,   static_cast<cudaStream_t>(stream)}
+
+// K4: dq [B, Hq, Sq, D] in q's dtype. lse and delta rows are lse_pitch
+// apart: q_len for fp32 (the FMA body), a multiple of 64 padded with 0 for
+// bf16 / fp16 (the tensor-core body).
 extern "C" int fat_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                                const float* lse, const float* delta, void* dq, FAT_BWD_ARGS) {
+                                const float* lse, const float* delta, void* dq, FAT_BWD_ARGS,
+                                int64_t lse_pitch) {
   FAT_BWD_STRIDES;
+  if (dtype != fat::kFloat32)
+    return static_cast<int>(fat::sm90_bwd_dq(FAT_BWD_SM90_CALL(dq, nullptr, 1)));
+  if (lse_pitch != q_len) return static_cast<int>(cudaErrorInvalidValue);
   return run<Pass::kDq>(q, k, v, dout, lse, delta, dq, nullptr, nullptr, FAT_BWD_SHAPE, scale2,
                         sm_scale, causal, masks, dtype, stream);
 }
 
-// K5: dk and dv [B, Hkv, Skv, D], summed over each kv head's q heads.
+// K5: dk and dv [B, Hkv, Skv, D], summed over each kv head's q heads; lse
+// and delta as K4's. In bf16 / fp16 with splits > 1 the group's q heads are
+// split over that many blocks, which write fp32 partials into workspace
+// [2, B, Hkv, splits, Skv, D] for fat_flash_bwd_dkv_sum; fp32 takes 1 split.
 extern "C" int fat_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                  const float* lse, const float* delta, void* dk, void* dv,
-                                 FAT_BWD_ARGS) {
+                                 FAT_BWD_ARGS, int64_t lse_pitch, int32_t splits, float* workspace) {
   FAT_BWD_STRIDES;
+  if (dtype != fat::kFloat32) {
+    if (splits > 1) return static_cast<int>(fat::sm90_bwd_dkv(FAT_BWD_SM90_CALL(workspace, nullptr, splits)));
+    return static_cast<int>(fat::sm90_bwd_dkv(FAT_BWD_SM90_CALL(dk, dv, 1)));
+  }
+  if (lse_pitch != q_len || splits != 1) return static_cast<int>(cudaErrorInvalidValue);
   return run<Pass::kDkv>(q, k, v, dout, lse, delta, nullptr, dk, dv, FAT_BWD_SHAPE, scale2,
                          sm_scale, causal, masks, dtype, stream);
 }

@@ -157,11 +157,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, ptr,  # dtype, stream
     ]
     # q, k, v, dO, lse, delta, then the outputs: dq (K4); dk, dv (K5); fp32
-    # dq accumulator, dk, dv (K3).
+    # dq accumulator, dk, dv (K3). K4 and K5 then take the lse / delta row
+    # pitch, and K5 its split count and fp32 workspace.
+    tails = {"fat_flash_bwd_dq": [i64], "fat_flash_bwd_dkv": [i64, i32, ptr], "fat_flash_bwd_fused": []}
     for entry, n_out in (("fat_flash_bwd_dq", 1), ("fat_flash_bwd_dkv", 2), ("fat_flash_bwd_fused", 3)):
         fn = getattr(lib, entry)
         fn.restype = c.c_int
-        fn.argtypes = [ptr] * (6 + n_out) + bwd_args
+        fn.argtypes = [ptr] * (6 + n_out) + bwd_args + tails[entry]
+    lib.fat_flash_bwd_dkv_sum.restype = c.c_int
+    lib.fat_flash_bwd_dkv_sum.argtypes = [
+        ptr, ptr, ptr, i64, i32, i64,  # workspace, dk, dv, B * Hkv, splits, Skv * D
+        i32, ptr,  # dtype, stream
+    ]
     # The probes' bodies (csrc/probes.cu; flash_attention_tpu_torch/tools/probes.py).
     lib.fat_probe_tiled.restype = c.c_int
     lib.fat_probe_tiled.argtypes = [

@@ -1,12 +1,15 @@
-"""Attention backward: kernels K3, K4 and K5 (csrc/flash_bwd.cu) and their plain version.
+"""Attention backward: kernels K3, K4 and K5 and their plain version.
 
 Counterpart of the JAX package's ``ops/attention_bwd.py:flash_attention_bwd``
 (:978). Replaces its three Pallas kernels: ``_bwd_fused_kernel`` (K3, :594,
 one pass for dq, dk and dv), ``_bwd_dq_kernel`` (K4, :65) and
 ``_bwd_dkv_kernel`` (K5, :317, dk and dv summed over the GQA group), with
-their window, softcap and segment-id branches. What bounds each on an H100
-and what its design does about it is written at the top of
-csrc/flash_bwd.cu.
+their window, softcap and segment-id branches. K3, and K4 and K5 in fp32,
+run the FMA bodies of csrc/flash_bwd.cu; K4 and K5 in bf16 and fp16 run
+the tensor-core bodies of csrc/flash_bwd_sm90.cu (wgmma on TMA-fed tiles,
+P and dS rounded to the input type before their products). What bounds
+each on an H100 and what its design does about it is written at the top of
+each source.
 
 The recurrence (S = Q Kᵀ, P recomputed from the forward's base-2 LSE):
 
@@ -27,15 +30,33 @@ routes as the JAX package does: K3 for MHA self-attention (group 1, q_len ==
 kv_len), K4 + K5 otherwise. ``launch_fused.launches``,
 ``launch_dq.launches`` and ``launch_dkv.launches`` count the launches of
 K3, K4 and K5's unmasked instantiations, and ``.masked_launches`` those of
-their masked ones (a window, a softcap or segment ids).
+their masked ones (a window, a softcap or segment ids);
+``launch_dkv_sum.launches`` counts K5's split sum (K5s), launched after K5
+when ``dkv_splits`` splits a kv head's group over blocks.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from flash_attention_tpu_torch.ops import _build
-from flash_attention_tpu_torch.ops.common import LOG2E, mask_window, segment_operands, softcap2, visible_mask
+from flash_attention_tpu_torch.ops.common import (
+    LOG2E,
+    ceil_to,
+    mask_window,
+    segment_operands,
+    softcap2,
+    visible_mask,
+)
+
+# dtypes whose K4 and K5 run on the tensor cores (csrc/flash_bwd_sm90.cu).
+TENSOR_CORE_DTYPES = (torch.float16, torch.bfloat16)
+DKV_TILE = 128  # kv rows a K5 block of the tensor-core body owns
+ROW_PAD = 64  # the tensor-core bodies read lse and delta in rows padded to this
+TMA_ALIGN = 16  # bytes: TMA's base address and stride alignment
 
 
 def bwd_route(num_q_heads: int, num_kv_heads: int, q_len: int, kv_len: int) -> str:
@@ -95,13 +116,60 @@ def flash_attention_bwd_plain(
     return dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def dkv_splits(batch: int, num_kv_heads: int, kv_len: int, group: int, num_sms: int) -> int:
+    """How many blocks K5's tensor-core body splits each kv tile's GQA group
+    (``group`` q heads) over: the smallest divisor of the group that gives
+    at least two blocks an SM, else the whole group (one q head a block).
+    One split writes dk and dv directly; more write fp32 partials that
+    ``launch_dkv_sum`` adds."""
+    blocks = -(-kv_len // DKV_TILE) * batch * num_kv_heads
+    for splits in range(1, group + 1):
+        if group % splits == 0 and blocks * splits >= 2 * num_sms:
+            return splits
+    return group
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def tma_aligned(x: torch.Tensor) -> bool:
+    """Whether TMA can read ``x`` [B, H, S, D] as it lies: unit last stride,
+    a 16-byte-aligned base and 16-byte-multiple strides (a dimension of
+    extent 1 is never stepped over, so its stride does not count)."""
+    size = x.element_size()
+    return (
+        x.stride(-1) == 1
+        and x.data_ptr() % TMA_ALIGN == 0
+        and all(n == 1 or st * size % TMA_ALIGN == 0 for n, st in zip(x.shape[:-1], x.stride()[:-1]))
+    )
+
+
+def tma_operands(*tensors: torch.Tensor) -> list[torch.Tensor]:
+    """The operands as the tensor-core bodies take them: each one itself if
+    ``tma_aligned``, else a contiguous copy (only that one is copied)."""
+    return [x if tma_aligned(x) else x.clone(memory_format=torch.contiguous_format) for x in tensors]
+
+
+def _padded_rows(x: torch.Tensor) -> torch.Tensor:
+    """lse or delta [B, Hq, Sq] fp32 with rows padded with 0 to a multiple of
+    ROW_PAD columns and a 16-byte-aligned base (K5 copies 64 of them at a
+    time); unchanged when it is so already."""
+    pad = ceil_to(x.shape[-1], ROW_PAD) - x.shape[-1]
+    if pad:
+        x = F.pad(x, (0, pad))
+    return x if x.data_ptr() % TMA_ALIGN == 0 else x.clone()
+
+
 def _strides(*tensors) -> list[int]:
     return [s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))]
 
 
-def _launch(entry: str, what: str, q, k, v, do, lse, delta, outs, *, causal, sm_scale, masks) -> None:
+def _launch(entry: str, what: str, q, k, v, do, lse, delta, outs, *, causal, sm_scale, masks, tail=()) -> None:
     """One C entry of csrc/flash_bwd.cu over (q, k, v, dO, lse, delta) into
-    the output tensors ``outs``, under ``masks`` (``BwdMasks``)."""
+    the output tensors ``outs``, under ``masks`` (``BwdMasks``), with the
+    entry's own trailing arguments ``tail``."""
     if q.device.type != "cuda":
         raise ValueError(f"{what} launches on cuda tensors, got {q.device}")
     batch, num_q_heads, q_len, head_dim = q.shape
@@ -114,7 +182,7 @@ def _launch(entry: str, what: str, q, k, v, do, lse, delta, outs, *, causal, sm_
             batch, num_q_heads, num_kv_heads, q_len, kv_len, head_dim,
             *_strides(q, k, v, do),
             sm_scale * LOG2E, sm_scale, int(causal), *masks.c_args(), _build.DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
+            torch.cuda.current_stream(q.device).cuda_stream, *tail,
         )
     _build.check(err, what)
 
@@ -167,24 +235,79 @@ def launch_fused(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float, mask
     return dq_acc.to(q.dtype), dk, dv
 
 
+def _tensor_core_args(q, k, v, do, lse, delta):
+    """The operands as K4 and K5 take them, with the lse / delta row pitch:
+    for bf16 / fp16 (the tensor-core bodies) TMA-ready operands and padded
+    rows, for fp32 (the FMA bodies) the operands as given."""
+    if q.dtype not in TENSOR_CORE_DTYPES:
+        return (q, k, v, do, lse, delta), q.shape[2]
+    lse, delta = _padded_rows(lse), _padded_rows(delta)
+    return (*tma_operands(q, k, v, do), lse, delta), lse.shape[-1]
+
+
 def launch_dq(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float, masks: BwdMasks = BwdMasks.NONE):
-    """K4: dq, one block per 64-row q tile walking the kv tiles it sees."""
+    """K4: dq. In bf16 / fp16 one block per 128-row q tile on the tensor
+    cores, in fp32 one per 64-row tile on FMAs, each walking the kv tiles it
+    sees; each dq element is written once."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("fat_flash_bwd_dq", "flash_attention_bwd (K4)", q, k, v, do, lse, delta, (dq,),
-            causal=causal, sm_scale=sm_scale, masks=masks)
+    args, pitch = _tensor_core_args(q, k, v, do, lse, delta)
+    _launch("fat_flash_bwd_dq", "flash_attention_bwd (K4)", *args, (dq,),
+            causal=causal, sm_scale=sm_scale, masks=masks, tail=(pitch,))
     masks.count(launch_dq)
     return dq
 
 
 def launch_dkv(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float, masks: BwdMasks = BwdMasks.NONE):
-    """K5: (dk, dv) summed over the GQA group, one block per 64-row kv tile
-    walking its group's q heads and the q tiles that see it."""
+    """K5: (dk, dv) summed over the GQA group, one block per kv tile (128
+    rows on the tensor cores in bf16 / fp16, 64 on FMAs in fp32) walking its
+    group's q heads and the q tiles that see it. In bf16 / fp16 the group is
+    split over ``dkv_splits`` blocks; with more than one, they write fp32
+    partials into a workspace that ``launch_dkv_sum`` adds in a fixed order."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch("fat_flash_bwd_dkv", "flash_attention_bwd (K5)", q, k, v, do, lse, delta, (dk, dv),
-            causal=causal, sm_scale=sm_scale, masks=masks)
+    args, pitch = _tensor_core_args(q, k, v, do, lse, delta)
+    batch, num_kv_heads, kv_len, head_dim = k.shape
+    splits = 1
+    if q.dtype in TENSOR_CORE_DTYPES:
+        splits = dkv_splits(batch, num_kv_heads, kv_len, q.shape[1] // num_kv_heads, _sm_count(q.device))
+    ws = None
+    if splits > 1:
+        ws = torch.empty((2, batch, num_kv_heads, splits, kv_len, head_dim), dtype=torch.float32, device=q.device)
+    _launch("fat_flash_bwd_dkv", "flash_attention_bwd (K5)", *args, (dk, dv),
+            causal=causal, sm_scale=sm_scale, masks=masks, tail=(pitch, splits, None if ws is None else ws.data_ptr()))
     masks.count(launch_dkv)
+    if ws is not None:
+        launch_dkv_sum(ws, dk, dv)
     return dk, dv
+
+
+def dkv_split_sum_plain(ws: torch.Tensor, dtype: torch.dtype):
+    """What K5s computes, in plain PyTorch: the splits of ws [2, B, Hkv,
+    splits, Skv, D] fp32 added in order 0, 1, ... in fp32, rounded to
+    ``dtype``: (dk, dv)."""
+    acc = ws[:, :, :, 0]
+    for s in range(1, ws.shape[3]):
+        acc = acc + ws[:, :, :, s]
+    return acc[0].to(dtype), acc[1].to(dtype)
+
+
+def launch_dkv_sum(ws: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor) -> None:
+    """K5s (csrc/flash_bwd_sm90.cu ``split_sum_kernel``): dk and dv
+    (contiguous, bf16 / fp16) from K5's split workspace ws [2, B, Hkv,
+    splits, Skv, D] fp32, as ``dkv_split_sum_plain``. Deterministic."""
+    if ws.device.type != "cuda":
+        raise ValueError(f"the split sum launches on cuda tensors, got {ws.device}")
+    _, batch, heads, splits, kv_len, head_dim = ws.shape
+    with torch.cuda.device(ws.device):
+        err = _build.kernels().fat_flash_bwd_dkv_sum(
+            ws.data_ptr(), dk.data_ptr(), dv.data_ptr(), batch * heads, splits, kv_len * head_dim,
+            _build.DTYPE_CODES[dk.dtype], torch.cuda.current_stream(ws.device).cuda_stream,
+        )
+    _build.check(err, "flash_attention_bwd (K5 split sum)")
+    launch_dkv_sum.launches += 1
+
+
+launch_dkv_sum.launches = 0
 
 
 for _launcher in (launch_fused, launch_dq, launch_dkv):

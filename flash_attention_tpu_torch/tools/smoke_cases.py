@@ -70,6 +70,39 @@ def k6_split(card: str) -> dict:
     return {"ms": ms, "device_ms": device_ms, "host_us": host_us}
 
 
+def ptxas_sm90(card: str) -> None:
+    """Compiles csrc/flash_bwd_sm90.cu alone with the build's flags and
+    ``-Xptxas -v``: prints the seconds it took and, for each kernel, its
+    registers, spills and whether ptxas serialised its wgmma."""
+    import re
+    import tempfile
+    import time
+
+    from flash_attention_tpu_torch.ops import _build
+
+    src = _build.CSRC_DIR / "flash_bwd_sm90.cu"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
+                              os.path.join(tmp, "k.o")], capture_output=True, text=True)
+        secs = time.perf_counter() - t0
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
+    lines, kernel, rows = (res.stdout + res.stderr).splitlines(), None, []
+    for line in lines:
+        if "Compiling entry function" in line:
+            kernel = re.sub(r".*?(dq_kernel|dkv_kernel|split_sum_kernel)I(\w+?)(?:Li(\d+)ELb(\d))?E.*",
+                            r"\1 \2 d=\3 masked=\4", line).replace("13__nv_bfloat16", "bf16").replace("6__half", "fp16")
+        elif "bytes spill stores" in line and kernel:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif "Used" in line and "registers" in line and kernel:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            rows.append(f"{kernel}: {regs} registers, {spill} B spilled")
+    serial = sum("C7515" in line for line in lines)
+    print(f"[ptxas sm90] flash_bwd_sm90.cu compiled alone in {secs:.1f} s; {len(rows)} kernels; wgmma serialised in "
+          f"{serial}; " + "; ".join(rows) + f" ({card})", flush=True)
+
+
 def _model(cfg):
     import torch
 
@@ -109,6 +142,126 @@ def mistral_steps(card: str) -> dict:
     rng = np.random.default_rng(20)
     batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, cs.TRAIN_T + 1))).cuda() for _ in range(2)]
     return cs._train_steps(card, "[mistral steps] window 4096", _model(cfg), cfg, batches, used=("K1", "K4m", "K5m"))
+
+
+def _bwd_args(q, k, v, do, **masks):
+    """The backward launchers' arguments from the forward's residuals."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.attention_bwd import _delta, _guard_lse
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+
+    with torch.no_grad():
+        out, lse = flash_attention(q, k, v, causal=True, save_residuals=True, **masks)
+    return (q, k, v, do, _guard_lse(lse).contiguous(), _delta(out, do).contiguous())
+
+
+def mistral_bwd(card: str) -> dict:
+    """K4m + K5m at phase 20a's attention shape (q [1,32,8192,128], kv
+    [1,8,8192,128], window 4096, bf16) and the unmasked causal K4 + K5 at the
+    same shape, each timed alone on the forward's residuals; ``ms`` is K4m +
+    K5m."""
+    import chip_smoke as cs
+    import torch
+
+    from flash_attention_tpu_torch.ops.attention_bwd import BwdMasks, launch_dkv, launch_dq
+
+    q, k, v, do = cs._bwd_inputs(18, 32, 8, cs.TRAIN_T, cs.TRAIN_T, 128, torch.bfloat16)
+    args = _bwd_args(q, k, v, do, sliding_window=cs.WINDOW)
+    kw = dict(causal=True, sm_scale=128**-0.5, masks=BwdMasks(cs.WINDOW, None, None, q.device))
+    t = {"K4m": cs.cuda_ms(lambda: launch_dq(*args, **kw)), "K5m": cs.cuda_ms(lambda: launch_dkv(*args, **kw))}
+    args = _bwd_args(q, k, v, do)
+    kw = dict(causal=True, sm_scale=128**-0.5)
+    t["K4"], t["K5"] = cs.cuda_ms(lambda: launch_dq(*args, **kw)), cs.cuda_ms(lambda: launch_dkv(*args, **kw))
+    print(f"[mistral bwd] q [1,32,{cs.TRAIN_T},128] kv [1,8,{cs.TRAIN_T},128] bf16: window {cs.WINDOW} K4m "
+          f"{t['K4m']:.4f} ms + K5m {t['K5m']:.4f} ms = {t['K4m'] + t['K5m']:.4f} ms; causal K4 {t['K4']:.4f} + K5 "
+          f"{t['K5']:.4f} = {t['K4'] + t['K5']:.4f} ms ({card})", flush=True)
+    return {"ms": t["K4m"] + t["K5m"], **t}
+
+
+def bwd_split(card: str) -> dict:
+    """K4 and K5 at phase 12's shape (q [1,32,2048,128] kv [1,8,2048,128],
+    causal, bf16) and K4m and K5m at phase 20a's (q [1,32,8192,128] kv
+    [1,8,8192,128], window 4096), each timed three ways, as ``k6_split``
+    times K6: ``ms`` as chip_smoke.py times a wrapper call, the kernel alone
+    from a CUDA graph of 10 calls replayed, and the wrapper's host time a
+    call (200 calls enqueued without a synchronisation). ``ms`` is K4 + K5's
+    wrapper time, ``device_ms`` their graph time."""
+    import time
+
+    import chip_smoke as cs
+    import torch
+
+    from flash_attention_tpu_torch.ops.attention_bwd import BwdMasks, launch_dkv, launch_dq
+
+    rows = {}
+    for label, seq, window in (("causal T=2048", 2048, None), (f"window {cs.WINDOW} T={cs.TRAIN_T}", cs.TRAIN_T, cs.WINDOW)):
+        q, k, v, do = cs._bwd_inputs(12, 32, 8, seq, seq, 128, torch.bfloat16)
+        args = _bwd_args(q, k, v, do, sliding_window=window)
+        kw = dict(causal=True, sm_scale=128**-0.5)
+        if window is not None:
+            kw["masks"] = BwdMasks(window, None, None, q.device)
+        for name, fn in (("K4", launch_dq), ("K5", launch_dkv)):
+            call = lambda fn=fn: fn(*args, **kw)  # noqa: E731
+            ms = cs.cuda_ms(call, iters=50)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(10):
+                    call()
+            device_ms = cs.cuda_ms(graph.replay) / 10
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                call()
+            host_us = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            rows[f"{name} {label}"] = (ms, device_ms, host_us)
+            del graph
+    print("[bwd split] " + "; ".join(f"{key}: wrapper {ms:.4f} ms, kernel alone {dev:.4f} ms (CUDA graph of 10), host "
+                                     f"{host:.1f} us a call" for key, (ms, dev, host) in rows.items()) + f" ({card})",
+          flush=True)
+    pair = [rows["K4 causal T=2048"], rows["K5 causal T=2048"]]
+    return {"ms": pair[0][0] + pair[1][0], "device_ms": pair[0][1] + pair[1][1]}
+
+
+def unchanged_bwd(card: str) -> dict:
+    """The kernels K4 and K5's redesign leaves as they were, on seeded
+    inputs: K1 (forward with LSE, q [1,32,2048,128] kv [1,8,2048,128]), K3
+    (q = kv [1,32,2048,128], causal) and the fp32 K4 and K5 (q [1,8,1024,64]
+    kv [1,2,1024,64]). Prints each one's time and a hash of its output bytes
+    (K3's dq, summed with atomics in a run-dependent order, is left out), so
+    two trees in one call can be held to the same results and times; ``ms``
+    is K3's."""
+    import hashlib
+
+    import chip_smoke as cs
+    import torch
+
+    from flash_attention_tpu_torch.ops.attention_bwd import launch_dkv, launch_dq, launch_fused
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+
+    def digest(*tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    out, times = {}, {}
+    q, k, v, _ = cs._bwd_inputs(12, 32, 8, 2048, 2048, 128, torch.bfloat16)
+    out["K1"] = digest(*flash_attention(q, k, v, causal=True, save_residuals=True))
+    times["K1"] = cs.cuda_ms(lambda: flash_attention(q, k, v, causal=True, save_residuals=True))
+    q, k, v, do = cs._bwd_inputs(12, 32, 32, 2048, 2048, 128, torch.bfloat16)
+    args, kw = _bwd_args(q, k, v, do), dict(causal=True, sm_scale=128**-0.5)
+    out["K3 dk, dv"] = digest(*launch_fused(*args, **kw)[1:])
+    times["K3"] = cs.cuda_ms(lambda: launch_fused(*args, **kw))
+    q, k, v, do = cs._bwd_inputs(13, 8, 2, 1024, 1024, 64, torch.float32)
+    args, kw = _bwd_args(q, k, v, do), dict(causal=True, sm_scale=64**-0.5)
+    out["fp32 K4"], out["fp32 K5"] = digest(launch_dq(*args, **kw)), digest(*launch_dkv(*args, **kw))
+    times["fp32 K4"] = cs.cuda_ms(lambda: launch_dq(*args, **kw))
+    times["fp32 K5"] = cs.cuda_ms(lambda: launch_dkv(*args, **kw))
+    print(f"[unchanged bwd] output hashes {out}; ms " + ", ".join(f"{k} {t:.4f}" for k, t in times.items())
+          + f" ({card})", flush=True)
+    return {"ms": times["K3"], **times}
 
 
 def _one(funcs: list[str]) -> None:
