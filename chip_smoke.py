@@ -11,9 +11,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 the torch, CUDA and nvcc versions.
   2. build    — builds the CUDA kernels and the native scheduler from the
                 repository's sources, and prints the build seconds.
-  3. kernels  — K1 (flash_fwd.cu) and K6 (decode.cu) at the serving path's
-                shapes in bf16, against their plain PyTorch versions and the
-                fp32 oracle, with CUDA-event times of kernel and plain; then
+  3. kernels  — K1 (flash_fwd_sm90.cu: wgmma on TMA-fed tiles in bf16 /
+                fp16) at the serving path's shapes and at phase 14's
+                training shape, and K6 (decode.cu), in bf16, against their
+                plain PyTorch versions and the fp32 oracle, K1 bit-identical
+                over two calls, with its grid (blocks, q rows a block, SMs)
+                and CUDA-event times of kernel, plain, SDPA and bound; then
                 every dtype / head_dim instantiation at ragged shapes.
   4. tiny     — a tiny fp32 model served on the card (through the kernels)
                 and on the CPU (through the plain versions): the greedy
@@ -63,21 +66,26 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 weights and an int8 cache on phase 5's requests, and
                 PagedServingEngine with an fp8_e4m3 cache on phase 8's runs;
                 K6q, K7q, K8q and K10q launched, K6, K7, K8 and K10 not.
- 12. backward — K3 (flash_bwd.cu) and K4, K5 and K5's split sum K5s
-                (flash_bwd_sm90.cu: wgmma on TMA-fed tiles in bf16 / fp16;
-                flash_bwd.cu's FMA bodies in fp32) in bf16 through
+ 12. backward — K3, K4, K5 and K5's split sum K5s (flash_bwd_sm90.cu:
+                wgmma on TMA-fed tiles in bf16 / fp16; flash_bwd.cu's FMA
+                bodies in fp32) in bf16 through
                 flash_attention's autograd Function (whose card output must
                 carry it): K4 + K5 at q [1,32,2048,128] over kv
                 [1,8,2048,128] and at q_len 256 end-aligned, K3 at
                 [1,32,2048,128] causal and not; dq, dk and dv within 0.1 of
                 autograd through the fp32 oracle and row by row within
-                REL_BAR of flash_attention_bwd_plain; K4 and K5 bit-identical
-                over two calls; kernel, plain, SDPA-backward and bound times,
-                TFLOP/s, share of 989 and K4 + K5 over SDPA; K5s alone,
-                exactly its plain version. Then every (dtype, head_dim)
-                instantiation at lengths 1, 63, 129 and 1000, and across the
-                128- and 64-row tile edges (lengths 127-257, GQA groups
-                1-8, q_len < kv_len, K5 split and not, batch 2).
+                REL_BAR of flash_attention_bwd_plain; K4 and K5, and K3's dk
+                and dv, bit-identical over two calls; kernel, plain,
+                SDPA-backward and bound times, TFLOP/s, share of 989 and the
+                route over SDPA (K4 + K5 beside K3 at the MHA shape, for
+                information); K5s alone, exactly its plain version. Then
+                every (dtype, head_dim) instantiation at lengths 1, 63, 129
+                and 1000, and across the 128- and 64-row tile edges
+                (lengths 127-257, GQA groups 1-8, q_len < kv_len, K5 split
+                and not, batch 2); then the tensor-core forward and K3
+                across their tile edges in fp16 and bf16 (lengths 1-1000,
+                groups 1/4/8, q_len < kv_len, batch 2, windows 1/63/65/1000,
+                softcap, documents), each bit-identical over two calls.
  13. tiny train — the tiny fp32 model, GQA (K1, K4, K5) and MHA (K1, K3):
                 loss and every parameter's gradient on the card equal the
                 CPU's within 1e-4 of each leaf's largest gradient.
@@ -111,10 +119,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 (a)), (c) PagedServingEngine with 4 sinks (at most 37 pages a
                 slot, the pool full again after; K7, K8, K10 only) and (d)
                 softcap 50 on phase 5's requests.
- 18. masked backward — K1d (flash_fwd.cu, segment ids) and the masked
-                K3, K4 and K5 (K3m in flash_bwd.cu, K4m and K5m in
-                flash_bwd_sm90.cu; K4m and K5m bit-identical over two
-                calls) in bf16 through
+ 18. masked backward — K1d (the forward's segment ids) and the masked
+                K3, K4 and K5 (K3m, K4m and K5m in flash_bwd_sm90.cu, K1d in
+                flash_fwd_sm90.cu; K4m, K5m and K3m's dk and dv bit-identical
+                over two calls) in bf16 through
                 flash_attention's autograd Function, each call launching
                 exactly its route's kernels: gradients row by row within
                 REL_BAR of flash_attention_bwd_plain and within 0.1 of
@@ -286,9 +294,26 @@ def _rel_diff(a, b, floor: float = 0.0) -> float:
     return float(rel.max()) if rel.numel() else 0.0
 
 
+def _fwd_grid(q, k) -> str:
+    """K1's grid on this card for q [B, Hq, Sq, D] (the tensor-core body in
+    bf16 / fp16): blocks of ``fwd_q_tile`` rows against the SMs."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.flash_attention import fwd_q_tile
+
+    b, hq, q_len, _ = q.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tile = fwd_q_tile(b, hq, q_len, sms)
+    return f"{-(-q_len // tile) * b * hq} blocks of {tile} q rows on {sms} SMs"
+
+
 def phase_k1(card: str) -> dict:
     """K1 at the chunked-prefill shapes (q [1,32,256,128] against a cache
-    slice of kv_len rows) and the one-shot prefill shape (Sq = Skv = 512)."""
+    slice of kv_len rows), the one-shot prefill shape (Sq = Skv = 512) and
+    phase 14's training shape (q [1,32,2048,128] kv [1,8,2048,128]), each
+    with its LSE, twice on the same inputs (bit-identical), against its
+    plain version and the fp32 oracle. Returns the kernels' line entries of
+    the chunk at kv 2048 ("K1") and the training shape ("K1t")."""
     import torch
     import torch.nn.functional as F
 
@@ -298,8 +323,8 @@ def phase_k1(card: str) -> dict:
 
     dev = torch.device("cuda")
     scale = 1.0 / 128**0.5
-    worst_plain, rep = 0.0, None
-    cases = [(256, kv, True) for kv in (256, 1024, 2048)] + [(512, 512, False)]
+    worst_plain, rep = 0.0, {}
+    cases = [(256, kv, True) for kv in (256, 1024, 2048)] + [(512, 512, False), (TRAIN_TOKENS, TRAIN_TOKENS, False)]
     for q_len, kv_len, from_cache in cases:
         q, k, v = make_qkv(1, 1, 32, q_len, 128, num_kv_heads=8, kv_seq=kv_len, dtype=torch.bfloat16, device=dev)
         if from_cache:
@@ -311,40 +336,44 @@ def phase_k1(card: str) -> dict:
             v_cache[3, :, :kv_len] = v[0]
             k, v = k_cache[3:4, :, :kv_len], v_cache[3:4, :, :kv_len]
         out, lse = flash_attention(q, k, v, causal=True, save_residuals=True)
+        _same_twice(f"K1 q_len={q_len} kv_len={kv_len}", lambda: flash_attention(q, k, v, causal=True,
+                                                                                 save_residuals=True))
         p_out, p_lse = flash_attention_plain(q, k, v, causal=True, sm_scale=scale, save_residuals=True)
         o_out, o_lse = reference_attention_with_lse(q, k, v, causal=True)
         torch.cuda.synchronize()
         d_oracle, d_plain = _max_diff(out, o_out), _max_diff(out, p_out)
+        d_rel = max(_rel_diff(out, p_out), _rel_diff(out, o_out))
         d_lse = max(_max_diff(lse, p_lse), _max_diff(lse, o_lse))
+        del p_out, p_lse, o_out, o_lse
         ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, save_residuals=True))
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True, sm_scale=scale, save_residuals=True))
+        # The library yardstick: one SDPA call with the end-aligned mask.
+        mask = torch.arange(kv_len, device=dev)[None, :] <= torch.arange(q_len, device=dev)[:, None] + (kv_len - q_len)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True))
+        flops = 4 * 128 * 32 * causal_pairs(q_len, kv_len)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
+        bound_ms, bound_by = bound(flops, nbytes)
         log(
-            f"[K1] q [1,32,{q_len},128] kv [1,8,{kv_len},128] bf16 causal+lse: "
+            f"[K1] q [1,32,{q_len},128] kv [1,8,{kv_len},128] bf16 causal+lse, {_fwd_grid(q, k)}: "
             f"|out-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), |out-plain| {d_plain:.3e} (bar {PLAIN_BAR}), "
-            f"|lse| {d_lse:.3e} (bar {LSE_BAR}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({card})"
+            f"row-relative vs plain and oracle {d_rel:.3e} (bar {REL_BAR['bfloat16']}), "
+            f"|lse| {d_lse:.3e} (bar {LSE_BAR}), bit-identical over two calls; kernel {ms:.4f} ms ({_rates(flops, ms)}), "
+            f"plain {plain_ms:.4f} ms, SDPA (library) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+            f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) ({card})"
         )
-        if not (d_oracle < ORACLE_BAR and d_plain < PLAIN_BAR and d_lse < LSE_BAR):
+        if not (d_oracle < ORACLE_BAR and d_plain < PLAIN_BAR and d_rel < REL_BAR["bfloat16"] and d_lse < LSE_BAR):
             raise RuntimeError(f"K1 disagrees at q_len={q_len} kv_len={kv_len}")
         worst_plain = max(worst_plain, d_plain)
-        if (q_len, kv_len) == (256, 2048):
-            # The library yardstick: one SDPA call with the end-aligned mask.
-            mask = torch.arange(kv_len, device=dev)[None, :] <= torch.arange(q_len, device=dev)[:, None] + (kv_len - q_len)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True))
-            flops = 4 * 128 * 32 * causal_pairs(q_len, kv_len)
-            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
-            bound_ms, bound_by = bound(flops, nbytes)
-            log(
-                f"[K1] at kv 2048: SDPA (library) {lib_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-                f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) ({card})"
-            )
-            rep = (ms, plain_ms, lib_ms, bound_ms, bound_by)
-    return {
-        "name": "flash_fwd (K1)", "route": "cuda",
-        "source": "flash_attention_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": f"{REFERENCE}/ops/flash_attention.py:57",
-        "max_abs_err": worst_plain, "ms": rep[0], "plain_ms": rep[1],
-        "library_ms": rep[2], "bound_ms": rep[3], "bound_by": rep[4],
-    }
+        if (q_len, kv_len) in ((256, 2048), (TRAIN_TOKENS, TRAIN_TOKENS)):
+            rep[q_len] = {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by}
+        del q, k, v, out, lse, mask
+    rep[256]["max_abs_err"] = worst_plain
+    entry = {"route": "cuda", "source": "flash_attention_tpu_torch/csrc/flash_fwd_sm90.cu",
+             "replaces": f"{REFERENCE}/ops/flash_attention.py:57"}
+    return {"K1": {"name": "fwd_kernel, wgmma + TMA (K1)", **entry, **rep[256]},
+            "K1t": {"name": f"fwd_kernel, wgmma + TMA (K1), training shape T={TRAIN_TOKENS}", **entry,
+                    **rep[TRAIN_TOKENS]}}
 
 
 def phase_k6(card: str) -> dict:
@@ -1787,10 +1816,11 @@ def phase_bwd_kernels(card: str) -> dict:
     """Phase 12: K3, K4 and K5 in bf16 at BWD_CASES, each through the
     autograd path and against its plain version and the oracle; kernel,
     plain, SDPA-backward and bound times, each kernel's TFLOP/s and share
-    of the 989 TFLOP/s peak, K4 + K5 over SDPA's backward; K4 and K5 twice
-    on the same inputs, bit-identical (K5 split and not); then K5's split
-    sum (K5s) alone on the T=2048 case's workspace against its plain
-    version. Returns the report entries."""
+    of the 989 TFLOP/s peak, the route's kernels over SDPA's backward (at
+    the MHA cases K4 + K5 timed beside K3 for information); K4 and K5, and
+    K3's dk and dv, twice on the same inputs, bit-identical (K5 split and
+    not); then K5's split sum (K5s) alone on the T=2048 case's workspace
+    against its plain version. Returns the report entries."""
     import torch
     import torch.nn.functional as F
 
@@ -1818,10 +1848,14 @@ def phase_bwd_kernels(card: str) -> dict:
         args = (q, k, v, do, _guard_lse(lse).contiguous(), _delta(out, do).contiguous())
         kw = dict(causal=causal, sm_scale=d**-0.5)
         kernels = {"K3": launch_fused} if route == "fused" else {"K4": launch_dq, "K5": launch_dkv}
-        if route != "fused":
-            for name, fn in kernels.items():
-                _same_twice(f"backward {shape} {name}", lambda fn=fn: fn(*args, **kw))
+        for name, fn in kernels.items():
+            # K3's dq adds its tiles' partials in a run-dependent order; its dk and dv are written once.
+            _same_twice(f"backward {shape} {name}", lambda fn=fn: fn(*args, **kw)[1:] if name == "K3" else fn(*args, **kw))
         times = {name: cuda_ms(lambda fn=fn: fn(*args, **kw)) for name, fn in kernels.items()}
+        # K4 + K5 on the MHA inputs, for information: the route stays K3.
+        beside = "" if route != "fused" else (
+            f"; K4 + K5 on the same inputs {cuda_ms(lambda: (launch_dq(*args, **kw), launch_dkv(*args, **kw))):.4f} ms "
+            "(not the route)")
         # The forward of the same autograd call (K1 with its LSE), for the step's breakdown.
         fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal, save_residuals=True))
         plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, out, lse, do, **kw), warmup=2, iters=5)
@@ -1853,7 +1887,7 @@ def phase_bwd_kernels(card: str) -> dict:
             f"[backward] {shape}, {route}: |grad-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), |grad-plain| "
             f"{d_plain:.3e}, row-relative to plain {d_rel:.3e} (bar {REL_BAR['bfloat16']}); "
             + ", ".join(parts) + (f" (K5 over {split} split(s), its sum included)" if route != "fused" else "")
-            + f"; {' + '.join(times)} over SDPA's backward {ratio}; plain (dq, dk, dv) {plain_ms:.4f} ms, SDPA "
+            + f"; {' + '.join(times)} over SDPA's backward {ratio}{beside}; plain (dq, dk, dv) {plain_ms:.4f} ms, SDPA "
             f"backward (library, dq, dk, dv) {lib_ms:.4f} ms; its forward, K1 with LSE, {fwd_ms:.4f} ms ({card})"
         )
         del q, k, v, do, out, lse, args
@@ -1880,7 +1914,7 @@ def phase_bwd_kernels(card: str) -> dict:
     del ws, dk, dv, plain
     torch.cuda.empty_cache()
     sm90 = "flash_attention_tpu_torch/csrc/flash_bwd_sm90.cu"
-    names = {"K3": ("flash_bwd_fused (K3)", 594, "flash_attention_tpu_torch/csrc/flash_bwd.cu"),
+    names = {"K3": ("dkv_kernel<FUSED>, wgmma + TMA (K3)", 594, sm90),
              "K4": ("dq_kernel, wgmma + TMA (K4)", 65, sm90), "K5": ("dkv_kernel, wgmma + TMA (K5)", 317, sm90),
              "K5s": ("split_sum_kernel, K5's split sum (K5s)", 317, sm90)}
     return {key: {"name": names[key][0], "route": "cuda", "source": names[key][2],
@@ -1954,6 +1988,112 @@ def phase_bwd_sweep() -> None:
         f"splits of the group of 8), batch 2, at fp32/fp16/bf16 x head_dim 32/64/128, {n - n0} cases: all within "
         f"{ORACLE_BAR} of the oracle's gradients; worst row-relative difference to plain at {worst:.3f} of its bar"
     )
+
+
+# The tensor-core forward's and K3's sweep across their 64- and 128-row tile
+# edges (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu's fused body).
+TC_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 1000)
+TC_MASK_LENGTHS = (129, 257, 1000)
+TC_WINDOWS = (1, 63, 65, 1000)
+
+
+def _three_docs(length: int, batch: int):
+    """Segment ids [batch, length] of three documents a row, split
+    differently in each row."""
+    import torch
+
+    a, b = length // 2, length // 3
+    docs = [(a, b, length - a - b), (length - a - b, a, b)]
+    return torch.cat([_packed_ids(docs[i % 2]) for i in range(batch)])
+
+
+def _hold_fwd(what: str, q, k, v, *, causal: bool, window=None, softcap=None, segment_ids=None) -> float:
+    """K1 (K2, K1d) with its LSE, twice on the same inputs (bit-identical),
+    launching exactly its route's kernel, against flash_attention_plain and
+    the fp32 oracle (``_hold``); returns its row-relative error over
+    REL_BAR."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.common import segment_pair
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from flash_attention_tpu_torch.ops.reference import reference_attention_with_lse
+
+    name = str(q.dtype).removeprefix("torch.")
+    kw = dict(causal=causal, sliding_window=window, logit_softcap=softcap)
+    zero_counts()
+    out, lse = flash_attention(q, k, v, save_residuals=True, segment_ids=segment_ids, **kw)
+    torch.cuda.synchronize()
+    want = "K1d" if segment_ids is not None else "K2" if window is not None and window <= 64 else "K1"
+    check_launches(what, read_counts(), (want,))
+    _same_twice(what, lambda: flash_attention(q, k, v, save_residuals=True, segment_ids=segment_ids, **kw))
+    segments = segment_pair(segment_ids, q.shape[0], q.shape[2], k.shape[2])
+    p_out, p_lse = flash_attention_plain(q, k, v, sm_scale=q.shape[-1] ** -0.5, save_residuals=True,
+                                         segments=segments, **kw)
+    o_out, o_lse = reference_attention_with_lse(q, k, v, segment_ids=segment_ids, **kw)
+    return _hold(what, out, p_out, o_out, lse, p_lse, o_lse, dtype=name)[1] / REL_BAR[name]
+
+
+def phase_tensor_core_sweep() -> None:
+    """K1 / K1d and K3 / K3m's tensor-core bodies in fp16 and bf16 at
+    head_dim 32, 64 and 128 across their 64- and 128-row tile edges: the
+    forward (``_hold_fwd``) at lengths TC_LENGTHS, self-attention causal at
+    GQA groups 1, 4 and 8 (8 q heads), q_len < kv_len end-aligned at group
+    4 and non-causal at group 8; K3 through the autograd Function
+    (``_hold_bwd``; its dk and dv bit-identical over two calls) at the same
+    lengths, MHA causal and not; then at lengths TC_MASK_LENGTHS, batch 2,
+    windows TC_WINDOWS (softcap BITE_CAP with q x BITE_Q at 65, three
+    documents a row at 63 and 1000; windows 1 and 63 without ids take K2's
+    forward), the forward at group 4 and K3m."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.attention_bwd import _delta, _guard_lse, launch_fused
+    from flash_attention_tpu_torch.utils.testing import make_qkv
+
+    worst_f, worst_b, nf, nb = 0.0, 0.0, 0, 0
+    for dtype in (torch.float16, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for d in (32, 64, 128):
+            for length in TC_LENGTHS:
+                short = max(1, length - 66)
+                for hq, hkv, q_len, causal in ((8, 8, length, True), (8, 2, length, True), (8, 1, length, True),
+                                               (8, 2, short, True), (8, 1, length, False)):
+                    q, k, v = make_qkv(nf, 1, hq, q_len, d, num_kv_heads=hkv, kv_seq=length, dtype=dtype,
+                                       device="cuda")
+                    what = f"[tensor-core sweep] K1 {name} d={d} {hq}/{hkv} q {q_len} kv {length} causal={causal}"
+                    worst_f = max(worst_f, _hold_fwd(what, q, k, v, causal=causal))
+                    nf += 1
+                for causal in (True, False):
+                    q, k, v, do = _bwd_inputs(nb, 4, 4, length, length, d, dtype)
+                    what = f"[tensor-core sweep] K3 {name} d={d} T {length} causal={causal}"
+                    _, (out, lse), _, d_rel, _ = _hold_bwd(what, q, k, v, do, causal, rel_bar=REL_BAR[name])
+                    args = (q, k, v, do, _guard_lse(lse).contiguous(), _delta(out, do).contiguous())
+                    _same_twice(what, lambda: launch_fused(*args, causal=causal, sm_scale=d**-0.5)[1:])
+                    worst_b = max(worst_b, d_rel / REL_BAR[name])
+                    nb += 1
+            for length in TC_MASK_LENGTHS:
+                for window in TC_WINDOWS:
+                    softcap = BITE_CAP if window == 65 else None
+                    ids = _three_docs(length, 2) if window in (63, 1000) else None
+                    masks = dict(window=window, softcap=softcap, segment_ids=ids)
+                    q, k, v = make_qkv(nf, 2, 8, length, d, num_kv_heads=2, dtype=dtype, device="cuda")
+                    q = (q.float() * (BITE_Q if softcap else 4)).to(dtype)
+                    what = f"[tensor-core sweep] forward {name} d={d} batch 2 8/2 T {length} masks {window}, {softcap}, " \
+                           f"{'3 documents' if ids is not None else 'no ids'}"
+                    worst_f = max(worst_f, _hold_fwd(what, q, k, v, causal=True, window=window, softcap=softcap,
+                                                     segment_ids=ids))
+                    nf += 1
+                    q, k, v, do = _bwd_inputs(nb, 4, 4, length, length, d, dtype, batch=2)
+                    q = (q.float() * (BITE_Q if softcap else 4)).to(dtype)
+                    what = what.replace("forward", "K3m").replace("8/2", "4/4")
+                    _, _, _, d_rel, _ = _hold_bwd(what, q, k, v, do, rel_bar=REL_BAR[name], **masks)
+                    worst_b = max(worst_b, d_rel / REL_BAR[name])
+                    nb += 1
+    log(f"[tensor-core sweep] fp16/bf16 x head_dim 32/64/128 across the 64- and 128-row tile edges: the forward (K1, "
+        f"K1d; K2 at windows 1 and 63 without ids) over lengths {list(TC_LENGTHS)}, groups 1/4/8, q_len < kv_len, "
+        f"non-causal, and batch 2 with windows {list(TC_WINDOWS)}, softcap and documents at {list(TC_MASK_LENGTHS)}: "
+        f"{nf} cases, each bit-identical over two calls, worst row-relative at {worst_f:.3f} of REL_BAR; K3 / K3m "
+        f"through the autograd Function, {nb} cases (dk, dv bit-identical): all within {ORACLE_BAR} of the oracle's "
+        f"gradients, worst row-relative at {worst_b:.3f} of REL_BAR")
 
 
 def _lm_loss(logits, targets):
@@ -2270,7 +2410,8 @@ def _hold(what: str, out, plain, oracle, lse=None, p_lse=None, o_lse=None, *, dt
 def _k1_masked(card: str, what: str, q, k, v, *, window=None, softcap=None, segment_ids=None, lib_mask=None,
                want="K1") -> dict:
     """K1 (or K2, or K1d with segment ids) with a window, softcap and / or
-    segment ids, causal, end-aligned, with its LSE: against
+    segment ids, causal, end-aligned, with its LSE, twice on the same
+    inputs (bit-identical): against
     flash_attention_plain and the fp32 oracle with the same masks (a few kv
     heads at a time at long sequences, ``_by_kv_head``); kernel, plain,
     library and bound times."""
@@ -2288,6 +2429,7 @@ def _k1_masked(card: str, what: str, q, k, v, *, window=None, softcap=None, segm
     out, lse = flash_attention(q, k, v, save_residuals=True, **kw)
     torch.cuda.synchronize()
     check_launches(f"[masked] {what}", read_counts(), (want,))
+    _same_twice(f"[masked] {want} {what}", lambda: flash_attention(q, k, v, save_residuals=True, **kw))
 
     def plain():
         return _by_kv_head(lambda qh, kh, vh: flash_attention_plain(
@@ -2311,8 +2453,8 @@ def _k1_masked(card: str, what: str, q, k, v, *, window=None, softcap=None, segm
     bound_ms, bound_by = bound(4 * d * hq * b * pairs, nbytes)
     log(
         f"[masked] {want} {what}: |out-plain| {d_plain:.3e}, row-relative vs plain and oracle {d_rel:.3e} (bar "
-        f"{REL_BAR['bfloat16']}), |lse| {d_lse:.3e} (bar {LSE_BAR}); kernel {ms:.4f} ms "
-        f"({4 * d * hq * b * pairs / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library "
+        f"{REL_BAR['bfloat16']}), |lse| {d_lse:.3e} (bar {LSE_BAR}), bit-identical over two calls; kernel {ms:.4f} ms "
+        f"({_rates(4 * d * hq * b * pairs, ms)}), plain {plain_ms:.4f} ms, library "
         + ("none" if lib_ms is None else f"{lib_ms:.4f} ms (SDPA, boolean band mask)")
         + f", bound {bound_ms:.4f} ms by {bound_by} ({pairs} visible pairs a head) ({card})"
     )
@@ -2956,8 +3098,9 @@ def _time_bwd(card: str, label: str, q, k, v, do, *, window=None, softcap=None, 
     fns = {"K3m": launch_fused, "K4m": launch_dq, "K5m": launch_dkv}
     route = [name for name in _route(hq, hkv, q_len, kv_len, window, softcap, segment_ids) if name in fns]
     for name in route:
-        if name != "K3m":  # K3 adds dq with atomics, in a run-dependent order
-            _same_twice(f"[masked backward] {label} {name}", lambda fn=fns[name]: fn(*args, **kw))
+        # K3 adds dq in a run-dependent order; its dk and dv are written once.
+        _same_twice(f"[masked backward] {label} {name}",
+                    lambda fn=fns[name]: fn(*args, **kw)[1:] if name == "K3m" else fn(*args, **kw))
     times = {name: cuda_ms(lambda fn=fns[name]: fn(*args, **kw)) for name in route}
     plain_ms = cuda_ms(lambda: _by_kv_head(lambda qh, oh, lh, dh, kh, vh: flash_attention_bwd_plain(
         qh, kh, vh, oh, lh, dh, causal=True, sm_scale=scale, window=window, softcap=softcap, segments=segments),
@@ -3219,7 +3362,8 @@ def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
-    k1 = phase_k1(card)
+    fwd = phase_k1(card)
+    k1, k1t = fwd["K1"], fwd["K1t"]
     k6 = phase_k6(card)
     phase_kernel_sweep()
     dense_tiny = phase_tiny()
@@ -3238,9 +3382,11 @@ def main() -> None:
         quant[key]["launches"] = n
     bwd = phase_bwd_kernels(card)
     phase_bwd_sweep()
+    phase_tensor_core_sweep()
     phase_tiny_train()
     train = phase_full_train(card, params)
     bwd["K3"]["launches"] = train["mha"]["K3"]
+    k1t["launches"] = train["gqa"]["K1"]
     bwd["K4"]["launches"], bwd["K5"]["launches"] = train["gqa"]["K4"], train["gqa"]["K5"]
     bwd["K5s"]["launches"] = train["gqa"]["K5s"]
     del params  # phase 17 brings its own model, and its peak memory is its own
@@ -3260,13 +3406,13 @@ def main() -> None:
     source = "flash_attention_tpu_torch/csrc/"
     names = {
         "K2": ("flash_fwd_band (K2)", "flash_fwd.cu", "ops/flash_attention.py:795"),
-        "K1w": ("flash_fwd, window 4096 (K1)", "flash_fwd.cu", "ops/flash_attention.py:57"),
-        "K1c": ("flash_fwd, softcap 50 (K1)", "flash_fwd.cu", "ops/flash_attention.py:57"),
+        "K1w": ("fwd_kernel, wgmma + TMA, window 4096 (K1)", "flash_fwd_sm90.cu", "ops/flash_attention.py:57"),
+        "K1c": ("fwd_kernel, wgmma + TMA, softcap 50 (K1)", "flash_fwd_sm90.cu", "ops/flash_attention.py:57"),
         "K6r": ("decode, ring of 4352 rows (K6)", "decode.cu", "ops/decode.py:56"),
         "K7s": ("paged_decode, window + sinks (K7)", "decode.cu", "ops/paged.py:980"),
         "K8s": ("paged_prefill, window + sinks (K8)", "flash_fwd.cu", "ops/paged.py:580"),
-        "K1d": ("flash_fwd, segment ids (K1d)", "flash_fwd.cu", "ops/flash_attention.py:61"),
-        "K3m": ("flash_bwd_fused, masked (K3)", "flash_bwd.cu", "ops/attention_bwd.py:594"),
+        "K1d": ("fwd_kernel, wgmma + TMA, segment ids (K1d)", "flash_fwd_sm90.cu", "ops/flash_attention.py:61"),
+        "K3m": ("dkv_kernel<FUSED>, wgmma + TMA, masked (K3)", "flash_bwd_sm90.cu", "ops/attention_bwd.py:594"),
         "K4m": ("dq_kernel, wgmma + TMA, masked (K4)", "flash_bwd_sm90.cu", "ops/attention_bwd.py:65"),
         "K5m": ("dkv_kernel, wgmma + TMA, masked (K5)", "flash_bwd_sm90.cu", "ops/attention_bwd.py:317"),
     }
@@ -3275,7 +3421,7 @@ def main() -> None:
                "replaces": f"{REFERENCE}/{names[key][2]}", **masked[key]} for key in names]
     probes = phase_probes(card)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k6, k7, k8, k10, *quant.values(), *bwd.values(), *masked, *probes]}))
+    print(json.dumps({"kernels": [k1, k1t, k6, k7, k8, k10, *quant.values(), *bwd.values(), *masked, *probes]}))
     print(card)
     print(json.dumps({
         "ok": True,

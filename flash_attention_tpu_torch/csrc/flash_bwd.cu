@@ -9,10 +9,10 @@
 //   K4  ops/attention_bwd.py:65   _bwd_dq_kernel     -> flash_bwd_dq_kernel
 //   K5  ops/attention_bwd.py:317  _bwd_dkv_kernel    -> flash_bwd_dkv_kernel<FUSED = false>
 //   K3  ops/attention_bwd.py:594  _bwd_fused_kernel  -> flash_bwd_dkv_kernel<FUSED = true>
-// K4 and K5 run these bodies in fp32 only: in bf16 and fp16 the C entries
-// fat_flash_bwd_dq and fat_flash_bwd_dkv dispatch to the tensor-core bodies
-// of csrc/flash_bwd_sm90.cu, which round P and dS to the input type before
-// their products. K3 runs these bodies in every dtype.
+// All three run these bodies in fp32 only: in bf16 and fp16 the C entries
+// fat_flash_bwd_dq, fat_flash_bwd_dkv and fat_flash_bwd_fused dispatch to
+// the tensor-core bodies of csrc/flash_bwd_sm90.cu, which round P and dS to
+// the input type before their products.
 // Same function, the flash-attention-2 recurrence in fp32 with P recomputed
 // from the forward's base-2 LSE (the caller has replaced an LSE of -inf by 0
 // and computed delta = rowsum(dO * O) in fp32):
@@ -43,10 +43,8 @@
 // What bounds them on this card: every (q, kv) pair the mask leaves costs
 // 3 (K4), 4 (K5) or 5 (K3) products of 2 * D FLOPs against O((q_len +
 // kv_len) * D) bytes, so at training lengths arithmetic bounds all three.
-// These bodies do that arithmetic as fp32 FMAs over shared-memory tiles,
-// not on the tensor cores, so they run far below the card's bf16 rate; K3's
-// redesign on wgmma with TMA-fed tiles, as flash_bwd_sm90.cu's for K4 and
-// K5, is later work.
+// These fp32 bodies do that arithmetic as FMAs over shared-memory tiles (the
+// tensor cores take no fp32 product at full precision).
 //
 // Design (256 threads a block; each thread owns 2 rows x 8 columns of a
 // 64 x 64 score tile and 2 rows x D/8 columns of a 64 x D accumulator):
@@ -495,9 +493,8 @@ struct BwdLaunch {
 
   template <typename T, typename P, int D>
   cudaError_t launch() const {
-    // K4 and K5 take this body in fp32 only (bf16 / fp16: flash_bwd_sm90.cu),
-    // so only K3 is instantiated for the 16-bit types.
-    if constexpr (PASS != Pass::kFused && !std::is_same_v<T, float>) {
+    // Every pass takes this body in fp32 only (bf16 / fp16: flash_bwd_sm90.cu).
+    if constexpr (!std::is_same_v<T, float>) {
       return cudaErrorInvalidValue;
     } else {
       if (p.window < 0 || (p.window > 0 && !p.causal)) return cudaErrorInvalidValue;
@@ -629,11 +626,18 @@ extern "C" int fat_flash_bwd_dkv(const void* q, const void* k, const void* v, co
 }
 
 // K3 (Hq == Hkv): dq_acc [B, Hq, Sq, D] fp32, zeroed by the caller, gets dq
-// by atomic adds; dk and dv as K5's.
+// added in (fp32 atomics here, bulk reduces on the tensor-core body), in a
+// run-dependent order; dk and dv as K5's; lse and delta as K4's.
 extern "C" int fat_flash_bwd_fused(const void* q, const void* k, const void* v, const void* dout,
                                    const float* lse, const float* delta, float* dq_acc, void* dk,
-                                   void* dv, FAT_BWD_ARGS) {
+                                   void* dv, FAT_BWD_ARGS, int64_t lse_pitch) {
   FAT_BWD_STRIDES;
+  if (dtype != fat::kFloat32) {
+    fat::Sm90BwdCall call = FAT_BWD_SM90_CALL(dk, dv, 1);
+    call.dq_acc = dq_acc;
+    return static_cast<int>(fat::sm90_bwd_fused(call));
+  }
+  if (lse_pitch != q_len) return static_cast<int>(cudaErrorInvalidValue);
   return run<Pass::kFused>(q, k, v, dout, lse, delta, dq_acc, dk, dv, FAT_BWD_SHAPE, scale2,
                            sm_scale, causal, masks, dtype, stream);
 }

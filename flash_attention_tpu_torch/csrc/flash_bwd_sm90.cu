@@ -1,21 +1,24 @@
-// K4 and K5 for bf16 and fp16: the attention backward's dq pass and its dk /
-// dv pass summed over the GQA group, on Hopper's tensor cores (wgmma) with
-// tiles fed by TMA. fp32 keeps the FMA bodies of csrc/flash_bwd.cu, whose C
-// entries (fat_flash_bwd_dq, fat_flash_bwd_dkv) dispatch here by dtype.
+// K3, K4 and K5 for bf16 and fp16: the attention backward's fused MHA pass,
+// its dq pass and its dk / dv pass summed over the GQA group, on Hopper's
+// tensor cores (wgmma) with tiles fed by TMA. fp32 keeps the FMA bodies of
+// csrc/flash_bwd.cu, whose C entries (fat_flash_bwd_fused, fat_flash_bwd_dq,
+// fat_flash_bwd_dkv) dispatch here by dtype. The Hopper layer (tile layout,
+// TMA, mbarriers, wgmma, fragment packing) is csrc/sm90_common.cuh.
 //
 // Replaces the JAX package's Pallas kernels, with their window, softcap and
 // segment-id branches:
-//   K4  ops/attention_bwd.py:65   _bwd_dq_kernel  -> dq_kernel
-//   K5  ops/attention_bwd.py:317  _bwd_dkv_kernel -> dkv_kernel (+ split_sum_kernel)
+//   K3  ops/attention_bwd.py:594  _bwd_fused_kernel -> dkv_kernel<FUSED = true>
+//   K4  ops/attention_bwd.py:65   _bwd_dq_kernel    -> dq_kernel
+//   K5  ops/attention_bwd.py:317  _bwd_dkv_kernel   -> dkv_kernel (+ split_sum_kernel)
 // The function is csrc/flash_bwd.cu's (its note states the recurrence, the
 // masks and the live-tile walks), with one change of numerics: P and dS
 // enter the tensor-core products rounded to the input type, as the JAX
 // package and FlashAttention-2/3 do; the scores, dP, the softmax and every
 // accumulator stay fp32.
 //
-// What bounds them: every visible (q, kv) pair costs 3 (K4) or 4 (K5)
+// What bounds them: every visible (q, kv) pair costs 3 (K4), 4 (K5) or 5 (K3)
 // products of 2 * D FLOPs against O((q_len + kv_len) * D) bytes, so at every
-// training length (T >= 1024 at D = 128) operations bound both, at the
+// training length (T >= 1024 at D = 128) operations bound all three, at the
 // card's 989 TFLOP/s dense bf16 / fp16 rate, which only wgmma reaches.
 //
 // Design (FlashAttention-3's arrangement, raw PTX, no warp specialisation):
@@ -61,32 +64,36 @@
 //    under two blocks an SM the wrapper (ops/attention_bwd.dkv_splits) splits
 //    the group's q heads over blocks; each split writes fp32 partial dk, dv
 //    into a workspace [2, B, Hkv, splits, Skv, D] and split_sum_kernel, a
-//    launch of its own, sums the splits in a fixed order and casts. No
-//    atomics anywhere: dq, dk and dv are bit-identical from run to run.
+//    launch of its own, sums the splits in a fixed order and casts. K4 and
+//    K5 use no atomics: dq, dk and dv are bit-identical from run to run.
+//  * K3 (MHA self-attention, group 1) is K5's body with a fifth product per
+//    step, dQ_tile = sm_scale dS K. Each warpgroup writes its dS^T rows at
+//    16-bit width into shared memory in the swizzled layout TMA would write,
+//    and after a block barrier wgmma reads it as A (transposed) against K as
+//    B (transposed): at D = 128 each warpgroup makes 64 of dq's columns over
+//    all 128 kv rows (m64n64, reusing the score registers, since 64 more
+//    would not fit beside dk and dv); at D = 32 / 64 each makes every column
+//    over its own 64 kv rows. The fp32 partial is staged in shared memory
+//    (rows 8 floats longer than D, so the float2 writes meet no bank
+//    conflict) and one warp adds each row into the caller's fp32 dq buffer
+//    with an asynchronous bulk reduce (cp.reduce.async.bulk .add.f32, as
+//    FlashAttention-3 does), which drains while the next step multiplies.
+//    dq's additions from the kv tiles' blocks come in a run-dependent
+//    order; dk and dv are written once and are bit-identical run to run.
 #include <cuda.h>
 
 #include "common.cuh"
 #include "flash_bwd_sm90.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
+using namespace fat::sm90;
 using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;           // two warpgroups
 constexpr int DQ_BM = 128, DQ_BN = 64;   // K4: q rows a block, kv rows a step
 constexpr int DKV_BN = 128, DKV_BM = 64; // K5: kv rows a block, q rows a step
-constexpr int SEG = 64;                // rows of a segment-range tile (ops/common.py SEGMENT_TILE)
-
-// A tile of R rows by D 16-bit columns in shared memory: D / CW chunks of
-// [R][CW], each swizzled as TMA writes it and wgmma reads it.
-template <int D>
-struct Layout {
-  static constexpr int CW = D < 64 ? D : 64;           // columns a chunk
-  static constexpr int ROW = CW * 2;                   // bytes a chunk row, the swizzle span
-  static constexpr int CHUNKS = D / CW;
-  static constexpr uint64_t MODE = ROW == 128 ? 1 : 2;  // descriptor layout: 128B or 64B swizzle
-  static constexpr uint32_t ATOM = 8 * ROW;            // bytes between 8-row groups
-};
 
 struct Params {
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
@@ -103,230 +110,10 @@ struct Params {
   const int32_t* seg_kv;
   const int32_t* q_rng;
   const int32_t* kv_rng;
+  float* dq_acc;  // K3: [B, Hq, Sq, D] fp32, zeroed by the caller; dq is added into it
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  const uint32_t a = smem_u32(p);
-  return p + (((a + 1023u) & ~1023u) - a);
-}
-
-// ---- mbarriers, TMA and bulk copies ----
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-// Waits for the completion of the barrier's phase of this parity. A phase
-// that never completes (a lost transfer) traps, failing the launch, rather
-// than hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-  __syncwarp();
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, "
-      "%5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes), "r"(smem_u32(bar))
-               : "memory");
-}
-
-// R rows from `row` of head h, batch b of `map` into the chunks at dst.
-template <int D, int R>
-__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, int row, int h, int b, uint64_t* bar) {
-  using L = Layout<D>;
-#pragma unroll
-  for (int c = 0; c < L::CHUNKS; ++c) tma_load(dst + c * R * L::ROW, map, c * L::CW, row, h, b, bar);
-}
-
-// ---- wgmma ----
-
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t mode) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
-}
-
-// K-major operand: the rows from row0 of an R-row tile, columns 16 kk to
-// 16 kk + 15 (one k-step).
-template <int D, int R>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int row0, int kk) {
-  using L = Layout<D>;
-  const int col = kk * 16;
-  return make_desc(tile + (col / L::CW) * R * L::ROW + row0 * L::ROW + (col % L::CW) * 2, 16, L::ATOM, L::MODE);
-}
-
-// MN-major B operand (read with the transpose flag): rows 16 kk to 16 kk + 15
-// of an R-row tile are the product's k, its D columns the product's n, in
-// chunks R * ROW bytes apart.
-template <int D, int R>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  using L = Layout<D>;
-  return make_desc(tile + kk * 16 * L::ROW, R * L::ROW, L::ATOM, L::MODE);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// Keeps the compiler from touching an accumulator between a wgmma and its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D[64 x N] (+)= A[64 x 16] B[16 x N] on one warpgroup. _ss: A and B
-// K-major in shared memory (acc 0 on the first k-step overwrites D). _rs: A
-// from registers (the mma.m16n8k16 A fragment of each warp's 16 rows), B
-// MN-major in shared memory, accumulating.
-__device__ __forceinline__ void wgmma_ss_n64_bf16(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32_bf16(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64_bf16(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_ss_n64_f16(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32_f16(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64_f16(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128_f16(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-template <typename T>
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  if constexpr (std::is_same_v<T, bf16>) {
-    wgmma_ss_n64_bf16(d, a, b, acc);
-  } else {
-    wgmma_ss_n64_f16(d, a, b, acc);
-  }
-}
-
-template <typename T, int N>
-__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (std::is_same_v<T, bf16>) {
-    if constexpr (N == 32) wgmma_rs_n32_bf16(d, a, b, 1);
-    else if constexpr (N == 64) wgmma_rs_n64_bf16(d, a, b, 1);
-    else wgmma_rs_n128_bf16(d, a, b, 1);
-  } else {
-    if constexpr (N == 32) wgmma_rs_n32_f16(d, a, b, 1);
-    else if constexpr (N == 64) wgmma_rs_n64_f16(d, a, b, 1);
-    else wgmma_rs_n128_f16(d, a, b, 1);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (std::is_same_v<T, bf16>) {
-    const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&x);
-  } else {
-    const __half2 x = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&x);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store2(T* dst, float lo, float hi) {
-  *reinterpret_cast<uint32_t*>(dst) = pack2<T>(lo, hi);
-}
-
-// The A fragments of a 64 x (8 K) accumulator, rounded to T: k-step kk takes
-// the accumulator's 8-column blocks 2 kk and 2 kk + 1.
-template <typename T, int K>
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[K][4], const float (&d)[8 * K]) {
-#pragma unroll
-  for (int kk = 0; kk < K; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[kk][r] = pack2<T>(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
-  }
-}
-
 // ---- the function: mask and P, as csrc/flash_bwd.cu's ----
-
-template <bool MASKED>
-__device__ __forceinline__ bool sees(const Params& p, int row, int col, int32_t row_id, int32_t col_id) {
-  const int pos = row + p.kv_len - p.q_len;
-  bool ok = row < p.q_len && col < p.kv_len && (!p.causal || col <= pos);
-  if constexpr (MASKED) ok = ok && (p.window == 0 || col > pos - p.window) && row_id == col_id;
-  return ok;
-}
 
 // P of one pair from its raw score s = q . k: exp2 of the forward's base-2
 // score less the row's LSE. With CAP the score is capped as the forward caps
@@ -341,37 +128,6 @@ __device__ __forceinline__ float prob(const Params& p, float s, float lse, float
   return exp2f(fmaf(s, p.scale2, -lse));
 }
 
-// Runs pass(cap, mask) with both as compile-time bools (std::bool_constant):
-// cap for a softcap (masked instantiations only), mask for a tile with a
-// masked-out pair. Branching once a tile keeps the element loop free of
-// branches and of the softcap's code where it has none.
-template <bool MASKED, typename Pass>
-__device__ __forceinline__ void by_tile(const Params& p, bool need, const Pass& pass) {
-  using Y = std::true_type;
-  using N = std::false_type;
-  if (MASKED && p.softcap2 > 0.f) {
-    if constexpr (MASKED) need ? pass(Y{}, Y{}) : pass(Y{}, N{});
-  } else {
-    need ? pass(N{}, Y{}) : pass(N{}, N{});
-  }
-}
-
-// Segment tiles iq (of q) and ikv (of kv) of batch row b: whether they can
-// hold a pair with equal ids (false for a tile past the end), and whether
-// every pair of them has (one id on both sides).
-__device__ __forceinline__ bool seg_meet(const Params& p, int b, int iq, int ikv) {
-  const int nq = (p.q_len + SEG - 1) / SEG, nkv = (p.kv_len + SEG - 1) / SEG;
-  return iq < nq && ikv < nkv && fat::segment_tiles_meet(p.q_rng, p.kv_rng, b, nq, nkv, iq, ikv);
-}
-
-__device__ __forceinline__ bool seg_uniform(const Params& p, int b, int iq, int ikv) {
-  const int nq = (p.q_len + SEG - 1) / SEG, nkv = (p.kv_len + SEG - 1) / SEG;
-  if (iq >= nq || ikv >= nkv) return false;
-  const int32_t* qr = p.q_rng + 2 * (static_cast<int64_t>(b) * nq + iq);
-  const int32_t* kr = p.kv_rng + 2 * (static_cast<int64_t>(b) * nkv + ikv);
-  return qr[0] == qr[1] && kr[0] == kr[1] && qr[0] == kr[0];
-}
-
 template <int D>
 constexpr size_t dq_smem_bytes() {
   return 1024 + 2 * DQ_BM * D * 2 + 4 * DQ_BN * D * 2 + 64;
@@ -381,6 +137,23 @@ template <int D>
 constexpr size_t dkv_smem_bytes() {
   return 1024 + 2 * DKV_BN * D * 2 + 4 * DKV_BM * D * 2 + 4 * DKV_BM * 4 + 64;
 }
+
+// K3's dq partial of a step, staged in shared memory as fp32 rows DQ_PITCH
+// apart (a row's banks 8 rows apart cover all 32 for float2 writes): one
+// plane at D = 128, where each warpgroup owns 64 columns, else one a
+// warpgroup, each holding the partial over its 64 kv rows.
+template <int D>
+constexpr int DQ_PITCH = D + 8;
+template <int D>
+constexpr int DQ_PLANES = D == 128 ? 1 : 2;
+
+// K3: K5's tiles, dS^T of a step ([128 kv][64 q] at 16-bit), the staged dq.
+template <int D>
+constexpr size_t fused_smem_bytes() {
+  return dkv_smem_bytes<D>() + DKV_BN * DKV_BM * 2 + DQ_PLANES<D> * DKV_BM * DQ_PITCH<D> * 4;
+}
+
+constexpr int REDUCER = 1;  // K3: the warp that adds the staged dq rows into dq_acc
 
 // K4: dq of one (batch x q head, 128-row q tile).
 template <typename T, int D, bool MASKED>
@@ -517,16 +290,20 @@ __global__ void __launch_bounds__(THREADS, 1) dq_kernel(const __grid_constant__ 
 
 // K5: dk and dv of one (batch x kv head x split, 128-row kv tile), summed
 // over the split's q heads; with one split written as T, else as fp32
-// partials into the workspace.
-template <typename T, int D, bool MASKED>
+// partials into the workspace. FUSED (K3, MHA, one split): each step also
+// adds its q tile's dq partial, sm_scale dS K, into dq_acc.
+template <typename T, int D, bool MASKED, bool FUSED = false>
 __global__ void __launch_bounds__(THREADS, 1) dkv_kernel(const __grid_constant__ Params p) {
   constexpr int KV_TILE = DKV_BN * D * 2, Q_TILE = DKV_BM * D * 2;
+  constexpr int DS_TILE = FUSED ? DKV_BN * DKV_BM * 2 : 0;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* s_k = align_1024(smem_raw);
   uint8_t* s_v = s_k + KV_TILE;
   uint8_t* s_qdo = s_v + KV_TILE;  // stage s: Q at s_qdo + 2 s Q_TILE, dO after it
-  float* s_rows = reinterpret_cast<float*>(s_qdo + 4 * Q_TILE);  // stage s: lse [64], delta [64]
+  uint8_t* s_ds = s_qdo + 4 * Q_TILE;  // K3: dS^T of the step
+  float* s_rows = reinterpret_cast<float*>(s_ds + DS_TILE);  // stage s: lse [64], delta [64]
   uint64_t* bar = reinterpret_cast<uint64_t*>(s_rows + 4 * DKV_BM);  // [0]: K and V; [1 + s]: stage s
+  float* s_dq = reinterpret_cast<float*>(bar + 4);  // K3: the step's dq partial (DQ_PLANES, DQ_PITCH)
 
   const int tid = threadIdx.x, wg = tid / 128, w4 = (tid / 32) % 4, g = (tid % 32) / 4, t = tid % 4;
   const int hps = p.group / p.splits;  // q heads a split walks
@@ -642,27 +419,96 @@ __global__ void __launch_bounds__(THREADS, 1) dkv_kernel(const __grid_constant__
     uint32_t pa[DKV_BM / 16][4], da[DKV_BM / 16][4];
     to_a_frags<T, DKV_BM / 16>(pa, st);
     to_a_frags<T, DKV_BM / 16>(da, dpt);
+    constexpr int NQ = D == 128 ? 64 : D;  // K3: dq columns a warpgroup's product makes
+    float dq[NQ / 2];
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < DKV_BM / 16; ++kk) mma_rs<T, D>(dv, pa[kk], desc_mn<D, DKV_BM>(do_tile, kk));
 #pragma unroll
     for (int kk = 0; kk < DKV_BM / 16; ++kk) mma_rs<T, D>(dk, da[kk], desc_mn<D, DKV_BM>(q_tile, kk));
+    if constexpr (FUSED) {
+      // While dV and dK multiply, dS^T (rounded, as da) goes into s_ds: a
+      // [128 kv][64 q] tile in the 128-byte swizzle TMA writes (row r's
+      // 16-byte chunk j at chunk j ^ r % 8), which dQ's product reads as its
+      // A operand, transposed. da[kk] holds rows ra, rb of column blocks
+      // 2 kk and 2 kk + 1.
+      const int ra = 64 * wg + 16 * w4 + g, rb = ra + 8;
+      auto put = [&](int r, int j, uint32_t x) {
+        *reinterpret_cast<uint32_t*>(s_ds + r * 128 + ((j ^ (r & 7)) << 4) + 4 * t) = x;
+      };
+#pragma unroll
+      for (int kk = 0; kk < DKV_BM / 16; ++kk) {
+        put(ra, 2 * kk, da[kk][0]);
+        put(rb, 2 * kk, da[kk][1]);
+        put(ra, 2 * kk + 1, da[kk][2]);
+        put(rb, 2 * kk + 1, da[kk][3]);
+      }
+      if (tid / 32 == REDUCER) bulk_wait_read();  // the last step's dq rows have left s_dq
+      fence_proxy_async();
+      __syncthreads();  // dS^T is whole
+      const uint32_t ds_tile = smem_u32(s_ds);
+      wg_fence();
+      if constexpr (D == 128) {
+        // dQ's columns [64 wg, 64 wg + 64) over all 128 kv rows: B is K's
+        // column chunk wg.
+#pragma unroll
+        for (int kk = 0; kk < DKV_BN / 16; ++kk)
+          mma_ss_tt<T, NQ>(dq, desc_mn<64, DKV_BN>(ds_tile, kk), desc_mn<D, DKV_BN>(k_tile + wg * DKV_BN * 128, kk), kk);
+      } else {
+        // dQ's partial over this warpgroup's 64 kv rows, every column.
+#pragma unroll
+        for (int kk = 0; kk < 64 / 16; ++kk)
+          mma_ss_tt<T, NQ>(dq, desc_mn<64, DKV_BN>(ds_tile + wg * 64 * 128, kk),
+                           desc_mn<D, DKV_BN>(k_tile + wg * 64 * Layout<D>::ROW, kk), kk);
+      }
+    }
     wg_commit();
     wg_wait_all();
     fence_regs(dv);
     fence_regs(dk);
+    if constexpr (FUSED) {
+      fence_regs(dq);
+      // Stage sm_scale * dq: rows 16 w4 + g and + 8 of the q tile.
+      constexpr int PITCH = DQ_PITCH<D>;
+      float* plane = s_dq + (D == 128 ? 64 * wg : wg * DKV_BM * PITCH);
+      const int qa = 16 * w4 + g;
+#pragma unroll
+      for (int j = 0; j < NQ / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(plane + qa * PITCH + col) = make_float2(dq[4 * j] * p.sm_scale, dq[4 * j + 1] * p.sm_scale);
+        *reinterpret_cast<float2*>(plane + (qa + 8) * PITCH + col) =
+            make_float2(dq[4 * j + 2] * p.sm_scale, dq[4 * j + 3] * p.sm_scale);
+      }
+      fence_proxy_async();
+    }
 
-    __syncthreads();  // both warpgroups are done with stage s
+    __syncthreads();  // both warpgroups are done with stage s (K3: and the dq rows are staged)
     if (tid == 0 && g_load < hps) {
       load_q(s, g_load, m_load);
       m_load += DKV_BM;
       advance(g_load, m_load);
     }
+    if constexpr (FUSED) {
+      // One bulk reduce a staged row (a plane each) into dq_acc; the adds
+      // from the kv tiles' blocks land in a run-dependent order.
+      if (tid / 32 == REDUCER) {
+        constexpr int PITCH = DQ_PITCH<D>;
+        float* dq_rows = p.dq_acc + static_cast<int64_t>(b * p.num_q_heads + h0) * p.q_len * D;
+        for (int i = tid % 32; i < DQ_PLANES<D> * DKV_BM; i += 32) {
+          const int row = m0 + i % DKV_BM;
+          if (row < p.q_len) bulk_reduce_add(dq_rows + static_cast<int64_t>(row) * D, s_dq + i * PITCH, D * 4);
+        }
+        bulk_commit();
+      }
+    }
     m0 += DKV_BM;
     advance(gi, m0);
   }
+  if constexpr (FUSED) {
+    if (tid / 32 == REDUCER) bulk_wait();  // s_dq is read until the reduces complete
+  }
 
-  if (p.splits == 1) {
+  if (FUSED || p.splits == 1) {
     const int64_t at = static_cast<int64_t>(bhk) * p.kv_len * D;
     T* dk_out = static_cast<T*>(p.out0) + at;
     T* dv_out = static_cast<T*>(p.out1) + at;
@@ -726,74 +572,37 @@ __global__ void __launch_bounds__(256) split_sum_kernel(const float* __restrict_
 
 // ---- host ----
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+enum class Pass { kDq, kDkv, kFused };  // K4, K5, K3
 
-// cuTensorMapEncodeTiled from the driver through the runtime, so the library
-// links against cudart alone.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
-
-// A tensor map over [B, H, S, D] with strides (sb, sh, sr) elements; boxes of
-// `rows` rows by one chunk of columns, swizzled, rows past S read as 0.
-template <int D>
-bool make_map(CUtensorMap* map, const void* base, int dtype, int64_t B, int64_t H, int64_t S, int64_t sb,
-              int64_t sh, int64_t sr, int rows) {
-  using L = Layout<D>;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(H),
-                        static_cast<cuuint64_t>(B)};
-  cuuint64_t strides[3] = {static_cast<cuuint64_t>(sr * 2), static_cast<cuuint64_t>(sh * 2),
-                           static_cast<cuuint64_t>(sb * 2)};
-  // A dimension of extent 1 is never stepped over: give it the stride a
-  // contiguous layout would have, whatever the view reports.
-  if (S == 1) strides[0] = D * 2;
-  if (H == 1) strides[1] = strides[0] * S;
-  if (B == 1) strides[2] = strides[1] * H;
-  cuuint32_t box[4] = {static_cast<cuuint32_t>(L::CW), static_cast<cuuint32_t>(rows), 1, 1};
-  cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapDataType type =
-      dtype == fat::kBFloat16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-  const CUtensorMapSwizzle swizzle = L::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  return encode(map, type, 4, const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <typename T, int D, bool MASKED>
-cudaError_t run(const Params& p, const fat::Sm90BwdCall& c, bool dq) {
-  if (dq) {
-    constexpr size_t smem = dq_smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(dq_kernel<T, D, MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const dim3 grid((c.q_len + DQ_BM - 1) / DQ_BM, static_cast<unsigned>(c.batch * c.num_q_heads));
-    dq_kernel<T, D, MASKED><<<grid, THREADS, smem, c.stream>>>(p);
-  } else {
-    constexpr size_t smem = dkv_smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(dkv_kernel<T, D, MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const dim3 grid((c.kv_len + DKV_BN - 1) / DKV_BN, static_cast<unsigned>(c.batch * c.num_kv_heads * c.splits));
-    dkv_kernel<T, D, MASKED><<<grid, THREADS, smem, c.stream>>>(p);
-  }
+template <typename Kernel>
+cudaError_t start(Kernel kernel, size_t smem, dim3 grid, const Params& p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <typename T, int D, bool MASKED>
+cudaError_t run(const Params& p, const fat::Sm90BwdCall& c, Pass pass) {
+  const unsigned kv_tiles = static_cast<unsigned>((c.kv_len + DKV_BN - 1) / DKV_BN);
+  switch (pass) {
+    case Pass::kDq:
+      return start(dq_kernel<T, D, MASKED>, dq_smem_bytes<D>(),
+                   dim3((c.q_len + DQ_BM - 1) / DQ_BM, static_cast<unsigned>(c.batch * c.num_q_heads)), p, c.stream);
+    case Pass::kDkv:
+      return start(dkv_kernel<T, D, MASKED>, dkv_smem_bytes<D>(),
+                   dim3(kv_tiles, static_cast<unsigned>(c.batch * c.num_kv_heads * c.splits)), p, c.stream);
+    default:
+      return start(dkv_kernel<T, D, MASKED, true>, fused_smem_bytes<D>(),
+                   dim3(kv_tiles, static_cast<unsigned>(c.batch * c.num_kv_heads)), p, c.stream);
+  }
+}
+
 template <typename T, int D>
-cudaError_t launch(const fat::Sm90BwdCall& c, bool dq) {
+cudaError_t launch(const fat::Sm90BwdCall& c, Pass pass) {
   Params p{};
   const int64_t* st = c.st;
+  const bool dq = pass == Pass::kDq;
   const int q_rows = dq ? DQ_BM : DKV_BM, kv_rows = dq ? DQ_BN : DKV_BN;
   if (!make_map<D>(&p.tm_q, c.q, c.dtype, c.batch, c.num_q_heads, c.q_len, st[0], st[1], st[2], q_rows) ||
       !make_map<D>(&p.tm_k, c.k, c.dtype, c.batch, c.num_kv_heads, c.kv_len, st[3], st[4], st[5], kv_rows) ||
@@ -811,7 +620,7 @@ cudaError_t launch(const fat::Sm90BwdCall& c, bool dq) {
   p.q_len = static_cast<int>(c.q_len);
   p.kv_len = static_cast<int>(c.kv_len);
   p.causal = c.causal;
-  p.splits = dq ? 1 : c.splits;
+  p.splits = pass == Pass::kDkv ? c.splits : 1;
   p.scale2 = c.scale2;
   p.sm_scale = c.sm_scale;
   p.window = c.window;
@@ -820,30 +629,32 @@ cudaError_t launch(const fat::Sm90BwdCall& c, bool dq) {
   p.seg_kv = c.seg_kv;
   p.q_rng = c.q_rng;
   p.kv_rng = c.kv_rng;
-  if (c.window > 0 || c.softcap2 > 0.f || c.seg_q != nullptr) return run<T, D, true>(p, c, dq);
-  return run<T, D, false>(p, c, dq);
+  p.dq_acc = c.dq_acc;
+  if (c.window > 0 || c.softcap2 > 0.f || c.seg_q != nullptr) return run<T, D, true>(p, c, pass);
+  return run<T, D, false>(p, c, pass);
 }
 
 template <typename T>
-cudaError_t by_head_dim(const fat::Sm90BwdCall& c, bool dq) {
+cudaError_t by_head_dim(const fat::Sm90BwdCall& c, Pass pass) {
   switch (c.head_dim) {
-    case 32: return launch<T, 32>(c, dq);
-    case 64: return launch<T, 64>(c, dq);
-    case 128: return launch<T, 128>(c, dq);
+    case 32: return launch<T, 32>(c, pass);
+    case 64: return launch<T, 64>(c, pass);
+    case 128: return launch<T, 128>(c, pass);
     default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t dispatch_call(const fat::Sm90BwdCall& c, bool dq) {
+cudaError_t dispatch_call(const fat::Sm90BwdCall& c, Pass pass) {
   if (c.window < 0 || (c.window > 0 && !c.causal)) return cudaErrorInvalidValue;
   if (c.seg_q != nullptr && (c.seg_kv == nullptr || c.q_rng == nullptr || c.kv_rng == nullptr))
     return cudaErrorInvalidValue;
   if (c.lse_pitch % 64 != 0 || c.lse_pitch < c.q_len) return cudaErrorInvalidValue;
   const int64_t group = c.num_q_heads / c.num_kv_heads;
-  if (!dq && (c.splits < 1 || group % c.splits != 0)) return cudaErrorInvalidValue;
+  if (pass == Pass::kDkv && (c.splits < 1 || group % c.splits != 0)) return cudaErrorInvalidValue;
+  if (pass == Pass::kFused && (group != 1 || c.dq_acc == nullptr)) return cudaErrorInvalidValue;
   switch (c.dtype) {
-    case fat::kBFloat16: return by_head_dim<bf16>(c, dq);
-    case fat::kFloat16: return by_head_dim<__half>(c, dq);
+    case fat::kBFloat16: return by_head_dim<bf16>(c, pass);
+    case fat::kFloat16: return by_head_dim<__half>(c, pass);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -852,8 +663,9 @@ cudaError_t dispatch_call(const fat::Sm90BwdCall& c, bool dq) {
 
 namespace fat {
 
-cudaError_t sm90_bwd_dq(const Sm90BwdCall& c) { return dispatch_call(c, true); }
-cudaError_t sm90_bwd_dkv(const Sm90BwdCall& c) { return dispatch_call(c, false); }
+cudaError_t sm90_bwd_dq(const Sm90BwdCall& c) { return dispatch_call(c, Pass::kDq); }
+cudaError_t sm90_bwd_dkv(const Sm90BwdCall& c) { return dispatch_call(c, Pass::kDkv); }
+cudaError_t sm90_bwd_fused(const Sm90BwdCall& c) { return dispatch_call(c, Pass::kFused); }
 
 }  // namespace fat
 

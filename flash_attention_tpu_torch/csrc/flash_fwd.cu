@@ -55,13 +55,17 @@
 // score tile and p instead; the same up to fp32 rounding), so only the
 // payload and the scales are read and no dequantized copy exists.
 //
+// K1 and K1d in bf16 and fp16 run csrc/flash_fwd_sm90.cu's tensor-core body
+// (wgmma on TMA-fed tiles), to which fat_flash_fwd dispatches; this body
+// serves them in fp32, and K2 and K8 in every dtype.
+//
 // What bounds it on this card: at long kv the score and PV products are
 // O(q_len * kv_len * D) (O(q_len * window * D) with a window) against
-// O((q_len + kv_len) * D) bytes, so arithmetic bounds it. This first
-// version does that arithmetic as fp32 FMAs over shared-memory tiles, not on
-// the tensor cores, so it runs far below the card's bf16 rate; wgmma with
-// TMA-fed tiles is later work. K2's band at window 64 does ~128 columns a
-// row against a bound set by its bytes, and is launch- and latency-bound.
+// O((q_len + kv_len) * D) bytes, so arithmetic bounds it. This body does
+// that arithmetic as fp32 FMAs over shared-memory tiles, not on the tensor
+// cores, so it runs far below the card's bf16 rate (K8's and K2's redesign
+// is later work). K2's band at window 64 does ~128 columns a row against a
+// bound set by its bytes, and is launch- and latency-bound.
 //
 // Design:
 //  * one block per (batch * q_head, 64-row q tile); 128 threads, each owning
@@ -77,6 +81,7 @@
 //  * q, k and v are read through their batch, head and row strides, so a
 //    slice of a KV cache is attended in place without a copy.
 #include "common.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
@@ -381,8 +386,12 @@ struct FwdLaunch {
     } else {
       if (band) return cudaErrorInvalidValue;
     }
-    if (p.window > 0 || p.sinks > 0 || p.softcap2 > 0.f || p.seg_q != nullptr) return run<T, P, D, true, false>();
-    return run<T, P, D, false, false>();
+    if constexpr (!PAGED && !std::is_same_v<T, float>) {
+      return cudaErrorInvalidValue;  // dense K1 / K1d take this body in fp32 only (else flash_fwd_sm90.cu)
+    } else {
+      if (p.window > 0 || p.sinks > 0 || p.softcap2 > 0.f || p.seg_q != nullptr) return run<T, P, D, true, false>();
+      return run<T, P, D, false, false>();
+    }
   }
 };
 
@@ -423,8 +432,10 @@ FwdParams make_params(const void* q, const void* k, const void* v, void* o, floa
 // seg_kv [B, Skv] int32 contiguous with their tile ranges q_rng [B,
 // ceil(Sq / 64), 2] and kv_rng [B, ceil(Skv / 64), 2] (K1d), or all null.
 // window: 0, or the causal sliding window; softcap2: 0, or cap * log2(e);
-// band: 1 for K2 (requires 1 <= window <= 64 and no segment ids). Returns a
-// cudaError_t.
+// band: 1 for K2 (requires 1 <= window <= 64 and no segment ids). bf16 and
+// fp16 without band run csrc/flash_fwd_sm90.cu, which needs operands TMA can
+// read (16-byte-aligned base and strides) and q_tile, its q rows a block (64
+// or 128); this body ignores q_tile. Returns a cudaError_t.
 extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                              const int32_t* seg_q, const int32_t* seg_kv, const int32_t* q_rng,
                              const int32_t* kv_rng, int64_t batch, int64_t num_q_heads, int64_t num_kv_heads,
@@ -432,7 +443,13 @@ extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* 
                              int64_t q_sh, int64_t q_sr, int64_t k_sb, int64_t k_sh, int64_t k_sr,
                              int64_t v_sb, int64_t v_sh, int64_t v_sr, float scale2,
                              int32_t causal, int32_t window, float softcap2, int32_t band,
-                             int32_t dtype, void* stream) {
+                             int32_t dtype, void* stream, int32_t q_tile) {
+  if (dtype != fat::kFloat32 && band == 0) {
+    const int64_t st[9] = {q_sb, q_sh, q_sr, k_sb, k_sh, k_sr, v_sb, v_sh, v_sr};
+    return static_cast<int>(fat::sm90_fwd(fat::Sm90FwdCall{
+        q, k, v, o, lse, batch, num_q_heads, num_kv_heads, q_len, kv_len, head_dim, st, scale2, causal, window,
+        softcap2, seg_q, seg_kv, q_rng, kv_rng, q_tile, dtype, static_cast<cudaStream_t>(stream)}));
+  }
   FwdParams p = make_params(q, k, v, o, lse, num_q_heads, num_kv_heads, q_len, kv_len, q_sb, q_sh,
                             q_sr, k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, scale2, causal);
   p.window = window;

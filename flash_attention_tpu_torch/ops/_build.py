@@ -104,7 +104,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i64, i64, i64, i64, i64, i64, i64, i64, i64,  # q/k/v strides
         f32, i32,  # scale2, causal
         i32, f32, i32,  # window, softcap2, band (K2)
-        i32, ptr,  # dtype, stream
+        i32, ptr, i32,  # dtype, stream, q rows a block (the tensor-core body)
     ]
     lib.fat_paged_prefill.restype = c.c_int
     lib.fat_paged_prefill.argtypes = [
@@ -157,9 +157,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, ptr,  # dtype, stream
     ]
     # q, k, v, dO, lse, delta, then the outputs: dq (K4); dk, dv (K5); fp32
-    # dq accumulator, dk, dv (K3). K4 and K5 then take the lse / delta row
-    # pitch, and K5 its split count and fp32 workspace.
-    tails = {"fat_flash_bwd_dq": [i64], "fat_flash_bwd_dkv": [i64, i32, ptr], "fat_flash_bwd_fused": []}
+    # dq accumulator, dk, dv (K3). Each then takes the lse / delta row pitch,
+    # and K5 its split count and fp32 workspace.
+    tails = {"fat_flash_bwd_dq": [i64], "fat_flash_bwd_dkv": [i64, i32, ptr], "fat_flash_bwd_fused": [i64]}
     for entry, n_out in (("fat_flash_bwd_dq", 1), ("fat_flash_bwd_dkv", 2), ("fat_flash_bwd_fused", 3)):
         fn = getattr(lib, entry)
         fn.restype = c.c_int

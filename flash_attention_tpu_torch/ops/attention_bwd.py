@@ -4,12 +4,11 @@ Counterpart of the JAX package's ``ops/attention_bwd.py:flash_attention_bwd``
 (:978). Replaces its three Pallas kernels: ``_bwd_fused_kernel`` (K3, :594,
 one pass for dq, dk and dv), ``_bwd_dq_kernel`` (K4, :65) and
 ``_bwd_dkv_kernel`` (K5, :317, dk and dv summed over the GQA group), with
-their window, softcap and segment-id branches. K3, and K4 and K5 in fp32,
-run the FMA bodies of csrc/flash_bwd.cu; K4 and K5 in bf16 and fp16 run
-the tensor-core bodies of csrc/flash_bwd_sm90.cu (wgmma on TMA-fed tiles,
-P and dS rounded to the input type before their products). What bounds
-each on an H100 and what its design does about it is written at the top of
-each source.
+their window, softcap and segment-id branches. In bf16 and fp16 all three
+run the tensor-core bodies of csrc/flash_bwd_sm90.cu (wgmma on TMA-fed
+tiles, P and dS rounded to the input type before their products); in fp32
+they run the FMA bodies of csrc/flash_bwd.cu. What bounds each on an H100
+and what its design does about it is written at the top of each source.
 
 The recurrence (S = Q Kᵀ, P recomputed from the forward's base-2 LSE):
 
@@ -37,26 +36,26 @@ when ``dkv_splits`` splits a kv head's group over blocks.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
 
 from flash_attention_tpu_torch.ops import _build
 from flash_attention_tpu_torch.ops.common import (
     LOG2E,
+    TENSOR_CORE_DTYPES,
+    TMA_ALIGN,
     ceil_to,
     mask_window,
     segment_operands,
+    sm_count,
     softcap2,
+    tma_aligned,
+    tma_operands,
     visible_mask,
 )
 
-# dtypes whose K4 and K5 run on the tensor cores (csrc/flash_bwd_sm90.cu).
-TENSOR_CORE_DTYPES = (torch.float16, torch.bfloat16)
-DKV_TILE = 128  # kv rows a K5 block of the tensor-core body owns
+DKV_TILE = 128  # kv rows a K5 (and K3) block of the tensor-core body owns
 ROW_PAD = 64  # the tensor-core bodies read lse and delta in rows padded to this
-TMA_ALIGN = 16  # bytes: TMA's base address and stride alignment
 
 
 def bwd_route(num_q_heads: int, num_kv_heads: int, q_len: int, kv_len: int) -> str:
@@ -127,29 +126,6 @@ def dkv_splits(batch: int, num_kv_heads: int, kv_len: int, group: int, num_sms: 
         if group % splits == 0 and blocks * splits >= 2 * num_sms:
             return splits
     return group
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def tma_aligned(x: torch.Tensor) -> bool:
-    """Whether TMA can read ``x`` [B, H, S, D] as it lies: unit last stride,
-    a 16-byte-aligned base and 16-byte-multiple strides (a dimension of
-    extent 1 is never stepped over, so its stride does not count)."""
-    size = x.element_size()
-    return (
-        x.stride(-1) == 1
-        and x.data_ptr() % TMA_ALIGN == 0
-        and all(n == 1 or st * size % TMA_ALIGN == 0 for n, st in zip(x.shape[:-1], x.stride()[:-1]))
-    )
-
-
-def tma_operands(*tensors: torch.Tensor) -> list[torch.Tensor]:
-    """The operands as the tensor-core bodies take them: each one itself if
-    ``tma_aligned``, else a contiguous copy (only that one is copied)."""
-    return [x if tma_aligned(x) else x.clone(memory_format=torch.contiguous_format) for x in tensors]
 
 
 def _padded_rows(x: torch.Tensor) -> torch.Tensor:
@@ -223,20 +199,24 @@ BwdMasks.NONE = BwdMasks()
 
 
 def launch_fused(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float, masks: BwdMasks = BwdMasks.NONE):
-    """K3: (dq, dk, dv) of MHA self-attention in one pass. Each (kv tile, q
-    tile) adds its dq partial into an fp32 buffer with atomics, so dq sums in
-    a run-dependent order; dk and dv are written once."""
+    """K3: (dq, dk, dv) of MHA self-attention in one pass, one block per kv
+    tile (128 rows on the tensor cores in bf16 / fp16, 64 on FMAs in fp32)
+    walking the q tiles that see it. Each (kv tile, q tile) adds its dq
+    partial into a zeroed fp32 buffer of q's shape, contiguous (bulk
+    reduces of D * 4-byte rows in bf16 / fp16, atomics in fp32), so dq sums
+    in a run-dependent order; dk and dv are written once."""
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch("fat_flash_bwd_fused", "flash_attention_bwd (K3)", q, k, v, do, lse, delta, (dq_acc, dk, dv),
-            causal=causal, sm_scale=sm_scale, masks=masks)
+    args, pitch = _tensor_core_args(q, k, v, do, lse, delta)
+    _launch("fat_flash_bwd_fused", "flash_attention_bwd (K3)", *args, (dq_acc, dk, dv),
+            causal=causal, sm_scale=sm_scale, masks=masks, tail=(pitch,))
     masks.count(launch_fused)
     return dq_acc.to(q.dtype), dk, dv
 
 
 def _tensor_core_args(q, k, v, do, lse, delta):
-    """The operands as K4 and K5 take them, with the lse / delta row pitch:
+    """The operands as K3, K4 and K5 take them, with the lse / delta row pitch:
     for bf16 / fp16 (the tensor-core bodies) TMA-ready operands and padded
     rows, for fp32 (the FMA bodies) the operands as given."""
     if q.dtype not in TENSOR_CORE_DTYPES:
@@ -269,7 +249,7 @@ def launch_dkv(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float, masks:
     batch, num_kv_heads, kv_len, head_dim = k.shape
     splits = 1
     if q.dtype in TENSOR_CORE_DTYPES:
-        splits = dkv_splits(batch, num_kv_heads, kv_len, q.shape[1] // num_kv_heads, _sm_count(q.device))
+        splits = dkv_splits(batch, num_kv_heads, kv_len, q.shape[1] // num_kv_heads, sm_count(q.device))
     ws = None
     if splits > 1:
         ws = torch.empty((2, batch, num_kv_heads, splits, kv_len, head_dim), dtype=torch.float32, device=q.device)

@@ -5,10 +5,14 @@ exp2-domain softmax with log2(e) folded into the scale, and a large finite
 negative mask value rather than -inf, so exp2 of a masked score underflows to
 exactly 0. The CUDA sources (csrc/common.cuh) carry the same three numbers.
 Also the masks' shared pieces: the visibility predicate the plain versions
-apply, and the packed-sequence ids' checks and tile ranges.
+apply, and the packed-sequence ids' checks and tile ranges; and what the
+tensor-core bodies (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu) need of
+their operands: the dtypes they take and the alignment TMA reads.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -105,3 +109,33 @@ def softcap2(logit_softcap: float | None) -> float:
     """The kernels' softcap argument: cap * log2(e), the cap in the exp2
     domain of their scores, or 0 for none."""
     return 0.0 if logit_softcap is None else float(logit_softcap) * LOG2E
+
+
+# dtypes whose K1, K1d, K3, K4 and K5 run on the tensor cores
+# (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu); fp32 keeps the FMA bodies.
+TENSOR_CORE_DTYPES = (torch.float16, torch.bfloat16)
+TMA_ALIGN = 16  # bytes: TMA's base address and stride alignment
+
+
+def tma_aligned(x: torch.Tensor) -> bool:
+    """Whether TMA can read ``x`` [B, H, S, D] as it lies: unit last stride,
+    a 16-byte-aligned base and 16-byte-multiple strides (a dimension of
+    extent 1 is never stepped over, so its stride does not count)."""
+    size = x.element_size()
+    return (
+        x.stride(-1) == 1
+        and x.data_ptr() % TMA_ALIGN == 0
+        and all(n == 1 or st * size % TMA_ALIGN == 0 for n, st in zip(x.shape[:-1], x.stride()[:-1]))
+    )
+
+
+def tma_operands(*tensors: torch.Tensor) -> list[torch.Tensor]:
+    """The operands as the tensor-core bodies take them: each one itself if
+    ``tma_aligned``, else a contiguous copy (only that one is copied)."""
+    return [x if tma_aligned(x) else x.clone(memory_format=torch.contiguous_format) for x in tensors]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -1,12 +1,16 @@
-"""Fused attention forward: kernels K1, K1d and K2 (csrc/flash_fwd.cu) and their plain version.
+"""Fused attention forward: kernels K1, K1d and K2 and their plain version.
 
 Replaces the JAX package's ``ops/flash_attention.py:_fwd_kernel`` and, for a
 causal sliding window no wider than the kernel's 64-row kv tile,
 ``_band_kernel`` (:795, K2), both reached from ``flash_attention`` (:1718),
 with their sliding-window, logit-softcap and segment-id branches (K1d:
-packed sequences, each document attending only within itself). What bounds
-the kernels on an H100 (tensor-core arithmetic at long kv) and what their
-design does about it is written at the top of csrc/flash_fwd.cu.
+packed sequences, each document attending only within itself). K1 and K1d
+in bf16 and fp16 run the tensor-core body of csrc/flash_fwd_sm90.cu (wgmma
+on TMA-fed tiles, P rounded to the input type before P V, q tiles of
+``fwd_q_tile`` rows); in fp32 they, and K2 in every dtype, run the FMA body
+of csrc/flash_fwd.cu. What bounds the kernels on an H100 (tensor-core
+arithmetic at long kv) and what each design does about it is written at the
+top of each source.
 
 ``flash_attention`` runs the plain PyTorch version for CPU tensors and the
 CUDA kernel for CUDA tensors; there is no fallback from one to the other.
@@ -36,15 +40,46 @@ from flash_attention_tpu_torch.ops.common import (
     LOG2E,
     M_FLOOR,
     MASK_VALUE,
+    TENSOR_CORE_DTYPES,
     mask_window,
     segment_operands,
     segment_pair,
+    sm_count,
     softcap2,
+    tma_operands,
     visible_mask,
 )
 
 # K2 takes a causal window no wider than K1's kv tile (csrc/flash_fwd.cu BN).
 BAND_MAX_WINDOW = 64
+
+
+def fwd_q_tile(batch: int, num_q_heads: int, q_len: int, num_sms: int) -> int:
+    """q rows a block of K1's tensor-core body takes: 128 (two warpgroups
+    sharing each K / V tile) where that gives at least one block an SM, else
+    64 (one warpgroup, two blocks an SM), so a short chunk still fills the
+    card: q [1,32,256,128] makes 64 blocks of 128 rows on an H100's 132 SMs,
+    128 of 64."""
+    return 128 if -(-q_len // 128) * batch * num_q_heads >= num_sms else 64
+
+
+def fwd_route(dtype: torch.dtype, sliding_window=None, has_segments: bool = False) -> tuple[str, str]:
+    """The kernel a CUDA call of ``flash_attention`` launches, and its body:
+    K1d with segment ids, K2 for a window of at most BAND_MAX_WINDOW without
+    them, else K1; "tensor_core" (csrc/flash_fwd_sm90.cu) for K1 and K1d in
+    bf16 / fp16, else "fma" (csrc/flash_fwd.cu: fp32, and K2's band walk in
+    every dtype). K8 (ops/paged.py) keeps the FMA body too."""
+    if has_segments:
+        kernel = "K1d"
+    elif sliding_window is not None and sliding_window <= BAND_MAX_WINDOW:
+        kernel = "K2"
+    else:
+        kernel = "K1"
+    return kernel, "tensor_core" if dtype in TENSOR_CORE_DTYPES and kernel != "K2" else "fma"
+
+
+# Each forward kernel's launch counter on ``flash_attention``.
+_COUNTERS = {"K1": "launches", "K2": "band_launches", "K1d": "segment_launches"}
 
 
 def flash_attention_plain(
@@ -134,15 +169,26 @@ def _forward(
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
 
     _build.check_operands("flash_attention", head_dim, q, k, v)
-    q, k, v = (_build.unit_last_stride(x) for x in (q, k, v))
+    kernel, body = fwd_route(q.dtype, sliding_window, segments is not None)
+    tensor_core = body == "tensor_core"
+    if tensor_core:
+        q, k, v = tma_operands(q, k, v)
+    else:
+        q, k, v = (_build.unit_last_stride(x) for x in (q, k, v))
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (
         torch.empty((batch, num_q_heads, q_len), dtype=torch.float32, device=q.device)
         if save_residuals else None
     )
-    band = sliding_window is not None and sliding_window <= BAND_MAX_WINDOW and segments is None
-    if out.numel():
+    if tensor_core and out.numel() and kv_len == 0:
+        # No key: output 0 and LSE -inf, the contract's empty row (TMA takes
+        # no empty tensor).
+        out.zero_()
+        if lse is not None:
+            lse.fill_(-torch.inf)
+    elif out.numel():
         seg = segment_operands(segments, q.device)
+        q_tile = fwd_q_tile(batch, num_q_heads, q_len, sm_count(q.device)) if tensor_core else 0
         lib = _build.kernels()
         with torch.cuda.device(q.device):
             err = lib.fat_flash_fwd(
@@ -153,18 +199,12 @@ def _forward(
                 q.stride(0), q.stride(1), q.stride(2),
                 k.stride(0), k.stride(1), k.stride(2),
                 v.stride(0), v.stride(1), v.stride(2),
-                sm_scale * LOG2E, int(causal), mask_window(sliding_window), softcap2(logit_softcap), int(band),
-                _build.DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+                sm_scale * LOG2E, int(causal), mask_window(sliding_window), softcap2(logit_softcap), int(kernel == "K2"),
+                _build.DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream, q_tile,
             )
-        if segments is not None:
-            _build.check(err, "flash_attention (K1d)")
-            flash_attention.segment_launches += 1
-        elif band:
-            _build.check(err, "flash_attention (K2)")
-            flash_attention.band_launches += 1
-        else:
-            _build.check(err, "flash_attention (K1)")
-            flash_attention.launches += 1
+        _build.check(err, f"flash_attention ({kernel})")
+        counter = _COUNTERS[kernel]
+        setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
     return (out, lse) if save_residuals else out
 
 
@@ -213,7 +253,8 @@ def flash_attention(
       k, v: [batch, kv_heads, kv_seq, head_dim]; q_heads % kv_heads == 0.
         Any batch, head and row strides (a slice of a KV cache goes in as a
         view); the CUDA kernel copies an operand only if its last dimension
-        is strided.
+        is strided or, in bf16 / fp16, if TMA cannot read it as it lies (a
+        base or a stride not a multiple of 16 bytes).
       causal: lower-triangular mask aligned so the last query row sees the
         whole KV sequence (the decode / chunked-prefill convention).
       sm_scale: softmax scale, default 1/sqrt(head_dim).

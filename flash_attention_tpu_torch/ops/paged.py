@@ -8,8 +8,8 @@ counts its valid rows.
   * ``paged_decode_attention`` — K7 (csrc/decode.cu, the body K6 uses, read
     through the page table), replacing ``_paged_decode_kernel_hb`` (:980)
     and ``_paged_decode_kernel`` (:1104); output and base-2 LSE.
-  * ``paged_prefill_attention`` — K8 (csrc/flash_fwd.cu, the body K1 uses,
-    read through the page table), replacing ``_paged_prefill_kernel``
+  * ``paged_prefill_attention`` — K8 (csrc/flash_fwd.cu, the FMA body K1
+    takes in fp32, read through the page table, in every dtype), replacing ``_paged_prefill_kernel``
     (:580): causal chunk attention over the slot's pages in place.
   * ``paged_write_tokens_multi`` — K9/K10 (csrc/paged_write.cu), replacing
     ``_make_multi_write_kernel`` (:257) and, as its one-layer case through

@@ -8,8 +8,9 @@ non-causal) the rows here are
   bare S     body S (csrc/probes.cu) with K1's single-step epilogue
              (after_pv), launched into a preallocated output through
              ``probes.launch_single``: its C entry and a launch count
-  bare K1    K1 (csrc/flash_fwd.cu) through its C entry ``fat_flash_fwd``
-             with a preallocated output, no wrapper
+  bare K1    K1 (in bf16 csrc/flash_fwd_sm90.cu's tensor-core body) through
+             its C entry ``fat_flash_fwd`` with a preallocated output, no
+             wrapper
   real       flash_attention(q, k, v, causal=False) under torch.no_grad
   real+lse   the same with save_residuals=True
   real grad  the forward of FlashAttentionFunction (inputs that require grad)
@@ -33,7 +34,7 @@ import torch
 
 from flash_attention_tpu_torch.ops import _build
 from flash_attention_tpu_torch.ops import flash_attention as fa
-from flash_attention_tpu_torch.ops.common import LOG2E, segment_pair
+from flash_attention_tpu_torch.ops.common import LOG2E, segment_pair, sm_count
 from flash_attention_tpu_torch.tools import probes
 from flash_attention_tpu_torch.utils.benchmarking import attention_flops, card_description, time_fn
 
@@ -47,6 +48,7 @@ def bare_k1(q4, k4, v4, out, scale2: float) -> None:
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), None, None, None, None, None,
         b, h, h, s, s, d, *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
         scale2, 0, 0, 0.0, 0, _build.DTYPE_CODES[q4.dtype], torch.cuda.current_stream(q4.device).cuda_stream,
+        fa.fwd_q_tile(b, h, s, sm_count(q4.device)),
     )
     _build.check(err, "gap_probe bare K1")
 

@@ -70,37 +70,60 @@ def k6_split(card: str) -> dict:
     return {"ms": ms, "device_ms": device_ms, "host_us": host_us}
 
 
+SM90_SOURCES = ("flash_bwd_sm90.cu", "flash_fwd_sm90.cu")
+
+
+def _kernel_label(line: str) -> str:
+    """A kernel's name and template arguments from ptxas's mangled name:
+    e.g. "dkv_kernel bf16 128 masked=0 fused=1", "fwd_kernel fp16 64 masked=1
+    wgs=2"."""
+    import re
+
+    m = re.search(r"(dq_kernel|dkv_kernel|split_sum_kernel|fwd_kernel)I(\w+?)EEv", line)
+    if m is None:
+        return line.strip()
+    name, args = m.group(1), m.group(2).replace("13__nv_bfloat16", "bf16 ").replace("6__half", "fp16 ")
+    flags = {"dq_kernel": ("masked",), "dkv_kernel": ("masked", "fused"), "fwd_kernel": ("masked", "wgs")}.get(name, ())
+    values = re.findall(r"L[ib](\d+)E", args)
+    dims, rest = values[:1], values[1:]
+    return " ".join([name, args.split()[0] if args.split() else "", *dims,
+                     *(f"{k}={v}" for k, v in zip(flags, rest))]).strip()
+
+
 def ptxas_sm90(card: str) -> None:
-    """Compiles csrc/flash_bwd_sm90.cu alone with the build's flags and
-    ``-Xptxas -v``: prints the seconds it took and, for each kernel, its
-    registers, spills and whether ptxas serialised its wgmma."""
+    """Compiles each tensor-core source (SM90_SOURCES, those the tree has)
+    alone with the build's flags and ``-Xptxas -v``, all at once: prints the
+    seconds each took and, for each kernel, its registers, spills and
+    whether ptxas serialised its wgmma (C7515)."""
     import re
     import tempfile
     import time
 
     from flash_attention_tpu_torch.ops import _build
 
-    src = _build.CSRC_DIR / "flash_bwd_sm90.cu"
+    sources = [_build.CSRC_DIR / name for name in SM90_SOURCES if (_build.CSRC_DIR / name).exists()]
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        res = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
-                              os.path.join(tmp, "k.o")], capture_output=True, text=True)
-        secs = time.perf_counter() - t0
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
-    lines, kernel, rows = (res.stdout + res.stderr).splitlines(), None, []
-    for line in lines:
-        if "Compiling entry function" in line:
-            kernel = re.sub(r".*?(dq_kernel|dkv_kernel|split_sum_kernel)I(\w+?)(?:Li(\d+)ELb(\d))?E.*",
-                            r"\1 \2 d=\3 masked=\4", line).replace("13__nv_bfloat16", "bf16").replace("6__half", "fp16")
-        elif "bytes spill stores" in line and kernel:
-            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
-        elif "Used" in line and "registers" in line and kernel:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            rows.append(f"{kernel}: {regs} registers, {spill} B spilled")
-    serial = sum("C7515" in line for line in lines)
-    print(f"[ptxas sm90] flash_bwd_sm90.cu compiled alone in {secs:.1f} s; {len(rows)} kernels; wgmma serialised in "
-          f"{serial}; " + "; ".join(rows) + f" ({card})", flush=True)
+        procs = [subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
+                                   os.path.join(tmp, src.stem + ".o")], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for src in sources]
+        outs = [(src, *proc.communicate(), time.perf_counter() - t0, proc.returncode) for src, proc in zip(sources, procs)]
+    for src, stdout, _, secs, rc in outs:
+        if rc:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{stdout}")
+        lines, kernel, rows, spill, serial = stdout.splitlines(), None, [], "0", []
+        for line in lines:
+            if "Compiling entry function" in line:
+                kernel = _kernel_label(line)
+            elif "bytes spill stores" in line and kernel:
+                spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+            elif "Used" in line and "registers" in line and kernel:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                rows.append(f"{kernel}: {regs} registers, {spill} B spilled")
+            if "C7515" in line:
+                serial.append(kernel)
+        print(f"[ptxas sm90] {src.name} compiled alone in {secs:.1f} s; {len(rows)} kernels; wgmma serialised in "
+              f"{len(serial)} {serial}; " + "; ".join(rows) + f" ({card})", flush=True)
 
 
 def _model(cfg):
@@ -179,6 +202,46 @@ def mistral_bwd(card: str) -> dict:
     return {"ms": t["K4m"] + t["K5m"], **t}
 
 
+def mistral_attn(card: str) -> dict:
+    """K1 and K3m at phase 20's attention shapes, bf16: K1 with LSE at window
+    4096 over q [1,32,8192,128] kv [1,8,8192,128] (20a), K1d there packed as
+    documents PACKED_DOCS (20b), and K3m at 20d's shape (q = kv
+    [1,32,8192,128], window 4096, packed) alone on the plain forward's
+    residuals; ``ms`` is K1's at window 4096."""
+    import chip_smoke as cs
+    import torch
+
+    from flash_attention_tpu_torch.ops.attention_bwd import BwdMasks, _delta, _guard_lse, launch_fused
+    from flash_attention_tpu_torch.ops.common import segment_pair
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    t = {}
+    ids = cs._packed_ids(cs.PACKED_DOCS)
+    q, k, v, _ = cs._bwd_inputs(18, 32, 8, cs.TRAIN_T, cs.TRAIN_T, 128, torch.bfloat16)
+    kw = dict(causal=True, sliding_window=cs.WINDOW, save_residuals=True)
+    with torch.no_grad():
+        t["K1 window"] = cs.cuda_ms(lambda: flash_attention(q, k, v, **kw))
+        t["K1d packed"] = cs.cuda_ms(lambda: flash_attention(q, k, v, segment_ids=ids, **kw))
+    del q, k, v
+    q, k, v, do = cs._bwd_inputs(20, 32, 32, cs.TRAIN_T, cs.TRAIN_T, 128, torch.bfloat16)
+    segments = segment_pair(ids, 1, cs.TRAIN_T, cs.TRAIN_T)
+    outs, lses = [], []
+    with torch.no_grad():
+        for h in range(0, 32, 4):  # the plain forward's fp32 scores a few heads at a time
+            o, l = flash_attention_plain(q[:, h:h + 4], k[:, h:h + 4], v[:, h:h + 4], causal=True, sm_scale=128**-0.5,
+                                         save_residuals=True, sliding_window=cs.WINDOW, segments=segments)
+            outs.append(o.to(q.dtype))
+            lses.append(l)
+    out, lse = torch.cat(outs, 1), torch.cat(lses, 1)
+    args = (q, k, v, do, _guard_lse(lse).contiguous(), _delta(out, do).contiguous())
+    masks = BwdMasks(cs.WINDOW, None, segments, q.device)
+    t["K3m"] = cs.cuda_ms(lambda: launch_fused(*args, causal=True, sm_scale=128**-0.5, masks=masks))
+    print(f"[mistral attn] bf16, T={cs.TRAIN_T}, window {cs.WINDOW}: K1 + LSE (32/8 heads) {t['K1 window']:.4f} ms, "
+          f"K1d packed {cs.PACKED_DOCS} {t['K1d packed']:.4f} ms; K3m (q = kv 32 heads, packed) {t['K3m']:.4f} ms "
+          f"({card})", flush=True)
+    return {"ms": t["K1 window"], **t}
+
+
 def bwd_split(card: str) -> dict:
     """K4 and K5 at phase 12's shape (q [1,32,2048,128] kv [1,8,2048,128],
     causal, bf16) and K4m and K5m at phase 20a's (q [1,32,8192,128] kv
@@ -187,8 +250,6 @@ def bwd_split(card: str) -> dict:
     from a CUDA graph of 10 calls replayed, and the wrapper's host time a
     call (200 calls enqueued without a synchronisation). ``ms`` is K4 + K5's
     wrapper time, ``device_ms`` their graph time."""
-    import time
-
     import chip_smoke as cs
     import torch
 
@@ -202,21 +263,7 @@ def bwd_split(card: str) -> dict:
         if window is not None:
             kw["masks"] = BwdMasks(window, None, None, q.device)
         for name, fn in (("K4", launch_dq), ("K5", launch_dkv)):
-            call = lambda fn=fn: fn(*args, **kw)  # noqa: E731
-            ms = cs.cuda_ms(call, iters=50)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                for _ in range(10):
-                    call()
-            device_ms = cs.cuda_ms(graph.replay) / 10
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(200):
-                call()
-            host_us = (time.perf_counter() - t0) / 200 * 1e6
-            torch.cuda.synchronize()
-            rows[f"{name} {label}"] = (ms, device_ms, host_us)
-            del graph
+            rows[f"{name} {label}"] = _split_times(lambda fn=fn: fn(*args, **kw))
     print("[bwd split] " + "; ".join(f"{key}: wrapper {ms:.4f} ms, kernel alone {dev:.4f} ms (CUDA graph of 10), host "
                                      f"{host:.1f} us a call" for key, (ms, dev, host) in rows.items()) + f" ({card})",
           flush=True)
@@ -224,44 +271,176 @@ def bwd_split(card: str) -> dict:
     return {"ms": pair[0][0] + pair[1][0], "device_ms": pair[0][1] + pair[1][1]}
 
 
-def unchanged_bwd(card: str) -> dict:
-    """The kernels K4 and K5's redesign leaves as they were, on seeded
-    inputs: K1 (forward with LSE, q [1,32,2048,128] kv [1,8,2048,128]), K3
-    (q = kv [1,32,2048,128], causal) and the fp32 K4 and K5 (q [1,8,1024,64]
-    kv [1,2,1024,64]). Prints each one's time and a hash of its output bytes
-    (K3's dq, summed with atomics in a run-dependent order, is left out), so
-    two trees in one call can be held to the same results and times; ``ms``
-    is K3's."""
+def _digest(*tensors) -> str:
+    """A hash of the tensors' bytes."""
     import hashlib
 
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _plain_args(q, k, v, do):
+    """The backward launchers' arguments from the plain forward's residuals
+    (causal), so a backward's inputs do not depend on the forward kernel
+    under test."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.attention_bwd import _delta, _guard_lse
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    with torch.no_grad():
+        out, lse = flash_attention_plain(q, k, v, causal=True, sm_scale=q.shape[-1] ** -0.5, save_residuals=True)
+    return (q, k, v, do, _guard_lse(lse).contiguous(), _delta(out.to(q.dtype), do).contiguous())
+
+
+def unchanged_bwd(card: str) -> dict:
+    """The backward kernels K1 and K3's redesign leaves as they were, on
+    seeded inputs and the plain forward's residuals: K4 and K5 in bf16 (q
+    [1,32,2048,128] kv [1,8,2048,128], causal, K5 split with its sum K5s),
+    the fp32 K3 (dk and dv of q = kv [1,8,1024,64]; its dq sums with atomics
+    in a run-dependent order) and the fp32 K4 and K5 (q [1,8,1024,64] kv
+    [1,2,1024,64]). Prints each one's time and a hash of its output bytes,
+    so two trees in one call can be held to the same results and times;
+    ``ms`` is K4 + K5's."""
     import chip_smoke as cs
     import torch
 
     from flash_attention_tpu_torch.ops.attention_bwd import launch_dkv, launch_dq, launch_fused
-    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
-
-    def digest(*tensors) -> str:
-        h = hashlib.sha256()
-        for t in tensors:
-            h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
-        return h.hexdigest()[:16]
 
     out, times = {}, {}
-    q, k, v, _ = cs._bwd_inputs(12, 32, 8, 2048, 2048, 128, torch.bfloat16)
-    out["K1"] = digest(*flash_attention(q, k, v, causal=True, save_residuals=True))
-    times["K1"] = cs.cuda_ms(lambda: flash_attention(q, k, v, causal=True, save_residuals=True))
-    q, k, v, do = cs._bwd_inputs(12, 32, 32, 2048, 2048, 128, torch.bfloat16)
-    args, kw = _bwd_args(q, k, v, do), dict(causal=True, sm_scale=128**-0.5)
-    out["K3 dk, dv"] = digest(*launch_fused(*args, **kw)[1:])
-    times["K3"] = cs.cuda_ms(lambda: launch_fused(*args, **kw))
+    q, k, v, do = cs._bwd_inputs(12, 32, 8, 2048, 2048, 128, torch.bfloat16)
+    args, kw = _plain_args(q, k, v, do), dict(causal=True, sm_scale=128**-0.5)
+    out["K4"], out["K5"] = _digest(launch_dq(*args, **kw)), _digest(*launch_dkv(*args, **kw))
+    times["K4"] = cs.cuda_ms(lambda: launch_dq(*args, **kw))
+    times["K5"] = cs.cuda_ms(lambda: launch_dkv(*args, **kw))
+    q, k, v, do = cs._bwd_inputs(13, 8, 8, 1024, 1024, 64, torch.float32)
+    args, kw = _plain_args(q, k, v, do), dict(causal=True, sm_scale=64**-0.5)
+    out["fp32 K3 dk, dv"] = _digest(*launch_fused(*args, **kw)[1:])
+    times["fp32 K3"] = cs.cuda_ms(lambda: launch_fused(*args, **kw))
     q, k, v, do = cs._bwd_inputs(13, 8, 2, 1024, 1024, 64, torch.float32)
-    args, kw = _bwd_args(q, k, v, do), dict(causal=True, sm_scale=64**-0.5)
-    out["fp32 K4"], out["fp32 K5"] = digest(launch_dq(*args, **kw)), digest(*launch_dkv(*args, **kw))
+    args = _plain_args(q, k, v, do)
+    out["fp32 K4"], out["fp32 K5"] = _digest(launch_dq(*args, **kw)), _digest(*launch_dkv(*args, **kw))
     times["fp32 K4"] = cs.cuda_ms(lambda: launch_dq(*args, **kw))
     times["fp32 K5"] = cs.cuda_ms(lambda: launch_dkv(*args, **kw))
     print(f"[unchanged bwd] output hashes {out}; ms " + ", ".join(f"{k} {t:.4f}" for k, t in times.items())
           + f" ({card})", flush=True)
-    return {"ms": times["K3"], **times}
+    return {"ms": times["K4"] + times["K5"], **times}
+
+
+def unchanged_fwd(card: str) -> dict:
+    """The forward kernels K1's redesign leaves as they were, on seeded
+    inputs: K2 (window 64, q = kv [1,32,2048,128], bf16), K8 and K8q (fp8
+    e4m3) over a shuffled pool [129,8,128,128] (q [1,32,256,128] to kv_end
+    2048 of slot 7) and the fp32 K1 (causal with LSE, q [1,8,1024,64] kv
+    [1,2,1024,64]). Prints each one's time and a hash of its output bytes;
+    ``ms`` is K2's."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+    from flash_attention_tpu_torch.ops.paged import paged_prefill_attention
+    from flash_attention_tpu_torch.utils.testing import make_qkv
+
+    bf16, out, times = torch.bfloat16, {}, {}
+    gen, rng = torch.Generator(device="cuda").manual_seed(9), np.random.default_rng(9)
+    q, k, v = make_qkv(17, 1, 32, 2048, 128, num_kv_heads=32, dtype=bf16, device="cuda")
+    kw = dict(causal=True, sliding_window=64, save_residuals=True)
+    out["K2"] = _digest(*flash_attention(q, k, v, **kw))
+    times["K2"] = cs.cuda_ms(lambda: flash_attention(q, k, v, **kw))
+    cache = cs._filled_cache(1, num_pages=129, num_slots=8, pages_per_slot=16, kv_heads=8, head_dim=128, dtype=bf16,
+                             gen=gen).layers()[0]
+    cache.page_table.copy_(torch.from_numpy(cs._shuffled_table(rng, 8, 16, 129)).cuda())
+    qc = cs.torch_uniform((1, 32, 256, 128), bf16, gen)
+    out["K8"] = _digest(paged_prefill_attention(qc, cache, 7, 2048, chunk_len=256))
+    times["K8"] = cs.cuda_ms(lambda: paged_prefill_attention(qc, cache, 7, 2048, chunk_len=256))
+    layer = cs._quant_pages("fp8_e4m3", 1, 129, 8, 16, gen, rng)[0].layers()[0]
+    out["K8q"] = _digest(paged_prefill_attention(qc, layer, 7, 2048, chunk_len=256))
+    times["K8q"] = cs.cuda_ms(lambda: paged_prefill_attention(qc, layer, 7, 2048, chunk_len=256))
+    q, k, v = make_qkv(13, 1, 8, 1024, 64, num_kv_heads=2, dtype=torch.float32, device="cuda")
+    out["fp32 K1"] = _digest(*flash_attention(q, k, v, causal=True, save_residuals=True))
+    times["fp32 K1"] = cs.cuda_ms(lambda: flash_attention(q, k, v, causal=True, save_residuals=True))
+    print(f"[unchanged fwd] output hashes {out}; ms " + ", ".join(f"{k} {t:.4f}" for k, t in times.items())
+          + f" ({card})", flush=True)
+    return {"ms": times["K2"], **times}
+
+
+def _split_times(call, calls: int = 10) -> tuple[float, float, float]:
+    """``call`` timed as chip_smoke.py times a wrapper call, alone in a CUDA
+    graph of ``calls`` calls replayed, and as the wrapper's host time a call
+    (200 calls enqueued without a synchronisation): (ms, device_ms,
+    host_us)."""
+    import time
+
+    import chip_smoke as cs
+    import torch
+
+    ms = cs.cuda_ms(call, iters=50)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            call()
+    device_ms = cs.cuda_ms(graph.replay) / calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        call()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    return ms, device_ms, host_us
+
+
+def fwd_split(card: str) -> dict:
+    """K1 with its LSE, bf16, at phase 3's chunk shape (q [1,32,256,128]
+    over kv 2048 of slot 3 of a [8,8,2048,128] cache, a strided view) and at
+    phase 14's training shape (q [1,32,2048,128] kv [1,8,2048,128]), each
+    timed three ways (``_split_times``): the wrapper, the kernel alone in a
+    CUDA graph, the wrapper's host time a call. ``ms`` and ``device_ms`` are
+    the chunk's."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+    from flash_attention_tpu_torch.utils.testing import make_qkv
+
+    rows = {}
+    q, k, v = make_qkv(1, 1, 32, 256, 128, num_kv_heads=8, kv_seq=2048, dtype=torch.bfloat16, device="cuda")
+    k_cache = torch.zeros((8, 8, 2048, 128), dtype=torch.bfloat16, device="cuda")
+    v_cache = torch.zeros_like(k_cache)
+    k_cache[3], v_cache[3] = k[0], v[0]
+    k, v = k_cache[3:4], v_cache[3:4]
+    with torch.no_grad():
+        rows["chunk q 256 over kv 2048"] = _split_times(lambda: flash_attention(q, k, v, causal=True,
+                                                                                 save_residuals=True))
+        q, k, v = make_qkv(12, 1, 32, 2048, 128, num_kv_heads=8, dtype=torch.bfloat16, device="cuda")
+        rows["T=2048"] = _split_times(lambda: flash_attention(q, k, v, causal=True, save_residuals=True))
+    print("[fwd split] K1 + LSE " + "; ".join(f"{key}: wrapper {ms:.4f} ms, kernel alone {dev:.4f} ms (CUDA graph of "
+                                              f"10), host {host:.1f} us a call" for key, (ms, dev, host) in rows.items())
+          + f" ({card})", flush=True)
+    ms, device_ms, host_us = rows["chunk q 256 over kv 2048"]
+    return {"ms": ms, "device_ms": device_ms, "host_us": host_us}
+
+
+def mha_bwd(card: str) -> dict:
+    """K3 (the MHA route) at phase 14's MHA shape, q = kv [1,32,2048,128]
+    causal bf16, beside K4 + K5 (the GQA route's kernels) on the same
+    inputs, each timed alone on the plain forward's residuals; ``ms`` is
+    K3's. K4 + K5 are timed for information: the MHA route stays K3."""
+    import chip_smoke as cs
+    import torch
+
+    from flash_attention_tpu_torch.ops.attention_bwd import launch_dkv, launch_dq, launch_fused
+
+    q, k, v, do = cs._bwd_inputs(12, 32, 32, 2048, 2048, 128, torch.bfloat16)
+    args, kw = _plain_args(q, k, v, do), dict(causal=True, sm_scale=128**-0.5)
+    t = {"K3": cs.cuda_ms(lambda: launch_fused(*args, **kw)),
+         "K4 + K5": cs.cuda_ms(lambda: (launch_dq(*args, **kw), launch_dkv(*args, **kw)))}
+    print(f"[mha bwd] q = kv [1,32,2048,128] causal bf16: K3 {t['K3']:.4f} ms, K4 + K5 {t['K4 + K5']:.4f} ms "
+          f"({card})", flush=True)
+    return {"ms": t["K3"], **t}
 
 
 def _one(funcs: list[str]) -> None:
