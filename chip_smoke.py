@@ -13,11 +13,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 repository's sources, and prints the build seconds.
   3. kernels  — K1 (flash_fwd_sm90.cu: wgmma on TMA-fed tiles in bf16 /
                 fp16) at the serving path's shapes and at phase 14's
-                training shape, and K6 (decode.cu), in bf16, against their
-                plain PyTorch versions and the fp32 oracle, K1 bit-identical
-                over two calls, with its grid (blocks, q rows a block, SMs)
-                and CUDA-event times of kernel, plain, SDPA and bound; then
-                every dtype / head_dim instantiation at ragged shapes.
+                training shape, and K6 (decode.cu: the kv split over
+                blocks, merged in the launch), in bf16, against their plain
+                PyTorch versions and the fp32 oracle (K6 also row by row and
+                its LSE), bit-identical over two calls (K6 also under a CUDA
+                graph's replay), with their grids (K1: blocks, q rows a
+                block, SMs; K6: kv split and blocks) and CUDA-event times of
+                kernel, plain, SDPA and bound; then every dtype / head_dim
+                instantiation at ragged shapes.
   4. tiny     — a tiny fp32 model served on the card (through the kernels)
                 and on the CPU (through the plain versions): the greedy
                 tokens must be identical.
@@ -32,9 +35,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
   6. paged    — K7 (decode.cu, paged), K8 (flash_fwd.cu, paged) and K9/K10
                 (paged_write.cu) at the paged path's shapes in bf16 over a
                 shuffled page table, against their plain versions (K9/K10
-                bit-exact) and the fp32 oracle, the outputs also row by row
-                relative to the row's largest value; then every dtype /
-                head_dim instantiation at ragged shapes and two page sizes.
+                bit-exact, the new lengths of a slot at capacity and one on
+                the dump page, one launch a call) and the fp32 oracle, the
+                outputs also row by row relative to the row's largest value
+                (K7 with its kv split, bit-identical over two calls); then
+                every dtype / head_dim instantiation at ragged shapes and
+                two page sizes.
   7. tiny paged — the tiny fp32 model through PagedServingEngine on the
                 card and on the CPU: tokens identical to each other and to
                 the dense engine's; the prefix cache gives the same tokens.
@@ -51,9 +57,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 dequantized cache and, as information, the oracle on the
                 unquantized rows. K6q and K7q at 8192 rows must allocate
                 under 1 % of a bf16 copy of the cache; K6 over every finite
-                code of each payload type must return the codes exactly.
-                Then every (query dtype, payload, head_dim) instantiation
-                of K6q, K7q, K8q and K9q/K10q at ragged shapes.
+                code of each payload type must return the codes exactly;
+                K6q and K7q print their kv split and are bit-identical over
+                two calls, K9q and K10q make one launch a call. Then every
+                (query dtype, payload, head_dim) instantiation of K6q, K7q,
+                K8q and K9q/K10q at ragged shapes.
  10. tiny quant — the tiny fp32 model with each kv_quant mode and with int8
                 weights through both engines on the card and on the CPU:
                 each engine's tokens identical on both; paged and dense
@@ -103,8 +111,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 4352 rows and a ring with 4 sinks, lengths past the ring,
                 K6q int8 on the ring; K7 and K8 with window 4096 and 4
                 sinks over a shuffled paged ring whose rolled-out logical
-                pages alias live ones. Then every (dtype, head_dim)
-                instantiation at windows 1, 63, 64, 65 and 1000.
+                pages alias live ones (K6 and K7 with their kv split,
+                bit-identical over two calls). Then every (dtype, head_dim)
+                instantiation at windows 1, 63, 64, 65 and 1000; then the
+                split-edge sweep: K6 / K6q / K7 / K7q for every (query
+                dtype, payload, head_dim), groups 1/4/16, batch 1 and 32,
+                lengths 0, 1 and the split edges +-1, over a dense window,
+                a ring, a ring with 3 sinks and a paged ring of 64- and
+                128-row pages, each against plain, the oracle and its LSE.
  16. tiny masked — the tiny fp32 model on the card and the CPU, identical
                 tokens, through a dense window (96, and 48: K2), the rolling
                 cache, rolling + 32 sinks, softcap 30, the paged ring and
@@ -377,13 +391,16 @@ def phase_k1(card: str) -> dict:
 
 
 def phase_k6(card: str) -> dict:
-    """K6 at the decode shape: q [8,32,128] against a [8,8,2048,128] cache."""
+    """K6 at the decode shape: q [8,32,128] against a [8,8,2048,128] cache,
+    its kv split printed; output and LSE held against plain (also row by
+    row) and the oracle, bit-identical over two calls and under a CUDA
+    graph's replay."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from flash_attention_tpu_torch.ops.decode import decode_attention, decode_attention_plain
-    from flash_attention_tpu_torch.ops.reference import reference_attention
+    from flash_attention_tpu_torch.ops.reference import reference_attention_with_lse
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(6)
@@ -394,13 +411,18 @@ def phase_k6(card: str) -> dict:
     q = uniform((8, 32, 128))
     k_cache, v_cache = uniform((8, 8, 2048, 128)), uniform((8, 8, 2048, 128))
     lengths = torch.tensor([0, 1, 255, 256, 1000, 2047, 2048, 7], dtype=torch.int32, device=dev)
-    out = decode_attention(q, k_cache, v_cache, lengths)
-    p_out = decode_attention_plain(q, k_cache, v_cache, lengths, sm_scale=1.0 / 128**0.5)
-    o_out = reference_attention(q[:, :, None, :], k_cache, v_cache, kv_length=lengths)[:, :, 0]
+    (out, lse), grid = _twice("K6", decode_attention, lambda: decode_attention(q, k_cache, v_cache, lengths,
+                                                                               save_residuals=True))
+    p_out, p_lse = decode_attention_plain(q, k_cache, v_cache, lengths, sm_scale=1.0 / 128**0.5, save_residuals=True)
+    o_out, o_lse = reference_attention_with_lse(q[:, :, None, :], k_cache, v_cache, kv_length=lengths)
+    o_out, o_lse = o_out[:, :, 0], o_lse[:, :, 0]
     torch.cuda.synchronize()
     d_oracle, d_plain = _max_diff(out, o_out), _max_diff(out, p_out)
+    d_rel = max(_rel_diff(out, p_out), _rel_diff(out, o_out))
+    d_lse = max(_max_diff(lse, p_lse), _max_diff(lse, o_lse))
     if not bool((out[0] == 0).all()):
         raise RuntimeError("K6: an empty slot (length 0) must give output 0")
+    same = _graph_replays(lambda: decode_attention(q, k_cache, v_cache, lengths, save_residuals=True), (out, lse))
     ms = cuda_ms(lambda: decode_attention(q, k_cache, v_cache, lengths))
     plain_ms = cuda_ms(lambda: decode_attention_plain(q, k_cache, v_cache, lengths, sm_scale=1.0 / 128**0.5))
     # The library yardstick: one SDPA call with a length mask (the empty
@@ -413,12 +435,15 @@ def phase_k6(card: str) -> dict:
     nbytes = 2 * (2 * rows * 8 * 128) + 2 * (2 * q.numel()) + 4 * lengths.numel()  # K+V rows, q+out, bf16
     bound_ms, bound_by = bound(flops, nbytes)
     log(
-        f"[K6] q [8,32,128] cache [8,8,2048,128] bf16 lengths {lengths.tolist()}: "
-        f"|out-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), |out-plain| {d_plain:.3e} (bar {PLAIN_BAR}); "
+        f"[K6] q [8,32,128] cache [8,8,2048,128] bf16 lengths {lengths.tolist()}, {grid}: "
+        f"|out-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), |out-plain| {d_plain:.3e} (bar {PLAIN_BAR}), row-relative "
+        f"vs plain and oracle {d_rel:.3e} (bar {REL_BAR['bfloat16']}), |lse| {d_lse:.3e} (bar {LSE_BAR}); "
+        f"bit-identical over two calls, CUDA graph replay equal to the call: {same}; "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA (library) {lib_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB) ({card})"
     )
-    if not (d_oracle < ORACLE_BAR and d_plain < PLAIN_BAR):
+    if not (d_oracle < ORACLE_BAR and d_plain < PLAIN_BAR and d_rel < REL_BAR["bfloat16"] and d_lse < LSE_BAR
+            and same):
         raise RuntimeError("K6 disagrees")
     return {
         "name": "decode (K6)", "route": "cuda",
@@ -427,6 +452,37 @@ def phase_k6(card: str) -> dict:
         "max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms,
         "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
     }
+
+
+def _twice(what: str, wrapper, call):
+    """``call`` (a decode wrapper's call returning (out, lse)) run twice:
+    the two results must be bit-identical (the kv split merges in a fixed
+    order). Returns the first result and the split count and blocks of its
+    launch (``wrapper.last_grid``) as text."""
+    import torch
+
+    first, second = call(), call()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise RuntimeError(f"{what}: two calls on the same inputs differ")
+    splits, blocks = wrapper.last_grid
+    return first, f"kv split {splits}, {blocks} blocks"
+
+
+def _graph_replays(call, want) -> bool:
+    """Whether ``call`` captured in a CUDA graph and replayed twice gives
+    ``want`` (its direct result) both times: the split merge's ticket
+    counters reset themselves."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call()
+    same = True
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(a, b) for a, b in zip(got, want))
+    return same
 
 
 def phase_kernel_sweep() -> None:
@@ -805,7 +861,7 @@ def phase_paged_kernels(card: str):
 
     # K7: decode with LSE through the page table.
     q = torch_uniform((8, 32, 128), bf16, gen)
-    out, lse = paged_decode_attention(q, cache, save_residuals=True)
+    (out, lse), grid = _twice("K7", paged_decode_attention, lambda: paged_decode_attention(q, cache, save_residuals=True))
     p_out, p_lse = paged_decode_attention_plain(q, cache, sm_scale=scale, save_residuals=True)
     o_out, o_lse = reference_attention_with_lse(q[:, :, None], k_dense, v_dense, kv_length=lengths)
     torch.cuda.synchronize()
@@ -821,7 +877,8 @@ def phase_paged_kernels(card: str):
     nbytes = 2 * (2 * rows * 8 * 128) + 2 * (2 * q.numel()) + 4 * (lse.numel() + lengths.numel() + pages_read)
     bound_ms, bound_by = bound(4 * 128 * 32 * rows, nbytes)
     log(
-        f"[K7] q [8,32,128] pages [129,8,128,128] bf16, shuffled table [8,16], lengths {list(PAGED_LENGTHS)}: "
+        f"[K7] q [8,32,128] pages [129,8,128,128] bf16, shuffled table [8,16], lengths {list(PAGED_LENGTHS)}, "
+        f"{grid}, bit-identical over two calls: "
         f"|out-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), |out-plain| {d_plain:.3e} (bar {PLAIN_BAR}), "
         f"row-relative vs plain and oracle {d_rel:.3e} (bar {rel_bar}), |lse| {d_lse:.3e} (bar {LSE_BAR}); "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
@@ -892,6 +949,7 @@ def phase_paged_kernels(card: str):
     if not (same and dumped and valid.tolist() == [1, 0, 1, 1, 1, 1, 1, 1]
             and torch.equal(written.lengths, want_lengths) and cache.lengths.tolist()[1] == 2048):
         raise RuntimeError("K10 disagrees with its plain version (bit-exact), or advanced lengths wrongly")
+    launches10 = _launches_a_call(lambda: paged_write_tokens_multi(cache, k_new, v_new, slots))
     ms = cuda_ms(lambda: paged_write_tokens_multi(cache, k_new, v_new, slots))
     plain_ms = cuda_ms(lambda: paged_write_tokens_plain(plain, k_new, v_new, slots))
     # The library yardstick: index_put_ of the valid rows into the K and the
@@ -911,7 +969,8 @@ def phase_paged_kernels(card: str):
     bound_ms, bound_by = bound(0, nbytes)
     log(
         f"[K10] 32 layers x 8 slots x rows [8,128] bf16 into pools [32,129,8,128,128], one slot at capacity, "
-        f"one on the dump page: bit-equal to plain, lengths advanced where valid {valid.tolist()}; "
+        f"one on the dump page: bit-equal to plain, lengths advanced where valid {valid.tolist()} (new lengths "
+        f"{written.lengths.tolist()}), {launches10} launch a call; "
         f"wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, index_put_ K and V (library) {lib_ms:.4f} ms, "
         f"bound {bound_ms:.5f} ms by {bound_by} ({nbytes / 1e6:.2f} MB) ({card})"
     )
@@ -926,23 +985,56 @@ def phase_paged_kernels(card: str):
     # K9: the same kernel with one layer, writing new rows into layer 0.
     k_one, v_one = torch_uniform((8, 8, 128), bf16, gen), torch_uniform((8, 8, 128), bf16, gen)
     plain_one = PagedModelCache(plain.k_pool[:1], plain.v_pool[:1], plain.page_table, plain.lengths)
-    one = paged_write_tokens(cache.layers()[0], k_one, v_one, slots)
+    layer0 = cache.layers()[0]
+    one = paged_write_tokens(layer0, k_one, v_one, slots)
     paged_write_tokens_plain(plain_one, k_one[None], v_one[None], slots)
     torch.cuda.synchronize()
     if not (torch.equal(cache.k_pool, plain.k_pool) and torch.equal(cache.v_pool, plain.v_pool)
             and torch.equal(cache.k_pool[0, 0, :, 37], k_one[0]) and torch.equal(one.lengths, want_lengths)):
         raise RuntimeError("K9 (one layer) disagrees with its plain version")
-    ms9 = cuda_ms(lambda: paged_write_tokens(cache.layers()[0], k_one, v_one, slots))
+    launches9 = _launches_a_call(lambda: paged_write_tokens(layer0, k_one, v_one, slots))
+    ms9 = cuda_ms(lambda: paged_write_tokens(layer0, k_one, v_one, slots))
     plain9 = cuda_ms(lambda: paged_write_tokens_plain(plain_one, k_one[None], v_one[None], slots))
     idx9 = idx[1][0], idx[2][0], idx[3][0]  # [page, head, row] of the valid rows in one layer
     rows9_k, rows9_v = k_one[ok], v_one[ok]
     lib9 = cuda_ms(lambda: (plain.k_pool[0].index_put_(idx9, rows9_k), plain.v_pool[0].index_put_(idx9, rows9_v)))
     bound9, by9 = bound(0, 2 * (2 * n_valid * 8 * 128 * 2) + 4 * 4 * 8)
     log(
-        f"[K9] one layer: bit-equal to plain; wrapper {ms9:.4f} ms, plain {plain9:.4f} ms, index_put_ K and V "
+        f"[K9] one layer: bit-equal to plain, new lengths {one.lengths.tolist()}, {launches9} launch a call; "
+        f"wrapper {ms9:.4f} ms, plain {plain9:.4f} ms, index_put_ K and V "
         f"(library) {lib9:.4f} ms, bound {bound9:.5f} ms by {by9} ({card})"
     )
     return k7, k8, k10
+
+
+# The runtime calls that put one operation on the device, as a torch.profiler
+# trace records them on the host side (its device-side records can come back
+# empty for a trace this short).
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def launches_a_call(call) -> int:
+    """The device operations (kernels, copies, memsets) one ``call`` puts on
+    the device, counted from the launch calls in a torch.profiler trace of
+    one call after a warm-up."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return sum(e.name in LAUNCH_CALLS for e in prof.events())
+
+
+def _launches_a_call(call) -> int:
+    """``launches_a_call``, which must be 1: the page write is one launch."""
+    n = launches_a_call(call)
+    if n != 1:
+        raise RuntimeError(f"the page write made {n} device operations a call, want 1")
+    return n
 
 
 def phase_paged_sweep() -> None:
@@ -1233,7 +1325,8 @@ def _quant_decode_case(card: str, what: str, mode: str, q, k_x, v_x, lengths, *,
 
     scale = 128**-0.5
     kq, vq = quantize_values(k_x, payload_dtype(mode)), quantize_values(v_x, payload_dtype(mode))
-    out, lse = decode_attention(q, kq, vq, lengths, save_residuals=True)
+    (out, lse), grid = _twice(f"K6q {mode} {what}", decode_attention,
+                              lambda: decode_attention(q, kq, vq, lengths, save_residuals=True))
     p_out, p_lse = decode_attention_plain(q, kq, vq, lengths, sm_scale=scale, save_residuals=True)
     kd, vd = dequantize(kq), dequantize(vq)
     o_out, o_lse = reference_attention_with_lse(q[:, :, None], kd, vd, kv_length=lengths)
@@ -1259,7 +1352,8 @@ def _quant_decode_case(card: str, what: str, mode: str, q, k_x, v_x, lengths, *,
     nbytes = 2 * rows * hkv * (d * item + 4) + 2 * 2 * q.numel() + 4 * (lse.numel() + batch)
     bound_ms, bound_by = bound(4 * d * hq * rows + 2 * 2 * d * hkv * rows, nbytes)
     log(
-        f"[K6q] {mode} {what}: |out-plain| {d_plain:.3e}, |out-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), "
+        f"[K6q] {mode} {what}, {grid}, bit-identical over two calls: |out-plain| {d_plain:.3e}, |out-oracle| "
+        f"{d_oracle:.3e} (bar {ORACLE_BAR}), "
         f"row-relative {d_rel:.3e} (bar {REL_BAR['bfloat16']}), |lse| {d_lse:.3e} (bar {LSE_BAR}); quantization "
         f"error |out - oracle on unquantized rows| {d_quant:.3e} (information)"
         + ("" if extra is None else f"; allocated {extra / 1e6:.3f} MB in the call (a bf16 copy: {copy_bytes / 1e6:.0f} MB)")
@@ -1308,7 +1402,8 @@ def _quant_paged_decode_case(card: str, what: str, mode: str, layer, x_rows, q, 
 
     scale = 128**-0.5
     table, lengths = layer.page_table, layer.lengths
-    out, lse = paged_decode_attention(q, layer, save_residuals=True)
+    (out, lse), grid = _twice(f"K7q {mode} {what}", paged_decode_attention,
+                              lambda: paged_decode_attention(q, layer, save_residuals=True))
     p_out, p_lse = paged_decode_attention_plain(q, layer, sm_scale=scale, save_residuals=True)
     kd = _dense_from_pages(_dequant_pool(layer.k_pages, layer.k_scales), table)
     vd = _dense_from_pages(_dequant_pool(layer.v_pages, layer.v_scales), table)
@@ -1339,7 +1434,8 @@ def _quant_paged_decode_case(card: str, what: str, mode: str, layer, x_rows, q, 
     nbytes = 2 * rows * 8 * (d * item + 4) + 2 * 2 * q.numel() + 4 * (lse.numel() + slots + pages_read)
     bound_ms, bound_by = bound(4 * d * hq * rows + 2 * 2 * d * 8 * rows, nbytes)
     log(
-        f"[K7q] {mode} {what}: |out-plain| {d_plain:.3e}, |out-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), "
+        f"[K7q] {mode} {what}, {grid}, bit-identical over two calls: |out-plain| {d_plain:.3e}, |out-oracle| "
+        f"{d_oracle:.3e} (bar {ORACLE_BAR}), "
         f"row-relative {d_rel:.3e} (bar {REL_BAR['bfloat16']}), |lse| {d_lse:.3e} (bar {LSE_BAR}); quantization "
         f"error {d_quant:.3e} (information)"
         + ("" if extra is None else f"; allocated {extra / 1e6:.3f} MB in the call (a bf16 copy: {copy_bytes / 1e6:.0f} MB)")
@@ -1502,18 +1598,22 @@ def phase_quant_kernels(card: str):
         # K9q: the same kernel with one layer, new rows into layer 0.
         k_one, v_one = scaled_rows((8, 8, 128), gen).to(bf16), scaled_rows((8, 8, 128), gen).to(bf16)
         plain_one = PagedModelCache(*(None if t is None else t[:1] if t.dim() > 2 else t for t in plain))
-        paged_write_tokens(cache.layers()[0], k_one, v_one, slots8)
+        layer0 = cache.layers()[0]
+        paged_write_tokens(layer0, k_one, v_one, slots8)
         paged_write_tokens_plain(plain_one, k_one[None], v_one[None], slots8)
         torch.cuda.synchronize()
         if not same():
             raise RuntimeError(f"K9q {mode} (one layer): not bit-equal to plain")
-        ms9 = cuda_ms(lambda: paged_write_tokens(cache.layers()[0], k_one, v_one, slots8))
+        launches = (_launches_a_call(lambda: paged_write_tokens_multi(cache, k_new, v_new, slots8)),
+                    _launches_a_call(lambda: paged_write_tokens(layer0, k_one, v_one, slots8)))
+        ms9 = cuda_ms(lambda: paged_write_tokens(layer0, k_one, v_one, slots8))
         plain9 = cuda_ms(lambda: paged_write_tokens_plain(plain_one, k_one[None], v_one[None], slots8))
         bound9, by9 = bound(0, 2 * n_valid * 8 * (128 * 2 + 128 * item + 4) + 4 * 4 * 8)
         log(
             f"[K10q] {mode}: 32 layers x 8 slots x bf16 rows [8,128] quantized into pools [32,129,8,128,128], one "
             f"slot at capacity, one on the dump page: payload and scales bit-equal to plain, lengths advanced where "
-            f"valid {valid.tolist()}; wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
+            f"valid {valid.tolist()}; K10q and K9q {launches} launch a call; wrapper {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library none, bound "
             f"{bound_ms:.5f} ms by {bound_by} ({nbytes / 1e6:.2f} MB); K9q (one layer) bit-equal, wrapper "
             f"{ms9:.4f} ms, plain {plain9:.4f} ms, bound {bound9:.6f} ms by {by9} ({card})"
         )
@@ -2478,7 +2578,8 @@ def _k6_masked(card: str, what: str, q, k, v, lengths, *, ring: bool, sinks: int
     rows = kd.shape[2]
     kw = dict(sliding_window=window, logit_softcap=softcap, ring_buffer=ring, attention_sinks=sinks)
     zero_counts()
-    out, lse = decode_attention(q, k, v, lengths, save_residuals=True, **kw)
+    (out, lse), grid = _twice(f"{want} {what}", decode_attention,
+                              lambda: decode_attention(q, k, v, lengths, save_residuals=True, **kw))
     torch.cuda.synchronize()
     check_launches(f"[masked] {want} {what}", read_counts(), (want,))
     p_out, p_lse = decode_attention_plain(q, k, v, lengths, sm_scale=q.shape[-1] ** -0.5, save_residuals=True, **kw)
@@ -2503,7 +2604,8 @@ def _k6_masked(card: str, what: str, q, k, v, lengths, *, ring: bool, sinks: int
     nbytes = 2 * n_rows * hkv * row_bytes + 2 * 2 * q.numel() + 4 * (lse.numel() + batch)
     bound_ms, bound_by = bound(4 * d * hq * n_rows, nbytes)
     log(
-        f"[masked] {want} {what}, lengths {lengths.tolist()}: |out-plain| {d_plain:.3e}, row-relative "
+        f"[masked] {want} {what}, lengths {lengths.tolist()}, {grid}, bit-identical over two calls: |out-plain| "
+        f"{d_plain:.3e}, row-relative "
         f"{d_rel:.3e} (bar {REL_BAR['bfloat16']}), |lse| {d_lse:.3e} (bar {LSE_BAR}); kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library " + ("none" if lib_ms is None else f"{lib_ms:.4f} ms (SDPA, boolean mask)")
         + f", bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB) ({card})"
@@ -2631,7 +2733,8 @@ def masked_paged_cases(card: str) -> dict:
     k_log, v_log = _dense_from_pages(cache.k_pages, table), _dense_from_pages(cache.v_pages, table)
     kw = dict(sliding_window=WINDOW, attention_sinks=SINKS)
     zero_counts()
-    out, lse = paged_decode_attention(q, cache, save_residuals=True, **kw)
+    (out, lse), grid = _twice("K7 paged ring", paged_decode_attention,
+                              lambda: paged_decode_attention(q, cache, save_residuals=True, **kw))
     torch.cuda.synchronize()
     check_launches("[masked] K7", read_counts(), ("K7",))
     p_out, p_lse = paged_decode_attention_plain(q, cache, sm_scale=128**-0.5, save_residuals=True, **kw)
@@ -2645,7 +2748,8 @@ def masked_paged_cases(card: str) -> dict:
     bound_ms, bound_by = bound(4 * 128 * 32 * n_rows, nbytes)
     log(
         f"[masked] K7 q [8,32,128] over the paged ring ({n_ring} + 1 pinned pages a slot of 128 rows, table [8,{per_slot}] "
-        f"shuffled), window 4096, {SINKS} sinks, lengths {list(DENSE_LENGTHS)}: |out-plain| {d_plain:.3e}, row-relative "
+        f"shuffled), window 4096, {SINKS} sinks, lengths {list(DENSE_LENGTHS)}, {grid}, bit-identical over two "
+        f"calls: |out-plain| {d_plain:.3e}, row-relative "
         f"{d_rel:.3e}, |lse| {d_lse:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
         f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB) ({card})"
     )
@@ -2783,6 +2887,124 @@ TINY_MASKED = {  # phase 16: (label, engine, ModelConfig fields, the kernels the
 # tests/test_rolling.py:334-444): the ring changes memory, not numbers.
 TINY_MASKED_EQUAL = (("rolling", "dense window 96"), ("paged ring", "dense window 96"),
                      ("paged + sinks 32", "rolling + sinks 32"))
+
+
+SPLIT_WINDOW = 1000  # the split-edge sweep's window: spans of about four 256-row splits
+
+
+def _split_edges(walk_rows: int, unit: int, splits: int, lo: int = 0) -> list[int]:
+    """Lengths at the edges of the kv split over live rows [lo, walk_rows):
+    each split boundary and each unit edge of the first split, minus one,
+    at and plus one."""
+    units = -(-(walk_rows - lo) // unit)
+    per = -(-units // splits)
+    edges = {lo + k * per * unit for k in range(1, splits + 1)} | {lo + k * unit for k in range(1, per + 1)}
+    return sorted({e + i for e in edges for i in (-1, 0, 1)})
+
+
+def phase_split_sweep() -> None:
+    """Phase 15, last: K6, K6q, K7 and K7q across the edges of the kv split,
+    for every (query dtype, payload, head_dim): GQA groups 1, 4 and 16 (4,
+    2 and 1 kv heads), batch 1 (the most splits) and 32, lengths 0, 1 and
+    each split and unit edge -1 / 0 / +1, over the dense window, the ring,
+    the ring with 3 sinks and the paged ring (3 sinks) of 64- and 128-row
+    pages; each held against plain (row-relative, REL_BAR), the fp32 oracle
+    (ORACLE_BAR) and its LSE (LSE_BAR), bit-identical over two calls."""
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.ops.decode import decode_attention, decode_attention_plain
+    from flash_attention_tpu_torch.ops.paged import (
+        PagedKVCache,
+        init_paged_model_cache,
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+    from flash_attention_tpu_torch.ops.quant import bits, dequantize, payload_dtype, quantize_values
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(21)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    w = SPLIT_WINDOW
+    kinds = ("dense window", "ring", "ring + 3 sinks", "paged ring, 64-row pages", "paged ring, 128-row pages")
+    groups = ((1, 4), (4, 2), (16, 1))  # (GQA group, kv heads)
+    worst, n, splits_seen = 0.0, 0, set()
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for mode in (None, *QUANT_MODES):
+            for d in (32, 64, 128):
+                for batch in (32, 1):
+                    i = n
+                    n += 1
+                    kind = kinds[i % len(kinds)]
+                    group, hkv = groups[i % len(groups)]
+                    what = f"{kind}, {name} q, {mode or name} cache, d={d}, group {group}, batch {batch}"
+                    q = (torch_uniform((batch, group * hkv, d), torch.float32, gen) * 4).to(dtype)
+
+                    def rows_of(shape):
+                        x = scaled_rows(shape, gen) if mode else torch_uniform(shape, dtype, gen)
+                        return quantize_values(x, payload_dtype(mode)) if mode else x
+
+                    if kind.startswith("paged"):
+                        page = 64 if "64" in kind else 128
+                        per_slot, n_ring = 2048 // page, -(-(w + page) // page) + 2
+                        table, num_pages = _ring_table(rng, batch, per_slot, n_ring, sinks=True)
+                        pool = init_paged_model_cache(1, num_pages=num_pages, num_slots=batch, pages_per_slot=per_slot,
+                                                      kv_heads=hkv, page_size=page, head_dim=d, dtype=dtype,
+                                                      kv_quant=mode or "none", device="cuda")
+                        for dst, scales in ((pool.k_pool, pool.k_scales), (pool.v_pool, pool.v_scales)):
+                            x = rows_of(tuple(dst.shape))
+                            bits(dst).copy_(bits(x.values if mode else x))
+                            if mode:
+                                scales.copy_(x.scales[..., 0])
+                        pool.page_table.copy_(torch.from_numpy(table).cuda())
+                        edges = _split_edges(per_slot * page, page, 4, 0)
+                        cap = per_slot * page
+                    else:
+                        ring, sinks = kind != "dense window", 3 if "sinks" in kind else 0
+                        rows = 1500 if not ring else 1152 + (128 if sinks else 0)
+                        kc, vc = rows_of((batch, hkv, rows, d)), rows_of((batch, hkv, rows, d))
+                        edges = _split_edges(rows, 64, 4, 128 if sinks else 0) + [rows + 1, w - 1, w, w + 1]
+                        cap = rows if not ring else 3 * rows
+                    lengths = sorted({0, 1, *(e for e in edges if 0 <= e <= cap)})
+                    lengths = lengths[:batch] + [cap] * (batch - len(lengths)) if batch > 1 else [lengths[i % len(lengths)]]
+                    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+                    if kind.startswith("paged"):
+                        layer = pool._replace(lengths=lengths).layers()[0]
+                        kw = dict(sliding_window=w, attention_sinks=3)
+                        call = lambda: paged_decode_attention(q, layer, save_residuals=True, **kw)  # noqa: E731
+                        (out, lse), _ = _twice(f"K7 {what}", paged_decode_attention, call)
+                        grid = paged_decode_attention.last_grid
+                        p_out, p_lse = paged_decode_attention_plain(q, layer, sm_scale=d**-0.5, save_residuals=True, **kw)
+                        kd, vd = ((_dequant_pool(x, sc) if mode else x) for x, sc in
+                                  ((layer.k_pages, layer.k_scales), (layer.v_pages, layer.v_scales)))
+                        kd, vd = (_dense_from_pages(x, layer.page_table) for x in (kd, vd))
+                        seen = [_visible_positions(L, w, 3) for L in lengths.tolist()]
+                    else:
+                        kw = dict(sliding_window=w, ring_buffer=ring, attention_sinks=sinks)
+                        call = lambda: decode_attention(q, kc, vc, lengths, save_residuals=True, **kw)  # noqa: E731
+                        (out, lse), _ = _twice(f"K6 {what}", decode_attention, call)
+                        grid = decode_attention.last_grid
+                        p_out, p_lse = decode_attention_plain(q, kc, vc, lengths, sm_scale=d**-0.5, save_residuals=True,
+                                                              **kw)
+                        kd, vd = (dequantize(x) if mode else x for x in (kc, vc))
+                        row_of = (lambda p: _ring_row(p, rows, sinks)) if ring else (lambda p: p)  # noqa: E731
+                        seen = [[row_of(p) for p in _visible_positions(L, w, sinks)] for L in lengths.tolist()]
+                    o_out, o_lse, _ = _oracle_rows(q, kd, vd, seen)
+                    worst = max(worst, _hold(f"split sweep {what}", out, p_out, o_out, lse, p_lse, o_lse,
+                                             dtype=name)[1] / REL_BAR[name])
+                    splits_seen.add(grid[0])
+    torch.cuda.synchronize()
+    if max(splits_seen) < 2:
+        raise RuntimeError(f"split sweep: no case split the kv rows ({splits_seen})")
+    log(
+        f"[split sweep] K6 / K6q (dense window {w} over 1500 rows, ring of 1152, ring + 3 sinks) and K7 / K7q (paged "
+        f"ring, 3 sinks, pages of 64 and 128) at fp32/fp16/bf16 queries x bf16-or-own/int8/e4m3/e5m2 caches x "
+        f"head_dim 32/64/128 x batch 32 and 1, groups 1/4/16, lengths 0, 1 and the split edges +-1: {n} cases, kv "
+        f"splits {sorted(splits_seen)}, each bit-identical over two calls, within {ORACLE_BAR} of the oracle, LSE "
+        f"within {LSE_BAR}, worst row-relative difference at {worst:.3f} of its bar {REL_BAR}; "
+        f"{time.perf_counter() - t0:.1f} s"
+    )
 
 
 def phase_tiny_masked() -> int:
@@ -3392,6 +3614,7 @@ def main() -> None:
     del params  # phase 17 brings its own model, and its peak memory is its own
     masked = phase_masked_kernels(card)
     phase_masked_sweep()
+    phase_split_sweep()
     masked["K2"]["launches"] = phase_tiny_masked()
     full = phase_full_masked(card)
     masked["K1w"]["launches"], masked["K1c"]["launches"] = full["a"]["K1"], full["d"]["K1"]

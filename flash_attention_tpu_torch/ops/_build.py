@@ -15,7 +15,9 @@ raises on a nonzero code, since a refused launch never runs and
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -115,35 +117,26 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, f32,  # window, sinks, softcap2
         i32, i32, ptr,  # dtype, payload, stream
     ]
-    strides = c.POINTER(i64)
+    shape = c.POINTER(i64)
+    # q, k, v, k/v scales, o, lse, lengths, then the fp32 workspace and the
+    # ticket counters; shape: csrc/decode.cu's Shape array; scale2, softcap2.
     lib.fat_decode.restype = c.c_int
-    lib.fat_decode.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, k/v scales, o, lse, lengths
-        i64, i64, i64, i64, i64,  # batch, Hq, Hkv, max_seq, D
-        i64, i64, strides,  # q strides, k/v and scale strides
-        f32, i32, i32, i32, f32,  # scale2, window, ring, sinks, softcap2
-        i32, i32, ptr,  # dtype, payload, stream
-    ]
+    lib.fat_decode.argtypes = [ptr] * 8 + [ptr, ptr, shape, f32, f32, ptr]
     lib.fat_paged_decode.restype = c.c_int
-    lib.fat_paged_decode.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k/v pages, k/v scales, o, lse, lengths, table
-        i64, i64, i64, i64, i64, i64, i64,  # slots, Hq, Hkv, num_pages, page_size, pages_per_slot, D
-        i64, i64, strides,  # q strides, k/v and scale strides
-        f32, i32, i32, f32,  # scale2, window, sinks, softcap2
-        i32, i32, ptr,  # dtype, payload, stream
-    ]
+    lib.fat_paged_decode.argtypes = [ptr] * 9 + [ptr, ptr, shape, f32, f32, ptr]  # the page table after lengths
     lib.fat_paged_write.restype = c.c_int
     lib.fat_paged_write.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # k/v new, k/v pool, lengths, table, slots, valid
-        i64, i64, i64, i64,  # layers, n, heads, row bytes
+        ptr, ptr, ptr, ptr, ptr, ptr,  # k/v new, k/v pool, lengths, table
+        ptr, i32, ptr,  # slots, whether they are int64, new lengths
+        i64, i64, i64, i64, i64,  # layers, n, slots in the table, heads, row bytes
         i64, i64, i64,  # num_pages, page_size, pages_per_slot
         i64, i64, i64, i64, ptr,  # pool byte strides (layer, page, head, row), stream
     ]
     lib.fat_paged_write_quant.restype = c.c_int
     lib.fat_paged_write_quant.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # k/v new, k/v payload pools, k/v scale pools
-        ptr, ptr, ptr, ptr,  # lengths, table, slots, valid
-        i64, i64, i64, i64,  # layers, n, heads, head_dim
+        ptr, ptr, ptr, i32, ptr,  # lengths, table, slots, whether they are int64, new lengths
+        i64, i64, i64, i64, i64,  # layers, n, slots in the table, heads, head_dim
         i64, i64, i64,  # num_pages, page_size, pages_per_slot
         i64, i64, i64, i64,  # payload element strides (layer, page, head, row)
         i64, i64, i64,  # scale strides (layer, page, head)
@@ -240,6 +233,34 @@ def int64_array(values) -> ctypes.Array:
     """``values`` as a C int64 array, for the entries that take strides by pointer."""
     values = list(values)
     return (ctypes.c_int64 * len(values))(*values)
+
+
+@functools.lru_cache(maxsize=256)
+def int64_tuple_array(values: tuple) -> ctypes.Array:
+    """``int64_array`` of a tuple, built once per distinct tuple: a decode
+    step passes the same strides every call. Never written by the kernels."""
+    return int64_array(values)
+
+
+def on_device(device: torch.device):
+    """A context making ``device`` current, or nothing when it is already
+    (entering ``torch.cuda.device`` costs host time on every call)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def current_stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream, for a launch (one C
+    call, where ``torch.cuda.current_stream(device).cuda_stream`` builds a
+    Stream object on every call)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def as_int32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when it is contiguous int32 (no dispatch at all), else a
+    contiguous int32 copy."""
+    return x if x.dtype == torch.int32 and x.is_contiguous() else x.to(torch.int32).contiguous()
 
 
 def unit_last_stride(x: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,12 @@ with the paged decode K7 (ops/paged.py). The masks are the JAX kernel's
 (``ring_buffer``: position p at row p % rows, ``lengths`` counting every
 position written) and StreamingLLM attention sinks in front of the ring;
 the kernel masks by each row's reconstructed POSITION and walks only the
-live rows. ``decode_attention_split`` is queued in ROADMAP.md (item 4).
+live rows. The kernel splits each sequence's live rows over several blocks
+(flash-decoding) when batch x kv heads blocks would leave the card idle:
+``decode_kv_splits`` chooses the count from the shapes alone, and the kernel
+merges the splits itself, in a fixed order, in the same launch.
+``decode_attention_split``, the JAX package's public API over a host-side
+split, is queued in ROADMAP.md (item 4).
 """
 
 from __future__ import annotations
@@ -29,7 +34,17 @@ import math
 import torch
 
 from flash_attention_tpu_torch.ops import _build
-from flash_attention_tpu_torch.ops.common import LOG2E, M_FLOOR, MASK_VALUE, ceil_to, mask_window, softcap2
+from flash_attention_tpu_torch.ops.common import (
+    LOG2E,
+    M_FLOOR,
+    MASK_VALUE,
+    TMA_ALIGN,
+    ceil_to,
+    mask_window,
+    sm_count,
+    softcap2,
+    tma_aligned,
+)
 from flash_attention_tpu_torch.ops.quant import QuantizedTensor, dequantize
 
 
@@ -76,6 +91,109 @@ def visible_rows(lengths: torch.Tensor, rows: int, *, sliding_window=None, ring_
     pos = L - 1 - torch.remainder(L - 1 - attention_sinks - (col - spad), rows - spad)
     ring_ok = pos >= (L - sliding_window).clamp(min=attention_sinks)
     return torch.where(col < spad, (col < attention_sinks) & (col < L), ring_ok)
+
+
+# csrc/decode.cu's shapes: a stage holds DECODE_RUN rows (16 for each of its
+# four warps), the unit a split is cut in (K7: whole pages); a block
+# serves up to DECODE_GROUP query rows of one GQA group (the mma's M).
+DECODE_RUN = 64
+DECODE_GROUP = 16
+MIN_SPLIT_ROWS = 256
+
+
+def decode_kv_splits(batch: int, num_kv_heads: int, group: int, span_rows: int, num_sms: int) -> int:
+    """How many blocks share each sequence's rows in K6 / K7: enough that
+    the batch x kv heads x query chunks blocks make at least two an SM, but
+    no split under about MIN_SPLIT_ROWS rows and never more splits than the
+    span has runs. ``span_rows`` is the most rows a sequence can walk
+    (``decode_span_rows``); the shapes alone decide, so the host never reads
+    ``lengths`` (a sync would stall the decode loop and break a CUDA graph)."""
+    blocks = decode_blocks(batch, num_kv_heads, group, 1)
+    want = -(-2 * num_sms // max(blocks, 1))
+    runs = -(-span_rows // DECODE_RUN)
+    return max(1, min(want, span_rows // MIN_SPLIT_ROWS, runs))
+
+
+def decode_blocks(batch: int, num_kv_heads: int, group: int, splits: int) -> int:
+    """The kernel's grid: one block per (kv head, batch row, chunk of up to
+    DECODE_GROUP query rows, split)."""
+    return batch * num_kv_heads * -(-group // DECODE_GROUP) * splits
+
+
+def decode_span_rows(rows: int, *, sliding_window=None, ring_buffer=False, page_size=None, attention_sinks=0) -> int:
+    """The most cache rows one sequence's decode walks: all ``rows`` (max_seq,
+    a ring's rows, or K7's pages_per_slot x page_size), or, under a window
+    without a ring, the window and the unit it may start inside (K7: a page,
+    and the sinks' page)."""
+    if sliding_window is None or ring_buffer:
+        return rows
+    unit = page_size or DECODE_RUN
+    return min(rows, sliding_window + unit + (unit if attention_sinks else 0))
+
+
+def decode_split_runs(length: int, splits: int, *, rows: int, unit: int = DECODE_RUN, sliding_window=None,
+                      ring_buffer=False, attention_sinks=0) -> list[list[tuple[int, int]]]:
+    """Plain mirror of csrc/decode.cu's cut of one sequence's live rows
+    (``make_walk`` and ``Runs``), for the tests: each split's runs as
+    (first row, live rows) pairs. The live rows are whole units of ``unit``
+    rows (DECODE_RUN, or K7's page): [0, a_end) holding K7's sinks or a ring's
+    sink region, then the window's or ring's range; split s walks units
+    [s * per, (s + 1) * per) of them, per = ceil(units / splits)."""
+    length = max(length, 0)
+    a_end, b_start, b_end = 0, 0, min(length, rows)
+    if ring_buffer and attention_sinks:
+        spad = ceil_to(attention_sinks, 128)
+        a_end, b_start = min(attention_sinks, length), spad
+        b_end = spad + min(max(length - attention_sinks, 0), rows - spad)
+    elif sliding_window is not None and not ring_buffer:
+        b_start = max(length - sliding_window, 0) // unit * unit
+        a_end = min(attention_sinks, b_start)
+    n_a, b_unit0 = -(-a_end // unit), b_start // unit
+    n = n_a + max(-(-b_end // unit) - b_unit0, 0)
+    per = -(-n // splits)
+    out = []
+    for s in range(splits):
+        u0 = min(s * per, n)
+        runs = []
+        for u in range(u0, min(u0 + per, n)):
+            start = (u if u < n_a else b_unit0 + u - n_a) * unit
+            stop = min(start + unit, a_end if u < n_a else b_end)
+            runs += [(r0, min(DECODE_RUN, stop - r0)) for r0 in range(start, stop, DECODE_RUN)]
+        out.append(runs)
+    return out
+
+
+def check_tma_rows(what: str, *caches: torch.Tensor) -> None:
+    """Raise unless TMA can read each [batch or page, heads, rows, D] cache
+    as it lies (``tma_aligned``): the kernel copies its rows with TMA."""
+    for t in caches:
+        if not tma_aligned(t):
+            raise ValueError(
+                f"{what}: the CUDA kernel reads cache rows with TMA, so the cache's base pointer and its batch "
+                f"(page), head and row strides must be multiples of {TMA_ALIGN} bytes; got pointer "
+                f"{t.data_ptr() % TMA_ALIGN} bytes past alignment and strides {tuple(t.stride())} of "
+                f"{t.element_size()}-byte elements"
+            )
+
+
+_TICKETS: dict = {}
+
+
+def split_buffers(device: torch.device, batch: int, num_q_heads: int, num_kv_heads: int, head_dim: int,
+                  splits: int):
+    """(workspace, its pointer, the ticket counters' pointer) for a launch
+    of ``splits`` splits, or three Nones with one split. The workspace holds
+    each split's fp32 m, l and unnormalised O; the caller keeps it alive over
+    the launch. The counters are a zeroed int32 buffer kept per device, which
+    every launch leaves zero again, so a CUDA graph of the call replays."""
+    if splits == 1:
+        return None, None, None
+    n = decode_blocks(batch, num_kv_heads, num_q_heads // num_kv_heads, 1)
+    tickets = _TICKETS.get(device)
+    if tickets is None or tickets.numel() < n:
+        tickets = _TICKETS[device] = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+    ws = torch.empty(batch * splits * num_q_heads * (head_dim + 2), dtype=torch.float32, device=device)
+    return ws, ws.data_ptr(), tickets.data_ptr()
 
 
 def decode_attention_plain(
@@ -205,27 +323,35 @@ def decode_attention(
     if lengths.device != q.device:
         raise ValueError(f"lengths on {lengths.device}, q on {q.device}")
     q, k_vals, v_vals = (_build.unit_last_stride(x) for x in (q, k_vals, v_vals))
-    lengths = lengths.to(torch.int32).contiguous()
+    check_tma_rows("decode_attention", k_vals, v_vals)
+    lengths = _build.as_int32(lengths)
     out = torch.empty((batch, num_q_heads, head_dim), dtype=q.dtype, device=q.device)
     lse = (
         torch.empty((batch, num_q_heads), dtype=torch.float32, device=q.device)
         if save_residuals else None
     )
     if out.numel():
+        group = num_q_heads // num_kv_heads
+        span = decode_span_rows(max_seq, sliding_window=sliding_window, ring_buffer=ring_buffer)
+        splits = decode_kv_splits(batch, num_kv_heads, group, span, sm_count(q.device))
+        ws, ws_ptr, tickets = split_buffers(q.device, batch, num_q_heads, num_kv_heads, head_dim, splits)
         lib = _build.kernels()
-        with torch.cuda.device(q.device):
+        with _build.on_device(q.device):
             err = lib.fat_decode(
                 q.data_ptr(), k_vals.data_ptr(), v_vals.data_ptr(),
                 None if k_scales is None else k_scales.data_ptr(),
                 None if v_scales is None else v_scales.data_ptr(), out.data_ptr(),
-                None if lse is None else lse.data_ptr(), lengths.data_ptr(),
-                batch, num_q_heads, num_kv_heads, max_seq, head_dim, q.stride(0), q.stride(1),
-                _build.int64_array([*k_vals.stride()[:3], *v_vals.stride()[:3], *scale_strides(k_scales, v_scales)]),
-                sm_scale * LOG2E, mask_window(sliding_window), int(ring_buffer), attention_sinks,
-                softcap2(logit_softcap), _build.DTYPE_CODES[q.dtype], payload,
-                torch.cuda.current_stream(q.device).cuda_stream,
+                None if lse is None else lse.data_ptr(), lengths.data_ptr(), ws_ptr, tickets,
+                _build.int64_tuple_array((
+                    batch, num_q_heads, num_kv_heads, max_seq, head_dim, q.stride(0), q.stride(1),
+                    mask_window(sliding_window), int(ring_buffer), attention_sinks, splits,
+                    _build.DTYPE_CODES[q.dtype], payload, *k_vals.stride()[:3], *v_vals.stride()[:3],
+                    *scale_strides(k_scales, v_scales), 0, 0, 0,
+                )),
+                sm_scale * LOG2E, softcap2(logit_softcap), _build.current_stream(q.device),
             )
         _build.check(err, "decode_attention (K6)")
+        decode_attention.last_grid = (splits, decode_blocks(batch, num_kv_heads, group, splits))
         if k_scales is None:
             decode_attention.launches += 1
         else:
@@ -235,3 +361,4 @@ def decode_attention(
 
 decode_attention.launches = 0
 decode_attention.quant_launches = 0
+decode_attention.last_grid = None  # (splits, blocks) of the last launch

@@ -6,8 +6,9 @@ pages ``[num_pages, kv_heads, page_size, head_dim]``; a slot's
 counts its valid rows.
 
   * ``paged_decode_attention`` — K7 (csrc/decode.cu, the body K6 uses, read
-    through the page table), replacing ``_paged_decode_kernel_hb`` (:980)
-    and ``_paged_decode_kernel`` (:1104); output and base-2 LSE.
+    through the page table and split over whole pages), replacing
+    ``_paged_decode_kernel_hb`` (:980) and ``_paged_decode_kernel``
+    (:1104); output and base-2 LSE.
   * ``paged_prefill_attention`` — K8 (csrc/flash_fwd.cu, the FMA body K1
     takes in fp32, read through the page table, in every dtype), replacing ``_paged_prefill_kernel``
     (:580): causal chunk attention over the slot's pages in place.
@@ -56,13 +57,21 @@ from typing import NamedTuple
 import torch
 
 from flash_attention_tpu_torch.ops import _build
-from flash_attention_tpu_torch.ops.common import LOG2E, mask_window, softcap2
-from flash_attention_tpu_torch.ops.decode import decode_attention_plain, scale_strides
+from flash_attention_tpu_torch.ops.common import LOG2E, mask_window, sm_count, softcap2
+from flash_attention_tpu_torch.ops.decode import (
+    check_tma_rows,
+    decode_attention_plain,
+    decode_blocks,
+    decode_kv_splits,
+    decode_span_rows,
+    scale_strides,
+    split_buffers,
+)
 from flash_attention_tpu_torch.ops.flash_attention import flash_attention_plain
 from flash_attention_tpu_torch.ops.quant import bits, payload_dtype, quantize_values
 
 # The kernels read a page in runs of rows that must not straddle it: K8 in
-# 64-row kv tiles, K7 in 4-row runs.
+# 64-row kv tiles, K7 in 64-row runs (and splits of whole pages).
 KERNEL_PAGE_MULTIPLE = 64
 
 
@@ -248,75 +257,65 @@ def paged_write_tokens_plain(cache: PagedModelCache, k_new, v_new, slots: torch.
     return valid.to(torch.int32)
 
 
-def _write_tokens_kernel(cache: PagedModelCache, k_new, v_new, slots: torch.Tensor) -> torch.Tensor:
-    num_layers, num_pages, heads, page, d = cache.k_pool.shape
-    if cache.quantized():
-        return _write_tokens_quant_kernel(cache, k_new, v_new, slots)
-    _build.check_operands("paged_write_tokens_multi", d, cache.k_pool, cache.v_pool)
-    if cache.k_pool.stride() != cache.v_pool.stride() or cache.k_pool.stride(-1) != 1:
+def _write_tokens_kernel(k_pool, v_pool, k_scales, v_scales, table, lengths, k_new, v_new, slots):
+    """K9/K10 (K9q/K10q over payload pools with scales): one launch that
+    writes every layer's new row for each listed slot and returns the new
+    lengths. k_pool, v_pool: a model's [L, num_pages, H, page, D] pools, or
+    (K9) one layer's [num_pages, H, page, D] pages; k_new, v_new: [L, n, H,
+    D], or [n, H, D] for one layer's pages."""
+    lead = k_pool.ndim - 4  # 1 for a model's pools, 0 for a layer's pages
+    num_layers = k_pool.shape[0] if lead else 1
+    num_pages, heads, page, d = k_pool.shape[lead:]
+    want = (*k_pool.shape[:lead], slots.numel(), heads, d)
+    quant = k_scales is not None
+    if quant:
+        payload = _build.kv_payload_code("paged_write_tokens_multi", d, k_new, k_pool, v_pool, k_scales, v_scales)
+        k_new, v_new = k_new.contiguous(), v_new.to(k_new.dtype).contiguous()
+    else:
+        _build.check_operands("paged_write_tokens_multi", d, k_pool, v_pool)
+        k_new, v_new = k_new.to(k_pool.dtype).contiguous(), v_new.to(v_pool.dtype).contiguous()
+    if k_new.shape != want or v_new.shape != want:
+        raise ValueError(f"new rows {tuple(k_new.shape)} / {tuple(v_new.shape)} != {want}")
+    if k_pool.stride() != v_pool.stride() or k_pool.stride(-1) != 1:
         raise ValueError("the CUDA page write takes K and V pools of one layout with contiguous rows")
-    item = cache.k_pool.element_size()
-    k_new = k_new.to(cache.k_pool.dtype).contiguous()
-    v_new = v_new.to(cache.v_pool.dtype).contiguous()
-    _check_new_rows(cache, k_new, v_new, slots)
-    strides = [s * item for s in cache.k_pool.stride()[:4]]
-    ptrs = [k_new, v_new, cache.k_pool, cache.v_pool]
-    if (d * item) % 16 or any(s % 16 for s in strides) or any(t.data_ptr() % 16 for t in ptrs):
-        raise ValueError("the CUDA page write copies 16-byte words: rows, strides and pointers must be 16-byte aligned")
-    table = cache.page_table.to(torch.int32).contiguous()
-    lengths = cache.lengths.to(torch.int32).contiguous()
-    slots32 = slots.to(torch.int32).contiguous()
-    valid = torch.empty(slots.shape, dtype=torch.int32, device=slots.device)
+    strides = [k_pool.stride(0) if lead else 0, *k_pool.stride()[lead:lead + 3]]  # layer, page, head, row
+    if quant:
+        if k_scales.stride() != v_scales.stride() or k_scales.stride(-1) != 1:
+            raise ValueError("the CUDA page write takes K and V scale pools of one layout with contiguous rows")
+        s_strides = [k_scales.stride(0) if lead else 0, *k_scales.stride()[lead:lead + 2]]
+    else:
+        item = k_pool.element_size()
+        strides = [s * item for s in strides]
+        ptrs = [k_new, v_new, k_pool, v_pool]
+        if (d * item) % 16 or any(s % 16 for s in strides) or any(t.data_ptr() % 16 for t in ptrs):
+            raise ValueError("the CUDA page write copies 16-byte words: rows, strides and pointers must be 16-byte aligned")
+    table, lengths32 = _build.as_int32(table), _build.as_int32(lengths)
+    if slots.dtype not in (torch.int32, torch.int64):
+        slots = slots.long()
+    slots = slots.contiguous()
+    new_lengths = torch.empty_like(lengths32)
+    slot_args = (lengths32.data_ptr(), table.data_ptr(), slots.data_ptr(), int(slots.dtype == torch.int64),
+            new_lengths.data_ptr(), num_layers, slots.numel(), lengths32.numel(), heads)
     lib = _build.kernels()
-    with torch.cuda.device(slots.device):
-        err = lib.fat_paged_write(
-            k_new.data_ptr(), v_new.data_ptr(), cache.k_pool.data_ptr(), cache.v_pool.data_ptr(),
-            lengths.data_ptr(), table.data_ptr(), slots32.data_ptr(), valid.data_ptr(),
-            num_layers, slots.numel(), heads, d * item, num_pages, page, table.shape[1],
-            *strides, torch.cuda.current_stream(slots.device).cuda_stream,
-        )
-    _build.check(err, "paged_write_tokens_multi (K9/K10)")
-    paged_write_tokens_multi.launches += 1
-    return valid
-
-
-def _check_new_rows(cache: PagedModelCache, k_new, v_new, slots) -> None:
-    num_layers, _, heads, _, d = cache.k_pool.shape
-    if k_new.shape != (num_layers, slots.numel(), heads, d) or v_new.shape != k_new.shape:
-        raise ValueError(
-            f"new rows {tuple(k_new.shape)} / {tuple(v_new.shape)} != ({num_layers}, {slots.numel()}, {heads}, {d})"
-        )
-
-
-def _write_tokens_quant_kernel(cache: PagedModelCache, k_new, v_new, slots: torch.Tensor) -> torch.Tensor:
-    """K9q/K10q: the rows in the model's dtype, quantized by the kernel."""
-    num_layers, num_pages, heads, page, d = cache.k_pool.shape
-    payload = _build.kv_payload_code(
-        "paged_write_tokens_multi", d, k_new, cache.k_pool, cache.v_pool, cache.k_scales, cache.v_scales
-    )
-    k_new, v_new = k_new.contiguous(), v_new.to(k_new.dtype).contiguous()
-    _check_new_rows(cache, k_new, v_new, slots)
-    if cache.k_pool.stride() != cache.v_pool.stride() or cache.k_pool.stride(-1) != 1:
-        raise ValueError("the CUDA page write takes K and V pools of one layout with contiguous rows")
-    if cache.k_scales.stride() != cache.v_scales.stride() or cache.k_scales.stride(-1) != 1:
-        raise ValueError("the CUDA page write takes K and V scale pools of one layout with contiguous rows")
-    table = cache.page_table.to(torch.int32).contiguous()
-    lengths = cache.lengths.to(torch.int32).contiguous()
-    slots32 = slots.to(torch.int32).contiguous()
-    valid = torch.empty(slots.shape, dtype=torch.int32, device=slots.device)
-    lib = _build.kernels()
-    with torch.cuda.device(slots.device):
-        err = lib.fat_paged_write_quant(
-            k_new.data_ptr(), v_new.data_ptr(), cache.k_pool.data_ptr(), cache.v_pool.data_ptr(),
-            cache.k_scales.data_ptr(), cache.v_scales.data_ptr(),
-            lengths.data_ptr(), table.data_ptr(), slots32.data_ptr(), valid.data_ptr(),
-            num_layers, slots.numel(), heads, d, num_pages, page, table.shape[1],
-            *cache.k_pool.stride()[:4], *cache.k_scales.stride()[:3],
-            _build.DTYPE_CODES[k_new.dtype], payload, torch.cuda.current_stream(slots.device).cuda_stream,
-        )
-    _build.check(err, "paged_write_tokens_multi (K9q/K10q)")
-    paged_write_tokens_multi.quant_launches += 1
-    return valid
+    with _build.on_device(slots.device):
+        stream = _build.current_stream(slots.device)
+        if quant:
+            err = lib.fat_paged_write_quant(
+                k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_scales.data_ptr(),
+                v_scales.data_ptr(), *slot_args, d, num_pages, page, table.shape[1], *strides, *s_strides,
+                _build.DTYPE_CODES[k_new.dtype], payload, stream,
+            )
+        else:
+            err = lib.fat_paged_write(
+                k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *slot_args, d * item,
+                num_pages, page, table.shape[1], *strides, stream,
+            )
+    _build.check(err, "paged_write_tokens_multi (K9q/K10q)" if quant else "paged_write_tokens_multi (K9/K10)")
+    if quant:
+        paged_write_tokens_multi.quant_launches += 1
+    else:
+        paged_write_tokens_multi.launches += 1
+    return new_lengths if lengths.dtype == torch.int32 else new_lengths.to(lengths.dtype)
 
 
 def paged_write_tokens_multi(cache: PagedModelCache, k_new: torch.Tensor, v_new: torch.Tensor, slots) -> PagedModelCache:
@@ -327,20 +326,23 @@ def paged_write_tokens_multi(cache: PagedModelCache, k_new: torch.Tensor, v_new:
     pages_per_slot * page_size): a slot at capacity writes nothing and its
     length stays. A quantized cache stores each row quantized (its payload
     and its scale). Pages are written in place; returns the cache with its
-    one lengths tensor advanced by one where the slot wrote.
+    one lengths tensor advanced by one where the slot wrote. On the card
+    this is one launch (K10), which also writes the new lengths; ``slots``
+    is read as it is held when int32 or int64.
     """
     device = cache.k_pool.device
-    slots = torch.as_tensor(slots, device=device).long()
     if device.type == "cpu":
+        slots = torch.as_tensor(slots, device=device).long()
         valid = paged_write_tokens_plain(cache, k_new, v_new, slots)
-    elif device.type == "cuda":
-        valid = (
-            _write_tokens_kernel(cache, k_new, v_new, slots) if slots.numel()
-            else torch.zeros((0,), dtype=torch.int32, device=device)
-        )
-    else:
+        return cache._replace(lengths=cache.lengths.index_add(0, slots, valid.to(cache.lengths.dtype)))
+    if device.type != "cuda":
         raise ValueError(f"paged_write_tokens_multi runs on cpu or cuda tensors, got {device}")
-    return cache._replace(lengths=cache.lengths.index_add(0, slots, valid.to(cache.lengths.dtype)))
+    slots = torch.as_tensor(slots, device=device)
+    if not slots.numel():
+        return cache
+    return cache._replace(lengths=_write_tokens_kernel(
+        cache.k_pool, cache.v_pool, cache.k_scales, cache.v_scales, cache.page_table, cache.lengths, k_new, v_new,
+        slots))
 
 
 paged_write_tokens_multi.launches = 0
@@ -349,7 +351,16 @@ paged_write_tokens_multi.quant_launches = 0
 
 def paged_write_tokens(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor, slots) -> PagedKVCache:
     """Append ONE token of K/V ([n, kv_heads, head_dim]) per listed slot at
-    its current length: ``paged_write_tokens_multi`` with one layer."""
+    its current length: ``paged_write_tokens_multi``'s function with one
+    layer. On the card, the same one launch (K9) over this layer's pages."""
+    device = cache.k_pages.device
+    if device.type == "cuda":
+        slots = torch.as_tensor(slots, device=device)
+        if not slots.numel():
+            return cache
+        return cache._replace(lengths=_write_tokens_kernel(
+            cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales, cache.page_table, cache.lengths, k_new,
+            v_new, slots))
     scales = [None, None] if not cache.quantized() else [cache.k_scales[None], cache.v_scales[None]]
     one = PagedModelCache(cache.k_pages[None], cache.v_pages[None], cache.page_table, cache.lengths, *scales)
     return cache._replace(lengths=paged_write_tokens_multi(one, k_new[None], v_new[None], slots).lengths)
@@ -444,24 +455,32 @@ def paged_decode_attention(
     payload = _check_kernel_pages("paged_decode_attention", cache, q)
     q = _build.unit_last_stride(q)
     k_pages, v_pages = (_build.unit_last_stride(x) for x in (cache.k_pages, cache.v_pages))
-    lengths = cache.lengths.to(torch.int32).contiguous()
+    check_tma_rows("paged_decode_attention", k_pages, v_pages)
+    lengths = _build.as_int32(cache.lengths)
     out = torch.empty((num_slots, num_q_heads, head_dim), dtype=q.dtype, device=q.device)
     lse = torch.empty((num_slots, num_q_heads), dtype=torch.float32, device=q.device) if save_residuals else None
     if out.numel():
+        group = num_q_heads // num_kv_heads
+        span = decode_span_rows(cache.pages_per_slot * page, sliding_window=sliding_window, page_size=page,
+                                attention_sinks=attention_sinks)
+        splits = decode_kv_splits(num_slots, num_kv_heads, group, span, sm_count(q.device))
+        ws, ws_ptr, tickets = split_buffers(q.device, num_slots, num_q_heads, num_kv_heads, head_dim, splits)
         lib = _build.kernels()
-        with torch.cuda.device(q.device):
+        with _build.on_device(q.device):
             err = lib.fat_paged_decode(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *_scale_ptrs(cache), out.data_ptr(),
-                None if lse is None else lse.data_ptr(), lengths.data_ptr(), cache.page_table.data_ptr(),
-                num_slots, num_q_heads, num_kv_heads, num_pages, page, cache.pages_per_slot, head_dim,
-                q.stride(0), q.stride(1),
-                _build.int64_array([*k_pages.stride()[:3], *v_pages.stride()[:3],
-                                    *scale_strides(cache.k_scales, cache.v_scales)]),
-                sm_scale * LOG2E, mask_window(sliding_window), attention_sinks, softcap2(logit_softcap),
-                _build.DTYPE_CODES[q.dtype], payload,
-                torch.cuda.current_stream(q.device).cuda_stream,
+                None if lse is None else lse.data_ptr(), lengths.data_ptr(), cache.page_table.data_ptr(), ws_ptr,
+                tickets,
+                _build.int64_tuple_array((
+                    num_slots, num_q_heads, num_kv_heads, cache.pages_per_slot * page, head_dim, q.stride(0),
+                    q.stride(1), mask_window(sliding_window), 0, attention_sinks, splits,
+                    _build.DTYPE_CODES[q.dtype], payload, *k_pages.stride()[:3], *v_pages.stride()[:3],
+                    *scale_strides(cache.k_scales, cache.v_scales), num_pages, page, cache.pages_per_slot,
+                )),
+                sm_scale * LOG2E, softcap2(logit_softcap), _build.current_stream(q.device),
             )
         _build.check(err, "paged_decode_attention (K7)")
+        paged_decode_attention.last_grid = (splits, decode_blocks(num_slots, num_kv_heads, group, splits))
         if cache.quantized():
             paged_decode_attention.quant_launches += 1
         else:
@@ -471,6 +490,7 @@ def paged_decode_attention(
 
 paged_decode_attention.launches = 0
 paged_decode_attention.quant_launches = 0
+paged_decode_attention.last_grid = None  # (splits, blocks) of the last launch
 
 
 def paged_prefill_attention_plain(

@@ -31,18 +31,20 @@ import sys
 
 
 def k6_split(card: str) -> dict:
-    """K6 at phase 3's inputs, its time split in two: ``ms`` as chip_smoke.py
-    times a wrapper call (host work up to the launch included, since the
-    card idles at the start event), ``device_ms`` from a CUDA graph of 20
-    calls replayed (the kernel alone), and ``host_us`` the wrapper's host
-    time a call, 200 calls enqueued without a synchronisation."""
-    import time
-
+    """K6 at phase 3's inputs and over phase 15's ring of 4352 rows, and K7
+    over phase 15's paged ring (window 4096, 4 sinks), each timed three
+    ways (``_split_times``): ``ms`` as chip_smoke.py times a wrapper call
+    (host work up to the launch included, since the card idles at the start
+    event), ``device_ms`` from a CUDA graph of 10 calls replayed (the kernel
+    alone; the graph also shows the split merge's counters reset
+    themselves: the replay must equal a direct call), and ``host_us`` the
+    wrapper's host time a call. The top-level numbers are phase 3's."""
     import numpy as np
     import torch
 
-    from chip_smoke import cuda_ms
+    import chip_smoke as cs
     from flash_attention_tpu_torch.ops.decode import decode_attention
+    from flash_attention_tpu_torch.ops.paged import paged_decode_attention
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(6)
@@ -53,21 +55,147 @@ def k6_split(card: str) -> dict:
     q = uniform((8, 32, 128))
     k, v = uniform((8, 8, 2048, 128)), uniform((8, 8, 2048, 128))
     lengths = torch.tensor([0, 1, 255, 256, 1000, 2047, 2048, 7], dtype=torch.int32, device=dev)
-    ms = cuda_ms(lambda: decode_attention(q, k, v, lengths))
-    graph, calls = torch.cuda.CUDAGraph(), 20
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            decode_attention(q, k, v, lengths)
-    device_ms = cuda_ms(graph.replay) / calls
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(200):
-        decode_attention(q, k, v, lengths)
-    host_us = (time.perf_counter() - t0) / 200 * 1e6
-    torch.cuda.synchronize()
-    print(f"[k6 split] wrapper {ms:.4f} ms, kernel alone {device_ms:.4f} ms (CUDA graph of {calls}), "
-          f"host {host_us:.1f} us a call ({card})", flush=True)
-    return {"ms": ms, "device_ms": device_ms, "host_us": host_us}
+    rows = {"phase 3": (decode_attention, lambda: decode_attention(q, k, v, lengths))}
+    gen = torch.Generator(device=dev).manual_seed(15)
+    ring_k = cs.torch_uniform((8, 8, cs.RING_ROWS, 128), torch.bfloat16, gen)
+    ring_v = cs.torch_uniform((8, 8, cs.RING_ROWS, 128), torch.bfloat16, gen)
+    ring_len = torch.tensor(cs.RING_LENGTHS, dtype=torch.int32, device=dev)
+    rows[f"ring {cs.RING_ROWS}"] = (decode_attention, lambda: decode_attention(
+        q, ring_k, ring_v, ring_len, save_residuals=True, sliding_window=cs.WINDOW, ring_buffer=True))
+    page, per_slot = 128, 72
+    n_ring = -(-(cs.WINDOW + 256) // page) + 2
+    table, num_pages = cs._ring_table(np.random.default_rng(15), 8, per_slot, n_ring, sinks=True)
+    cache = cs._filled_cache(1, num_pages=num_pages, num_slots=8, pages_per_slot=per_slot, kv_heads=8,
+                             head_dim=128, dtype=torch.bfloat16, gen=gen).layers()[0]
+    cache.page_table.copy_(torch.from_numpy(table).to(dev))
+    cache = cache._replace(lengths=torch.tensor(cs.DENSE_LENGTHS, dtype=torch.int32, device=dev))
+    rows["K7 paged ring"] = (paged_decode_attention, lambda: paged_decode_attention(
+        q, cache, save_residuals=True, sliding_window=cs.WINDOW, attention_sinks=cs.SINKS))
+    out = {}
+    for key, (wrapper, call) in rows.items():
+        direct = call()
+        ms, device_ms, host_us = _split_times(call)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(_tensors(direct), _tensors(replayed)))
+        grid = getattr(wrapper, "last_grid", None)
+        print(f"[k6 split] {key}: wrapper {ms:.4f} ms, kernel alone {device_ms:.4f} ms (CUDA graph of 10), host "
+              f"{host_us:.1f} us a call; splits and blocks {grid}; graph replay equal to a direct call: {same} "
+              f"({card})", flush=True)
+        if not same:
+            raise RuntimeError(f"{key}: the CUDA graph's replay differs from a direct call")
+        out[key] = {"ms": ms, "device_ms": device_ms, "host_us": host_us}
+    return {**out["phase 3"], **{f"{key} {m}": t for key, row in out.items() for m, t in row.items()}}
+
+
+def _tensors(x) -> list:
+    """A wrapper's result as a list of tensors (its output, or (out, lse)).
+    The cases here keep their own helpers: they also run a parent tree's
+    chip_smoke.py, which may lack this tree's."""
+    return list(x) if isinstance(x, tuple) else [x]
+
+
+# chip_smoke.LAUNCH_CALLS, kept here too: a parent tree's script may lack it.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def write_split(card: str) -> dict:
+    """K10 (32 layers) and K9 (one layer) at phase 6's shapes (8 slots, 8 kv
+    heads, bf16 rows of 128, pools of 129 pages of 128 rows), each timed as
+    ``_split_times`` does, beside ``index_put_`` of the same rows into K and
+    V, and the launches a call makes (CUDA kernels, memsets and copies in a
+    torch.profiler trace of 10 calls). ``ms`` and ``device_ms`` are K9's."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.ops.paged import paged_write_tokens, paged_write_tokens_multi
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cache = cs._filled_cache(32, num_pages=129, num_slots=8, pages_per_slot=16, kv_heads=8, head_dim=128,
+                             dtype=torch.bfloat16, gen=gen)
+    table = torch.from_numpy(cs._shuffled_table(np.random.default_rng(7), 8, 16, 129)).to(dev)
+    cache.page_table.copy_(table)
+    lengths = torch.tensor([37, 2047, 5, 127, 128, 129, 1000, 2046], dtype=torch.int32, device=dev)
+    cache = cache._replace(lengths=lengths)
+    layer = cache.layers()[0]
+    slots = torch.arange(8, device=dev)  # int64, as the engine passes them
+    k_new, v_new = (cs.torch_uniform((32, 8, 8, 128), torch.bfloat16, gen) for _ in range(2))
+    pos = lengths.long()
+    idx = (table[slots, pos // 128].long()[:, None], torch.arange(8, device=dev)[None, :], (pos % 128)[:, None])
+    calls = {
+        "K10": lambda: paged_write_tokens_multi(cache, k_new, v_new, slots),
+        "K9": lambda: paged_write_tokens(layer, k_new[0], v_new[0], slots),
+        "index_put_ K and V, one layer": lambda: (layer.k_pages.index_put_(idx, k_new[0]),
+                                                  layer.v_pages.index_put_(idx, v_new[0])),
+    }
+    out = {}
+    for key, call in calls.items():
+        call()
+        ms, device_ms, host_us = _split_times(call)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        launches = sum(e.name in LAUNCH_CALLS for e in prof.events()) / 10
+        names = sorted({e.name[:40] for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA})
+        print(f"[write split] {key}: wrapper {ms:.4f} ms, alone {device_ms:.4f} ms (CUDA graph of 10), host "
+              f"{host_us:.1f} us a call, {launches} launches a call {names} ({card})", flush=True)
+        out[key] = {"ms": ms, "device_ms": device_ms, "host_us": host_us, "launches": launches}
+    return {**out["K9"], **{f"{key} {m}": t for key, row in out.items() for m, t in row.items()}}
+
+
+def serve_decode(card: str) -> dict:
+    """Decode tokens/s of the serving paths K6, K7 and K10 run on, on fresh
+    weights from seed 0: phase 5 (``ServingEngine``, ``ModelConfig()``),
+    phase 8 (``PagedServingEngine``, the same weights and requests), then
+    Mistral-7B's shape through phase 17's rolling engine (17a, the 4352-row
+    ring) and its paged ring with 4 sinks (17c), each with chip_smoke.py's
+    own serving function. ``ms`` is 1000 over phase 5's decode tok/s (a
+    step's share per token)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+    from flash_attention_tpu_torch.serving.engine import ServingEngine
+    from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
+
+    cfg = ModelConfig()
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    _, dense = cs.serve_full_dense(card, "full", cfg, params, used=("K1", "K6"))
+    _, paged = cs.serve_full_paged(card, "full paged", cfg, params, used=("K7", "K8", "K9/K10"), dense=dense)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ModelConfig(**cs.MISTRAL)
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    rng = np.random.default_rng(17)
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n)) for n in cs.MASKED_PROMPT_LENS]
+    eng = ServingEngine(params, dataclasses.replace(cfg, rolling=True), max_slots=8, max_seq=16384, prefill_chunk=256)
+    ring = cs._serve_masked(card, "full masked a", eng, prompts, used=("K1", "K6"))
+    del eng
+    torch.cuda.empty_cache()
+    eng = PagedServingEngine(params, dataclasses.replace(cfg, attention_sinks=cs.SINKS), max_slots=8, num_pages=297,
+                             pages_per_slot=72, page_size=128, prefill_chunk=256)
+    paged_ring = cs._serve_masked(card, "full masked c", eng, prompts, used=("K7", "K8", "K9/K10"))
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tok_s = {"5": dense["decode_tok_s"], "8": paged["decode_tok_s"], "17a": ring["decode_tok_s"],
+             "17c": paged_ring["decode_tok_s"]}
+    print("[serve decode] decode tok/s " + ", ".join(f"phase {k} {v:.1f}" for k, v in tok_s.items()) + f" ({card})",
+          flush=True)
+    return {"ms": 1e3 / tok_s["5"], **{f"phase {k} decode_tok_s": v for k, v in tok_s.items()}}
 
 
 SM90_SOURCES = ("flash_bwd_sm90.cu", "flash_fwd_sm90.cu")
@@ -81,7 +209,8 @@ def _kernel_label(line: str) -> str:
 
     m = re.search(r"(dq_kernel|dkv_kernel|split_sum_kernel|fwd_kernel)I(\w+?)EEv", line)
     if m is None:
-        return line.strip()
+        m = re.search(r"'_Z\w*?(decode_kernel|paged_write_kernel|paged_write_quant_kernel)(I\w+?E)?", line)
+        return " ".join(filter(None, m.groups())) if m else line.strip()
     name, args = m.group(1), m.group(2).replace("13__nv_bfloat16", "bf16 ").replace("6__half", "fp16 ")
     flags = {"dq_kernel": ("masked",), "dkv_kernel": ("masked", "fused"), "fwd_kernel": ("masked", "wgs")}.get(name, ())
     values = re.findall(r"L[ib](\d+)E", args)
@@ -95,13 +224,23 @@ def ptxas_sm90(card: str) -> None:
     alone with the build's flags and ``-Xptxas -v``, all at once: prints the
     seconds each took and, for each kernel, its registers, spills and
     whether ptxas serialised its wgmma (C7515)."""
+    _ptxas(card, SM90_SOURCES, "ptxas sm90")
+
+
+def ptxas_decode(card: str) -> None:
+    """``ptxas_sm90`` for the decode and page-write sources (K6, K7, K9, K10):
+    every instantiation's registers and spills."""
+    _ptxas(card, ("decode.cu", "paged_write.cu"), "ptxas decode")
+
+
+def _ptxas(card: str, names, tag: str) -> None:
     import re
     import tempfile
     import time
 
     from flash_attention_tpu_torch.ops import _build
 
-    sources = [_build.CSRC_DIR / name for name in SM90_SOURCES if (_build.CSRC_DIR / name).exists()]
+    sources = [_build.CSRC_DIR / name for name in names if (_build.CSRC_DIR / name).exists()]
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         procs = [subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
@@ -122,7 +261,7 @@ def ptxas_sm90(card: str) -> None:
                 rows.append(f"{kernel}: {regs} registers, {spill} B spilled")
             if "C7515" in line:
                 serial.append(kernel)
-        print(f"[ptxas sm90] {src.name} compiled alone in {secs:.1f} s; {len(rows)} kernels; wgmma serialised in "
+        print(f"[{tag}] {src.name} compiled alone in {secs:.1f} s; {len(rows)} kernels; wgmma serialised in "
               f"{len(serial)} {serial}; " + "; ".join(rows) + f" ({card})", flush=True)
 
 
@@ -459,7 +598,8 @@ def _one(funcs: list[str]) -> None:
             continue
         print(f"RESULT {tree} {name}: passed", flush=True)
         if isinstance(out, dict) and "ms" in out:
-            times = {k: out[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms", "host_us") if k in out}
+            keys = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms", "host_us")
+            times = {k: v for k, v in out.items() if k in keys or " " in k}
             print(f"TIMING {tree} {name} {json.dumps(times)}", flush=True)
 
 
