@@ -32,7 +32,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 tokens at temperature > 0 with top-k and top-p bit-equal to
                 the CPU's, with no host sync; one decode step of 8 slots
                 timed greedy and sampled.
-  6. paged    — K7 (decode.cu, paged), K8 (flash_fwd.cu, paged) and K9/K10
+  6. paged    — K7 (decode.cu, paged), K8 (flash_fwd_sm90.cu, paged: the
+                body counter must show the tensor-core body) and K9/K10
                 (paged_write.cu) at the paged path's shapes in bf16 over a
                 shuffled page table, against their plain versions (K9/K10
                 bit-exact, the new lengths of a slot at capacity and one on
@@ -40,14 +41,19 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 outputs also row by row relative to the row's largest value
                 (K7 with its kv split, bit-identical over two calls); then
                 every dtype / head_dim instantiation at ragged shapes and
-                two page sizes.
+                two page sizes, and K8 on the tensor-core body at the
+                chunk / page edges (fp16 / bf16 x head_dim 32 / 64 / 128 x
+                groups 1 / 4 / 16 x pages of 64 / 128 rows, chunks of 1-256
+                rows ending at page edges +-1), each bit-identical over two
+                calls.
   7. tiny paged — the tiny fp32 model through PagedServingEngine on the
                 card and on the CPU: tokens identical to each other and to
                 the dense engine's; the prefix cache gives the same tokens.
   8. full paged — PagedServingEngine at full width on phase 5's weights:
                 phase 5's requests, then requests sharing a 1024-token
                 prefix through the prefix cache; K7, K8 and K10 launched,
-                K1 and K6 not.
+                K1 and K6 not, and every K8 launch on the tensor-core body
+                (its body counter).
   9. quant    — the quantized kernels with bf16 queries, for int8, fp8
                 e4m3 and fp8 e5m2 caches whose rows are scaled one by one:
                 K6q and K7q at phase 3's and 6's shapes and at 32 slots x
@@ -59,9 +65,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 under 1 % of a bf16 copy of the cache; K6 over every finite
                 code of each payload type must return the codes exactly;
                 K6q and K7q print their kv split and are bit-identical over
-                two calls, K9q and K10q make one launch a call. Then every
-                (query dtype, payload, head_dim) instantiation of K6q, K7q,
-                K8q and K9q/K10q at ragged shapes.
+                two calls, K9q and K10q make one launch a call; K8q's body
+                counter must show the tensor-core body. Then every (query
+                dtype, payload, head_dim) instantiation of K6q, K7q, K8q and
+                K9q/K10q at ragged shapes, and K8q at phase 6's chunk /
+                page edges (the payloads in turn).
  10. tiny quant — the tiny fp32 model with each kv_quant mode and with int8
                 weights through both engines on the card and on the CPU:
                 each engine's tokens identical on both; paged and dense
@@ -73,7 +81,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
  11. full quant — phase 5's weights at full width: ServingEngine with int8
                 weights and an int8 cache on phase 5's requests, and
                 PagedServingEngine with an fp8_e4m3 cache on phase 8's runs;
-                K6q, K7q, K8q and K10q launched, K6, K7, K8 and K10 not.
+                K6q, K7q, K8q and K10q launched, K6, K7, K8 and K10 not;
+                K8q on the tensor-core body.
  12. backward — K3, K4, K5 and K5's split sum K5s (flash_bwd_sm90.cu:
                 wgmma on TMA-fed tiles in bf16 / fp16; flash_bwd.cu's FMA
                 bodies in fp32) in bf16 through
@@ -107,13 +116,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 (row-relative), the fp32 oracle with the same masks and
                 their LSE: K1 with window 4096 (q 256 end-aligned over kv
                 9216) and with softcap 50; K2 (window 64) beside K1 at the
-                JAX band's window 128; K6 over a dense window, a ring of
+                JAX band's window 128 (K2 on the tensor-core body: its body
+                counter must show it); K6 over a dense window, a ring of
                 4352 rows and a ring with 4 sinks, lengths past the ring,
                 K6q int8 on the ring; K7 and K8 with window 4096 and 4
                 sinks over a shuffled paged ring whose rolled-out logical
-                pages alias live ones (K6 and K7 with their kv split,
-                bit-identical over two calls). Then every (dtype, head_dim)
-                instantiation at windows 1, 63, 64, 65 and 1000; then the
+                pages alias live ones (K6, K7 and K8 bit-identical over two
+                calls). Then every (dtype, head_dim) instantiation at
+                windows 1, 63, 64, 65 and 1000, and K8 over a paged ring
+                with 3 sinks and K2 at phase 6's chunk / page edges; then
+                the
                 split-edge sweep: K6 / K6q / K7 / K7q for every (query
                 dtype, payload, head_dim), groups 1/4/16, batch 1 and 32,
                 lengths 0, 1 and the split edges +-1, over a dense window,
@@ -132,7 +144,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 ring at max_seq 9216 (last-chunk logits within LOGIT_BAR of
                 (a)), (c) PagedServingEngine with 4 sinks (at most 37 pages a
                 slot, the pool full again after; K7, K8, K10 only) and (d)
-                softcap 50 on phase 5's requests.
+                softcap 50 on phase 5's requests; every forward launch on
+                the tensor-core body.
  18. masked backward — K1d (the forward's segment ids) and the masked
                 K3, K4 and K5 (K3m, K4m and K5m in flash_bwd_sm90.cu, K1d in
                 flash_fwd_sm90.cu; K4m, K5m and K3m's dk and dv bit-identical
@@ -577,13 +590,43 @@ def _counters() -> dict:
     }
 
 
+# The forward wrappers count their launches by body as well: csrc/flash_fwd_sm90.cu's tensor cores, or
+# csrc/flash_fwd.cu's FMA body (fp32).
+BODIES = ("tensor_core_launches", "fma_launches")
+
+
+def _body_wrappers() -> dict:
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+    from flash_attention_tpu_torch.ops.paged import paged_prefill_attention
+
+    return {"K1/K1d/K2": flash_attention, "K8/K8q": paged_prefill_attention}
+
+
 def zero_counts() -> None:
     for fn, attr in _counters().values():
         setattr(fn, attr, 0)
+    for fn in _body_wrappers().values():
+        for attr in BODIES:
+            setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
+
+
+def read_bodies() -> dict:
+    """The forward launches since zero_counts by wrapper and body."""
+    return {f"{name} {attr.removesuffix('_launches')}": getattr(fn, attr)
+            for name, fn in _body_wrappers().items() for attr in BODIES}
+
+
+def check_tensor_cores(what: str, bodies: dict, wrapper: str | None = None) -> None:
+    """Every bf16 / fp16 forward launch counted in ``bodies`` (``read_bodies``)
+    ran the tensor-core body, none the FMA body; with ``wrapper`` ("K1/K1d/K2"
+    or "K8/K8q"), that wrapper launched at least once."""
+    fma = {k: n for k, n in bodies.items() if k.endswith(" fma") and n}
+    if fma or (wrapper is not None and bodies[f"{wrapper} tensor_core"] < 1):
+        raise RuntimeError(f"{what}: forward launches by body {bodies}; want the tensor-core body only")
 
 
 def check_launches(what: str, launches: dict, used) -> None:
@@ -739,7 +782,10 @@ def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | No
     run_s = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(f"[{label}] 10 requests on 8 slots: kernel launches {launches}; decode steps {eng.steps}")
+    bodies = read_bodies()
+    log(f"[{label}] 10 requests on 8 slots: kernel launches {launches}, forward launches by body {bodies}; decode "
+        f"steps {eng.steps}")
+    check_tensor_cores(f"[{label}] the main path", bodies, "K1/K1d/K2")
     for i in range(len(prompts)):
         toks = done[100 + i].tokens
         if len(toks) != FULL_NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in toks):
@@ -896,6 +942,7 @@ def phase_paged_kernels(card: str):
 
     # K8: a 256-row chunk at [kv_end - 256, kv_end) of slot 7 (16 pages).
     worst_plain = 0.0
+    zero_counts()
     for kv_end in (256, 1024, 2048):
         qc = torch_uniform((1, 32, 256, 128), bf16, gen)
         out = paged_prefill_attention(qc, cache, 7, kv_end, chunk_len=256)
@@ -918,9 +965,12 @@ def phase_paged_kernels(card: str):
         if not (d_oracle < ORACLE_BAR and d_plain < PLAIN_BAR and d_rel < rel_bar):
             raise RuntimeError(f"K8 disagrees at kv_end={kv_end}")
         worst_plain = max(worst_plain, d_plain)
+    bodies = read_bodies()
+    check_tensor_cores("[K8] bf16", bodies, "K8/K8q")
+    log(f"[K8] bf16: launches by body {bodies} (the tensor-core body, csrc/flash_fwd_sm90.cu)")
     k8 = {
-        "name": "paged_prefill (K8)", "route": "cuda",
-        "source": "flash_attention_tpu_torch/csrc/flash_fwd.cu",
+        "name": "fwd_kernel, wgmma + TMA, paged (K8)", "route": "cuda",
+        "source": "flash_attention_tpu_torch/csrc/flash_fwd_sm90.cu",
         "replaces": f"{REFERENCE}/ops/paged.py:580",
         "max_abs_err": worst_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1037,6 +1087,131 @@ def _launches_a_call(call) -> int:
     return n
 
 
+PREFILL_CHUNKS = (1, 63, 64, 65, 100, 256)  # chunk lengths across the tensor-core walk's 64- and 128-row tiles
+PREFILL_DIMS = (32, 64, 128)
+PREFILL_GROUPS = ((4, 4), (4, 1), (16, 1))  # (q heads, kv heads): groups 1, 4 and 16
+
+
+def _page_edges(page: int, chunk: int) -> tuple[int, ...]:
+    """kv_end one row before, at and after a page edge past the chunk."""
+    edge = max(2, -(-chunk // page) + 1) * page
+    return edge - 1, edge, edge + 1
+
+
+def _prefill_edge(what: str, cache, slot: int, qc, kv_end: int, k_log, v_log, *, dtype: str, window=None,
+                  sinks: int = 0, softcap=None) -> float:
+    """One chunk of K8 (or K8q) at [kv_end - T, kv_end) of ``slot``: two
+    calls bit-identical, row by row within REL_BAR of plain and the fp32
+    oracle on the slot's logical rows ``k_log`` / ``v_log`` (dequantized
+    for K8q) under the same masks, within ORACLE_BAR of the oracle. Returns
+    the row-relative difference over its bar."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.paged import paged_prefill_attention, paged_prefill_attention_plain
+
+    t, d = qc.shape[2], qc.shape[3]
+    kw = dict(sliding_window=window, attention_sinks=sinks, logit_softcap=softcap)
+    out = paged_prefill_attention(qc, cache, slot, kv_end, chunk_len=t, **kw)
+    _same_twice(what, lambda: paged_prefill_attention(qc, cache, slot, kv_end, chunk_len=t, **kw))
+    plain = paged_prefill_attention_plain(qc, cache, slot, kv_end, sm_scale=d**-0.5, **kw)
+    col = torch.arange(kv_end, device="cuda")[None, :]
+    row = torch.arange(t, device="cuda")[:, None] + kv_end - t
+    mask = col <= row
+    if window is not None:
+        mask &= (col > row - window) | (col < sinks)
+    oracle, _ = _oracle_mask(qc, k_log[slot:slot + 1, :, :kv_end], v_log[slot:slot + 1, :, :kv_end], mask,
+                             sm_scale=d**-0.5, softcap=softcap)
+    return _hold(what, out, plain, oracle, dtype=dtype)[1] / REL_BAR[dtype]
+
+
+def _prefill_edge_sweep(kind: str) -> str:
+    """K8 on the tensor-core body at the walk's edges, bf16 / fp16 x head_dim
+    32 / 64 / 128 x groups 1 / 4 / 16 x pages of 64 and 128 rows: chunks of
+    PREFILL_CHUNKS rows ending one row before, at and after a page edge, each
+    by ``_prefill_edge``. ``kind``: "paged" (shuffled pages), "quant" (K8q,
+    the payloads in turn) or "masked" (the paged ring with 3 sinks at
+    windows 1, 63 and 100, a softcap at 63; then K2 at the same
+    chunk edges on dense K / V at windows 1, 48 and 64, with its LSE). Every
+    launch must run the tensor-core body. Returns a line for the log."""
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from flash_attention_tpu_torch.ops.reference import reference_attention_with_lse
+    from flash_attention_tpu_torch.utils.testing import make_qkv
+
+    rng = np.random.default_rng(31)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    worst, cases, i = 0.0, 0, 0
+    zero_counts()
+    for dtype in (torch.float16, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for d in PREFILL_DIMS:
+            for hq, hkv in PREFILL_GROUPS:
+                for page in (64, 128):
+                    per_slot = 1024 // page
+                    what = f"[{kind} edges] {name} d={d} {hq}/{hkv} page {page}"
+                    window, sinks, softcap = None, 0, None
+                    if kind == "quant":
+                        mode = QUANT_MODES[i % len(QUANT_MODES)]
+                        what += f" {mode}"
+                        cache, _ = _quant_pages(mode, 1, 1 + 2 * per_slot, 2, per_slot, gen, rng, kv_heads=hkv,
+                                                head_dim=d, page_size=page)
+                        cache = cache.layers()[0]
+                        k_log, v_log = (_dense_from_pages(_dequant_pool(x, s), cache.page_table) for x, s in
+                                        ((cache.k_pages, cache.k_scales), (cache.v_pages, cache.v_scales)))
+                    else:
+                        if kind == "masked":
+                            window = (1, 63, 100)[i % 3]
+                            sinks, softcap = 3, (BITE_CAP if window == 63 else None)
+                            n_ring = -(-(window + 256) // page) + 1
+                            table, num_pages = _ring_table(rng, 2, per_slot, n_ring, sinks=True)
+                        else:
+                            num_pages = 1 + 2 * per_slot
+                            table = _shuffled_table(rng, 2, per_slot, num_pages)
+                        cache = _filled_cache(1, num_pages=num_pages, num_slots=2, pages_per_slot=per_slot,
+                                              kv_heads=hkv, head_dim=d, dtype=dtype, gen=gen, page_size=page).layers()[0]
+                        cache.page_table.copy_(torch.from_numpy(table).cuda())
+                        k_log, v_log = (_dense_from_pages(x, cache.page_table) for x in (cache.k_pages, cache.v_pages))
+                        what += f" window {window}" if window else ""
+                    for chunk in PREFILL_CHUNKS:
+                        qc = torch_uniform((1, hq, chunk, d), dtype, gen)
+                        if softcap is not None:
+                            qc = (qc.float() * BITE_Q).to(dtype)
+                        for kv_end in _page_edges(page, chunk):
+                            worst = max(worst, _prefill_edge(f"{what} chunk {chunk} kv_end {kv_end}", cache, 1, qc,
+                                                             kv_end, k_log, v_log, dtype=name, window=window,
+                                                             sinks=sinks, softcap=softcap))
+                            cases += 1
+                    i += 1
+                    del cache, k_log, v_log
+                if kind != "masked":
+                    continue
+                for window in (1, 48, 64):  # K2 at the same chunk edges
+                    for chunk in PREFILL_CHUNKS:
+                        for kv_len in (chunk, *_page_edges(64, chunk)):
+                            q, k, v = make_qkv(cases, 1, hq, chunk, d, num_kv_heads=hkv, kv_seq=kv_len, dtype=dtype,
+                                               device="cuda")
+                            kw = dict(causal=True, sliding_window=window)
+                            what = f"[masked edges] K2 {name} d={d} {hq}/{hkv} window {window} q {chunk} kv {kv_len}"
+                            out, lse = flash_attention(q, k, v, save_residuals=True, **kw)
+                            _same_twice(what, lambda: flash_attention(q, k, v, save_residuals=True, **kw))
+                            p_out, p_lse = flash_attention_plain(q, k, v, sm_scale=d**-0.5, save_residuals=True, **kw)
+                            o_out, o_lse = reference_attention_with_lse(q, k, v, **kw)
+                            worst = max(worst, _hold(what, out, p_out, o_out, lse, p_lse, o_lse, dtype=name)[1]
+                                        / REL_BAR[name])
+                            cases += 1
+    torch.cuda.synchronize()
+    bodies = read_bodies()
+    check_tensor_cores(f"[{kind} edges]", bodies, "K8/K8q")
+    if kind == "masked":
+        check_tensor_cores("[masked edges] K2", bodies, "K1/K1d/K2")
+    return (f"[{kind} edges] {cases} chunk / page-edge cases on the tensor-core body (fp16/bf16 x head_dim 32/64/128 "
+            f"x groups 1/4/16 x pages of 64/128 rows, chunks {list(PREFILL_CHUNKS)} ending at page edges +-1), each "
+            f"bit-identical over two calls, within {ORACLE_BAR} of the oracle; worst row-relative difference at "
+            f"{worst:.3f} of its bar; launches by body {bodies}")
+
+
 def phase_paged_sweep() -> None:
     """Every (dtype, head_dim) instantiation of K7, K8 and K9/K10 at ragged
     shapes: kv lengths off the 64-row tiles, GQA groups of 1, 4 and 16,
@@ -1114,6 +1289,7 @@ def phase_paged_sweep() -> None:
         f"the oracle, writes bit-equal; worst |kernel-plain| at {worst:.3f} of its bar (fp32 1e-4, fp16/bf16 "
         f"{PLAIN_BAR}), worst row-relative difference at {worst_rel:.3f} of its bar {REL_BAR}"
     )
+    log(_prefill_edge_sweep("paged"))
 
 
 def phase_tiny_paged(dense_tokens: dict) -> None:
@@ -1218,6 +1394,9 @@ def serve_full_paged(card: str, label: str, cfg, params, *, used, dense: dict, r
     if hits_b != 8 * 1024 // 128:
         raise RuntimeError(f"run B: prefix_hits {hits_b}, want 64 (8 requests x 8 shared pages)")
     check_launches(f"[{label}] the paged main path", launches, used)
+    bodies = read_bodies()
+    log(f"[{label}] runs A and B: forward launches by body {bodies}")
+    check_tensor_cores(f"[{label}] the paged main path", bodies, "K8/K8q")
 
     # The same 8 prompts without the prefix cache: the same first tokens.
     eng.prefix_cache_enabled = False
@@ -1365,17 +1544,19 @@ def _quant_decode_case(card: str, what: str, mode: str, q, k_x, v_x, lengths, *,
 
 
 def _quant_pages(mode: str, num_layers: int, num_pages: int, num_slots: int, pages_per_slot: int, gen, rng,
-                 *, kv_heads: int = 8, head_dim: int = 128, dump_slot: bool = True):
-    """A quantized PagedModelCache (pages of 128 rows) filled from scaled
-    fp32 rows over a shuffled table; and the fp32 rows (pools [L, P,
-    kv_heads, 128, head_dim]) it was quantized from."""
+                 *, kv_heads: int = 8, head_dim: int = 128, dump_slot: bool = True, page_size: int = 128):
+    """A quantized PagedModelCache (pages of 128 rows unless ``page_size``
+    says otherwise) filled from scaled fp32 rows over a shuffled table; and
+    the fp32 rows (pools [L, P, kv_heads, page_size, head_dim]) it was
+    quantized from."""
     import torch
 
     from flash_attention_tpu_torch.ops.paged import init_paged_model_cache
     from flash_attention_tpu_torch.ops.quant import bits, quantize_values
 
     cache = init_paged_model_cache(num_layers, num_pages=num_pages, num_slots=num_slots, pages_per_slot=pages_per_slot,
-                                   kv_heads=kv_heads, page_size=128, head_dim=head_dim, kv_quant=mode, device="cuda")
+                                   kv_heads=kv_heads, page_size=page_size, head_dim=head_dim, kv_quant=mode,
+                                   device="cuda")
     rows = []
     for pool, scales in ((cache.k_pool, cache.k_scales), (cache.v_pool, cache.v_scales)):
         x = scaled_rows(tuple(pool.shape), gen)
@@ -1532,6 +1713,7 @@ def phase_quant_kernels(card: str):
         kd = _dense_from_pages(_dequant_pool(layer.k_pages, layer.k_scales), layer.page_table)
         vd = _dense_from_pages(_dequant_pool(layer.v_pages, layer.v_scales), layer.page_table)
         ku, vu = (_dense_from_pages(x, layer.page_table)[7:8] for x in x_rows)
+        zero_counts()
         for kv_end in (256, 1024, 2048):
             qc = (torch_uniform((1, 32, 256, 128), torch.float32, gen) * 8).to(bf16)
             out = paged_prefill_attention(qc, layer, 7, kv_end, chunk_len=256)
@@ -1558,6 +1740,9 @@ def phase_quant_kernels(card: str):
             if mode == "fp8_e4m3" and kv_end == 2048:
                 report["K8q"] = {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                                  "bound_ms": bound_ms, "bound_by": bound_by}
+        bodies = read_bodies()
+        check_tensor_cores(f"[K8q] {mode}", bodies, "K8/K8q")
+        log(f"[K8q] {mode}, bf16 queries: launches by body {bodies} (the tensor-core body, csrc/flash_fwd_sm90.cu)")
         del cache, layer, x_rows, kd, vd, ku, vu
     q = (torch_uniform((slots, 32, 128), torch.float32, gen) * 8).to(bf16)
     pages_per_slot = rows // 128
@@ -1626,7 +1811,7 @@ def phase_quant_kernels(card: str):
     names = {
         "K6q": ("decode_quant (K6q)", "decode.cu", "ops/decode.py:56"),
         "K7q": ("paged_decode_quant (K7q)", "decode.cu", "ops/paged.py:980"),
-        "K8q": ("paged_prefill_quant (K8q)", "flash_fwd.cu", "ops/paged.py:580"),
+        "K8q": ("fwd_kernel, wgmma + TMA, paged, 1-byte payload (K8q)", "flash_fwd_sm90.cu", "ops/paged.py:580"),
         "K10q": ("paged_write_quant (K9q/K10q)", "paged_write.cu", "ops/paged.py:257"),
     }
     return {key: {"name": names[key][0], "route": "cuda", "source": source + names[key][1],
@@ -1705,6 +1890,7 @@ def phase_quant_sweep() -> None:
         f"dequantized cache, LSE within {LSE_BAR}, writes bit-equal (payload and scales); worst row-relative "
         f"difference at {worst:.3f} of its bar {REL_BAR}"
     )
+    log(_prefill_edge_sweep("quant"))
 
 
 def phase_tiny_quant() -> None:
@@ -2668,6 +2854,9 @@ def masked_k1_cases(card: str) -> dict:
                            lib_mask=(col <= row) & (col > row - window), want=want)
         if want == "K2":
             report["K2"] = entry
+            bodies = read_bodies()
+            check_tensor_cores("[masked] K2 bf16", bodies, "K1/K1d/K2")
+            log(f"[masked] K2 bf16: launches by body {bodies} (the tensor-core body, csrc/flash_fwd_sm90.cu)")
     return report
 
 
@@ -2768,6 +2957,10 @@ def masked_paged_cases(card: str) -> dict:
     o_out, _ = _oracle_mask(qc, k_log[slot:slot + 1, :, :kv_end], v_log[slot:slot + 1, :, :kv_end], mask,
                             sm_scale=128**-0.5)
     d_plain, d_rel, _ = _hold("K8 paged ring, window 4096, 4 sinks", out, p_out, o_out)
+    _same_twice(f"[masked] K8 paged ring, window {WINDOW}, {SINKS} sinks",
+                lambda: paged_prefill_attention(qc, cache, slot, kv_end, chunk_len=256, **kw))
+    bodies = read_bodies()
+    check_tensor_cores("[masked] K8 bf16", bodies, "K8/K8q")
     ms = cuda_ms(lambda: paged_prefill_attention(qc, cache, slot, kv_end, chunk_len=256, **kw))
     plain_ms = cuda_ms(lambda: paged_prefill_attention_plain(qc, cache, slot, kv_end, sm_scale=128**-0.5, **kw),
                        warmup=2, iters=5)
@@ -2777,7 +2970,8 @@ def masked_paged_cases(card: str) -> dict:
     bound_ms, bound_by = bound(4 * 128 * 32 * pairs, nbytes)
     log(
         f"[masked] K8 q [1,32,256,128] over slot {slot}'s paged ring to kv_end {kv_end}, window 4096, {SINKS} sinks: "
-        f"|out-plain| {d_plain:.3e}, row-relative {d_rel:.3e}; kernel {ms:.4f} ms "
+        f"|out-plain| {d_plain:.3e}, row-relative {d_rel:.3e}, bit-identical over two calls, launches by body "
+        f"{bodies}; kernel {ms:.4f} ms "
         f"({4 * 128 * 32 * pairs / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library none, bound "
         f"{bound_ms:.4f} ms by {bound_by} ({card})"
     )
@@ -2872,6 +3066,7 @@ def phase_masked_sweep() -> None:
         f"within {ORACLE_BAR} of the masked oracle, LSE within {LSE_BAR}; worst row-relative difference at {worst:.3f} "
         f"of its bar {REL_BAR}"
     )
+    log(_prefill_edge_sweep("masked"))
 
 
 TINY_MASKED = {  # phase 16: (label, engine, ModelConfig fields, the kernels the card run launches)
@@ -3094,13 +3289,14 @@ def _serve_masked(card: str, label: str, eng, prompts, *, used, new_tokens: int 
     done = eng.run([Request(id=i, prompt=p, max_new_tokens=new_tokens) for i, p in enumerate(prompts)])
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = read_counts()
+    launches, bodies = read_counts(), read_bodies()
     peak = torch.cuda.max_memory_allocated()
     tokens = {rid: c.tokens for rid, c in done.items()}
     bad = [rid for rid, t in tokens.items() if len(t) != new_tokens]
     if bad or not all(bool(torch.isfinite(x).all()) for x in last.values()) or len(last) != len(prompts):
         raise RuntimeError(f"[{label}] requests {bad} without {new_tokens} tokens, or non-finite prefill logits")
     check_launches(f"[{label}] the main path", launches, used)
+    check_tensor_cores(f"[{label}] the main path", bodies)
     n_prompt = sum(len(p) for p in prompts)
     numbers = {"prefill_tok_s": n_prompt / sum(chunk_s), "decode_tok_s": eng.decode_tokens / eng.decode_time_s,
                "peak_gib": peak / 2**30}
@@ -3108,7 +3304,8 @@ def _serve_masked(card: str, label: str, eng, prompts, *, used, new_tokens: int 
         f"[{label}] {len(prompts)} requests, {n_prompt} prompt tokens: prefill {numbers['prefill_tok_s']:.1f} tok/s "
         f"({len(chunk_s)} chunks in {sum(chunk_s):.3f} s, each synchronised), decode {eng.decode_tokens} tokens in "
         f"{eng.decode_time_s:.3f} s of decode section = {numbers['decode_tok_s']:.1f} tok/s, whole run {run_s:.3f} s; "
-        f"peak device memory (max_memory_allocated) {numbers['peak_gib']:.2f} GiB; kernel launches {launches} ({card})"
+        f"peak device memory (max_memory_allocated) {numbers['peak_gib']:.2f} GiB; kernel launches {launches}, "
+        f"forward launches by body {bodies} ({card})"
     )
     return {"tokens": tokens, "last": last, "launches": launches, **numbers}
 
@@ -3628,12 +3825,12 @@ def main() -> None:
         train_masked[key]["launches"] = sum(run[key] for run in runs.values())
     source = "flash_attention_tpu_torch/csrc/"
     names = {
-        "K2": ("flash_fwd_band (K2)", "flash_fwd.cu", "ops/flash_attention.py:795"),
+        "K2": ("fwd_kernel, wgmma + TMA, window <= 64 (K2)", "flash_fwd_sm90.cu", "ops/flash_attention.py:795"),
         "K1w": ("fwd_kernel, wgmma + TMA, window 4096 (K1)", "flash_fwd_sm90.cu", "ops/flash_attention.py:57"),
         "K1c": ("fwd_kernel, wgmma + TMA, softcap 50 (K1)", "flash_fwd_sm90.cu", "ops/flash_attention.py:57"),
         "K6r": ("decode, ring of 4352 rows (K6)", "decode.cu", "ops/decode.py:56"),
         "K7s": ("paged_decode, window + sinks (K7)", "decode.cu", "ops/paged.py:980"),
-        "K8s": ("paged_prefill, window + sinks (K8)", "flash_fwd.cu", "ops/paged.py:580"),
+        "K8s": ("fwd_kernel, wgmma + TMA, paged ring + sinks (K8)", "flash_fwd_sm90.cu", "ops/paged.py:580"),
         "K1d": ("fwd_kernel, wgmma + TMA, segment ids (K1d)", "flash_fwd_sm90.cu", "ops/flash_attention.py:61"),
         "K3m": ("dkv_kernel<FUSED>, wgmma + TMA, masked (K3)", "flash_bwd_sm90.cu", "ops/attention_bwd.py:594"),
         "K4m": ("dq_kernel, wgmma + TMA, masked (K4)", "flash_bwd_sm90.cu", "ops/attention_bwd.py:65"),

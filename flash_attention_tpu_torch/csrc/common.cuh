@@ -3,7 +3,8 @@
 // softmax with sm_scale * log2(e) folded into one constant, a finite mask
 // value, the running row max floored at M_FLOOR), the element-type
 // conversions the kernels are templated over, and the widening of the
-// quantized KV payloads (int8, fp8 e4m3 and e5m2; ops/quant.py).
+// quantized KV payloads (int8, fp8 e4m3 and e5m2; ops/quant.py), to fp32
+// and, exactly, to the packed 16-bit pairs of the tensor-core products.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,6 +48,77 @@ __device__ __forceinline__ __half from_float<__half>(float x) { return __float2h
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+
+// ---- packing and widening for the tensor-core products ----
+
+// The pieces K6 / K7 (csrc/decode.cu) and K8q (csrc/flash_fwd_sm90.cu)
+// share: fp32 pairs packed as one 32-bit register of M (bf16 or fp16),
+// and cache elements widened into such pairs.
+template <typename M>
+__device__ __forceinline__ uint32_t pack(float a, float b) {
+  if constexpr (std::is_same_v<M, __half>) {
+    const __half2 h = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+}
+
+template <typename M>
+__device__ __forceinline__ float2 unpack(uint32_t x) {
+  if constexpr (std::is_same_v<M, __half>) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&x));
+  } else {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  }
+}
+
+// (a, b) as a packed M pair, and with SPLIT the rounding's remainder as a
+// second pair (a + b's fp32 values to about 16 bits over the two).
+template <typename M, bool SPLIT>
+__device__ __forceinline__ void pack_split(float a, float b, uint32_t& hi, uint32_t& lo) {
+  hi = pack<M>(a, b);
+  if constexpr (SPLIT) {
+    const float2 h = unpack<M>(hi);
+    lo = pack<M>(a - h.x, b - h.y);
+  }
+}
+
+template <typename P>
+__device__ __forceinline__ uint16_t raw16(const P& x) {
+  return *reinterpret_cast<const uint16_t*>(&x);
+}
+
+// Two cache elements x0, x1 (K: neighbours in a row; V: one column of two
+// rows) as an M pair, plus the low pair of an fp32 cache.
+template <typename P, typename M>
+__device__ __forceinline__ void cache_pair(const P& x0, const P& x1, uint32_t& hi, uint32_t& lo) {
+  if constexpr (std::is_same_v<P, M>) {
+    hi = raw16(x0) | (static_cast<uint32_t>(raw16(x1)) << 16);
+  } else if constexpr (std::is_same_v<P, float>) {
+    pack_split<M, true>(x0, x1, hi, lo);
+  } else if constexpr (std::is_same_v<P, int8_t>) {
+    hi = pack<M>(static_cast<float>(x0), static_cast<float>(x1));
+  } else {  // fp8: both codes widened at once
+    constexpr __nv_fp8_interpretation_t kind = std::is_same_v<P, __nv_fp8_e4m3> ? __NV_E4M3 : __NV_E5M2;
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(x0.__x | (static_cast<uint16_t>(x1.__x) << 8)), kind);
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+    hi = pack<M>(f.x, f.y);
+  }
+}
+
+// Eight payload codes (one 8-byte load) widened into four packed M pairs:
+// 16 bytes of a widened row.
+template <typename P, typename M>
+__device__ __forceinline__ uint4 widen8(uint2 raw) {
+  const P* x = reinterpret_cast<const P*>(&raw);
+  uint32_t w[4], lo;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) cache_pair<P, M>(x[2 * j], x[2 * j + 1], w[j], lo);
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // Packed sequences: whether q tile iq and kv tile ikv of batch row b can hold

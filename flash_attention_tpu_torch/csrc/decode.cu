@@ -96,6 +96,8 @@
 
 namespace {
 
+using fat::cache_pair;
+using fat::pack_split;
 using fat::sm90::fence_proxy_async;
 using fat::sm90::mbar_expect;
 using fat::sm90::mbar_init;
@@ -234,61 +236,6 @@ __device__ __forceinline__ Walk make_walk(const DecodeParams& p, int length, int
 // payload codes widen into it exactly, and its range holds p times a scale).
 template <typename T, typename P>
 using Mma = std::conditional_t<std::is_same_v<T, __half> && std::is_same_v<P, __half>, __half, __nv_bfloat16>;
-
-template <typename M>
-__device__ __forceinline__ uint32_t pack(float a, float b) {
-  if constexpr (std::is_same_v<M, __half>) {
-    const __half2 h = __floats2half2_rn(a, b);
-    return *reinterpret_cast<const uint32_t*>(&h);
-  } else {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    return *reinterpret_cast<const uint32_t*>(&h);
-  }
-}
-
-template <typename M>
-__device__ __forceinline__ float2 unpack(uint32_t x) {
-  if constexpr (std::is_same_v<M, __half>) {
-    return __half22float2(*reinterpret_cast<const __half2*>(&x));
-  } else {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
-  }
-}
-
-// (a, b) as a packed M pair, and with SPLIT the rounding's remainder as a
-// second pair (a + b's fp32 values to about 16 bits over the two).
-template <typename M, bool SPLIT>
-__device__ __forceinline__ void pack_split(float a, float b, uint32_t& hi, uint32_t& lo) {
-  hi = pack<M>(a, b);
-  if constexpr (SPLIT) {
-    const float2 h = unpack<M>(hi);
-    lo = pack<M>(a - h.x, b - h.y);
-  }
-}
-
-template <typename P>
-__device__ __forceinline__ uint16_t raw16(const P& x) {
-  return *reinterpret_cast<const uint16_t*>(&x);
-}
-
-// Two cache elements x0, x1 (K: neighbours in a row; V: one column of two
-// rows) as an M pair, plus the low pair of an fp32 cache.
-template <typename P, typename M>
-__device__ __forceinline__ void cache_pair(const P& x0, const P& x1, uint32_t& hi, uint32_t& lo) {
-  if constexpr (std::is_same_v<P, M>) {
-    hi = raw16(x0) | (static_cast<uint32_t>(raw16(x1)) << 16);
-  } else if constexpr (std::is_same_v<P, float>) {
-    pack_split<M, true>(x0, x1, hi, lo);
-  } else if constexpr (std::is_same_v<P, int8_t>) {
-    hi = pack<M>(static_cast<float>(x0), static_cast<float>(x1));
-  } else {  // fp8: both codes widened at once
-    constexpr __nv_fp8_interpretation_t kind = std::is_same_v<P, __nv_fp8_e4m3> ? __NV_E4M3 : __NV_E5M2;
-    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-        static_cast<__nv_fp8x2_storage_t>(x0.__x | (static_cast<uint16_t>(x1.__x) << 8)), kind);
-    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
-    hi = pack<M>(f.x, f.y);
-  }
-}
 
 // Two neighbours of a cache row, x[0] and x[1] (an even column), as cache_pair.
 template <typename P, typename M>

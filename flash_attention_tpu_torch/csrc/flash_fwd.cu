@@ -1,8 +1,10 @@
-// K1, K1d, K2 and K8: fused attention forward (causal or not, MHA or GQA)
-// over dense K/V or, in place, over a slot's KV pages (bf16 / fp16 / fp32, or
-// K8 over quantized pages: int8, fp8 e4m3, fp8 e5m2 with one fp32 scale per
-// row and head), with an optional sliding window, logit softcap and (dense
-// only) packed-sequence segment ids, for Hopper.
+// K1, K1d, K2 and K8 for fp32 queries: fused attention forward (causal or
+// not, MHA or GQA) over dense K/V or, in place, over a slot's KV pages (fp32,
+// or K8 over quantized pages: int8, fp8 e4m3, fp8 e5m2 with one fp32 scale
+// per row and head), with an optional sliding window, logit softcap and
+// (dense only) packed-sequence segment ids, for Hopper. bf16 and fp16
+// queries run csrc/flash_fwd_sm90.cu's tensor-core body, to which both C
+// entries below dispatch by dtype.
 //
 // Replaces the JAX package's ops/flash_attention.py:_fwd_kernel (K1, the
 // Pallas forward, with its window and softcap branches, :318-331, :408-490,
@@ -55,17 +57,17 @@
 // score tile and p instead; the same up to fp32 rounding), so only the
 // payload and the scales are read and no dequantized copy exists.
 //
-// K1 and K1d in bf16 and fp16 run csrc/flash_fwd_sm90.cu's tensor-core body
-// (wgmma on TMA-fed tiles), to which fat_flash_fwd dispatches; this body
-// serves them in fp32, and K2 and K8 in every dtype.
+// Every kernel in bf16 and fp16 runs csrc/flash_fwd_sm90.cu's tensor-core
+// body (wgmma on TMA-fed tiles): fat_flash_fwd and fat_paged_prefill
+// dispatch there by dtype, and this body is instantiated for fp32 queries
+// only.
 //
 // What bounds it on this card: at long kv the score and PV products are
 // O(q_len * kv_len * D) (O(q_len * window * D) with a window) against
-// O((q_len + kv_len) * D) bytes, so arithmetic bounds it. This body does
-// that arithmetic as fp32 FMAs over shared-memory tiles, not on the tensor
-// cores, so it runs far below the card's bf16 rate (K8's and K2's redesign
-// is later work). K2's band at window 64 does ~128 columns a row against a
-// bound set by its bytes, and is launch- and latency-bound.
+// O((q_len + kv_len) * D) bytes, so arithmetic bounds it. The products run
+// as fp32 FMAs over shared-memory tiles, off the tensor cores, at most the
+// card's 67 TFLOP/s fp32 rate: in fp32 no tensor-core type keeps the
+// inputs' bits.
 //
 // Design:
 //  * one block per (batch * q_head, 64-row q tile); 128 threads, each owning
@@ -374,6 +376,16 @@ struct FwdLaunch {
 
   template <typename T, typename P, int D>
   cudaError_t launch() const {
+    if constexpr (!std::is_same_v<T, float>) {
+      return cudaErrorInvalidValue;  // bf16 / fp16 queries take flash_fwd_sm90.cu
+    } else {
+      return launch_fp32<P, D>();
+    }
+  }
+
+  template <typename P, int D>
+  cudaError_t launch_fp32() const {
+    using T = float;
     if (fat::is_payload<P> && (p.ks == nullptr || p.vs == nullptr)) return cudaErrorInvalidValue;
     if (p.window < 0 || (p.window > 0 && !p.causal) || p.sinks < 0) return cudaErrorInvalidValue;
     if (p.seg_q != nullptr && (PAGED || band || p.seg_kv == nullptr || p.q_rng == nullptr || p.kv_rng == nullptr))
@@ -386,12 +398,8 @@ struct FwdLaunch {
     } else {
       if (band) return cudaErrorInvalidValue;
     }
-    if constexpr (!PAGED && !std::is_same_v<T, float>) {
-      return cudaErrorInvalidValue;  // dense K1 / K1d take this body in fp32 only (else flash_fwd_sm90.cu)
-    } else {
-      if (p.window > 0 || p.sinks > 0 || p.softcap2 > 0.f || p.seg_q != nullptr) return run<T, P, D, true, false>();
-      return run<T, P, D, false, false>();
-    }
+    if (p.window > 0 || p.sinks > 0 || p.softcap2 > 0.f || p.seg_q != nullptr) return run<T, P, D, true, false>();
+    return run<T, P, D, false, false>();
   }
 };
 
@@ -433,9 +441,9 @@ FwdParams make_params(const void* q, const void* k, const void* v, void* o, floa
 // ceil(Sq / 64), 2] and kv_rng [B, ceil(Skv / 64), 2] (K1d), or all null.
 // window: 0, or the causal sliding window; softcap2: 0, or cap * log2(e);
 // band: 1 for K2 (requires 1 <= window <= 64 and no segment ids). bf16 and
-// fp16 without band run csrc/flash_fwd_sm90.cu, which needs operands TMA can
-// read (16-byte-aligned base and strides) and q_tile, its q rows a block (64
-// or 128); this body ignores q_tile. Returns a cudaError_t.
+// fp16 run csrc/flash_fwd_sm90.cu, which needs operands TMA can read
+// (16-byte-aligned base and strides) and q_tile, its q rows a block (64 or
+// 128); this body ignores q_tile. Returns a cudaError_t.
 extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                              const int32_t* seg_q, const int32_t* seg_kv, const int32_t* q_rng,
                              const int32_t* kv_rng, int64_t batch, int64_t num_q_heads, int64_t num_kv_heads,
@@ -444,11 +452,34 @@ extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* 
                              int64_t v_sb, int64_t v_sh, int64_t v_sr, float scale2,
                              int32_t causal, int32_t window, float softcap2, int32_t band,
                              int32_t dtype, void* stream, int32_t q_tile) {
-  if (dtype != fat::kFloat32 && band == 0) {
+  if (dtype != fat::kFloat32) {
     const int64_t st[9] = {q_sb, q_sh, q_sr, k_sb, k_sh, k_sr, v_sb, v_sh, v_sr};
-    return static_cast<int>(fat::sm90_fwd(fat::Sm90FwdCall{
-        q, k, v, o, lse, batch, num_q_heads, num_kv_heads, q_len, kv_len, head_dim, st, scale2, causal, window,
-        softcap2, seg_q, seg_kv, q_rng, kv_rng, q_tile, dtype, static_cast<cudaStream_t>(stream)}));
+    fat::Sm90FwdCall c{};
+    c.q = q;
+    c.k = k;
+    c.v = v;
+    c.o = o;
+    c.lse = lse;
+    c.batch = batch;
+    c.num_q_heads = num_q_heads;
+    c.num_kv_heads = num_kv_heads;
+    c.q_len = q_len;
+    c.kv_len = kv_len;
+    c.head_dim = head_dim;
+    c.st = st;
+    c.scale2 = scale2;
+    c.causal = causal;
+    c.window = window;
+    c.softcap2 = softcap2;
+    c.seg_q = seg_q;
+    c.seg_kv = seg_kv;
+    c.q_rng = q_rng;
+    c.kv_rng = kv_rng;
+    c.q_tile = q_tile;
+    c.dtype = dtype;
+    c.payload = dtype;
+    c.stream = static_cast<cudaStream_t>(stream);
+    return static_cast<int>(fat::sm90_fwd(c));
   }
   FwdParams p = make_params(q, k, v, o, lse, num_q_heads, num_kv_heads, q_len, kv_len, q_sb, q_sh,
                             q_sr, k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, scale2, causal);
@@ -470,7 +501,11 @@ extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* 
 // row; causal over kv_end rows, the chunk's rows at [kv_end - T, kv_end),
 // with window (0: none), sinks (columns [0, sinks) visible beside the
 // window) and softcap2 (0, or cap * log2(e)); o [1, Hq, T, D] contiguous.
-// page_size must be a multiple of 64. Returns a cudaError_t.
+// page_size must be a multiple of 64. bf16 and fp16 queries run
+// csrc/flash_fwd_sm90.cu (q, the pages and, for a quantized cache, the
+// scales as TMA and bulk copies read them: 16-byte-aligned bases and
+// strides, unit row strides for the scales), with q_tile q rows a block (64
+// or 128); this body ignores q_tile. Returns a cudaError_t.
 extern "C" int fat_paged_prefill(const void* q, const void* k, const void* v, const float* ks,
                                  const float* vs, void* o, const int32_t* table,
                                  int64_t num_q_heads, int64_t num_kv_heads, int64_t num_pages,
@@ -479,7 +514,42 @@ extern "C" int fat_paged_prefill(const void* q, const void* k, const void* v, co
                                  int64_t k_sh, int64_t k_sr, int64_t v_sp, int64_t v_sh,
                                  int64_t v_sr, const int64_t* scale_strides, float scale2,
                                  int32_t window, int32_t sinks, float softcap2, int32_t dtype,
-                                 int32_t payload, void* stream) {
+                                 int32_t payload, void* stream, int32_t q_tile) {
+  if (dtype != fat::kFloat32) {
+    const int64_t st[9] = {0, q_sh, q_sr, k_sp, k_sh, k_sr, v_sp, v_sh, v_sr};
+    const bool quant = payload != dtype;
+    if (quant && (scale_strides[2] != 1 || scale_strides[5] != 1))  // K8q reads 64 scales in one bulk copy
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t sst[4] = {scale_strides[0], scale_strides[1], scale_strides[3], scale_strides[4]};
+    fat::Sm90FwdCall c{};
+    c.q = q;
+    c.k = k;
+    c.v = v;
+    c.o = o;
+    c.batch = 1;
+    c.num_q_heads = num_q_heads;
+    c.num_kv_heads = num_kv_heads;
+    c.q_len = q_len;
+    c.kv_len = kv_end;
+    c.head_dim = head_dim;
+    c.st = st;
+    c.scale2 = scale2;
+    c.causal = 1;
+    c.window = window;
+    c.softcap2 = softcap2;
+    c.q_tile = q_tile;
+    c.dtype = dtype;
+    c.stream = static_cast<cudaStream_t>(stream);
+    c.table = table;
+    c.page_size = page_size;
+    c.num_pages = num_pages;
+    c.sinks = sinks;
+    c.payload = payload;
+    c.ks = ks;
+    c.vs = vs;
+    c.sst = quant ? sst : nullptr;
+    return static_cast<int>(fat::sm90_fwd(c));
+  }
   FwdParams p = make_params(q, k, v, o, nullptr, num_q_heads, num_kv_heads, q_len, kv_end, 0, q_sh,
                             q_sr, k_sp, k_sh, k_sr, v_sp, v_sh, v_sr, scale2, 1);
   p.ks = ks;

@@ -1,25 +1,34 @@
-// K1 and K1d for bf16 and fp16: the attention forward, causal or not, MHA or
-// GQA, with its window, softcap and segment-id masks, on Hopper's tensor
-// cores (wgmma) with tiles fed by TMA. fp32, and K2 (the band walk of a
-// window of at most 64), keep the FMA body of csrc/flash_fwd.cu, whose C
-// entry fat_flash_fwd dispatches here by dtype and band; K8 (paged) keeps it
-// too.
+// K1, K1d, K2, K8 and K8q for bf16 and fp16 queries: the attention forward,
+// causal or not, MHA or GQA, with its window, softcap and segment-id masks,
+// over dense K / V or, in place, over a slot's KV pages (bf16 / fp16, or
+// int8 / fp8 e4m3 / fp8 e5m2 with one fp32 scale per row), on Hopper's
+// tensor cores (wgmma) with tiles fed by TMA. fp32 keeps the FMA body of
+// csrc/flash_fwd.cu, whose C entries fat_flash_fwd and fat_paged_prefill
+// dispatch here by dtype.
 //
 // Replaces the JAX package's ops/flash_attention.py:_fwd_kernel (:57, K1)
 // with its window and softcap branches and its segment branch (K1d, :61-62,
-// the packed tile skip of :1313-1330 and :1428-1431). The function is
-// csrc/flash_fwd.cu's: an online exp2 softmax with scale2 = sm_scale *
+// the packed tile skip of :1313-1330 and :1428-1431), _band_kernel (:795,
+// K2, a causal window of at most 64) and ops/paged.py:_paged_prefill_kernel
+// (:580, K8, chunk attention reading the slot's pages in place, with its
+// dequant branch K8q, :642-690, its window, softcap and sinks). The function
+// is csrc/flash_fwd.cu's: an online exp2 softmax with scale2 = sm_scale *
 // log2(e) folded into one constant, a finite MASK_VALUE, the row max floored
 // at M_FLOOR, output 0 and LSE -inf for a row that sees no key, end-aligned
-// causal, the exact tanhf softcap, and the base-2 LSE m + log2(l). One
-// change of numerics, as the JAX package (:440, :520) and FlashAttention-2/3
-// make it: P enters the P V product rounded to the input type; the scores,
-// the softmax, l and the output accumulator stay fp32.
+// causal (K8: the chunk's rows at [kv_end - q_len, kv_end)), the exact
+// tanhf softcap, StreamingLLM sinks (columns [0, sinks) visible beside the
+// window), and the base-2 LSE m + log2(l). P enters the P V product rounded
+// to the input type, as in the JAX package (:440, :520) and
+// FlashAttention-2/3; the scores, the softmax, l and the output accumulator
+// stay fp32. K8q scales each score by its column's K scale, and p by its
+// column's V scale before p is rounded, as the JAX kernel and K6q do.
 //
 // What bounds it: every visible (q, kv) pair costs two products of 2 * D
 // FLOPs against O((q_len + kv_len) * D) bytes, so at the serving chunk (256
-// rows over kv 2048) and at every training length operations bound it, at the
-// card's 989 TFLOP/s dense bf16 / fp16 rate, which only wgmma reaches.
+// rows over kv 2048, dense or paged) and at every training length
+// operations bound it, at the card's 989 TFLOP/s dense bf16 / fp16 rate,
+// which only wgmma reaches. K2 at window 64 does ~128 columns a row, so its
+// bytes bound it.
 //
 // Design (FlashAttention-3's forward without warp specialisation):
 //  * A block owns (batch x q head, q tile) and keeps its Q tile in shared
@@ -44,12 +53,32 @@
 //    view of a KV cache is read in place. TMA zero-fills rows past kv_len,
 //    whose scores are 0 rather than masked: a ragged last tile takes the
 //    masked element pass.
-//  * The walk starts at the window's first tile and stops at the causal
-//    diagonal of the block's last row; with segment ids it skips a kv tile
-//    whose 64-row id range meets neither half of the q tile. The mask and
+//  * Pages (K8): a layer's pool [num_pages, Hkv, page_size, D] is a map of
+//    (B, H, S) = (page, head, row), and the tile at logical row n0 is loaded
+//    from (n0 % page_size, hk, table[n0 / page_size]), the page id clamped
+//    into [0, num_pages). A 64-row tile never straddles a page (page_size is
+//    a multiple of 64). The walked part of the slot's table row is read
+//    into shared memory at block start, so no TMA issue waits on a
+//    dependent global load. Rows past kv_end inside the last page are live
+//    memory, not zero-fill: the causal mask covers their scores, and V's are
+//    zeroed in the stage, so that p = 0 meets no stale value.
+//  * K8q: the 1-byte payload tiles and their row scales land in a staging
+//    ring (TMA boxes of whole rows, unswizzled, and two bulk copies of 256
+//    bytes); the block widens each tile, exactly (every int8 and fp8 code
+//    is a bf16 and an fp16), into the swizzled 16-bit tiles the descriptors
+//    read. S = Q K^T runs in the query's type; P V runs in bf16 whatever the
+//    query type, since p times a row's scale can underflow fp16.
+//  * The walk: the tiles holding [0, sinks) (K8's sinks, below the band),
+//    then from the window's first tile to the causal diagonal of the
+//    block's last row (K2's window of at most 64 takes two or three tiles a
+//    64-row q tile; a walk from the first visible column, unaligned, took
+//    no less time, PERF.md); with segment ids it skips a kv tile whose
+//    64-row id range meets neither half of the q tile. Tiles below the
+//    band are never loaded, so over the paged ring a rolled-out logical
+//    page, which aliases a newer physical page, is never read. The mask and
 //    softcap choice is made once a tile (by_tile): only tiles crossing the
-//    diagonal, the window's edge, a ragged end or two ids run the element
-//    predicate.
+//    diagonal, the window's edge, a ragged end, a sink tile or two ids run
+//    the element predicate.
 #include <cuda.h>
 
 #include "common.cuh"
@@ -75,21 +104,83 @@ struct Params {
   const int32_t* seg_kv;
   const int32_t* q_rng;
   const int32_t* kv_rng;
+  const int32_t* table;  // K8: the slot's page-table row
+  int page_size, num_pages, sinks;
+  const float* ks;  // K8q: the pools' row scales
+  const float* vs;
+  int64_t ks_sp, ks_sh, vs_sp, vs_sh;
 };
 
-template <int D, int WGS>
-constexpr size_t smem_bytes() {
-  return 1024 + WGS * 64 * D * 2 + 4 * BN * D * 2 + 64;
+// Shared memory of an instantiation: the Q tile; the K / V ring (two stages
+// of 16-bit K then V, or for a 1-byte payload P the widened K and V tiles,
+// then two stages of payload K then V); K8q's row scales (a stage: K's
+// then V's); the mbarriers; K8's table row.
+template <typename P, int D, int WGS>
+struct Plan {
+  static constexpr bool QUANT = fat::is_payload<P>;
+  static constexpr int Q_TILE = 64 * WGS * D * 2;
+  static constexpr int KV_TILE = BN * D * 2;  // a 16-bit K or V tile
+  static constexpr int PAY = BN * D;          // a payload tile
+  static constexpr int KV = QUANT ? 2 * KV_TILE + 4 * PAY : 4 * KV_TILE;
+  static constexpr int SCALES = QUANT ? 2 * 2 * BN * 4 : 0;
+  static constexpr uint32_t STAGE_TX = QUANT ? 2 * PAY + 2 * BN * 4 : 2 * KV_TILE;  // bytes a stage receives
+  static constexpr int BARS = 64;
+  static constexpr size_t bytes(int64_t table) { return 1024 + Q_TILE + KV + SCALES + BARS + 4 * table; }
+};
+
+// K8q: a stage's payload tiles widened, exactly, into the swizzled 16-bit
+// tiles the descriptors read (K as TK, V as TV); rows at or past `live`
+// (past kv_end) and their scales become 0.
+template <typename P, typename TK, typename TV, int D, int NT>
+__device__ __forceinline__ void widen_tile(const uint8_t* stage, uint8_t* wide_k, uint8_t* wide_v, float* scales,
+                                           int live, int tid) {
+  using L = Layout<D>;
+  constexpr int UNITS = BN * D / 8;  // 8-column units a tile
+#pragma unroll
+  for (int u = tid; u < 2 * UNITS; u += NT) {
+    const bool is_v = u >= UNITS;
+    const int x = is_v ? u - UNITS : u, r = x / (D / 8), c = x % (D / 8) * 8;
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (r < live) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(stage + (is_v ? BN * D : 0) + r * D + c);
+      w = is_v ? fat::widen8<P, TV>(raw) : fat::widen8<P, TK>(raw);
+    }
+    // The unit's place as TMA would swizzle it (bits 4-6, or 4-5, XORed with the 128-byte line).
+    const int lin = r * L::ROW + (c % L::CW) * 2;
+    *reinterpret_cast<uint4*>((is_v ? wide_v : wide_k) + (c / L::CW) * BN * L::ROW +
+                              (lin ^ (((lin >> 7) & (L::ROW / 16 - 1)) << 4))) = w;
+  }
+  if (tid < 2 * BN && tid % BN >= live) scales[tid] = 0.f;
 }
 
-// One (batch x q head, q tile of 64 WGS rows): O and, with lse, the base-2 LSE.
-template <typename T, int D, bool MASKED, int WGS>
+// Rows [from, BN) of a 16-bit tile set to 0 (whole rows, which the swizzle
+// keeps in place).
+template <int D, int NT>
+__device__ __forceinline__ void zero_rows(uint8_t* tile, int from, int tid) {
+  using L = Layout<D>;
+  constexpr int UNITS = L::CHUNKS * L::ROW / 16;  // 16-byte units a row
+  for (int i = tid; i < (BN - from) * UNITS; i += NT) {
+    const int r = from + i / UNITS, j = i % UNITS;
+    *reinterpret_cast<uint4*>(tile + (j / (L::ROW / 16)) * BN * L::ROW + r * L::ROW + (j % (L::ROW / 16)) * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// One (batch x q head, q tile of 64 WGS rows): O and, with lse, the base-2
+// LSE. P: the K / V element type (T, or K8q's payload); PAGED: K / V are
+// page pools read through the table.
+template <typename T, typename P, int D, bool MASKED, int WGS, bool PAGED>
 __global__ void __launch_bounds__(128 * WGS, 1) fwd_kernel(const __grid_constant__ Params p) {
-  constexpr int BM = 64 * WGS, Q_TILE = BM * D * 2, KV_TILE = BN * D * 2;
+  using Pl = Plan<P, D, WGS>;
+  constexpr bool QUANT = Pl::QUANT;
+  using TV = std::conditional_t<QUANT, bf16, T>;  // P V's operand type
+  constexpr int BM = 64 * WGS, NT = 128 * WGS, KV_TILE = Pl::KV_TILE;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* s_q = align_1024(smem_raw);
-  uint8_t* s_kv = s_q + Q_TILE;  // stage s: K at s_kv + 2 s KV_TILE, V after it
-  uint64_t* bar = reinterpret_cast<uint64_t*>(s_kv + 4 * KV_TILE);  // [0]: Q; [1 + s]: stage s
+  uint8_t* s_kv = s_q + Pl::Q_TILE;
+  float* s_scale = reinterpret_cast<float*>(s_kv + Pl::KV);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s_kv + Pl::KV + Pl::SCALES);  // [0]: Q; [1 + s]: stage s
+  int32_t* s_table = reinterpret_cast<int32_t*>(bar + 8);
 
   const int tid = threadIdx.x, wg = tid / 128, w4 = (tid / 32) % 4, g = (tid % 32) / 4, t = tid % 4;
   const int bh = blockIdx.x, b = bh / p.num_q_heads, h = bh % p.num_q_heads, hk = h / p.group;
@@ -100,6 +191,8 @@ __global__ void __launch_bounds__(128 * WGS, 1) fwd_kernel(const __grid_constant
   const int n_end = p.causal ? min(p.kv_len, last_row + diag + 1) : p.kv_len;
   // Window: start at the tile of the first column the tile's first row sees.
   const int n_begin = MASKED && p.window > 0 ? max(0, m0 + diag - p.window + 1) / BN * BN : 0;
+  // K8's sinks: the tiles holding [0, sinks), below the band, come first.
+  const int sink_end = MASKED ? min((p.sinks + BN - 1) / BN * BN, n_begin) : 0;
   const bool segs = MASKED && p.seg_q != nullptr;
   auto next_live = [&](int n0) {
     if (segs) {
@@ -108,25 +201,47 @@ __global__ void __launch_bounds__(128 * WGS, 1) fwd_kernel(const __grid_constant
     }
     return n0;
   };
+  // The tile after n0 on the walk.
+  auto advance = [&](int n0) {
+    n0 += BN;
+    return next_live(n0 == sink_end ? n_begin : n0);
+  };
   auto load_kv = [&](int s, int n0) {
-    uint8_t* stage = s_kv + 2 * s * KV_TILE;
-    mbar_expect(&bar[1 + s], 2 * KV_TILE);
-    load_tile<D, BN>(stage, &p.tm_k, n0, hk, b, &bar[1 + s]);
-    load_tile<D, BN>(stage + KV_TILE, &p.tm_v, n0, hk, b, &bar[1 + s]);
+    int x = b, y = n0;  // the map's (batch or page, row) of the tile
+    if constexpr (PAGED) x = s_table[n0 / p.page_size], y = n0 % p.page_size;
+    mbar_expect(&bar[1 + s], Pl::STAGE_TX);
+    if constexpr (QUANT) {
+      uint8_t* stage = s_kv + 2 * KV_TILE + 2 * s * Pl::PAY;
+      tma_load(stage, &p.tm_k, 0, y, hk, x, &bar[1 + s]);
+      tma_load(stage + Pl::PAY, &p.tm_v, 0, y, hk, x, &bar[1 + s]);
+      float* sc = s_scale + 2 * s * BN;
+      bulk_load(sc, p.ks + static_cast<int64_t>(x) * p.ks_sp + hk * p.ks_sh + y, BN * 4, &bar[1 + s]);
+      bulk_load(sc + BN, p.vs + static_cast<int64_t>(x) * p.vs_sp + hk * p.vs_sh + y, BN * 4, &bar[1 + s]);
+    } else {
+      uint8_t* stage = s_kv + 2 * s * KV_TILE;
+      load_tile<D, BN>(stage, &p.tm_k, y, hk, x, &bar[1 + s]);
+      load_tile<D, BN>(stage + KV_TILE, &p.tm_v, y, hk, x, &bar[1 + s]);
+    }
   };
 
   if (tid == 0) {
     for (int i = 0; i < 3; ++i) mbar_init(&bar[i], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if constexpr (PAGED) {
+    const int sink_pages = (sink_end + p.page_size - 1) / p.page_size, first_page = n_begin / p.page_size;
+    for (int i = tid; i < (n_end + p.page_size - 1) / p.page_size; i += NT)
+      if (i < sink_pages || i >= first_page) s_table[i] = min(max(p.table[i], 0), p.num_pages - 1);
+  }
   __syncthreads();
-  int n_load = next_live(n_begin);  // thread 0's cursor: the next tile to load
+  const int first = sink_end > 0 ? 0 : next_live(n_begin);
+  int n_load = first;  // thread 0's cursor: the next tile to load
   if (tid == 0) {
-    mbar_expect(&bar[0], Q_TILE);
+    mbar_expect(&bar[0], Pl::Q_TILE);
     load_tile<D, BM>(s_q, &p.tm_q, m0, h, b, &bar[0]);
     for (int s = 0; s < 2 && n_load < n_end; ++s) {
       load_kv(s, n_load);
-      n_load = next_live(n_load + BN);
+      n_load = advance(n_load);
     }
   }
 
@@ -146,10 +261,28 @@ __global__ void __launch_bounds__(128 * WGS, 1) fwd_kernel(const __grid_constant
   const uint32_t q_tile = smem_u32(s_q);
   mbar_wait(&bar[0], 0);
   int it = 0;
-  for (int n0 = next_live(n_begin); n0 < n_end; n0 = next_live(n0 + BN), ++it) {
+  for (int n0 = first; n0 < n_end; n0 = advance(n0), ++it) {
     const int s = it & 1;
-    const uint32_t k_tile = smem_u32(s_kv + 2 * s * KV_TILE), v_tile = k_tile + KV_TILE;
     mbar_wait(&bar[1 + s], (it >> 1) & 1);
+    const float* sc_k = s_scale + 2 * s * BN;  // K8q: the stage's K row scales, then V's
+    uint32_t k_tile;
+    if constexpr (QUANT) {
+      widen_tile<P, T, TV, D, NT>(s_kv + 2 * KV_TILE + 2 * s * Pl::PAY, s_kv, s_kv + KV_TILE, s_scale + 2 * s * BN,
+                                  min(BN, p.kv_len - n0), tid);
+      fence_proxy_async();  // the widened tiles, before wgmma reads them
+      __syncthreads();
+      k_tile = smem_u32(s_kv);
+    } else {
+      k_tile = smem_u32(s_kv + 2 * s * KV_TILE);
+      if constexpr (PAGED) {
+        if (n0 + BN > p.kv_len) {  // uniform across the block
+          zero_rows<D, NT>(s_kv + 2 * s * KV_TILE + KV_TILE, p.kv_len - n0, tid);
+          fence_proxy_async();
+          __syncthreads();
+        }
+      }
+    }
+    const uint32_t v_tile = k_tile + KV_TILE;
 
     float sc[BN / 2];
     wg_fence();
@@ -168,19 +301,21 @@ __global__ void __launch_bounds__(128 * WGS, 1) fwd_kernel(const __grid_constant
     }
     by_tile<MASKED>(p, need, [&](auto cap, auto mask) {
       constexpr bool CAP = decltype(cap)::value;
-      // The base-2 score of a pair is x * s2: x the raw product, or with CAP
-      // the capped score softcap2 * tanh(raw * scale2 / softcap2).
+      // The base-2 score of a pair is x * s2: x the raw product (K8q: times
+      // its column's K scale), or with CAP the capped score softcap2 *
+      // tanh(raw * scale2 / softcap2).
       const float s2 = CAP ? 1.f : p.scale2;
       float mx_a = fat::MASK_VALUE, mx_b = fat::MASK_VALUE;
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) {
         const bool lo = (i & 2) == 0;
         float x = sc[i];
+        if constexpr (QUANT) x *= sc_k[8 * (i / 4) + 2 * t + (i & 1)];
         if constexpr (CAP) x = p.softcap2 * tanhf(x * p.scale2 / p.softcap2);
         if constexpr (decltype(mask)::value) {
           const int col = n0 + 8 * (i / 4) + 2 * t + (i & 1);
           const int32_t col_id = segs && col < p.kv_len ? seg_kv[col] : 0;
-          if (!sees<MASKED>(p, lo ? ra : rb, col, lo ? id_a : id_b, col_id)) x = fat::MASK_VALUE;
+          if (!sees<MASKED>(p, lo ? ra : rb, col, lo ? id_a : id_b, col_id, p.sinks)) x = fat::MASK_VALUE;
         }
         sc[i] = x;
         if (lo) {
@@ -226,11 +361,15 @@ __global__ void __launch_bounds__(128 * WGS, 1) fwd_kernel(const __grid_constant
         acc[4 * j + 3] *= al_b;
       }
     });
+    if constexpr (QUANT) {  // p times its column's V scale (l sums p itself)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) sc[i] *= sc_k[BN + 8 * (i / 4) + 2 * t + (i & 1)];
+    }
     uint32_t pa[BN / 16][4];
-    to_a_frags<T, BN / 16>(pa, sc);
+    to_a_frags<TV, BN / 16>(pa, sc);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) mma_rs<T, D>(acc, pa[kk], desc_mn<D, BN>(v_tile, kk));
+    for (int kk = 0; kk < BN / 16; ++kk) mma_rs<TV, D>(acc, pa[kk], desc_mn<D, BN>(v_tile, kk));
     wg_commit();
     wg_wait_all();
     fence_regs(acc);
@@ -238,7 +377,7 @@ __global__ void __launch_bounds__(128 * WGS, 1) fwd_kernel(const __grid_constant
     __syncthreads();  // every warpgroup is done with stage s
     if (tid == 0 && n_load < n_end) {
       load_kv(s, n_load);
-      n_load = next_live(n_load + BN);
+      n_load = advance(n_load);
     }
   }
 
@@ -260,25 +399,41 @@ __global__ void __launch_bounds__(128 * WGS, 1) fwd_kernel(const __grid_constant
 
 // ---- host ----
 
-template <typename T, int D, bool MASKED, int WGS>
-cudaError_t run(const Params& p, const fat::Sm90FwdCall& c) {
-  constexpr size_t smem = smem_bytes<D, WGS>();
-  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<T, D, MASKED, WGS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+constexpr size_t MAX_SMEM = 232448;  // a block's shared memory on an H100
+
+template <typename T, typename P, int D, bool MASKED, int WGS, bool PAGED>
+cudaError_t run(const Params& p, const fat::Sm90FwdCall& c, int64_t table) {
+  const size_t smem = Plan<P, D, WGS>::bytes(table);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<T, P, D, MASKED, WGS, PAGED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(c.batch * c.num_q_heads), static_cast<unsigned>((c.q_len + 64 * WGS - 1) / (64 * WGS)));
-  fwd_kernel<T, D, MASKED, WGS><<<grid, 128 * WGS, smem, c.stream>>>(p);
+  fwd_kernel<T, P, D, MASKED, WGS, PAGED><<<grid, 128 * WGS, smem, c.stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D, bool PAGED>
 cudaError_t launch(const fat::Sm90FwdCall& c) {
   Params p{};
   const int64_t* st = c.st;
-  if (!make_map<D>(&p.tm_q, c.q, c.dtype, c.batch, c.num_q_heads, c.q_len, st[0], st[1], st[2], c.q_tile) ||
-      !make_map<D>(&p.tm_k, c.k, c.dtype, c.batch, c.num_kv_heads, c.kv_len, st[3], st[4], st[5], BN) ||
-      !make_map<D>(&p.tm_v, c.v, c.dtype, c.batch, c.num_kv_heads, c.kv_len, st[6], st[7], st[8], BN))
-    return cudaErrorInvalidValue;
+  // K / V as a map's (B, H, S): (batch, head, row), or (page, head, row).
+  const int64_t kb = PAGED ? c.num_pages : c.batch, kr = PAGED ? c.page_size : c.kv_len;
+  bool ok = make_map<D>(&p.tm_q, c.q, c.dtype, c.batch, c.num_q_heads, c.q_len, st[0], st[1], st[2], c.q_tile);
+  if constexpr (fat::is_payload<P>) {
+    ok = ok && make_map_bytes(&p.tm_k, c.k, D, kb, c.num_kv_heads, kr, st[3], st[4], st[5], BN) &&
+         make_map_bytes(&p.tm_v, c.v, D, kb, c.num_kv_heads, kr, st[6], st[7], st[8], BN);
+    p.ks = c.ks;
+    p.vs = c.vs;
+    p.ks_sp = c.sst[0];
+    p.ks_sh = c.sst[1];
+    p.vs_sp = c.sst[2];
+    p.vs_sh = c.sst[3];
+  } else {
+    ok = ok && make_map<D>(&p.tm_k, c.k, c.dtype, kb, c.num_kv_heads, kr, st[3], st[4], st[5], BN) &&
+         make_map<D>(&p.tm_v, c.v, c.dtype, kb, c.num_kv_heads, kr, st[6], st[7], st[8], BN);
+  }
+  if (!ok) return cudaErrorInvalidValue;
   p.o = c.o;
   p.lse = c.lse;
   p.num_q_heads = static_cast<int>(c.num_q_heads);
@@ -293,17 +448,42 @@ cudaError_t launch(const fat::Sm90FwdCall& c) {
   p.seg_kv = c.seg_kv;
   p.q_rng = c.q_rng;
   p.kv_rng = c.kv_rng;
+  p.table = c.table;
+  p.page_size = static_cast<int>(c.page_size);
+  p.num_pages = static_cast<int>(c.num_pages);
+  p.sinks = c.sinks;
+  const int64_t table = PAGED ? (c.kv_len + c.page_size - 1) / c.page_size : 0;
   const bool masked = c.window > 0 || c.softcap2 > 0.f || c.seg_q != nullptr;
-  if (c.q_tile == 128) return masked ? run<T, D, true, 2>(p, c) : run<T, D, false, 2>(p, c);
-  return masked ? run<T, D, true, 1>(p, c) : run<T, D, false, 1>(p, c);
+  if (c.q_tile == 128) return masked ? run<T, P, D, true, 2, PAGED>(p, c, table) : run<T, P, D, false, 2, PAGED>(p, c, table);
+  return masked ? run<T, P, D, true, 1, PAGED>(p, c, table) : run<T, P, D, false, 1, PAGED>(p, c, table);
+}
+
+template <typename T, typename P>
+cudaError_t by_head_dim(const fat::Sm90FwdCall& c) {
+  auto go = [&](auto dim) -> cudaError_t {
+    constexpr int D = decltype(dim)::value;
+    if constexpr (fat::is_payload<P>) {
+      return launch<T, P, D, true>(c);
+    } else {
+      return c.table != nullptr ? launch<T, P, D, true>(c) : launch<T, P, D, false>(c);
+    }
+  };
+  switch (c.head_dim) {
+    case 32: return go(std::integral_constant<int, 32>{});
+    case 64: return go(std::integral_constant<int, 64>{});
+    case 128: return go(std::integral_constant<int, 128>{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
-cudaError_t by_head_dim(const fat::Sm90FwdCall& c) {
-  switch (c.head_dim) {
-    case 32: return launch<T, 32>(c);
-    case 64: return launch<T, 64>(c);
-    case 128: return launch<T, 128>(c);
+cudaError_t by_payload(const fat::Sm90FwdCall& c) {
+  if (c.payload == c.dtype) return by_head_dim<T, T>(c);
+  if (c.table == nullptr || c.ks == nullptr || c.vs == nullptr || c.sst == nullptr) return cudaErrorInvalidValue;
+  switch (c.payload) {
+    case fat::kInt8: return by_head_dim<T, int8_t>(c);
+    case fat::kFp8E4M3: return by_head_dim<T, __nv_fp8_e4m3>(c);
+    case fat::kFp8E5M2: return by_head_dim<T, __nv_fp8_e5m2>(c);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -313,13 +493,17 @@ cudaError_t by_head_dim(const fat::Sm90FwdCall& c) {
 namespace fat {
 
 cudaError_t sm90_fwd(const Sm90FwdCall& c) {
-  if (c.window < 0 || (c.window > 0 && !c.causal)) return cudaErrorInvalidValue;
+  if (c.window < 0 || (c.window > 0 && !c.causal) || c.sinks < 0) return cudaErrorInvalidValue;
   if (c.seg_q != nullptr && (c.seg_kv == nullptr || c.q_rng == nullptr || c.kv_rng == nullptr))
     return cudaErrorInvalidValue;
   if ((c.q_tile != 64 && c.q_tile != 128) || c.q_len < 1 || c.kv_len < 1) return cudaErrorInvalidValue;
+  if (c.table != nullptr && (c.batch != 1 || !c.causal || c.seg_q != nullptr || c.page_size < BN ||
+                             c.page_size % BN || c.num_pages < 1))
+    return cudaErrorInvalidValue;
+  if (c.table == nullptr && c.sinks > 0) return cudaErrorInvalidValue;
   switch (c.dtype) {
-    case kBFloat16: return by_head_dim<bf16>(c);
-    case kFloat16: return by_head_dim<__half>(c);
+    case kBFloat16: return by_payload<bf16>(c);
+    case kFloat16: return by_payload<__half>(c);
     default: return cudaErrorInvalidValue;
   }
 }

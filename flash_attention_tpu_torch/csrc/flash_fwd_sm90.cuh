@@ -1,6 +1,7 @@
-// The entry point of csrc/flash_fwd_sm90.cu (K1 and K1d on tensor cores for
-// bf16 and fp16), called by csrc/flash_fwd.cu's fat_flash_fwd, which
-// dispatches by dtype and band: fp32 and K2 keep that file's FMA body.
+// The entry point of csrc/flash_fwd_sm90.cu (K1, K1d, K2 and K8 / K8q on
+// tensor cores for bf16 and fp16 queries), called by csrc/flash_fwd.cu's
+// fat_flash_fwd and fat_paged_prefill, which dispatch by dtype: fp32 keeps
+// that file's FMA body.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,7 +10,7 @@
 
 namespace fat {
 
-// One K1 / K1d call: the operands as fat_flash_fwd takes them.
+// One call: the operands as fat_flash_fwd and fat_paged_prefill take them.
 struct Sm90FwdCall {
   const void* q;
   const void* k;
@@ -17,7 +18,7 @@ struct Sm90FwdCall {
   void* o;     // [B, Hq, Sq, D] contiguous
   float* lse;  // [B, Hq, Sq] base-2, or nullptr
   int64_t batch, num_q_heads, num_kv_heads, q_len, kv_len, head_dim;
-  const int64_t* st;  // q, k, v strides in elements: (batch, head, row) each
+  const int64_t* st;  // q, k, v strides in elements: (batch or page, head, row) each
   float scale2;
   int32_t causal, window;
   float softcap2;
@@ -28,6 +29,17 @@ struct Sm90FwdCall {
   int32_t q_tile;  // q rows a block: 128 (two warpgroups) or 64 (one)
   int32_t dtype;
   cudaStream_t stream;
+  // K8: k and v are a layer's page pools [num_pages, Hkv, page_size, D]
+  // (st: page / head / row strides), read through `table`, the slot's row
+  // of the page table; kv_len is the chunk's kv_end and batch is 1. Null
+  // for dense K / V.
+  const int32_t* table;
+  int64_t page_size, num_pages;
+  int32_t sinks;    // columns [0, sinks) visible beside the window
+  int32_t payload;  // the pools' element code: dtype, or a 1-byte payload (K8q) with row scales
+  const float* ks;  // K8q: the pools' row scales [num_pages, Hkv, page_size], unit row stride
+  const float* vs;
+  const int64_t* sst;  // K8q: the scales' page and head strides, K's then V's
 };
 
 cudaError_t sm90_fwd(const Sm90FwdCall& c);

@@ -1,11 +1,12 @@
 // The Hopper layer the tensor-core bodies share (csrc/flash_bwd_sm90.cu: K3,
-// K4, K5; csrc/flash_fwd_sm90.cu: K1, K1d): the swizzled tile layout that TMA
-// writes and wgmma's descriptors read, mbarriers and TMA / bulk copies,
-// wgmma wrappers for bf16 and fp16 with fp32 accumulators, the fragment
-// packing that turns an accumulator into a product's A operand, the
-// visibility predicate of the masks, the once-a-tile mask / softcap choice
-// (by_tile), the segment-range tile tests, and the host's tensor-map
-// encoding. Only sm_90a compiles it (wgmma).
+// K4, K5; csrc/flash_fwd_sm90.cu: K1, K1d, K2, K8, K8q): the swizzled tile
+// layout that TMA writes and wgmma's descriptors read, mbarriers and TMA /
+// bulk copies, wgmma wrappers for bf16 and fp16 with fp32 accumulators, the
+// fragment packing that turns an accumulator into a product's A operand,
+// the visibility predicate of the masks, the once-a-tile mask / softcap
+// choice (by_tile), the segment-range tile tests, and the host's tensor-map
+// encoding (16-bit tiles, and K8q's 1-byte payload rows). Only sm_90a
+// compiles it (wgmma).
 #pragma once
 
 #include <cuda.h>
@@ -320,6 +321,16 @@ __device__ __forceinline__ bool sees(const P& p, int row, int col, int32_t row_i
   return ok;
 }
 
+// The same with the forward's StreamingLLM sinks (K8): columns [0, sinks)
+// are visible beside the window.
+template <bool MASKED, typename P>
+__device__ __forceinline__ bool sees(const P& p, int row, int col, int32_t row_id, int32_t col_id, int sinks) {
+  const int pos = row + p.kv_len - p.q_len;
+  bool ok = row < p.q_len && col < p.kv_len && (!p.causal || col <= pos);
+  if constexpr (MASKED) ok = ok && (p.window == 0 || col > pos - p.window || col < sinks) && row_id == col_id;
+  return ok;
+}
+
 // Runs pass(cap, mask) with both as compile-time bools (std::bool_constant):
 // cap for a softcap (masked instantiations only), mask for a tile with a
 // masked-out pair. Branching once a tile keeps the element loop free of
@@ -397,6 +408,25 @@ inline bool make_map(CUtensorMap* map, const void* base, int dtype, int64_t B, i
   const CUtensorMapSwizzle swizzle = L::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   return encode(map, type, 4, const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A tensor map over [B, H, S, row_bytes] of 1-byte elements (K8q's payload)
+// with byte strides (sb, sh, sr); boxes of `rows` whole rows, unswizzled.
+inline bool make_map_bytes(CUtensorMap* map, const void* base, int64_t row_bytes, int64_t B, int64_t H, int64_t S,
+                           int64_t sb, int64_t sh, int64_t sr, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(row_bytes), static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(H),
+                        static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(sr), static_cast<cuuint64_t>(sh), static_cast<cuuint64_t>(sb)};
+  if (S == 1) strides[0] = row_bytes;
+  if (H == 1) strides[1] = strides[0] * S;
+  if (B == 1) strides[2] = strides[1] * H;
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(row_bytes), static_cast<cuuint32_t>(rows), 1, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace fat::sm90

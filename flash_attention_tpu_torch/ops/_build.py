@@ -115,7 +115,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i64, i64, i64, i64, i64, i64, i64, i64,  # q/k/v strides
         c.POINTER(i64), f32,  # scale strides, scale2
         i32, i32, f32,  # window, sinks, softcap2
-        i32, i32, ptr,  # dtype, payload, stream
+        i32, i32, ptr, i32,  # dtype, payload, stream, q rows a block (the tensor-core body)
     ]
     shape = c.POINTER(i64)
     # q, k, v, k/v scales, o, lse, lengths, then the fp32 workspace and the

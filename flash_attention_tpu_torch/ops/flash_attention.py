@@ -4,19 +4,22 @@ Replaces the JAX package's ``ops/flash_attention.py:_fwd_kernel`` and, for a
 causal sliding window no wider than the kernel's 64-row kv tile,
 ``_band_kernel`` (:795, K2), both reached from ``flash_attention`` (:1718),
 with their sliding-window, logit-softcap and segment-id branches (K1d:
-packed sequences, each document attending only within itself). K1 and K1d
-in bf16 and fp16 run the tensor-core body of csrc/flash_fwd_sm90.cu (wgmma
-on TMA-fed tiles, P rounded to the input type before P V, q tiles of
-``fwd_q_tile`` rows); in fp32 they, and K2 in every dtype, run the FMA body
-of csrc/flash_fwd.cu. What bounds the kernels on an H100 (tensor-core
-arithmetic at long kv) and what each design does about it is written at the
-top of each source.
+packed sequences, each document attending only within itself). In bf16 and
+fp16 all three run the tensor-core body of csrc/flash_fwd_sm90.cu (wgmma on
+TMA-fed tiles, P rounded to the input type before P V, q tiles of
+``fwd_q_tile`` rows, the kv walk of ``fwd_walk``); in fp32 they run the FMA
+body of csrc/flash_fwd.cu (K2 there walks two unaligned tiles).
+What bounds the kernels on an H100 (tensor-core arithmetic at long kv, K2's
+bytes) and what each design does about it is written at the top of each
+source.
 
 ``flash_attention`` runs the plain PyTorch version for CPU tensors and the
 CUDA kernel for CUDA tensors; there is no fallback from one to the other.
 ``flash_attention.launches`` counts K1 launches,
 ``flash_attention.band_launches`` K2's and
-``flash_attention.segment_launches`` K1d's (any call with segment ids).
+``flash_attention.segment_launches`` K1d's (any call with segment ids);
+``.tensor_core_launches`` and ``.fma_launches`` count them again by the body
+that ran.
 
 Under grad the call goes through ``FlashAttentionFunction``, the
 counterpart of the JAX package's custom VJP (``_fa``/``_fa_fwd``/``_fa_bwd``,
@@ -50,32 +53,56 @@ from flash_attention_tpu_torch.ops.common import (
     visible_mask,
 )
 
-# K2 takes a causal window no wider than K1's kv tile (csrc/flash_fwd.cu BN).
+# K2 takes a causal window no wider than the kernels' 64-row kv tile.
 BAND_MAX_WINDOW = 64
+# The kv rows a step of the kernels' walk (csrc/flash_fwd_sm90.cu and
+# csrc/flash_fwd.cu BN).
+KV_TILE = 64
 
 
 def fwd_q_tile(batch: int, num_q_heads: int, q_len: int, num_sms: int) -> int:
-    """q rows a block of K1's tensor-core body takes: 128 (two warpgroups
-    sharing each K / V tile) where that gives at least one block an SM, else
-    64 (one warpgroup, two blocks an SM), so a short chunk still fills the
-    card: q [1,32,256,128] makes 64 blocks of 128 rows on an H100's 132 SMs,
-    128 of 64."""
+    """q rows a block of the tensor-core body takes (K1, K1d, K2, K8): 128
+    (two warpgroups sharing each K / V tile) where that gives at least one
+    block an SM, else 64 (one warpgroup, two blocks an SM), so a short chunk
+    still fills the card: q [1,32,256,128] makes 64 blocks of 128 rows on an
+    H100's 132 SMs, 128 of 64."""
     return 128 if -(-q_len // 128) * batch * num_q_heads >= num_sms else 64
+
+
+def fwd_body(dtype: torch.dtype) -> str:
+    """The body a CUDA forward call (K1, K1d, K2, or K8 over any pages)
+    launches for queries of ``dtype``: "tensor_core" (csrc/flash_fwd_sm90.cu)
+    in bf16 / fp16, "fma" (csrc/flash_fwd.cu) in fp32. A 1-byte payload
+    (K8q) widens exactly to the query's type for Q K and to bf16 for P V."""
+    return "tensor_core" if dtype in TENSOR_CORE_DTYPES else "fma"
 
 
 def fwd_route(dtype: torch.dtype, sliding_window=None, has_segments: bool = False) -> tuple[str, str]:
     """The kernel a CUDA call of ``flash_attention`` launches, and its body:
     K1d with segment ids, K2 for a window of at most BAND_MAX_WINDOW without
-    them, else K1; "tensor_core" (csrc/flash_fwd_sm90.cu) for K1 and K1d in
-    bf16 / fp16, else "fma" (csrc/flash_fwd.cu: fp32, and K2's band walk in
-    every dtype). K8 (ops/paged.py) keeps the FMA body too."""
+    them, else K1; and ``fwd_body``."""
     if has_segments:
         kernel = "K1d"
     elif sliding_window is not None and sliding_window <= BAND_MAX_WINDOW:
         kernel = "K2"
     else:
         kernel = "K1"
-    return kernel, "tensor_core" if dtype in TENSOR_CORE_DTYPES and kernel != "K2" else "fma"
+    return kernel, fwd_body(dtype)
+
+
+def fwd_walk(m0: int, q_tile: int, q_len: int, kv_len: int, *, window=None, sinks: int = 0) -> list[int]:
+    """The first rows of the kv tiles (KV_TILE rows each) that the
+    tensor-core body's causal block of q rows [m0, m0 + q_tile) walks, in
+    order, as csrc/flash_fwd_sm90.cu cuts them (without segment ids): the
+    tiles holding [0, sinks) below the band, then from the tile of the
+    block's first row's first visible column to the causal diagonal of its
+    last row. A paged kv (K8) reads tile n0 from page n0 // page_size."""
+    diag = kv_len - q_len
+    n_end = min(kv_len, min(m0 + q_tile, q_len) + diag)
+    w_lo = max(0, m0 + diag - window + 1) if window else 0
+    n_begin = w_lo // KV_TILE * KV_TILE
+    sink_end = min(-(-sinks // KV_TILE) * KV_TILE, n_begin) if window else 0
+    return [*range(0, sink_end, KV_TILE), *range(n_begin, n_end, KV_TILE)]
 
 
 # Each forward kernel's launch counter on ``flash_attention``.
@@ -190,7 +217,7 @@ def _forward(
         seg = segment_operands(segments, q.device)
         q_tile = fwd_q_tile(batch, num_q_heads, q_len, sm_count(q.device)) if tensor_core else 0
         lib = _build.kernels()
-        with torch.cuda.device(q.device):
+        with _build.on_device(q.device):
             err = lib.fat_flash_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(),
@@ -199,12 +226,14 @@ def _forward(
                 q.stride(0), q.stride(1), q.stride(2),
                 k.stride(0), k.stride(1), k.stride(2),
                 v.stride(0), v.stride(1), v.stride(2),
-                sm_scale * LOG2E, int(causal), mask_window(sliding_window), softcap2(logit_softcap), int(kernel == "K2"),
-                _build.DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream, q_tile,
+                sm_scale * LOG2E, int(causal), mask_window(sliding_window), softcap2(logit_softcap),
+                int(kernel == "K2"),
+                _build.DTYPE_CODES[q.dtype], _build.current_stream(q.device), q_tile,
             )
         _build.check(err, f"flash_attention ({kernel})")
         counter = _COUNTERS[kernel]
         setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
+        setattr(flash_attention, f"{body}_launches", getattr(flash_attention, f"{body}_launches") + 1)
     return (out, lse) if save_residuals else out
 
 
@@ -292,3 +321,5 @@ def flash_attention(
 flash_attention.launches = 0
 flash_attention.band_launches = 0
 flash_attention.segment_launches = 0
+flash_attention.tensor_core_launches = 0  # K1, K1d and K2 on csrc/flash_fwd_sm90.cu
+flash_attention.fma_launches = 0  # on csrc/flash_fwd.cu

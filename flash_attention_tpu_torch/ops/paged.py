@@ -9,9 +9,11 @@ counts its valid rows.
     through the page table and split over whole pages), replacing
     ``_paged_decode_kernel_hb`` (:980) and ``_paged_decode_kernel``
     (:1104); output and base-2 LSE.
-  * ``paged_prefill_attention`` — K8 (csrc/flash_fwd.cu, the FMA body K1
-    takes in fp32, read through the page table, in every dtype), replacing ``_paged_prefill_kernel``
-    (:580): causal chunk attention over the slot's pages in place.
+  * ``paged_prefill_attention`` — K8 (K1's bodies read through the page
+    table: csrc/flash_fwd_sm90.cu's tensor cores for bf16 / fp16 queries,
+    csrc/flash_fwd.cu's FMA body for fp32), replacing
+    ``_paged_prefill_kernel`` (:580): causal chunk attention over the slot's
+    pages in place.
   * ``paged_write_tokens_multi`` — K9/K10 (csrc/paged_write.cu), replacing
     ``_make_multi_write_kernel`` (:257) and, as its one-layer case through
     ``paged_write_tokens``, ``_write_rows_kernel`` (:130).
@@ -19,7 +21,8 @@ counts its valid rows.
 Each wrapper runs its plain PyTorch version for CPU tensors and its CUDA
 kernel for CUDA tensors, with no fallback from one to the other, and counts
 kernel launches in ``.launches`` (unquantized pages) and ``.quant_launches``
-(quantized pages: K7q, K8q, K9q/K10q). Page ids are clamped into
+(quantized pages: K7q, K8q, K9q/K10q); K8 also counts its launches by body
+in ``.tensor_core_launches`` and ``.fma_launches``. Page ids are clamped into
 ``[0, num_pages)`` everywhere, as the JAX package's index maps clamp them:
 a released slot's table points at dump page 0 while its lane still rides in
 the batched decode step.
@@ -57,7 +60,14 @@ from typing import NamedTuple
 import torch
 
 from flash_attention_tpu_torch.ops import _build
-from flash_attention_tpu_torch.ops.common import LOG2E, mask_window, sm_count, softcap2
+from flash_attention_tpu_torch.ops.common import (
+    LOG2E,
+    TMA_ALIGN,
+    mask_window,
+    sm_count,
+    softcap2,
+    tma_operands,
+)
 from flash_attention_tpu_torch.ops.decode import (
     check_tma_rows,
     decode_attention_plain,
@@ -67,7 +77,7 @@ from flash_attention_tpu_torch.ops.decode import (
     scale_strides,
     split_buffers,
 )
-from flash_attention_tpu_torch.ops.flash_attention import flash_attention_plain
+from flash_attention_tpu_torch.ops.flash_attention import flash_attention_plain, fwd_body, fwd_q_tile
 from flash_attention_tpu_torch.ops.quant import bits, payload_dtype, quantize_values
 
 # The kernels read a page in runs of rows that must not straddle it: K8 in
@@ -379,6 +389,14 @@ def _check_kernel_pages(what: str, cache: PagedKVCache, q: torch.Tensor) -> int:
     return payload
 
 
+def _table_row(cache: PagedKVCache, slot: int) -> int:
+    """The address of ``slot``'s row of the (contiguous int32) page table,
+    without building a view of it; ``slot`` indexes as ``page_table[slot]``
+    would (IndexError out of range)."""
+    slot = range(cache.page_table.shape[0])[slot]
+    return cache.page_table.data_ptr() + slot * cache.page_table.stride(0) * 4
+
+
 def _scale_ptrs(cache: PagedKVCache) -> list:
     if not cache.quantized():
         return [None, None]
@@ -493,6 +511,20 @@ paged_decode_attention.quant_launches = 0
 paged_decode_attention.last_grid = None  # (splits, blocks) of the last launch
 
 
+def _check_bulk_scales(what: str, *scales: torch.Tensor) -> None:
+    """Raise unless each [num_pages, heads, page_size] scale pool can be
+    read in 64-row bulk copies as it lies: unit row stride, a 16-byte-aligned
+    base and page / head strides of whole 16 bytes."""
+    for t in scales:
+        if not (t.stride(-1) == 1 and t.data_ptr() % TMA_ALIGN == 0
+                and all(st * t.element_size() % TMA_ALIGN == 0 for st in t.stride()[:-1])):
+            raise ValueError(
+                f"{what}: the CUDA kernel reads row scales in bulk copies, so the scales' base pointer and page / "
+                f"head strides must be multiples of {TMA_ALIGN} bytes with a unit row stride; got pointer "
+                f"{t.data_ptr() % TMA_ALIGN} bytes past alignment and strides {tuple(t.stride())}"
+            )
+
+
 def paged_prefill_attention_plain(
     q: torch.Tensor, cache: PagedKVCache, slot: int, kv_end: int, *, sm_scale: float,
     sliding_window: int | None = None, logit_softcap: float | None = None, attention_sinks: int = 0,
@@ -521,7 +553,8 @@ def paged_prefill_attention(
       slot, kv_end: host integers; kv_end is the exclusive end of the
         visible rows, at least chunk_len and at most the slot's capacity.
       chunk_len: any length (the JAX package's Pallas grid needs a
-        multiple of 128; K8 tiles q in 64-row blocks bounded by T).
+        multiple of 128; K8 tiles q in blocks of ``fwd_q_tile`` rows, 64 or
+        128, bounded by T).
       sliding_window, logit_softcap, attention_sinks: as in
         ``paged_decode_attention``; the window is end-aligned per row.
 
@@ -554,28 +587,38 @@ def paged_prefill_attention(
         raise ValueError(f"paged_prefill_attention runs on cpu or cuda tensors, got {q.device}")
 
     payload = _check_kernel_pages("paged_prefill_attention", cache, q)
-    q = _build.unit_last_stride(q)
+    body = fwd_body(q.dtype)
     k_pages, v_pages = (_build.unit_last_stride(x) for x in (cache.k_pages, cache.v_pages))
+    if body == "tensor_core":
+        (q,) = tma_operands(q)
+        check_tma_rows("paged_prefill_attention", k_pages, v_pages)
+        if cache.quantized():
+            _check_bulk_scales("paged_prefill_attention", cache.k_scales, cache.v_scales)
+        q_tile = fwd_q_tile(1, num_q_heads, t, sm_count(q.device))
+    else:
+        q, q_tile = _build.unit_last_stride(q), 0
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel():
         lib = _build.kernels()
-        with torch.cuda.device(q.device):
+        with _build.on_device(q.device):
             err = lib.fat_paged_prefill(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *_scale_ptrs(cache), out.data_ptr(),
-                cache.page_table[slot].data_ptr(), num_q_heads, num_kv_heads, num_pages, page, t,
+                _table_row(cache, slot), num_q_heads, num_kv_heads, num_pages, page, t,
                 kv_end, head_dim, q.stride(1), q.stride(2), *k_pages.stride()[:3], *v_pages.stride()[:3],
-                _build.int64_array(scale_strides(cache.k_scales, cache.v_scales)),
+                _build.int64_tuple_array(tuple(scale_strides(cache.k_scales, cache.v_scales))),
                 sm_scale * LOG2E, mask_window(sliding_window), attention_sinks, softcap2(logit_softcap),
-                _build.DTYPE_CODES[q.dtype], payload,
-                torch.cuda.current_stream(q.device).cuda_stream,
+                _build.DTYPE_CODES[q.dtype], payload, _build.current_stream(q.device), q_tile,
             )
         _build.check(err, "paged_prefill_attention (K8)")
         if cache.quantized():
             paged_prefill_attention.quant_launches += 1
         else:
             paged_prefill_attention.launches += 1
+        setattr(paged_prefill_attention, f"{body}_launches", getattr(paged_prefill_attention, f"{body}_launches") + 1)
     return out
 
 
 paged_prefill_attention.launches = 0
 paged_prefill_attention.quant_launches = 0
+paged_prefill_attention.tensor_core_launches = 0  # K8 / K8q on csrc/flash_fwd_sm90.cu
+paged_prefill_attention.fma_launches = 0  # on csrc/flash_fwd.cu

@@ -151,14 +151,14 @@ def write_split(card: str) -> dict:
     return {**out["K9"], **{f"{key} {m}": t for key, row in out.items() for m, t in row.items()}}
 
 
-def serve_decode(card: str) -> dict:
-    """Decode tokens/s of the serving paths K6, K7 and K10 run on, on fresh
-    weights from seed 0: phase 5 (``ServingEngine``, ``ModelConfig()``),
-    phase 8 (``PagedServingEngine``, the same weights and requests), then
-    Mistral-7B's shape through phase 17's rolling engine (17a, the 4352-row
-    ring) and its paged ring with 4 sinks (17c), each with chip_smoke.py's
-    own serving function. ``ms`` is 1000 over phase 5's decode tok/s (a
-    step's share per token)."""
+def _serve_paths(card: str, quant: bool) -> dict:
+    """The numbers (prefill and decode tok/s) of the serving paths, each
+    with chip_smoke.py's own serving function on fresh weights from seed 0:
+    phase 5 (``ServingEngine``, ``ModelConfig()``), phase 8
+    (``PagedServingEngine``, the same weights and requests), with ``quant``
+    phase 11b (the same over an fp8 e4m3 cache), then Mistral-7B's shape
+    through phase 17's rolling engine (17a, the 4352-row ring) and its paged
+    ring with 4 sinks (17c)."""
     import dataclasses
     import gc
 
@@ -172,8 +172,12 @@ def serve_decode(card: str) -> dict:
 
     cfg = ModelConfig()
     params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
-    _, dense = cs.serve_full_dense(card, "full", cfg, params, used=("K1", "K6"))
-    _, paged = cs.serve_full_paged(card, "full paged", cfg, params, used=("K7", "K8", "K9/K10"), dense=dense)
+    runs = {}
+    _, runs["5"] = cs.serve_full_dense(card, "full", cfg, params, used=("K1", "K6"))
+    _, runs["8"] = cs.serve_full_paged(card, "full paged", cfg, params, used=("K7", "K8", "K9/K10"), dense=runs["5"])
+    if quant:
+        _, runs["11b"] = cs.serve_full_paged(card, "full quant b", ModelConfig(kv_quant="fp8_e4m3"), params,
+                                             used=("K7q", "K8q", "K9q/K10q"), dense=runs["5"], ref=runs["8"])
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -182,20 +186,43 @@ def serve_decode(card: str) -> dict:
     rng = np.random.default_rng(17)
     prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n)) for n in cs.MASKED_PROMPT_LENS]
     eng = ServingEngine(params, dataclasses.replace(cfg, rolling=True), max_slots=8, max_seq=16384, prefill_chunk=256)
-    ring = cs._serve_masked(card, "full masked a", eng, prompts, used=("K1", "K6"))
+    runs["17a"] = cs._serve_masked(card, "full masked a", eng, prompts, used=("K1", "K6"))
     del eng
     torch.cuda.empty_cache()
     eng = PagedServingEngine(params, dataclasses.replace(cfg, attention_sinks=cs.SINKS), max_slots=8, num_pages=297,
                              pages_per_slot=72, page_size=128, prefill_chunk=256)
-    paged_ring = cs._serve_masked(card, "full masked c", eng, prompts, used=("K7", "K8", "K9/K10"))
+    runs["17c"] = cs._serve_masked(card, "full masked c", eng, prompts, used=("K7", "K8", "K9/K10"))
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
-    tok_s = {"5": dense["decode_tok_s"], "8": paged["decode_tok_s"], "17a": ring["decode_tok_s"],
-             "17c": paged_ring["decode_tok_s"]}
+    return runs
+
+
+def serve_decode(card: str) -> dict:
+    """Decode tokens/s of the serving paths K6, K7 and K10 run on
+    (``_serve_paths``: phases 5, 8, 17a and 17c). ``ms`` is 1000 over phase
+    5's decode tok/s (a step's share per token)."""
+    runs = _serve_paths(card, quant=False)
+    tok_s = {key: run["decode_tok_s"] for key, run in runs.items()}
     print("[serve decode] decode tok/s " + ", ".join(f"phase {k} {v:.1f}" for k, v in tok_s.items()) + f" ({card})",
           flush=True)
     return {"ms": 1e3 / tok_s["5"], **{f"phase {k} decode_tok_s": v for k, v in tok_s.items()}}
+
+
+def serve_prefill(card: str) -> dict:
+    """Prefill tokens/s of the paths K8 and K8q run on, phases 8, 11b and
+    17c, with phases 5 and 17a (K1) as controls, and the decode tok/s of
+    all five (``_serve_paths``). Phase 8's and 11b's prefill is a
+    prefill-only run over 10 prompts; 17a's and 17c's the sum of their
+    256-row chunks, each synchronised. ``ms`` is 1000 over 17c's prefill
+    tok/s."""
+    runs = _serve_paths(card, quant=True)
+    pre = {key: run["prefill_tok_s"] for key, run in runs.items()}
+    dec = {key: run["decode_tok_s"] for key, run in runs.items()}
+    print("[serve prefill] prefill tok/s " + ", ".join(f"phase {k} {v:.1f}" for k, v in pre.items())
+          + "; decode tok/s " + ", ".join(f"phase {k} {v:.1f}" for k, v in dec.items()) + f" ({card})", flush=True)
+    return {"ms": 1e3 / pre["17c"], **{f"phase {k} prefill_tok_s": v for k, v in pre.items()},
+            **{f"phase {k} decode_tok_s": v for k, v in dec.items()}}
 
 
 SM90_SOURCES = ("flash_bwd_sm90.cu", "flash_fwd_sm90.cu")
@@ -471,12 +498,14 @@ def unchanged_bwd(card: str) -> dict:
 
 
 def unchanged_fwd(card: str) -> dict:
-    """The forward kernels K1's redesign leaves as they were, on seeded
-    inputs: K2 (window 64, q = kv [1,32,2048,128], bf16), K8 and K8q (fp8
-    e4m3) over a shuffled pool [129,8,128,128] (q [1,32,256,128] to kv_end
-    2048 of slot 7) and the fp32 K1 (causal with LSE, q [1,8,1024,64] kv
-    [1,2,1024,64]). Prints each one's time and a hash of its output bytes;
-    ``ms`` is K2's."""
+    """The forward kernels the K2 / K8 redesign must leave bit-identical, on
+    seeded inputs: the fp32 K1 (causal with LSE, q [1,8,1024,64] kv
+    [1,2,1024,64]), K2 (window 64, q = kv [1,8,1024,64], with LSE) and K8
+    (q [1,8,256,64] over slot 1's shuffled pages [33,2,128,64] to kv_end
+    2048) on the FMA body, and the bf16 K1 and K1d (documents {900, 700,
+    448}) with LSE at phase 12's training shape, q [1,32,2048,128] kv
+    [1,8,2048,128]. Prints each one's time and a hash of its output bytes;
+    ``ms`` is the bf16 K1's."""
     import numpy as np
     import torch
 
@@ -485,27 +514,30 @@ def unchanged_fwd(card: str) -> dict:
     from flash_attention_tpu_torch.ops.paged import paged_prefill_attention
     from flash_attention_tpu_torch.utils.testing import make_qkv
 
-    bf16, out, times = torch.bfloat16, {}, {}
+    f32, out, times = torch.float32, {}, {}
     gen, rng = torch.Generator(device="cuda").manual_seed(9), np.random.default_rng(9)
-    q, k, v = make_qkv(17, 1, 32, 2048, 128, num_kv_heads=32, dtype=bf16, device="cuda")
-    kw = dict(causal=True, sliding_window=64, save_residuals=True)
-    out["K2"] = _digest(*flash_attention(q, k, v, **kw))
-    times["K2"] = cs.cuda_ms(lambda: flash_attention(q, k, v, **kw))
-    cache = cs._filled_cache(1, num_pages=129, num_slots=8, pages_per_slot=16, kv_heads=8, head_dim=128, dtype=bf16,
+    calls = {}
+    q, k, v = make_qkv(13, 1, 8, 1024, 64, num_kv_heads=2, dtype=f32, device="cuda")
+    calls["fp32 K1"] = lambda q=q, k=k, v=v: flash_attention(q, k, v, causal=True, save_residuals=True)
+    q2, k2, v2 = make_qkv(14, 1, 8, 1024, 64, dtype=f32, device="cuda")
+    calls["fp32 K2"] = lambda: flash_attention(q2, k2, v2, causal=True, sliding_window=64, save_residuals=True)
+    cache = cs._filled_cache(1, num_pages=33, num_slots=2, pages_per_slot=16, kv_heads=2, head_dim=64, dtype=f32,
                              gen=gen).layers()[0]
-    cache.page_table.copy_(torch.from_numpy(cs._shuffled_table(rng, 8, 16, 129)).cuda())
-    qc = cs.torch_uniform((1, 32, 256, 128), bf16, gen)
-    out["K8"] = _digest(paged_prefill_attention(qc, cache, 7, 2048, chunk_len=256))
-    times["K8"] = cs.cuda_ms(lambda: paged_prefill_attention(qc, cache, 7, 2048, chunk_len=256))
-    layer = cs._quant_pages("fp8_e4m3", 1, 129, 8, 16, gen, rng)[0].layers()[0]
-    out["K8q"] = _digest(paged_prefill_attention(qc, layer, 7, 2048, chunk_len=256))
-    times["K8q"] = cs.cuda_ms(lambda: paged_prefill_attention(qc, layer, 7, 2048, chunk_len=256))
-    q, k, v = make_qkv(13, 1, 8, 1024, 64, num_kv_heads=2, dtype=torch.float32, device="cuda")
-    out["fp32 K1"] = _digest(*flash_attention(q, k, v, causal=True, save_residuals=True))
-    times["fp32 K1"] = cs.cuda_ms(lambda: flash_attention(q, k, v, causal=True, save_residuals=True))
+    cache.page_table.copy_(torch.from_numpy(cs._shuffled_table(rng, 2, 16, 33)).cuda())
+    qc = cs.torch_uniform((1, 8, 256, 64), f32, gen)
+    calls["fp32 K8"] = lambda: paged_prefill_attention(qc, cache, 1, 2048, chunk_len=256)
+    qb, kb, vb = make_qkv(12, 1, 32, 2048, 128, num_kv_heads=8, dtype=torch.bfloat16, device="cuda")
+    ids = torch.tensor([0] * 900 + [1] * 700 + [2] * 448, dtype=torch.int32, device="cuda")[None]
+    calls["bf16 K1"] = lambda: flash_attention(qb, kb, vb, causal=True, save_residuals=True)
+    calls["bf16 K1d"] = lambda: flash_attention(qb, kb, vb, causal=True, segment_ids=ids, save_residuals=True)
+    with torch.no_grad():
+        for key, call in calls.items():
+            got = call()
+            out[key] = _digest(*_tensors(got))
+            times[key] = cs.cuda_ms(call)
     print(f"[unchanged fwd] output hashes {out}; ms " + ", ".join(f"{k} {t:.4f}" for k, t in times.items())
           + f" ({card})", flush=True)
-    return {"ms": times["K2"], **times}
+    return {"ms": times["bf16 K1"], **times}
 
 
 def _split_times(call, calls: int = 10) -> tuple[float, float, float]:
@@ -561,6 +593,55 @@ def fwd_split(card: str) -> dict:
           + f" ({card})", flush=True)
     ms, device_ms, host_us = rows["chunk q 256 over kv 2048"]
     return {"ms": ms, "device_ms": device_ms, "host_us": host_us}
+
+
+def prefill_split(card: str) -> dict:
+    """K8, K8q and K2 at their chip_smoke.py shapes, bf16, each timed three
+    ways (``_split_times``: the wrapper call, the kernel alone in a CUDA
+    graph of 10 calls, the wrapper's host time a call): K8 q [1,32,256,128]
+    over slot 7's shuffled pages [129,8,128,128] to kv_end 2048 (phase 6),
+    K8 with window 4096 and 4 sinks over phase 15's paged ring to kv_end
+    9000, K8q e4m3 to kv_end 2048 (phase 9), K2 at window 64 over q = kv
+    [1,32,2048,128] with its LSE (phase 15). ``ms`` and ``device_ms`` are
+    K8's at kv_end 2048."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+    from flash_attention_tpu_torch.ops.paged import paged_prefill_attention
+    from flash_attention_tpu_torch.utils.testing import make_qkv
+
+    bf16, dev, rows = torch.bfloat16, torch.device("cuda"), {}
+    gen, rng = torch.Generator(device=dev).manual_seed(7), np.random.default_rng(7)
+    cache = cs._filled_cache(1, num_pages=129, num_slots=8, pages_per_slot=16, kv_heads=8, head_dim=128, dtype=bf16,
+                             gen=gen).layers()[0]
+    cache.page_table.copy_(torch.from_numpy(cs._shuffled_table(rng, 8, 16, 129)).to(dev))
+    qc = cs.torch_uniform((1, 32, 256, 128), bf16, gen)
+    rows["K8 kv_end 2048"] = _split_times(lambda: paged_prefill_attention(qc, cache, 7, 2048, chunk_len=256))
+    layer = cs._quant_pages("fp8_e4m3", 1, 129, 8, 16, gen, rng)[0].layers()[0]
+    rows["K8q e4m3 kv_end 2048"] = _split_times(lambda: paged_prefill_attention(qc, layer, 7, 2048, chunk_len=256))
+    del cache, layer
+    page, per_slot = 128, 72
+    n_ring = -(-(cs.WINDOW + 256) // page) + 2
+    table, num_pages = cs._ring_table(np.random.default_rng(15), 8, per_slot, n_ring, sinks=True)
+    ring = cs._filled_cache(1, num_pages=num_pages, num_slots=8, pages_per_slot=per_slot, kv_heads=8, head_dim=128,
+                            dtype=bf16, gen=gen).layers()[0]
+    ring.page_table.copy_(torch.from_numpy(table).to(dev))
+    kw = dict(sliding_window=cs.WINDOW, attention_sinks=cs.SINKS)
+    rows["K8 window 4096 + 4 sinks, kv_end 9000"] = _split_times(
+        lambda: paged_prefill_attention(qc, ring, 6, 9000, chunk_len=256, **kw))
+    del ring
+    q, k, v = make_qkv(17, 1, 32, 2048, 128, num_kv_heads=32, dtype=bf16, device=dev)
+    with torch.no_grad():
+        rows["K2 window 64"] = _split_times(
+            lambda: flash_attention(q, k, v, causal=True, sliding_window=64, save_residuals=True))
+    print("[prefill split] " + "; ".join(f"{key}: wrapper {ms:.4f} ms, kernel alone {d:.4f} ms (CUDA graph of 10), "
+                                         f"host {host:.1f} us a call" for key, (ms, d, host) in rows.items())
+          + f" ({card})", flush=True)
+    ms, device_ms, host_us = rows["K8 kv_end 2048"]
+    return {"ms": ms, "device_ms": device_ms, "host_us": host_us,
+            **{f"{key} {m}": t for key, row in rows.items() for m, t in zip(("ms", "device_ms", "host_us"), row)}}
 
 
 def mha_bwd(card: str) -> dict:

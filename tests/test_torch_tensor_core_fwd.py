@@ -10,7 +10,8 @@ hands to TMA (only misaligned ones copied); the 128-row tiles' segment skip
 (a kv tile is walked when either 64-row half of the q tile meets it); that
 a bf16 / fp16 call on the CPU launches nothing; and that the new sources are
 built and name nothing of the JAX package. The kernel itself runs only on
-the card (chip_smoke.py phases 3, 12, 15 and 18).
+the card (chip_smoke.py phases 3, 12, 15 and 18). K2 and K8 on the same body:
+tests/test_torch_prefill_sm90.py.
 
 Tolerances: fp32 port against JAX 1e-4 for the output and the LSE (the
 same math summed in another order; the base-2 LSE is of magnitude
@@ -111,8 +112,9 @@ def test_forward_and_lse_match_jax_across_tile_edges(hq, hkv, q_len, kv_len, cau
         (torch.bfloat16, None, False, ("K1", "tensor_core")),
         (torch.float16, None, False, ("K1", "tensor_core")),
         (torch.float32, None, False, ("K1", "fma")),
-        (torch.bfloat16, BAND_MAX_WINDOW, False, ("K2", "fma")),
-        (torch.float16, 1, False, ("K2", "fma")),
+        (torch.bfloat16, BAND_MAX_WINDOW, False, ("K2", "tensor_core")),
+        (torch.float16, 1, False, ("K2", "tensor_core")),
+        (torch.float32, BAND_MAX_WINDOW, False, ("K2", "fma")),
         (torch.bfloat16, BAND_MAX_WINDOW + 1, False, ("K1", "tensor_core")),
         (torch.bfloat16, 4096, False, ("K1", "tensor_core")),
         (torch.bfloat16, 63, True, ("K1d", "tensor_core")),
@@ -125,12 +127,14 @@ def test_forward_route_by_dtype_window_and_segments(dtype, window, segments, wan
 
 
 def test_paged_prefill_keeps_the_fma_body():
-    """K8's C entry runs flash_fwd.cu's own body in every dtype; only
-    fat_flash_fwd (K1, K1d) reaches the tensor-core body."""
+    """K8's C entry keeps flash_fwd.cu's own body for fp32 queries only:
+    like fat_flash_fwd (K1, K1d, K2), it sends bf16 / fp16 to the
+    tensor-core body before the FMA launcher is reached."""
     src = (_build.CSRC_DIR / "flash_fwd.cu").read_text()
     paged = src[src.index('extern "C" int fat_paged_prefill'):]
     dense = src[src.index('extern "C" int fat_flash_fwd'):src.index('extern "C" int fat_paged_prefill')]
-    assert "sm90_fwd" not in paged and "sm90_fwd" in dense
+    for entry in (paged, dense):
+        assert entry.index("if (dtype != fat::kFloat32)") < entry.index("sm90_fwd") < entry.index("fat::dispatch")
 
 
 @pytest.mark.parametrize(
