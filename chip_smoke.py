@@ -190,6 +190,34 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 version, bound and SDPA; each probe's run launches exactly
                 its body (P5 also K1). The whole sweeps run from
                 ``python3 -m flash_attention_tpu_torch.tools.<probe>``.
+ 22. parallel — the parallel layer (parallel/) in four gloo processes that
+                share the card (each on cuda:0; NCCL refuses two ranks on one
+                device; the ring's rotation goes through pinned host buffers,
+                since gloo sends only host memory): the ring at Mistral-7B's
+                training shape (q [1,32,8192,128], kv [1,8,8192,128], bf16,
+                causal, 2048 rows a rank) forward and backward, contiguous
+                and zigzag through make_ring_attention and
+                ring_flash_attention on zigzag-layout shards; the MHA ring
+                (32 / 32 heads: K3); context-parallel K1 (non-causal, the KV
+                over the 4 ranks); head-sharded K1 (model 4); sharded decode
+                at BASELINE config 4 (32 slots x 8192 rows, data 2 x model
+                2) over bf16, int8 and e4m3 caches. Rank 0 holds every
+                gathered result against the single-process kernels on the
+                whole tensors (row-relative REL_BAR, gradients too; the LSE
+                within LSE_BAR) and the fp32 oracle (ORACLE_BAR); each rank's
+                counts must show exactly its route's kernels, the forward on
+                the tensor cores; each rank's ring forward + backward is timed
+                (information: the ranks share one card). Then every factory
+                over NCCL at world size 1 through initialize_distributed,
+                bit-identical to the single-process call (ring gradients
+                too); decode_attention_split at config 4 (int8, e4m3: the
+                asked split, against plain and the oracle, under 1 % of a
+                cache copy allocated) and auto_split where the gate fires;
+                K1 timed at the ring's step shape; and the checkpoints:
+                ModelConfig() served by ServingEngine, its caches saved and
+                loaded into a fresh engine's, and a PagedServingEngine's
+                pool likewise, each bit-equal and resuming the greedy decode
+                token for token.
 
 Every phase prints kernel, plain-version, library-call and bound times
 (the bound: the larger of the bytes over 3.35 TB/s and the operations over
@@ -3773,6 +3801,554 @@ def phase_probes(card: str) -> list:
     return entries
 
 
+# Phase 22: the parallel layer, the split-decode API and the KV-cache
+# checkpoints. Four gloo ranks share the card (NCCL refuses two ranks on one
+# device), each on cuda:0; the rendezvous is a file in a temporary directory.
+PAR_RANKS = 4
+PAR_SEED = 22
+CTX_SPEC = (None, None, "context", None)  # a [B, H, S, D] tensor's sequence over the context axis
+CKPT_PROMPTS = (37, 255, 600, 900)  # phase 22's checkpoint: one prompt a slot of 4 x 1024 positions
+CKPT_BEFORE, CKPT_AFTER = 4, 8  # greedy tokens served before the checkpoint, and decoded after it
+
+
+def _ring_reference(q, k, v, do, causal: bool = True):
+    """The single-process kernels on the whole tensors: K1's output and LSE,
+    the gradients of flash_attention's autograd Function (K1, then K3 or
+    K4 + K5) for the cotangent ``do``, and the fp32 oracle's output."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+    from flash_attention_tpu_torch.ops.reference import reference_attention
+
+    with torch.no_grad():
+        out, lse = flash_attention(q, k, v, causal=causal, save_residuals=True)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    grads = torch.autograd.grad(flash_attention(*leaves, causal=causal), leaves, do)
+    oracle = _by_kv_head(lambda qh, kh, vh: reference_attention(qh, kh, vh, causal=causal), (q,), (k, v))
+    return out, lse, grads, oracle
+
+
+def _hold_ring(what: str, ref, out, grads=None, lse=None) -> dict:
+    """A ring's gathered output (and gradients, LSE) against ``_ring_reference``:
+    row by row within REL_BAR of the single-process kernels (gradients with
+    GRAD_FLOOR of their largest as the row floor), the output within
+    ORACLE_BAR of the fp32 oracle, the LSE within LSE_BAR."""
+    r_out, r_lse, r_grads, oracle = ref
+    err = {"out rel": _rel_diff(out, r_out), "out oracle": _max_diff(out, oracle)}
+    if grads is not None:
+        floor = GRAD_FLOOR * max(float(w.abs().max()) for w in r_grads)
+        err.update({f"{name} rel": _rel_diff(g, w, floor) for name, g, w in zip(("dq", "dk", "dv"), grads, r_grads)})
+    if lse is not None:
+        err["lse"] = _max_diff(lse, r_lse)
+    bar = REL_BAR["bfloat16"]
+    if not (all(err.get(f"{x} rel", 0.0) < bar for x in ("out", "dq", "dk", "dv")) and err["out oracle"] < ORACLE_BAR
+            and err.get("lse", 0.0) < LSE_BAR):
+        raise RuntimeError(f"[parallel] {what} disagrees with the single-process kernels: {err}")
+    return err
+
+
+def _ring_run(what: str, fn, q, k, v, do, mesh, used, *, perm=None, lse_zigzag=None) -> dict:
+    """``fn`` (a ring callable) on this rank's context shards of q, k, v
+    (first permuted by ``perm``: the zigzag layout) under autograd with the
+    cotangent's shard: once to warm up, then timed (forward + backward, host
+    clock to a synchronise) with every launch count at 0 before and read
+    after, which must show exactly ``used`` on the tensor-core forward.
+    Returns the time, the step's peak allocation above what the rank held
+    before it (MB), launches and the gathered output and gradients in
+    global order; with ``lse_zigzag`` (the layout of the shards) also the
+    ring's LSE from its own forward (``_ring_forward``; the public callables
+    return the output alone)."""
+    import torch
+    import torch.distributed as dist
+
+    from flash_attention_tpu_torch.parallel.mesh import gather, shard
+    from flash_attention_tpu_torch.parallel.ring import _ring_forward, inverse_permutation
+
+    local = [shard(x if perm is None else x[:, :, perm.to(x.device)], mesh, CTX_SPEC) for x in (q, k, v, do)]
+
+    def step():
+        leaves = [x.detach().requires_grad_() for x in local[:3]]
+        out = fn(*leaves)
+        return out.detach(), torch.autograd.grad(out, leaves, local[3])
+
+    step()
+    dist.barrier()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    out, grads = step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak_mb = (torch.cuda.max_memory_allocated() - held) / 1e6
+    launches, bodies = read_counts(), read_bodies()
+    check_launches(f"[parallel] rank {dist.get_rank()} {what}", launches, used)
+    check_tensor_cores(f"[parallel] rank {dist.get_rank()} {what}", bodies, "K1/K1d/K2")
+    res = [out, *grads]
+    if lse_zigzag is not None:
+        with torch.no_grad():
+            lse = _ring_forward(*local[:3], mesh.get_group("context"), True, q.shape[-1] ** -0.5, lse_zigzag)[1]
+        res.append(lse[..., None])
+    res = [gather(x, mesh, CTX_SPEC) for x in res]
+    if perm is not None:
+        inv = inverse_permutation(perm).to(q.device)
+        res = [x[:, :, inv] for x in res]
+    return {"ms": ms, "peak_mb": peak_mb, "launches": {k: n for k, n in launches.items() if n}, "out": res[0],
+            "grads": res[1:4], "lse": res[4][..., 0] if lse_zigzag is not None else None}
+
+
+def _parallel_rank(card: str) -> dict:
+    """One of phase 22's PAR_RANKS gloo ranks, every one on cuda:0. Each
+    rank builds the global inputs from the seed, takes its shards, and runs
+    the ring (contiguous and zigzag through make_ring_attention, and
+    ring_flash_attention on zigzag-layout shards) at Mistral-7B's training
+    shape forward and backward, the MHA ring (32 / 32 heads), the
+    context-parallel and head-sharded forwards, and sharded decode at
+    BASELINE config 4 over bf16, int8 and e4m3 caches; rank 0 holds every
+    gathered result against the single-process kernels on the whole tensors
+    and the fp32 oracle. Returns the rank's times, launches and transport."""
+    import functools
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from flash_attention_tpu_torch.ops.decode import decode_attention
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+    from flash_attention_tpu_torch.ops.quant import QuantizedTensor, dequantize, payload_dtype, quantize_values
+    from flash_attention_tpu_torch.ops.reference import reference_attention
+    from flash_attention_tpu_torch.parallel.mesh import gather, host_staged, make_mesh, shard
+    from flash_attention_tpu_torch.parallel.ring import make_ring_attention, ring_flash_attention, zigzag_data_layout
+    from flash_attention_tpu_torch.parallel.sharding import (
+        make_context_parallel_attention,
+        make_sharded_decode_attention,
+        make_sharded_flash_attention,
+    )
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, bf16 = dist.get_rank(), torch.bfloat16
+    ring, heads, grid = make_mesh(1, 1, PAR_RANKS), make_mesh(1, PAR_RANKS, 1), make_mesh(2, 2, 1)
+    group = ring.get_group("context")
+    staged = host_staged(group, torch.empty(1, device="cuda"))
+    report = {"rank": rank, "transport": f"{dist.get_backend(group)}: the ring's rotation through pinned host buffers "
+              f"{staged}, all_reduce and all_gather on the card's tensors", "ms": {}, "peak MB": {}, "launches": {}, "errors": {}}
+    t = TRAIN_T // PAR_RANKS
+
+    def route(hq, hkv, rows):
+        return set(_route(hq, hkv, t, t, dtype=bf16)) | set(_route(hq, hkv, rows, rows, dtype=bf16))
+
+    # The ring at Mistral-7B's training shape, GQA 32 / 8 heads, causal.
+    q, k, v, do = _bwd_inputs(PAR_SEED, 32, 8, TRAIN_T, TRAIN_T, 128, bf16, strided_do=False)
+    ref = _ring_reference(q, k, v, do) if rank == 0 else None
+    idx, _ = zigzag_data_layout(TRAIN_T, PAR_RANKS)
+    cases = {  # name: (callable, the shards' permutation, the ring's layout for its LSE, kernels)
+        "contiguous": (make_ring_attention(ring, causal=True), None, False, route(32, 8, t)),
+        "zigzag": (make_ring_attention(ring, causal=True, zigzag=True), None, None, route(32, 8, t // 2)),
+        "zigzag layout, ring_flash_attention": (
+            functools.partial(ring_flash_attention, group=group, causal=True, zigzag=True), idx, True,
+            route(32, 8, t // 2)),
+    }
+    for name, (fn, perm, lse_zigzag, used) in cases.items():
+        run = _ring_run(f"ring {name}", fn, q, k, v, do, ring, used, perm=perm, lse_zigzag=lse_zigzag)
+        report["ms"][f"ring {name}"], report["launches"][f"ring {name}"] = run["ms"], run["launches"]
+        report["peak MB"][f"ring {name}"] = run["peak_mb"]
+        if rank == 0:
+            report["errors"][f"ring {name}"] = _hold_ring(f"ring {name}", ref, run["out"], run["grads"], run["lse"])
+        del run
+
+    # Context parallel (non-causal, the KV sharded over the ring's ranks),
+    # then head-sharded K1 (model 4: 8 q and 2 kv heads a rank).
+    fn = make_context_parallel_attention(ring)
+    local = [shard(x, ring, s) for x, s in zip((q, k, v), fn.in_specs)]
+    zero_counts()
+    with torch.no_grad():
+        out = gather(fn(*local), ring, fn.out_spec)
+    report["launches"]["context parallel"] = {n: c for n, c in read_counts().items() if c}
+    check_launches(f"[parallel] rank {rank} context parallel", read_counts(), ("K1",))
+    check_tensor_cores(f"[parallel] rank {rank} context parallel", read_bodies(), "K1/K1d/K2")
+    if rank == 0:
+        with torch.no_grad():
+            nc = (flash_attention(q, k, v, causal=False, save_residuals=True),
+                  _by_kv_head(lambda qh, kh, vh: reference_attention(qh, kh, vh), (q,), (k, v)))
+        report["errors"]["context parallel"] = _hold_ring("context parallel", (*nc[0], ref[2], nc[1]), out)
+        del nc
+    fn = make_sharded_flash_attention(heads, causal=True)
+    local = [shard(x, heads, s) for x, s in zip((q, k, v), fn.in_specs)]
+    zero_counts()
+    with torch.no_grad():
+        out = gather(fn(*local), heads, fn.out_spec)
+    check_launches(f"[parallel] rank {rank} head-sharded", read_counts(), ("K1",))
+    check_tensor_cores(f"[parallel] rank {rank} head-sharded", read_bodies(), "K1/K1d/K2")
+    report["launches"]["head-sharded"] = {n: c for n, c in read_counts().items() if c}
+    if rank == 0:
+        report["errors"]["head-sharded"] = _hold_ring("head-sharded", ref, out)
+        report["errors"]["head-sharded"]["bit-identical"] = bool(torch.equal(out, ref[0]))
+    del q, k, v, do, ref, local, out
+
+    # The MHA ring (32 / 32 heads): its pairs take K3.
+    q, k, v, do = _bwd_inputs(PAR_SEED + 1, 32, 32, TRAIN_T, TRAIN_T, 128, bf16, strided_do=False)
+    ref = _ring_reference(q, k, v, do) if rank == 0 else None
+    run = _ring_run("MHA ring contiguous", make_ring_attention(ring, causal=True), q, k, v, do, ring,
+                    route(32, 32, t), lse_zigzag=False)
+    report["ms"]["MHA ring contiguous"], report["launches"]["MHA ring contiguous"] = run["ms"], run["launches"]
+    report["peak MB"]["MHA ring contiguous"] = run["peak_mb"]
+    if rank == 0:
+        report["errors"]["MHA ring contiguous"] = _hold_ring("MHA ring contiguous", ref, run["out"], run["grads"],
+                                                             run["lse"])
+    del q, k, v, do, ref, run
+
+    # Sharded decode at BASELINE config 4 (32 slots x 8192 rows), data 2 x model 2.
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    slots, rows = LONG["slots"], LONG["rows"]
+    qd = (torch_uniform((slots, 32, 128), torch.float32, gen) * 8).to(bf16)
+    lengths = torch.from_numpy(np.random.default_rng(PAR_SEED).integers(1, rows + 1, slots)).to("cuda", torch.int32)
+    lengths[:3] = torch.tensor([1, rows, rows - 1])
+    fn = make_sharded_decode_attention(grid)
+    for mode in ("bf16", "int8", "fp8_e4m3"):
+        k_x, v_x = scaled_rows((slots, 8, rows, 128), gen), scaled_rows((slots, 8, rows, 128), gen)
+        if mode == "bf16":
+            kc, vc = k_x.to(bf16), v_x.to(bf16)
+        else:
+            kc, vc = (quantize_values(x, payload_dtype(mode)) for x in (k_x, v_x))
+        del k_x, v_x
+        local = [shard(x, grid, s) for x, s in zip((qd, kc, vc, lengths), fn.in_specs)]
+        zero_counts()
+        out = gather(fn(*local), grid, fn.out_spec)
+        want = ("K6",) if mode == "bf16" else ("K6q",)
+        check_launches(f"[parallel] rank {rank} sharded decode {mode}", read_counts(), want)
+        report["launches"][f"sharded decode {mode}"] = {n: c for n, c in read_counts().items() if c}
+        if rank == 0:
+            single = decode_attention(qd, kc, vc, lengths)
+            kd, vd = (dequantize(x) if isinstance(x, QuantizedTensor) else x for x in (kc, vc))
+            oracle = reference_attention(qd[:, :, None], kd, vd, kv_length=lengths)[:, :, 0]
+            err = {"out rel": _rel_diff(out, single), "out oracle": _max_diff(out, oracle),
+                   "bit-identical": bool(torch.equal(out, single))}
+            if not (err["out rel"] < REL_BAR["bfloat16"] and err["out oracle"] < ORACLE_BAR):
+                raise RuntimeError(f"[parallel] sharded decode {mode} disagrees: {err}")
+            report["errors"][f"sharded decode {mode}"] = err
+            del single, kd, vd, oracle
+        del kc, vc, local, out
+    return report
+
+
+def _nccl_rank(card: str) -> dict:
+    """Every factory over NCCL at world size 1 (``spawn_ranks`` initialises
+    through initialize_distributed): each output, and the ring's gradients,
+    bit-identical to the single-process call on the same tensors (K1, K4 +
+    K5, K6q)."""
+    import torch
+    import torch.distributed as dist
+
+    from flash_attention_tpu_torch.ops.decode import decode_attention
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+    from flash_attention_tpu_torch.ops.quant import quantize_kv
+    from flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from flash_attention_tpu_torch.parallel.ring import make_ring_attention
+    from flash_attention_tpu_torch.parallel.sharding import (
+        make_context_parallel_attention,
+        make_sharded_decode_attention,
+        make_sharded_flash_attention,
+    )
+
+    torch.cuda.set_device(0)
+    mesh = make_mesh()
+    q, k, v, do = _bwd_inputs(PAR_SEED, 32, 8, TRAIN_T, TRAIN_T, 128, torch.bfloat16, strided_do=False)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    same = {}
+    with torch.no_grad():
+        same["make_sharded_flash_attention"] = torch.equal(make_sharded_flash_attention(mesh, causal=True)(q, k, v),
+                                                           out)
+        same["make_context_parallel_attention"] = torch.equal(make_context_parallel_attention(mesh)(q, k, v),
+                                                              flash_attention(q, k, v))
+    for zigzag in (False, True):
+        ring_leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        ring_out = make_ring_attention(mesh, causal=True, zigzag=zigzag)(*ring_leaves)
+        ring_grads = torch.autograd.grad(ring_out, ring_leaves, do)
+        same[f"make_ring_attention(zigzag={zigzag}) forward and backward"] = (
+            torch.equal(ring_out, out) and all(torch.equal(a, b) for a, b in zip(ring_grads, grads)))
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    qd = (torch_uniform((LONG["slots"], 32, 128), torch.float32, gen) * 8).to(torch.bfloat16)
+    kq, vq = quantize_kv(*(scaled_rows((LONG["slots"], 8, LONG["rows"], 128), gen) for _ in range(2)), "int8")
+    lengths = torch.full((LONG["slots"],), LONG["rows"] - 5, dtype=torch.int32, device="cuda")
+    same["make_sharded_decode_attention (int8)"] = torch.equal(make_sharded_decode_attention(mesh)(qd, kq, vq, lengths),
+                                                               decode_attention(qd, kq, vq, lengths))
+    return {"backend": dist.get_backend(mesh.get_group("context")), "same": same}
+
+
+def phase_split_api(card: str) -> dict:
+    """decode_attention_split at BASELINE config 4 (q [32,32,128] bf16 over an
+    int8 and an e4m3 cache [32,8,8192,128], rows scaled one by one, ragged
+    lengths): one K6q launch with the asked kv split, against
+    ``decode_split_plain`` and the fp32 oracle on the dequantized cache
+    (``_hold_quant``), allocating under 1 % of a bf16 copy of the cache;
+    then ``decode_attention(auto_split=True)`` where the gate fires (q
+    [1,32,128] over [1,8,16384,128] bf16): the larger of the gate's and the
+    kernel's own split, within the bars of the unsplit call and the plain
+    version, timed beside the unsplit call and the gate's count alone.
+    Returns the int8 split's kernels' line entry."""
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.ops.decode import (
+        DECODE_RUN,
+        decode_attention,
+        decode_attention_split,
+        decode_split_plain,
+        should_split_decode,
+    )
+    from flash_attention_tpu_torch.ops.quant import dequantize, payload_dtype, quantize_values
+    from flash_attention_tpu_torch.ops.reference import reference_attention_with_lse
+
+    bf16, scale, splits = torch.bfloat16, 128**-0.5, 4
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED + 2)
+    slots, rows = LONG["slots"], LONG["rows"]
+    q = (torch_uniform((slots, 32, 128), torch.float32, gen) * 8).to(bf16)
+    lengths = torch.from_numpy(np.random.default_rng(PAR_SEED + 2).integers(0, rows + 1, slots)).to("cuda", torch.int32)
+    entry = None
+    for mode in ("int8", "fp8_e4m3"):
+        kq, vq = (quantize_values(scaled_rows((slots, 8, rows, 128), gen), payload_dtype(mode)) for _ in range(2))
+        zero_counts()
+        out = decode_attention_split(q, kq, vq, lengths, num_splits=splits)
+        launches = read_counts()
+        check_launches(f"[split] decode_attention_split {mode}", launches, ("K6q",))
+        if decode_attention.last_grid[0] != splits:
+            raise RuntimeError(f"[split] K6q ran {decode_attention.last_grid[0]} splits, asked {splits}")
+        plain = decode_split_plain(q, kq, vq, lengths, splits, sm_scale=scale)
+        kd, vd = dequantize(kq), dequantize(vq)
+        oracle = reference_attention_with_lse(q[:, :, None], kd, vd, kv_length=lengths)[0][:, :, 0]
+        d_plain, d_oracle, d_rel, _ = _hold_quant(f"[split] decode_attention_split {mode}", out, plain, oracle)
+        del kd, vd, plain, oracle
+        copy_bytes = 2 * slots * 8 * rows * 128 * 2
+        extra = _no_copy(f"[split] decode_attention_split {mode}",
+                         lambda: decode_attention_split(q, kq, vq, lengths, num_splits=splits),
+                         out.numel() * out.element_size(), copy_bytes)
+        ms = cuda_ms(lambda: decode_attention_split(q, kq, vq, lengths, num_splits=splits))
+        own_ms = cuda_ms(lambda: decode_attention(q, kq, vq, lengths))
+        own_splits = decode_attention.last_grid[0]
+        plain_ms = cuda_ms(lambda: decode_split_plain(q, kq, vq, lengths, splits, sm_scale=scale), warmup=1, iters=3)
+        n_rows = int(lengths.sum())
+        nbytes = 2 * n_rows * 8 * (128 * kq.values.element_size() + 4) + 2 * 2 * q.numel() + 4 * slots
+        bound_ms, bound_by = bound(4 * 128 * 32 * n_rows, nbytes)
+        log(f"[split] decode_attention_split {mode}, q [{slots},32,128] cache [{slots},8,{rows},128], {splits} splits "
+            f"(the kernel's own count: {own_splits}), lengths 0-{rows}: |out-plain| {d_plain:.3e}, |out-oracle| "
+            f"{d_oracle:.3e} (bar {ORACLE_BAR}), row-relative {d_rel:.3e} (bar {REL_BAR['bfloat16']}); allocated "
+            f"{extra / 1e6:.3f} MB in the call (a bf16 copy: {copy_bytes / 1e6:.0f} MB); kernel {ms:.4f} ms "
+            f"({own_splits} splits: {own_ms:.4f} ms), plain {plain_ms:.4f} ms, library none, bound {bound_ms:.4f} ms "
+            f"by {bound_by} ({nbytes / 1e6:.1f} MB) ({card})")
+        if mode == "int8":
+            entry = {"name": f"decode_attention_split, K6q int8, {splits} splits, config 4", "route": "cuda",
+                     "source": "flash_attention_tpu_torch/csrc/decode.cu", "replaces": f"{REFERENCE}/ops/decode.py:56",
+                     "launches": launches["K6q"], "max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        del kq, vq, out
+
+    q1 = (torch_uniform((1, 32, 128), torch.float32, gen) * 8).to(bf16)
+    k1, v1 = (torch_uniform((1, 8, 16384, 128), bf16, gen) for _ in range(2))
+    len1 = torch.tensor([15000], dtype=torch.int32, device="cuda")
+    gate = should_split_decode(1, 8, 16384, DECODE_RUN)
+    auto = decode_attention(q1, k1, v1, len1, auto_split=True)
+    auto_splits = decode_attention.last_grid[0]
+    unsplit = decode_attention(q1, k1, v1, len1, auto_split=False)
+    own = decode_attention.last_grid[0]
+    gated = decode_attention_split(q1, k1, v1, len1, num_splits=gate)
+    plain = decode_split_plain(q1, k1, v1, len1, gate, sm_scale=scale)
+    d_rel = max(_rel_diff(auto, unsplit), _rel_diff(auto, plain), _rel_diff(gated, plain))
+    auto_ms = cuda_ms(lambda: decode_attention(q1, k1, v1, len1, auto_split=True))
+    own_ms = cuda_ms(lambda: decode_attention(q1, k1, v1, len1, auto_split=False))
+    gate_ms = cuda_ms(lambda: decode_attention_split(q1, k1, v1, len1, num_splits=gate))
+    log(f"[split] decode_attention(auto_split=True), q [1,32,128] cache [1,8,16384,128] bf16, length 15000: ran "
+        f"{auto_splits} splits (the larger of the gate's {gate} and the kernel's own {own}) in {auto_ms:.4f} ms; "
+        f"auto_split=False ({own} splits) {own_ms:.4f} ms; the gate's {gate} splits alone (decode_attention_split) "
+        f"{gate_ms:.4f} ms; row-relative to the unsplit call and plain {d_rel:.3e} (bar {REL_BAR['bfloat16']}) ({card})")
+    if auto_splits != max(gate, own) or d_rel >= REL_BAR["bfloat16"]:
+        raise RuntimeError("[split] auto_split did not take the larger of the gate's and the kernel's splits, "
+                           "or disagrees")
+    return entry
+
+
+def _greedy(step, params, cfg, tok, caches, n: int) -> list:
+    """``n`` greedy decode steps (``step``: decode_step or decode_step_paged)
+    from the tokens ``tok`` [S, 1]; the tokens of each step."""
+    out = []
+    for _ in range(n):
+        tok, caches = step(params, cfg, tok, caches)
+        out.append(tok[:, 0].tolist())
+    return out
+
+
+def _check_restored(what: str, saved, restored) -> None:
+    """Every leaf of ``restored`` has ``saved``'s device and bytes."""
+    import torch
+
+    from flash_attention_tpu_torch.utils.checkpoint import _leaves
+
+    a, b = _leaves(saved), _leaves(restored)
+    if len(a) != len(b) or not all(x.device == y.device and torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                                   for x, y in zip(a, b)):
+        raise RuntimeError(f"[checkpoint] {what}: the restored cache differs from the saved one")
+
+
+def phase_checkpoint(card: str) -> None:
+    """ModelConfig() at full width, bf16, weights from seed 0: ServingEngine
+    serves one prompt a slot (4 x 1024 positions, CKPT_BEFORE greedy tokens),
+    its caches go to a file (save_kv_cache) and come back into a fresh
+    engine's template (load_kv_cache), bit for bit on the card; CKPT_AFTER
+    greedy decode steps from the restored caches give the tokens of the same
+    steps from the live ones. Then the same for a PagedServingEngine's pool,
+    filled through the engine's allocator and the model's paged prefill."""
+    import gc
+    import pathlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.models.transformer import (
+        ModelConfig,
+        decode_step,
+        decode_step_paged,
+        init_model_params,
+        prefill_paged,
+    )
+    from flash_attention_tpu_torch.serving.engine import Request, ServingEngine
+    from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
+    from flash_attention_tpu_torch.utils.checkpoint import load_kv_cache, save_kv_cache
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ModelConfig()
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    rng = np.random.default_rng(PAR_SEED)
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n)) for n in CKPT_PROMPTS]
+    with tempfile.TemporaryDirectory(prefix="fat_ckpt.") as tmp, torch.no_grad():
+        # One decode step a block, not pipelined: a slot's cache ends at its
+        # prompt and the tokens written (all but the last), which tell its request.
+        eng = ServingEngine(params, cfg, max_slots=len(prompts), max_seq=1024, prefill_chunk=256,
+                            decode_block_steps=1, pipeline_decode=False)
+        done = eng.run([Request(id=i, prompt=p, max_new_tokens=CKPT_BEFORE) for i, p in enumerate(prompts)])
+        by_length = {len(p) + CKPT_BEFORE - 1: done[i].tokens[-1] for i, p in enumerate(prompts)}
+        tok = torch.tensor([[by_length[n]] for n in eng.caches[0].lengths.tolist()], dtype=torch.int32, device="cuda")
+        path = pathlib.Path(tmp) / "dense.npz"
+        t0 = time.perf_counter()
+        save_kv_cache(path, eng.caches)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = load_kv_cache(path, ServingEngine(params, cfg, max_slots=len(prompts), max_seq=1024).caches)
+        t_load = time.perf_counter() - t0
+        _check_restored("dense", eng.caches, restored)
+        live = _greedy(decode_step, params, cfg, tok, eng.caches, CKPT_AFTER)
+        resumed = _greedy(decode_step, params, cfg, tok, restored, CKPT_AFTER)
+        log(f"[checkpoint] ServingEngine, ModelConfig(), {len(prompts)} slots x 1024: {path.stat().st_size / 1e6:.1f} MB "
+            f"saved in {t_save:.2f} s, loaded into a fresh engine's caches in {t_load:.2f} s, every leaf bit-equal; "
+            f"{CKPT_AFTER} greedy steps resumed == uninterrupted: {resumed == live} ({card})")
+        if resumed != live:
+            raise RuntimeError(f"[checkpoint] dense: resumed tokens {resumed} != uninterrupted {live}")
+        del eng, restored
+        gc.collect()
+
+        page, per_slot = 128, 1024 // 128
+        peng = PagedServingEngine(params, cfg, max_slots=len(prompts), num_pages=len(prompts) * per_slot + 1,
+                                  pages_per_slot=per_slot, page_size=page)
+        pool, toks = peng.caches, []
+        for slot, p in enumerate(prompts):
+            n_pages = -(-(len(p) + CKPT_BEFORE + CKPT_AFTER) // page)
+            pool.page_table[slot, :n_pages] = torch.tensor(peng.alloc.acquire(n_pages), dtype=torch.int32)
+            padded = torch.zeros((1, -(-len(p) // page) * page), dtype=torch.int64, device="cuda")
+            padded[0, :len(p)] = torch.tensor(p)
+            logits, pool = prefill_paged(params, cfg, padded, pool, slot, len(p))
+            toks.append(int(torch.argmax(logits[0, len(p) - 1])))
+        tok = torch.tensor(toks, dtype=torch.int32, device="cuda")[:, None]
+        for _ in range(CKPT_BEFORE - 1):
+            tok, pool = decode_step_paged(params, cfg, tok, pool)
+        path = pathlib.Path(tmp) / "paged.npz"
+        save_kv_cache(path, pool)
+        fresh = PagedServingEngine(params, cfg, max_slots=len(prompts), num_pages=len(prompts) * per_slot + 1,
+                                   pages_per_slot=per_slot, page_size=page)
+        restored = load_kv_cache(path, fresh.caches)
+        _check_restored("paged", pool, restored)
+        live = _greedy(decode_step_paged, params, cfg, tok, pool, CKPT_AFTER)
+        resumed = _greedy(decode_step_paged, params, cfg, tok, restored, CKPT_AFTER)
+        log(f"[checkpoint] PagedServingEngine's pool, {len(prompts)} slots x {per_slot} pages of {page}: "
+            f"{path.stat().st_size / 1e6:.1f} MB, every leaf bit-equal on reload; {CKPT_AFTER} greedy steps resumed == "
+            f"uninterrupted: {resumed == live} ({card})")
+        if resumed != live:
+            raise RuntimeError(f"[checkpoint] paged: resumed tokens {resumed} != uninterrupted {live}")
+    del params, peng, fresh, pool, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_parallel(card: str) -> list:
+    """Phase 22: the four-rank run (``_parallel_rank``) and the NCCL
+    world-size-1 run (``_nccl_rank``), each in processes of its own
+    (``spawn_ranks``; the kernels are built already, so each rank loads
+    them), then the split-decode API and the checkpoints in this process.
+    Prints each rank's ring times (forward + backward, information: the four
+    ranks share one card) and peak allocations. Returns the kernels' line entries: K1 at the
+    ring's step shape and the int8 split decode."""
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from flash_attention_tpu_torch.utils.distributed import spawn_ranks
+    from flash_attention_tpu_torch.utils.testing import make_qkv
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reports = spawn_ranks(_parallel_rank, PAR_RANKS, card, backend="gloo", timeout_s=900)
+    log(f"[parallel] {PAR_RANKS} gloo ranks on one card ({reports[0]['transport']}); ring q [1,32,{TRAIN_T},128] "
+        f"kv [1,8,{TRAIN_T},128] bf16 causal, {TRAIN_T // PAR_RANKS} rows a rank; {time.perf_counter() - t0:.1f} s")
+    for name, err in reports[0]["errors"].items():
+        log(f"[parallel] {name} against the single-process kernels and the fp32 oracle: "
+            + ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}" for k, v in err.items())
+            + f" (bars: row-relative {REL_BAR['bfloat16']}, oracle {ORACLE_BAR}, lse {LSE_BAR})")
+    for r in reports:
+        log(f"[parallel] rank {r['rank']} forward + backward ms (information, ranks share the card): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in r["ms"].items()) + "; the step's peak allocation above what the "
+            "rank held, MB: " + ", ".join(f"{k} {v:.1f}" for k, v in r["peak MB"].items())
+            + f"; launches {r['launches']} ({card})")
+    t0 = time.perf_counter()
+    nccl = spawn_ranks(_nccl_rank, 1, card, backend="nccl", timeout_s=300)[0]
+    log(f"[parallel] world size 1 over {nccl['backend']}: bit-identical to the single-process call: {nccl['same']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not all(nccl["same"].values()):
+        raise RuntimeError(f"[parallel] a factory at world size 1 differs from its single-process call: {nccl['same']}")
+
+    # K1 at the ring's off-diagonal step: q [1,32,2048,128] against a kv chunk [1,8,2048,128], non-causal, with LSE.
+    s = TRAIN_T // PAR_RANKS
+    q, k, v = make_qkv(PAR_SEED, 1, 32, s, 128, num_kv_heads=8, dtype=torch.bfloat16, device="cuda")
+    out, lse = flash_attention(q, k, v, save_residuals=True)
+    p_out, p_lse = flash_attention_plain(q, k, v, causal=False, sm_scale=128**-0.5, save_residuals=True)
+    d_plain, d_rel = _max_diff(out, p_out), _rel_diff(out, p_out)
+    if d_rel >= REL_BAR["bfloat16"] or _max_diff(lse, p_lse) >= LSE_BAR:
+        raise RuntimeError("[parallel] K1 at the ring's step shape disagrees with its plain version")
+    ms = cuda_ms(lambda: flash_attention(q, k, v, save_residuals=True))
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=False, sm_scale=128**-0.5, save_residuals=True))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True))
+    flops, nbytes = 4 * 128 * 32 * s * s, 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
+    bound_ms, bound_by = bound(flops, nbytes)
+    launches = sum(n.get("K1", 0) for key, n in reports[0]["launches"].items() if "ring" in key and "MHA" not in key)
+    log(f"[parallel] K1 at the ring's step, q [1,32,{s},128] kv [1,8,{s},128] non-causal + lse: |out-plain| "
+        f"{d_plain:.3e}, row-relative {d_rel:.3e}; kernel {ms:.4f} ms ({_rates(flops, ms)}), plain {plain_ms:.4f} ms, "
+        f"SDPA (library) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}; rank 0 launched K1 {launches} times "
+        f"in the GQA rings ({card})")
+    ring_entry = {"name": f"fwd_kernel, wgmma + TMA (K1), ring step q [1,32,{s},128] kv [1,8,{s},128]",
+                  "route": "cuda", "source": "flash_attention_tpu_torch/csrc/flash_fwd_sm90.cu",
+                  "replaces": f"{REFERENCE}/ops/flash_attention.py:57", "launches": launches, "max_abs_err": d_plain,
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    del q, k, v, out, lse, p_out, p_lse
+    split_entry = phase_split_api(card)
+    phase_checkpoint(card)
+    return [ring_entry, split_entry]
+
+
 def main() -> None:
     import torch
 
@@ -3840,8 +4416,10 @@ def main() -> None:
     masked = [{"name": names[key][0], "route": "cuda", "source": source + names[key][1],
                "replaces": f"{REFERENCE}/{names[key][2]}", **masked[key]} for key in names]
     probes = phase_probes(card)
+    parallel = phase_parallel(card)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k1t, k6, k7, k8, k10, *quant.values(), *bwd.values(), *masked, *probes]}))
+    print(json.dumps({"kernels": [k1, k1t, k6, k7, k8, k10, *quant.values(), *bwd.values(), *masked, *probes,
+                                  *parallel]}))
     print(card)
     print(json.dumps({
         "ok": True,

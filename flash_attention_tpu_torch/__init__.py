@@ -9,7 +9,10 @@ its layout so each module's counterpart is found by name:
   serving/   continuous-batching engine, sampling, scheduler wrapper
   native/    the C++ scheduler, allocator and oracle sources and their
              ctypes loader
-  utils/     seeded inputs and the oracle-diff harness
+  parallel/  the (data, model, context) mesh on torch.distributed, head /
+             batch / context sharding, ring attention with its backward
+  utils/     seeded inputs, the oracle-diff harness, KV-cache checkpoints
+             and the multi-process failure policy
 
 Public layouts follow the JAX package: attention tensors are [B, H, S, D],
 caches [B, Hkv, max_seq, D], decode queries [B, Hq, D]. Importing the package
@@ -18,19 +21,27 @@ top level exports the names of the JAX package's ``__all__`` that are ported,
 with the JAX package's keywords.
 """
 
-from flash_attention_tpu_torch.ops.decode import decode_attention
+from flash_attention_tpu_torch.ops.decode import decode_attention, decode_attention_split
 from flash_attention_tpu_torch.ops.flash_attention import flash_attention
 from flash_attention_tpu_torch.ops.merge import merge_partial_attention, merge_two
 from flash_attention_tpu_torch.ops.quant import QuantizedTensor, quantize_kv, quantize_weight
 from flash_attention_tpu_torch.ops.reference import reference_attention
+from flash_attention_tpu_torch.utils.checkpoint import load_kv_cache, save_kv_cache
+from flash_attention_tpu_torch.utils.distributed import StepWatchdog, fail_fast, initialize_distributed
 
 __all__ = [
     "reference_attention",
     "flash_attention",
     "decode_attention",
+    "decode_attention_split",
     "quantize_weight",
     "merge_partial_attention",
     "merge_two",
     "QuantizedTensor",
     "quantize_kv",
+    "save_kv_cache",
+    "load_kv_cache",
+    "initialize_distributed",
+    "fail_fast",
+    "StepWatchdog",
 ]

@@ -23,8 +23,14 @@ live rows. The kernel splits each sequence's live rows over several blocks
 (flash-decoding) when batch x kv heads blocks would leave the card idle:
 ``decode_kv_splits`` chooses the count from the shapes alone, and the kernel
 merges the splits itself, in a fixed order, in the same launch.
-``decode_attention_split``, the JAX package's public API over a host-side
-split, is queued in ROADMAP.md (item 4).
+
+The JAX package's public split API is here too: ``decode_attention_split``
+(num_splits), ``should_split_decode`` and ``decode_attention(auto_split=...)``.
+Where JAX copies the cache into [B * splits, ...] pieces and merges them
+after the kernel, the port hands the count to K6's own split, so no cache
+byte is copied; on the CPU the plain path cuts the rows as the kernel does
+(``decode_split_runs``) and merges the parts with
+``ops.merge.merge_partial_attention``.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from flash_attention_tpu_torch.ops.common import (
     softcap2,
     tma_aligned,
 )
+from flash_attention_tpu_torch.ops.merge import merge_partial_attention
 from flash_attention_tpu_torch.ops.quant import QuantizedTensor, dequantize
 
 
@@ -215,29 +222,52 @@ def decode_attention_plain(
     where it sees none. The softcap maps the score to cap * tanh(qk *
     sm_scale / cap) before the mask. A quantized cache is dequantized to
     fp32 first."""
+    live = visible_rows(lengths.to(q.device), k_cache.shape[2], sliding_window=sliding_window,
+                        ring_buffer=ring_buffer, attention_sinks=attention_sinks)
+    out, lse = _attend_rows(q, k_cache, v_cache, live, sm_scale, logit_softcap)
+    out = out.to(q.dtype)
+    return (out, lse) if save_residuals else out
+
+
+def _attend_rows(q, k_cache, v_cache, live, sm_scale: float, logit_softcap=None):
+    """fp32 (output, base-2 LSE) of q [B, Hq, D] over the cache rows that
+    ``live`` [B, rows] admits; 0 and -inf where it admits none."""
     if isinstance(k_cache, QuantizedTensor):
         k_cache, v_cache = dequantize(k_cache), dequantize(v_cache)
     batch, num_q_heads, head_dim = q.shape
-    num_kv_heads, max_seq = k_cache.shape[1], k_cache.shape[2]
-    group = num_q_heads // num_kv_heads
-    qg = q.float().reshape(batch, num_kv_heads, group, head_dim)
+    num_kv_heads = k_cache.shape[1]
+    qg = q.float().reshape(batch, num_kv_heads, num_q_heads // num_kv_heads, head_dim)
     if logit_softcap is None:
         s2 = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float()) * (sm_scale * LOG2E)
     else:
         s = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float()) * sm_scale
         s2 = logit_softcap * torch.tanh(s / logit_softcap) * LOG2E
-    live = visible_rows(lengths.to(q.device), max_seq, sliding_window=sliding_window, ring_buffer=ring_buffer,
-                        attention_sinks=attention_sinks)
     s2 = torch.where(live[:, None, None, :], s2, MASK_VALUE)
     m = s2.amax(dim=-1, keepdim=True).clamp_min(M_FLOOR)
     p = torch.exp2(s2 - m)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float())
-    out = torch.where(l == 0, 0.0, acc / l).reshape(batch, num_q_heads, head_dim).to(q.dtype)
-    if not save_residuals:
-        return out
+    out = torch.where(l == 0, 0.0, acc / l).reshape(batch, num_q_heads, head_dim)
     lse = torch.where(l == 0, -torch.inf, m + torch.log2(l))
     return out, lse.reshape(batch, num_q_heads)
+
+
+def decode_split_plain(q, k_cache, v_cache, lengths, splits: int, *, sm_scale: float) -> torch.Tensor:
+    """What K6 computes with ``splits`` splits, in plain fp32 PyTorch: each
+    split attends over the rows it walks (``decode_split_runs``, the
+    kernel's cut) below its sequence's length, and the parts merge with
+    ``merge_partial_attention``. Equals ``decode_attention_plain`` up to the
+    order of the sums."""
+    rows = k_cache.shape[2]
+    visible = visible_rows(lengths.to(q.device), rows)
+    walked = torch.zeros((splits, *visible.shape), dtype=torch.bool, device=q.device)
+    for b, length in enumerate(lengths.tolist()):
+        for s, runs in enumerate(decode_split_runs(length, splits, rows=rows)):
+            for r0, count in runs:
+                walked[s, b, r0:r0 + count] = True
+    parts = [_attend_rows(q, k_cache, v_cache, visible & walked[s], sm_scale) for s in range(splits)]
+    out, _ = merge_partial_attention(torch.stack([o for o, _ in parts]), torch.stack([x for _, x in parts]))
+    return out.to(q.dtype)
 
 
 def decode_attention(
@@ -252,6 +282,7 @@ def decode_attention(
     logit_softcap: float | None = None,
     ring_buffer: bool = False,
     attention_sinks: int = 0,
+    auto_split: bool = False,
 ):
     """Single-token decode attention over a dense KV cache.
 
@@ -273,10 +304,57 @@ def decode_attention(
         region) must hold, and a 128-multiple max_seq.
       attention_sinks: StreamingLLM sinks in front of a ring: rows [0,
         ceil_to(sinks, 128)) hold positions [0, sinks), always attended.
+      auto_split: the JAX package's opt-in flash-decoding gate. Without
+        masks or residuals, where ``should_split_decode`` fires, each
+        sequence is split at least the gate's count of ways: on the card
+        the larger of that count and the kernel's own ``decode_kv_splits``
+        count (the gate's at most 4 splits alone leave most SMs idle at the
+        small batches where it fires), on the CPU the gate's count (the
+        plain split path). Otherwise, and with ``auto_split=False``, the
+        kernel keeps its own count. Either choice moves only the order in
+        which the output's sums are taken.
 
     Returns:
       [batch, q_heads, head_dim] in q's dtype, plus the LSE if asked.
     """
+    return _decode(q, k_cache, v_cache, lengths, sm_scale=sm_scale, save_residuals=save_residuals,
+                   sliding_window=sliding_window, logit_softcap=logit_softcap, ring_buffer=ring_buffer,
+                   attention_sinks=attention_sinks, auto_split=auto_split)
+
+
+def should_split_decode(batch: int, num_kv_heads: int, max_seq: int, block_kv: int) -> int:
+    """The JAX package's flash-decoding gate (0 = no split): a split count
+    of at most 4 that divides max_seq, for at most 16 batch x kv-head rows
+    over at least 8192 rows. ``decode_attention(auto_split=True)`` asks it
+    with block_kv = DECODE_RUN, the rows a step of K6 copies."""
+    if batch * num_kv_heads > 16 or max_seq < 8192:
+        return 0
+    max_by_len = max(1, max_seq // (2 * block_kv))
+    splits = min(4, max_by_len)
+    while splits > 1 and max_seq % splits:
+        splits -= 1
+    return splits if splits > 1 else 0
+
+
+def decode_attention_split(q: torch.Tensor, k_cache, v_cache, lengths: torch.Tensor, *, num_splits: int = 4,
+                           sm_scale: float | None = None) -> torch.Tensor:
+    """Flash-decoding with ``num_splits`` parts a sequence: K6 (K6q over a
+    QuantizedTensor cache) launched with that kv split, its parts merged in
+    the same launch, and no copy of the cache. Arguments as
+    ``decode_attention``; max_seq must divide into ``num_splits``, as in the
+    JAX package. On the CPU, ``decode_split_plain``."""
+    k_vals = split_quant(k_cache)[0]
+    if num_splits < 1:
+        raise ValueError(f"num_splits must be >= 1, got {num_splits}")
+    if k_vals.ndim == 4 and k_vals.shape[2] % num_splits:
+        raise ValueError(f"max_seq={k_vals.shape[2]} % num_splits={num_splits} != 0")
+    return _decode(q, k_cache, v_cache, lengths, sm_scale=sm_scale, num_splits=num_splits)
+
+
+def _decode(q, k_cache, v_cache, lengths, *, sm_scale=None, save_residuals=False, sliding_window=None,
+            logit_softcap=None, ring_buffer=False, attention_sinks=0, auto_split=False, num_splits=None):
+    """decode_attention's checks and launch; ``num_splits`` fixes the kv
+    split, else ``decode_kv_splits`` (at least ``auto_split``'s count)."""
     k_vals, k_scales = split_quant(k_cache)
     v_vals, v_scales = split_quant(v_cache)
     if q.ndim != 3 or k_vals.ndim != 4:
@@ -312,7 +390,12 @@ def decode_attention(
         sm_scale = 1.0 / math.sqrt(head_dim)
     masks = dict(sliding_window=sliding_window, logit_softcap=logit_softcap, ring_buffer=ring_buffer,
                  attention_sinks=attention_sinks)
+    gate = 0
+    if num_splits is None and auto_split and not save_residuals and not any(masks.values()):
+        gate = should_split_decode(batch, num_kv_heads, max_seq, DECODE_RUN)
     if q.device.type == "cpu":
+        if num_splits or gate:
+            return decode_split_plain(q, k_cache, v_cache, lengths, num_splits or gate, sm_scale=sm_scale)
         return decode_attention_plain(
             q, k_cache, v_cache, lengths, sm_scale=sm_scale, save_residuals=save_residuals, **masks
         )
@@ -333,7 +416,7 @@ def decode_attention(
     if out.numel():
         group = num_q_heads // num_kv_heads
         span = decode_span_rows(max_seq, sliding_window=sliding_window, ring_buffer=ring_buffer)
-        splits = decode_kv_splits(batch, num_kv_heads, group, span, sm_count(q.device))
+        splits = num_splits or max(gate, decode_kv_splits(batch, num_kv_heads, group, span, sm_count(q.device)))
         ws, ws_ptr, tickets = split_buffers(q.device, batch, num_q_heads, num_kv_heads, head_dim, splits)
         lib = _build.kernels()
         with _build.on_device(q.device):

@@ -40,6 +40,11 @@ from flash_attention_tpu_torch.serving.decode_loop import (
 from flash_attention_tpu_torch.serving.sampling import GREEDY, SamplingParams, sample_tokens
 from flash_attention_tpu_torch.serving.scheduler import ContinuousBatchScheduler
 
+# Sharded caches need a tensor-parallel model (column- and row-parallel
+# projections, an all-reduce after the output projection), which the port
+# does not have yet.
+SHARD_ITEM = "ROADMAP.md queue 1 item 8b (a tensor-parallel model behind shard_caches)"
+
 
 @dataclasses.dataclass(frozen=True)
 class Request:
@@ -78,6 +83,8 @@ class ServingEngine:
       prefill_chunk: tokens per prefill chunk; with attention sinks at most
         sliding_window - attention_sinks, so every chunk past the window
         starts after the sinks.
+      shard_caches: the JAX engine's hook that places the fresh caches on a
+        device mesh; not ported (``SHARD_ITEM``), must be None.
       decode_block_steps: most decode steps per block (one readback each).
       pipeline_decode: dispatch block i+1 before reading block i's tokens.
     """
@@ -91,9 +98,12 @@ class ServingEngine:
         max_seq: int,
         eos_id: int | None = None,
         prefill_chunk: int = 256,
+        shard_caches=None,
         decode_block_steps: int = 16,
         pipeline_decode: bool = True,
     ):
+        if shard_caches is not None:
+            raise NotImplementedError(f"shard_caches is not ported yet: {SHARD_ITEM}")
         chunk = min(prefill_chunk, max_seq)
         if cfg.attention_sinks:
             chunk = min(chunk, cfg.sliding_window - cfg.attention_sinks)

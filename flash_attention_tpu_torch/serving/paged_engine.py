@@ -49,9 +49,7 @@ from flash_attention_tpu_torch.serving.decode_loop import (
     run_decode_block,
     start_prefill,
 )
-from flash_attention_tpu_torch.serving.engine import Completion, Request, ServingEngine
-
-SHARD_ITEM = "ROADMAP.md queue 1 item 8 (parallel)"
+from flash_attention_tpu_torch.serving.engine import SHARD_ITEM, Completion, Request, ServingEngine
 
 
 class PagedServingEngine(ServingEngine):
@@ -70,7 +68,7 @@ class PagedServingEngine(ServingEngine):
       eos_id: optional end-of-sequence token.
       prefill_chunk: tokens per prefill chunk (rounded up to a page multiple).
       decode_block_steps, pipeline_decode: as in ServingEngine.
-      shard_caches: not ported (ROADMAP.md item 8); must be None.
+      shard_caches: not ported (``serving.engine.SHARD_ITEM``); must be None.
       prefix_cache: share identical prompt-prefix pages across requests.
         Full prompt pages register by chained content hash when their
         prefill completes; a later request with a matching prefix points its

@@ -663,6 +663,62 @@ def mha_bwd(card: str) -> dict:
     return {"ms": t["K3"], **t}
 
 
+def _gloo_cuda_rank() -> dict:
+    """One of two gloo ranks on cuda:0: which collectives of this torch's
+    gloo take CUDA tensors as they are. Each is tried once and its outcome
+    printed as it comes (a transport that aborts the process leaves the
+    earlier lines): this answers a question, and the parallel layer never
+    keys on it (it stages CUDA tensors through host buffers over gloo)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    rank, peer = dist.get_rank(), 1 - dist.get_rank()
+    out = {}
+
+    def attempt(name, fn):
+        print(f"[gloo cuda] rank {rank}: {name} of a CUDA tensor ...", flush=True)
+        try:
+            out[name] = f"carried: {fn()}"
+        except Exception as e:  # the answer sought
+            out[name] = f"refused: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+        print(f"[gloo cuda] rank {rank}: {name}: {out[name]}", flush=True)
+
+    def all_reduce():
+        x = torch.full((4,), rank + 1.0, device="cuda")
+        dist.all_reduce(x)
+        return x.tolist()
+
+    def all_gather():
+        parts = [torch.empty(2, device="cuda") for _ in range(2)]
+        dist.all_gather(parts, torch.full((2,), float(rank), device="cuda"))
+        return [p.tolist() for p in parts]
+
+    def isend_irecv():
+        recv = torch.empty(3, device="cuda")
+        works = dist.batch_isend_irecv([dist.P2POp(dist.isend, torch.full((3,), float(rank), device="cuda"), peer),
+                                        dist.P2POp(dist.irecv, recv, peer)])
+        for w in works:
+            w.wait()
+        return recv.tolist()
+
+    for name, fn in (("all_reduce", all_reduce), ("all_gather", all_gather), ("isend/irecv", isend_irecv)):
+        attempt(name, fn)
+        dist.barrier()
+    return out
+
+
+def gloo_cuda(card: str) -> None:
+    """Whether this torch's gloo carries CUDA tensors through all_reduce,
+    all_gather and isend / irecv (two ranks on the card)."""
+    import torch
+
+    from flash_attention_tpu_torch.utils.distributed import spawn_ranks
+
+    for rank, res in enumerate(spawn_ranks(_gloo_cuda_rank, 2, backend="gloo", timeout_s=180)):
+        print(f"[gloo cuda] torch {torch.__version__}, rank {rank}: {res} ({card})", flush=True)
+
+
 def _one(funcs: list[str]) -> None:
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs

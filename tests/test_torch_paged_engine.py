@@ -195,7 +195,7 @@ def test_unported_options_raise(model, field, value, kw):
     if field is not None:
         tcfg = dataclasses.replace(tcfg, **{field: value})
     if field is None:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 8b"):
             torch_paged.PagedServingEngine(tparams, tcfg, **POOL, **kw)
     elif field == "attention_sinks":
         with pytest.raises(ValueError, match="requires sliding_window"):

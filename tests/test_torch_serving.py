@@ -159,3 +159,12 @@ def test_sampling_is_reproducible_and_truncated():
     assert set(draws) <= top3 and len(set(draws)) > 1
     with pytest.raises(ValueError):
         SamplingParams(top_p=0.0)
+
+
+def test_shard_caches_is_the_jax_keyword_and_raises(model):
+    """The dense engine takes the JAX engine's ``shard_caches`` keyword; a
+    hook raises, naming the ROADMAP.md item that ports it."""
+    _, _, tcfg, tparams = model
+    torch_engine.ServingEngine(tparams, tcfg, max_slots=1, max_seq=64, shard_caches=None)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 8b"):
+        torch_engine.ServingEngine(tparams, tcfg, max_slots=1, max_seq=64, shard_caches=lambda caches: caches)

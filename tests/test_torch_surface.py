@@ -3,8 +3,7 @@
 Every name of the JAX package's ``__all__`` that the port has ported imports
 from the port's top level, is in its ``__all__``, and takes the JAX
 package's keywords, apart from the TPU kernels' tiling and interpreter
-switches (and split decode, not ported yet); calls written with JAX's
-keywords give JAX's results. Quantized payloads and scales are compared bit
+switches; calls written with JAX's keywords give JAX's results. Quantized payloads and scales are compared bit
 for bit, attention outputs within 1e-4 (fp32, summed in another order).
 """
 
@@ -22,10 +21,11 @@ from flash_attention_tpu_torch.ops import quant as port_quant
 
 FP32_TOL = 1e-4
 PORTED = ("reference_attention", "flash_attention", "decode_attention", "quantize_weight",
-          "merge_partial_attention", "merge_two", "QuantizedTensor", "quantize_kv")
+          "merge_partial_attention", "merge_two", "QuantizedTensor", "quantize_kv", "decode_attention_split",
+          "save_kv_cache", "load_kv_cache", "initialize_distributed", "fail_fast", "StepWatchdog")
 # Keywords of the JAX functions that steer the Pallas kernels' tiling and
-# the interpreter, or split decode (decode_attention_split, not ported).
-TPU_KNOBS = {"block_sizes", "bwd_block_sizes", "interpret", "block_kv", "d64_unpadded", "auto_split"}
+# the interpreter.
+TPU_KNOBS = {"block_sizes", "bwd_block_sizes", "interpret", "block_kv", "d64_unpadded"}
 
 
 def test_ported_names_are_the_jax_packages():
@@ -109,4 +109,16 @@ def test_attention_with_jax_keywords():
                attention_sinks=0)
     want = np.asarray(jax_pkg.decode_attention(jnp.asarray(q[:, :, 0]), j[1], j[2], jnp.asarray(lengths), **dkw))
     got = port.decode_attention(torch.from_numpy(q[:, :, 0].copy()), t[1], t[2], torch.from_numpy(lengths), **dkw)
+    assert np.abs(got.numpy() - want).max() <= FP32_TOL
+
+
+def test_split_decode_with_jax_keywords():
+    q, k, v = _rng_array(10, (2, 4, 32), 0.5), _rng_array(11, (2, 2, 512, 32), 0.5), _rng_array(12, (2, 2, 512, 32), 0.5)
+    lengths = np.array([7, 400], np.int32)
+    kw = dict(num_splits=4, sm_scale=0.3)
+    want = np.asarray(jax_pkg.decode_attention_split(*(jnp.asarray(x) for x in (q, k, v, lengths)), block_kv=128, **kw))
+    got = port.decode_attention_split(*(torch.from_numpy(x) for x in (q, k, v, lengths)), **kw)
+    assert np.abs(got.numpy() - want).max() <= FP32_TOL
+    want = np.asarray(jax_pkg.decode_attention(*(jnp.asarray(x) for x in (q, k, v, lengths)), auto_split=True, sm_scale=0.3))
+    got = port.decode_attention(*(torch.from_numpy(x) for x in (q, k, v, lengths)), auto_split=True, sm_scale=0.3)
     assert np.abs(got.numpy() - want).max() <= FP32_TOL
