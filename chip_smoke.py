@@ -218,6 +218,34 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 loaded into a fresh engine's, and a PagedServingEngine's
                 pool likewise, each bit-equal and resuming the greedy decode
                 token for token.
+ 23. sharded serving — tensor-parallel serving behind both engines'
+                shard_caches (parallel.sharding.make_cache_sharding): (a)
+                one NCCL rank, ModelConfig() on phase 5's weights: the dense
+                and paged engines on a one-rank mesh give phase 5's and
+                phase 8's tokens, and their models' logits (a 1,024-token
+                prefill, 8 decode steps, dense and paged) are the
+                single-process model's bit for bit; (b) four gloo ranks
+                sharing the card at full width, each building the global
+                weights in turn and keeping its shards: the dense engine on
+                data 2 x model 2 and the paged one on model 4 serve phase
+                5's requests (tokens the same on every rank; agreement with
+                phases 5 / 8 printed, with the step where a request parts);
+                each layer's attention and MLP outputs of the model-4 shards
+                on the single-process model's own input to that layer within
+                REL_BAR of the single-process model's; the 32 layers' logits
+                of the model-2 shards (dense path) and the model-4 shards
+                (dense and paged paths) no farther from the same weights in
+                fp32 than TP_FP32_SLACK times the single-process bf16
+                model's distance on the same path, the same bits on every
+                rank; (c) tests/test_sharded_serving.py's fp32 config on
+                eight gloo ranks (data 2 x model 4), token-identical to the
+                unsharded engines on the card; (d) K1 and K6 at a model-2
+                shard's shapes (16 q / 4 kv heads, the dense engine's 4
+                local slots) and K1, K6, K7 and K8 at a model-4 shard's (8 q
+                / 2 kv heads) against plain, the oracle and the LSE, timed
+                beside plain, SDPA and the bound, each shape its own entry
+                with rank 0's launches at that shard in (b).
+                Each part's wall time and each rank's launches are printed.
 
 Every phase prints kernel, plain-version, library-call and bound times
 (the bound: the larger of the bytes over 3.35 TB/s and the operations over
@@ -824,7 +852,7 @@ def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | No
     numbers = {
         "prefill_tok_s": n_prompt / prefill_s, "decode_tok_s": eng.decode_tokens / eng.decode_time_s,
         "peak_gib": peak / 2**30, "cache_gb": _nbytes([(c.k, c.v, c.k_scales, c.v_scales) for c in eng.caches]) / 1e9,
-        "weights_gb": _nbytes(params) / 1e9,
+        "weights_gb": _nbytes(params) / 1e9, "tokens": {rid: c.tokens for rid, c in done.items()},
     }
     decode_tokens, decode_s = eng.decode_tokens, eng.decode_time_s
     del eng
@@ -1453,7 +1481,7 @@ def serve_full_paged(card: str, label: str, cfg, params, *, used, dense: dict, r
 
     n_prompt = sum(FULL_PROMPT_LENS)
     numbers = {"prefill_tok_s": n_prompt / prefill_s, "decode_tok_s": a_decode[0] / a_decode[1], "peak_gib": peak / 2**30,
-               "cache_gb": pool_gb}
+               "cache_gb": pool_gb, "tokens": {rid: c.tokens for rid, c in run_a.items()}}
 
     def beside(key: str, fmt: str = ".1f") -> str:
         also = "" if ref is None else f"; bf16 paged, phase 8: {ref[key]:{fmt}}"
@@ -4349,6 +4377,573 @@ def phase_parallel(card: str) -> list:
     return [ring_entry, split_entry]
 
 
+# Phase 23: tensor-parallel serving behind both engines' shard_caches. (a) one
+# NCCL rank; (b) four gloo ranks sharing the card at full width; (c) the JAX
+# package's sharded-serving test config on eight gloo ranks; (d) the kernels
+# at a model-4 shard's shapes.
+TP_SEED = 23
+TP_PREFILL, TP_DECODE = 1024, 8  # (b)'s logits: one prefill, then decode steps on fixed tokens
+TP_RANKS = 4
+JAX_TEST_CFG = dict(vocab_size=128, model_dim=128, num_layers=2, num_q_heads=4, num_kv_heads=4, head_dim=32,
+                    mlp_dim=256, dtype="float32")  # tests/test_sharded_serving.py:18-23
+JAX_TEST_REQS = (((5, 9, 2), 5), ((100, 3, 44, 8), 6), ((64, 7), 4), ((11, 12), 3))
+DENSE_ENGINE = dict(max_slots=8, max_seq=2048, prefill_chunk=256)  # phase 5's
+PAGED_ENGINE = dict(max_slots=8, num_pages=129, pages_per_slot=16, page_size=128, prefill_chunk=256,
+                    prefix_cache=True)  # phase 8's
+
+
+def _full_requests(cfg):
+    """Phase 5's main-path requests (ids 100..109, seed 0's prompts)."""
+    import numpy as np
+
+    from flash_attention_tpu_torch.serving.engine import Request
+
+    rng = np.random.default_rng(0)
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n)) for n in FULL_PROMPT_LENS]
+    return [Request(id=100 + i, prompt=p, max_new_tokens=FULL_NEW_TOKENS) for i, p in enumerate(prompts)]
+
+
+def _serve_logits(params, cfg, path: str, group=None):
+    """The model over a fresh one-slot cache of ``cfg``'s heads, dense or
+    paged (``path``; nine pages through a table of pages 1..9): a
+    TP_PREFILL-token prefill (dense: one call, K1; paged: the paged
+    engine's 256-row chunks, K8), then TP_DECODE decode steps (K6 / K7 and
+    K10) on fixed tokens from TP_SEED; every row's logits
+    [TP_PREFILL + TP_DECODE, vocab], fp32."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.models import transformer as tm
+
+    toks = np.random.default_rng(TP_SEED).integers(0, cfg.vocab_size, (1, TP_PREFILL + TP_DECODE))
+    toks = torch.from_numpy(toks).to("cuda", torch.int32)
+    if path == "dense":
+        cache = tm.init_caches(cfg, 1, 2048, device="cuda")
+        prefill, step = tm.prefill, tm.decode_step_logits
+    else:
+        pages = -(-(TP_PREFILL + TP_DECODE) // 128)
+        cache = tm.init_paged_caches(cfg, num_pages=pages + 1, num_slots=1, pages_per_slot=pages, page_size=128,
+                                     device="cuda")
+        cache.page_table.copy_(torch.arange(1, pages + 1, dtype=torch.int32, device="cuda")[None])
+        prefill = functools.partial(_chunked_paged_prefill, tm.prefill_chunk_paged)
+        step = tm.decode_step_logits_paged
+    with torch.no_grad():
+        logits, cache = prefill(params, cfg, toks[:, :TP_PREFILL], cache, tp_group=group)
+        rows = [logits[0]]
+        for i in range(TP_DECODE):
+            logits, cache = step(params, cfg, toks[:, TP_PREFILL + i, None], cache, tp_group=group)
+            rows.append(logits)
+    return torch.cat(rows)
+
+
+def _chunked_paged_prefill(prefill_chunk_paged, params, cfg, tokens, cache, *, tp_group):
+    """Slot 0's prompt ``tokens`` [1, T] through ``prefill_chunk_paged`` in
+    PAGED_ENGINE's chunks: (logits [1, T, vocab], cache)."""
+    import torch
+
+    chunk, rows = PAGED_ENGINE["prefill_chunk"], []
+    for lo in range(0, tokens.shape[1], chunk):
+        hi = min(lo + chunk, tokens.shape[1])
+        logits, cache = prefill_chunk_paged(params, cfg, tokens[:, lo:hi], cache, 0, lo, hi, tp_group=tp_group)
+        rows.append(logits)
+    return torch.cat(rows, 1), cache
+
+
+def _cast(tree, dtype):
+    """A param tree with every tensor in ``dtype`` (the same values)."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def _reference_logits(params, cfg) -> dict:
+    """``_serve_logits`` of the single-process model, dense and paged, and
+    of the same weights in fp32 (the dense path): the references the
+    tensor-parallel logits are held to."""
+    import dataclasses
+
+    import torch
+
+    want = {path: _serve_logits(params, cfg, path) for path in ("dense", "paged")}
+    wide = _cast(params, torch.float32)
+    want["fp32"] = _serve_logits(wide, dataclasses.replace(cfg, dtype="float32"), "dense")
+    del wide
+    return want
+
+
+def _layer_outputs(params, cfg, group=None, inputs=None):
+    """The prefill of ``_serve_logits``' first TP_PREFILL tokens, layer by
+    layer as the model's trunk runs it: each layer's input (the residual
+    stream) and its two outputs, attention and MLP, each the sum of a
+    row-parallel projection under ``group``. With ``inputs`` every layer
+    takes the given input, not its predecessor's output, so a layer's
+    outputs hold its own rounding only."""
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.models.attention import attention_prefill, init_kv_cache
+    from flash_attention_tpu_torch.models.transformer import rms_norm, swiglu
+
+    acfg = cfg.attention_config()
+    toks = np.random.default_rng(TP_SEED).integers(0, cfg.vocab_size, (1, TP_PREFILL + TP_DECODE))[:, :TP_PREFILL]
+    x = params["embed"][torch.from_numpy(toks).to("cuda")].to(cfg.torch_dtype)
+    ins, outs = [], []
+    with torch.no_grad():
+        for i, lp in enumerate(params["layers"]):
+            x = x if inputs is None else inputs[i]
+            cache = init_kv_cache(acfg, 1, TP_PREFILL, device="cuda")
+            a, _ = attention_prefill(lp["attn"], acfg, rms_norm(x, lp["attn_norm"], cfg.norm_eps), cache, tp_group=group)
+            y = x + a
+            m = swiglu(rms_norm(y, lp["mlp_norm"], cfg.norm_eps), lp["mlp"], group)
+            ins.append(x)
+            outs.append((a, m))
+            x = y + m
+    return ins, outs
+
+
+def _engine_logits(eng, path: str):
+    """``_serve_logits`` through an engine's params, model config and model
+    group (a tensor-parallel engine's: its shards over a cache of its
+    heads)."""
+    return _serve_logits(eng.params, eng.model_cfg, path, eng.tp_group)
+
+
+def _served(eng, reqs, used, what: str) -> tuple[dict, dict, float]:
+    """``eng`` serves ``reqs`` with every count at 0 before and read after:
+    (tokens by id, the launches, seconds). It must launch the kernels in
+    ``used`` and no other."""
+    import torch
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    check_launches(what, launches, used)
+    return {rid: c.tokens for rid, c in done.items()}, {n: c for n, c in launches.items() if c}, secs
+
+
+def _tp_nccl_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
+    """(a): one NCCL rank, ModelConfig() at full width on seed 0's weights,
+    both engines through make_cache_sharding on a one-rank mesh: phase 5's
+    and phase 8's tokens, and the model's logits bit-identical to the
+    single-process model's."""
+    import torch
+    import torch.distributed as dist
+
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+    from flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from flash_attention_tpu_torch.parallel.sharding import make_cache_sharding
+    from flash_attention_tpu_torch.serving.engine import ServingEngine
+    from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig()
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    sharding = make_cache_sharding(make_mesh())
+    reqs = _full_requests(cfg)
+    out = {"backend": dist.get_backend(sharding.mesh.get_group("model")), "launches": {}, "s": {}}
+    eng = ServingEngine(params, cfg, **DENSE_ENGINE, shard_caches=sharding)
+    got, out["launches"]["dense"], out["s"]["dense"] = _served(eng, reqs, ("K1", "K6"), "[sharded] (a) dense")
+    out["dense equal"] = got == dense_tokens
+    out["dense logits bit-identical"] = torch.equal(_engine_logits(eng, "dense"), _serve_logits(params, cfg, "dense"))
+    del eng
+    eng = PagedServingEngine(params, cfg, **PAGED_ENGINE, shard_caches=sharding)
+    got, out["launches"]["paged"], out["s"]["paged"] = _served(eng, reqs, ("K7", "K8", "K9/K10"),
+                                                               "[sharded] (a) paged")
+    out["paged equal"] = got == paged_tokens
+    out["paged logits bit-identical"] = torch.equal(_engine_logits(eng, "paged"), _serve_logits(params, cfg, "paged"))
+    out["peak MB"] = torch.cuda.max_memory_allocated() / 2**20
+    return out
+
+
+def _bits_digest(t) -> str:
+    """A digest of a tensor's bytes: equal digests, equal bits."""
+    import hashlib
+
+    import torch
+
+    return hashlib.blake2b(t.contiguous().view(torch.uint8).cpu().numpy().tobytes(), digest_size=16).hexdigest()
+
+
+def _parting(got: dict, want: dict) -> tuple[int, dict]:
+    """Tokens equal position by position (of every request's), and the step
+    at which each request that parts first differs."""
+    same = sum(a == b for rid in want for a, b in zip(got[rid], want[rid]))
+    parts = {rid: next(i for i, (a, b) in enumerate(zip(got[rid], want[rid])) if a != b)
+             for rid in want if got[rid] != want[rid]}
+    return same, parts
+
+
+# (b)'s tensor-parallel logits runs: name -> (engine, path). The dense engine's shards are model 2's, the paged
+# engine's model 4's; each run's logits are held to the fp32 model's, beside the single-process bf16 model's on the
+# same path.
+TP_LOGITS = {"model 2, dense": ("dense", "dense"), "model 4, dense": ("paged", "dense"),
+             "model 4, paged": ("paged", "paged")}
+TP_FP32_SLACK = 1.5  # a tensor-parallel run's distance from the fp32 model, over the single-process bf16 model's
+
+
+def _tp_gloo_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
+    """(b): one of TP_RANKS gloo ranks on cuda:0. One rank at a time (a
+    barrier between), each builds ModelConfig()'s global params from seed 0
+    and its two engines (the dense one on data 2 x model 2, the paged one on
+    model 4), which take their shards, and frees the global tree; rank 0
+    first keeps the references (``_reference_logits``). Then every rank
+    serves phase 5's requests through both engines, and each engine's
+    tensor-parallel model gives the TP_LOGITS runs' logits, held by rank 0
+    against the references and hashed on every rank."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+    from flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from flash_attention_tpu_torch.parallel.sharding import make_cache_sharding
+    from flash_attention_tpu_torch.serving.engine import ServingEngine
+    from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(1)  # four ranks share the host's cores with their gloo threads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, cfg = dist.get_rank(), ModelConfig()
+    grid, heads = make_cache_sharding(make_mesh(2, 2)), make_cache_sharding(make_mesh(1, TP_RANKS))
+    out = {"rank": rank, "launches": {}, "s": {}, "logits": {}, "same bits": {}}
+    t0 = time.perf_counter()
+    want = None
+    for turn in range(TP_RANKS):
+        if turn == rank:
+            params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+            layer_in, layer_out = _layer_outputs(params, cfg)
+            if rank == 0:
+                want = _reference_logits(params, cfg)
+                out["reference peak MB"] = torch.cuda.max_memory_allocated() / 2**20
+            else:
+                del layer_out
+            engines = {"dense": ServingEngine(params, cfg, **DENSE_ENGINE, shard_caches=grid),
+                       "paged": PagedServingEngine(params, cfg, **PAGED_ENGINE, shard_caches=heads)}
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["held MB"] = torch.cuda.memory_allocated() / 2**20
+        dist.barrier()
+    out["s"]["build"] = time.perf_counter() - t0
+    reqs = _full_requests(cfg)
+    for name, used in (("dense", ("K1", "K6")), ("paged", ("K7", "K8", "K9/K10"))):
+        out[name], out["launches"][name], out["s"][name] = _served(engines[name], reqs, used,
+                                                                   f"[sharded] (b) rank {rank} {name}")
+    for run, (engine, path) in TP_LOGITS.items():
+        zero_counts()
+        t0 = time.perf_counter()
+        logits = _engine_logits(engines[engine], path)
+        torch.cuda.synchronize()
+        out["s"][f"logits {run}"] = time.perf_counter() - t0
+        launches = read_counts()
+        check_launches(f"[sharded] (b) rank {rank} logits {run}", launches,
+                       ("K1", "K6") if path == "dense" else ("K7", "K8", "K9/K10"))
+        out["launches"][f"logits {run}"] = {n: c for n, c in launches.items() if c}
+        digests = [None] * TP_RANKS
+        dist.all_gather_object(digests, _bits_digest(logits))
+        out["same bits"][run] = len(set(digests)) == 1
+        if rank == 0:
+            out["logits"][run] = {"vs fp32": _rel_diff(logits, want["fp32"]), "vs bf16": _rel_diff(logits, want[path]),
+                                  "finite": bool(torch.isfinite(logits).all())}
+    paged = engines["paged"]
+    _, tp_out = _layer_outputs(paged.params, paged.model_cfg, paged.tp_group, inputs=layer_in)
+    if rank == 0:
+        out["single-process vs fp32"] = {path: _rel_diff(want[path], want["fp32"]) for path in ("dense", "paged")}
+        errs = [max(_rel_diff(a, ra), _rel_diff(m, rm)) for (a, m), (ra, rm) in zip(tp_out, layer_out)]
+        out["layer rel"] = (max(errs), errs.index(max(errs)))
+        out["dense agree"], out["paged agree"] = _parting(out["dense"], dense_tokens), _parting(out["paged"], paged_tokens)
+    out["peak MB"] = torch.cuda.max_memory_allocated() / 2**20
+    return out
+
+
+def _tp_tiny_rank(want_dense: dict, want_paged: dict) -> dict:
+    """(c): one of eight gloo ranks on cuda:0: tests/test_sharded_serving.py's
+    fp32 config and requests through both engines on its data 2 x model 4
+    mesh (the pools over model 4, replicas over data)."""
+    import torch
+    import torch.distributed as dist
+
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+    from flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from flash_attention_tpu_torch.parallel.sharding import make_cache_sharding
+    from flash_attention_tpu_torch.serving.engine import Request, ServingEngine
+    from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    cfg = ModelConfig(**JAX_TEST_CFG)
+    params = _to_device(init_model_params(torch.Generator().manual_seed(0), cfg), "cuda")
+    sharding = make_cache_sharding(make_mesh(2, 4))
+    reqs = [Request(id=i, prompt=p, max_new_tokens=n) for i, (p, n) in enumerate(JAX_TEST_REQS)]
+    out = {"rank": dist.get_rank(), "launches": {}, "s": {}}
+    eng = ServingEngine(params, cfg, max_slots=4, max_seq=64, shard_caches=sharding)
+    got, out["launches"]["dense"], out["s"]["dense"] = _served(eng, reqs, ("K1", "K6"), "[sharded] (c) dense")
+    out["dense equal"], out["dense kv"] = got == want_dense, tuple(eng.caches[0].k.shape)
+    eng = PagedServingEngine(params, cfg, max_slots=4, num_pages=16, pages_per_slot=2, page_size=128,
+                             shard_caches=sharding)
+    got, out["launches"]["paged"], out["s"]["paged"] = _served(eng, reqs, ("K7", "K8", "K9/K10"),
+                                                               "[sharded] (c) paged")
+    out["paged equal"], out["paged kv"] = got == want_paged, tuple(eng.caches.k_pool.shape)
+    return out
+
+
+# (d)'s shard shapes: name -> (q heads, kv heads, dense cache slots, kernels). Model 2 is (b)'s dense engine's
+# (8 slots over data 2), model 4 its paged engine's (and the dense path of its logits run).
+TP_SHARDS = {"model 2": (16, 4, 4, ("K1", "K6")), "model 4": (8, 2, 8, ("K1", "K6", "K7", "K8"))}
+
+
+def _shard_kernels(card: str, launches: dict) -> list:
+    """(d): the kernels of each TP_SHARDS shape in bf16 at the shapes a shard
+    of ModelConfig() gives them, against their plain versions
+    (row-relative), the fp32 oracle and the LSE, timed beside plain, SDPA
+    where it computes the same, and the bound. ``launches``: rank 0's counts
+    in (b) by shard (``_sharded_gloo``). Returns the kernels' entries."""
+    entries = []
+    for shard, (hq, hkv, slots, kernels) in TP_SHARDS.items():
+        entries += _shard_kernels_at(card, shard, hq, hkv, slots, kernels, launches[shard])
+    return entries
+
+
+def _shard_kernels_at(card: str, shard: str, hq: int, hkv: int, slots: int, kernels, launches: dict) -> list:
+    """``_shard_kernels`` at one shard: ``kernels`` of K1 (a 256-row chunk
+    over 2048 cached rows), K6 (``slots`` ragged slots), K7 and K8 (one
+    layer's pool of 129 pages) with ``hq`` q over ``hkv`` kv heads."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from flash_attention_tpu_torch.ops.decode import decode_attention, decode_attention_plain
+    from flash_attention_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from flash_attention_tpu_torch.ops.paged import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+        paged_prefill_attention,
+        paged_prefill_attention_plain,
+    )
+    from flash_attention_tpu_torch.ops.reference import reference_attention_with_lse
+
+    dev, bf16, d, label = torch.device("cuda"), torch.bfloat16, 128, shard.replace(" ", "-") + " shard"
+    scale, rel_bar = d**-0.5, REL_BAR["bfloat16"]
+    gen = torch.Generator(device=dev).manual_seed(TP_SEED)
+    rng = np.random.default_rng(TP_SEED)
+    entries = []
+
+    def hold(what, name, source, replaces, out, plain, oracle, lse=None, p_lse=None, o_lse=None, *, call, plain_call,
+             lib_call, flops, nbytes, key):
+        d_plain, d_oracle = _max_diff(out, plain), _max_diff(out, oracle)
+        d_rel = max(_rel_diff(out, plain), _rel_diff(out, oracle))
+        d_lse = 0.0 if lse is None else max(_max_diff(lse, p_lse), _max_diff(lse, o_lse))
+        ms, plain_ms = cuda_ms(call), cuda_ms(plain_call)
+        lib_ms = None if lib_call is None else cuda_ms(lib_call)
+        bound_ms, bound_by = bound(flops, nbytes)
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"[sharded] (d) {label}, {what}: |out-plain| {d_plain:.3e} (bar {PLAIN_BAR}), |out-oracle| {d_oracle:.3e} (bar "
+            f"{ORACLE_BAR}), row-relative vs plain and oracle {d_rel:.3e} (bar {rel_bar}), |lse| {d_lse:.3e} (bar "
+            f"{LSE_BAR}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA (library) {lib}, bound {bound_ms:.4f} ms "
+            f"by {bound_by}; launched {launches.get(key, 0)} times by rank 0 at this shard in (b) ({card})")
+        if not (d_plain < PLAIN_BAR and d_oracle < ORACLE_BAR and d_rel < rel_bar and d_lse < LSE_BAR):
+            raise RuntimeError(f"[sharded] (d) {label}, {what} disagrees")
+        entries.append({"name": name, "route": "cuda", "source": f"flash_attention_tpu_torch/csrc/{source}",
+                        "replaces": f"{REFERENCE}/{replaces}", "launches": launches.get(key, 0), "max_abs_err": d_plain,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": lib_ms})
+
+    # K1: a 256-row chunk at the end of 2048 cached rows, the cache one slot of a [slots, hkv, 2048, 128] cache.
+    q = torch_uniform((1, hq, 256, d), bf16, gen)
+    k_cache, v_cache = (torch_uniform((slots, hkv, 2048, d), bf16, gen) for _ in range(2))
+    k, v = k_cache[3:4], v_cache[3:4]
+    out, lse = flash_attention(q, k, v, causal=True, save_residuals=True)
+    p_out, p_lse = flash_attention_plain(q, k, v, causal=True, sm_scale=scale, save_residuals=True)
+    o_out, o_lse = reference_attention_with_lse(q, k, v, causal=True)
+    mask = torch.arange(2048, device=dev)[None, :] <= torch.arange(256, device=dev)[:, None] + (2048 - 256)
+    hold(f"K1 q [1,{hq},256,{d}] kv [1,{hkv},2048,{d}] causal + LSE, {_fwd_grid(q, k)}",
+         f"fwd_kernel, wgmma + TMA (K1), {label} q [1,{hq},256,{d}] kv [1,{hkv},2048,{d}]",
+         "flash_fwd_sm90.cu", "ops/flash_attention.py:57", out, p_out, o_out, lse, p_lse, o_lse,
+         call=lambda: flash_attention(q, k, v, causal=True, save_residuals=True),
+         plain_call=lambda: flash_attention_plain(q, k, v, causal=True, sm_scale=scale, save_residuals=True),
+         lib_call=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True),
+         flops=4 * d * hq * causal_pairs(256, 2048), nbytes=2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel(),
+         key="K1")
+
+    # K6: the slots against the cache, ragged lengths.
+    qd = torch_uniform((slots, hq, d), bf16, gen)
+    lengths = torch.tensor([0, 1, 255, 256, 1000, 2047, 2048, 7][::8 // slots], dtype=torch.int32, device=dev)
+    out, lse = decode_attention(qd, k_cache, v_cache, lengths, save_residuals=True)
+    p_out, p_lse = decode_attention_plain(qd, k_cache, v_cache, lengths, sm_scale=scale, save_residuals=True)
+    o_out, o_lse = reference_attention_with_lse(qd[:, :, None], k_cache, v_cache, kv_length=lengths)
+    dmask = (torch.arange(2048, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    rows = int(lengths.sum())
+    hold(f"K6 q [{slots},{hq},{d}] cache [{slots},{hkv},2048,{d}] lengths {lengths.tolist()}",
+         f"decode (K6), {label} q [{slots},{hq},{d}] cache [{slots},{hkv},2048,{d}]", "decode.cu", "ops/decode.py:56",
+         out, p_out, o_out[:, :, 0], lse, p_lse, o_lse[:, :, 0],
+         call=lambda: decode_attention(qd, k_cache, v_cache, lengths),
+         plain_call=lambda: decode_attention_plain(qd, k_cache, v_cache, lengths, sm_scale=scale),
+         lib_call=lambda: F.scaled_dot_product_attention(qd[:, :, None], k_cache, v_cache, attn_mask=dmask,
+                                                          enable_gqa=True),
+         flops=4 * d * hq * rows, nbytes=2 * (2 * rows * hkv * d) + 2 * (2 * qd.numel()) + 4 * lengths.numel(), key="K6")
+    del k_cache, v_cache
+    if "K7" not in kernels:
+        return entries
+
+    # K7 and K8 over one layer's pool [129, 2, 128, 128] through a shuffled table (slot 0 on the dump page).
+    cache = _filled_cache(1, num_pages=129, num_slots=8, pages_per_slot=16, kv_heads=hkv, head_dim=d, dtype=bf16,
+                          gen=gen).layers()[0]
+    table = torch.from_numpy(_shuffled_table(rng, 8, 16, 129)).to(dev)
+    cache.page_table.copy_(table)
+    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    cache = cache._replace(lengths=lengths)
+    k_dense, v_dense = _dense_from_pages(cache.k_pages, table), _dense_from_pages(cache.v_pages, table)
+    out, lse = paged_decode_attention(qd, cache, save_residuals=True)
+    p_out, p_lse = paged_decode_attention_plain(qd, cache, sm_scale=scale, save_residuals=True)
+    o_out, o_lse = reference_attention_with_lse(qd[:, :, None], k_dense, v_dense, kv_length=lengths)
+    rows = sum(PAGED_LENGTHS)
+    hold(f"K7 q [8,{hq},{d}] pages [129,{hkv},128,{d}], lengths {list(PAGED_LENGTHS)}",
+         f"paged_decode (K7), {label} q [8,{hq},{d}] pages [129,{hkv},128,{d}]", "decode.cu",
+         "ops/paged.py:980", out, p_out, o_out[:, :, 0], lse, p_lse, o_lse[:, :, 0],
+         call=lambda: paged_decode_attention(qd, cache, save_residuals=True),
+         plain_call=lambda: paged_decode_attention_plain(qd, cache, sm_scale=scale, save_residuals=True),
+         lib_call=None, flops=4 * d * hq * rows,
+         nbytes=2 * (2 * rows * hkv * d) + 2 * (2 * qd.numel()) + 4 * (lse.numel() + lengths.numel()
+                                                                      + sum(-(-n // 128) for n in PAGED_LENGTHS)),
+         key="K7")
+    qc = torch_uniform((1, hq, 256, d), bf16, gen)
+    out = paged_prefill_attention(qc, cache, 7, 2048, chunk_len=256)
+    p_out = paged_prefill_attention_plain(qc, cache, 7, 2048, sm_scale=scale)
+    o_out, _ = reference_attention_with_lse(qc, k_dense[7:8], v_dense[7:8], causal=True)
+    hold(f"K8 q [1,{hq},256,{d}] over slot 7's pages to kv_end 2048",
+         f"fwd_kernel, wgmma + TMA, paged (K8), {label} q [1,{hq},256,{d}] pages [129,{hkv},128,{d}]",
+         "flash_fwd_sm90.cu", "ops/paged.py:580", out, p_out, o_out,
+         call=lambda: paged_prefill_attention(qc, cache, 7, 2048, chunk_len=256),
+         plain_call=lambda: paged_prefill_attention_plain(qc, cache, 7, 2048, sm_scale=scale), lib_call=None,
+         flops=4 * d * hq * causal_pairs(256, 2048), nbytes=2 * (2 * qc.numel() + 2 * 2048 * hkv * d) + 4 * 16, key="K8")
+    return entries
+
+
+def _sharded_one_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> None:
+    """Phase 23 (a): ``_tp_nccl_rank`` in a process of its own."""
+    from flash_attention_tpu_torch.utils.distributed import spawn_ranks
+
+    t0 = time.perf_counter()
+    a = spawn_ranks(_tp_nccl_rank, 1, card, dense_tokens, paged_tokens, backend="nccl", timeout_s=600)[0]
+    log(f"[sharded] (a) world size 1 over {a['backend']}, ModelConfig() bf16: dense engine (phase 5's config) tokens "
+        f"== phase 5's: {a['dense equal']}, paged engine (phase 8's) tokens == phase 8's run A: {a['paged equal']}; "
+        f"logits of a {TP_PREFILL}-token prefill and {TP_DECODE} decode steps bit-identical to the single-process "
+        f"model's, dense: {a['dense logits bit-identical']}, paged: {a['paged logits bit-identical']}; served in {a['s']['dense']:.2f} / {a['s']['paged']:.2f} s, launches "
+        f"{a['launches']}, peak {a['peak MB']:.0f} MB; (a) took {time.perf_counter() - t0:.1f} s ({card})")
+    if not (a["dense equal"] and a["paged equal"] and a["dense logits bit-identical"]
+            and a["paged logits bit-identical"]):
+        raise RuntimeError(f"[sharded] (a) the one-rank sharded engines differ from the single-process ones: {a}")
+
+
+def _sharded_gloo(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
+    """Phase 23 (b): TP_RANKS ``_tp_gloo_rank`` processes. Returns rank 0's
+    launches by shard: model 2's (the dense engine's run and its logits
+    run) and model 4's (the paged engine's run and its logits runs)."""
+    from flash_attention_tpu_torch.models.transformer import ModelConfig
+    from flash_attention_tpu_torch.utils.distributed import spawn_ranks
+
+    t0 = time.perf_counter()
+    b = spawn_ranks(_tp_gloo_rank, TP_RANKS, card, dense_tokens, paged_tokens, backend="gloo", timeout_s=900)
+    r0 = b[0]
+    log(f"[sharded] (b) {TP_RANKS} gloo ranks on one card, ModelConfig() bf16, dense on data 2 x model 2, paged on "
+        f"model 4; (b) took {time.perf_counter() - t0:.1f} s; rank 0's peak while it held the bf16 and fp32 "
+        f"references {r0['reference peak MB']:.0f} MB")
+    for r in b:
+        log(f"[sharded] (b) rank {r['rank']}: held {r['held MB']:.0f} MB after its build, peak {r['peak MB']:.0f} MB; "
+            f"seconds {', '.join(f'{k} {v:.2f}' for k, v in r['s'].items())} (information: the ranks share the card); "
+            f"launches {r['launches']} ({card})")
+    (layer_rel, layer), sp = r0["layer rel"], r0["single-process vs fp32"]
+    log(f"[sharded] (b) each layer's attention and MLP outputs of the tensor-parallel model (model 4) on the "
+        f"single-process model's own layer inputs ({TP_PREFILL}-token prefill), row-relative to the single-process "
+        f"model's: worst {layer_rel:.3e} at layer {layer} (bar {REL_BAR['bfloat16']})")
+    ok_logits = layer_rel < REL_BAR["bfloat16"]
+    for run, (_, path) in TP_LOGITS.items():
+        got = r0["logits"][run]
+        bar = TP_FP32_SLACK * sp[path]
+        log(f"[sharded] (b) logits of the whole {ModelConfig().num_layers} layers ({TP_PREFILL}-token prefill, then "
+            f"{TP_DECODE} decode steps), {run}: row-relative to the same weights in fp32 {got['vs fp32']:.3e} (bar "
+            f"{TP_FP32_SLACK} x the single-process bf16 model's {sp[path]:.3e} on the {path} path = {bar:.3e}); to "
+            f"the single-process bf16 model's {got['vs bf16']:.3e} (information); finite {got['finite']}; the same "
+            f"bits on every rank: {all(r['same bits'][run] for r in b)}")
+        ok_logits = (ok_logits and got["vs fp32"] <= bar and got["finite"]
+                     and all(r["same bits"][run] for r in b))
+    for engine, want in (("dense", dense_tokens), ("paged", paged_tokens)):
+        same, parts = r0[f"{engine} agree"]
+        log(f"[sharded] (b) {engine} greedy tokens against phase {5 if engine == 'dense' else 8}'s: {same} of "
+            f"{sum(len(t) for t in want.values())} agree; requests that part, at step: {parts}")
+    ok_tokens = all(r[e] == r0[e] for r in b for e in ("dense", "paged")) and all(
+        len(t) == FULL_NEW_TOKENS for e in ("dense", "paged") for t in r0[e].values())
+    if not (ok_logits and ok_tokens):
+        raise RuntimeError("[sharded] (b) tensor-parallel logits or tokens out of bounds, or ranks disagree")
+    counts = r0["launches"]
+
+    def total(*runs):
+        return {k: sum(counts[run].get(k, 0) for run in runs) for k in ("K1", "K6", "K7", "K8")}
+
+    return {"model 2": total("dense", "logits model 2, dense"),
+            "model 4": total("paged", "logits model 4, dense", "logits model 4, paged")}
+
+
+def _sharded_jax_config(card: str) -> None:
+    """Phase 23 (c): the unsharded engines on the card, then eight
+    ``_tp_tiny_rank`` processes held to their tokens."""
+    import torch
+
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+    from flash_attention_tpu_torch.serving.engine import Request, ServingEngine
+    from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
+    from flash_attention_tpu_torch.utils.distributed import spawn_ranks
+
+    t0 = time.perf_counter()
+    cfg = ModelConfig(**JAX_TEST_CFG)
+    params = _to_device(init_model_params(torch.Generator().manual_seed(0), cfg), "cuda")
+    reqs = [Request(id=i, prompt=p, max_new_tokens=n) for i, (p, n) in enumerate(JAX_TEST_REQS)]
+    want_dense = {rid: c.tokens for rid, c in ServingEngine(params, cfg, max_slots=4, max_seq=64).run(reqs).items()}
+    want_paged = {rid: c.tokens for rid, c in PagedServingEngine(
+        params, cfg, max_slots=4, num_pages=16, pages_per_slot=2, page_size=128).run(reqs).items()}
+    c = spawn_ranks(_tp_tiny_rank, 8, want_dense, want_paged, backend="gloo", timeout_s=600)
+    log(f"[sharded] (c) tests/test_sharded_serving.py's fp32 config on 8 gloo ranks (data 2 x model 4): dense tokens "
+        f"== the unsharded engine's on the card on every rank: {all(r['dense equal'] for r in c)} (local cache "
+        f"{c[0]['dense kv']}), paged: {all(r['paged equal'] for r in c)} (local pools {c[0]['paged kv']}); tokens "
+        f"{want_dense}; launches a rank {[r['launches'] for r in c]}; (c) took {time.perf_counter() - t0:.1f} s ({card})")
+    if not all(r["dense equal"] and r["paged equal"] for r in c):
+        raise RuntimeError("[sharded] (c) a rank's tokens differ from the unsharded engine's")
+
+
+def phase_sharded_serving(card: str, dense_tokens: dict, paged_tokens: dict) -> list:
+    """Phase 23: tensor-parallel serving. ``dense_tokens`` / ``paged_tokens``:
+    phases 5's and 8's main-path tokens of phase 5's requests (ids 100..109).
+    (a) one NCCL rank, (b) TP_RANKS gloo ranks sharing the card, (c) the
+    JAX package's test config on eight gloo ranks, (d) the kernels at the
+    model-2 and model-4 shards' shapes; the wall time of each. Returns (d)'s
+    entries."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    _sharded_one_rank(card, dense_tokens, paged_tokens)
+    launches = _sharded_gloo(card, dense_tokens, paged_tokens)
+    _sharded_jax_config(card)
+    t0 = time.perf_counter()
+    entries = _shard_kernels(card, launches)
+    log(f"[sharded] (d) took {time.perf_counter() - t0:.1f} s; phase 23 took {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
+    return entries
+
+
 def main() -> None:
     import torch
 
@@ -4417,9 +5012,10 @@ def main() -> None:
                "replaces": f"{REFERENCE}/{names[key][2]}", **masked[key]} for key in names]
     probes = phase_probes(card)
     parallel = phase_parallel(card)
+    sharded = phase_sharded_serving(card, dense["tokens"], paged["tokens"])
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k1t, k6, k7, k8, k10, *quant.values(), *bwd.values(), *masked, *probes,
-                                  *parallel]}))
+                                  *parallel, *sharded]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -32,6 +32,16 @@ sinks pin logical page 0. The training entry ``attention_forward`` takes the
 window and the softcap of its config and packed-sequence segment ids, under
 grad as well (the backward kernels apply the forward's mask); the sinks are
 a serving feature and are not applied there, as in the JAX package.
+
+Tensor parallelism (``parallel/sharding.shard_model_params``): every
+serving entry runs as it is on a rank's share of the heads, with the
+config's head counts the rank's, and takes ``tp_group``, the process group
+of the mesh's model axis. The output projection ``wo`` is row-parallel, so
+each rank's product is a partial that ``row_parallel`` adds over the
+group in fp32; everything before it, the deferred paged decode's self-term
+merge included, is per head. With ``tp_group=None`` (the default) or a
+group of one rank nothing is reduced and the path is the single-process
+one.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from flash_attention_tpu_torch.models.rope import apply_rope
 from flash_attention_tpu_torch.ops.common import LOG2E, ceil_to
@@ -55,6 +66,7 @@ from flash_attention_tpu_torch.ops.paged import (
     paged_write_tokens,
 )
 from flash_attention_tpu_torch.ops.quant import QuantizedTensor, bits, payload_dtype, quantize_values, w8_dequant
+from flash_attention_tpu_torch.parallel.mesh import all_reduce_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,21 +261,50 @@ def _project_qkv(params, cfg: AttentionConfig, x: torch.Tensor, positions):
     return q, k, v
 
 
-def _output_proj(params, o: torch.Tensor, out_dtype) -> torch.Tensor:
+def tensor_parallel(tp_group) -> bool:
+    """Whether ``tp_group`` splits the model over more than one rank (with
+    one rank a row-parallel partial is the whole product)."""
+    return tp_group is not None and dist.get_world_size(tp_group) > 1
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, out_dtype, tp_group) -> torch.Tensor:
+    """``x`` [..., K] @ ``w`` [K, M] over this rank's share of K, summed over
+    ``tp_group`` in ``out_dtype``. The partial leaves the GEMM in fp32 (on
+    the card cuBLAS's 16-bit GEMM with an fp32 output) and the all-reduce
+    adds in fp32, so the sum is rounded once, as the single-process GEMM's
+    fp32 accumulator is: only the order of the fp32 additions differs."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.is_cuda and x2.dtype in (torch.float16, torch.bfloat16):
+        partial = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        partial = torch.mm(x2.float(), w.float())
+    out = all_reduce_(partial, dist.ReduceOp.SUM, tp_group).to(out_dtype)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _output_proj(params, o: torch.Tensor, out_dtype, tp_group=None) -> torch.Tensor:
     """wo projection of [B, H, T, D] attention output -> [B, T, model_dim]."""
-    return torch.einsum("bhtd,hdm->btm", o, _weight(params["wo"], o.dtype)).to(out_dtype)
+    wo = _weight(params["wo"], o.dtype)
+    if not tensor_parallel(tp_group):
+        return torch.einsum("bhtd,hdm->btm", o, wo).to(out_dtype)
+    b, h, t, d = o.shape
+    return row_parallel(o.transpose(1, 2).reshape(b, t, h * d), wo.reshape(h * d, -1), out_dtype, tp_group)
 
 
-def _output_proj_decode(params, o: torch.Tensor, out_dtype) -> torch.Tensor:
+def _output_proj_decode(params, o: torch.Tensor, out_dtype, tp_group=None) -> torch.Tensor:
     """wo projection of single-token [B, H, D] output -> [B, 1, model_dim]."""
-    return torch.einsum("bhd,hdm->bm", o, _weight(params["wo"], o.dtype))[:, None, :].to(out_dtype)
+    wo = _weight(params["wo"], o.dtype)
+    if not tensor_parallel(tp_group):
+        return torch.einsum("bhd,hdm->bm", o, wo)[:, None, :].to(out_dtype)
+    b, h, d = o.shape
+    return row_parallel(o.reshape(b, 1, h * d), wo.reshape(h * d, -1), out_dtype, tp_group)
 
 
 def _masks(cfg: AttentionConfig) -> dict:
     return dict(sliding_window=cfg.sliding_window, logit_softcap=cfg.logit_softcap)
 
 
-def attention_prefill(params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCache):
+def attention_prefill(params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCache, *, tp_group=None):
     """Causal prefill over [B, T, model_dim]; fills the cache from position 0.
 
     Returns (output [B, T, model_dim], updated cache).
@@ -276,7 +317,7 @@ def attention_prefill(params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCa
         )
     q, k, v = _project_qkv(params, cfg, x, torch.arange(t, device=x.device)[None, None, :])
     o = flash_attention(q, k, v, causal=True, **_masks(cfg))
-    out = _output_proj(params, o, x.dtype)
+    out = _output_proj(params, o, x.dtype, tp_group)
     cache = write_cache(cfg, cache, k, v, torch.zeros((batch,), dtype=torch.int32, device=x.device))
     return out, cache
 
@@ -300,7 +341,8 @@ def attention_forward(params, cfg: AttentionConfig, x: torch.Tensor, *, position
 
 
 def attention_prefill_chunk(
-    params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCache, slot: int, start: int, kv_end: int
+    params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCache, slot: int, start: int, kv_end: int, *,
+    tp_group=None,
 ):
     """Prefill ONE CHUNK of one sequence into its slot of a batched cache.
 
@@ -383,7 +425,7 @@ def attention_prefill_chunk(
         o_sink, lse_sink = flash_attention(q, k_sink, v_sink, causal=False, logit_softcap=cfg.logit_softcap,
                                            save_residuals=True)
         o, _ = merge_two(o_band, lse_band, o_sink, lse_sink)
-        return _output_proj(params, o.to(q.dtype), x.dtype), cache
+        return _output_proj(params, o.to(q.dtype), x.dtype, tp_group), cache
     if cfg.rolling:
         # Only the last min(kv_end, window + T) positions are visible (with
         # sinks, kv_end <= window here, so nothing has rolled out yet).
@@ -396,10 +438,10 @@ def attention_prefill_chunk(
             for buf, sc in ((cache.k, cache.k_scales), (cache.v, cache.v_scales))
         )
     o = flash_attention(q, k_vis, v_vis, causal=True, **_masks(cfg))
-    return _output_proj(params, o, x.dtype), cache
+    return _output_proj(params, o, x.dtype, tp_group), cache
 
 
-def attention_decode(params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCache):
+def attention_decode(params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCache, *, tp_group=None):
     """One decode step over [B, 1, model_dim] against the cache (a rolling
     one masked by the positions its rows hold).
 
@@ -413,10 +455,11 @@ def attention_decode(params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCac
         q[:, :, 0, :], cache.k_view(), cache.v_view(), cache.lengths, ring_buffer=cfg.rolling,
         attention_sinks=cfg.attention_sinks, **_masks(cfg),
     )
-    return _output_proj_decode(params, o, x.dtype), cache
+    return _output_proj_decode(params, o, x.dtype, tp_group), cache
 
 
-def attention_prefill_paged(params, cfg: AttentionConfig, x: torch.Tensor, paged_cache: PagedKVCache, slot: int, true_len):
+def attention_prefill_paged(params, cfg: AttentionConfig, x: torch.Tensor, paged_cache: PagedKVCache, slot: int, true_len,
+                            *, tp_group=None):
     """Causal prefill of ONE sequence ([1, T, model_dim], T a multiple of the
     page size) writing its K/V into ``slot``'s pages.
 
@@ -425,12 +468,13 @@ def attention_prefill_paged(params, cfg: AttentionConfig, x: torch.Tensor, paged
     _, t, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, torch.arange(t, device=x.device)[None, None, :])
     o = flash_attention(q, k, v, causal=True, **_masks(cfg))
-    out = _output_proj(params, o, x.dtype)
+    out = _output_proj(params, o, x.dtype, tp_group)
     return out, paged_write_prefill(paged_cache, k[0], v[0], slot, true_len)
 
 
 def attention_prefill_chunk_paged(
-    params, cfg: AttentionConfig, x: torch.Tensor, paged_cache: PagedKVCache, slot: int, start: int, kv_end: int
+    params, cfg: AttentionConfig, x: torch.Tensor, paged_cache: PagedKVCache, slot: int, start: int, kv_end: int, *,
+    tp_group=None,
 ):
     """Chunked prefill over a paged cache: one chunk ([1, T, model_dim], T a
     page multiple) of one sequence, attending the slot's rows [0, kv_end)
@@ -443,10 +487,11 @@ def attention_prefill_chunk_paged(
     # pages below the band alias newer ones and are never read.
     o = paged_prefill_attention(q, paged_cache, slot, kv_end, chunk_len=t, attention_sinks=cfg.attention_sinks,
                                 **_masks(cfg))
-    return _output_proj(params, o, x.dtype), paged_cache
+    return _output_proj(params, o, x.dtype, tp_group), paged_cache
 
 
-def attention_decode_paged_deferred(params, cfg: AttentionConfig, x: torch.Tensor, paged_cache: PagedKVCache):
+def attention_decode_paged_deferred(params, cfg: AttentionConfig, x: torch.Tensor, paged_cache: PagedKVCache, *,
+                                    tp_group=None):
     """Decode-step attention WITHOUT the cache write.
 
     K7 attends over the cache as it is (the new token is not in it yet, so
@@ -482,10 +527,10 @@ def attention_decode_paged_deferred(params, cfg: AttentionConfig, x: torch.Tenso
     else:
         lse_self = cfg.logit_softcap * torch.tanh(s_raw * sm_scale / cfg.logit_softcap) * LOG2E
     o, _ = merge_two(o_c, lse_c, v_exp, lse_self)
-    return _output_proj_decode(params, o, x.dtype), (k1, v1)
+    return _output_proj_decode(params, o, x.dtype, tp_group), (k1, v1)
 
 
-def attention_decode_paged(params, cfg: AttentionConfig, x: torch.Tensor, paged_cache: PagedKVCache):
+def attention_decode_paged(params, cfg: AttentionConfig, x: torch.Tensor, paged_cache: PagedKVCache, *, tp_group=None):
     """One write-first decode step over [num_slots, 1, model_dim]: every
     slot's new K/V row goes to its current length (K9), then K7 attends.
 
@@ -495,4 +540,4 @@ def attention_decode_paged(params, cfg: AttentionConfig, x: torch.Tensor, paged_
     slots = torch.arange(x.shape[0], device=x.device)
     paged_cache = paged_write_tokens(paged_cache, k[:, :, 0, :], v[:, :, 0, :], slots)
     o = paged_decode_attention(q[:, :, 0, :], paged_cache, attention_sinks=cfg.attention_sinks, **_masks(cfg))
-    return _output_proj_decode(params, o, x.dtype), paged_cache
+    return _output_proj_decode(params, o, x.dtype, tp_group), paged_cache

@@ -18,6 +18,10 @@ XLA. One numerical difference: where JAX asks XLA for fp32 products of bf16
 operands (``preferred_element_type``), a bf16 ``torch.matmul`` rounds its
 output to bf16. fp32 configurations are unaffected.
 
+The serving entries take ``tp_group`` for a tensor-parallel model (a
+rank's params and config from ``parallel.sharding.shard_model_params``):
+see ``_trunk``. Training stays single-process, as in the JAX package.
+
 Under autograd the norms and the SwiGLU activation are autograd Functions
 (``_RMSNorm``, ``_SwiGLUAct``) with their gradients written out: they keep
 their inputs in the model's dtype (and the norm's fp32 rstd), not the fp32
@@ -47,6 +51,8 @@ from flash_attention_tpu_torch.models.attention import (
     attention_prefill_paged,
     init_attention_params,
     init_kv_cache,
+    row_parallel,
+    tensor_parallel,
 )
 from flash_attention_tpu_torch.ops.paged import PagedModelCache, init_paged_model_cache, paged_write_tokens_multi
 from flash_attention_tpu_torch.ops.quant import QuantizedTensor, quantize_weight
@@ -148,11 +154,16 @@ class _SwiGLUAct(torch.autograd.Function):
         return d_gate.to(gate.dtype), (d * F.silu(g)).to(up.dtype)
 
 
-def swiglu(x: torch.Tensor, params) -> torch.Tensor:
+def swiglu(x: torch.Tensor, params, tp_group=None) -> torch.Tensor:
+    """The MLP; with ``tp_group``, over this rank's columns of gate / up and
+    rows of the row-parallel down projection, summed over the group."""
     gate = torch.matmul(x, _weight(params["w_gate"], x.dtype))
     up = torch.matmul(x, _weight(params["w_up"], x.dtype))
     act = _SwiGLUAct.apply(gate, up) if _grad_needed(gate, up) else _swiglu_act(gate, up)
-    return torch.matmul(act, _weight(params["w_down"], x.dtype)).to(x.dtype)
+    w_down = _weight(params["w_down"], x.dtype)
+    if not tensor_parallel(tp_group):
+        return torch.matmul(act, w_down).to(x.dtype)
+    return row_parallel(act, w_down, x.dtype, tp_group)
 
 
 def init_model_params(generator: torch.Generator, cfg: ModelConfig) -> dict:
@@ -216,14 +227,19 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *, device, prefill_c
     return [init_kv_cache(acfg, batch, max_seq, device=device, prefill_chunk=prefill_chunk) for _ in range(cfg.num_layers)]
 
 
-def _trunk(params, cfg: ModelConfig, tokens: torch.Tensor, attn_fn, caches=None):
+def _trunk(params, cfg: ModelConfig, tokens: torch.Tensor, attn_fn, caches=None, tp_group=None):
     """Shared decoder trunk: embed -> N x (pre-norm attention via ``attn_fn``
     + pre-norm SwiGLU, both residual) -> final norm -> tied-embedding logits.
 
-    ``attn_fn(layer_attn_params, acfg, h, cache) -> (attn_out, new_cache)``
-    is the one piece the entry points differ in (cache is None throughout
-    on the cache-free training path, ``caches=None``). Returns (logits
-    [B, T, vocab] fp32, new caches).
+    ``attn_fn(layer_attn_params, acfg, h, cache, tp_group=...) -> (attn_out,
+    new_cache)`` is the one piece the entry points differ in (cache is None
+    throughout on the cache-free training path, ``caches=None``). With
+    ``tp_group`` (tensor parallel: ``params`` and ``cfg`` are a rank's,
+    from ``parallel.sharding.shard_model_params``) the attention and the MLP
+    each end in an all-reduce over the group, so every rank of it holds the
+    same residual stream, and the logits, from the replicated embedding and
+    norms, are the same bits on each. Returns (logits [B, T, vocab] fp32,
+    new caches).
     """
     acfg = cfg.attention_config()
     emb = params["embed"]
@@ -240,10 +256,10 @@ def _trunk(params, cfg: ModelConfig, tokens: torch.Tensor, attn_fn, caches=None)
         caches = [None] * len(params["layers"])
     for lp, cache in zip(params["layers"], caches):
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        attn_out, cache = attn_fn(lp["attn"], acfg, h, cache)
+        attn_out, cache = attn_fn(lp["attn"], acfg, h, cache, tp_group=tp_group)
         x = x + attn_out
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + swiglu(h, lp["mlp"])
+        x = x + swiglu(h, lp["mlp"], tp_group)
         new_caches.append(cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if isinstance(emb, QuantizedTensor):
@@ -253,17 +269,18 @@ def _trunk(params, cfg: ModelConfig, tokens: torch.Tensor, attn_fn, caches=None)
     return logits, new_caches
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list, *, decode: bool = False):
-    """Run the model over [B, T] tokens (T=1 when decode=True).
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list, *, decode: bool = False, tp_group=None):
+    """Run the model over [B, T] tokens (T=1 when decode=True); every serving
+    entry takes ``tp_group`` (``_trunk``).
 
     Returns (logits [B, T, vocab], updated caches).
     """
     attn = attention_decode if decode else attention_prefill
-    return _trunk(params, cfg, tokens, attn, caches)
+    return _trunk(params, cfg, tokens, attn, caches, tp_group)
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list):
-    return forward(params, cfg, tokens, caches, decode=False)
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list, *, tp_group=None):
+    return forward(params, cfg, tokens, caches, decode=False, tp_group=tp_group)
 
 
 def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
@@ -288,34 +305,35 @@ def train_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, segment_ids
     ``cfg``'s window and softcap apply throughout."""
     positions = None if segment_ids is None else segment_positions(segment_ids)
 
-    def attn(p, acfg, h, cache):
+    def attn(p, acfg, h, cache, tp_group):
         return attention_forward(p, acfg, h, positions=positions, segment_ids=segment_ids), cache
 
     logits, _ = _trunk(params, cfg, tokens, attn)
     return logits
 
 
-def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list, slot: int, start: int, kv_end: int):
+def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list, slot: int, start: int, kv_end: int, *,
+                  tp_group=None):
     """Prefill ONE CHUNK ([1, T] tokens at positions [start, start+T)) of one
     sequence into its slot of the batched caches (start + T == kv_end).
     Returns (logits [1, T, vocab], updated caches)."""
     return _trunk(
         params, cfg, tokens,
-        lambda p, acfg, h, c: attention_prefill_chunk(p, acfg, h, c, slot, start, kv_end),
-        caches,
+        lambda p, acfg, h, c, tp_group: attention_prefill_chunk(p, acfg, h, c, slot, start, kv_end, tp_group=tp_group),
+        caches, tp_group,
     )
 
 
-def decode_step_logits(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list):
+def decode_step_logits(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list, *, tp_group=None):
     """One decode step returning raw last-position logits [B, vocab] (the
     sampling layer chooses the token; see serving/sampling.py)."""
-    logits, caches = forward(params, cfg, tokens, caches, decode=True)
+    logits, caches = forward(params, cfg, tokens, caches, decode=True, tp_group=tp_group)
     return logits[:, -1, :], caches
 
 
-def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list):
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list, *, tp_group=None):
     """One greedy decode step: tokens [B, 1] -> (next_tokens [B, 1], caches)."""
-    logits, caches = forward(params, cfg, tokens, caches, decode=True)
+    logits, caches = forward(params, cfg, tokens, caches, decode=True, tp_group=tp_group)
     return torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32), caches
 
 
@@ -334,35 +352,41 @@ def init_paged_caches(
     )
 
 
-def _trunk_paged(params, cfg: ModelConfig, tokens: torch.Tensor, attn_fn, cache: PagedModelCache):
+def _trunk_paged(params, cfg: ModelConfig, tokens: torch.Tensor, attn_fn, cache: PagedModelCache, tp_group=None):
     """``_trunk`` over the model cache's layer views. Every layer's write
     sets the same lengths, so the last layer's are the model's."""
-    logits, layers = _trunk(params, cfg, tokens, attn_fn, cache.layers())
+    logits, layers = _trunk(params, cfg, tokens, attn_fn, cache.layers(), tp_group)
     return logits, cache._replace(lengths=layers[-1].lengths)
 
 
-def prefill_paged(params, cfg: ModelConfig, tokens: torch.Tensor, cache: PagedModelCache, slot: int, true_len):
+def prefill_paged(params, cfg: ModelConfig, tokens: torch.Tensor, cache: PagedModelCache, slot: int, true_len, *,
+                  tp_group=None):
     """Prefill ONE sequence ([1, T] tokens, T a page multiple) into its slot's
     pages. Returns (logits [1, T, vocab], updated cache)."""
     return _trunk_paged(
-        params, cfg, tokens, lambda p, acfg, h, c: attention_prefill_paged(p, acfg, h, c, slot, true_len), cache
+        params, cfg, tokens,
+        lambda p, acfg, h, c, tp_group: attention_prefill_paged(p, acfg, h, c, slot, true_len, tp_group=tp_group),
+        cache, tp_group,
     )
 
 
 def prefill_chunk_paged(
-    params, cfg: ModelConfig, tokens: torch.Tensor, cache: PagedModelCache, slot: int, start: int, kv_end: int
+    params, cfg: ModelConfig, tokens: torch.Tensor, cache: PagedModelCache, slot: int, start: int, kv_end: int, *,
+    tp_group=None,
 ):
     """Chunked prefill over the paged cache: [1, T] tokens at positions
     [start, start+T), T a page multiple, start + T == kv_end (host ints).
     Returns (logits [1, T, vocab], updated cache)."""
     return _trunk_paged(
         params, cfg, tokens,
-        lambda p, acfg, h, c: attention_prefill_chunk_paged(p, acfg, h, c, slot, start, kv_end),
-        cache,
+        lambda p, acfg, h, c, tp_group: attention_prefill_chunk_paged(p, acfg, h, c, slot, start, kv_end,
+                                                                      tp_group=tp_group),
+        cache, tp_group,
     )
 
 
-def decode_step_logits_paged(params, cfg: ModelConfig, tokens: torch.Tensor, cache: PagedModelCache):
+def decode_step_logits_paged(params, cfg: ModelConfig, tokens: torch.Tensor, cache: PagedModelCache, *,
+                             tp_group=None):
     """One paged decode step returning raw last-position logits [S, vocab].
 
     The deferred-write path: every layer attends over the cache as it is,
@@ -373,24 +397,24 @@ def decode_step_logits_paged(params, cfg: ModelConfig, tokens: torch.Tensor, cac
     path instead: each layer writes its row (K9), then K7 attends.
     """
     if cfg.sliding_window is not None and cfg.sliding_window <= 1:
-        logits, cache = _trunk_paged(params, cfg, tokens, attention_decode_paged, cache)
+        logits, cache = _trunk_paged(params, cfg, tokens, attention_decode_paged, cache, tp_group)
         return logits[:, -1, :], cache
     k_rows, v_rows = [], []
 
-    def attn(lp, acfg, h, layer):
-        out, (k, v) = attention_decode_paged_deferred(lp, acfg, h, layer)
+    def attn(lp, acfg, h, layer, tp_group):
+        out, (k, v) = attention_decode_paged_deferred(lp, acfg, h, layer, tp_group=tp_group)
         k_rows.append(k)
         v_rows.append(v)
         return out, layer
 
-    logits, _ = _trunk(params, cfg, tokens, attn, cache.layers())
+    logits, _ = _trunk(params, cfg, tokens, attn, cache.layers(), tp_group)
     slots = torch.arange(tokens.shape[0], device=tokens.device)
     cache = paged_write_tokens_multi(cache, torch.stack(k_rows), torch.stack(v_rows), slots)
     return logits[:, -1, :], cache
 
 
-def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor, cache: PagedModelCache):
+def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor, cache: PagedModelCache, *, tp_group=None):
     """One greedy decode step over all slots ([S, 1] tokens) against the
     paged cache. Returns (next_tokens [S, 1], updated cache)."""
-    logits, cache = decode_step_logits_paged(params, cfg, tokens, cache)
+    logits, cache = decode_step_logits_paged(params, cfg, tokens, cache, tp_group=tp_group)
     return torch.argmax(logits[:, None, :], dim=-1).to(torch.int32), cache

@@ -17,16 +17,30 @@ tensor to the blocks and back, so a caller holding global tensors writes
 ``gather(fn(*(shard(x, mesh, s) for x, s in zip(args, fn.in_specs))),
 mesh, fn.out_spec)``. The collectives are ``parallel.mesh``'s, over each
 mesh axis's process group.
+
+Tensor-parallel serving, JAX's ``shard_caches`` (where GSPMD shards the
+jitted model after a cache placed on the mesh): ``make_cache_sharding``
+builds the callable both engines take, which keeps this rank's block of
+the caches and carries its mesh (an engine given it makes only that
+block), and ``shard_model_params`` gives the
+engine this rank's share of the params: column-parallel q / k / v and
+gate / up projections, row-parallel output and down projections (the
+models' ``tp_group`` all-reduce follows each), the embedding and norms
+whole.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.distributed as dist
 
 from flash_attention_tpu_torch.ops.decode import decode_attention
 from flash_attention_tpu_torch.ops.flash_attention import flash_attention
-from flash_attention_tpu_torch.parallel.mesh import all_reduce_
+from flash_attention_tpu_torch.ops.paged import PagedModelCache
+from flash_attention_tpu_torch.ops.quant import QuantizedTensor
+from flash_attention_tpu_torch.parallel.mesh import all_reduce_, axis_size, shard
 
 
 def _specs(fn, in_specs, out_spec):
@@ -113,3 +127,80 @@ def make_context_parallel_attention(mesh, *, sm_scale: float | None = None, data
         return cross_chip_merge(o, lse, mesh.get_group(context_axis))[0]
 
     return _specs(local, (q_spec, kv_spec, kv_spec), q_spec)
+
+
+# Each projection's dimension split over the model axis, and whether it is
+# row-parallel (its output, model_dim, whole on every rank): wq / wk / wv
+# [model_dim, H, D] and wo [Hq, D, model_dim] by heads, w_gate / w_up
+# [model_dim, mlp] by columns, w_down [mlp, model_dim] by rows.
+_SPLIT = {"wq": (1, False), "wk": (1, False), "wv": (1, False), "wo": (0, True),
+          "w_gate": (1, False), "w_up": (1, False), "w_down": (0, True)}
+
+
+def _shard_weight(w, mesh, name: str, model_axis: str):
+    """This rank's block of the weight ``name``. A W8A16 weight's scales
+    (one an output channel) split with the columns, and stay whole on a
+    row-parallel weight."""
+    dim, row_parallel = _SPLIT[name]
+    spec = tuple(model_axis if d == dim else None for d in range(len(w.shape)))
+    if isinstance(w, QuantizedTensor) and row_parallel:
+        return QuantizedTensor(shard(w.values, mesh, spec), w.scales)
+    return shard(w, mesh, spec)
+
+
+def shard_model_params(params: dict, cfg, mesh, *, model_axis: str = "model"):
+    """This rank's share of a model's params for tensor-parallel serving, and
+    the config it runs under (the rank's head counts and MLP width).
+
+    ``wq`` / ``wk`` / ``wv`` [model_dim, H, D] split by heads and ``wo``
+    [Hq, D, model_dim] by heads (row-parallel); ``w_gate`` / ``w_up``
+    [model_dim, mlp] by columns and ``w_down`` [mlp, model_dim] by rows
+    (row-parallel); the tied embedding and the norms stay whole (the same
+    tensors). A W8A16 weight's scales split with its output columns and stay
+    whole where the output is not split. The model axis must divide
+    ``num_kv_heads``, so each rank's q heads stay with their kv head
+    (``auto_mesh``'s rule); the mesh's other axes take no part.
+    """
+    m = axis_size(mesh, model_axis)
+    if cfg.num_kv_heads % m or cfg.mlp_dim % m:
+        raise ValueError(f"the model axis ({m} ranks) must divide num_kv_heads ({cfg.num_kv_heads}) and mlp_dim "
+                         f"({cfg.mlp_dim})")
+
+    def layer(lp):
+        return {**lp, "attn": {n: _shard_weight(w, mesh, n, model_axis) for n, w in lp["attn"].items()},
+                "mlp": {n: _shard_weight(w, mesh, n, model_axis) for n, w in lp["mlp"].items()}}
+
+    local = {**params, "layers": [layer(lp) for lp in params["layers"]]}
+    return local, dataclasses.replace(cfg, num_q_heads=cfg.num_q_heads // m, num_kv_heads=cfg.num_kv_heads // m,
+                                      mlp_dim=cfg.mlp_dim // m)
+
+
+def make_cache_sharding(mesh, *, data_axis: str = "data", model_axis: str = "model"):
+    """The engines' ``shard_caches`` for tensor-parallel serving over ``mesh``.
+
+    The callable keeps this rank's block of the fresh global caches: dense
+    ``KVCache``s (plain or quantized, rolling included) [B, Hkv, S, D] over
+    (data, model) and lengths over data, as JAX's
+    tests/test_sharded_serving.py places them; a ``PagedModelCache``'s
+    pools [L, pages, Hkv, page, D] and their scales over kv heads, its page
+    table and lengths whole, so over a data axis the paged engine's ranks
+    are replicas. It carries ``.mesh``, ``.data_axis`` and ``.model_axis``,
+    from which an engine shards its params (``shard_model_params``), takes
+    its groups and makes this rank's block of its fresh caches directly.
+    """
+    kv_spec = (data_axis, model_axis, None, None)
+    pool_spec = (None, None, model_axis, None, None)
+
+    def block(x, spec):
+        return None if x is None else shard(x, mesh, spec)
+
+    def shard_caches(caches):
+        if isinstance(caches, PagedModelCache):
+            return caches._replace(k_pool=block(caches.k_pool, pool_spec), v_pool=block(caches.v_pool, pool_spec),
+                                   k_scales=block(caches.k_scales, pool_spec[:-1]),
+                                   v_scales=block(caches.v_scales, pool_spec[:-1]))
+        return [c._replace(k=block(c.k, kv_spec), v=block(c.v, kv_spec), lengths=block(c.lengths, (data_axis,)),
+                           k_scales=block(c.k_scales, kv_spec), v_scales=block(c.v_scales, kv_spec)) for c in caches]
+
+    shard_caches.mesh, shard_caches.data_axis, shard_caches.model_axis = mesh, data_axis, model_axis
+    return shard_caches

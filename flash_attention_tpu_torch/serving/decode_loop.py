@@ -7,6 +7,16 @@ device-to-host token readback per block. Blocks are pipelined: block i+1 is
 dispatched before block i's tokens are read, and the readback is an
 asynchronous copy into pinned memory with an event, so the host waits on
 block i's tokens only, not on block i+1's work.
+
+Under tensor parallelism over a data axis (``ServingEngine``'s
+``shard_caches``) a rank runs the device work of its own slots only: the
+prefill chunks of the slots it owns and the decode block over them. The
+host state stays the same on every rank: a prefill's first token goes from
+its owner to every rank (``_share_first``), and a block's tokens are
+all-gathered over the data axis on the device as it is dispatched
+(``_gather_tokens``), before the readback, so a pipelined block still
+overlaps the previous one's readback. Every rank runs the same
+collectives in the same order, since its host loop is every other's.
 """
 
 from __future__ import annotations
@@ -48,6 +58,8 @@ def advance_prefill(eng, slot: int, out) -> None:
     The engine-specific pieces are hooks on ``eng``, as in the JAX loop:
     ``_prefill_chunk_step`` (dense or paged chunk), ``_set_slot_length_fn``
     and ``_on_slot_finished`` (the paged engine releases the slot's pages).
+    A rank that does not own the slot (``_owns``) runs no chunk and takes
+    the first token from its owner (``_share_first``).
     """
     from flash_attention_tpu_torch.serving.engine import Completion
 
@@ -55,17 +67,22 @@ def advance_prefill(eng, slot: int, out) -> None:
     c = st.next_chunk
     lo = c * eng.chunk
     hi = min((c + 1) * eng.chunk, len(st.padded))
-    toks = torch.as_tensor(st.padded[None, lo:hi], device=eng.device)
-    logits, eng.caches = eng._prefill_chunk_step(eng.params, toks, eng.caches, slot, lo, hi)
+    owned = eng._owns(slot)
+    if owned:
+        toks = torch.as_tensor(st.padded[None, lo:hi], device=eng.device)
+        logits, eng.caches = eng._prefill_chunk_step(eng.params, toks, eng.caches, slot, lo, hi)
     st.next_chunk += 1
     eng.events.append(("chunk", slot))
     if st.next_chunk * eng.chunk < len(st.padded):
         return
     req = st.req
     true_len = len(req.prompt)
-    eng.caches = eng._set_slot_length_fn(eng.caches, slot, true_len)
-    local_idx = (true_len - 1) - (st.next_chunk - 1) * eng.chunk
-    first = int(eng._sample_first(logits[:, local_idx], slot, true_len))
+    first = None
+    if owned:
+        eng.caches = eng._set_slot_length_fn(eng.caches, slot, true_len)
+        local_idx = (true_len - 1) - (st.next_chunk - 1) * eng.chunk
+        first = eng._sample_first(logits[:, local_idx], slot, true_len)
+    first = eng._share_first(first, slot)
     del eng._prefills[slot]
     eng.sched.prefill_done(slot)
     eng._dev_dirty = True
@@ -186,8 +203,9 @@ def run_decode_block(eng, active, out) -> None:
     if eng._dev_dirty:
         active_mask = np.zeros((eng.max_slots,), bool)
         active_mask[active] = True
+        own = slice(eng._slot_lo, eng._slot_hi)  # this rank's slots: all of them unless data-sharded
         eng._dev = tuple(
-            torch.as_tensor(a, device=eng.device)
+            torch.as_tensor(a[own], device=eng.device)
             for a in (eng.last_token, active_mask, eng._temps, eng._topk, eng._topp, eng._seeds)
         )
         # Exact fast path: every ACTIVE slot greedy (temperature 0).
@@ -216,7 +234,7 @@ def run_decode_block(eng, active, out) -> None:
     eng.steps += k_run
     eng.decode_time_s += time.perf_counter() - t0
     next_pending = (
-        _start_readback(toks_dev),
+        _start_readback(eng._gather_tokens(toks_dev)),
         list(active),
         {s: eng.sched.slot_request(s) for s in active},
     )

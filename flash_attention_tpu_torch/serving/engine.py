@@ -15,14 +15,26 @@ package's) owns the request lifecycle; this module owns the device work:
     temperature 0 is exact greedy.
 
 The KV cache lives on the device the params live on and is updated in place.
+
+Tensor-parallel serving (JAX's ``shard_caches`` over a mesh): given the
+callable of ``parallel.sharding.make_cache_sharding``, the engine makes only
+this rank's block of the caches, runs the model on its share of the params
+(``shard_model_params``) with an all-reduce over the mesh's model axis, and
+over its data axis owns a contiguous range of slots. Every rank of the mesh
+runs the same engine on the same requests, so the scheduler, the host loop
+and (paged) the page allocator step alike on each; the device work of a
+slot runs on its owners only, and the tokens reach every rank
+(``serving/decode_loop.py``), so ``run`` returns the same tokens on each.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from flash_attention_tpu_torch.models.transformer import (
     ModelConfig,
@@ -30,6 +42,8 @@ from flash_attention_tpu_torch.models.transformer import (
     init_caches,
     prefill_chunk,
 )
+from flash_attention_tpu_torch.parallel.mesh import all_gather, axis_index, axis_size
+from flash_attention_tpu_torch.parallel.sharding import shard_model_params
 from flash_attention_tpu_torch.serving.decode_loop import (
     advance_prefill,
     make_decode_multi,
@@ -39,11 +53,7 @@ from flash_attention_tpu_torch.serving.decode_loop import (
 )
 from flash_attention_tpu_torch.serving.sampling import GREEDY, SamplingParams, sample_tokens
 from flash_attention_tpu_torch.serving.scheduler import ContinuousBatchScheduler
-
-# Sharded caches need a tensor-parallel model (column- and row-parallel
-# projections, an all-reduce after the output projection), which the port
-# does not have yet.
-SHARD_ITEM = "ROADMAP.md queue 1 item 8b (a tensor-parallel model behind shard_caches)"
+from flash_attention_tpu_torch.utils.checkpoint import _leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,8 +93,16 @@ class ServingEngine:
       prefill_chunk: tokens per prefill chunk; with attention sinks at most
         sliding_window - attention_sinks, so every chunk past the window
         starts after the sinks.
-      shard_caches: the JAX engine's hook that places the fresh caches on a
-        device mesh; not ported (``SHARD_ITEM``), must be None.
+      shard_caches: a callable applied once to the freshly made global
+        caches. One from ``parallel.sharding.make_cache_sharding`` carries
+        its mesh, and then the engine makes only this rank's block of the
+        caches (the one the callable keeps of the global caches, so no rank
+        allocates the global ones), shards ``params`` (the global ones) over
+        the mesh's model axis and runs the tensor-parallel model, and this
+        rank serves the slots of its data coordinate (every rank of the mesh
+        runs the engine on the same requests). Any other callable is a
+        placement only: it must return the caches with their shapes, dtypes
+        and device, and the model runs unsharded.
       decode_block_steps: most decode steps per block (one readback each).
       pipeline_decode: dispatch block i+1 before reading block i's tokens.
     """
@@ -102,20 +120,29 @@ class ServingEngine:
         decode_block_steps: int = 16,
         pipeline_decode: bool = True,
     ):
-        if shard_caches is not None:
-            raise NotImplementedError(f"shard_caches is not ported yet: {SHARD_ITEM}")
         chunk = min(prefill_chunk, max_seq)
         if cfg.attention_sinks:
             chunk = min(chunk, cfg.sliding_window - cfg.attention_sinks)
         self._init_host_loop(params, cfg, max_slots, max_seq, eos_id, chunk, decode_block_steps, pipeline_decode)
-        self.caches = init_caches(cfg, max_slots, max_seq, device=self.device, prefill_chunk=chunk)
-        self._decode_multi = make_decode_multi(cfg, decode_step_logits, self._lengths_of, self._with_lengths)
+        self.caches = self._place_caches(
+            lambda c, slots: init_caches(c, slots, max_seq, device=self.device, prefill_chunk=chunk), shard_caches,
+            data_sharded=True,
+        )
+        decode = functools.partial(decode_step_logits, tp_group=self.tp_group)
+        self._decode_multi = make_decode_multi(self.model_cfg, decode, self._lengths_of, self._with_lengths)
 
     def _init_host_loop(self, params, cfg, max_slots, max_seq, eos_id, chunk, decode_block_steps, pipeline_decode):
         """The host state the shared loop (serving/decode_loop.py) reads and
         writes, common to the dense and the paged engine."""
         self.params = params
         self.cfg = cfg
+        # The config and process group the model runs under, and the slots
+        # [_slot_lo, _slot_hi) whose device work this rank runs (tensor
+        # parallel: set by _place_caches).
+        self.model_cfg = cfg
+        self.tp_group = None
+        self._data_group = None
+        self._slot_lo, self._slot_hi = 0, max_slots
         self.device = params["embed"].device
         self.max_slots = max_slots
         self.max_seq = max_seq
@@ -144,14 +171,51 @@ class ServingEngine:
         self.decode_time_s = 0.0
         self.events: list[tuple] = []  # ("chunk", slot) / ("decode", n_appended)
 
-    # Hooks of the shared host loop (serving/decode_loop.py).
+    def _place_caches(self, make, shard_caches, *, data_sharded: bool):
+        """The engine's fresh caches, ``make(cfg, slots)``, placed by
+        ``shard_caches`` (see the class's Args). With a mesh, this rank's
+        block made directly, and this rank's params, model config and model
+        group, and with ``data_sharded`` its slots and data group."""
+        if shard_caches is None:
+            return make(self.cfg, self.max_slots)
+        mesh = getattr(shard_caches, "mesh", None)
+        if mesh is None:
+            caches = make(self.cfg, self.max_slots)
+            placed = shard_caches(caches)
+            if _layout(placed) != _layout(caches):
+                raise ValueError("shard_caches without a mesh is a placement only and must return the caches with "
+                                 "their shapes, dtypes and device; for tensor-parallel serving pass "
+                                 "parallel.sharding.make_cache_sharding(mesh)")
+            return placed
+        model_axis, data_axis = shard_caches.model_axis, shard_caches.data_axis
+        self.params, self.model_cfg = shard_model_params(self.params, self.cfg, mesh, model_axis=model_axis)
+        self.tp_group = mesh.get_group(model_axis)
+        n_data = axis_size(mesh, data_axis)
+        if data_sharded and n_data > 1:
+            if self.max_slots % n_data:
+                raise ValueError(f"max_slots ({self.max_slots}) must split over the {n_data} ranks of {data_axis!r}")
+            per = self.max_slots // n_data
+            self._slot_lo = axis_index(mesh, data_axis) * per
+            self._slot_hi = self._slot_lo + per
+            self._data_group = mesh.get_group(data_axis)
+        # Fresh caches are uniform (zeros, scales of ones), so the rank's
+        # block is the caches of its heads and slots.
+        return make(self.model_cfg, self._slot_hi - self._slot_lo)
+
+    # Hooks of the shared host loop (serving/decode_loop.py). Slots are the
+    # scheduler's; the caches hold this rank's [_slot_lo, _slot_hi).
+    def _owns(self, slot: int) -> bool:
+        """Whether this rank runs ``slot``'s device work."""
+        return self._slot_lo <= slot < self._slot_hi
+
     def _prefill_chunk_step(self, params, tokens, caches, slot: int, start: int, kv_end: int):
-        return prefill_chunk(params, self.cfg, tokens, caches, slot, start, kv_end)
+        return prefill_chunk(params, self.model_cfg, tokens, caches, slot - self._slot_lo, start, kv_end,
+                             tp_group=self.tp_group)
 
     def _set_slot_length_fn(self, caches, slot: int, true_len: int):
         """Every layer's cache with ``lengths[slot] = true_len``."""
         lengths = self._lengths_of(caches).clone()
-        lengths[slot] = true_len
+        lengths[slot - self._slot_lo] = true_len
         return self._with_lengths(caches, lengths)
 
     @staticmethod
@@ -177,6 +241,25 @@ class ServingEngine:
             one(self._topp, torch.float32), one(self._seeds, torch.int32),
             torch.tensor([position], dtype=torch.int32, device=self.device),
         )[0]
+
+    def _share_first(self, first: torch.Tensor | None, slot: int) -> int:
+        """``slot``'s first token on every rank: sampled on its owners
+        (``first``; None elsewhere) and, over a data axis, broadcast from
+        the owner to the other data coordinates."""
+        if self._data_group is None:
+            return int(first)
+        group = self._data_group
+        t = torch.tensor([0 if first is None else int(first)], dtype=torch.int32)
+        if dist.get_backend(group) != "gloo":
+            t = t.to(self.device)
+        src = dist.get_process_group_ranks(group)[slot // (self._slot_hi - self._slot_lo)]
+        dist.broadcast(t, src=src, group=group)
+        return int(t)
+
+    def _gather_tokens(self, toks: torch.Tensor) -> torch.Tensor:
+        """A decode block's tokens [k, local slots] as [k, max_slots]: over a
+        data axis, every data coordinate's slots (on the device)."""
+        return toks if self._data_group is None else all_gather(toks, 1, self._data_group)
 
     def submit(self, req: Request) -> bool:
         return self.sched.submit(req.id, len(req.prompt), req.max_new_tokens)
@@ -214,3 +297,8 @@ class ServingEngine:
             run_decode_block(self, active, out)
 
         return out
+
+
+def _layout(caches) -> list:
+    """(shape, dtype, device) of each tensor of the caches."""
+    return [(t.shape, t.dtype, t.device) for t in _leaves(caches)]

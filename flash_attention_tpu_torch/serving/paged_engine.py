@@ -23,13 +23,17 @@ prefix pages carry theirs. A sliding-window model gets the PAGED RING: a
 slot owns ceil((window + chunk) / page) + 2 physical pages (one more, pinned
 as logical page 0, with attention sinks) and its table maps its whole
 logical range onto them modulo their count, so its KV memory is O(window)
-however long the context. Sharded caches are not ported yet and raise
-NotImplementedError naming their ROADMAP.md item. There is no ``warmup``:
+however long the context. Tensor-parallel serving (``shard_caches`` from
+``parallel.sharding.make_cache_sharding``) shards the pools over kv heads
+and the model over the mesh's model axis, and keeps the page table, the
+lengths, the allocator and the prefix cache whole on every rank, as JAX's
+paged engine does; over a data axis the ranks are replicas. There is no ``warmup``:
 eager PyTorch has no programs to compile ahead of a run.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 
 import numpy as np
@@ -49,7 +53,7 @@ from flash_attention_tpu_torch.serving.decode_loop import (
     run_decode_block,
     start_prefill,
 )
-from flash_attention_tpu_torch.serving.engine import SHARD_ITEM, Completion, Request, ServingEngine
+from flash_attention_tpu_torch.serving.engine import Completion, Request, ServingEngine
 
 
 class PagedServingEngine(ServingEngine):
@@ -68,7 +72,14 @@ class PagedServingEngine(ServingEngine):
       eos_id: optional end-of-sequence token.
       prefill_chunk: tokens per prefill chunk (rounded up to a page multiple).
       decode_block_steps, pipeline_decode: as in ServingEngine.
-      shard_caches: not ported (``serving.engine.SHARD_ITEM``); must be None.
+      shard_caches: a callable applied once to the fresh PagedModelCache.
+        One from ``parallel.sharding.make_cache_sharding`` carries its mesh:
+        the engine makes only this rank's kv heads of the pools (table and
+        lengths whole), shards ``params`` (the global ones) over the mesh's
+        model axis and runs the tensor-parallel model; every rank of the
+        mesh runs the engine on the same requests, and the ranks of a data
+        axis are replicas. Any other callable is a placement only, as in
+        ServingEngine.
       prefix_cache: share identical prompt-prefix pages across requests.
         Full prompt pages register by chained content hash when their
         prefill completes; a later request with a matching prefix points its
@@ -103,8 +114,6 @@ class PagedServingEngine(ServingEngine):
         if prefix_cache and cfg.sliding_window is not None:
             raise ValueError("prefix_cache is incompatible with sliding-window configs (the paged ring recycles "
                              "prompt pages in place)")
-        if shard_caches is not None:
-            raise NotImplementedError(f"shard_caches is not ported yet: {SHARD_ITEM}")
         max_seq = pages_per_slot * page_size
         chunk = max(page_size, -(-prefill_chunk // page_size) * page_size)
         self._init_host_loop(params, cfg, max_slots, max_seq, eos_id, min(chunk, max_seq),
@@ -116,9 +125,10 @@ class PagedServingEngine(ServingEngine):
         dump = self.alloc.acquire(1)
         if dump != [0]:
             raise RuntimeError(f"expected dump page 0, got {dump}")
-        self.caches = init_paged_caches(
-            cfg, num_pages=num_pages, num_slots=max_slots, pages_per_slot=pages_per_slot,
-            page_size=page_size, device=self.device,
+        self.caches = self._place_caches(
+            lambda c, slots: init_paged_caches(c, num_pages=num_pages, num_slots=slots, pages_per_slot=pages_per_slot,
+                                               page_size=page_size, device=self.device),
+            shard_caches, data_sharded=False,
         )
         self.prefix_cache_enabled = prefix_cache
         # key (chained prompt-prefix digest) -> [phys_page, refcount]
@@ -127,11 +137,12 @@ class PagedServingEngine(ServingEngine):
         self._share_skip: dict[int, int] = {}  # slot -> prefill rows skipped
         self.prefix_hits = 0  # shared pages reused
         self.slot_pages: dict[int, list[int]] = {}
-        self._decode_multi = make_decode_multi(cfg, decode_step_logits_paged, self._lengths_of, self._with_lengths)
+        decode = functools.partial(decode_step_logits_paged, tp_group=self.tp_group)
+        self._decode_multi = make_decode_multi(self.model_cfg, decode, self._lengths_of, self._with_lengths)
 
     # Hooks of the shared host loop (serving/decode_loop.py).
     def _prefill_chunk_step(self, params, tokens, caches, slot: int, start: int, kv_end: int):
-        return prefill_chunk_paged(params, self.cfg, tokens, caches, slot, start, kv_end)
+        return prefill_chunk_paged(params, self.model_cfg, tokens, caches, slot, start, kv_end, tp_group=self.tp_group)
 
     @staticmethod
     def _lengths_of(cache) -> torch.Tensor:

@@ -719,6 +719,118 @@ def gloo_cuda(card: str) -> None:
         print(f"[gloo cuda] torch {torch.__version__}, rank {rank}: {res} ({card})", flush=True)
 
 
+def sharded_serving(card: str) -> None:
+    """Phase 23 alone: phases 5's and 8's main paths on fresh weights from
+    seed 0 give the tokens it holds the sharded engines to, then
+    ``phase_sharded_serving``, whose kernels' entries are printed."""
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+
+    cfg = ModelConfig()
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    _, dense = cs.serve_full_dense(card, "full", cfg, params, used=("K1", "K6"))
+    _, paged = cs.serve_full_paged(card, "full paged", cfg, params, used=("K7", "K8", "K9/K10"), dense=dense)
+    del params
+    print(json.dumps({"kernels": cs.phase_sharded_serving(card, dense["tokens"], paged["tokens"])}), flush=True)
+
+
+def _emulated_tp(params, cfg, ranks: int, run):
+    """``run(params, cfg, group, rank)`` on each of ``ranks`` model shards
+    of ``params`` at once in one process: a thread a rank on the one
+    device, the model's all-reduce a barrier at which every thread adds the
+    partials in rank order. The tensor-parallel numerics without a process
+    group; returns each rank's result."""
+    import threading
+
+    import flash_attention_tpu_torch.models.attention as attention
+    import flash_attention_tpu_torch.models.transformer as transformer
+    from flash_attention_tpu_torch.parallel.sharding import shard_model_params
+
+    class _Mesh:  # the one-axis mesh shard_model_params reads
+        mesh_dim_names, shape = ("data", "model", "context"), (1, ranks, 1)
+
+        def __init__(self, rank):
+            self.rank = rank
+
+        def get_coordinate(self):
+            return [0, self.rank, 0]
+
+    shards = [shard_model_params(params, cfg, _Mesh(r)) for r in range(ranks)]
+    parts, barrier, me = [None] * ranks, threading.Barrier(ranks), threading.local()
+
+    def all_reduce_(t, op, group):
+        parts[me.rank] = t
+        barrier.wait()
+        total = parts[0].clone()
+        for p in parts[1:]:
+            total += p
+        barrier.wait()
+        return t.copy_(total)
+
+    saved = attention.all_reduce_, attention.tensor_parallel, transformer.tensor_parallel
+    attention.all_reduce_ = all_reduce_
+    attention.tensor_parallel = transformer.tensor_parallel = lambda group: group is not None
+    out = [None] * ranks
+
+    def rank_main(r):
+        me.rank = r
+        out[r] = run(*shards[r], "emulated", r)
+
+    try:
+        threads = [threading.Thread(target=rank_main, args=(r,)) for r in range(ranks)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        attention.all_reduce_, attention.tensor_parallel, transformer.tensor_parallel = saved
+    return out
+
+
+def tp_emulation(card: str) -> None:
+    """How far a tensor-parallel ModelConfig() (model 4) parts from the
+    single-process model when only the order of the row-parallel sums
+    differs (``_emulated_tp``): chip_smoke's phase-23 logits
+    (``_serve_logits``) at 1, 2, 4, 8 and 32 layers, and at 32 layers each
+    layer's attention and MLP outputs on the single-process model's own
+    inputs (``_layer_outputs``); beside them the single-process model
+    against itself, run again and with its prefill in 256-row chunks."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_caches, init_model_params, prefill_chunk
+
+    ranks = 4
+    for layers in (1, 2, 4, 8, 32):
+        cfg = ModelConfig(num_layers=layers)
+        params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+        want = cs._serve_logits(params, cfg, "dense")
+        got = _emulated_tp(params, cfg, ranks, lambda p, c, group, r: cs._serve_logits(p, c, "dense", group))
+        if not all(torch.equal(got[0], g) for g in got):
+            raise RuntimeError("[tp emulation] the ranks' logits differ")
+        print(f"[tp emulation] {layers} layers, model {ranks}: logits row-relative {cs._rel_diff(got[0], want):.3e} "
+              f"(the first 16 prompt rows {cs._rel_diff(got[0][:16], want[:16]):.3e}); largest |logit| "
+              f"{float(want.abs().max()):.3f} ({card})", flush=True)
+    ins, outs = cs._layer_outputs(params, cfg)
+    tp = _emulated_tp(params, cfg, ranks, lambda p, c, group, r: cs._layer_outputs(p, c, group, inputs=ins)[1])[0]
+    errs = [max(cs._rel_diff(a, ra), cs._rel_diff(m, rm)) for (a, m), (ra, rm) in zip(tp, outs)]
+    print(f"[tp emulation] 32 layers, each layer's attention and MLP outputs on the single-process model's inputs: "
+          f"row-relative {min(errs):.3e}-{max(errs):.3e} ({card})", flush=True)
+    toks = np.random.default_rng(cs.TP_SEED).integers(0, cfg.vocab_size, (1, cs.TP_PREFILL))
+    toks = torch.from_numpy(toks).to("cuda", torch.int32)
+    caches, rows = init_caches(cfg, 1, 2048, device="cuda"), []
+    with torch.no_grad():
+        for lo in range(0, cs.TP_PREFILL, 256):
+            chunk, caches = prefill_chunk(params, cfg, toks[:, lo:lo + 256], caches, 0, lo, lo + 256)
+            rows.append(chunk[0])
+    again = cs._serve_logits(params, cfg, "dense")
+    print(f"[tp emulation] single process against itself: run again {cs._rel_diff(again, want):.3e}, prefill in 256-row "
+          f"chunks {cs._rel_diff(torch.cat(rows), want[:cs.TP_PREFILL]):.3e} ({card})", flush=True)
+
+
 def _one(funcs: list[str]) -> None:
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs

@@ -187,16 +187,21 @@ def test_first_token_eos_releases_pages(model):
     ],
 )
 def test_unported_options_raise(model, field, value, kw):
-    """shard_caches is not ported and raises naming its ROADMAP.md item. The
-    masks are: ``rolling`` is the dense cache's layout and leaves the paged
-    engine as it is, a window builds the paged ring, and sinks without a
-    window are refused as in the JAX engine."""
+    """The JAX engine's options on the port's. ``shard_caches`` without a
+    mesh is a placement, as in JAX: the model unsharded and the tokens the
+    unsharded engine's; a callable that reshapes the pools is no placement
+    and raises (the tensor-parallel callable:
+    tests/test_torch_sharded_serving.py). ``rolling`` is the dense cache's
+    layout and leaves the paged engine as it is, a window builds the paged
+    ring, and sinks without a window are refused as in the JAX engine."""
     _, _, tcfg, tparams = model
     if field is not None:
         tcfg = dataclasses.replace(tcfg, **{field: value})
     if field is None:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 8b"):
-            torch_paged.PagedServingEngine(tparams, tcfg, **POOL, **kw)
+        assert _serve(model, **kw)[1] == _serve(model)[1]
+        with pytest.raises(ValueError, match="placement only"):
+            torch_paged.PagedServingEngine(tparams, tcfg, **POOL,
+                                           shard_caches=lambda c: c._replace(k_pool=c.k_pool[:, :8]))
     elif field == "attention_sinks":
         with pytest.raises(ValueError, match="requires sliding_window"):
             torch_paged.PagedServingEngine(tparams, tcfg, **POOL, **kw)

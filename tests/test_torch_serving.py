@@ -162,9 +162,15 @@ def test_sampling_is_reproducible_and_truncated():
 
 
 def test_shard_caches_is_the_jax_keyword_and_raises(model):
-    """The dense engine takes the JAX engine's ``shard_caches`` keyword; a
-    hook raises, naming the ROADMAP.md item that ports it."""
+    """The dense engine takes the JAX engine's ``shard_caches`` keyword. A
+    callable without a mesh is a placement, as in JAX: applied once to the
+    fresh caches, the model unsharded, the tokens the unsharded engine's.
+    One that changes the caches' shapes is no placement and raises. (The
+    tensor-parallel callable: tests/test_torch_sharded_serving.py.)"""
     _, _, tcfg, tparams = model
-    torch_engine.ServingEngine(tparams, tcfg, max_slots=1, max_seq=64, shard_caches=None)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 8b"):
-        torch_engine.ServingEngine(tparams, tcfg, max_slots=1, max_seq=64, shard_caches=lambda caches: caches)
+    _, want = _serve(torch_engine, tcfg, tparams, shard_caches=None)
+    seen = []
+    _, got = _serve(torch_engine, tcfg, tparams, shard_caches=lambda caches: seen.append(caches) or caches)
+    assert got == want and len(seen) == 1
+    with pytest.raises(ValueError, match="placement only"):
+        torch_engine.ServingEngine(tparams, tcfg, max_slots=1, max_seq=64, shard_caches=lambda caches: caches[:1])
