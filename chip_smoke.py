@@ -179,17 +179,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 at 4 layers, one packed step, exactly K1d and K3m. Losses,
                 step ms, tokens/s, peak memory, the attention kernels' share
                 of (a)'s step and (b)'s attention over (a)'s.
- 21. probes   — P1-P6 (csrc/probes.cu: body T for P1, P3, P4, body S for
-                P2, P5, P6) through each tool's ``run`` on a shortened
-                sweep (P1 at seq 2048 over the four tile shapes and at 8192
-                over one; P2, P5, P6 at 512 and 1024; P3 at 1024 over four
-                tiles and 8192 over two; P4 at 8192 over one), 32 heads,
-                head_dim 128: every variant within its tool's row-relative
-                bar of its plain version and, where it computes attention,
-                within 0.1 of the fp32 oracle, timed beside its plain
-                version, bound and SDPA; each probe's run launches exactly
-                its body (P5 also K1). The whole sweeps run from
-                ``python3 -m flash_attention_tpu_torch.tools.<probe>``.
+ 21. probes   — P1-P6 (csrc/probes.cu: body T, warp-specialised wgmma +
+                TMA, for P1, P3, P4; body S, wgmma with each row's scores
+                split over a thread-block cluster, for P2, P5, P6) through
+                each tool's ``run`` on a shortened sweep (P1 at seq 2048
+                over the four tile shapes and at 8192 over one; P2, P5, P6
+                at 512 and 1024; P3 at 1024 over four tiles and 8192 over
+                two; P4 at 8192 over one), 32 heads, head_dim 128: every
+                variant within its tool's row-relative bar of its plain
+                version and, where it computes attention, within 0.1 of the
+                fp32 oracle, timed beside its plain version, bound and SDPA;
+                each probe's run launches exactly its body (P5 also K1).
+                Then the edge cases (``probe_edges``, 4 heads): body S at
+                seq 128, 512 and 1024, hb 1 and 2, and masked at hb 1; body
+                T at every tile shape (fp32 skip + cond, bf16 skip + always,
+                unmasked q-tile-major), each within its bar of plain and 0.1
+                of the oracle and bit-identical over two calls. The whole
+                sweeps run from ``python3 -m
+                flash_attention_tpu_torch.tools.<probe>``.
  22. parallel — the parallel layer (parallel/) in four gloo processes that
                 share the card (each on cuda:0; NCCL refuses two ranks on one
                 device; the ring's rotation goes through pinned host buffers,
@@ -3825,8 +3832,75 @@ def phase_probes(card: str) -> list:
         })
         del rows, timed
         torch.cuda.empty_cache()
+    probe_edges(card)
     log(f"[probes] phase 21 took {time.perf_counter() - t0:.1f} s ({card})")
     return entries
+
+
+# Phase 21's edge cases: body S at each seq and hb (the full stage) and with
+# the mask (hb 1), body T at every tile shape, 4 heads.
+PROBE_EDGE_SEQS = (128, 512, 1024)
+PROBE_EDGE_T_SEQ = 1024
+PROBE_EDGE_T = (  # (arith, skip, mask, grid, causal)
+    ("f32", True, "cond", "head", True),
+    ("bf16", True, "always", "head", True),
+    ("f32", False, "none", "qtile", False),
+)
+
+
+def probe_edges(card: str) -> None:
+    """Body S (csrc/probes.cu, clusters of 2 hb blocks) at seq 128, 512 and
+    1024, hb 1 and 2, and with the causal mask at hb 1; body T at each of
+    the four tile shapes in fp32 with skip + cond, in bf16 with skip +
+    always and unmasked under the q-tile-major order, at seq 1024. Each is
+    held row by row to its plain version within its tool's bar, within
+    ORACLE_BAR of the fp32 oracle, and to itself over two calls, bit for
+    bit (the partial outputs and sums add in rank order)."""
+    import math
+
+    import torch
+
+    from flash_attention_tpu_torch.ops.common import LOG2E
+    from flash_attention_tpu_torch.tools import probes
+
+    t0 = time.perf_counter()
+    heads, sm_scale = 4, 1.0 / math.sqrt(probes.HEAD_DIM)
+    scale2 = sm_scale * LOG2E
+    worst, cases = 0.0, 0
+
+    def hold(what: str, call, plain, bar: float, want) -> None:
+        nonlocal worst, cases
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        rel, err = probes.rel_err(got, plain()), probes.max_abs(got, want)
+        if not (rel < bar and err < ORACLE_BAR and torch.equal(got, again)):
+            raise RuntimeError(f"[probes] {what}: row-relative {rel:.3e} (bar {bar}), |kernel - oracle| {err:.3e}, "
+                               f"two calls equal: {torch.equal(got, again)}")
+        worst, cases = max(worst, rel / bar), cases + 1
+
+    for seq in PROBE_EDGE_SEQS:
+        q, k, v = probes.make_inputs(heads, seq, seed=seq)
+        wants = {c: probes.oracle_out(q, k, v, causal=c, sm_scale=sm_scale) for c in (False, True)}
+        for hb, mask in ((1, False), (2, False), (1, True)):
+            hold(f"body S seq {seq} hb {hb} mask {mask}",
+                 lambda: probes.probe_single(q, k, v, scale2, mask=mask, hb=hb),
+                 lambda: probes.single_plain(q, k, v, scale2, mask=mask), probes.PLAIN_BAR, wants[mask])
+    seq = PROBE_EDGE_T_SEQ
+    q, k, v = probes.make_inputs(heads, seq, seed=7)
+    qs = (q.float() * scale2).to(q.dtype)
+    wants = {(c, x): probes.oracle_out(q, k, v, causal=c, sm_scale=sm_scale if x else math.log(2))
+             for c in (False, True) for x in (False, True)}
+    for bm, bn in probes.TILES:
+        for arith, skip, mask, grid, causal in PROBE_EDGE_T:
+            qq = qs if arith == "bf16" else q  # the bf16 softmax takes q scaled, as P1 does
+            kw = dict(bm=bm, bn=bn, arith=arith, skip=skip, mask=mask)
+            hold(f"body T {bm}x{bn} {arith} skip {skip} mask {mask} grid {grid}",
+                 lambda: probes.probe_tiled(qq, k, v, grid=grid, **kw), lambda: probes.tiled_plain(qq, k, v, **kw),
+                 probes.BF16_BAR if arith == "bf16" else probes.PLAIN_BAR, wants[(causal, arith == "bf16")])
+    log(f"[probes] edge cases: {cases} (body S at seq {PROBE_EDGE_SEQS} x hb 1 / 2 and masked; body T at "
+        f"{len(probes.TILES)} tile shapes x {len(PROBE_EDGE_T)} variants, seq {PROBE_EDGE_T_SEQ}), {heads} heads, each "
+        f"within its bar of plain (worst at {worst:.3f} of it), within {ORACLE_BAR} of the oracle and bit-identical over "
+        f"two calls; {time.perf_counter() - t0:.1f} s ({card})")
 
 
 # Phase 22: the parallel layer, the split-decode API and the KV-cache

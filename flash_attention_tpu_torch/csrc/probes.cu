@@ -1,9 +1,7 @@
 // P1-P6: the TPU kernel probes of the repository's tools/ as two bodies for
-// Hopper whose two products, S = Q K^T and P V, run on tensor cores
-// (mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, operands fed from
-// shared memory by ldmatrix, .trans for V). bf16 inputs [heads, seq, 128],
-// contiguous; bf16 output of the same shape. Only head_dim 128 and bf16 are
-// instantiated: the probes' only shapes.
+// Hopper on wgmma with TMA-fed tiles (csrc/sm90_common.cuh). bf16 inputs
+// [heads, seq, 128], contiguous; bf16 output of the same shape. Only head_dim
+// 128 and bf16 are instantiated: the probes' only shapes.
 //
 // Replaces tools/softmax_probe.py:make_fn (P1), tools/grid_probe.py:make_call
 // (P3) and tools/causal_probe.py:make_fn (P4) with body T, and
@@ -13,23 +11,22 @@
 // Python side (flash_attention_tpu_torch/tools/probes.py) holds every
 // variant against a plain PyTorch version of the same function.
 //
-// Body T, tiled with an online softmax (P1, P3, P4). A block of BM / 16
-// warps takes one (head, BM-row q tile); each warp owns 16 q rows. The kv
-// tiles of BN rows are a loop inside the block (the TPU grid's sequential
-// "arbitrary" axis), double-buffered through shared memory by cp.async; m,
-// l and the fp32 accumulator live in registers, and the scores never leave
-// them: the S fragments of QK^T are, after the softmax, the A fragments of
-// PV. Compile-time variants:
+// What each body computes.
+//
+// Body T (P1, P3, P4): a tiled attention forward with an online softmax. A
+// block takes one (head, BM-row q tile) and walks the kv tiles of BN rows in
+// order (the TPU grid's sequential "arbitrary" axis); q is taken as given,
+// unscaled, and p enters P V rounded to bf16. Compile-time variants:
 //  * ARITH: the softmax in fp32, or as softmax_probe.py's bf16 variant does
 //    it (scores rounded to bf16 after QK^T, mask value -0.7 * bf16 max, row
 //    max into fp32 m, p = exp2(s - bf16(m)) in bf16 by h2exp2, row sum in
 //    fp32);
-//  * SKIP: the kv loop stops at the tile holding the block's last row
-//    (causal tile skipping; the TPU clamped its index map and ran pl.when);
+//  * SKIP: the walk ends at the tile holding the block's last row (causal
+//    tile skipping; the TPU clamped its index map and ran pl.when);
 //  * MASK: none, always (every tile takes the causal iota mask) or cond
-//    (only tiles whose last column passes the block's first row, a branch
-//    uniform over the block). Without SKIP, none is wrong by design for a
-//    causal probe, as in causal_probe.py;
+//    (only tiles whose last column passes the block's first row: the choice
+//    made once a tile). Without SKIP, none is wrong by design for a causal
+//    probe, as in causal_probe.py;
 //  * BM x BN: 64x64, 128x64, 64x128, 128x128, in place of the TPU's 256-2048
 //    row VMEM blocks;
 //  * GRID, the block order, standing in for grid_probe.py's dimension
@@ -38,25 +35,16 @@
 //    2-D (the two swapped: neighbouring blocks are different heads; the
 //    "arb" column, whose sequential order the card has no counterpart of),
 //    and one collapsed 1-D grid deriving both indices by a division in the
-//    kernel (the "2d" column, whose index maps did the same).
+//    kernel (the "2d" column, whose index maps did the same). The order is
+//    the one given: the q tiles are not reversed.
 // Only the combinations the probes run are instantiated: every (SKIP, MASK)
 // in fp32 head-major, bf16 unmasked or skip + always, and the other two
-// grid orders unmasked in fp32.
+// grid orders unmasked in fp32, each at the four tile shapes.
 //
-// Body S, one pass over the whole row with no rescale (P2, P5, P6). The row
-// max is taken over all seq columns before any exp2 and floored at
-// M_FLOOR, as the TPU bodies do over their [hb, S, S] block. A block of 8
-// warps holds 32 q rows' fp32 scores [32][seq] in shared memory (132 KB at
-// seq 1024; the 227 KB a block may use does not hold 64 rows): warps (rg,
-// wc) = (w % 2, w / 2) compute QK^T for row group rg over a quarter of each
-// 128-row kv stage and store the fragments (masked by their own row and
-// column, from the accumulator map) into that array; then all 256 threads
-// make the row passes over it, 8 threads a row (max; exp2 in place and the
-// sum); then each warp runs PV for its 16 rows and a quarter of head_dim,
-// reading its A fragments from the array. The scores go through shared
-// memory in every stage, mma included, so the stage breakdown prices the
-// passes over an on-chip score tile as the TPU's did over VMEM; QK^T is
-// computed once. Compile-time variants:
+// Body S (P2, P5, P6): one pass over the whole row with no rescale. The row
+// max is taken over all seq columns before any exp2 and floored at M_FLOOR
+// after scaling, as the TPU bodies do over their [hb, S, S] block, and QK^T
+// is computed once. Compile-time variants:
 //  * STAGE: mma (p = bf16(s)), max (p = bf16(s - m)), softmax (p =
 //    exp2(s * scale2 - m)), as mfu_probe.py's stages;
 //  * EPI, where 1/l goes: none (no normalise; mfu_probe.py's exp2 stage),
@@ -64,30 +52,88 @@
 //    the shipped K1 and gap_probe.py), after_pv_noguard (PV / l),
 //    after_pv_bf16 (bf16(PV) * bf16(inv) in bf16), as epilogue_probe.py;
 //  * MASK: full plus the causal iota mask (mfu_probe.py's mask stage);
-//  * HB: 1, the block's 32 rows from one head, or 2 (mfu_probe.py's
-//    perhead): 16 rows from each of two heads, whose kv stages (64 rows of
-//    each head) and products interleave in one loop, so a block carries two
-//    independent chains; the TPU probe asked Mosaic the same question by
-//    unrolling its batched dot per head.
+//  * HB: 1, a warpgroup's 64 rows from one head a block, or 2
+//    (mfu_probe.py's perhead): two warpgroups, one a head, two independent
+//    chains in one block, the Hopper form of the TPU probe's per-head
+//    unrolled dots.
 //
 // What bounds them on this card: at seq >= 512 and head_dim 128 the
 // products are O(seq^2 * 128) against O(seq * 128) bytes, so arithmetic
-// bounds them (989 TFLOP/s dense bf16). The probes measure what stands
-// between a body and that bound: the softmax passes (P2, P1), the masking
-// and the skipped tiles (P4), the block shape and order (P3), the host
-// wrapper (P5) and the epilogue (P6). mma.sync is the Ampere-era path to
-// the tensor cores, the source reference's own; wgmma and TMA, the only way
-// to the full rate, are a later step.
+// bounds them (989 TFLOP/s dense bf16), which only wgmma reaches. The
+// probes measure what stands between a body and that bound: the softmax
+// passes (P2, P1), the masking and the skipped tiles (P4), the block shape
+// and order (P3), the host wrapper (P5) and the epilogue (P6).
+//
+// Body T's design: FlashAttention-3's forward (Shah et al. 2024, sections
+// 3.1-3.2), warp-specialised.
+//  * The last warpgroup is the producer: at BM 128 it gives its registers
+//    to the consumers (setmaxnreg: 24 against 240 a thread), and one of
+//    its threads loads the Q tile once and fills a three-stage ring of
+//    K / V tiles by TMA from tensor maps over [1, heads, seq, 128], each
+//    stage with a full mbarrier (the bytes landed) and an empty one (every
+//    consumer thread is done with it).
+//  * BM / 64 consumer warpgroups, 64 q rows each. S = Q K^T is an SS
+//    wgmma at N = BN; the softmax runs in the accumulator registers, and p,
+//    rounded to bf16, is the A operand of O += P V from registers. Within
+//    a warpgroup the products are pipelined: tile j's S
+//    product and tile j - 1's P V are issued together, and tile j's softmax
+//    runs while that P V is in flight; O is rescaled once it lands. At
+//    128 x 128 S, P and O together are more registers than ptxas (CUDA
+//    12.9) gives a consumer: it compiles each role at the launch's entry
+//    count (168 at 384 threads), setmaxnreg or not, and spilled and
+//    serialised the wgmma chain (PERF.md, section 6). There each warpgroup runs
+//    S, its softmax and P V in order and relies on the ping-pong alone.
+//  * At BM 128 the two consumer warpgroups take turns on two named
+//    barriers (ping-pong): each issues its products only after the other
+//    has issued its own, so one's softmax runs under the other's products.
+//
+// Body S's design: the row's scores stay on chip, split over a thread-block
+// cluster. 64 rows of fp32 scores over 1024 columns are 256 KB, more than
+// the 232,448 bytes a block may use, so each row's columns are split over
+// PARTS blocks of a cluster (2 at hb 1; 4 at hb 2, whose blocks hold two
+// heads), each holding 64 x seq / PARTS fp32 scores a warpgroup in its own
+// shared memory:
+//  * each warpgroup computes S = Q K^T over its block's share of the kv
+//    rows by SS wgmma (K tiles of 64 rows at hb 1, 32 at hb 2, by TMA
+//    through a three-stage ring, one thread issuing), stores the
+//    accumulators, masked, into the score array in the thread's own
+//    fragment layout (16-byte stores, consecutive threads on consecutive
+//    addresses) while the next tile's product runs, and keeps each row's
+//    running max;
+//  * the row max is taken over all blocks: each writes its 64 partial
+//    maxima into every peer's shared memory (distributed shared memory)
+//    across a cluster barrier. The same goes for l, before P V where 1/l
+//    goes before it, else beside the partial outputs;
+//  * each warpgroup runs P V over its own share (V tiles through the same
+//    ring), with P read from its score array, transformed and rounded as
+//    the stage and epilogue say;
+//  * the partial outputs are added through distributed shared memory: each
+//    block owns 128 / PARTS output columns, receives every block's partial
+//    of them (its own included, 16-byte stores in the fragment layout) and
+//    adds them in rank order, so every call gives the same bits; then it
+//    applies the epilogue and writes them. At hb 1 they land in a buffer of
+//    their own, so one cluster barrier covers them; at hb 2 they take the
+//    score array's place after a barrier. The last cluster barrier comes
+//    after the last access to a peer's shared memory, so no block exits
+//    while a peer may still write into it.
+//
+// Tried and dropped (PERF.md, section 6): two warpgroups sharing one K / V ring
+// over a 128-row q tile at hb 1, clusters of 4, which halved the bytes read
+// from L2 but ran slower on 32-row tiles.
+
+#include <cuda.h>
 
 #include "common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
+using namespace fat::sm90;
 using bf16 = __nv_bfloat16;
 
-constexpr int D = 128;       // head_dim, the probes' only width
-constexpr int LD = D + 8;    // shared-memory row stride in bf16: 272 bytes, so ldmatrix rows hit distinct banks
+constexpr int D = 128;  // head_dim, the probes' only width
 constexpr float MASK_VALUE_BF16 = -0.7f * 3.3895313892515355e38f;
+constexpr size_t MAX_SMEM = 232448;  // a block's shared memory on an H100
 
 enum Arith : int { kF32 = 0, kBF16 = 1 };
 enum Mask : int { kNone = 0, kAlways = 1, kCond = 2 };
@@ -95,90 +141,7 @@ enum Grid : int { kHeadMajor = 0, kQTileMajor = 1, kFlat = 2 };
 enum Stage : int { kMma = 0, kMax = 1, kSoftmax = 2 };
 enum Epi : int { kNoNorm = 0, kBeforePV = 1, kAfterPV = 2, kAfterPVNoGuard = 3, kAfterPVBf16 = 4 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a b on one 16x8x16 tile. Fragments (g = lane / 4, t = lane % 4): a0
-// (row g, k 2t..2t+1), a1 (row g+8, same k), a2 (row g, k 2t+8..), a3 (row
-// g+8, k 2t+8..); b0 (k 2t.., col g), b1 (k 2t+8.., col g); c0, c1 (row g,
-// cols 2t, 2t+1), c2, c3 (row g+8, same cols).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) { return *reinterpret_cast<uint32_t*>(&x); }
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) { return bits(__floats2bfloat162_rn(lo, hi)); }
-
-// R rows of 128 bf16 from contiguous global rows into shared rows of stride LD.
-template <int R, int THREADS>
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, int tid) {
-#pragma unroll
-  for (int c = tid; c < R * (D / 8); c += THREADS) {
-    const int r = c / (D / 8), col = (c % (D / 8)) * 8;
-    cp_async16(dst + r * LD + col, src + static_cast<int64_t>(r) * D + col);
-  }
-}
-
-// The A fragment of k step kk from 16 shared rows.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* rows16, int kk, int lane) {
-  ldmatrix_x4(a, rows16 + (lane % 16) * LD + kk * 16 + (lane / 16) * 8);
-}
-
-// s[n] += A_kk K^T over NS n-tiles of 8 kv rows from k_rows: two n-tiles per ldmatrix.
-template <int NS>
-__device__ __forceinline__ void qk_step(float (&s)[NS][4], const uint32_t (&a)[4], const bf16* k_rows, int kk,
-                                        int lane) {
-#pragma unroll
-  for (int n = 0; n < NS; n += 2) {
-    uint32_t b[4];
-    ldmatrix_x4(b, k_rows + (n * 8 + lane % 8 + (lane / 16) * 8) * LD + kk * 16 + ((lane / 8) % 2) * 8);
-    mma_bf16(s[n], a, b[0], b[1]);
-    mma_bf16(s[n + 1], a, b[2], b[3]);
-  }
-}
-
-// acc[n] += A V over NO n-tiles of 8 head_dim columns; v_rows is the 16 kv
-// rows of this k step, at its first column.
-template <int NO>
-__device__ __forceinline__ void pv_step(float (&acc)[NO][4], const uint32_t (&a)[4], const bf16* v_rows, int lane) {
-#pragma unroll
-  for (int n = 0; n < NO; n += 2) {
-    uint32_t b[4];
-    ldmatrix_x4_trans(b, v_rows + (lane % 8 + ((lane / 8) % 2) * 8) * LD + n * 8 + (lane / 16) * 8);
-    mma_bf16(acc[n], a, b[0], b[1]);
-    mma_bf16(acc[n + 1], a, b[2], b[3]);
-  }
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(fat::FULL_MASK, x, 1));
@@ -190,32 +153,119 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(fat::FULL_MASK, x, 2);
 }
 
-struct ProbeParams {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* o;
-  int heads;
-  int seq;
-  float scale2;  // body S: sm_scale * log2(e); body T takes q already scaled (P1) or unscaled (P3, P4)
-};
-
 // ---------------------------------------------------------------- body T
 
+struct TiledParams {
+  CUtensorMap tm_q, tm_k, tm_v;  // [1, heads, seq, 128]: boxes of BM rows (Q) and BN rows (K, V)
+  bf16* o;
+  int heads, seq;
+};
+
+// Threads, registers and shared memory of a tile shape (tools/probes.py
+// tiled_smem mirrors SMEM). One block an SM: 168 registers a thread at 384
+// threads, which setmaxnreg moves to 24 for the producer and 240 for the
+// consumers at run time (64,512 of the SM's 65,536); 255 at 256 threads.
 template <int BM, int BN>
-constexpr size_t tiled_smem() {
-  return static_cast<size_t>(BM + 4 * BN) * LD * sizeof(bf16);  // Q, then K and V double-buffered
+struct TPlan {
+  static constexpr int CWG = BM / 64;         // consumer warpgroups
+  static constexpr int NT = 128 * (CWG + 1);  // and the producer warpgroup
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = 240;
+  static constexpr int STAGES = 3;
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;  // a K or V tile
+  static constexpr int BARS = 8 * (1 + 2 * STAGES);
+  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + BARS;
+};
+
+// The online softmax of one tile's scores in place: s (the S accumulator of
+// rows ra, ra + 8, columns col0 + 8 (i / 4) + 2 t + (i & 1)) becomes p
+// (bf16-exact values in the bf16 variant); m and l advance, al_* are the O
+// rescale factors.
+template <int BN, int ARITH, bool MASKED>
+__device__ __forceinline__ void online_softmax(float (&s)[BN / 2], float& m_a, float& m_b, float& l_a, float& l_b,
+                                               float& al_a, float& al_b, int col0, int ra, int t) {
+  float mask_value = fat::MASK_VALUE;
+  if constexpr (ARITH == kBF16) mask_value = __bfloat162float(__float2bfloat16_rn(MASK_VALUE_BF16));
+  float mx_a = -CUDART_INF_F, mx_b = -CUDART_INF_F;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const bool lo = (i & 2) == 0;
+    float x = s[i];
+    if constexpr (ARITH == kBF16) x = __bfloat162float(__float2bfloat16_rn(x));
+    if constexpr (MASKED) {
+      if (col0 + 8 * (i / 4) + 2 * t + (i & 1) > (lo ? ra : ra + 8)) x = mask_value;
+    }
+    s[i] = x;
+    if (lo) {
+      mx_a = fmaxf(mx_a, x);
+    } else {
+      mx_b = fmaxf(mx_b, x);
+    }
+  }
+  const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
+  al_a = exp2f(m_a - mn_a);
+  al_b = exp2f(m_b - mn_b);
+  m_a = mn_a;
+  m_b = mn_b;
+  float rs_a = 0.f, rs_b = 0.f;
+  if constexpr (ARITH == kF32) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const bool lo = (i & 2) == 0;
+      const float pr = exp2f(s[i] - (lo ? mn_a : mn_b));
+      s[i] = pr;
+      if (lo) {
+        rs_a += pr;
+      } else {
+        rs_b += pr;
+      }
+    }
+  } else {
+    const __nv_bfloat162 mb_a = __float2bfloat162_rn(mn_a), mb_b = __float2bfloat162_rn(mn_b);
+#pragma unroll
+    for (int i = 0; i < BN / 2; i += 2) {
+      const bool lo = (i & 2) == 0;
+      // s is already a bf16 value, so this pack is exact.
+      const __nv_bfloat162 pb = h2exp2(__hsub2(__floats2bfloat162_rn(s[i], s[i + 1]), lo ? mb_a : mb_b));
+      s[i] = __low2float(pb);
+      s[i + 1] = __high2float(pb);
+      if (lo) {
+        rs_a += s[i] + s[i + 1];
+      } else {
+        rs_b += s[i] + s[i + 1];
+      }
+    }
+  }
+  l_a = al_a * l_a + quad_sum(rs_a);
+  l_b = al_b * l_b + quad_sum(rs_b);
+}
+
+template <int BN, int ARITH, int MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float& m_a, float& m_b, float& l_a, float& l_b,
+                                             float& al_a, float& al_b, int j, int block_row0, int ra, int t) {
+  // cond: the block's first row against the tile's last column, once a tile.
+  if (MASK == kAlways || (MASK == kCond && (j + 1) * BN - 1 > block_row0)) {
+    online_softmax<BN, ARITH, true>(s, m_a, m_b, l_a, l_b, al_a, al_b, j * BN, ra, t);
+  } else {
+    online_softmax<BN, ARITH, false>(s, m_a, m_b, l_a, l_b, al_a, al_b, j * BN, ra, t);
+  }
 }
 
 template <int BM, int BN, int ARITH, bool SKIP, int MASK, int GRID>
-__global__ void __launch_bounds__(BM * 2) tiled_kernel(const ProbeParams p) {
-  constexpr int THREADS = BM * 2;  // BM / 16 warps
-  constexpr int NS = BN / 8;       // score n-tiles of a warp
-  constexpr int NO = D / 8;        // output n-tiles of a warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sk = sq + BM * LD;
-  bf16* sv = sk + 2 * BN * LD;
+__global__ void __launch_bounds__(TPlan<BM, BN>::NT, 1) tiled_kernel(const __grid_constant__ TiledParams p) {
+  using Pl = TPlan<BM, BN>;
+  constexpr int CWG = Pl::CWG, ST = Pl::STAGES, KV = Pl::KV_BYTES;
+  constexpr bool PING = CWG == 2;
+  // The intra-warpgroup pipeline holds S, P and O at once: at 128 x 128 that is more than
+  // the 168 registers ptxas compiles a consumer of a 384-thread block at, and it spills.
+  constexpr bool PIPE = !(BM == 128 && BN == 128);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* s_q = align_1024(smem_raw);
+  uint8_t* s_kv = s_q + Pl::Q_BYTES;  // stage s: K at 2 s KV, V after it
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(s_kv + 2 * ST * KV);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + ST;
 
   const int nq = p.seq / BM;
   int head, iq;
@@ -229,140 +279,164 @@ __global__ void __launch_bounds__(BM * 2) tiled_kernel(const ProbeParams p) {
     head = blockIdx.x / nq;
     iq = blockIdx.x - head * nq;
   }
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int64_t hoff = static_cast<int64_t>(head) * p.seq * D;
-  const bf16* kh = p.k + hoff;
-  const bf16* vh = p.v + hoff;
   const int nkv = SKIP ? ((iq + 1) * BM - 1) / BN + 1 : p.seq / BN;
+  const int tid = threadIdx.x, wg = tid / 128;
 
-  copy_rows<BM, THREADS>(sq, p.q + hoff + static_cast<int64_t>(iq) * BM * D, tid);
-  copy_rows<BN, THREADS>(sk, kh, tid);
-  copy_rows<BN, THREADS>(sv, vh, tid);
-  cp_async_commit();
-
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
-  const int row0 = iq * BM + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
-  const bf16* q_rows = sq + warp * 16 * LD;
-
-  for (int j = 0; j < nkv; ++j) {
-    if (j + 1 < nkv) {
-      const int b = (j + 1) % 2;
-      copy_rows<BN, THREADS>(sk + b * BN * LD, kh + static_cast<int64_t>(j + 1) * BN * D, tid);
-      copy_rows<BN, THREADS>(sv + b * BN * LD, vh + static_cast<int64_t>(j + 1) * BN * D, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * CWG);
     }
-    __syncthreads();
-    const bf16* ck = sk + (j % 2) * BN * LD;
-    const bf16* cv = sv + (j % 2) * BN * LD;
-
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, q_rows, kk, lane);
-      qk_step<NS>(s, a, ck, kk, lane);
-    }
-
-    float mask_value = fat::MASK_VALUE;
-    if constexpr (ARITH == kBF16) {
-      mask_value = __bfloat162float(__float2bfloat16_rn(MASK_VALUE_BF16));
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = __bfloat162float(__float2bfloat16_rn(s[n][e]));
-    }
-    if (MASK == kAlways || (MASK == kCond && (j + 1) * BN - 1 > iq * BM)) {
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (j * BN + n * 8 + 2 * t + (e % 2) > row0 + (e / 2) * 8) s[n][e] = mask_value;
-    }
-
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mc = -CUDART_INF_F;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) mc = fmaxf(mc, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
-      const float mn = fmaxf(m[i], quad_max(mc));
-      alpha[i] = exp2f(m[i] - mn);
-      m[i] = mn;
-    }
-
-    uint32_t pk[NS][2];  // p as packed bf16 pairs: [n][0] row g, [n][1] row g + 8
-    float lc[2] = {0.f, 0.f};
-    if constexpr (ARITH == kF32) {
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float p0 = exp2f(s[n][2 * i] - m[i]), p1 = exp2f(s[n][2 * i + 1] - m[i]);
-          lc[i] += p0 + p1;
-          pk[n][i] = pack_bf16(p0, p1);
-        }
-    } else {
-      const __nv_bfloat162 mb[2] = {__float2bfloat162_rn(m[0]), __float2bfloat162_rn(m[1])};
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          // s is already a bf16 value, so this pack is exact.
-          const __nv_bfloat162 pb = h2exp2(__hsub2(__floats2bfloat162_rn(s[n][2 * i], s[n][2 * i + 1]), mb[i]));
-          lc[i] += __low2float(pb) + __high2float(pb);
-          pk[n][i] = bits(pb);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + quad_sum(lc[i]);
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t a[4] = {pk[2 * kk][0], pk[2 * kk][1], pk[2 * kk + 1][0], pk[2 * kk + 1][1]};
-      pv_step<NO>(acc, a, cv + kk * 16 * LD, lane);
-    }
-    __syncthreads();  // every warp is done with buffer j % 2 before tile j + 2 lands in it
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  bf16* o = p.o + hoff;
+  if (wg == CWG) {  // the producer: its first warp loads
+    if constexpr (CWG == 2) regs_dec<Pl::PRODUCER_REGS>();
+    if (tid / 32 == 4 * CWG) {
+      const bool leader = tid % 32 == 0;
+      if (leader) {
+        prefetch_map(&p.tm_q);
+        prefetch_map(&p.tm_k);
+        prefetch_map(&p.tm_v);
+        mbar_expect(q_full, Pl::Q_BYTES);
+        load_tile<D, BM>(s_q, &p.tm_q, iq * BM, head, 0, q_full);
+      }
+      for (int j = 0; j < nkv; ++j) {
+        const int s = j % ST;
+        if (j >= ST) mbar_wait(&empty[s], (j / ST - 1) & 1);
+        if (leader) {
+          mbar_expect(&full[s], 2 * KV);
+          load_tile<D, BN>(s_kv + 2 * s * KV, &p.tm_k, j * BN, head, 0, &full[s]);
+          load_tile<D, BN>(s_kv + (2 * s + 1) * KV, &p.tm_v, j * BN, head, 0, &full[s]);
+        }
+      }
+    }
+  } else {  // a consumer: 64 q rows
+    if constexpr (CWG == 2) regs_inc<Pl::CONSUMER_REGS>();
+    const int w4 = (tid / 32) % 4, g = (tid % 32) / 4, t = tid % 4;
+    const int ra = iq * BM + 64 * wg + 16 * w4 + g;  // this thread's rows: ra and ra + 8
+    const int block_row0 = iq * BM;
+    // Ping-pong: barrier 1 + w is warpgroup w's turn to issue products.
+    const int my_turn = 1 + wg, other_turn = 2 - wg;
+    if (PING && wg == 1) named_arrive(1, 256);  // warpgroup 0 goes first
+    const uint32_t q_desc_tile = smem_u32(s_q);
+    auto k_tile = [&](int s) { return smem_u32(s_kv + 2 * s * KV); };
+    auto v_tile = [&](int s) { return smem_u32(s_kv + (2 * s + 1) * KV); };
+
+    float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
-    bf16* orow = o + static_cast<int64_t>(row0 + 8 * i) * D + 2 * t;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float sc[BN / 2];
+    uint32_t pa[BN / 16][4];
+    float m_a = -CUDART_INF_F, m_b = -CUDART_INF_F, l_a = 0.f, l_b = 0.f, al_a, al_b;
+
+    auto s_product = [&](int s) {  // S = Q K^T of the tile in stage s
+      wg_fence();
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
-          __floats2bfloat162_rn(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss_bf16<BN>(sc, desc_k<D, BM>(q_desc_tile, 64 * wg, kk), desc_k<D, BN>(k_tile(s), 0, kk), kk);
+      wg_commit();
+    };
+    auto pv_product = [&](int s) {  // O += P V of the tile in stage s
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) mma_rs<bf16, D>(o, pa[kk], desc_mn<D, BN>(v_tile(s), kk));
+      wg_commit();
+    };
+    auto rescale = [&]() {
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[4 * i] *= al_a;
+        o[4 * i + 1] *= al_a;
+        o[4 * i + 2] *= al_b;
+        o[4 * i + 3] *= al_b;
+      }
+    };
+
+    mbar_wait(q_full, 0);
+    if constexpr (PIPE) {
+      mbar_wait(&full[0], 0);
+      if (PING) named_sync(my_turn, 256);
+      s_product(0);
+      if (PING) named_arrive(other_turn, 256);
+      wg_wait<0>();
+      fence_regs(sc);
+      softmax_tile<BN, ARITH, MASK>(sc, m_a, m_b, l_a, l_b, al_a, al_b, 0, block_row0, ra, t);
+      for (int j = 1; j < nkv; ++j) {
+        const int s = j % ST, sp = (j - 1) % ST;
+        to_a_frags<bf16, BN / 16>(pa, sc);  // P of tile j - 1
+        mbar_wait(&full[s], (j / ST) & 1);
+        if (PING) named_sync(my_turn, 256);
+        s_product(s);
+        pv_product(sp);
+        if (PING) named_arrive(other_turn, 256);
+        wg_wait<1>();  // S of tile j; P V of tile j - 1 stays in flight under the softmax
+        fence_regs(sc);
+        softmax_tile<BN, ARITH, MASK>(sc, m_a, m_b, l_a, l_b, al_a, al_b, j, block_row0, ra, t);
+        wg_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        mbar_arrive(&empty[sp]);
+        rescale();
+      }
+      to_a_frags<bf16, BN / 16>(pa, sc);
+      if (PING) named_sync(my_turn, 256);
+      wg_fence();
+      pv_product((nkv - 1) % ST);
+      if (PING) named_arrive(other_turn, 256);
+      wg_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+    } else {  // 128 x 128: each warpgroup in turn, S then P V, its softmax under the other's products
+      for (int j = 0; j < nkv; ++j) {
+        const int s = j % ST;
+        mbar_wait(&full[s], (j / ST) & 1);
+        if (PING) named_sync(my_turn, 256);
+        s_product(s);
+        if (PING) named_arrive(other_turn, 256);
+        wg_wait<0>();
+        fence_regs(sc);
+        softmax_tile<BN, ARITH, MASK>(sc, m_a, m_b, l_a, l_b, al_a, al_b, j, block_row0, ra, t);
+        rescale();
+        to_a_frags<bf16, BN / 16>(pa, sc);
+        if (PING) named_sync(my_turn, 256);
+        wg_fence();
+        pv_product(s);
+        if (PING) named_arrive(other_turn, 256);
+        wg_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        mbar_arrive(&empty[s]);
+      }
+    }
+    if (PING && wg == 0) named_sync(my_turn, 256);  // warpgroup 1's last turn: every arrival is matched
+
+    bf16* orow = p.o + (static_cast<int64_t>(head) * p.seq + ra) * D + 2 * t;
+    const float inv_a = l_a == 0.f ? 0.f : 1.f / l_a, inv_b = l_b == 0.f ? 0.f : 1.f / l_b;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) = __floats2bfloat162_rn(o[4 * i] * inv_a, o[4 * i + 1] * inv_a);
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * D + 8 * i) =
+          __floats2bfloat162_rn(o[4 * i + 2] * inv_b, o[4 * i + 3] * inv_b);
+    }
   }
 }
 
 struct TiledLaunch {
-  ProbeParams p;
+  TiledParams p;
   cudaStream_t stream;
 
   template <int BM, int BN, int ARITH, bool SKIP, int MASK, int GRID>
   cudaError_t run() const {
-    constexpr size_t smem = tiled_smem<BM, BN>();
+    using Pl = TPlan<BM, BN>;
+    static_assert(Pl::SMEM <= MAX_SMEM, "body T's shared memory");
     const auto kernel = tiled_kernel<BM, BN, ARITH, SKIP, MASK, GRID>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(Pl::SMEM));
     if (err != cudaSuccess) return err;
     const unsigned nq = p.seq / BM, heads = p.heads;
     const dim3 grid = GRID == kHeadMajor ? dim3(nq, heads) : GRID == kQTileMajor ? dim3(heads, nq) : dim3(nq * heads);
-    kernel<<<grid, BM * 2, smem, stream>>>(p);
+    kernel<<<grid, Pl::NT, Pl::SMEM, stream>>>(p);
     return cudaGetLastError();
   }
 };
@@ -392,200 +466,332 @@ cudaError_t tiled_variant(const TiledLaunch& L, int arith, bool skip, int mask, 
 
 // ---------------------------------------------------------------- body S
 
-constexpr int S_THREADS = 256;
-constexpr int S_ROWS = 32;   // score rows a block holds
-constexpr int S_STAGE = 128; // kv rows a ring stage holds (over HB heads)
-constexpr int S_MAX_SEQ = 1024;
+struct SingleParams {
+  CUtensorMap tm_q, tm_k, tm_v;  // [1, heads, seq, 128]: boxes of 64 rows (Q) and TN rows (K, V)
+  bf16* o;
+  int heads, seq;
+  float scale2;
+};
 
-inline size_t single_smem(int seq) {
-  return static_cast<size_t>(S_ROWS + 2 * S_STAGE) * LD * sizeof(bf16) +
-         static_cast<size_t>(S_ROWS) * (seq + 8) * sizeof(float) + 3 * S_ROWS * sizeof(float);
+constexpr int S_MAX_SEQ = 1024;
+constexpr int S_SEQ_STEP = 128;
+
+// A warpgroup of 64 q rows for each of a block's HB heads, and each row's
+// columns split over a cluster of PARTS blocks. A warpgroup's share of a
+// block is its Q tile, its K / V ring and its score array (64 rows x seq /
+// PARTS fp32), with the 32 KB of partial outputs it receives apart at hb 1
+// and in the score array's place at hb 2, where two warpgroups' shares leave
+// no room; then the row statistics the blocks exchange and the mbarriers
+// (tools/probes.py single_smem mirrors bytes()).
+template <int HB>
+struct SPlan {
+  static constexpr int PARTS = 2 * HB;         // blocks of a cluster: each takes seq / PARTS kv rows
+  static constexpr int TN = HB == 1 ? 64 : 32;  // kv rows of a ring stage: seq / PARTS is a multiple
+  static constexpr int STAGES = 3;
+  static constexpr int NT = 128 * HB;
+  static constexpr bool RECV_APART = HB == 1;
+  static constexpr int Q_BYTES = 64 * D * 2;
+  static constexpr int TILE_BYTES = TN * D * 2;
+  static constexpr int O_BYTES = 64 * D * 4;  // the partial outputs a warpgroup receives
+  static constexpr int STATS = 2 * HB * PARTS * 64 * 4;
+  static constexpr int BARS = 8 * HB * (1 + STAGES);
+  __host__ __device__ static constexpr size_t scores(int seq) {
+    return RECV_APART || 64 * (seq / PARTS) * 4 > O_BYTES ? 64 * (seq / PARTS) * 4 : O_BYTES;
+  }
+  __host__ __device__ static constexpr size_t region(int seq) {
+    return Q_BYTES + STAGES * TILE_BYTES + scores(seq) + (RECV_APART ? O_BYTES : 0);
+  }
+  __host__ __device__ static constexpr size_t bytes(int seq) { return 1024 + HB * region(seq) + STATS + BARS; }
+};
+
+// p of one score by stage (the before_pv pass has already made it p).
+template <int STAGE, int EPI>
+__device__ __forceinline__ float p_of(float s, float m, float inv, float scale2, float& l) {
+  if constexpr (STAGE == kMma) {
+    return s;
+  } else if constexpr (STAGE == kMax) {
+    return s - m;
+  } else if constexpr (EPI == kBeforePV) {
+    return s * inv;
+  } else {
+    const float x = exp2f(fmaf(s, scale2, -m));
+    if constexpr (EPI != kNoNorm) l += x;
+    return x;
+  }
 }
 
 template <int STAGE, int EPI, bool MASK, int HB>
-__global__ void __launch_bounds__(S_THREADS) single_kernel(const ProbeParams p) {
-  constexpr int BN = S_STAGE / HB;  // kv rows of one head in a stage
-  constexpr int WN = BN / 4;        // score columns a warp computes in a stage
-  constexpr int NS = WN / 8;
-  constexpr int NO = D / 4 / 8;     // a warp's output n-tiles: a quarter of head_dim
-  constexpr int RH = S_ROWS / HB;   // q rows of one head in the block
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [32][LD]: head hh's rows at hh * RH
-  bf16* ring = sq + S_ROWS * LD;                  // [2][S_STAGE][LD]: head hh's BN rows at hh * BN
-  float* ss = reinterpret_cast<float*>(ring + 2 * S_STAGE * LD);  // [32][seq + 8] fp32 scores
-  const int ld_s = p.seq + 8;  // 8 floats of padding: the fragments' float2 stores hit distinct banks
-  float* sm = ss + S_ROWS * ld_s;
-  float* sl = sm + S_ROWS;
-  float* sinv = sl + S_ROWS;
+__global__ void __launch_bounds__(SPlan<HB>::NT, 1) single_kernel(const __grid_constant__ SingleParams p) {
+  using Pl = SPlan<HB>;
+  constexpr int PARTS = Pl::PARTS, TN = Pl::TN, ST = Pl::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align_1024(smem_raw);
+  const int cols = p.seq / PARTS, ntile = cols / TN;
+  const int tid = threadIdx.x, hh = tid / 128, wt = tid % 128, w4 = wt / 32, g = (wt % 32) / 4, t = wt % 4;
+  uint8_t* s_q = base + hh * Pl::region(p.seq);
+  uint8_t* s_ring = s_q + Pl::Q_BYTES;
+  float4* s_sc = reinterpret_cast<float4*>(s_ring + ST * Pl::TILE_BYTES);  // [tile][group][128 threads]
+  float* s_mx = reinterpret_cast<float*>(base + HB * Pl::region(p.seq));  // [HB][PARTS][64]
+  float* s_l = s_mx + HB * PARTS * 64;
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(s_l + HB * PARTS * 64) + hh * (1 + ST);
+  uint64_t* full = q_bar + 1;  // a stage each
+  const uint32_t rank = cluster_rank();
+  const int q0 = blockIdx.x / PARTS * 64, head = blockIdx.y * HB + hh, col0 = rank * cols;
+  const int lrow = 16 * w4 + g, ra = q0 + lrow;  // this thread's rows: ra and ra + 8
+  const int nstream = 2 * ntile;                  // the K tiles, then the V tiles
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int rg = warp % 2, wc = warp / 2;  // row group (16 score rows) and column / head_dim quarter
-  const int hh = HB == 2 ? rg : 0;         // this warp's head within the block
-  const int head0 = blockIdx.y * HB, q0 = blockIdx.x * RH;
-  const int qrow0 = q0 + (HB == 1 ? rg * 16 : 0) + g;  // this thread's q rows: qrow0 and qrow0 + 8
-  const int nk = p.seq / BN;  // K stages; the V stages follow them in one stream
-  const int64_t head_elems = static_cast<int64_t>(p.seq) * D;
+  if (wt == 0) {
+    for (int i = 0; i <= ST; ++i) mbar_init(&q_bar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  cluster_arrive_relaxed();
 
-  auto load_stage = [&](int jj) {
-    bf16* dst = ring + (jj % 2) * S_STAGE * LD;
-    const bf16* src = (jj < nk ? p.k : p.v) + static_cast<int64_t>(jj % nk) * BN * D;
-#pragma unroll
-    for (int h = 0; h < HB; ++h) copy_rows<BN, S_THREADS>(dst + h * BN * LD, src + (head0 + h) * head_elems, tid);
+  auto load = [&](int u) {
+    const int s = u % ST, row = col0 + (u % ntile) * TN;
+    uint8_t* dst = s_ring + s * Pl::TILE_BYTES;
+    mbar_expect(&full[s], Pl::TILE_BYTES);
+    if (u < ntile) {
+      load_tile<D, TN>(dst, &p.tm_k, row, head, 0, &full[s]);
+    } else {
+      load_tile<D, TN>(dst, &p.tm_v, row, head, 0, &full[s]);
+    }
   };
-#pragma unroll
-  for (int h = 0; h < HB; ++h)
-    copy_rows<RH, S_THREADS>(sq + h * RH * LD, p.q + (head0 + h) * head_elems + static_cast<int64_t>(q0) * D, tid);
-  load_stage(0);
-  cp_async_commit();
-
-  uint32_t qf[D / 16][4];
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_r[2] = {0.f, 0.f}, l_r[2] = {0.f, 0.f}, inv_r[2] = {0.f, 0.f};
-
-  for (int jj = 0; jj < 2 * nk; ++jj) {
-    if (jj + 1 < 2 * nk) {
-      load_stage(jj + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* st = ring + (jj % 2) * S_STAGE * LD + hh * BN * LD;
-    if (jj == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], sq + rg * 16 * LD, kk, lane);
-    }
-    if (jj < nk) {
-      float s[NS][4];
-#pragma unroll
-      for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) qk_step<NS>(s, qf[kk], st + wc * WN * LD, kk, lane);
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int col = jj * BN + wc * WN + n * 8 + 2 * t;
-          float2 x = make_float2(s[n][2 * i], s[n][2 * i + 1]);
-          if constexpr (MASK) {
-            const int row = qrow0 + 8 * i;
-            if (col > row) x.x = fat::MASK_VALUE;
-            if (col + 1 > row) x.y = fat::MASK_VALUE;
-          }
-          *reinterpret_cast<float2*>(ss + (rg * 16 + g + 8 * i) * ld_s + col) = x;
-        }
-      if (jj == nk - 1 && STAGE != kMma) {
-        __syncthreads();
-        // The row passes: 8 threads a row, float4 at a time.
-        const int r = tid / 8, sub = tid % 8;
-        float* row = ss + r * ld_s;
-        float mx = -CUDART_INF_F;
-        for (int c = sub * 4; c < p.seq; c += 32) {
-          const float4 x = *reinterpret_cast<const float4*>(row + c);
-          mx = fmaxf(mx, fmaxf(fmaxf(x.x, x.y), fmaxf(x.z, x.w)));
-        }
-#pragma unroll
-        for (int o = 1; o < 8; o *= 2) mx = fmaxf(mx, __shfl_xor_sync(fat::FULL_MASK, mx, o));
-        const float m = fmaxf(mx * p.scale2, fat::M_FLOOR);
-        if constexpr (STAGE == kSoftmax) {
-          float l = 0.f;
-          for (int c = sub * 4; c < p.seq; c += 32) {
-            float4 x = *reinterpret_cast<const float4*>(row + c);
-            x.x = exp2f(x.x * p.scale2 - m);
-            x.y = exp2f(x.y * p.scale2 - m);
-            x.z = exp2f(x.z * p.scale2 - m);
-            x.w = exp2f(x.w * p.scale2 - m);
-            if constexpr (EPI != kNoNorm) l += (x.x + x.y) + (x.z + x.w);
-            *reinterpret_cast<float4*>(row + c) = x;
-          }
-          if constexpr (EPI != kNoNorm) {
-#pragma unroll
-            for (int o = 1; o < 8; o *= 2) l += __shfl_xor_sync(fat::FULL_MASK, l, o);
-            if (sub == 0) {
-              sl[r] = l;
-              sinv[r] = l == 0.f ? 0.f : 1.f / l;
-            }
-          }
-        }
-        if (sub == 0) sm[r] = m;
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int rr = rg * 16 + g + 8 * i;
-          m_r[i] = sm[rr];
-          if constexpr (STAGE == kSoftmax && EPI != kNoNorm) {
-            l_r[i] = sl[rr];
-            inv_r[i] = sinv[rr];
-          }
-        }
-      }
-    } else {
-      const int jv = jj - nk;
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        uint32_t a[4];
-#pragma unroll
-        for (int half = 0; half < 2; ++half)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            float2 x = *reinterpret_cast<const float2*>(ss + (rg * 16 + g + 8 * i) * ld_s + jv * BN + kk * 16 +
-                                                        8 * half + 2 * t);
-            if constexpr (STAGE == kMax) {
-              x.x -= m_r[i];
-              x.y -= m_r[i];
-            } else if constexpr (STAGE == kSoftmax && EPI == kBeforePV) {
-              x.x *= inv_r[i];
-              x.y *= inv_r[i];
-            }
-            a[2 * half + i] = pack_bf16(x.x, x.y);
-          }
-        pv_step<NO>(acc, a, st + kk * 16 * LD + wc * (D / 4), lane);
-      }
-    }
-    __syncthreads();  // every warp is done with stage jj % 2 (and, at the turn, with the row passes)
+  // Once the warpgroup is done with stream tile u, its stage takes tile u + ST.
+  auto release = [&](int u) {
+    named_sync(1 + hh, 128);
+    if (wt == 0 && u + ST < nstream) load(u + ST);
+  };
+  if (wt == 0) {
+    prefetch_map(&p.tm_q);
+    prefetch_map(&p.tm_k);
+    prefetch_map(&p.tm_v);
+    mbar_expect(q_bar, Pl::Q_BYTES);
+    load_tile<D, 64>(s_q, &p.tm_q, q0, head, 0, q_bar);
+    for (int u = 0; u < ST && u < nstream; ++u) load(u);
   }
 
-  bf16* o = p.o + (head0 + hh) * head_elems + wc * (D / 4) + 2 * t;
+  // S = Q K^T over this block's columns into the score array.
+  // Tile u + 1's product runs while tile u's scores are stored (sn lands, sc is stored).
+  float mx_a = -CUDART_INF_F, mx_b = -CUDART_INF_F;
+  float sc[TN / 2], sn[TN / 2];
+  const uint32_t q_tile = smem_u32(s_q);
+  auto s_product = [&](int u) {
+    const int s = u % ST;
+    mbar_wait(&full[s], (u / ST) & 1);
+    wg_fence();
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    bf16* orow = o + static_cast<int64_t>(qrow0 + 8 * i) * D;
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss_bf16<TN>(sn, desc_k<D, 64>(q_tile, 0, kk), desc_k<D, TN>(smem_u32(s_ring + s * Pl::TILE_BYTES), 0, kk), kk);
+    wg_commit();
+  };
+  mbar_wait(q_bar, 0);
+  s_product(0);
+  for (int u = 0; u < ntile; ++u) {
+    wg_wait<0>();
+    fence_regs(sn);
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const float x0 = acc[n][2 * i], x1 = acc[n][2 * i + 1];
-      __nv_bfloat162 y;
-      if constexpr (EPI == kAfterPV) {
-        y = __floats2bfloat162_rn(x0 * inv_r[i], x1 * inv_r[i]);
-      } else if constexpr (EPI == kAfterPVNoGuard) {
-        y = __floats2bfloat162_rn(x0 / l_r[i], x1 / l_r[i]);
-      } else if constexpr (EPI == kAfterPVBf16) {
-        y = __hmul2(__floats2bfloat162_rn(x0, x1), __float2bfloat162_rn(inv_r[i]));
-      } else {
-        y = __floats2bfloat162_rn(x0, x1);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = y;
+    for (int i = 0; i < TN / 2; ++i) sc[i] = sn[i];
+    if (u + 1 < ntile) s_product(u + 1);
+    release(u);
+    const int c0 = col0 + u * TN;
+    if (MASK && c0 + TN - 1 > q0) {
+#pragma unroll
+      for (int i = 0; i < TN / 2; ++i)
+        if (c0 + 8 * (i / 4) + 2 * t + (i & 1) > ra + ((i & 2) ? 8 : 0)) sc[i] = fat::MASK_VALUE;
     }
+#pragma unroll
+    for (int c = 0; c < TN / 8; ++c) {
+      mx_a = fmaxf(mx_a, fmaxf(sc[4 * c], sc[4 * c + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(sc[4 * c + 2], sc[4 * c + 3]));
+      s_sc[(u * (TN / 8) + c) * 128 + wt] = make_float4(sc[4 * c], sc[4 * c + 1], sc[4 * c + 2], sc[4 * c + 3]);
+    }
+  }
+
+  // Every block's partial of a row statistic into every block's [PARTS]
+  // slots of it (then the cluster barrier).
+  auto exchange = [&](float* stat, float x_a, float x_b) {
+    if (t == 0) {
+      const uint32_t a = smem_u32(stat + (hh * PARTS + rank) * 64 + lrow);
+#pragma unroll
+      for (int q = 0; q < PARTS; ++q) {
+        st_peer(peer_addr(a, q), x_a);
+        st_peer(peer_addr(a + 32, q), x_b);  // row + 8
+      }
+    }
+  };
+  cluster_wait();  // the start's arrival: every peer runs
+  float m_a = 0.f, m_b = 0.f;
+  if constexpr (STAGE != kMma) {
+    exchange(s_mx, quad_max(mx_a), quad_max(mx_b));
+    cluster_sync();
+    float x_a = -CUDART_INF_F, x_b = -CUDART_INF_F;
+#pragma unroll
+    for (int q = 0; q < PARTS; ++q) {
+      x_a = fmaxf(x_a, s_mx[(hh * PARTS + q) * 64 + lrow]);
+      x_b = fmaxf(x_b, s_mx[(hh * PARTS + q) * 64 + lrow + 8]);
+    }
+    m_a = fmaxf(x_a * p.scale2, fat::M_FLOOR);
+    m_b = fmaxf(x_b * p.scale2, fat::M_FLOOR);
+  }
+  constexpr bool NORM = STAGE == kSoftmax && EPI != kNoNorm;
+  float l_a = 0.f, l_b = 0.f, inv_a = 0.f, inv_b = 0.f;
+  // l over every block's partial, in rank order.
+  auto total_l = [&]() {
+    l_a = 0.f;
+    l_b = 0.f;
+#pragma unroll
+    for (int q = 0; q < PARTS; ++q) {
+      l_a += s_l[(hh * PARTS + q) * 64 + lrow];
+      l_b += s_l[(hh * PARTS + q) * 64 + lrow + 8];
+    }
+    inv_a = l_a == 0.f ? 0.f : 1.f / l_a;
+    inv_b = l_b == 0.f ? 0.f : 1.f / l_b;
+  };
+  if constexpr (STAGE == kSoftmax && EPI == kBeforePV) {  // p and l first: 1/l multiplies p
+    float r_a = 0.f, r_b = 0.f;
+    for (int i = wt; i < ntile * (TN / 8) * 128; i += 128) {
+      float4 x = s_sc[i];
+      x.x = exp2f(fmaf(x.x, p.scale2, -m_a));
+      x.y = exp2f(fmaf(x.y, p.scale2, -m_a));
+      x.z = exp2f(fmaf(x.z, p.scale2, -m_b));
+      x.w = exp2f(fmaf(x.w, p.scale2, -m_b));
+      r_a += x.x + x.y;
+      r_b += x.z + x.w;
+      s_sc[i] = x;
+    }
+    exchange(s_l, quad_sum(r_a), quad_sum(r_b));
+    cluster_sync();
+    total_l();
+  }
+
+  // O += P V over this block's columns.
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float r_a = 0.f, r_b = 0.f;  // l's partial where it comes after P V
+  // Each tile's A fragments are built, then multiplied: building tile u + 1's
+  // while tile u's product reads its copy gave wrong sums at hb 2, with no
+  // wait injected by ptxas (PERF.md, section 6).
+  for (int u = ntile; u < nstream; ++u) {
+    const int s = u % ST, tv = u - ntile;
+    uint32_t a[TN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < TN / 16; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float4 x = s_sc[(tv * (TN / 8) + 2 * kk + half) * 128 + wt];
+        a[kk][2 * half] = bits(__floats2bfloat162_rn(p_of<STAGE, EPI>(x.x, m_a, inv_a, p.scale2, r_a),
+                                                     p_of<STAGE, EPI>(x.y, m_a, inv_a, p.scale2, r_a)));
+        a[kk][2 * half + 1] = bits(__floats2bfloat162_rn(p_of<STAGE, EPI>(x.z, m_b, inv_b, p.scale2, r_b),
+                                                         p_of<STAGE, EPI>(x.w, m_b, inv_b, p.scale2, r_b)));
+      }
+    }
+    mbar_wait(&full[s], (u / ST) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < TN / 16; ++kk)
+      mma_rs<bf16, D>(o, a[kk], desc_mn<D, TN>(smem_u32(s_ring + s * Pl::TILE_BYTES), kk));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(o);
+    fence_regs(a);
+    release(u);
+  }
+  if constexpr (NORM && EPI != kBeforePV) exchange(s_l, quad_sum(r_a), quad_sum(r_b));
+  // At hb 2 the partial outputs go where the scores were: every block must be done with them.
+  if constexpr (!Pl::RECV_APART) cluster_sync();
+
+  // The partial outputs to their columns' owners: block q owns the
+  // accumulator's 8-column blocks [q F, (q + 1) F), 128 / PARTS columns, and
+  // keeps every block's partial of them as [rank][block][thread] float4s in
+  // the fragment layout, which the same thread of the owner reads back.
+  constexpr int F = D / 8 / PARTS;
+  float4* recv = reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(s_sc) + (Pl::RECV_APART ? Pl::scores(p.seq) : 0));
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int q = i / F;
+    float4* slot = recv + (rank * F + i % F) * 128 + wt;
+    const float4 x = make_float4(o[4 * i], o[4 * i + 1], o[4 * i + 2], o[4 * i + 3]);
+    if (q == static_cast<int>(rank)) {
+      *slot = x;
+    } else {
+      st_peer(peer_addr(smem_u32(slot), q), x);
+    }
+  }
+  cluster_sync();  // the last: no block reads or writes a peer's shared memory after it
+  if constexpr (NORM && EPI != kBeforePV) total_l();
+
+  bf16* orow = p.o + (static_cast<int64_t>(head) * p.seq + ra) * D + 2 * t;
+  for (int f = 0; f < F; ++f) {
+    float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < PARTS; ++q) {  // rank order, on every call
+      const float4 x = recv[(q * F + f) * 128 + wt];
+      y.x += x.x;
+      y.y += x.y;
+      y.z += x.z;
+      y.w += x.w;
+    }
+    __nv_bfloat162 out_a, out_b;
+    if constexpr (EPI == kAfterPV) {
+      out_a = __floats2bfloat162_rn(y.x * inv_a, y.y * inv_a);
+      out_b = __floats2bfloat162_rn(y.z * inv_b, y.w * inv_b);
+    } else if constexpr (EPI == kAfterPVNoGuard) {
+      out_a = __floats2bfloat162_rn(y.x / l_a, y.y / l_a);
+      out_b = __floats2bfloat162_rn(y.z / l_b, y.w / l_b);
+    } else if constexpr (EPI == kAfterPVBf16) {
+      out_a = __hmul2(__floats2bfloat162_rn(y.x, y.y), __float2bfloat162_rn(inv_a));
+      out_b = __hmul2(__floats2bfloat162_rn(y.z, y.w), __float2bfloat162_rn(inv_b));
+    } else {
+      out_a = __floats2bfloat162_rn(y.x, y.y);
+      out_b = __floats2bfloat162_rn(y.z, y.w);
+    }
+    const int col = 8 * (static_cast<int>(rank) * F + f);
+    *reinterpret_cast<__nv_bfloat162*>(orow + col) = out_a;
+    *reinterpret_cast<__nv_bfloat162*>(orow + 8 * D + col) = out_b;
   }
 }
 
 struct SingleLaunch {
-  ProbeParams p;
+  SingleParams p;
   cudaStream_t stream;
 
   template <int STAGE, int EPI, bool MASK, int HB>
   cudaError_t run() const {
-    const size_t smem = single_smem(p.seq);
+    using Pl = SPlan<HB>;
+    static_assert(Pl::bytes(S_MAX_SEQ) <= MAX_SMEM, "body S's shared memory");
     const auto kernel = single_kernel<STAGE, EPI, MASK, HB>;
     cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(single_smem(S_MAX_SEQ)));
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(Pl::bytes(S_MAX_SEQ)));
     if (err != cudaSuccess) return err;
-    const dim3 grid(p.seq / (S_ROWS / HB), p.heads / HB);
-    kernel<<<grid, S_THREADS, smem, stream>>>(p);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = Pl::PARTS;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(Pl::PARTS * (p.seq / 64), p.heads / HB);
+    cfg.blockDim = dim3(Pl::NT);
+    cfg.dynamicSmemBytes = Pl::bytes(p.seq);
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, p);
+    if (err != cudaSuccess) return err;
     return cudaGetLastError();
   }
 };
+
+// Tensor maps over q, k, v [heads, seq, 128] bf16 as [1, heads, seq, 128],
+// boxes of q_rows (Q) and kv_rows (K, V) rows.
+template <typename P>
+bool make_maps(P& p, const void* q, const void* k, const void* v, int64_t heads, int64_t seq, int q_rows, int kv_rows) {
+  const int64_t sh = seq * D, sb = heads * sh;
+  return make_map<D>(&p.tm_q, q, fat::kBFloat16, 1, heads, seq, sb, sh, D, q_rows) &&
+         make_map<D>(&p.tm_k, k, fat::kBFloat16, 1, heads, seq, sb, sh, D, kv_rows) &&
+         make_map<D>(&p.tm_v, v, fat::kBFloat16, 1, heads, seq, sb, sh, D, kv_rows);
+}
 
 }  // namespace
 
@@ -596,10 +802,14 @@ struct SingleLaunch {
 extern "C" int fat_probe_tiled(const void* q, const void* k, const void* v, void* o, int64_t heads, int64_t seq,
                                int32_t bm, int32_t bn, int32_t arith, int32_t skip, int32_t mask, int32_t grid,
                                void* stream) {
-  if (heads < 1 || seq < bm || seq < bn || seq % bm || seq % bn) return cudaErrorInvalidValue;
-  const TiledLaunch L{{static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                       static_cast<bf16*>(o), static_cast<int>(heads), static_cast<int>(seq), 0.f},
-                      static_cast<cudaStream_t>(stream)};
+  if (heads < 1 || seq < bm || seq < bn || seq % bm || seq % bn || (bm != 64 && bm != 128) || (bn != 64 && bn != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TiledLaunch L{};
+  if (!make_maps(L.p, q, k, v, heads, seq, bm, bn)) return static_cast<int>(cudaErrorInvalidValue);
+  L.p.o = static_cast<bf16*>(o);
+  L.p.heads = static_cast<int>(heads);
+  L.p.seq = static_cast<int>(seq);
+  L.stream = static_cast<cudaStream_t>(stream);
   const bool sk = skip != 0;
   switch (bm * 1000 + bn) {
     case 64064: return static_cast<int>(tiled_variant<64, 64>(L, arith, sk, mask, grid));
@@ -614,15 +824,20 @@ extern "C" int fat_probe_tiled(const void* q, const void* k, const void* v, void
 // multiple of 128 in [128, 1024]; heads a multiple of hb (1 or 2); scale2 =
 // sm_scale * log2(e); stage, epilogue as the enums above (stage mma and max
 // take epilogue none), mask 1 for the causal mask (softmax, before_pv, hb 1
-// only). Returns a cudaError_t.
+// only). Launched as clusters of 2 hb blocks. Returns a cudaError_t.
 extern "C" int fat_probe_single(const void* q, const void* k, const void* v, void* o, int64_t heads, int64_t seq,
                                 float scale2, int32_t stage, int32_t epilogue, int32_t mask, int32_t hb,
                                 void* stream) {
-  if (heads < 1 || seq < S_STAGE || seq > S_MAX_SEQ || seq % S_STAGE || (hb != 1 && hb != 2) || heads % hb)
+  if (heads < 1 || seq < S_SEQ_STEP || seq > S_MAX_SEQ || seq % S_SEQ_STEP || (hb != 1 && hb != 2) || heads % hb)
     return static_cast<int>(cudaErrorInvalidValue);
-  const SingleLaunch L{{static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                        static_cast<bf16*>(o), static_cast<int>(heads), static_cast<int>(seq), scale2},
-                       static_cast<cudaStream_t>(stream)};
+  SingleLaunch L{};
+  if (!make_maps(L.p, q, k, v, heads, seq, 64, hb == 1 ? SPlan<1>::TN : SPlan<2>::TN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  L.p.o = static_cast<bf16*>(o);
+  L.p.heads = static_cast<int>(heads);
+  L.p.seq = static_cast<int>(seq);
+  L.p.scale2 = scale2;
+  L.stream = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (hb == 2) {
     if (stage == kSoftmax && epilogue == kBeforePV && !mask) err = L.run<kSoftmax, kBeforePV, false, 2>();

@@ -5,11 +5,16 @@ Body T (``probe_tiled``; P1 ``softmax_probe``, P3 ``grid_probe``, P4
 ``causal_probe``) is a tiled attention forward with an online softmax over
 q, k, v [heads, seq, 128] bf16, taking q as given (no scale: P1 passes it
 scaled by sm_scale·log2(e), P3 and P4 unscaled, as the TPU probes' mains
-do). Body S (``probe_single``; P2 ``mfu_probe``, P5 ``gap_probe``, P6
-``epilogue_probe``) is a single pass over the whole row at seq <= 1024,
-scaling inside by ``scale2``, built up by stage and epilogue. What each
-variant computes, and which TPU probe it stands for, is written at the top
-of csrc/probes.cu.
+do). On the card it is warp-specialised: a producer warpgroup fills a ring
+of K / V tiles by TMA, and one or two consumer warpgroups run both
+products on wgmma, taking turns at 128-row tiles. Body S (``probe_single``;
+P2 ``mfu_probe``, P5 ``gap_probe``, P6 ``epilogue_probe``) is a single
+pass over the whole row at seq <= 1024, scaling inside by ``scale2``, built
+up by stage and epilogue; on the card each row's columns are split over a
+cluster of 2 (hb 1) or 4 (hb 2) blocks, whose row maxima, sums and partial
+outputs meet through distributed shared memory. What each variant
+computes, which TPU probe it stands for and how the bodies are built is
+written at the top of csrc/probes.cu.
 
 Each wrapper checks device, dtype, shape and contiguity, takes the plain
 version for CPU tensors, and for CUDA tensors allocates the output and
@@ -21,7 +26,11 @@ The plain versions compute each variant's function in fp32 PyTorch, the
 deliberately wrong ones included (stages mma, max and exp2; mask none
 without the tile skip), so every variant is held against something. The
 tiled one walks the same kv tiles with the same online rescale, so it
-rounds p to bf16 where the kernel does.
+rounds p to bf16 where the kernel does. ``single_split_plain`` mirrors
+body S's split: per-part maxima, l and P V, added in the kernel's order.
+``tiled_walk``, ``tiled_smem`` and ``single_smem`` mirror, from the shapes
+alone, the blocks body T launches and the tiles each walks, and the shared
+memory each instantiation asks for.
 """
 
 from __future__ import annotations
@@ -40,8 +49,9 @@ HEAD_DIM = 128
 # -0.7 * bfloat16 max, the bf16 softmax's mask value (tools/softmax_probe.py).
 MASK_VALUE_BF16 = -0.7 * 3.3895313892515355e38
 TILES = ((64, 64), (128, 64), (64, 128), (128, 128))
-SINGLE_STAGE_ROWS = 128  # body S's kv stage: seq must be a multiple of it
-SINGLE_MAX_SEQ = 1024  # body S holds 32 rows' fp32 scores in shared memory
+SINGLE_STAGE_ROWS = 128  # body S's seq step: seq must be a multiple of it
+SINGLE_MAX_SEQ = 1024  # body S holds 64 rows' fp32 scores over seq / parts columns a block
+MAX_SMEM = 232448  # the shared memory an H100 block may use
 
 ARITHS = {"f32": 0, "bf16": 1}
 MASKS = {"none": 0, "always": 1, "cond": 2}
@@ -189,6 +199,35 @@ def tiled_pairs(seq: int, *, bm: int, bn: int, skip: bool, mask: str) -> int:
     return seq * seq
 
 
+def tiled_walk(heads: int, seq: int, *, bm: int, bn: int, skip: bool, mask: str, grid: str) -> list[tuple]:
+    """Body T's blocks in launch order (blockIdx.x fastest, then y), each as
+    (head, q tile, the kv tiles it walks, those that take the mask), from
+    the shapes alone as csrc/probes.cu's tiled_kernel derives them: grid
+    head puts the q tile on x and the head on y, qtile the two swapped, flat
+    one x of head · (seq / bm) + q tile."""
+    nq = seq // bm
+    if grid == "head":
+        order = [(h, i) for h in range(heads) for i in range(nq)]
+    elif grid == "qtile":
+        order = [(h, i) for i in range(nq) for h in range(heads)]
+    else:
+        order = [divmod(x, nq) for x in range(heads * nq)]
+    walk = []
+    for head, iq in order:
+        tiles = tuple(range(((iq + 1) * bm - 1) // bn + 1 if skip else seq // bn))
+        masked = tuple(j for j in tiles if mask == "always" or (mask == "cond" and (j + 1) * bn - 1 > iq * bm))
+        walk.append((head, iq, tiles, masked))
+    return walk
+
+
+def tiled_smem(bm: int, bn: int) -> int:
+    """Shared memory body T asks for at a tile shape (csrc/probes.cu
+    TPlan::SMEM): 1024 bytes of alignment slack, the Q tile, the K / V ring
+    and the mbarriers (Q; full and empty a stage)."""
+    stages = 3
+    return 1024 + bm * HEAD_DIM * 2 + 2 * stages * bn * HEAD_DIM * 2 + 8 * (1 + 2 * stages)
+
+
 # ---------------------------------------------------------------- body S
 
 
@@ -209,36 +248,93 @@ def check_single(heads: int, seq: int, *, stage: str, epilogue: str, mask: bool,
         raise ValueError(f"probe_single: hb must be 1 or 2 and divide heads ({heads}), got {hb}")
 
 
-def single_plain(q, k, v, scale2: float, *, stage: str = "softmax", epilogue: str = "before_pv", mask: bool = False):
-    """Body S's function in plain PyTorch, as tools/mfu_probe.py:probe_kernel
-    and tools/epilogue_probe.py:kernel compute it: s = q kᵀ in fp32, the
-    optional causal mask, m = max(rowmax(s)·scale2, M_FLOOR), then by stage
-    p = bf16(s), bf16(s − m) or exp2(s·scale2 − m), and by epilogue where
-    1/l goes."""
+def single_parts(hb: int) -> int:
+    """Blocks of body S's cluster, over which each row's columns split."""
+    return 2 * hb
+
+
+def single_smem(seq: int, hb: int) -> int:
+    """Shared memory body S asks for (csrc/probes.cu SPlan::bytes): 1024
+    bytes of alignment slack; a warpgroup a head's Q tile, K / V ring
+    (three stages of 64 rows at hb 1, of 32 at hb 2), fp32 score array (64
+    rows × seq / parts) and the 32 KB of partial outputs it receives (apart
+    at hb 1, in the score array's place at hb 2); the exchanged row maxima
+    and sums; the mbarriers."""
+    parts, tn, stages, recv = single_parts(hb), 64 if hb == 1 else 32, 3, 64 * HEAD_DIM * 4
+    scores = 64 * (seq // parts) * 4
+    region = 64 * HEAD_DIM * 2 + stages * tn * HEAD_DIM * 2 + (scores + recv if hb == 1 else max(scores, recv))
+    return 1024 + hb * region + 2 * hb * parts * 64 * 4 + 8 * hb * (1 + stages)
+
+
+def single_terms(q, k, v, scale2: float, *, stage: str = "softmax", epilogue: str = "before_pv",
+                 mask: bool = False, parts: int = 1):
+    """Body S's function up to its epilogue, in fp32, as tools/mfu_probe.py
+    and tools/epilogue_probe.py compute it, with each row's columns split
+    into ``parts`` equal parts as body S's cluster splits them: s = q kᵀ, the
+    optional causal mask, each part's row max combined into m =
+    max(rowmax(s)·scale2, M_FLOOR), then by stage p = bf16(s), bf16(s − m)
+    or exp2(s·scale2 − m); each part's l and P V (p rounded to bf16, times
+    1/l first for before_pv), added in part order. Returns (pv, l), l None
+    where the stage takes none; parts=1 is the unsplit function."""
     s = torch.einsum("hqd,hkd->hqk", q.float(), k.float())
     seq = s.shape[-1]
     if mask:
         rows = torch.arange(seq, device=s.device)
         s = torch.where(rows[None, :] <= rows[:, None], s, MASK_VALUE)
-    vf = v.float()
+    cols = seq // parts
+    s_parts, v_parts = s.split(cols, dim=-1), v.float().split(cols, dim=-2)
+
+    def pv_of(p_parts):
+        pv = None
+        for p_part, v_part in zip(p_parts, v_parts):
+            term = torch.einsum("hqk,hkd->hqd", p_part.bfloat16().float(), v_part)
+            pv = term if pv is None else pv + term
+        return pv
+
     if stage == "mma":
-        return torch.einsum("hqk,hkd->hqd", s.bfloat16().float(), vf).to(q.dtype)
-    m = (s.amax(dim=-1, keepdim=True) * scale2).clamp_min(M_FLOOR)
+        return pv_of(s_parts), None
+    mx = s_parts[0].amax(dim=-1, keepdim=True)
+    for s_part in s_parts[1:]:
+        mx = torch.maximum(mx, s_part.amax(dim=-1, keepdim=True))
+    m = (mx * scale2).clamp_min(M_FLOOR)
     if stage == "max":
-        return torch.einsum("hqk,hkd->hqd", (s - m).bfloat16().float(), vf).to(q.dtype)
-    p = torch.exp2(s * scale2 - m)
-    l = p.sum(dim=-1, keepdim=True)
-    inv = torch.where(l == 0, 0.0, 1.0 / l)
+        return pv_of([s_part - m for s_part in s_parts]), None
+    p_parts = [torch.exp2(s_part * scale2 - m) for s_part in s_parts]
+    l = p_parts[0].sum(dim=-1, keepdim=True)
+    for p_part in p_parts[1:]:
+        l = l + p_part.sum(dim=-1, keepdim=True)
     if epilogue == "before_pv":
-        p = p * inv
-    pv = torch.einsum("hqk,hkd->hqd", p.bfloat16().float(), vf)
-    if epilogue in ("none", "before_pv"):
-        return pv.to(q.dtype)
+        inv = torch.where(l == 0, 0.0, 1.0 / l)
+        p_parts = [p_part * inv for p_part in p_parts]
+    return pv_of(p_parts), l
+
+
+def _single_epilogue(pv, l, epilogue: str, dtype):
+    if l is None or epilogue in ("none", "before_pv"):
+        return pv.to(dtype)
+    inv = torch.where(l == 0, 0.0, 1.0 / l)
     if epilogue == "after_pv":
-        return (pv * inv).to(q.dtype)
+        return (pv * inv).to(dtype)
     if epilogue == "after_pv_noguard":
-        return (pv / l).to(q.dtype)
-    return pv.to(q.dtype) * inv.to(q.dtype)  # after_pv_bf16: the product in bf16
+        return (pv / l).to(dtype)
+    return pv.to(dtype) * inv.to(dtype)  # after_pv_bf16: the product in bf16
+
+
+def single_plain(q, k, v, scale2: float, *, stage: str = "softmax", epilogue: str = "before_pv", mask: bool = False):
+    """Body S's function in plain PyTorch, as tools/mfu_probe.py:probe_kernel
+    and tools/epilogue_probe.py:kernel compute it (``single_terms`` unsplit),
+    with the epilogue putting 1/l where it says."""
+    terms = single_terms(q, k, v, scale2, stage=stage, epilogue=epilogue, mask=mask)
+    return _single_epilogue(*terms, epilogue, q.dtype)
+
+
+def single_split_plain(q, k, v, scale2: float, *, stage: str = "softmax", epilogue: str = "before_pv",
+                       mask: bool = False, parts: int = 2):
+    """``single_plain`` with the columns split into ``parts`` (2 or 4) as body
+    S's cluster splits them: the same function, its l and P V summed by part
+    in rank order, as the kernel sums them."""
+    terms = single_terms(q, k, v, scale2, stage=stage, epilogue=epilogue, mask=mask, parts=parts)
+    return _single_epilogue(*terms, epilogue, q.dtype)
 
 
 def launch_single(q, k, v, out, scale2: float, *, stage: str, epilogue: str, mask: bool, hb: int) -> None:

@@ -231,19 +231,21 @@ SM90_SOURCES = ("flash_bwd_sm90.cu", "flash_fwd_sm90.cu")
 def _kernel_label(line: str) -> str:
     """A kernel's name and template arguments from ptxas's mangled name:
     e.g. "dkv_kernel bf16 128 masked=0 fused=1", "fwd_kernel fp16 64 masked=1
-    wgs=2"."""
+    wgs=2", "tiled_kernel 128 bn=64 arith=0 skip=1 mask=2 grid=0" (bm first),
+    "single_kernel 2 epi=1 mask=0 hb=1" (the stage first)."""
     import re
 
-    m = re.search(r"(dq_kernel|dkv_kernel|split_sum_kernel|fwd_kernel)I(\w+?)EEv", line)
+    m = re.search(r"(dq_kernel|dkv_kernel|split_sum_kernel|fwd_kernel|tiled_kernel|single_kernel)I(\w+?)EEv", line)
     if m is None:
         m = re.search(r"'_Z\w*?(decode_kernel|paged_write_kernel|paged_write_quant_kernel)(I\w+?E)?", line)
         return " ".join(filter(None, m.groups())) if m else line.strip()
     name, args = m.group(1), m.group(2).replace("13__nv_bfloat16", "bf16 ").replace("6__half", "fp16 ")
-    flags = {"dq_kernel": ("masked",), "dkv_kernel": ("masked", "fused"), "fwd_kernel": ("masked", "wgs")}.get(name, ())
+    flags = {"dq_kernel": ("masked",), "dkv_kernel": ("masked", "fused"), "fwd_kernel": ("masked", "wgs"),
+             "tiled_kernel": ("bn", "arith", "skip", "mask", "grid"), "single_kernel": ("epi", "mask", "hb")}.get(name, ())
     values = re.findall(r"L[ib](\d+)E", args)
     dims, rest = values[:1], values[1:]
-    return " ".join([name, args.split()[0] if args.split() else "", *dims,
-                     *(f"{k}={v}" for k, v in zip(flags, rest))]).strip()
+    return " ".join(filter(None, [name, args.split()[0] if args.split() and not args.startswith("L") else "", *dims,
+                                  *(f"{k}={v}" for k, v in zip(flags, rest))]))
 
 
 def ptxas_sm90(card: str) -> None:
@@ -252,6 +254,11 @@ def ptxas_sm90(card: str) -> None:
     seconds each took and, for each kernel, its registers, spills and
     whether ptxas serialised its wgmma (C7515)."""
     _ptxas(card, SM90_SOURCES, "ptxas sm90")
+
+
+def ptxas_probes(card: str) -> None:
+    """``ptxas_sm90`` for the probes' bodies (csrc/probes.cu)."""
+    _ptxas(card, ("probes.cu",), "ptxas probes")
 
 
 def ptxas_decode(card: str) -> None:
@@ -538,6 +545,73 @@ def unchanged_fwd(card: str) -> dict:
     print(f"[unchanged fwd] output hashes {out}; ms " + ", ".join(f"{k} {t:.4f}" for k, t in times.items())
           + f" ({card})", flush=True)
     return {"ms": times["bf16 K1"], **times}
+
+
+def probe_split(card: str) -> dict:
+    """The six probes' stand-in variants (PERF.md section 6), 32 heads,
+    head_dim 128, bf16: P1 (body T, causal 128x64, fp32 softmax, q scaled)
+    and P3 (128x128 head-major, unmasked) and P4 (128x128 skip + cond) at
+    seq 8192; P2 (body S, full), P5 (body S after_pv launched bare into a
+    preallocated output) and P6 (after_pv) at seq 1024. Each is timed by the
+    probes' own timer (``probes.graphed_s``: CUDA-graph replay, the kernel
+    alone), and as ``_split_times`` does (the wrapper call, a CUDA graph of
+    10 calls, the wrapper's host µs), beside SDPA on the same inputs
+    (graphed) and the bound. K1 at P3's shape (``gap_probe.bare_k1``:
+    non-causal, scale2 1, which is P3's function) is timed the same ways.
+    ``ms`` and ``device_ms`` are P3's call and graph times."""
+    import math
+
+    import torch
+
+    from flash_attention_tpu_torch.ops.common import LOG2E
+    from flash_attention_tpu_torch.tools import gap_probe, probes
+
+    heads, d = 32, probes.HEAD_DIM
+    sm_scale = 1.0 / math.sqrt(d)
+    scale2 = sm_scale * LOG2E
+    rows = {}
+
+    def row(name, call, seq, causal, sdpa_scale, pairs, q, k, v):
+        ms, device_ms, host_us = _split_times(call)
+        graph_ms = probes.graphed_s(call) * 1e3
+        sdpa_ms = probes.graphed_s(lambda: probes.sdpa(q, k, v, causal=causal, sm_scale=sdpa_scale)) * 1e3
+        bound, by = probes.bound_ms(pairs, heads, seq)
+        rows[name] = {"graph_ms": graph_ms, "ms": ms, "device_ms": device_ms, "host_us": host_us, "sdpa_ms": sdpa_ms,
+                      "bound_ms": bound}
+        print(f"[probe split] {name}: graphed {graph_ms:.4f} ms ({4 * pairs * heads * d / graph_ms / 1e9:.1f} TFLOP/s), "
+              f"call {ms:.4f} ms, graph of 10 {device_ms:.4f} ms, host {host_us:.1f} us; SDPA {sdpa_ms:.4f} ms "
+              f"(x{graph_ms / sdpa_ms:.2f}); bound {bound:.4f} ms ({by}) ({card})", flush=True)
+
+    seq = 8192
+    q, k, v = probes.make_inputs(heads, seq)
+    qs = (q.float() * scale2).to(q.dtype)
+    causal_pairs, full_pairs = seq * (seq + 1) // 2, seq * seq
+    row("P1 c=1 128x64 f32", lambda: probes.probe_tiled(qs, k, v, bm=128, bn=64, skip=True, mask="always"), seq, True,
+        sm_scale, causal_pairs, q, k, v)
+    row("P3 128x128 par", lambda: probes.probe_tiled(q, k, v, bm=128, bn=128), seq, False, math.log(2), full_pairs,
+        q, k, v)
+    row("P4 128x128 skip=1 mask=cond", lambda: probes.probe_tiled(q, k, v, bm=128, bn=128, skip=True, mask="cond"), seq,
+        True, math.log(2), causal_pairs, q, k, v)
+    q4, k4, v4, out4 = q[None], k[None], v[None], torch.empty_like(q[None])
+    row("K1 at P3's shape", lambda: gap_probe.bare_k1(q4, k4, v4, out4, 1.0), seq, False, math.log(2), full_pairs,
+        q, k, v)
+    del q, k, v, qs, q4, k4, v4, out4
+    seq = 1024
+    q, k, v = probes.make_inputs(heads, seq)
+    out = torch.empty_like(q)
+    full_pairs = seq * seq
+
+    def bare_s():
+        probes.launch_single(q, k, v, out, scale2, stage="softmax", epilogue="after_pv", mask=False, hb=1)
+        return out
+
+    row("P2 full", lambda: probes.probe_single(q, k, v, scale2), seq, False, sm_scale, full_pairs, q, k, v)
+    row("P5 bare S", bare_s, seq, False, sm_scale, full_pairs, q, k, v)
+    row("P6 after_pv", lambda: probes.probe_single(q, k, v, scale2, epilogue="after_pv"), seq, False, sm_scale,
+        full_pairs, q, k, v)
+    p3 = rows["P3 128x128 par"]
+    return {"ms": p3["ms"], "device_ms": p3["graph_ms"],
+            **{f"{name} {key}": t for name, r in rows.items() for key, t in r.items()}}
 
 
 def _split_times(call, calls: int = 10) -> tuple[float, float, float]:
