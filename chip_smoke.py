@@ -253,6 +253,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 beside plain, SDPA and the bound, each shape its own entry
                 with rank 0's launches at that shard in (b).
                 Each part's wall time and each rank's launches are printed.
+ 24. warmup and profiles — (a) two fresh processes (``first_run_child``)
+                each build ModelConfig() in bf16 from phase 5's seed and
+                serve phase 5's 10 requests on 8 slots x 2048, one cold,
+                one after ``warmup()`` (timed; exactly K1 and K6 launched;
+                the counters zero after it): both runs give phase 5's tokens
+                and launch only K1 and K6; each run's wall time, its
+                first prefill chunk alone, and its prefill and decode tok/s
+                are printed; (b) phase 8's paged
+                engine serves run A (phase 8's tokens), then ``warmup()``
+                (K7, K8 and K9/K10 only) leaves its free page count, prefix
+                table and prefix cache switch as they were; (c)
+                ``utils/profiling.profile_op`` over one decode step plus the
+                sampler at 8 slots x 1,024 rows on the dense and on the
+                paged cache, and over phase 14's forward + backward at B=1,
+                T=2048 (no update; through ``trace``): traced and
+                untraced wall time, device busy share, the top five device
+                operations; (d)
+                ``calibrate_overhead_s()``.
 
 Every phase prints kernel, plain-version, library-call and bound times
 (the bound: the larger of the bytes over 3.35 TB/s and the operations over
@@ -768,16 +786,12 @@ def phase_sampling(card: str, params) -> None:
     from flash_attention_tpu_torch.serving.sampling import gumbel_noise, sample_tokens
 
     cfg, slots, length = ModelConfig(), 8, 1024
-    seeds = torch.tensor([0, 1, 7, 12345, 2**31 - 1, -1, -2**31, 99], dtype=torch.int32)
+    sampling = _sampling_inputs(length + 1)
+    seeds = sampling["seeds"]
     positions = torch.tensor([0, 1, 2, 1000, 2047, 4096, 2**31 - 1, length + 1], dtype=torch.int32)
     noise = gumbel_noise(seeds.cuda(), positions.cuda(), cfg.vocab_size)
     if not torch.equal(noise.cpu(), gumbel_noise(seeds, positions, cfg.vocab_size)):
         raise RuntimeError("[sampling] the card's Gumbel noise differs from the CPU's")
-    sampling = dict(
-        temperature=torch.tensor([0.7, 1.0, 1.3, 0.5, 1.0, 2.0, 0.9, 1.0]),
-        top_k=torch.tensor([0, 40, 0, 5, 1000, 0, 50, 0], dtype=torch.int32),
-        top_p=torch.tensor([1.0, 1.0, 0.9, 0.95, 0.8, 1.0, 0.5, 0.99]),
-        seeds=seeds, positions=torch.full((slots,), length + 1, dtype=torch.int32))
     on_card = {key: t.cuda() for key, t in sampling.items()}
     caches = [c._replace(lengths=torch.full((slots,), length, dtype=torch.int32, device="cuda"))
               for c in init_caches(cfg, slots, 2048, device="cuda")]
@@ -5018,6 +5032,283 @@ def phase_sharded_serving(card: str, dense_tokens: dict, paged_tokens: dict) -> 
     return entries
 
 
+# Phase 24: warmup, the profiler and the launch floor.
+FIRST_RUN_TAG = "FIRST_RUN "  # the line a first-run child prints its numbers on
+PROFILE_ROWS = 1024  # PERF.md section 5's decode shape: 8 slots at ~1,024 rows
+
+
+def first_run_child(warm: bool) -> None:
+    """Phase 24(a), in a fresh process that imports only the port:
+    ModelConfig() in bf16 from phase 5's seed serves phase 5's 10 requests on
+    8 slots x 2048 (the engine's first run), after ``warmup()`` when
+    ``warm``. Prints one line, FIRST_RUN_TAG + JSON: the warmup's and the
+    run's wall seconds, the run's first prefill chunk's (synchronised
+    around it), their launch counts, the run's decode section and tokens,
+    and the counters just after warmup."""
+    import torch
+
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+    from flash_attention_tpu_torch.serving.engine import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device sets it
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig()
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    eng = ServingEngine(params, cfg, max_slots=8, max_seq=2048, prefill_chunk=256)
+    out = {"warm": warm}
+    chunk_step = eng._prefill_chunk_step
+
+    def first_chunk_timed(*args):
+        # The run's first prefill chunk, timed alone: where first-use costs land.
+        eng._prefill_chunk_step = chunk_step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = chunk_step(*args)
+        torch.cuda.synchronize()
+        out["first_chunk_s"] = time.perf_counter() - t0
+        return result
+
+    if warm:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        out["warmup_s"] = time.perf_counter() - t0
+        out["warmup_launches"] = read_counts()
+        out["counters"] = [eng.steps, eng.decode_tokens, eng.decode_time_s, len(eng.events)]
+    eng._prefill_chunk_step = first_chunk_timed
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(_full_requests(cfg))
+    torch.cuda.synchronize()
+    out.update(run_s=time.perf_counter() - t0, launches=read_counts(), decode_tokens=eng.decode_tokens,
+               decode_s=eng.decode_time_s, tokens={rid: c.tokens for rid, c in done.items()})
+    print(FIRST_RUN_TAG + json.dumps(out), flush=True)
+
+
+def _first_run(warm: bool) -> dict:
+    """``first_run_child(warm)`` in a fresh interpreter; its output echoed,
+    its numbers returned (token ids as ints)."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", f"import chip_smoke; chip_smoke.first_run_child({warm})"],
+                          cwd=root, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith(FIRST_RUN_TAG):
+            log(f"  [first run] {line}")
+    if proc.returncode or not lines or not lines[-1].startswith(FIRST_RUN_TAG):
+        raise RuntimeError(f"[first run] child (warm={warm}) exited {proc.returncode}: {proc.stderr[-4000:]}")
+    out = json.loads(lines[-1][len(FIRST_RUN_TAG):])
+    out["tokens"] = {int(rid): toks for rid, toks in out["tokens"].items()}
+    return out
+
+
+def _first_runs(card: str, dense_tokens: dict) -> None:
+    """Phase 24(a): the cold and the warm process (``first_run_child``); both
+    runs give phase 5's tokens and launch only K1 and K6, the warmup too,
+    and the warm engine's counters are zero after its warmup."""
+    n_prompt = sum(FULL_PROMPT_LENS)
+    runs = {warm: _first_run(warm) for warm in (False, True)}
+    warm = runs[True]
+    if warm["counters"] != [0, 0, 0.0, 0]:
+        raise RuntimeError(f"[first run] counters after warmup (steps, decode tokens, decode s, events): "
+                           f"{warm['counters']}, want zeros")
+    check_launches("[first run] warmup", warm["warmup_launches"], ("K1", "K6"))
+    for key, run in runs.items():
+        label = "warm" if key else "cold"
+        check_launches(f"[first run] {label} run", run["launches"], ("K1", "K6"))
+        if run["tokens"] != dense_tokens:
+            parted = sorted(rid for rid in dense_tokens if run["tokens"].get(rid) != dense_tokens[rid])
+            raise RuntimeError(f"[first run] the {label} run's tokens differ from phase 5's for requests {parted}")
+        outside = run["run_s"] - run["decode_s"]
+        log(f"[first run] {label}{' (after warmup())' if key else ''}: phase 5's 10 requests in {run['run_s']:.3f} s "
+            f"wall; prefill {n_prompt} prompt tokens in {outside:.3f} s outside the decode section = "
+            f"{n_prompt / outside:.1f} tok/s; decode {run['decode_tokens']} tokens in {run['decode_s']:.3f} s = "
+            f"{run['decode_tokens'] / run['decode_s']:.1f} tok/s; its first prefill chunk alone "
+            f"{run['first_chunk_s'] * 1e3:.1f} ms; launches K1 {run['launches']['K1']}, K6 {run['launches']['K6']} "
+            f"({card})")
+    log(f"[first run] warmup() took {warm['warmup_s']:.3f} s (K1 {warm['warmup_launches']['K1']}, K6 "
+        f"{warm['warmup_launches']['K6']} launches); counters zero after it; cold and warm tokens == phase 5's "
+        f"({card})")
+
+
+def _paged_warmup(card: str, params, cfg, paged_tokens: dict) -> None:
+    """Phase 24(b): phase 8's PagedServingEngine (prefix cache on) serves
+    phase 8's run A (phase 8's tokens), then ``warmup()``: it launches K7,
+    K8 and K9/K10 only, and leaves the free page count, the prefix table,
+    the prefix cache switch and the counters as a served run would find
+    them."""
+    import copy
+
+    import torch
+
+    from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
+
+    eng = PagedServingEngine(params, cfg, max_slots=8, num_pages=129, pages_per_slot=16, page_size=128,
+                             prefill_chunk=256, prefix_cache=True)
+    got = {rid: c.tokens for rid, c in eng.run(_full_requests(cfg)).items()}
+    if got != paged_tokens:
+        raise RuntimeError("[paged warmup] run A's tokens differ from phase 8's")
+    free, table = eng.alloc.free_count, copy.deepcopy(eng._prefix)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    check_launches("[paged warmup] warmup", launches, ("K7", "K8", "K9/K10"))
+    counters = (eng.steps, eng.decode_tokens, eng.decode_time_s, len(eng.events))
+    if (eng.alloc.free_count, eng._prefix, eng.prefix_cache_enabled, counters) != (free, table, True, (0, 0, 0.0, 0)):
+        raise RuntimeError(f"[paged warmup] free pages {free} -> {eng.alloc.free_count}, prefix table "
+                           f"{'kept' if eng._prefix == table else 'changed'}, prefix cache "
+                           f"{eng.prefix_cache_enabled}, counters {counters}")
+    log(f"[paged warmup] phase 8's engine after run A (its tokens == phase 8's): warmup() {secs:.3f} s, launches K7 "
+        f"{launches['K7']}, K8 {launches['K8']}, K9/K10 {launches['K9/K10']}; free pages {free} and the prefix table "
+        f"({len(table)} pages) unchanged, prefix cache on, counters zero ({card})")
+
+
+def _sampling_inputs(position: int) -> dict:
+    """Phase 5's sampling parameters of 8 slots (temperature > 0, top-k,
+    top-p, seeds at the edges of int32) as CPU tensors, every slot's token
+    at ``position``."""
+    import torch
+
+    return dict(
+        temperature=torch.tensor([0.7, 1.0, 1.3, 0.5, 1.0, 2.0, 0.9, 1.0]),
+        top_k=torch.tensor([0, 40, 0, 5, 1000, 0, 50, 0], dtype=torch.int32),
+        top_p=torch.tensor([1.0, 1.0, 0.9, 0.95, 0.8, 1.0, 0.5, 0.99]),
+        seeds=torch.tensor([0, 1, 7, 12345, 2**31 - 1, -1, -2**31, 99], dtype=torch.int32),
+        positions=torch.full((8,), position, dtype=torch.int32))
+
+
+def _log_profile(card: str, what: str, prof: dict, untraced_s: float) -> None:
+    """``profile_op``'s summary, beside ``untraced_s``, the same call's
+    seconds with no profiler on (``time_fn``): what the trace costs, and
+    the busy share the traced device time gives over the untraced wall."""
+    top = "; ".join(f"{op['name'][:70]} x{op['count']:g} {op['device_s_per_call'] * 1e3:.4f} ms"
+                    for op in prof["device_ops"][:5])
+    device_s = sum(op["device_s_per_call"] for op in prof["device_ops"])
+    wall = prof["wall_s_per_call"]
+    busy_s = prof["device_busy_share"] * wall
+    log(f"[profile] {what}: traced wall {wall * 1e3:.3f} ms a call, device busy share {prof['device_busy_share']:.4f} "
+        f"({busy_s * 1e3:.3f} ms busy), device ops {sum(op['count'] for op in prof['device_ops']):g} a call summing "
+        f"{device_s * 1e3:.3f} ms; untraced {untraced_s * 1e3:.3f} ms a call (the trace adds "
+        f"{(wall - untraced_s) * 1e3:.3f} ms), busy over it {busy_s / untraced_s:.4f}; peak "
+        f"{prof['memory_analysis']['peak_bytes'] / 2**30:.3f} GiB over the arguments' "
+        f"{prof['memory_analysis']['argument_bytes'] / 2**30:.3f} GiB ({card})")
+    log(f"[profile] {what}, top five device ops: {top}")
+
+
+def _profiles(card: str, params, cfg) -> None:
+    """Phase 24(c): ``utils/profiling.profile_op`` (3 warm-up and 10 timed
+    calls, a private device-only trace) over one decode step plus the sampler
+    at 8 slots x PROFILE_ROWS rows on the dense and on the paged cache, and
+    (through ``trace`` into a temporary directory, host level 2; 1 + 3 calls)
+    one forward + backward of phase 14's training step at B=1, T=2048 with
+    no update; each also untraced through ``time_fn`` (3 runs of 10 decode
+    steps, 2 runs of 3 training steps), the least run kept. Inputs are left
+    unchanged between calls: a decode step writes the same row each time
+    and its new lengths are dropped."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.models.transformer import (
+        decode_step_logits,
+        decode_step_logits_paged,
+        init_caches,
+        init_paged_caches,
+        train_forward,
+    )
+    from flash_attention_tpu_torch.serving.sampling import sample_tokens
+    from flash_attention_tpu_torch.utils.benchmarking import time_fn
+    from flash_attention_tpu_torch.utils.profiling import profile_op
+
+    slots = 8
+    sampling = {key: t.cuda() for key, t in _sampling_inputs(PROFILE_ROWS + 1).items()}
+    tok = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (slots, 1))).to("cuda", torch.int32)
+    lengths = torch.full((slots,), PROFILE_ROWS, dtype=torch.int32, device="cuda")
+    caches = [c._replace(lengths=lengths) for c in init_caches(cfg, slots, 2048, device="cuda")]
+    paged = init_paged_caches(cfg, num_pages=129, num_slots=slots, pages_per_slot=16, page_size=128)
+    paged.page_table.copy_(1 + torch.arange(slots * 16, dtype=torch.int32, device="cuda").view(slots, 16))
+    paged = paged._replace(lengths=lengths)
+
+    def step(decode, params, tok, cache, sampling):
+        with torch.no_grad():
+            return sample_tokens(decode(params, cfg, tok, cache)[0], **sampling)
+
+    for what, decode, cache in (("dense decode step + sampler", decode_step_logits, caches),
+                                ("paged decode step + sampler", decode_step_logits_paged, paged)):
+        zero_counts()
+        prof = profile_op(step, decode, params, tok, cache, sampling)
+        launches = {k: n for k, n in read_counts().items() if n}
+        untraced = min(time_fn(step, decode, params, tok, cache, sampling, warmup=1, iters=10, runs=3))
+        _log_profile(card, f"{what}, {slots} slots x {PROFILE_ROWS} rows", prof, untraced)
+        log(f"[profile] {what}: kernel launches in profile_op's 14 calls {launches}")
+    del caches, paged
+    torch.cuda.empty_cache()
+
+    leaves = _tensors(params)
+    for t in leaves:
+        t.requires_grad_()
+    tokens = torch.from_numpy(np.random.default_rng(14).integers(0, cfg.vocab_size, (1, TRAIN_TOKENS + 1))).cuda()
+
+    def train_step(params, tokens):
+        for t in leaves:
+            t.grad = None
+        loss = _lm_loss(train_forward(params, cfg, tokens[:, :-1]), tokens[:, 1:])
+        loss.backward()
+        return loss.detach()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = profile_op(train_step, params, tokens, warmup=1, iters=3, log_dir=tmp)
+        (trace_file,) = os.listdir(tmp)
+        trace_mb = os.path.getsize(os.path.join(tmp, trace_file)) / 1e6
+    untraced = min(time_fn(train_step, params, tokens, warmup=0, iters=3, runs=2))
+    for t in leaves:
+        t.grad = None
+        t.requires_grad_(False)
+    _log_profile(card, f"training step forward + backward, B=1, T={TRAIN_TOKENS}", prof, untraced)
+    log(f"[profile] training step: trace() wrote a {trace_mb:.1f} MB Chrome trace (host level 2)")
+
+
+def phase_warmup_profiles(card: str, dense_tokens: dict, paged_tokens: dict) -> None:
+    """Phase 24: (a) cold and warm first runs in fresh processes, (b) the
+    paged engine's warmup, (c) profiles of the decode and training steps,
+    (d) ``calibrate_overhead_s``."""
+    import gc
+
+    import torch
+
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+    from flash_attention_tpu_torch.utils.benchmarking import calibrate_overhead_s
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    _first_runs(card, dense_tokens)
+    cfg = ModelConfig()
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    _paged_warmup(card, params, cfg, paged_tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _profiles(card, params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[overhead] calibrate_overhead_s(): {calibrate_overhead_s() * 1e6:.2f} us a trivial launch ([8, 128] fp32 "
+        f"x + 1.0 through time_fn, the least of 3 runs of 5) ({card})")
+    log(f"[warmup] phase 24 took {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main() -> None:
     import torch
 
@@ -5087,6 +5378,7 @@ def main() -> None:
     probes = phase_probes(card)
     parallel = phase_parallel(card)
     sharded = phase_sharded_serving(card, dense["tokens"], paged["tokens"])
+    phase_warmup_profiles(card, dense["tokens"], paged["tokens"])
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k1t, k6, k7, k8, k10, *quant.values(), *bwd.values(), *masked, *probes,
                                   *parallel, *sharded]}))

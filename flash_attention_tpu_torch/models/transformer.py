@@ -96,6 +96,16 @@ class ModelConfig:
             attention_sinks=self.attention_sinks,
         )
 
+    @staticmethod
+    def tiny(**overrides) -> "ModelConfig":
+        """A small config for tests / dryruns (the JAX package's defaults)."""
+        defaults = dict(
+            vocab_size=256, model_dim=256, num_layers=2, num_q_heads=8,
+            num_kv_heads=4, head_dim=32, mlp_dim=512,
+        )
+        defaults.update(overrides)
+        return ModelConfig(**defaults)
+
 
 def _grad_needed(*args) -> bool:
     return torch.is_grad_enabled() and any(a.requires_grad for a in args)

@@ -17,6 +17,10 @@ all-gathered over the data axis on the device as it is dispatched
 (``_gather_tokens``), before the readback, so a pipelined block still
 overlaps the previous one's readback. Every rank runs the same
 collectives in the same order, since its host loop is every other's.
+
+``warmup_engine`` is the counterpart of JAX's: one throwaway request that
+walks every prefill chunk position and every power-of-two decode block
+length, so the first served run pays none of the first-use costs.
 """
 
 from __future__ import annotations
@@ -96,6 +100,56 @@ def advance_prefill(eng, slot: int, out) -> None:
         out[req.id].finished_by_eos = True
     if eng.sched.record_token(slot, is_eos):
         eng._on_slot_finished(slot)
+
+
+def warmup_engine(eng, *, prompt_len: int | None = None) -> None:
+    """Run everything a serving run can reach once, then zero the counters.
+
+    Eager PyTorch compiles no programs per shape, but a first run still
+    pays once: the kernels' nvcc build (``ops/_build.py``) or the load of
+    the built library, each kernel function's load at its first launch,
+    cuBLAS's handle and workspace at the first GEMM, and the caching
+    allocator's growth to the run's peak. One throwaway request walks both
+    surfaces:
+
+      * prefill: a full-length prompt visits every chunk position (K1 on
+        the dense engine, K8 on the paged one);
+      * decode: ``max_new = 2 * decode_block_steps`` makes the remaining
+        budget after the prefill-sampled first token ``2B - 1``, so blocks
+        run at k = B, B/2, ..., 2, 1 (K6, or K7 with K10). With ``max_new =
+        2B - 1`` k = 1 would be skipped.
+
+    ``prompt_len`` is clamped to [1, max_seq - 2B]. The prefix cache is
+    suspended for the run, so the synthetic prompt registers no pages.
+    Safe to call more than once. Counters (steps, decode_tokens,
+    decode_time_s, events) are reset, so a following measured run reports
+    steady state only. Under tensor parallelism every rank calls it: the
+    ranks then run ``run``'s collectives in the same order.
+    """
+    from flash_attention_tpu_torch.serving.engine import Request
+
+    max_new = 2 * eng.decode_block_steps
+    cap = eng.max_seq - max_new
+    if cap < 1:
+        raise ValueError(
+            f"max_seq={eng.max_seq} leaves no room for a warmup prompt "
+            f"(needs >= {max_new + 1})"
+        )
+    plen = max(1, cap if prompt_len is None else min(prompt_len, cap))
+    had_prefix = getattr(eng, "prefix_cache_enabled", False)
+    if had_prefix:
+        eng.prefix_cache_enabled = False
+    try:
+        # Large positive id: the C++ scheduler reserves negatives as its
+        # empty-slot sentinel.
+        eng.run([Request(id=(1 << 62) + 41, prompt=(7,) * plen, max_new_tokens=max_new)])
+    finally:
+        if had_prefix:
+            eng.prefix_cache_enabled = True
+    eng.steps = 0
+    eng.decode_tokens = 0
+    eng.decode_time_s = 0.0
+    eng.events.clear()
 
 
 def make_decode_multi(model_cfg, decode_logits_fn, lengths_of, with_lengths):

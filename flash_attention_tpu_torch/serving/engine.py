@@ -50,6 +50,7 @@ from flash_attention_tpu_torch.serving.decode_loop import (
     retire_decode_block,
     run_decode_block,
     start_prefill,
+    warmup_engine,
 )
 from flash_attention_tpu_torch.serving.sampling import GREEDY, SamplingParams, sample_tokens
 from flash_attention_tpu_torch.serving.scheduler import ContinuousBatchScheduler
@@ -260,6 +261,11 @@ class ServingEngine:
         """A decode block's tokens [k, local slots] as [k, max_slots]: over a
         data axis, every data coordinate's slots (on the device)."""
         return toks if self._data_group is None else all_gather(toks, 1, self._data_group)
+
+    def warmup(self, *, prompt_len: int | None = None) -> None:
+        """Run every prefill chunk position and decode block length once
+        (see decode_loop.warmup_engine) and reset the perf counters."""
+        warmup_engine(self, prompt_len=prompt_len)
 
     def submit(self, req: Request) -> bool:
         return self.sched.submit(req.id, len(req.prompt), req.max_new_tokens)

@@ -27,8 +27,10 @@ however long the context. Tensor-parallel serving (``shard_caches`` from
 ``parallel.sharding.make_cache_sharding``) shards the pools over kv heads
 and the model over the mesh's model axis, and keeps the page table, the
 lengths, the allocator and the prefix cache whole on every rank, as JAX's
-paged engine does; over a data axis the ranks are replicas. There is no ``warmup``:
-eager PyTorch has no programs to compile ahead of a run.
+paged engine does; over a data axis the ranks are replicas. ``warmup()``
+(inherited, ``decode_loop.warmup_engine``) runs one throwaway request with the
+prefix cache suspended: its pages go back to the pool and the prefix table is
+left as it was.
 """
 
 from __future__ import annotations

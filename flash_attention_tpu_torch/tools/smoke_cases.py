@@ -810,6 +810,23 @@ def sharded_serving(card: str) -> None:
     print(json.dumps({"kernels": cs.phase_sharded_serving(card, dense["tokens"], paged["tokens"])}), flush=True)
 
 
+def warmup_profiles(card: str) -> None:
+    """Phase 24 alone: phases 5's and 8's main paths on fresh weights from
+    seed 0 give the tokens it holds the first runs and the paged warmup to,
+    then ``phase_warmup_profiles``."""
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+
+    cfg = ModelConfig()
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    _, dense = cs.serve_full_dense(card, "full", cfg, params, used=("K1", "K6"))
+    _, paged = cs.serve_full_paged(card, "full paged", cfg, params, used=("K7", "K8", "K9/K10"), dense=dense)
+    del params
+    cs.phase_warmup_profiles(card, dense["tokens"], paged["tokens"])
+
+
 def _emulated_tp(params, cfg, ranks: int, run):
     """``run(params, cfg, group, rank)`` on each of ``ranks`` model shards
     of ``params`` at once in one process: a thread a rank on the one

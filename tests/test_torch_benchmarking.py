@@ -36,6 +36,7 @@ def test_attention_flops_window_raises_as_jax(kw):
     lambda: benchmarking.bench_attention(lambda: None, name="x", flops=1.0, peak_tflops=989.0),
     benchmarking.detect_peak_tflops,
     benchmarking.card_description,
+    benchmarking.calibrate_overhead_s,
 ])
 def test_timers_raise_without_a_card(call):
     assert not torch.cuda.is_available()

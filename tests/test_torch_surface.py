@@ -1,5 +1,11 @@
 """The port's public surface against the JAX package's.
 
+Module by module: every public top-level function and class of each module
+of the JAX package, and every public method of its public classes (the
+inherited ones included), exists under the same name in the port's module
+at the same path, apart from the TPU mechanisms and renames named below
+with their reasons. Both packages are read with ``ast``.
+
 Every name of the JAX package's ``__all__`` that the port has ported imports
 from the port's top level, is in its ``__all__``, and takes the JAX
 package's keywords, apart from the TPU kernels' tiling and interpreter
@@ -7,7 +13,9 @@ switches; calls written with JAX's keywords give JAX's results. Quantized payloa
 for bit, attention outputs within 1e-4 (fp32, summed in another order).
 """
 
+import ast
 import inspect
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +51,79 @@ def test_ported_name_takes_jax_keywords(name):
     ours, theirs = getattr(port, name), getattr(jax_pkg, name)
     keywords = set(inspect.signature(theirs).parameters) - TPU_KNOBS
     assert keywords <= set(inspect.signature(ours).parameters), name
+
+
+JAX_DIR = pathlib.Path(jax_pkg.__file__).parent
+PORT_DIR = pathlib.Path(port.__file__).parent
+JAX_MODULES = sorted(str(p.relative_to(JAX_DIR)) for p in JAX_DIR.rglob("*.py"))
+_V5E = ("v5e dispatch tables; the port picks per shape in ops/flash_attention.fwd_q_tile and "
+        "ops/decode.decode_kv_splits")
+_WIDEN = "a TPU fp8 bit-widen trick; the port's kernels widen the payload exactly on load (ROADMAP.md rules)"
+# Modules and names of the JAX package the port leaves behind, by module, with the reason.
+NOT_PORTED_MODULES = {"ops/tuning.py": _V5E}
+NOT_PORTED = {
+    "__init__.py": {"BlockSizes": _V5E, "select_block_sizes": _V5E, "select_bwd_block_sizes": _V5E},
+    "ops/common.py": {name: _WIDEN for name in ("packed_pos", "packed_split_order", "split_scales_lanes",
+                                                "upcast_kv_payload", "upcast_kv_payload_expfold",
+                                                "upcast_kv_payload_packed")},
+}
+# Names the port gives another name: the card is not an MXU, and a config's dtype is a torch dtype.
+RENAMED = {
+    "utils/benchmarking.py": {"detect_mxu_peak_tflops": "detect_peak_tflops"},
+    "models/transformer.py": {"ModelConfig.jnp_dtype": "ModelConfig.torch_dtype"},
+    "models/attention.py": {"AttentionConfig.jnp_dtype": "AttentionConfig.torch_dtype"},
+}
+
+
+def _classes(root: pathlib.Path) -> dict:
+    """Every class of a package by name: (its base names, its own public methods)."""
+    out = {}
+    for path in root.rglob("*.py"):
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, ast.ClassDef):
+                bases = [b.id if isinstance(b, ast.Name) else getattr(b, "attr", "") for b in node.bases]
+                methods = {m.name for m in node.body
+                           if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)) and not m.name.startswith("_")}
+                out[node.name] = (bases, methods)
+    return out
+
+
+def _methods(name: str, classes: dict) -> set:
+    bases, own = classes.get(name, ((), set()))
+    return set(own).union(*(_methods(b, classes) for b in bases if b in classes))
+
+
+def _surface(path: pathlib.Path, classes: dict) -> set:
+    """A module's public names: its functions and classes, ``Class.method``
+    for each public method, and the names of its ``__all__``."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)) and not node.name.startswith("_"):
+            names.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                names |= {f"{node.name}.{m}" for m in _methods(node.name, classes)}
+        elif isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__" for t in node.targets):
+            names |= set(ast.literal_eval(node.value))
+    return names
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_module_surface_is_the_jax_packages(module):
+    if module in NOT_PORTED_MODULES:
+        assert not (PORT_DIR / module).exists(), module
+        return
+    theirs = _surface(JAX_DIR / module, _classes(JAX_DIR))
+    ours = _surface(PORT_DIR / module, _classes(PORT_DIR))
+    renamed = RENAMED.get(module, {})
+    left_behind = set(NOT_PORTED.get(module, {}))
+    assert sorted(theirs - ours - left_behind - set(renamed)) == []
+    # Each exception is still one: the name is JAX's and absent from the port, and a rename's target exists.
+    assert left_behind <= theirs - ours
+    assert set(renamed) <= theirs - ours and set(renamed.values()) <= ours
+
+
+def test_exceptions_name_jax_modules():
+    assert set(NOT_PORTED_MODULES) | set(NOT_PORTED) | set(RENAMED) <= set(JAX_MODULES)
 
 
 def _rng_array(seed, shape, scale=1.0):
