@@ -23,11 +23,19 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 instantiation at ragged shapes.
   4. tiny     — a tiny fp32 model served on the card (through the kernels)
                 and on the CPU (through the plain versions): the greedy
-                tokens must be identical.
+                tokens must be identical. On the card after ``warmup()``
+                (``replayed_tokens``): every decode block of the run is a
+                replay of a CUDA graph built there, none captured in the run.
   5. full     — ModelConfig() at full width, bf16, random weights from a
                 seed; ServingEngine serves 10 greedy requests on 8 slots;
                 every completion must have 32 tokens, the logits must be
                 finite, and both kernels must have been launched by the run.
+                Then ``hold_programs``: the engine's k=16 block, greedy and
+                sampled, replayed (one CUDA graph) against its eager body
+                from identical copies of the caches, the tokens and every
+                cache tensor bit-identical; the greedy replay traced, its
+                kernel records equal to the launches it added to the counts
+                (a replay runs no wrapper: it adds what its capture counted).
                 Then sampling on the card: the Gumbel noise and sample_tokens'
                 tokens at temperature > 0 with top-k and top-p bit-equal to
                 the CPU's, with no host sync; one decode step of 8 slots
@@ -53,7 +61,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 phase 5's requests, then requests sharing a 1024-token
                 prefix through the prefix cache; K7, K8 and K10 launched,
                 K1 and K6 not, and every K8 launch on the tensor-core body
-                (its body counter).
+                (its body counter); then ``hold_programs``.
   9. quant    — the quantized kernels with bf16 queries, for int8, fp8
                 e4m3 and fp8 e5m2 caches whose rows are scaled one by one:
                 K6q and K7q at phase 3's and 6's shapes and at 32 slots x
@@ -77,12 +85,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 cache, the paged engine merges the current token at full
                 precision and the dense one attends it quantized, as in the
                 JAX package; where they part is printed); prefix cache on
-                == off.
+                == off. The card's runs as in phase 4, after ``warmup()``.
  11. full quant — phase 5's weights at full width: ServingEngine with int8
                 weights and an int8 cache on phase 5's requests, and
                 PagedServingEngine with an fp8_e4m3 cache on phase 8's runs;
                 K6q, K7q, K8q and K10q launched, K6, K7, K8 and K10 not;
-                K8q on the tensor-core body.
+                K8q on the tensor-core body; ``hold_programs`` on both.
  12. backward — K3, K4, K5 and K5's split sum K5s (flash_bwd_sm90.cu:
                 wgmma on TMA-fed tiles in bf16 / fp16; flash_bwd.cu's FMA
                 bodies in fp32) in bf16 through
@@ -135,7 +143,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 tokens, through a dense window (96, and 48: K2), the rolling
                 cache, rolling + 32 sinks, softcap 30, the paged ring and
                 paged + sinks; rolling == dense window == paged ring, and
-                paged sinks == rolling sinks.
+                paged sinks == rolling sinks. The card's runs as in phase
+                4, after ``warmup()``.
  17. full masked — ModelConfig(mlp_dim=14336, sliding_window=4096)
                 (Mistral-7B v0.1's shape, tied embedding), bf16, seed 0:
                 prompts of {1, 255, 1024, 4095, 4096, 4097, 6000, 9000}
@@ -145,7 +154,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 (a)), (c) PagedServingEngine with 4 sinks (at most 37 pages a
                 slot, the pool full again after; K7, K8, K10 only) and (d)
                 softcap 50 on phase 5's requests; every forward launch on
-                the tensor-core body.
+                the tensor-core body; ``hold_programs`` on (a) and (c).
  18. masked backward — K1d (the forward's segment ids) and the masked
                 K3, K4 and K5 (K3m, K4m and K5m in flash_bwd_sm90.cu, K1d in
                 flash_fwd_sm90.cu; K4m, K5m and K3m's dk and dv bit-identical
@@ -231,8 +240,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 and paged engines on a one-rank mesh give phase 5's and
                 phase 8's tokens, and their models' logits (a 1,024-token
                 prefill, 8 decode steps, dense and paged) are the
-                single-process model's bit for bit; (b) four gloo ranks
-                sharing the card at full width, each building the global
+                single-process model's bit for bit, both replaying their
+                decode blocks, and each engine's save_kv_cache file its
+                caches bit for bit, loading into a fresh sharded engine's;
+                (b) four gloo ranks sharing the card at full width (their
+                decode blocks issued step by step: a model axis of more
+                than one rank is not captured), each building the global
                 weights in turn and keeping its shards: the dense engine on
                 data 2 x model 2 and the paged one on model 4 serve phase
                 5's requests (tokens the same on every rank; agreement with
@@ -260,16 +273,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 the counters zero after it): both runs give phase 5's tokens
                 and launch only K1 and K6; each run's wall time, its
                 first prefill chunk alone, and its prefill and decode tok/s
-                are printed; (b) phase 8's paged
+                are printed; the warm engine's ``warmup()`` builds all ten
+                decode programs (each capture timed, the pool's bytes
+                printed) and its run captures none and replays every
+                block; (b) phase 8's paged
                 engine serves run A (phase 8's tokens), then ``warmup()``
                 (K7, K8 and K9/K10 only) leaves its free page count, prefix
-                table and prefix cache switch as they were; (c)
+                table and prefix cache switch as they were and every
+                program built; (c)
                 ``utils/profiling.profile_op`` over one decode step plus the
                 sampler at 8 slots x 1,024 rows on the dense and on the
-                paged cache, and over phase 14's forward + backward at B=1,
+                paged cache, over the engines' replayed k=16 sampled block
+                at the same shape, and over phase 14's forward + backward at B=1,
                 T=2048 (no update; through ``trace``): traced and
                 untraced wall time, device busy share, the top five device
-                operations; (d)
+                operations; the replayed block's kernel records equal to
+                the launches a replay counts; (d)
                 ``calibrate_overhead_s()``.
 
 Every phase prints kernel, plain-version, library-call and bound times
@@ -308,6 +327,10 @@ TINY_CFG = dict(
 )
 FULL_PROMPT_LENS = (1, 37, 255, 256, 257, 600, 1024, 1100, 1500, 1791)
 FULL_NEW_TOKENS = 32
+# The served phases' warmup prompt: one prefill chunk. The prefill chunks are
+# not programs, and the prefill-only runs before have loaded their kernels;
+# the warmup is there for the decode programs.
+WARMUP_PROMPT = 256
 PAGED_LENGTHS = (0, 1, 127, 128, 129, 1000, 2047, 2048)  # phase 6, K7; slot 0 on the dump page
 QUANT_MODES = ("int8", "fp8_e4m3", "fp8_e5m2")
 LONG = dict(slots=32, rows=8192)  # BASELINE config 4: 32 slots x 8192 rows, 32 q / 8 kv heads, head_dim 128
@@ -643,62 +666,83 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-def _counters() -> dict:
-    """Every kernel's launch count, by name: (wrapper, attribute). A wrapper
-    counts the launches over an unquantized cache in .launches and those over
-    a quantized one (the K*q instantiations) in .quant_launches; the forward
-    counts K1d (segment ids) in .segment_launches, and the backward
-    launchers their masked instantiations (K3m, K4m, K5m: a window, softcap
-    or segment ids) in .masked_launches, and K5's split sum counts as K5s;
-    the probes' bodies T and S count as PT and PS."""
-    from flash_attention_tpu_torch.ops.attention_bwd import launch_dkv, launch_dkv_sum, launch_dq, launch_fused
-    from flash_attention_tpu_torch.ops.decode import decode_attention
-    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
-    from flash_attention_tpu_torch.ops.paged import paged_decode_attention, paged_prefill_attention, paged_write_tokens_multi
-    from flash_attention_tpu_torch.tools.probes import launch_single, launch_tiled
+def _registry():
+    """``ops.counters``, every kernel wrapper's module imported so that each
+    has registered its counters: a wrapper counts the launches over an
+    unquantized cache as K6, K7, ... and those over a quantized one as K6q,
+    K7q, ...; the forward counts K1d (segment ids) apart, the backward
+    launchers their masked instantiations (K3m, K4m, K5m: a window, softcap or
+    segment ids), and K5's split sum counts as K5s; the probes' bodies T and S
+    count as PT and PS. The forward wrappers count their launches by body as
+    well: csrc/flash_fwd_sm90.cu's tensor cores, or csrc/flash_fwd.cu's FMA
+    body (fp32)."""
+    import flash_attention_tpu_torch.ops.paged  # noqa: F401  (imports the other ops wrappers)
+    import flash_attention_tpu_torch.tools.probes  # noqa: F401
+    from flash_attention_tpu_torch.ops import counters
 
-    return {
-        "K1": (flash_attention, "launches"), "K2": (flash_attention, "band_launches"),
-        "K1d": (flash_attention, "segment_launches"),
-        "K3": (launch_fused, "launches"), "K4": (launch_dq, "launches"), "K5": (launch_dkv, "launches"),
-        "K3m": (launch_fused, "masked_launches"), "K4m": (launch_dq, "masked_launches"),
-        "K5m": (launch_dkv, "masked_launches"), "K5s": (launch_dkv_sum, "launches"),
-        "K6": (decode_attention, "launches"), "K6q": (decode_attention, "quant_launches"),
-        "K7": (paged_decode_attention, "launches"), "K7q": (paged_decode_attention, "quant_launches"),
-        "K8": (paged_prefill_attention, "launches"), "K8q": (paged_prefill_attention, "quant_launches"),
-        "K9/K10": (paged_write_tokens_multi, "launches"), "K9q/K10q": (paged_write_tokens_multi, "quant_launches"),
-        "PT": (launch_tiled, "launches"), "PS": (launch_single, "launches"),
-    }
-
-
-# The forward wrappers count their launches by body as well: csrc/flash_fwd_sm90.cu's tensor cores, or
-# csrc/flash_fwd.cu's FMA body (fp32).
-BODIES = ("tensor_core_launches", "fma_launches")
-
-
-def _body_wrappers() -> dict:
-    from flash_attention_tpu_torch.ops.flash_attention import flash_attention
-    from flash_attention_tpu_torch.ops.paged import paged_prefill_attention
-
-    return {"K1/K1d/K2": flash_attention, "K8/K8q": paged_prefill_attention}
+    return counters
 
 
 def zero_counts() -> None:
-    for fn, attr in _counters().values():
-        setattr(fn, attr, 0)
-    for fn in _body_wrappers().values():
-        for attr in BODIES:
-            setattr(fn, attr, 0)
+    _registry().zero()
 
 
 def read_counts() -> dict:
-    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
+    return _registry().read()
 
 
 def read_bodies() -> dict:
     """The forward launches since zero_counts by wrapper and body."""
-    return {f"{name} {attr.removesuffix('_launches')}": getattr(fn, attr)
-            for name, fn in _body_wrappers().items() for attr in BODIES}
+    return _registry().read_bodies()
+
+
+# CUPTI drops a few device records a trace (about one in 10^4 in the profiles of PR 16 runs 9 and 10, of any
+# kernel), and the same record of the same sequence each time (24(c)'s paged block: 511 of 512 K7 records in
+# five traces of run 10). So a trace short of the counted launches is taken again, at most this many times,
+# each time behind a few more padding launches, which moves the sequence's records against the drops.
+TRACE_ATTEMPTS = 5
+TRACE_PAD = 3  # padding launches (an add to a one-element tensor) added before each further attempt
+
+
+def traced_launches(what: str, replay):
+    """``replay()`` (one replay of a decode program, and whatever resets its
+    inputs) under torch.profiler, device activity only, synchronised before
+    and after: the kernel records of the trace, by group of kernels that run
+    the same CUDA functions (``ops.counters.traced``), must equal the
+    launches that the replay added to the counts. A replay runs no wrapper:
+    it adds what its capture counted, and this holds that against what the
+    card ran. A trace can lack a record that CUPTI dropped but holds none
+    that did not run, so no attempt may trace more than was counted, and one
+    of TRACE_ATTEMPTS must trace all of it, attempt i behind TRACE_PAD * (i -
+    1) padding launches. Returns the last attempt's result, the launches by
+    group and the attempts taken."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    registry, short = _registry(), []
+    pad = torch.zeros(1, device="cuda")
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        before = read_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_PAD * (attempt - 1)):
+                pad.add_(1)
+            out = replay()
+            torch.cuda.synchronize()
+        gained = {name: n - before[name] for name, n in read_counts().items()}
+        # The profiler's raw records: building its FunctionEvents for a block's ~60,000 records takes seconds.
+        traced = registry.traced([e.name() for e in prof.profiler.kineto_results.events()
+                                  if e.device_type() == torch.autograd.DeviceType.CUDA])
+        counted = {kernels: sum(gained[k] for k in kernels) for kernels in traced}
+        parted = {"/".join(k): (traced[k], counted[k]) for k in traced if traced[k] != counted[k]}
+        if any(traced[k] > counted[k] for k in traced):
+            raise RuntimeError(f"{what}: more kernel records in the device trace than counted launches, (traced, "
+                               f"counted) by kernels: {parted}")
+        if not parted:
+            return out, {"/".join(k): n for k, n in traced.items() if n}, attempt
+        short.append(parted)
+    raise RuntimeError(f"{what}: every one of {TRACE_ATTEMPTS} device traces lacks counted launches, (traced, counted) "
+                       f"by kernels: {short}")
 
 
 def check_tensor_cores(what: str, bodies: dict, wrapper: str | None = None) -> None:
@@ -716,6 +760,106 @@ def check_launches(what: str, launches: dict, used) -> None:
     stray = [k for k, n in launches.items() if n and k not in used]
     if missing or stray:
         raise RuntimeError(f"{what}: kernels {missing} not launched, {stray} launched: {launches}")
+
+
+def replayed_tokens(what: str, eng, reqs) -> dict:
+    """``eng.run(reqs)``'s tokens by id, the launch counts set to 0 just
+    before the run. On the card ``warmup()`` first, so that every decode
+    block of the run replays a program built there: the run must capture
+    none and replay one a block."""
+    card = eng.device.type == "cuda"
+    if card:
+        eng.warmup()
+        captures, replays = eng.programs.captures, eng.programs.replays
+    zero_counts()
+    done = eng.run(reqs)
+    if card:
+        blocks = sum(1 for event in eng.events if event[0] == "decode")
+        got = (eng.programs.mode, eng.programs.captures - captures, eng.programs.replays - replays)
+        if not blocks or got != ("graph", 0, blocks):
+            raise RuntimeError(f"{what}: decode programs (mode, captures, replays) in the run {got}, want ('graph', 0, "
+                               f"{blocks}): one replay a block")
+    return {rid: c.tokens for rid, c in done.items()}
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
+                                                                     b.reshape(-1).view(torch.uint8))
+
+
+def hold_programs(label: str, eng) -> None:
+    """The engine's k = decode_block_steps block replayed against its eager
+    body (``DecodePrograms.block``) from identical copies of the caches,
+    greedy and sampled: the tokens, the last-token buffer and every cache
+    tensor bit-identical. Every slot active, at lengths from max_seq - k
+    down by 131 rows a slot; a paged engine's table first set to distinct
+    pages of the pool a slot (a ring laid out as the engine lays it); the
+    sampled block at phase 5's sampling rows. The greedy replay, the main
+    paths' key, is traced: its kernel records must equal the launches it
+    added to the counts (``traced_launches``; a trace of a block's ~60,000
+    records costs ~16 s of post-processing, so the sampled one is not).
+    Called after the main path: it leaves the caches as the eager block
+    wrote them."""
+    import numpy as np
+    import torch
+
+    progs, slots, k = eng.programs, eng.max_slots, eng.decode_block_steps
+    if progs.mode != "graph":
+        raise RuntimeError(f"[{label}] decode programs in mode {progs.mode!r}, want 'graph'")
+    rng = np.random.default_rng(16)
+    cfg = eng.cfg
+    if hasattr(eng, "page_size"):
+        n_ring = eng.pages_per_slot
+        if cfg.sliding_window is not None:
+            n_ring = -(-(cfg.sliding_window + eng.chunk) // eng.page_size) + 2
+        table, _ = _ring_table(rng, slots, eng.pages_per_slot, n_ring, sinks=bool(cfg.attention_sinks))
+        eng.caches.page_table.copy_(torch.from_numpy(table))
+    lengths = np.maximum(1, eng.max_seq - k - 131 * np.arange(slots)).astype(np.int32)
+    eng._lengths_of(eng.caches).copy_(torch.from_numpy(lengths))
+    live = list({id(t): t for t in _tensors(eng.caches)}.values())
+    start = [t.clone() for t in live]
+    last = rng.integers(0, cfg.vocab_size, slots).astype(np.int32)
+    rows = {key: np.resize(t.numpy(), slots) for key, t in _sampling_inputs(0).items()}
+    t0 = time.perf_counter()
+    for greedy in (True, False):
+        temps = np.zeros(slots, np.float32) if greedy else rows["temperature"]
+
+        def reset():
+            for t, s0 in zip(live, start):
+                t.copy_(s0)
+            progs.upload(last, np.ones(slots, bool), temps, rows["top_k"], rows["top_p"], rows["seeds"])
+
+        if (k, greedy) not in progs.built():
+            reset()
+            progs.run(k, greedy)  # the key's eager block, then its capture
+
+        def replay(greedy=greedy, reset=reset):
+            reset()
+            replays = progs.replays
+            toks = progs.run(k, greedy).clone()
+            if progs.replays != replays + 1:
+                raise RuntimeError(f"[{label}] the k={k} block (greedy={greedy}) did not replay")
+            return toks
+
+        if greedy:
+            toks, traced, attempts = traced_launches(f"[{label}] the replayed k={k} greedy block", replay)
+        else:
+            toks = replay()
+        replayed = [toks, progs.last.clone()] + [t.clone() for t in live]
+        reset()
+        eager = [progs.block(k, greedy), progs.last] + live
+        if not all(_bits_equal(a, b) for a, b in zip(replayed, eager)):
+            parted = [i for i, (a, b) in enumerate(zip(replayed, eager)) if not _bits_equal(a, b)]
+            raise RuntimeError(f"[{label}] the replayed k={k} block (greedy={greedy}) differs from its eager body in "
+                               f"tensors {parted} (0: tokens, 1: last tokens, then the caches')")
+        del replayed, eager
+    torch.cuda.synchronize()
+    log(f"[{label}] decode programs: the k={k} block replayed == its eager body, greedy and sampled, tokens and "
+        f"{len(live)} cache tensors ({_nbytes(live) / 1e9:.3f} GB) bit for bit; mode {progs.mode}, {progs.captures} "
+        f"programs, {progs.replays} replays so far; kernel records in the greedy replay's device trace == the "
+        f"launches it counted, {traced} (traces taken {attempts}); the hold took {time.perf_counter() - t0:.1f} s")
 
 
 def tiny_requests():
@@ -744,11 +888,11 @@ def phase_tiny() -> dict:
     results = {}
     for device in ("cuda", "cpu"):
         eng = ServingEngine(_to_device(params, device), cfg, max_slots=3, max_seq=64, prefill_chunk=16)
-        results[device] = {rid: c.tokens for rid, c in eng.run(reqs).items()}
+        results[device] = replayed_tokens("[tiny]", eng, reqs)
     log(f"[tiny] fp32 engine, 5 greedy requests on 3 slots: card {results['cuda']}")
     if results["cuda"] != results["cpu"]:
         raise RuntimeError(f"card and CPU tokens differ: {results['cuda']} vs {results['cpu']}")
-    log("[tiny] card tokens == CPU tokens")
+    log("[tiny] card tokens (after warmup(): every decode block a replayed CUDA graph) == CPU tokens")
     return results["cuda"]
 
 
@@ -822,11 +966,12 @@ def phase_sampling(card: str, params) -> None:
 
 def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | None = None):
     """ServingEngine over ``cfg`` / ``params`` at full width: a prefill-only
-    run, then the main path (phase 5's 10 requests on 8 slots x 2048
-    positions) with every launch count set to 0 just before and read just
-    after; it must launch the kernels in ``used`` and no other. ``ref``: the
-    bf16 run's numbers of this call, printed beside these. Returns the
-    launch counts and the engine's numbers."""
+    run and ``warmup()``, then the main path (phase 5's 10 requests on 8
+    slots x 2048 positions) with every launch count set to 0 just before and
+    read just after; it must launch the kernels in ``used`` and no other.
+    Then ``hold_programs``. ``ref``: the bf16 run's numbers of this call,
+    printed beside these. Returns the launch counts and the engine's
+    numbers."""
     import numpy as np
     import torch
 
@@ -847,6 +992,7 @@ def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | No
     if any(len(first[i].tokens) != 1 for i in range(len(prompts))):
         raise RuntimeError("prefill-only run: every request must give exactly one token")
     n_prompt = sum(FULL_PROMPT_LENS)
+    eng.warmup(prompt_len=WARMUP_PROMPT)  # every decode program built: the main path's decode section captures none
 
     # The main path: counters to 0, serve, read the counters.
     eng.steps, eng.decode_tokens, eng.decode_time_s = 0, 0, 0.0
@@ -876,6 +1022,9 @@ def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | No
         "weights_gb": _nbytes(params) / 1e9, "tokens": {rid: c.tokens for rid, c in done.items()},
     }
     decode_tokens, decode_s = eng.decode_tokens, eng.decode_time_s
+    log(f"[{label}] decode programs of the main path: mode {eng.programs.mode}, {eng.programs.captures} built, "
+        f"{eng.programs.replays} replays")
+    hold_programs(label, eng)
     del eng
 
     # Logits of the same model, straight from the model functions: finite
@@ -1385,7 +1534,7 @@ def phase_tiny_paged(dense_tokens: dict) -> None:
     results = {}
     for device in ("cuda", "cpu"):
         eng = PagedServingEngine(_to_device(params, device), cfg, max_slots=3, num_pages=16, pages_per_slot=2, page_size=128)
-        results[device] = {rid: c.tokens for rid, c in eng.run(tiny_requests()).items()}
+        results[device] = replayed_tokens("[tiny paged]", eng, tiny_requests())
     log(f"[tiny paged] fp32 paged engine, 5 greedy requests on 3 slots: card {results['cuda']}")
     if not results["cuda"] == results["cpu"] == dense_tokens:
         raise RuntimeError(f"paged card / paged CPU / dense card tokens differ: {results} vs {dense_tokens}")
@@ -1405,15 +1554,15 @@ def phase_tiny_paged(dense_tokens: dict) -> None:
     log(f"[tiny paged] shared 256-token prefix: prefix_hits {hits[True]}; tokens with cache == without")
     if hits[True] <= 0 or tokens[True] != tokens[False]:
         raise RuntimeError(f"prefix cache: hits {hits[True]}, tokens {tokens[True]} vs {tokens[False]}")
-    log("[tiny paged] paged card tokens == paged CPU tokens == dense card tokens")
+    log("[tiny paged] paged card tokens (every decode block replayed) == paged CPU tokens == dense card tokens")
 
 
 def serve_full_paged(card: str, label: str, cfg, params, *, used, dense: dict, ref: dict | None = None):
     """PagedServingEngine over ``cfg`` / ``params`` at full width (phase 8;
-    the dense engine and its caches are gone): a prefill-only run, then the
-    main path, runs A and B, with every launch count set to 0 just before
-    and read just after; it must launch the kernels in ``used`` and no
-    other. ``dense``: the dense run's numbers of the same weights and cache
+    the dense engine and its caches are gone): a prefill-only run and
+    ``warmup()``, then the main path, runs A and B, with every launch count
+    set to 0 just before and read just after; it must launch the kernels in
+    ``used`` and no other; then ``hold_programs``. ``dense``: the dense run's numbers of the same weights and cache
     type; ``ref``: the bf16 paged run's. Returns the launch counts and the
     engine's numbers."""
     import numpy as np
@@ -1442,6 +1591,7 @@ def serve_full_paged(card: str, label: str, cfg, params, *, used, dense: dict, r
     eng.prefix_cache_enabled = True
     if any(len(first[i].tokens) != 1 for i in range(len(prompts))):
         raise RuntimeError("paged prefill-only run: every request must give exactly one token")
+    eng.warmup(prompt_len=WARMUP_PROMPT)  # every decode program built: the main path's decode section captures none
 
     # The paged main path: counters to 0, runs A and B, read the counters.
     eng.steps, eng.decode_tokens, eng.decode_time_s = 0, 0, 0.0
@@ -1524,6 +1674,9 @@ def serve_full_paged(card: str, label: str, cfg, params, *, used, dense: dict, r
         f"[{label}] peak device memory (max_memory_allocated) over runs A and B {numbers['peak_gib']:.2f} GiB"
         f"{beside('peak_gib', '.2f')}; prefix_hits {eng.prefix_hits} ({card})"
     )
+    log(f"[{label}] decode programs: mode {eng.programs.mode}, {eng.programs.captures} built, "
+        f"{eng.programs.replays} replays")
+    hold_programs(label, eng)
     return launches, numbers
 
 
@@ -1993,7 +2146,7 @@ def phase_tiny_quant() -> None:
             dense = ServingEngine(on, cfg, max_slots=3, max_seq=64, prefill_chunk=16)
             paged = PagedServingEngine(on, cfg, max_slots=3, num_pages=16, pages_per_slot=2, page_size=128)
             for name, eng in (("dense", dense), ("paged", paged)):
-                tokens[name, device] = {rid: c.tokens for rid, c in eng.run(tiny_requests()).items()}
+                tokens[name, device] = replayed_tokens(f"[tiny quant] {name}", eng, tiny_requests())
         label = ", ".join(f"{k}={v}" for k, v in variant.items())
         for name in ("dense", "paged"):
             if tokens[name, "cuda"] != tokens[name, "cpu"]:
@@ -2019,7 +2172,8 @@ def phase_tiny_quant() -> None:
             raise RuntimeError(f"[tiny quant] {label}: prefix cache hits {hits[True]}, tokens "
                                f"{with_cache[True]} vs {with_cache[False]}")
         log(
-            f"[tiny quant] {label}: both engines' tokens on the card == on the CPU; paged vs dense, first "
+            f"[tiny quant] {label}: both engines' tokens on the card (every decode block replayed) == on the CPU; "
+            f"paged vs dense, first "
             f"differing token per request {diverge} (None: identical); shared 256-token prefix: prefix_hits "
             f"{hits[True]}, tokens with cache == without"
         )
@@ -3309,8 +3463,7 @@ def phase_tiny_masked() -> int:
             else:
                 eng = PagedServingEngine(on, cfg, max_slots=2, num_pages=16, pages_per_slot=8, page_size=128,
                                          prefill_chunk=128)
-            zero_counts()
-            got[device] = {rid: c.tokens for rid, c in eng.run(reqs).items()}
+            got[device] = replayed_tokens(f"[tiny masked] {label}", eng, reqs)
             if device == "cuda":
                 launches = read_counts()
                 check_launches(f"[tiny masked] {label}, on the card", launches, used)
@@ -3322,7 +3475,8 @@ def phase_tiny_masked() -> int:
         if any(len(got["cuda"][r.id]) != r.max_new_tokens for r in reqs):
             raise RuntimeError(f"[tiny masked] {label}: completions of the wrong length")
         tokens[label] = got["cuda"]
-        log(f"[tiny masked] {label} ({kind} engine): card tokens == CPU tokens; kernels {used}")
+        log(f"[tiny masked] {label} ({kind} engine): card tokens (every decode block replayed) == CPU tokens; "
+            f"kernels {used}")
     for a, b in TINY_MASKED_EQUAL:
         if tokens[a] != tokens[b]:
             raise RuntimeError(f"[tiny masked] {a} tokens {tokens[a]} != {b} tokens {tokens[b]}")
@@ -3334,16 +3488,20 @@ def phase_tiny_masked() -> int:
 LOGIT_BAR = 0.1  # phase 17: last-chunk logits, ring vs dense cache, row by row relative to the row's largest
 
 
-def _serve_masked(card: str, label: str, eng, prompts, *, used, new_tokens: int = FULL_NEW_TOKENS) -> dict:
+def _serve_masked(card: str, label: str, eng, prompts, *, used, new_tokens: int = FULL_NEW_TOKENS,
+                  programs: bool = False) -> dict:
     """One served run of ``prompts`` (greedy, ``new_tokens`` each) on
     ``eng``, every launch count set to 0 just before and read just after; it
     must launch exactly ``used``. The prefill chunks are timed one by one
     (synchronised) and the logits of each request's last chunk are kept.
-    Returns tokens, logits, launches and the run's numbers."""
+    With ``programs``, ``warmup()`` before the run and ``hold_programs``
+    after it. Returns tokens, logits, launches and the run's numbers."""
     import torch
 
     from flash_attention_tpu_torch.serving.engine import Request
 
+    if programs:
+        eng.warmup(prompt_len=WARMUP_PROMPT)
     chunk_s, last = [], {}
     inner = eng._prefill_chunk_step
 
@@ -3382,8 +3540,11 @@ def _serve_masked(card: str, label: str, eng, prompts, *, used, new_tokens: int 
         f"({len(chunk_s)} chunks in {sum(chunk_s):.3f} s, each synchronised), decode {eng.decode_tokens} tokens in "
         f"{eng.decode_time_s:.3f} s of decode section = {numbers['decode_tok_s']:.1f} tok/s, whole run {run_s:.3f} s; "
         f"peak device memory (max_memory_allocated) {numbers['peak_gib']:.2f} GiB; kernel launches {launches}, "
-        f"forward launches by body {bodies} ({card})"
+        f"forward launches by body {bodies}; decode programs: mode {eng.programs.mode}, {eng.programs.captures} "
+        f"built, {eng.programs.replays} replays ({card})"
     )
+    if programs:
+        hold_programs(label, eng)
     return {"tokens": tokens, "last": last, "launches": launches, **numbers}
 
 
@@ -3426,7 +3587,7 @@ def phase_full_masked(card: str) -> dict:
         raise RuntimeError(f"rolling cache of {eng.caches[0].k.shape[2]} rows, want {RING_ROWS}")
     log(f"[full masked a] ServingEngine(max_slots=8, max_seq=16384, prefill_chunk=256), rolling: {RING_ROWS} rows a "
         f"slot, KV cache {cache_gb(eng):.4f} GB ({card})")
-    runs["a"] = _serve_masked(card, "full masked a", eng, prompts, used=("K1", "K6"))
+    runs["a"] = _serve_masked(card, "full masked a", eng, prompts, used=("K1", "K6"), programs=True)
     step_logits, _ = decode_step_logits(params, rolling, torch.zeros((8, 1), dtype=torch.int32, device="cuda"), eng.caches)
     if not bool(torch.isfinite(step_logits).all()):
         raise RuntimeError("[full masked a] non-finite decode logits over the ring")
@@ -3464,7 +3625,7 @@ def phase_full_masked(card: str) -> dict:
     eng._admit_one = admit_one
     pc = eng.caches
     pool_gb = _nbytes((pc.k_pool, pc.v_pool)) / 1e9
-    runs["c"] = _serve_masked(card, "full masked c", eng, prompts, used=("K7", "K8", "K9/K10"))
+    runs["c"] = _serve_masked(card, "full masked c", eng, prompts, used=("K7", "K8", "K9/K10"), programs=True)
     if max(owned) > 37 or eng.alloc.free_count != 296:
         raise RuntimeError(f"[full masked c] pages owned {owned} (at most 37), {eng.alloc.free_count} free after the run")
     log(f"[full masked c] PagedServingEngine(max_slots=8, num_pages=297, pages_per_slot=72, page_size=128, "
@@ -4617,11 +4778,36 @@ def _served(eng, reqs, used, what: str) -> tuple[dict, dict, float]:
     return {rid: c.tokens for rid, c in done.items()}, {n: c for n, c in launches.items() if c}, secs
 
 
+def _sharded_checkpoint(make, reqs, path) -> bool:
+    """A sharded engine (``make()``) serves ``reqs``; its ``save_kv_cache``
+    file read back through the global caches' layout (``.global_shapes``: at
+    world size 1 the engine's own) holds the engine's caches bit for bit,
+    and loaded into a fresh sharded engine's caches gives them the same
+    bits, still carrying their sharding."""
+    from flash_attention_tpu_torch.utils.checkpoint import _leaves, load_kv_cache, save_kv_cache
+
+    eng, fresh = make(), make()
+    eng.run(reqs)
+    save_kv_cache(path, eng.caches)
+    whole = load_kv_cache(path, eng.caches.sharding.global_shapes(eng.caches), device_put=False)
+    fresh.caches = load_kv_cache(path, fresh.caches)
+    mine = _leaves(eng.caches)
+    return (len(_leaves(whole)) == len(mine) and fresh.caches.sharding is not None
+            and all(_bits_equal(a.cpu(), b) for a, b in zip(mine, _leaves(whole)))
+            and all(_bits_equal(a, b) for a, b in zip(mine, _leaves(fresh.caches))))
+
+
 def _tp_nccl_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
     """(a): one NCCL rank, ModelConfig() at full width on seed 0's weights,
     both engines through make_cache_sharding on a one-rank mesh: phase 5's
-    and phase 8's tokens, and the model's logits bit-identical to the
-    single-process model's."""
+    and phase 8's tokens, the model's logits bit-identical to the
+    single-process model's, and each engine's checkpoint
+    (``_sharded_checkpoint``, on engines of 2 slots x 512 rows serving
+    phase 5's first four prompts, 8 new tokens each)."""
+    import dataclasses
+    import pathlib
+    import tempfile
+
     import torch
     import torch.distributed as dist
 
@@ -4638,17 +4824,28 @@ def _tp_nccl_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
     sharding = make_cache_sharding(make_mesh())
     reqs = _full_requests(cfg)
     out = {"backend": dist.get_backend(sharding.mesh.get_group("model")), "launches": {}, "s": {}}
+    tmp = tempfile.TemporaryDirectory(prefix="fat_tp_ckpt.")
     eng = ServingEngine(params, cfg, **DENSE_ENGINE, shard_caches=sharding)
     got, out["launches"]["dense"], out["s"]["dense"] = _served(eng, reqs, ("K1", "K6"), "[sharded] (a) dense")
     out["dense equal"] = got == dense_tokens
+    out["modes"] = [eng.programs.mode]
+    ckpt_reqs = [dataclasses.replace(r, max_new_tokens=8) for r in reqs[:4]]  # small engines: the files' I/O
+    out["dense checkpoint"] = _sharded_checkpoint(
+        lambda: ServingEngine(params, cfg, max_slots=2, max_seq=512, shard_caches=sharding), ckpt_reqs,
+        pathlib.Path(tmp.name) / "dense.npz")
     out["dense logits bit-identical"] = torch.equal(_engine_logits(eng, "dense"), _serve_logits(params, cfg, "dense"))
     del eng
     eng = PagedServingEngine(params, cfg, **PAGED_ENGINE, shard_caches=sharding)
     got, out["launches"]["paged"], out["s"]["paged"] = _served(eng, reqs, ("K7", "K8", "K9/K10"),
                                                                "[sharded] (a) paged")
     out["paged equal"] = got == paged_tokens
+    out["modes"].append(eng.programs.mode)
+    out["paged checkpoint"] = _sharded_checkpoint(
+        lambda: PagedServingEngine(params, cfg, max_slots=2, num_pages=9, pages_per_slot=4, page_size=128,
+                                   shard_caches=sharding), ckpt_reqs, pathlib.Path(tmp.name) / "paged.npz")
     out["paged logits bit-identical"] = torch.equal(_engine_logits(eng, "paged"), _serve_logits(params, cfg, "paged"))
     out["peak MB"] = torch.cuda.max_memory_allocated() / 2**20
+    tmp.cleanup()
     return out
 
 
@@ -4721,6 +4918,7 @@ def _tp_gloo_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
             out["held MB"] = torch.cuda.memory_allocated() / 2**20
+            out["modes"] = {name: eng.programs.mode for name, eng in engines.items()}
         dist.barrier()
     out["s"]["build"] = time.perf_counter() - t0
     reqs = _full_requests(cfg)
@@ -4927,9 +5125,12 @@ def _sharded_one_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> None
         f"== phase 5's: {a['dense equal']}, paged engine (phase 8's) tokens == phase 8's run A: {a['paged equal']}; "
         f"logits of a {TP_PREFILL}-token prefill and {TP_DECODE} decode steps bit-identical to the single-process "
         f"model's, dense: {a['dense logits bit-identical']}, paged: {a['paged logits bit-identical']}; served in {a['s']['dense']:.2f} / {a['s']['paged']:.2f} s, launches "
-        f"{a['launches']}, peak {a['peak MB']:.0f} MB; (a) took {time.perf_counter() - t0:.1f} s ({card})")
+        f"{a['launches']}, peak {a['peak MB']:.0f} MB; decode programs {a['modes']}; each engine's save_kv_cache "
+        f"file is its caches bit for bit and loads into a fresh sharded engine's, dense: {a['dense checkpoint']}, "
+        f"paged: {a['paged checkpoint']}; (a) took {time.perf_counter() - t0:.1f} s ({card})")
     if not (a["dense equal"] and a["paged equal"] and a["dense logits bit-identical"]
-            and a["paged logits bit-identical"]):
+            and a["paged logits bit-identical"] and a["dense checkpoint"] and a["paged checkpoint"]
+            and a["modes"] == ["graph", "graph"]):
         raise RuntimeError(f"[sharded] (a) the one-rank sharded engines differ from the single-process ones: {a}")
 
 
@@ -4945,7 +5146,11 @@ def _sharded_gloo(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
     r0 = b[0]
     log(f"[sharded] (b) {TP_RANKS} gloo ranks on one card, ModelConfig() bf16, dense on data 2 x model 2, paged on "
         f"model 4; (b) took {time.perf_counter() - t0:.1f} s; rank 0's peak while it held the bf16 and fp32 "
-        f"references {r0['reference peak MB']:.0f} MB")
+        f"references {r0['reference peak MB']:.0f} MB; decode programs {r0['modes']} (a model axis of more than one "
+        f"rank issues its blocks step by step)")
+    if any(r["modes"] != {"dense": "issued", "paged": "issued"} for r in b):
+        raise RuntimeError(f"[sharded] (b) decode modes {[r['modes'] for r in b]}, want issued on a model axis of "
+                           f"more than one rank")
     for r in b:
         log(f"[sharded] (b) rank {r['rank']}: held {r['held MB']:.0f} MB after its build, peak {r['peak MB']:.0f} MB; "
             f"seconds {', '.join(f'{k} {v:.2f}' for k, v in r['s'].items())} (information: the ranks share the card); "
@@ -5034,6 +5239,7 @@ def phase_sharded_serving(card: str, dense_tokens: dict, paged_tokens: dict) -> 
 
 # Phase 24: warmup, the profiler and the launch floor.
 FIRST_RUN_TAG = "FIRST_RUN "  # the line a first-run child prints its numbers on
+DENSE_ENGINE_BLOCK = 16  # the engines' default decode_block_steps
 PROFILE_ROWS = 1024  # PERF.md section 5's decode shape: 8 slots at ~1,024 rows
 
 
@@ -5071,12 +5277,16 @@ def first_run_child(warm: bool) -> None:
     if warm:
         zero_counts()
         torch.cuda.synchronize()
+        allocated, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
         t0 = time.perf_counter()
         eng.warmup()
         torch.cuda.synchronize()
         out["warmup_s"] = time.perf_counter() - t0
         out["warmup_launches"] = read_counts()
         out["counters"] = [eng.steps, eng.decode_tokens, eng.decode_time_s, len(eng.events)]
+        out["pool_bytes"] = [torch.cuda.memory_allocated() - allocated, torch.cuda.memory_reserved() - reserved]
+        out["capture_s"] = {f"k={k}{' greedy' if g else ' sampled'}": t for (k, g), t in eng.programs.capture_s.items()}
+    out["captures_before"], replays = eng.programs.captures, eng.programs.replays
     eng._prefill_chunk_step = first_chunk_timed
     zero_counts()
     torch.cuda.synchronize()
@@ -5084,7 +5294,9 @@ def first_run_child(warm: bool) -> None:
     done = eng.run(_full_requests(cfg))
     torch.cuda.synchronize()
     out.update(run_s=time.perf_counter() - t0, launches=read_counts(), decode_tokens=eng.decode_tokens,
-               decode_s=eng.decode_time_s, tokens={rid: c.tokens for rid, c in done.items()})
+               decode_s=eng.decode_time_s, tokens={rid: c.tokens for rid, c in done.items()},
+               captures=eng.programs.captures - out["captures_before"], replays=eng.programs.replays - replays,
+               blocks=sum(1 for event in eng.events if event[0] == "decode"), mode=eng.programs.mode)
     print(FIRST_RUN_TAG + json.dumps(out), flush=True)
 
 
@@ -5118,6 +5330,11 @@ def _first_runs(card: str, dense_tokens: dict) -> None:
     if warm["counters"] != [0, 0, 0.0, 0]:
         raise RuntimeError(f"[first run] counters after warmup (steps, decode tokens, decode s, events): "
                            f"{warm['counters']}, want zeros")
+    keys = 2 * (DENSE_ENGINE_BLOCK.bit_length())  # greedy and sampled at k = B, B/2, ..., 1
+    if (warm["mode"], warm["captures_before"], warm["captures"], warm["replays"]) != ("graph", keys, 0, warm["blocks"]):
+        raise RuntimeError(f"[first run] the warm engine's programs: mode {warm['mode']}, {warm['captures_before']} "
+                           f"built by warmup() (want {keys}), {warm['captures']} captured by the run (want 0), "
+                           f"{warm['replays']} replays for {warm['blocks']} blocks")
     check_launches("[first run] warmup", warm["warmup_launches"], ("K1", "K6"))
     for key, run in runs.items():
         label = "warm" if key else "cold"
@@ -5135,6 +5352,11 @@ def _first_runs(card: str, dense_tokens: dict) -> None:
     log(f"[first run] warmup() took {warm['warmup_s']:.3f} s (K1 {warm['warmup_launches']['K1']}, K6 "
         f"{warm['warmup_launches']['K6']} launches); counters zero after it; cold and warm tokens == phase 5's "
         f"({card})")
+    capture_s = ", ".join(f"{key} {t:.3f}" for key, t in warm["capture_s"].items())
+    log(f"[first run] warmup() built {keys} decode programs (CUDA graphs), the warm run captured none and replayed "
+        f"{warm['replays']} blocks (the cold run captured {runs[False]['captures']}); capture seconds by key: "
+        f"{capture_s}; the graphs' pool: memory_allocated {warm['pool_bytes'][0] / 2**20:.1f} MiB more after "
+        f"warmup() than before, memory_reserved {warm['pool_bytes'][1] / 2**20:.1f} MiB ({card})")
 
 
 def _paged_warmup(card: str, params, cfg, paged_tokens: dict) -> None:
@@ -5164,13 +5386,18 @@ def _paged_warmup(card: str, params, cfg, paged_tokens: dict) -> None:
     launches = read_counts()
     check_launches("[paged warmup] warmup", launches, ("K7", "K8", "K9/K10"))
     counters = (eng.steps, eng.decode_tokens, eng.decode_time_s, len(eng.events))
+    keys = {(1 << i, greedy) for i in range(eng.decode_block_steps.bit_length()) for greedy in (True, False)}
+    if eng.programs.built() != keys:
+        raise RuntimeError(f"[paged warmup] programs built after warmup(): {sorted(eng.programs.built())}, want "
+                           f"{sorted(keys)}")
     if (eng.alloc.free_count, eng._prefix, eng.prefix_cache_enabled, counters) != (free, table, True, (0, 0, 0.0, 0)):
         raise RuntimeError(f"[paged warmup] free pages {free} -> {eng.alloc.free_count}, prefix table "
                            f"{'kept' if eng._prefix == table else 'changed'}, prefix cache "
                            f"{eng.prefix_cache_enabled}, counters {counters}")
     log(f"[paged warmup] phase 8's engine after run A (its tokens == phase 8's): warmup() {secs:.3f} s, launches K7 "
         f"{launches['K7']}, K8 {launches['K8']}, K9/K10 {launches['K9/K10']}; free pages {free} and the prefix table "
-        f"({len(table)} pages) unchanged, prefix cache on, counters zero ({card})")
+        f"({len(table)} pages) unchanged, prefix cache on, counters zero; every (k, greedy) program built "
+        f"({len(keys)}) ({card})")
 
 
 def _sampling_inputs(position: int) -> dict:
@@ -5228,6 +5455,8 @@ def _profiles(card: str, params, cfg) -> None:
         init_paged_caches,
         train_forward,
     )
+    from flash_attention_tpu_torch.serving.engine import ServingEngine
+    from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
     from flash_attention_tpu_torch.serving.sampling import sample_tokens
     from flash_attention_tpu_torch.utils.benchmarking import time_fn
     from flash_attention_tpu_torch.utils.profiling import profile_op
@@ -5255,6 +5484,40 @@ def _profiles(card: str, params, cfg) -> None:
         log(f"[profile] {what}: kernel launches in profile_op's 14 calls {launches}")
     del caches, paged
     torch.cuda.empty_cache()
+
+    # The same steps as a replayed decode block: the engine's k=16 sampled program, every slot active at
+    # PROFILE_ROWS rows (reset before each block), the paged table the straight one above.
+    rows = {key: t.numpy() for key, t in _sampling_inputs(0).items()}
+    for what, make in (("dense", lambda: ServingEngine(params, cfg, max_slots=slots, max_seq=2048)),
+                       ("paged", lambda: PagedServingEngine(params, cfg, max_slots=slots, num_pages=129,
+                                                            pages_per_slot=16, page_size=128))):
+        eng = make()
+        if what == "paged":
+            eng.caches.page_table.copy_(1 + torch.arange(slots * 16, dtype=torch.int32, device="cuda").view(slots, 16))
+        lengths = eng._lengths_of(eng.caches)
+        eng.programs.upload(tok[:, 0].cpu().numpy(), np.ones(slots, bool), rows["temperature"], rows["top_k"],
+                            rows["top_p"], rows["seeds"])
+
+        def block(eng=eng, lengths=lengths):
+            lengths.fill_(PROFILE_ROWS)
+            return eng.programs.run(DENSE_ENGINE_BLOCK, False)
+
+        # One timed block: a block is ~58,000 device operations, and the
+        # profiler's reading of each costs host time.
+        zero_counts()
+        prof = profile_op(block, warmup=2, iters=1)
+        launches = {k: n for k, n in read_counts().items() if n}
+        _, traced, attempts = traced_launches(f"[profile] {what} replayed block", block)
+        untraced = min(time_fn(block, warmup=1, iters=3, runs=2))
+        label = f"{what} decode block, {DENSE_ENGINE_BLOCK} steps + sampler, replayed, {slots} slots x {PROFILE_ROWS} rows"
+        _log_profile(card, label, prof, untraced)
+        log(f"[profile] {label}: {untraced * 1e3 / DENSE_ENGINE_BLOCK:.3f} ms a step untraced; {eng.programs.captures} "
+            f"capture ({eng.programs.capture_s[DENSE_ENGINE_BLOCK, False]:.3f} s), {eng.programs.replays} replays; "
+            f"kernel launches in profile_op's 4 blocks (2 warm-up, 1 timed, 1 for memory) {launches}; a replay's "
+            f"kernel records in its device trace == the launches it counted, {traced} (traces taken {attempts}) "
+            f"({card})")
+        del eng, lengths, block
+        torch.cuda.empty_cache()
 
     leaves = _tensors(params)
     for t in leaves:
@@ -5295,11 +5558,13 @@ def phase_warmup_profiles(card: str, dense_tokens: dict, paged_tokens: dict) -> 
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     _first_runs(card, dense_tokens)
+    log(f"[warmup] (a) took {time.perf_counter() - t_phase:.1f} s")
     cfg = ModelConfig()
     params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     _paged_warmup(card, params, cfg, paged_tokens)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[warmup] (a) and (b) took {time.perf_counter() - t_phase:.1f} s")
     _profiles(card, params, cfg)
     del params
     gc.collect()
@@ -5315,31 +5580,49 @@ def main() -> None:
     from flash_attention_tpu_torch.models.transformer import ModelConfig
 
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(phases: str) -> None:
+        laps.append(time.perf_counter())
+        log(f"[time] phases {phases}: {laps[-1] - laps[-2]:.1f} s")
+
     card = phase_device()
     phase_build()
+    lap("1-2")
     fwd = phase_k1(card)
     k1, k1t = fwd["K1"], fwd["K1t"]
     k6 = phase_k6(card)
     phase_kernel_sweep()
+    lap("3")
     dense_tiny = phase_tiny()
+    lap("4")
     launches, params, dense = phase_full(card)
     k1["launches"], k6["launches"] = launches["K1"], launches["K6"]
     phase_sampling(card, params)
+    lap("5")
     k7, k8, k10 = phase_paged_kernels(card)
     phase_paged_sweep()
+    lap("6")
     phase_tiny_paged(dense_tiny)
+    lap("7")
     launches, paged = serve_full_paged(card, "full paged", ModelConfig(), params, used=("K7", "K8", "K9/K10"), dense=dense)
     k7["launches"], k8["launches"], k10["launches"] = launches["K7"], launches["K8"], launches["K9/K10"]
+    lap("8")
     quant = phase_quant_kernels(card)
     phase_quant_sweep()
+    lap("9")
     phase_tiny_quant()
+    lap("10")
     for key, n in phase_full_quant(card, params, dense, paged).items():
         quant[key]["launches"] = n
+    lap("11")
     bwd = phase_bwd_kernels(card)
     phase_bwd_sweep()
     phase_tensor_core_sweep()
+    lap("12")
     phase_tiny_train()
     train = phase_full_train(card, params)
+    lap("13-14")
     bwd["K3"]["launches"] = train["mha"]["K3"]
     k1t["launches"] = train["gqa"]["K1"]
     bwd["K4"]["launches"], bwd["K5"]["launches"] = train["gqa"]["K4"], train["gqa"]["K5"]
@@ -5348,8 +5631,11 @@ def main() -> None:
     masked = phase_masked_kernels(card)
     phase_masked_sweep()
     phase_split_sweep()
+    lap("15")
     masked["K2"]["launches"] = phase_tiny_masked()
+    lap("16")
     full = phase_full_masked(card)
+    lap("17")
     masked["K1w"]["launches"], masked["K1c"]["launches"] = full["a"]["K1"], full["d"]["K1"]
     masked["K6r"]["launches"] = full["a"]["K6"]
     masked["K7s"]["launches"], masked["K8s"]["launches"] = full["c"]["K7"], full["c"]["K8"]
@@ -5357,6 +5643,7 @@ def main() -> None:
     phase_masked_bwd_sweep()
     phase_tiny_train_masked()
     runs = phase_full_train_masked(card, attn_ms)
+    lap("18-20")
     for key in train_masked:
         train_masked[key]["launches"] = sum(run[key] for run in runs.values())
     source = "flash_attention_tpu_torch/csrc/"
@@ -5376,9 +5663,13 @@ def main() -> None:
     masked = [{"name": names[key][0], "route": "cuda", "source": source + names[key][1],
                "replaces": f"{REFERENCE}/{names[key][2]}", **masked[key]} for key in names]
     probes = phase_probes(card)
+    lap("21")
     parallel = phase_parallel(card)
+    lap("22")
     sharded = phase_sharded_serving(card, dense["tokens"], paged["tokens"])
+    lap("23")
     phase_warmup_profiles(card, dense["tokens"], paged["tokens"])
+    lap("24")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k1t, k6, k7, k8, k10, *quant.values(), *bwd.values(), *masked, *probes,
                                   *parallel, *sharded]}))

@@ -14,9 +14,33 @@
 #include <math_constants.h>
 
 #include <cstdint>
+#include <map>
+#include <mutex>
 #include <type_traits>
+#include <utility>
 
 namespace fat {
+
+// Raise `kernel`'s dynamic shared-memory limit to `bytes`, once per kernel
+// instantiation and device: at its first launch, and again only for a larger
+// size. cudaFuncSetAttribute is a host call that a CUDA-graph capture in the
+// default (global) error mode refuses, so a launch being captured must not
+// make it: the eager launch before the capture already has.
+template <typename Kernel>
+cudaError_t reserve_smem(Kernel* kernel, int bytes) {
+  static std::mutex lock;
+  static std::map<std::pair<const void*, int>, int> reserved;  // (kernel, device) -> bytes
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> hold(lock);
+  int& have = reserved[{fn, dev}];
+  if (have >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) have = bytes;
+  return err;
+}
 
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 constexpr float M_FLOOR = -1e30f;

@@ -689,7 +689,7 @@ struct DecodeLaunch {
   cudaError_t run(const DecodeParams& params) const {
     constexpr int bytes = Plan<P, D>::BYTES;
     auto kernel = decode_kernel<T, P, D, PAGED, MASKED>;
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    const cudaError_t err = fat::reserve_smem(kernel, bytes);
     if (err != cudaSuccess) return err;
     const dim3 grid(static_cast<unsigned>(num_kv_heads), static_cast<unsigned>(params.batch),
                     static_cast<unsigned>(params.chunks * params.splits));

@@ -472,18 +472,14 @@ struct BwdLaunch {
   cudaError_t run() const {
     if constexpr (PASS == Pass::kDq) {
       constexpr size_t smem = dq_smem_bytes<D>();
-      cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D, MASKED>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(smem));
+      cudaError_t err = fat::reserve_smem(flash_bwd_dq_kernel<T, D, MASKED>, static_cast<int>(smem));
       if (err != cudaSuccess) return err;
       const dim3 grid((p.q_len + BM - 1) / BM, static_cast<unsigned>(batch * p.num_q_heads));
       flash_bwd_dq_kernel<T, D, MASKED><<<grid, THREADS, smem, stream>>>(p);
     } else {
       constexpr bool fused = PASS == Pass::kFused;
       constexpr size_t smem = dkv_smem_bytes<D>();
-      cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D, fused, MASKED>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(smem));
+      cudaError_t err = fat::reserve_smem(flash_bwd_dkv_kernel<T, D, fused, MASKED>, static_cast<int>(smem));
       if (err != cudaSuccess) return err;
       const dim3 grid((p.kv_len + BN - 1) / BN, static_cast<unsigned>(batch * p.num_kv_heads));
       flash_bwd_dkv_kernel<T, D, fused, MASKED><<<grid, THREADS, smem, stream>>>(p);

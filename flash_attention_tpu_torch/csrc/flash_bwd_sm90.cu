@@ -576,7 +576,7 @@ enum class Pass { kDq, kDkv, kFused };  // K4, K5, K3
 
 template <typename Kernel>
 cudaError_t start(Kernel kernel, size_t smem, dim3 grid, const Params& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = fat::reserve_smem(kernel, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kernel<<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();

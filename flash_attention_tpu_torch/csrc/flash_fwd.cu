@@ -365,9 +365,7 @@ struct FwdLaunch {
   template <typename T, typename P, int D, bool MASKED, bool BAND>
   cudaError_t run() const {
     constexpr size_t smem = smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, P, D, PAGED, MASKED, BAND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    cudaError_t err = fat::reserve_smem(flash_fwd_kernel<T, P, D, PAGED, MASKED, BAND>, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const dim3 grid((p.q_len + BM - 1) / BM, static_cast<unsigned>(batch * p.num_q_heads));
     flash_fwd_kernel<T, P, D, PAGED, MASKED, BAND><<<grid, THREADS, smem, stream>>>(p);

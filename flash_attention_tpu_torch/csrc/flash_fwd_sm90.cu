@@ -405,8 +405,7 @@ template <typename T, typename P, int D, bool MASKED, int WGS, bool PAGED>
 cudaError_t run(const Params& p, const fat::Sm90FwdCall& c, int64_t table) {
   const size_t smem = Plan<P, D, WGS>::bytes(table);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<T, P, D, MASKED, WGS, PAGED>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = fat::reserve_smem(fwd_kernel<T, P, D, MASKED, WGS, PAGED>, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(c.batch * c.num_q_heads), static_cast<unsigned>((c.q_len + 64 * WGS - 1) / (64 * WGS)));
   fwd_kernel<T, P, D, MASKED, WGS, PAGED><<<grid, 128 * WGS, smem, c.stream>>>(p);

@@ -432,7 +432,7 @@ struct TiledLaunch {
     using Pl = TPlan<BM, BN>;
     static_assert(Pl::SMEM <= MAX_SMEM, "body T's shared memory");
     const auto kernel = tiled_kernel<BM, BN, ARITH, SKIP, MASK, GRID>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(Pl::SMEM));
+    cudaError_t err = fat::reserve_smem(kernel, static_cast<int>(Pl::SMEM));
     if (err != cudaSuccess) return err;
     const unsigned nq = p.seq / BM, heads = p.heads;
     const dim3 grid = GRID == kHeadMajor ? dim3(nq, heads) : GRID == kQTileMajor ? dim3(heads, nq) : dim3(nq * heads);
@@ -762,8 +762,7 @@ struct SingleLaunch {
     using Pl = SPlan<HB>;
     static_assert(Pl::bytes(S_MAX_SEQ) <= MAX_SMEM, "body S's shared memory");
     const auto kernel = single_kernel<STAGE, EPI, MASK, HB>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(Pl::bytes(S_MAX_SEQ)));
+    cudaError_t err = fat::reserve_smem(kernel, static_cast<int>(Pl::bytes(S_MAX_SEQ)));
     if (err != cudaSuccess) return err;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;

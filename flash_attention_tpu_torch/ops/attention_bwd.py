@@ -53,6 +53,7 @@ from flash_attention_tpu_torch.ops.common import (
     tma_operands,
     visible_mask,
 )
+from flash_attention_tpu_torch.ops.counters import counter
 
 DKV_TILE = 128  # kv rows a K5 (and K3) block of the tensor-core body owns
 ROW_PAD = 64  # the tensor-core bodies read lse and delta in rows padded to this
@@ -287,12 +288,14 @@ def launch_dkv_sum(ws: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor) -> None
     launch_dkv_sum.launches += 1
 
 
-launch_dkv_sum.launches = 0
-
-
-for _launcher in (launch_fused, launch_dq, launch_dkv):
-    _launcher.launches = 0
-    _launcher.masked_launches = 0
+counter(launch_dkv_sum, "launches", "K5s", "split_sum_kernel")
+# K3 and K5 run the dk / dv body (fused with dq in K3), K4 the dq body: csrc/flash_bwd_sm90.cu's or
+# csrc/flash_bwd.cu's.
+for _launcher, _kernel, _functions in ((launch_fused, "K3", ("dkv_kernel", "flash_bwd_dkv_kernel")),
+                                       (launch_dq, "K4", ("dq_kernel", "flash_bwd_dq_kernel")),
+                                       (launch_dkv, "K5", ("dkv_kernel", "flash_bwd_dkv_kernel"))):
+    counter(_launcher, "launches", _kernel, *_functions)
+    counter(_launcher, "masked_launches", f"{_kernel}m", *_functions)
 
 
 def flash_attention_bwd(

@@ -51,6 +51,7 @@ from flash_attention_tpu_torch.ops.common import (
     softcap2,
     tma_aligned,
 )
+from flash_attention_tpu_torch.ops.counters import counter
 from flash_attention_tpu_torch.ops.merge import merge_partial_attention
 from flash_attention_tpu_torch.ops.quant import QuantizedTensor, dequantize
 
@@ -184,6 +185,11 @@ def check_tma_rows(what: str, *caches: torch.Tensor) -> None:
 
 
 _TICKETS: dict = {}
+# Ticket buffers that a larger one replaced: a CUDA graph captured over a
+# launch keeps its buffer's address for as long as the graph lives (a
+# serving engine's decode programs: the engine's life), so no buffer is
+# ever freed.
+_RETIRED_TICKETS: list = []
 
 
 def split_buffers(device: torch.device, batch: int, num_q_heads: int, num_kv_heads: int, head_dim: int,
@@ -198,6 +204,8 @@ def split_buffers(device: torch.device, batch: int, num_q_heads: int, num_kv_hea
     n = decode_blocks(batch, num_kv_heads, num_q_heads // num_kv_heads, 1)
     tickets = _TICKETS.get(device)
     if tickets is None or tickets.numel() < n:
+        if tickets is not None:
+            _RETIRED_TICKETS.append(tickets)
         tickets = _TICKETS[device] = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
     ws = torch.empty(batch * splits * num_q_heads * (head_dim + 2), dtype=torch.float32, device=device)
     return ws, ws.data_ptr(), tickets.data_ptr()
@@ -442,6 +450,6 @@ def _decode(q, k_cache, v_cache, lengths, *, sm_scale=None, save_residuals=False
     return (out, lse) if save_residuals else out
 
 
-decode_attention.launches = 0
-decode_attention.quant_launches = 0
+counter(decode_attention, "launches", "K6", "decode_kernel")
+counter(decode_attention, "quant_launches", "K6q", "decode_kernel")
 decode_attention.last_grid = None  # (splits, blocks) of the last launch

@@ -52,6 +52,7 @@ from flash_attention_tpu_torch.ops.common import (
     tma_operands,
     visible_mask,
 )
+from flash_attention_tpu_torch.ops.counters import body_counter, counter
 
 # K2 takes a causal window no wider than the kernels' 64-row kv tile.
 BAND_MAX_WINDOW = 64
@@ -107,6 +108,8 @@ def fwd_walk(m0: int, q_tile: int, q_len: int, kv_len: int, *, window=None, sink
 
 # Each forward kernel's launch counter on ``flash_attention``.
 _COUNTERS = {"K1": "launches", "K2": "band_launches", "K1d": "segment_launches"}
+# The CUDA functions a forward launch runs: csrc/flash_fwd_sm90.cu's body, or csrc/flash_fwd.cu's.
+FWD_FUNCTIONS = ("fwd_kernel", "flash_fwd_kernel")
 
 
 def flash_attention_plain(
@@ -318,8 +321,7 @@ def flash_attention(
     return _forward(q, k, v, causal, sm_scale, save_residuals, sliding_window, logit_softcap, segments)
 
 
-flash_attention.launches = 0
-flash_attention.band_launches = 0
-flash_attention.segment_launches = 0
-flash_attention.tensor_core_launches = 0  # K1, K1d and K2 on csrc/flash_fwd_sm90.cu
-flash_attention.fma_launches = 0  # on csrc/flash_fwd.cu
+for _kernel, _attr in _COUNTERS.items():
+    counter(flash_attention, _attr, _kernel, *FWD_FUNCTIONS)
+body_counter(flash_attention, "tensor_core_launches", "K1/K1d/K2 tensor_core")  # on csrc/flash_fwd_sm90.cu
+body_counter(flash_attention, "fma_launches", "K1/K1d/K2 fma")  # on csrc/flash_fwd.cu

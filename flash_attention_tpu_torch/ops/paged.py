@@ -68,6 +68,7 @@ from flash_attention_tpu_torch.ops.common import (
     softcap2,
     tma_operands,
 )
+from flash_attention_tpu_torch.ops.counters import body_counter, counter
 from flash_attention_tpu_torch.ops.decode import (
     check_tma_rows,
     decode_attention_plain,
@@ -77,7 +78,7 @@ from flash_attention_tpu_torch.ops.decode import (
     scale_strides,
     split_buffers,
 )
-from flash_attention_tpu_torch.ops.flash_attention import flash_attention_plain, fwd_body, fwd_q_tile
+from flash_attention_tpu_torch.ops.flash_attention import FWD_FUNCTIONS, flash_attention_plain, fwd_body, fwd_q_tile
 from flash_attention_tpu_torch.ops.quant import bits, payload_dtype, quantize_values
 
 # The kernels read a page in runs of rows that must not straddle it: K8 in
@@ -355,8 +356,8 @@ def paged_write_tokens_multi(cache: PagedModelCache, k_new: torch.Tensor, v_new:
         slots))
 
 
-paged_write_tokens_multi.launches = 0
-paged_write_tokens_multi.quant_launches = 0
+counter(paged_write_tokens_multi, "launches", "K9/K10", "paged_write_kernel")
+counter(paged_write_tokens_multi, "quant_launches", "K9q/K10q", "paged_write_quant_kernel")
 
 
 def paged_write_tokens(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor, slots) -> PagedKVCache:
@@ -506,8 +507,8 @@ def paged_decode_attention(
     return (out, lse) if save_residuals else out
 
 
-paged_decode_attention.launches = 0
-paged_decode_attention.quant_launches = 0
+counter(paged_decode_attention, "launches", "K7", "decode_kernel")
+counter(paged_decode_attention, "quant_launches", "K7q", "decode_kernel")
 paged_decode_attention.last_grid = None  # (splits, blocks) of the last launch
 
 
@@ -618,7 +619,7 @@ def paged_prefill_attention(
     return out
 
 
-paged_prefill_attention.launches = 0
-paged_prefill_attention.quant_launches = 0
-paged_prefill_attention.tensor_core_launches = 0  # K8 / K8q on csrc/flash_fwd_sm90.cu
-paged_prefill_attention.fma_launches = 0  # on csrc/flash_fwd.cu
+counter(paged_prefill_attention, "launches", "K8", *FWD_FUNCTIONS)
+counter(paged_prefill_attention, "quant_launches", "K8q", *FWD_FUNCTIONS)
+body_counter(paged_prefill_attention, "tensor_core_launches", "K8/K8q tensor_core")  # on csrc/flash_fwd_sm90.cu
+body_counter(paged_prefill_attention, "fma_launches", "K8/K8q fma")  # on csrc/flash_fwd.cu

@@ -102,6 +102,17 @@ def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def barrier(mesh: DeviceMesh) -> None:
+    """Return once every rank of ``mesh`` has called it: an all-reduce over
+    each axis's group in turn, each waited on (a rank passes the last one
+    only after every rank of the mesh has entered the first)."""
+    for name in AXES:
+        group = mesh.get_group(name)
+        flag = torch.zeros(1, device="cpu" if dist.get_backend(group) == "gloo" else mesh.device_type)
+        dist.all_reduce(flag, group=group)
+        flag.cpu()
+
+
 class Exchange:
     """Point-to-point transfers over ``group``, all posted at once
     (``dist.batch_isend_irecv``) so they overlap whatever runs before

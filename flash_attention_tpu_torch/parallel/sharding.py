@@ -22,7 +22,9 @@ Tensor-parallel serving, JAX's ``shard_caches`` (where GSPMD shards the
 jitted model after a cache placed on the mesh): ``make_cache_sharding``
 builds the callable both engines take, which keeps this rank's block of
 the caches and carries its mesh (an engine given it makes only that
-block), and ``shard_model_params`` gives the
+block; ``.gather`` makes the global caches of the blocks again, and the
+engine's caches carry the callable, ``with_sharding``, for the
+checkpoints), and ``shard_model_params`` gives the
 engine this rank's share of the params: column-parallel q / k / v and
 gate / up projections, row-parallel output and down projections (the
 models' ``tp_group`` all-reduce follows each), the embedding and norms
@@ -40,7 +42,7 @@ from flash_attention_tpu_torch.ops.decode import decode_attention
 from flash_attention_tpu_torch.ops.flash_attention import flash_attention
 from flash_attention_tpu_torch.ops.paged import PagedModelCache
 from flash_attention_tpu_torch.ops.quant import QuantizedTensor
-from flash_attention_tpu_torch.parallel.mesh import all_reduce_, axis_size, shard
+from flash_attention_tpu_torch.parallel.mesh import all_reduce_, axis_size, gather, shard
 
 
 def _specs(fn, in_specs, out_spec):
@@ -186,21 +188,62 @@ def make_cache_sharding(mesh, *, data_axis: str = "data", model_axis: str = "mod
     table and lengths whole, so over a data axis the paged engine's ranks
     are replicas. It carries ``.mesh``, ``.data_axis`` and ``.model_axis``,
     from which an engine shards its params (``shard_model_params``), takes
-    its groups and makes this rank's block of its fresh caches directly.
+    its groups and makes this rank's block of its fresh caches directly;
+    ``.gather(blocks)``, which every rank of the mesh calls with its own
+    block, returns the global caches on each (``parallel.mesh.gather``), and
+    ``.global_shapes(blocks)`` the global caches' layout as meta tensors,
+    without communication.
     """
     kv_spec = (data_axis, model_axis, None, None)
     pool_spec = (None, None, model_axis, None, None)
 
-    def block(x, spec):
-        return None if x is None else shard(x, mesh, spec)
+    def each(caches, fn):
+        """``caches`` with every sharded tensor ``x`` replaced by ``fn(x, spec)``."""
+
+        def one(x, spec):
+            return None if x is None else fn(x, spec)
+
+        if isinstance(caches, PagedModelCache):
+            return PagedModelCache(one(caches.k_pool, pool_spec), one(caches.v_pool, pool_spec), caches.page_table,
+                                   caches.lengths, one(caches.k_scales, pool_spec[:-1]),
+                                   one(caches.v_scales, pool_spec[:-1]))
+        return [c._replace(k=one(c.k, kv_spec), v=one(c.v, kv_spec), lengths=one(c.lengths, (data_axis,)),
+                           k_scales=one(c.k_scales, kv_spec), v_scales=one(c.v_scales, kv_spec)) for c in caches]
+
+    def global_shape(x, spec):
+        shape = [n * (1 if name is None else axis_size(mesh, name)) for n, name in zip(x.shape, spec)]
+        return torch.empty(shape, dtype=x.dtype, device="meta")
 
     def shard_caches(caches):
-        if isinstance(caches, PagedModelCache):
-            return caches._replace(k_pool=block(caches.k_pool, pool_spec), v_pool=block(caches.v_pool, pool_spec),
-                                   k_scales=block(caches.k_scales, pool_spec[:-1]),
-                                   v_scales=block(caches.v_scales, pool_spec[:-1]))
-        return [c._replace(k=block(c.k, kv_spec), v=block(c.v, kv_spec), lengths=block(c.lengths, (data_axis,)),
-                           k_scales=block(c.k_scales, kv_spec), v_scales=block(c.v_scales, kv_spec)) for c in caches]
+        return each(caches, lambda x, spec: shard(x, mesh, spec))
 
+    shard_caches.gather = lambda caches: each(caches, lambda x, spec: gather(x, mesh, spec))
+    shard_caches.global_shapes = lambda caches: each(caches, global_shape)
     shard_caches.mesh, shard_caches.data_axis, shard_caches.model_axis = mesh, data_axis, model_axis
     return shard_caches
+
+
+class ShardedCaches(list):
+    """A dense engine's per-layer caches, this rank's block of them, with
+    the ``make_cache_sharding`` callable that placed them (``.sharding``)."""
+
+    sharding = None
+
+
+class ShardedPagedModelCache(PagedModelCache):
+    """A paged engine's ``PagedModelCache``, this rank's kv heads of its
+    pools, with the ``make_cache_sharding`` callable that placed them
+    (``.sharding``; a ``_replace`` of it carries none)."""
+
+    sharding = None
+
+
+def with_sharding(caches, sharding):
+    """``caches`` carrying ``sharding`` when it is a ``make_cache_sharding``
+    callable (one with a mesh), else ``caches`` as they are: the tree
+    ``utils/checkpoint`` gathers before it writes and shards as it reads."""
+    if getattr(sharding, "mesh", None) is None:
+        return caches
+    out = ShardedPagedModelCache(*caches) if isinstance(caches, PagedModelCache) else ShardedCaches(caches)
+    out.sharding = sharding
+    return out

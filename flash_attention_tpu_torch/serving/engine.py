@@ -14,7 +14,11 @@ package's) owns the request lifecycle; this module owns the device work:
   * sampling: per-request temperature / top-k / top-p (serving/sampling.py);
     temperature 0 is exact greedy.
 
-The KV cache lives on the device the params live on and is updated in place.
+The KV cache lives on the device the params live on and is updated in place,
+its lengths too: every layer of the dense caches shares one lengths tensor,
+which the prefill path and the decode programs (``serving/decode_loop.py``,
+a CUDA graph a block on the card) both write in place. Assigning
+``engine.caches`` (a restored checkpoint) copies into those buffers.
 
 Tensor-parallel serving (JAX's ``shard_caches`` over a mesh): given the
 callable of ``parallel.sharding.make_cache_sharding``, the engine makes only
@@ -25,6 +29,9 @@ runs the same engine on the same requests, so the scheduler, the host loop
 and (paged) the page allocator step alike on each; the device work of a
 slot runs on its owners only, and the tokens reach every rank
 (``serving/decode_loop.py``), so ``run`` returns the same tokens on each.
+The sharded caches carry their sharding (``parallel.sharding.with_sharding``),
+so ``utils/checkpoint``'s ``save_kv_cache(path, engine.caches)`` writes the
+global caches and ``load_kv_cache`` gives each rank its block.
 """
 
 from __future__ import annotations
@@ -43,8 +50,9 @@ from flash_attention_tpu_torch.models.transformer import (
     prefill_chunk,
 )
 from flash_attention_tpu_torch.parallel.mesh import all_gather, axis_index, axis_size
-from flash_attention_tpu_torch.parallel.sharding import shard_model_params
+from flash_attention_tpu_torch.parallel.sharding import shard_model_params, with_sharding
 from flash_attention_tpu_torch.serving.decode_loop import (
+    DecodePrograms,
     advance_prefill,
     make_decode_multi,
     retire_decode_block,
@@ -125,12 +133,14 @@ class ServingEngine:
         if cfg.attention_sinks:
             chunk = min(chunk, cfg.sliding_window - cfg.attention_sinks)
         self._init_host_loop(params, cfg, max_slots, max_seq, eos_id, chunk, decode_block_steps, pipeline_decode)
-        self.caches = self._place_caches(
+        caches = self._place_caches(
             lambda c, slots: init_caches(c, slots, max_seq, device=self.device, prefill_chunk=chunk), shard_caches,
             data_sharded=True,
         )
+        self._caches = with_sharding(self._with_lengths(caches, self._lengths_of(caches)), shard_caches)
         decode = functools.partial(decode_step_logits, tp_group=self.tp_group)
         self._decode_multi = make_decode_multi(self.model_cfg, decode, self._lengths_of, self._with_lengths)
+        self.programs = DecodePrograms(self)
 
     def _init_host_loop(self, params, cfg, max_slots, max_seq, eos_id, chunk, decode_block_steps, pipeline_decode):
         """The host state the shared loop (serving/decode_loop.py) reads and
@@ -160,7 +170,6 @@ class ServingEngine:
         self.decode_block_steps = max(1, decode_block_steps)
         self.pipeline_decode = pipeline_decode
         self._pending_block = None
-        self._dev = None
         self._dev_dirty = True
         self._dev_greedy = False
         self._remaining = np.zeros((max_slots,), np.int64)
@@ -203,6 +212,23 @@ class ServingEngine:
         # block is the caches of its heads and slots.
         return make(self.model_cfg, self._slot_hi - self._slot_lo)
 
+    @property
+    def caches(self):
+        """The engine's KV caches (under tensor parallelism this rank's
+        block, carrying its sharding). The decode programs hold their
+        addresses, so assigning a cache of the same layout (``engine.caches
+        = load_kv_cache(path, engine.caches)``) copies it into them."""
+        return self._caches
+
+    @caches.setter
+    def caches(self, value) -> None:
+        dst, src = _leaves(self._caches), _leaves(value)
+        if [(t.shape, t.dtype) for t in src] != [(t.shape, t.dtype) for t in dst]:
+            raise ValueError("the engine's caches take a cache of their own layout (shapes and dtypes)")
+        for d, s in zip(dst, src):
+            if d is not s:
+                d.copy_(s)
+
     # Hooks of the shared host loop (serving/decode_loop.py). Slots are the
     # scheduler's; the caches hold this rank's [_slot_lo, _slot_hi).
     def _owns(self, slot: int) -> bool:
@@ -213,11 +239,18 @@ class ServingEngine:
         return prefill_chunk(params, self.model_cfg, tokens, caches, slot - self._slot_lo, start, kv_end,
                              tp_group=self.tp_group)
 
-    def _set_slot_length_fn(self, caches, slot: int, true_len: int):
-        """Every layer's cache with ``lengths[slot] = true_len``."""
-        lengths = self._lengths_of(caches).clone()
-        lengths[slot - self._slot_lo] = true_len
-        return self._with_lengths(caches, lengths)
+    def _keep_lengths(self, caches) -> None:
+        """Take the lengths of ``caches``, a model call's result over the
+        engine's caches (whose K/V it wrote in place), into the engine's one
+        lengths tensor, in place."""
+        dst, src = self._lengths_of(self._caches), self._lengths_of(caches)
+        if src is not dst:
+            dst.copy_(src)
+
+    def _set_slot_length(self, slot: int, true_len: int) -> None:
+        """``lengths[slot] = true_len``, in place (a fill on the device: no
+        copy from the host)."""
+        self._lengths_of(self._caches)[slot - self._slot_lo] = true_len
 
     @staticmethod
     def _lengths_of(caches) -> torch.Tensor:
@@ -263,8 +296,9 @@ class ServingEngine:
         return toks if self._data_group is None else all_gather(toks, 1, self._data_group)
 
     def warmup(self, *, prompt_len: int | None = None) -> None:
-        """Run every prefill chunk position and decode block length once
-        (see decode_loop.warmup_engine) and reset the perf counters."""
+        """Run every prefill chunk position and decode block length once,
+        greedy and sampled, building every decode program (see
+        decode_loop.warmup_engine), and reset the perf counters."""
         warmup_engine(self, prompt_len=prompt_len)
 
     def submit(self, req: Request) -> bool:

@@ -16,7 +16,9 @@ Page-table discipline:
     points its whole table at it, so the decode step's writes for inactive
     lanes (they ride along in the batched kernels) land there harmlessly.
 
-The table row of a slot is written in place into the shared table tensor.
+The table row of a slot is written in place into the shared table tensor,
+and so are the lengths (``ServingEngine``'s discipline: the decode programs
+read both at fixed addresses).
 With ``cfg.kv_quant`` the pages are quantized (payload and scale pools,
 ``ops/paged.py``); the scales are indexed by physical page, so shared
 prefix pages carry theirs. A sliding-window model gets the PAGED RING: a
@@ -28,9 +30,9 @@ however long the context. Tensor-parallel serving (``shard_caches`` from
 and the model over the mesh's model axis, and keeps the page table, the
 lengths, the allocator and the prefix cache whole on every rank, as JAX's
 paged engine does; over a data axis the ranks are replicas. ``warmup()``
-(inherited, ``decode_loop.warmup_engine``) runs one throwaway request with the
-prefix cache suspended: its pages go back to the pool and the prefix table is
-left as it was.
+(inherited, ``decode_loop.warmup_engine``) runs two throwaway requests with
+the prefix cache suspended: their pages go back to the pool and the prefix
+table is left as it was.
 """
 
 from __future__ import annotations
@@ -47,8 +49,10 @@ from flash_attention_tpu_torch.models.transformer import (
     init_paged_caches,
     prefill_chunk_paged,
 )
+from flash_attention_tpu_torch.parallel.sharding import with_sharding
 from flash_attention_tpu_torch.serving.allocator import PageAllocator
 from flash_attention_tpu_torch.serving.decode_loop import (
+    DecodePrograms,
     advance_prefill,
     make_decode_multi,
     retire_decode_block,
@@ -127,11 +131,11 @@ class PagedServingEngine(ServingEngine):
         dump = self.alloc.acquire(1)
         if dump != [0]:
             raise RuntimeError(f"expected dump page 0, got {dump}")
-        self.caches = self._place_caches(
+        self._caches = with_sharding(self._place_caches(
             lambda c, slots: init_paged_caches(c, num_pages=num_pages, num_slots=slots, pages_per_slot=pages_per_slot,
                                                page_size=page_size, device=self.device),
             shard_caches, data_sharded=False,
-        )
+        ), shard_caches)
         self.prefix_cache_enabled = prefix_cache
         # key (chained prompt-prefix digest) -> [phys_page, refcount]
         self._prefix: dict[bytes, list[int]] = {}
@@ -141,6 +145,7 @@ class PagedServingEngine(ServingEngine):
         self.slot_pages: dict[int, list[int]] = {}
         decode = functools.partial(decode_step_logits_paged, tp_group=self.tp_group)
         self._decode_multi = make_decode_multi(self.model_cfg, decode, self._lengths_of, self._with_lengths)
+        self.programs = DecodePrograms(self)
 
     # Hooks of the shared host loop (serving/decode_loop.py).
     def _prefill_chunk_step(self, params, tokens, caches, slot: int, start: int, kv_end: int):

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from flash_attention_tpu_torch.ops import _build
 from flash_attention_tpu_torch.ops.common import LOG2E, M_FLOOR, MASK_VALUE
+from flash_attention_tpu_torch.ops.counters import counter
 from flash_attention_tpu_torch.ops.reference import reference_attention
 from flash_attention_tpu_torch.utils import benchmarking
 
@@ -171,7 +172,7 @@ def launch_tiled(q, k, v, out, *, bm: int, bn: int, arith: str, skip: bool, mask
     launch_tiled.launches += 1
 
 
-launch_tiled.launches = 0
+counter(launch_tiled, "launches", "PT", "tiled_kernel")
 
 
 def probe_tiled(q, k, v, *, bm: int = 64, bn: int = 64, arith: str = "f32", skip: bool = False,
@@ -348,7 +349,7 @@ def launch_single(q, k, v, out, scale2: float, *, stage: str, epilogue: str, mas
     launch_single.launches += 1
 
 
-launch_single.launches = 0
+counter(launch_single, "launches", "PS", "single_kernel")
 
 
 def probe_single(q, k, v, scale2: float | None = None, *, stage: str = "softmax", epilogue: str = "before_pv",

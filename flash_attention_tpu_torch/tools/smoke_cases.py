@@ -158,7 +158,7 @@ def _serve_paths(card: str, quant: bool) -> dict:
     (``PagedServingEngine``, the same weights and requests), with ``quant``
     phase 11b (the same over an fp8 e4m3 cache), then Mistral-7B's shape
     through phase 17's rolling engine (17a, the 4352-row ring) and its paged
-    ring with 4 sinks (17c)."""
+    ring with 4 sinks (17c), each after ``warmup()``."""
     import dataclasses
     import gc
 
@@ -186,11 +186,13 @@ def _serve_paths(card: str, quant: bool) -> dict:
     rng = np.random.default_rng(17)
     prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n)) for n in cs.MASKED_PROMPT_LENS]
     eng = ServingEngine(params, dataclasses.replace(cfg, rolling=True), max_slots=8, max_seq=16384, prefill_chunk=256)
+    eng.warmup()
     runs["17a"] = cs._serve_masked(card, "full masked a", eng, prompts, used=("K1", "K6"))
     del eng
     torch.cuda.empty_cache()
     eng = PagedServingEngine(params, dataclasses.replace(cfg, attention_sinks=cs.SINKS), max_slots=8, num_pages=297,
                              pages_per_slot=72, page_size=128, prefill_chunk=256)
+    eng.warmup()
     runs["17c"] = cs._serve_masked(card, "full masked c", eng, prompts, used=("K7", "K8", "K9/K10"))
     del eng, params
     gc.collect()
@@ -207,6 +209,43 @@ def serve_decode(card: str) -> dict:
     print("[serve decode] decode tok/s " + ", ".join(f"phase {k} {v:.1f}" for k, v in tok_s.items()) + f" ({card})",
           flush=True)
     return {"ms": 1e3 / tok_s["5"], **{f"phase {k} decode_tok_s": v for k, v in tok_s.items()}}
+
+
+def warmup_cost(card: str) -> dict:
+    """What ``warmup()`` costs and buys on ``ModelConfig()`` (bf16, seed 0)
+    at phase 5's engine (8 slots x 2048): its wall seconds and the device
+    memory it leaves allocated (decode programs keep their token blocks
+    live; their intermediates go back to the graphs' pool, reserved), then
+    phase 5's 10 requests served once: decode tok/s and the run's wall.
+    ``ms`` is the warmup's milliseconds."""
+    import time
+
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+    from flash_attention_tpu_torch.serving.engine import ServingEngine
+
+    cfg = ModelConfig()
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    eng = ServingEngine(params, cfg, **cs.DENSE_ENGINE)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    kept = torch.cuda.memory_allocated() - before
+    t0 = time.perf_counter()
+    eng.run(cs._full_requests(cfg))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    tok_s = eng.decode_tokens / eng.decode_time_s
+    programs = getattr(eng, "programs", None)
+    built = "no decode programs" if programs is None else f"{programs.captures} decode programs ({programs.mode})"
+    print(f"[warmup cost] warmup() {warm_s:.3f} s, {kept / 2**20:.1f} MiB more allocated after it, {built}; phase 5's "
+          f"requests then in {run_s:.3f} s, decode {tok_s:.1f} tok/s ({card})", flush=True)
+    return {"ms": warm_s * 1e3, "kept MiB": kept / 2**20, "run s": run_s, "decode tok_s": tok_s}
 
 
 def serve_prefill(card: str) -> dict:

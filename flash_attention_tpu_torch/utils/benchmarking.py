@@ -156,9 +156,11 @@ def _round_pow2(x: float, lo: int, hi: int) -> int:
 
 def _graph_of(fn, args, reps: int) -> torch.cuda.CUDAGraph:
     graph = torch.cuda.CUDAGraph()
-    # relaxed: the kernels' entries set their shared-memory attribute on
-    # every launch, a host call that the stricter capture modes refuse.
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    # The default (global) error mode, which refuses any host sync: the
+    # kernels' entries set their shared-memory attribute once per
+    # instantiation (csrc/common.cuh, reserve_smem), at the eager calls
+    # scan_timer makes before it captures.
+    with torch.cuda.graph(graph):
         for _ in range(reps):
             fn(*args)
     return graph

@@ -20,7 +20,14 @@ format, so each package loads the other's checkpoints:
     checks the version, the leaf count and every leaf's shape and dtype, so
     a checkpoint of another configuration fails loudly;
   * the file is written beside its path and renamed into place, so a
-    reader never sees a partial one.
+    reader never sees a partial one;
+  * a tensor-parallel engine's caches (this rank's block, carrying the
+    ``make_cache_sharding`` callable: ``parallel.sharding.with_sharding``)
+    are the GLOBAL caches in the file, as JAX's ``device_get`` gathers its
+    global arrays: every rank of the mesh calls ``save_kv_cache``, the
+    blocks are gathered over the mesh, the mesh's first rank writes and the
+    others wait for it; ``load_kv_cache`` into such a template reads the
+    global leaves and gives each rank its block.
 
 The dtype names are mapped here (``DTYPE_NAMES``), without ``ml_dtypes``.
 """
@@ -32,9 +39,12 @@ import pathlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from flash_attention_tpu_torch.models.attention import KVCache
 from flash_attention_tpu_torch.ops.paged import PagedKVCache, PagedModelCache
+from flash_attention_tpu_torch.parallel.mesh import barrier
+from flash_attention_tpu_torch.parallel.sharding import with_sharding
 
 FORMAT_VERSION = 1
 DTYPE_NAMES = {
@@ -105,9 +115,17 @@ def save_kv_cache(path, cache) -> None:
 
     ``cache``: a ``KVCache``, ``PagedKVCache`` or ``PagedModelCache``, a list
     or tuple of them (an engine's per-layer caches), or tensors, on any
-    device.
+    device. A tensor-parallel engine's caches are written whole: every rank
+    of their mesh calls this (see the module docstring).
     """
     path = pathlib.Path(path)
+    sharding = getattr(cache, "sharding", None)
+    if sharding is not None:
+        mesh = sharding.mesh
+        cache = sharding.gather(cache)
+        if dist.get_rank() != int(mesh.mesh.min()):
+            barrier(mesh)  # returns once the writer has published the file
+            return
     host = [t.detach().contiguous().cpu() for t in _leaves(cache)]
     meta = {
         "version": FORMAT_VERSION,
@@ -120,6 +138,8 @@ def save_kv_cache(path, cache) -> None:
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
     tmp.replace(path)  # atomic publish
+    if sharding is not None:
+        barrier(mesh)
 
 
 def load_kv_cache(path, template, *, device_put: bool = True):
@@ -131,16 +151,24 @@ def load_kv_cache(path, template, *, device_put: bool = True):
       template: a cache of the same structure, shapes and dtypes as the one
         saved (e.g. a fresh ``init_kv_cache`` / ``init_caches`` /
         ``init_paged_caches`` of the same config); only its structure,
-        shapes, dtypes and devices are read.
+        shapes, dtypes and devices are read. A tensor-parallel engine's
+        caches take the global caches' file and give this rank its block.
       device_put: put each restored leaf on its template leaf's device
         (False keeps them on the CPU).
 
     Returns:
-      A cache of the template's type holding the checkpoint's values.
+      A cache of the template's type holding the checkpoint's values (a
+      sharded template's block, carrying its sharding).
 
     Raises:
       ValueError: version, leaf count, shape or dtype mismatch.
     """
+    sharding = getattr(template, "sharding", None)
+    if sharding is not None:
+        whole = load_kv_cache(path, sharding.global_shapes(template), device_put=False)
+        block = _leaves(sharding(whole))
+        out = (b.to(t.device) if device_put else b for b, t in zip(block, _leaves(template)))
+        return with_sharding(_rebuild(template, out), sharding)
     path = pathlib.Path(path)
     t_leaves = _leaves(template)
     with np.load(path) as z:

@@ -4,8 +4,9 @@ JAX's ``tests/test_serving.py`` warmup cases on ``ModelConfig.tiny()``
 (fp32, so argmax ties are deterministic) with the same weights on both
 sides through ``params_from_jax``: after ``warmup()`` the port's tokens
 equal a cold JAX engine's, the counters are zero, the decode blocks walk
-every power-of-two length, ``prompt_len`` is clamped and a ``max_seq`` too
-small raises JAX's ``ValueError``.
+every power-of-two length, ``prompt_len`` is clamped (the greedy request's;
+a second, sampled request of one token builds the sampled programs) and a
+``max_seq`` too small raises JAX's ``ValueError``.
 """
 
 import inspect
@@ -88,7 +89,8 @@ def test_prompt_len_is_clamped(model, prompt_len, want):
 
     eng.run = spy
     eng.warmup(prompt_len=prompt_len)
-    assert seen == [(want, 16, (1 << 62) + 41)]
+    # The greedy request of the clamped length, then the sampled one-token request that builds the sampled programs.
+    assert seen == [(want, 16, (1 << 62) + 41), (1, 16, (1 << 62) + 42)]
 
 
 def test_max_seq_too_small_raises_jax_message(model):
