@@ -280,7 +280,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 engine serves run A (phase 8's tokens), then ``warmup()``
                 (K7, K8 and K9/K10 only) leaves its free page count, prefix
                 table and prefix cache switch as they were and every
-                program built; (c)
+                program built; (c) in a fresh process (``profiles_child``),
                 ``utils/profiling.profile_op`` over one decode step plus the
                 sampler at 8 slots x 1,024 rows on the dense and on the
                 paged cache, over the engines' replayed k=16 sampled block
@@ -289,7 +289,36 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 untraced wall time, device busy share, the top five device
                 operations; the replayed block's kernel records equal to
                 the launches a replay counts; (d)
-                ``calibrate_overhead_s()``.
+                ``calibrate_overhead_s()``. 24(c) also profiles the replayed
+                greedy k=16 block of both engines: a dense step must run at
+                most STEP_OPS_BAR device operations and a paged one at most
+                STEP_COPY_BAR ``direct_copy`` kernels; every operation type
+                of the greedy step is printed.
+ 25. fused glue — the decode step's glue kernels (csrc/fused.cu: F1
+                add_rms_norm, F2 rope with the dense row write, F3
+                swiglu_act; F4, K7's in-launch self term in csrc/decode.cu)
+                at ModelConfig()'s widths (F3 also at Mistral's MLP 14336),
+                in bf16, fp16 and fp32, against their plain versions on the
+                card: F1's x_new and F2's rotated rows and every cache row
+                (payload, scales, lengths; dense, a slot at capacity, the
+                4352-row ring, the ring with 4 sinks, int8 / e4m3 / e5m2)
+                bit-identical, F1's h and F3 within 1 ulp (1e-6 row-relative
+                for F1 in fp32; the share of elements that differ printed);
+                F4 over phase 24(c)'s pool (plain, window, softcap, window +
+                sinks, int8 and e4m3 pools, fp16, fp32, a slot of length 0)
+                within REL_BAR of plain, ORACLE_BAR of the fp32 oracle,
+                LSE_BAR, bit-identical over two calls and a graph replay;
+                each timed as a call, alone in a CUDA graph and as host µs,
+                beside plain, the library call (F1: F.rms_norm) and the
+                bound; every counter must rise. Their launches in the
+                kernels line are the main paths': phase 5's F1-F3, phase
+                8's K7 launches (each with the self term: every serving
+                phase of the paged engine checks the K7 / K7q self counter
+                equals its K7 / K7q launches), 17a's F3 at MLP 14336.
+
+Every serving phase (4-11, 16, 17, 23, 24) launches F1, F2 and F3 (GLUE)
+beside its attention kernels: the norms, RoPE (with the dense cache's row
+write) and the SwiGLU gate of every step and chunk run no gradient.
 
 Every phase prints kernel, plain-version, library-call and bound times
 (the bound: the larger of the bytes over 3.35 TB/s and the operations over
@@ -337,6 +366,9 @@ LONG = dict(slots=32, rows=8192)  # BASELINE config 4: 32 slots x 8192 rows, 32 
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 PEAK_FP32 = 67e12  # H100 SXM fp32 rate off the tensor cores
+# The decode step's glue kernels (csrc/fused.cu): every serving path with no
+# gradient launches them beside its attention kernels; training does not.
+GLUE = ("F1", "F2", "F3")
 
 
 def log(msg: str) -> None:
@@ -762,6 +794,14 @@ def check_launches(what: str, launches: dict, used) -> None:
         raise RuntimeError(f"{what}: kernels {missing} not launched, {stray} launched: {launches}")
 
 
+def check_self_term(what: str, launches: dict, bodies: dict) -> None:
+    """Every K7 / K7q launch of a deferred paged decode path merged the
+    current token's self term in the launch (F4: ``self_kv``), and some did."""
+    paged = launches["K7"] + launches["K7q"]
+    if not paged or bodies["K7/K7q self"] != paged:
+        raise RuntimeError(f"{what}: {bodies['K7/K7q self']} K7 / K7q launches with the self term of {paged}")
+
+
 def replayed_tokens(what: str, eng, reqs) -> dict:
     """``eng.run(reqs)``'s tokens by id, the launch counts set to 0 just
     before the run. On the card ``warmup()`` first, so that every decode
@@ -910,7 +950,7 @@ def phase_full(card: str):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _tensors(params))
     log(f"[full] ModelConfig() bf16: {n_params / 1e9:.3f} B params initialised on the card in {time.perf_counter() - t0:.1f} s")
-    launches, numbers = serve_full_dense(card, "full", cfg, params, used=("K1", "K6"))
+    launches, numbers = serve_full_dense(card, "full", cfg, params, used=("K1", "K6", *GLUE))
     return launches, params, numbers
 
 
@@ -1624,6 +1664,7 @@ def serve_full_paged(card: str, label: str, cfg, params, *, used, dense: dict, r
     bodies = read_bodies()
     log(f"[{label}] runs A and B: forward launches by body {bodies}")
     check_tensor_cores(f"[{label}] the paged main path", bodies, "K8/K8q")
+    check_self_term(f"[{label}] the paged main path", launches, bodies)
 
     # The same 8 prompts without the prefix cache: the same first tokens.
     eng.prefix_cache_enabled = False
@@ -2188,10 +2229,10 @@ def phase_full_quant(card: str, params, dense: dict, paged: dict) -> dict:
 
     params_w8 = quantize_model_weights(params)
     launches_a, _ = serve_full_dense(card, "full quant a", ModelConfig(kv_quant="int8", weight_quant="int8"), params_w8,
-                                     used=("K1", "K6q"), ref=dense)
+                                     used=("K1", "K6q", *GLUE), ref=dense)
     del params_w8
     launches_b, _ = serve_full_paged(card, "full quant b", ModelConfig(kv_quant="fp8_e4m3"), params,
-                                     used=("K7q", "K8q", "K9q/K10q"), dense=dense, ref=paged)
+                                     used=("K7q", "K8q", "K9q/K10q", *GLUE), dense=dense, ref=paged)
     return {"K6q": launches_a["K6q"], "K7q": launches_b["K7q"], "K8q": launches_b["K8q"], "K10q": launches_b["K9q/K10q"]}
 
 
@@ -3301,13 +3342,13 @@ def phase_masked_sweep() -> None:
 
 
 TINY_MASKED = {  # phase 16: (label, engine, ModelConfig fields, the kernels the card run launches)
-    "dense window 96": ("dense", dict(sliding_window=96), ("K1", "K6")),
-    "dense window 48": ("dense", dict(sliding_window=48), ("K2", "K6")),
-    "rolling": ("dense", dict(sliding_window=96, rolling=True), ("K1", "K6")),
-    "rolling + sinks 32": ("dense", dict(sliding_window=96, rolling=True, attention_sinks=32), ("K1", "K6")),
-    "softcap 30": ("dense", dict(logit_softcap=30.0), ("K1", "K6")),
-    "paged ring": ("paged", dict(sliding_window=96), ("K7", "K8", "K9/K10")),
-    "paged + sinks 32": ("paged", dict(sliding_window=96, attention_sinks=32), ("K7", "K8", "K9/K10")),
+    "dense window 96": ("dense", dict(sliding_window=96), ("K1", "K6", *GLUE)),
+    "dense window 48": ("dense", dict(sliding_window=48), ("K2", "K6", *GLUE)),
+    "rolling": ("dense", dict(sliding_window=96, rolling=True), ("K1", "K6", *GLUE)),
+    "rolling + sinks 32": ("dense", dict(sliding_window=96, rolling=True, attention_sinks=32), ("K1", "K6", *GLUE)),
+    "softcap 30": ("dense", dict(logit_softcap=30.0), ("K1", "K6", *GLUE)),
+    "paged ring": ("paged", dict(sliding_window=96), ("K7", "K8", "K9/K10", *GLUE)),
+    "paged + sinks 32": ("paged", dict(sliding_window=96, attention_sinks=32), ("K7", "K8", "K9/K10", *GLUE)),
 }
 # Phase 16's pairs that must give the same tokens (the JAX package's
 # tests/test_rolling.py:334-444): the ring changes memory, not numbers.
@@ -3532,6 +3573,8 @@ def _serve_masked(card: str, label: str, eng, prompts, *, used, new_tokens: int 
         raise RuntimeError(f"[{label}] requests {bad} without {new_tokens} tokens, or non-finite prefill logits")
     check_launches(f"[{label}] the main path", launches, used)
     check_tensor_cores(f"[{label}] the main path", bodies)
+    if "K7" in used:
+        check_self_term(f"[{label}] the main path", launches, bodies)
     n_prompt = sum(len(p) for p in prompts)
     numbers = {"prefill_tok_s": n_prompt / sum(chunk_s), "decode_tok_s": eng.decode_tokens / eng.decode_time_s,
                "peak_gib": peak / 2**30}
@@ -3587,7 +3630,7 @@ def phase_full_masked(card: str) -> dict:
         raise RuntimeError(f"rolling cache of {eng.caches[0].k.shape[2]} rows, want {RING_ROWS}")
     log(f"[full masked a] ServingEngine(max_slots=8, max_seq=16384, prefill_chunk=256), rolling: {RING_ROWS} rows a "
         f"slot, KV cache {cache_gb(eng):.4f} GB ({card})")
-    runs["a"] = _serve_masked(card, "full masked a", eng, prompts, used=("K1", "K6"), programs=True)
+    runs["a"] = _serve_masked(card, "full masked a", eng, prompts, used=("K1", "K6", *GLUE), programs=True)
     step_logits, _ = decode_step_logits(params, rolling, torch.zeros((8, 1), dtype=torch.int32, device="cuda"), eng.caches)
     if not bool(torch.isfinite(step_logits).all()):
         raise RuntimeError("[full masked a] non-finite decode logits over the ring")
@@ -3598,7 +3641,7 @@ def phase_full_masked(card: str) -> dict:
     eng = ServingEngine(params, cfg, max_slots=8, max_seq=9216, prefill_chunk=256)
     log(f"[full masked b] ServingEngine(max_slots=8, max_seq=9216, prefill_chunk=256), no ring: KV cache "
         f"{cache_gb(eng):.4f} GB ({card})")
-    runs["b"] = _serve_masked(card, "full masked b", eng, prompts, used=("K1", "K6"))
+    runs["b"] = _serve_masked(card, "full masked b", eng, prompts, used=("K1", "K6", *GLUE))
     del eng
     torch.cuda.empty_cache()
     worst = max(_rel_diff(runs["a"]["last"][i], runs["b"]["last"][i]) for i in range(len(prompts)))
@@ -3625,7 +3668,7 @@ def phase_full_masked(card: str) -> dict:
     eng._admit_one = admit_one
     pc = eng.caches
     pool_gb = _nbytes((pc.k_pool, pc.v_pool)) / 1e9
-    runs["c"] = _serve_masked(card, "full masked c", eng, prompts, used=("K7", "K8", "K9/K10"), programs=True)
+    runs["c"] = _serve_masked(card, "full masked c", eng, prompts, used=("K7", "K8", "K9/K10", *GLUE), programs=True)
     if max(owned) > 37 or eng.alloc.free_count != 296:
         raise RuntimeError(f"[full masked c] pages owned {owned} (at most 37), {eng.alloc.free_count} free after the run")
     log(f"[full masked c] PagedServingEngine(max_slots=8, num_pages=297, pages_per_slot=72, page_size=128, "
@@ -3639,7 +3682,7 @@ def phase_full_masked(card: str) -> dict:
     rng5 = np.random.default_rng(0)  # phase 5's prompts
     prompts5 = [tuple(int(t) for t in rng5.integers(0, cfg.vocab_size, n)) for n in FULL_PROMPT_LENS]
     eng = ServingEngine(params, capped, max_slots=8, max_seq=2048, prefill_chunk=256)
-    runs["d"] = _serve_masked(card, "full masked d", eng, prompts5, used=("K1", "K6"))
+    runs["d"] = _serve_masked(card, "full masked d", eng, prompts5, used=("K1", "K6", *GLUE))
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4826,7 +4869,7 @@ def _tp_nccl_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
     out = {"backend": dist.get_backend(sharding.mesh.get_group("model")), "launches": {}, "s": {}}
     tmp = tempfile.TemporaryDirectory(prefix="fat_tp_ckpt.")
     eng = ServingEngine(params, cfg, **DENSE_ENGINE, shard_caches=sharding)
-    got, out["launches"]["dense"], out["s"]["dense"] = _served(eng, reqs, ("K1", "K6"), "[sharded] (a) dense")
+    got, out["launches"]["dense"], out["s"]["dense"] = _served(eng, reqs, ("K1", "K6", *GLUE), "[sharded] (a) dense")
     out["dense equal"] = got == dense_tokens
     out["modes"] = [eng.programs.mode]
     ckpt_reqs = [dataclasses.replace(r, max_new_tokens=8) for r in reqs[:4]]  # small engines: the files' I/O
@@ -4836,7 +4879,7 @@ def _tp_nccl_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
     out["dense logits bit-identical"] = torch.equal(_engine_logits(eng, "dense"), _serve_logits(params, cfg, "dense"))
     del eng
     eng = PagedServingEngine(params, cfg, **PAGED_ENGINE, shard_caches=sharding)
-    got, out["launches"]["paged"], out["s"]["paged"] = _served(eng, reqs, ("K7", "K8", "K9/K10"),
+    got, out["launches"]["paged"], out["s"]["paged"] = _served(eng, reqs, ("K7", "K8", "K9/K10", *GLUE),
                                                                "[sharded] (a) paged")
     out["paged equal"] = got == paged_tokens
     out["modes"].append(eng.programs.mode)
@@ -4922,7 +4965,7 @@ def _tp_gloo_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
         dist.barrier()
     out["s"]["build"] = time.perf_counter() - t0
     reqs = _full_requests(cfg)
-    for name, used in (("dense", ("K1", "K6")), ("paged", ("K7", "K8", "K9/K10"))):
+    for name, used in (("dense", ("K1", "K6", *GLUE)), ("paged", ("K7", "K8", "K9/K10", *GLUE))):
         out[name], out["launches"][name], out["s"][name] = _served(engines[name], reqs, used,
                                                                    f"[sharded] (b) rank {rank} {name}")
     for run, (engine, path) in TP_LOGITS.items():
@@ -4933,7 +4976,7 @@ def _tp_gloo_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
         out["s"][f"logits {run}"] = time.perf_counter() - t0
         launches = read_counts()
         check_launches(f"[sharded] (b) rank {rank} logits {run}", launches,
-                       ("K1", "K6") if path == "dense" else ("K7", "K8", "K9/K10"))
+                       ("K1", "K6", *GLUE) if path == "dense" else ("K7", "K8", "K9/K10", *GLUE))
         out["launches"][f"logits {run}"] = {n: c for n, c in launches.items() if c}
         digests = [None] * TP_RANKS
         dist.all_gather_object(digests, _bits_digest(logits))
@@ -4973,11 +5016,11 @@ def _tp_tiny_rank(want_dense: dict, want_paged: dict) -> dict:
     reqs = [Request(id=i, prompt=p, max_new_tokens=n) for i, (p, n) in enumerate(JAX_TEST_REQS)]
     out = {"rank": dist.get_rank(), "launches": {}, "s": {}}
     eng = ServingEngine(params, cfg, max_slots=4, max_seq=64, shard_caches=sharding)
-    got, out["launches"]["dense"], out["s"]["dense"] = _served(eng, reqs, ("K1", "K6"), "[sharded] (c) dense")
+    got, out["launches"]["dense"], out["s"]["dense"] = _served(eng, reqs, ("K1", "K6", *GLUE), "[sharded] (c) dense")
     out["dense equal"], out["dense kv"] = got == want_dense, tuple(eng.caches[0].k.shape)
     eng = PagedServingEngine(params, cfg, max_slots=4, num_pages=16, pages_per_slot=2, page_size=128,
                              shard_caches=sharding)
-    got, out["launches"]["paged"], out["s"]["paged"] = _served(eng, reqs, ("K7", "K8", "K9/K10"),
+    got, out["launches"]["paged"], out["s"]["paged"] = _served(eng, reqs, ("K7", "K8", "K9/K10", *GLUE),
                                                                "[sharded] (c) paged")
     out["paged equal"], out["paged kv"] = got == want_paged, tuple(eng.caches.k_pool.shape)
     return out
@@ -5335,10 +5378,10 @@ def _first_runs(card: str, dense_tokens: dict) -> None:
         raise RuntimeError(f"[first run] the warm engine's programs: mode {warm['mode']}, {warm['captures_before']} "
                            f"built by warmup() (want {keys}), {warm['captures']} captured by the run (want 0), "
                            f"{warm['replays']} replays for {warm['blocks']} blocks")
-    check_launches("[first run] warmup", warm["warmup_launches"], ("K1", "K6"))
+    check_launches("[first run] warmup", warm["warmup_launches"], ("K1", "K6", *GLUE))
     for key, run in runs.items():
         label = "warm" if key else "cold"
-        check_launches(f"[first run] {label} run", run["launches"], ("K1", "K6"))
+        check_launches(f"[first run] {label} run", run["launches"], ("K1", "K6", *GLUE))
         if run["tokens"] != dense_tokens:
             parted = sorted(rid for rid in dense_tokens if run["tokens"].get(rid) != dense_tokens[rid])
             raise RuntimeError(f"[first run] the {label} run's tokens differ from phase 5's for requests {parted}")
@@ -5384,7 +5427,7 @@ def _paged_warmup(card: str, params, cfg, paged_tokens: dict) -> None:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = read_counts()
-    check_launches("[paged warmup] warmup", launches, ("K7", "K8", "K9/K10"))
+    check_launches("[paged warmup] warmup", launches, ("K7", "K8", "K9/K10", *GLUE))
     counters = (eng.steps, eng.decode_tokens, eng.decode_time_s, len(eng.events))
     keys = {(1 << i, greedy) for i in range(eng.decode_block_steps.bit_length()) for greedy in (True, False)}
     if eng.programs.built() != keys:
@@ -5430,6 +5473,34 @@ def _log_profile(card: str, what: str, prof: dict, untraced_s: float) -> None:
         f"{prof['memory_analysis']['peak_bytes'] / 2**30:.3f} GiB over the arguments' "
         f"{prof['memory_analysis']['argument_bytes'] / 2**30:.3f} GiB ({card})")
     log(f"[profile] {what}, top five device ops: {top}")
+
+
+# A replayed greedy decode step at 8 slots (ModelConfig(), 32 layers): at most this many device operations
+# (dense), and at most this many ``direct_copy`` kernels (paged), once the glue is the fused kernels.
+STEP_OPS_BAR = 800
+STEP_COPY_BAR = 32
+
+
+def _glue_left(card: str, what: str, sampled: dict, greedy: dict) -> None:
+    """What a replayed step runs beside the kernels, from ``profile_op``'s
+    one-block traces of the k = DENSE_ENGINE_BLOCK sampled and greedy
+    programs: device operations and ``direct_copy`` kernels a step, and every
+    operation type of the greedy step by name. The greedy step must stay
+    within STEP_OPS_BAR operations (dense) and STEP_COPY_BAR copies (paged);
+    the sampled one adds the sampler's (printed)."""
+    def per_step(prof):
+        ops = {op["name"]: op["count"] / DENSE_ENGINE_BLOCK for op in prof["device_ops"]}
+        return ops, sum(ops.values()), sum(n for name, n in ops.items() if "direct_copy" in name)
+
+    ops, total, copies = per_step(greedy)
+    _, s_total, s_copies = per_step(sampled)
+    names = "; ".join(f"{name[:90]} x{n:g}" for name, n in sorted(ops.items(), key=lambda kv: -kv[1]))
+    log(f"[profile] {what} replayed step, greedy: {total:g} device operations, {copies:g} direct_copy (sampled: "
+        f"{s_total:g} and {s_copies:g}, the sampler's included) ({card})")
+    log(f"[profile] {what} replayed greedy step, every device operation a step: {names}")
+    if (what == "dense" and total > STEP_OPS_BAR) or (what == "paged" and copies > STEP_COPY_BAR):
+        raise RuntimeError(f"[profile] {what} replayed greedy step: {total:g} device operations (bar {STEP_OPS_BAR} "
+                           f"dense), {copies:g} direct_copy (bar {STEP_COPY_BAR} paged)")
 
 
 def _profiles(card: str, params, cfg) -> None:
@@ -5502,8 +5573,12 @@ def _profiles(card: str, params, cfg) -> None:
             lengths.fill_(PROFILE_ROWS)
             return eng.programs.run(DENSE_ENGINE_BLOCK, False)
 
-        # One timed block: a block is ~58,000 device operations, and the
-        # profiler's reading of each costs host time.
+        def greedy(eng=eng, lengths=lengths):
+            lengths.fill_(PROFILE_ROWS)
+            return eng.programs.run(DENSE_ENGINE_BLOCK, True)
+
+        # One timed block of each key: the profiler's reading of each device
+        # operation costs host time.
         zero_counts()
         prof = profile_op(block, warmup=2, iters=1)
         launches = {k: n for k, n in read_counts().items() if n}
@@ -5516,7 +5591,8 @@ def _profiles(card: str, params, cfg) -> None:
             f"kernel launches in profile_op's 4 blocks (2 warm-up, 1 timed, 1 for memory) {launches}; a replay's "
             f"kernel records in its device trace == the launches it counted, {traced} (traces taken {attempts}) "
             f"({card})")
-        del eng, lengths, block
+        _glue_left(card, what, prof, profile_op(greedy, warmup=2, iters=1))
+        del eng, lengths, block, greedy
         torch.cuda.empty_cache()
 
     leaves = _tensors(params)
@@ -5543,6 +5619,37 @@ def _profiles(card: str, params, cfg) -> None:
     log(f"[profile] training step: trace() wrote a {trace_mb:.1f} MB Chrome trace (host level 2)")
 
 
+def profiles_child(card: str) -> None:
+    """Phase 24(c) in a fresh process: ``_profiles`` on ModelConfig() in bf16
+    from phase 5's seed."""
+    import torch
+
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device sets it
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig()
+    _profiles(card, init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg), cfg)
+
+
+def _profiles_fresh(card: str) -> None:
+    """``profiles_child`` in a fresh interpreter, its output echoed. Its traces
+    need a process that has traced little: late in this script's process
+    CUPTI lost records of a replayed block in every trace (PR 17 runs 4 and 5:
+    6-11 of its ~2,576 registered launches, the same numbers five times),
+    where the same profiles after only phases 5 and 8 traced complete (run 7)."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", f"import chip_smoke; chip_smoke.profiles_child({card!r})"],
+                          cwd=root, capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.splitlines():
+        log(line)
+    if proc.returncode:
+        raise RuntimeError(f"[profile] child exited {proc.returncode}: {proc.stderr[-4000:]}")
+
+
 def phase_warmup_profiles(card: str, dense_tokens: dict, paged_tokens: dict) -> None:
     """Phase 24: (a) cold and warm first runs in fresh processes, (b) the
     paged engine's warmup, (c) profiles of the decode and training steps,
@@ -5562,16 +5669,303 @@ def phase_warmup_profiles(card: str, dense_tokens: dict, paged_tokens: dict) -> 
     cfg = ModelConfig()
     params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     _paged_warmup(card, params, cfg, paged_tokens)
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"[warmup] (a) and (b) took {time.perf_counter() - t_phase:.1f} s")
-    _profiles(card, params, cfg)
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[warmup] (a) and (b) took {time.perf_counter() - t_phase:.1f} s")
+    _profiles_fresh(card)
     log(f"[overhead] calibrate_overhead_s(): {calibrate_overhead_s() * 1e6:.2f} us a trivial launch ([8, 128] fp32 "
         f"x + 1.0 through time_fn, the least of 3 runs of 5) ({card})")
     log(f"[warmup] phase 24 took {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+FUSED_POSITIONS = (0, 1, 8191, 70000, 1024, 2047, 2048, 5000)  # phase 25's decode positions, one a slot
+
+
+def _ordered(x):
+    """x's bits as integers ordered like the values (for ulp distances)."""
+    import torch
+
+    width = {2: (torch.int16, 0xFFFF, 0x8000, 0x7FFF), 4: (torch.int32, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF)}
+    view, full, sign, mag = width[x.element_size()]
+    u = x.contiguous().view(view).to(torch.int64) & full
+    return torch.where((u & sign) != 0, -(u & mag), u & mag)
+
+
+def _ulp_report(a, b) -> tuple[int, float]:
+    """(the most units in the last place a and b differ by, the share of
+    elements that differ)."""
+    d = (_ordered(a) - _ordered(b)).abs()
+    return int(d.max()) if d.numel() else 0, float((d > 0).float().mean()) if d.numel() else 0.0
+
+
+def _three_times(call, calls: int = 10) -> tuple[float, float, float]:
+    """``call`` timed as a wrapper call (CUDA events), alone in a CUDA graph
+    of ``calls`` calls replayed, and as the wrapper's host µs a call (200
+    calls enqueued unsynchronised): (ms, graph ms, host µs)."""
+    import torch
+
+    ms = cuda_ms(call)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            call()
+    alone = cuda_ms(graph.replay) / calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        call()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    return ms, alone, host_us
+
+
+def _fused_row(card: str, key: str, name: str, source: str, replaces: str, call, plain, nbytes: float, *, err: float,
+               library=None) -> dict:
+    """A phase-25 kernel's line: timed beside its plain version (and the
+    library call), against its bound (bytes over 3.35 TB/s)."""
+    ms, alone, host_us = _three_times(call)
+    plain_ms = cuda_ms(plain)
+    lib_ms = None if library is None else cuda_ms(library)
+    bound_ms, bound_by = bound(0.0, nbytes)
+    log(f"[fused] {key} {name}: kernel {ms:.4f} ms as a call, {alone:.4f} ms alone in a CUDA graph, host {host_us:.1f} "
+        f"us a call; plain {plain_ms:.4f} ms; library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound "
+        f"{bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.3f} MB) ({card})")
+    return {"name": f"{name} ({key})", "route": "cuda", "source": source, "replaces": f"{REFERENCE}/{replaces}",
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def _fused_norm_act(card: str, gen) -> dict:
+    """F1 and F3 in the three dtypes against their plain versions on the
+    card: F1's x_new bit-identical and h within 1 ulp in 16 bits (1e-6 of
+    the row's largest in fp32), F3 within 1 ulp; the share of elements that
+    differ printed."""
+    import torch
+    import torch.nn.functional as F
+
+    from flash_attention_tpu_torch.ops.fused import add_rms_norm, add_rms_norm_plain, swiglu_act, swiglu_act_plain
+
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for shape in ((8, 1, 4096), (1, 256, 4096), (8, 1, 256)):
+            x, delta = (torch_uniform(shape, dtype, gen) * 4 for _ in range(2))
+            weight = 1 + torch_uniform(shape[-1:], dtype, gen)
+            for d in (delta, None):
+                x_new, h = add_rms_norm(x, d, weight, 1e-5)
+                p_new, p_h = add_rms_norm_plain(x, d, weight, 1e-5)
+                ulps, share = _ulp_report(h, p_h)
+                rel = _rel_diff(h, p_h)
+                if not _bits_equal(x_new, p_new) or (ulps > 1 if dtype != torch.float32 else rel > 1e-6):
+                    raise RuntimeError(f"[fused] F1 {dtype} {shape} delta={d is not None}: x_new equal "
+                                       f"{_bits_equal(x_new, p_new)}, h {ulps} ulp, row-relative {rel:.3e}")
+                rows.setdefault("F1", []).append((str(dtype)[6:], shape, ulps, share))
+        for width in (11008, 14336):
+            gate, up = (torch_uniform((8, 1, width), dtype, gen) * 8 for _ in range(2))
+            ulps, share = _ulp_report(swiglu_act(gate, up), swiglu_act_plain(gate, up))
+            if ulps > 1:
+                raise RuntimeError(f"[fused] F3 {dtype} width {width}: {ulps} ulp from plain")
+            rows.setdefault("F3", []).append((str(dtype)[6:], width, ulps, share))
+    for key, cases in rows.items():
+        log(f"[fused] {key} against plain on the card, (dtype, shape, ulps, share of elements that differ): {cases}")
+
+    x, delta = (torch_uniform((8, 1, 4096), torch.bfloat16, gen) * 4 for _ in range(2))
+    weight = 1 + torch_uniform((4096,), torch.bfloat16, gen)
+    x_new = x + delta
+    f1 = _fused_row(card, "F1", "add_rms_norm_kernel, residual add + RMSNorm, [8,1,4096] bf16", "csrc/fused.cu",
+                    "models/transformer.py:86", lambda: add_rms_norm(x, delta, weight, 1e-5),
+                    lambda: add_rms_norm_plain(x, delta, weight, 1e-5), (4 * x.numel() + 4096) * 2,
+                    err=float((add_rms_norm(x, delta, weight, 1e-5)[1].float()
+                               - add_rms_norm_plain(x, delta, weight, 1e-5)[1].float()).abs().max()),
+                    library=lambda: F.rms_norm(x_new, (4096,), weight, 1e-5))
+    out = {"F1": f1}
+    for width, label in ((11008, "F3"), (14336, "F3m")):
+        gate, up = (torch_uniform((8, 1, width), torch.bfloat16, gen) * 8 for _ in range(2))
+        out[label] = _fused_row(
+            card, label, f"swiglu_act_kernel, silu(gate) * up, [8,1,{width}] bf16", "csrc/fused.cu",
+            "models/transformer.py:103", lambda: swiglu_act(gate, up), lambda: swiglu_act_plain(gate, up),
+            3 * gate.numel() * 2,
+            err=float((swiglu_act(gate, up).float() - swiglu_act_plain(gate, up).float()).abs().max()))
+    return out
+
+
+def _rope_cache(kind: str, dtype, gen):
+    """A dense [8, 8, rows, 128] KVCache of phase 25's kind, filled, with
+    (ring, sinks) for the write."""
+    import torch
+
+    from flash_attention_tpu_torch.models.attention import KVCache
+    from flash_attention_tpu_torch.ops.quant import PAYLOADS, quantize_values
+
+    rows = {"dense": 2048, "rolling": RING_ROWS, "rolling + sinks": RING_ROWS + 128}.get(kind, 2048)
+    ring, sinks = kind.startswith("rolling"), SINKS if kind == "rolling + sinks" else 0
+    shape = (8, 8, rows, 128)
+    if kind in PAYLOADS:
+        bufs = []
+        for _ in range(2):
+            qt = quantize_values(scaled_rows(shape, gen), PAYLOADS[kind])
+            bufs += [qt.values, qt.scales]
+        cache = KVCache(bufs[0], bufs[2], torch.zeros(8, dtype=torch.int32, device="cuda"), bufs[1], bufs[3])
+    else:
+        cache = KVCache(torch_uniform(shape, dtype, gen), torch_uniform(shape, dtype, gen),
+                        torch.zeros(8, dtype=torch.int32, device="cuda"))
+    return cache, ring, sinks
+
+
+def _clone_cache(cache):
+    return type(cache)(*(None if t is None else t.clone() for t in cache))
+
+
+def _fused_rope(card: str, gen) -> dict:
+    """F2 in the three dtypes: q / k rotated at FUSED_POSITIONS (decode, q a
+    strided view as the projection gives it) and over a 256-row chunk from
+    position 70000, and the row write into every cache kind (a slot at
+    capacity; the 4352-row ring; the ring with 4 sinks; int8, e4m3 and e5m2
+    payloads with their scales), each against the plain version on the
+    card: the rotated rows, every cache tensor (payload and scales) and the
+    lengths bit-identical."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.fused import rope, rope_plain
+
+    positions = torch.tensor(FUSED_POSITIONS, dtype=torch.int32, device="cuda")[:, None, None]
+    kinds = ("dense", "rolling", "rolling + sinks", "int8", "fp8_e4m3", "fp8_e5m2")
+    done = []
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        q = torch_uniform((8, 1, 32, 128), dtype, gen).transpose(1, 2)  # [8, 32, 1, 128], the projection's view
+        k, v = (torch_uniform((8, 1, 8, 128), dtype, gen).transpose(1, 2) for _ in range(2))
+        got, want = rope(q, k, positions), rope_plain(q, k, positions)
+        qc, kc = torch_uniform((1, 32, 256, 128), dtype, gen), torch_uniform((1, 8, 256, 128), dtype, gen)
+        chunk_pos = 70000 + torch.arange(256, device="cuda")[None, None, :]
+        got, want = got + rope(qc, kc, chunk_pos), want + rope_plain(qc, kc, chunk_pos)
+        if not all(_bits_equal(a, b) for a, b in zip(got, want)):
+            raise RuntimeError(f"[fused] F2 {dtype}: rotated q / k differ from plain")
+        for kind in kinds:
+            cache, ring, sinks = _rope_cache(kind, dtype, gen)
+            full = cache.k.shape[2]
+            pos = positions if ring else torch.where(positions == 5000, full, positions.clamp(max=full - 1))
+            pos = pos.clone()
+            pos[7] = full if not ring else pos[7]  # a slot at capacity: its write is dropped
+            a, b = _clone_cache(cache), _clone_cache(cache)
+            qa, ka, a = rope(q, k, pos, cache=a, v=v, ring=ring, sinks=sinks)
+            qb, kb, b = rope_plain(q, k, pos, cache=b, v=v, ring=ring, sinks=sinks)
+            same = [_bits_equal(x, y) for x, y in zip((qa, ka, *a), (qb, kb, *b)) if x is not None]
+            if not all(same):
+                raise RuntimeError(f"[fused] F2 {dtype} {kind}: q, k, cache K, V, lengths(, scales) equal to plain "
+                                   f"{same}")
+            done.append(f"{str(dtype)[6:]} {kind}")
+    log(f"[fused] F2 rotated rows (decode at {FUSED_POSITIONS}, a 256-row chunk from 70000) and the row write, "
+        f"bit-identical to plain on the card, payload, scales and lengths included: {done}")
+
+    dtype = torch.bfloat16
+    q = torch_uniform((8, 1, 32, 128), dtype, gen).transpose(1, 2)
+    k, v = (torch_uniform((8, 1, 8, 128), dtype, gen).transpose(1, 2) for _ in range(2))
+    cache, _, _ = _rope_cache("dense", dtype, gen)
+    lengths = torch.full((8, 1, 1), PROFILE_ROWS, dtype=torch.int32, device="cuda")
+    nbytes = (2 * 32 + 2 * 8 + 8 + 2 * 8) * 128 * 8 * 2 + 8 * 8  # q, k read + written, v read, K / V rows, lengths
+    row = _fused_row(card, "F2", "rope_kernel, RoPE + the dense row write, q [8,32,1,128] bf16", "csrc/fused.cu",
+                     "models/rope.py:19", lambda: rope(q, k, lengths, cache=cache, v=v),
+                     lambda: rope_plain(q, k, lengths, cache=cache, v=v), nbytes, err=0.0)
+    return {"F2": row}
+
+
+def _fused_self_term(card: str, gen) -> dict:
+    """F4, K7's self term (``paged_decode_attention(self_kv=...)``) at phase
+    24(c)'s pool ([129, 8, 128, 128], 8 slots over a shuffled table, lengths
+    PAGED_LENGTHS with slot 0 at 0): plain, window (4096, the deferred
+    4095), softcap 50, window + 4 sinks, int8 and e4m3 pools, and the three
+    query dtypes; each within REL_BAR row by row of the plain version (K7's
+    plain version then ``merge_self_plain``), ORACLE_BAR of the fp32 oracle
+    over the visible rows and the self row, LSE_BAR of both LSEs,
+    bit-identical over two calls and under a CUDA graph's replay."""
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.ops.paged import (
+        merge_self_plain,
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+
+    rng = np.random.default_rng(25)
+    lengths = torch.tensor((0,) + PAGED_LENGTHS[1:], dtype=torch.int32, device="cuda")
+    cases = [("plain", "bf16", None, None, 0), ("window", "bf16", WINDOW, None, 0),
+             ("softcap 50", "bf16", None, 50.0, 0), ("window + sinks", "bf16", WINDOW, None, SINKS),
+             ("int8 pool", "int8", None, None, 0), ("e4m3 pool", "fp8_e4m3", None, None, 0),
+             ("fp16", "fp16", None, None, 0), ("fp32", "fp32", None, None, 0)]
+    dtypes = {"fp16": torch.float16, "fp32": torch.float32}
+    worst, timed = [], None
+    for label, kind, window, softcap, sinks in cases:
+        qdt = dtypes.get(kind, torch.bfloat16)
+        if kind in QUANT_MODES:
+            model, _ = _quant_pages(kind, 1, 129, 8, 16, gen, rng)
+            dense = [_dense_from_pages(_dequant_pool(p[0], s[0]), model.page_table)
+                     for p, s in ((model.k_pool, model.k_scales), (model.v_pool, model.v_scales))]
+        else:
+            model = _filled_cache(1, num_pages=129, num_slots=8, pages_per_slot=16, kv_heads=8, head_dim=128,
+                                  dtype=qdt, gen=gen)
+            model.page_table.copy_(torch.from_numpy(_shuffled_table(rng, 8, 16, 129)).cuda())
+            dense = [_dense_from_pages(p[0].float(), model.page_table) for p in (model.k_pool, model.v_pool)]
+        cache = model.layers()[0]._replace(lengths=lengths)
+        q = torch_uniform((8, 32, 128), qdt, gen)
+        k_new, v_new = (torch_uniform((8, 8, 128), qdt, gen) for _ in range(2))
+        win = None if window is None else window - 1  # the deferred window: lengths exclude the current token
+        masks = dict(sliding_window=win, logit_softcap=softcap, attention_sinks=sinks)
+
+        def call(q=q, cache=cache, k_new=k_new, v_new=v_new, masks=masks):
+            return paged_decode_attention(q, cache, save_residuals=True, self_kv=(k_new, v_new), **masks)
+
+        zero_counts()
+        (out, lse), grid = _twice(f"F4 {label}", paged_decode_attention, call)
+        if read_bodies()["K7/K7q self"] < 1:
+            raise RuntimeError(f"[fused] F4 {label}: the self-term counter did not rise")
+        if not _graph_replays(call, (out, lse)):
+            raise RuntimeError(f"[fused] F4 {label}: a CUDA graph's replay differs from the direct call")
+        p_out, p_lse = merge_self_plain(q, *paged_decode_attention_plain(q, cache, sm_scale=128**-0.5,
+                                                                         save_residuals=True, **masks),
+                                        k_new, v_new, sm_scale=128**-0.5, logit_softcap=softcap)
+        rows_per_seq = [_visible_positions(int(n), win if win is not None else 10**9, sinks) + [2048]
+                        for n in lengths.tolist()]
+        k_full, v_full = (torch.cat([d, n.float()[:, :, None]], dim=2) for d, n in zip(dense, (k_new, v_new)))
+        o_out, o_lse, _ = _oracle_rows(q, k_full, v_full, rows_per_seq, softcap=softcap)
+        rel, d_oracle = _rel_diff(out, p_out), _max_diff(out, o_out)
+        d_lse = max(_max_diff(lse, p_lse), _max_diff(lse, o_lse))
+        if not (rel < REL_BAR[str(qdt)[6:]] and d_oracle < ORACLE_BAR and d_lse < LSE_BAR):
+            raise RuntimeError(f"[fused] F4 {label}: row-relative {rel:.3e}, oracle {d_oracle:.3e}, LSE {d_lse:.3e}")
+        if not torch.equal(out[0].float(), v_new[0].float().repeat_interleave(4, dim=0)):
+            raise RuntimeError(f"[fused] F4 {label}: the slot of length 0 did not return its v_new")
+        worst.append((label, f"{rel:.2e}", f"{d_oracle:.2e}", f"{d_lse:.2e}", grid))
+        if label == "plain":
+            live = sum(int(n) for n in lengths.tolist())
+            nbytes = 2 * live * 8 * 128 * 2 + 2 * 8 * 32 * 128 * 2 + 2 * 8 * 8 * 128 * 2 + 8 * 32 * 4
+            timed = _fused_row(card, "F4", "paged_decode (K7) with the self term, q [8,32,128] over [129,8,128,128] "
+                               "bf16", "csrc/decode.cu", "models/attention.py:595", call,
+                               lambda: merge_self_plain(q, *paged_decode_attention_plain(
+                                   q, cache, sm_scale=128**-0.5, save_residuals=True), k_new, v_new,
+                                   sm_scale=128**-0.5), nbytes, err=d_oracle)
+    log(f"[fused] F4 (K7 + the self term) against plain (row-relative), the fp32 oracle and the LSEs, bit-identical "
+        f"over two calls and a graph replay, a slot of length 0 returning v_new: {worst}")
+    return {"F4": timed}
+
+
+def phase_fused(card: str) -> dict:
+    """Phase 25: the decode step's glue kernels (csrc/fused.cu, and K7's self
+    term) at ModelConfig()'s widths against their plain versions, timed, each
+    counter rising where its kernel launched. Returns the kernels' lines by
+    key (their launches filled in by main from the main paths)."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    zero_counts()
+    out = _fused_norm_act(card, gen)
+    out.update(_fused_rope(card, gen))
+    counts = read_counts()
+    if any(counts[key] < 1 for key in GLUE):
+        raise RuntimeError(f"[fused] a glue kernel's counter did not rise: {counts}")
+    out.update(_fused_self_term(card, gen))
+    log(f"[fused] phase 25 took {time.perf_counter() - t0:.1f} s ({card})")
+    return out
 
 
 def main() -> None:
@@ -5598,6 +5992,7 @@ def main() -> None:
     lap("4")
     launches, params, dense = phase_full(card)
     k1["launches"], k6["launches"] = launches["K1"], launches["K6"]
+    glue_launches = {key: launches[key] for key in GLUE}
     phase_sampling(card, params)
     lap("5")
     k7, k8, k10 = phase_paged_kernels(card)
@@ -5605,8 +6000,10 @@ def main() -> None:
     lap("6")
     phase_tiny_paged(dense_tiny)
     lap("7")
-    launches, paged = serve_full_paged(card, "full paged", ModelConfig(), params, used=("K7", "K8", "K9/K10"), dense=dense)
+    launches, paged = serve_full_paged(card, "full paged", ModelConfig(), params, used=("K7", "K8", "K9/K10", *GLUE),
+                                       dense=dense)
     k7["launches"], k8["launches"], k10["launches"] = launches["K7"], launches["K8"], launches["K9/K10"]
+    glue_launches["F4"] = launches["K7"]  # every one with the self term (check_self_term)
     lap("8")
     quant = phase_quant_kernels(card)
     phase_quant_sweep()
@@ -5638,6 +6035,7 @@ def main() -> None:
     lap("17")
     masked["K1w"]["launches"], masked["K1c"]["launches"] = full["a"]["K1"], full["d"]["K1"]
     masked["K6r"]["launches"] = full["a"]["K6"]
+    glue_launches["F3m"] = full["a"]["F3"]
     masked["K7s"]["launches"], masked["K8s"]["launches"] = full["c"]["K7"], full["c"]["K8"]
     train_masked, attn_ms = phase_masked_bwd(card)
     phase_masked_bwd_sweep()
@@ -5670,9 +6068,13 @@ def main() -> None:
     lap("23")
     phase_warmup_profiles(card, dense["tokens"], paged["tokens"])
     lap("24")
+    fused = phase_fused(card)
+    for key, row in fused.items():
+        row["launches"] = glue_launches[key]
+    lap("25")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k1t, k6, k7, k8, k10, *quant.values(), *bwd.values(), *masked, *probes,
-                                  *parallel, *sharded]}))
+                                  *parallel, *sharded, *fused.values()]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -74,6 +74,34 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// ---- quantizing a row into a cache payload (ops/quant.py's quantize_values) ----
+
+// A row's scale from its absmax: absmax / QMAX in fp32 (IEEE division: the
+// build has no fast math), 1 for an all-zero row.
+__device__ __forceinline__ float row_scale(float absmax, float qmax) { return absmax == 0.f ? 1.f : absmax / qmax; }
+
+// The value a payload type maps a row's absmax to: 127 for int8, else the
+// fp8 format's largest finite value.
+template <typename P>
+inline constexpr float payload_qmax = std::is_same_v<P, int8_t> ? 127.f : (std::is_same_v<P, __nv_fp8_e4m3> ? 448.f : 57344.f);
+
+// The payload code of x, quantized by its row's scale: x / scale, for int8
+// rounded half to even (rintf) and clipped to [-127, 127], for fp8 cast with
+// __nv_cvt_float_to_fp8(..., __NV_SATFINITE, ...), which rounds to nearest
+// even as torch's cast does (a row's values never reach the saturation).
+template <typename P>
+__device__ __forceinline__ P quantize(float x, float scale) {
+  const float y = x / scale;
+  P out;
+  if constexpr (std::is_same_v<P, int8_t>) {
+    out = static_cast<int8_t>(fminf(fmaxf(rintf(y), -127.f), 127.f));
+  } else {
+    constexpr __nv_fp8_interpretation_t kind = std::is_same_v<P, __nv_fp8_e4m3> ? __NV_E4M3 : __NV_E5M2;
+    out.__x = __nv_cvt_float_to_fp8(y, __NV_SATFINITE, kind);
+  }
+  return out;
+}
+
 // ---- packing and widening for the tensor-core products ----
 
 // The pieces K6 / K7 (csrc/decode.cu) and K8q (csrc/flash_fwd_sm90.cu)

@@ -137,6 +137,11 @@ struct DecodeParams {
   int sinks_pad;  // ring with sinks: the sink region's rows (sinks rounded up to 128)
   float scale2;
   float softcap2;  // cap * log2(e); 0: no softcap
+  // K7's self term (the deferred decode step): the current token's new K
+  // and V rows [B, Hkv, D] of q's type, merged as one more part; else nullptr.
+  const void* self_k;
+  const void* self_v;
+  int64_t sk_sb, sk_sh, sv_sb, sv_sh;
 };
 
 __device__ __forceinline__ int pmod(int x, int m) { return ((x % m) + m) % m; }
@@ -585,8 +590,37 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const __grid_constant__
   __syncthreads();
 
   const int64_t row0 = static_cast<int64_t>(b) * p.num_q_heads + h0;
-  // Writes element d of q row gi from its merged (max, sum of p, sum of p v).
+  // The self term's score of each q row, q . k_new in fp32 through the
+  // scale and the softcap, by the block that writes the output; the block
+  // barrier is reached by every thread of that block.
+  __shared__ float s_self[MAX_G];
+  auto self_scores = [&]() {
+    if (p.self_k == nullptr) return;
+    const T* kn = static_cast<const T*>(p.self_k) + b * p.sk_sb + hk * p.sk_sh;
+    for (int gi = warp; gi < ng; gi += WARPS) {
+      const T* q = static_cast<const T*>(p.q) + b * p.q_sb + (h0 + gi) * p.q_sh;
+      float dot = 0.f;
+      for (int d = lane; d < D; d += 32) dot = fmaf(fat::to_float(q[d]), fat::to_float(kn[d]), dot);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(fat::FULL_MASK, dot, off);
+      float x = dot * p.scale2;
+      if (p.softcap2 > 0.f) x = p.softcap2 * tanhf(x / p.softcap2);
+      if (lane == 0) s_self[gi] = x;
+    }
+    __syncthreads();
+  };
+  // Writes element d of q row gi from its merged (max, sum of p, sum of p
+  // v), the self term (score s_self, value v_new, weight 1 at its own max)
+  // merged in first.
   auto finish = [&](int gi, int d, float mx, float sum_l, float sum_o) {
+    if (p.self_k != nullptr) {
+      const float sc = s_self[gi], m2 = fmaxf(mx, sc);
+      const float a = exp2f(mx - m2), w = exp2f(sc - m2);
+      const T* vn = static_cast<const T*>(p.self_v) + b * p.sv_sb + hk * p.sv_sh;
+      sum_l = fmaf(sum_l, a, w);
+      sum_o = fmaf(sum_o, a, w * fat::to_float(vn[d]));
+      mx = m2;
+    }
     static_cast<T*>(p.o)[(row0 + gi) * D + d] = fat::from_float<T>(sum_l == 0.f ? 0.f : sum_o / sum_l);
     if (p.lse != nullptr && d == 0) p.lse[row0 + gi] = sum_l == 0.f ? -CUDART_INF_F : mx + log2f(sum_l);
   };
@@ -594,6 +628,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const __grid_constant__
   float* ws_o = p.ws;                         // [B, splits, Hq, D]
   float* ws_m = p.splits > 1 ? p.ws + parts * D : nullptr;  // [B, splits, Hq]
   float* ws_l = p.splits > 1 ? ws_m + parts : nullptr;
+  if (p.splits == 1) self_scores();
   for (int i = threadIdx.x; i < ng * D; i += THREADS) {
     const int gi = i / D, d = i % D;
     float mx = fat::M_FLOOR;
@@ -631,6 +666,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const __grid_constant__
   __syncthreads();
   if (!s_last) return;
   __threadfence();
+  self_scores();
   for (int i = threadIdx.x; i < ng * D; i += THREADS) {
     const int gi = i / D, d = i % D;
     const int64_t part0 = static_cast<int64_t>(b) * p.splits * hq + h0 + gi;
@@ -716,7 +752,9 @@ struct DecodeLaunch {
 enum Shape : int {
   kBatch, kQHeads, kKvHeads, kRows, kHeadDim, kQsb, kQsh, kWindow, kRing, kSinks, kSplits, kDtype, kPayload,
   kKsb, kKsh, kKsr, kVsb, kVsh, kVsr, kKSsb, kKSsh, kKSsr, kVSsb, kVSsh, kVSsr,  // K, V, K's scales, V's scales
-  kPages, kPageSize, kPagesPerSlot, kShapeLen
+  kPages, kPageSize, kPagesPerSlot,
+  kSelfKsb, kSelfKsh, kSelfVsb, kSelfVsh,  // K7's self term: the new rows' batch and head strides
+  kShapeLen
 };
 
 DecodeParams make_params(const void* q, const void* k, const void* v, const float* ks, const float* vs, void* o,
@@ -757,6 +795,10 @@ DecodeParams make_params(const void* q, const void* k, const void* v, const floa
   p.window = static_cast<int>(shape[kWindow]);
   p.sinks = static_cast<int>(shape[kSinks]);
   p.softcap2 = softcap2;
+  p.sk_sb = shape[kSelfKsb];
+  p.sk_sh = shape[kSelfKsh];
+  p.sv_sb = shape[kSelfVsb];
+  p.sv_sh = shape[kSelfVsh];
   return p;
 }
 
@@ -809,12 +851,19 @@ extern "C" int fat_decode(const void* q, const void* k, const void* v, const flo
 // shape's rows, are not read); o [S, Hq, D] contiguous; lse [S, Hq] fp32 or
 // null. window: 0 or the sliding window over logical rows; sinks: logical
 // rows [0, sinks) stay visible (needs the window; sinks < page_size); a
-// split walks whole pages. page_size must be a multiple of 64.
+// split walks whole pages. page_size must be a multiple of 64. self_k,
+// self_v: null, or the current token's K and V rows [S, Hkv, D] of q's type
+// at the shape's self strides (unit stride on D), attended beside the
+// pages at full precision (score through the scale and softcap; a slot of
+// length 0 gets v itself); o and lse are then the merged ones.
 extern "C" int fat_paged_decode(const void* q, const void* k, const void* v, const float* ks, const float* vs,
                                 void* o, float* lse, const int32_t* lengths, const int32_t* table, float* ws,
                                 int32_t* tickets, const int64_t* shape, float scale2, float softcap2,
-                                void* stream) {
+                                void* stream, const void* self_k, const void* self_v) {
   DecodeParams p = make_params(q, k, v, ks, vs, o, lse, lengths, ws, tickets, shape, scale2, softcap2);
+  if ((self_k == nullptr) != (self_v == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  p.self_k = self_k;
+  p.self_v = self_v;
   p.table = table;
   p.page_size = static_cast<int>(shape[kPageSize]);
   p.pages_per_slot = static_cast<int>(shape[kPagesPerSlot]);

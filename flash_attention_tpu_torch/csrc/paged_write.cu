@@ -108,21 +108,6 @@ __global__ void __launch_bounds__(THREADS) paged_write_kernel(const WriteParams 
   }
 }
 
-// The payload code of x, quantized by the row scale `scale`.
-template <typename P>
-__device__ __forceinline__ P quantize(float x, float scale) {
-  const float y = x / scale;
-  P out;
-  if constexpr (std::is_same_v<P, int8_t>) {
-    out = static_cast<int8_t>(fminf(fmaxf(rintf(y), -127.f), 127.f));
-  } else {
-    constexpr __nv_fp8_interpretation_t kind =
-        std::is_same_v<P, __nv_fp8_e4m3> ? __NV_E4M3 : __NV_E5M2;
-    out.__x = __nv_cvt_float_to_fp8(y, __NV_SATFINITE, kind);
-  }
-  return out;
-}
-
 struct QuantWriteParams {
   SlotParams s;
   const void* k_new;  // [L, n, H, D] in the model's dtype, contiguous
@@ -159,10 +144,10 @@ __global__ void __launch_bounds__(THREADS) paged_write_quant_kernel(const QuantW
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       absmax = fmaxf(absmax, __shfl_xor_sync(fat::FULL_MASK, absmax, off));
-    const float scale = absmax == 0.f ? 1.f : absmax / p.qmax;
+    const float scale = fat::row_scale(absmax, p.qmax);
     P* dst = static_cast<P*>(is_v ? p.v_pool : p.k_pool) + layer * p.layer_stride +
              phys * p.page_stride + h * p.head_stride + row * p.row_stride;
-    for (int e = lane; e < p.head_dim; e += 32) dst[e] = quantize<P>(fat::to_float(src[e]), scale);
+    for (int e = lane; e < p.head_dim; e += 32) dst[e] = fat::quantize<P>(fat::to_float(src[e]), scale);
     if (lane == 0) {
       float* sc = is_v ? p.v_scales : p.k_scales;
       sc[layer * p.s_layer_stride + phys * p.s_page_stride + h * p.s_head_stride + row] = scale;

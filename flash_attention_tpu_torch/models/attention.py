@@ -54,9 +54,10 @@ import torch
 import torch.distributed as dist
 
 from flash_attention_tpu_torch.models.rope import apply_rope
-from flash_attention_tpu_torch.ops.common import LOG2E, ceil_to
+from flash_attention_tpu_torch.ops.common import ceil_to
 from flash_attention_tpu_torch.ops.decode import decode_attention
 from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+from flash_attention_tpu_torch.ops.fused import rope, write_row_plain
 from flash_attention_tpu_torch.ops.merge import merge_two
 from flash_attention_tpu_torch.ops.paged import (
     PagedKVCache,
@@ -202,12 +203,14 @@ def write_cache(cfg: AttentionConfig, cache: KVCache, k_new, v_new, start_positi
     row. Prefill writes (T > 1) clamp their start so the rows fit, as JAX's
     dynamic_update_slice does. Lengths clamp to max_seq either way.
     """
+    t = k_new.shape[2]
+    if t == 1:
+        return write_row_plain(cache, k_new, v_new, start_positions, ring=cfg.rolling, sinks=cfg.attention_sinks)
     kq, ks = _quantize_for_cache(cfg, k_new)
     vq, vs = _quantize_for_cache(cfg, v_new)
     writes = [(cache.k, kq), (cache.v, vq)]
     if cache.quantized():
         writes += [(cache.k_scales, ks), (cache.v_scales, vs)]
-    t = k_new.shape[2]
     max_seq = cache.k.shape[2]
     batch_idx = torch.arange(k_new.shape[0], device=cache.k.device)
     if cfg.rolling:
@@ -217,26 +220,14 @@ def write_cache(cfg: AttentionConfig, cache: KVCache, k_new, v_new, start_positi
         else:
             keep = p >= p[:, -1:] + 1 - max_seq
         rows = _ring_rows(cfg, max_seq, p)
-        if t == 1:  # a single row is always kept: no host sync for the mask
-            for buf, new in writes:
-                bits(buf)[batch_idx, :, rows[:, 0]] = bits(new[:, :, 0].to(buf.dtype))
-        else:
-            b_idx, t_idx = keep.nonzero(as_tuple=True)
-            for buf, new in writes:
-                bits(buf)[b_idx, :, rows[b_idx, t_idx]] = bits(new[b_idx, :, t_idx].to(buf.dtype))
+        b_idx, t_idx = keep.nonzero(as_tuple=True)
+        for buf, new in writes:
+            bits(buf)[b_idx, :, rows[b_idx, t_idx]] = bits(new[b_idx, :, t_idx].to(buf.dtype))
         return cache._replace(lengths=(start_positions + t).to(torch.int32))
-    if t == 1:
-        keep = (start_positions < max_seq)[:, None, None]
-        pos = start_positions.clamp(max=max_seq - 1)
-        for buf, new in writes:
-            # Rewrite the old row where the write is dropped: no host sync.
-            new, buf = bits(new[:, :, 0].to(buf.dtype)), bits(buf)
-            buf[batch_idx, :, pos] = torch.where(keep, new, buf[batch_idx, :, pos])
-    else:
-        start = start_positions.clamp(0, max_seq - t)
-        pos = start[:, None] + torch.arange(t, device=cache.k.device)[None, :]  # [B, T]
-        for buf, new in writes:
-            bits(buf)[batch_idx[:, None], :, pos] = bits(new.transpose(1, 2).to(buf.dtype))
+    start = start_positions.clamp(0, max_seq - t)
+    pos = start[:, None] + torch.arange(t, device=cache.k.device)[None, :]  # [B, T]
+    for buf, new in writes:
+        bits(buf)[batch_idx[:, None], :, pos] = bits(new.transpose(1, 2).to(buf.dtype))
     return cache._replace(lengths=(start_positions + t).clamp(max=max_seq).to(torch.int32))
 
 
@@ -246,18 +237,28 @@ def _weight(w, dtype: torch.dtype) -> torch.Tensor:
     return w8_dequant(w).to(dtype)
 
 
-def _project_qkv(params, cfg: AttentionConfig, x: torch.Tensor, positions):
-    """q/k/v projection + RoPE shared by every attention entry point.
-
-    x: [B, T, model_dim]; positions: integers broadcastable to [B, 1, T].
-    Returns (q, k, v) as [B, H, T, D] in the config dtype, q and k rotated.
-    """
+def _qkv(params, cfg: AttentionConfig, x: torch.Tensor):
+    """The q/k/v projections of x [B, T, model_dim]: [B, H, T, D] each in
+    the config dtype, not rotated."""
     dt = cfg.torch_dtype
     q = torch.einsum("btm,mhd->bhtd", x, _weight(params["wq"], x.dtype)).to(dt)
     k = torch.einsum("btm,mhd->bhtd", x, _weight(params["wk"], x.dtype)).to(dt)
     v = torch.einsum("btm,mhd->bhtd", x, _weight(params["wv"], x.dtype)).to(dt)
-    q = apply_rope(q, positions, theta=cfg.rope_theta)
-    k = apply_rope(k, positions, theta=cfg.rope_theta)
+    return q, k, v
+
+
+def _project_qkv(params, cfg: AttentionConfig, x: torch.Tensor, positions):
+    """q/k/v projection + RoPE shared by every attention entry point.
+
+    x: [B, T, model_dim]; positions: integers broadcastable to [B, 1, T].
+    Returns (q, k, v) as [B, H, T, D] in the config dtype, q and k rotated:
+    under autograd by ``apply_rope``, else in one launch of
+    ``ops.fused.rope`` (F2 on the card).
+    """
+    q, k, v = _qkv(params, cfg, x)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
+        return apply_rope(q, positions, theta=cfg.rope_theta), apply_rope(k, positions, theta=cfg.rope_theta), v
+    q, k = rope(q, k, positions, theta=cfg.rope_theta)
     return q, k, v
 
 
@@ -292,12 +293,15 @@ def _output_proj(params, o: torch.Tensor, out_dtype, tp_group=None) -> torch.Ten
 
 
 def _output_proj_decode(params, o: torch.Tensor, out_dtype, tp_group=None) -> torch.Tensor:
-    """wo projection of single-token [B, H, D] output -> [B, 1, model_dim]."""
+    """wo projection of single-token [B, H, D] output -> [B, 1, model_dim]:
+    one product over wo's [H * D, model_dim] view (``einsum`` permuted wo
+    into a copy of the whole weight on every step)."""
     wo = _weight(params["wo"], o.dtype)
-    if not tensor_parallel(tp_group):
-        return torch.einsum("bhd,hdm->bm", o, wo)[:, None, :].to(out_dtype)
     b, h, d = o.shape
-    return row_parallel(o.reshape(b, 1, h * d), wo.reshape(h * d, -1), out_dtype, tp_group)
+    o2, wo2 = o.reshape(b, 1, h * d), wo.reshape(h * d, -1)
+    if not tensor_parallel(tp_group):
+        return torch.matmul(o2, wo2).to(out_dtype)
+    return row_parallel(o2, wo2, out_dtype, tp_group)
 
 
 def _masks(cfg: AttentionConfig) -> dict:
@@ -447,8 +451,10 @@ def attention_decode(params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCac
 
     Returns (output [B, 1, model_dim], updated cache).
     """
-    q, k, v = _project_qkv(params, cfg, x, cache.lengths[:, None, None])
-    cache = write_cache(cfg, cache, k, v, cache.lengths)
+    q, k, v = _qkv(params, cfg, x)
+    # RoPE and the row write in one launch (F2 on the card), by write_cache's rules.
+    q, _, cache = rope(q, k, cache.lengths[:, None, None], theta=cfg.rope_theta, cache=cache, v=v, ring=cfg.rolling,
+                       sinks=cfg.attention_sinks)
     # A quantized cache goes to K6 as payload and scales: the kernel
     # dequantizes, and the current token is attended as stored, quantized.
     o = decode_attention(
@@ -496,13 +502,14 @@ def attention_decode_paged_deferred(params, cfg: AttentionConfig, x: torch.Tenso
 
     K7 attends over the cache as it is (the new token is not in it yet, so
     ``lengths`` excludes it and may be 0), and the token's self term, score
-    q·k_new in fp32 (through the softcap) and output v_new, is folded in
-    with ``merge_two`` in the base-2 LSE domain. The window goes down by
-    one, since ``lengths`` does not count the current token. The self term
-    is at full precision even over a quantized cache, where K10 stores the
-    token quantized, as in the JAX package. The caller writes every layer's
-    (k_new, v_new) in one ``paged_write_tokens_multi`` launch after the
-    layer stack.
+    q·k_new in fp32 (through the softcap) and output v_new, is merged in
+    the same launch (``paged_decode_attention(self_kv=...)``; on the CPU
+    ``merge_self_plain``, ``merge_two`` in the base-2 LSE domain). The
+    window goes down by one, since ``lengths`` does not count the current
+    token. The self term is at full precision even over a quantized cache,
+    where K10 stores the token quantized, as in the JAX package. The caller
+    writes every layer's (k_new, v_new) in one ``paged_write_tokens_multi``
+    launch after the layer stack.
 
     Returns (output [num_slots, 1, model_dim], (k_new, v_new) each
     [num_slots, kv_heads, head_dim]).
@@ -514,19 +521,8 @@ def attention_decode_paged_deferred(params, cfg: AttentionConfig, x: torch.Tenso
         window -= 1
     q, k, v = _project_qkv(params, cfg, x, paged_cache.lengths[:, None, None])
     q1, k1, v1 = q[:, :, 0, :], k[:, :, 0, :], v[:, :, 0, :]
-    o_c, lse_c = paged_decode_attention(q1, paged_cache, save_residuals=True, sliding_window=window,
-                                        logit_softcap=cfg.logit_softcap, attention_sinks=cfg.attention_sinks)
-    group = cfg.num_q_heads // cfg.num_kv_heads
-    k_exp = k1.repeat_interleave(group, dim=1)  # [n, Hq, D]
-    v_exp = v1.repeat_interleave(group, dim=1)
-    s_raw = (q1.float() * k_exp.float()).sum(dim=-1)  # [n, Hq]
-    # A single score's LSE is the score, through the kernels' softcap.
-    sm_scale = 1.0 / math.sqrt(cfg.head_dim)
-    if cfg.logit_softcap is None:
-        lse_self = s_raw * sm_scale * LOG2E
-    else:
-        lse_self = cfg.logit_softcap * torch.tanh(s_raw * sm_scale / cfg.logit_softcap) * LOG2E
-    o, _ = merge_two(o_c, lse_c, v_exp, lse_self)
+    o = paged_decode_attention(q1, paged_cache, sliding_window=window, logit_softcap=cfg.logit_softcap,
+                               attention_sinks=cfg.attention_sinks, self_kv=(k1, v1))
     return _output_proj_decode(params, o, x.dtype, tp_group), (k1, v1)
 
 

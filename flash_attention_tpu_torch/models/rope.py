@@ -2,9 +2,13 @@
 
 Counterpart of the JAX package's ``models/rope.py``: angles in fp32, the
 even/odd feature pairs rotated, the result cast back to the input's dtype.
+``apply_rope`` is the plain version; the serving paths rotate q and k in
+one launch of ``ops.fused.rope`` (F2), which reads the same frequency table.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -14,6 +18,15 @@ def rope_frequencies(head_dim: int, *, theta: float = 10000.0, device=None) -> t
     return 1.0 / (theta**exponents)
 
 
+@functools.lru_cache(maxsize=None)
+def rope_table(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``rope_frequencies`` built once per (head_dim, theta, device) and
+    kept: a decode step no longer rebuilds it. Its first use on a device
+    must not be inside a CUDA-graph capture, which would record the build
+    without running it (the decode programs run each block eagerly first)."""
+    return rope_frequencies(head_dim, theta=theta, device=device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000.0) -> torch.Tensor:
     """Rotate [..., seq, head_dim] by per-position angles.
 
@@ -21,7 +34,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000
     positions, so prefill and single-token decode share one code path.
     """
     head_dim = x.shape[-1]
-    freqs = rope_frequencies(head_dim, theta=theta, device=x.device)  # [D/2]
+    freqs = rope_table(head_dim, float(theta), x.device)  # [D/2]
     angles = positions[..., None].to(torch.float32) * freqs  # [..., seq, D/2]
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1 = x[..., 0::2].float()

@@ -26,7 +26,10 @@ Under autograd the norms and the SwiGLU activation are autograd Functions
 (``_RMSNorm``, ``_SwiGLUAct``) with their gradients written out: they keep
 their inputs in the model's dtype (and the norm's fp32 rstd), not the fp32
 copies autograd would keep of the elementwise work in between, and their
-backward runs no second forward.
+backward runs no second forward. With no gradient to keep (serving), each
+residual add and the norm after it are one call of ``ops.fused.
+add_rms_norm`` and the activation one of ``swiglu_act`` (F1, F3 on the
+card; 2 launches a layer plus 1 for the norms).
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from flash_attention_tpu_torch.models.attention import (
     row_parallel,
     tensor_parallel,
 )
+from flash_attention_tpu_torch.ops.fused import add_rms_norm, rms_norm_plain, swiglu_act, swiglu_act_plain
 from flash_attention_tpu_torch.ops.paged import PagedModelCache, init_paged_model_cache, paged_write_tokens_multi
 from flash_attention_tpu_torch.ops.quant import QuantizedTensor, quantize_weight
 
@@ -111,19 +115,12 @@ def _grad_needed(*args) -> bool:
     return torch.is_grad_enabled() and any(a.requires_grad for a in args)
 
 
-def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float):
-    """(the norm of x in x's dtype, its fp32 rstd [..., 1])."""
-    xf = x.float()
-    rstd = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return (xf * rstd * weight.float()).to(x.dtype), rstd
-
-
 class _RMSNorm(torch.autograd.Function):
     """rms_norm under autograd, keeping x and the fp32 rstd for the backward."""
 
     @staticmethod
     def forward(ctx, x, weight, eps):
-        y, rstd = _rms_norm(x, weight, eps)
+        y, rstd = rms_norm_plain(x, weight, eps)
         ctx.save_for_backward(x, weight, rstd)
         return y
 
@@ -141,11 +138,16 @@ class _RMSNorm(torch.autograd.Function):
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     if _grad_needed(x, weight):
         return _RMSNorm.apply(x, weight, eps)
-    return _rms_norm(x, weight, eps)[0]
+    return add_rms_norm(x, None, weight, eps)[1]
 
 
-def _swiglu_act(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    return (F.silu(gate.float()) * up.float()).to(gate.dtype)
+def _add_norm(x: torch.Tensor, delta, weight: torch.Tensor, eps: float):
+    """(x + delta, the norm of it): one ``add_rms_norm`` call (F1) when no
+    gradient is needed, else the add and ``_RMSNorm``."""
+    if _grad_needed(x, weight, *(() if delta is None else (delta,))):
+        x = x if delta is None else x + delta
+        return x, _RMSNorm.apply(x, weight, eps)
+    return add_rms_norm(x, delta, weight, eps)
 
 
 class _SwiGLUAct(torch.autograd.Function):
@@ -154,7 +156,7 @@ class _SwiGLUAct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, gate, up):
         ctx.save_for_backward(gate, up)
-        return _swiglu_act(gate, up)
+        return swiglu_act_plain(gate, up)
 
     @staticmethod
     def backward(ctx, da):
@@ -169,7 +171,7 @@ def swiglu(x: torch.Tensor, params, tp_group=None) -> torch.Tensor:
     rows of the row-parallel down projection, summed over the group."""
     gate = torch.matmul(x, _weight(params["w_gate"], x.dtype))
     up = torch.matmul(x, _weight(params["w_up"], x.dtype))
-    act = _SwiGLUAct.apply(gate, up) if _grad_needed(gate, up) else _swiglu_act(gate, up)
+    act = _SwiGLUAct.apply(gate, up) if _grad_needed(gate, up) else swiglu_act(gate, up)
     w_down = _weight(params["w_down"], x.dtype)
     if not tensor_parallel(tp_group):
         return torch.matmul(act, w_down).to(x.dtype)
@@ -264,14 +266,18 @@ def _trunk(params, cfg: ModelConfig, tokens: torch.Tensor, attn_fn, caches=None,
     new_caches = []
     if caches is None:
         caches = [None] * len(params["layers"])
-    for lp, cache in zip(params["layers"], caches):
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    # Each residual add goes with the norm that follows it (_add_norm): the
+    # MLP's output is added at the next layer's attention norm, the last
+    # one at the final norm.
+    layers = params["layers"]
+    norms = [lp["attn_norm"] for lp in layers] + [params["final_norm"]]
+    x, h = _add_norm(x, None, norms[0], cfg.norm_eps)
+    for lp, cache, next_norm in zip(layers, caches, norms[1:]):
         attn_out, cache = attn_fn(lp["attn"], acfg, h, cache, tp_group=tp_group)
-        x = x + attn_out
-        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + swiglu(h, lp["mlp"], tp_group)
+        x, h = _add_norm(x, attn_out, lp["mlp_norm"], cfg.norm_eps)
+        x, h = _add_norm(x, swiglu(h, lp["mlp"], tp_group), next_norm, cfg.norm_eps)
         new_caches.append(cache)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = h
     if isinstance(emb, QuantizedTensor):
         logits = torch.matmul(x, emb.values.to(dt).t()).float() * emb.scales[:, 0].float()
     else:

@@ -123,7 +123,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fat_decode.restype = c.c_int
     lib.fat_decode.argtypes = [ptr] * 8 + [ptr, ptr, shape, f32, f32, ptr]
     lib.fat_paged_decode.restype = c.c_int
-    lib.fat_paged_decode.argtypes = [ptr] * 9 + [ptr, ptr, shape, f32, f32, ptr]  # the page table after lengths
+    # The page table after lengths; then the self term's new K and V rows (or null).
+    lib.fat_paged_decode.argtypes = [ptr] * 9 + [ptr, ptr, shape, f32, f32, ptr, ptr, ptr]
+    # The decode step's glue (csrc/fused.cu): F1, F3, F2.
+    lib.fat_add_rms_norm.restype = c.c_int
+    lib.fat_add_rms_norm.argtypes = [ptr] * 5 + [i64, i64, f32, i32, ptr]  # x, delta, weight, x_new, h
+    lib.fat_swiglu_act.restype = c.c_int
+    lib.fat_swiglu_act.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
+    lib.fat_rope.restype = c.c_int
+    lib.fat_rope.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, q_out, k_out, freqs, positions
+        ptr, ptr, ptr, ptr, ptr,  # K / V cache rows, their scales, new lengths
+        shape, i32, i32, ptr,  # csrc/fused.cu's RopeShape array, dtype, payload, stream
+    ]
     lib.fat_paged_write.restype = c.c_int
     lib.fat_paged_write.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # k/v new, k/v pool, lengths, table

@@ -437,7 +437,7 @@ def _decode(q, k_cache, v_cache, lengths, *, sm_scale=None, save_residuals=False
                     batch, num_q_heads, num_kv_heads, max_seq, head_dim, q.stride(0), q.stride(1),
                     mask_window(sliding_window), int(ring_buffer), attention_sinks, splits,
                     _build.DTYPE_CODES[q.dtype], payload, *k_vals.stride()[:3], *v_vals.stride()[:3],
-                    *scale_strides(k_scales, v_scales), 0, 0, 0,
+                    *scale_strides(k_scales, v_scales), 0, 0, 0, 0, 0, 0, 0,
                 )),
                 sm_scale * LOG2E, softcap2(logit_softcap), _build.current_stream(q.device),
             )

@@ -8,7 +8,10 @@ counts its valid rows.
   * ``paged_decode_attention`` — K7 (csrc/decode.cu, the body K6 uses, read
     through the page table and split over whole pages), replacing
     ``_paged_decode_kernel_hb`` (:980) and ``_paged_decode_kernel``
-    (:1104); output and base-2 LSE.
+    (:1104); output and base-2 LSE. With ``self_kv`` its in-launch merge
+    also takes the current token's self term, the part of the JAX
+    package's ``models/attention.py:attention_decode_paged_deferred``
+    (:595-657) that XLA fused after the kernel.
   * ``paged_prefill_attention`` — K8 (K1's bodies read through the page
     table: csrc/flash_fwd_sm90.cu's tensor cores for bf16 / fp16 queries,
     csrc/flash_fwd.cu's FMA body for fp32), replacing
@@ -79,6 +82,7 @@ from flash_attention_tpu_torch.ops.decode import (
     split_buffers,
 )
 from flash_attention_tpu_torch.ops.flash_attention import FWD_FUNCTIONS, flash_attention_plain, fwd_body, fwd_q_tile
+from flash_attention_tpu_torch.ops.merge import merge_two
 from flash_attention_tpu_torch.ops.quant import bits, payload_dtype, quantize_values
 
 # The kernels read a page in runs of rows that must not straddle it: K8 in
@@ -431,9 +435,27 @@ def paged_decode_attention_plain(
     )
 
 
+def merge_self_plain(q, o_c, lse_c, k_new, v_new, *, sm_scale: float, logit_softcap: float | None = None):
+    """The current token's self term merged into a decode output: each q
+    head's score against its group's k_new row, q . k_new in fp32 through
+    the kernels' scale and softcap (a single score's LSE is the score),
+    and output v_new at full precision, combined with (o_c, lse_c) by
+    ``merge_two`` in the base-2 LSE domain. Returns (o in o_c's dtype, lse)."""
+    group = q.shape[1] // k_new.shape[1]
+    k_exp = k_new.repeat_interleave(group, dim=1)  # [n, Hq, D]
+    v_exp = v_new.repeat_interleave(group, dim=1)
+    s_raw = (q.float() * k_exp.float()).sum(dim=-1)  # [n, Hq]
+    if logit_softcap is None:
+        lse_self = s_raw * sm_scale * LOG2E
+    else:
+        lse_self = logit_softcap * torch.tanh(s_raw * sm_scale / logit_softcap) * LOG2E
+    return merge_two(o_c, lse_c, v_exp, lse_self)
+
+
 def paged_decode_attention(
     q: torch.Tensor, cache: PagedKVCache, *, sm_scale: float | None = None, save_residuals: bool = False,
     sliding_window: int | None = None, logit_softcap: float | None = None, attention_sinks: int = 0,
+    self_kv=None,
 ):
     """Single-token decode over the paged cache.
 
@@ -446,9 +468,15 @@ def paged_decode_attention(
       logit_softcap: scores become cap * tanh(score / cap).
       attention_sinks: logical rows [0, sinks) stay visible beside the
         window (requires the window; sinks < page_size).
+      self_kv: None, or (k_new, v_new), each [num_slots, kv_heads,
+        head_dim] of q's dtype: the current token, not in the pages, also
+        attended (``merge_self_plain``; in the same launch on the card), so
+        a slot of length 0 returns its v_new. The window applies to the
+        pages as given.
 
     Returns:
-      [num_slots, q_heads, head_dim] in q's dtype, plus the LSE if asked.
+      [num_slots, q_heads, head_dim] in q's dtype, plus the LSE if asked
+      (with ``self_kv``, both merged with the self term).
     """
     if q.ndim != 3:
         raise ValueError("expected q [num_slots, q_heads, head_dim]")
@@ -461,13 +489,22 @@ def paged_decode_attention(
     if cache.page_table.shape[0] != num_slots or cache.lengths.shape != (num_slots,):
         raise ValueError(f"{num_slots} query slots against a table of {tuple(cache.page_table.shape)}")
     _check_masks(cache, sliding_window, logit_softcap, attention_sinks)
+    if self_kv is not None:
+        for t in self_kv:
+            if t.shape != (num_slots, num_kv_heads, head_dim) or t.dtype != q.dtype or t.device != q.device:
+                raise ValueError(f"self_kv {tuple(t.shape)} {t.dtype} on {t.device}: want "
+                                 f"{(num_slots, num_kv_heads, head_dim)} {q.dtype} on {q.device}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(head_dim)
     if q.device.type == "cpu":
-        return paged_decode_attention_plain(
-            q, cache, sm_scale=sm_scale, save_residuals=save_residuals, sliding_window=sliding_window,
-            logit_softcap=logit_softcap, attention_sinks=attention_sinks,
+        out = paged_decode_attention_plain(
+            q, cache, sm_scale=sm_scale, save_residuals=save_residuals or self_kv is not None,
+            sliding_window=sliding_window, logit_softcap=logit_softcap, attention_sinks=attention_sinks,
         )
+        if self_kv is None:
+            return out
+        o, lse = merge_self_plain(q, *out, *self_kv, sm_scale=sm_scale, logit_softcap=logit_softcap)
+        return (o, lse) if save_residuals else o
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cpu or cuda tensors, got {q.device}")
 
@@ -478,6 +515,11 @@ def paged_decode_attention(
     lengths = _build.as_int32(cache.lengths)
     out = torch.empty((num_slots, num_q_heads, head_dim), dtype=q.dtype, device=q.device)
     lse = torch.empty((num_slots, num_q_heads), dtype=torch.float32, device=q.device) if save_residuals else None
+    self_ptrs, self_strides = [None, None], [0, 0, 0, 0]
+    if self_kv is not None:
+        k_new, v_new = (_build.unit_last_stride(t) for t in self_kv)
+        self_ptrs = [k_new.data_ptr(), v_new.data_ptr()]
+        self_strides = [*k_new.stride()[:2], *v_new.stride()[:2]]
     if out.numel():
         group = num_q_heads // num_kv_heads
         span = decode_span_rows(cache.pages_per_slot * page, sliding_window=sliding_window, page_size=page,
@@ -495,8 +537,9 @@ def paged_decode_attention(
                     q.stride(1), mask_window(sliding_window), 0, attention_sinks, splits,
                     _build.DTYPE_CODES[q.dtype], payload, *k_pages.stride()[:3], *v_pages.stride()[:3],
                     *scale_strides(cache.k_scales, cache.v_scales), num_pages, page, cache.pages_per_slot,
+                    *self_strides,
                 )),
-                sm_scale * LOG2E, softcap2(logit_softcap), _build.current_stream(q.device),
+                sm_scale * LOG2E, softcap2(logit_softcap), _build.current_stream(q.device), *self_ptrs,
             )
         _build.check(err, "paged_decode_attention (K7)")
         paged_decode_attention.last_grid = (splits, decode_blocks(num_slots, num_kv_heads, group, splits))
@@ -504,11 +547,15 @@ def paged_decode_attention(
             paged_decode_attention.quant_launches += 1
         else:
             paged_decode_attention.launches += 1
+        if self_kv is not None:
+            paged_decode_attention.self_launches += 1
     return (out, lse) if save_residuals else out
 
 
 counter(paged_decode_attention, "launches", "K7", "decode_kernel")
 counter(paged_decode_attention, "quant_launches", "K7q", "decode_kernel")
+# K7 / K7q launches that merged a self term (F4: the deferred decode step's).
+body_counter(paged_decode_attention, "self_launches", "K7/K7q self")
 paged_decode_attention.last_grid = None  # (splits, blocks) of the last launch
 
 

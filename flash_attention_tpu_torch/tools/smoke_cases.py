@@ -156,7 +156,8 @@ def _serve_paths(card: str, quant: bool) -> dict:
     with chip_smoke.py's own serving function on fresh weights from seed 0:
     phase 5 (``ServingEngine``, ``ModelConfig()``), phase 8
     (``PagedServingEngine``, the same weights and requests), with ``quant``
-    phase 11b (the same over an fp8 e4m3 cache), then Mistral-7B's shape
+    phase 11a (int8 weights and an int8 cache through ``ServingEngine``) and
+    11b (the paged engine over an fp8 e4m3 cache), then Mistral-7B's shape
     through phase 17's rolling engine (17a, the 4352-row ring) and its paged
     ring with 4 sinks (17c), each after ``warmup()``."""
     import dataclasses
@@ -166,18 +167,25 @@ def _serve_paths(card: str, quant: bool) -> dict:
     import torch
 
     import chip_smoke as cs
-    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params, quantize_model_weights
     from flash_attention_tpu_torch.serving.engine import ServingEngine
     from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
 
     cfg = ModelConfig()
     params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     runs = {}
-    _, runs["5"] = cs.serve_full_dense(card, "full", cfg, params, used=("K1", "K6"))
-    _, runs["8"] = cs.serve_full_paged(card, "full paged", cfg, params, used=("K7", "K8", "K9/K10"), dense=runs["5"])
+    _, runs["5"] = cs.serve_full_dense(card, "full", cfg, params, used=("K1", "K6", *_glue(cs)))
+    if quant:
+        params_w8 = quantize_model_weights(params)
+        _, runs["11a"] = cs.serve_full_dense(card, "full quant a", ModelConfig(kv_quant="int8", weight_quant="int8"),
+                                             params_w8, used=("K1", "K6q", *_glue(cs)), ref=runs["5"])
+        del params_w8
+    _, runs["8"] = cs.serve_full_paged(card, "full paged", cfg, params, used=("K7", "K8", "K9/K10", *_glue(cs)),
+                                       dense=runs["5"])
     if quant:
         _, runs["11b"] = cs.serve_full_paged(card, "full quant b", ModelConfig(kv_quant="fp8_e4m3"), params,
-                                             used=("K7q", "K8q", "K9q/K10q"), dense=runs["5"], ref=runs["8"])
+                                             used=("K7q", "K8q", "K9q/K10q", *_glue(cs)), dense=runs["5"],
+                                             ref=runs["8"])
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -187,24 +195,29 @@ def _serve_paths(card: str, quant: bool) -> dict:
     prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n)) for n in cs.MASKED_PROMPT_LENS]
     eng = ServingEngine(params, dataclasses.replace(cfg, rolling=True), max_slots=8, max_seq=16384, prefill_chunk=256)
     eng.warmup()
-    runs["17a"] = cs._serve_masked(card, "full masked a", eng, prompts, used=("K1", "K6"))
+    runs["17a"] = cs._serve_masked(card, "full masked a", eng, prompts, used=("K1", "K6", *_glue(cs)))
     del eng
     torch.cuda.empty_cache()
     eng = PagedServingEngine(params, dataclasses.replace(cfg, attention_sinks=cs.SINKS), max_slots=8, num_pages=297,
                              pages_per_slot=72, page_size=128, prefill_chunk=256)
     eng.warmup()
-    runs["17c"] = cs._serve_masked(card, "full masked c", eng, prompts, used=("K7", "K8", "K9/K10"))
+    runs["17c"] = cs._serve_masked(card, "full masked c", eng, prompts, used=("K7", "K8", "K9/K10", *_glue(cs)))
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
     return runs
 
 
+def _glue(cs) -> tuple:
+    """The glue kernels a tree's serving paths launch (none before csrc/fused.cu)."""
+    return getattr(cs, "GLUE", ())
+
+
 def serve_decode(card: str) -> dict:
-    """Decode tokens/s of the serving paths K6, K7 and K10 run on
-    (``_serve_paths``: phases 5, 8, 17a and 17c). ``ms`` is 1000 over phase
-    5's decode tok/s (a step's share per token)."""
-    runs = _serve_paths(card, quant=False)
+    """Decode tokens/s of the serving paths (``_serve_paths``: phases 5, 8,
+    11a, 11b, 17a and 17c). ``ms`` is 1000 over phase 5's decode tok/s (a
+    step's share per token)."""
+    runs = _serve_paths(card, quant=True)
     tok_s = {key: run["decode_tok_s"] for key, run in runs.items()}
     print("[serve decode] decode tok/s " + ", ".join(f"phase {k} {v:.1f}" for k, v in tok_s.items()) + f" ({card})",
           flush=True)
@@ -843,8 +856,9 @@ def sharded_serving(card: str) -> None:
 
     cfg = ModelConfig()
     params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
-    _, dense = cs.serve_full_dense(card, "full", cfg, params, used=("K1", "K6"))
-    _, paged = cs.serve_full_paged(card, "full paged", cfg, params, used=("K7", "K8", "K9/K10"), dense=dense)
+    _, dense = cs.serve_full_dense(card, "full", cfg, params, used=("K1", "K6", *_glue(cs)))
+    _, paged = cs.serve_full_paged(card, "full paged", cfg, params, used=("K7", "K8", "K9/K10", *_glue(cs)),
+                                   dense=dense)
     del params
     print(json.dumps({"kernels": cs.phase_sharded_serving(card, dense["tokens"], paged["tokens"])}), flush=True)
 
@@ -860,8 +874,9 @@ def warmup_profiles(card: str) -> None:
 
     cfg = ModelConfig()
     params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
-    _, dense = cs.serve_full_dense(card, "full", cfg, params, used=("K1", "K6"))
-    _, paged = cs.serve_full_paged(card, "full paged", cfg, params, used=("K7", "K8", "K9/K10"), dense=dense)
+    _, dense = cs.serve_full_dense(card, "full", cfg, params, used=("K1", "K6", *_glue(cs)))
+    _, paged = cs.serve_full_paged(card, "full paged", cfg, params, used=("K7", "K8", "K9/K10", *_glue(cs)),
+                                   dense=dense)
     del params
     cs.phase_warmup_profiles(card, dense["tokens"], paged["tokens"])
 
@@ -959,6 +974,149 @@ def tp_emulation(card: str) -> None:
     again = cs._serve_logits(params, cfg, "dense")
     print(f"[tp emulation] single process against itself: run again {cs._rel_diff(again, want):.3e}, prefill in 256-row "
           f"chunks {cs._rel_diff(torch.cat(rows), want[:cs.TP_PREFILL]):.3e} ({card})", flush=True)
+
+
+def _kernel_short(name: str) -> str:
+    """A device record's name without its template arguments' bulk."""
+    for key in ("direct_copy", "nvjet", "gemv", "gemm", "elementwise_kernel", "reduce_kernel", "index", "sort"):
+        if key in name:
+            return f"{key}: {name[:90]}"
+    return name[:110]
+
+
+def glue_trace(card: str) -> dict:
+    """Which source line issues each device operation of one decode step:
+    phase 24(c)'s dense and paged step plus the sampler (ModelConfig() at
+    bf16 on fresh weights from seed 0, 8 slots x PROFILE_ROWS rows, paged
+    over 129 pages of 128 rows), issued eagerly (a replayed block runs the
+    same kernels) under torch.profiler with shapes. Prints the step's
+    device operations by kernel and, by (kernel, the aten operator that
+    launched it, its input shapes), the rows that take the most device time
+    and every ``direct_copy`` row. ``ms`` is the dense step's device ms."""
+    from collections import defaultdict
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.models.transformer import (
+        ModelConfig,
+        decode_step_logits,
+        decode_step_logits_paged,
+        init_caches,
+        init_model_params,
+        init_paged_caches,
+    )
+    from flash_attention_tpu_torch.serving.sampling import sample_tokens
+
+    cfg = ModelConfig()
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    slots, rows = 8, cs.PROFILE_ROWS
+    sampling = {key: t.cuda() for key, t in cs._sampling_inputs(rows + 1).items()}
+    tok = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (slots, 1))).to("cuda", torch.int32)
+    lengths = torch.full((slots,), rows, dtype=torch.int32, device="cuda")
+    caches = [c._replace(lengths=lengths) for c in init_caches(cfg, slots, 2048, device="cuda")]
+    paged = init_paged_caches(cfg, num_pages=129, num_slots=slots, pages_per_slot=16, page_size=128)
+    paged.page_table.copy_(1 + torch.arange(slots * 16, dtype=torch.int32, device="cuda").view(slots, 16))
+    paged = paged._replace(lengths=lengths)
+    out = {}
+    for what, decode, cache in (("dense", decode_step_logits, caches), ("paged", decode_step_logits_paged, paged)):
+        def step():
+            with torch.no_grad():
+                return sample_tokens(decode(params, cfg, tok, cache)[0], **sampling)
+
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+            step()
+            torch.cuda.synchronize()
+        events = prof.events()
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_kernel = defaultdict(lambda: [0, 0.0])
+        for e in device:
+            row = by_kernel[_kernel_short(e.name)]
+            row[0] += 1
+            row[1] += e.time_range.end - e.time_range.start
+        by_op = defaultdict(lambda: [0, 0.0])
+        attributed = 0
+        for e in events:
+            if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+                continue
+            shapes = str([list(s) for s in e.input_shapes if s])[:70]
+            for k in e.kernels:
+                row = by_op[(_kernel_short(k.name)[:60], e.name, shapes)]
+                row[0] += 1
+                row[1] += k.duration
+                attributed += 1
+        device_ms = sum(us for _, us in by_kernel.values()) / 1e3
+        print(f"[glue trace] {what} step + sampler: {len(device)} device operations, {device_ms:.3f} ms of device "
+              f"time; {attributed} attributed to an aten operator (the rest: the port's own ctypes launches) "
+              f"({card})", flush=True)
+        for name, (n, us) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1]):
+            print(f"[glue trace] {what} by kernel: x{n} {us / 1e3:.4f} ms  {name}", flush=True)
+        ranked = sorted(by_op.items(), key=lambda kv: -kv[1][1])
+        shown = ranked[:40] + [kv for kv in ranked[40:] if "direct_copy" in kv[0][0]]
+        for (kname, op, shapes), (n, us) in shown:
+            print(f"[glue trace] {what} by operator: x{n} {us / 1e3:.4f} ms  {kname} | {op} {shapes}", flush=True)
+        out[f"{what} device_ops"] = len(device)
+        out[f"{what} device_ms"] = device_ms
+        out[f"{what} direct_copy"] = sum(n for name, (n, _) in by_kernel.items() if "direct_copy" in name)
+    return {"ms": out["dense device_ms"], **out}
+
+
+def block_step(card: str) -> dict:
+    """Phase 24(c)'s replayed decode blocks on fresh ModelConfig() weights
+    (seed 0): the dense and the paged engine's k = 16 program, sampled and
+    greedy, every slot active at 8 slots x PROFILE_ROWS rows (reset before
+    each block), the paged table the straight one. Each block's least
+    untraced wall of 2 runs of 3 (``time_fn``) as ms a step, and from one
+    traced block (``profile_op``) its device busy share, device operations
+    and ``direct_copy`` kernels a step. ``ms`` is the dense sampled step's."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+    from flash_attention_tpu_torch.serving.engine import ServingEngine
+    from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
+    from flash_attention_tpu_torch.utils.benchmarking import time_fn
+    from flash_attention_tpu_torch.utils.profiling import profile_op
+
+    cfg = ModelConfig()
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    slots, k = 8, cs.DENSE_ENGINE_BLOCK
+    rows = {key: t.numpy() for key, t in cs._sampling_inputs(0).items()}
+    tok = np.random.default_rng(5).integers(0, cfg.vocab_size, slots).astype(np.int32)
+    out = {}
+    for what, make in (("dense", lambda: ServingEngine(params, cfg, max_slots=slots, max_seq=2048)),
+                       ("paged", lambda: PagedServingEngine(params, cfg, max_slots=slots, num_pages=129,
+                                                            pages_per_slot=16, page_size=128))):
+        eng = make()
+        if what == "paged":
+            eng.caches.page_table.copy_(1 + torch.arange(slots * 16, dtype=torch.int32, device="cuda").view(slots, 16))
+        lengths = eng._lengths_of(eng.caches)
+        eng.programs.upload(tok, np.ones(slots, bool), rows["temperature"], rows["top_k"], rows["top_p"],
+                            rows["seeds"])
+        for greedy in (False, True):
+            def block(eng=eng, lengths=lengths, greedy=greedy):
+                lengths.fill_(cs.PROFILE_ROWS)
+                return eng.programs.run(k, greedy)
+
+            prof = profile_op(block, warmup=2, iters=1)
+            wall = min(time_fn(block, warmup=1, iters=3, runs=2))
+            ops = sum(op["count"] for op in prof["device_ops"]) / k
+            copies = sum(op["count"] for op in prof["device_ops"] if "direct_copy" in op["name"]) / k
+            key = f"{what} {'greedy' if greedy else 'sampled'}"
+            print(f"[block step] {key} k={k} block replayed, {slots} slots x {cs.PROFILE_ROWS} rows: "
+                  f"{wall * 1e3 / k:.3f} ms a step untraced, busy {prof['device_busy_share']:.4f} of the traced "
+                  f"block, {ops:g} device operations and {copies:g} direct_copy a step ({card})", flush=True)
+            out[f"{key} ms_step"], out[f"{key} busy"] = wall * 1e3 / k, prof["device_busy_share"]
+            out[f"{key} ops_step"], out[f"{key} copies_step"] = ops, copies
+        del eng, lengths
+        torch.cuda.empty_cache()
+    return {"ms": out["dense sampled ms_step"], **out}
 
 
 def _one(funcs: list[str]) -> None:

@@ -17,7 +17,7 @@ import flash_attention_tpu_torch as port
 from flash_attention_tpu_torch.ops import counters
 
 KERNELS = {"K1", "K2", "K1d", "K3", "K4", "K5", "K3m", "K4m", "K5m", "K5s", "K6", "K6q", "K7", "K7q", "K8", "K8q",
-           "K9/K10", "K9q/K10q", "PT", "PS"}
+           "K9/K10", "K9q/K10q", "PT", "PS", "F1", "F2", "F3"}
 
 
 def _modules():
@@ -45,7 +45,8 @@ def test_every_launch_counter_is_registered():
 def test_the_registry_names_each_kernel_once():
     _modules()
     assert set(counters.KERNELS) == KERNELS
-    assert set(counters.BODIES) == {"K1/K1d/K2 tensor_core", "K1/K1d/K2 fma", "K8/K8q tensor_core", "K8/K8q fma"}
+    assert set(counters.BODIES) == {"K1/K1d/K2 tensor_core", "K1/K1d/K2 fma", "K8/K8q tensor_core", "K8/K8q fma",
+                                    "K7/K7q self"}
     groups = counters.functions()
     assert groups[("decode_kernel",)] == ("K6", "K6q", "K7", "K7q")
     assert sorted(k for kernels in groups.values() for k in kernels) == sorted(KERNELS)
@@ -60,6 +61,9 @@ def test_the_registry_names_each_kernel_once():
     ("void fwd_kernel<__half, __half, 128, true, 2, false>(Params)", ("K1", "K2", "K1d", "K8", "K8q")),
     ("void flash_bwd_dq_kernel<float, 64, false>(BwdParams)", ("K4", "K4m")),
     ("void split_sum_kernel<__nv_bfloat16>(float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, int)", ("K5s",)),
+    ("void (anonymous namespace)::add_rms_norm_kernel<__nv_bfloat16>(NormParams)", ("F1",)),
+    ("void (anonymous namespace)::rope_kernel<__nv_bfloat16, signed char>(RopeParams)", ("F2",)),
+    ("void (anonymous namespace)::swiglu_act_kernel<float>(float const*, float const*, float*, long)", ("F3",)),
     ("nvjet_tst_128x8_64x12_4x1_v_bz_NNT", None),
     ("void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_impl<...>>(int, ...)", None),
 ])
