@@ -2166,7 +2166,8 @@ def phase_quant_sweep() -> None:
 
 def phase_tiny_quant() -> None:
     """Phase 10: the tiny fp32 model with each kv_quant mode and with int8
-    weights through both engines on the card and on the CPU."""
+    weights through both engines on the card and on the CPU (with int8
+    weights every product on W1, none without)."""
     import numpy as np
     import torch
 
@@ -2188,6 +2189,10 @@ def phase_tiny_quant() -> None:
             paged = PagedServingEngine(on, cfg, max_slots=3, num_pages=16, pages_per_slot=2, page_size=128)
             for name, eng in (("dense", dense), ("paged", paged)):
                 tokens[name, device] = replayed_tokens(f"[tiny quant] {name}", eng, tiny_requests())
+                # fp32 activations: every product with an int8 weight on W1's FMA body, none widened.
+                w8 = {key: read_counts()[key] for key in ("W1", "W2")}
+                if device == "cuda" and (w8["W2"] or bool(w8["W1"]) != ("weight_quant" in variant)):
+                    raise RuntimeError(f"[tiny quant] {variant}, {name}: W8A16 launches {w8}")
         label = ", ".join(f"{k}={v}" for k, v in variant.items())
         for name in ("dense", "paged"):
             if tokens[name, "cuda"] != tokens[name, "cpu"]:
@@ -2222,18 +2227,28 @@ def phase_tiny_quant() -> None:
 
 def phase_full_quant(card: str, params, dense: dict, paged: dict) -> dict:
     """Phase 11: phase 5's weights at full width, (a) int8 weights and an
-    int8 cache through ServingEngine on phase 5's requests, (b) an fp8_e4m3
-    cache through PagedServingEngine on phase 8's runs. Returns the launch
-    counts of both main paths."""
+    int8 cache through ServingEngine on phase 5's requests (every product
+    with an int8 weight on W1 or W2, csrc/w8.cu), (b) an fp8_e4m3 cache
+    through PagedServingEngine on phase 8's runs. Returns the launch counts
+    of both main paths."""
     from flash_attention_tpu_torch.models.transformer import ModelConfig, quantize_model_weights
 
     params_w8 = quantize_model_weights(params)
-    launches_a, _ = serve_full_dense(card, "full quant a", ModelConfig(kv_quant="int8", weight_quant="int8"), params_w8,
-                                     used=("K1", "K6q", *GLUE), ref=dense)
+    launches_a, numbers_a = serve_full_dense(card, "full quant a", ModelConfig(kv_quant="int8", weight_quant="int8"),
+                                             params_w8, used=("K1", "K6q", "W1", "W2", *GLUE), ref=dense)
     del params_w8
+    # Phase 5's bf16 weights stay allocated through 11a; less them, 11a's peak is its own (W1 / W2 read the int8
+    # weights: no 16-bit copy of one is made).
+    own = numbers_a["peak_gib"] - _nbytes(params) / 2**30
+    log(f"[full quant a] peak device memory less phase 5's bf16 weights (allocated throughout): {own:.2f} GiB; phase "
+        f"5's peak {dense['peak_gib']:.2f} GiB ({card})")
+    if own >= dense["peak_gib"]:
+        raise RuntimeError(f"[full quant a] peak device memory {own:.2f} GiB of its own, not below phase 5's "
+                           f"{dense['peak_gib']:.2f}")
     launches_b, _ = serve_full_paged(card, "full quant b", ModelConfig(kv_quant="fp8_e4m3"), params,
                                      used=("K7q", "K8q", "K9q/K10q", *GLUE), dense=dense, ref=paged)
-    return {"K6q": launches_a["K6q"], "K7q": launches_b["K7q"], "K8q": launches_b["K8q"], "K10q": launches_b["K9q/K10q"]}
+    return {"K6q": launches_a["K6q"], "K7q": launches_b["K7q"], "K8q": launches_b["K8q"], "K10q": launches_b["K9q/K10q"],
+            "W1": launches_a["W1"], "W2": launches_a["W2"]}
 
 
 # The backward kernels' cases at the training path's shapes: (hq, hkv,
@@ -4995,14 +5010,18 @@ def _tp_gloo_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
     return out
 
 
-def _tp_tiny_rank(want_dense: dict, want_paged: dict) -> dict:
+def _tp_tiny_rank(want_dense: dict, want_paged: dict, want_w8: dict) -> dict:
     """(c): one of eight gloo ranks on cuda:0: tests/test_sharded_serving.py's
     fp32 config and requests through both engines on its data 2 x model 4
-    mesh (the pools over model 4, replicas over data)."""
+    mesh (the pools over model 4, replicas over data), then the dense engine
+    on the same weights quantized to int8 (W1 on the rank's column shards
+    and its row-parallel fp32 partials)."""
+    import dataclasses
+
     import torch
     import torch.distributed as dist
 
-    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params, quantize_model_weights
     from flash_attention_tpu_torch.parallel.mesh import make_mesh
     from flash_attention_tpu_torch.parallel.sharding import make_cache_sharding
     from flash_attention_tpu_torch.serving.engine import Request, ServingEngine
@@ -5023,6 +5042,11 @@ def _tp_tiny_rank(want_dense: dict, want_paged: dict) -> dict:
     got, out["launches"]["paged"], out["s"]["paged"] = _served(eng, reqs, ("K7", "K8", "K9/K10", *GLUE),
                                                                "[sharded] (c) paged")
     out["paged equal"], out["paged kv"] = got == want_paged, tuple(eng.caches.k_pool.shape)
+    eng = ServingEngine(quantize_model_weights(params), dataclasses.replace(cfg, weight_quant="int8"), max_slots=4,
+                        max_seq=64, shard_caches=sharding)
+    got, out["launches"]["dense w8"], out["s"]["dense w8"] = _served(eng, reqs, ("K1", "K6", "W1", *GLUE),
+                                                                     "[sharded] (c) dense, int8 weights")
+    out["w8 equal"] = got == want_w8
     return out
 
 
@@ -5233,9 +5257,11 @@ def _sharded_gloo(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
 def _sharded_jax_config(card: str) -> None:
     """Phase 23 (c): the unsharded engines on the card, then eight
     ``_tp_tiny_rank`` processes held to their tokens."""
+    import dataclasses
+
     import torch
 
-    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params, quantize_model_weights
     from flash_attention_tpu_torch.serving.engine import Request, ServingEngine
     from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
     from flash_attention_tpu_torch.utils.distributed import spawn_ranks
@@ -5247,12 +5273,16 @@ def _sharded_jax_config(card: str) -> None:
     want_dense = {rid: c.tokens for rid, c in ServingEngine(params, cfg, max_slots=4, max_seq=64).run(reqs).items()}
     want_paged = {rid: c.tokens for rid, c in PagedServingEngine(
         params, cfg, max_slots=4, num_pages=16, pages_per_slot=2, page_size=128).run(reqs).items()}
-    c = spawn_ranks(_tp_tiny_rank, 8, want_dense, want_paged, backend="gloo", timeout_s=600)
+    want_w8 = {rid: c.tokens for rid, c in ServingEngine(
+        quantize_model_weights(params), dataclasses.replace(cfg, weight_quant="int8"), max_slots=4,
+        max_seq=64).run(reqs).items()}
+    c = spawn_ranks(_tp_tiny_rank, 8, want_dense, want_paged, want_w8, backend="gloo", timeout_s=600)
     log(f"[sharded] (c) tests/test_sharded_serving.py's fp32 config on 8 gloo ranks (data 2 x model 4): dense tokens "
         f"== the unsharded engine's on the card on every rank: {all(r['dense equal'] for r in c)} (local cache "
-        f"{c[0]['dense kv']}), paged: {all(r['paged equal'] for r in c)} (local pools {c[0]['paged kv']}); tokens "
-        f"{want_dense}; launches a rank {[r['launches'] for r in c]}; (c) took {time.perf_counter() - t0:.1f} s ({card})")
-    if not all(r["dense equal"] and r["paged equal"] for r in c):
+        f"{c[0]['dense kv']}), paged: {all(r['paged equal'] for r in c)} (local pools {c[0]['paged kv']}), dense with "
+        f"int8 weights (W1 on the shards): {all(r['w8 equal'] for r in c)}; tokens {want_dense}, int8 weights "
+        f"{want_w8}; launches a rank {[r['launches'] for r in c]}; (c) took {time.perf_counter() - t0:.1f} s ({card})")
+    if not all(r["dense equal"] and r["paged equal"] and r["w8 equal"] for r in c):
         raise RuntimeError("[sharded] (c) a rank's tokens differ from the unsharded engine's")
 
 
@@ -5968,6 +5998,228 @@ def phase_fused(card: str) -> dict:
     return out
 
 
+# Phase 26: ModelConfig()'s W8A16 products, (weight shape, contract axes, scale on the output), and the
+# tensor-parallel shards the engines run (a model axis of 2 and 4: column shards as strided views, and the
+# row-parallel w_down shard with an fp32 output).
+W8_WEIGHTS = {
+    "wq": ((4096, 32, 128), 0, False), "wk": ((4096, 8, 128), 0, False), "wo": ((32, 128, 4096), (0, 1), False),
+    "w_gate": ((4096, 11008), 0, False), "w_down": ((11008, 4096), 0, False), "unembed": ((32000, 4096), 1, True),
+}
+W8_SHARDS = {  # name: (full weight, dimension split, ranks, fp32 output)
+    "wq / 4": ("wq", 1, 4, False), "w_gate / 2": ("w_gate", 1, 2, False), "w_gate / 4": ("w_gate", 1, 4, False),
+    "w_down / 4 (row-parallel)": ("w_down", 0, 4, True), "wo / 2 (row-parallel)": ("wo", 0, 2, True),
+}
+W1_ROWS = (1, 8, 32)  # decode: live slots (8 in the phases, 32 in an engine of 32 slots)
+W2_ROWS = (64, 256, 1024)  # prefill chunks
+W8_TIMED = (("W1", 8), ("W2", 256), ("W2", 1024))
+
+
+def _w8_weights(gen) -> dict:
+    """Phase 26's int8 weights at ModelConfig()'s widths (init_model_params'
+    scales), quantized by the port, and their shards."""
+    import math
+
+    import torch
+
+    from flash_attention_tpu_torch.ops.quant import QuantizedTensor, quantize_weight
+
+    out = {}
+    for name, (shape, axes, _) in W8_WEIGHTS.items():
+        fan_in = shape[0] * (shape[1] if isinstance(axes, tuple) else 1) if name != "unembed" else shape[1]
+        w = torch.randn(shape, generator=gen, device="cuda") / math.sqrt(fan_in)
+        out[name] = quantize_weight(w, contract_axes=axes)
+    for label, (name, dim, ranks, _) in W8_SHARDS.items():
+        qt = out[name]
+        size = qt.values.shape[dim] // ranks
+        values = qt.values.narrow(dim, size, size)  # rank 1's block
+        scales = qt.scales if dim == 0 else qt.scales.narrow(dim, size, size)
+        out[label] = QuantizedTensor(values, scales)
+    return out
+
+
+def _w8_case(what: str, x, w, *, out_dtype, scale_on_output: bool, kernel: str) -> tuple[float, float]:
+    """One W8A16 product on the card: launched on ``kernel`` (W1 / W2) and
+    nothing else, bit-identical over two calls, within PLAIN_BAR (REL_BAR in
+    fp32) row-relative of the plain version and ORACLE_BAR of the fp32
+    oracle (the scales applied to the fp32 codes, no bf16 widen). Returns
+    (row-relative error, oracle error)."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.quant import w8_matmul, w8_matmul_plain
+
+    before = read_counts()
+    try:
+        got = w8_matmul(x, w, out_dtype=out_dtype, scale_on_output=scale_on_output)
+        again = w8_matmul(x, w, out_dtype=out_dtype, scale_on_output=scale_on_output)
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        raise RuntimeError(f"[w8] {what}: {err}") from err
+    gained = {k: n - before[k] for k, n in read_counts().items() if n != before[k]}
+    if gained != {kernel: 2}:
+        raise RuntimeError(f"[w8] {what}: launches {gained}, want {{'{kernel}': 2}}")
+    if not _bits_equal(got, again):
+        raise RuntimeError(f"[w8] {what}: two calls on the same inputs differ")
+    plain = w8_matmul_plain(x, w, out_dtype=out_dtype, scale_on_output=scale_on_output)
+    k = x.shape[-1]
+    if scale_on_output:
+        oracle = (x.float() @ w.values.float().t()) * w.scales.reshape(-1).float()
+    else:
+        oracle = x.float() @ (w.values.float() * w.scales).reshape(k, -1)
+    rel = _rel_diff(got.reshape(plain.shape), plain)
+    d_oracle = _max_diff(got.reshape(oracle.shape).float(), oracle)
+    bar = REL_BAR["float32"] if x.dtype == torch.float32 else PLAIN_BAR
+    if not (rel < bar and d_oracle < ORACLE_BAR):
+        raise RuntimeError(f"[w8] {what}: row-relative to plain {rel:.3e} (bar {bar}), oracle {d_oracle:.3e}")
+    return rel, d_oracle
+
+
+def _w8_one_hot(what: str, w, k: int, dtype, m: int, *, out_dtype, scale_on_output: bool) -> None:
+    """Rows e_k of x (k spread over K) return the widened weight's rows
+    k bit for bit (the unembed: the code times the row's scale in fp32)."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.quant import w8_dequant, w8_matmul
+
+    ks = torch.linspace(0, k - 1, m, device="cuda").long()
+    x = torch.zeros((m, k), dtype=dtype, device="cuda")
+    x[torch.arange(m, device="cuda"), ks] = 1
+    got = w8_matmul(x, w, out_dtype=out_dtype, scale_on_output=scale_on_output).reshape(m, -1)
+    if scale_on_output:
+        want = w.values[:, ks].t().float() * w.scales.reshape(1, -1)
+    else:
+        want = w8_dequant(w).to(dtype).reshape(k, -1)[ks].to(out_dtype)
+    if not _bits_equal(got.contiguous(), want.contiguous()):
+        raise RuntimeError(f"[w8] {what}: one-hot rows differ from the widened weight's rows "
+                           f"({int((got != want).sum())} elements)")
+
+
+def _w8_k(w, axes, scale_on_output: bool) -> int:
+    """x's columns for a weight of phase 26: the [N, K] unembed's K, else
+    the product of the contracted leading axes."""
+    import math
+
+    return w.values.shape[1] if scale_on_output else math.prod(w.values.shape[:2 if axes == (0, 1) else 1])
+
+
+def _w8_row(card: str, key: str, what: str, x, w, *, out_dtype, scale_on_output: bool, err: float) -> dict:
+    """A timed W8A16 product: the wrapper call, the kernel alone in a CUDA
+    graph and the host µs (``_three_times``); the plain version; cuBLAS on
+    the weight widened beforehand (``library_ms``: phase 5's bf16 GEMM); and
+    the path before W1 / W2 (the widen to a bf16 copy, then cuBLAS), against
+    the bound (the int8 weight, its scales, x and the output once; 2 M N K at
+    989 TFLOP/s)."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.quant import w8_dequant, w8_matmul, w8_matmul_plain
+
+    m, k = x.shape
+    n = w.values.shape[0] if scale_on_output else w.values.numel() // k
+    ms, alone, host_us = _three_times(lambda: w8_matmul(x, w, out_dtype=out_dtype, scale_on_output=scale_on_output))
+    plain_ms = cuda_ms(lambda: w8_matmul_plain(x, w, out_dtype=out_dtype, scale_on_output=scale_on_output))
+    if scale_on_output:
+        wide = w.values.to(x.dtype)
+        library_ms = cuda_ms(lambda: torch.mm(x, wide.t(), out_dtype=torch.float32))
+        before_ms = cuda_ms(lambda: torch.matmul(x, w.values.to(x.dtype).t()).float() * w.scales[:, 0])
+    else:
+        wide = w8_dequant(w).to(x.dtype).reshape(k, n)
+        library_ms = cuda_ms(lambda: torch.matmul(x, wide))
+        before_ms = cuda_ms(lambda: torch.matmul(x, w8_dequant(w).to(x.dtype).reshape(k, n)))
+    del wide
+    out_bytes = 4 if out_dtype == torch.float32 else 2
+    nbytes = k * n + 4 * n + m * k * x.element_size() + m * n * out_bytes
+    bound_ms, bound_by = bound(2.0 * m * n * k, nbytes)
+    log(f"[w8] {key} {what}: kernel {ms:.4f} ms as a call, {alone:.4f} ms alone in a CUDA graph, host {host_us:.1f} "
+        f"us a call; plain {plain_ms:.4f} ms; cuBLAS on the widened weight {library_ms:.4f} ms; the widen + cuBLAS "
+        f"path before W1 / W2 {before_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.2f} MB, "
+        f"{2.0 * m * n * k / 1e9:.2f} GFLOP), {bound_ms / alone:.3f} of it alone ({card})")
+    return {"name": f"{'w8_gemv_kernel' if key == 'W1' else 'w8_gemm_kernel'} ({key}), {what}", "route": "cuda",
+            "source": "flash_attention_tpu_torch/csrc/w8.cu", "replaces": f"{REFERENCE}/ops/quant.py:124",
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_w8(card: str) -> dict:
+    """Phase 26: W1 and W2 (csrc/w8.cu) at ModelConfig()'s weights (wq, wk,
+    wo over (H, D), w_gate, w_down, the [32000, 4096] unembed with its
+    scale on the fp32 output) and the engines' tensor-parallel shards
+    (strided column views; the row-parallel partials in fp32), each at
+    W1_ROWS (W1) and W2_ROWS (W2) rows in bf16 and fp16, and at W1_ROWS in
+    fp32 (W1's FMA body): every product held by ``_w8_case`` and its one-hot
+    rows by ``_w8_one_hot``; a split W1 (wo, w_down) and W2 replayed in a
+    CUDA graph equal to the direct call; an odd shape (K 100, N 72) on W1's
+    byte-wise loads. Then the W8_TIMED rows at every layout in bf16, timed
+    (``_w8_row``). Returns W1's and W2's lines (w_gate at 8 and 256 rows)."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.quant import W1_MAX_ROWS, quantize_weight, w8_matmul
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    weights = _w8_weights(gen)
+    worst, cases = {"W1": [0.0, 0.0], "W2": [0.0, 0.0]}, 0
+    layouts = {**{name: (axes, on_output, False) for name, (_, axes, on_output) in W8_WEIGHTS.items()},
+               **{label: (W8_WEIGHTS[name][1], False, f32) for label, (name, _, _, f32) in W8_SHARDS.items()}}
+    for name, (axes, on_output, f32_out) in layouts.items():
+        w = weights[name]
+        k = _w8_k(w, axes, on_output)
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            out_dtype = torch.float32 if on_output or f32_out else dtype
+            for m in W1_ROWS + (W2_ROWS if dtype != torch.float32 else ()):
+                kernel = "W1" if m <= W1_MAX_ROWS or dtype == torch.float32 else "W2"
+                x = torch_uniform((m, k), dtype, gen) * 2
+                rel, d_oracle = _w8_case(f"{name} {str(dtype)[6:]} M={m}", x, w, out_dtype=out_dtype,
+                                         scale_on_output=on_output, kernel=kernel)
+                worst[kernel] = [max(worst[kernel][0], rel), max(worst[kernel][1], d_oracle)]
+                cases += 1
+            for m in (8, 64) if dtype != torch.float32 else (8,):
+                _w8_one_hot(f"{name} {str(dtype)[6:]} M={m}", w, k, dtype, m, out_dtype=out_dtype,
+                            scale_on_output=on_output)
+    log(f"[w8] {cases} products held (launched on W1 at <= {W1_MAX_ROWS} rows or fp32, else W2; two calls "
+        f"bit-identical; one-hot rows bit-exact at 8 and 64 rows): worst row-relative to plain and oracle error "
+        f"W1 {worst['W1'][0]:.3e} / {worst['W1'][1]:.3e}, W2 {worst['W2'][0]:.3e} / {worst['W2'][1]:.3e} ({card})")
+
+    # A CUDA graph's replay equals the direct call (W1's split tickets reset themselves).
+    for name, m in (("wo", 8), ("w_down", 1), ("w_down / 4 (row-parallel)", 32), ("w_gate", 256), ("unembed", 8)):
+        w, on_output = weights[name], name == "unembed"
+        k = _w8_k(w, (0, 1) if name == "wo" else 0, on_output)
+        x = torch_uniform((m, k), torch.bfloat16, gen)
+        out_dtype = torch.float32 if on_output or "row" in name else torch.bfloat16
+
+        def call(x=x, w=w, out_dtype=out_dtype, on_output=on_output):
+            return (w8_matmul(x, w, out_dtype=out_dtype, scale_on_output=on_output),)
+
+        if not _graph_replays(call, call()):
+            raise RuntimeError(f"[w8] {name} M={m}: a CUDA graph's replay differs from the direct call")
+    # An odd shape: W1's byte-wise loads (K and N off 16), W2's shapes falling back to W1.
+    odd = quantize_weight(torch.randn((100, 72), generator=gen, device="cuda") / 10, contract_axes=0)
+    odd_e = quantize_weight(torch.randn((72, 100), generator=gen, device="cuda") / 10, contract_axes=1)
+    for dtype in (torch.bfloat16, torch.float16):
+        for m in (3, 40):
+            x = torch_uniform((m, 100), dtype, gen) * 2
+            _w8_case(f"odd [100, 72] {str(dtype)[6:]} M={m}", x, odd, out_dtype=dtype, scale_on_output=False,
+                     kernel="W1")
+            _w8_case(f"odd unembed [72, 100] {str(dtype)[6:]} M={m}", x, odd_e, out_dtype=torch.float32,
+                     scale_on_output=True, kernel="W1")
+    log(f"[w8] CUDA graph replays == direct calls (split W1, W2, the unembed); odd shapes (K 100, N 72) on W1 "
+        f"held ({card})")
+
+    rows = {}
+    for key, m in W8_TIMED:
+        for name in ("wq", "wk", "wo", "w_gate", "w_down", "unembed"):
+            w, on_output = weights[name], name == "unembed"
+            k = 11008 if name == "w_down" else 4096
+            x = torch_uniform((m, k), torch.bfloat16, gen) * 2
+            out_dtype = torch.float32 if on_output else torch.bfloat16
+            _, d_oracle = _w8_case(f"timed {name} M={m}", x, w, out_dtype=out_dtype, scale_on_output=on_output,
+                                   kernel=key)
+            row = _w8_row(card, key, f"{name} {tuple(w.values.shape)}, x [{m}, {k}] bf16", x, w, out_dtype=out_dtype,
+                          scale_on_output=on_output, err=d_oracle)
+            if name == "w_gate" and m in (8, 256):
+                rows[key] = row
+    log(f"[w8] phase 26 took {time.perf_counter() - t0:.1f} s ({card})")
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -6010,8 +6262,9 @@ def main() -> None:
     lap("9")
     phase_tiny_quant()
     lap("10")
-    for key, n in phase_full_quant(card, params, dense, paged).items():
-        quant[key]["launches"] = n
+    w8_launches = phase_full_quant(card, params, dense, paged)
+    for key in ("K6q", "K7q", "K8q", "K10q"):
+        quant[key]["launches"] = w8_launches[key]
     lap("11")
     bwd = phase_bwd_kernels(card)
     phase_bwd_sweep()
@@ -6072,9 +6325,13 @@ def main() -> None:
     for key, row in fused.items():
         row["launches"] = glue_launches[key]
     lap("25")
+    w8 = phase_w8(card)
+    for key, row in w8.items():
+        row["launches"] = w8_launches[key]
+    lap("26")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k1t, k6, k7, k8, k10, *quant.values(), *bwd.values(), *masked, *probes,
-                                  *parallel, *sharded, *fused.values()]}))
+                                  *parallel, *sharded, *fused.values(), *w8.values()]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -18,8 +18,10 @@ fp8_e5m2; ``ops/quant.py``): each row is stored as a payload with an fp32
 scale, decode reads it through K6's and K7's dequant, K10 quantizes the
 paged decode rows as it writes them, and the dense chunk prefill
 dequantizes the visible slice in plain PyTorch before K1, as the JAX
-package does in XLA. Projection weights may be int8 (``weight_quant``,
-``w8_dequant``).
+package does in XLA. Projection weights may be int8 (``weight_quant``):
+with no gradient to keep, each product reads the int8 payload through
+``ops.quant.w8_matmul`` (W1 / W2 on the card); under autograd the weight
+widens through ``w8_dequant`` first.
 
 Masks (the JAX package's ``models/attention.py``): a sliding window and a
 logit softcap on every serving entry; the ROLLING cache (``rolling``): a
@@ -66,7 +68,14 @@ from flash_attention_tpu_torch.ops.paged import (
     paged_write_prefill,
     paged_write_tokens,
 )
-from flash_attention_tpu_torch.ops.quant import QuantizedTensor, bits, payload_dtype, quantize_values, w8_dequant
+from flash_attention_tpu_torch.ops.quant import (
+    QuantizedTensor,
+    bits,
+    payload_dtype,
+    quantize_values,
+    w8_dequant,
+    w8_matmul,
+)
 from flash_attention_tpu_torch.parallel.mesh import all_reduce_
 
 
@@ -237,14 +246,26 @@ def _weight(w, dtype: torch.dtype) -> torch.Tensor:
     return w8_dequant(w).to(dtype)
 
 
+def int8_product(w, x: torch.Tensor) -> bool:
+    """Whether x's product with ``w`` takes ``w8_matmul``: an int8 weight
+    and no gradient to keep (the kernels have no backward; under autograd
+    the weight widens through ``_weight``)."""
+    return isinstance(w, QuantizedTensor) and not (torch.is_grad_enabled()
+                                                   and (x.requires_grad or w.scales.requires_grad))
+
+
+def _project(x: torch.Tensor, w, dt) -> torch.Tensor:
+    """x [B, T, model_dim] @ w [model_dim, H, D] -> [B, H, T, D] in ``dt``."""
+    if int8_product(w, x):
+        return w8_matmul(x, w).permute(0, 2, 1, 3).to(dt)
+    return torch.einsum("btm,mhd->bhtd", x, _weight(w, x.dtype)).to(dt)
+
+
 def _qkv(params, cfg: AttentionConfig, x: torch.Tensor):
     """The q/k/v projections of x [B, T, model_dim]: [B, H, T, D] each in
     the config dtype, not rotated."""
     dt = cfg.torch_dtype
-    q = torch.einsum("btm,mhd->bhtd", x, _weight(params["wq"], x.dtype)).to(dt)
-    k = torch.einsum("btm,mhd->bhtd", x, _weight(params["wk"], x.dtype)).to(dt)
-    v = torch.einsum("btm,mhd->bhtd", x, _weight(params["wv"], x.dtype)).to(dt)
-    return q, k, v
+    return tuple(_project(x, params[name], dt) for name in ("wq", "wk", "wv"))
 
 
 def _project_qkv(params, cfg: AttentionConfig, x: torch.Tensor, positions):
@@ -268,27 +289,44 @@ def tensor_parallel(tp_group) -> bool:
     return tp_group is not None and dist.get_world_size(tp_group) > 1
 
 
-def row_parallel(x: torch.Tensor, w: torch.Tensor, out_dtype, tp_group) -> torch.Tensor:
-    """``x`` [..., K] @ ``w`` [K, M] over this rank's share of K, summed over
-    ``tp_group`` in ``out_dtype``. The partial leaves the GEMM in fp32 (on
-    the card cuBLAS's 16-bit GEMM with an fp32 output) and the all-reduce
-    adds in fp32, so the sum is rounded once, as the single-process GEMM's
-    fp32 accumulator is: only the order of the fp32 additions differs."""
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., K] @ ``w`` [K, N] in fp32, never rounded to x's dtype
+    (the JAX package's ``preferred_element_type=float32``): on the card
+    cuBLAS's 16-bit GEMM with an fp32 output, elsewhere the exact products
+    summed in fp32. No gradient (``torch.mm``'s fp32 output has none)."""
     x2 = x.reshape(-1, x.shape[-1])
     if x2.is_cuda and x2.dtype in (torch.float16, torch.bfloat16):
-        partial = torch.mm(x2, w, out_dtype=torch.float32)
+        out = torch.mm(x2, w, out_dtype=torch.float32)
     else:
-        partial = torch.mm(x2.float(), w.float())
-    out = all_reduce_(partial, dist.ReduceOp.SUM, tp_group).to(out_dtype)
+        out = torch.mm(x2.float(), w.float())
     return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def row_parallel(x: torch.Tensor, w, out_dtype, tp_group) -> torch.Tensor:
+    """``x`` [..., K] @ ``w`` [K, M] over this rank's share of K, summed over
+    ``tp_group`` in ``out_dtype``. The partial leaves the GEMM in fp32
+    (``matmul_f32``, or ``w8_matmul``'s fp32 output for an int8 ``w``
+    [K..., M]) and the all-reduce adds in fp32, so the sum is rounded once, as
+    the single-process GEMM's fp32 accumulator is: only the order of the fp32
+    additions differs."""
+    if isinstance(w, QuantizedTensor):
+        partial = w8_matmul(x, w, out_dtype=torch.float32)
+    else:
+        partial = matmul_f32(x, w)
+    return all_reduce_(partial, dist.ReduceOp.SUM, tp_group).to(out_dtype)
 
 
 def _output_proj(params, o: torch.Tensor, out_dtype, tp_group=None) -> torch.Tensor:
     """wo projection of [B, H, T, D] attention output -> [B, T, model_dim]."""
+    b, h, t, d = o.shape
+    if int8_product(params["wo"], o):
+        o2 = o.transpose(1, 2).reshape(b, t, h * d)
+        if not tensor_parallel(tp_group):
+            return w8_matmul(o2, params["wo"]).to(out_dtype)
+        return row_parallel(o2, params["wo"], out_dtype, tp_group)
     wo = _weight(params["wo"], o.dtype)
     if not tensor_parallel(tp_group):
         return torch.einsum("bhtd,hdm->btm", o, wo).to(out_dtype)
-    b, h, t, d = o.shape
     return row_parallel(o.transpose(1, 2).reshape(b, t, h * d), wo.reshape(h * d, -1), out_dtype, tp_group)
 
 
@@ -296,9 +334,13 @@ def _output_proj_decode(params, o: torch.Tensor, out_dtype, tp_group=None) -> to
     """wo projection of single-token [B, H, D] output -> [B, 1, model_dim]:
     one product over wo's [H * D, model_dim] view (``einsum`` permuted wo
     into a copy of the whole weight on every step)."""
-    wo = _weight(params["wo"], o.dtype)
     b, h, d = o.shape
-    o2, wo2 = o.reshape(b, 1, h * d), wo.reshape(h * d, -1)
+    o2 = o.reshape(b, 1, h * d)
+    if int8_product(params["wo"], o):
+        if not tensor_parallel(tp_group):
+            return w8_matmul(o2, params["wo"]).to(out_dtype)
+        return row_parallel(o2, params["wo"], out_dtype, tp_group)
+    wo2 = _weight(params["wo"], o.dtype).reshape(h * d, -1)
     if not tensor_parallel(tp_group):
         return torch.matmul(o2, wo2).to(out_dtype)
     return row_parallel(o2, wo2, out_dtype, tp_group)

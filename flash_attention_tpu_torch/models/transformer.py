@@ -8,15 +8,19 @@ paged model cache (``ops/paged.PagedModelCache``), with a params dict of
 the JAX package's tree and shapes (``models/convert.py`` maps one onto the
 other). The embedding is tied. With ``weight_quant="int8"`` the matmul
 weights and the embedding are stored int8 with one fp32 scale per output
-channel (per vocabulary row for the embedding), W8A16: each matmul widens
-its weight through bf16 first (``ops/quant.w8_dequant``), as the JAX package
-does; the JAX package has no kernel for it (XLA fuses the widen into the
-matmul), so the port's is plain PyTorch.
+channel (per vocabulary row for the embedding), W8A16: each matmul's
+weight is widened through bf16 (``ops/quant.w8_dequant``), as the JAX
+package does. The JAX package leaves XLA to fuse that widen into the dot's
+weight read; the port's counterpart is ``ops/quant.w8_matmul`` (W1 / W2 on
+the card, reading the int8 payload), taken by every product with an int8
+weight when no gradient is needed; under autograd the weight is widened in
+memory first.
 
-Matmuls stay ``torch.matmul`` / ``einsum``, as the JAX package left them to
-XLA. One numerical difference: where JAX asks XLA for fp32 products of bf16
-operands (``preferred_element_type``), a bf16 ``torch.matmul`` rounds its
-output to bf16. fp32 configurations are unaffected.
+Matmuls with bf16 / fp32 weights stay ``torch.matmul`` / ``einsum``, as the
+JAX package left them to XLA. One numerical difference: where JAX asks XLA
+for fp32 products of bf16 operands (``preferred_element_type``) in the MLP, a
+bf16 ``torch.matmul`` rounds its output to bf16. The tied unembed keeps its
+product in fp32, as JAX's does. fp32 configurations are unaffected.
 
 The serving entries take ``tp_group`` for a tensor-parallel model (a
 rank's params and config from ``parallel.sharding.shard_model_params``):
@@ -54,12 +58,14 @@ from flash_attention_tpu_torch.models.attention import (
     attention_prefill_paged,
     init_attention_params,
     init_kv_cache,
+    int8_product,
+    matmul_f32,
     row_parallel,
     tensor_parallel,
 )
 from flash_attention_tpu_torch.ops.fused import add_rms_norm, rms_norm_plain, swiglu_act, swiglu_act_plain
 from flash_attention_tpu_torch.ops.paged import PagedModelCache, init_paged_model_cache, paged_write_tokens_multi
-from flash_attention_tpu_torch.ops.quant import QuantizedTensor, quantize_weight
+from flash_attention_tpu_torch.ops.quant import QuantizedTensor, quantize_weight, w8_matmul, w8_matmul_plain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,16 +172,61 @@ class _SwiGLUAct(torch.autograd.Function):
         return d_gate.to(gate.dtype), (d * F.silu(g)).to(up.dtype)
 
 
+def _product(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w in x's dtype; an int8 ``w`` through ``w8_matmul`` when no
+    gradient is needed (``int8_product``)."""
+    if int8_product(w, x):
+        return w8_matmul(x, w)
+    return torch.matmul(x, _weight(w, x.dtype))
+
+
 def swiglu(x: torch.Tensor, params, tp_group=None) -> torch.Tensor:
     """The MLP; with ``tp_group``, over this rank's columns of gate / up and
     rows of the row-parallel down projection, summed over the group."""
-    gate = torch.matmul(x, _weight(params["w_gate"], x.dtype))
-    up = torch.matmul(x, _weight(params["w_up"], x.dtype))
+    gate = _product(x, params["w_gate"])
+    up = _product(x, params["w_up"])
     act = _SwiGLUAct.apply(gate, up) if _grad_needed(gate, up) else swiglu_act(gate, up)
-    w_down = _weight(params["w_down"], x.dtype)
+    w_down = params["w_down"]
     if not tensor_parallel(tp_group):
-        return torch.matmul(act, w_down).to(x.dtype)
-    return row_parallel(act, w_down, x.dtype, tp_group)
+        return _product(act, w_down).to(x.dtype)
+    return row_parallel(act, w_down if int8_product(w_down, act) else _weight(w_down, x.dtype), x.dtype, tp_group)
+
+
+class _ProductF32(torch.autograd.Function):
+    """``matmul_f32`` under autograd: the forward's product in fp32, the
+    backward's as a product in x's dtype would have it (the output's
+    gradient rounded to x's dtype), as autograd differentiated the rounded
+    product before."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return matmul_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = torch.matmul(g, w.t()) if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(x.reshape(-1, x.shape[-1]).t(), g.reshape(-1, g.shape[-1]))
+        return dx, dw
+
+
+def unembed(x: torch.Tensor, emb) -> torch.Tensor:
+    """The tied unembed: fp32 logits [..., vocab] of x [..., model_dim]
+    against the embedding [vocab, model_dim], the product kept in fp32 (the
+    JAX package's ``preferred_element_type=float32``). An int8 embedding's
+    per-row scale multiplies the fp32 sum (``w8_matmul`` with the scale on
+    the output: W1 / W2 on the card)."""
+    if isinstance(emb, QuantizedTensor):
+        if int8_product(emb, x):
+            return w8_matmul(x, emb, out_dtype=torch.float32, scale_on_output=True)
+        return w8_matmul_plain(x, emb, out_dtype=torch.float32, scale_on_output=True)
+    if _grad_needed(x, emb):
+        return _ProductF32.apply(x, emb.t())
+    return matmul_f32(x, emb.t())
 
 
 def init_model_params(generator: torch.Generator, cfg: ModelConfig) -> dict:
@@ -277,12 +328,7 @@ def _trunk(params, cfg: ModelConfig, tokens: torch.Tensor, attn_fn, caches=None,
         x, h = _add_norm(x, attn_out, lp["mlp_norm"], cfg.norm_eps)
         x, h = _add_norm(x, swiglu(h, lp["mlp"], tp_group), next_norm, cfg.norm_eps)
         new_caches.append(cache)
-    x = h
-    if isinstance(emb, QuantizedTensor):
-        logits = torch.matmul(x, emb.values.to(dt).t()).float() * emb.scales[:, 0].float()
-    else:
-        logits = torch.matmul(x, emb.t()).float()
-    return logits, new_caches
+    return unembed(h, emb), new_caches
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list, *, decode: bool = False, tp_group=None):

@@ -178,7 +178,7 @@ def _serve_paths(card: str, quant: bool) -> dict:
     if quant:
         params_w8 = quantize_model_weights(params)
         _, runs["11a"] = cs.serve_full_dense(card, "full quant a", ModelConfig(kv_quant="int8", weight_quant="int8"),
-                                             params_w8, used=("K1", "K6q", *_glue(cs)), ref=runs["5"])
+                                             params_w8, used=("K1", "K6q", *_glue(cs), *_w8(cs)), ref=runs["5"])
         del params_w8
     _, runs["8"] = cs.serve_full_paged(card, "full paged", cfg, params, used=("K7", "K8", "K9/K10", *_glue(cs)),
                                        dense=runs["5"])
@@ -211,6 +211,142 @@ def _serve_paths(card: str, quant: bool) -> dict:
 def _glue(cs) -> tuple:
     """The glue kernels a tree's serving paths launch (none before csrc/fused.cu)."""
     return getattr(cs, "GLUE", ())
+
+
+def _w8(cs) -> tuple:
+    """The W8A16 kernels a tree's int8-weight paths launch (none before csrc/w8.cu)."""
+    return ("W1", "W2") if hasattr(cs, "phase_w8") else ()
+
+
+def w1_splits(card: str) -> dict:
+    """W1 at 8 rows of bf16 x over ModelConfig()'s [K, N] weights, launched
+    straight through the C entry at K splits of 1 to 32 (``w1_plan``'s own
+    choice marked), each the kernel alone in a CUDA graph of 10 launches:
+    how the split's partials and their reduction trade against the
+    blocks in flight. ``ms`` is wq's at the plan's split."""
+    import math
+
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.ops import _build, quant
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lib, sms = _build.kernels(), torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, k, n in (("wq", 4096, 4096), ("wk", 4096, 1024), ("w_gate", 4096, 11008), ("w_down", 11008, 4096),
+                       ("K 16", 16, 4096), ("K 256", 256, 4096)):
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda", generator=gen)
+        scales = torch.rand(n, device="cuda", generator=gen) / 100
+        x = cs.torch_uniform((8, k), torch.bfloat16, gen)
+        ref = quant.w8_matmul(x, quant.QuantizedTensor(w, scales[None]))
+        _, plan_splits, _ = quant.w1_plan(8, n, k, False, sms)
+        strips, ksteps = math.ceil(n / 128), math.ceil(k / 16)
+        row = []
+        for splits in sorted({1, 2, 4, 8, 16, 32, plan_splits}):
+            steps = math.ceil(ksteps / splits)
+            splits = math.ceil(ksteps / steps)
+            ws = torch.empty(strips * splits * 1024, dtype=torch.float32, device="cuda")
+            tickets = quant._tickets(x.device, strips)
+            res = torch.empty((8, n), dtype=torch.bfloat16, device="cuda")
+            shape = _build.int64_array((8, n, k, k, n, n, 0, 1, 0, 1, 1, splits, steps, 1))
+
+            def call(res=res, ws=ws, tickets=tickets, shape=shape):
+                err = lib.fat_w8_matmul(x.data_ptr(), w.data_ptr(), scales.data_ptr(), res.data_ptr(), ws.data_ptr(),
+                                        tickets.data_ptr(), shape, _build.DTYPE_CODES[torch.bfloat16],
+                                        _build.current_stream(x.device))
+                _build.check(err, "w1_splits")
+
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(res, ref) and splits == plan_splits:
+                raise RuntimeError(f"{name}: the plan's split differs from w8_matmul")
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(10):
+                    call()
+            ms = cs.cuda_ms(graph.replay) / 10
+            row.append(f"{splits}{'*' if splits == plan_splits else ''}: {ms * 1e3:.1f} us")
+            out[f"{name} splits {splits}"] = ms
+            if name == "wq" and splits == plan_splits:
+                out["ms"] = ms
+        print(f"[w1 splits] {name} [{k}, {n}], x [8, {k}] bf16, alone in a CUDA graph by K split (* the plan's): "
+              + ", ".join(row) + f" ({card})", flush=True)
+    return out
+
+
+def w8_threshold(card: str) -> dict:
+    """W1 against W2 by rows of bf16 x (8 to 64) at ModelConfig()'s wq and
+    w_gate, each launched straight through the C entry and timed alone in
+    a CUDA graph of 10 launches: where ``ops.quant.W1_MAX_ROWS`` should sit.
+    ``ms`` is wq's W1 time at 32 rows."""
+    import math
+
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.ops import _build, quant
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    lib, sms = _build.kernels(), torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, k, n in (("wq", 4096, 4096), ("w_gate", 4096, 11008)):
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda", generator=gen)
+        scales = torch.rand(n, device="cuda", generator=gen) / 100
+        row = []
+        for m in (8, 16, 24, 32, 40, 48, 64):
+            x = cs.torch_uniform((m, k), torch.bfloat16, gen)
+            times = {}
+            for kernel in (1, 2):
+                xt, splits, steps = quant.w1_plan(m, n, k, False, sms)
+                groups = math.ceil(m / (8 * xt))
+                ws = torch.empty(groups * math.ceil(n / 128) * splits * xt * 1024, dtype=torch.float32, device="cuda")
+                tickets = quant._tickets(x.device, groups * math.ceil(n / 128))
+                res = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+                shape = _build.int64_array((m, n, k, k, n, n, 0, 1, 0, kernel, xt, splits, steps, 1))
+
+                def call(x=x, res=res, ws=ws, tickets=tickets, shape=shape):
+                    _build.check(lib.fat_w8_matmul(x.data_ptr(), w.data_ptr(), scales.data_ptr(), res.data_ptr(),
+                                                   ws.data_ptr(), tickets.data_ptr(), shape,
+                                                   _build.DTYPE_CODES[torch.bfloat16],
+                                                   _build.current_stream(x.device)), "w8_threshold")
+
+                call()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    for _ in range(10):
+                        call()
+                times[kernel] = cs.cuda_ms(graph.replay) / 10
+                out[f"{name} M={m} W{kernel}"] = times[kernel]
+            row.append(f"{m}: W1 {times[1] * 1e3:.1f} / W2 {times[2] * 1e3:.1f} us")
+        print(f"[w8 threshold] {name} [{k}, {n}] bf16, alone in a CUDA graph: " + ", ".join(row) + f" ({card})",
+              flush=True)
+    out["ms"] = out["wq M=32 W1"]
+    return out
+
+
+def serve_w8(card: str) -> dict:
+    """Phase 5 (bf16) and phase 11a (int8 weights + int8 cache) through
+    chip_smoke.py's ``serve_full_dense`` on fresh weights from seed 0:
+    prefill and decode tok/s and peak device memory of both, printed side by
+    side. ``ms`` is 1000 over 11a's decode tok/s."""
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params, quantize_model_weights
+
+    cfg = ModelConfig()
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    _, bf16 = cs.serve_full_dense(card, "full", cfg, params, used=("K1", "K6", *_glue(cs)))
+    params_w8 = quantize_model_weights(params)
+    del params
+    torch.cuda.empty_cache()
+    _, w8 = cs.serve_full_dense(card, "full quant a", ModelConfig(kv_quant="int8", weight_quant="int8"), params_w8,
+                                used=("K1", "K6q", *_glue(cs), *_w8(cs)), ref=bf16)
+    keys = ("decode_tok_s", "prefill_tok_s", "peak_gib")
+    print("[serve w8] 11a vs phase 5: " + ", ".join(f"{k} {w8[k]:.2f} vs {bf16[k]:.2f}" for k in keys) + f" ({card})",
+          flush=True)
+    return {"ms": 1e3 / w8["decode_tok_s"], **{f"11a {k}": w8[k] for k in keys}, **{f"5 {k}": bf16[k] for k in keys}}
 
 
 def serve_decode(card: str) -> dict:
@@ -317,6 +453,11 @@ def ptxas_decode(card: str) -> None:
     """``ptxas_sm90`` for the decode and page-write sources (K6, K7, K9, K10):
     every instantiation's registers and spills."""
     _ptxas(card, ("decode.cu", "paged_write.cu"), "ptxas decode")
+
+
+def ptxas_w8(card: str) -> None:
+    """``ptxas_sm90`` for the W8A16 products (csrc/w8.cu: W1, W2)."""
+    _ptxas(card, ("w8.cu",), "ptxas w8")
 
 
 def _ptxas(card: str, names, tag: str) -> None:
@@ -985,14 +1126,29 @@ def _kernel_short(name: str) -> str:
 
 
 def glue_trace(card: str) -> dict:
+    """``_glue_trace`` of ModelConfig() in bf16."""
+    from flash_attention_tpu_torch.models.transformer import ModelConfig
+
+    return _glue_trace(card, ModelConfig(), "")
+
+
+def glue_trace_w8(card: str) -> dict:
+    """``_glue_trace`` of phase 11a's configuration (int8 weights, int8 cache)."""
+    from flash_attention_tpu_torch.models.transformer import ModelConfig
+
+    return _glue_trace(card, ModelConfig(kv_quant="int8", weight_quant="int8"), " w8")
+
+
+def _glue_trace(card: str, cfg, tag: str) -> dict:
     """Which source line issues each device operation of one decode step:
-    phase 24(c)'s dense and paged step plus the sampler (ModelConfig() at
-    bf16 on fresh weights from seed 0, 8 slots x PROFILE_ROWS rows, paged
+    phase 24(c)'s dense and paged step plus the sampler (``cfg`` on fresh
+    weights from seed 0, quantized where it says, 8 slots x PROFILE_ROWS rows, paged
     over 129 pages of 128 rows), issued eagerly (a replayed block runs the
     same kernels) under torch.profiler with shapes. Prints the step's
     device operations by kernel and, by (kernel, the aten operator that
     launched it, its input shapes), the rows that take the most device time
     and every ``direct_copy`` row. ``ms`` is the dense step's device ms."""
+    import dataclasses
     from collections import defaultdict
 
     import numpy as np
@@ -1001,17 +1157,18 @@ def glue_trace(card: str) -> dict:
 
     import chip_smoke as cs
     from flash_attention_tpu_torch.models.transformer import (
-        ModelConfig,
         decode_step_logits,
         decode_step_logits_paged,
         init_caches,
         init_model_params,
         init_paged_caches,
+        quantize_model_weights,
     )
     from flash_attention_tpu_torch.serving.sampling import sample_tokens
 
-    cfg = ModelConfig()
-    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), dataclasses.replace(cfg, weight_quant="none"))
+    if cfg.weight_quant == "int8":
+        params = quantize_model_weights(params)
     slots, rows = 8, cs.PROFILE_ROWS
     sampling = {key: t.cuda() for key, t in cs._sampling_inputs(rows + 1).items()}
     tok = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (slots, 1))).to("cuda", torch.int32)
@@ -1051,15 +1208,15 @@ def glue_trace(card: str) -> dict:
                 row[1] += k.duration
                 attributed += 1
         device_ms = sum(us for _, us in by_kernel.values()) / 1e3
-        print(f"[glue trace] {what} step + sampler: {len(device)} device operations, {device_ms:.3f} ms of device "
+        print(f"[glue trace{tag}] {what} step + sampler: {len(device)} device operations, {device_ms:.3f} ms of device "
               f"time; {attributed} attributed to an aten operator (the rest: the port's own ctypes launches) "
               f"({card})", flush=True)
         for name, (n, us) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1]):
-            print(f"[glue trace] {what} by kernel: x{n} {us / 1e3:.4f} ms  {name}", flush=True)
+            print(f"[glue trace{tag}] {what} by kernel: x{n} {us / 1e3:.4f} ms  {name}", flush=True)
         ranked = sorted(by_op.items(), key=lambda kv: -kv[1][1])
         shown = ranked[:40] + [kv for kv in ranked[40:] if "direct_copy" in kv[0][0]]
         for (kname, op, shapes), (n, us) in shown:
-            print(f"[glue trace] {what} by operator: x{n} {us / 1e3:.4f} ms  {kname} | {op} {shapes}", flush=True)
+            print(f"[glue trace{tag}] {what} by operator: x{n} {us / 1e3:.4f} ms  {kname} | {op} {shapes}", flush=True)
         out[f"{what} device_ops"] = len(device)
         out[f"{what} device_ms"] = device_ms
         out[f"{what} direct_copy"] = sum(n for name, (n, _) in by_kernel.items() if "direct_copy" in name)
@@ -1067,25 +1224,42 @@ def glue_trace(card: str) -> dict:
 
 
 def block_step(card: str) -> dict:
-    """Phase 24(c)'s replayed decode blocks on fresh ModelConfig() weights
-    (seed 0): the dense and the paged engine's k = 16 program, sampled and
+    """``_block_step`` of ModelConfig() in bf16."""
+    from flash_attention_tpu_torch.models.transformer import ModelConfig
+
+    return _block_step(card, ModelConfig(), "")
+
+
+def block_step_w8(card: str) -> dict:
+    """``_block_step`` of phase 11a's configuration (int8 weights, int8 cache)."""
+    from flash_attention_tpu_torch.models.transformer import ModelConfig
+
+    return _block_step(card, ModelConfig(kv_quant="int8", weight_quant="int8"), " w8")
+
+
+def _block_step(card: str, cfg, tag: str) -> dict:
+    """Phase 24(c)'s replayed decode blocks on fresh ``cfg`` weights
+    (seed 0, quantized where it says): the dense and the paged engine's k = 16 program, sampled and
     greedy, every slot active at 8 slots x PROFILE_ROWS rows (reset before
     each block), the paged table the straight one. Each block's least
     untraced wall of 2 runs of 3 (``time_fn``) as ms a step, and from one
     traced block (``profile_op``) its device busy share, device operations
     and ``direct_copy`` kernels a step. ``ms`` is the dense sampled step's."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     import chip_smoke as cs
-    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+    from flash_attention_tpu_torch.models.transformer import init_model_params, quantize_model_weights
     from flash_attention_tpu_torch.serving.engine import ServingEngine
     from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
     from flash_attention_tpu_torch.utils.benchmarking import time_fn
     from flash_attention_tpu_torch.utils.profiling import profile_op
 
-    cfg = ModelConfig()
-    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), dataclasses.replace(cfg, weight_quant="none"))
+    if cfg.weight_quant == "int8":
+        params = quantize_model_weights(params)
     slots, k = 8, cs.DENSE_ENGINE_BLOCK
     rows = {key: t.numpy() for key, t in cs._sampling_inputs(0).items()}
     tok = np.random.default_rng(5).integers(0, cfg.vocab_size, slots).astype(np.int32)
@@ -1109,7 +1283,7 @@ def block_step(card: str) -> dict:
             ops = sum(op["count"] for op in prof["device_ops"]) / k
             copies = sum(op["count"] for op in prof["device_ops"] if "direct_copy" in op["name"]) / k
             key = f"{what} {'greedy' if greedy else 'sampled'}"
-            print(f"[block step] {key} k={k} block replayed, {slots} slots x {cs.PROFILE_ROWS} rows: "
+            print(f"[block step{tag}] {key} k={k} block replayed, {slots} slots x {cs.PROFILE_ROWS} rows: "
                   f"{wall * 1e3 / k:.3f} ms a step untraced, busy {prof['device_busy_share']:.4f} of the traced "
                   f"block, {ops:g} device operations and {copies:g} direct_copy a step ({card})", flush=True)
             out[f"{key} ms_step"], out[f"{key} busy"] = wall * 1e3 / k, prof["device_busy_share"]
