@@ -829,7 +829,7 @@ def _bits_equal(a, b) -> bool:
                                                                      b.reshape(-1).view(torch.uint8))
 
 
-def hold_programs(label: str, eng) -> None:
+def hold_programs(label: str, eng, w1_per_step: int | None = None) -> None:
     """The engine's k = decode_block_steps block replayed against its eager
     body (``DecodePrograms.block``) from identical copies of the caches,
     greedy and sampled: the tokens, the last-token buffer and every cache
@@ -840,6 +840,9 @@ def hold_programs(label: str, eng) -> None:
     paths' key, is traced: its kernel records must equal the launches it
     added to the counts (``traced_launches``; a trace of a block's ~60,000
     records costs ~16 s of post-processing, so the sampled one is not).
+    With ``w1_per_step``, the traced greedy block must hold exactly that
+    many W1 launches a step (an int8-weight model: one group launch for q /
+    k / v, one for gate / up, wo and w_down a layer, and the unembed's).
     Called after the main path: it leaves the caches as the eager block
     wrote them."""
     import numpy as np
@@ -885,6 +888,9 @@ def hold_programs(label: str, eng) -> None:
 
         if greedy:
             toks, traced, attempts = traced_launches(f"[{label}] the replayed k={k} greedy block", replay)
+            if w1_per_step is not None and traced.get("W1", 0) != k * w1_per_step:
+                raise RuntimeError(f"[{label}] the replayed k={k} greedy block traced {traced.get('W1', 0)} W1 "
+                                   f"launches, want {w1_per_step} a step")
         else:
             toks = replay()
         replayed = [toks, progs.last.clone()] + [t.clone() for t in live]
@@ -1004,12 +1010,13 @@ def phase_sampling(card: str, params) -> None:
         f"gumbel_noise alone {noise_ms:.4f} ms ({card})")
 
 
-def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | None = None):
+def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | None = None,
+                     w1_per_step: int | None = None):
     """ServingEngine over ``cfg`` / ``params`` at full width: a prefill-only
     run and ``warmup()``, then the main path (phase 5's 10 requests on 8
     slots x 2048 positions) with every launch count set to 0 just before and
     read just after; it must launch the kernels in ``used`` and no other.
-    Then ``hold_programs``. ``ref``: the bf16 run's numbers of this call,
+    Then ``hold_programs`` (with ``w1_per_step``). ``ref``: the bf16 run's numbers of this call,
     printed beside these. Returns the launch counts and the engine's
     numbers."""
     import numpy as np
@@ -1064,7 +1071,7 @@ def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | No
     decode_tokens, decode_s = eng.decode_tokens, eng.decode_time_s
     log(f"[{label}] decode programs of the main path: mode {eng.programs.mode}, {eng.programs.captures} built, "
         f"{eng.programs.replays} replays")
-    hold_programs(label, eng)
+    hold_programs(label, eng, w1_per_step)
     del eng
 
     # Logits of the same model, straight from the model functions: finite
@@ -2234,8 +2241,9 @@ def phase_full_quant(card: str, params, dense: dict, paged: dict) -> dict:
     from flash_attention_tpu_torch.models.transformer import ModelConfig, quantize_model_weights
 
     params_w8 = quantize_model_weights(params)
-    launches_a, numbers_a = serve_full_dense(card, "full quant a", ModelConfig(kv_quant="int8", weight_quant="int8"),
-                                             params_w8, used=("K1", "K6q", "W1", "W2", *GLUE), ref=dense)
+    cfg_a = ModelConfig(kv_quant="int8", weight_quant="int8")
+    launches_a, numbers_a = serve_full_dense(card, "full quant a", cfg_a, params_w8, used=("K1", "K6q", "W1", "W2", *GLUE),
+                                             ref=dense, w1_per_step=4 * cfg_a.num_layers + 1)
     del params_w8
     # Phase 5's bf16 weights stay allocated through 11a; less them, 11a's peak is its own (W1 / W2 read the int8
     # weights: no 16-bit copy of one is made).
@@ -6009,14 +6017,21 @@ W8_SHARDS = {  # name: (full weight, dimension split, ranks, fp32 output)
     "wq / 4": ("wq", 1, 4, False), "w_gate / 2": ("w_gate", 1, 2, False), "w_gate / 4": ("w_gate", 1, 4, False),
     "w_down / 4 (row-parallel)": ("w_down", 0, 4, True), "wo / 2 (row-parallel)": ("wo", 0, 2, True),
 }
-W1_ROWS = (1, 8, 32)  # decode: live slots (8 in the phases, 32 in an engine of 32 slots)
+# The weights that read one x, one W1 launch a group (ops/quant.w8_matmul_group): a layer's q / k / v and gate /
+# up, whole and as a model-4 rank's column shards (strided views).
+W8_GROUPS = {"q / k / v": ("wq", "wk", "wv"), "gate / up": ("w_gate", "w_up"),
+             "q / k / v / 4": ("wq / 4", "wk / 4", "wv / 4"), "gate / up / 4": ("w_gate / 4", "w_up / 4")}
+W8_GROUP_SHARDS = {"wk / 4": ("wk", 1, 4, False), "wv / 4": ("wv", 1, 4, False), "w_up / 4": ("w_up", 1, 4, False)}
+W1_ROWS = (1, 8, 32)  # decode: live slots (8 in the phases; 32 in an engine of 32 slots, on W2 past 16)
 W2_ROWS = (64, 256, 1024)  # prefill chunks
 W8_TIMED = (("W1", 8), ("W2", 256), ("W2", 1024))
+COLD_BYTES = 100e6  # a cold-L2 replay walks distinct copies of a weight summing past this (the L2 holds 50 MB)
 
 
 def _w8_weights(gen) -> dict:
     """Phase 26's int8 weights at ModelConfig()'s widths (init_model_params'
-    scales), quantized by the port, and their shards."""
+    scales), quantized by the port, wv and w_up beside wk and w_gate for the
+    groups, and their shards."""
     import math
 
     import torch
@@ -6024,17 +6039,26 @@ def _w8_weights(gen) -> dict:
     from flash_attention_tpu_torch.ops.quant import QuantizedTensor, quantize_weight
 
     out = {}
-    for name, (shape, axes, _) in W8_WEIGHTS.items():
+    shapes = {**W8_WEIGHTS, "wv": W8_WEIGHTS["wk"], "w_up": W8_WEIGHTS["w_gate"]}
+    for name, (shape, axes, _) in shapes.items():
         fan_in = shape[0] * (shape[1] if isinstance(axes, tuple) else 1) if name != "unembed" else shape[1]
         w = torch.randn(shape, generator=gen, device="cuda") / math.sqrt(fan_in)
         out[name] = quantize_weight(w, contract_axes=axes)
-    for label, (name, dim, ranks, _) in W8_SHARDS.items():
+    for label, (name, dim, ranks, _) in {**W8_SHARDS, **W8_GROUP_SHARDS}.items():
         qt = out[name]
         size = qt.values.shape[dim] // ranks
         values = qt.values.narrow(dim, size, size)  # rank 1's block
         scales = qt.scales if dim == 0 else qt.scales.narrow(dim, size, size)
         out[label] = QuantizedTensor(values, scales)
     return out
+
+
+def _w8_oracle(x, w, scale_on_output: bool):
+    """The fp32 oracle of a W8A16 product: the scales applied to the fp32 codes, no bf16 widen."""
+    k = x.shape[-1]
+    if scale_on_output:
+        return (x.float() @ w.values.float().t()) * w.scales.reshape(-1).float()
+    return x.float() @ (w.values.float() * w.scales).reshape(k, -1)
 
 
 def _w8_case(what: str, x, w, *, out_dtype, scale_on_output: bool, kernel: str) -> tuple[float, float]:
@@ -6060,17 +6084,58 @@ def _w8_case(what: str, x, w, *, out_dtype, scale_on_output: bool, kernel: str) 
     if not _bits_equal(got, again):
         raise RuntimeError(f"[w8] {what}: two calls on the same inputs differ")
     plain = w8_matmul_plain(x, w, out_dtype=out_dtype, scale_on_output=scale_on_output)
-    k = x.shape[-1]
-    if scale_on_output:
-        oracle = (x.float() @ w.values.float().t()) * w.scales.reshape(-1).float()
-    else:
-        oracle = x.float() @ (w.values.float() * w.scales).reshape(k, -1)
+    oracle = _w8_oracle(x, w, scale_on_output)
     rel = _rel_diff(got.reshape(plain.shape), plain)
     d_oracle = _max_diff(got.reshape(oracle.shape).float(), oracle)
     bar = REL_BAR["float32"] if x.dtype == torch.float32 else PLAIN_BAR
     if not (rel < bar and d_oracle < ORACLE_BAR):
         raise RuntimeError(f"[w8] {what}: row-relative to plain {rel:.3e} (bar {bar}), oracle {d_oracle:.3e}")
     return rel, d_oracle
+
+
+def _w8_group_case(what: str, x, ws, *, out_dtype) -> tuple[float, float]:
+    """A group of weights that read one x (``w8_matmul_group``): one W1
+    launch for the group, two calls bit-identical, a CUDA graph's replay
+    equal to the direct call, each product within PLAIN_BAR row-relative of
+    its plain version and ORACLE_BAR of its fp32 oracle, and one-hot rows of
+    x the widened weights' rows bit for bit. Returns the worst (row-relative
+    error, oracle error)."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.quant import w8_dequant, w8_matmul_group, w8_matmul_plain
+
+    before = read_counts()
+    try:
+        got = w8_matmul_group(x, ws, out_dtype=out_dtype)
+        again = w8_matmul_group(x, ws, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        raise RuntimeError(f"[w8] {what}: {err}") from err
+    gained = {k: n - before[k] for k, n in read_counts().items() if n != before[k]}
+    if gained != {"W1": 2}:
+        raise RuntimeError(f"[w8] {what}: launches {gained}, want {{'W1': 2}} (one a group)")
+    if not all(_bits_equal(a, b) for a, b in zip(got, again)):
+        raise RuntimeError(f"[w8] {what}: two calls on the same inputs differ")
+    if not _graph_replays(lambda: w8_matmul_group(x, ws, out_dtype=out_dtype), got):
+        raise RuntimeError(f"[w8] {what}: a CUDA graph's replay differs from the direct call")
+    worst = [0.0, 0.0]
+    for out, w in zip(got, ws):
+        plain = w8_matmul_plain(x, w, out_dtype=out_dtype)
+        oracle = _w8_oracle(x, w, False)
+        worst = [max(worst[0], _rel_diff(out.reshape(plain.shape), plain)),
+                 max(worst[1], _max_diff(out.reshape(oracle.shape).float(), oracle))]
+    if not (worst[0] < PLAIN_BAR and worst[1] < ORACLE_BAR):
+        raise RuntimeError(f"[w8] {what}: row-relative to plain {worst[0]:.3e} (bar {PLAIN_BAR}), oracle "
+                           f"{worst[1]:.3e}")
+    m, k = x.shape
+    ks = torch.linspace(0, k - 1, m, device="cuda").long()
+    hot = torch.zeros((m, k), dtype=x.dtype, device="cuda")
+    hot[torch.arange(m, device="cuda"), ks] = 1
+    for out, w in zip(w8_matmul_group(hot, ws, out_dtype=out_dtype), ws):
+        want = w8_dequant(w).to(x.dtype).reshape(k, -1)[ks].to(out_dtype)
+        if not _bits_equal(out.reshape(m, -1).contiguous(), want.contiguous()):
+            raise RuntimeError(f"[w8] {what}: one-hot rows differ from the widened weight's rows")
+    return worst[0], worst[1]
 
 
 def _w8_one_hot(what: str, w, k: int, dtype, m: int, *, out_dtype, scale_on_output: bool) -> None:
@@ -6101,13 +6166,57 @@ def _w8_k(w, axes, scale_on_output: bool) -> int:
     return w.values.shape[1] if scale_on_output else math.prod(w.values.shape[:2 if axes == (0, 1) else 1])
 
 
+def _cold_ms(make, nbytes: float, calls: int = 10) -> float:
+    """ms a call of ``make(i)``'s callable (i indexes a distinct copy of the
+    operands ``make`` prepared) alone in a CUDA graph that walks the copies
+    in turn, at least ``calls`` calls and at least COLD_BYTES of them, so
+    that each call finds its weight out of the 50 MB L2, as a decode step
+    does."""
+    import math
+
+    import torch
+
+    copies = max(2, math.ceil(COLD_BYTES / nbytes))
+    fns = [make(i) for i in range(copies)]
+    n = max(calls, copies)
+    for fn in fns:
+        fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fns[i % copies]()
+    ms = cuda_ms(graph.replay) / n
+    del graph, fns
+    return ms
+
+
+def _weight_copies(w, nbytes: float) -> list:
+    """Distinct copies of a QuantizedTensor (values strided as ``w``'s, a
+    shard's view included) summing past COLD_BYTES, ``w`` itself first."""
+    import math
+
+    import torch
+
+    from flash_attention_tpu_torch.ops.quant import QuantizedTensor
+
+    copies = [w]
+    base = w.values._base if w.values._base is not None else w.values
+    for _ in range(max(2, math.ceil(COLD_BYTES / nbytes)) - 1):
+        whole = base.clone()
+        values = torch.as_strided(whole, w.values.shape, w.values.stride(),
+                                  w.values.storage_offset() - base.storage_offset())
+        copies.append(QuantizedTensor(values, w.scales.clone()))
+    return copies
+
+
 def _w8_row(card: str, key: str, what: str, x, w, *, out_dtype, scale_on_output: bool, err: float) -> dict:
     """A timed W8A16 product: the wrapper call, the kernel alone in a CUDA
-    graph and the host µs (``_three_times``); the plain version; cuBLAS on
-    the weight widened beforehand (``library_ms``: phase 5's bf16 GEMM); and
-    the path before W1 / W2 (the widen to a bf16 copy, then cuBLAS), against
-    the bound (the int8 weight, its scales, x and the output once; 2 M N K at
-    989 TFLOP/s)."""
+    graph (the weight in L2) and the host µs (``_three_times``), the kernel
+    alone with a cold L2 (``_cold_ms``); the plain version; cuBLAS on the
+    weight widened beforehand (``library_ms``, as a call, and alone with a
+    cold L2, the same protocol); and the path before W1 / W2 (the widen to a
+    bf16 copy, then cuBLAS), against the bound (the int8 weight, its scales,
+    x and the output once; 2 M N K at 989 TFLOP/s)."""
     import torch
 
     from flash_attention_tpu_torch.ops.quant import w8_dequant, w8_matmul, w8_matmul_plain
@@ -6115,27 +6224,72 @@ def _w8_row(card: str, key: str, what: str, x, w, *, out_dtype, scale_on_output:
     m, k = x.shape
     n = w.values.shape[0] if scale_on_output else w.values.numel() // k
     ms, alone, host_us = _three_times(lambda: w8_matmul(x, w, out_dtype=out_dtype, scale_on_output=scale_on_output))
+    copies = _weight_copies(w, k * n)
+    cold = _cold_ms(lambda i: lambda: w8_matmul(x, copies[i], out_dtype=out_dtype, scale_on_output=scale_on_output),
+                    k * n)
+    del copies
     plain_ms = cuda_ms(lambda: w8_matmul_plain(x, w, out_dtype=out_dtype, scale_on_output=scale_on_output))
     if scale_on_output:
         wide = w.values.to(x.dtype)
         library_ms = cuda_ms(lambda: torch.mm(x, wide.t(), out_dtype=torch.float32))
+        wides = [wide] + [wide.clone() for _ in range(max(2, -(-int(COLD_BYTES) // (2 * k * n))) - 1)]
+        lib_cold = _cold_ms(lambda i: lambda: torch.mm(x, wides[i].t(), out_dtype=torch.float32), 2 * k * n)
         before_ms = cuda_ms(lambda: torch.matmul(x, w.values.to(x.dtype).t()).float() * w.scales[:, 0])
     else:
         wide = w8_dequant(w).to(x.dtype).reshape(k, n)
         library_ms = cuda_ms(lambda: torch.matmul(x, wide))
+        wides = [wide] + [wide.clone() for _ in range(max(2, -(-int(COLD_BYTES) // (2 * k * n))) - 1)]
+        lib_cold = _cold_ms(lambda i: lambda: torch.matmul(x, wides[i]), 2 * k * n)
         before_ms = cuda_ms(lambda: torch.matmul(x, w8_dequant(w).to(x.dtype).reshape(k, n)))
-    del wide
+    del wide, wides
     out_bytes = 4 if out_dtype == torch.float32 else 2
     nbytes = k * n + 4 * n + m * k * x.element_size() + m * n * out_bytes
     bound_ms, bound_by = bound(2.0 * m * n * k, nbytes)
-    log(f"[w8] {key} {what}: kernel {ms:.4f} ms as a call, {alone:.4f} ms alone in a CUDA graph, host {host_us:.1f} "
-        f"us a call; plain {plain_ms:.4f} ms; cuBLAS on the widened weight {library_ms:.4f} ms; the widen + cuBLAS "
-        f"path before W1 / W2 {before_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.2f} MB, "
-        f"{2.0 * m * n * k / 1e9:.2f} GFLOP), {bound_ms / alone:.3f} of it alone ({card})")
-    return {"name": f"{'w8_gemv_kernel' if key == 'W1' else 'w8_gemm_kernel'} ({key}), {what}", "route": "cuda",
+    log(f"[w8] {key} {what}: kernel {ms:.4f} ms as a call, {alone:.4f} ms alone in a CUDA graph, {cold:.4f} ms alone "
+        f"with a cold L2, host {host_us:.1f} us a call; plain {plain_ms:.4f} ms; cuBLAS on the widened weight "
+        f"{library_ms:.4f} ms as a call, {lib_cold:.4f} ms alone with a cold L2 (kernel / cuBLAS {cold / lib_cold:.3f}); "
+        f"the widen + cuBLAS path before W1 / W2 {before_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}, "
+        f"{nbytes / 1e6:.2f} MB, {2.0 * m * n * k / 1e9:.2f} GFLOP), {bound_ms / alone:.3f} of it alone, "
+        f"{bound_ms / cold:.3f} cold ({card})")
+    return {"name": f"{'w8_gemv_group_kernel' if key == 'W1' else 'w8_gemm_kernel'} ({key}), {what}", "route": "cuda",
             "source": "flash_attention_tpu_torch/csrc/w8.cu", "replaces": f"{REFERENCE}/ops/quant.py:124",
             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms, "alone_ms": alone, "cold_ms": cold,
+            "library_cold_ms": lib_cold, "host_us": host_us}
+
+
+def _w8_group_row(card: str, label: str, x, ws) -> dict:
+    """A timed W1 group (``w8_matmul_group``): the wrapper call, alone in a
+    CUDA graph, alone with a cold L2 and the host µs, beside its weights'
+    single launches (``w8_matmul`` one after another, cold) and cuBLAS on
+    the widened weights (cold), against the group's bound (its weights,
+    scales, x once and the outputs, over 3.35 TB/s)."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.quant import w8_dequant, w8_matmul, w8_matmul_group
+
+    m, k = x.shape
+    ns = [w.values.numel() // k for w in ws]
+    wbytes = sum(k * n for n in ns)
+    ms, alone, host_us = _three_times(lambda: w8_matmul_group(x, ws))
+    copies = [_weight_copies(w, wbytes) for w in ws]
+    cold = _cold_ms(lambda i: lambda: w8_matmul_group(x, [c[i] for c in copies]), wbytes)
+    singles = _cold_ms(lambda i: lambda: [w8_matmul(x, c[i]) for c in copies], wbytes)
+    del copies
+    single_host = _three_times(lambda: [w8_matmul(x, w) for w in ws])[2]
+    wides = [[w8_dequant(w).to(x.dtype).reshape(k, -1) for w in ws]]
+    wides += [[t.clone() for t in wides[0]] for _ in range(max(2, -(-int(COLD_BYTES) // (2 * wbytes))) - 1)]
+    lib_cold = _cold_ms(lambda i: lambda: [torch.matmul(x, t) for t in wides[i]], 2 * wbytes)
+    del wides
+    nbytes = wbytes + 4 * sum(ns) + m * k * 2 + m * sum(ns) * 2
+    bound_ms, bound_by = bound(2.0 * m * k * sum(ns), nbytes)
+    log(f"[w8] W1 group {label} (N {ns}, K {k}), x [{m}, {k}] bf16: one launch {ms:.4f} ms as a call, {alone:.4f} ms "
+        f"alone in a CUDA graph, {cold:.4f} ms alone with a cold L2, host {host_us:.1f} us a call (the single calls "
+        f"one after another: {singles:.4f} ms cold, host {single_host:.1f} us); cuBLAS on the widened weights "
+        f"{lib_cold:.4f} ms cold; bound {bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.2f} MB), {bound_ms / cold:.3f} "
+        f"of it cold, {bound_ms / alone:.3f} alone ({card})")
+    return {"ms": ms, "alone_ms": alone, "cold_ms": cold, "singles_cold_ms": singles, "host_us": host_us,
+            "singles_host_us": single_host, "library_ms": lib_cold, "bound_ms": bound_ms}
 
 
 def phase_w8(card: str) -> dict:
@@ -6145,10 +6299,14 @@ def phase_w8(card: str) -> dict:
     (strided column views; the row-parallel partials in fp32), each at
     W1_ROWS (W1) and W2_ROWS (W2) rows in bf16 and fp16, and at W1_ROWS in
     fp32 (W1's FMA body): every product held by ``_w8_case`` and its one-hot
-    rows by ``_w8_one_hot``; a split W1 (wo, w_down) and W2 replayed in a
-    CUDA graph equal to the direct call; an odd shape (K 100, N 72) on W1's
-    byte-wise loads. Then the W8_TIMED rows at every layout in bf16, timed
-    (``_w8_row``). Returns W1's and W2's lines (w_gate at 8 and 256 rows)."""
+    rows by ``_w8_one_hot``; the W8_GROUPS (q / k / v, gate / up, whole and
+    model-4 shards) as one W1 launch each at 1, 8 and W1_MAX_ROWS rows by
+    ``_w8_group_case``;
+    a split W1 (wo, w_down) and W2 replayed in a CUDA graph equal to the
+    direct call; an odd shape (K 100, N 72) on W1's byte-wise loads. Then
+    the W8_TIMED rows at every layout in bf16, timed (``_w8_row``), and the
+    groups at 8 rows (``_w8_group_row``). Returns W1's and W2's lines
+    (w_gate at 8 and 256 rows) and the timed numbers by row."""
     import torch
 
     from flash_attention_tpu_torch.ops.quant import W1_MAX_ROWS, quantize_weight, w8_matmul
@@ -6156,7 +6314,7 @@ def phase_w8(card: str) -> dict:
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(26)
     weights = _w8_weights(gen)
-    worst, cases = {"W1": [0.0, 0.0], "W2": [0.0, 0.0]}, 0
+    worst, cases = {"W1": [0.0, 0.0], "W2": [0.0, 0.0], "W1 groups": [0.0, 0.0]}, 0
     layouts = {**{name: (axes, on_output, False) for name, (_, axes, on_output) in W8_WEIGHTS.items()},
                **{label: (W8_WEIGHTS[name][1], False, f32) for label, (name, _, _, f32) in W8_SHARDS.items()}}
     for name, (axes, on_output, f32_out) in layouts.items():
@@ -6174,12 +6332,24 @@ def phase_w8(card: str) -> dict:
             for m in (8, 64) if dtype != torch.float32 else (8,):
                 _w8_one_hot(f"{name} {str(dtype)[6:]} M={m}", w, k, dtype, m, out_dtype=out_dtype,
                             scale_on_output=on_output)
+    groups = 0
+    for label, names in W8_GROUPS.items():
+        ws = [weights[name] for name in names]
+        for dtype in (torch.bfloat16, torch.float16):
+            for m in sorted({1, 8, W1_MAX_ROWS}):
+                x = torch_uniform((m, 4096), dtype, gen) * 2
+                rel, d_oracle = _w8_group_case(f"group {label} {str(dtype)[6:]} M={m}", x, ws, out_dtype=dtype)
+                worst["W1 groups"] = [max(worst["W1 groups"][0], rel), max(worst["W1 groups"][1], d_oracle)]
+                groups += 1
     log(f"[w8] {cases} products held (launched on W1 at <= {W1_MAX_ROWS} rows or fp32, else W2; two calls "
-        f"bit-identical; one-hot rows bit-exact at 8 and 64 rows): worst row-relative to plain and oracle error "
-        f"W1 {worst['W1'][0]:.3e} / {worst['W1'][1]:.3e}, W2 {worst['W2'][0]:.3e} / {worst['W2'][1]:.3e} ({card})")
+        f"bit-identical; one-hot rows bit-exact at 8 and 64 rows) and {groups} groups (one W1 launch a group, two "
+        f"calls bit-identical, replay == call, one-hot rows bit-exact): worst row-relative to plain and oracle error "
+        f"W1 {worst['W1'][0]:.3e} / {worst['W1'][1]:.3e}, W2 {worst['W2'][0]:.3e} / {worst['W2'][1]:.3e}, groups "
+        f"{worst['W1 groups'][0]:.3e} / {worst['W1 groups'][1]:.3e} ({card})")
 
-    # A CUDA graph's replay equals the direct call (W1's split tickets reset themselves).
-    for name, m in (("wo", 8), ("w_down", 1), ("w_down / 4 (row-parallel)", 32), ("w_gate", 256), ("unembed", 8)):
+    # A CUDA graph's replay equals the direct call.
+    for name, m in (("wo", 8), ("w_down", 1), ("w_down / 4 (row-parallel)", 32), ("w_gate", 256), ("unembed", 8),
+                    ("unembed", 1024), ("wq", 64)):
         w, on_output = weights[name], name == "unembed"
         k = _w8_k(w, (0, 1) if name == "wo" else 0, on_output)
         x = torch_uniform((m, k), torch.bfloat16, gen)
@@ -6203,7 +6373,7 @@ def phase_w8(card: str) -> dict:
     log(f"[w8] CUDA graph replays == direct calls (split W1, W2, the unembed); odd shapes (K 100, N 72) on W1 "
         f"held ({card})")
 
-    rows = {}
+    rows, timed = {}, {}
     for key, m in W8_TIMED:
         for name in ("wq", "wk", "wo", "w_gate", "w_down", "unembed"):
             w, on_output = weights[name], name == "unembed"
@@ -6214,10 +6384,16 @@ def phase_w8(card: str) -> dict:
                                    kernel=key)
             row = _w8_row(card, key, f"{name} {tuple(w.values.shape)}, x [{m}, {k}] bf16", x, w, out_dtype=out_dtype,
                           scale_on_output=on_output, err=d_oracle)
+            timed[f"{key} {name} M={m}"] = {k2: row.pop(k2) for k2 in ("alone_ms", "cold_ms", "library_cold_ms",
+                                                                       "host_us")}
+            timed[f"{key} {name} M={m}"].update(ms=row["ms"], library_ms=row["library_ms"], bound_ms=row["bound_ms"])
             if name == "w_gate" and m in (8, 256):
                 rows[key] = row
+    for label in ("q / k / v", "gate / up"):
+        x = torch_uniform((8, 4096), torch.bfloat16, gen) * 2
+        timed[f"W1 group {label} M=8"] = _w8_group_row(card, label, x, [weights[n] for n in W8_GROUPS[label]])
     log(f"[w8] phase 26 took {time.perf_counter() - t0:.1f} s ({card})")
-    return rows
+    return {"rows": rows, "timed": timed}
 
 
 def main() -> None:
@@ -6325,7 +6501,7 @@ def main() -> None:
     for key, row in fused.items():
         row["launches"] = glue_launches[key]
     lap("25")
-    w8 = phase_w8(card)
+    w8 = phase_w8(card)["rows"]
     for key, row in w8.items():
         row["launches"] = w8_launches[key]
     lap("26")

@@ -18,7 +18,8 @@
 //  * scale on the output (the tied unembed, models/transformer.py:219-223):
 //    w = T(q), exact, and the fp32 sum is multiplied by s[n] in fp32.
 //  * out[m, n] = sum_k x[m, k] w[k, n] with fp32 accumulators, rounded once
-//    to the output type (x's, or fp32).
+//    to the output type (x's, or fp32), the sums in an order fixed by the
+//    shapes alone: two calls, and a CUDA graph's replay, give the same bits.
 // Two layouts as they lie in memory, each with its leading stride: [K, N]
 // with N contiguous (the layer weights, and a tensor-parallel shard's
 // strided view of them) and [N, K] with K contiguous (the embedding).
@@ -28,43 +29,57 @@
 // 1.73 ms); at a prefill chunk (M = 256 and up) the products, 2 M N K at
 // 989 TFLOP/s.
 //
-// W1, w8_gemv_kernel (bf16 / fp16 activations): a weight stream into
-// shared memory, W1_STAGES steps ahead of the widen. Each lane reads 16
-// bytes at a time from there and widens them in registers into the A
-// fragments of mma.sync m16n8k16 (the weight is A: 16 output columns by 16
-// k; up to 32 rows of x are B, 8 a tile), so the tensor cores do the
-// multiply-adds and the lanes only widen (about three integer and float
-// operations an element: an int8 code becomes an exact float by the
-// 0x4B000000 magic-number add, two are packed into a bf16 pair, one
-// mul.rn.bf16x2 scales the pair). The product sums over k in any order, so
-// the k of the fragments is permuted to what one 16-byte read holds:
-//  * [K, N]: a lane reads four k rows (16 columns each); a warp covers 128
-//    columns and a block's eight warps split its k range, reduced in shared
-//    memory in warp order. Each warp streams its k-steps (16 rows by 128
-//    bytes) by TMA into a ring of its own, 128-byte swizzled so the lanes'
-//    reads spread over the banks: 1.7 TB/s at w_gate against 0.8-1.3 by
-//    per-lane cp.async or plain 16-byte loads with the same compute. The
-//    K axis is split over blocks as well where N / 128 column strips leave the
-//    card idle (wo, w_down: N = 4096); each split writes an fp32 partial and
-//    the last block of a strip to finish (a ticket counter, left at 0) adds
-//    the partials in split order, so a call gives the same bits every time
-//    and under a graph's replay.
-//  * [N, K]: a warp owns 16 weight rows over the whole of K (the unembed's
-//    32,000 rows are 2,000 warps: no split); each lane copies its bytes
-//    (cp.async) into shared-memory slots of its own.
+// W1, the decode weight stream (bf16 / fp16 activations):
+//  * [K, N], w8_gemv_group_kernel: one launch for up to W1_GROUP weights
+//    that read the same x (q / k / v, gate / up), each with its own
+//    pointer, stride, scales and output. A block owns one 128-column strip of
+//    one weight over a range of K; a producer warp streams the range by TMA
+//    in boxes of 128 k rows by the strip's 128 bytes (16 KB) into a ring of
+//    W1_STAGES boxes, behind full and empty mbarriers, and eight consumer
+//    warps take a 16-row k-step of each box. A lane reads 16 bytes at a time
+//    (four k rows of 16 columns) and widens them in registers into the A
+//    fragments of mma.sync m16n8k16 (the weight is A: 16 output columns by
+//    16 k; up to 32 rows of x are B, 8 a tile), so the tensor cores do the
+//    multiply-adds and the lanes only widen (about three integer and float
+//    operations an element: an int8 code becomes an exact float by the
+//    0x4B000000 magic-number add, two are packed into a bf16 pair, one
+//    mul.rn.bf16x2 scales the pair). The product sums over k in any order,
+//    so the k of the fragments is permuted to what one 16-byte read holds.
+//    The block's warps are summed in shared memory in warp order, in one
+//    pass over a slot a warp. Where the strips leave the card idle, K is
+//    split over the blocks of a thread-block cluster (up to W1_MAX_SPLITS):
+//    each block sends each peer its share of the partial sums through
+//    distributed shared memory, and each adds its share in rank order and
+//    writes it. A shard whose leading stride TMA cannot take (not a multiple
+//    of 16 bytes) is read byte by byte by the consumer warps, with no
+//    producer.
+//  * [N, K], w8_gemv_kernel: a warp owns 16 weight rows over the whole of
+//    K (the unembed's 32,000 rows are 2,000 warps); each lane copies its
+//    bytes (cp.async) into shared-memory slots of its own.
 // fp32 activations take w8_gemv_fma_kernel: one thread a column, eight x
 // rows a block row, FMAs (the tiny fp32 configurations).
 //
-// W2, w8_gemm_kernel (bf16 / fp16 activations, M above W1's rows): wgmma.
-// A block owns 64 rows by 128 columns; the x tile (128-byte swizzle) and the
-// int8 weight tile come by TMA into a four-stage ring, and the block
-// widens each int8 tile into a swizzled 16-bit tile (MN-major for [K, N],
-// read with wgmma's transpose flag; K-major for [N, K]) while the tensor
-// cores run the previous k-block's m64n128k16 chain from the other widened
-// buffer; a block's two warpgroups widen, the first also multiplies. The
-// epilogue scales (on the output) and rounds the fp32 accumulators. Not yet
-// at the compute bound.
+// W2, w8_gemm_kernel (bf16 / fp16 activations, M above W1's rows): a
+// warp-specialised wgmma GEMM with the operands swapped, out^T = W^T x^T, so
+// that the widened weight is wgmma's A operand in registers and never
+// touches shared memory. Persistent blocks, one a multiprocessor, walk
+// tiles of 128 weight columns by BM (64 or 128, ops/quant.py w2_plan) x
+// rows, rows fastest. Warp 8, the producer, loads each k-block's x tile
+// (128-byte swizzle: wgmma's K-major B) and int8 weight tile by TMA into a
+// ring of stages. Warps 0-7, two consumer warpgroups of 64 weight columns
+// each, read their columns' int8 fragments from the stage ([K, N]: two
+// transposed 8 x 8 loads of 16-bit column pairs a k-block, 128-byte
+// swizzle; [N, K]: 16-bit k pairs, 64-byte swizzle), widen them in
+// registers with the same widen as W1, and issue the k-block's four RS
+// m64nBMk16 products; the fragments are double-buffered, so the next
+// k-block's widen runs under these products, and a stage is released once
+// the products that read it are done. Each int8 element is read from
+// shared memory and widened once a block, whatever the rows. A weight
+// column pair is adjacent in the accumulator, so the epilogue (scale on the
+// output, rounding) stores 4- or 8-byte words.
 #include <cuda.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 #include "sm90_common.cuh"
@@ -74,15 +89,17 @@ namespace {
 using namespace fat::sm90;
 using bf16 = __nv_bfloat16;
 
-constexpr int W1_THREADS = 256;
-constexpr int W1_WARPS = W1_THREADS / 32;
-constexpr int KN_COLS = 128;  // [K, N]: columns a strip (a warp, 16 a lane group)
-constexpr int NK_ROWS = 16;   // [N, K]: weight rows a warp
-constexpr int NK_WARPS = 4;   // [N, K]: warps a block (the unembed's 32,000 rows: 500 blocks)
-// W1's weight stream runs W1_STAGES k-steps (k-blocks for [N, K]) ahead of
-// the widen: per warp by TMA for [K, N], per lane by cp.async for [N, K].
-constexpr int W1_STAGES = 4;  // a power of two
-constexpr int NK_PIECES = 2;  // [N, K]: a k-block (rows g and g + 8)
+constexpr int KN_COLS = 128;    // [K, N]: columns a strip (16 a lane group)
+constexpr int W1_WARPS = 8;     // [K, N]: consumer warps a block, a 16-row k-step of each box apiece
+constexpr int W1_THREADS = (W1_WARPS + 1) * 32;  // and the producer warp
+constexpr int W1_BOX = 16 * W1_WARPS * KN_COLS;  // bytes a TMA box: 128 k rows by the strip's 128 bytes
+constexpr int W1_STAGES = 4;    // boxes in flight a block
+constexpr int W1_GROUP = 3;     // weights a launch at most
+constexpr int W1_MAX_SPLITS = 8;  // blocks a cluster at most (the portable size)
+constexpr int NK_ROWS = 16;     // [N, K]: weight rows a warp
+constexpr int NK_WARPS = 4;     // [N, K]: warps a block (the unembed's 32,000 rows: 500 blocks)
+constexpr int NK_STAGES = 4;    // [N, K]: k-blocks each lane's cp.async ring runs ahead; a power of two
+constexpr int NK_PIECES = 2;    // [N, K]: a k-block (rows g and g + 8)
 constexpr int FMA_THREADS = 256;
 constexpr int FMA_ROWS = 8;
 
@@ -150,17 +167,32 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
-
+// The [N, K] and fp32 bodies' operands.
 struct GemvParams {
-  CUtensorMap tm_w;  // [K, N] with VEC: the weight as [K rows, N bytes], boxes of 16 rows by 128, 128-byte swizzle
   const void* x;  // [M, K] at row stride ldx
   const int8_t* w;
   const float* scales;  // [N]
   void* out;            // [M, N] at row stride ldo
-  float* ws;            // splits > 1: each block's fp32 partial, in fragment order
-  int32_t* tickets;     // splits > 1: a counter a (row group, strip), 0 between launches
   int64_t M, N, K, ldx, ldw, ldo;
-  int nk, scaled, out_f32, splits, steps;  // steps: 16-row k-steps a split
+  int nk, scaled, out_f32;
+};
+
+// One weight of a [K, N] group launch.
+struct GroupWeight {
+  CUtensorMap tm;  // VEC: the weight as [K rows, N bytes], boxes of 128 rows by 128, 128-byte swizzle
+  const int8_t* w;
+  const float* scales;  // [N]
+  void* out;            // [M, N] at row stride ldo
+  int64_t N, ldw, ldo;
+  int strips;  // 128-column strips
+};
+
+struct GroupParams {
+  GroupWeight wt[W1_GROUP];
+  const void* x;  // [M, K] at row stride ldx, shared by the group
+  int64_t M, K, ldx;
+  int count, scaled, out_f32;
+  int splits, steps;  // K split over a cluster of `splits` blocks, `steps` 16-row k-steps each
 };
 
 // 16 weight bytes from `src`, zero where `ok` is false; VEC: one aligned
@@ -234,13 +266,13 @@ __device__ __forceinline__ void load_x(uint32_t (&out)[PAIRS], const uint16_t* r
 // One fp32 result of W1 written: scaled on the output where the weight was
 // not, rounded to the output type.
 template <typename T>
-__device__ __forceinline__ void store_out(const GemvParams& p, int64_t m, int64_t n, float v) {
-  if (m >= p.M || n >= p.N) return;
-  if (!p.scaled) v = __fmul_rn(v, __ldg(p.scales + n));
-  if (p.out_f32) {
-    static_cast<float*>(p.out)[m * p.ldo + n] = v;
+__device__ __forceinline__ void store_out(const float* scales, void* out, int64_t ldo, bool scaled, bool out_f32,
+                                          int64_t m, int64_t n, float v) {
+  if (!scaled) v = __fmul_rn(v, __ldg(scales + n));
+  if (out_f32) {
+    static_cast<float*>(out)[m * ldo + n] = v;
   } else {
-    static_cast<T*>(p.out)[m * p.ldo + n] = fat::from_float<T>(v);
+    static_cast<T*>(out)[m * ldo + n] = fat::from_float<T>(v);
   }
 }
 
@@ -254,19 +286,16 @@ __device__ __forceinline__ void place(int t, int j, int e, int g, int c, int64_t
   n = NK ? col0 + g + 8 * (e >> 1) : col0 + 16 * g + 2 * t + (e >> 1);
 }
 
-// grid: [K, N]: (column strips, splits, row groups); [N, K]: (row blocks of
-// 8 warps x 16 rows, 1, row groups). XT: 8-row x tiles a row group.
-template <typename T, bool NK, int XT, bool VEC>
-__global__ void __launch_bounds__(W1_THREADS) w8_gemv_kernel(const __grid_constant__ GemvParams p) {
-  constexpr int TILES = NK ? 1 : 8;  // m-tiles a warp
+// [N, K]: 16 weight rows a warp over the whole of K, k-blocks of 64, each
+// lane's bytes by cp.async into slots of its own, NK_STAGES k-blocks ahead.
+// grid: (blocks of NK_WARPS warps, 1, row groups of 8 XT rows).
+template <typename T, int XT, bool VEC>
+__global__ void __launch_bounds__(NK_WARPS * 32) w8_gemv_kernel(const __grid_constant__ GemvParams p) {
+  constexpr int THREADS = NK_WARPS * 32;
   constexpr int PIECES = NK_PIECES;
-  __shared__ float red[XT * TILES * 4 * 32];
-  __shared__ int s_last;
-  constexpr int THREADS = NK ? NK_WARPS * 32 : W1_THREADS;
-  extern __shared__ __align__(1024) uint8_t w1_smem[];
-  // [N, K]: [W1_STAGES][PIECES][THREADS] 16-byte slots, each lane's own.
-  uint4* const lane_ring = reinterpret_cast<uint4*>(w1_smem) + threadIdx.x;  // slot (stage, piece) at + (stage * PIECES + piece) * THREADS
-  __shared__ uint64_t full_bar[NK ? 1 : W1_WARPS][W1_STAGES];  // [K, N]: each warp's TMA ring
+  extern __shared__ __align__(16) uint8_t nk_smem[];
+  // [NK_STAGES][PIECES][THREADS] 16-byte slots, each lane's own.
+  uint4* const lane_ring = reinterpret_cast<uint4*>(nk_smem) + threadIdx.x;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, c = lane % 4;
   const int64_t row0 = static_cast<int64_t>(blockIdx.z) * 8 * XT;
   const uint16_t* x = static_cast<const uint16_t*>(p.x);
@@ -277,231 +306,280 @@ __global__ void __launch_bounds__(W1_THREADS) w8_gemv_kernel(const __grid_consta
     xok[j] = row0 + 8 * j + g < p.M;
     xrow[j] = x + (xok[j] ? (row0 + 8 * j + g) * p.ldx : 0);
   }
-  float acc[XT][TILES][4];
+  float acc[XT][4];
 #pragma unroll
   for (int j = 0; j < XT; ++j)
 #pragma unroll
-    for (int t = 0; t < TILES; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][t][e] = 0.f;
-
-  int64_t col0;
-  if constexpr (!NK) {
-    // ---- [K, N]: a strip of 128 columns, k-steps of 16 rows ----
-    col0 = static_cast<int64_t>(blockIdx.x) * KN_COLS;
-    const int64_t ncol = col0 + 16 * g;
-    const bool col_ok = ncol < p.N;
-    const int ksteps = static_cast<int>((p.K + 15) / 16);
-    const int s_begin = static_cast<int>(blockIdx.y) * p.steps, s_end = min(ksteps, s_begin + p.steps);
-    const int first = s_begin + warp;  // the warp's k-steps: first + 8 i, step i in slot i % W1_STAGES
-    // This lane's first k row (4c of step `first`), and the bytes from one of its steps to the next.
-    // [K, N] with VEC: each warp streams its k-steps (16 rows by the strip's
-    // 128 bytes, 2 KB) by TMA into a ring of W1_STAGES tiles of its own,
-    // 128-byte swizzled; lane 0 issues, every lane waits on the tile's
-    // barrier. Otherwise each lane loads its bytes one by one.
-    uint8_t* const tiles = align_1024(w1_smem) + warp * (W1_STAGES * 2048);
-    uint64_t* const bars = full_bar[NK ? 0 : warp];
-    auto issue = [&](int i) {  // lane 0: step i of the warp into tile i % W1_STAGES
-      const int st = first + W1_WARPS * i;
-      if (st < s_end) {
-        uint64_t* bar = &bars[i & (W1_STAGES - 1)];
-        mbar_expect(bar, 2048);
-        tma_load_2d(tiles + (i & (W1_STAGES - 1)) * 2048, &p.tm_w, static_cast<int>(col0), st * 16, bar);
-      }
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int64_t r0 = (static_cast<int64_t>(blockIdx.x) * NK_WARPS + warp) * NK_ROWS;
+  const int64_t na = r0 + g, nb = r0 + g + 8;
+  const float s_a = na < p.N ? __ldg(p.scales + na) : 0.f, s_b = nb < p.N ? __ldg(p.scales + nb) : 0.f;
+  const uint32_t sa = bf16_pair(s_a, s_a), sb = bf16_pair(s_b, s_b);
+  const int8_t* wa = p.w + (na < p.N ? na : 0) * p.ldw;
+  const int8_t* wb = p.w + (nb < p.N ? nb : 0) * p.ldw;
+  if (r0 < p.N) {
+    // k-block i (k from 64 i) sits in slot i % NK_STAGES.
+    auto fetch = [&](int i) {
+      const int k = 64 * i + 16 * c;  // this lane's 16 k
+      const bool ok = k < p.K;
+      uint4* dst = lane_ring + (i & (NK_STAGES - 1)) * PIECES * THREADS;
+      stage16<VEC>(dst, ok && na < p.N ? wa + k : p.w, ok && na < p.N, p.K - k);
+      stage16<VEC>(dst + THREADS, ok && nb < p.N ? wb + k : p.w, ok && nb < p.N, p.K - k);
+      async_commit();
     };
-    if constexpr (VEC) {
-      if (lane == 0) {
-        for (int s = 0; s < W1_STAGES; ++s) mbar_init(&bars[s], 1);
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-        for (int i = 0; i < W1_STAGES; ++i) issue(i);
-      }
-      __syncwarp();
-    }
-    // x's pairs of step i (registers), loaded a step ahead.
-    auto fetch_x = [&](uint32_t (&b)[XT][2], int i) {
-      const int st = first + W1_WARPS * i;
+    // x's pairs of k-block i (registers), loaded a k-block ahead.
+    auto fetch_x = [&](uint32_t (&xb)[XT][8], int i) {
+      const int k = 64 * i + 16 * c;
 #pragma unroll
-      for (int j = 0; j < XT; ++j) load_x<2, VEC>(b[j], xrow[j], st * 16 + 4 * c, p.K, xok[j] && st < s_end);
+      for (int j = 0; j < XT; ++j) load_x<8, VEC>(xb[j], xrow[j], k, p.K, xok[j] && k < p.K);
     };
-    uint32_t b_next[XT][2];
-    fetch_x(b_next, 0);
-    uint32_t sc[16];  // the lane's 16 columns' bf16 scales, paired; read under the first copies
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const float s = ncol + i < p.N ? __ldg(p.scales + ncol + i) : 0.f;
-      sc[i] = bf16_pair(s, s);
-    }
-    for (int i = 0; first + W1_WARPS * i < s_end; ++i) {
-      uint32_t b[XT][2];
-#pragma unroll
-      for (int j = 0; j < XT; ++j) b[j][0] = b_next[j][0], b[j][1] = b_next[j][1];
-      fetch_x(b_next, i + 1);
-      uint4 w4[4];
-      if constexpr (VEC) {
-        mbar_wait(&bars[i & (W1_STAGES - 1)], (i / W1_STAGES) & 1);
-        const uint8_t* tile = tiles + (i & (W1_STAGES - 1)) * 2048;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = 4 * c + r;  // the lane's rows of the step, chunk g, as TMA swizzled them
-          const uint4 v = *reinterpret_cast<const uint4*>(tile + row * 128 + ((g ^ (row & 7)) << 4));
-          w4[r] = make_uint4(v.x ^ 0x80808080u, v.y ^ 0x80808080u, v.z ^ 0x80808080u, v.w ^ 0x80808080u);
-        }
-        __syncwarp();
-        if (lane == 0) {
-          fence_proxy_async();  // the tile's reads before the copy that refills it
-          issue(i + W1_STAGES);
-        }
-      } else {
-        const int k0 = (first + W1_WARPS * i) * 16 + 4 * c;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const uint4 v = load16<false>(p.w + (k0 + r) * p.ldw + ncol, col_ok && k0 + r < p.K, p.N - ncol);
-          w4[r] = make_uint4(v.x ^ 0x80808080u, v.y ^ 0x80808080u, v.z ^ 0x80808080u, v.w ^ 0x80808080u);
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        // Columns 2t (A row g) and 2t + 1 (A row g + 8) of the lane's 16:
-        // bytes 2t % 4 and 2t % 4 + 1 of word t / 2 of each k row.
-        uint32_t a[4];
-        const uint32_t r0 = word(w4[0], t / 2), r1 = word(w4[1], t / 2);
-        const uint32_t r2 = word(w4[2], t / 2), r3 = word(w4[3], t / 2);
-        if (t % 2 == 0) {
-          a[0] = widen<T>(code<0>(r0), code<0>(r1), sc[2 * t], p.scaled);
-          a[1] = widen<T>(code<1>(r0), code<1>(r1), sc[2 * t + 1], p.scaled);
-          a[2] = widen<T>(code<0>(r2), code<0>(r3), sc[2 * t], p.scaled);
-          a[3] = widen<T>(code<1>(r2), code<1>(r3), sc[2 * t + 1], p.scaled);
-        } else {
-          a[0] = widen<T>(code<2>(r0), code<2>(r1), sc[2 * t], p.scaled);
-          a[1] = widen<T>(code<3>(r0), code<3>(r1), sc[2 * t + 1], p.scaled);
-          a[2] = widen<T>(code<2>(r2), code<2>(r3), sc[2 * t], p.scaled);
-          a[3] = widen<T>(code<3>(r2), code<3>(r3), sc[2 * t + 1], p.scaled);
-        }
-#pragma unroll
-        for (int j = 0; j < XT; ++j) mma<T>(acc[j][t], a, b[j][0], b[j][1]);
-      }
-    }
-  } else {
-    // ---- [N, K]: 16 weight rows a warp, k-blocks of 64 ----
-    const int64_t r0 = (static_cast<int64_t>(blockIdx.x) * NK_WARPS + warp) * NK_ROWS;
-    col0 = r0;
-    const int64_t na = r0 + g, nb = r0 + g + 8;
-    const float s_a = na < p.N ? __ldg(p.scales + na) : 0.f, s_b = nb < p.N ? __ldg(p.scales + nb) : 0.f;
-    const uint32_t sa = bf16_pair(s_a, s_a), sb = bf16_pair(s_b, s_b);
-    const int8_t* wa = p.w + (na < p.N ? na : 0) * p.ldw;
-    const int8_t* wb = p.w + (nb < p.N ? nb : 0) * p.ldw;
-    if (r0 < p.N) {
-      // k-block i (k from 64 i) sits in slot i % W1_STAGES.
-      auto fetch = [&](int i) {
-        const int k = 64 * i + 16 * c;  // this lane's 16 k
-        const bool ok = k < p.K;
-        uint4* dst = lane_ring + (i & (W1_STAGES - 1)) * PIECES * THREADS;
-        stage16<VEC>(dst, ok && na < p.N ? wa + k : p.w, ok && na < p.N, p.K - k);
-        stage16<VEC>(dst + THREADS, ok && nb < p.N ? wb + k : p.w, ok && nb < p.N, p.K - k);
-        async_commit();
-      };
-      // x's pairs of k-block i (registers), loaded a k-block ahead.
-      auto fetch_x = [&](uint32_t (&xb)[XT][8], int i) {
-        const int k = 64 * i + 16 * c;
-#pragma unroll
-        for (int j = 0; j < XT; ++j) load_x<8, VEC>(xb[j], xrow[j], k, p.K, xok[j] && k < p.K);
-      };
-#pragma unroll
-      for (int i = 0; i < W1_STAGES - 1; ++i) fetch(i);
-      uint32_t x_next[XT][8];
-      fetch_x(x_next, 0);
-      for (int i = 0; 64 * i < p.K; ++i) {
-        fetch(i + W1_STAGES - 1);
-        uint32_t xb[XT][8];
-#pragma unroll
-        for (int j = 0; j < XT; ++j)
-#pragma unroll
-          for (int u = 0; u < 8; ++u) xb[j][u] = x_next[j][u];
-        fetch_x(x_next, i + 1);
-        async_wait<W1_STAGES - 1>();
-        const uint4* slot = lane_ring + (i & (W1_STAGES - 1)) * PIECES * THREADS;
-        const uint4 va = slot[0], vb = slot[THREADS];
-        const uint4 wa4 = make_uint4(va.x ^ 0x80808080u, va.y ^ 0x80808080u, va.z ^ 0x80808080u, va.w ^ 0x80808080u);
-        const uint4 wb4 = make_uint4(vb.x ^ 0x80808080u, vb.y ^ 0x80808080u, vb.z ^ 0x80808080u, vb.w ^ 0x80808080u);
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          // k-step s: the lane's k + 4s + {0, 1} (a0 / a1) and + {2, 3} (a2 / a3).
-          const uint32_t wa_s = word(wa4, s), wb_s = word(wb4, s);
-          uint32_t a[4];
-          a[0] = widen<T>(code<0>(wa_s), code<1>(wa_s), sa, p.scaled);
-          a[1] = widen<T>(code<0>(wb_s), code<1>(wb_s), sb, p.scaled);
-          a[2] = widen<T>(code<2>(wa_s), code<3>(wa_s), sa, p.scaled);
-          a[3] = widen<T>(code<2>(wb_s), code<3>(wb_s), sb, p.scaled);
-#pragma unroll
-          for (int j = 0; j < XT; ++j) mma<T>(acc[j][0], a, xb[j][2 * s], xb[j][2 * s + 1]);
-        }
-      }
-      async_wait<0>();
-    }
-    // [N, K] warps are independent: each writes its own rows.
-#pragma unroll
-    for (int j = 0; j < XT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int64_t m, n;
-        place<true>(0, j, e, g, c, col0, row0, m, n);
-        store_out<T>(p, m, n, acc[j][0][e]);
-      }
-    return;
-  }
-
-  // ---- [K, N]: the block's eight warps reduced in warp order ----
-  constexpr int PER = XT * TILES * 4;  // accumulators a lane
-  for (int w = 0; w < W1_WARPS; ++w) {
-    if (warp == w) {
+    for (int i = 0; i < NK_STAGES - 1; ++i) fetch(i);
+    uint32_t x_next[XT][8];
+    fetch_x(x_next, 0);
+    for (int i = 0; 64 * i < p.K; ++i) {
+      fetch(i + NK_STAGES - 1);
+      uint32_t xb[XT][8];
 #pragma unroll
       for (int j = 0; j < XT; ++j)
 #pragma unroll
-        for (int t = 0; t < TILES; ++t)
+        for (int u = 0; u < 8; ++u) xb[j][u] = x_next[j][u];
+      fetch_x(x_next, i + 1);
+      async_wait<NK_STAGES - 1>();
+      const uint4* slot = lane_ring + (i & (NK_STAGES - 1)) * PIECES * THREADS;
+      const uint4 va = slot[0], vb = slot[THREADS];
+      const uint4 wa4 = make_uint4(va.x ^ 0x80808080u, va.y ^ 0x80808080u, va.z ^ 0x80808080u, va.w ^ 0x80808080u);
+      const uint4 wb4 = make_uint4(vb.x ^ 0x80808080u, vb.y ^ 0x80808080u, vb.z ^ 0x80808080u, vb.w ^ 0x80808080u);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float& slot = red[((j * TILES + t) * 4 + e) * 32 + lane];
-            slot = w == 0 ? acc[j][t][e] : __fadd_rn(slot, acc[j][t][e]);
-          }
+      for (int s = 0; s < 4; ++s) {
+        // k-step s: the lane's k + 4s + {0, 1} (a0 / a1) and + {2, 3} (a2 / a3).
+        const uint32_t wa_s = word(wa4, s), wb_s = word(wb4, s);
+        uint32_t a[4];
+        a[0] = widen<T>(code<0>(wa_s), code<1>(wa_s), sa, p.scaled);
+        a[1] = widen<T>(code<0>(wb_s), code<1>(wb_s), sb, p.scaled);
+        a[2] = widen<T>(code<2>(wa_s), code<3>(wa_s), sa, p.scaled);
+        a[3] = widen<T>(code<2>(wb_s), code<3>(wb_s), sb, p.scaled);
+#pragma unroll
+        for (int j = 0; j < XT; ++j) mma<T>(acc[j], a, xb[j][2 * s], xb[j][2 * s + 1]);
+      }
     }
-    __syncthreads();
+    async_wait<0>();
   }
-  const int64_t group = static_cast<int64_t>(blockIdx.z) * gridDim.x + blockIdx.x;  // (row group, strip)
-  if (p.splits > 1) {
-    float* part = p.ws + (group * p.splits + blockIdx.y) * (PER * 32);
-    for (int i = threadIdx.x; i < PER * 32; i += W1_THREADS) part[i] = red[i];
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int* ticket = p.tickets + group;
-      s_last = atomicAdd(ticket, 1) == p.splits - 1;
-      if (s_last) *ticket = 0;  // ready for the next launch
+  // The warps are independent: each writes its own rows.
+#pragma unroll
+  for (int j = 0; j < XT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      int64_t m, n;
+      place<true>(0, j, e, g, c, r0, row0, m, n);
+      if (m < p.M && n < p.N) store_out<T>(p.scales, p.out, p.ldo, p.scaled, p.out_f32, m, n, acc[j][e]);
     }
-    __syncthreads();
-    if (!s_last) return;
-    __threadfence();
+}
+
+// [K, N], one launch for a group of weights that read the same x. A block
+// owns a strip of 128 columns of one weight over a range of `steps` 16-row
+// k-steps. grid: (the group's strips x splits, row groups of 8 XT rows);
+// clusters of `splits` blocks along x, one a range. VEC, producer warp 8
+// streams the range in boxes of 128 k rows by the strip's 128 bytes
+// (unswizzled: a lane's four 16-byte reads of a k-step already spread over
+// the banks) and consumer warp w takes k-step w of each box; without VEC the
+// consumers load their bytes themselves.
+// Dynamic shared memory: the ring of boxes (VEC), which each consumer
+// warp's sums reuse once the boxes are read, then the peers' shares of the
+// block's sum.
+template <int XT, bool VEC>
+__host__ __device__ constexpr int w1_ring_bytes() {  // the boxes, or each warp's sums
+  return VEC && W1_STAGES * W1_BOX > 4 * W1_WARPS * XT * 1024 ? W1_STAGES * W1_BOX : 4 * W1_WARPS * XT * 1024;
+}
+template <int XT, bool VEC>
+__host__ __device__ constexpr int w1_smem_bytes() {
+  return 1024 + w1_ring_bytes<XT, VEC>() + 4 * (XT * 1024 + W1_MAX_SPLITS);
+}
+
+template <typename T, int XT, bool VEC>
+__global__ void __launch_bounds__(W1_THREADS) w8_gemv_group_kernel(const __grid_constant__ GroupParams p) {
+  constexpr int TOTAL = XT * 8 * 4 * 32;  // a warp's sums (XT x tiles, 8 m-tiles), and the block's, in fragment order
+  constexpr int CONSUMERS = W1_WARPS * 32;
+  __shared__ uint64_t full[W1_STAGES], empty[W1_STAGES];
+  extern __shared__ uint8_t w1_smem[];
+  uint8_t* const ring = align_1024(w1_smem);
+  float* const red = reinterpret_cast<float*>(ring);  // [W1_WARPS][TOTAL], once the boxes are read
+  float* const recv = reinterpret_cast<float*>(ring + w1_ring_bytes<XT, VEC>());  // by rank, a slice each
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, c = lane % 4;
+  const int splits = p.splits;
+  const int rank = splits > 1 ? static_cast<int>(cluster_rank()) : 0;
+  if (splits > 1) cluster_arrive_relaxed();
+  // The block's strip: item-th over the group's weights in order.
+  int item = static_cast<int>(blockIdx.x) / splits, wi = 0;
+  while (wi + 1 < p.count && item >= p.wt[wi].strips) item -= p.wt[wi].strips, ++wi;
+  const GroupWeight& wt = wi == 0 ? p.wt[0] : (wi == 1 ? p.wt[1] : p.wt[2]);
+  const int64_t col0 = static_cast<int64_t>(item) * KN_COLS;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * 8 * XT;
+  const int ksteps = static_cast<int>((p.K + 15) / 16);
+  const int s_begin = rank * p.steps, s_end = min(ksteps, s_begin + p.steps);
+  const int boxes = (s_end - s_begin + W1_WARPS - 1) / W1_WARPS;  // box i: k-steps s_begin + 8 i ..
+  if (VEC && threadIdx.x == 0) {
+    prefetch_map(&wt.tm);
+    for (int s = 0; s < W1_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], W1_WARPS);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = threadIdx.x; i < PER * 32; i += W1_THREADS) {
-    float v = red[i];
-    if (p.splits > 1) {
-      const float* parts = p.ws + group * p.splits * (PER * 32) + i;
-      // Eight partials' loads in flight at a time, added in split order.
-      for (int s0 = 0; s0 < p.splits; s0 += 8) {
-        float part[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          part[u] = s0 + u < p.splits ? __ldcg(parts + static_cast<int64_t>(s0 + u) * PER * 32) : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          if (s0 + u < p.splits) v = s0 + u == 0 ? part[u] : __fadd_rn(v, part[u]);
+  __syncthreads();
+
+  if (warp == W1_WARPS) {
+    // The producer: box i into stage i % W1_STAGES once the consumers have read what it held.
+    if constexpr (VEC) {
+      for (int i = 0; i < boxes; ++i) {
+        const int s = i % W1_STAGES;
+        mbar_wait(&empty[s], ((i / W1_STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect(&full[s], W1_BOX);
+          tma_load_2d(ring + s * W1_BOX, &wt.tm, static_cast<int>(col0), (s_begin + W1_WARPS * i) * 16, &full[s]);
         }
       }
     }
-    const int l = i % 32, idx = i / 32, e = idx % 4, t = (idx / 4) % TILES, j = idx / (4 * TILES);
+  } else {
+    const uint16_t* x = static_cast<const uint16_t*>(p.x);
+    const uint16_t* xrow[XT];
+    bool xok[XT];
+#pragma unroll
+    for (int j = 0; j < XT; ++j) {
+      xok[j] = row0 + 8 * j + g < p.M;
+      xrow[j] = x + (xok[j] ? (row0 + 8 * j + g) * p.ldx : 0);
+    }
+    float acc[XT][8][4];
+#pragma unroll
+    for (int j = 0; j < XT; ++j)
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][t][e] = 0.f;
+    const int64_t ncol = col0 + 16 * g;  // the lane's 16 columns
+    const bool col_ok = ncol < wt.N;
+    // x's pairs of box i's k-step (registers), loaded two boxes ahead.
+    auto fetch_x = [&](uint32_t (&b)[XT][2], int i) {
+      const int st = s_begin + W1_WARPS * i + warp;
+#pragma unroll
+      for (int j = 0; j < XT; ++j) load_x<2, VEC>(b[j], xrow[j], st * 16 + 4 * c, p.K, xok[j] && st < s_end);
+    };
+    uint32_t b_next[XT][2], b_after[XT][2];
+    fetch_x(b_next, 0);
+    fetch_x(b_after, 1);
+    uint32_t sc[16];  // the lane's 16 columns' bf16 scales, paired; read under the first boxes
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float s = ncol + i < wt.N ? __ldg(wt.scales + ncol + i) : 0.f;
+      sc[i] = bf16_pair(s, s);
+    }
+    const int at = (16 * warp + 4 * c) * KN_COLS + 16 * g;  // the lane's 16 bytes of its first k row, in a stage
+    for (int i = 0; i < boxes; ++i) {
+      const int st = s_begin + W1_WARPS * i + warp;
+      uint32_t b[XT][2];
+#pragma unroll
+      for (int j = 0; j < XT; ++j) {
+        b[j][0] = b_next[j][0], b[j][1] = b_next[j][1];
+        b_next[j][0] = b_after[j][0], b_next[j][1] = b_after[j][1];
+      }
+      fetch_x(b_after, i + 2);
+      uint4 w4[4];
+      if constexpr (VEC) {
+        const int s = i % W1_STAGES;
+        mbar_wait(&full[s], (i / W1_STAGES) & 1);
+        const uint8_t* tile = ring + s * W1_BOX + at;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint4 v = *reinterpret_cast<const uint4*>(tile + r * KN_COLS);
+          w4[r] = make_uint4(v.x ^ 0x80808080u, v.y ^ 0x80808080u, v.z ^ 0x80808080u, v.w ^ 0x80808080u);
+        }
+        fence_proxy_async();  // the box's reads before the copy that refills its stage
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      } else {
+        const int64_t k0 = static_cast<int64_t>(st) * 16 + 4 * c;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint4 v = load16<false>(wt.w + (k0 + r) * wt.ldw + ncol, col_ok && st < s_end && k0 + r < p.K,
+                                        wt.N - ncol);
+          w4[r] = make_uint4(v.x ^ 0x80808080u, v.y ^ 0x80808080u, v.z ^ 0x80808080u, v.w ^ 0x80808080u);
+        }
+      }
+      if (st < s_end) {
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          // Columns 2t (A row g) and 2t + 1 (A row g + 8) of the lane's 16:
+          // bytes 2t % 4 and 2t % 4 + 1 of word t / 2 of each k row.
+          uint32_t a[4];
+          const uint32_t r0 = word(w4[0], t / 2), r1 = word(w4[1], t / 2);
+          const uint32_t r2 = word(w4[2], t / 2), r3 = word(w4[3], t / 2);
+          if (t % 2 == 0) {
+            a[0] = widen<T>(code<0>(r0), code<0>(r1), sc[2 * t], p.scaled);
+            a[1] = widen<T>(code<1>(r0), code<1>(r1), sc[2 * t + 1], p.scaled);
+            a[2] = widen<T>(code<0>(r2), code<0>(r3), sc[2 * t], p.scaled);
+            a[3] = widen<T>(code<1>(r2), code<1>(r3), sc[2 * t + 1], p.scaled);
+          } else {
+            a[0] = widen<T>(code<2>(r0), code<2>(r1), sc[2 * t], p.scaled);
+            a[1] = widen<T>(code<3>(r0), code<3>(r1), sc[2 * t + 1], p.scaled);
+            a[2] = widen<T>(code<2>(r2), code<2>(r3), sc[2 * t], p.scaled);
+            a[3] = widen<T>(code<3>(r2), code<3>(r3), sc[2 * t + 1], p.scaled);
+          }
+#pragma unroll
+          for (int j = 0; j < XT; ++j) mma<T>(acc[j][t], a, b[j][0], b[j][1]);
+        }
+      }
+    }
+    // Each warp's sums into a slot of its own over the ring, once every
+    // consumer has read its last box.
+    named_sync(1, CONSUMERS);
+    float* const mine = red + warp * TOTAL + lane;
+#pragma unroll
+    for (int j = 0; j < XT; ++j)
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[((j * 8 + t) * 4 + e) * 32] = acc[j][t][e];
+    named_sync(1, CONSUMERS);
+  }
+
+  // Element i of the block's sum (lane l = i % 32, accumulator i / 32): the
+  // eight warps' added in warp order.
+  auto total = [&](int i) {
+    float v = red[i];
+    for (int w = 1; w < W1_WARPS; ++w) v = __fadd_rn(v, red[w * TOTAL + i]);
+    return v;
+  };
+  auto store = [&](int i, float v) {
+    const int l = i % 32, idx = i / 32, e = idx % 4, t = (idx / 4) % 8, j = idx / 32;
     int64_t m, n;
     place<false>(t, j, e, l / 4, l % 4, col0, row0, m, n);
-    store_out<T>(p, m, n, v);
+    if (m < p.M && n < wt.N) store_out<T>(wt.scales, wt.out, wt.ldo, p.scaled, p.out_f32, m, n, v);
+  };
+  if (splits == 1) {
+    if (warp < W1_WARPS) {
+      for (int i = threadIdx.x; i < TOTAL; i += CONSUMERS) store(i, total(i));
+    }
+    return;
+  }
+  // The cluster's K split: rank r adds slice r of the sum over the ranks in
+  // rank order. Each block first sends each peer its share, into the peer's
+  // recv slot of this rank (every thread of the cluster takes part in the
+  // barriers; the producer warp sends nothing).
+  const int slice = (TOTAL + splits - 1) / splits;
+  cluster_wait();  // the start's arrival: every peer runs
+  if (warp < W1_WARPS) {
+    for (int i = threadIdx.x; i < TOTAL; i += CONSUMERS) {
+      const int to = i / slice;
+      st_peer(peer_addr(smem_u32(&recv[rank * slice + (i - to * slice)]), to), total(i));
+    }
+  }
+  cluster_sync();
+  if (warp < W1_WARPS) {
+    for (int e = threadIdx.x; e < slice && rank * slice + e < TOTAL; e += CONSUMERS) {
+      float v = recv[e];
+      for (int r = 1; r < splits; ++r) v = __fadd_rn(v, recv[r * slice + e]);
+      store(rank * slice + e, v);
+    }
   }
 }
 
@@ -534,13 +612,25 @@ __global__ void __launch_bounds__(FMA_THREADS) w8_gemv_fma_kernel(const GemvPara
 
 // ---- W2 ----
 
-constexpr int BM = 64, BN = 128, BK = 64;
-constexpr int W2_THREADS = 256;  // two warpgroups widen; the first multiplies
-constexpr int STAGES = 4;  // the TMA ring: k-blocks in flight ahead of the widen
-constexpr int X_TILE = BM * BK * 2;  // bytes of a 16-bit x tile
-constexpr int W8_TILE = BK * BN;      // bytes of an int8 weight tile
-constexpr int WIDE_TILE = BK * BN * 2;
-constexpr size_t W2_SMEM = 1024 + STAGES * (X_TILE + W8_TILE) + 2 * WIDE_TILE + 2 * BN * 4 + STAGES * 8;
+constexpr int BK = 64;                  // k a stage
+constexpr int W2_BN = 128;              // weight columns a tile: 64 a consumer warpgroup
+constexpr int W2_MMA_THREADS = 256;     // warps 0-7, two warpgroups
+constexpr int W2_PRODUCER = 8;          // the TMA warp
+constexpr int W2_THREADS = W2_MMA_THREADS + 32;
+constexpr int W2_W8_TILE = BK * W2_BN;  // bytes of an int8 weight tile
+
+// A tile of BM x rows (the products' N) by W2_BN weight columns: the ring's
+// stages (the x tile, then the int8 weight tile) as many as 200 KB holds, at
+// most 8: a stage is released a k-block after its products are issued, so
+// the depth is what hides the loads' latency.
+template <int BM>
+struct W2Tiles {
+  static constexpr int X = BM * BK * 2;
+  static constexpr int STAGE = X + W2_W8_TILE;
+  static constexpr int STAGES = 200 * 1024 / STAGE > 8 ? 8 : 200 * 1024 / STAGE;
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
+  static_assert(SMEM <= 232448, "W2's shared memory");
+};
 
 struct GemmParams {
   CUtensorMap tm_x, tm_w;
@@ -549,161 +639,236 @@ struct GemmParams {
   int M, N, K;
   int64_t ldo;
   int scaled, out_f32;
+  int tiles_m, tiles;  // row tiles; tile pairs (rows fastest)
 };
 
-
-// D[64 x 128] += A B, A K-major in shared memory, B K-major (TB 0) or
-// MN-major (TB 1, read with the transpose flag).
-template <typename T, int TB>
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t b) {
-  if constexpr (std::is_same_v<T, bf16>) {
+// D[64 x N] += A[64 x 16] B[16 x N]: A from registers (the mma.m16n8k16
+// A fragment of each warp's 16 rows), B K-major in shared memory; N 64, 128
+// or 256.
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64 && std::is_same_v<T, bf16>) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %67, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, %66;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "n"(TB), "r"(1));
-  } else {
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else if constexpr (N == 64) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %67, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, %66;\n}\n"
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else if constexpr (N == 128 && std::is_same_v<T, bf16>) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "n"(TB), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else if constexpr (N == 256 && std::is_same_v<T, bf16>) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else if constexpr (N == 256) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 }
 
-// The int8 tile of a stage widened into the swizzled 16-bit tile the B
-// descriptors read: [N, K] as [BN rows n][BK k] K-major (one 128-byte
-// chunk a row); [K, N] as [BK rows k][BN n] MN-major in two 64-column chunks.
-// Eight codes (8 bytes) a unit, 16 bytes written.
-// s_pair: the block's bf16 scales as pairs, [N, K]: (s[n], s[n]) by row n;
-// [K, N]: (s[2i], s[2i + 1]) by i.
+// Four 8 x 8 matrices of 16-bit elements, transposed: lanes 8 i .. 8 i + 7
+// give the row addresses of matrix i, r[i] its elements (rows 2c, 2c + 1 of
+// column g for lane (g, c)).
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t lds_u16(uint32_t addr) {
+  uint16_t v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// The A fragments of a k-block's four k-steps for this thread's two weight
+// columns n (A row g) and n + 1 (A row g + 8), n the warp's 16-byte chunk
+// `chunk` + 2g, widened: [K, N] by two transposed 8 x 8 loads of 16-bit
+// pairs (columns n, n + 1) over k rows 2c, 2c + 1 (128-byte swizzle); [N, K]
+// by 16-bit loads of k pairs 2c, 2c + 1 and 2c + 8, 2c + 9 of rows n and
+// n + 1 (64-byte swizzle).
 template <typename T, bool NK>
-__device__ __forceinline__ void widen_tile(const uint8_t* src, uint8_t* dst, const uint32_t* s_pair, bool scaled,
-                                           int tid) {
-#pragma unroll 2
-  for (int u = tid; u < BK * BN / 8; u += W2_THREADS) {
-    int lin, chunk;
-    uint2 raw;
-    uint4 s2;
-    if constexpr (NK) {
-      const int n = u / (BK / 8), k8 = u % (BK / 8) * 8;
-      raw = *reinterpret_cast<const uint2*>(src + n * BK + k8);
-      lin = n * 128 + k8 * 2;
-      chunk = 0;
-      s2 = make_uint4(s_pair[n], s_pair[n], s_pair[n], s_pair[n]);
-    } else {
-      const int k = u / (BN / 8), n8 = u % (BN / 8) * 8;
-      raw = *reinterpret_cast<const uint2*>(src + k * BN + n8);
-      lin = k * 128 + (n8 % 64) * 2;
-      chunk = n8 / 64;
-      s2 = *reinterpret_cast<const uint4*>(s_pair + n8 / 2);
+__device__ __forceinline__ void w2_frags(uint32_t (&a)[4][4], uint32_t tile, int chunk, int lane, uint32_t s0,
+                                         uint32_t s1, bool scaled) {
+  const int g = lane / 4, c = lane % 4;
+  if constexpr (NK) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = 16 * chunk + 2 * g + h;
+      const uint32_t row = tile + n * 64, sw = (n >> 1) & 3;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t at = row + ((kk ^ sw) << 4) + 2 * c;
+        const uint32_t lo = lds_u16(at) ^ 0x8080u, hi = lds_u16(at + 8) ^ 0x8080u;
+        a[kk][h] = widen<T>(code<0>(lo), code<1>(lo), h ? s1 : s0, scaled);
+        a[kk][2 + h] = widen<T>(code<0>(hi), code<1>(hi), h ? s1 : s0, scaled);
+      }
     }
-    const uint32_t lo = raw.x ^ 0x80808080u, hi = raw.y ^ 0x80808080u;
-    uint4 w;
-    w.x = widen<T>(code<0>(lo), code<1>(lo), s2.x, scaled);
-    w.y = widen<T>(code<2>(lo), code<3>(lo), s2.y, scaled);
-    w.z = widen<T>(code<0>(hi), code<1>(hi), s2.z, scaled);
-    w.w = widen<T>(code<2>(hi), code<3>(hi), s2.w, scaled);
-    *reinterpret_cast<uint4*>(dst + chunk * BK * 128 + (lin ^ (((lin >> 7) & 7) << 4))) = w;
+  } else {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int k = 32 * half + lane;  // this lane's row address: matrix lane / 8, row lane % 8
+      uint32_t r[4];
+      ldsm_x4_t(r, tile + k * 128 + ((chunk ^ (k & 7)) << 4));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t v = r[i] ^ 0x80808080u;  // k rows 2c, 2c + 1 (bytes 0-1, 2-3) of columns n, n + 1
+        const int kk = 2 * half + i / 2, lo = 2 * (i % 2);
+        a[kk][lo] = widen<T>(code<0>(v), code<2>(v), s0, scaled);
+        a[kk][lo + 1] = widen<T>(code<1>(v), code<3>(v), s1, scaled);
+      }
+    }
   }
 }
 
-// grid (row tiles of 64, column tiles of 128), two warpgroups.
-template <typename T, bool NK>
+// Persistent: min(tiles, multiprocessors) blocks, block b walking tiles b,
+// b + grid, ...; warps 0-7 two consumer warpgroups, warp 8 the producer;
+// each consumer warp releases a stage with one arrival. `it` counts the
+// k-blocks a role has walked over all its tiles: stage it % STAGES and each
+// mbarrier's phase from it.
+template <typename T, bool NK, int BM>
 __global__ void __launch_bounds__(W2_THREADS, 1) w8_gemm_kernel(const __grid_constant__ GemmParams p) {
+  using Tl = W2Tiles<BM>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* xs = align_1024(smem_raw);    // STAGES stages of the x tile
-  uint8_t* w8 = xs + STAGES * X_TILE;    // STAGES stages of the int8 tile
-  uint8_t* wide = w8 + STAGES * W8_TILE;  // 2 widened tiles
-  float* s_scale = reinterpret_cast<float*>(wide + 2 * WIDE_TILE);
-  uint32_t* s_pair = reinterpret_cast<uint32_t*>(s_scale + BN);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(s_pair + BN);
-  const int tid = threadIdx.x;
-  const bool mma_wg = tid < 128;  // the warpgroup that multiplies
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  uint8_t* ring = align_1024(smem_raw);  // STAGES x (x tile, int8 tile)
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Tl::STAGES * Tl::STAGE);  // a stage's loads landed
+  uint64_t* empty = full + Tl::STAGES;  // a stage read by the consumers
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int nkb = (p.K + BK - 1) / BK;
-
   if (tid == 0) {
     prefetch_map(&p.tm_x);
     prefetch_map(&p.tm_w);
-    for (int st = 0; st < STAGES; ++st) mbar_init(&bar[st], 1);
+    for (int s = 0; s < Tl::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], W2_MMA_THREADS / 32);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = tid; i < BN; i += W2_THREADS) s_scale[i] = n0 + i < p.N ? __ldg(p.scales + n0 + i) : 0.f;
   __syncthreads();
-  for (int i = tid; i < BN; i += W2_THREADS) {
-    s_pair[i] = NK ? bf16_pair(s_scale[i], s_scale[i]) : (i < BN / 2 ? bf16_pair(s_scale[2 * i], s_scale[2 * i + 1]) : 0u);
-  }
-  __syncthreads();
-  auto load = [&](int kb) {
-    const int st = kb % STAGES;
-    mbar_expect(&bar[st], X_TILE + W8_TILE);
-    tma_load_2d(xs + st * X_TILE, &p.tm_x, kb * BK, m0, &bar[st]);
-    if constexpr (NK) {
-      tma_load_2d(w8 + st * W8_TILE, &p.tm_w, kb * BK, n0, &bar[st]);
-    } else {
-      tma_load_2d(w8 + st * W8_TILE, &p.tm_w, n0, kb * BK, &bar[st]);
+  int it = 0;
+
+  if (warp == W2_PRODUCER) {
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      const int m0 = t % p.tiles_m * BM, n0 = t / p.tiles_m * W2_BN;
+      for (int kb = 0; kb < nkb; ++kb, ++it) {
+        const int s = it % Tl::STAGES;
+        mbar_wait(&empty[s], ((it / Tl::STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          uint8_t* stage = ring + s * Tl::STAGE;
+          mbar_expect(&full[s], Tl::STAGE);
+          tma_load_2d(stage, &p.tm_x, kb * BK, m0, &full[s]);
+          if constexpr (NK) {
+            tma_load_2d(stage + Tl::X, &p.tm_w, kb * BK, n0, &full[s]);
+          } else {
+            tma_load_2d(stage + Tl::X, &p.tm_w, n0, kb * BK, &full[s]);
+          }
+        }
+      }
     }
-  };
-  if (tid == 0) {
-    for (int kb = 0; kb < STAGES && kb < nkb; ++kb) load(kb);
+    return;
   }
 
-  float d[64];
+  // The consumers: warpgroup wg owns the tile's weight columns 64 wg .. 64 wg
+  // + 63, D = 64 weight columns by BM x rows; warp lw's A rows g and g + 8
+  // are columns 16 lw + 2g and 16 lw + 2g + 1 of them.
+  const int wg = warp / 4, lw = warp % 4, g = lane / 4, c = lane % 4;
+  const int chunk = 4 * wg + lw;  // the warp's 16-byte chunk of a weight row
+  const bool pairs = p.ldo % 2 == 0;  // adjacent columns stored as one 4- or 8-byte word
+  float d[BM / 2];
+  uint32_t a[2][4][4];  // the A fragments of two k-blocks: one in flight while the next is built
+  // A consumer warp's release of stage s, once its products and reads of it are done.
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const int m0 = t % p.tiles_m * BM, n0 = t / p.tiles_m * W2_BN;
+    const int n = n0 + 16 * chunk + 2 * g;  // this thread's columns n, n + 1
+    const float sn0 = n < p.N ? __ldg(p.scales + n) : 0.f, sn1 = n + 1 < p.N ? __ldg(p.scales + n + 1) : 0.f;
+    const uint32_t s0 = bf16_pair(sn0, sn0), s1 = bf16_pair(sn1, sn1);
 #pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.f;
-  mbar_wait(&bar[0], 0);
-  widen_tile<T, NK>(w8, wide, s_pair, p.scaled, tid);
-  fence_proxy_async();
-  __syncthreads();
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int st = kb % STAGES, wi = kb & 1;  // the ring's stage, the widened buffer
-    const uint32_t xa = smem_u32(xs + st * X_TILE), wb = smem_u32(wide + wi * WIDE_TILE);
-    if (mma_wg) {
+    for (int i = 0; i < BM / 2; ++i) d[i] = 0.f;
+    int prev = -1;  // the stage of the k-block whose products are in flight
+    auto step = [&](auto parity) {
+      constexpr int P = decltype(parity)::value;
+      const int s = it % Tl::STAGES;
+      const uint32_t stage = smem_u32(ring + s * Tl::STAGE);
+      mbar_wait(&full[s], (it / Tl::STAGES) & 1);
+      w2_frags<T, NK>(a[P], stage + Tl::X, chunk, lane, s0, s1, p.scaled);
+      fence_proxy_async();  // the weight tile's reads before the copy that refills the stage
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        if constexpr (NK) {
-          wgmma_n128<T, 0>(d, desc_k<64, BM>(xa, 0, kk), desc_k<64, BN>(wb, 0, kk));
-        } else {
-          wgmma_n128<T, 1>(d, desc_k<64, BM>(xa, 0, kk), desc_mn<BN, BK>(wb, kk));
-        }
-      }
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_k<T, BM>(d, a[P][kk], desc_k<64, BM>(stage, 0, kk));
       wg_commit();
+      wg_wait<1>();  // the previous k-block's products are done: its fragments and stage are free
+      fence_regs(a[P ^ 1]);
+      if (prev >= 0) release(prev);
+      prev = s;
+      ++it;
+    };
+    for (int kb = 0; kb < nkb; kb += 2) {
+      step(std::integral_constant<int, 0>{});
+      if (kb + 1 < nkb) step(std::integral_constant<int, 1>{});
     }
-    if (kb + 1 < nkb) {
-      // The next k-block's widen runs under this one's products.
-      const int nst = (kb + 1) % STAGES;
-      mbar_wait(&bar[nst], ((kb + 1) / STAGES) & 1);
-      widen_tile<T, NK>(w8 + nst * W8_TILE, wide + (wi ^ 1) * WIDE_TILE, s_pair, p.scaled, tid);
-      fence_proxy_async();
-    }
-    if (mma_wg) {
-      wg_wait_all();
-      fence_regs(d);
-    }
-    __syncthreads();
-    if (tid == 0 && kb + STAGES < nkb) load(kb + STAGES);  // stage st is free: its x tile read, its int8 tile widened
-  }
-
-  if (!mma_wg) return;
-  const int warp = tid / 32, g = (tid % 32) / 4, c = tid % 4;
+    wg_wait_all();
+    fence_regs(d);
+    fence_regs(a[0]);
+    fence_regs(a[1]);
+    if (prev >= 0) release(prev);
+    // D row 16 lw + g + 8 h is column n + h; D column 8 j + 2 c + e is x row m0 + 8 j + 2 c + e.
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int j = 0; j < BM / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int m = m0 + 16 * warp + g + 8 * h, nl = 8 * j + 2 * c + e, n = n0 + nl;
+        const int m = m0 + 8 * j + 2 * c + e;
         if (m >= p.M || n >= p.N) continue;
-        float v = d[4 * j + 2 * h + e];
-        if (!p.scaled) v = __fmul_rn(v, s_scale[nl]);
+        float v0 = d[4 * j + e], v1 = d[4 * j + 2 + e];
+        if (!p.scaled) {
+          v0 = __fmul_rn(v0, sn0);
+          v1 = __fmul_rn(v1, sn1);
+        }
+        const bool two = pairs && n + 1 < p.N;
+        const int64_t at = static_cast<int64_t>(m) * p.ldo + n;
         if (p.out_f32) {
-          static_cast<float*>(p.out)[m * p.ldo + n] = v;
+          float* o = static_cast<float*>(p.out) + at;
+          if (two) {
+            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+          } else {
+            o[0] = v0;
+            if (n + 1 < p.N) o[1] = v1;
+          }
         } else {
-          static_cast<T*>(p.out)[m * p.ldo + n] = fat::from_float<T>(v);
+          T* o = static_cast<T*>(p.out) + at;
+          if (two) {
+            store2<T>(o, v0, v1);
+          } else {
+            o[0] = fat::from_float<T>(v0);
+            if (n + 1 < p.N) o[1] = fat::from_float<T>(v1);
+          }
         }
       }
+  }
 }
 
 // A 2-D tensor map: `outer` rows of `inner` elements of `elem` bytes at a
@@ -722,39 +887,55 @@ bool map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type, int el
 }
 
 // The shape array of fat_w8_matmul (ops/quant.py builds it).
-enum Shape : int { kM, kN, kK, kLdx, kLdw, kLdo, kNK, kScaled, kOutF32, kKernel, kXT, kSplits, kSteps, kVec, kShapeLen };
+enum Shape : int { kM, kN, kK, kLdx, kLdw, kLdo, kNK, kScaled, kOutF32, kKernel, kXT, kVec, kBM, kGrid, kShapeLen };
 
-template <typename T, bool NK, int XT, bool VEC>
-cudaError_t launch_w1(const GemvParams& p, cudaStream_t stream) {
+template <typename T, int XT, bool VEC>
+cudaError_t launch_nk(const GemvParams& p, cudaStream_t stream) {
   const int64_t groups = (p.M + 8 * XT - 1) / (8 * XT);
-  const dim3 grid = NK ? dim3(static_cast<unsigned>((p.N + NK_WARPS * NK_ROWS - 1) / (NK_WARPS * NK_ROWS)), 1,
-                              static_cast<unsigned>(groups))
-                       : dim3(static_cast<unsigned>((p.N + KN_COLS - 1) / KN_COLS), static_cast<unsigned>(p.splits),
-                              static_cast<unsigned>(groups));
-  const int threads = NK ? NK_WARPS * 32 : W1_THREADS;
-  // [N, K]: each lane's cp.async slots; [K, N]: each warp's TMA tiles, 1024-aligned.
-  const int ring = NK ? W1_STAGES * NK_PIECES * threads * 16 : 1024 + W1_WARPS * W1_STAGES * 2048;
-  const cudaError_t err = fat::reserve_smem(w8_gemv_kernel<T, NK, XT, VEC>, ring);
+  const dim3 grid(static_cast<unsigned>((p.N + NK_WARPS * NK_ROWS - 1) / (NK_WARPS * NK_ROWS)), 1,
+                  static_cast<unsigned>(groups));
+  const int ring = NK_STAGES * NK_PIECES * NK_WARPS * 32 * 16;  // each lane's cp.async slots
+  const cudaError_t err = fat::reserve_smem(w8_gemv_kernel<T, XT, VEC>, ring);
   if (err != cudaSuccess) return err;
-  w8_gemv_kernel<T, NK, XT, VEC><<<grid, threads, ring, stream>>>(p);
+  w8_gemv_kernel<T, XT, VEC><<<grid, NK_WARPS * 32, ring, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, bool NK>
-cudaError_t w1_by_tiles(const GemvParams& p, int xt, bool vec, cudaStream_t stream) {
-  auto by_vec = [&](auto xt_tag) -> cudaError_t {
-    constexpr int XT = decltype(xt_tag)::value;
-    return vec ? launch_w1<T, NK, XT, true>(p, stream) : launch_w1<T, NK, XT, false>(p, stream);
-  };
+template <typename T, int XT, bool VEC>
+cudaError_t launch_group(const GroupParams& p, int items, int groups, cudaStream_t stream) {
+  const auto kernel = w8_gemv_group_kernel<T, XT, VEC>;
+  constexpr int smem = w1_smem_bytes<XT, VEC>();
+  cudaError_t err = fat::reserve_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(p.splits);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(items * p.splits), static_cast<unsigned>(groups));
+  cfg.blockDim = dim3(W1_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.splits > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Runs fn(std::integral_constant<int, XT>) for x tiles XT of 1, 2 or 4.
+template <typename Fn>
+cudaError_t by_tiles(int xt, const Fn& fn) {
   switch (xt) {
-    case 1: return by_vec(std::integral_constant<int, 1>{});
-    case 2: return by_vec(std::integral_constant<int, 2>{});
-    case 4: return by_vec(std::integral_constant<int, 4>{});
+    case 1: return fn(std::integral_constant<int, 1>{});
+    case 2: return fn(std::integral_constant<int, 2>{});
+    case 4: return fn(std::integral_constant<int, 4>{});
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T, bool NK>
+template <typename T, bool NK, int BM>
 cudaError_t launch_w2(const void* x, const void* w, const float* scales, void* out, const int64_t* s, int dtype,
                       cudaStream_t stream) {
   GemmParams p{};
@@ -763,10 +944,11 @@ cudaError_t launch_w2(const void* x, const void* w, const float* scales, void* o
   if (!map_2d(&p.tm_x, x, xtype, 2, s[kK], s[kM], s[kLdx], BK, BM, CU_TENSOR_MAP_SWIZZLE_128B)) {
     return cudaErrorInvalidValue;
   }
-  const bool ok = NK ? map_2d(&p.tm_w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, s[kK], s[kN], s[kLdw], BK, BN,
-                              CU_TENSOR_MAP_SWIZZLE_NONE)
-                     : map_2d(&p.tm_w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, s[kN], s[kK], s[kLdw], BN, BK,
-                              CU_TENSOR_MAP_SWIZZLE_NONE);
+  // The weight tile: [N, K] as W2_BN rows of BK bytes (64-byte swizzle); [K, N] as BK rows of W2_BN bytes (128-byte).
+  const bool ok = NK ? map_2d(&p.tm_w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, s[kK], s[kN], s[kLdw], BK, W2_BN,
+                              CU_TENSOR_MAP_SWIZZLE_64B)
+                     : map_2d(&p.tm_w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, s[kN], s[kK], s[kLdw], W2_BN, BK,
+                              CU_TENSOR_MAP_SWIZZLE_128B);
   if (!ok) return cudaErrorInvalidValue;
   p.scales = scales;
   p.out = out;
@@ -776,29 +958,47 @@ cudaError_t launch_w2(const void* x, const void* w, const float* scales, void* o
   p.ldo = s[kLdo];
   p.scaled = static_cast<int>(s[kScaled]);
   p.out_f32 = static_cast<int>(s[kOutF32]);
-  cudaError_t err = fat::reserve_smem(w8_gemm_kernel<T, NK>, static_cast<int>(W2_SMEM));
+  p.tiles_m = (p.M + BM - 1) / BM;
+  p.tiles = p.tiles_m * ((p.N + W2_BN - 1) / W2_BN);
+  const auto kernel = w8_gemm_kernel<T, NK, BM>;
+  cudaError_t err = fat::reserve_smem(kernel, W2Tiles<BM>::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((p.M + BM - 1) / BM), static_cast<unsigned>((p.N + BN - 1) / BN));
-  w8_gemm_kernel<T, NK><<<grid, W2_THREADS, W2_SMEM, stream>>>(p);
+  const int grid = static_cast<int>(std::min<int64_t>(p.tiles, s[kGrid]));
+  kernel<<<grid, W2_THREADS, W2Tiles<BM>::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
+
+template <typename T>
+cudaError_t w2_by_layout(const void* x, const void* w, const float* scales, void* out, const int64_t* s, int dtype,
+                         cudaStream_t stream) {
+  const bool nk = s[kNK] != 0;
+  if (s[kBM] == 64) return nk ? launch_w2<T, true, 64>(x, w, scales, out, s, dtype, stream)
+                              : launch_w2<T, false, 64>(x, w, scales, out, s, dtype, stream);
+  if (s[kBM] == 128) return nk ? launch_w2<T, true, 128>(x, w, scales, out, s, dtype, stream)
+                               : launch_w2<T, false, 128>(x, w, scales, out, s, dtype, stream);
+  return cudaErrorInvalidValue;
+}
+
+// The head of fat_w8_group's shape array, then kPer values a weight.
+enum GroupShape : int { gCount, gM, gK, gLdx, gScaled, gOutF32, gXT, gSplits, gSteps, gVec, gHead };
+enum GroupWeightShape : int { gN, gLdw, gLdo, gPer };
 
 }  // namespace
 
 // x [M, K] (row pitch ldx, of `dtype`) times the int8 weight w ([K, N] or,
 // with shape[kNK], [N, K], leading pitch ldw) widened by its fp32 scales
 // [N], into out [M, N] (row pitch ldo; fp32 with shape[kOutF32], else
-// dtype). shape[kKernel]: 1 for W1 (with shape[kXT] x tiles, shape[kSplits]
-// splits of shape[kSteps] k-steps over ws and tickets), 2 for W2.
-extern "C" int fat_w8_matmul(const void* x, const void* w, const float* scales, void* out, float* ws,
-                             int32_t* tickets, const int64_t* shape, int dtype, void* stream) {
+// dtype). shape[kKernel]: 1 for W1 (fp32 x on the FMA body, 16-bit x with an
+// [N, K] weight in shape[kXT] x tiles; a [K, N] weight with 16-bit x goes
+// through fat_w8_group), 2 for W2 (tiles of shape[kBM] x rows, at most
+// shape[kGrid] blocks).
+extern "C" int fat_w8_matmul(const void* x, const void* w, const float* scales, void* out, const int64_t* shape,
+                             int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool nk = shape[kNK] != 0;
   if (shape[kKernel] == 2) {
-    if (dtype == fat::kBFloat16) return nk ? launch_w2<bf16, true>(x, w, scales, out, shape, dtype, st)
-                                           : launch_w2<bf16, false>(x, w, scales, out, shape, dtype, st);
-    if (dtype == fat::kFloat16) return nk ? launch_w2<__half, true>(x, w, scales, out, shape, dtype, st)
-                                          : launch_w2<__half, false>(x, w, scales, out, shape, dtype, st);
+    if (dtype == fat::kBFloat16) return w2_by_layout<bf16>(x, w, scales, out, shape, dtype, st);
+    if (dtype == fat::kFloat16) return w2_by_layout<__half>(x, w, scales, out, shape, dtype, st);
     return cudaErrorInvalidValue;
   }
   GemvParams p{};
@@ -806,8 +1006,6 @@ extern "C" int fat_w8_matmul(const void* x, const void* w, const float* scales, 
   p.w = static_cast<const int8_t*>(w);
   p.scales = scales;
   p.out = out;
-  p.ws = ws;
-  p.tickets = tickets;
   p.M = shape[kM];
   p.N = shape[kN];
   p.K = shape[kK];
@@ -817,24 +1015,68 @@ extern "C" int fat_w8_matmul(const void* x, const void* w, const float* scales, 
   p.nk = static_cast<int>(nk);
   p.scaled = static_cast<int>(shape[kScaled]);
   p.out_f32 = static_cast<int>(shape[kOutF32]);
-  p.splits = static_cast<int>(shape[kSplits]);
-  p.steps = static_cast<int>(shape[kSteps]);
-  if (p.splits < 1 || (p.splits > 1 && (ws == nullptr || tickets == nullptr || nk))) return cudaErrorInvalidValue;
-  const int xt = static_cast<int>(shape[kXT]);
+  if (dtype == fat::kFloat32) {
+    const dim3 grid(static_cast<unsigned>((p.N + FMA_THREADS - 1) / FMA_THREADS),
+                    static_cast<unsigned>((p.M + FMA_ROWS - 1) / FMA_ROWS));
+    w8_gemv_fma_kernel<<<grid, FMA_THREADS, 0, st>>>(p);
+    return cudaGetLastError();
+  }
+  if (!nk || (dtype != fat::kBFloat16 && dtype != fat::kFloat16)) return cudaErrorInvalidValue;
   const bool vec = shape[kVec] != 0;
-  if (!nk && vec && dtype != fat::kFloat32 &&
-      !map_2d(&p.tm_w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.N, p.K, p.ldw, 128, 16, CU_TENSOR_MAP_SWIZZLE_128B)) {
+  return by_tiles(static_cast<int>(shape[kXT]), [&](auto xt_tag) -> cudaError_t {
+    constexpr int XT = decltype(xt_tag)::value;
+    if (dtype == fat::kBFloat16) return vec ? launch_nk<bf16, XT, true>(p, st) : launch_nk<bf16, XT, false>(p, st);
+    return vec ? launch_nk<__half, XT, true>(p, st) : launch_nk<__half, XT, false>(p, st);
+  });
+}
+
+// x [M, K] (16-bit `dtype`, row pitch ldx) times each of shape[gCount] (at
+// most W1_GROUP) int8 [K, N_i] weights, one launch of W1's group body.
+// ptrs: (weight, scales, out) a weight; shape: the GroupShape head, then
+// (N, ldw, ldo) a weight. shape[gVec]: every weight by TMA (leading pitches
+// multiples of 16 bytes, K and x's pitch whole vectors), else byte by byte.
+// shape[gSplits] blocks of shape[gSteps] 16-row k-steps a strip, one cluster.
+extern "C" int fat_w8_group(const void* x, const int64_t* ptrs, const int64_t* shape, int dtype, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  GroupParams p{};
+  p.count = static_cast<int>(shape[gCount]);
+  p.x = x;
+  p.M = shape[gM];
+  p.K = shape[gK];
+  p.ldx = shape[gLdx];
+  p.scaled = static_cast<int>(shape[gScaled]);
+  p.out_f32 = static_cast<int>(shape[gOutF32]);
+  p.splits = static_cast<int>(shape[gSplits]);
+  p.steps = static_cast<int>(shape[gSteps]);
+  const bool vec = shape[gVec] != 0;
+  const int xt = static_cast<int>(shape[gXT]);
+  if (p.count < 1 || p.count > W1_GROUP || p.splits < 1 || p.splits > W1_MAX_SPLITS || p.steps < 1 ||
+      (dtype != fat::kBFloat16 && dtype != fat::kFloat16)) {
     return cudaErrorInvalidValue;
   }
-  switch (dtype) {
-    case fat::kFloat32: {
-      const dim3 grid(static_cast<unsigned>((p.N + FMA_THREADS - 1) / FMA_THREADS),
-                      static_cast<unsigned>((p.M + FMA_ROWS - 1) / FMA_ROWS));
-      w8_gemv_fma_kernel<<<grid, FMA_THREADS, 0, st>>>(p);
-      return cudaGetLastError();
+  int items = 0;
+  for (int i = 0; i < p.count; ++i) {
+    GroupWeight& g = p.wt[i];
+    const int64_t* s = shape + gHead + gPer * i;
+    g.w = reinterpret_cast<const int8_t*>(ptrs[3 * i]);
+    g.scales = reinterpret_cast<const float*>(ptrs[3 * i + 1]);
+    g.out = reinterpret_cast<void*>(ptrs[3 * i + 2]);
+    g.N = s[gN];
+    g.ldw = s[gLdw];
+    g.ldo = s[gLdo];
+    g.strips = static_cast<int>((g.N + KN_COLS - 1) / KN_COLS);
+    items += g.strips;
+    if (vec && !map_2d(&g.tm, g.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.N, p.K, g.ldw, KN_COLS, 16 * W1_WARPS,
+                       CU_TENSOR_MAP_SWIZZLE_NONE)) {
+      return cudaErrorInvalidValue;
     }
-    case fat::kBFloat16: return nk ? w1_by_tiles<bf16, true>(p, xt, vec, st) : w1_by_tiles<bf16, false>(p, xt, vec, st);
-    case fat::kFloat16: return nk ? w1_by_tiles<__half, true>(p, xt, vec, st) : w1_by_tiles<__half, false>(p, xt, vec, st);
-    default: return cudaErrorInvalidValue;
   }
+  const int groups = static_cast<int>((p.M + 8 * xt - 1) / (8 * xt));
+  return by_tiles(xt, [&](auto xt_tag) -> cudaError_t {
+    constexpr int XT = decltype(xt_tag)::value;
+    if (dtype == fat::kBFloat16) {
+      return vec ? launch_group<bf16, XT, true>(p, items, groups, st) : launch_group<bf16, XT, false>(p, items, groups, st);
+    }
+    return vec ? launch_group<__half, XT, true>(p, items, groups, st) : launch_group<__half, XT, false>(p, items, groups, st);
+  });
 }

@@ -20,7 +20,8 @@ paged decode rows as it writes them, and the dense chunk prefill
 dequantizes the visible slice in plain PyTorch before K1, as the JAX
 package does in XLA. Projection weights may be int8 (``weight_quant``):
 with no gradient to keep, each product reads the int8 payload through
-``ops.quant.w8_matmul`` (W1 / W2 on the card); under autograd the weight
+``ops.quant.w8_matmul`` (W1 / W2 on the card), q / k / v together through
+``w8_matmul_group`` (one W1 launch at decode); under autograd the weight
 widens through ``w8_dequant`` first.
 
 Masks (the JAX package's ``models/attention.py``): a sliding window and a
@@ -75,6 +76,7 @@ from flash_attention_tpu_torch.ops.quant import (
     quantize_values,
     w8_dequant,
     w8_matmul,
+    w8_matmul_group,
 )
 from flash_attention_tpu_torch.parallel.mesh import all_reduce_
 
@@ -265,7 +267,10 @@ def _qkv(params, cfg: AttentionConfig, x: torch.Tensor):
     """The q/k/v projections of x [B, T, model_dim]: [B, H, T, D] each in
     the config dtype, not rotated."""
     dt = cfg.torch_dtype
-    return tuple(_project(x, params[name], dt) for name in ("wq", "wk", "wv"))
+    ws = tuple(params[name] for name in ("wq", "wk", "wv"))
+    if all(int8_product(w, x) for w in ws):
+        return tuple(p.permute(0, 2, 1, 3).to(dt) for p in w8_matmul_group(x, ws))
+    return tuple(_project(x, w, dt) for w in ws)
 
 
 def _project_qkv(params, cfg: AttentionConfig, x: torch.Tensor, positions):

@@ -12,9 +12,9 @@ channel (per vocabulary row for the embedding), W8A16: each matmul's
 weight is widened through bf16 (``ops/quant.w8_dequant``), as the JAX
 package does. The JAX package leaves XLA to fuse that widen into the dot's
 weight read; the port's counterpart is ``ops/quant.w8_matmul`` (W1 / W2 on
-the card, reading the int8 payload), taken by every product with an int8
-weight when no gradient is needed; under autograd the weight is widened in
-memory first.
+the card, reading the int8 payload; gate / up together through
+``w8_matmul_group``), taken by every product with an int8 weight when no
+gradient is needed; under autograd the weight is widened in memory first.
 
 Matmuls with bf16 / fp32 weights stay ``torch.matmul`` / ``einsum``, as the
 JAX package left them to XLA. One numerical difference: where JAX asks XLA
@@ -65,7 +65,13 @@ from flash_attention_tpu_torch.models.attention import (
 )
 from flash_attention_tpu_torch.ops.fused import add_rms_norm, rms_norm_plain, swiglu_act, swiglu_act_plain
 from flash_attention_tpu_torch.ops.paged import PagedModelCache, init_paged_model_cache, paged_write_tokens_multi
-from flash_attention_tpu_torch.ops.quant import QuantizedTensor, quantize_weight, w8_matmul, w8_matmul_plain
+from flash_attention_tpu_torch.ops.quant import (
+    QuantizedTensor,
+    quantize_weight,
+    w8_matmul,
+    w8_matmul_group,
+    w8_matmul_plain,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,8 +189,10 @@ def _product(x: torch.Tensor, w) -> torch.Tensor:
 def swiglu(x: torch.Tensor, params, tp_group=None) -> torch.Tensor:
     """The MLP; with ``tp_group``, over this rank's columns of gate / up and
     rows of the row-parallel down projection, summed over the group."""
-    gate = _product(x, params["w_gate"])
-    up = _product(x, params["w_up"])
+    if int8_product(params["w_gate"], x) and int8_product(params["w_up"], x):
+        gate, up = w8_matmul_group(x, (params["w_gate"], params["w_up"]))
+    else:
+        gate, up = _product(x, params["w_gate"]), _product(x, params["w_up"])
     act = _SwiGLUAct.apply(gate, up) if _grad_needed(gate, up) else swiglu_act(gate, up)
     w_down = params["w_down"]
     if not tensor_parallel(tp_group):

@@ -136,10 +136,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         ptr, ptr, ptr, ptr, ptr,  # K / V cache rows, their scales, new lengths
         shape, i32, i32, ptr,  # csrc/fused.cu's RopeShape array, dtype, payload, stream
     ]
-    # W8A16 products (csrc/w8.cu): x, int8 weight, scales, out, W1's split
-    # workspace and ticket counters (or null), the shape array, dtype, stream.
+    # W8A16 products (csrc/w8.cu): x, int8 weight, scales, out, the shape
+    # array, dtype, stream; a W1 group launch: x, the (weight, scales, out)
+    # pointers of each weight, the shape array, dtype, stream.
     lib.fat_w8_matmul.restype = c.c_int
-    lib.fat_w8_matmul.argtypes = [ptr] * 6 + [shape, i32, ptr]
+    lib.fat_w8_matmul.argtypes = [ptr] * 4 + [shape, i32, ptr]
+    lib.fat_w8_group.restype = c.c_int
+    lib.fat_w8_group.argtypes = [ptr, shape, shape, i32, ptr]
     lib.fat_paged_write.restype = c.c_int
     lib.fat_paged_write.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # k/v new, k/v pool, lengths, table

@@ -18,7 +18,9 @@ JAX package does, whatever the model's dtype. ``w8_matmul`` is the product
 with such a weight that the JAX package leaves XLA to fuse (the widen inside
 the dot's weight read): on the card kernels W1 and W2 (csrc/w8.cu) read the
 int8 payload and widen it in registers or shared memory, so no 16-bit copy
-of a weight is made; on the CPU its plain version.
+of a weight is made; on the CPU its plain version. ``w8_matmul_group`` is
+the products of weights that read the same x (q / k / v, gate / up), one
+W1 launch for the group at decode.
 """
 
 from __future__ import annotations
@@ -140,15 +142,20 @@ def w8_dequant(w, dtype=torch.bfloat16):
 
 # Rows of x (B * T) at most that take W1, the weight-stream kernel; more take
 # W2, the wgmma GEMM (16-bit activations; fp32 takes W1's FMA body at any M).
-W1_MAX_ROWS = 32
-W1_COLS = 128  # [K, N] weights: columns a W1 block
-W1_BLOCKS_PER_SM = 2  # W1 splits K over blocks until the card holds about this many a streaming multiprocessor
-W1_MIN_STEPS = 32  # 16-row k-steps a split at least
-_TICKETS: dict = {}
-# Ticket buffers that a larger one replaced: a captured CUDA graph keeps the
-# address of the one it launched with for its life.
-_RETIRED_TICKETS: list = []
-
+# Measured (`smoke_cases.py w8_threshold`): at 16 rows W1 takes 14.2 us at wq
+# against W2's 29.9 and 37.5 at w_gate against 30.8; from 24 rows W2 wins at
+# w_gate by 2x (30.8 against 69.3) and loses at wq by a fifth.
+W1_MAX_ROWS = 16
+W1_COLS = 128  # [K, N] weights: columns a W1 strip
+W1_GROUP = 3  # weights one W1 launch takes (q / k / v)
+W1_BOX_STEPS = 8  # 16-row k-steps a W1 TMA box (one a consumer warp): a split takes whole boxes
+W1_MAX_SPLITS = 8  # blocks a W1 cluster at most (the portable cluster size)
+W1_SPLIT_STEPS = 128  # k-steps a W1 split at most, where the grid stays within W1_BLOCKS_PER_SM
+W1_MIN_FILL = 0.7  # W1 splits K until the grid holds at least this many blocks a multiprocessor
+W1_BLOCKS_PER_SM = 2  # ... and at most this many
+W2_ROWS = (64, 128)  # x rows a W2 tile may take (the products' N)
+W2_COLS = 128  # weight columns a W2 tile
+W2_TILE_COST = 64  # a W2 tile's fixed cost, in x rows' worth of products (w2_plan)
 
 def _out_shape(values: torch.Tensor, k: int, scale_on_output: bool) -> tuple:
     """The product's trailing output shape: [N] for the [N, K] embedding,
@@ -191,40 +198,171 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def w1_plan(m: int, n: int, k: int, nk: bool, sms: int = 132) -> tuple[int, int, int]:
-    """W1's launch for an [M, K] x and an [N, K] (``nk``) or [K, N] weight:
-    (8-row x tiles a block, splits of K, 16-row k-steps a split). A [K, N]
-    weight of N / 128 column strips splits K into as many parts as keep the
-    grid within one wave of W1_BLOCKS_PER_SM blocks a multiprocessor (a
-    second, partial wave would take as long as the first), with at least
-    W1_MIN_STEPS k-steps a split (the partials' write and reduction cost
-    more than thinner splits gain: at ModelConfig()'s wk, 8 splits took
-    12.3 us, 32 took 15.0, `smoke_cases.py w1_splits`); an [N, K] one (a
-    warp a 16 rows) never."""
-    xt = 1 if m <= 8 else (2 if m <= 16 else 4)
-    if nk:
-        return xt, 1, 1
-    groups = math.ceil(m / (8 * xt))
-    strips = math.ceil(n / W1_COLS)
+def _x_tiles(m: int) -> int:
+    """W1's 8-row x tiles a block: 1, 2 or 4."""
+    return 1 if m <= 8 else (2 if m <= 16 else 4)
+
+
+@functools.lru_cache(maxsize=1024)
+def w1_plan(m: int, ns: tuple, k: int, sms: int = 132) -> tuple[int, int, int]:
+    """W1's launch for an [M, K] x and a group of [K, N_i] weights (``ns``,
+    the N of each): (8-row x tiles a block, splits of K, 16-row k-steps a
+    split). A work item is a (row group, W1_COLS-column strip); K is split
+    over a cluster of blocks, in whole TMA boxes of W1_BOX_STEPS k-steps:
+    enough splits that the grid holds W1_MIN_FILL blocks a multiprocessor
+    and no split runs past W1_SPLIT_STEPS, within W1_BLOCKS_PER_SM blocks a
+    multiprocessor (a second, partial wave would take as long as the first)
+    and W1_MAX_SPLITS. Measured on the card (`smoke_cases.py w1_splits`):
+    fewer, longer streams beat more blocks; at ModelConfig()'s shapes q / k
+    / v takes 2 splits, gate / up 1, wo 3, w_down 6."""
+    xt = _x_tiles(m)
+    items = math.ceil(m / (8 * xt)) * sum(math.ceil(n / W1_COLS) for n in ns)
     ksteps = math.ceil(k / 16)
-    splits = max(1, min(W1_BLOCKS_PER_SM * sms // (strips * groups), ksteps // W1_MIN_STEPS))
-    steps = math.ceil(ksteps / splits)
+    want = max(math.ceil(W1_MIN_FILL * sms / items), math.ceil(ksteps / W1_SPLIT_STEPS))
+    splits = max(1, min(want, W1_MAX_SPLITS, W1_BLOCKS_PER_SM * sms // items, math.ceil(ksteps / W1_BOX_STEPS)))
+    steps = math.ceil(math.ceil(ksteps / splits) / W1_BOX_STEPS) * W1_BOX_STEPS
     return xt, math.ceil(ksteps / steps), steps
 
 
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """A zeroed int32 buffer of at least ``n`` counters kept per device;
-    every W1 launch leaves the counters it used at 0."""
-    tickets = _TICKETS.get(device)
-    if tickets is None or tickets.numel() < n:
-        if tickets is not None:
-            _RETIRED_TICKETS.append(tickets)
-        tickets = _TICKETS[device] = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-    return tickets
+def w1_work(m: int, ns, k: int, sms: int = 132) -> list[tuple[int, int, int, int, int]]:
+    """The work items of ``w1_plan``'s launch as the kernel's blocks take
+    them: (weight, row group, strip, first k-step, end k-step) a block, in
+    block order (blockIdx.y row groups, blockIdx.x the group's strips in
+    weight order times the splits, rank fastest)."""
+    xt, splits, steps = w1_plan(m, tuple(ns), k, sms)
+    ksteps = math.ceil(k / 16)
+    items = [(i, strip) for i, n in enumerate(ns) for strip in range(math.ceil(n / W1_COLS))]
+    return [(i, group, strip, rank * steps, min(ksteps, (rank + 1) * steps))
+            for group in range(math.ceil(m / (8 * xt))) for i, strip in items for rank in range(splits)]
+
+
+@functools.lru_cache(maxsize=1024)
+def w2_plan(m: int, n: int, sms: int = 132) -> tuple[int, int]:
+    """W2's launch for an [M, K] x and N output columns: (x rows a tile,
+    blocks). Tiles of 64 or 128 x rows by W2_COLS weight columns, walked by
+    persistent blocks, at most one a multiprocessor; the height that takes
+    the fewest rounds of tiles times a tile's cost (its rows plus
+    W2_TILE_COST) wins, so a few-tile shape (wq at 256 rows) takes 64-row
+    tiles and fills the card."""
+    cols = math.ceil(n / W2_COLS)
+
+    def cost(bm: int) -> int:
+        return math.ceil(math.ceil(m / bm) * cols / sms) * (bm + W2_TILE_COST)
+
+    bm = min(W2_ROWS, key=lambda b: (cost(b), -b))
+    return bm, min(sms, math.ceil(m / bm) * cols)
 
 
 def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _check_x(what: str, x: torch.Tensor, ws, out_dtype) -> None:
+    if x.device.type != "cuda" or any(w.values.device != x.device or w.scales.device != x.device for w in ws):
+        raise ValueError(f"{what}: x on {x.device}, weights on {[(w.values.device, w.scales.device) for w in ws]}")
+    if x.dtype not in _build.DTYPE_CODES or out_dtype not in (x.dtype, torch.float32):
+        raise ValueError(f"{what}: the CUDA kernels take float32, float16 or bfloat16 x with an output of x's "
+                         f"dtype or float32, got {x.dtype} -> {out_dtype}")
+    for w in ws:
+        if w.values.dtype != torch.int8 or w.scales.dtype != torch.float32:
+            raise ValueError(f"{what}: an int8 weight with float32 scales, got {w.values.dtype} / {w.scales.dtype}")
+
+
+def _operand(w: QuantizedTensor, k: int, scale_on_output: bool) -> tuple:
+    """The weight as the kernels read it, over its own memory (never a
+    copy): ([N, K] or [K, N] values, [N] contiguous scales, the product's
+    trailing output shape). The views are skipped where the tensors already
+    are what the kernels read (their host time counts at every decode
+    step)."""
+    out_shape = _out_shape(w.values, k, scale_on_output)
+    n = math.prod(out_shape)
+    values = w.values
+    if not scale_on_output and values.dim() != 2:
+        try:
+            values = values.view(k, n)
+        except RuntimeError as err:
+            raise ValueError(f"w8_matmul: the weight {tuple(w.values.shape)} with strides {w.values.stride()} is no "
+                             f"[K, N] view") from err
+    scales = w.scales
+    if scales.numel() != n:
+        raise ValueError(f"w8_matmul: {scales.numel()} scales for {n} output channels")
+    if values.stride(1) != 1 and values.shape[1] > 1:
+        raise ValueError(f"w8_matmul: the weight's last axis must be contiguous, strides {values.stride()}")
+    return values, scales if scales.is_contiguous() else scales.contiguous(), out_shape
+
+
+def _ld(t: torch.Tensor) -> int:
+    """A 2-D operand's leading pitch (its row length for a single row)."""
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+
+
+def _vec(x2: torch.Tensor, *weights: torch.Tensor) -> bool:
+    """Whether W1 reads x by whole 16-byte vectors and the weights by TMA
+    (else byte by byte, a strided shard's odd pitch for instance)."""
+    return (x2.shape[1] % 16 == 0 and _ld(x2) % 8 == 0 and _aligned(x2)
+            and all(v.shape[1] % 16 == 0 and _ld(v) % 16 == 0 and _aligned(v) for v in weights))
+
+
+def _takes_w2(x2: torch.Tensor, values: torch.Tensor) -> bool:
+    """16-bit x of more than W1_MAX_ROWS rows whose operands TMA takes."""
+    return (x2.dtype != torch.float32 and x2.shape[0] > W1_MAX_ROWS and x2.shape[1] % 8 == 0
+            and _ld(x2) % 8 == 0 and _ld(values) % 16 == 0 and _aligned(x2, values))
+
+
+def _launch_w2(x2, values, scales, out, scale_on_output: bool, plan=None) -> None:
+    """W2 on one weight; ``plan`` (tile rows, blocks) in place of
+    ``w2_plan``'s, for a measurement."""
+    m, k = x2.shape
+    n = out.shape[1]
+    bm, grid = plan or w2_plan(m, n, _sms(x2.device.index or 0))
+    shape = (m, n, k, _ld(x2), _ld(values), n, int(scale_on_output), int(not scale_on_output),
+             int(out.dtype == torch.float32), 2, 1, 1, bm, grid)
+    with _build.on_device(x2.device):
+        err = _build.kernels().fat_w8_matmul(x2.data_ptr(), values.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                                             _build.int64_tuple_array(shape), _build.DTYPE_CODES[x2.dtype],
+                                             _build.current_stream(x2.device))
+    _build.check(err, f"w8_matmul (W2, x {x2.dtype} (M, N, K, ldx, ldw, ldo, nk, scaled, out_f32, kernel, tiles, "
+                      f"vec, bm, grid) {shape})")
+    w8_matmul.w2_launches += 1
+
+
+def _launch_w1(x2, values, scales, out, scale_on_output: bool) -> None:
+    """W1 on one weight: the FMA body (fp32 x) or the [N, K] body (16-bit x,
+    the unembed); a 16-bit [K, N] product goes through ``_launch_w1_group``."""
+    m, k = x2.shape
+    n = out.shape[1]
+    shape = (m, n, k, _ld(x2), _ld(values), n, int(scale_on_output), int(not scale_on_output),
+             int(out.dtype == torch.float32), 1, _x_tiles(m), int(_vec(x2, values)), 0, 0)
+    with _build.on_device(x2.device):
+        err = _build.kernels().fat_w8_matmul(x2.data_ptr(), values.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                                             _build.int64_tuple_array(shape), _build.DTYPE_CODES[x2.dtype],
+                                             _build.current_stream(x2.device))
+    _build.check(err, f"w8_matmul (W1, x {x2.dtype} (M, N, K, ldx, ldw, ldo, nk, scaled, out_f32, kernel, tiles, "
+                      f"vec, bm, grid) {shape})")
+    w8_matmul.w1_launches += 1
+
+
+def _launch_w1_group(x2, operands, outs, plan=None, ns=None) -> None:
+    """W1 on up to W1_GROUP [K, N_i] weights (``operands``: (values, scales)
+    each) that read the 16-bit x2, into ``outs`` (contiguous, [m, N_i] or
+    any shape of as many elements; ``ns`` their N_i), in one launch;
+    ``plan`` (x tiles, splits, steps) in place of ``w1_plan``'s, for a
+    measurement."""
+    m, k = x2.shape
+    ns = tuple(ns) if ns is not None else tuple(o.shape[1] for o in outs)
+    xt, splits, steps = plan or w1_plan(m, ns, k, _sms(x2.device.index or 0))
+    vec = _vec(x2, *(values for values, _ in operands))
+    out_f32 = int(outs[0].dtype == torch.float32)
+    shape = (len(ns), m, k, _ld(x2), 1, out_f32, xt, splits, steps, int(vec),
+             *(v for (values, _), n in zip(operands, ns) for v in (n, _ld(values), n)))
+    ptrs = [p for (values, scales), out in zip(operands, outs) for p in (values.data_ptr(), scales.data_ptr(),
+                                                                          out.data_ptr())]
+    with _build.on_device(x2.device):
+        err = _build.kernels().fat_w8_group(x2.data_ptr(), _build.int64_array(ptrs), _build.int64_tuple_array(shape),
+                                            _build.DTYPE_CODES[x2.dtype], _build.current_stream(x2.device))
+    _build.check(err, f"w8_matmul_group (W1, x {x2.dtype} (count, M, K, ldx, scaled, out_f32, tiles, splits, steps, "
+                      f"vec, then (N, ldw, ldo) a weight) {shape})")
+    w8_matmul.w1_launches += 1
 
 
 def w8_matmul(x: torch.Tensor, w: QuantizedTensor, *, out_dtype=None, scale_on_output: bool = False):
@@ -246,62 +384,58 @@ def w8_matmul(x: torch.Tensor, w: QuantizedTensor, *, out_dtype=None, scale_on_o
     rows, where TMA takes its operands: 16-byte aligned, K a multiple of 8,
     the weight's leading stride a multiple of 16; else W1), counted as
     ``.w1_launches`` / ``.w2_launches``; a launch that fails raises. Outputs
-    and W1's split workspace come from ``torch.empty``; nothing
-    synchronises, so both run inside CUDA graphs."""
+    come from ``torch.empty``; nothing synchronises, so both run inside CUDA
+    graphs."""
     if x.device.type == "cpu" and w.values.device.type == "cpu":
         return w8_matmul_plain(x, w, out_dtype=out_dtype, scale_on_output=scale_on_output)
     out_dtype = x.dtype if out_dtype is None else out_dtype
-    if x.device.type != "cuda" or w.values.device != x.device or w.scales.device != x.device:
-        raise ValueError(f"w8_matmul: x on {x.device}, weight on {w.values.device} / {w.scales.device}")
-    if x.dtype not in _build.DTYPE_CODES or out_dtype not in (x.dtype, torch.float32):
-        raise ValueError(f"w8_matmul: the CUDA kernels take float32, float16 or bfloat16 x with an output of x's "
-                         f"dtype or float32, got {x.dtype} -> {out_dtype}")
-    if w.values.dtype != torch.int8 or w.scales.dtype != torch.float32:
-        raise ValueError(f"w8_matmul: an int8 weight with float32 scales, got {w.values.dtype} / {w.scales.dtype}")
+    _check_x("w8_matmul", x, (w,), out_dtype)
     k = x.shape[-1]
-    out_shape = _out_shape(w.values, k, scale_on_output)
-    n = math.prod(out_shape)
-    try:  # [N, K] or [K, N] over the weight's own memory: never a copy
-        values = w.values if scale_on_output else w.values.view(k, n)
-    except RuntimeError as err:
-        raise ValueError(f"w8_matmul: the weight {tuple(w.values.shape)} with strides {w.values.stride()} is no "
-                         f"[K, N] view") from err
-    scales = w.scales.reshape(-1)
-    if scales.numel() != n:
-        raise ValueError(f"w8_matmul: {scales.numel()} scales for {n} output channels")
-    scales = scales.contiguous()
-    if values.stride(1) != 1 and values.shape[1] > 1:
-        raise ValueError(f"w8_matmul: the weight's last axis must be contiguous, strides {values.stride()}")
+    values, scales, out_shape = _operand(w, k, scale_on_output)
     x2 = _build.unit_last_stride(x.reshape(-1, k))
-    m = x2.shape[0]
+    m, n = x2.shape[0], math.prod(out_shape)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m and n:
-        ldx, ldw = x2.stride(0) if m > 1 else k, values.stride(0) if values.shape[0] > 1 else values.shape[1]
-        tma = k % 8 == 0 and ldx % 8 == 0 and ldw % 16 == 0 and _aligned(x2, values)
-        vec = k % 16 == 0 and n % 16 == 0 and ldx % 8 == 0 and ldw % 16 == 0 and _aligned(x2, values)
-        fma = x.dtype == torch.float32  # W1's FMA body: a thread a column, no split
-        w2 = not fma and m > W1_MAX_ROWS and tma
-        xt, splits, steps = (1, 1, 1) if fma else w1_plan(m, n, k, scale_on_output, _sms(x.device.index or 0))
-        ws = tickets = None
-        if not w2 and splits > 1:
-            groups, strips = math.ceil(m / (8 * xt)), math.ceil(n / W1_COLS)
-            ws = torch.empty(groups * strips * splits * xt * 1024, dtype=torch.float32, device=x.device)
-            tickets = _tickets(x.device, groups * strips)
-        shape = (m, n, k, ldx, ldw, n, int(scale_on_output), int(not scale_on_output), int(out_dtype == torch.float32),
-                 2 if w2 else 1, xt, splits, steps, int(vec))
-        with _build.on_device(x.device):
-            err = _build.kernels().fat_w8_matmul(
-                x2.data_ptr(), values.data_ptr(), scales.data_ptr(), out.data_ptr(),
-                None if ws is None else ws.data_ptr(), None if tickets is None else tickets.data_ptr(),
-                _build.int64_tuple_array(shape), _build.DTYPE_CODES[x.dtype], _build.current_stream(x.device))
-        _build.check(err, f"w8_matmul ({'W2' if w2 else 'W1'}, x {x.dtype} (M, N, K, ldx, ldw, ldo, nk, scaled, out_f32, "
-                          f"kernel, tiles, splits, steps, vec) {shape})")
-        if w2:
-            w8_matmul.w2_launches += 1
+        if _takes_w2(x2, values):
+            _launch_w2(x2, values, scales, out, scale_on_output)
+        elif scale_on_output or x2.dtype == torch.float32:
+            _launch_w1(x2, values, scales, out, scale_on_output)
         else:
-            w8_matmul.w1_launches += 1
+            _launch_w1_group(x2, [(values, scales)], [out])
     return out.reshape(*x.shape[:-1], *out_shape)
 
 
-counter(w8_matmul, "w1_launches", "W1", "w8_gemv_kernel", "w8_gemv_fma_kernel")
+def w8_matmul_group(x: torch.Tensor, ws, *, out_dtype=None) -> tuple:
+    """``w8_matmul(x, w, out_dtype=out_dtype)`` for each layer weight of
+    ``ws`` (scale on the weight), which all read the same x: a tuple of
+    their products. On the card one W1 launch takes the whole group (16-bit
+    x of at most W1_MAX_ROWS rows, at most W1_GROUP weights), each weight
+    with its own pointer, stride, scales and output, so nothing is
+    concatenated or copied; otherwise each weight takes ``w8_matmul``'s
+    kernel. On the CPU the per-weight ``w8_matmul_plain``."""
+    ws = tuple(ws)
+    if x.device.type == "cpu" and all(w.values.device.type == "cpu" for w in ws):
+        return tuple(w8_matmul_plain(x, w, out_dtype=out_dtype) for w in ws)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    k = x.shape[-1]
+    x2 = _build.unit_last_stride(x.reshape(-1, k))
+    m = x2.shape[0]
+    if x.dtype == torch.float32 or m > W1_MAX_ROWS or len(ws) > W1_GROUP or m == 0:
+        return tuple(w8_matmul(x, w, out_dtype=out_dtype) for w in ws)
+    _check_x("w8_matmul_group", x, ws, out_dtype)
+    operands = [_operand(w, k, False) for w in ws]
+    # One allocation for the group, each output a contiguous [m, N_i] piece of it.
+    ns = [math.prod(shape) for _, _, shape in operands]
+    flat = torch.empty(m * sum(ns), dtype=out_dtype, device=x.device)
+    outs, off = [], 0
+    for n, (_, _, shape) in zip(ns, operands):
+        outs.append(flat[off:off + m * n].view(*x.shape[:-1], *shape))
+        off += m * n
+    live = [i for i, n in enumerate(ns) if n]
+    if live:
+        _launch_w1_group(x2, [operands[i][:2] for i in live], [outs[i] for i in live], ns=[ns[i] for i in live])
+    return tuple(outs)
+
+
+counter(w8_matmul, "w1_launches", "W1", "w8_gemv_kernel", "w8_gemv_group_kernel", "w8_gemv_fma_kernel")
 counter(w8_matmul, "w2_launches", "W2", "w8_gemm_kernel")

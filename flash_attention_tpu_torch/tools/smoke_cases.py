@@ -219,76 +219,120 @@ def _w8(cs) -> tuple:
 
 
 def w1_splits(card: str) -> dict:
-    """W1 at 8 rows of bf16 x over ModelConfig()'s [K, N] weights, launched
-    straight through the C entry at K splits of 1 to 32 (``w1_plan``'s own
-    choice marked), each the kernel alone in a CUDA graph of 10 launches:
-    how the split's partials and their reduction trade against the
-    blocks in flight. ``ms`` is wq's at the plan's split."""
+    """W1 at 8 rows of bf16 x over ModelConfig()'s q / k / v and gate / up
+    groups and wo, w_down and wk, launched with K split over clusters of 1
+    to 8 blocks (``w1_plan``'s own choice marked), each alone in a CUDA
+    graph with a cold L2 (distinct weight copies past 100 MB walked in
+    turn): how the cluster's reduction trades against the blocks in flight.
+    ``ms`` is q / k / v's at the plan's split."""
     import math
 
     import torch
 
     import chip_smoke as cs
-    from flash_attention_tpu_torch.ops import _build, quant
+    from flash_attention_tpu_torch.ops import quant
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    lib, sms = _build.kernels(), torch.cuda.get_device_properties(0).multi_processor_count
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
-    for name, k, n in (("wq", 4096, 4096), ("wk", 4096, 1024), ("w_gate", 4096, 11008), ("w_down", 11008, 4096),
-                       ("K 16", 16, 4096), ("K 256", 256, 4096)):
-        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda", generator=gen)
-        scales = torch.rand(n, device="cuda", generator=gen) / 100
+    for name, k, ns in (("q / k / v", 4096, (4096, 1024, 1024)), ("gate / up", 4096, (11008, 11008)),
+                        ("wo", 4096, (4096,)), ("w_down", 11008, (4096,)), ("wk", 4096, (1024,))):
+        nbytes = k * sum(ns)
+        copies = max(2, math.ceil(100e6 / nbytes))
+        sets = [[(torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda", generator=gen),
+                  torch.rand(n, device="cuda", generator=gen) / 100) for n in ns] for _ in range(copies)]
         x = cs.torch_uniform((8, k), torch.bfloat16, gen)
-        ref = quant.w8_matmul(x, quant.QuantizedTensor(w, scales[None]))
-        _, plan_splits, _ = quant.w1_plan(8, n, k, False, sms)
-        strips, ksteps = math.ceil(n / 128), math.ceil(k / 16)
+        ref = [quant.w8_matmul(x, quant.QuantizedTensor(w, s[None])) for w, s in sets[0]]
+        xt, plan_splits, _ = quant.w1_plan(8, ns, k, sms)
+        ksteps = math.ceil(k / 16)
         row = []
-        for splits in sorted({1, 2, 4, 8, 16, 32, plan_splits}):
-            steps = math.ceil(ksteps / splits)
+        for want in range(1, quant.W1_MAX_SPLITS + 1):
+            steps = math.ceil(math.ceil(ksteps / want) / quant.W1_BOX_STEPS) * quant.W1_BOX_STEPS
             splits = math.ceil(ksteps / steps)
-            ws = torch.empty(strips * splits * 1024, dtype=torch.float32, device="cuda")
-            tickets = quant._tickets(x.device, strips)
-            res = torch.empty((8, n), dtype=torch.bfloat16, device="cuda")
-            shape = _build.int64_array((8, n, k, k, n, n, 0, 1, 0, 1, 1, splits, steps, 1))
-
-            def call(res=res, ws=ws, tickets=tickets, shape=shape):
-                err = lib.fat_w8_matmul(x.data_ptr(), w.data_ptr(), scales.data_ptr(), res.data_ptr(), ws.data_ptr(),
-                                        tickets.data_ptr(), shape, _build.DTYPE_CODES[torch.bfloat16],
-                                        _build.current_stream(x.device))
-                _build.check(err, "w1_splits")
-
-            call()
+            if f"{name} splits {splits}" in out:
+                continue
+            res = [torch.empty((8, n), dtype=torch.bfloat16, device="cuda") for n in ns]
+            plan = (xt, splits, steps)
+            quant._launch_w1_group(x, sets[0], res, plan)
             torch.cuda.synchronize()
-            if not torch.equal(res, ref) and splits == plan_splits:
-                raise RuntimeError(f"{name}: the plan's split differs from w8_matmul")
+            if len(ns) == 1 and splits == plan_splits and not torch.equal(res[0], ref[0]):
+                raise RuntimeError(f"{name}: the plan's launch differs from w8_matmul")
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
-                for _ in range(10):
-                    call()
-            ms = cs.cuda_ms(graph.replay) / 10
-            row.append(f"{splits}{'*' if splits == plan_splits else ''}: {ms * 1e3:.1f} us")
+                for i in range(max(10, copies)):
+                    quant._launch_w1_group(x, sets[i % copies], res, plan)
+            ms = cs.cuda_ms(graph.replay) / max(10, copies)
+            del graph
+            blocks = splits * sum(math.ceil(n / quant.W1_COLS) for n in ns)
+            mark = "*" if splits == plan_splits else ""
+            row.append(f"{splits}{mark} ({blocks} blocks): {ms * 1e3:.1f}")
             out[f"{name} splits {splits}"] = ms
-            if name == "wq" and splits == plan_splits:
+            if name == "q / k / v" and mark:
                 out["ms"] = ms
-        print(f"[w1 splits] {name} [{k}, {n}], x [8, {k}] bf16, alone in a CUDA graph by K split (* the plan's): "
-              + ", ".join(row) + f" ({card})", flush=True)
+        bound_us = (nbytes + 8 * k * 2) / cs.PEAK_BYTES * 1e6
+        print(f"[w1 splits] {name} N {ns}, K {k}, x [8, {k}] bf16, us alone with a cold L2 by K split (* the "
+              f"plan's); bound {bound_us:.2f} us: " + ", ".join(row) + f" ({card})", flush=True)
+        del sets
+        torch.cuda.empty_cache()
     return out
+
+
+def w1_diag(card: str) -> dict:
+    """W1's group launch over an [K, N] weight whole and as a strided column
+    shard, at 1 and 8 rows, at every K split: two launches compared bit for
+    bit and each against the plain version; prints where two launches
+    differ (output rows and columns) and fails if any do."""
+    import math
+
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    bad = []
+    for k, n, ld in ((4096, 5504, 11008), (4096, 5504, 5504), (4096, 4096, 4096), (11008, 4096, 16384)):
+        base = torch.randint(-127, 128, (k, ld), dtype=torch.int8, device="cuda", generator=gen)
+        w = base[:, ld - n:]
+        scales = torch.rand(n, device="cuda", generator=gen) / 100
+        qt = quant.QuantizedTensor(w, scales[None])
+        ksteps = math.ceil(k / 16)
+        for m in (1, 8):
+            x = cs.torch_uniform((m, k), torch.bfloat16, gen)
+            plain = quant.w8_matmul_plain(x, qt)
+            for want in range(1, quant.W1_MAX_SPLITS + 1):
+                steps = math.ceil(math.ceil(ksteps / want) / quant.W1_BOX_STEPS) * quant.W1_BOX_STEPS
+                splits = math.ceil(ksteps / steps)
+                got = [torch.empty((m, n), dtype=torch.bfloat16, device="cuda") for _ in range(2)]
+                for res in got:
+                    quant._launch_w1_group(x, [(w, scales)], [res], (quant._x_tiles(m), splits, steps))
+                torch.cuda.synchronize()
+                rel = cs._rel_diff(got[0], plain)
+                differ = (got[0] != got[1]).nonzero()
+                if len(differ) or rel > cs.PLAIN_BAR:
+                    cols = differ[:, 1]
+                    where = (f"{len(differ)} elements differ, rows {sorted(set(differ[:, 0].tolist()))[:8]}, "
+                             f"columns {int(cols.min()) if len(cols) else -1}..{int(cols.max()) if len(cols) else -1}")
+                    bad.append(f"[K {k}, N {n}, ld {ld}] M={m} splits {splits} steps {steps}: {where}; "
+                               f"row-relative to plain {rel:.3e}")
+                    print(f"[w1 diag] {bad[-1]} ({card})", flush=True)
+    print(f"[w1 diag] {len(bad)} launches differ or miss the plain bar ({card})", flush=True)
+    if bad:
+        raise RuntimeError(f"{len(bad)} W1 launches differ between calls or from plain")
+    return {}
 
 
 def w8_threshold(card: str) -> dict:
     """W1 against W2 by rows of bf16 x (8 to 64) at ModelConfig()'s wq and
-    w_gate, each launched straight through the C entry and timed alone in
-    a CUDA graph of 10 launches: where ``ops.quant.W1_MAX_ROWS`` should sit.
+    w_gate, each launched on the kernel named and timed alone in a CUDA
+    graph of 10 launches: where ``ops.quant.W1_MAX_ROWS`` should sit.
     ``ms`` is wq's W1 time at 32 rows."""
-    import math
-
     import torch
 
     import chip_smoke as cs
-    from flash_attention_tpu_torch.ops import _build, quant
+    from flash_attention_tpu_torch.ops import quant
 
     gen = torch.Generator(device="cuda").manual_seed(8)
-    lib, sms = _build.kernels(), torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for name, k, n in (("wq", 4096, 4096), ("w_gate", 4096, 11008)):
         w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda", generator=gen)
@@ -296,21 +340,10 @@ def w8_threshold(card: str) -> dict:
         row = []
         for m in (8, 16, 24, 32, 40, 48, 64):
             x = cs.torch_uniform((m, k), torch.bfloat16, gen)
+            res = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
             times = {}
-            for kernel in (1, 2):
-                xt, splits, steps = quant.w1_plan(m, n, k, False, sms)
-                groups = math.ceil(m / (8 * xt))
-                ws = torch.empty(groups * math.ceil(n / 128) * splits * xt * 1024, dtype=torch.float32, device="cuda")
-                tickets = quant._tickets(x.device, groups * math.ceil(n / 128))
-                res = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
-                shape = _build.int64_array((m, n, k, k, n, n, 0, 1, 0, kernel, xt, splits, steps, 1))
-
-                def call(x=x, res=res, ws=ws, tickets=tickets, shape=shape):
-                    _build.check(lib.fat_w8_matmul(x.data_ptr(), w.data_ptr(), scales.data_ptr(), res.data_ptr(),
-                                                   ws.data_ptr(), tickets.data_ptr(), shape,
-                                                   _build.DTYPE_CODES[torch.bfloat16],
-                                                   _build.current_stream(x.device)), "w8_threshold")
-
+            for kernel, call in ((1, lambda: quant._launch_w1_group(x, [(w, scales)], [res])),
+                                 (2, lambda: quant._launch_w2(x, w, scales, res, False))):
                 call()
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph):
@@ -322,6 +355,89 @@ def w8_threshold(card: str) -> dict:
         print(f"[w8 threshold] {name} [{k}, {n}] bf16, alone in a CUDA graph: " + ", ".join(row) + f" ({card})",
               flush=True)
     out["ms"] = out["wq M=32 W1"]
+    return out
+
+
+def w8_ab(card: str) -> dict:
+    """The W8A16 products through the public wrappers, which a parent tree
+    has too, each alone in a CUDA graph with a cold L2 (distinct weight
+    copies past 100 MB walked in turn): W1 at 8 rows over wq, wk, wo,
+    w_gate, w_down and the unembed, the q / k / v and gate / up groups (one
+    ``w8_matmul_group`` launch where the tree has it, else the single calls
+    one after another), W2 at 8 to 64 rows over wq and at 256 and 1,024 rows
+    over every weight; beside each, cuBLAS on the widened weight by the same
+    protocol. ``ms`` is gate / up's at 8 rows."""
+    import math
+
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    shapes = {"wq": ((4096, 32, 128), 0), "wk": ((4096, 8, 128), 0), "wv": ((4096, 8, 128), 0),
+              "wo": ((32, 128, 4096), (0, 1)), "w_gate": ((4096, 11008), 0), "w_up": ((4096, 11008), 0),
+              "w_down": ((11008, 4096), 0), "unembed": ((32000, 4096), 1)}
+    weights = {name: quant.quantize_weight(torch.randn(shape, generator=gen, device="cuda") / 64, contract_axes=axes)
+               for name, (shape, axes) in shapes.items()}
+    group = getattr(quant, "w8_matmul_group", None)
+
+    def cold(make, nbytes, calls=10):
+        copies = max(2, math.ceil(100e6 / nbytes))
+        fns = [make(i) for i in range(copies)]
+        for fn in fns:
+            fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(max(calls, copies)):
+                fns[i % copies]()
+        return cs.cuda_ms(graph.replay) / max(calls, copies)
+
+    def copies_of(names, nbytes):
+        n = max(2, math.ceil(100e6 / nbytes))
+        return [[weights[name] if i == 0 else quant.QuantizedTensor(weights[name].values.clone(),
+                                                                      weights[name].scales.clone())
+                 for name in names] for i in range(n)]
+
+    out = {}
+
+    def row(label, m, names, unembed=False):
+        k = 11008 if names[0] == "w_down" else 4096
+        x = cs.torch_uniform((m, k), torch.bfloat16, gen)
+        nbytes = sum(weights[n].values.numel() for n in names)
+        sets = copies_of(names, nbytes)
+        if unembed:
+            fn = lambda ws: quant.w8_matmul(x, ws[0], out_dtype=torch.float32, scale_on_output=True)  # noqa: E731
+        elif len(names) > 1 and group is not None and m <= quant.W1_MAX_ROWS:
+            fn = lambda ws: group(x, ws)  # noqa: E731
+        else:
+            fn = lambda ws: [quant.w8_matmul(x, w) for w in ws]  # noqa: E731
+        t = cold(lambda i: lambda: fn(sets[i]), nbytes)
+        del sets
+        wides = [[(weights[n].values.to(torch.bfloat16).t() if unembed else
+                   quant.w8_dequant(weights[n]).to(torch.bfloat16).reshape(k, -1)) for n in names]]
+        wides += [[w.clone() for w in wides[0]] for _ in range(max(2, math.ceil(100e6 / (2 * nbytes))) - 1)]
+        lib = cold(lambda i: lambda: [torch.matmul(x, w) for w in wides[i]], 2 * nbytes)
+        del wides
+        flops = 2.0 * m * k * nbytes / k
+        bound_ms = max(flops / cs.PEAK_FLOPS, (nbytes + m * k * 2) / cs.PEAK_BYTES) * 1e3
+        print(f"[w8 ab] {label} M={m}: {t * 1e3:.2f} us alone, cold L2; cuBLAS on the widened weight {lib * 1e3:.2f} "
+              f"us ({t / lib:.3f}x); bound {bound_ms * 1e3:.2f} us ({bound_ms / t:.3f} of it) ({card})", flush=True)
+        out[f"{label} M={m}"], out[f"{label} M={m} cuBLAS"] = t, lib
+        torch.cuda.empty_cache()
+
+    for name in ("wq", "wk", "wo", "w_gate", "w_down"):
+        row(name, 8, [name])
+    row("unembed", 8, ["unembed"], unembed=True)
+    row("q / k / v", 8, ["wq", "wk", "wv"])
+    row("gate / up", 8, ["w_gate", "w_up"])
+    for m in (40, 64):
+        row("wq", m, ["wq"])
+    for m in (256, 1024):
+        for name in ("wq", "wk", "wo", "w_gate", "w_down"):
+            row(name, m, [name])
+        row("unembed", m, ["unembed"], unembed=True)
+    out["ms"] = out["gate / up M=8"]
     return out
 
 

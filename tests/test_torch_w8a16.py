@@ -150,31 +150,67 @@ def test_cpu_call_never_builds(monkeypatch):
 
 
 def test_kernels_registered():
-    assert counters.KERNELS["W1"] == (quant.w8_matmul, "w1_launches", ("w8_gemv_kernel", "w8_gemv_fma_kernel"))
+    assert counters.KERNELS["W1"] == (quant.w8_matmul, "w1_launches",
+                                      ("w8_gemv_kernel", "w8_gemv_group_kernel", "w8_gemv_fma_kernel"))
     assert counters.KERNELS["W2"] == (quant.w8_matmul, "w2_launches", ("w8_gemm_kernel",))
-    names = ["void (anonymous namespace)::w8_gemv_kernel<__nv_bfloat16, false, 1, true>(GemvParams)",
+    names = ["void (anonymous namespace)::w8_gemv_kernel<__nv_bfloat16, 1, true>(GemvParams)",
+             "void (anonymous namespace)::w8_gemv_group_kernel<__half, 4, false>(GroupParams)",
              "(anonymous namespace)::w8_gemv_fma_kernel(GemvParams)",
-             "void (anonymous namespace)::w8_gemm_kernel<__half, true>(GemmParams)"]
+             "void (anonymous namespace)::w8_gemm_kernel<__half, true, 128>(GemmParams)"]
     traced = counters.traced(names)
-    assert traced[("W1",)] == 2 and traced[("W2",)] == 1
+    assert traced[("W1",)] == 3 and traced[("W2",)] == 1
 
 
-@pytest.mark.parametrize("shape", [(8, 4096, 4096, False), (8, 1024, 4096, False), (8, 11008, 4096, False),
-                                   (8, 4096, 11008, False), (32, 4096, 4096, False), (1, 2752, 4096, False),
-                                   (37, 64, 100, False), (8, 32000, 4096, True), (300, 128, 256, False)])
+# (rows of x, each weight's N, K): ModelConfig()'s decode groups (q / k / v,
+# gate / up) and single weights (wo, w_down, wk), 32 slots, a
+# tensor-parallel shard, a short K, odd shapes, more rows than one group.
+PLAN_CASES = [(8, (4096, 1024, 1024), 4096), (8, (11008, 11008), 4096), (8, (4096,), 4096), (8, (4096,), 11008),
+              (32, (4096, 1024, 1024), 4096), (1, (2752, 2752), 4096), (37, (64,), 100), (8, (1024,), 4096),
+              (8, (72, 100, 40), 16), (64, (11008,), 4096)]
+
+
+@pytest.mark.parametrize("shape", PLAN_CASES, ids=[f"{m}x{'-'.join(map(str, ns))}x{k}" for m, ns, k in PLAN_CASES])
 def test_w1_plan_covers_k(shape):
-    """W1's split of K: every 16-row k-step in exactly one split, none
-    empty, at least W1_MIN_STEPS k-steps a split when split, and no split
-    of an [N, K] weight."""
-    m, n, k, nk = shape
-    xt, splits, steps = quant.w1_plan(m, n, k, nk)
+    """W1's work items (``w1_work``, the kernel's block order): every
+    (weight, row group, 128-column strip, 16-row k-step) in exactly one
+    item, none empty, a split of whole TMA boxes (except the last), at most
+    W1_MAX_SPLITS blocks a cluster, and a split only where the strips alone
+    leave the card short of W1_BLOCKS_PER_SM blocks a multiprocessor; at
+    ModelConfig()'s shapes the measured best splits."""
+    m, ns, k = shape
+    xt, splits, steps = quant.w1_plan(m, ns, k)
     assert xt == (1 if m <= 8 else 2 if m <= 16 else 4)
-    ksteps = -(-k // 16)
-    if nk:
-        assert splits == 1
-        return
-    assert (splits - 1) * steps < ksteps <= splits * steps
-    assert splits == 1 or steps >= quant.W1_MIN_STEPS
+    assert 1 <= splits <= quant.W1_MAX_SPLITS and steps % quant.W1_BOX_STEPS == 0
+    ksteps, groups = -(-k // 16), -(-m // (8 * xt))
+    work = quant.w1_work(m, ns, k)
+    items = groups * sum(-(-n // quant.W1_COLS) for n in ns)
+    assert len(work) == items * splits
+    assert splits == 1 or items * splits <= quant.W1_BLOCKS_PER_SM * 132
+    covered = set()
+    for i, group, strip, first, end in work:
+        assert first < end and end - first <= steps
+        for step in range(first, end):
+            assert (i, group, strip, step) not in covered
+            covered.add((i, group, strip, step))
+    assert covered == {(i, group, strip, step) for i, n in enumerate(ns) for group in range(groups)
+                       for strip in range(-(-n // quant.W1_COLS)) for step in range(ksteps)}
+    measured = {(8, (4096, 1024, 1024), 4096): 2, (8, (11008, 11008), 4096): 1, (8, (4096,), 4096): 3,
+                (8, (4096,), 11008): 6}
+    assert measured.get(shape, splits) == splits
+
+
+@pytest.mark.parametrize("shape", [(256, 4096), (256, 1024), (256, 11008), (1024, 4096), (1024, 11008),
+                                   (1024, 32000), (64, 4096), (40, 72)])
+def test_w2_plan_fills_the_card(shape):
+    """W2's tile height and grid: 64 or 128 x rows, one persistent block a
+    multiprocessor at most and no more blocks than tiles; at 256 rows over
+    wq's 4096 columns the 64-row tiles fill 128 multiprocessors."""
+    m, n = shape
+    bm, grid = quant.w2_plan(m, n)
+    tiles = -(-m // bm) * -(-n // quant.W2_COLS)
+    assert bm in quant.W2_ROWS and grid == min(132, tiles)
+    if (m, n) == (256, 4096):
+        assert (bm, grid) == (64, 128)
 
 
 def _models(dtype: str, weight_quant: str, **over):
