@@ -35,11 +35,23 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 from identical copies of the caches, the tokens and every
                 cache tensor bit-identical; the greedy replay traced, its
                 kernel records equal to the launches it added to the counts
-                (a replay runs no wrapper: it adds what its capture counted).
-                Then sampling on the card: the Gumbel noise and sample_tokens'
-                tokens at temperature > 0 with top-k and top-p bit-equal to
-                the CPU's, with no host sync; one decode step of 8 slots
-                timed greedy and sampled.
+                (a replay runs no wrapper: it adds what its capture counted);
+                the sampled replay counts one S1 launch a step. Then sampling
+                on the card: S1 (csrc/sampling.cu) in its detail mode at
+                phase 5's 8 edge seeds x 8 edge positions x 32,000, its
+                noise bit-equal to the CPU's gumbel_noise; then the sweep
+                (vocab 1, 7, 128, 32,000, 50,257, 128,256 and 256,000 x
+                batch 1, 8, 32 x normal, tied and peaked logits) against the
+                plain version on the card: the noise bit for bit, the greedy
+                picks and kth exactly, thresh exactly or (printed) with the
+                exact mass rule holding at S1's boundary to within 1e-6 of
+                top_p, the tokens where thresh agrees, and bit-identical over
+                two calls and a graph replay; then sample_tokens (S1) on one
+                decode step's logits at temperature > 0 with top-k and
+                top-p, under the sync debug mode "error", equal to the plain
+                version on the card and on the CPU; S1 timed as a call,
+                alone in a CUDA graph and as host us beside plain and its
+                bound; one decode step of 8 slots timed greedy and sampled.
   6. paged    — K7 (decode.cu, paged), K8 (flash_fwd_sm90.cu, paged: the
                 body counter must show the tensor-core body) and K9/K10
                 (paged_write.cu) at the paged path's shapes in bf16 over a
@@ -318,7 +330,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
 
 Every serving phase (4-11, 16, 17, 23, 24) launches F1, F2 and F3 (GLUE)
 beside its attention kernels: the norms, RoPE (with the dense cache's row
-write) and the SwiGLU gate of every step and chunk run no gradient.
+write) and the SwiGLU gate of every step and chunk run no gradient. Every
+engine run also launches S1 (SERVED): each request's first token is
+picked by sample_tokens, and every step of a sampled decode block. 24(c)
+bars a replayed sampled step at SAMPLER_OPS_BAR device operations more
+than a greedy one. S1's row in the kernels line counts phases 5's and 8's
+main paths.
 
 Every phase prints kernel, plain-version, library-call and bound times
 (the bound: the larger of the bytes over 3.35 TB/s and the operations over
@@ -369,6 +386,9 @@ PEAK_FP32 = 67e12  # H100 SXM fp32 rate off the tensor cores
 # The decode step's glue kernels (csrc/fused.cu): every serving path with no
 # gradient launches them beside its attention kernels; training does not.
 GLUE = ("F1", "F2", "F3")
+# What every engine run launches beside its attention kernels: the glue, and S1 (csrc/sampling.cu), which picks
+# each request's first token and every token of a sampled decode step.
+SERVED = (*GLUE, "S1")
 
 
 def log(msg: str) -> None:
@@ -839,10 +859,11 @@ def hold_programs(label: str, eng, w1_per_step: int | None = None) -> None:
     sampled block at phase 5's sampling rows. The greedy replay, the main
     paths' key, is traced: its kernel records must equal the launches it
     added to the counts (``traced_launches``; a trace of a block's ~60,000
-    records costs ~16 s of post-processing, so the sampled one is not).
-    With ``w1_per_step``, the traced greedy block must hold exactly that
-    many W1 launches a step (an int8-weight model: one group launch for q /
-    k / v, one for gate / up, wo and w_down a layer, and the unembed's).
+    records costs ~16 s of post-processing, so the sampled one is not; it
+    must count one S1 launch a step). With ``w1_per_step``, the traced
+    greedy block must hold exactly that many W1 launches a step (an
+    int8-weight model: one group launch for q / k / v, one for gate / up,
+    wo and w_down a layer, and the unembed's).
     Called after the main path: it leaves the caches as the eager block
     wrote them."""
     import numpy as np
@@ -892,7 +913,11 @@ def hold_programs(label: str, eng, w1_per_step: int | None = None) -> None:
                 raise RuntimeError(f"[{label}] the replayed k={k} greedy block traced {traced.get('W1', 0)} W1 "
                                    f"launches, want {w1_per_step} a step")
         else:
+            s1 = read_counts()["S1"]
             toks = replay()
+            if read_counts()["S1"] - s1 != k:
+                raise RuntimeError(f"[{label}] the replayed k={k} sampled block counted {read_counts()['S1'] - s1} S1 "
+                                   f"launches, want one a step")
         replayed = [toks, progs.last.clone()] + [t.clone() for t in live]
         reset()
         eager = [progs.block(k, greedy), progs.last] + live
@@ -904,8 +929,9 @@ def hold_programs(label: str, eng, w1_per_step: int | None = None) -> None:
     torch.cuda.synchronize()
     log(f"[{label}] decode programs: the k={k} block replayed == its eager body, greedy and sampled, tokens and "
         f"{len(live)} cache tensors ({_nbytes(live) / 1e9:.3f} GB) bit for bit; mode {progs.mode}, {progs.captures} "
-        f"programs, {progs.replays} replays so far; kernel records in the greedy replay's device trace == the "
-        f"launches it counted, {traced} (traces taken {attempts}); the hold took {time.perf_counter() - t0:.1f} s")
+        f"programs, {progs.replays} replays so far; the sampled replay counted one S1 launch a step; kernel records in "
+        f"the greedy replay's device trace == the launches it counted, {traced} (traces taken {attempts}); the hold "
+        f"took {time.perf_counter() - t0:.1f} s")
 
 
 def tiny_requests():
@@ -956,32 +982,203 @@ def phase_full(card: str):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _tensors(params))
     log(f"[full] ModelConfig() bf16: {n_params / 1e9:.3f} B params initialised on the card in {time.perf_counter() - t0:.1f} s")
-    launches, numbers = serve_full_dense(card, "full", cfg, params, used=("K1", "K6", *GLUE))
+    launches, numbers = serve_full_dense(card, "full", cfg, params, used=("K1", "K6", *SERVED))
     return launches, params, numbers
 
 
-def phase_sampling(card: str, params) -> None:
-    """Phase 5's sampling on the card, ModelConfig() on phase 5's weights:
-    ``gumbel_noise`` for seeds and positions at the edges of their int32
-    ranges, and ``sample_tokens`` at temperature > 0 with top-k and top-p on
-    the logits of one decode step of 8 slots, each bit-equal to the same
-    function on the CPU (which the CPU tests hold to jax.random's bits);
-    the card's ``sample_tokens`` must not synchronise with the host (the
-    sync debug mode raises if it does). Then that decode step timed with
-    the greedy pick and with sampling, and the sampling alone."""
+# Phase 5's sweep of S1: every vocab and batch against the plain version on the card. 128,256 is Llama 3's
+# vocab and 256,000 Gemma's: the first no longer fits one block's shared memory whole, the second not even a
+# cluster's (its slices are re-read from device memory each pass).
+SAMPLER_VOCABS = (1, 7, 128, 32000, 50257, 128256, 256000)
+SAMPLER_BATCHES = (1, 8, 32)
+# thresh where S1 and the plain version part: S1 sums the probabilities exactly, so the exact mass rule must hold
+# at its boundary to within this of top_p. The plain version's boundary is where its fp32 cumsum crosses top_p,
+# held to the error bound of an fp32 cumsum of V probabilities, V * 2^-24 (on the card the cumsum adds in fp32).
+THRESH_BAR = 1e-6
+# S1's bound: operations a drawn element (threefry2x32's ~110 integer operations and the two logs' ~60 fp32
+# ones) and an element of a sampled row (exp, two divisions, four passes of the radix selects), each one
+# operation at the fp32 rate off the tensor cores.
+S1_OPS_DRAWN, S1_OPS_ROW = 170, 40
+
+
+def _mass_gap(logits, temperature, top_p, thresh) -> tuple[float, float, float]:
+    """For one row (CPU fp32 tensors): the exact (float64) mass of
+    softmax((logits - max) / T) above ``thresh`` and at or above it, and how
+    far top_p lies outside [above, at or above] (0 inside: thresh is where
+    the exact mass rule puts the boundary)."""
+    import torch
+
+    t = float(temperature) if float(temperature) > 0 else 1.0
+    z = logits / torch.tensor(t, dtype=torch.float32)
+    e = torch.exp((z - z.max()).double())
+    probs = e / e.sum()
+    above = float(probs[logits > thresh].sum())
+    at_or_above = float(probs[logits >= thresh].sum())
+    return above, at_or_above, max(0.0, above - float(top_p), float(top_p) - at_or_above)
+
+
+def _hold_s1(what: str, logits, rows: dict) -> list:
+    """S1's detail mode against the plain version on the same card tensors:
+    the noise bit for bit, the greedy picks and kth exactly, thresh exactly
+    or with the exact mass rule holding at S1's boundary to within
+    THRESH_BAR of top_p (and at the plain version's to within its fp32
+    cumsum's V * 2^-24), the tokens exactly where thresh agrees, and the
+    tokens of an ordinary launch equal to the detail mode's. Returns a line
+    for each row whose thresh parted: the boundaries' masses beside top_p."""
+    import torch
+
+    from flash_attention_tpu_torch.serving.sampling import _plain_parts, sample_tokens, sample_tokens_detail
+
+    got = sample_tokens_detail(logits, **rows)
+    want = _plain_parts(logits, **rows)
+    tokens = sample_tokens(logits, **rows)
+    if not _bits_equal(got["noise"], want["noise"]):
+        bad = int((got["noise"].view(torch.int32) != want["noise"].view(torch.int32)).sum())
+        raise RuntimeError(f"[sampling] {what}: S1's noise differs from gumbel_noise in {bad} elements")
+    for key in ("greedy", "kth"):
+        if not torch.equal(got[key], want[key]):
+            raise RuntimeError(f"[sampling] {what}: S1's {key} {got[key].tolist()} != plain {want[key].tolist()}")
+    if not torch.equal(tokens, got["tokens"]):
+        raise RuntimeError(f"[sampling] {what}: S1's tokens {tokens.tolist()} != its detail mode's "
+                           f"{got['tokens'].tolist()}")
+    parted = (got["thresh"] != want["thresh"]).nonzero().flatten().tolist()
+    lines = []
+    for r in parted:
+        cpu = {key: t[r].cpu() for key, t in rows.items()}
+        row = logits[r].float().cpu()
+        s1, plain = (_mass_gap(row, cpu["temperature"], cpu["top_p"], src["thresh"][r].cpu()) for src in (got, want))
+        line = (f"{what} row {r}: thresh S1 {float(got['thresh'][r])!r} plain {float(want['thresh'][r])!r}, top_p "
+                f"{float(cpu['top_p'])!r}, exact mass above / at or above S1's {s1[0]!r} / {s1[1]!r} "
+                f"(gap {s1[2]:.3g}), "
+                f"the plain version's {plain[0]!r} / {plain[1]!r} (gap {plain[2]:.3g}); tokens S1 "
+                f"{int(got['tokens'][r])} plain {int(want['tokens'][r])}")
+        if s1[2] > THRESH_BAR or plain[2] > logits.shape[1] * 2.0**-24:
+            raise RuntimeError(f"[sampling] {line}: a boundary farther from top_p than S1's {THRESH_BAR} or the "
+                               f"plain cumsum's {logits.shape[1] * 2.0**-24:.3g}")
+        lines.append(line)
+    agree = torch.ones_like(got["tokens"], dtype=torch.bool)
+    agree[parted] = False
+    if not torch.equal(got["tokens"][agree], want["tokens"][agree]):
+        raise RuntimeError(f"[sampling] {what}: tokens S1 {got['tokens'].tolist()} != plain "
+                           f"{want['tokens'].tolist()}")
+    return lines
+
+
+def _sweep_rows(rng, batch: int, vocab: int) -> dict:
+    """Sampling rows for the sweep as CUDA tensors: temperatures with 0 among
+    them, top_k across 0, 1 and past the vocab, top_p with 1 among them,
+    seeds and positions over the whole int32 range."""
+    import numpy as np
+    import torch
+
+    rows = dict(
+        temperature=rng.choice(np.array([0.0, 0.5, 0.7, 1.0, 1.3, 2.0], np.float32), batch),
+        top_k=rng.choice(np.array([0, 0, 1, 5, 40, 1000, vocab, vocab + 5], np.int32), batch),
+        top_p=rng.choice(np.array([1.0, 1.0, 0.99, 0.9, 0.5, 0.05], np.float32), batch),
+        seeds=rng.integers(-2**31, 2**31, batch, dtype=np.int64).astype(np.int32),
+        positions=rng.integers(0, 2**31, batch, dtype=np.int64).astype(np.int32))
+    return {key: torch.from_numpy(v).cuda() for key, v in rows.items()}
+
+
+def _sweep_logits(style: str, batch: int, vocab: int, gen):
+    """[batch, vocab] fp32 logits: "normal" (N(0, 3)), "ties" (N(0, 2)
+    rounded to quarters: tie groups at every threshold) or "peak" (-17
+    everywhere but one 0 a row: a top_p == 1 row's fp32 cumsum reaches 1.0
+    before its end)."""
+    import torch
+
+    x = torch.randn((batch, vocab), generator=gen, device="cuda")
+    if style == "normal":
+        return x * 3
+    if style == "ties":
+        return torch.round(x * 8) / 4
+    out = torch.full((batch, vocab), -17.0, device="cuda")
+    out[torch.arange(batch, device="cuda"), (x[:, 0].abs() * 1000).long() % vocab] = 0.0
+    return out
+
+
+def sampler_sweep() -> None:
+    """S1 at every vocab in SAMPLER_VOCABS and batch in SAMPLER_BATCHES, each
+    with the three logit styles of ``_sweep_logits`` (``_hold_s1``), then
+    bit-identical over two calls and a CUDA graph's replay."""
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.serving.sampling import sample_tokens_detail
+
+    rng = np.random.default_rng(20)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    held, parted, at_one = 0, [], 0
+    for vocab in SAMPLER_VOCABS:
+        for batch in SAMPLER_BATCHES:
+            for style in ("normal", "ties", "peak"):
+                rows = _sweep_rows(rng, batch, vocab)
+                parted += _hold_s1(f"V={vocab} B={batch} {style}", _sweep_logits(style, batch, vocab, gen), rows)
+                held += batch
+    below_one = [line for line in parted if "top_p 1.0," not in line]
+    for line in parted[:3] + below_one[:10]:
+        log(f"[sampling] thresh parted: {line}")
+    at_one = len(parted) - len(below_one)
+    rows = _sweep_rows(rng, 8, 32000)
+    logits = _sweep_logits("normal", 8, 32000, gen)
+    first, second = sample_tokens_detail(logits, **rows), sample_tokens_detail(logits, **rows)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = sample_tokens_detail(logits, **rows)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(_bits_equal(first[k], second[k]) and _bits_equal(first[k], replayed[k]) for k in first):
+        raise RuntimeError("[sampling] S1 differs between two calls or a CUDA graph's replay")
+    log(f"[sampling] S1 sweep: vocab {SAMPLER_VOCABS} x batch {SAMPLER_BATCHES} x logits normal / ties / peak, "
+        f"{held} rows: noise == gumbel_noise bit for bit, greedy picks and kth == plain, thresh == plain in all but "
+        f"{len(parted)} rows ({at_one} of them top_p == 1; S1's boundary within {THRESH_BAR} of top_p in each; the "
+        f"first three printed and those below top_p 1), tokens == plain where thresh agrees; bit-identical over "
+        f"two calls and a graph replay")
+
+
+def phase_sampling(card: str, params) -> dict:
+    """Phase 5's sampling on the card, ModelConfig() on phase 5's weights.
+    S1's noise at phase 5's edge seeds x positions bit-equal to
+    ``gumbel_noise`` on the CPU (which the CPU tests hold to jax.random's
+    bits), and ``sampler_sweep``; then, on the logits of one decode step of
+    8 slots at phase 5's sampling rows, ``sample_tokens`` (S1) under the
+    sync debug mode "error" (no host sync), its tokens equal to the plain
+    version's on the card and on the CPU. Then S1 timed as a call, alone in
+    a CUDA graph and as host us, beside the plain version and its bound, and
+    the decode step timed with the greedy pick and with sampling. Returns
+    S1's row of the kernels line (its launches filled in by main())."""
     import numpy as np
     import torch
 
     from flash_attention_tpu_torch.models.transformer import ModelConfig, decode_step_logits, init_caches
-    from flash_attention_tpu_torch.serving.sampling import gumbel_noise, sample_tokens
+    from flash_attention_tpu_torch.serving.sampling import (
+        _plain_parts,
+        gumbel_noise,
+        sample_tokens,
+        sample_tokens_detail,
+        sample_tokens_plain,
+    )
 
     cfg, slots, length = ModelConfig(), 8, 1024
     sampling = _sampling_inputs(length + 1)
-    seeds = sampling["seeds"]
-    positions = torch.tensor([0, 1, 2, 1000, 2047, 4096, 2**31 - 1, length + 1], dtype=torch.int32)
-    noise = gumbel_noise(seeds.cuda(), positions.cuda(), cfg.vocab_size)
-    if not torch.equal(noise.cpu(), gumbel_noise(seeds, positions, cfg.vocab_size)):
-        raise RuntimeError("[sampling] the card's Gumbel noise differs from the CPU's")
+    edges = torch.tensor([0, 1, 2, 1000, 2047, 4096, 2**31 - 1, length + 1], dtype=torch.int32)
+    seeds, positions = sampling["seeds"].repeat_interleave(8), edges.repeat(8)
+    noise = gumbel_noise(seeds, positions, cfg.vocab_size)
+    if not torch.equal(gumbel_noise(seeds.cuda(), positions.cuda(), cfg.vocab_size).cpu(), noise):
+        raise RuntimeError("[sampling] the card's plain Gumbel noise differs from the CPU's")
+    edge_rows = {key: t.repeat(8).cuda() for key, t in sampling.items()}
+    edge_rows.update(seeds=seeds.cuda(), positions=positions.cuda())
+    logits64 = torch.randn((64, cfg.vocab_size), generator=torch.Generator(device="cuda").manual_seed(5),
+                           device="cuda")
+    if not torch.equal(sample_tokens_detail(logits64, **edge_rows)["noise"].cpu(), noise):
+        raise RuntimeError("[sampling] S1's noise at phase 5's edge seeds and positions differs from the CPU's "
+                           "gumbel_noise")
+    for line in _hold_s1("phase 5 edge seeds x positions", logits64, edge_rows):
+        log(f"[sampling] thresh parted: {line}")
+    t0 = time.perf_counter()
+    sampler_sweep()
+    sweep_s = time.perf_counter() - t0
+
     on_card = {key: t.cuda() for key, t in sampling.items()}
     caches = [c._replace(lengths=torch.full((slots,), length, dtype=torch.int32, device="cuda"))
               for c in init_caches(cfg, slots, 2048, device="cuda")]
@@ -989,25 +1186,48 @@ def phase_sampling(card: str, params) -> None:
     with torch.no_grad():
         logits, _ = decode_step_logits(params, cfg, tok, caches)
         torch.cuda.synchronize()
+        launched = sample_tokens.launches
         torch.cuda.set_sync_debug_mode("error")
         try:
             card_tok = sample_tokens(logits, **on_card)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+        if sample_tokens.launches != launched + 1:
+            raise RuntimeError("[sampling] sample_tokens on the card did not launch S1 once")
+        plain_tok = sample_tokens_plain(logits, **on_card)
         cpu_tok = sample_tokens(logits.cpu(), **sampling)
-        if not torch.equal(card_tok.cpu(), cpu_tok):
-            raise RuntimeError(f"[sampling] card tokens {card_tok.tolist()} != CPU tokens {cpu_tok.tolist()}")
+        if not (torch.equal(card_tok.cpu(), cpu_tok) and torch.equal(plain_tok.cpu(), cpu_tok)):
+            raise RuntimeError(f"[sampling] S1 tokens {card_tok.tolist()}, the card's plain version's "
+                               f"{plain_tok.tolist()}, the CPU's {cpu_tok.tolist()}: not all equal")
+        for line in _hold_s1("phase 5 decode logits", logits, on_card):
+            log(f"[sampling] thresh parted: {line}")
+        ms, alone, host_us = _three_times(lambda: sample_tokens(logits, **on_card))
+        plain_ms = cuda_ms(lambda: sample_tokens_plain(logits, **on_card))
         greedy_ms = cuda_ms(lambda: torch.argmax(decode_step_logits(params, cfg, tok, caches)[0], dim=-1))
         sampled_ms = cuda_ms(lambda: sample_tokens(decode_step_logits(params, cfg, tok, caches)[0], **on_card))
-        sample_ms = cuda_ms(lambda: sample_tokens(logits, **on_card))
         noise_ms = cuda_ms(lambda: gumbel_noise(on_card["seeds"], on_card["positions"], cfg.vocab_size))
+        parts = _plain_parts(logits, **on_card)
+    sampled_rows = on_card["temperature"] > 0
+    kept = ((logits >= parts["kth"][:, None]) & (logits >= parts["thresh"][:, None]))[sampled_rows]
+    drawn = int(kept.sum())
+    ops = S1_OPS_DRAWN * drawn + S1_OPS_ROW * int(sampled_rows.sum()) * cfg.vocab_size
+    nbytes = logits.numel() * 4 + slots * (5 * 4 + 4)
+    bound_ms = max(ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3)
+    bound_by = "operations" if ops / PEAK_FP32 >= nbytes / PEAK_BYTES else "bytes"
     del caches
     torch.cuda.empty_cache()
-    log(f"[sampling] Gumbel noise [8, {cfg.vocab_size}] and sample_tokens (temperature > 0, top-k, top-p) card == "
-        f"CPU bit for bit, no host sync; tokens {card_tok.tolist()}")
+    log(f"[sampling] S1 noise at phase 5's 8 seeds x 8 positions x {cfg.vocab_size} == CPU gumbel_noise bit for bit; "
+        f"sample_tokens (S1, temperature > 0, top-k, top-p) on the decode logits == the card's plain version == "
+        f"the CPU's, no host sync; tokens {card_tok.tolist()}; the sweep took {sweep_s:.1f} s")
+    log(f"[sampling] S1 at {slots} x {cfg.vocab_size}: {ms:.4f} ms as a call, {alone:.4f} ms alone in a CUDA graph, "
+        f"host {host_us:.1f} us a call; plain {plain_ms:.4f} ms (gumbel_noise alone {noise_ms:.4f} ms); library "
+        f"none; bound {bound_ms:.5f} ms ({bound_by}: {drawn} elements drawn, {ops / 1e6:.1f} M operations at "
+        f"{PEAK_FP32 / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.3f} MB) ({card})")
     log(f"[sampling] ModelConfig() decode step, {slots} slots at {length} positions: greedy (argmax) {greedy_ms:.4f} ms, "
-        f"sampled {sampled_ms:.4f} ms ({sampled_ms / greedy_ms:.3f}x); sample_tokens alone {sample_ms:.4f} ms, "
-        f"gumbel_noise alone {noise_ms:.4f} ms ({card})")
+        f"sampled (S1) {sampled_ms:.4f} ms ({sampled_ms / greedy_ms:.3f}x) ({card})")
+    return {"name": "sample_kernel (S1)", "route": "cuda", "source": "flash_attention_tpu_torch/csrc/sampling.cu",
+            "replaces": f"{REFERENCE}/serving/sampling.py:55", "launches": 0, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | None = None,
@@ -2242,7 +2462,8 @@ def phase_full_quant(card: str, params, dense: dict, paged: dict) -> dict:
 
     params_w8 = quantize_model_weights(params)
     cfg_a = ModelConfig(kv_quant="int8", weight_quant="int8")
-    launches_a, numbers_a = serve_full_dense(card, "full quant a", cfg_a, params_w8, used=("K1", "K6q", "W1", "W2", *GLUE),
+    launches_a, numbers_a = serve_full_dense(card, "full quant a", cfg_a, params_w8,
+                                             used=("K1", "K6q", "W1", "W2", *SERVED),
                                              ref=dense, w1_per_step=4 * cfg_a.num_layers + 1)
     del params_w8
     # Phase 5's bf16 weights stay allocated through 11a; less them, 11a's peak is its own (W1 / W2 read the int8
@@ -2254,7 +2475,7 @@ def phase_full_quant(card: str, params, dense: dict, paged: dict) -> dict:
         raise RuntimeError(f"[full quant a] peak device memory {own:.2f} GiB of its own, not below phase 5's "
                            f"{dense['peak_gib']:.2f}")
     launches_b, _ = serve_full_paged(card, "full quant b", ModelConfig(kv_quant="fp8_e4m3"), params,
-                                     used=("K7q", "K8q", "K9q/K10q", *GLUE), dense=dense, ref=paged)
+                                     used=("K7q", "K8q", "K9q/K10q", *SERVED), dense=dense, ref=paged)
     return {"K6q": launches_a["K6q"], "K7q": launches_b["K7q"], "K8q": launches_b["K8q"], "K10q": launches_b["K9q/K10q"],
             "W1": launches_a["W1"], "W2": launches_a["W2"]}
 
@@ -3365,13 +3586,13 @@ def phase_masked_sweep() -> None:
 
 
 TINY_MASKED = {  # phase 16: (label, engine, ModelConfig fields, the kernels the card run launches)
-    "dense window 96": ("dense", dict(sliding_window=96), ("K1", "K6", *GLUE)),
-    "dense window 48": ("dense", dict(sliding_window=48), ("K2", "K6", *GLUE)),
-    "rolling": ("dense", dict(sliding_window=96, rolling=True), ("K1", "K6", *GLUE)),
-    "rolling + sinks 32": ("dense", dict(sliding_window=96, rolling=True, attention_sinks=32), ("K1", "K6", *GLUE)),
-    "softcap 30": ("dense", dict(logit_softcap=30.0), ("K1", "K6", *GLUE)),
-    "paged ring": ("paged", dict(sliding_window=96), ("K7", "K8", "K9/K10", *GLUE)),
-    "paged + sinks 32": ("paged", dict(sliding_window=96, attention_sinks=32), ("K7", "K8", "K9/K10", *GLUE)),
+    "dense window 96": ("dense", dict(sliding_window=96), ("K1", "K6", *SERVED)),
+    "dense window 48": ("dense", dict(sliding_window=48), ("K2", "K6", *SERVED)),
+    "rolling": ("dense", dict(sliding_window=96, rolling=True), ("K1", "K6", *SERVED)),
+    "rolling + sinks 32": ("dense", dict(sliding_window=96, rolling=True, attention_sinks=32), ("K1", "K6", *SERVED)),
+    "softcap 30": ("dense", dict(logit_softcap=30.0), ("K1", "K6", *SERVED)),
+    "paged ring": ("paged", dict(sliding_window=96), ("K7", "K8", "K9/K10", *SERVED)),
+    "paged + sinks 32": ("paged", dict(sliding_window=96, attention_sinks=32), ("K7", "K8", "K9/K10", *SERVED)),
 }
 # Phase 16's pairs that must give the same tokens (the JAX package's
 # tests/test_rolling.py:334-444): the ring changes memory, not numbers.
@@ -3653,7 +3874,7 @@ def phase_full_masked(card: str) -> dict:
         raise RuntimeError(f"rolling cache of {eng.caches[0].k.shape[2]} rows, want {RING_ROWS}")
     log(f"[full masked a] ServingEngine(max_slots=8, max_seq=16384, prefill_chunk=256), rolling: {RING_ROWS} rows a "
         f"slot, KV cache {cache_gb(eng):.4f} GB ({card})")
-    runs["a"] = _serve_masked(card, "full masked a", eng, prompts, used=("K1", "K6", *GLUE), programs=True)
+    runs["a"] = _serve_masked(card, "full masked a", eng, prompts, used=("K1", "K6", *SERVED), programs=True)
     step_logits, _ = decode_step_logits(params, rolling, torch.zeros((8, 1), dtype=torch.int32, device="cuda"), eng.caches)
     if not bool(torch.isfinite(step_logits).all()):
         raise RuntimeError("[full masked a] non-finite decode logits over the ring")
@@ -3664,7 +3885,7 @@ def phase_full_masked(card: str) -> dict:
     eng = ServingEngine(params, cfg, max_slots=8, max_seq=9216, prefill_chunk=256)
     log(f"[full masked b] ServingEngine(max_slots=8, max_seq=9216, prefill_chunk=256), no ring: KV cache "
         f"{cache_gb(eng):.4f} GB ({card})")
-    runs["b"] = _serve_masked(card, "full masked b", eng, prompts, used=("K1", "K6", *GLUE))
+    runs["b"] = _serve_masked(card, "full masked b", eng, prompts, used=("K1", "K6", *SERVED))
     del eng
     torch.cuda.empty_cache()
     worst = max(_rel_diff(runs["a"]["last"][i], runs["b"]["last"][i]) for i in range(len(prompts)))
@@ -3691,7 +3912,7 @@ def phase_full_masked(card: str) -> dict:
     eng._admit_one = admit_one
     pc = eng.caches
     pool_gb = _nbytes((pc.k_pool, pc.v_pool)) / 1e9
-    runs["c"] = _serve_masked(card, "full masked c", eng, prompts, used=("K7", "K8", "K9/K10", *GLUE), programs=True)
+    runs["c"] = _serve_masked(card, "full masked c", eng, prompts, used=("K7", "K8", "K9/K10", *SERVED), programs=True)
     if max(owned) > 37 or eng.alloc.free_count != 296:
         raise RuntimeError(f"[full masked c] pages owned {owned} (at most 37), {eng.alloc.free_count} free after the run")
     log(f"[full masked c] PagedServingEngine(max_slots=8, num_pages=297, pages_per_slot=72, page_size=128, "
@@ -3705,7 +3926,7 @@ def phase_full_masked(card: str) -> dict:
     rng5 = np.random.default_rng(0)  # phase 5's prompts
     prompts5 = [tuple(int(t) for t in rng5.integers(0, cfg.vocab_size, n)) for n in FULL_PROMPT_LENS]
     eng = ServingEngine(params, capped, max_slots=8, max_seq=2048, prefill_chunk=256)
-    runs["d"] = _serve_masked(card, "full masked d", eng, prompts5, used=("K1", "K6", *GLUE))
+    runs["d"] = _serve_masked(card, "full masked d", eng, prompts5, used=("K1", "K6", *SERVED))
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4892,7 +5113,7 @@ def _tp_nccl_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
     out = {"backend": dist.get_backend(sharding.mesh.get_group("model")), "launches": {}, "s": {}}
     tmp = tempfile.TemporaryDirectory(prefix="fat_tp_ckpt.")
     eng = ServingEngine(params, cfg, **DENSE_ENGINE, shard_caches=sharding)
-    got, out["launches"]["dense"], out["s"]["dense"] = _served(eng, reqs, ("K1", "K6", *GLUE), "[sharded] (a) dense")
+    got, out["launches"]["dense"], out["s"]["dense"] = _served(eng, reqs, ("K1", "K6", *SERVED), "[sharded] (a) dense")
     out["dense equal"] = got == dense_tokens
     out["modes"] = [eng.programs.mode]
     ckpt_reqs = [dataclasses.replace(r, max_new_tokens=8) for r in reqs[:4]]  # small engines: the files' I/O
@@ -4902,7 +5123,7 @@ def _tp_nccl_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
     out["dense logits bit-identical"] = torch.equal(_engine_logits(eng, "dense"), _serve_logits(params, cfg, "dense"))
     del eng
     eng = PagedServingEngine(params, cfg, **PAGED_ENGINE, shard_caches=sharding)
-    got, out["launches"]["paged"], out["s"]["paged"] = _served(eng, reqs, ("K7", "K8", "K9/K10", *GLUE),
+    got, out["launches"]["paged"], out["s"]["paged"] = _served(eng, reqs, ("K7", "K8", "K9/K10", *SERVED),
                                                                "[sharded] (a) paged")
     out["paged equal"] = got == paged_tokens
     out["modes"].append(eng.programs.mode)
@@ -4988,7 +5209,7 @@ def _tp_gloo_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
         dist.barrier()
     out["s"]["build"] = time.perf_counter() - t0
     reqs = _full_requests(cfg)
-    for name, used in (("dense", ("K1", "K6", *GLUE)), ("paged", ("K7", "K8", "K9/K10", *GLUE))):
+    for name, used in (("dense", ("K1", "K6", *SERVED)), ("paged", ("K7", "K8", "K9/K10", *SERVED))):
         out[name], out["launches"][name], out["s"][name] = _served(engines[name], reqs, used,
                                                                    f"[sharded] (b) rank {rank} {name}")
     for run, (engine, path) in TP_LOGITS.items():
@@ -5043,16 +5264,16 @@ def _tp_tiny_rank(want_dense: dict, want_paged: dict, want_w8: dict) -> dict:
     reqs = [Request(id=i, prompt=p, max_new_tokens=n) for i, (p, n) in enumerate(JAX_TEST_REQS)]
     out = {"rank": dist.get_rank(), "launches": {}, "s": {}}
     eng = ServingEngine(params, cfg, max_slots=4, max_seq=64, shard_caches=sharding)
-    got, out["launches"]["dense"], out["s"]["dense"] = _served(eng, reqs, ("K1", "K6", *GLUE), "[sharded] (c) dense")
+    got, out["launches"]["dense"], out["s"]["dense"] = _served(eng, reqs, ("K1", "K6", *SERVED), "[sharded] (c) dense")
     out["dense equal"], out["dense kv"] = got == want_dense, tuple(eng.caches[0].k.shape)
     eng = PagedServingEngine(params, cfg, max_slots=4, num_pages=16, pages_per_slot=2, page_size=128,
                              shard_caches=sharding)
-    got, out["launches"]["paged"], out["s"]["paged"] = _served(eng, reqs, ("K7", "K8", "K9/K10", *GLUE),
+    got, out["launches"]["paged"], out["s"]["paged"] = _served(eng, reqs, ("K7", "K8", "K9/K10", *SERVED),
                                                                "[sharded] (c) paged")
     out["paged equal"], out["paged kv"] = got == want_paged, tuple(eng.caches.k_pool.shape)
     eng = ServingEngine(quantize_model_weights(params), dataclasses.replace(cfg, weight_quant="int8"), max_slots=4,
                         max_seq=64, shard_caches=sharding)
-    got, out["launches"]["dense w8"], out["s"]["dense w8"] = _served(eng, reqs, ("K1", "K6", "W1", *GLUE),
+    got, out["launches"]["dense w8"], out["s"]["dense w8"] = _served(eng, reqs, ("K1", "K6", "W1", *SERVED),
                                                                      "[sharded] (c) dense, int8 weights")
     out["w8 equal"] = got == want_w8
     return out
@@ -5416,10 +5637,10 @@ def _first_runs(card: str, dense_tokens: dict) -> None:
         raise RuntimeError(f"[first run] the warm engine's programs: mode {warm['mode']}, {warm['captures_before']} "
                            f"built by warmup() (want {keys}), {warm['captures']} captured by the run (want 0), "
                            f"{warm['replays']} replays for {warm['blocks']} blocks")
-    check_launches("[first run] warmup", warm["warmup_launches"], ("K1", "K6", *GLUE))
+    check_launches("[first run] warmup", warm["warmup_launches"], ("K1", "K6", *SERVED))
     for key, run in runs.items():
         label = "warm" if key else "cold"
-        check_launches(f"[first run] {label} run", run["launches"], ("K1", "K6", *GLUE))
+        check_launches(f"[first run] {label} run", run["launches"], ("K1", "K6", *SERVED))
         if run["tokens"] != dense_tokens:
             parted = sorted(rid for rid in dense_tokens if run["tokens"].get(rid) != dense_tokens[rid])
             raise RuntimeError(f"[first run] the {label} run's tokens differ from phase 5's for requests {parted}")
@@ -5465,7 +5686,7 @@ def _paged_warmup(card: str, params, cfg, paged_tokens: dict) -> None:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = read_counts()
-    check_launches("[paged warmup] warmup", launches, ("K7", "K8", "K9/K10", *GLUE))
+    check_launches("[paged warmup] warmup", launches, ("K7", "K8", "K9/K10", *SERVED))
     counters = (eng.steps, eng.decode_tokens, eng.decode_time_s, len(eng.events))
     keys = {(1 << i, greedy) for i in range(eng.decode_block_steps.bit_length()) for greedy in (True, False)}
     if eng.programs.built() != keys:
@@ -5517,6 +5738,9 @@ def _log_profile(card: str, what: str, prof: dict, untraced_s: float) -> None:
 # (dense), and at most this many ``direct_copy`` kernels (paged), once the glue is the fused kernels.
 STEP_OPS_BAR = 800
 STEP_COPY_BAR = 32
+# A replayed sampled step runs at most this many device operations more than a greedy one: S1 and the position's
+# add where the greedy step runs argmax and its cast.
+SAMPLER_OPS_BAR = 8
 
 
 def _glue_left(card: str, what: str, sampled: dict, greedy: dict) -> None:
@@ -5524,8 +5748,9 @@ def _glue_left(card: str, what: str, sampled: dict, greedy: dict) -> None:
     one-block traces of the k = DENSE_ENGINE_BLOCK sampled and greedy
     programs: device operations and ``direct_copy`` kernels a step, and every
     operation type of the greedy step by name. The greedy step must stay
-    within STEP_OPS_BAR operations (dense) and STEP_COPY_BAR copies (paged);
-    the sampled one adds the sampler's (printed)."""
+    within STEP_OPS_BAR operations (dense) and STEP_COPY_BAR copies (paged),
+    and the sampled one within SAMPLER_OPS_BAR operations of the greedy one
+    (both engines)."""
     def per_step(prof):
         ops = {op["name"]: op["count"] / DENSE_ENGINE_BLOCK for op in prof["device_ops"]}
         return ops, sum(ops.values()), sum(n for name, n in ops.items() if "direct_copy" in name)
@@ -5539,6 +5764,9 @@ def _glue_left(card: str, what: str, sampled: dict, greedy: dict) -> None:
     if (what == "dense" and total > STEP_OPS_BAR) or (what == "paged" and copies > STEP_COPY_BAR):
         raise RuntimeError(f"[profile] {what} replayed greedy step: {total:g} device operations (bar {STEP_OPS_BAR} "
                            f"dense), {copies:g} direct_copy (bar {STEP_COPY_BAR} paged)")
+    if s_total - total > SAMPLER_OPS_BAR:
+        raise RuntimeError(f"[profile] {what} replayed sampled step: {s_total - total:g} device operations more than a "
+                           f"greedy one (bar {SAMPLER_OPS_BAR})")
 
 
 def _profiles(card: str, params, cfg) -> None:
@@ -6421,17 +6649,19 @@ def main() -> None:
     launches, params, dense = phase_full(card)
     k1["launches"], k6["launches"] = launches["K1"], launches["K6"]
     glue_launches = {key: launches[key] for key in GLUE}
-    phase_sampling(card, params)
+    s1 = phase_sampling(card, params)
+    s1["launches"] = launches["S1"]
     lap("5")
     k7, k8, k10 = phase_paged_kernels(card)
     phase_paged_sweep()
     lap("6")
     phase_tiny_paged(dense_tiny)
     lap("7")
-    launches, paged = serve_full_paged(card, "full paged", ModelConfig(), params, used=("K7", "K8", "K9/K10", *GLUE),
+    launches, paged = serve_full_paged(card, "full paged", ModelConfig(), params, used=("K7", "K8", "K9/K10", *SERVED),
                                        dense=dense)
     k7["launches"], k8["launches"], k10["launches"] = launches["K7"], launches["K8"], launches["K9/K10"]
     glue_launches["F4"] = launches["K7"]  # every one with the self term (check_self_term)
+    s1["launches"] += launches["S1"]
     lap("8")
     quant = phase_quant_kernels(card)
     phase_quant_sweep()
@@ -6507,7 +6737,7 @@ def main() -> None:
     lap("26")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k1t, k6, k7, k8, k10, *quant.values(), *bwd.values(), *masked, *probes,
-                                  *parallel, *sharded, *fused.values(), *w8.values()]}))
+                                  *parallel, *sharded, *fused.values(), *w8.values(), s1]}))
     print(card)
     print(json.dumps({
         "ok": True,

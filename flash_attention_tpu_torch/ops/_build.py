@@ -143,6 +143,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fat_w8_matmul.argtypes = [ptr] * 4 + [shape, i32, ptr]
     lib.fat_w8_group.restype = c.c_int
     lib.fat_w8_group.argtypes = [ptr, shape, shape, i32, ptr]
+    # S1 (csrc/sampling.cu): logits and their row stride; temperature, top_k,
+    # top_p, seeds, positions; tokens; the detail mode's noise, greedy picks,
+    # kth and thresh (or null); batch, vocab, stream.
+    lib.fat_sample.restype = c.c_int
+    lib.fat_sample.argtypes = [ptr, i64] + [ptr] * 10 + [i64, i64, ptr]
     lib.fat_paged_write.restype = c.c_int
     lib.fat_paged_write.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # k/v new, k/v pool, lengths, table

@@ -15,6 +15,11 @@ package's bit for bit: ``gumbel_noise`` draws what ``jax.random.gumbel(
 jax.random.fold_in(jax.random.key(seed), position), (vocab,))`` draws
 (threefry2x32, partitionable random bits), on the logits' device, with no
 host sync, so sampled tokens are the JAX package's too.
+
+``sample_tokens`` is S1's wrapper (csrc/sampling.cu, registered in
+``ops/counters.py``): one launch a call on the card, the plain version
+(``sample_tokens_plain``, with ``gumbel_noise`` and ``_log`` the plain
+noise) on the CPU.
 """
 
 from __future__ import annotations
@@ -23,6 +28,9 @@ import dataclasses
 import struct
 
 import torch
+
+from flash_attention_tpu_torch.ops import _build
+from flash_attention_tpu_torch.ops.counters import counter
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +167,93 @@ def gumbel_noise(seeds: torch.Tensor, positions: torch.Tensor, vocab: int) -> to
     return -_log(-_log(u))
 
 
+def _plain_parts(logits, temperature, top_k, top_p, seeds, positions) -> dict:
+    """The plain version's tokens and what S1's detail mode writes: the noise,
+    each row's greedy pick, kth (the k-th largest logit) and thresh (the
+    smallest kept sorted logit of the top-p rule)."""
+    batch, vocab = logits.shape
+    logits = logits.float()
+    greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+
+    # top-k: keep logits >= the k-th largest. k=0 keeps all.
+    k = top_k.to(torch.int64).clamp(0, vocab)
+    k_idx = torch.where(k > 0, k - 1, vocab - 1)
+    kth = torch.gather(sorted_logits, 1, k_idx[:, None])
+    keep_k = logits >= kth
+
+    # top-p over the softmax of the temperature-scaled distribution.
+    temp_safe = torch.where(temperature > 0, temperature, 1.0)[:, None]
+    z = sorted_logits / temp_safe
+    probs = torch.softmax(z - z[:, :1], dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    # Keep entries whose PRECEDING mass is < top_p (always keeps the first).
+    sorted_keep = torch.cat(
+        [torch.ones((batch, 1), dtype=torch.bool, device=logits.device), cum[:, :-1] < top_p[:, None]],
+        dim=-1,
+    )
+    thresh = torch.where(sorted_keep, sorted_logits, torch.inf).amin(dim=-1, keepdim=True)
+    keep_p = logits >= thresh
+
+    masked = torch.where(keep_k & keep_p, logits, -torch.inf)
+    g = gumbel_noise(seeds.to(logits.device), positions, vocab)
+    sampled_tok = torch.argmax(masked / temp_safe + g, dim=-1).to(torch.int32)
+    return dict(tokens=torch.where(temperature > 0, sampled_tok, greedy_tok), noise=g, greedy=greedy_tok,
+                kth=kth[:, 0], thresh=thresh[:, 0])
+
+
+def sample_tokens_plain(
+    logits: torch.Tensor,
+    temperature: torch.Tensor,
+    top_k: torch.Tensor,
+    top_p: torch.Tensor,
+    seeds: torch.Tensor,
+    positions: torch.Tensor,
+) -> torch.Tensor:
+    """The function S1 computes, in plain PyTorch: ``sample_tokens``' tokens."""
+    return _plain_parts(logits, temperature, top_k, top_p, seeds, positions)["tokens"]
+
+
+def _on_card(logits: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version runs), True for a CUDA one."""
+    if logits.device.type == "cpu":
+        return False
+    if logits.device.type != "cuda":
+        raise ValueError(f"sample_tokens runs on cpu or cuda tensors, got {logits.device}")
+    return True
+
+
+def _launch(logits, temperature, top_k, top_p, seeds, positions, detail: bool) -> dict:
+    """One launch of S1 (csrc/sampling.cu) on the logits' card: the tokens,
+    and with ``detail`` what ``_plain_parts`` returns beside them."""
+    if logits.ndim != 2 or logits.shape[1] == 0:
+        raise ValueError(f"sample_tokens: logits [batch, vocab] with vocab >= 1, got {tuple(logits.shape)}")
+    batch, vocab = logits.shape
+    device = logits.device
+    logits = _build.unit_last_stride(logits.float())
+    rows = [temperature.to(device=device, dtype=torch.float32).contiguous(), _build.as_int32(top_k.to(device)),
+            top_p.to(device=device, dtype=torch.float32).contiguous(), _build.as_int32(seeds.to(device)),
+            _build.as_int32(positions.to(device))]
+    if any(t.shape != (batch,) for t in rows):
+        raise ValueError(f"sample_tokens: temperature, top_k, top_p, seeds and positions [{batch}], got "
+                         f"{[tuple(t.shape) for t in rows]}")
+    out = dict(tokens=torch.empty((batch,), dtype=torch.int32, device=device))
+    if detail:
+        out.update(noise=torch.empty((batch, vocab), dtype=torch.float32, device=device),
+                   greedy=torch.empty((batch,), dtype=torch.int32, device=device),
+                   kth=torch.empty((batch,), dtype=torch.float32, device=device),
+                   thresh=torch.empty((batch,), dtype=torch.float32, device=device))
+    if batch:
+        extra = [out[key].data_ptr() if detail else None for key in ("noise", "greedy", "kth", "thresh")]
+        with _build.on_device(device):
+            err = _build.kernels().fat_sample(
+                logits.data_ptr(), logits.stride(0), *(t.data_ptr() for t in rows), out["tokens"].data_ptr(),
+                *extra, batch, vocab, _build.current_stream(device))
+        _build.check(err, "sample_tokens (S1)")
+        sample_tokens.launches += 1
+    return out
+
+
 def sample_tokens(
     logits: torch.Tensor,
     temperature: torch.Tensor,
@@ -179,31 +274,26 @@ def sample_tokens(
 
     Returns:
       [batch] int32 token ids, on logits' device.
+
+    On CPU tensors the plain version (``sample_tokens_plain``); on CUDA
+    tensors one launch of S1 (csrc/sampling.cu), counted in ``.launches``,
+    with outputs from ``torch.empty`` and no host sync, so it runs inside the
+    decode programs' CUDA graphs; any other device raises.
     """
-    batch, vocab = logits.shape
-    logits = logits.float()
-    greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    if not _on_card(logits):
+        return sample_tokens_plain(logits, temperature, top_k, top_p, seeds, positions)
+    return _launch(logits, temperature, top_k, top_p, seeds, positions, detail=False)["tokens"]
 
-    # top-k: keep logits >= the k-th largest. k=0 keeps all.
-    k = top_k.to(torch.int64).clamp(0, vocab)
-    k_idx = torch.where(k > 0, k - 1, vocab - 1)
-    keep_k = logits >= torch.gather(sorted_logits, 1, k_idx[:, None])
 
-    # top-p over the softmax of the temperature-scaled distribution.
-    temp_safe = torch.where(temperature > 0, temperature, 1.0)[:, None]
-    z = sorted_logits / temp_safe
-    probs = torch.softmax(z - z[:, :1], dim=-1)
-    cum = torch.cumsum(probs, dim=-1)
-    # Keep entries whose PRECEDING mass is < top_p (always keeps the first).
-    sorted_keep = torch.cat(
-        [torch.ones((batch, 1), dtype=torch.bool, device=logits.device), cum[:, :-1] < top_p[:, None]],
-        dim=-1,
-    )
-    thresh = torch.where(sorted_keep, sorted_logits, torch.inf).amin(dim=-1, keepdim=True)
-    keep_p = logits >= thresh
+counter(sample_tokens, "launches", "S1", "sample_kernel")
 
-    masked = torch.where(keep_k & keep_p, logits, -torch.inf)
-    g = gumbel_noise(seeds.to(logits.device), positions, vocab)
-    sampled_tok = torch.argmax(masked / temp_safe + g, dim=-1).to(torch.int32)
-    return torch.where(temperature > 0, sampled_tok, greedy_tok)
+
+def sample_tokens_detail(logits, temperature, top_k, top_p, seeds, positions) -> dict:
+    """``sample_tokens`` with what it decided on the way: a dict of the
+    tokens, the Gumbel noise [batch, vocab], each row's greedy pick, kth and
+    thresh. On CUDA tensors S1's detail mode (every row computed in full and
+    the noise of every element written), on CPU tensors the plain version's;
+    for holding the kernel against the plain version."""
+    if not _on_card(logits):
+        return _plain_parts(logits, temperature, top_k, top_p, seeds, positions)
+    return _launch(logits, temperature, top_k, top_p, seeds, positions, detail=True)

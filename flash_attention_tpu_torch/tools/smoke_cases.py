@@ -209,8 +209,10 @@ def _serve_paths(card: str, quant: bool) -> dict:
 
 
 def _glue(cs) -> tuple:
-    """The glue kernels a tree's serving paths launch (none before csrc/fused.cu)."""
-    return getattr(cs, "GLUE", ())
+    """The kernels a tree's engine runs launch beside attention: the glue and
+    S1 (``SERVED``), the glue alone before csrc/sampling.cu, none before
+    csrc/fused.cu."""
+    return getattr(cs, "SERVED", getattr(cs, "GLUE", ()))
 
 
 def _w8(cs) -> tuple:
@@ -541,7 +543,8 @@ def _kernel_label(line: str) -> str:
 
     m = re.search(r"(dq_kernel|dkv_kernel|split_sum_kernel|fwd_kernel|tiled_kernel|single_kernel)I(\w+?)EEv", line)
     if m is None:
-        m = re.search(r"'_Z\w*?(decode_kernel|paged_write_kernel|paged_write_quant_kernel)(I\w+?E)?", line)
+        m = re.search(r"'_Z\w*?(decode_kernel|paged_write_kernel|paged_write_quant_kernel|sample_kernel)(I\w+?E)?",
+                      line)
         return " ".join(filter(None, m.groups())) if m else line.strip()
     name, args = m.group(1), m.group(2).replace("13__nv_bfloat16", "bf16 ").replace("6__half", "fp16 ")
     flags = {"dq_kernel": ("masked",), "dkv_kernel": ("masked", "fused"), "fwd_kernel": ("masked", "wgs"),
@@ -574,6 +577,11 @@ def ptxas_decode(card: str) -> None:
 def ptxas_w8(card: str) -> None:
     """``ptxas_sm90`` for the W8A16 products (csrc/w8.cu: W1, W2)."""
     _ptxas(card, ("w8.cu",), "ptxas w8")
+
+
+def ptxas_sampling(card: str) -> None:
+    """``ptxas_sm90`` for the sampler (csrc/sampling.cu: S1)."""
+    _ptxas(card, ("sampling.cu",), "ptxas sampling")
 
 
 def _ptxas(card: str, names, tag: str) -> None:
@@ -625,13 +633,55 @@ def full_train(card: str) -> dict:
     return cs.phase_full_train(card, _model(ModelConfig()))
 
 
-def sampling(card: str) -> None:
+def sampling(card: str):
     """Phase 5's sampling check and decode-step times on fresh ModelConfig()
-    weights from seed 0."""
+    weights from seed 0 (S1's times since csrc/sampling.cu)."""
     import chip_smoke as cs
     from flash_attention_tpu_torch.models.transformer import ModelConfig
 
-    cs.phase_sampling(card, _model(ModelConfig()))
+    return cs.phase_sampling(card, _model(ModelConfig()))
+
+
+def s1_split(card: str) -> dict:
+    """S1 at phase 5's 8 x 32,000 by what its rows ask for, each timed as
+    chip_smoke.py's ``_three_times`` does (a call, alone in a CUDA graph of
+    10 calls, host us): every row greedy (the max alone), top_k 40 (the
+    selects, few elements drawn), top_k 0 and top_p 1 (the selects, every
+    element drawn), phase 5's rows, and those in the detail mode; then
+    phase 5's rows at 1 and 32 rows and at vocab 128,256 and 256,000. ``ms``
+    is phase 5's rows alone."""
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.serving.sampling import sample_tokens, sample_tokens_detail
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    base = {key: t.cuda() for key, t in cs._sampling_inputs(1025).items()}
+
+    def rows(batch, **fixed):
+        out = {key: t.repeat((batch + 7) // 8)[:batch] for key, t in base.items()}
+        out.update({key: torch.full((batch,), v, dtype=out[key].dtype, device="cuda") for key, v in fixed.items()})
+        return out
+
+    cases = {
+        "greedy": (8, 32000, rows(8, temperature=0.0), sample_tokens),
+        "top_k 40": (8, 32000, rows(8, top_k=40, top_p=1.0, temperature=1.0), sample_tokens),
+        "every element drawn": (8, 32000, rows(8, top_k=0, top_p=1.0, temperature=1.0), sample_tokens),
+        "phase 5": (8, 32000, rows(8), sample_tokens),
+        "phase 5 detail": (8, 32000, rows(8), sample_tokens_detail),
+        "phase 5 at 1 row": (1, 32000, rows(1), sample_tokens),
+        "phase 5 at 32 rows": (32, 32000, rows(32), sample_tokens),
+        "phase 5 at vocab 128256": (8, 128256, rows(8), sample_tokens),
+        "phase 5 at vocab 256000": (8, 256000, rows(8), sample_tokens),
+    }
+    out = {}
+    for key, (batch, vocab, r, fn) in cases.items():
+        logits = torch.randn((batch, vocab), generator=gen, device="cuda") * 3
+        ms, alone, host_us = cs._three_times(lambda: fn(logits, **r))
+        print(f"[s1 split] {key} [{batch}, {vocab}]: call {ms:.4f} ms, alone {alone:.4f} ms, host {host_us:.1f} us "
+              f"({card})", flush=True)
+        out[f"{key} alone"] = alone
+    return {"ms": out["phase 5 alone"], **out}
 
 
 def mistral_steps(card: str) -> dict:

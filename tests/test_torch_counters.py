@@ -17,7 +17,7 @@ import flash_attention_tpu_torch as port
 from flash_attention_tpu_torch.ops import counters
 
 KERNELS = {"K1", "K2", "K1d", "K3", "K4", "K5", "K3m", "K4m", "K5m", "K5s", "K6", "K6q", "K7", "K7q", "K8", "K8q",
-           "K9/K10", "K9q/K10q", "PT", "PS", "F1", "F2", "F3", "W1", "W2"}
+           "K9/K10", "K9q/K10q", "PT", "PS", "F1", "F2", "F3", "W1", "W2", "S1"}
 
 
 def _modules():
@@ -67,6 +67,7 @@ def test_the_registry_names_each_kernel_once():
     ("void (anonymous namespace)::w8_gemv_kernel<__nv_bfloat16, true, 1, true>(GemvParams)", ("W1",)),
     ("(anonymous namespace)::w8_gemv_fma_kernel(GemvParams)", ("W1",)),
     ("void (anonymous namespace)::w8_gemm_kernel<__half, false>(GemmParams)", ("W2",)),
+    ("(anonymous namespace)::sample_kernel(SampleParams)", ("S1",)),
     ("nvjet_tst_128x8_64x12_4x1_v_bz_NNT", None),
     ("void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_impl<...>>(int, ...)", None),
 ])
