@@ -12,7 +12,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
   2. build    — builds the CUDA kernels and the native scheduler from the
                 repository's sources, and prints the build seconds.
   3. kernels  — K1 (flash_fwd_sm90.cu: wgmma on TMA-fed tiles in bf16 /
-                fp16) at the serving path's shapes and at phase 14's
+                fp16) at the serving path's shapes (the chunk's K / V the
+                whole dense cache of distinct random slots, the slot read
+                by ``kv_batch``, at slots 3 and 7; fp32's body too) and at phase 14's
                 training shape, and K6 (decode.cu: the kv split over
                 blocks, merged in the launch), in bf16, against their plain
                 PyTorch versions and the fp32 oracle (K6 also row by row and
@@ -24,13 +26,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
   4. tiny     — a tiny fp32 model served on the card (through the kernels)
                 and on the CPU (through the plain versions): the greedy
                 tokens must be identical. On the card after ``warmup()``
-                (``replayed_tokens``): every decode block of the run is a
-                replay of a CUDA graph built there, none captured in the run.
+                (``replayed_tokens``): every prefill chunk and every decode
+                block of the run is a replay of a CUDA graph built there,
+                none captured in the run.
   5. full     — ModelConfig() at full width, bf16, random weights from a
                 seed; ServingEngine serves 10 greedy requests on 8 slots;
                 every completion must have 32 tokens, the logits must be
                 finite, and both kernels must have been launched by the run.
-                Then ``hold_programs``: the engine's k=16 block, greedy and
+                Before it, phase 5's prompts with one new token each on the
+                fresh engine (cold prefill: each (T, kv_end) prefill
+                program's first chunk eager, then captured) and again after
+                ``warmup()`` (warm: every chunk a replay, none captured, the
+                same first tokens), both timed. After it,
+                ``hold_prefill_programs``: every built prefill program
+                replayed at two slots against its eager body from identical
+                copies of the caches, the logits and every cache tensor
+                bit-identical, one replay traced (its kernel records equal
+                to the launches it counted). Then ``hold_programs``: the
+                engine's k=16 block, greedy and
                 sampled, replayed (one CUDA graph) against its eager body
                 from identical copies of the caches, the tokens and every
                 cache tensor bit-identical; the greedy replay traced, its
@@ -73,7 +86,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 phase 5's requests, then requests sharing a 1024-token
                 prefix through the prefix cache; K7, K8 and K10 launched,
                 K1 and K6 not, and every K8 launch on the tensor-core body
-                (its body counter); then ``hold_programs``.
+                (its body counter); cold and warm prefill as in phase 5;
+                then ``hold_programs`` and ``hold_prefill_programs``.
   9. quant    — the quantized kernels with bf16 queries, for int8, fp8
                 e4m3 and fp8 e5m2 caches whose rows are scaled one by one:
                 K6q and K7q at phase 3's and 6's shapes and at 32 slots x
@@ -102,7 +116,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 weights and an int8 cache on phase 5's requests, and
                 PagedServingEngine with an fp8_e4m3 cache on phase 8's runs;
                 K6q, K7q, K8q and K10q launched, K6, K7, K8 and K10 not;
-                K8q on the tensor-core body; ``hold_programs`` on both.
+                K8q on the tensor-core body; cold and warm prefill,
+                ``hold_programs`` and ``hold_prefill_programs`` on both.
  12. backward — K3, K4, K5 and K5's split sum K5s (flash_bwd_sm90.cu:
                 wgmma on TMA-fed tiles in bf16 / fp16; flash_bwd.cu's FMA
                 bodies in fp32) in bf16 through
@@ -166,7 +181,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 (a)), (c) PagedServingEngine with 4 sinks (at most 37 pages a
                 slot, the pool full again after; K7, K8, K10 only) and (d)
                 softcap 50 on phase 5's requests; every forward launch on
-                the tensor-core body; ``hold_programs`` on (a) and (c).
+                the tensor-core body; ``hold_programs`` and
+                ``hold_prefill_programs`` on (a) (over the keys its run's
+                chunks used, the ring's device-slot writes and gathers among
+                them; its prefill tok/s includes any capture the run made) and
+                (c); (c) also cold and warm prefill-only runs around the
+                whole ``warmup()``.
  18. masked backward — K1d (the forward's segment ids) and the masked
                 K3, K4 and K5 (K3m, K4m and K5m in flash_bwd_sm90.cu, K1d in
                 flash_fwd_sm90.cu; K4m, K5m and K3m's dk and dv bit-identical
@@ -284,11 +304,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 one after ``warmup()`` (timed; exactly K1 and K6 launched;
                 the counters zero after it): both runs give phase 5's tokens
                 and launch only K1 and K6; each run's wall time, its
-                first prefill chunk alone, and its prefill and decode tok/s
-                are printed; the warm engine's ``warmup()`` builds all ten
-                decode programs (each capture timed, the pool's bytes
-                printed) and its run captures none and replays every
-                block; (b) phase 8's paged
+                first prefill chunk alone with the launches it counted, and
+                its prefill and decode tok/s are printed; the warm engine's
+                ``warmup()`` builds all ten decode programs and all eight
+                prefill programs (each capture timed, the pool's bytes
+                printed) and its run captures none and replays every block
+                and every chunk; (b) phase 8's paged
                 engine serves run A (phase 8's tokens), then ``warmup()``
                 (K7, K8 and K9/K10 only) leaves its free page count, prefix
                 table and prefix cache switch as they were and every
@@ -358,6 +379,7 @@ import time
 REFERENCE = "flash_attention_tpu"
 ORACLE_BAR = 0.1  # the repository's pass bar against the fp32 oracle
 PLAIN_BAR = 1e-2  # kernel vs plain in bf16: the same fp32 math in another order
+FP32_PLAIN_BAR = 1e-4  # kernel vs plain in fp32 (the paged sweeps' fp32 bar)
 # Base-2 LSE, fp32, kernel vs plain and oracle: measured within 2e-6 on the
 # H100; one row dropped from 2048 moves it by log2(2048/2047) = 7e-4.
 LSE_BAR = 1e-4
@@ -491,12 +513,15 @@ def _fwd_grid(q, k) -> str:
 
 
 def phase_k1(card: str) -> dict:
-    """K1 at the chunked-prefill shapes (q [1,32,256,128] against a cache
-    slice of kv_len rows), the one-shot prefill shape (Sq = Skv = 512) and
-    phase 14's training shape (q [1,32,2048,128] kv [1,8,2048,128]), each
-    with its LSE, twice on the same inputs (bit-identical), against its
-    plain version and the fp32 oracle. Returns the kernels' line entries of
-    the chunk at kv 2048 ("K1") and the training shape ("K1t")."""
+    """K1 at the chunked-prefill shapes (q [1,32,256,128] against kv_len
+    rows of one slot of the dense engine's [8, 8, 2048, 128] cache, in the
+    main path's form: K / V the whole cache's first kv_len rows and the slot
+    read from device memory by ``kv_batch``, at slots 3 and 7), the one-shot
+    prefill shape (Sq = Skv = 512) and phase 14's training shape (q
+    [1,32,2048,128] kv [1,8,2048,128]), each with its LSE, twice on the same
+    inputs (bit-identical), against its plain version and the fp32 oracle
+    on the slot's rows. Returns the kernels' line entries of the chunk at kv
+    2048 ("K1") and the training shape ("K1t")."""
     import torch
     import torch.nn.functional as F
 
@@ -507,20 +532,28 @@ def phase_k1(card: str) -> dict:
     dev = torch.device("cuda")
     scale = 1.0 / 128**0.5
     worst_plain, rep = 0.0, {}
-    cases = [(256, kv, True) for kv in (256, 1024, 2048)] + [(512, 512, False), (TRAIN_TOKENS, TRAIN_TOKENS, False)]
-    for q_len, kv_len, from_cache in cases:
+    # Every slot of the cache holds distinct random rows, so a kernel that
+    # read another slot than kv_batch's disagrees with the plain version.
+    _, k_cache, v_cache = make_qkv(3, 8, 1, 1, 128, num_kv_heads=8, kv_seq=2048, dtype=torch.bfloat16, device=dev)
+    cases = [(256, kv, slot) for kv in (256, 1024, 2048) for slot in (3, 7)]
+    cases += [(512, 512, None), (TRAIN_TOKENS, TRAIN_TOKENS, None)]
+    for q_len, kv_len, slot in cases:
         q, k, v = make_qkv(1, 1, 32, q_len, 128, num_kv_heads=8, kv_seq=kv_len, dtype=torch.bfloat16, device=dev)
-        if from_cache:
-            # The main path's operand: a strided view of slot 3 of a
-            # [8, 8, 2048, 128] cache, not a contiguous copy.
-            k_cache = torch.zeros((8, 8, 2048, 128), dtype=torch.bfloat16, device=dev)
-            v_cache = torch.zeros_like(k_cache)
-            k_cache[3, :, :kv_len] = k[0]
-            v_cache[3, :, :kv_len] = v[0]
-            k, v = k_cache[3:4, :, :kv_len], v_cache[3:4, :, :kv_len]
-        out, lse = flash_attention(q, k, v, causal=True, save_residuals=True)
-        _same_twice(f"K1 q_len={q_len} kv_len={kv_len}", lambda: flash_attention(q, k, v, causal=True,
-                                                                                 save_residuals=True))
+        kv_in, kw, form = (k, v), {}, ""
+        if slot is not None:
+            # The main path's operands: strided views of the whole cache's
+            # visible rows, the slot a device int32; k, v are the slot's
+            # rows, which the plain version and the oracle read.
+            k, v = k_cache[slot:slot + 1, :, :kv_len], v_cache[slot:slot + 1, :, :kv_len]
+            kv_in = (k_cache[:, :, :kv_len], v_cache[:, :, :kv_len])
+            kw = dict(kv_batch=torch.tensor([slot], dtype=torch.int32, device=dev))
+            form = f" (slot {slot} of the [8,8,2048,128] cache by kv_batch)"
+
+        def call():
+            return flash_attention(q, *kv_in, causal=True, save_residuals=True, **kw)
+
+        out, lse = call()
+        _same_twice(f"K1 q_len={q_len} kv_len={kv_len}{form}", call)
         p_out, p_lse = flash_attention_plain(q, k, v, causal=True, sm_scale=scale, save_residuals=True)
         o_out, o_lse = reference_attention_with_lse(q, k, v, causal=True)
         torch.cuda.synchronize()
@@ -528,29 +561,50 @@ def phase_k1(card: str) -> dict:
         d_rel = max(_rel_diff(out, p_out), _rel_diff(out, o_out))
         d_lse = max(_max_diff(lse, p_lse), _max_diff(lse, o_lse))
         del p_out, p_lse, o_out, o_lse
-        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, save_residuals=True))
-        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True, sm_scale=scale, save_residuals=True))
-        # The library yardstick: one SDPA call with the end-aligned mask.
-        mask = torch.arange(kv_len, device=dev)[None, :] <= torch.arange(q_len, device=dev)[:, None] + (kv_len - q_len)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True))
-        flops = 4 * 128 * 32 * causal_pairs(q_len, kv_len)
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
-        bound_ms, bound_by = bound(flops, nbytes)
+        timing = ""
+        if slot != 3:  # the first slot of a shape is held, not timed
+            ms = cuda_ms(call)
+            plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True, sm_scale=scale,
+                                                             save_residuals=True))
+            # The library yardstick: one SDPA call with the end-aligned mask.
+            mask = (torch.arange(kv_len, device=dev)[None, :]
+                    <= torch.arange(q_len, device=dev)[:, None] + (kv_len - q_len))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True))
+            flops = 4 * 128 * 32 * causal_pairs(q_len, kv_len)
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
+            bound_ms, bound_by = bound(flops, nbytes)
+            timing = (f"; kernel {ms:.4f} ms ({_rates(flops, ms)}), plain {plain_ms:.4f} ms, SDPA (library) "
+                      f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
+                      f"{nbytes / 1e6:.1f} MB)")
+            del mask
         log(
-            f"[K1] q [1,32,{q_len},128] kv [1,8,{kv_len},128] bf16 causal+lse, {_fwd_grid(q, k)}: "
+            f"[K1] q [1,32,{q_len},128] kv [1,8,{kv_len},128]{form} bf16 causal+lse, {_fwd_grid(q, k)}: "
             f"|out-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), |out-plain| {d_plain:.3e} (bar {PLAIN_BAR}), "
             f"row-relative vs plain and oracle {d_rel:.3e} (bar {REL_BAR['bfloat16']}), "
-            f"|lse| {d_lse:.3e} (bar {LSE_BAR}), bit-identical over two calls; kernel {ms:.4f} ms ({_rates(flops, ms)}), "
-            f"plain {plain_ms:.4f} ms, SDPA (library) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-            f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) ({card})"
+            f"|lse| {d_lse:.3e} (bar {LSE_BAR}), bit-identical over two calls{timing} ({card})"
         )
         if not (d_oracle < ORACLE_BAR and d_plain < PLAIN_BAR and d_rel < REL_BAR["bfloat16"] and d_lse < LSE_BAR):
-            raise RuntimeError(f"K1 disagrees at q_len={q_len} kv_len={kv_len}")
+            raise RuntimeError(f"K1 disagrees at q_len={q_len} kv_len={kv_len}{form}")
         worst_plain = max(worst_plain, d_plain)
-        if (q_len, kv_len) in ((256, 2048), (TRAIN_TOKENS, TRAIN_TOKENS)):
+        if (q_len, kv_len) in ((256, 2048), (TRAIN_TOKENS, TRAIN_TOKENS)) and slot != 3:
             rep[q_len] = {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by}
-        del q, k, v, out, lse, mask
+        del q, k, v, out, lse, kv_in
+    # The fp32 body (csrc/flash_fwd.cu) reads kv_batch as an offset: the
+    # slot's rows at a length off its tiles, against the plain version.
+    _, k_cache, v_cache = make_qkv(4, 8, 1, 1, 128, num_kv_heads=8, kv_seq=512, dtype=torch.float32, device=dev)
+    q = make_qkv(5, 1, 32, 64, 128, num_kv_heads=8, kv_seq=300, dtype=torch.float32, device=dev)[0]
+    for slot in (2, 7):
+        out, lse = flash_attention(q, k_cache[:, :, :300], v_cache[:, :, :300], causal=True, save_residuals=True,
+                                   kv_batch=torch.tensor([slot], dtype=torch.int32, device=dev))
+        p_out, p_lse = flash_attention_plain(q, k_cache[slot:slot + 1, :, :300], v_cache[slot:slot + 1, :, :300],
+                                             causal=True, sm_scale=scale, save_residuals=True)
+        d_plain, d_lse = _max_diff(out, p_out), _max_diff(lse, p_lse)
+        log(f"[K1] fp32 q [1,32,64,128] kv 300 rows of slot {slot} of an [8,8,512,128] cache by kv_batch: "
+            f"|out-plain| {d_plain:.3e} (bar {FP32_PLAIN_BAR}), |lse| {d_lse:.3e} (bar {LSE_BAR})")
+        if not (d_plain < FP32_PLAIN_BAR and d_lse < LSE_BAR):
+            raise RuntimeError(f"K1 (fp32 body) disagrees at slot {slot} by kv_batch")
+    del k_cache, v_cache, q, out, lse, p_out, p_lse
     rep[256]["max_abs_err"] = worst_plain
     entry = {"route": "cuda", "source": "flash_attention_tpu_torch/csrc/flash_fwd_sm90.cu",
              "replaces": f"{REFERENCE}/ops/flash_attention.py:57"}
@@ -824,21 +878,23 @@ def check_self_term(what: str, launches: dict, bodies: dict) -> None:
 
 def replayed_tokens(what: str, eng, reqs) -> dict:
     """``eng.run(reqs)``'s tokens by id, the launch counts set to 0 just
-    before the run. On the card ``warmup()`` first, so that every decode
-    block of the run replays a program built there: the run must capture
-    none and replay one a block."""
+    before the run. On the card ``warmup()`` first, so that every prefill
+    chunk and every decode block of the run replays a program built there:
+    the run must capture none and replay one a chunk and one a block."""
     card = eng.device.type == "cuda"
+    programs = {"prefill": (eng.prefill_programs, "chunk"), "decode": (eng.programs, "decode")}
     if card:
         eng.warmup()
-        captures, replays = eng.programs.captures, eng.programs.replays
+        before = {name: (progs.captures, progs.replays) for name, (progs, _) in programs.items()}
     zero_counts()
     done = eng.run(reqs)
     if card:
-        blocks = sum(1 for event in eng.events if event[0] == "decode")
-        got = (eng.programs.mode, eng.programs.captures - captures, eng.programs.replays - replays)
-        if not blocks or got != ("graph", 0, blocks):
-            raise RuntimeError(f"{what}: decode programs (mode, captures, replays) in the run {got}, want ('graph', 0, "
-                               f"{blocks}): one replay a block")
+        for name, (progs, event) in programs.items():
+            runs = sum(1 for e in eng.events if e[0] == event)
+            got = (progs.mode, progs.captures - before[name][0], progs.replays - before[name][1])
+            if not runs or got != ("graph", 0, runs):
+                raise RuntimeError(f"{what}: {name} programs (mode, captures, replays) in the run {got}, want "
+                                   f"('graph', 0, {runs}): one replay a {event}")
     return {rid: c.tokens for rid, c in done.items()}
 
 
@@ -847,6 +903,12 @@ def _bits_equal(a, b) -> bool:
 
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
                                                                      b.reshape(-1).view(torch.uint8))
+
+
+def _cache_tensors(eng) -> list:
+    """Every tensor of the engine's caches once (a dense engine's layers
+    share one lengths tensor; a paged pool's layer views are the pool)."""
+    return list({id(t): t for t in _tensors(eng.caches)}.values())
 
 
 def hold_programs(label: str, eng, w1_per_step: int | None = None) -> None:
@@ -882,7 +944,7 @@ def hold_programs(label: str, eng, w1_per_step: int | None = None) -> None:
         eng.caches.page_table.copy_(torch.from_numpy(table))
     lengths = np.maximum(1, eng.max_seq - k - 131 * np.arange(slots)).astype(np.int32)
     eng._lengths_of(eng.caches).copy_(torch.from_numpy(lengths))
-    live = list({id(t): t for t in _tensors(eng.caches)}.values())
+    live = _cache_tensors(eng)
     start = [t.clone() for t in live]
     last = rng.integers(0, cfg.vocab_size, slots).astype(np.int32)
     rows = {key: np.resize(t.numpy(), slots) for key, t in _sampling_inputs(0).items()}
@@ -932,6 +994,103 @@ def hold_programs(label: str, eng, w1_per_step: int | None = None) -> None:
         f"programs, {progs.replays} replays so far; the sampled replay counted one S1 launch a step; kernel records in "
         f"the greedy replay's device trace == the launches it counted, {traced} (traces taken {attempts}); the hold "
         f"took {time.perf_counter() - t0:.1f} s")
+
+
+def hold_prefill_programs(label: str, eng, keys=None) -> None:
+    """Each prefill program the engine built (``PrefillPrograms``, one a
+    (T, kv_end) key), or each of ``keys``, replayed against its eager body
+    (``PrefillPrograms.chunk``) from identical copies of the caches, at two
+    slots, so at least one is not the slot its key was captured at: the
+    logits and every cache tensor, the lengths included, bit-identical. The
+    chunk's tokens are random; a paged engine's table first gets distinct
+    pages of the pool a slot (a ring laid out as the engine lays it), so
+    every slot reads and writes pages of its own. One replay, the largest
+    key's, is traced: its kernel records must equal the launches it added to
+    the counts (``traced_launches``). Called after the main path: it leaves
+    the caches as the last eager chunk wrote them."""
+    import numpy as np
+    import torch
+
+    progs, slots = eng.prefill_programs, eng._slot_hi - eng._slot_lo
+    keys = sorted(progs.built() if keys is None else keys, key=lambda key: (key[1], key[0]))
+    if progs.mode != "graph" or not keys or not progs.built().issuperset(keys):
+        raise RuntimeError(f"[{label}] prefill programs in mode {progs.mode!r}, {len(progs.built())} built, "
+                           f"{len(keys)} to hold; want 'graph' and every key to hold built")
+    rng = np.random.default_rng(21)
+    cfg = eng.cfg
+    if hasattr(eng, "page_size"):
+        n_ring = eng.pages_per_slot
+        if cfg.sliding_window is not None:
+            n_ring = -(-(cfg.sliding_window + eng.chunk) // eng.page_size) + 2
+        table, _ = _ring_table(rng, slots, eng.pages_per_slot, n_ring, sinks=bool(cfg.attention_sinks))
+        eng.caches.page_table.copy_(torch.from_numpy(table))
+    live = _cache_tensors(eng)
+    start = [t.clone() for t in live]
+    pair = (1 % slots, slots - 1)
+    t0 = time.perf_counter()
+    traced = None
+    for key in keys:
+        t, kv_end = key
+        tokens = rng.integers(0, cfg.vocab_size, (1, t)).astype(np.int32)
+        for slot in pair:
+            def replay(slot=slot, tokens=tokens, kv_end=kv_end, key=key):
+                for x, x0 in zip(live, start):
+                    x.copy_(x0)
+                replays = progs.replays
+                logits = progs.run(tokens, slot, kv_end).clone()
+                if progs.replays != replays + 1:
+                    raise RuntimeError(f"[{label}] the prefill program {key} did not replay")
+                return logits
+
+            if key == keys[-1] and slot == pair[-1]:
+                logits, traced, attempts = traced_launches(f"[{label}] the replayed prefill chunk {key}", replay)
+            else:
+                logits = replay()
+            replayed = [logits] + [x.clone() for x in live]
+            for x, x0 in zip(live, start):
+                x.copy_(x0)
+            progs.slot.fill_(slot)
+            eager = [progs.chunk(t, kv_end)] + live
+            if not all(_bits_equal(a, b) for a, b in zip(replayed, eager)):
+                parted = [i for i, (a, b) in enumerate(zip(replayed, eager)) if not _bits_equal(a, b)]
+                raise RuntimeError(f"[{label}] the prefill program {key} replayed at slot {slot} differs from its "
+                                   f"eager body in tensors {parted} (0: logits, then the caches')")
+            del replayed, eager
+    torch.cuda.synchronize()
+    log(f"[{label}] prefill programs: {len(keys)} (T, kv_end) keys {keys[0]}..{keys[-1]}, each replayed at slots "
+        f"{pair} == its eager body, logits and {len(live)} cache tensors ({_nbytes(live) / 1e9:.3f} GB) bit for bit; "
+        f"mode {progs.mode}, {progs.captures} programs, {progs.replays} replays so far; kernel records in the replayed "
+        f"{keys[-1]} chunk's device trace == the launches it counted, {traced} ({sum(traced.values())} launches a "
+        f"chunk; traces taken {attempts}); the hold took {time.perf_counter() - t0:.1f} s")
+
+
+def prefill_only(label: str, eng, prompts, cold=None) -> tuple[list, float]:
+    """One run of ``prompts`` with one new token each (prefill and the
+    first-token pick), timed by the wall clock, synchronised: the tokens by
+    request and the seconds. With ``cold`` (the tokens of the engine's first
+    such run), the run comes after ``warmup()``: it must give those tokens,
+    capture no prefill program and replay one a chunk."""
+    import torch
+
+    from flash_attention_tpu_torch.serving.engine import Request
+
+    progs = eng.prefill_programs
+    captures, replays, n_events = progs.captures, progs.replays, len(eng.events)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run([Request(id=i, prompt=p, max_new_tokens=1) for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    tokens = [done[i].tokens for i in range(len(prompts))]
+    if any(len(t) != 1 for t in tokens):
+        raise RuntimeError(f"[{label}] prefill-only run: every request must give exactly one token")
+    if cold is not None:
+        chunks = sum(1 for e in eng.events[n_events:] if e[0] == "chunk")
+        got = (progs.mode, progs.captures - captures, progs.replays - replays)
+        if got != ("graph", 0, chunks) or tokens != cold:
+            raise RuntimeError(f"[{label}] the warm prefill-only run: prefill programs (mode, captures, replays) "
+                               f"{got}, want ('graph', 0, {chunks}); first tokens {tokens}, the cold run's {cold}")
+    return tokens, seconds
 
 
 def tiny_requests():
@@ -1233,12 +1392,13 @@ def phase_sampling(card: str, params) -> dict:
 def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | None = None,
                      w1_per_step: int | None = None):
     """ServingEngine over ``cfg`` / ``params`` at full width: a prefill-only
-    run and ``warmup()``, then the main path (phase 5's 10 requests on 8
-    slots x 2048 positions) with every launch count set to 0 just before and
-    read just after; it must launch the kernels in ``used`` and no other.
-    Then ``hold_programs`` (with ``w1_per_step``). ``ref``: the bf16 run's numbers of this call,
-    printed beside these. Returns the launch counts and the engine's
-    numbers."""
+    run (cold), ``warmup()`` and the prefill-only run again (warm,
+    ``prefill_only``), then the main path (phase 5's 10 requests on 8 slots
+    x 2048 positions) with every launch count set to 0 just before and read
+    just after; it must launch the kernels in ``used`` and no other. Then
+    ``hold_programs`` (with ``w1_per_step``) and ``hold_prefill_programs``.
+    ``ref``: the bf16 run's numbers of this call, printed beside these.
+    Returns the launch counts and the engine's numbers."""
     import numpy as np
     import torch
 
@@ -1249,17 +1409,13 @@ def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | No
     prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n)) for n in FULL_PROMPT_LENS]
     eng = ServingEngine(params, cfg, max_slots=8, max_seq=2048, prefill_chunk=256)
 
-    # Prefill-only run (one sampled token per request): measures prefill
-    # throughput and warms every path the main run takes.
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    first = eng.run([Request(id=i, prompt=p, max_new_tokens=1) for i, p in enumerate(prompts)])
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    if any(len(first[i].tokens) != 1 for i in range(len(prompts))):
-        raise RuntimeError("prefill-only run: every request must give exactly one token")
+    # Prefill-only runs (one token per request): the engine's first (cold:
+    # first uses, and each prefill program's eager chunk and capture), then
+    # the same after warmup() (warm: every chunk a replay).
+    first, prefill_s = prefill_only(label, eng, prompts)
     n_prompt = sum(FULL_PROMPT_LENS)
-    eng.warmup(prompt_len=WARMUP_PROMPT)  # every decode program built: the main path's decode section captures none
+    eng.warmup()  # every program built: the main path captures none
+    _, warm_s = prefill_only(label, eng, prompts, cold=first)
 
     # The main path: counters to 0, serve, read the counters.
     eng.steps, eng.decode_tokens, eng.decode_time_s = 0, 0, 0.0
@@ -1280,18 +1436,21 @@ def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | No
         toks = done[100 + i].tokens
         if len(toks) != FULL_NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in toks):
             raise RuntimeError(f"request {100 + i}: {len(toks)} tokens, want {FULL_NEW_TOKENS} in vocab")
-        if toks[0] != first[i].tokens[0]:
+        if toks[0] != first[i][0]:
             raise RuntimeError(f"request {100 + i}: first greedy token differs between runs")
     check_launches(f"[{label}] the main path", launches, used)
     numbers = {
-        "prefill_tok_s": n_prompt / prefill_s, "decode_tok_s": eng.decode_tokens / eng.decode_time_s,
+        "prefill_tok_s": n_prompt / prefill_s, "prefill_warm_tok_s": n_prompt / warm_s,
+        "decode_tok_s": eng.decode_tokens / eng.decode_time_s,
         "peak_gib": peak / 2**30, "cache_gb": _nbytes([(c.k, c.v, c.k_scales, c.v_scales) for c in eng.caches]) / 1e9,
         "weights_gb": _nbytes(params) / 1e9, "tokens": {rid: c.tokens for rid, c in done.items()},
     }
     decode_tokens, decode_s = eng.decode_tokens, eng.decode_time_s
-    log(f"[{label}] decode programs of the main path: mode {eng.programs.mode}, {eng.programs.captures} built, "
-        f"{eng.programs.replays} replays")
+    log(f"[{label}] programs of the main path: decode mode {eng.programs.mode}, {eng.programs.captures} built, "
+        f"{eng.programs.replays} replays; prefill mode {eng.prefill_programs.mode}, {eng.prefill_programs.captures} "
+        f"built, {eng.prefill_programs.replays} replays")
     hold_programs(label, eng, w1_per_step)
+    hold_prefill_programs(label, eng)
     del eng
 
     # Logits of the same model, straight from the model functions: finite
@@ -1312,7 +1471,9 @@ def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | No
     n_gen = sum(len(c.tokens) for c in done.values())
     log(
         f"[{label}] prefill: {n_prompt} prompt tokens in {prefill_s:.3f} s = {numbers['prefill_tok_s']:.1f} tok/s"
-        f"{beside('prefill_tok_s')} (max_new_tokens=1 run, wall clock) ({card})"
+        f"{beside('prefill_tok_s')} cold (the engine's first run), {warm_s:.3f} s = "
+        f"{numbers['prefill_warm_tok_s']:.1f} tok/s{beside('prefill_warm_tok_s')} warm (after warmup(): every chunk "
+        f"a replay) (max_new_tokens=1 runs, wall clock) ({card})"
     )
     log(
         f"[{label}] decode: {decode_tokens} tokens in {decode_s:.3f} s of decode section = "
@@ -1624,7 +1785,8 @@ def _prefill_edge_sweep(kind: str) -> str:
     by ``_prefill_edge``. ``kind``: "paged" (shuffled pages), "quant" (K8q,
     the payloads in turn) or "masked" (the paged ring with 3 sinks at
     windows 1, 63 and 100, a softcap at 63; then K2 at the same
-    chunk edges on dense K / V at windows 1, 48 and 64, with its LSE). Every
+    chunk edges on dense K / V at windows 1, 48 and 64, with its LSE, also
+    with K / V one slot of a cache read by ``kv_batch``). Every
     launch must run the tensor-core body. Returns a line for the log."""
     import numpy as np
     import torch
@@ -1635,6 +1797,7 @@ def _prefill_edge_sweep(kind: str) -> str:
 
     rng = np.random.default_rng(31)
     gen = torch.Generator(device="cuda").manual_seed(31)
+    gen_slots = torch.Generator(device="cuda").manual_seed(32)  # K2's other cache slots
     worst, cases, i = 0.0, 0, 0
     zero_counts()
     for dtype in (torch.float16, torch.bfloat16):
@@ -1693,6 +1856,16 @@ def _prefill_edge_sweep(kind: str) -> str:
                             o_out, o_lse = reference_attention_with_lse(q, k, v, **kw)
                             worst = max(worst, _hold(what, out, p_out, o_out, lse, p_lse, o_lse, dtype=name)[1]
                                         / REL_BAR[name])
+                            # The dense engine's form: K / V one slot of a
+                            # 3-slot cache whose other slots hold other rows,
+                            # the slot read from device memory (kv_batch).
+                            s = 1 + cases % 2
+                            k3, v3 = (torch_uniform((3, hkv, kv_len, d), dtype, gen_slots) for _ in range(2))
+                            k3[s], v3[s] = k[0], v[0]
+                            kv_batch = torch.tensor([s], dtype=torch.int32, device="cuda")
+                            b_out, b_lse = flash_attention(q, k3, v3, save_residuals=True, kv_batch=kv_batch, **kw)
+                            worst = max(worst, _hold(f"{what} slot {s} of 3 by kv_batch", b_out, p_out, o_out, b_lse,
+                                                     p_lse, o_lse, dtype=name)[1] / REL_BAR[name])
                             cases += 1
     torch.cuda.synchronize()
     bodies = read_bodies()
@@ -1826,12 +1999,13 @@ def phase_tiny_paged(dense_tokens: dict) -> None:
 
 def serve_full_paged(card: str, label: str, cfg, params, *, used, dense: dict, ref: dict | None = None):
     """PagedServingEngine over ``cfg`` / ``params`` at full width (phase 8;
-    the dense engine and its caches are gone): a prefill-only run and
-    ``warmup()``, then the main path, runs A and B, with every launch count
-    set to 0 just before and read just after; it must launch the kernels in
-    ``used`` and no other; then ``hold_programs``. ``dense``: the dense run's numbers of the same weights and cache
-    type; ``ref``: the bf16 paged run's. Returns the launch counts and the
-    engine's numbers."""
+    the dense engine and its caches are gone): cold and warm prefill-only
+    runs around ``warmup()``, then the main path, runs A and B, with every
+    launch count set to 0 just before and read just after; it must launch
+    the kernels in ``used`` and no other; then ``hold_programs`` and
+    ``hold_prefill_programs``. ``dense``: the dense run's numbers of the
+    same weights and cache type; ``ref``: the bf16 paged run's. Returns the
+    launch counts and the engine's numbers."""
     import numpy as np
     import torch
 
@@ -1847,18 +2021,13 @@ def serve_full_paged(card: str, label: str, cfg, params, *, used, dense: dict, r
     pc = eng.caches
     pool_gb = _nbytes((pc.k_pool, pc.v_pool, pc.k_scales, pc.v_scales)) / 1e9
 
-    # Prefill-only run with the prefix cache off (nothing registered):
-    # measures paged prefill throughput and warms the path.
+    # Prefill-only runs with the prefix cache off (nothing registered): the
+    # engine's first (cold), then the same after warmup() (warm: replays).
     eng.prefix_cache_enabled = False
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    first = eng.run([Request(id=i, prompt=p, max_new_tokens=1) for i, p in enumerate(prompts)])
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
+    first, prefill_s = prefill_only(label, eng, prompts)
+    eng.warmup()  # every program built: the main path captures none
+    _, warm_s = prefill_only(label, eng, prompts, cold=first)
     eng.prefix_cache_enabled = True
-    if any(len(first[i].tokens) != 1 for i in range(len(prompts))):
-        raise RuntimeError("paged prefill-only run: every request must give exactly one token")
-    eng.warmup(prompt_len=WARMUP_PROMPT)  # every decode program built: the main path's decode section captures none
 
     # The paged main path: counters to 0, runs A and B, read the counters.
     eng.steps, eng.decode_tokens, eng.decode_time_s = 0, 0, 0.0
@@ -1883,7 +2052,7 @@ def serve_full_paged(card: str, label: str, cfg, params, *, used, dense: dict, r
     for rid, c in {**run_a, **solo, **group}.items():
         if len(c.tokens) != FULL_NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in c.tokens):
             raise RuntimeError(f"paged request {rid}: {len(c.tokens)} tokens, want {FULL_NEW_TOKENS} in vocab")
-    if any(run_a[100 + i].tokens[0] != first[i].tokens[0] for i in range(len(prompts))):
+    if any(run_a[100 + i].tokens[0] != first[i][0] for i in range(len(prompts))):
         raise RuntimeError("paged run A: first greedy token differs from the prefill-only run")
     if hits_b != 8 * 1024 // 128:
         raise RuntimeError(f"run B: prefix_hits {hits_b}, want 64 (8 requests x 8 shared pages)")
@@ -1915,12 +2084,13 @@ def serve_full_paged(card: str, label: str, cfg, params, *, used, dense: dict, r
         raise RuntimeError(f"paged logits shapes {tuple(logits.shape)} {tuple(step_logits.shape)}")
     if not (bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step_logits).all())):
         raise RuntimeError("non-finite paged logits at full width")
-    if int(logits[0, -1].argmax()) != first[3].tokens[0]:
+    if int(logits[0, -1].argmax()) != first[3][0]:
         raise RuntimeError("paged prefill logits disagree with the engine's first token")
 
     n_prompt = sum(FULL_PROMPT_LENS)
-    numbers = {"prefill_tok_s": n_prompt / prefill_s, "decode_tok_s": a_decode[0] / a_decode[1], "peak_gib": peak / 2**30,
-               "cache_gb": pool_gb, "tokens": {rid: c.tokens for rid, c in run_a.items()}}
+    numbers = {"prefill_tok_s": n_prompt / prefill_s, "prefill_warm_tok_s": n_prompt / warm_s,
+               "decode_tok_s": a_decode[0] / a_decode[1], "peak_gib": peak / 2**30, "cache_gb": pool_gb,
+               "tokens": {rid: c.tokens for rid, c in run_a.items()}}
 
     def beside(key: str, fmt: str = ".1f") -> str:
         also = "" if ref is None else f"; bf16 paged, phase 8: {ref[key]:{fmt}}"
@@ -1932,7 +2102,8 @@ def serve_full_paged(card: str, label: str, cfg, params, *, used, dense: dict, r
     )
     log(
         f"[{label}] prefill: {n_prompt} prompt tokens in {prefill_s:.3f} s = {numbers['prefill_tok_s']:.1f} tok/s"
-        f"{beside('prefill_tok_s')} ({card})"
+        f"{beside('prefill_tok_s')} cold, {warm_s:.3f} s = {numbers['prefill_warm_tok_s']:.1f} tok/s"
+        f"{beside('prefill_warm_tok_s')} warm (after warmup()) ({card})"
     )
     log(
         f"[{label}] decode, run A: {a_decode[0]} tokens in {a_decode[1]:.3f} s of decode section = "
@@ -1942,9 +2113,11 @@ def serve_full_paged(card: str, label: str, cfg, params, *, used, dense: dict, r
         f"[{label}] peak device memory (max_memory_allocated) over runs A and B {numbers['peak_gib']:.2f} GiB"
         f"{beside('peak_gib', '.2f')}; prefix_hits {eng.prefix_hits} ({card})"
     )
-    log(f"[{label}] decode programs: mode {eng.programs.mode}, {eng.programs.captures} built, "
-        f"{eng.programs.replays} replays")
+    log(f"[{label}] programs: decode mode {eng.programs.mode}, {eng.programs.captures} built, "
+        f"{eng.programs.replays} replays; prefill mode {eng.prefill_programs.mode}, {eng.prefill_programs.captures} "
+        f"built, {eng.prefill_programs.replays} replays")
     hold_programs(label, eng)
+    hold_prefill_programs(label, eng)
     return launches, numbers
 
 
@@ -3774,34 +3947,49 @@ LOGIT_BAR = 0.1  # phase 17: last-chunk logits, ring vs dense cache, row by row 
 
 
 def _serve_masked(card: str, label: str, eng, prompts, *, used, new_tokens: int = FULL_NEW_TOKENS,
-                  programs: bool = False) -> dict:
+                  programs: str | None = None) -> dict:
     """One served run of ``prompts`` (greedy, ``new_tokens`` each) on
     ``eng``, every launch count set to 0 just before and read just after; it
     must launch exactly ``used``. The prefill chunks are timed one by one
     (synchronised) and the logits of each request's last chunk are kept.
-    With ``programs``, ``warmup()`` before the run and ``hold_programs``
-    after it. Returns tokens, logits, launches and the run's numbers."""
+    With ``programs`` "decode", ``warmup(prompt_len=WARMUP_PROMPT)`` before
+    the run (every decode program; the prefill programs past the first chunk
+    position are built by the run, their first eager runs and captures
+    timed with the chunks) and ``hold_programs`` and
+    ``hold_prefill_programs`` (over the keys the run's chunks used) after it. With
+    "all", a prefill-only run of the prompts first (cold) and the whole
+    ``warmup()``, then the prefill-only run again (warm: it captures
+    nothing); the served run then replays every program, and
+    ``hold_programs`` and ``hold_prefill_programs`` follow. Returns tokens,
+    logits, launches and the run's numbers."""
     import torch
 
     from flash_attention_tpu_torch.serving.engine import Request
 
-    if programs:
+    cold = warm = None
+    if programs == "decode":
         eng.warmup(prompt_len=WARMUP_PROMPT)
-    chunk_s, last = [], {}
+    elif programs == "all":
+        first, cold = prefill_only(label, eng, prompts)
+        eng.warmup()
+        _, warm = prefill_only(label, eng, prompts, cold=first)
+    chunk_s, last, used_keys = [], {}, set()
     inner = eng._prefill_chunk_step
 
-    def step(params, tokens, caches, slot, start, kv_end):
+    def step(tokens, slot, start, kv_end):
+        used_keys.add((kv_end - start, kv_end))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, caches = inner(params, tokens, caches, slot, start, kv_end)
+        logits = inner(tokens, slot, start, kv_end)
         torch.cuda.synchronize()
         chunk_s.append(time.perf_counter() - t0)
         st = eng._prefills[slot]
         if kv_end >= len(st.padded):
             last[st.req.id] = logits[0, : len(st.req.prompt) - start].cpu()
-        return logits, caches
+        return logits
 
     eng._prefill_chunk_step = step
+    captures = eng.prefill_programs.captures
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -3822,16 +4010,25 @@ def _serve_masked(card: str, label: str, eng, prompts, *, used, new_tokens: int 
     n_prompt = sum(len(p) for p in prompts)
     numbers = {"prefill_tok_s": n_prompt / sum(chunk_s), "decode_tok_s": eng.decode_tokens / eng.decode_time_s,
                "peak_gib": peak / 2**30}
+    captures = eng.prefill_programs.captures - captures
+    if cold is not None:
+        numbers.update(prefill_cold_tok_s=n_prompt / cold, prefill_warm_tok_s=n_prompt / warm)
+        log(f"[{label}] prefill-only runs: {n_prompt} prompt tokens in {cold:.3f} s = {n_prompt / cold:.1f} tok/s cold "
+            f"(the engine's first run), {warm:.3f} s = {n_prompt / warm:.1f} tok/s warm (after warmup(): every chunk a "
+            f"replay) (wall clock) ({card})")
     log(
         f"[{label}] {len(prompts)} requests, {n_prompt} prompt tokens: prefill {numbers['prefill_tok_s']:.1f} tok/s "
-        f"({len(chunk_s)} chunks in {sum(chunk_s):.3f} s, each synchronised), decode {eng.decode_tokens} tokens in "
+        f"({len(chunk_s)} chunks in {sum(chunk_s):.3f} s, each synchronised, the first eager run and the capture "
+        f"of the {captures} prefill programs this run built included), decode {eng.decode_tokens} tokens in "
         f"{eng.decode_time_s:.3f} s of decode section = {numbers['decode_tok_s']:.1f} tok/s, whole run {run_s:.3f} s; "
         f"peak device memory (max_memory_allocated) {numbers['peak_gib']:.2f} GiB; kernel launches {launches}, "
-        f"forward launches by body {bodies}; decode programs: mode {eng.programs.mode}, {eng.programs.captures} "
-        f"built, {eng.programs.replays} replays ({card})"
+        f"forward launches by body {bodies}; programs: decode mode {eng.programs.mode}, {eng.programs.captures} "
+        f"built, {eng.programs.replays} replays; prefill mode {eng.prefill_programs.mode}, "
+        f"{eng.prefill_programs.captures} built, {eng.prefill_programs.replays} replays ({card})"
     )
     if programs:
         hold_programs(label, eng)
+        hold_prefill_programs(label, eng, None if programs == "all" else used_keys)
     return {"tokens": tokens, "last": last, "launches": launches, **numbers}
 
 
@@ -3874,7 +4071,7 @@ def phase_full_masked(card: str) -> dict:
         raise RuntimeError(f"rolling cache of {eng.caches[0].k.shape[2]} rows, want {RING_ROWS}")
     log(f"[full masked a] ServingEngine(max_slots=8, max_seq=16384, prefill_chunk=256), rolling: {RING_ROWS} rows a "
         f"slot, KV cache {cache_gb(eng):.4f} GB ({card})")
-    runs["a"] = _serve_masked(card, "full masked a", eng, prompts, used=("K1", "K6", *SERVED), programs=True)
+    runs["a"] = _serve_masked(card, "full masked a", eng, prompts, used=("K1", "K6", *SERVED), programs="decode")
     step_logits, _ = decode_step_logits(params, rolling, torch.zeros((8, 1), dtype=torch.int32, device="cuda"), eng.caches)
     if not bool(torch.isfinite(step_logits).all()):
         raise RuntimeError("[full masked a] non-finite decode logits over the ring")
@@ -3912,7 +4109,7 @@ def phase_full_masked(card: str) -> dict:
     eng._admit_one = admit_one
     pc = eng.caches
     pool_gb = _nbytes((pc.k_pool, pc.v_pool)) / 1e9
-    runs["c"] = _serve_masked(card, "full masked c", eng, prompts, used=("K7", "K8", "K9/K10", *SERVED), programs=True)
+    runs["c"] = _serve_masked(card, "full masked c", eng, prompts, used=("K7", "K8", "K9/K10", *SERVED), programs="all")
     if max(owned) > 37 or eng.alloc.free_count != 296:
         raise RuntimeError(f"[full masked c] pages owned {owned} (at most 37), {eng.alloc.free_count} free after the run")
     log(f"[full masked c] PagedServingEngine(max_slots=8, num_pages=297, pages_per_slot=72, page_size=128, "
@@ -5115,7 +5312,7 @@ def _tp_nccl_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
     eng = ServingEngine(params, cfg, **DENSE_ENGINE, shard_caches=sharding)
     got, out["launches"]["dense"], out["s"]["dense"] = _served(eng, reqs, ("K1", "K6", *SERVED), "[sharded] (a) dense")
     out["dense equal"] = got == dense_tokens
-    out["modes"] = [eng.programs.mode]
+    out["modes"] = [eng.programs.mode, eng.prefill_programs.mode]
     ckpt_reqs = [dataclasses.replace(r, max_new_tokens=8) for r in reqs[:4]]  # small engines: the files' I/O
     out["dense checkpoint"] = _sharded_checkpoint(
         lambda: ServingEngine(params, cfg, max_slots=2, max_seq=512, shard_caches=sharding), ckpt_reqs,
@@ -5126,7 +5323,7 @@ def _tp_nccl_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
     got, out["launches"]["paged"], out["s"]["paged"] = _served(eng, reqs, ("K7", "K8", "K9/K10", *SERVED),
                                                                "[sharded] (a) paged")
     out["paged equal"] = got == paged_tokens
-    out["modes"].append(eng.programs.mode)
+    out["modes"] += [eng.programs.mode, eng.prefill_programs.mode]
     out["paged checkpoint"] = _sharded_checkpoint(
         lambda: PagedServingEngine(params, cfg, max_slots=2, num_pages=9, pages_per_slot=4, page_size=128,
                                    shard_caches=sharding), ckpt_reqs, pathlib.Path(tmp.name) / "paged.npz")
@@ -5205,7 +5402,7 @@ def _tp_gloo_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
             out["held MB"] = torch.cuda.memory_allocated() / 2**20
-            out["modes"] = {name: eng.programs.mode for name, eng in engines.items()}
+            out["modes"] = {name: (eng.programs.mode, eng.prefill_programs.mode) for name, eng in engines.items()}
         dist.barrier()
     out["s"]["build"] = time.perf_counter() - t0
     reqs = _full_requests(cfg)
@@ -5421,12 +5618,13 @@ def _sharded_one_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> None
         f"== phase 5's: {a['dense equal']}, paged engine (phase 8's) tokens == phase 8's run A: {a['paged equal']}; "
         f"logits of a {TP_PREFILL}-token prefill and {TP_DECODE} decode steps bit-identical to the single-process "
         f"model's, dense: {a['dense logits bit-identical']}, paged: {a['paged logits bit-identical']}; served in {a['s']['dense']:.2f} / {a['s']['paged']:.2f} s, launches "
-        f"{a['launches']}, peak {a['peak MB']:.0f} MB; decode programs {a['modes']}; each engine's save_kv_cache "
-        f"file is its caches bit for bit and loads into a fresh sharded engine's, dense: {a['dense checkpoint']}, "
+        f"{a['launches']}, peak {a['peak MB']:.0f} MB; (decode, prefill) program modes {a['modes']}; each engine's "
+        f"save_kv_cache file is its caches bit for bit and loads into a fresh sharded engine's, dense: "
+        f"{a['dense checkpoint']}, "
         f"paged: {a['paged checkpoint']}; (a) took {time.perf_counter() - t0:.1f} s ({card})")
     if not (a["dense equal"] and a["paged equal"] and a["dense logits bit-identical"]
             and a["paged logits bit-identical"] and a["dense checkpoint"] and a["paged checkpoint"]
-            and a["modes"] == ["graph", "graph"]):
+            and a["modes"] == ["graph"] * 4):
         raise RuntimeError(f"[sharded] (a) the one-rank sharded engines differ from the single-process ones: {a}")
 
 
@@ -5442,10 +5640,10 @@ def _sharded_gloo(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
     r0 = b[0]
     log(f"[sharded] (b) {TP_RANKS} gloo ranks on one card, ModelConfig() bf16, dense on data 2 x model 2, paged on "
         f"model 4; (b) took {time.perf_counter() - t0:.1f} s; rank 0's peak while it held the bf16 and fp32 "
-        f"references {r0['reference peak MB']:.0f} MB; decode programs {r0['modes']} (a model axis of more than one "
-        f"rank issues its blocks step by step)")
-    if any(r["modes"] != {"dense": "issued", "paged": "issued"} for r in b):
-        raise RuntimeError(f"[sharded] (b) decode modes {[r['modes'] for r in b]}, want issued on a model axis of "
+        f"references {r0['reference peak MB']:.0f} MB; (decode, prefill) program modes {r0['modes']} (a model axis "
+        f"of more than one rank issues its blocks and chunks step by step)")
+    if any(r["modes"] != {"dense": ("issued", "issued"), "paged": ("issued", "issued")} for r in b):
+        raise RuntimeError(f"[sharded] (b) program modes {[r['modes'] for r in b]}, want issued on a model axis of "
                            f"more than one rank")
     for r in b:
         log(f"[sharded] (b) rank {r['rank']}: held {r['held MB']:.0f} MB after its build, peak {r['peak MB']:.0f} MB; "
@@ -5551,8 +5749,10 @@ def first_run_child(warm: bool) -> None:
     8 slots x 2048 (the engine's first run), after ``warmup()`` when
     ``warm``. Prints one line, FIRST_RUN_TAG + JSON: the warmup's and the
     run's wall seconds, the run's first prefill chunk's (synchronised
-    around it), their launch counts, the run's decode section and tokens,
-    and the counters just after warmup."""
+    around it) and the launches it counted, the launch counts of the
+    warmup and the run, the run's decode section and tokens, the counters
+    just after warmup, and the prefill and decode programs built before the
+    run and built and replayed in it."""
     import torch
 
     from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
@@ -5569,11 +5769,13 @@ def first_run_child(warm: bool) -> None:
     def first_chunk_timed(*args):
         # The run's first prefill chunk, timed alone: where first-use costs land.
         eng._prefill_chunk_step = chunk_step
+        before = read_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = chunk_step(*args)
         torch.cuda.synchronize()
         out["first_chunk_s"] = time.perf_counter() - t0
+        out["first_chunk_launches"] = {k: n - before[k] for k, n in read_counts().items() if n != before[k]}
         return result
 
     if warm:
@@ -5588,7 +5790,10 @@ def first_run_child(warm: bool) -> None:
         out["counters"] = [eng.steps, eng.decode_tokens, eng.decode_time_s, len(eng.events)]
         out["pool_bytes"] = [torch.cuda.memory_allocated() - allocated, torch.cuda.memory_reserved() - reserved]
         out["capture_s"] = {f"k={k}{' greedy' if g else ' sampled'}": t for (k, g), t in eng.programs.capture_s.items()}
+        out["prefill_capture_s"] = {f"{t},{kv_end}": s for (t, kv_end), s in eng.prefill_programs.capture_s.items()}
+    pre = eng.prefill_programs
     out["captures_before"], replays = eng.programs.captures, eng.programs.replays
+    out["prefill_captures_before"], prefill_replays = pre.captures, pre.replays
     eng._prefill_chunk_step = first_chunk_timed
     zero_counts()
     torch.cuda.synchronize()
@@ -5598,7 +5803,10 @@ def first_run_child(warm: bool) -> None:
     out.update(run_s=time.perf_counter() - t0, launches=read_counts(), decode_tokens=eng.decode_tokens,
                decode_s=eng.decode_time_s, tokens={rid: c.tokens for rid, c in done.items()},
                captures=eng.programs.captures - out["captures_before"], replays=eng.programs.replays - replays,
-               blocks=sum(1 for event in eng.events if event[0] == "decode"), mode=eng.programs.mode)
+               blocks=sum(1 for event in eng.events if event[0] == "decode"), mode=eng.programs.mode,
+               prefill_captures=pre.captures - out["prefill_captures_before"],
+               prefill_replays=pre.replays - prefill_replays, prefill_mode=pre.mode,
+               chunks=sum(1 for event in eng.events if event[0] == "chunk"))
     print(FIRST_RUN_TAG + json.dumps(out), flush=True)
 
 
@@ -5637,6 +5845,12 @@ def _first_runs(card: str, dense_tokens: dict) -> None:
         raise RuntimeError(f"[first run] the warm engine's programs: mode {warm['mode']}, {warm['captures_before']} "
                            f"built by warmup() (want {keys}), {warm['captures']} captured by the run (want 0), "
                            f"{warm['replays']} replays for {warm['blocks']} blocks")
+    chunk_keys = DENSE_ENGINE["max_seq"] // DENSE_ENGINE["prefill_chunk"]  # (256, 256), (256, 512), ..., (256, 2048)
+    got = (warm["prefill_mode"], warm["prefill_captures_before"], warm["prefill_captures"], warm["prefill_replays"])
+    if got != ("graph", chunk_keys, 0, warm["chunks"]):
+        raise RuntimeError(f"[first run] the warm engine's prefill programs (mode, built by warmup(), captured by the "
+                           f"run, replays): {got}, want ('graph', {chunk_keys}, 0, {warm['chunks']}): one replay a "
+                           f"chunk")
     check_launches("[first run] warmup", warm["warmup_launches"], ("K1", "K6", *SERVED))
     for key, run in runs.items():
         label = "warm" if key else "cold"
@@ -5649,16 +5863,20 @@ def _first_runs(card: str, dense_tokens: dict) -> None:
             f"wall; prefill {n_prompt} prompt tokens in {outside:.3f} s outside the decode section = "
             f"{n_prompt / outside:.1f} tok/s; decode {run['decode_tokens']} tokens in {run['decode_s']:.3f} s = "
             f"{run['decode_tokens'] / run['decode_s']:.1f} tok/s; its first prefill chunk alone "
-            f"{run['first_chunk_s'] * 1e3:.1f} ms; launches K1 {run['launches']['K1']}, K6 {run['launches']['K6']} "
-            f"({card})")
+            f"{run['first_chunk_s'] * 1e3:.1f} ms, counting the launches {run['first_chunk_launches']}; launches K1 "
+            f"{run['launches']['K1']}, K6 {run['launches']['K6']}; prefill programs built before the run "
+            f"{run['prefill_captures_before']}, captured in it {run['prefill_captures']}, replayed "
+            f"{run['prefill_replays']} for {run['chunks']} chunks ({card})")
     log(f"[first run] warmup() took {warm['warmup_s']:.3f} s (K1 {warm['warmup_launches']['K1']}, K6 "
         f"{warm['warmup_launches']['K6']} launches); counters zero after it; cold and warm tokens == phase 5's "
         f"({card})")
     capture_s = ", ".join(f"{key} {t:.3f}" for key, t in warm["capture_s"].items())
+    prefill_s = ", ".join(f"({key}) {t:.3f}" for key, t in warm["prefill_capture_s"].items())
     log(f"[first run] warmup() built {keys} decode programs (CUDA graphs), the warm run captured none and replayed "
         f"{warm['replays']} blocks (the cold run captured {runs[False]['captures']}); capture seconds by key: "
-        f"{capture_s}; the graphs' pool: memory_allocated {warm['pool_bytes'][0] / 2**20:.1f} MiB more after "
-        f"warmup() than before, memory_reserved {warm['pool_bytes'][1] / 2**20:.1f} MiB ({card})")
+        f"{capture_s}; and {chunk_keys} prefill programs, capture seconds by (T, kv_end): {prefill_s}; the graphs' "
+        f"pool: memory_allocated {warm['pool_bytes'][0] / 2**20:.1f} MiB more after warmup() than before, "
+        f"memory_reserved {warm['pool_bytes'][1] / 2**20:.1f} MiB ({card})")
 
 
 def _paged_warmup(card: str, params, cfg, paged_tokens: dict) -> None:

@@ -81,7 +81,10 @@
 //  * K and V take turns in one fp32 shared tile (rows padded by one float
 //    against bank conflicts); P goes through shared memory for the PV step;
 //  * q, k and v are read through their batch, head and row strides, so a
-//    slice of a KV cache is attended in place without a copy.
+//    slice of a KV cache is attended in place without a copy; with a batch
+//    index (the dense chunk prefill's slot) a block reads its K / V batch
+//    row from device memory, and K8 its slot, so neither is an argument
+//    that a CUDA graph of the chunk would keep.
 #include "common.cuh"
 #include "flash_fwd_sm90.cuh"
 
@@ -101,7 +104,12 @@ struct FwdParams {
   const float* vs;
   void* o;     // [B, Hq, Sq, D], contiguous
   float* lse;  // [B, Hq, Sq] or nullptr
-  const int32_t* table;  // paged: the slot's [pages_per_slot] row; dense: unused
+  const int32_t* kv_index;  // dense: the K / V batch row of each query batch row (of kv_batch), or null
+  int kv_batch;
+  const int32_t* table;  // paged: the page table [table_rows, table_stride]; dense: unused
+  const int32_t* slot;   // paged: the slot whose row is read, on the device
+  int table_rows;
+  int64_t table_stride;
   int64_t q_sb, q_sh, q_sr;
   int64_t k_sb, k_sh, k_sr;  // paged: sb is the page stride
   int64_t v_sb, v_sh, v_sr;
@@ -142,15 +150,15 @@ __device__ __forceinline__ void load_tile(float* dst, const P* src, int64_t sr, 
   }
 }
 
-// Where the kv tile starting at row n0 of batch row b lies: .x is what the
-// first stride indexes (the batch row, or the clamped physical page), .y the
-// tile's first row in it.
+// Where the kv tile starting at row n0 lies: .x is what the first stride
+// indexes (the K / V batch row kb, or the clamped physical page of the
+// slot's table row `row`), .y the tile's first row in it.
 template <bool PAGED>
-__device__ __forceinline__ int2 tile_index(const FwdParams& p, int b, int n0) {
+__device__ __forceinline__ int2 tile_index(const FwdParams& p, int kb, const int32_t* row, int n0) {
   if constexpr (PAGED) {
-    return make_int2(min(max(p.table[n0 / p.page_size], 0), p.num_pages - 1), n0 % p.page_size);
+    return make_int2(min(max(row[n0 / p.page_size], 0), p.num_pages - 1), n0 % p.page_size);
   } else {
-    return make_int2(b, n0);
+    return make_int2(kb, n0);
   }
 }
 
@@ -161,9 +169,10 @@ __device__ __forceinline__ int2 tile_index(const FwdParams& p, int b, int n0) {
 // has none of their instructions (with them as runtime parameters of one
 // instantiation the unmasked K1 ran ~8 % slower, PERF.md).
 template <typename P, int D, bool PAGED, bool MASKED>
-__device__ __forceinline__ void attend_tile(const FwdParams& p, int b, int hk, int m0, int n0, const P* k_base,
-                                            const P* v_base, const float* s_q, float* s_kv, float* s_p,
-                                            float (&m)[ROWS], float (&l)[ROWS], float (&acc)[ROWS][D / COLS]) {
+__device__ __forceinline__ void attend_tile(const FwdParams& p, int b, int kb, const int32_t* row, int hk, int m0,
+                                            int n0, const P* k_base, const P* v_base, const float* s_q, float* s_kv,
+                                            float* s_p, float (&m)[ROWS], float (&l)[ROWS],
+                                            float (&acc)[ROWS][D / COLS]) {
   constexpr int LD = D + 1;
   constexpr int LDP = BN + 1;
   constexpr int DC = D / COLS;
@@ -171,7 +180,7 @@ __device__ __forceinline__ void attend_tile(const FwdParams& p, int b, int hk, i
   const int ty = tid / COLS, tx = tid % COLS;
   const int diag = p.kv_len - p.q_len;
 
-  const int2 at = tile_index<PAGED>(p, b, n0);
+  const int2 at = tile_index<PAGED>(p, kb, row, n0);
   __syncthreads();  // the previous tile's V and P are no longer read
   load_tile<P, D>(s_kv, k_base + at.x * p.k_sb + at.y * p.k_sr, p.k_sr, p.kv_len - n0, 1.f,
                   p.ks + (at.x * p.ks_sp + hk * p.ks_sh + at.y * p.ks_sr), p.ks_sr);
@@ -301,6 +310,12 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   load_tile<T, D>(s_q, q + m0 * p.q_sr, p.q_sr, p.q_len - m0, p.scale2);
   const P* k_base = static_cast<const P*>(p.k) + hk * p.k_sh;
   const P* v_base = static_cast<const P*>(p.v) + hk * p.v_sh;
+  // Dense: the K / V batch row, kv_index[b] read from memory once a block
+  // (clamped into range), or b. Paged: the slot's table row, the slot read
+  // from memory (clamped into range).
+  const int kb = p.kv_index != nullptr ? min(max(p.kv_index[b], 0), p.kv_batch - 1) : b;
+  const int32_t* row = nullptr;
+  if constexpr (PAGED) row = p.table + static_cast<int64_t>(min(max(*p.slot, 0), p.table_rows - 1)) * p.table_stride;
 
   float m[ROWS], l[ROWS], acc[ROWS][DC];
 #pragma unroll
@@ -318,26 +333,26 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
     const int w_lo = p.window > 0 ? max(0, m0 + diag - p.window + 1) : 0;
     if constexpr (BAND) {
       // n_end - w_lo <= BM - 1 + window <= 2 * BN - 1: two tiles from w_lo.
-      attend_tile<P, D, PAGED, true>(p, b, hk, m0, w_lo, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
+      attend_tile<P, D, PAGED, true>(p, b, kb, row, hk, m0, w_lo, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
       if (w_lo + BN < n_end)  // uniform across the block
-        attend_tile<P, D, PAGED, true>(p, b, hk, m0, w_lo + BN, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
+        attend_tile<P, D, PAGED, true>(p, b, kb, row, hk, m0, w_lo + BN, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
     } else {
       const int first = w_lo / BN * BN;
       // K8's sinks: the tiles holding [0, sinks) below the window's first.
       const int sink_end = min((p.sinks + BN - 1) / BN * BN, first);
       for (int n0 = 0; n0 < sink_end; n0 += BN)
-        attend_tile<P, D, PAGED, true>(p, b, hk, m0, n0, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
+        attend_tile<P, D, PAGED, true>(p, b, kb, row, hk, m0, n0, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
       const int nq = (p.q_len + BM - 1) / BM, nkv = (p.kv_len + BN - 1) / BN;
       for (int n0 = first; n0 < n_end; n0 += BN) {
         // K1d: a tile pair of disjoint id ranges is skipped, K/V unloaded.
         if (p.seg_q != nullptr && !fat::segment_tiles_meet(p.q_rng, p.kv_rng, b, nq, nkv, m0 / BM, n0 / BN))
           continue;  // uniform across the block
-        attend_tile<P, D, PAGED, true>(p, b, hk, m0, n0, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
+        attend_tile<P, D, PAGED, true>(p, b, kb, row, hk, m0, n0, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
       }
     }
   } else {
     for (int n0 = 0; n0 < n_end; n0 += BN)
-      attend_tile<P, D, PAGED, false>(p, b, hk, m0, n0, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
+      attend_tile<P, D, PAGED, false>(p, b, kb, row, hk, m0, n0, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
   }
 
   T* o = static_cast<T*>(p.o) + static_cast<int64_t>(bh) * p.q_len * D;
@@ -437,14 +452,17 @@ FwdParams make_params(const void* q, const void* k, const void* v, void* o, floa
 // Hq, Sq, D] contiguous; lse [B, Hq, Sq] fp32 or null. seg_q [B, Sq] and
 // seg_kv [B, Skv] int32 contiguous with their tile ranges q_rng [B,
 // ceil(Sq / 64), 2] and kv_rng [B, ceil(Skv / 64), 2] (K1d), or all null.
-// window: 0, or the causal sliding window; softcap2: 0, or cap * log2(e);
-// band: 1 for K2 (requires 1 <= window <= 64 and no segment ids). bf16 and
+// kv_index: null, or a device int32 [B] (not with segment ids): k and v then
+// hold kv_batch batch rows and query batch b attends row kv_index[b],
+// clamped into [0, kv_batch). window: 0, or the causal sliding window;
+// softcap2: 0, or cap * log2(e); band: 1 for K2 (requires 1 <= window <= 64 and no segment ids). bf16 and
 // fp16 run csrc/flash_fwd_sm90.cu, which needs operands TMA can read
 // (16-byte-aligned base and strides) and q_tile, its q rows a block (64 or
 // 128); this body ignores q_tile. Returns a cudaError_t.
 extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                              const int32_t* seg_q, const int32_t* seg_kv, const int32_t* q_rng,
-                             const int32_t* kv_rng, int64_t batch, int64_t num_q_heads, int64_t num_kv_heads,
+                             const int32_t* kv_rng, const int32_t* kv_index, int64_t kv_batch, int64_t batch,
+                             int64_t num_q_heads, int64_t num_kv_heads,
                              int64_t q_len, int64_t kv_len, int64_t head_dim, int64_t q_sb,
                              int64_t q_sh, int64_t q_sr, int64_t k_sb, int64_t k_sh, int64_t k_sr,
                              int64_t v_sb, int64_t v_sh, int64_t v_sr, float scale2,
@@ -473,6 +491,8 @@ extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* 
     c.seg_kv = seg_kv;
     c.q_rng = q_rng;
     c.kv_rng = kv_rng;
+    c.kv_index = kv_index;
+    c.kv_batch = kv_batch;
     c.q_tile = q_tile;
     c.dtype = dtype;
     c.payload = dtype;
@@ -487,6 +507,9 @@ extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* 
   p.seg_kv = seg_kv;
   p.q_rng = q_rng;
   p.kv_rng = kv_rng;
+  if (kv_index != nullptr && (kv_batch < 1 || seg_q != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  p.kv_index = kv_index;
+  p.kv_batch = static_cast<int>(kv_batch);
   const FwdLaunch<false> launcher{p, batch, band != 0, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(fat::dispatch<false>(dtype, dtype, head_dim, launcher));
 }
@@ -495,8 +518,9 @@ extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* 
 // page_size, D] with unit stride on D and the given page / head / row
 // strides; ks and vs their scales [num_pages, Hkv, page_size] fp32 when
 // payload is a quantized type (scale_strides: K's page / head / row
-// strides, then V's), else null; table the slot's [pages_per_slot] int32
-// row; causal over kv_end rows, the chunk's rows at [kv_end - T, kv_end),
+// strides, then V's), else null; table the page table [table_rows,
+// table_stride] int32 and slot a device int32, the slot whose row is read
+// (clamped into [0, table_rows)); causal over kv_end rows, the chunk's rows at [kv_end - T, kv_end),
 // with window (0: none), sinks (columns [0, sinks) visible beside the
 // window) and softcap2 (0, or cap * log2(e)); o [1, Hq, T, D] contiguous.
 // page_size must be a multiple of 64. bf16 and fp16 queries run
@@ -505,9 +529,10 @@ extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* 
 // strides, unit row strides for the scales), with q_tile q rows a block (64
 // or 128); this body ignores q_tile. Returns a cudaError_t.
 extern "C" int fat_paged_prefill(const void* q, const void* k, const void* v, const float* ks,
-                                 const float* vs, void* o, const int32_t* table,
-                                 int64_t num_q_heads, int64_t num_kv_heads, int64_t num_pages,
-                                 int64_t page_size, int64_t q_len, int64_t kv_end,
+                                 const float* vs, void* o, const int32_t* table, const int32_t* slot,
+                                 int64_t table_rows, int64_t table_stride, int64_t num_q_heads,
+                                 int64_t num_kv_heads, int64_t num_pages, int64_t page_size, int64_t q_len,
+                                 int64_t kv_end,
                                  int64_t head_dim, int64_t q_sh, int64_t q_sr, int64_t k_sp,
                                  int64_t k_sh, int64_t k_sr, int64_t v_sp, int64_t v_sh,
                                  int64_t v_sr, const int64_t* scale_strides, float scale2,
@@ -539,6 +564,9 @@ extern "C" int fat_paged_prefill(const void* q, const void* k, const void* v, co
     c.dtype = dtype;
     c.stream = static_cast<cudaStream_t>(stream);
     c.table = table;
+    c.slot = slot;
+    c.table_rows = table_rows;
+    c.table_stride = table_stride;
     c.page_size = page_size;
     c.num_pages = num_pages;
     c.sinks = sinks;
@@ -560,7 +588,12 @@ extern "C" int fat_paged_prefill(const void* q, const void* k, const void* v, co
     p.vs_sh = scale_strides[4];
     p.vs_sr = scale_strides[5];
   }
+  if (slot == nullptr || table_rows < 1 || table_stride < (kv_end + page_size - 1) / page_size)
+    return static_cast<int>(cudaErrorInvalidValue);
   p.table = table;
+  p.slot = slot;
+  p.table_rows = static_cast<int>(table_rows);
+  p.table_stride = table_stride;
   p.page_size = static_cast<int>(page_size);
   p.num_pages = static_cast<int>(num_pages);
   p.window = window;

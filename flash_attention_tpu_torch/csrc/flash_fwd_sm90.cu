@@ -50,18 +50,22 @@
 //    with TMA: 64-row tiles at 16-bit width in the swizzled layout the
 //    descriptors read (128-byte swizzle in 64-column chunks; 64-byte at D =
 //    32), from tensor maps over each operand's [B, H, S, D] strides, so a
-//    view of a KV cache is read in place. TMA zero-fills rows past kv_len,
-//    whose scores are 0 rather than masked: a ragged last tile takes the
-//    masked element pass.
+//    view of a KV cache is read in place. With a batch index (the dense
+//    chunk prefill's slot) the K / V maps cover every slot of the cache and
+//    the block reads its slot from device memory, as the tile's batch
+//    coordinate: no map depends on the slot, so one CUDA graph of a chunk
+//    serves them all. TMA zero-fills rows past kv_len, whose scores are 0
+//    rather than masked: a ragged last tile takes the masked element pass.
 //  * Pages (K8): a layer's pool [num_pages, Hkv, page_size, D] is a map of
 //    (B, H, S) = (page, head, row), and the tile at logical row n0 is loaded
 //    from (n0 % page_size, hk, table[n0 / page_size]), the page id clamped
 //    into [0, num_pages). A 64-row tile never straddles a page (page_size is
-//    a multiple of 64). The walked part of the slot's table row is read
-//    into shared memory at block start, so no TMA issue waits on a
-//    dependent global load. Rows past kv_end inside the last page are live
-//    memory, not zero-fill: the causal mask covers their scores, and V's are
-//    zeroed in the stage, so that p = 0 meets no stale value.
+//    a multiple of 64). The slot is read from device memory and the walked
+//    part of its table row into shared memory at block start, so no TMA
+//    issue waits on a dependent global load. Rows past kv_end inside the
+//    last page are live memory, not zero-fill: the causal mask covers their
+//    scores, and V's are zeroed in the stage, so that p = 0 meets no stale
+//    value.
 //  * K8q: the 1-byte payload tiles and their row scales land in a staging
 //    ring (TMA boxes of whole rows, unswizzled, and two bulk copies of 256
 //    bytes); the block widens each tile, exactly (every int8 and fp8 code
@@ -104,7 +108,12 @@ struct Params {
   const int32_t* seg_kv;
   const int32_t* q_rng;
   const int32_t* kv_rng;
-  const int32_t* table;  // K8: the slot's page-table row
+  const int32_t* kv_index;  // dense: the K / V batch row of each query batch row, or null
+  int kv_batch;
+  const int32_t* table;  // K8: the page table [table_rows, table_stride] and the slot, on the device
+  const int32_t* slot;
+  int table_rows;
+  int64_t table_stride;
   int page_size, num_pages, sinks;
   const float* ks;  // K8q: the pools' row scales
   const float* vs;
@@ -184,6 +193,8 @@ __global__ void __launch_bounds__(128 * WGS, 1) fwd_kernel(const __grid_constant
 
   const int tid = threadIdx.x, wg = tid / 128, w4 = (tid / 32) % 4, g = (tid % 32) / 4, t = tid % 4;
   const int bh = blockIdx.x, b = bh / p.num_q_heads, h = bh % p.num_q_heads, hk = h / p.group;
+  // Dense: the K / V batch row, kv_index[b] read from memory once a block (clamped into range), or b.
+  const int kb = p.kv_index != nullptr ? min(max(p.kv_index[b], 0), p.kv_batch - 1) : b;
   const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
   const int r0 = m0 + 64 * wg;  // this warpgroup's first row
   const int diag = p.kv_len - p.q_len;
@@ -207,7 +218,7 @@ __global__ void __launch_bounds__(128 * WGS, 1) fwd_kernel(const __grid_constant
     return next_live(n0 == sink_end ? n_begin : n0);
   };
   auto load_kv = [&](int s, int n0) {
-    int x = b, y = n0;  // the map's (batch or page, row) of the tile
+    int x = kb, y = n0;  // the map's (batch or page, row) of the tile
     if constexpr (PAGED) x = s_table[n0 / p.page_size], y = n0 % p.page_size;
     mbar_expect(&bar[1 + s], Pl::STAGE_TX);
     if constexpr (QUANT) {
@@ -229,9 +240,11 @@ __global__ void __launch_bounds__(128 * WGS, 1) fwd_kernel(const __grid_constant
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if constexpr (PAGED) {
+    // The slot's table row: the slot read from memory (clamped into range).
+    const int32_t* row = p.table + static_cast<int64_t>(min(max(*p.slot, 0), p.table_rows - 1)) * p.table_stride;
     const int sink_pages = (sink_end + p.page_size - 1) / p.page_size, first_page = n_begin / p.page_size;
     for (int i = tid; i < (n_end + p.page_size - 1) / p.page_size; i += NT)
-      if (i < sink_pages || i >= first_page) s_table[i] = min(max(p.table[i], 0), p.num_pages - 1);
+      if (i < sink_pages || i >= first_page) s_table[i] = min(max(row[i], 0), p.num_pages - 1);
   }
   __syncthreads();
   const int first = sink_end > 0 ? 0 : next_live(n_begin);
@@ -416,8 +429,10 @@ template <typename T, typename P, int D, bool PAGED>
 cudaError_t launch(const fat::Sm90FwdCall& c) {
   Params p{};
   const int64_t* st = c.st;
-  // K / V as a map's (B, H, S): (batch, head, row), or (page, head, row).
-  const int64_t kb = PAGED ? c.num_pages : c.batch, kr = PAGED ? c.page_size : c.kv_len;
+  // K / V as a map's (B, H, S): (batch, head, row) over every batch row
+  // kv_index may name, or (page, head, row).
+  const int64_t kb = PAGED ? c.num_pages : (c.kv_index != nullptr ? c.kv_batch : c.batch);
+  const int64_t kr = PAGED ? c.page_size : c.kv_len;
   bool ok = make_map<D>(&p.tm_q, c.q, c.dtype, c.batch, c.num_q_heads, c.q_len, st[0], st[1], st[2], c.q_tile);
   if constexpr (fat::is_payload<P>) {
     ok = ok && make_map_bytes(&p.tm_k, c.k, D, kb, c.num_kv_heads, kr, st[3], st[4], st[5], BN) &&
@@ -447,7 +462,12 @@ cudaError_t launch(const fat::Sm90FwdCall& c) {
   p.seg_kv = c.seg_kv;
   p.q_rng = c.q_rng;
   p.kv_rng = c.kv_rng;
+  p.kv_index = c.kv_index;
+  p.kv_batch = static_cast<int>(c.kv_batch);
   p.table = c.table;
+  p.slot = c.slot;
+  p.table_rows = static_cast<int>(c.table_rows);
+  p.table_stride = c.table_stride;
   p.page_size = static_cast<int>(c.page_size);
   p.num_pages = static_cast<int>(c.num_pages);
   p.sinks = c.sinks;
@@ -497,8 +517,10 @@ cudaError_t sm90_fwd(const Sm90FwdCall& c) {
     return cudaErrorInvalidValue;
   if ((c.q_tile != 64 && c.q_tile != 128) || c.q_len < 1 || c.kv_len < 1) return cudaErrorInvalidValue;
   if (c.table != nullptr && (c.batch != 1 || !c.causal || c.seg_q != nullptr || c.page_size < BN ||
-                             c.page_size % BN || c.num_pages < 1))
+                             c.page_size % BN || c.num_pages < 1 || c.slot == nullptr || c.table_rows < 1 ||
+                             c.table_stride < (c.kv_len + c.page_size - 1) / c.page_size || c.kv_index != nullptr))
     return cudaErrorInvalidValue;
+  if (c.kv_index != nullptr && (c.kv_batch < 1 || c.seg_q != nullptr)) return cudaErrorInvalidValue;
   if (c.table == nullptr && c.sinks > 0) return cudaErrorInvalidValue;
   switch (c.dtype) {
     case kBFloat16: return by_payload<bf16>(c);

@@ -29,11 +29,20 @@ struct Sm90FwdCall {
   int32_t q_tile;  // q rows a block: 128 (two warpgroups) or 64 (one)
   int32_t dtype;
   cudaStream_t stream;
+  // Dense K / V of kv_batch batch rows: with kv_index (device int32 [batch])
+  // query batch b attends row kv_index[b], read by each block from memory
+  // (the prefill programs' slot, which changes between replays of one CUDA
+  // graph); null: row b of batch rows.
+  const int32_t* kv_index;
+  int64_t kv_batch;
   // K8: k and v are a layer's page pools [num_pages, Hkv, page_size, D]
-  // (st: page / head / row strides), read through `table`, the slot's row
-  // of the page table; kv_len is the chunk's kv_end and batch is 1. Null
-  // for dense K / V.
+  // (st: page / head / row strides), read through the row of the page
+  // table `table` [table_rows, table_stride] that the device int32 `slot`
+  // names, read by each block from memory; kv_len is the chunk's kv_end and
+  // batch is 1. Null for dense K / V.
   const int32_t* table;
+  const int32_t* slot;
+  int64_t table_rows, table_stride;
   int64_t page_size, num_pages;
   int32_t sinks;    // columns [0, sinks) visible beside the window
   int32_t payload;  // the pools' element code: dtype, or a 1-byte payload (K8q) with row scales

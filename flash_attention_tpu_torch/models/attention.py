@@ -57,7 +57,7 @@ import torch
 import torch.distributed as dist
 
 from flash_attention_tpu_torch.models.rope import apply_rope
-from flash_attention_tpu_torch.ops.common import ceil_to
+from flash_attention_tpu_torch.ops.common import ceil_to, slot_index
 from flash_attention_tpu_torch.ops.decode import decode_attention
 from flash_attention_tpu_torch.ops.flash_attention import flash_attention
 from flash_attention_tpu_torch.ops.fused import rope, write_row_plain
@@ -331,6 +331,11 @@ def _output_proj(params, o: torch.Tensor, out_dtype, tp_group=None) -> torch.Ten
         return row_parallel(o2, params["wo"], out_dtype, tp_group)
     wo = _weight(params["wo"], o.dtype)
     if not tensor_parallel(tp_group):
+        # einsum sums over (d, h), copying wo into that order; a product over
+        # wo's [H * D, M] view sums over (h, d), and in fp32 over an int8 KV
+        # cache that order flips cache codes enough to move the unsharded
+        # logits 1e-4 (relative) from the tensor-parallel model's, against
+        # 7e-7 with einsum (tests/test_torch_sharded_serving.py, 1e-5 bar).
         return torch.einsum("bhtd,hdm->btm", o, wo).to(out_dtype)
     return row_parallel(o.transpose(1, 2).reshape(b, t, h * d), wo.reshape(h * d, -1), out_dtype, tp_group)
 
@@ -391,8 +396,17 @@ def attention_forward(params, cfg: AttentionConfig, x: torch.Tensor, *, position
     return _output_proj(params, o, x.dtype)
 
 
+def _slot_rows(buf: torch.Tensor, slot: torch.Tensor, rows: torch.Tensor) -> tuple:
+    """The index of ``rows`` of every head of ``slot`` (a [1] device tensor)
+    in a [slots, Hkv, rows, ...] cache tensor: (slot, head, row) broadcast
+    to [1, Hkv, n], so ``buf[index]`` is the [1, Hkv, n, ...] block in
+    position order, one gather (or one scatter) on the device."""
+    heads = torch.arange(buf.shape[1], device=buf.device)
+    return slot[:, None, None], heads[None, :, None], rows[None, None, :]
+
+
 def attention_prefill_chunk(
-    params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCache, slot: int, start: int, kv_end: int, *,
+    params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCache, slot, start: int, kv_end: int, *,
     tp_group=None,
 ):
     """Prefill ONE CHUNK of one sequence into its slot of a batched cache.
@@ -412,8 +426,14 @@ def attention_prefill_chunk(
         padded rows write K/V past the true length, which no later chunk or
         decode step can see).
       cache: the batched [slots, ...] KVCache (K/V written in place).
-      slot, start, kv_end: host integers — the batch row, the chunk's first
-        position and the visible KV horizon.
+      slot: the batch row: a host int, or a one-element tensor on the
+        device (JAX's traced slot; the serving engines' prefill programs
+        keep theirs in one, filled between replays of a CUDA graph). Every
+        read and write of the slot's rows indexes with it on the device
+        (``ops.common.slot_index``), and K1 reads it from device memory
+        (``flash_attention``'s ``kv_batch``) over the whole cache.
+      start, kv_end: host integers — the chunk's first position and the
+        visible KV horizon.
 
     Returns:
       (output [1, T, model_dim], updated cache).
@@ -430,6 +450,7 @@ def attention_prefill_chunk(
             )
     elif start + t > rows:
         raise ValueError(f"chunk rows [{start}, {start + t}) exceed the cache's {rows}")
+    slot = slot_index(slot, cache.k.shape[0], x.device)
     q, k, v = _project_qkv(params, cfg, x, start + torch.arange(t, device=x.device)[None, None, :])
     # Write the chunk's K/V FIRST so the visible rows hold it.
     kq, ks = _quantize_for_cache(cfg, k[0])
@@ -440,13 +461,13 @@ def attention_prefill_chunk(
     if cfg.rolling:
         ring_rows = _ring_rows(cfg, rows, start + torch.arange(t, device=x.device))
         for buf, new in writes:
-            bits(buf)[slot][:, ring_rows] = bits(new.to(buf.dtype))
+            bits(buf)[_slot_rows(buf, slot, ring_rows)] = bits(new.to(buf.dtype))[None]
     else:
         for buf, new in writes:
-            bits(buf)[slot, :, start:start + t] = bits(new.to(buf.dtype))
-    lengths = cache.lengths.clone()
-    lengths[slot] = start + t
-    cache = cache._replace(lengths=lengths)
+            bits(buf)[slot, :, start:start + t] = bits(new.to(buf.dtype))[None]
+    # index_fill_ takes the length as a scalar argument: ``lengths[slot] =
+    # start + t`` would copy it from the host, which a capture refuses.
+    cache = cache._replace(lengths=cache.lengths.clone().index_fill_(0, slot.long(), start + t))
 
     def dequant(vis, scales):
         # A quantized cache is dequantized here, in plain PyTorch, as the
@@ -458,7 +479,8 @@ def attention_prefill_chunk(
         [1, Hkv, n, D] K and V (a copy)."""
         idx = _ring_rows(cfg, rows, positions)
         return tuple(
-            dequant(bits(buf)[slot][:, idx][None].view(buf.dtype), None if sc is None else sc[slot][:, idx][None])
+            dequant(bits(buf)[_slot_rows(buf, slot, idx)].view(buf.dtype),
+                    None if sc is None else sc[_slot_rows(sc, slot, idx)])
             for buf, sc in ((cache.k, cache.k_scales), (cache.v, cache.v_scales))
         )
 
@@ -477,18 +499,23 @@ def attention_prefill_chunk(
                                            save_residuals=True)
         o, _ = merge_two(o_band, lse_band, o_sink, lse_sink)
         return _output_proj(params, o.to(q.dtype), x.dtype, tp_group), cache
+    kv_batch = None
     if cfg.rolling:
         # Only the last min(kv_end, window + T) positions are visible (with
         # sinks, kv_end <= window here, so nothing has rolled out yet).
         g = min(kv_end, cfg.sliding_window + t)
         k_vis, v_vis = gather(arange(kv_end - g, kv_end))
-    else:
-        # The visible prefix goes to the kernel as a strided view, not a copy.
+    elif cache.quantized():
         k_vis, v_vis = (
-            dequant(buf[slot:slot + 1, :, :kv_end], None if sc is None else sc[slot:slot + 1, :, :kv_end])
+            dequant(bits(buf)[:, :, :kv_end].index_select(0, slot).view(buf.dtype),
+                    sc[:, :, :kv_end].index_select(0, slot))
             for buf, sc in ((cache.k, cache.k_scales), (cache.v, cache.v_scales))
         )
-    o = flash_attention(q, k_vis, v_vis, causal=True, **_masks(cfg))
+    else:
+        # The visible prefix of every slot goes to the kernel as a strided
+        # view, not a copy, and K1 reads the slot from device memory.
+        k_vis, v_vis, kv_batch = cache.k[:, :, :kv_end], cache.v[:, :, :kv_end], slot
+    o = flash_attention(q, k_vis, v_vis, causal=True, kv_batch=kv_batch, **_masks(cfg))
     return _output_proj(params, o, x.dtype, tp_group), cache
 
 
@@ -526,13 +553,17 @@ def attention_prefill_paged(params, cfg: AttentionConfig, x: torch.Tensor, paged
 
 
 def attention_prefill_chunk_paged(
-    params, cfg: AttentionConfig, x: torch.Tensor, paged_cache: PagedKVCache, slot: int, start: int, kv_end: int, *,
+    params, cfg: AttentionConfig, x: torch.Tensor, paged_cache: PagedKVCache, slot, start: int, kv_end: int, *,
     tp_group=None,
 ):
     """Chunked prefill over a paged cache: one chunk ([1, T, model_dim], T a
     page multiple) of one sequence, attending the slot's rows [0, kv_end)
-    (start + T == kv_end; host integers). Returns (output, updated cache)."""
+    (start + T == kv_end; host integers). ``slot``: a host int or a
+    one-element device tensor, as in ``attention_prefill_chunk``: the page
+    write and K8 find the slot's table row on the device. Returns (output,
+    updated cache)."""
     _, t, _ = x.shape
+    slot = slot_index(slot, paged_cache.page_table.shape[0], x.device)
     q, k, v = _project_qkv(params, cfg, x, start + torch.arange(t, device=x.device)[None, None, :])
     paged_cache = paged_write_prefill(paged_cache, k[0], v[0], slot, start + t, start=start)
     # K8 reads the slot's pages in place, from the window's first page (and

@@ -63,6 +63,7 @@ from flash_attention_tpu_torch.models.attention import (
     row_parallel,
     tensor_parallel,
 )
+from flash_attention_tpu_torch.ops.common import slot_index
 from flash_attention_tpu_torch.ops.fused import add_rms_norm, rms_norm_plain, swiglu_act, swiglu_act_plain
 from flash_attention_tpu_torch.ops.paged import PagedModelCache, init_paged_model_cache, paged_write_tokens_multi
 from flash_attention_tpu_torch.ops.quant import (
@@ -382,11 +383,15 @@ def train_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, segment_ids
     return logits
 
 
-def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list, slot: int, start: int, kv_end: int, *,
+def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor, caches: list, slot, start: int, kv_end: int, *,
                   tp_group=None):
     """Prefill ONE CHUNK ([1, T] tokens at positions [start, start+T)) of one
     sequence into its slot of the batched caches (start + T == kv_end).
-    Returns (logits [1, T, vocab], updated caches)."""
+    ``slot``: a host int or a one-element device tensor (JAX's traced slot),
+    made one device index for every layer (``ops.common.slot_index``);
+    ``start`` and ``kv_end`` host ints. Returns (logits [1, T, vocab],
+    updated caches)."""
+    slot = slot_index(slot, caches[0].k.shape[0], caches[0].k.device)
     return _trunk(
         params, cfg, tokens,
         lambda p, acfg, h, c, tp_group: attention_prefill_chunk(p, acfg, h, c, slot, start, kv_end, tp_group=tp_group),
@@ -441,12 +446,14 @@ def prefill_paged(params, cfg: ModelConfig, tokens: torch.Tensor, cache: PagedMo
 
 
 def prefill_chunk_paged(
-    params, cfg: ModelConfig, tokens: torch.Tensor, cache: PagedModelCache, slot: int, start: int, kv_end: int, *,
+    params, cfg: ModelConfig, tokens: torch.Tensor, cache: PagedModelCache, slot, start: int, kv_end: int, *,
     tp_group=None,
 ):
     """Chunked prefill over the paged cache: [1, T] tokens at positions
-    [start, start+T), T a page multiple, start + T == kv_end (host ints).
-    Returns (logits [1, T, vocab], updated cache)."""
+    [start, start+T), T a page multiple, start + T == kv_end (host ints);
+    ``slot`` a host int or a one-element device tensor, as in
+    ``prefill_chunk``. Returns (logits [1, T, vocab], updated cache)."""
+    slot = slot_index(slot, cache.page_table.shape[0], cache.page_table.device)
     return _trunk_paged(
         params, cfg, tokens,
         lambda p, acfg, h, c, tp_group: attention_prefill_chunk_paged(p, acfg, h, c, slot, start, kv_end,

@@ -102,6 +102,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fat_flash_fwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr,  # q, k, v, o, lse
         ptr, ptr, ptr, ptr,  # segment ids of q and kv, their tile ranges (K1d)
+        ptr, i64,  # the K / V batch row of each query batch row (device int32) and K / V's batch rows, or null
         i64, i64, i64, i64, i64, i64,  # batch, Hq, Hkv, Sq, Skv, D
         i64, i64, i64, i64, i64, i64, i64, i64, i64,  # q/k/v strides
         f32, i32,  # scale2, causal
@@ -110,7 +111,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.fat_paged_prefill.restype = c.c_int
     lib.fat_paged_prefill.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k pages, v pages, k/v scales, o, table row
+        ptr, ptr, ptr, ptr, ptr, ptr,  # q, k pages, v pages, k/v scales, o
+        ptr, ptr, i64, i64,  # the page table, the slot (device int32), the table's rows and row stride
         i64, i64, i64, i64, i64, i64, i64,  # Hq, Hkv, num_pages, page_size, T, kv_end, D
         i64, i64, i64, i64, i64, i64, i64, i64,  # q/k/v strides
         c.POINTER(i64), f32,  # scale strides, scale2

@@ -5,9 +5,10 @@ exp2-domain softmax with log2(e) folded into the scale, and a large finite
 negative mask value rather than -inf, so exp2 of a masked score underflows to
 exactly 0. The CUDA sources (csrc/common.cuh) carry the same three numbers.
 Also the masks' shared pieces: the visibility predicate the plain versions
-apply, and the packed-sequence ids' checks and tile ranges; and what the
-tensor-core bodies (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu) need of
-their operands: the dtypes they take and the alignment TMA reads.
+apply, and the packed-sequence ids' checks and tile ranges; a cache's slot
+as a device index (``slot_index``); and what the tensor-core bodies
+(csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu) need of their operands:
+the dtypes they take and the alignment TMA reads.
 """
 
 from __future__ import annotations
@@ -98,6 +99,22 @@ def segment_operands(segments, device) -> list:
         return [None] * 4
     q_ids, kv_ids = (ids.to(device=device, dtype=torch.int32).contiguous() for ids in segments)
     return [q_ids, kv_ids, segment_tile_ranges(q_ids), segment_tile_ranges(kv_ids)]
+
+
+def slot_index(slot, rows: int, device) -> torch.Tensor:
+    """A batch row of a cache (a dense cache's slot, or a row of the page
+    table) as the kernels read it from device memory: a [1] int32 tensor on
+    ``device``. A tensor of one element (the serving engines' prefill
+    programs keep their slot in one, filled in place between replays of a
+    CUDA graph, as JAX traces the slot of its jitted chunk step) is taken
+    as it is; a host int is checked against ``rows`` as ``t[slot]`` would be
+    (IndexError, a negative one counting from the end) and filled on the
+    device, with no copy from the host."""
+    if isinstance(slot, torch.Tensor):
+        if slot.numel() != 1:
+            raise ValueError(f"a slot tensor holds one index, got shape {tuple(slot.shape)}")
+        return slot.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.full((1,), range(rows)[slot], dtype=torch.int32, device=device)
 
 
 def mask_window(sliding_window: int | None) -> int:

@@ -159,8 +159,9 @@ def flash_attention_plain(
     return out, lse.reshape(batch, num_q_heads, q_len)
 
 
-def _validate(q, k, v, causal, sliding_window, logit_softcap):
-    """The input checks of the JAX wrapper (ops/flash_attention.py:1761-1779)."""
+def _validate(q, k, v, causal, sliding_window, logit_softcap, kv_batch=None):
+    """The input checks of the JAX wrapper (ops/flash_attention.py:1761-1779),
+    and ``kv_batch``'s: an int32 [batch] tensor on q's device."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("expected [batch, heads, seq, head_dim] inputs")
     batch, num_q_heads, q_len, head_dim = q.shape
@@ -169,8 +170,12 @@ def _validate(q, k, v, causal, sliding_window, logit_softcap):
         raise ValueError(f"q_heads={num_q_heads} % kv_heads={num_kv_heads} != 0")
     if k.shape != v.shape:
         raise ValueError(f"k/v shape mismatch: {tuple(k.shape)} vs {tuple(v.shape)}")
-    if k.shape[0] != batch or k.shape[3] != head_dim:
+    if (kv_batch is None and k.shape[0] != batch) or k.shape[3] != head_dim:
         raise ValueError(f"q/kv shape mismatch: {tuple(q.shape)} vs {tuple(k.shape)}")
+    if kv_batch is not None and (kv_batch.shape != (batch,) or kv_batch.dtype != torch.int32
+                                 or kv_batch.device != q.device):
+        raise ValueError(f"kv_batch: want int32 [{batch}] on {q.device}, got {kv_batch.dtype} "
+                         f"{tuple(kv_batch.shape)} on {kv_batch.device}")
     if causal and kv_len < q_len:
         raise ValueError("causal requires kv_seq >= q_seq")
     if sliding_window is not None:
@@ -184,13 +189,16 @@ def _validate(q, k, v, causal, sliding_window, logit_softcap):
 
 def _forward(
     q, k, v, causal: bool, sm_scale: float, save_residuals: bool, sliding_window=None, logit_softcap=None,
-    segments=None,
+    segments=None, kv_batch=None,
 ):
     """K1 (K2 for a window of at most BAND_MAX_WINDOW, K1d with segment ids)
-    for CUDA tensors, the plain version for CPU tensors."""
+    for CUDA tensors, the plain version for CPU tensors (with ``kv_batch``
+    over K's and V's rows picked by ``index_select``)."""
     batch, num_q_heads, q_len, head_dim = q.shape
     num_kv_heads, kv_len = k.shape[1], k.shape[2]
     if q.device.type == "cpu":
+        if kv_batch is not None:
+            k, v = k.index_select(0, kv_batch), v.index_select(0, kv_batch)
         return flash_attention_plain(
             q, k, v, causal=causal, sm_scale=sm_scale, save_residuals=save_residuals,
             sliding_window=sliding_window, logit_softcap=logit_softcap, segments=segments,
@@ -225,6 +233,7 @@ def _forward(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(),
                 *(None if t is None else t.data_ptr() for t in seg),
+                None if kv_batch is None else kv_batch.contiguous().data_ptr(), k.shape[0],
                 batch, num_q_heads, num_kv_heads, q_len, kv_len, head_dim,
                 q.stride(0), q.stride(1), q.stride(2),
                 k.stride(0), k.stride(1), k.stride(2),
@@ -277,6 +286,7 @@ def flash_attention(
     sliding_window: int | None = None,
     logit_softcap: float | None = None,
     segment_ids=None,
+    kv_batch=None,
 ):
     """Fused multi-head attention forward, differentiable in q, k and v.
 
@@ -297,6 +307,13 @@ def flash_attention(
         q_seq - window (local attention, Mistral-style). A window of at most
         BAND_MAX_WINDOW runs K2 on the card.
       logit_softcap: > 0; scores become cap * tanh(score / cap) (Gemma-2).
+      kv_batch: None, or an int32 [batch] tensor on q's device: k and v then
+        hold any number of batch rows (a whole [slots, kv_heads, rows,
+        head_dim] KV cache, or a view of its first rows) and query batch b
+        attends row kv_batch[b]. The kernel reads the index from device
+        memory (a CUDA graph of the call serves every index; JAX's traced
+        slot in ``dynamic_slice``); the plain version takes K's and V's rows
+        by ``index_select``. Not with segment ids, nor under grad.
       segment_ids: packed-sequence ids, one [batch, seq] integer tensor
         (needs q_seq == kv_seq) or a (q_ids [batch, q_seq], kv_ids [batch,
         kv_seq]) pair: a row sees only the columns of its own id, with
@@ -308,17 +325,21 @@ def flash_attention(
     Returns:
       [batch, q_heads, q_seq, head_dim] in q's dtype, plus the LSE if asked.
     """
-    _validate(q, k, v, causal, sliding_window, logit_softcap)
+    _validate(q, k, v, causal, sliding_window, logit_softcap, kv_batch)
     segments = segment_pair(segment_ids, q.shape[0], q.shape[2], k.shape[2])
+    if kv_batch is not None and segments is not None:
+        raise ValueError("flash_attention: kv_batch does not take segment ids")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
     if needs_grad and save_residuals:
         raise ValueError("flash_attention: save_residuals=True is not differentiable; call it under torch.no_grad()")
+    if needs_grad and kv_batch is not None:
+        raise ValueError("flash_attention: kv_batch is not differentiable; call it under torch.no_grad()")
     if needs_grad:
         q_ids, kv_ids = segments or (None, None)
         return FlashAttentionFunction.apply(q, k, v, causal, sm_scale, sliding_window, logit_softcap, q_ids, kv_ids)
-    return _forward(q, k, v, causal, sm_scale, save_residuals, sliding_window, logit_softcap, segments)
+    return _forward(q, k, v, causal, sm_scale, save_residuals, sliding_window, logit_softcap, segments, kv_batch)
 
 
 for _kernel, _attr in _COUNTERS.items():

@@ -67,6 +67,7 @@ from flash_attention_tpu_torch.ops.common import (
     LOG2E,
     TMA_ALIGN,
     mask_window,
+    slot_index,
     sm_count,
     softcap2,
     tma_operands,
@@ -228,17 +229,23 @@ def paged_gather_kv(cache: PagedKVCache, slot: int, kv_end: int, dtype=None):
 
 
 def paged_write_prefill(
-    cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor, slot: int, true_len, start: int = 0
+    cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor, slot, true_len, start: int = 0
 ) -> PagedKVCache:
     """Write [kv_heads, T, head_dim] K/V rows (T a page multiple) at logical
     positions [start, start + T) of ``slot`` (start a page multiple), in
-    place, and set ``lengths[slot] = true_len``. Returns the cache."""
+    place, and set ``lengths[slot] = true_len``. Returns the cache.
+
+    ``slot``: a host int, or a one-element tensor on the device (the
+    prefill programs' slot): the table and the lengths are indexed with it
+    on the device (``ops.common.slot_index``), so nothing reads it on the
+    host."""
     page = cache.page_size
     heads, t, d = k_new.shape
     if t % page:
         raise ValueError(f"prefill length {t} not a multiple of page_size {page}")
     n = t // page
-    phys = _clamped(cache.page_table[slot, start // page : start // page + n], cache.k_pages.shape[0])
+    slot = slot_index(slot, cache.page_table.shape[0], cache.page_table.device)
+    phys = _clamped(cache.page_table[slot, start // page : start // page + n][0], cache.k_pages.shape[0])
     writes = ((cache.k_pages, cache.k_scales, k_new), (cache.v_pages, cache.v_scales, v_new))
     for pages, scales, new in writes:
         if scales is not None:
@@ -247,9 +254,9 @@ def paged_write_prefill(
             new, new_scales = quantize_values(new, pages.dtype)
             scales[phys] = new_scales.reshape(heads, n, page).transpose(0, 1)
         bits(pages)[phys] = bits(new.reshape(heads, n, page, d).transpose(0, 1).to(pages.dtype))
-    lengths = cache.lengths.clone()
-    lengths[slot] = true_len
-    return cache._replace(lengths=lengths)
+    # index_fill_ takes the length as a scalar argument (an index assignment
+    # would copy it from the host, which a CUDA-graph capture refuses).
+    return cache._replace(lengths=cache.lengths.clone().index_fill_(0, slot.long(), true_len))
 
 
 def paged_write_tokens_plain(cache: PagedModelCache, k_new, v_new, slots: torch.Tensor) -> torch.Tensor:
@@ -392,14 +399,6 @@ def _check_kernel_pages(what: str, cache: PagedKVCache, q: torch.Tensor) -> int:
     if cache.page_table.dtype != torch.int32 or not cache.page_table.is_contiguous():
         raise ValueError(f"{what}: the CUDA kernel takes a contiguous int32 page table")
     return payload
-
-
-def _table_row(cache: PagedKVCache, slot: int) -> int:
-    """The address of ``slot``'s row of the (contiguous int32) page table,
-    without building a view of it; ``slot`` indexes as ``page_table[slot]``
-    would (IndexError out of range)."""
-    slot = range(cache.page_table.shape[0])[slot]
-    return cache.page_table.data_ptr() + slot * cache.page_table.stride(0) * 4
 
 
 def _scale_ptrs(cache: PagedKVCache) -> list:
@@ -574,14 +573,16 @@ def _check_bulk_scales(what: str, *scales: torch.Tensor) -> None:
 
 
 def paged_prefill_attention_plain(
-    q: torch.Tensor, cache: PagedKVCache, slot: int, kv_end: int, *, sm_scale: float,
+    q: torch.Tensor, cache: PagedKVCache, slot, kv_end: int, *, sm_scale: float,
     sliding_window: int | None = None, logit_softcap: float | None = None, attention_sinks: int = 0,
 ):
     """The function K8 computes: the slot's first kv_end logical rows
     gathered densely (and dequantized to fp32), then causal
-    ``flash_attention_plain``, end-aligned, with the masks."""
+    ``flash_attention_plain``, end-aligned, with the masks. ``slot``: a
+    host int or a one-element tensor (``paged_prefill_attention``)."""
     n = -(-kv_end // cache.page_size)
-    k, v = _gather_kv(cache, cache.page_table[slot : slot + 1, :n])
+    slot = slot_index(slot, cache.page_table.shape[0], cache.page_table.device)
+    k, v = _gather_kv(cache, cache.page_table[slot, :n])
     return flash_attention_plain(
         q, k[:, :, :kv_end], v[:, :, :kv_end], causal=True, sm_scale=sm_scale, save_residuals=False,
         sliding_window=sliding_window, logit_softcap=logit_softcap, sinks=attention_sinks,
@@ -589,7 +590,7 @@ def paged_prefill_attention_plain(
 
 
 def paged_prefill_attention(
-    q: torch.Tensor, cache: PagedKVCache, slot: int, kv_end: int, *, chunk_len: int, sm_scale: float | None = None,
+    q: torch.Tensor, cache: PagedKVCache, slot, kv_end: int, *, chunk_len: int, sm_scale: float | None = None,
     sliding_window: int | None = None, logit_softcap: float | None = None, attention_sinks: int = 0,
 ) -> torch.Tensor:
     """Causal chunk attention over ``slot``'s pages, read in place.
@@ -598,8 +599,13 @@ def paged_prefill_attention(
       q: [1, q_heads, chunk_len, head_dim], the chunk whose rows sit at
         positions [kv_end - chunk_len, kv_end); its own K/V must already be
         written to the slot's pages.
-      slot, kv_end: host integers; kv_end is the exclusive end of the
-        visible rows, at least chunk_len and at most the slot's capacity.
+      slot: a host int, or a one-element tensor on the device (the serving
+        engines' prefill programs keep theirs in one, filled between
+        replays of a CUDA graph; JAX's traced slot): K8 reads it from
+        device memory and finds the slot's row of the page table itself,
+        so the launch takes no address that depends on the slot.
+      kv_end: a host integer, the exclusive end of the visible rows, at
+        least chunk_len and at most the slot's capacity.
       chunk_len: any length (the JAX package's Pallas grid needs a
         multiple of 128; K8 tiles q in blocks of ``fwd_q_tile`` rows, 64 or
         128, bounded by T).
@@ -645,13 +651,16 @@ def paged_prefill_attention(
         q_tile = fwd_q_tile(1, num_q_heads, t, sm_count(q.device))
     else:
         q, q_tile = _build.unit_last_stride(q), 0
+    slot = slot_index(slot, cache.page_table.shape[0], q.device)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel():
         lib = _build.kernels()
+        table = cache.page_table
         with _build.on_device(q.device):
             err = lib.fat_paged_prefill(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *_scale_ptrs(cache), out.data_ptr(),
-                _table_row(cache, slot), num_q_heads, num_kv_heads, num_pages, page, t,
+                table.data_ptr(), slot.data_ptr(), table.shape[0], table.stride(0), num_q_heads, num_kv_heads,
+                num_pages, page, t,
                 kv_end, head_dim, q.stride(1), q.stride(2), *k_pages.stride()[:3], *v_pages.stride()[:3],
                 _build.int64_tuple_array(tuple(scale_strides(cache.k_scales, cache.v_scales))),
                 sm_scale * LOG2E, mask_window(sliding_window), attention_sinks, softcap2(logit_softcap),

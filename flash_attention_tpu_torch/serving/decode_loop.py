@@ -16,6 +16,14 @@ of ~3,600. The graph reads and writes fixed addresses: the engine's caches
 in place too) and the engine's static input buffers (last tokens, active
 mask, sampling rows), which a membership change overwrites in place.
 
+A prefill chunk is one program too (``PrefillPrograms``), as JAX jits its
+``_prefill_chunk_step`` with ``kv_end`` static: a CUDA graph a (chunk
+length, kv_end) key, whose start follows from the two. The slot is the one
+dynamic input: the chunk's kernels and index operations read it from a
+device scalar that the host fills before each replay, so one program serves
+every slot. The chunk's tokens go to a static buffer of its length, its
+logits to another.
+
 Under tensor parallelism over a data axis (``ServingEngine``'s
 ``shard_caches``) a rank runs the device work of its own slots only: the
 prefill chunks of the slots it owns and the decode block over them. The
@@ -28,7 +36,8 @@ collectives in the same order, since its host loop is every other's.
 
 ``warmup_engine`` is the counterpart of JAX's: throwaway requests that
 walk every prefill chunk position and every power-of-two decode block
-length, greedy and sampled, so the first served run builds no program.
+length, greedy and sampled, so the first served run builds no program,
+prefill or decode.
 """
 
 from __future__ import annotations
@@ -72,9 +81,10 @@ def advance_prefill(eng, slot: int, out) -> None:
     chunk, fix the slot's true length and sample its first token.
 
     The engine-specific pieces are hooks on ``eng``, as in the JAX loop:
-    ``_prefill_chunk_step`` (dense or paged chunk), ``_keep_lengths`` and
-    ``_set_slot_length`` (the engine's one lengths tensor, written in place)
-    and ``_on_slot_finished`` (the paged engine releases the slot's pages).
+    ``_prefill_chunk_step`` (one prefill program, ``PrefillPrograms``, over
+    the dense or paged model; its logits), ``_set_slot_length`` (the engine's one
+    lengths tensor, written in place) and ``_on_slot_finished`` (the paged
+    engine releases the slot's pages).
     A rank that does not own the slot (``_owns``) runs no chunk and takes
     the first token from its owner (``_share_first``).
     """
@@ -86,9 +96,14 @@ def advance_prefill(eng, slot: int, out) -> None:
     hi = min((c + 1) * eng.chunk, len(st.padded))
     owned = eng._owns(slot)
     if owned:
-        toks = torch.as_tensor(st.padded[None, lo:hi], device=eng.device)
-        logits, caches = eng._prefill_chunk_step(eng.params, toks, eng.caches, slot, lo, hi)
-        eng._keep_lengths(caches)
+        # One program of key (hi - lo, hi): the caches and the lengths are
+        # written in place, the logits are the programs' buffer.
+        logits = eng._prefill_chunk_step(st.padded[None, lo:hi], slot, lo, hi)
+        if logits.device.type == "cuda":
+            # A replayed chunk returns before its work is done: the decode
+            # section (``run_decode_block``) starts once it has run.
+            eng._prefill_queued = torch.cuda.Event()
+            eng._prefill_queued.record()
     st.next_chunk += 1
     eng.events.append(("chunk", slot))
     if st.next_chunk * eng.chunk < len(st.padded):
@@ -123,11 +138,17 @@ def warmup_engine(eng, *, prompt_len: int | None = None) -> None:
     once: the kernels' nvcc build (``ops/_build.py``) or the load of the
     built library, each kernel function's load at its first launch, cuBLAS's
     handle and workspace at the first GEMM, the caching allocator's growth
-    to the run's peak, and on the card each decode program's capture
-    (``DecodePrograms``). Two throwaway requests walk both surfaces:
+    to the run's peak, and on the card each program's capture
+    (``PrefillPrograms``, ``DecodePrograms``). Two throwaway requests walk
+    both surfaces:
 
       * prefill: a full-length greedy prompt visits every chunk position
-        (K1 on the dense engine, K8 on the paged one);
+        (K1 on the dense engine, K8 on the paged one), building the prefill
+        program of each (T, kv_end) key. The chunk positions past that
+        prompt's, which only a prompt of more than max_seq - 2B tokens
+        reaches (the clamped last chunk among them), are then run once on
+        the first slot of this rank, whose rows no request holds, and the
+        engine's lengths are restored, so a served run builds none;
       * decode: ``max_new = 2 * decode_block_steps`` makes the remaining
         budget after the prefill-sampled first token ``2B - 1``, so blocks
         run at k = B, B/2, ..., 2, 1 (K6, or K7 with K10). With ``max_new =
@@ -163,6 +184,14 @@ def warmup_engine(eng, *, prompt_len: int | None = None) -> None:
         eng.run([Request(id=(1 << 62) + 41, prompt=(7,) * plen, max_new_tokens=max_new)])
         eng.run([Request(id=(1 << 62) + 42, prompt=(7,), max_new_tokens=max_new,
                          sampling=SamplingParams(temperature=1.0))])
+        progs = eng.prefill_programs
+        rest = [key for key in prefill_keys(eng) if key not in progs.built()]
+        if rest and progs.mode != "issued":
+            lengths = eng._lengths_of(eng.caches)
+            kept = lengths.clone()
+            for t, kv_end in rest:
+                progs.run(np.full((1, t), 7, np.int32), 0, kv_end)
+            lengths.copy_(kept)
     finally:
         eng.eos_id = eos_id
         if had_prefix:
@@ -171,6 +200,15 @@ def warmup_engine(eng, *, prompt_len: int | None = None) -> None:
     eng.decode_tokens = 0
     eng.decode_time_s = 0.0
     eng.events.clear()
+
+
+def prefill_keys(eng) -> list[tuple[int, int]]:
+    """Every (T, kv_end) key of a prefill chunk the engine can run: the
+    chunk positions of a prompt of max_seq - 1 tokens (``start_prefill``'s
+    grid, clamped at max_seq). A shorter prompt's chunks are among them,
+    and a longer one leaves no room for a new token."""
+    padded = min(-(-(eng.max_seq - 1) // eng.chunk) * eng.chunk, eng.max_seq)
+    return [(min(lo + eng.chunk, padded) - lo, min(lo + eng.chunk, padded)) for lo in range(0, padded, eng.chunk)]
 
 
 def make_decode_multi(model_cfg, decode_logits_fn, lengths_of, with_lengths):
@@ -207,7 +245,109 @@ def make_decode_multi(model_cfg, decode_logits_fn, lengths_of, with_lengths):
     return _decode_multi
 
 
-class DecodePrograms:
+class _Programs:
+    """What an engine's decode and prefill programs share: how a key's
+    program is built, run and counted. ``mode`` is how a key runs:
+
+      * "graph" (an engine on the card): a key's first run is eager (the
+        work the caller needed, which also brings up whatever its first use
+        allocates: the kernels' split counters, cuBLAS's handle, the
+        program's static buffers); right after it the key is captured as a
+        ``torch.cuda.CUDAGraph`` in the default error mode, which refuses
+        any host sync, and every later run of the key is one replay.
+        Capturing runs nothing, so no work is thrown away over the live
+        caches;
+      * "issued" (an engine on the card whose model axis spans more than one
+        rank, ``models.attention.tensor_parallel``): every run is eager.
+        Over gloo the model's all-reduces move CUDA tensors through host
+        memory (``parallel.mesh.host_staged``), which no graph can hold;
+        over NCCL they could be captured, but no multi-card run has yet
+        held a captured program against its eager body, so they are issued
+        too;
+      * "eager" (the CPU): every run is eager, through the same static
+        buffers, and a key's first run builds its program as the card
+        captures it, so the bookkeeping the card replays is what the CPU
+        tests exercise.
+
+    ``captures`` counts programs built (captured on the card), ``replays``
+    runs from a built program and ``capture_s`` each key's capture seconds
+    (the card's). A replay launches the kernels its capture recorded but
+    runs no wrapper, so it adds to the wrappers' counts what the capture's
+    calls counted, and the capture itself, which launches nothing, adds
+    nothing: every count of ``ops.counters``' registry, where each wrapper
+    registers its counters as it creates them. ``chip_smoke.py`` holds what
+    a replay adds against the kernel records of its device trace.
+
+    The decode programs share one memory pool and the prefill programs
+    another: within a pool the programs run in one stream, one after
+    another, and each holds its own output, so no capture of the other
+    kind can place its scratch on a decode program's token block.
+    """
+
+    def __init__(self, eng):
+        # A proxy: the engine holds its programs, and a cycle between the two
+        # would leave a dropped engine's graphs to the cyclic collector.
+        self.eng = weakref.proxy(eng)
+        if eng.device.type != "cuda":
+            self.mode = "eager"
+        elif tensor_parallel(eng.tp_group):
+            self.mode = "issued"
+        else:
+            self.mode = "graph"
+        self.pool = torch.cuda.graph_pool_handle() if self.mode == "graph" else None
+        self._programs: dict = {}  # key -> (graph or None, its output, launch counts a replay)
+        self.captures = 0
+        self.replays = 0
+        self.capture_s: dict = {}  # key -> seconds its capture took (the card's)
+
+    def built(self) -> frozenset:
+        """The keys whose program is built."""
+        return frozenset(self._programs)
+
+    def _run(self, key, body):
+        """``body()`` of ``key``: replayed where its program is built, else
+        run eagerly and, but in mode "issued", its program built."""
+        program = self._programs.get(key)
+        if program is not None:
+            graph, out, counts = program
+            self.replays += 1
+            if graph is None:
+                return body()
+            graph.replay()
+            counters.add(counts)
+            return out
+        out = body()
+        if self.mode == "issued":
+            return out
+        if self.mode == "graph":
+            self._programs[key] = self._capture(key, body)
+        else:
+            self._programs[key] = (None, None, {})
+        self.captures += 1
+        return out
+
+    def _capture(self, key, body):
+        t0 = time.perf_counter()
+        before = counters.snapshot()
+        graph = torch.cuda.CUDAGraph()
+        # No cyclic collection while capturing: freeing another object's CUDA
+        # graph, event or pinned buffer is a host call that invalidates a
+        # capture in the default error mode.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = body()
+        finally:
+            if collecting:
+                gc.enable()
+        counts = {c: n - before.get(c, 0) for c, n in counters.snapshot().items() if n != before.get(c, 0)}
+        counters.add(counts, -1)
+        self.capture_s[key] = time.perf_counter() - t0
+        return graph, out, counts
+
+
+class DecodePrograms(_Programs):
     """An engine's decode blocks as programs, one a (k, greedy) key: JAX's
     jitted ``make_decode_multi`` (one XLA program a static (k, greedy)).
 
@@ -215,62 +355,17 @@ class DecodePrograms:
     caches, runs ``make_decode_multi``'s k steps and the sampler, and
     writes the last tokens back into their buffer and the final lengths into
     the engine's one lengths tensor, so the next block, eager or replayed,
-    starts where this one ended. ``mode`` is how a block runs:
-
-      * "graph" (an engine on the card): a key's first block runs eagerly
-        (the block the run needed, which also brings up whatever its first
-        use allocates: the kernels' split counters, cuBLAS's handle); right
-        after it the key is captured as a ``torch.cuda.CUDAGraph`` in the
-        default error mode, which refuses any host sync, and every later
-        block of the key is one replay. Capturing runs nothing, so no block
-        is thrown away over the live caches. All of an engine's graphs share
-        one memory pool: they never run concurrently, and each holds its own
-        token block;
-      * "issued" (an engine on the card whose model axis spans more than one
-        rank, ``models.attention.tensor_parallel``): every block runs
-        eagerly. Over gloo the model's all-reduces move CUDA tensors through
-        host memory (``parallel.mesh.host_staged``), which no graph can hold;
-        over NCCL they could be captured, but no multi-card run has yet held
-        a captured block against its eager body, so they are issued too;
-      * "eager" (the CPU): every block runs eagerly through the same static
-        buffers, and a key's first block builds its program as the card
-        captures it, so the bookkeeping the card replays is what the CPU
-        tests exercise.
-
-    ``captures`` counts programs built (captured on the card) and
-    ``replays`` blocks run from a built program, as the kernel wrappers
-    count their launches. A replay launches the kernels its capture
-    recorded but runs no wrapper, so it adds to the wrappers' counts what
-    the capture's calls counted, and the capture itself, which launches
-    nothing, adds nothing: every count of ``ops.counters``' registry, where
-    each wrapper registers its counters as it creates them. ``chip_smoke.py``
-    holds what a replay adds against the kernel records of its device trace.
+    starts where this one ended. Each program holds its own token block.
+    Modes, counts and the memory pool: ``_Programs``.
     """
 
     def __init__(self, eng):
-        # A proxy: the engine holds its programs, and a cycle between the two
-        # would leave a dropped engine's graphs to the cyclic collector.
-        self.eng = weakref.proxy(eng)
+        super().__init__(eng)
         slots = eng._slot_hi - eng._slot_lo
         self.last, self.active, self.temps, self.topk, self.topp, self.seeds = (
             torch.zeros((slots,), dtype=dtype, device=eng.device)
             for dtype in (torch.int32, torch.bool, torch.float32, torch.int32, torch.float32, torch.int32)
         )
-        if eng.device.type != "cuda":
-            self.mode = "eager"
-        elif tensor_parallel(eng.tp_group):
-            self.mode = "issued"
-        else:
-            self.mode = "graph"
-        self._pool = torch.cuda.graph_pool_handle() if self.mode == "graph" else None
-        self._programs: dict = {}  # (k, greedy) -> (graph or None, token block, launch counts a replay)
-        self.captures = 0
-        self.replays = 0
-        self.capture_s: dict = {}  # (k, greedy) -> seconds its capture took (the card's)
-
-    def built(self) -> frozenset:
-        """The (k, greedy) keys whose program is built."""
-        return frozenset(self._programs)
 
     def upload(self, last_token, active, temps, topk, topp, seeds) -> None:
         """Write this rank's rows of the host arrays into the static input
@@ -293,47 +388,61 @@ class DecodePrograms:
 
     def run(self, k: int, greedy: bool) -> torch.Tensor:
         """One block of key (k, greedy): its [k, slots] tokens, valid until
-        the next block of the same key runs (stream order puts that block
-        after this one's readback)."""
-        key = (k, bool(greedy))
-        program = self._programs.get(key)
-        if program is not None:
-            graph, toks, counts = program
-            self.replays += 1
-            if graph is None:
-                return self.block(k, greedy)
-            graph.replay()
-            counters.add(counts)
-            return toks
-        toks = self.block(k, greedy)
-        if self.mode == "issued":
-            return toks
-        if self.mode == "graph":
-            self._programs[key] = self._capture(k, greedy)
-        else:
-            self._programs[key] = (None, None, {})
-        self.captures += 1
-        return toks
+        the next block of the same key."""
+        return self._run((k, bool(greedy)), lambda: self.block(k, greedy))
 
-    def _capture(self, k: int, greedy: bool):
-        t0 = time.perf_counter()
-        before = counters.snapshot()
-        graph = torch.cuda.CUDAGraph()
-        # No cyclic collection while capturing: freeing another object's CUDA
-        # graph, event or pinned buffer is a host call that invalidates a
-        # capture in the default error mode.
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self._pool):
-                toks = self.block(k, greedy)
-        finally:
-            if collecting:
-                gc.enable()
-        counts = {key: n - before.get(key, 0) for key, n in counters.snapshot().items() if n != before.get(key, 0)}
-        counters.add(counts, -1)
-        self.capture_s[k, bool(greedy)] = time.perf_counter() - t0
-        return graph, toks, counts
+
+class PrefillPrograms(_Programs):
+    """An engine's prefill chunks as programs, one a (T, kv_end) key: JAX's
+    jitted ``_prefill_chunk_step``, one XLA program a static ``kv_end`` and
+    token shape [1, T], with ``start`` (= kv_end - T) and the slot traced.
+
+    A chunk reads its tokens from a static [1, T] int32 buffer of its
+    length and the slot from ``slot``, a device int32 scalar, both filled
+    in place before each run without a host sync (the tokens through pinned
+    memory, the slot by a fill); runs the engine's model over the chunk
+    (``_prefill_logits``), whose kernels and index operations take the slot
+    from device memory, so one program serves every slot; writes K / V and
+    the lengths into the engine's caches in place; and copies its [1, T,
+    vocab] fp32 logits into a buffer of its length. One buffer a length,
+    not a key: at a 1,024-token chunk over a 32,000-token vocabulary one is
+    131 MB. Modes, counts and the memory pool: ``_Programs``.
+    """
+
+    def __init__(self, eng):
+        super().__init__(eng)
+        self.slot = torch.zeros((1,), dtype=torch.int32, device=eng.device)
+        self._tokens: dict = {}  # T -> [1, T] int32 tokens
+        self._logits: dict = {}  # T -> [1, T, vocab] fp32 logits
+
+    def chunk(self, t: int, kv_end: int) -> torch.Tensor:
+        """The chunk of key (t, kv_end) on the static buffers, eagerly: its
+        logits buffer. The body every program holds."""
+        eng = self.eng
+        logits, caches = eng._prefill_logits(self._tokens[t], self.slot, kv_end - t, kv_end)
+        out = self._logits[t]
+        out.copy_(logits)
+        eng._keep_lengths(caches)
+        return out
+
+    def run(self, tokens, slot: int, kv_end: int) -> torch.Tensor:
+        """One chunk: ``tokens`` [1, T] (host integers) at positions [kv_end
+        - T, kv_end) of this rank's ``slot``. Returns its [1, T, vocab] fp32
+        logits, valid until the next chunk of length T runs."""
+        tokens = np.ascontiguousarray(tokens, dtype=np.int32)
+        t = tokens.shape[-1]
+        if t not in self._tokens:
+            self._tokens[t] = torch.zeros((1, t), dtype=torch.int32, device=self.eng.device)
+            self._logits[t] = torch.empty((1, t, self.eng.cfg.vocab_size), dtype=torch.float32,
+                                          device=self.eng.device)
+        host = torch.from_numpy(tokens.reshape(1, t))
+        if self.eng.device.type == "cuda":
+            # Pinned, so the copy is queued without a host sync; the pinned
+            # allocator keeps the block until the copy has read it.
+            host = host.pin_memory()
+        self._tokens[t].copy_(host, non_blocking=True)
+        self.slot.fill_(slot)
+        return self._run((t, kv_end), lambda: self.chunk(t, kv_end))
 
 
 def _start_readback(toks: torch.Tensor):
@@ -399,6 +508,10 @@ def run_decode_block(eng, active, out) -> None:
     released) forces the in-flight block's retirement before the sampling
     state is re-uploaded from ``last_token``.
     """
+    if eng._prefill_queued is not None:
+        # The decode section's wall excludes the prefill chunks queued ahead.
+        eng._prefill_queued.synchronize()
+        eng._prefill_queued = None
     if eng._dev_dirty:
         retire_decode_block(eng, out)
         active = eng.sched.active_slots()

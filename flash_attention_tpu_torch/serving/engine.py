@@ -16,8 +16,10 @@ package's) owns the request lifecycle; this module owns the device work:
 
 The KV cache lives on the device the params live on and is updated in place,
 its lengths too: every layer of the dense caches shares one lengths tensor,
-which the prefill path and the decode programs (``serving/decode_loop.py``,
-a CUDA graph a block on the card) both write in place. Assigning
+which the prefill programs and the decode programs (``serving/decode_loop.
+py``: on the card a CUDA graph a (chunk length, kv_end) key and a graph a
+(k, greedy) key) both write in place. ``warmup()`` builds every program a
+served run can reach, so a run after it captures none. Assigning
 ``engine.caches`` (a restored checkpoint) copies into those buffers.
 
 Tensor-parallel serving (JAX's ``shard_caches`` over a mesh): given the
@@ -53,6 +55,7 @@ from flash_attention_tpu_torch.parallel.mesh import all_gather, axis_index, axis
 from flash_attention_tpu_torch.parallel.sharding import shard_model_params, with_sharding
 from flash_attention_tpu_torch.serving.decode_loop import (
     DecodePrograms,
+    PrefillPrograms,
     advance_prefill,
     make_decode_multi,
     retire_decode_block,
@@ -89,6 +92,11 @@ class _PrefillState:
 
 class ServingEngine:
     """Continuous-batching engine over the transformer stack.
+
+    Each prefill chunk and each decode block runs as one program
+    (``prefill_programs``, ``programs``: on the card a CUDA graph a key,
+    captured at the key's first use); ``warmup()`` builds every program a
+    run can reach, so no run after it captures one.
 
     Args:
       params: model params dict (init_model_params or params_from_jax); the
@@ -140,7 +148,13 @@ class ServingEngine:
         self._caches = with_sharding(self._with_lengths(caches, self._lengths_of(caches)), shard_caches)
         decode = functools.partial(decode_step_logits, tp_group=self.tp_group)
         self._decode_multi = make_decode_multi(self.model_cfg, decode, self._lengths_of, self._with_lengths)
+        self._init_programs()
+
+    def _init_programs(self) -> None:
+        """The engine's decode and prefill programs, each kind over a memory
+        pool of its own."""
         self.programs = DecodePrograms(self)
+        self.prefill_programs = PrefillPrograms(self)
 
     def _init_host_loop(self, params, cfg, max_slots, max_seq, eos_id, chunk, decode_block_steps, pipeline_decode):
         """The host state the shared loop (serving/decode_loop.py) reads and
@@ -177,8 +191,12 @@ class ServingEngine:
         self.steps = 0
         self.decode_tokens = 0
         # Wall-clock in the decode section (block dispatch + readback wait +
-        # host token bookkeeping) — denominator of engine-level tokens/s.
+        # host token bookkeeping) — denominator of engine-level tokens/s. It
+        # starts once the prefill chunks queued ahead of the block have run
+        # (``_prefill_queued``, the last chunk's CUDA event), so a replayed
+        # chunk's device time is not charged to decode.
         self.decode_time_s = 0.0
+        self._prefill_queued = None
         self.events: list[tuple] = []  # ("chunk", slot) / ("decode", n_appended)
 
     def _place_caches(self, make, shard_caches, *, data_sharded: bool):
@@ -235,8 +253,21 @@ class ServingEngine:
         """Whether this rank runs ``slot``'s device work."""
         return self._slot_lo <= slot < self._slot_hi
 
-    def _prefill_chunk_step(self, params, tokens, caches, slot: int, start: int, kv_end: int):
-        return prefill_chunk(params, self.model_cfg, tokens, caches, slot - self._slot_lo, start, kv_end,
+    def _prefill_chunk_step(self, tokens, slot: int, start: int, kv_end: int) -> torch.Tensor:
+        """One prefill chunk, JAX's jitted step: ``tokens`` [1, T] (host
+        integers) at positions [start, kv_end) of ``slot``, through the
+        prefill program of key (T, kv_end) (``self.prefill_programs``),
+        which writes K / V and the lengths into the engine's caches in
+        place. Returns the logits [1, T, vocab] fp32, valid until the next
+        chunk of length T."""
+        if start + np.shape(tokens)[-1] != kv_end:
+            raise ValueError(f"a chunk of {np.shape(tokens)[-1]} tokens from {start} must end at kv_end, got {kv_end}")
+        return self.prefill_programs.run(tokens, slot - self._slot_lo, kv_end)
+
+    def _prefill_logits(self, tokens: torch.Tensor, slot: torch.Tensor, start: int, kv_end: int):
+        """The body of a prefill program: the model over one chunk of this
+        rank's ``slot`` (a device scalar), (logits, caches)."""
+        return prefill_chunk(self.params, self.model_cfg, tokens, self._caches, slot, start, kv_end,
                              tp_group=self.tp_group)
 
     def _keep_lengths(self, caches) -> None:
@@ -297,7 +328,7 @@ class ServingEngine:
 
     def warmup(self, *, prompt_len: int | None = None) -> None:
         """Run every prefill chunk position and decode block length once,
-        greedy and sampled, building every decode program (see
+        greedy and sampled, building every prefill and decode program (see
         decode_loop.warmup_engine), and reset the perf counters."""
         warmup_engine(self, prompt_len=prompt_len)
 

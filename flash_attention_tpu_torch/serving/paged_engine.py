@@ -32,7 +32,10 @@ lengths, the allocator and the prefix cache whole on every rank, as JAX's
 paged engine does; over a data axis the ranks are replicas. ``warmup()``
 (inherited, ``decode_loop.warmup_engine``) runs two throwaway requests with
 the prefix cache suspended: their pages go back to the pool and the prefix
-table is left as it was.
+table is left as it was. Its prefill programs are the dense engine's
+(``decode_loop.PrefillPrograms``): a key serves every slot, since K8 and
+the page write find the slot's table row on the device, and a prompt whose
+leading chunks the prefix cache skips runs the keys of the chunks left.
 """
 
 from __future__ import annotations
@@ -52,7 +55,6 @@ from flash_attention_tpu_torch.models.transformer import (
 from flash_attention_tpu_torch.parallel.sharding import with_sharding
 from flash_attention_tpu_torch.serving.allocator import PageAllocator
 from flash_attention_tpu_torch.serving.decode_loop import (
-    DecodePrograms,
     advance_prefill,
     make_decode_multi,
     retire_decode_block,
@@ -145,11 +147,13 @@ class PagedServingEngine(ServingEngine):
         self.slot_pages: dict[int, list[int]] = {}
         decode = functools.partial(decode_step_logits_paged, tp_group=self.tp_group)
         self._decode_multi = make_decode_multi(self.model_cfg, decode, self._lengths_of, self._with_lengths)
-        self.programs = DecodePrograms(self)
+        self._init_programs()
 
-    # Hooks of the shared host loop (serving/decode_loop.py).
-    def _prefill_chunk_step(self, params, tokens, caches, slot: int, start: int, kv_end: int):
-        return prefill_chunk_paged(params, self.model_cfg, tokens, caches, slot, start, kv_end, tp_group=self.tp_group)
+    # Hooks of the shared host loop (serving/decode_loop.py); a chunk runs
+    # through ServingEngine._prefill_chunk_step's programs.
+    def _prefill_logits(self, tokens: torch.Tensor, slot: torch.Tensor, start: int, kv_end: int):
+        return prefill_chunk_paged(self.params, self.model_cfg, tokens, self._caches, slot, start, kv_end,
+                                   tp_group=self.tp_group)
 
     @staticmethod
     def _lengths_of(cache) -> torch.Tensor:

@@ -45,7 +45,7 @@ def bare_k1(q4, k4, v4, out, scale2: float) -> None:
     """K1, non-causal, unmasked, no LSE, through its C entry into ``out``."""
     b, h, s, d = q4.shape
     err = _build.kernels().fat_flash_fwd(
-        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), None, None, None, None, None,
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), None, None, None, None, None, None, b,
         b, h, h, s, s, d, *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
         scale2, 0, 0, 0.0, 0, _build.DTYPE_CODES[q4.dtype], torch.cuda.current_stream(q4.device).cuda_stream,
         fa.fwd_q_tile(b, h, s, sm_count(q4.device)),

@@ -531,6 +531,303 @@ def serve_prefill(card: str) -> dict:
             **{f"phase {k} decode_tok_s": v for k, v in dec.items()}}
 
 
+def prefill_check(card: str) -> None:
+    """The prefill programs on the card, quickly: phases 4 (the tiny fp32
+    engine, every chunk and block a replay after ``warmup()``, tokens equal
+    to the CPU's), 5 and 8 (``serve_full_dense`` / ``serve_full_paged``:
+    cold and warm prefill, ``hold_programs`` and ``hold_prefill_programs``)
+    and 11 (int8 weights with an int8 dense cache, an fp8 paged cache), on
+    fresh weights from seed 0."""
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+
+    cs.phase_tiny()
+    cfg = ModelConfig()
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    _, dense = cs.serve_full_dense(card, "full", cfg, params, used=("K1", "K6", *_glue(cs)))
+    _, paged = cs.serve_full_paged(card, "full paged", cfg, params, used=("K7", "K8", "K9/K10", *_glue(cs)),
+                                   dense=dense)
+    cs.phase_full_quant(card, params, dense, paged)
+
+
+# Phase 5's, 8's, 11a's, 11b's and 17c's engines: (label, model config fields, int8 weights, paged, Mistral's shape).
+PREFILL_AB = (("5", {}, False, False, False), ("8", {}, False, True, False),
+              ("11a", dict(kv_quant="int8", weight_quant="int8"), True, False, False),
+              ("11b", dict(kv_quant="fp8_e4m3"), False, True, False),
+              ("17c", dict(attention_sinks=4), False, True, True))
+AB_LONG_NEW_TOKENS = 128  # prefill_ab's third served run: decode outlasts the prefill chunks
+
+
+def prefill_ab(card: str) -> dict:
+    """Cold and warm prefill and decode tokens/s of phases 5, 8, 11a, 11b
+    and 17c, through one harness that uses only the engines' public calls,
+    so a parent tree runs it as it is: on fresh weights from seed 0 (17c:
+    Mistral-7B's shape) and the phase's engine, a prefill-only run of the
+    phase's prompts (one token each, wall clock, synchronised) on the fresh
+    engine (cold), ``warmup()`` (its seconds), the same run again (warm; its
+    first chunk timed alone, synchronised, with the launches it counted),
+    then the prompts served with 32 new tokens each twice: as the engine
+    runs them (the run's wall, and decode tokens over the decode section's
+    seconds; a tree whose decode section does not wait for the prefill
+    chunks queued ahead of a block before it starts charges their device
+    time to decode), and with every chunk synchronised where it is issued,
+    so that the decode section waits on decode work only on any tree (the
+    eager chunks of a tree without prefill programs were all but so
+    already); then served once more as the engine runs them with
+    AB_LONG_NEW_TOKENS new tokens each, so that decode outlasts the
+    prefill chunks it interleaves with; and the peak device memory over the
+    warm run and the served ones. ``ms`` is 1000 over phase 5's warm
+    prefill tok/s."""
+    import dataclasses
+    import gc
+    import time
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params, quantize_model_weights
+    from flash_attention_tpu_torch.serving.engine import Request, ServingEngine
+    from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
+
+    out = {}
+    params = {}
+    for label, over, w8, paged, mistral in PREFILL_AB:
+        base = ModelConfig(**cs.MISTRAL) if mistral else ModelConfig()
+        if mistral not in params:
+            params.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            params[mistral] = init_model_params(torch.Generator(device="cuda").manual_seed(0), base)
+        weights = quantize_model_weights(params[mistral]) if w8 else params[mistral]
+        cfg = dataclasses.replace(base, **over)
+        lens = cs.MASKED_PROMPT_LENS if mistral else cs.FULL_PROMPT_LENS
+        rng = np.random.default_rng(17 if mistral else 0)
+        prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n)) for n in lens]
+        if not paged:
+            eng = ServingEngine(weights, cfg, max_slots=8, max_seq=2048, prefill_chunk=256)
+        elif mistral:
+            eng = PagedServingEngine(weights, cfg, max_slots=8, num_pages=297, pages_per_slot=72, page_size=128,
+                                     prefill_chunk=256)
+        else:
+            eng = PagedServingEngine(weights, cfg, max_slots=8, num_pages=129, pages_per_slot=16, page_size=128,
+                                     prefill_chunk=256)
+
+        def prefill_only(base_id):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = eng.run([Request(id=base_id + i, prompt=q, max_new_tokens=1) for i, q in enumerate(prompts)])
+            torch.cuda.synchronize()
+            return [done[base_id + i].tokens for i in range(len(prompts))], time.perf_counter() - t0
+
+        cold_tokens, cold_s = prefill_only(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        step, first = eng._prefill_chunk_step, {}
+
+        def first_chunk(*args):
+            eng._prefill_chunk_step = step
+            before = cs.read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = step(*args)
+            torch.cuda.synchronize()
+            first["ms"] = (time.perf_counter() - t0) * 1e3
+            first["launches"] = sum(cs.read_counts().values()) - sum(before.values())
+            return result
+
+        eng._prefill_chunk_step = first_chunk
+        torch.cuda.reset_peak_memory_stats()
+        warm_tokens, warm_s = prefill_only(100)
+        if warm_tokens != cold_tokens:
+            raise RuntimeError(f"[prefill ab] phase {label}: warm first tokens {warm_tokens} != cold {cold_tokens}")
+        def served(base_id, synced: bool, new_tokens: int = cs.FULL_NEW_TOKENS):
+            def chunk(*args):
+                result = step(*args)
+                torch.cuda.synchronize()
+                return result
+
+            eng._prefill_chunk_step = chunk if synced else step
+            eng.steps, eng.decode_tokens, eng.decode_time_s = 0, 0, 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run([Request(id=base_id + i, prompt=q, max_new_tokens=new_tokens) for i, q in enumerate(prompts)])
+            torch.cuda.synchronize()
+            eng._prefill_chunk_step = step
+            return time.perf_counter() - t0, eng.decode_tokens / eng.decode_time_s
+
+        run_s, decode = served(200, synced=False)
+        _, decode_synced = served(300, synced=True)
+        _, decode_long = served(400, synced=False, new_tokens=AB_LONG_NEW_TOKENS)
+        n = sum(lens)
+        out[label] = {"cold": n / cold_s, "warm": n / warm_s, "decode": decode, "decode synced": decode_synced,
+                      "decode long": decode_long,
+                      "run s": run_s, "first chunk ms": first["ms"], "first chunk launches": first["launches"],
+                      "warmup s": warmup_s, "peak GiB": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"[prefill ab] phase {label}: prefill {n} prompt tokens cold {out[label]['cold']:.1f} tok/s, warm "
+              f"{out[label]['warm']:.1f} tok/s (warm first chunk {first['ms']:.2f} ms, {first['launches']} launches "
+              f"counted); served with {cs.FULL_NEW_TOKENS} new tokens each in {run_s:.3f} s, decode {decode:.1f} "
+              f"tok/s, {decode_synced:.1f} with every chunk synchronised, {decode_long:.1f} with {AB_LONG_NEW_TOKENS} new "
+              f"tokens each; warmup() {warmup_s:.2f} s; peak "
+              f"{out[label]['peak GiB']:.2f} GiB ({card})", flush=True)
+        del eng, weights
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"ms": 1e3 / out["5"]["warm"], **{f"{k} {m}": v for k, row in out.items() for m, v in row.items()}}
+
+
+def decode_probe(card: str) -> dict:
+    """Where a served run's decode time goes, on phase 5's dense and phase
+    8's paged engine (fresh weights from seed 0, after ``warmup()``):
+    phase 5's prompts served with AB_LONG_NEW_TOKENS new tokens each, twice,
+    the engine's decode-section seconds beside the device time of its
+    decode blocks (CUDA events around each ``programs.run``) and the steps
+    they ran, so a change in decode tok/s shows as device time a step or as
+    host time outside it. Uses only the engines' public calls, so a parent
+    tree runs it as it is. ``ms`` is the dense engine's device ms a step."""
+    import gc
+    import time
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params
+    from flash_attention_tpu_torch.serving.engine import Request, ServingEngine
+    from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
+
+    cfg = ModelConfig()
+    params = init_model_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n)) for n in cs.FULL_PROMPT_LENS]
+    out = {}
+    for what, make in (("dense", lambda: ServingEngine(params, cfg, max_slots=8, max_seq=2048, prefill_chunk=256)),
+                       ("paged", lambda: PagedServingEngine(params, cfg, max_slots=8, num_pages=129,
+                                                            pages_per_slot=16, page_size=128,
+                                                            prefill_chunk=256))):
+        eng = make()
+        eng.warmup()
+        inner, blocks = eng.programs.run, []
+
+        def timed(k, greedy, inner=inner, blocks=blocks):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            toks = inner(k, greedy)
+            end.record()
+            blocks.append((k, start, end))
+            return toks
+
+        eng.programs.run = timed
+        for rep in range(2):
+            blocks.clear()
+            eng.steps, eng.decode_tokens, eng.decode_time_s = 0, 0, 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run([Request(id=1000 * (rep + 1) + i, prompt=q, max_new_tokens=AB_LONG_NEW_TOKENS)
+                     for i, q in enumerate(prompts)])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            steps = sum(k for k, _, _ in blocks)
+            device_ms = sum(s.elapsed_time(e) for _, s, e in blocks)
+            key = f"{what} {rep}"
+            out[f"{key} decode tok/s"] = eng.decode_tokens / eng.decode_time_s
+            out[f"{key} device ms a step"] = device_ms / steps
+            out[f"{key} host ms a step"] = (eng.decode_time_s * 1e3 - device_ms) / steps
+            print(f"[decode probe] {what} run {rep}: {eng.decode_tokens} tokens in {eng.decode_time_s:.4f} s of decode "
+                  f"section = {out[f'{key} decode tok/s']:.1f} tok/s; {len(blocks)} blocks, {steps} steps, device "
+                  f"{device_ms:.2f} ms = {device_ms / steps:.4f} ms a step; the section less the blocks' device time "
+                  f"{out[f'{key} host ms a step']:.4f} ms a step; run {run_s:.3f} s ({card})", flush=True)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"ms": out["dense 1 device ms a step"], **out}
+
+
+# A replayed chunk's device operations by group: the first group whose pattern is in an operation's name.
+CHUNK_GROUPS = (("K1 / K8 (fwd_kernel)", ("fwd_kernel",)), ("W2", ("w8_gemm_kernel",)),
+                ("F1-F3", ("add_rms_norm_kernel", "rope_kernel", "swiglu_act_kernel")),
+                ("cuBLAS GEMMs", ("gemm", "nvjet", "xmma", "cutlass")),
+                ("copies", ("copy", "Memcpy", "Memset")), ("other elementwise and indexing", ("",)))
+
+
+def prefill_profile(card: str) -> dict:
+    """Where a replayed prefill chunk's time goes: phase 5's (bf16), 11a's
+    (int8 weights + int8 cache) and 17c's (Mistral-7B's shape, the paged
+    ring with 4 sinks) engines on fresh weights from seed 0, after
+    ``warmup()``, each replaying its 256-token chunk program at the last
+    chunk position (kv_end 2048, and 9216 for 17c) on slot 0 under
+    ``utils/profiling.profile_op`` (device operations by name, busy share)
+    and ``time_fn`` untraced. Prints the device time by group
+    (``CHUNK_GROUPS``) beside the GEMMs' bound (2 x the layers' weights x
+    256 tokens over 989 TFLOP/s, the unembed included). ``ms`` is phase
+    5's untraced replay."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.models.transformer import ModelConfig, init_model_params, quantize_model_weights
+    from flash_attention_tpu_torch.serving.engine import ServingEngine
+    from flash_attention_tpu_torch.serving.paged_engine import PagedServingEngine
+    from flash_attention_tpu_torch.utils.benchmarking import time_fn
+    from flash_attention_tpu_torch.utils.profiling import profile_op
+
+    out = {}
+    for label, mistral in (("5", False), ("11a", False), ("17c", True)):
+        base = ModelConfig(**cs.MISTRAL) if mistral else ModelConfig()
+        params = init_model_params(torch.Generator(device="cuda").manual_seed(0), base)
+        if label == "11a":
+            params = quantize_model_weights(params)
+            eng = ServingEngine(params, dataclasses.replace(base, kv_quant="int8", weight_quant="int8"), max_slots=8,
+                                max_seq=2048, prefill_chunk=256)
+        elif mistral:
+            eng = PagedServingEngine(params, dataclasses.replace(base, attention_sinks=cs.SINKS), max_slots=8,
+                                     num_pages=297, pages_per_slot=72, page_size=128, prefill_chunk=256)
+        else:
+            eng = ServingEngine(params, base, max_slots=8, max_seq=2048, prefill_chunk=256)
+        eng.warmup()
+        kv_end = eng.max_seq
+        tokens = np.random.default_rng(24).integers(0, base.vocab_size, (1, 256)).astype(np.int32)
+        progs = eng.prefill_programs
+
+        def replay():
+            return progs.run(tokens, 0, kv_end)
+
+        replays = progs.replays
+        prof = profile_op(replay)
+        untraced = min(time_fn(replay, warmup=3, iters=20, runs=3))
+        if progs.replays == replays:
+            raise RuntimeError(f"[prefill profile] phase {label}: the chunk did not replay")
+        groups = dict.fromkeys((name for name, _ in CHUNK_GROUPS), 0.0)
+        for op in prof["device_ops"]:
+            group = next(name for name, pats in CHUNK_GROUPS if any(pt in op["name"] for pt in pats))
+            groups[group] += op["device_s_per_call"] * 1e3
+        per_layer = sum(t.numel() for t in cs._tensors(params["layers"][0]))
+        flops = 2 * 256 * (base.num_layers * per_layer + base.vocab_size * base.model_dim)
+        device_ms = sum(groups.values())
+        top = "; ".join(f"{op['name'][:60]} x{op['count']:g} {op['device_s_per_call'] * 1e3:.3f}"
+                        for op in prof["device_ops"][:8])
+        print(f"[prefill profile] phase {label}: the (256, {kv_end}) chunk replayed, {untraced * 1e3:.3f} ms untraced, "
+              f"{prof['wall_s_per_call'] * 1e3:.3f} ms traced, busy {prof['device_busy_share']:.4f}, device "
+              f"{device_ms:.3f} ms in {sum(op['count'] for op in prof['device_ops']):g} operations: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in groups.items())
+              + f"; the GEMMs' bound {flops / cs.PEAK_FLOPS * 1e3:.3f} ms ({flops / 1e12:.2f} TFLOP); top: {top} "
+              f"({card})", flush=True)
+        out[label] = {"ms": untraced * 1e3, "device ms": device_ms, "busy": prof["device_busy_share"],
+                      **{f"ms {k}": v for k, v in groups.items()}}
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"ms": out["5"]["ms"], **{f"{k} {m}": v for k, row in out.items() for m, v in row.items()}}
+
+
 SM90_SOURCES = ("flash_bwd_sm90.cu", "flash_fwd_sm90.cu")
 
 

@@ -66,17 +66,20 @@ def test_paged_prefill_body_by_query_dtype_and_payload(q_dtype, payload):
 
 
 def test_paged_prefill_entry_dispatches_half_precision_to_the_tensor_cores():
-    """fat_paged_prefill hands bf16 / fp16 queries, with the table, page
-    size, sinks and the scales, to sm90_fwd; fp32 keeps flash_fwd.cu's own
-    body. The tensor-core body reads the slot's table row into shared
-    memory before any copy is issued."""
+    """fat_paged_prefill hands bf16 / fp16 queries, with the table, the
+    device slot, page size, sinks and the scales, to sm90_fwd; fp32 keeps
+    flash_fwd.cu's own body. The tensor-core body finds the slot's table
+    row from the slot in device memory and reads it into shared memory
+    before any copy is issued."""
     src = (_build.CSRC_DIR / "flash_fwd.cu").read_text()
     paged = src[src.index('extern "C" int fat_paged_prefill'):]
     assert "dtype != fat::kFloat32" in paged and "fat::sm90_fwd(c)" in paged
-    assert all(f"c.{f} =" in paged for f in ("table", "page_size", "num_pages", "sinks", "ks", "vs", "q_tile"))
+    assert all(f"c.{f} =" in paged for f in ("table", "slot", "table_rows", "table_stride", "page_size", "num_pages",
+                                             "sinks", "ks", "vs", "q_tile"))
     body = (_build.CSRC_DIR / "flash_fwd_sm90.cu").read_text()
-    fill, issue = body.index("s_table[i] = min(max(p.table[i], 0)"), body.index("load_kv(s, n_load);")
-    assert fill < issue
+    row = body.index("const int32_t* row = p.table + static_cast<int64_t>(min(max(*p.slot, 0)")
+    fill, issue = body.index("s_table[i] = min(max(row[i], 0)"), body.index("load_kv(s, n_load);")
+    assert row < fill < issue
 
 
 # ---------------------------------------------------------------- the walk
