@@ -22,7 +22,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 graph's replay), with their grids (K1: blocks, q rows a
                 block, SMs; K6: kv split and blocks) and CUDA-event times of
                 kernel, plain, SDPA and bound; then every dtype / head_dim
-                instantiation at ragged shapes.
+                instantiation at ragged shapes. Then K1q and K1r
+                (``cache_attention``: the chunk over a slot of 11a's
+                quantized dense cache in each payload, slots 3 and 7, kv_end
+                256 / 1024 / 2048, and of 17a's 4352-row ring at kv_end 256
+                to 9000, with 0 and 4 sinks, softcap 50 once, an int8 ring)
+                against their plain versions (the rows copied out in
+                position order and dequantized; past the window with sinks,
+                two passes merged) and the fp32 oracle over the positions
+                the chunk sees, their LSE, bit-identical over two calls, no
+                copy allocated; the fp32 body of both.
   4. tiny     — a tiny fp32 model served on the card (through the kernels)
                 and on the CPU (through the plain versions): the greedy
                 tokens must be identical. On the card after ``warmup()``
@@ -42,7 +51,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 replayed at two slots against its eager body from identical
                 copies of the caches, the logits and every cache tensor
                 bit-identical, one replay traced (its kernel records equal
-                to the launches it counted). Then ``hold_programs``: the
+                to the launches it counted; no cache gather or dequant
+                operation, at most one strided bf16 copy a layer: wo is
+                read through its [H * D, M] view). Then ``hold_programs``: the
                 engine's k=16 block, greedy and
                 sampled, replayed (one CUDA graph) against its eager body
                 from identical copies of the caches, the tokens and every
@@ -115,8 +126,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
  11. full quant — phase 5's weights at full width: ServingEngine with int8
                 weights and an int8 cache on phase 5's requests, and
                 PagedServingEngine with an fp8_e4m3 cache on phase 8's runs;
-                K6q, K7q, K8q and K10q launched, K6, K7, K8 and K10 not;
-                K8q on the tensor-core body; cold and warm prefill,
+                K1q, K6q, K7q, K8q and K10q launched, K1, K6, K7, K8 and
+                K10 not; K1q and K8q on the tensor-core body; cold and warm prefill,
                 ``hold_programs`` and ``hold_prefill_programs`` on both.
  12. backward — K3, K4, K5 and K5's split sum K5s (flash_bwd_sm90.cu:
                 wgmma on TMA-fed tiles in bf16 / fp16; flash_bwd.cu's FMA
@@ -168,7 +179,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 128-row pages, each against plain, the oracle and its LSE.
  16. tiny masked — the tiny fp32 model on the card and the CPU, identical
                 tokens, through a dense window (96, and 48: K2), the rolling
-                cache, rolling + 32 sinks, softcap 30, the paged ring and
+                cache and rolling + 32 sinks (K1r), softcap 30, the paged ring and
                 paged + sinks; rolling == dense window == paged ring, and
                 paged sinks == rolling sinks. The card's runs as in phase
                 4, after ``warmup()``.
@@ -176,15 +187,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 (Mistral-7B v0.1's shape, tied embedding), bf16, seed 0:
                 prompts of {1, 255, 1024, 4095, 4096, 4097, 6000, 9000}
                 tokens, 32 new each, through (a) the rolling ServingEngine
-                (4352-row ring, K1 and K6 only), (b) the same without the
+                (4352-row ring, K1r and K6 only), (b) the same without the
                 ring at max_seq 9216 (last-chunk logits within LOGIT_BAR of
                 (a)), (c) PagedServingEngine with 4 sinks (at most 37 pages a
                 slot, the pool full again after; K7, K8, K10 only) and (d)
                 softcap 50 on phase 5's requests; every forward launch on
                 the tensor-core body; ``hold_programs`` and
                 ``hold_prefill_programs`` on (a) (over the keys its run's
-                chunks used, the ring's device-slot writes and gathers among
-                them; its prefill tok/s includes any capture the run made) and
+                chunks used, the ring's device-slot writes among them; its
+                prefill tok/s includes any capture the run made) and
                 (c); (c) also cold and warm prefill-only runs around the
                 whole ``warmup()``.
  18. masked backward — K1d (the forward's segment ids) and the masked
@@ -613,6 +624,224 @@ def phase_k1(card: str) -> dict:
                     **rep[TRAIN_TOKENS]}}
 
 
+# Phase 3's K1q and K1r cases (csrc/flash_fwd_sm90.cu reading a prefill chunk's cache where it lies): 11a's
+# dense [8, 8, 2048, 128] cache in each payload, and 17a's ring of RING_ROWS rows (with 4 sinks, 128 rows more).
+CACHE_KV_ENDS = (256, 1024, 2048)
+RING_KV_ENDS = (256, 4096, 4352, 4608, 9000)
+
+
+def _ring_oracle(q, k, v, slot: int, kv_end: int, *, window: int, sinks: int, softcap=None):
+    """fp32 attention of the chunk q [1, Hq, T, D] at positions [kv_end - T,
+    kv_end) over the ring k, v [slots, Hkv, rows, D] of ``slot``: the
+    positions it can see (its window's and the sinks') gathered by
+    ``_ring_row``, under the explicit causal / window / sinks mask. Returns
+    (out, base-2 LSE, the visible pairs, the rows read)."""
+    import torch
+
+    t, rows = q.shape[2], k.shape[2]
+    positions = sorted(set(range(max(0, kv_end - t - window + 1), kv_end)) | set(range(min(sinks, kv_end))))
+    idx = torch.tensor([_ring_row(p, rows, sinks) for p in positions], device=k.device)
+    pos = torch.tensor(positions, device=k.device)[None, :]
+    row = torch.arange(t, device=k.device)[:, None] + (kv_end - t)
+    mask = (pos <= row) & ((pos > row - window) | (pos < sinks))
+    k_g, v_g = (x[slot:slot + 1, :, idx] for x in (k, v))
+    out, lse = _oracle_mask(q, k_g, v_g, mask, sm_scale=q.shape[-1] ** -0.5, softcap=softcap)
+    return out, lse, int(mask.sum()), len(positions)
+
+
+def _ring_row_mask(*, t: int, rows: int, kv_end: int, window: int, sinks: int, device):
+    """[T, rows] bool: which rows of a ring a chunk of T queries at
+    positions [kv_end - T, kv_end) sees, each row at the newest position
+    written to it below kv_end (``_ring_row``'s layout; the rows between the
+    sinks and their 128-row pad hold none): causal, in the window or a
+    sink."""
+    import torch
+
+    spad = -(-sinks // 128) * 128 if sinks else 0
+    ring_mod = rows - spad
+    r = torch.arange(rows, device=device)
+    j = r - spad
+    band = sinks + j + ring_mod * torch.div(kv_end - 1 - sinks - j, ring_mod, rounding_mode="floor")
+    pos = torch.where(r < sinks, r, torch.where(r >= spad, band, -1))
+    held = (pos >= 0) & (pos < kv_end) & ((r < sinks) | (pos >= sinks))
+    row = torch.arange(t, device=device)[:, None] + (kv_end - t)
+    return held[None, :] & (pos[None, :] <= row) & ((pos[None, :] > row - window) | (pos[None, :] < sinks))
+
+
+def phase_cache_kernels(card: str) -> dict:
+    """Phase 3's K1q and K1r (``ops.flash_attention.cache_attention``): a
+    prefill chunk, q [1,32,256,128] bf16, over one slot of a cache read
+    where it lies, twice on the same inputs (bit-identical), against its
+    plain version (the slot's rows copied out in position order and
+    dequantized, then ``flash_attention_plain``; with sinks past the window
+    the band and sink passes merged by ``merge_two``) and the fp32 oracle on
+    the positions the chunk sees (a payload dequantized as the plain version
+    and the JAX package dequantize it: code times scale in fp32, rounded to
+    bf16). K1q: 11a's [8, 8, 2048, 128] cache of scaled rows in each
+    payload, slots 3 and 7, kv_end 256 / 1024 / 2048. K1r:
+    17a's ring of RING_ROWS rows (window 4096) at kv_end RING_KV_ENDS, with
+    no sinks and with 4 (a ring of 128 rows more), softcap 50 once, and an
+    int8 ring; every slot holds distinct rows; K1q also equal, bit for
+    bit, to K1 over the plain version's dequantized copy. Then the fp32 body
+    (csrc/flash_fwd.cu) at small shapes against the plain version. Each
+    call allocates its output alone (no copy of the cache). Returns the
+    kernels' line entries "K1q" (int8, kv_end 2048) and "K1r" (kv_end 9000,
+    no sinks; its library call SDPA over the slot's ring under a boolean
+    mask of its rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from flash_attention_tpu_torch.ops.common import slot_index
+    from flash_attention_tpu_torch.ops.flash_attention import cache_attention, cache_attention_plain, flash_attention
+    from flash_attention_tpu_torch.ops.quant import payload_dtype, quantize_values
+    from flash_attention_tpu_torch.ops.reference import reference_attention_with_lse
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    scale = 128 ** -0.5
+    q = (torch.rand((1, 32, 256, 128), generator=gen, device=dev) - 0.5).to(torch.bfloat16)
+    rep = {}
+
+    def run(what, k, v, slot, kv_end, **kw):
+        """The kernel twice, its plain version, and both timed."""
+        st = slot_index(slot, k.shape[0], dev)
+
+        def call():
+            return cache_attention(q_in, k, v, st, kv_end, save_residuals=True, **kw)
+
+        q_in = kw.pop("q", q)
+        out, lse = call()
+        _same_twice(what, call)
+        _no_copy(what, call, out.numel() * out.element_size() + lse.numel() * 4, 2 * k.shape[1] * kv_end * 128 * 2)
+        p_out, p_lse = cache_attention_plain(q_in, k, v, st, kv_end, sm_scale=q_in.shape[-1] ** -0.5,
+                                             save_residuals=True, **kw)
+        return call, out, lse, p_out, p_lse
+
+    # K1q: 11a's dense cache, each payload.
+    for mode in QUANT_MODES:
+        k_x, v_x = scaled_rows((8, 8, 2048, 128), gen), scaled_rows((8, 8, 2048, 128), gen)
+        (kp, ks), (vp, vs) = (quantize_values(x, payload_dtype(mode)) for x in (k_x, v_x))
+        del k_x, v_x
+        for slot in (3, 7):
+            for kv_end in CACHE_KV_ENDS:
+                what = f"[K1q] {mode} slot {slot} of [8,8,2048,128], kv_end {kv_end}"
+                call, out, lse, p_out, p_lse = run(what, kp, vp, slot, kv_end, k_scales=ks, v_scales=vs)
+                k_f, v_f = ((x[slot:slot + 1, :, :kv_end].float() * sc[slot:slot + 1, :, :kv_end])
+                            .to(torch.bfloat16).float() for x, sc in ((kp, ks), (vp, vs)))
+                o_out, o_lse = reference_attention_with_lse(q.float(), k_f, v_f, causal=True)
+                d_plain, d_oracle, d_rel, d_lse = _hold_quant(what, out, p_out, o_out, lse, p_lse, o_lse)
+                # The widen rounds each dequantized row as the plain version does, so K1 over that copy reads
+                # the same tiles: its output must be K1q's bit for bit.
+                k_b, v_b = (x.to(torch.bfloat16) for x in (k_f, v_f))
+                if not torch.equal(flash_attention(q, k_b, v_b, causal=True), out):
+                    raise RuntimeError(f"{what}: K1 over the dequantized copy differs from K1q")
+                timing = ""
+                if mode == "int8" and slot == 7 and kv_end == 2048:
+                    ms = cuda_ms(call)
+                    plain_ms = cuda_ms(lambda: cache_attention_plain(
+                        q, kp, vp, slot_index(slot, 8, dev), kv_end, sm_scale=scale, k_scales=ks, v_scales=vs))
+                    flops = 4 * 128 * 32 * causal_pairs(256, kv_end)
+                    nbytes = 2 * (2 * q.numel()) + 4 * lse.numel() + 2 * 8 * kv_end * (128 + 4)
+                    bound_ms, bound_by = bound(flops, nbytes)
+                    rep["K1q"] = {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                                  "bound_ms": bound_ms, "bound_by": bound_by}
+                    timing = (f"; kernel {ms:.4f} ms ({_rates(flops, ms)}), plain {plain_ms:.4f} ms, library none, "
+                              f"bound {bound_ms:.4f} ms by {bound_by}")
+                log(f"{what}: |out-plain| {d_plain:.3e}, |out-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), "
+                    f"row-relative vs plain and oracle {d_rel:.3e} (bar {REL_BAR['bfloat16']}), |lse| "
+                    f"{d_lse:.3e} (bar {LSE_BAR}), bit-identical over two calls{timing} ({card})")
+                del out, lse, p_out, p_lse, o_out, o_lse, k_f, v_f
+        del kp, ks, vp, vs
+
+    # K1r: 17a's ring, with and without sinks; softcap once; an int8 ring.
+    cases = [(sinks, kv_end, None, None) for sinks in (0, SINKS) for kv_end in RING_KV_ENDS]
+    cases += [(0, 9000, 50.0, None), (SINKS, 9000, None, "int8")]
+    rings = {}
+    for i, (sinks, kv_end, softcap, mode) in enumerate(cases):
+        rows = RING_ROWS + (128 if sinks else 0)
+        if (sinks, mode) not in rings:
+            rings.clear()
+            if mode is None:
+                rings[sinks, mode] = [(torch.rand((8, 8, rows, 128), generator=gen, device=dev) - 0.5)
+                                      .to(torch.bfloat16) for _ in range(2)]
+            else:
+                rings[sinks, mode] = [x for _ in range(2)
+                                      for x in quantize_values(scaled_rows((8, 8, rows, 128), gen), payload_dtype(mode))]
+        kw = dict(ring=True, sinks=sinks, sliding_window=WINDOW, logit_softcap=softcap)
+        if mode:
+            k, k_sc, v, v_sc = rings[sinks, mode]
+            kw.update(k_scales=k_sc, v_scales=v_sc)
+        else:
+            k, v = rings[sinks, mode]
+        slot = (3, 7)[i % 2]
+        what = (f"[K1r] ring of {rows} rows{f', {sinks} sinks' if sinks else ''}"
+                f"{f', softcap {softcap:g}' if softcap else ''}{f', {mode}' if mode else ''}, slot {slot}, "
+                f"kv_end {kv_end}")
+        call, out, lse, p_out, p_lse = run(what, k, v, slot, kv_end, **kw)
+        kf, vf = (k, v) if mode is None else ((x.float() * sc).to(torch.bfloat16) for x, sc in ((k, k_sc), (v, v_sc)))
+        o_out, o_lse, pairs, n_rows = _ring_oracle(q, kf, vf, slot, kv_end, window=WINDOW, sinks=sinks,
+                                                   softcap=softcap)
+        if mode:
+            d_plain, d_oracle, d_rel, d_lse = _hold_quant(what, out, p_out, o_out, lse, p_lse, o_lse)
+        else:
+            d_plain, d_rel, d_lse = _hold(what, out, p_out, o_out, lse, p_lse, o_lse)
+            d_oracle = _max_diff(out, o_out)
+        timing = ""
+        if kv_end == 9000 and mode is None and softcap is None:
+            ms = cuda_ms(call)
+            plain_ms = cuda_ms(lambda: cache_attention_plain(q, k, v, slot_index(slot, 8, dev), kv_end, sm_scale=scale,
+                                                             **kw))
+            # The library call: SDPA over the slot's ring as it lies, under a boolean mask of the ring's rows
+            # (attention does not depend on the keys' order), built outside the timed call.
+            mask = _ring_row_mask(t=q.shape[2], rows=rows, kv_end=kv_end, window=WINDOW, sinks=sinks, device=dev)
+            k_s, v_s = k[slot:slot + 1], v[slot:slot + 1]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q, k_s, v_s, attn_mask=mask, enable_gqa=True)
+
+            d_lib = _max_diff(sdpa(), o_out)
+            if not d_lib < ORACLE_BAR:
+                raise RuntimeError(f"{what}: SDPA over the ring's row mask is {d_lib:.3e} from the oracle")
+            lib_ms = cuda_ms(sdpa)
+            flops = 4 * 128 * 32 * pairs
+            nbytes = 2 * (2 * q.numel()) + 4 * lse.numel() + 2 * 2 * 8 * n_rows * 128
+            bound_ms, bound_by = bound(flops, nbytes)
+            if sinks == 0:
+                rep["K1r"] = {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                              "bound_ms": bound_ms, "bound_by": bound_by}
+            timing = (f"; kernel {ms:.4f} ms ({_rates(flops, ms)}), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+                      f"(SDPA, boolean mask over the ring's rows; |sdpa-oracle| {d_lib:.3e}), bound "
+                      f"{bound_ms:.4f} ms by {bound_by} ({pairs} pairs, {n_rows} rows)")
+            del mask
+        log(f"{what}: |out-plain| {d_plain:.3e}, |out-oracle| {d_oracle:.3e} (bar {ORACLE_BAR}), row-relative vs "
+            f"plain and oracle {d_rel:.3e} (bar {REL_BAR['bfloat16']}), |lse| {d_lse:.3e} (bar {LSE_BAR}), "
+            f"bit-identical over two calls{timing} ({card})")
+        del out, lse, p_out, p_lse, o_out, o_lse, kf, vf
+    rings.clear()
+
+    # The fp32 body (csrc/flash_fwd.cu): K1q over an int8 cache, K1r over a ring with 32 sinks, window 96.
+    qf = torch.rand((1, 4, 64, 32), generator=gen, device=dev) - 0.5
+    (kp, ks), (vp, vs) = (quantize_values(scaled_rows((3, 2, 192, 32), gen), torch.int8) for _ in range(2))
+    ring_k, ring_v = (torch.rand((3, 2, 384, 32), generator=gen, device=dev) - 0.5 for _ in range(2))
+    for what, k, v, kv_end, kw in (
+            ("[K1q] fp32, int8 slot 2 of [3,2,192,32], kv_end 150", kp, vp, 150, dict(k_scales=ks, v_scales=vs)),
+            ("[K1r] fp32, ring of 384 rows, 32 sinks, window 96, slot 2, kv_end 700", ring_k, ring_v, 700,
+             dict(ring=True, sinks=32, sliding_window=96))):
+        out, lse = cache_attention(qf, k, v, 2, kv_end, save_residuals=True, **kw)
+        p_out, p_lse = cache_attention_plain(qf, k, v, slot_index(2, 3, dev), kv_end, sm_scale=32 ** -0.5,
+                                             save_residuals=True, **kw)
+        d_plain, d_lse = _max_diff(out, p_out), _max_diff(lse, p_lse)
+        log(f"{what}: |out-plain| {d_plain:.3e} (bar {FP32_PLAIN_BAR}), |lse| {d_lse:.3e} (bar {LSE_BAR})")
+        if not (d_plain < FP32_PLAIN_BAR and d_lse < LSE_BAR):
+            raise RuntimeError(f"{what} (fp32 body) disagrees")
+    entry = {"route": "cuda", "source": "flash_attention_tpu_torch/csrc/flash_fwd_sm90.cu",
+             "replaces": f"{REFERENCE}/ops/flash_attention.py:57"}
+    return {"K1q": {"name": "fwd_kernel, wgmma + TMA, a slot of a dense int8 cache in place (K1q)", **entry,
+                    **rep["K1q"]},
+            "K1r": {"name": f"fwd_kernel, wgmma + TMA, a slot of a {RING_ROWS}-row ring in place (K1r)", **entry,
+                    **rep["K1r"]}}
+
+
 def phase_k6(card: str) -> dict:
     """K6 at the decode shape: q [8,32,128] against a [8,8,2048,128] cache,
     its kv split printed; output and LSE held against plain (also row by
@@ -810,7 +1039,7 @@ TRACE_ATTEMPTS = 5
 TRACE_PAD = 3  # padding launches (an add to a one-element tensor) added before each further attempt
 
 
-def traced_launches(what: str, replay):
+def traced_launches(what: str, replay, names: list | None = None):
     """``replay()`` (one replay of a decode program, and whatever resets its
     inputs) under torch.profiler, device activity only, synchronised before
     and after: the kernel records of the trace, by group of kernels that run
@@ -821,7 +1050,8 @@ def traced_launches(what: str, replay):
     that did not run, so no attempt may trace more than was counted, and one
     of TRACE_ATTEMPTS must trace all of it, attempt i behind TRACE_PAD * (i -
     1) padding launches. Returns the last attempt's result, the launches by
-    group and the attempts taken."""
+    group and the attempts taken; ``names``, when given, receives the
+    device records' names of the attempt that traced all of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -837,14 +1067,17 @@ def traced_launches(what: str, replay):
             torch.cuda.synchronize()
         gained = {name: n - before[name] for name, n in read_counts().items()}
         # The profiler's raw records: building its FunctionEvents for a block's ~60,000 records takes seconds.
-        traced = registry.traced([e.name() for e in prof.profiler.kineto_results.events()
-                                  if e.device_type() == torch.autograd.DeviceType.CUDA])
+        records = [e.name() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA]
+        traced = registry.traced(records)
         counted = {kernels: sum(gained[k] for k in kernels) for kernels in traced}
         parted = {"/".join(k): (traced[k], counted[k]) for k in traced if traced[k] != counted[k]}
         if any(traced[k] > counted[k] for k in traced):
             raise RuntimeError(f"{what}: more kernel records in the device trace than counted launches, (traced, "
                                f"counted) by kernels: {parted}")
         if not parted:
+            if names is not None:
+                names[:] = records
             return out, {"/".join(k): n for k, n in traced.items() if n}, attempt
         short.append(parted)
     raise RuntimeError(f"{what}: every one of {TRACE_ATTEMPTS} device traces lacks counted launches, (traced, counted) "
@@ -853,8 +1086,8 @@ def traced_launches(what: str, replay):
 
 def check_tensor_cores(what: str, bodies: dict, wrapper: str | None = None) -> None:
     """Every bf16 / fp16 forward launch counted in ``bodies`` (``read_bodies``)
-    ran the tensor-core body, none the FMA body; with ``wrapper`` ("K1/K1d/K2"
-    or "K8/K8q"), that wrapper launched at least once."""
+    ran the tensor-core body, none the FMA body; with ``wrapper`` ("K1/K1d/K2",
+    "K1q/K1r" or "K8/K8q"), that wrapper launched at least once."""
     fma = {k: n for k, n in bodies.items() if k.endswith(" fma") and n}
     if fma or (wrapper is not None and bodies[f"{wrapper} tensor_core"] < 1):
         raise RuntimeError(f"{what}: forward launches by body {bodies}; want the tensor-core body only")
@@ -1006,10 +1239,16 @@ def hold_prefill_programs(label: str, eng, keys=None) -> None:
     pages of the pool a slot (a ring laid out as the engine lays it), so
     every slot reads and writes pages of its own. One replay, the largest
     key's, is traced: its kernel records must equal the launches it added to
-    the counts (``traced_launches``). Called after the main path: it leaves
-    the caches as the last eager chunk wrote them."""
+    the counts (``traced_launches``), and it must hold no device operation
+    of a cache read as plain PyTorch (``smoke_cases.CHUNK_GROUPS``' "cache
+    gathers and dequant": the kernels read the cache in place) and at most
+    one strided bf16 copy a layer (o's transpose: ``wo`` is read through its
+    [H * D, M] view, not permuted into a copy). Called after the main path:
+    it leaves the caches as the last eager chunk wrote them."""
     import numpy as np
     import torch
+
+    from flash_attention_tpu_torch.tools.smoke_cases import chunk_group
 
     progs, slots = eng.prefill_programs, eng._slot_hi - eng._slot_lo
     keys = sorted(progs.built() if keys is None else keys, key=lambda key: (key[1], key[0]))
@@ -1028,7 +1267,7 @@ def hold_prefill_programs(label: str, eng, keys=None) -> None:
     start = [t.clone() for t in live]
     pair = (1 % slots, slots - 1)
     t0 = time.perf_counter()
-    traced = None
+    traced, names = None, []
     for key in keys:
         t, kv_end = key
         tokens = rng.integers(0, cfg.vocab_size, (1, t)).astype(np.int32)
@@ -1043,7 +1282,8 @@ def hold_prefill_programs(label: str, eng, keys=None) -> None:
                 return logits
 
             if key == keys[-1] and slot == pair[-1]:
-                logits, traced, attempts = traced_launches(f"[{label}] the replayed prefill chunk {key}", replay)
+                logits, traced, attempts = traced_launches(f"[{label}] the replayed prefill chunk {key}", replay,
+                                                           names)
             else:
                 logits = replay()
             replayed = [logits] + [x.clone() for x in live]
@@ -1057,11 +1297,18 @@ def hold_prefill_programs(label: str, eng, keys=None) -> None:
                                    f"eager body in tensors {parted} (0: logits, then the caches')")
             del replayed, eager
     torch.cuda.synchronize()
+    groups = [chunk_group(name) for name in names]
+    reads, copies = groups.count("cache gathers and dequant"), groups.count("strided bf16 copies")
+    if reads or copies > cfg.num_layers:
+        raise RuntimeError(f"[{label}] the replayed {keys[-1]} chunk ran {reads} cache gather or dequant operations "
+                           f"(want 0) and {copies} strided bf16 copies (want at most one a layer, o's transpose): "
+                           f"{sorted({n[:100] for n, g in zip(names, groups) if g in ('cache gathers and dequant', 'strided bf16 copies')})}")
     log(f"[{label}] prefill programs: {len(keys)} (T, kv_end) keys {keys[0]}..{keys[-1]}, each replayed at slots "
         f"{pair} == its eager body, logits and {len(live)} cache tensors ({_nbytes(live) / 1e9:.3f} GB) bit for bit; "
         f"mode {progs.mode}, {progs.captures} programs, {progs.replays} replays so far; kernel records in the replayed "
         f"{keys[-1]} chunk's device trace == the launches it counted, {traced} ({sum(traced.values())} launches a "
-        f"chunk; traces taken {attempts}); the hold took {time.perf_counter() - t0:.1f} s")
+        f"chunk; traces taken {attempts}), with {reads} cache gather or dequant operations and {copies} strided bf16 "
+        f"copies for {cfg.num_layers} layers; the hold took {time.perf_counter() - t0:.1f} s")
 
 
 def prefill_only(label: str, eng, prompts, cold=None) -> tuple[list, float]:
@@ -1431,7 +1678,7 @@ def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | No
     bodies = read_bodies()
     log(f"[{label}] 10 requests on 8 slots: kernel launches {launches}, forward launches by body {bodies}; decode "
         f"steps {eng.steps}")
-    check_tensor_cores(f"[{label}] the main path", bodies, "K1/K1d/K2")
+    check_tensor_cores(f"[{label}] the main path", bodies, "K1q/K1r" if "K1q" in used else "K1/K1d/K2")
     for i in range(len(prompts)):
         toks = done[100 + i].tokens
         if len(toks) != FULL_NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in toks):
@@ -2150,15 +2397,17 @@ def _no_copy(what: str, fn, out_bytes: int, copy_bytes: int) -> int:
     """``fn`` (one kernel call) allocates its outputs and less than 1 % of a
     bf16 copy of the cache it reads (``copy_bytes``) besides: the payload is
     read in place, not dequantized into a copy. Returns the bytes ``fn``
-    allocated beyond what was allocated before it, at its peak."""
+    asked the allocator for beyond what was held before it, at its peak.
+    Counted as requested, not as the blocks handed out: the caching allocator
+    may hand a 2 MiB output a cached block up to 1 MiB larger, unsplit."""
     import torch
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
+    base = torch.cuda.memory_stats()["requested_bytes.all.current"]
     fn()
     torch.cuda.synchronize()
-    extra = torch.cuda.max_memory_allocated() - base
+    extra = torch.cuda.memory_stats()["requested_bytes.all.peak"] - base
     if extra - out_bytes >= 0.01 * copy_bytes:
         raise RuntimeError(f"{what} allocated {extra} bytes beside {out_bytes} of output: a dequantized copy?")
     return extra
@@ -2636,7 +2885,7 @@ def phase_full_quant(card: str, params, dense: dict, paged: dict) -> dict:
     params_w8 = quantize_model_weights(params)
     cfg_a = ModelConfig(kv_quant="int8", weight_quant="int8")
     launches_a, numbers_a = serve_full_dense(card, "full quant a", cfg_a, params_w8,
-                                             used=("K1", "K6q", "W1", "W2", *SERVED),
+                                             used=("K1q", "K6q", "W1", "W2", *SERVED),
                                              ref=dense, w1_per_step=4 * cfg_a.num_layers + 1)
     del params_w8
     # Phase 5's bf16 weights stay allocated through 11a; less them, 11a's peak is its own (W1 / W2 read the int8
@@ -2649,7 +2898,7 @@ def phase_full_quant(card: str, params, dense: dict, paged: dict) -> dict:
                            f"{dense['peak_gib']:.2f}")
     launches_b, _ = serve_full_paged(card, "full quant b", ModelConfig(kv_quant="fp8_e4m3"), params,
                                      used=("K7q", "K8q", "K9q/K10q", *SERVED), dense=dense, ref=paged)
-    return {"K6q": launches_a["K6q"], "K7q": launches_b["K7q"], "K8q": launches_b["K8q"], "K10q": launches_b["K9q/K10q"],
+    return {"K1q": launches_a["K1q"], "K6q": launches_a["K6q"], "K7q": launches_b["K7q"], "K8q": launches_b["K8q"], "K10q": launches_b["K9q/K10q"],
             "W1": launches_a["W1"], "W2": launches_a["W2"]}
 
 
@@ -3761,8 +4010,8 @@ def phase_masked_sweep() -> None:
 TINY_MASKED = {  # phase 16: (label, engine, ModelConfig fields, the kernels the card run launches)
     "dense window 96": ("dense", dict(sliding_window=96), ("K1", "K6", *SERVED)),
     "dense window 48": ("dense", dict(sliding_window=48), ("K2", "K6", *SERVED)),
-    "rolling": ("dense", dict(sliding_window=96, rolling=True), ("K1", "K6", *SERVED)),
-    "rolling + sinks 32": ("dense", dict(sliding_window=96, rolling=True, attention_sinks=32), ("K1", "K6", *SERVED)),
+    "rolling": ("dense", dict(sliding_window=96, rolling=True), ("K1r", "K6", *SERVED)),
+    "rolling + sinks 32": ("dense", dict(sliding_window=96, rolling=True, attention_sinks=32), ("K1r", "K6", *SERVED)),
     "softcap 30": ("dense", dict(logit_softcap=30.0), ("K1", "K6", *SERVED)),
     "paged ring": ("paged", dict(sliding_window=96), ("K7", "K8", "K9/K10", *SERVED)),
     "paged + sinks 32": ("paged", dict(sliding_window=96, attention_sinks=32), ("K7", "K8", "K9/K10", *SERVED)),
@@ -4071,7 +4320,7 @@ def phase_full_masked(card: str) -> dict:
         raise RuntimeError(f"rolling cache of {eng.caches[0].k.shape[2]} rows, want {RING_ROWS}")
     log(f"[full masked a] ServingEngine(max_slots=8, max_seq=16384, prefill_chunk=256), rolling: {RING_ROWS} rows a "
         f"slot, KV cache {cache_gb(eng):.4f} GB ({card})")
-    runs["a"] = _serve_masked(card, "full masked a", eng, prompts, used=("K1", "K6", *SERVED), programs="decode")
+    runs["a"] = _serve_masked(card, "full masked a", eng, prompts, used=("K1r", "K6", *SERVED), programs="decode")
     step_logits, _ = decode_step_logits(params, rolling, torch.zeros((8, 1), dtype=torch.int32, device="cuda"), eng.caches)
     if not bool(torch.isfinite(step_logits).all()):
         raise RuntimeError("[full masked a] non-finite decode logits over the ring")
@@ -6859,6 +7108,7 @@ def main() -> None:
     lap("1-2")
     fwd = phase_k1(card)
     k1, k1t = fwd["K1"], fwd["K1t"]
+    cache = phase_cache_kernels(card)
     k6 = phase_k6(card)
     phase_kernel_sweep()
     lap("3")
@@ -6889,6 +7139,7 @@ def main() -> None:
     w8_launches = phase_full_quant(card, params, dense, paged)
     for key in ("K6q", "K7q", "K8q", "K10q"):
         quant[key]["launches"] = w8_launches[key]
+    cache["K1q"]["launches"] = w8_launches["K1q"]
     lap("11")
     bwd = phase_bwd_kernels(card)
     phase_bwd_sweep()
@@ -6910,7 +7161,8 @@ def main() -> None:
     lap("16")
     full = phase_full_masked(card)
     lap("17")
-    masked["K1w"]["launches"], masked["K1c"]["launches"] = full["a"]["K1"], full["d"]["K1"]
+    masked["K1w"]["launches"], masked["K1c"]["launches"] = full["b"]["K1"], full["d"]["K1"]
+    cache["K1r"]["launches"] = full["a"]["K1r"]
     masked["K6r"]["launches"] = full["a"]["K6"]
     glue_launches["F3m"] = full["a"]["F3"]
     masked["K7s"]["launches"], masked["K8s"]["launches"] = full["c"]["K7"], full["c"]["K8"]
@@ -6954,7 +7206,7 @@ def main() -> None:
         row["launches"] = w8_launches[key]
     lap("26")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k1t, k6, k7, k8, k10, *quant.values(), *bwd.values(), *masked, *probes,
+    print(json.dumps({"kernels": [k1, k1t, *cache.values(), k6, k7, k8, k10, *quant.values(), *bwd.values(), *masked, *probes,
                                   *parallel, *sharded, *fused.values(), *w8.values(), s1]}))
     print(card)
     print(json.dumps({

@@ -162,14 +162,49 @@ __device__ __forceinline__ void cache_pair(const P& x0, const P& x1, uint32_t& h
   }
 }
 
-// Eight payload codes (one 8-byte load) widened into four packed M pairs:
-// 16 bytes of a widened row.
+// Codes j and j + 1 of the eight in `raw` (j even) as two exact fp32
+// values: int8 through the fp32 2^23 + (code + 128) built from the byte
+// (no conversion instruction), fp8 through one paired widen to fp16.
+template <typename P>
+__device__ __forceinline__ float2 code_pair(uint2 raw, int j) {
+  const uint32_t word = j < 4 ? raw.x : raw.y;
+  const int k = j % 4;
+  if constexpr (std::is_same_v<P, int8_t>) {
+    const uint32_t biased = word ^ 0x80808080u;
+    return make_float2(__uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 + k)) - 8388736.f,
+                       __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7651 + k)) - 8388736.f);
+  } else {
+    constexpr __nv_fp8_interpretation_t kind = std::is_same_v<P, __nv_fp8_e4m3> ? __NV_E4M3 : __NV_E5M2;
+    const __half2 h(__nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(word >> (8 * k)), kind));
+    return __half22float2(h);
+  }
+}
+
+// Eight payload codes (one 8-byte load) widened exactly into four packed M
+// pairs: 16 bytes of a widened row (every int8 and fp8 code is a bf16 and
+// an fp16).
 template <typename P, typename M>
 __device__ __forceinline__ uint4 widen8(uint2 raw) {
-  const P* x = reinterpret_cast<const P*>(&raw);
-  uint32_t w[4], lo;
+  uint32_t w[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) cache_pair<P, M>(x[2 * j], x[2 * j + 1], w[j], lo);
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = code_pair<P>(raw, 2 * j);
+    w[j] = pack<M>(f.x, f.y);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Eight payload codes dequantized as the chunk prefill dequantizes a cache
+// (K1q, K1r): each code times the row's scale in fp32, rounded to M; four
+// packed M pairs.
+template <typename P, typename M>
+__device__ __forceinline__ uint4 dequant8(uint2 raw, float scale) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = code_pair<P>(raw, 2 * j);
+    w[j] = pack<M>(f.x * scale, f.y * scale);
+  }
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 

@@ -1,10 +1,12 @@
-// K1, K1d, K2 and K8 for fp32 queries: fused attention forward (causal or
-// not, MHA or GQA) over dense K/V or, in place, over a slot's KV pages (fp32,
-// or K8 over quantized pages: int8, fp8 e4m3, fp8 e5m2 with one fp32 scale
-// per row and head), with an optional sliding window, logit softcap and
-// (dense only) packed-sequence segment ids, for Hopper. bf16 and fp16
-// queries run csrc/flash_fwd_sm90.cu's tensor-core body, to which both C
-// entries below dispatch by dtype.
+// K1, K1d, K2, K1q, K1r and K8 for fp32 queries: fused attention forward
+// (causal or not, MHA or GQA) over dense K/V, in place over a slot of a
+// dense KV cache (K1q: quantized, int8, fp8 e4m3, fp8 e5m2 with one fp32
+// scale per row and head) or of a rolling ring with its sinks (K1r), or
+// over a slot's KV pages (fp32, or K8 over quantized pages), with an
+// optional sliding window, logit softcap and (dense only) packed-sequence
+// segment ids, for Hopper. bf16 and fp16 queries run
+// csrc/flash_fwd_sm90.cu's tensor-core body, to which every C entry below
+// dispatches by dtype.
 //
 // Replaces the JAX package's ops/flash_attention.py:_fwd_kernel (K1, the
 // Pallas forward, with its window and softcap branches, :318-331, :408-490,
@@ -13,7 +15,10 @@
 // ops/flash_attention.py:_band_kernel (:795, K2, the window == block band
 // case) and ops/paged.py:_paged_prefill_kernel (:580, K8, chunked-prefill
 // attention reading K/V pages in place, with its dequant, window, softcap
-// and sink branches, :642, :666-682). Same function: S = Q K^T in fp32, an
+// and sink branches, :642, :666-682), and the chunk attention of
+// models/attention.py over a quantized dense cache (:496-511, K1q) and over
+// the rolling ring (gather_positions / slot_of and the sink pass with its
+// merge, :438-481, K1r), read here where the cache lies. Same function: S = Q K^T in fp32, an
 // online exp2 softmax with scale2 = sm_scale * log2(e), P V accumulated in
 // fp32, the output normalised by l (0 where l == 0), and optionally the
 // base-2 LSE m + log2(l) (-inf where l == 0). Causal masking is
@@ -45,9 +50,12 @@
 // dense K/V only), unrolled. The TPU kernel's sub-tiled leading edge,
 // diag_pipe and window_lead are not ported.
 //
-// One body serves both through a kv address policy (tile_index below): the
-// 64-row kv tile starting at row n0 of (b, kv head h) is
+// One body serves all through a kv address policy (tile_index below): the
+// 64-row kv tile starting at logical row n0 of (b, kv head h) is
 //   dense:  base + b * sb + h * sh + n0 * sr
+//   ring:   base + b * sb + h * sh + ring_row(n0) * sr, ring_row(n0) = n0
+//           below the sinks, ring_base + (n0 - sinks) % ring_mod above (the
+//           band's tiles start at `sinks`, so none straddles the ring's end)
 //   paged:  pages + clamp(table[n0 / page_size]) * sb + h * sh + (n0 % page_size) * sr
 // and a quantized tile's row scales lie at the same (page, h, row) of the
 // scale pool. A tile never straddles a page (page_size is a multiple of 64),
@@ -118,7 +126,8 @@ struct FwdParams {
   int num_q_heads, group, q_len, kv_len, causal;
   int page_size, num_pages;
   int window;  // 0: no window
-  int sinks;   // K8: columns [0, sinks) are visible beside the window
+  int sinks;   // K8, K1r: columns [0, sinks) are visible beside the window
+  int ring_mod, ring_base;  // K1r: the ring's modulus above the sinks' rows, and those rows; 0 elsewhere
   float scale2;
   float softcap2;  // cap * log2(e); 0: no softcap
   const int32_t* seg_q;   // K1d: [B, Sq] segment ids; else nullptr
@@ -158,19 +167,22 @@ __device__ __forceinline__ int2 tile_index(const FwdParams& p, int kb, const int
   if constexpr (PAGED) {
     return make_int2(min(max(row[n0 / p.page_size], 0), p.num_pages - 1), n0 % p.page_size);
   } else {
+    if (p.ring_mod > 0) return make_int2(kb, n0 < p.sinks ? n0 : p.ring_base + (n0 - p.sinks) % p.ring_mod);
     return make_int2(kb, n0);
   }
 }
 
 // One kv tile, rows [n0, n0 + BN), folded into the online softmax of the
-// block's q rows: scores, softcap, mask, exp2 update, then P V. m, l and acc
+// block's q rows: scores, softcap, mask, exp2 update, then P V. Columns at
+// or past `lim` (kv_end, or the sinks in a sink tile) are not seen and
+// their rows read as 0. m, l and acc
 // are the calling thread's rows' state (registers once inlined). MASKED: a
 // window, sinks, softcap or segment ids are set; the unmasked instantiation
 // has none of their instructions (with them as runtime parameters of one
 // instantiation the unmasked K1 ran ~8 % slower, PERF.md).
 template <typename P, int D, bool PAGED, bool MASKED>
 __device__ __forceinline__ void attend_tile(const FwdParams& p, int b, int kb, const int32_t* row, int hk, int m0,
-                                            int n0, const P* k_base, const P* v_base, const float* s_q, float* s_kv,
+                                            int n0, int lim, const P* k_base, const P* v_base, const float* s_q, float* s_kv,
                                             float* s_p, float (&m)[ROWS], float (&l)[ROWS],
                                             float (&acc)[ROWS][D / COLS]) {
   constexpr int LD = D + 1;
@@ -182,7 +194,7 @@ __device__ __forceinline__ void attend_tile(const FwdParams& p, int b, int kb, c
 
   const int2 at = tile_index<PAGED>(p, kb, row, n0);
   __syncthreads();  // the previous tile's V and P are no longer read
-  load_tile<P, D>(s_kv, k_base + at.x * p.k_sb + at.y * p.k_sr, p.k_sr, p.kv_len - n0, 1.f,
+  load_tile<P, D>(s_kv, k_base + at.x * p.k_sb + at.y * p.k_sr, p.k_sr, lim - n0, 1.f,
                   p.ks + (at.x * p.ks_sp + hk * p.ks_sh + at.y * p.ks_sr), p.ks_sr);
   __syncthreads();
 
@@ -235,7 +247,7 @@ __device__ __forceinline__ void attend_tile(const FwdParams& p, int b, int kb, c
 #pragma unroll
     for (int j = 0; j < COLS; ++j) {
       const int col = n0 + tx + COLS * j;
-      bool ok = col < p.kv_len && (!p.causal || col <= pos);
+      bool ok = col < lim && (!p.causal || col <= pos);
       if constexpr (MASKED) {
         ok = ok && (p.window == 0 || col > pos - p.window || col < p.sinks);
         if (seg_kv != nullptr) ok = ok && row_id[i] == seg_kv[col];
@@ -264,7 +276,7 @@ __device__ __forceinline__ void attend_tile(const FwdParams& p, int b, int kb, c
     for (int j = 0; j < COLS; ++j) s_p[(ty * ROWS + i) * LDP + tx + COLS * j] = s[i][j];
   }
   __syncthreads();  // K is no longer read; P is complete
-  load_tile<P, D>(s_kv, v_base + at.x * p.v_sb + at.y * p.v_sr, p.v_sr, p.kv_len - n0, 1.f,
+  load_tile<P, D>(s_kv, v_base + at.x * p.v_sb + at.y * p.v_sr, p.v_sr, lim - n0, 1.f,
                   p.vs + (at.x * p.vs_sp + hk * p.vs_sh + at.y * p.vs_sr), p.vs_sr);
   __syncthreads();
 
@@ -283,7 +295,7 @@ __device__ __forceinline__ void attend_tile(const FwdParams& p, int b, int kb, c
 }
 
 // T: query and output type; P: the K/V element type (T, or a payload type
-// whose rows are scaled; K8 only). MASKED as for attend_tile; BAND: K2, the
+// whose rows are scaled: K8, K1q). MASKED as for attend_tile; BAND: K2, the
 // two-tile walk of a window no wider than a kv tile (dense K/V only).
 template <typename T, typename P, int D, bool PAGED, bool MASKED, bool BAND>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
@@ -333,26 +345,33 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
     const int w_lo = p.window > 0 ? max(0, m0 + diag - p.window + 1) : 0;
     if constexpr (BAND) {
       // n_end - w_lo <= BM - 1 + window <= 2 * BN - 1: two tiles from w_lo.
-      attend_tile<P, D, PAGED, true>(p, b, kb, row, hk, m0, w_lo, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
+      attend_tile<P, D, PAGED, true>(p, b, kb, row, hk, m0, w_lo, p.kv_len, k_base, v_base, s_q, s_kv, s_p, m, l,
+                                     acc);
       if (w_lo + BN < n_end)  // uniform across the block
-        attend_tile<P, D, PAGED, true>(p, b, kb, row, hk, m0, w_lo + BN, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
+        attend_tile<P, D, PAGED, true>(p, b, kb, row, hk, m0, w_lo + BN, p.kv_len, k_base, v_base, s_q, s_kv, s_p,
+                                       m, l, acc);
     } else {
-      const int first = w_lo / BN * BN;
-      // K8's sinks: the tiles holding [0, sinks) below the window's first.
+      // The ring's band starts at its sinks: its tiles lie on the grid from `sinks`.
+      const int origin = p.ring_mod > 0 ? p.sinks : 0;
+      const int first = p.window > 0 ? origin + max(0, w_lo - origin) / BN * BN : 0;
+      // The sinks: the tiles holding [0, sinks) below the window's first, their columns past the sinks unseen.
       const int sink_end = min((p.sinks + BN - 1) / BN * BN, first);
       for (int n0 = 0; n0 < sink_end; n0 += BN)
-        attend_tile<P, D, PAGED, true>(p, b, kb, row, hk, m0, n0, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
+        attend_tile<P, D, PAGED, true>(p, b, kb, row, hk, m0, n0, p.sinks, k_base, v_base, s_q, s_kv, s_p, m, l,
+                                       acc);
       const int nq = (p.q_len + BM - 1) / BM, nkv = (p.kv_len + BN - 1) / BN;
       for (int n0 = first; n0 < n_end; n0 += BN) {
         // K1d: a tile pair of disjoint id ranges is skipped, K/V unloaded.
         if (p.seg_q != nullptr && !fat::segment_tiles_meet(p.q_rng, p.kv_rng, b, nq, nkv, m0 / BM, n0 / BN))
           continue;  // uniform across the block
-        attend_tile<P, D, PAGED, true>(p, b, kb, row, hk, m0, n0, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
+        attend_tile<P, D, PAGED, true>(p, b, kb, row, hk, m0, n0, p.kv_len, k_base, v_base, s_q, s_kv, s_p, m, l,
+                                       acc);
       }
     }
   } else {
     for (int n0 = 0; n0 < n_end; n0 += BN)
-      attend_tile<P, D, PAGED, false>(p, b, kb, row, hk, m0, n0, k_base, v_base, s_q, s_kv, s_p, m, l, acc);
+      attend_tile<P, D, PAGED, false>(p, b, kb, row, hk, m0, n0, p.kv_len, k_base, v_base, s_q, s_kv, s_p, m, l,
+                                      acc);
   }
 
   T* o = static_cast<T*>(p.o) + static_cast<int64_t>(bh) * p.q_len * D;
@@ -405,8 +424,8 @@ struct FwdLaunch {
       return cudaErrorInvalidValue;
     if constexpr (!PAGED) {
       if (band) {
-        if (p.window < 1 || p.window > BN) return cudaErrorInvalidValue;
-        return run<T, P, D, true, true>();
+        if (fat::is_payload<P> || p.ring_mod > 0 || p.window < 1 || p.window > BN) return cudaErrorInvalidValue;
+        if constexpr (!fat::is_payload<P>) return run<T, P, D, true, true>();
       }
     } else {
       if (band) return cudaErrorInvalidValue;
@@ -493,6 +512,7 @@ extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* 
     c.kv_rng = kv_rng;
     c.kv_index = kv_index;
     c.kv_batch = kv_batch;
+    c.kv_rows = kv_len;
     c.q_tile = q_tile;
     c.dtype = dtype;
     c.payload = dtype;
@@ -600,6 +620,99 @@ extern "C" int fat_paged_prefill(const void* q, const void* k, const void* v, co
   p.sinks = sinks;
   p.softcap2 = softcap2;
   const FwdLaunch<true> launcher{p, 1, false, static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(fat::dispatch(dtype, payload, head_dim, launcher));
+}
+
+// K1q and K1r: a prefill chunk's attention over one slot of a dense KV
+// cache, read where it lies. q [1, Hq, T, D] with unit stride on D, the
+// chunk's rows at positions [kv_end - T, kv_end); k and v the whole cache
+// [slots, Hkv, kv_rows, D] with unit stride on D and the given slot / head
+// / row strides; slot a device int32, the cache row attended (clamped into
+// [0, slots)); ks and vs the row scales [slots, Hkv, kv_rows] fp32 when
+// payload is a quantized type (scale_strides: K's slot / head / row
+// strides, then V's), else null. ring_mod 0: row = position (the dense
+// cache, kv_end <= kv_rows); else the rolling ring: rows [0, ring_base)
+// hold positions [0, sinks) and band position p >= sinks lies at row
+// ring_base + (p - sinks) % ring_mod (needs a window, and ring_mod a
+// multiple of 64 once positions have wrapped). Causal, with window (0:
+// none), sinks (columns [0, sinks) visible beside the window) and softcap2
+// (0, or cap * log2(e)); o [1, Hq, T, D] contiguous; lse [1, Hq, T] base-2
+// or null. bf16 and fp16 queries run csrc/flash_fwd_sm90.cu (q, the cache
+// and the scales as TMA and bulk copies read them: 16-byte-aligned bases
+// and strides, unit row strides for the scales and kv_rows a multiple of
+// 4), with q_tile q rows a block (64 or 128); this body ignores q_tile.
+// Returns a cudaError_t.
+extern "C" int fat_cache_fwd(const void* q, const void* k, const void* v, const float* ks, const float* vs, void* o,
+                             float* lse, const int32_t* slot, int64_t slots, int64_t num_q_heads, int64_t num_kv_heads,
+                             int64_t q_len, int64_t kv_end, int64_t kv_rows, int64_t head_dim, int64_t q_sh,
+                             int64_t q_sr, int64_t k_sb, int64_t k_sh, int64_t k_sr, int64_t v_sb, int64_t v_sh,
+                             int64_t v_sr, const int64_t* scale_strides, float scale2, int32_t window, int32_t sinks,
+                             int64_t ring_mod, int64_t ring_base, float softcap2, int32_t dtype, int32_t payload,
+                             void* stream, int32_t q_tile) {
+  const bool quant = payload != dtype;
+  if (slot == nullptr || slots < 1 || (quant && (ks == nullptr || vs == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != fat::kFloat32) {
+    const int64_t st[9] = {0, q_sh, q_sr, k_sb, k_sh, k_sr, v_sb, v_sh, v_sr};
+    if (quant && (scale_strides[2] != 1 || scale_strides[5] != 1))  // the scales come in bulk copies
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t sst[4] = {scale_strides[0], scale_strides[1], scale_strides[3], scale_strides[4]};
+    fat::Sm90FwdCall c{};
+    c.q = q;
+    c.k = k;
+    c.v = v;
+    c.o = o;
+    c.lse = lse;
+    c.batch = 1;
+    c.num_q_heads = num_q_heads;
+    c.num_kv_heads = num_kv_heads;
+    c.q_len = q_len;
+    c.kv_len = kv_end;
+    c.head_dim = head_dim;
+    c.st = st;
+    c.scale2 = scale2;
+    c.causal = 1;
+    c.window = window;
+    c.softcap2 = softcap2;
+    c.q_tile = q_tile;
+    c.dtype = dtype;
+    c.stream = static_cast<cudaStream_t>(stream);
+    c.kv_index = slot;
+    c.kv_batch = slots;
+    c.kv_rows = kv_rows;
+    c.sinks = sinks;
+    c.ring_mod = ring_mod;
+    c.ring_base = ring_base;
+    c.payload = payload;
+    c.ks = ks;
+    c.vs = vs;
+    c.sst = quant ? sst : nullptr;
+    return static_cast<int>(fat::sm90_fwd(c));
+  }
+  if (window < 0 || sinks < 0 || ring_mod < 0 || ring_base < 0 || kv_rows < 1 || (ring_mod == 0 && (sinks > 0 ||
+      ring_base > 0 || kv_end > kv_rows)) || (ring_mod > 0 && (window < 1 || sinks > ring_base || kv_rows !=
+      ring_base + ring_mod || (ring_mod % BN && kv_end - sinks > ring_mod))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdParams p = make_params(q, k, v, o, lse, num_q_heads, num_kv_heads, q_len, kv_end, 0, q_sh, q_sr, k_sb, k_sh,
+                            k_sr, v_sb, v_sh, v_sr, scale2, 1);
+  p.ks = ks;
+  p.vs = vs;
+  if (quant) {
+    p.ks_sp = scale_strides[0];
+    p.ks_sh = scale_strides[1];
+    p.ks_sr = scale_strides[2];
+    p.vs_sp = scale_strides[3];
+    p.vs_sh = scale_strides[4];
+    p.vs_sr = scale_strides[5];
+  }
+  p.kv_index = slot;
+  p.kv_batch = static_cast<int>(slots);
+  p.window = window;
+  p.sinks = sinks;
+  p.ring_mod = static_cast<int>(ring_mod);
+  p.ring_base = static_cast<int>(ring_base);
+  p.softcap2 = softcap2;
+  const FwdLaunch<false> launcher{p, 1, false, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(fat::dispatch(dtype, payload, head_dim, launcher));
 }
 

@@ -22,7 +22,7 @@
 //    row by write_cache's rules (the JAX package's models/attention.py:146;
 //    the port's models/attention.py:192-240): dropped at capacity with the
 //    length held at the cache's rows, ring row p % rows on a rolling cache,
-//    the sink mapping of _ring_rows with sinks, and on a quantized cache
+//    the sink mapping of ops/common.ring_rows with sinks, and on a quantized cache
 //    the payload and one fp32 scale a row by common.cuh's quantize (the
 //    quantizer of K9q/K10q, bit-equal to ops/quant.py's quantize_values).
 //    It also writes the new lengths. A token's blocks: one for each 4 q

@@ -439,12 +439,14 @@ __device__ __forceinline__ bool sees(const P& p, int row, int col, int32_t row_i
   return ok;
 }
 
-// The same with the forward's StreamingLLM sinks (K8): columns [0, sinks)
-// are visible beside the window.
+// The same with the forward's StreamingLLM sinks (K8, K1r): columns [0,
+// sinks) are visible beside the window; columns at or past `lim` (kv_len,
+// or the sinks in a sink tile) are not.
 template <bool MASKED, typename P>
-__device__ __forceinline__ bool sees(const P& p, int row, int col, int32_t row_id, int32_t col_id, int sinks) {
+__device__ __forceinline__ bool sees(const P& p, int row, int col, int32_t row_id, int32_t col_id, int sinks,
+                                     int lim) {
   const int pos = row + p.kv_len - p.q_len;
-  bool ok = row < p.q_len && col < p.kv_len && (!p.causal || col <= pos);
+  bool ok = row < p.q_len && col < lim && (!p.causal || col <= pos);
   if constexpr (MASKED) ok = ok && (p.window == 0 || col > pos - p.window || col < sinks) && row_id == col_id;
   return ok;
 }

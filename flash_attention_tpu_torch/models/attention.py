@@ -16,9 +16,10 @@ caller holding an old cache tuple still sees its old lengths.
 Caches are bf16/fp16/fp32 or quantized (``kv_quant``: int8, fp8_e4m3,
 fp8_e5m2; ``ops/quant.py``): each row is stored as a payload with an fp32
 scale, decode reads it through K6's and K7's dequant, K10 quantizes the
-paged decode rows as it writes them, and the dense chunk prefill
-dequantizes the visible slice in plain PyTorch before K1, as the JAX
-package does in XLA. Projection weights may be int8 (``weight_quant``):
+paged decode rows as it writes them, and a dense chunk prefill reads the
+payload and scales in place through K1q (``ops.flash_attention.
+cache_attention``), where the JAX package dequantizes the visible slice in
+XLA first. Projection weights may be int8 (``weight_quant``):
 with no gradient to keep, each product reads the int8 payload through
 ``ops.quant.w8_matmul`` (W1 / W2 on the card), q / k / v together through
 ``w8_matmul_group`` (one W1 launch at decode); under autograd the weight
@@ -57,11 +58,10 @@ import torch
 import torch.distributed as dist
 
 from flash_attention_tpu_torch.models.rope import apply_rope
-from flash_attention_tpu_torch.ops.common import ceil_to, slot_index
+from flash_attention_tpu_torch.ops.common import ceil_to, ring_layout, ring_rows, slot_index, slot_rows
 from flash_attention_tpu_torch.ops.decode import decode_attention
-from flash_attention_tpu_torch.ops.flash_attention import flash_attention
+from flash_attention_tpu_torch.ops.flash_attention import cache_attention, flash_attention
 from flash_attention_tpu_torch.ops.fused import rope, write_row_plain
-from flash_attention_tpu_torch.ops.merge import merge_two
 from flash_attention_tpu_torch.ops.paged import (
     PagedKVCache,
     paged_decode_attention,
@@ -190,22 +190,11 @@ def _quantize_for_cache(cfg: AttentionConfig, x: torch.Tensor):
     return quantize_values(x, payload)
 
 
-def _ring_rows(cfg: AttentionConfig, rows: int, positions: torch.Tensor) -> torch.Tensor:
-    """The row of a rolling cache of ``rows`` rows that holds each position:
-    p % rows; with sinks, p itself below the sinks and sinks_pad + (p -
-    sinks) % (rows - sinks_pad) above."""
-    sinks = cfg.attention_sinks
-    if not sinks:
-        return positions % rows
-    spad = ceil_to(sinks, 128)
-    return torch.where(positions < sinks, positions, spad + (positions - sinks) % (rows - spad))
-
-
 def write_cache(cfg: AttentionConfig, cache: KVCache, k_new, v_new, start_positions) -> KVCache:
     """Insert [B, Hkv, T, D] new K/V rows at per-sequence start positions,
     quantized per row into a quantized cache (payload and scale).
 
-    A rolling cache stores position p at its ring row (``_ring_rows``) and
+    A rolling cache stores position p at its ring row (``ops.common.ring_rows``) and
     its lengths count every position written, never clamped to the ring; a
     write longer than the ring keeps only the rows the ring can hold (with
     sinks: the sink positions and the last ring-modulus rows). Otherwise,
@@ -230,7 +219,7 @@ def write_cache(cfg: AttentionConfig, cache: KVCache, k_new, v_new, start_positi
             keep = (p < cfg.attention_sinks) | (p >= p[:, -1:] + 1 - (max_seq - ceil_to(cfg.attention_sinks, 128)))
         else:
             keep = p >= p[:, -1:] + 1 - max_seq
-        rows = _ring_rows(cfg, max_seq, p)
+        rows = ring_rows(p, max_seq, cfg.attention_sinks)
         b_idx, t_idx = keep.nonzero(as_tuple=True)
         for buf, new in writes:
             bits(buf)[b_idx, :, rows[b_idx, t_idx]] = bits(new[b_idx, :, t_idx].to(buf.dtype))
@@ -330,14 +319,24 @@ def _output_proj(params, o: torch.Tensor, out_dtype, tp_group=None) -> torch.Ten
             return w8_matmul(o2, params["wo"]).to(out_dtype)
         return row_parallel(o2, params["wo"], out_dtype, tp_group)
     wo = _weight(params["wo"], o.dtype)
-    if not tensor_parallel(tp_group):
-        # einsum sums over (d, h), copying wo into that order; a product over
-        # wo's [H * D, M] view sums over (h, d), and in fp32 over an int8 KV
-        # cache that order flips cache codes enough to move the unsharded
-        # logits 1e-4 (relative) from the tensor-parallel model's, against
-        # 7e-7 with einsum (tests/test_torch_sharded_serving.py, 1e-5 bar).
+    grad = torch.is_grad_enabled() and (o.requires_grad or wo.requires_grad)
+    if not tensor_parallel(tp_group) and (o.dtype == torch.float32 or grad):
+        # fp32 keeps einsum, which sums over (d, h) and copies wo into that
+        # order: over an int8 KV cache, the product over wo's [H * D, M] view
+        # sums over (h, d), which flips cache codes enough to move the
+        # unsharded fp32 logits 1e-4 (relative) from the tensor-parallel
+        # model's, against 7e-7 with einsum (tests/test_torch_sharded_serving.py,
+        # 1e-5 bar). A product that keeps a gradient keeps it too:
+        # matmul_f32's fp32 output has none. bf16 / fp16 serving reads the
+        # view, with no copy of wo.
         return torch.einsum("bhtd,hdm->btm", o, wo).to(out_dtype)
-    return row_parallel(o.transpose(1, 2).reshape(b, t, h * d), wo.reshape(h * d, -1), out_dtype, tp_group)
+    o2, wo2 = o.transpose(1, 2).reshape(b, t, h * d), wo.reshape(h * d, -1)
+    if tensor_parallel(tp_group):
+        return row_parallel(o2, wo2, out_dtype, tp_group)
+    # One GEMM over wo's [H * D, M] view with an fp32 result rounded once to
+    # out_dtype, as the JAX package's preferred_element_type=float32 and
+    # row_parallel's partial.
+    return matmul_f32(o2, wo2).to(out_dtype)
 
 
 def _output_proj_decode(params, o: torch.Tensor, out_dtype, tp_group=None) -> torch.Tensor:
@@ -396,15 +395,6 @@ def attention_forward(params, cfg: AttentionConfig, x: torch.Tensor, *, position
     return _output_proj(params, o, x.dtype)
 
 
-def _slot_rows(buf: torch.Tensor, slot: torch.Tensor, rows: torch.Tensor) -> tuple:
-    """The index of ``rows`` of every head of ``slot`` (a [1] device tensor)
-    in a [slots, Hkv, rows, ...] cache tensor: (slot, head, row) broadcast
-    to [1, Hkv, n], so ``buf[index]`` is the [1, Hkv, n, ...] block in
-    position order, one gather (or one scatter) on the device."""
-    heads = torch.arange(buf.shape[1], device=buf.device)
-    return slot[:, None, None], heads[None, :, None], rows[None, None, :]
-
-
 def attention_prefill_chunk(
     params, cfg: AttentionConfig, x: torch.Tensor, cache: KVCache, slot, start: int, kv_end: int, *,
     tp_group=None,
@@ -417,9 +407,12 @@ def attention_prefill_chunk(
 
     Over a rolling cache the chunk's rows go to their ring rows (a chunk may
     wrap the ring's end) and the chunk attends the last min(kv_end, window +
-    T) positions, gathered from the ring in position order. With sinks, a
-    chunk past the window attends its window band (causal + window) and the
-    sink positions (non-causal) in two passes, combined with ``merge_two``.
+    T) positions and, with sinks, the sink positions. The attention reads
+    the slot of the cache where it lies (``ops.flash_attention.
+    cache_attention``: K1, K1q over a quantized cache, K1r over the ring);
+    the JAX package's gather of the ring in position order, dequant and,
+    with sinks past the window, two passes merged by LSE are its plain
+    version, which the CPU runs.
 
     Args:
       x: [1, T, model_dim] — the chunk (right-padded on the LAST chunk only;
@@ -430,8 +423,8 @@ def attention_prefill_chunk(
         device (JAX's traced slot; the serving engines' prefill programs
         keep theirs in one, filled between replays of a CUDA graph). Every
         read and write of the slot's rows indexes with it on the device
-        (``ops.common.slot_index``), and K1 reads it from device memory
-        (``flash_attention``'s ``kv_batch``) over the whole cache.
+        (``ops.common.slot_index``), and the kernels read it from device
+        memory over the whole cache.
       start, kv_end: host integers — the chunk's first position and the
         visible KV horizon.
 
@@ -442,7 +435,7 @@ def attention_prefill_chunk(
     rows = cache.k.shape[2]
     sinks = cfg.attention_sinks
     if cfg.rolling:
-        ring_mod = rows - (ceil_to(sinks, 128) if sinks else 0)
+        ring_mod, _ = ring_layout(rows, sinks)
         if ring_mod < cfg.sliding_window + t:
             raise ValueError(
                 f"rolling ring ({ring_mod} of buffer {rows}) must hold window ({cfg.sliding_window}) + chunk ({t}) "
@@ -459,9 +452,9 @@ def attention_prefill_chunk(
     if cache.quantized():
         writes += [(cache.k_scales, ks), (cache.v_scales, vs)]
     if cfg.rolling:
-        ring_rows = _ring_rows(cfg, rows, start + torch.arange(t, device=x.device))
+        at = ring_rows(start + torch.arange(t, device=x.device), rows, sinks)
         for buf, new in writes:
-            bits(buf)[_slot_rows(buf, slot, ring_rows)] = bits(new.to(buf.dtype))[None]
+            bits(buf)[slot_rows(buf, slot, at)] = bits(new.to(buf.dtype))[None]
     else:
         for buf, new in writes:
             bits(buf)[slot, :, start:start + t] = bits(new.to(buf.dtype))[None]
@@ -469,53 +462,8 @@ def attention_prefill_chunk(
     # start + t`` would copy it from the host, which a capture refuses.
     cache = cache._replace(lengths=cache.lengths.clone().index_fill_(0, slot.long(), start + t))
 
-    def dequant(vis, scales):
-        # A quantized cache is dequantized here, in plain PyTorch, as the
-        # JAX package does in XLA (models/attention.py:496-511).
-        return vis if scales is None else (vis.float() * scales).to(cfg.torch_dtype)
-
-    def gather(positions):
-        """The slot's rows holding ``positions``, in position order, as
-        [1, Hkv, n, D] K and V (a copy)."""
-        idx = _ring_rows(cfg, rows, positions)
-        return tuple(
-            dequant(bits(buf)[_slot_rows(buf, slot, idx)].view(buf.dtype),
-                    None if sc is None else sc[_slot_rows(sc, slot, idx)])
-            for buf, sc in ((cache.k, cache.k_scales), (cache.v, cache.v_scales))
-        )
-
-    def arange(lo, hi):
-        return torch.arange(lo, hi, device=x.device)
-
-    if cfg.rolling and sinks and kv_end > cfg.sliding_window:
-        # Every row attends the sinks and its window band: the band pass and
-        # the sink pass (every chunk past the window starts at or after the
-        # sinks, which init_kv_cache's check guarantees), merged by LSE.
-        g = min(cfg.sliding_window + t, kv_end - sinks)
-        k_band, v_band = gather(arange(kv_end - g, kv_end))
-        o_band, lse_band = flash_attention(q, k_band, v_band, causal=True, save_residuals=True, **_masks(cfg))
-        k_sink, v_sink = gather(arange(0, sinks))
-        o_sink, lse_sink = flash_attention(q, k_sink, v_sink, causal=False, logit_softcap=cfg.logit_softcap,
-                                           save_residuals=True)
-        o, _ = merge_two(o_band, lse_band, o_sink, lse_sink)
-        return _output_proj(params, o.to(q.dtype), x.dtype, tp_group), cache
-    kv_batch = None
-    if cfg.rolling:
-        # Only the last min(kv_end, window + T) positions are visible (with
-        # sinks, kv_end <= window here, so nothing has rolled out yet).
-        g = min(kv_end, cfg.sliding_window + t)
-        k_vis, v_vis = gather(arange(kv_end - g, kv_end))
-    elif cache.quantized():
-        k_vis, v_vis = (
-            dequant(bits(buf)[:, :, :kv_end].index_select(0, slot).view(buf.dtype),
-                    sc[:, :, :kv_end].index_select(0, slot))
-            for buf, sc in ((cache.k, cache.k_scales), (cache.v, cache.v_scales))
-        )
-    else:
-        # The visible prefix of every slot goes to the kernel as a strided
-        # view, not a copy, and K1 reads the slot from device memory.
-        k_vis, v_vis, kv_batch = cache.k[:, :, :kv_end], cache.v[:, :, :kv_end], slot
-    o = flash_attention(q, k_vis, v_vis, causal=True, kv_batch=kv_batch, **_masks(cfg))
+    o = cache_attention(q, cache.k, cache.v, slot, kv_end, k_scales=cache.k_scales, v_scales=cache.v_scales,
+                        ring=cfg.rolling, sinks=sinks, **_masks(cfg))
     return _output_proj(params, o, x.dtype, tp_group), cache
 
 

@@ -119,6 +119,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, f32,  # window, sinks, softcap2
         i32, i32, ptr, i32,  # dtype, payload, stream, q rows a block (the tensor-core body)
     ]
+    lib.fat_cache_fwd.restype = c.c_int
+    lib.fat_cache_fwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, the cache's k, v, their scales (or null), o, lse (or null)
+        ptr, i64,  # the slot (device int32) and the cache's slots
+        i64, i64, i64, i64, i64, i64,  # Hq, Hkv, T, kv_end, the rows a slot, D
+        i64, i64, i64, i64, i64, i64, i64, i64,  # q's head / row strides, k's and v's slot / head / row strides
+        c.POINTER(i64), f32,  # scale strides, scale2
+        i32, i32, i64, i64, f32,  # window, sinks, the ring's modulus and sink rows (0, 0: no ring), softcap2
+        i32, i32, ptr, i32,  # dtype, payload, stream, q rows a block (the tensor-core body)
+    ]
     shape = c.POINTER(i64)
     # q, k, v, k/v scales, o, lse, lengths, then the fp32 workspace and the
     # ticket counters; shape: csrc/decode.cu's Shape array; scale2, softcap2.

@@ -6,9 +6,11 @@ negative mask value rather than -inf, so exp2 of a masked score underflows to
 exactly 0. The CUDA sources (csrc/common.cuh) carry the same three numbers.
 Also the masks' shared pieces: the visibility predicate the plain versions
 apply, and the packed-sequence ids' checks and tile ranges; a cache's slot
-as a device index (``slot_index``); and what the tensor-core bodies
-(csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu) need of their operands:
-the dtypes they take and the alignment TMA reads.
+as a device index (``slot_index``) and the rolling ring's rows
+(``ring_rows``, ``ring_layout``, ``slot_rows``); and what the tensor-core
+bodies (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu) need of their
+operands: the dtypes they take and the alignment TMA and bulk copies
+read.
 """
 
 from __future__ import annotations
@@ -117,6 +119,33 @@ def slot_index(slot, rows: int, device) -> torch.Tensor:
     return torch.full((1,), range(rows)[slot], dtype=torch.int32, device=device)
 
 
+def ring_rows(positions: torch.Tensor, rows: int, sinks: int = 0) -> torch.Tensor:
+    """The row of a rolling cache of ``rows`` rows a slot that holds each
+    position: p % rows; with sinks, p itself below the sinks and
+    ``ring_base + (p - sinks) % ring_mod`` above (``ring_layout``)."""
+    if not sinks:
+        return positions % rows
+    ring_mod, ring_base = ring_layout(rows, sinks)
+    return torch.where(positions < sinks, positions, ring_base + (positions - sinks) % ring_mod)
+
+
+def ring_layout(rows: int, sinks: int) -> tuple[int, int]:
+    """A rolling cache's (ring_mod, ring_base): positions [0, sinks) keep
+    rows [0, ring_base), the sinks padded to 128 rows, and the band cycles
+    through the ring_mod rows after them."""
+    ring_base = ceil_to(sinks, 128) if sinks else 0
+    return rows - ring_base, ring_base
+
+
+def slot_rows(buf: torch.Tensor, slot: torch.Tensor, rows: torch.Tensor) -> tuple:
+    """The index of ``rows`` of every head of ``slot`` (a [1] device tensor)
+    in a [slots, Hkv, rows, ...] cache tensor: (slot, head, row) broadcast
+    to [1, Hkv, n], so ``buf[index]`` is the [1, Hkv, n, ...] block in
+    position order, one gather (or one scatter) on the device."""
+    heads = torch.arange(buf.shape[1], device=buf.device)
+    return slot[:, None, None], heads[None, :, None], rows[None, None, :]
+
+
 def mask_window(sliding_window: int | None) -> int:
     """The kernels' window argument: 0 for none."""
     return 0 if sliding_window is None else int(sliding_window)
@@ -144,6 +173,20 @@ def tma_aligned(x: torch.Tensor) -> bool:
         and x.data_ptr() % TMA_ALIGN == 0
         and all(n == 1 or st * size % TMA_ALIGN == 0 for n, st in zip(x.shape[:-1], x.stride()[:-1]))
     )
+
+
+def check_bulk_scales(what: str, *scales: torch.Tensor) -> None:
+    """Raise unless each [pages or slots, heads, rows] scale tensor can be
+    read in 64-row bulk copies as it lies: unit row stride, a 16-byte-aligned
+    base and page (slot) / head strides of whole 16 bytes."""
+    for t in scales:
+        if not (t.stride(-1) == 1 and t.data_ptr() % TMA_ALIGN == 0
+                and all(st * t.element_size() % TMA_ALIGN == 0 for st in t.stride()[:-1])):
+            raise ValueError(
+                f"{what}: the CUDA kernel reads row scales in bulk copies, so the scales' base pointer and page / "
+                f"head strides must be multiples of {TMA_ALIGN} bytes with a unit row stride; got pointer "
+                f"{t.data_ptr() % TMA_ALIGN} bytes past alignment and strides {tuple(t.stride())}"
+            )
 
 
 def tma_operands(*tensors: torch.Tensor) -> list[torch.Tensor]:

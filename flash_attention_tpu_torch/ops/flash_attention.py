@@ -13,13 +13,24 @@ What bounds the kernels on an H100 (tensor-core arithmetic at long kv, K2's
 bytes) and what each design does about it is written at the top of each
 source.
 
+A prefill chunk reads its cache through ``cache_attention``: over a slot of
+the dense cache K1 (``flash_attention``'s ``kv_batch`` form), over a
+quantized one K1q, over the rolling ring K1r (16-bit or quantized, its sinks
+in the same pass), each reading the cache where it lies. They stand for the
+JAX package's ``_fwd_kernel`` fed by the XLA dequant and ring gather of its
+chunk prefill (``models/attention.py:438-511``), which copy the visible rows
+first; that copy is now only ``cache_attention_plain``'s, the function they
+compute.
+
 ``flash_attention`` runs the plain PyTorch version for CPU tensors and the
 CUDA kernel for CUDA tensors; there is no fallback from one to the other.
 ``flash_attention.launches`` counts K1 launches,
 ``flash_attention.band_launches`` K2's and
 ``flash_attention.segment_launches`` K1d's (any call with segment ids);
 ``.tensor_core_launches`` and ``.fma_launches`` count them again by the body
-that ran.
+that ran; ``cache_attention.quant_launches`` counts K1q's,
+``.ring_launches`` K1r's (a quantized ring's too), and its own
+``.tensor_core_launches`` and ``.fma_launches`` both by body.
 
 Under grad the call goes through ``FlashAttentionFunction``, the
 counterpart of the JAX package's custom VJP (``_fa``/``_fa_fwd``/``_fa_bwd``,
@@ -44,15 +55,23 @@ from flash_attention_tpu_torch.ops.common import (
     M_FLOOR,
     MASK_VALUE,
     TENSOR_CORE_DTYPES,
+    check_bulk_scales,
     mask_window,
+    ring_layout,
+    ring_rows,
     segment_operands,
     segment_pair,
+    slot_index,
+    slot_rows,
     sm_count,
     softcap2,
     tma_operands,
     visible_mask,
 )
 from flash_attention_tpu_torch.ops.counters import body_counter, counter
+from flash_attention_tpu_torch.ops.decode import check_tma_rows
+from flash_attention_tpu_torch.ops.merge import merge_two
+from flash_attention_tpu_torch.ops.quant import bits
 
 # K2 takes a causal window no wider than the kernels' 64-row kv tile.
 BAND_MAX_WINDOW = 64
@@ -71,10 +90,12 @@ def fwd_q_tile(batch: int, num_q_heads: int, q_len: int, num_sms: int) -> int:
 
 
 def fwd_body(dtype: torch.dtype) -> str:
-    """The body a CUDA forward call (K1, K1d, K2, or K8 over any pages)
-    launches for queries of ``dtype``: "tensor_core" (csrc/flash_fwd_sm90.cu)
-    in bf16 / fp16, "fma" (csrc/flash_fwd.cu) in fp32. A 1-byte payload
-    (K8q) widens exactly to the query's type for Q K and to bf16 for P V."""
+    """The body a CUDA forward call (K1, K1d, K2, K1q, K1r, or K8 over any
+    pages) launches for queries of ``dtype``: "tensor_core"
+    (csrc/flash_fwd_sm90.cu) in bf16 / fp16, "fma" (csrc/flash_fwd.cu) in
+    fp32. A paged 1-byte payload (K8q) widens exactly to the query's type for
+    Q K and to bf16 for P V; a dense one (K1q, K1r) dequantizes to the
+    query's type, as the chunk prefill's plain version does."""
     return "tensor_core" if dtype in TENSOR_CORE_DTYPES else "fma"
 
 
@@ -91,19 +112,23 @@ def fwd_route(dtype: torch.dtype, sliding_window=None, has_segments: bool = Fals
     return kernel, fwd_body(dtype)
 
 
-def fwd_walk(m0: int, q_tile: int, q_len: int, kv_len: int, *, window=None, sinks: int = 0) -> list[int]:
-    """The first rows of the kv tiles (KV_TILE rows each) that the
+def fwd_walk(m0: int, q_tile: int, q_len: int, kv_len: int, *, window=None, sinks: int = 0,
+             ring: bool = False) -> list[int]:
+    """The first positions of the kv tiles (KV_TILE rows each) that the
     tensor-core body's causal block of q rows [m0, m0 + q_tile) walks, in
     order, as csrc/flash_fwd_sm90.cu cuts them (without segment ids): the
     tiles holding [0, sinks) below the band, then from the tile of the
     block's first row's first visible column to the causal diagonal of its
-    last row. A paged kv (K8) reads tile n0 from page n0 // page_size."""
+    last row, on the grid from 0, or on the ring (K1r) from ``sinks``. A
+    paged kv (K8) reads tile n0 from page n0 // page_size, the ring tile n0
+    from ``ops.common.ring_rows``' row of n0 (n0 itself below the sinks)."""
     diag = kv_len - q_len
     n_end = min(kv_len, min(m0 + q_tile, q_len) + diag)
+    origin = sinks if ring else 0
     w_lo = max(0, m0 + diag - window + 1) if window else 0
-    n_begin = w_lo // KV_TILE * KV_TILE
+    n_begin = origin + max(0, w_lo - origin) // KV_TILE * KV_TILE if window else 0
     sink_end = min(-(-sinks // KV_TILE) * KV_TILE, n_begin) if window else 0
-    return [*range(0, sink_end, KV_TILE), *range(n_begin, n_end, KV_TILE)]
+    return [*range(0, min(sink_end, n_end), KV_TILE), *range(n_begin, n_end, KV_TILE)]
 
 
 # Each forward kernel's launch counter on ``flash_attention``.
@@ -342,7 +367,185 @@ def flash_attention(
     return _forward(q, k, v, causal, sm_scale, save_residuals, sliding_window, logit_softcap, segments, kv_batch)
 
 
+def cache_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, slot: torch.Tensor, kv_end: int, *, sm_scale: float,
+    k_scales=None, v_scales=None, ring: bool = False, sinks: int = 0, sliding_window: int | None = None,
+    logit_softcap: float | None = None, save_residuals: bool = False,
+):
+    """The function K1 (``kv_batch`` form), K1q and K1r compute, as the JAX
+    package's chunk prefill computes it (``models/attention.py:438-511``):
+    the slot's visible rows copied out in position order (the dense prefix,
+    or on the ring the last min(kv_end, window + T) positions), a quantized
+    payload dequantized to q's dtype, then ``flash_attention_plain`` causal
+    with the masks; on the ring with sinks past the window, the band pass
+    and a non-causal pass over the sinks, merged by their base-2 LSE
+    (``merge_two``). ``slot``: a [1] int32 tensor on the cache's device."""
+    t = q.shape[2]
+    rows = k.shape[2]
+
+    def dequant(vis, scales):
+        return vis if scales is None else (vis.float() * scales).to(q.dtype)
+
+    def gather(lo, hi):
+        """The slot's rows holding positions [lo, hi), in position order, as
+        [1, Hkv, n, D] K and V (a copy)."""
+        idx = ring_rows(torch.arange(lo, hi, device=k.device), rows, sinks)
+        return tuple(
+            dequant(bits(buf)[slot_rows(buf, slot, idx)].view(buf.dtype),
+                    None if sc is None else sc[slot_rows(sc, slot, idx)])
+            for buf, sc in ((k, k_scales), (v, v_scales))
+        )
+
+    def attend(kv, causal, window, lse):
+        return flash_attention_plain(q, *kv, causal=causal, sm_scale=sm_scale, save_residuals=lse,
+                                     sliding_window=window, logit_softcap=logit_softcap)
+
+    if ring and sinks and kv_end > sliding_window:
+        # Every row attends the sinks and its window band: the band pass and
+        # the sink pass (every chunk past the window starts at or after the
+        # sinks), merged by LSE.
+        g = min(sliding_window + t, kv_end - sinks)
+        o_band, lse_band = attend(gather(kv_end - g, kv_end), True, sliding_window, True)
+        o_sink, lse_sink = attend(gather(0, sinks), False, None, True)
+        o, lse = merge_two(o_band, lse_band, o_sink, lse_sink)
+        o = o.to(q.dtype)
+        return (o, lse) if save_residuals else o
+    if ring:
+        # Only the last min(kv_end, window + T) positions are visible (with
+        # sinks, kv_end <= window here, so nothing has rolled out yet).
+        g = min(kv_end, sliding_window + t)
+        kv = gather(kv_end - g, kv_end)
+    elif k_scales is not None:
+        kv = tuple(
+            dequant(bits(buf)[:, :, :kv_end].index_select(0, slot).view(buf.dtype),
+                    sc[:, :, :kv_end].index_select(0, slot))
+            for buf, sc in ((k, k_scales), (v, v_scales))
+        )
+    else:
+        kv = (k[:, :, :kv_end].index_select(0, slot), v[:, :, :kv_end].index_select(0, slot))
+    return attend(kv, True, sliding_window, save_residuals)
+
+
+def cache_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, slot, kv_end: int, *, k_scales=None, v_scales=None,
+    ring: bool = False, sinks: int = 0, sliding_window: int | None = None, logit_softcap: float | None = None,
+    save_residuals: bool = False,
+):
+    """A prefill chunk's causal attention over one slot of a dense KV cache,
+    read where it lies (no gathered or dequantized copy).
+
+    Args:
+      q: [1, q_heads, T, head_dim], the chunk at positions [kv_end - T,
+        kv_end); its own K / V already written to the cache.
+      k, v: the whole cache [slots, kv_heads, rows, head_dim], the model's
+        dtype or a 1-byte payload (int8, float8_e4m3fn, float8_e5m2) with
+        ``k_scales`` / ``v_scales`` [slots, kv_heads, rows, 1] fp32.
+      slot: the cache row attended, a host int or a one-element tensor on
+        the device (the kernels read it from device memory, so one CUDA
+        graph of a chunk serves every slot).
+      kv_end: a host int, the exclusive end of the visible positions.
+      ring: the rolling cache (``models/attention.py``): position p at row
+        ``ops.common.ring_rows(p, rows, sinks)``; needs ``sliding_window``
+        and a ring of at least window + T rows above the sinks' rows, whose
+        rows are all finite (the kernels read whole tiles, the rows they
+        mask out included; ``init_kv_cache`` zeroes the ring).
+      sinks: StreamingLLM sinks (ring only): positions [0, sinks) visible
+        beside the window.
+      sliding_window, logit_softcap: as ``flash_attention``'s; the softmax
+        scale is 1/sqrt(head_dim).
+      save_residuals: also return the base-2 LSE [1, q_heads, T] fp32.
+
+    For CPU tensors runs ``cache_attention_plain``; for CUDA tensors
+    launches K1 (16-bit dense, ``flash_attention``'s ``kv_batch`` form; K2
+    at a window of at most 64), K1q (quantized dense) or K1r (the ring,
+    16-bit or quantized), or raises. No gradient.
+
+    Returns:
+      [1, q_heads, T, head_dim] in q's dtype, plus the LSE if asked.
+    """
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or q.shape[0] != 1:
+        raise ValueError(f"cache_attention: want q [1, Hq, T, D] and a [slots, Hkv, rows, D] cache, got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    _, num_q_heads, t, head_dim = q.shape
+    slots, num_kv_heads, rows, _ = k.shape
+    if k.shape != v.shape or k.shape[3] != head_dim or num_q_heads % num_kv_heads:
+        raise ValueError(f"cache_attention: q {tuple(q.shape)} over k {tuple(k.shape)} / v {tuple(v.shape)}")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("cache_attention: give both k_scales and v_scales, or neither")
+    kv_end = int(kv_end)
+    if kv_end < t:
+        raise ValueError(f"cache_attention: kv_end={kv_end} < T={t}")
+    if sinks and not ring:
+        raise ValueError("cache_attention: sinks need the ring")
+    ring_mod, ring_base = ring_layout(rows, sinks) if ring else (0, 0)
+    if ring:
+        if sliding_window is None:
+            raise ValueError("cache_attention: the ring needs sliding_window")
+        if ring_mod < sliding_window + t:
+            raise ValueError(f"cache_attention: a ring of {ring_mod} rows above {ring_base} sink rows must hold "
+                             f"window ({sliding_window}) + chunk ({t}) rows")
+    elif kv_end > rows:
+        raise ValueError(f"cache_attention: kv_end={kv_end} exceeds the cache's {rows} rows")
+    if sliding_window is not None and sliding_window < 1:
+        raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
+    if logit_softcap is not None and logit_softcap <= 0:
+        raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
+    sm_scale = 1.0 / math.sqrt(head_dim)
+    slot = slot_index(slot, slots, q.device)
+    if q.device.type == "cpu":
+        return cache_attention_plain(
+            q, k, v, slot, kv_end, sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales, ring=ring, sinks=sinks,
+            sliding_window=sliding_window, logit_softcap=logit_softcap, save_residuals=save_residuals,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"cache_attention runs on cpu or cuda tensors, got {q.device}")
+    if not ring and k_scales is None:
+        # K1 over the slot's first kv_end rows, a strided view of the cache.
+        return _forward(q, k[:, :, :kv_end], v[:, :, :kv_end], True, sm_scale, save_residuals, sliding_window,
+                        logit_softcap, None, slot)
+    payload = _build.kv_payload_code("cache_attention", head_dim, q, k, v, k_scales, v_scales)
+    if ring and ring_mod % KV_TILE and kv_end - sinks > ring_mod:
+        raise ValueError(f"cache_attention: the kernel walks the ring in {KV_TILE}-row tiles, so once positions have "
+                         f"wrapped the ring's {ring_mod} rows above the sinks must be a multiple of {KV_TILE}")
+    scales = [None if sc is None else sc.reshape(sc.shape[:3]) for sc in (k_scales, v_scales)]
+    body = fwd_body(q.dtype)
+    k, v = (_build.unit_last_stride(x) for x in (k, v))
+    if body == "tensor_core":
+        (q,) = tma_operands(q)
+        check_tma_rows("cache_attention", k, v)
+        if scales[0] is not None:
+            check_bulk_scales("cache_attention", *scales)
+        q_tile = fwd_q_tile(1, num_q_heads, t, sm_count(q.device))
+    else:
+        q, q_tile = _build.unit_last_stride(q), 0
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((1, num_q_heads, t), dtype=torch.float32, device=q.device) if save_residuals else None
+    strides = [0] * 6 if scales[0] is None else [*scales[0].stride(), *scales[1].stride()]
+    lib = _build.kernels()
+    with _build.on_device(q.device):
+        err = lib.fat_cache_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *(None if sc is None else sc.data_ptr() for sc in scales),
+            out.data_ptr(), None if lse is None else lse.data_ptr(), slot.data_ptr(), slots, num_q_heads,
+            num_kv_heads, t, kv_end, rows, head_dim, q.stride(1), q.stride(2), *k.stride()[:3], *v.stride()[:3],
+            _build.int64_tuple_array(tuple(strides)), sm_scale * LOG2E, mask_window(sliding_window), sinks,
+            ring_mod, ring_base, softcap2(logit_softcap), _build.DTYPE_CODES[q.dtype], payload,
+            _build.current_stream(q.device), q_tile,
+        )
+    kernel = "K1r" if ring else "K1q"
+    _build.check(err, f"cache_attention ({kernel})")
+    if ring:
+        cache_attention.ring_launches += 1
+    else:
+        cache_attention.quant_launches += 1
+    setattr(cache_attention, f"{body}_launches", getattr(cache_attention, f"{body}_launches") + 1)
+    return (out, lse) if save_residuals else out
+
+
 for _kernel, _attr in _COUNTERS.items():
     counter(flash_attention, _attr, _kernel, *FWD_FUNCTIONS)
 body_counter(flash_attention, "tensor_core_launches", "K1/K1d/K2 tensor_core")  # on csrc/flash_fwd_sm90.cu
 body_counter(flash_attention, "fma_launches", "K1/K1d/K2 fma")  # on csrc/flash_fwd.cu
+counter(cache_attention, "quant_launches", "K1q", *FWD_FUNCTIONS)
+counter(cache_attention, "ring_launches", "K1r", *FWD_FUNCTIONS)
+body_counter(cache_attention, "tensor_core_launches", "K1q/K1r tensor_core")  # on csrc/flash_fwd_sm90.cu
+body_counter(cache_attention, "fma_launches", "K1q/K1r fma")  # on csrc/flash_fwd.cu

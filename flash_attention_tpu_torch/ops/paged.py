@@ -65,7 +65,7 @@ import torch
 from flash_attention_tpu_torch.ops import _build
 from flash_attention_tpu_torch.ops.common import (
     LOG2E,
-    TMA_ALIGN,
+    check_bulk_scales,
     mask_window,
     slot_index,
     sm_count,
@@ -558,20 +558,6 @@ body_counter(paged_decode_attention, "self_launches", "K7/K7q self")
 paged_decode_attention.last_grid = None  # (splits, blocks) of the last launch
 
 
-def _check_bulk_scales(what: str, *scales: torch.Tensor) -> None:
-    """Raise unless each [num_pages, heads, page_size] scale pool can be
-    read in 64-row bulk copies as it lies: unit row stride, a 16-byte-aligned
-    base and page / head strides of whole 16 bytes."""
-    for t in scales:
-        if not (t.stride(-1) == 1 and t.data_ptr() % TMA_ALIGN == 0
-                and all(st * t.element_size() % TMA_ALIGN == 0 for st in t.stride()[:-1])):
-            raise ValueError(
-                f"{what}: the CUDA kernel reads row scales in bulk copies, so the scales' base pointer and page / "
-                f"head strides must be multiples of {TMA_ALIGN} bytes with a unit row stride; got pointer "
-                f"{t.data_ptr() % TMA_ALIGN} bytes past alignment and strides {tuple(t.stride())}"
-            )
-
-
 def paged_prefill_attention_plain(
     q: torch.Tensor, cache: PagedKVCache, slot, kv_end: int, *, sm_scale: float,
     sliding_window: int | None = None, logit_softcap: float | None = None, attention_sinks: int = 0,
@@ -647,7 +633,7 @@ def paged_prefill_attention(
         (q,) = tma_operands(q)
         check_tma_rows("paged_prefill_attention", k_pages, v_pages)
         if cache.quantized():
-            _check_bulk_scales("paged_prefill_attention", cache.k_scales, cache.v_scales)
+            check_bulk_scales("paged_prefill_attention", cache.k_scales, cache.v_scales)
         q_tile = fwd_q_tile(1, num_q_heads, t, sm_count(q.device))
     else:
         q, q_tile = _build.unit_last_stride(q), 0

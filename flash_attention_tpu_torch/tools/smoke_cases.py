@@ -28,6 +28,7 @@ import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 
 def k6_split(card: str) -> dict:
@@ -552,18 +553,20 @@ def prefill_check(card: str) -> None:
     cs.phase_full_quant(card, params, dense, paged)
 
 
-# Phase 5's, 8's, 11a's, 11b's and 17c's engines: (label, model config fields, int8 weights, paged, Mistral's shape).
+# Phase 5's, 8's, 11a's, 11b's, 17a's and 17c's engines: (label, model config fields, int8 weights, paged,
+# Mistral's shape).
 PREFILL_AB = (("5", {}, False, False, False), ("8", {}, False, True, False),
               ("11a", dict(kv_quant="int8", weight_quant="int8"), True, False, False),
               ("11b", dict(kv_quant="fp8_e4m3"), False, True, False),
+              ("17a", dict(rolling=True), False, False, True),
               ("17c", dict(attention_sinks=4), False, True, True))
 AB_LONG_NEW_TOKENS = 128  # prefill_ab's third served run: decode outlasts the prefill chunks
 
 
 def prefill_ab(card: str) -> dict:
-    """Cold and warm prefill and decode tokens/s of phases 5, 8, 11a, 11b
-    and 17c, through one harness that uses only the engines' public calls,
-    so a parent tree runs it as it is: on fresh weights from seed 0 (17c:
+    """Cold and warm prefill and decode tokens/s of phases 5, 8, 11a, 11b,
+    17a and 17c, through one harness that uses only the engines' public calls,
+    so a parent tree runs it as it is: on fresh weights from seed 0 (17a, 17c:
     Mistral-7B's shape) and the phase's engine, a prefill-only run of the
     phase's prompts (one token each, wall clock, synchronised) on the fresh
     engine (cold), ``warmup()`` (its seconds), the same run again (warm; its
@@ -607,7 +610,8 @@ def prefill_ab(card: str) -> dict:
         rng = np.random.default_rng(17 if mistral else 0)
         prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n)) for n in lens]
         if not paged:
-            eng = ServingEngine(weights, cfg, max_slots=8, max_seq=2048, prefill_chunk=256)
+            # 17a: the rolling ring of 4,352 rows a slot, positions up to phase 17's 16,384.
+            eng = ServingEngine(weights, cfg, max_slots=8, max_seq=16384 if mistral else 2048, prefill_chunk=256)
         elif mistral:
             eng = PagedServingEngine(weights, cfg, max_slots=8, num_pages=297, pages_per_slot=72, page_size=128,
                                      prefill_chunk=256)
@@ -748,24 +752,49 @@ def decode_probe(card: str) -> dict:
     return {"ms": out["dense 1 device ms a step"], **out}
 
 
-# A replayed chunk's device operations by group: the first group whose pattern is in an operation's name.
+# A replayed chunk's device operations by group: the first group with a pattern in an operation's name (a
+# tuple of strings matches where all of them are). "cache gathers and dequant": the dense chunk's reads of its
+# cache as plain PyTorch, which the kernels now make in place: the ring's rows gathered by an advanced index
+# (2-byte or 1-byte elements), a quantized slice by index_select, and the broadcast fp32 multiply by the scales
+# (the payload's widen to fp32 and the round to bf16 around it are counted with the copies: their names are
+# those of the cache writes' copies and of every cast). "strided bf16 copies": ``einsum``'s permute of ``wo``
+# [H, D, M] (32 MB a layer) and of o, and the reshape of o's [B, T, H, D] transpose (2 MB a layer).
 CHUNK_GROUPS = (("K1 / K8 (fwd_kernel)", ("fwd_kernel",)), ("W2", ("w8_gemm_kernel",)),
                 ("F1-F3", ("add_rms_norm_kernel", "rope_kernel", "swiglu_act_kernel")),
                 ("cuBLAS GEMMs", ("gemm", "nvjet", "xmma", "cutlass")),
+                ("cache gathers and dequant", ("index_kernel_impl<at::native::OpaqueType<1>",
+                                               "index_kernel_impl<at::native::OpaqueType<2>", "indexSelect",
+                                               ("BinaryFunctor<float, float, float", "MulFunctor"))),
+                ("strided bf16 copies", (("direct_copy_kernel", "elementwise_kernel<128, 4", "BFloat16"),)),
                 ("copies", ("copy", "Memcpy", "Memset")), ("other elementwise and indexing", ("",)))
+
+
+def chunk_group(name: str) -> str:
+    """The CHUNK_GROUPS group of a device operation's name."""
+    def hit(pat) -> bool:
+        return all(pt in name for pt in ((pat,) if isinstance(pat, str) else pat))
+
+    return next(group for group, pats in CHUNK_GROUPS if any(hit(pat) for pat in pats))
+
+
+# prefill_profile's cells: (label, Mistral-7B's shape, the chunk's kv_end).
+PROFILE_CELLS = (("5", False, 2048), ("11a", False, 2048), ("17a", True, 9216), ("17c", True, 9216))
 
 
 def prefill_profile(card: str) -> dict:
     """Where a replayed prefill chunk's time goes: phase 5's (bf16), 11a's
-    (int8 weights + int8 cache) and 17c's (Mistral-7B's shape, the paged
-    ring with 4 sinks) engines on fresh weights from seed 0, after
-    ``warmup()``, each replaying its 256-token chunk program at the last
-    chunk position (kv_end 2048, and 9216 for 17c) on slot 0 under
-    ``utils/profiling.profile_op`` (device operations by name, busy share)
-    and ``time_fn`` untraced. Prints the device time by group
-    (``CHUNK_GROUPS``) beside the GEMMs' bound (2 x the layers' weights x
-    256 tokens over 989 TFLOP/s, the unembed included). ``ms`` is phase
-    5's untraced replay."""
+    (int8 weights + int8 cache), 17a's (Mistral-7B's shape, the rolling
+    dense ring of 4,352 rows) and 17c's (the same shape, the paged ring
+    with 4 sinks) engines on fresh weights from seed 0, after ``warmup()``,
+    each replaying its 256-token chunk program on slot 0 at kv_end 2048
+    (5, 11a: the last chunk position) or 9216 (17a: the ring has wrapped;
+    17c: the last) under ``utils/profiling.profile_op`` (device operations
+    by name, busy share) and ``time_fn`` untraced. Prints the device time
+    by group (``CHUNK_GROUPS``) beside the GEMMs' bound (2 x the layers'
+    weights x 256 tokens over 989 TFLOP/s, the unembed included), and
+    writes every operation's name, count and device ms to
+    ``chiprun_out/prefill_profile_<tree>.json``. ``ms`` is phase 5's
+    untraced replay."""
     import dataclasses
     import gc
 
@@ -779,21 +808,23 @@ def prefill_profile(card: str) -> dict:
     from flash_attention_tpu_torch.utils.benchmarking import time_fn
     from flash_attention_tpu_torch.utils.profiling import profile_op
 
-    out = {}
-    for label, mistral in (("5", False), ("11a", False), ("17c", True)):
+    out, ops = {}, {}
+    for label, mistral, kv_end in PROFILE_CELLS:
         base = ModelConfig(**cs.MISTRAL) if mistral else ModelConfig()
         params = init_model_params(torch.Generator(device="cuda").manual_seed(0), base)
         if label == "11a":
             params = quantize_model_weights(params)
             eng = ServingEngine(params, dataclasses.replace(base, kv_quant="int8", weight_quant="int8"), max_slots=8,
                                 max_seq=2048, prefill_chunk=256)
+        elif label == "17a":
+            eng = ServingEngine(params, dataclasses.replace(base, rolling=True), max_slots=8, max_seq=16384,
+                                prefill_chunk=256)
         elif mistral:
             eng = PagedServingEngine(params, dataclasses.replace(base, attention_sinks=cs.SINKS), max_slots=8,
                                      num_pages=297, pages_per_slot=72, page_size=128, prefill_chunk=256)
         else:
             eng = ServingEngine(params, base, max_slots=8, max_seq=2048, prefill_chunk=256)
         eng.warmup()
-        kv_end = eng.max_seq
         tokens = np.random.default_rng(24).integers(0, base.vocab_size, (1, 256)).astype(np.int32)
         progs = eng.prefill_programs
 
@@ -807,8 +838,9 @@ def prefill_profile(card: str) -> dict:
             raise RuntimeError(f"[prefill profile] phase {label}: the chunk did not replay")
         groups = dict.fromkeys((name for name, _ in CHUNK_GROUPS), 0.0)
         for op in prof["device_ops"]:
-            group = next(name for name, pats in CHUNK_GROUPS if any(pt in op["name"] for pt in pats))
-            groups[group] += op["device_s_per_call"] * 1e3
+            groups[chunk_group(op["name"])] += op["device_s_per_call"] * 1e3
+        ops[label] = [{"group": chunk_group(op["name"]), "name": op["name"], "count": op["count"],
+                       "ms": op["device_s_per_call"] * 1e3} for op in prof["device_ops"]]
         per_layer = sum(t.numel() for t in cs._tensors(params["layers"][0]))
         flops = 2 * 256 * (base.num_layers * per_layer + base.vocab_size * base.model_dim)
         device_ms = sum(groups.values())
@@ -825,6 +857,9 @@ def prefill_profile(card: str) -> dict:
         del eng, params
         gc.collect()
         torch.cuda.empty_cache()
+    dump = Path(__file__).resolve().parents[2] / "chiprun_out" / f"prefill_profile_{Path.cwd().name}.json"
+    dump.parent.mkdir(exist_ok=True)
+    dump.write_text(json.dumps({"card": card, "ops": ops}, indent=1))
     return {"ms": out["5"]["ms"], **{f"{k} {m}": v for k, row in out.items() for m, v in row.items()}}
 
 
@@ -855,8 +890,8 @@ def _kernel_label(line: str) -> str:
 def ptxas_sm90(card: str) -> None:
     """Compiles each tensor-core source (SM90_SOURCES, those the tree has)
     alone with the build's flags and ``-Xptxas -v``, all at once: prints the
-    seconds each took and, for each kernel, its registers, spills and
-    whether ptxas serialised its wgmma (C7515)."""
+    seconds each took and, for each kernel, its registers, spills, stack
+    frame (local memory) and whether ptxas serialised its wgmma (C7515)."""
     _ptxas(card, SM90_SOURCES, "ptxas sm90")
 
 
@@ -898,15 +933,16 @@ def _ptxas(card: str, names, tag: str) -> None:
     for src, stdout, _, secs, rc in outs:
         if rc:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{stdout}")
-        lines, kernel, rows, spill, serial = stdout.splitlines(), None, [], "0", []
+        lines, kernel, rows, spill, stack, serial = stdout.splitlines(), None, [], "0", "0", []
         for line in lines:
             if "Compiling entry function" in line:
                 kernel = _kernel_label(line)
             elif "bytes spill stores" in line and kernel:
                 spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+                stack = re.search(r"(\d+) bytes stack frame", line).group(1)
             elif "Used" in line and "registers" in line and kernel:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
-                rows.append(f"{kernel}: {regs} registers, {spill} B spilled")
+                rows.append(f"{kernel}: {regs} registers, {spill} B spilled, {stack} B stack")
             if "C7515" in line:
                 serial.append(kernel)
         print(f"[{tag}] {src.name} compiled alone in {secs:.1f} s; {len(rows)} kernels; wgmma serialised in "
@@ -1370,6 +1406,88 @@ def prefill_split(card: str) -> dict:
                                          f"host {host:.1f} us a call" for key, (ms, d, host) in rows.items())
           + f" ({card})", flush=True)
     ms, device_ms, host_us = rows["K8 kv_end 2048"]
+    return {"ms": ms, "device_ms": device_ms, "host_us": host_us,
+            **{f"{key} {m}": t for key, row in rows.items() for m, t in zip(("ms", "device_ms", "host_us"), row)}}
+
+
+def cache_split(card: str) -> dict:
+    """A prefill chunk's attention over its slot of a dense cache, on any
+    tree, q [1,32,256,128] bf16 at slot 7: K1 over the slot of an [8, 8,
+    2048, 128] bf16 cache by ``kv_batch`` (kv_end 2048); the same cache
+    quantized to int8 (11a) at kv_end 2048; 17a's ring of 4352 rows (4480
+    with 4 sinks) at kv_end 9000, window 4096. Over the int8 cache and the
+    ring, the chain the parent's chunk prefill ran (the slot's rows copied
+    out by index_select or an advanced index in position order, int8 widened
+    and scaled and rounded to bf16, then K1; with sinks past the window the
+    band and sink passes merged by ``merge_two``) and, on a tree that has
+    it, ``cache_attention`` (K1q, K1r). Each timed by ``_split_times``: the
+    call, alone in a CUDA graph of 10 calls, host us a call. ``ms`` and
+    ``device_ms`` are the int8 slot's on this tree's path."""
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.ops import flash_attention as fa
+    from flash_attention_tpu_torch.ops.merge import merge_two
+    from flash_attention_tpu_torch.ops.quant import quantize_values
+
+    dev, bf16, rows = torch.device("cuda"), torch.bfloat16, {}
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = cs.torch_uniform((1, 32, 256, 128), bf16, gen)
+    slot = torch.tensor([7], dtype=torch.int32, device=dev)
+    new = hasattr(fa, "cache_attention")
+    k, v = (cs.torch_uniform((8, 8, 2048, 128), bf16, gen) for _ in range(2))
+    rows["K1 bf16 slot, kv_end 2048"] = _split_times(
+        lambda: fa.flash_attention(q, k[:, :, :2048], v[:, :, :2048], causal=True, kv_batch=slot))
+    (kp, ks), (vp, vs) = (quantize_values(x.float(), torch.int8) for x in (k, v))
+    del k, v
+
+    def deq(x, sc):
+        return (x.float() * sc).to(bf16)
+
+    def chain_quant():
+        kq, vq = (deq(x[:, :, :2048].index_select(0, slot), sc[:, :, :2048].index_select(0, slot))
+                  for x, sc in ((kp, ks), (vp, vs)))
+        return fa.flash_attention(q, kq, vq, causal=True)
+
+    rows["int8 slot, kv_end 2048: copy + dequant + K1"] = _split_times(chain_quant)
+    if new:
+        rows["int8 slot, kv_end 2048: K1q"] = _split_times(
+            lambda: fa.cache_attention(q, kp, vp, slot, 2048, k_scales=ks, v_scales=vs))
+    del kp, ks, vp, vs
+    heads = torch.arange(8, device=dev)
+    for sinks in (0, cs.SINKS):
+        n = cs.RING_ROWS + (128 if sinks else 0)
+        k, v = (cs.torch_uniform((8, 8, n, 128), bf16, gen) for _ in range(2))
+
+        # The rows of the positions each pass reads, made before the timed calls (a graph captures no copy
+        # from the host).
+        window, kv_end = cs.WINDOW, 9000
+        g = min(window + 256, kv_end - sinks)
+        band, sink = (torch.tensor([cs._ring_row(p, n, sinks) for p in range(lo, hi)], dtype=torch.long,
+                                   device=dev)
+                      for lo, hi in ((kv_end - g, kv_end), (0, sinks)))
+
+        def gather(idx, k=k, v=v):
+            return tuple(x[slot[:, None, None], heads[None, :, None], idx[None, None, :]] for x in (k, v))
+
+        def chain_ring(sinks=sinks, band=band, sink=sink):
+            if not sinks:
+                return fa.flash_attention(q, *gather(band), causal=True, sliding_window=window)
+            o_b, l_b = fa.flash_attention(q, *gather(band), causal=True, sliding_window=window, save_residuals=True)
+            o_s, l_s = fa.flash_attention(q, *gather(sink), save_residuals=True)
+            return merge_two(o_b, l_b, o_s, l_s)[0]
+
+        label = f"ring of {n} rows{f', {sinks} sinks' if sinks else ''}, kv_end 9000"
+        rows[f"{label}: gather + K1{' x2 + merge' if sinks else ''}"] = _split_times(chain_ring)
+        if new:
+            rows[f"{label}: K1r"] = _split_times(lambda sinks=sinks, k=k, v=v: fa.cache_attention(
+                q, k, v, slot, kv_end, ring=True, sinks=sinks, sliding_window=window))
+        del k, v
+    print("[cache split] " + "; ".join(f"{key}: call {ms:.4f} ms, alone {d:.4f} ms (CUDA graph of 10), host "
+                                       f"{host:.1f} us" for key, (ms, d, host) in rows.items()) + f" ({card})",
+          flush=True)
+    ms, device_ms, host_us = rows["int8 slot, kv_end 2048: K1q" if new else
+                                  "int8 slot, kv_end 2048: copy + dequant + K1"]
     return {"ms": ms, "device_ms": device_ms, "host_us": host_us,
             **{f"{key} {m}": t for key, row in rows.items() for m, t in zip(("ms", "device_ms", "host_us"), row)}}
 

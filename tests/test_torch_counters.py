@@ -16,7 +16,7 @@ import pytest
 import flash_attention_tpu_torch as port
 from flash_attention_tpu_torch.ops import counters
 
-KERNELS = {"K1", "K2", "K1d", "K3", "K4", "K5", "K3m", "K4m", "K5m", "K5s", "K6", "K6q", "K7", "K7q", "K8", "K8q",
+KERNELS = {"K1", "K2", "K1d", "K1q", "K1r", "K3", "K4", "K5", "K3m", "K4m", "K5m", "K5s", "K6", "K6q", "K7", "K7q", "K8", "K8q",
            "K9/K10", "K9q/K10q", "PT", "PS", "F1", "F2", "F3", "W1", "W2", "S1"}
 
 
@@ -45,8 +45,8 @@ def test_every_launch_counter_is_registered():
 def test_the_registry_names_each_kernel_once():
     _modules()
     assert set(counters.KERNELS) == KERNELS
-    assert set(counters.BODIES) == {"K1/K1d/K2 tensor_core", "K1/K1d/K2 fma", "K8/K8q tensor_core", "K8/K8q fma",
-                                    "K7/K7q self"}
+    assert set(counters.BODIES) == {"K1/K1d/K2 tensor_core", "K1/K1d/K2 fma", "K1q/K1r tensor_core", "K1q/K1r fma",
+                                    "K8/K8q tensor_core", "K8/K8q fma", "K7/K7q self"}
     groups = counters.functions()
     assert groups[("decode_kernel",)] == ("K6", "K6q", "K7", "K7q")
     assert sorted(k for kernels in groups.values() for k in kernels) == sorted(KERNELS)
@@ -58,7 +58,7 @@ def test_the_registry_names_each_kernel_once():
     ("(anonymous namespace)::paged_write_kernel(WriteParams)", ("K9/K10",)),
     ("void (anonymous namespace)::paged_write_quant_kernel<__nv_bfloat16, signed char>(QuantWriteParams)",
      ("K9q/K10q",)),
-    ("void fwd_kernel<__half, __half, 128, true, 2, false>(Params)", ("K1", "K2", "K1d", "K8", "K8q")),
+    ("void fwd_kernel<__half, __half, 128, true, 2, false>(Params)", ("K1", "K2", "K1d", "K1q", "K1r", "K8", "K8q")),
     ("void flash_bwd_dq_kernel<float, 64, false>(BwdParams)", ("K4", "K4m")),
     ("void split_sum_kernel<__nv_bfloat16>(float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, int)", ("K5s",)),
     ("void (anonymous namespace)::add_rms_norm_kernel<__nv_bfloat16>(NormParams)", ("F1",)),
