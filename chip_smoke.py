@@ -23,15 +23,21 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 block, SMs; K6: kv split and blocks) and CUDA-event times of
                 kernel, plain, SDPA and bound; then every dtype / head_dim
                 instantiation at ragged shapes. Then K1q and K1r
-                (``cache_attention``: the chunk over a slot of 11a's
-                quantized dense cache in each payload, slots 3 and 7, kv_end
-                256 / 1024 / 2048, and of 17a's 4352-row ring at kv_end 256
-                to 9000, with 0 and 4 sinks, softcap 50 once, an int8 ring)
+                (``cache_attention`` on chunk_fwd_sm90.cu: a GQA group's
+                rows in one block, the walk over a cluster; the chunk over a
+                slot of 11a's quantized dense cache in each payload, slots 3
+                and 7, kv_end 256 / 1024 / 2048, and of 17a's 4352-row ring
+                at kv_end 256 to 9000, with 0 and 4 sinks, softcap 50 once,
+                an int8 ring; then ``CHUNK_EDGES``: T 1 / 37 / 255 / 256,
+                shares left empty, sinks on a share's boundary, a group of
+                1, head_dim 64, fp16 queries, every payload on both forms)
                 against their plain versions (the rows copied out in
                 position order and dequantized; past the window with sinks,
                 two passes merged) and the fp32 oracle over the positions
                 the chunk sees, their LSE, bit-identical over two calls, no
-                copy allocated; the fp32 body of both.
+                copy allocated, K1q bit for bit equal to the body's 16-bit
+                instantiation over the dequantized copy; the fp32 body of
+                both.
   4. tiny     — a tiny fp32 model served on the card (through the kernels)
                 and on the CPU (through the plain versions): the greedy
                 tokens must be identical. On the card after ``warmup()``
@@ -379,6 +385,7 @@ kernels, the card's name and power limit, then {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -668,6 +675,96 @@ def _ring_row_mask(*, t: int, rows: int, kv_end: int, window: int, sinks: int, d
     return held[None, :] & (pos[None, :] <= row) & ((pos[None, :] > row - window) | (pos[None, :] < sinks))
 
 
+def _chunk_body_16bit(q, k, v, kv_end: int):
+    """csrc/chunk_fwd_sm90.cu's own 16-bit dense instantiation through its C
+    entry (``cache_attention`` sends a 16-bit dense slot to K1): q [1, Hq,
+    T, D] over slot 0 of k, v [1, Hkv, kv_end, D] in q's dtype, causal, the
+    walk split as ``cache_attention`` splits it. Returns (out, base-2 LSE)."""
+    import torch
+
+    from flash_attention_tpu_torch.ops import _build
+    from flash_attention_tpu_torch.ops.common import LOG2E, sm_count
+    from flash_attention_tpu_torch.ops.flash_attention import chunk_splits
+
+    _, hq, t, d = q.shape
+    hkv = k.shape[1]
+    splits = chunk_splits(hkv, t, hq // hkv, sm_count(q.device))
+    k, v = k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    lse = torch.empty((1, hq, t), dtype=torch.float32, device=q.device)
+    slot = torch.zeros(1, dtype=torch.int32, device=q.device)
+    err = _build.kernels().fat_chunk_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, out.data_ptr(), lse.data_ptr(), slot.data_ptr(), 1, hq,
+        hkv, t, kv_end, kv_end, d, q.stride(1), q.stride(2), *k.stride()[:3], *v.stride()[:3],
+        _build.int64_array([0] * 6), d ** -0.5 * LOG2E, 0, 0, 0, 0, 0.0, _build.DTYPE_CODES[q.dtype],
+        _build.DTYPE_CODES[q.dtype], _build.current_stream(q.device), splits)
+    _build.check(err, "the chunk body's 16-bit dense instantiation")
+    return out, lse
+
+
+def chunk_edge_cases(card: str) -> None:
+    """Phase 3's edges of csrc/chunk_fwd_sm90.cu (``CHUNK_EDGES``): chunk
+    lengths T 1 / 37 / 255 / 256, a kv_end whose walks are shorter than the
+    split (shares left empty), sinks on a share's boundary, groups of 1, 3,
+    8 and 32, head_dim 64, fp16 queries and every payload, over slot 3 or 7 of caches
+    whose slots all hold distinct rows; each twice on the same inputs
+    (bit-identical), allocating its output alone, against its plain version
+    and the fp32 oracle (the payload dequantized and rounded to the query's
+    type as the plain version does) at the bars of the main cases:
+    ORACLE_BAR, REL_BAR row-relative of plain and oracle, LSE_BAR."""
+    import torch
+
+    from flash_attention_tpu_torch.ops.common import slot_index, sm_count
+    from flash_attention_tpu_torch.ops.flash_attention import (
+        cache_attention, cache_attention_plain, chunk_q_tiles, chunk_shares, chunk_splits, chunk_walk,
+    )
+    from flash_attention_tpu_torch.ops.quant import payload_dtype, quantize_values
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(33)
+    for i, (label, t, kv_end, form, mode, dtype, d, hq, hkv, sinks, window) in enumerate(CHUNK_EDGES):
+        qdt, group = getattr(torch, dtype), hq // hkv
+        q = (torch.rand((1, hq, t, d), generator=gen, device=dev) - 0.5).to(qdt)
+        rows = {"dense": 2048, "ring": RING_ROWS, "ring64": 384}[form] + (128 if sinks else 0)
+        shape = (8, hkv, rows, d)
+        if mode is None:
+            k, v = ((torch.rand(shape, generator=gen, device=dev) - 0.5).to(qdt) for _ in range(2))
+            k_sc = v_sc = None
+        else:
+            (k, k_sc), (v, v_sc) = (quantize_values(scaled_rows(shape, gen), payload_dtype(mode)) for _ in range(2))
+        ring = form != "dense"
+        kw = dict(k_scales=k_sc, v_scales=v_sc, ring=ring, sinks=sinks, sliding_window=window)
+        slot = (3, 7)[i % 2]
+        st = slot_index(slot, 8, dev)
+        splits = chunk_splits(hkv, t, group, sm_count(dev))
+        what = (f"[K1{'r' if ring else 'q'} edge] {label}: {form} {tuple(shape)}{f', {sinks} sinks' if sinks else ''}"
+                f"{f', window {window}' if window else ''}, {mode or dtype}, q {dtype} [1,{hq},{t},{d}], slot {slot}, "
+                f"kv_end {kv_end}, {splits} splits")
+        walks = [chunk_walk(m0, t, group, kv_end, window=window, sinks=sinks, ring=ring)
+                 for m0 in range(0, chunk_q_tiles(t, group) * 128, 128)]
+        shares = [chunk_shares(w, splits) for w in walks]
+        if "empty" in label and not any([] in sh for sh in shares):
+            raise RuntimeError(f"{what}: no share is empty")
+        if "boundary" in label and not any(sh[0] and sh[0][-1] < sinks and sh[1] and sh[1][0] >= sinks
+                                           for sh in shares):
+            raise RuntimeError(f"{what}: no first share ends at the sink tile")
+
+        def call():
+            return cache_attention(q, k, v, st, kv_end, save_residuals=True, **kw)
+
+        out, lse = call()
+        _same_twice(what, call)
+        _no_copy(what, call, out.numel() * out.element_size() + lse.numel() * 4, 2 * hkv * kv_end * d * 2)
+        p_out, p_lse = cache_attention_plain(q, k, v, st, kv_end, sm_scale=d ** -0.5, save_residuals=True, **kw)
+        kf, vf = (k, v) if mode is None else ((x.float() * sc).to(qdt) for x, sc in ((k, k_sc), (v, v_sc)))
+        o_out, o_lse, _, _ = _ring_oracle(q, kf, vf, slot, kv_end, window=window or kv_end, sinks=sinks)
+        d_plain, d_rel, d_lse = _hold(what, out, p_out, o_out, lse, p_lse, o_lse, dtype=dtype)
+        log(f"{what}: |out-plain| {d_plain:.3e}, |out-oracle| {_max_diff(out, o_out):.3e} (bar {ORACLE_BAR}), "
+            f"row-relative vs plain and oracle {d_rel:.3e} (bar {REL_BAR[dtype]}), |lse| {d_lse:.3e} (bar "
+            f"{LSE_BAR}), bit-identical over two calls, no copy ({card})")
+        del q, k, v, k_sc, v_sc, out, lse, p_out, p_lse, o_out, o_lse, kf, vf
+
+
 def phase_cache_kernels(card: str) -> dict:
     """Phase 3's K1q and K1r (``ops.flash_attention.cache_attention``): a
     prefill chunk, q [1,32,256,128] bf16, over one slot of a cache read
@@ -681,10 +778,13 @@ def phase_cache_kernels(card: str) -> dict:
     payload, slots 3 and 7, kv_end 256 / 1024 / 2048. K1r:
     17a's ring of RING_ROWS rows (window 4096) at kv_end RING_KV_ENDS, with
     no sinks and with 4 (a ring of 128 rows more), softcap 50 once, and an
-    int8 ring; every slot holds distinct rows; K1q also equal, bit for
-    bit, to K1 over the plain version's dequantized copy. Then the fp32 body
-    (csrc/flash_fwd.cu) at small shapes against the plain version. Each
-    call allocates its output alone (no copy of the cache). Returns the
+    int8 ring; every slot holds distinct rows; K1q also equal, output and
+    LSE bit for bit, to csrc/chunk_fwd_sm90.cu's own 16-bit dense
+    instantiation over the plain version's dequantized copy
+    (``_chunk_body_16bit``). Then the body's edges (``chunk_edge_cases``),
+    and the fp32 body (csrc/flash_fwd.cu) at small shapes against the plain
+    version. Each call allocates its output alone (no copy of the cache).
+    Returns the
     kernels' line entries "K1q" (int8, kv_end 2048) and "K1r" (kv_end 9000,
     no sinks; its library call SDPA over the slot's ring under a boolean
     mask of its rows)."""
@@ -692,7 +792,7 @@ def phase_cache_kernels(card: str) -> dict:
     import torch.nn.functional as F
 
     from flash_attention_tpu_torch.ops.common import slot_index
-    from flash_attention_tpu_torch.ops.flash_attention import cache_attention, cache_attention_plain, flash_attention
+    from flash_attention_tpu_torch.ops.flash_attention import cache_attention, cache_attention_plain
     from flash_attention_tpu_torch.ops.quant import payload_dtype, quantize_values
     from flash_attention_tpu_torch.ops.reference import reference_attention_with_lse
 
@@ -730,11 +830,15 @@ def phase_cache_kernels(card: str) -> dict:
                             .to(torch.bfloat16).float() for x, sc in ((kp, ks), (vp, vs)))
                 o_out, o_lse = reference_attention_with_lse(q.float(), k_f, v_f, causal=True)
                 d_plain, d_oracle, d_rel, d_lse = _hold_quant(what, out, p_out, o_out, lse, p_lse, o_lse)
-                # The widen rounds each dequantized row as the plain version does, so K1 over that copy reads
-                # the same tiles: its output must be K1q's bit for bit.
+                # The widen rounds each dequantized row as the plain version does, so the body's 16-bit dense
+                # instantiation over that copy reads the same tiles on the same split: its output and LSE must
+                # be K1q's bit for bit.
                 k_b, v_b = (x.to(torch.bfloat16) for x in (k_f, v_f))
-                if not torch.equal(flash_attention(q, k_b, v_b, causal=True), out):
-                    raise RuntimeError(f"{what}: K1 over the dequantized copy differs from K1q")
+                b_out, b_lse = _chunk_body_16bit(q, k_b, v_b, kv_end)
+                if not (torch.equal(b_out, out) and torch.equal(b_lse, lse)):
+                    raise RuntimeError(f"{what}: the body's 16-bit instantiation over the dequantized copy differs "
+                                       f"from K1q")
+                del b_out, b_lse
                 timing = ""
                 if mode == "int8" and slot == 7 and kv_end == 2048:
                     ms = cuda_ms(call)
@@ -818,6 +922,7 @@ def phase_cache_kernels(card: str) -> dict:
             f"bit-identical over two calls{timing} ({card})")
         del out, lse, p_out, p_lse, o_out, o_lse, kf, vf
     rings.clear()
+    chunk_edge_cases(card)
 
     # The fp32 body (csrc/flash_fwd.cu): K1q over an int8 cache, K1r over a ring with 32 sinks, window 96.
     qf = torch.rand((1, 4, 64, 32), generator=gen, device=dev) - 0.5
@@ -834,12 +939,12 @@ def phase_cache_kernels(card: str) -> dict:
         log(f"{what}: |out-plain| {d_plain:.3e} (bar {FP32_PLAIN_BAR}), |lse| {d_lse:.3e} (bar {LSE_BAR})")
         if not (d_plain < FP32_PLAIN_BAR and d_lse < LSE_BAR):
             raise RuntimeError(f"{what} (fp32 body) disagrees")
-    entry = {"route": "cuda", "source": "flash_attention_tpu_torch/csrc/flash_fwd_sm90.cu",
+    entry = {"route": "cuda", "source": "flash_attention_tpu_torch/csrc/chunk_fwd_sm90.cu",
              "replaces": f"{REFERENCE}/ops/flash_attention.py:57"}
-    return {"K1q": {"name": "fwd_kernel, wgmma + TMA, a slot of a dense int8 cache in place (K1q)", **entry,
-                    **rep["K1q"]},
-            "K1r": {"name": f"fwd_kernel, wgmma + TMA, a slot of a {RING_ROWS}-row ring in place (K1r)", **entry,
-                    **rep["K1r"]}}
+    return {"K1q": {"name": "chunk_fwd_kernel, a GQA group's rows over a slot of a dense int8 cache in place, the "
+                            "walk over a cluster (K1q)", **entry, **rep["K1q"]},
+            "K1r": {"name": f"chunk_fwd_kernel, a GQA group's rows over a slot of a {RING_ROWS}-row ring in place, "
+                            f"the walk over a cluster (K1r)", **entry, **rep["K1r"]}}
 
 
 def phase_k6(card: str) -> dict:
@@ -1086,11 +1191,16 @@ def traced_launches(what: str, replay, names: list | None = None):
 
 def check_tensor_cores(what: str, bodies: dict, wrapper: str | None = None) -> None:
     """Every bf16 / fp16 forward launch counted in ``bodies`` (``read_bodies``)
-    ran the tensor-core body, none the FMA body; with ``wrapper`` ("K1/K1d/K2",
+    ran the tensor-core body, none the FMA body, and every K1q / K1r launch
+    csrc/chunk_fwd_sm90.cu over a cluster (at every chunk of the main paths,
+    64 or fewer (kv head, q tile) blocks, ``chunk_splits`` cuts the walk
+    over 2 or more blocks on an H100); with ``wrapper`` ("K1/K1d/K2",
     "K1q/K1r" or "K8/K8q"), that wrapper launched at least once."""
     fma = {k: n for k, n in bodies.items() if k.endswith(" fma") and n}
     if fma or (wrapper is not None and bodies[f"{wrapper} tensor_core"] < 1):
         raise RuntimeError(f"{what}: forward launches by body {bodies}; want the tensor-core body only")
+    if bodies["K1q/K1r cluster"] != bodies["K1q/K1r tensor_core"]:
+        raise RuntimeError(f"{what}: forward launches by body {bodies}; want every K1q / K1r launch over a cluster")
 
 
 def check_launches(what: str, launches: dict, used) -> None:
@@ -1243,8 +1353,11 @@ def hold_prefill_programs(label: str, eng, keys=None) -> None:
     of a cache read as plain PyTorch (``smoke_cases.CHUNK_GROUPS``' "cache
     gathers and dequant": the kernels read the cache in place) and at most
     one strided bf16 copy a layer (o's transpose: ``wo`` is read through its
-    [H * D, M] view, not permuted into a copy). Called after the main path:
-    it leaves the caches as the last eager chunk wrote them."""
+    [H * D, M] view, not permuted into a copy); over a quantized dense cache
+    or the ring in bf16 / fp16 its attention is one csrc/chunk_fwd_sm90.cu
+    record a layer (K1q, K1r) and no csrc/flash_fwd_sm90.cu one. Called
+    after the main path: it leaves the caches as the last eager chunk wrote
+    them."""
     import numpy as np
     import torch
 
@@ -1299,6 +1412,13 @@ def hold_prefill_programs(label: str, eng, keys=None) -> None:
     torch.cuda.synchronize()
     groups = [chunk_group(name) for name in names]
     reads, copies = groups.count("cache gathers and dequant"), groups.count("strided bf16 copies")
+    chunk_body = sum(1 for name in names if re.search(r"(?:^|[\s:])chunk_fwd_kernel<", name))
+    old_body = sum(1 for name in names if re.search(r"(?:^|[\s:])fwd_kernel<", name))
+    if not hasattr(eng, "page_size") and cfg.dtype in ("bfloat16", "float16") and (cfg.rolling or
+                                                                                    cfg.kv_quant != "none"):
+        if chunk_body != cfg.num_layers or old_body:
+            raise RuntimeError(f"[{label}] the replayed {keys[-1]} chunk ran {chunk_body} chunk_fwd_kernel and "
+                               f"{old_body} fwd_kernel records; want one chunk_fwd_kernel (K1q / K1r) a layer")
     if reads or copies > cfg.num_layers:
         raise RuntimeError(f"[{label}] the replayed {keys[-1]} chunk ran {reads} cache gather or dequant operations "
                            f"(want 0) and {copies} strided bf16 copies (want at most one a layer, o's transpose): "
@@ -1308,7 +1428,8 @@ def hold_prefill_programs(label: str, eng, keys=None) -> None:
         f"mode {progs.mode}, {progs.captures} programs, {progs.replays} replays so far; kernel records in the replayed "
         f"{keys[-1]} chunk's device trace == the launches it counted, {traced} ({sum(traced.values())} launches a "
         f"chunk; traces taken {attempts}), with {reads} cache gather or dequant operations and {copies} strided bf16 "
-        f"copies for {cfg.num_layers} layers; the hold took {time.perf_counter() - t0:.1f} s")
+        f"copies for {cfg.num_layers} layers, attention records {chunk_body} chunk_fwd_kernel and {old_body} "
+        f"fwd_kernel; the hold took {time.perf_counter() - t0:.1f} s")
 
 
 def prefill_only(label: str, eng, prompts, cold=None) -> tuple[list, float]:
@@ -3504,6 +3625,35 @@ MISTRAL = dict(mlp_dim=14336, sliding_window=4096)
 WINDOW = 4096
 SINKS = 4  # StreamingLLM's four sink tokens
 RING_ROWS = 4352  # rolling_buffer_len at window 4096 and chunk 256: ceil128(4096 + 256)
+
+# Phase 3's edges of csrc/chunk_fwd_sm90.cu (K1q, K1r): (label, T, kv_end, cache form, payload or None, query
+# dtype, head_dim, q heads, kv heads, sinks, window). "dense": an [8, Hkv, 2048, D] cache; "ring": RING_ROWS rows
+# (128 more with sinks), window WINDOW; "ring64": a window of 64 over 384 ring rows after the sinks' 128, so that a
+# block's walk is the sink tile and two or three band tiles and the first share ends at the sink tile.
+CHUNK_EDGES = (
+    ("T 1", 1, 2048, "dense", "int8", "bfloat16", 128, 32, 8, 0, None),
+    ("T 37", 37, 1000, "dense", "fp8_e4m3", "bfloat16", 128, 32, 8, 0, None),
+    ("T 255", 255, 2048, "dense", "fp8_e5m2", "bfloat16", 128, 32, 8, 0, None),
+    ("T 256, kv_end 256: shares left empty", 256, 256, "dense", "int8", "bfloat16", 128, 32, 8, 0, None),
+    ("T 64, kv_end 64: one tile over 8 shares", 64, 64, "dense", "fp8_e4m3", "bfloat16", 128, 32, 8, 0, None),
+    ("T 1", 1, 9000, "ring", None, "bfloat16", 128, 32, 8, 0, WINDOW),
+    ("T 37", 37, 4400, "ring", "fp8_e4m3", "bfloat16", 128, 32, 8, SINKS, WINDOW),
+    ("T 255", 255, 9000, "ring", "fp8_e5m2", "bfloat16", 128, 32, 8, 0, WINDOW),
+    ("T 64, kv_end 64: shares left empty", 64, 64, "ring", None, "bfloat16", 128, 32, 8, SINKS, WINDOW),
+    ("sinks on a share's boundary", 256, 1000, "ring64", None, "bfloat16", 128, 32, 8, SINKS, 64),
+    ("sinks on a share's boundary", 256, 1000, "ring64", "int8", "bfloat16", 128, 32, 8, SINKS, 64),
+    ("group 1 (32 kv heads)", 256, 2048, "dense", "int8", "bfloat16", 128, 32, 32, 0, None),
+    ("group 1 (32 kv heads)", 256, 9000, "ring", None, "bfloat16", 128, 32, 32, SINKS, WINDOW),
+    ("group 8", 256, 2048, "dense", "fp8_e4m3", "bfloat16", 128, 32, 4, 0, None),
+    ("group 3 (24 q heads), a row's heads across blocks", 255, 9000, "ring", "int8", "bfloat16", 128, 24, 8,
+     SINKS, WINDOW),
+    ("group 32 (one kv head)", 37, 2048, "dense", "int8", "bfloat16", 128, 32, 1, 0, None),
+    ("D 64", 256, 2048, "dense", "fp8_e5m2", "bfloat16", 64, 32, 8, 0, None),
+    ("D 64", 256, 9000, "ring", "int8", "bfloat16", 64, 32, 8, SINKS, WINDOW),
+    ("fp16 queries", 256, 2048, "dense", "int8", "float16", 128, 32, 8, 0, None),
+    ("fp16 queries", 256, 9000, "ring", None, "float16", 128, 32, 8, SINKS, WINDOW),
+)
+
 DENSE_LENGTHS = (0, 1, 100, 4095, 4096, 4097, 9000, 9216)  # K6 dense window over 9216 rows; K7's logical rows
 RING_LENGTHS = (0, 1, 4095, 4096, 4352, 4353, 9000, 20000)  # K6 over the ring: lengths pass its rows
 MASKED_PROMPT_LENS = (1, 255, 1024, 4095, 4096, 4097, 6000, 9000)  # phase 17, run A

@@ -5,8 +5,9 @@
 // over a slot's KV pages (fp32, or K8 over quantized pages), with an
 // optional sliding window, logit softcap and (dense only) packed-sequence
 // segment ids, for Hopper. bf16 and fp16 queries run
-// csrc/flash_fwd_sm90.cu's tensor-core body, to which every C entry below
-// dispatches by dtype.
+// csrc/flash_fwd_sm90.cu's tensor-core body, to which fat_flash_fwd and
+// fat_paged_prefill dispatch by dtype, or (K1q, K1r) csrc/chunk_fwd_sm90.cu,
+// whose entry the wrapper calls instead of fat_cache_fwd.
 //
 // Replaces the JAX package's ops/flash_attention.py:_fwd_kernel (K1, the
 // Pallas forward, with its window and softcap branches, :318-331, :408-490,
@@ -512,7 +513,6 @@ extern "C" int fat_flash_fwd(const void* q, const void* k, const void* v, void* 
     c.kv_rng = kv_rng;
     c.kv_index = kv_index;
     c.kv_batch = kv_batch;
-    c.kv_rows = kv_len;
     c.q_tile = q_tile;
     c.dtype = dtype;
     c.payload = dtype;
@@ -623,72 +623,33 @@ extern "C" int fat_paged_prefill(const void* q, const void* k, const void* v, co
   return static_cast<int>(fat::dispatch(dtype, payload, head_dim, launcher));
 }
 
-// K1q and K1r: a prefill chunk's attention over one slot of a dense KV
-// cache, read where it lies. q [1, Hq, T, D] with unit stride on D, the
-// chunk's rows at positions [kv_end - T, kv_end); k and v the whole cache
-// [slots, Hkv, kv_rows, D] with unit stride on D and the given slot / head
-// / row strides; slot a device int32, the cache row attended (clamped into
-// [0, slots)); ks and vs the row scales [slots, Hkv, kv_rows] fp32 when
-// payload is a quantized type (scale_strides: K's slot / head / row
-// strides, then V's), else null. ring_mod 0: row = position (the dense
+// K1q and K1r for fp32 queries: a prefill chunk's attention over one slot
+// of a dense KV cache, read where it lies. q [1, Hq, T, D] with unit stride
+// on D, the chunk's rows at positions [kv_end - T, kv_end); k and v the
+// whole cache [slots, Hkv, kv_rows, D] with unit stride on D and the given
+// slot / head / row strides; slot a device int32, the cache row attended
+// (clamped into [0, slots)); ks and vs the row scales [slots, Hkv, kv_rows]
+// fp32 when payload is a quantized type (scale_strides: K's slot / head /
+// row strides, then V's), else null. ring_mod 0: row = position (the dense
 // cache, kv_end <= kv_rows); else the rolling ring: rows [0, ring_base)
 // hold positions [0, sinks) and band position p >= sinks lies at row
 // ring_base + (p - sinks) % ring_mod (needs a window, and ring_mod a
 // multiple of 64 once positions have wrapped). Causal, with window (0:
 // none), sinks (columns [0, sinks) visible beside the window) and softcap2
 // (0, or cap * log2(e)); o [1, Hq, T, D] contiguous; lse [1, Hq, T] base-2
-// or null. bf16 and fp16 queries run csrc/flash_fwd_sm90.cu (q, the cache
-// and the scales as TMA and bulk copies read them: 16-byte-aligned bases
-// and strides, unit row strides for the scales and kv_rows a multiple of
-// 4), with q_tile q rows a block (64 or 128); this body ignores q_tile.
-// Returns a cudaError_t.
+// or null. bf16 and fp16 queries take csrc/chunk_fwd_sm90.cu's
+// fat_chunk_fwd, whose arguments these are (the last, here ignored, is its
+// cluster size). Returns a cudaError_t.
 extern "C" int fat_cache_fwd(const void* q, const void* k, const void* v, const float* ks, const float* vs, void* o,
                              float* lse, const int32_t* slot, int64_t slots, int64_t num_q_heads, int64_t num_kv_heads,
                              int64_t q_len, int64_t kv_end, int64_t kv_rows, int64_t head_dim, int64_t q_sh,
                              int64_t q_sr, int64_t k_sb, int64_t k_sh, int64_t k_sr, int64_t v_sb, int64_t v_sh,
                              int64_t v_sr, const int64_t* scale_strides, float scale2, int32_t window, int32_t sinks,
                              int64_t ring_mod, int64_t ring_base, float softcap2, int32_t dtype, int32_t payload,
-                             void* stream, int32_t q_tile) {
+                             void* stream, int32_t) {
   const bool quant = payload != dtype;
-  if (slot == nullptr || slots < 1 || (quant && (ks == nullptr || vs == nullptr)))
+  if (dtype != fat::kFloat32 || slot == nullptr || slots < 1 || (quant && (ks == nullptr || vs == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype != fat::kFloat32) {
-    const int64_t st[9] = {0, q_sh, q_sr, k_sb, k_sh, k_sr, v_sb, v_sh, v_sr};
-    if (quant && (scale_strides[2] != 1 || scale_strides[5] != 1))  // the scales come in bulk copies
-      return static_cast<int>(cudaErrorInvalidValue);
-    const int64_t sst[4] = {scale_strides[0], scale_strides[1], scale_strides[3], scale_strides[4]};
-    fat::Sm90FwdCall c{};
-    c.q = q;
-    c.k = k;
-    c.v = v;
-    c.o = o;
-    c.lse = lse;
-    c.batch = 1;
-    c.num_q_heads = num_q_heads;
-    c.num_kv_heads = num_kv_heads;
-    c.q_len = q_len;
-    c.kv_len = kv_end;
-    c.head_dim = head_dim;
-    c.st = st;
-    c.scale2 = scale2;
-    c.causal = 1;
-    c.window = window;
-    c.softcap2 = softcap2;
-    c.q_tile = q_tile;
-    c.dtype = dtype;
-    c.stream = static_cast<cudaStream_t>(stream);
-    c.kv_index = slot;
-    c.kv_batch = slots;
-    c.kv_rows = kv_rows;
-    c.sinks = sinks;
-    c.ring_mod = ring_mod;
-    c.ring_base = ring_base;
-    c.payload = payload;
-    c.ks = ks;
-    c.vs = vs;
-    c.sst = quant ? sst : nullptr;
-    return static_cast<int>(fat::sm90_fwd(c));
-  }
   if (window < 0 || sinks < 0 || ring_mod < 0 || ring_base < 0 || kv_rows < 1 || (ring_mod == 0 && (sinks > 0 ||
       ring_base > 0 || kv_end > kv_rows)) || (ring_mod > 0 && (window < 1 || sinks > ring_base || kv_rows !=
       ring_base + ring_mod || (ring_mod % BN && kv_end - sinks > ring_mod))))

@@ -1,25 +1,20 @@
-// K1, K1d, K2, K1q, K1r, K8 and K8q for bf16 and fp16 queries: the attention
-// forward, causal or not, MHA or GQA, with its window, softcap and segment-id
-// masks, over dense K / V, in place over a slot of a dense KV cache (bf16 /
-// fp16, or int8 / fp8 e4m3 / fp8 e5m2 with one fp32 scale per row: K1q),
-// over a slot of a rolling ring with its sinks (K1r), or over a slot's KV
-// pages (K8, K8q), on Hopper's tensor cores (wgmma) with tiles fed by TMA.
-// fp32 keeps the FMA body of csrc/flash_fwd.cu, whose C entries
-// fat_flash_fwd, fat_paged_prefill and fat_cache_fwd dispatch here by dtype.
+// K1, K1d, K2, K8 and K8q for bf16 and fp16 queries: the attention forward,
+// causal or not, MHA or GQA, with its window, softcap and segment-id masks,
+// over dense K / V, in place over a slot of a dense 16-bit KV cache (K1's
+// kv_batch form), or over a slot's KV pages (K8, K8q: bf16 / fp16, or int8
+// / fp8 e4m3 / fp8 e5m2 with one fp32 scale per row), on Hopper's tensor
+// cores (wgmma) with tiles fed by TMA. fp32 keeps the FMA body of
+// csrc/flash_fwd.cu, whose C entries fat_flash_fwd and fat_paged_prefill
+// dispatch here by dtype. A chunk over a quantized dense slot (K1q) or the
+// rolling ring (K1r) runs csrc/chunk_fwd_sm90.cu.
 //
 // Replaces the JAX package's ops/flash_attention.py:_fwd_kernel (:57, K1)
 // with its window and softcap branches and its segment branch (K1d, :61-62,
 // the packed tile skip of :1313-1330 and :1428-1431), _band_kernel (:795,
 // K2, a causal window of at most 64) and ops/paged.py:_paged_prefill_kernel
 // (:580, K8, chunk attention reading the slot's pages in place, with its
-// dequant branch K8q, :642-690, its window, softcap and sinks). K1q and K1r
-// are _fwd_kernel fed, in the JAX package, by an XLA dequant of the slot's
-// visible rows (models/attention.py:496-511) and by a gather of the ring's
-// rows in position order with, past the window, a second pass over the
-// sinks and an LSE merge (models/attention.py:438-481): here the kernel
-// reads the cache where it lies and applies the scales and the sinks in
-// its one pass, so no gathered or dequantized copy exists. The function
-// is csrc/flash_fwd.cu's: an online exp2 softmax with scale2 = sm_scale *
+// dequant branch K8q, :642-690, its window, softcap and sinks). The
+// function is csrc/flash_fwd.cu's: an online exp2 softmax with scale2 = sm_scale *
 // log2(e) folded into one constant, a finite MASK_VALUE, the row max floored
 // at M_FLOOR, output 0 and LSE -inf for a row that sees no key, end-aligned
 // causal (K8: the chunk's rows at [kv_end - q_len, kv_end)), the exact
@@ -73,42 +68,24 @@
 //    last page are live memory, not zero-fill: the causal mask covers their
 //    scores, and V's are zeroed in the stage, so that p = 0 meets no stale
 //    value.
-//  * K8q, K1q: the 1-byte payload tiles and their row scales land in a
+//  * K8q: the 1-byte payload tiles and their row scales land in a
 //    two-stage staging ring (TMA boxes of whole rows, unswizzled, and two
 //    bulk copies of up to 256 bytes); the block widens each tile, exactly
 //    (every int8 and fp8 code is a bf16 and an fp16), into swizzled 16-bit
-//    tiles the descriptors read, with the tile's scales beside them (K8q,
-//    whose TPU kernel scales the scores and p) or applied in the widen as
-//    the JAX package's chunk prefill dequantizes (K1q, K1r: code times
-//    scale in fp32, rounded to the query's type; the products then run on
-//    exactly the rows a K1 over that dequantized copy would read). There
-//    are two widened K / V pairs: tile n + 1 is widened into one between the
+//    tiles the descriptors read, with the tile's scales beside them (its
+//    TPU kernel scales the scores and p). There are two widened K / V
+//    pairs: tile n + 1 is widened into one between the
 //    issue of tile n's S = Q K^T and its wait, so the widen runs while the
 //    tensor cores multiply and not between products (K8q widened the stage
 //    behind a barrier first: 0.103 ms against K8's 0.040 at kv_end 2048).
 //    A staging stage is refilled as soon as its tile is widened, so a load
 //    has one and a half tiles' time to land. S = Q K^T runs in the query's
-//    type; K8q's P V runs in bf16 whatever the query type, since p times a
-//    row's scale can underflow fp16. Its shared memory (117 KB at D = 128 and 64
-//    q rows) holds one block an SM.
-//  * The ring (K1r): the K / V maps cover every row of every slot, and the
-//    walk stays over logical positions [0, kv_end). A tile at position n0
-//    is loaded from ring row n0 % rows, or with sinks from row n0 below the
-//    sinks and from ring_base + (n0 - sinks) % ring_mod above them: the
-//    band's tiles start at `sinks` (an origin shifted off the 64-row grid),
-//    so a tile never straddles the ring's end (the ring modulus is a
-//    multiple of 64, the wrapper checks) and the sink tiles [0, 64 k) are
-//    loaded from rows [0, 64 k) with their columns at or past `sinks`
-//    masked. Every column the causal and window masks leave visible is
-//    still in its row (the ring holds window + chunk rows). The other rows
-//    a tile brings (older or later positions, the sinks' padding) are the
-//    ring's own rows, zeroed when it was made and written only with K / V
-//    rows: finite, so their masked p = 0 adds 0 (a payload's are zeroed in
-//    the widen).
+//    type; P V in bf16 whatever the query type, since p times a row's scale
+//    can underflow fp16. Its shared memory (117 KB at D = 128 and 64 q rows)
+//    holds one block an SM.
 //  * The walk: the tiles holding [0, sinks) (the sinks, below the band,
 //    each with its columns at or past `sinks` masked), then from the
-//    window's first tile (on the ring with sinks, on the grid shifted by
-//    `sinks`) to the causal diagonal of the
+//    window's first tile to the causal diagonal of the
 //    block's last row (K2's window of at most 64 takes two or three tiles a
 //    64-row q tile; a walk from the first visible column, unaligned, took
 //    no less time, PERF.md); with segment ids it skips a kv tile whose
@@ -150,11 +127,10 @@ struct Params {
   int table_rows;
   int64_t table_stride;
   int page_size, num_pages, sinks;
-  const float* ks;  // K8q, K1q: the row scales
+  const float* ks;  // K8q: the row scales
   const float* vs;
   int64_t ks_sp, ks_sh, vs_sp, vs_sh;
-  int ring_mod, ring_base;  // K1r: the ring's modulus above the sinks' rows, and those rows; 0, 0 elsewhere
-  int kv_rows;              // the rows of a page, or of a dense batch row of K / V and the scales
+  int kv_rows;  // the rows of a page
 };
 
 // Shared memory of an instantiation: the Q tile; the K / V ring (two stages
@@ -176,12 +152,11 @@ struct Plan {
   static constexpr size_t bytes(int64_t table) { return 1024 + Q_TILE + KV + SCALES + BARS + 4 * table; }
 };
 
-// K8q, K1q, K1r: a stage's payload tiles widened into the swizzled 16-bit
-// tiles the descriptors read (K as TK, V as TV): with DEQ each code times
-// its row's scale, rounded (K1q, K1r), else exactly, the stage's row scales
-// copied beside them (K8q); rows at or past `live` (past kv_end, or past
-// the sinks in a sink tile) and their scales become 0.
-template <typename P, typename TK, typename TV, int D, int NT, bool DEQ>
+// K8q: a stage's payload tiles widened exactly into the swizzled 16-bit
+// tiles the descriptors read (K as TK, V as TV), the stage's row scales
+// copied beside them; rows at or past `live` (past kv_end, or past the
+// sinks in a sink tile) and their scales become 0.
+template <typename P, typename TK, typename TV, int D, int NT>
 __device__ __forceinline__ void widen_tile(const uint8_t* stage, uint8_t* wide_k, uint8_t* wide_v,
                                            const float* stage_scales, float* scales, int live, int tid) {
   using L = Layout<D>;
@@ -205,21 +180,14 @@ __device__ __forceinline__ void widen_tile(const uint8_t* stage, uint8_t* wide_k
     for (int j = 0; j < BATCH; ++j) {
       const bool is_v = (i0 + j) * NT >= UNITS;
       const int x = tid + (i0 + j) * NT - (is_v ? UNITS : 0), r = x / (D / 8), c = x % (D / 8) * 8;
-      uint4 w;
-      if constexpr (DEQ) {
-        w = is_v ? fat::dequant8<P, TV>(raw[j], scale[j]) : fat::dequant8<P, TK>(raw[j], scale[j]);
-      } else {
-        w = is_v ? fat::widen8<P, TV>(raw[j]) : fat::widen8<P, TK>(raw[j]);
-      }
+      const uint4 w = is_v ? fat::widen8<P, TV>(raw[j]) : fat::widen8<P, TK>(raw[j]);
       // The unit's place as TMA would swizzle it (bits 4-6, or 4-5, XORed with the 128-byte line).
       const int lin = r * L::ROW + (c % L::CW) * 2;
       *reinterpret_cast<uint4*>((is_v ? wide_v : wide_k) + (c / L::CW) * BN * L::ROW +
                                 (lin ^ (((lin >> 7) & (L::ROW / 16 - 1)) << 4))) = w;
     }
   }
-  if constexpr (!DEQ) {
-    if (tid < 2 * BN) scales[tid] = tid % BN < live ? stage_scales[tid] : 0.f;
-  }
+  if (tid < 2 * BN) scales[tid] = tid % BN < live ? stage_scales[tid] : 0.f;
 }
 
 // Rows [from, BN) of a 16-bit tile set to 0 (whole rows, which the swizzle
@@ -236,14 +204,13 @@ __device__ __forceinline__ void zero_rows(uint8_t* tile, int from, int tid) {
 }
 
 // One (batch x q head, q tile of 64 WGS rows): O and, with lse, the base-2
-// LSE. P: the K / V element type (T, or K8q's / K1q's payload); PAGED: K / V
-// are page pools read through the table.
+// LSE. P: the K / V element type (T, or K8q's payload); PAGED: K / V are
+// page pools read through the table.
 template <typename T, typename P, int D, bool MASKED, int WGS, bool PAGED>
 __global__ void __launch_bounds__(128 * WGS, 1) fwd_kernel(const __grid_constant__ Params p) {
   using Pl = Plan<P, D, WGS>;
-  constexpr bool QUANT = Pl::QUANT;
-  // A dense payload (K1q, K1r) is dequantized in the widen; K8q's scales go to the scores and to p.
-  constexpr bool DEQ = QUANT && !PAGED, SCALED = QUANT && PAGED;
+  constexpr bool QUANT = Pl::QUANT, SCALED = QUANT;  // K8q's scales go to the scores and to p
+  static_assert(!QUANT || PAGED, "a payload is read through pages (K8q)");
   using TV = std::conditional_t<SCALED, bf16, T>;  // P V's operand type
   constexpr int BM = 64 * WGS, NT = 128 * WGS, KV_TILE = Pl::KV_TILE;
   extern __shared__ uint8_t smem_raw[];
@@ -267,11 +234,8 @@ __global__ void __launch_bounds__(128 * WGS, 1) fwd_kernel(const __grid_constant
   const int diag = p.kv_len - p.q_len;
   const int last_row = min(m0 + BM, p.q_len) - 1;
   const int n_end = p.causal ? min(p.kv_len, last_row + diag + 1) : p.kv_len;
-  // Window: start at the tile of the first column the tile's first row sees, on the grid from `origin`
-  // (the ring's band starts at its sinks).
-  const int origin = MASKED && p.ring_mod > 0 ? p.sinks : 0;
-  const int n_begin =
-      MASKED && p.window > 0 ? origin + max(0, m0 + diag - p.window + 1 - origin) / BN * BN : 0;
+  // Window: start at the tile of the first column the tile's first row sees.
+  const int n_begin = MASKED && p.window > 0 ? max(0, m0 + diag - p.window + 1) / BN * BN : 0;
   // The sinks: the tiles holding [0, sinks), below the band, come first.
   const int sink_end = MASKED ? min((p.sinks + BN - 1) / BN * BN, n_begin) : 0;
   const bool segs = MASKED && p.seg_q != nullptr;
@@ -290,11 +254,9 @@ __global__ void __launch_bounds__(128 * WGS, 1) fwd_kernel(const __grid_constant
     int x = kb, y = n0;  // the map's (batch or page, row) of the tile
     if constexpr (PAGED) {
       x = s_table[n0 / p.page_size], y = n0 % p.page_size;
-    } else if (MASKED && p.ring_mod > 0) {  // the ring has a window
-      y = n0 < p.sinks ? n0 : p.ring_base + (n0 - p.sinks) % p.ring_mod;
     }
     if constexpr (QUANT) {
-      // The scales past the batch row's (or page's) last row are not read.
+      // The scales past the page's last row are not read.
       const uint32_t sc_bytes = 4 * min(BN, p.kv_rows - y);
       mbar_expect(&bar[1 + s], Pl::STAGE_TX + 2 * sc_bytes);
       uint8_t* stage = stage_of(s);
@@ -310,11 +272,11 @@ __global__ void __launch_bounds__(128 * WGS, 1) fwd_kernel(const __grid_constant
       load_tile<D, BN>(stage + KV_TILE, &p.tm_v, y, hk, x, &bar[1 + s]);
     }
   };
-  // K8q, K1q: tile n0's payload in stage s widened into pair w.
+  // K8q: tile n0's payload in stage s widened into pair w.
   auto widen = [&](int s, int w, int n0) {
     uint8_t* wide = wide_of(w);
-    widen_tile<P, T, TV, D, NT, DEQ>(stage_of(s), wide, wide + KV_TILE, stage_scales(s), wide_scales(w),
-                                     min(BN, lim_of(n0) - n0), tid);
+    widen_tile<P, T, TV, D, NT>(stage_of(s), wide, wide + KV_TILE, stage_scales(s), wide_scales(w),
+                                min(BN, lim_of(n0) - n0), tid);
     fence_proxy_async();  // the widened tiles, before wgmma reads them
   };
 
@@ -543,10 +505,9 @@ cudaError_t launch(const fat::Sm90FwdCall& c) {
   Params p{};
   const int64_t* st = c.st;
   // K / V as a map's (B, H, S): (batch, head, row) over every batch row
-  // kv_index may name, its first kv_len rows (every row of a ring), or
-  // (page, head, row).
+  // kv_index may name and its first kv_len rows, or (page, head, row).
   const int64_t kb = PAGED ? c.num_pages : (c.kv_index != nullptr ? c.kv_batch : c.batch);
-  const int64_t kr = PAGED ? c.page_size : (c.ring_mod > 0 ? c.kv_rows : c.kv_len);
+  const int64_t kr = PAGED ? c.page_size : c.kv_len;
   bool ok = make_map<D>(&p.tm_q, c.q, c.dtype, c.batch, c.num_q_heads, c.q_len, st[0], st[1], st[2], c.q_tile);
   if constexpr (fat::is_payload<P>) {
     ok = ok && make_map_bytes(&p.tm_k, c.k, D, kb, c.num_kv_heads, kr, st[3], st[4], st[5], BN) &&
@@ -585,9 +546,7 @@ cudaError_t launch(const fat::Sm90FwdCall& c) {
   p.page_size = static_cast<int>(c.page_size);
   p.num_pages = static_cast<int>(c.num_pages);
   p.sinks = c.sinks;
-  p.ring_mod = static_cast<int>(c.ring_mod);
-  p.ring_base = static_cast<int>(c.ring_base);
-  p.kv_rows = static_cast<int>(PAGED ? c.page_size : c.kv_rows);
+  p.kv_rows = static_cast<int>(c.page_size);
   const int64_t table = PAGED ? (c.kv_len + c.page_size - 1) / c.page_size : 0;
   const bool masked = c.window > 0 || c.softcap2 > 0.f || c.seg_q != nullptr;
   if (c.q_tile == 128) return masked ? run<T, P, D, true, 2, PAGED>(p, c, table) : run<T, P, D, false, 2, PAGED>(p, c, table);
@@ -598,7 +557,11 @@ template <typename T, typename P>
 cudaError_t by_head_dim(const fat::Sm90FwdCall& c) {
   auto go = [&](auto dim) -> cudaError_t {
     constexpr int D = decltype(dim)::value;
-    return c.table != nullptr ? launch<T, P, D, true>(c) : launch<T, P, D, false>(c);
+    if constexpr (fat::is_payload<P>) {  // K8q only
+      return c.table != nullptr ? launch<T, P, D, true>(c) : cudaErrorInvalidValue;
+    } else {
+      return c.table != nullptr ? launch<T, P, D, true>(c) : launch<T, P, D, false>(c);
+    }
   };
   switch (c.head_dim) {
     case 32: return go(std::integral_constant<int, 32>{});
@@ -611,9 +574,7 @@ cudaError_t by_head_dim(const fat::Sm90FwdCall& c) {
 template <typename T>
 cudaError_t by_payload(const fat::Sm90FwdCall& c) {
   if (c.payload == c.dtype) return by_head_dim<T, T>(c);
-  // The scales come in bulk copies of whole 16 bytes: a dense batch row's rows a multiple of 4.
-  if (c.ks == nullptr || c.vs == nullptr || c.sst == nullptr || (c.table == nullptr && c.kv_rows % 4))
-    return cudaErrorInvalidValue;
+  if (c.ks == nullptr || c.vs == nullptr || c.sst == nullptr || c.table == nullptr) return cudaErrorInvalidValue;
   switch (c.payload) {
     case fat::kInt8: return by_head_dim<T, int8_t>(c);
     case fat::kFp8E4M3: return by_head_dim<T, __nv_fp8_e4m3>(c);
@@ -636,17 +597,8 @@ cudaError_t sm90_fwd(const Sm90FwdCall& c) {
                              c.table_stride < (c.kv_len + c.page_size - 1) / c.page_size || c.kv_index != nullptr))
     return cudaErrorInvalidValue;
   if (c.kv_index != nullptr && (c.kv_batch < 1 || c.seg_q != nullptr)) return cudaErrorInvalidValue;
-  // Dense K / V: kv_rows rows a batch row, at least kv_len (the ring's are logical positions).
-  if (c.table == nullptr && (c.kv_rows < 1 || (c.ring_mod == 0 && c.kv_rows < c.kv_len))) return cudaErrorInvalidValue;
-  // The ring (K1r): causal with a window, its sinks below ring_base, and tiles that never straddle its end
-  // once positions have wrapped.
-  if (c.ring_mod < 0 || c.ring_base < 0 || (c.ring_mod == 0 && c.ring_base > 0)) return cudaErrorInvalidValue;
-  if (c.ring_mod > 0 && (c.table != nullptr || c.seg_q != nullptr || !c.causal || c.window < 1 ||
-                         c.sinks > c.ring_base || c.ring_base % BN || c.kv_rows != c.ring_base + c.ring_mod ||
-                         (c.ring_mod % BN && c.kv_len - c.sinks > c.ring_mod)))
-    return cudaErrorInvalidValue;
-  // Sinks over pages (K8) or the ring (K1r).
-  if (c.table == nullptr && c.ring_mod == 0 && c.sinks > 0) return cudaErrorInvalidValue;
+  // Sinks over pages (K8).
+  if (c.table == nullptr && c.sinks > 0) return cudaErrorInvalidValue;
   switch (c.dtype) {
     case kBFloat16: return by_payload<bf16>(c);
     case kFloat16: return by_payload<__half>(c);

@@ -1,7 +1,7 @@
-// The entry point of csrc/flash_fwd_sm90.cu (K1, K1d, K2, K1q, K1r and K8 /
-// K8q on tensor cores for bf16 and fp16 queries), called by
-// csrc/flash_fwd.cu's fat_flash_fwd, fat_paged_prefill and fat_cache_fwd,
-// which dispatch by dtype: fp32 keeps that file's FMA body.
+// The entry point of csrc/flash_fwd_sm90.cu (K1, K1d, K2 and K8 / K8q on
+// tensor cores for bf16 and fp16 queries), called by csrc/flash_fwd.cu's
+// fat_flash_fwd and fat_paged_prefill, which dispatch by dtype: fp32 keeps
+// that file's FMA body.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,16 +45,10 @@ struct Sm90FwdCall {
   int64_t table_rows, table_stride;
   int64_t page_size, num_pages;
   int32_t sinks;    // columns [0, sinks) visible beside the window
-  int32_t payload;  // K / V's element code: dtype, or a 1-byte payload (K8q, K1q) with row scales
-  const float* ks;  // K8q, K1q: the row scales [pages or batch rows, Hkv, rows], unit row stride
+  int32_t payload;  // K / V's element code: dtype, or a 1-byte payload (K8q) with row scales
+  const float* ks;  // K8q: the row scales [pages, Hkv, rows], unit row stride
   const float* vs;
-  const int64_t* sst;  // K8q, K1q: the scales' page (batch row) and head strides, K's then V's
-  // Dense K / V as a rolling ring (K1r): every batch row holds kv_rows rows;
-  // rows [0, ring_base) hold positions [0, sinks), and band position p >=
-  // sinks lies at row ring_base + (p - sinks) % ring_mod. kv_len is the
-  // chunk's logical kv_end. ring_mod 0: row = position (K1, K1q).
-  int64_t ring_mod, ring_base;
-  int64_t kv_rows;  // dense: the rows a batch row of K / V (and of the scales) holds
+  const int64_t* sst;  // K8q: the scales' page and head strides, K's then V's
 };
 
 cudaError_t sm90_fwd(const Sm90FwdCall& c);

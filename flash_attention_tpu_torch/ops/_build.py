@@ -127,8 +127,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         i64, i64, i64, i64, i64, i64, i64, i64,  # q's head / row strides, k's and v's slot / head / row strides
         c.POINTER(i64), f32,  # scale strides, scale2
         i32, i32, i64, i64, f32,  # window, sinks, the ring's modulus and sink rows (0, 0: no ring), softcap2
-        i32, i32, ptr, i32,  # dtype, payload, stream, q rows a block (the tensor-core body)
+        i32, i32, ptr, i32,  # dtype, payload, stream, (ignored: fp32 only)
     ]
+    # K1q and K1r in bf16 / fp16 (csrc/chunk_fwd_sm90.cu): fat_cache_fwd's
+    # arguments, the last the blocks of a cluster the walk is split over.
+    lib.fat_chunk_fwd.restype = c.c_int
+    lib.fat_chunk_fwd.argtypes = lib.fat_cache_fwd.argtypes
     shape = c.POINTER(i64)
     # q, k, v, k/v scales, o, lse, lengths, then the fp32 workspace and the
     # ticket counters; shape: csrc/decode.cu's Shape array; scale2, softcap2.

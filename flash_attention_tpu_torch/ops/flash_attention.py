@@ -20,7 +20,13 @@ in the same pass), each reading the cache where it lies. They stand for the
 JAX package's ``_fwd_kernel`` fed by the XLA dequant and ring gather of its
 chunk prefill (``models/attention.py:438-511``), which copy the visible rows
 first; that copy is now only ``cache_attention_plain``'s, the function they
-compute.
+compute. In bf16 / fp16, K1q and K1r run csrc/chunk_fwd_sm90.cu: a block
+takes a kv head and its GQA group's q heads as rows packed by (position,
+head) (``chunk_rows``), a producer warpgroup loads (and widens) each K / V
+tile once for the group, and the walk (``fwd_walk``) is cut into
+``chunk_splits`` shares (``chunk_shares``), one a block of a thread-block
+cluster, merged in rank order; ``cache_attention_split_plain`` is that
+cut's plain mirror.
 
 ``flash_attention`` runs the plain PyTorch version for CPU tensors and the
 CUDA kernel for CUDA tensors; there is no fallback from one to the other.
@@ -29,8 +35,10 @@ CUDA kernel for CUDA tensors; there is no fallback from one to the other.
 ``flash_attention.segment_launches`` K1d's (any call with segment ids);
 ``.tensor_core_launches`` and ``.fma_launches`` count them again by the body
 that ran; ``cache_attention.quant_launches`` counts K1q's,
-``.ring_launches`` K1r's (a quantized ring's too), and its own
-``.tensor_core_launches`` and ``.fma_launches`` both by body.
+``.ring_launches`` K1r's (a quantized ring's too), its own
+``.tensor_core_launches`` and ``.fma_launches`` both by body, and
+``.cluster_launches`` those of the tensor-core body launched as clusters of
+more than one block.
 
 Under grad the call goes through ``FlashAttentionFunction``, the
 counterpart of the JAX package's custom VJP (``_fa``/``_fa_fwd``/``_fa_bwd``,
@@ -133,8 +141,56 @@ def fwd_walk(m0: int, q_tile: int, q_len: int, kv_len: int, *, window=None, sink
 
 # Each forward kernel's launch counter on ``flash_attention``.
 _COUNTERS = {"K1": "launches", "K2": "band_launches", "K1d": "segment_launches"}
-# The CUDA functions a forward launch runs: csrc/flash_fwd_sm90.cu's body, or csrc/flash_fwd.cu's.
-FWD_FUNCTIONS = ("fwd_kernel", "flash_fwd_kernel")
+# The CUDA functions a forward launch runs: csrc/flash_fwd_sm90.cu's body, csrc/chunk_fwd_sm90.cu's (K1q, K1r in
+# bf16 / fp16), or csrc/flash_fwd.cu's; the trace tells the kernels apart only by template arguments.
+FWD_FUNCTIONS = ("fwd_kernel", "chunk_fwd_kernel", "flash_fwd_kernel")
+
+# csrc/chunk_fwd_sm90.cu (K1q, K1r in bf16 / fp16): packed (position, head)
+# rows a block, the head dims it is instantiated for, and the largest
+# cluster the walk is split over (the portable size).
+CHUNK_ROWS = 128
+CHUNK_HEAD_DIMS = (64, 128)
+CHUNK_MAX_SPLITS = 8
+
+
+def chunk_q_tiles(t: int, group: int) -> int:
+    """The blocks of CHUNK_ROWS packed rows a kv head's T x group rows take."""
+    return -(-t * group // CHUNK_ROWS)
+
+
+def chunk_splits(num_kv_heads: int, t: int, group: int, num_sms: int) -> int:
+    """The blocks of a cluster csrc/chunk_fwd_sm90.cu cuts each walk over, as
+    ``fwd_q_tile`` picks its tile: as many as keep every block of the launch
+    in one wave on ``num_sms`` SMs (one block an SM), from 1 to
+    CHUNK_MAX_SPLITS. The chunk q [1,32,256,128] over 8 kv heads is 64
+    (kv head, q tile) pairs: 2 on an H100's 132 SMs, 128 blocks."""
+    base = num_kv_heads * chunk_q_tiles(t, group)
+    return max(1, min(CHUNK_MAX_SPLITS, num_sms // base))
+
+
+def chunk_rows(m0: int, t: int, group: int) -> tuple[list[int], list[int]]:
+    """The (position, q head within the group) of packed rows [m0, m0 +
+    CHUNK_ROWS) of a kv head: row r is position r // group of head r %
+    group; rows at positions >= T are padding (zero Q, never stored)."""
+    rows = range(m0, m0 + CHUNK_ROWS)
+    return [r // group for r in rows], [r % group for r in rows]
+
+
+def chunk_walk(m0: int, t: int, group: int, kv_end: int, *, window=None, sinks: int = 0,
+               ring: bool = False) -> list[int]:
+    """The kv tiles the block of packed rows [m0, m0 + CHUNK_ROWS) walks:
+    ``fwd_walk`` over its positions (m0 // group to the last one below
+    T)."""
+    first, last = m0 // group, min((m0 + CHUNK_ROWS - 1) // group, t - 1)
+    return fwd_walk(first, last - first + 1, t, kv_end, window=window, sinks=sinks, ring=ring)
+
+
+def chunk_shares(walk: list[int], splits: int) -> list[list[int]]:
+    """The walk cut into ``splits`` contiguous shares in order, share r its
+    tiles [r n // splits, (r + 1) n // splits) (some empty when the walk is
+    shorter than the split), as the cluster's rank-r block walks them."""
+    n = len(walk)
+    return [walk[r * n // splits:(r + 1) * n // splits] for r in range(splits)]
 
 
 def flash_attention_plain(
@@ -426,6 +482,84 @@ def cache_attention_plain(
     return attend(kv, True, sliding_window, save_residuals)
 
 
+def chunk_merge_plain(partials):
+    """The per-share partials of one block's rows, [(acc [R, D], m [R], l
+    [R]), ...] in rank order (acc unnormalised, m the base-2 running max
+    floored at M_FLOOR, l the sum of exp2(s - m)), merged as the cluster's
+    first block merges them, one rank after another in fp32: (out [R, D], the
+    base-2 LSE [R]), 0 and -inf for a row that saw no key."""
+    acc, m, l = partials[0]
+    for acc2, m2, l2 in partials[1:]:
+        mn = torch.maximum(m, m2)
+        a0, a1 = torch.exp2(m - mn), torch.exp2(m2 - mn)
+        l = l * a0 + l2 * a1
+        acc = acc * a0[:, None] + acc2 * a1[:, None]
+        m = mn
+    out = torch.where(l[:, None] == 0, 0.0, acc / torch.where(l == 0, 1.0, l)[:, None])
+    return out, torch.where(l == 0, -torch.inf, m + torch.log2(torch.where(l == 0, 1.0, l)))
+
+
+def cache_attention_split_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, slot: int, kv_end: int, *, sm_scale: float, splits: int,
+    k_scales=None, v_scales=None, ring: bool = False, sinks: int = 0, sliding_window: int | None = None,
+    logit_softcap: float | None = None,
+):
+    """``cache_attention``'s function cut as csrc/chunk_fwd_sm90.cu cuts it,
+    in plain fp32 PyTorch: for each kv head and block of packed (position,
+    head) rows (``chunk_rows``), each of the ``splits`` shares of its walk
+    (``chunk_shares`` of ``chunk_walk``) gives a partial (acc, m, l) over the
+    share's tiles, each tile at n0 holding columns [n0, n0 + 64) read from
+    the slot's rows of those positions (``ring_rows`` on the ring) and
+    dequantized to q's type, with the kernel's limits (a sink tile's columns
+    end at ``sinks``, any other's at kv_end) and the causal / window / sinks
+    mask of each row's position; ``chunk_merge_plain`` merges them in rank
+    order. Returns (out [1, Hq, T, D] in q's dtype, base-2 LSE [1, Hq, T])."""
+    _, num_q_heads, t, head_dim = q.shape
+    num_kv_heads, rows = k.shape[1], k.shape[2]
+    group = num_q_heads // num_kv_heads
+    diag = kv_end - t
+    out = torch.zeros(q.shape, dtype=torch.float32)
+    lse = torch.full((1, num_q_heads, t), -torch.inf)
+    for hk in range(num_kv_heads):
+        for m0 in range(0, t * group, CHUNK_ROWS):
+            pos, head = (torch.tensor(x) for x in chunk_rows(m0, t, group))
+            valid = pos < t
+            heads, p_ok = hk * group + head, pos.clamp_max(t - 1)
+            qr = torch.where(valid[:, None], q[0, heads, p_ok].float(), 0.0)
+            walk = chunk_walk(m0, t, group, kv_end, window=sliding_window, sinks=sinks, ring=ring)
+            partials = []
+            for share in chunk_shares(walk, splits):
+                if not share:
+                    partials.append((torch.zeros(CHUNK_ROWS, head_dim), torch.full((CHUNK_ROWS,), M_FLOOR),
+                                     torch.zeros(CHUNK_ROWS)))
+                    continue
+                cols = torch.cat([torch.arange(n0, n0 + KV_TILE) for n0 in share])
+                # The walk's sink tiles (below the band, which starts at or past the sinks) end at the sinks.
+                lim = torch.cat([torch.full((KV_TILE,), sinks if n0 < sinks else kv_end) for n0 in share])
+                idx = ring_rows(cols, rows, sinks) if ring else cols.clamp_max(rows - 1)
+                kv = []
+                for buf, sc in ((k, k_scales), (v, v_scales)):
+                    x = bits(buf)[slot, hk, idx].view(buf.dtype)
+                    kv.append((x if sc is None else (x.float() * sc[slot, hk, idx]).to(q.dtype)).float())
+                s = qr @ kv[0].T
+                if logit_softcap is None:
+                    s2 = s * (sm_scale * LOG2E)
+                else:
+                    s2 = logit_softcap * torch.tanh(s * sm_scale / logit_softcap) * LOG2E
+                d = pos[:, None] + diag
+                ok = valid[:, None] & (cols[None, :] < lim[None, :]) & (cols[None, :] <= d)
+                if sliding_window is not None:
+                    ok &= (cols[None, :] > d - sliding_window) | (cols[None, :] < sinks)
+                s2 = torch.where(ok, s2, MASK_VALUE)
+                m = s2.amax(dim=-1).clamp_min(M_FLOOR)
+                p = torch.exp2(s2 - m[:, None])
+                partials.append((p @ kv[1], m, p.sum(dim=-1)))
+            o, l2 = chunk_merge_plain(partials)
+            out[0, heads[valid], pos[valid]] = o[valid]
+            lse[0, heads[valid], pos[valid]] = l2[valid]
+    return out.to(q.dtype), lse
+
+
 def cache_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, slot, kv_end: int, *, k_scales=None, v_scales=None,
     ring: bool = False, sinks: int = 0, sliding_window: int | None = None, logit_softcap: float | None = None,
@@ -458,7 +592,9 @@ def cache_attention(
     For CPU tensors runs ``cache_attention_plain``; for CUDA tensors
     launches K1 (16-bit dense, ``flash_attention``'s ``kv_batch`` form; K2
     at a window of at most 64), K1q (quantized dense) or K1r (the ring,
-    16-bit or quantized), or raises. No gradient.
+    16-bit or quantized), or raises. K1q and K1r run csrc/chunk_fwd_sm90.cu
+    in bf16 / fp16 (head_dim 64 or 128; the walk split over clusters of
+    ``chunk_splits`` blocks), csrc/flash_fwd.cu in fp32. No gradient.
 
     Returns:
       [1, q_heads, T, head_dim] in q's dtype, plus the LSE if asked.
@@ -510,26 +646,31 @@ def cache_attention(
     scales = [None if sc is None else sc.reshape(sc.shape[:3]) for sc in (k_scales, v_scales)]
     body = fwd_body(q.dtype)
     k, v = (_build.unit_last_stride(x) for x in (k, v))
+    splits = 1
     if body == "tensor_core":
+        if head_dim not in CHUNK_HEAD_DIMS:
+            raise ValueError(f"cache_attention: the {q.dtype} kernel over a quantized cache or the ring takes head_dim "
+                             f"in {CHUNK_HEAD_DIMS}, got {head_dim}")
         (q,) = tma_operands(q)
         check_tma_rows("cache_attention", k, v)
         if scales[0] is not None:
             check_bulk_scales("cache_attention", *scales)
-        q_tile = fwd_q_tile(1, num_q_heads, t, sm_count(q.device))
+        splits = chunk_splits(num_kv_heads, t, num_q_heads // num_kv_heads, sm_count(q.device))
     else:
-        q, q_tile = _build.unit_last_stride(q), 0
+        q = _build.unit_last_stride(q)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((1, num_q_heads, t), dtype=torch.float32, device=q.device) if save_residuals else None
     strides = [0] * 6 if scales[0] is None else [*scales[0].stride(), *scales[1].stride()]
     lib = _build.kernels()
+    entry = lib.fat_chunk_fwd if body == "tensor_core" else lib.fat_cache_fwd
     with _build.on_device(q.device):
-        err = lib.fat_cache_fwd(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *(None if sc is None else sc.data_ptr() for sc in scales),
             out.data_ptr(), None if lse is None else lse.data_ptr(), slot.data_ptr(), slots, num_q_heads,
             num_kv_heads, t, kv_end, rows, head_dim, q.stride(1), q.stride(2), *k.stride()[:3], *v.stride()[:3],
             _build.int64_tuple_array(tuple(strides)), sm_scale * LOG2E, mask_window(sliding_window), sinks,
             ring_mod, ring_base, softcap2(logit_softcap), _build.DTYPE_CODES[q.dtype], payload,
-            _build.current_stream(q.device), q_tile,
+            _build.current_stream(q.device), splits,
         )
     kernel = "K1r" if ring else "K1q"
     _build.check(err, f"cache_attention ({kernel})")
@@ -538,6 +679,7 @@ def cache_attention(
     else:
         cache_attention.quant_launches += 1
     setattr(cache_attention, f"{body}_launches", getattr(cache_attention, f"{body}_launches") + 1)
+    cache_attention.cluster_launches += splits > 1
     return (out, lse) if save_residuals else out
 
 
@@ -547,5 +689,6 @@ body_counter(flash_attention, "tensor_core_launches", "K1/K1d/K2 tensor_core")  
 body_counter(flash_attention, "fma_launches", "K1/K1d/K2 fma")  # on csrc/flash_fwd.cu
 counter(cache_attention, "quant_launches", "K1q", *FWD_FUNCTIONS)
 counter(cache_attention, "ring_launches", "K1r", *FWD_FUNCTIONS)
-body_counter(cache_attention, "tensor_core_launches", "K1q/K1r tensor_core")  # on csrc/flash_fwd_sm90.cu
+body_counter(cache_attention, "tensor_core_launches", "K1q/K1r tensor_core")  # on csrc/chunk_fwd_sm90.cu
 body_counter(cache_attention, "fma_launches", "K1q/K1r fma")  # on csrc/flash_fwd.cu
+body_counter(cache_attention, "cluster_launches", "K1q/K1r cluster")  # chunk_fwd_sm90.cu over a cluster

@@ -758,8 +758,9 @@ def decode_probe(card: str) -> dict:
 # (2-byte or 1-byte elements), a quantized slice by index_select, and the broadcast fp32 multiply by the scales
 # (the payload's widen to fp32 and the round to bf16 around it are counted with the copies: their names are
 # those of the cache writes' copies and of every cast). "strided bf16 copies": ``einsum``'s permute of ``wo``
-# [H, D, M] (32 MB a layer) and of o, and the reshape of o's [B, T, H, D] transpose (2 MB a layer).
-CHUNK_GROUPS = (("K1 / K8 (fwd_kernel)", ("fwd_kernel",)), ("W2", ("w8_gemm_kernel",)),
+# [H, D, M] (32 MB a layer) and of o, and the reshape of o's [B, T, H, D] transpose (2 MB a layer). The
+# attention group's pattern also matches chunk_fwd_kernel (K1q, K1r).
+CHUNK_GROUPS = (("K1 / K1q / K1r / K8 (fwd_kernel, chunk_fwd_kernel)", ("fwd_kernel",)), ("W2", ("w8_gemm_kernel",)),
                 ("F1-F3", ("add_rms_norm_kernel", "rope_kernel", "swiglu_act_kernel")),
                 ("cuBLAS GEMMs", ("gemm", "nvjet", "xmma", "cutlass")),
                 ("cache gathers and dequant", ("index_kernel_impl<at::native::OpaqueType<1>",
@@ -863,7 +864,7 @@ def prefill_profile(card: str) -> dict:
     return {"ms": out["5"]["ms"], **{f"{k} {m}": v for k, row in out.items() for m, v in row.items()}}
 
 
-SM90_SOURCES = ("flash_bwd_sm90.cu", "flash_fwd_sm90.cu")
+SM90_SOURCES = ("flash_bwd_sm90.cu", "flash_fwd_sm90.cu", "chunk_fwd_sm90.cu")
 
 
 def _kernel_label(line: str) -> str:
@@ -873,13 +874,15 @@ def _kernel_label(line: str) -> str:
     "single_kernel 2 epi=1 mask=0 hb=1" (the stage first)."""
     import re
 
-    m = re.search(r"(dq_kernel|dkv_kernel|split_sum_kernel|fwd_kernel|tiled_kernel|single_kernel)I(\w+?)EEv", line)
+    m = re.search(r"(dq_kernel|dkv_kernel|split_sum_kernel|chunk_fwd_kernel|fwd_kernel|tiled_kernel|single_kernel)I"
+                  r"(\w+?)EEv", line)
     if m is None:
         m = re.search(r"'_Z\w*?(decode_kernel|paged_write_kernel|paged_write_quant_kernel|sample_kernel)(I\w+?E)?",
                       line)
         return " ".join(filter(None, m.groups())) if m else line.strip()
     name, args = m.group(1), m.group(2).replace("13__nv_bfloat16", "bf16 ").replace("6__half", "fp16 ")
     flags = {"dq_kernel": ("masked",), "dkv_kernel": ("masked", "fused"), "fwd_kernel": ("masked", "wgs"),
+             "chunk_fwd_kernel": ("masked",),
              "tiled_kernel": ("bn", "arith", "skip", "mask", "grid"), "single_kernel": ("epi", "mask", "hb")}.get(name, ())
     values = re.findall(r"L[ib](\d+)E", args)
     dims, rest = values[:1], values[1:]
@@ -1490,6 +1493,71 @@ def cache_split(card: str) -> dict:
                                   "int8 slot, kv_end 2048: copy + dequant + K1"]
     return {"ms": ms, "device_ms": device_ms, "host_us": host_us,
             **{f"{key} {m}": t for key, row in rows.items() for m, t in zip(("ms", "device_ms", "host_us"), row)}}
+
+
+def chunk_split_sweep(card: str) -> dict:
+    """csrc/chunk_fwd_sm90.cu alone in a CUDA graph of 10 calls at every
+    cluster size 1-8, through its C entry (which takes the cluster size
+    that ``cache_attention`` picks by ``chunk_splits``), at cache_split's
+    shapes: q [1,32,256,128] bf16 over slot 7 of an int8 [8,8,2048,128]
+    cache at kv_end 2048 (K1q), of the same cache in bf16 (K1's function,
+    which ``cache_attention`` sends to K1: the body's 16-bit dense
+    instantiation, for comparison) and of 17a's 4352-row bf16 ring at
+    kv_end 9000 (K1r), each held to the split the wrapper picks, bit for bit
+    when the split is the same and within the plain version's row-relative
+    bar otherwise; then K1q and K1r at kv_end 256 (walks of 1-4 tiles: the
+    body's fixed cost) at the wrapper's split. ``ms`` is K1q's at the
+    wrapper's split."""
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.ops import _build
+    from flash_attention_tpu_torch.ops import flash_attention as fa
+    from flash_attention_tpu_torch.ops.common import LOG2E, ring_layout, sm_count
+    from flash_attention_tpu_torch.ops.quant import quantize_values
+
+    dev, bf16, rows = torch.device("cuda"), torch.bfloat16, {}
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = cs.torch_uniform((1, 32, 256, 128), bf16, gen)
+    slot = torch.tensor([7], dtype=torch.int32, device=dev)
+    picked = fa.chunk_splits(8, 256, 4, sm_count(dev))
+    k16, v16 = (cs.torch_uniform((8, 8, 2048, 128), bf16, gen) for _ in range(2))
+    (kp, ks), (vp, vs) = (quantize_values(x.float(), torch.int8) for x in (k16, v16))
+    ring_k, ring_v = (cs.torch_uniform((8, 8, cs.RING_ROWS, 128), bf16, gen) for _ in range(2))
+    out = torch.empty_like(q)
+    for label, k, v, scales, kv_end, ring in (
+            ("K1q int8 kv_end 2048", kp, vp, (ks, vs), 2048, False),
+            ("bf16 dense kv_end 2048", k16, v16, (None, None), 2048, False),
+            ("K1r ring 4352 rows kv_end 9000", ring_k, ring_v, (None, None), 9000, True),
+            ("K1q int8 kv_end 256", kp, vp, (ks, vs), 256, False),
+            ("K1r ring 4352 rows kv_end 256", ring_k, ring_v, (None, None), 256, True)):
+        sc = [None if x is None else x.reshape(x.shape[:3]) for x in scales]
+        strides = [0] * 6 if sc[0] is None else [*sc[0].stride(), *sc[1].stride()]
+        ring_mod, ring_base = ring_layout(k.shape[2], 0) if ring else (0, 0)
+        payload = _build.PAYLOAD_CODES.get(k.dtype, _build.DTYPE_CODES[bf16])
+
+        def call(splits, k=k, v=v, sc=sc, strides=strides, kv_end=kv_end, ring_mod=ring_mod, ring_base=ring_base,
+                 payload=payload, ring=ring):
+            err = _build.kernels().fat_chunk_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), *(None if x is None else x.data_ptr() for x in sc),
+                out.data_ptr(), None, slot.data_ptr(), 8, 32, 8, 256, kv_end, k.shape[2], 128, q.stride(1),
+                q.stride(2), *k.stride()[:3], *v.stride()[:3], _build.int64_tuple_array(tuple(strides)),
+                128 ** -0.5 * LOG2E, cs.WINDOW if ring else 0, 0, ring_mod, ring_base, 0.0, _build.DTYPE_CODES[bf16],
+                payload, _build.current_stream(q.device), splits)
+            _build.check(err, f"chunk body at {splits} splits")
+            return out
+
+        want = call(picked).clone()
+        for splits in range(1, fa.CHUNK_MAX_SPLITS + 1) if kv_end > 256 else (picked,):
+            got = call(splits).clone()
+            if splits == picked and not torch.equal(got, want):
+                raise RuntimeError(f"[chunk split sweep] {label}: two calls at {splits} splits differ")
+            if cs._rel_diff(got, want) >= cs.REL_BAR["bfloat16"]:
+                raise RuntimeError(f"[chunk split sweep] {label}: {splits} splits against {picked}")
+            rows[f"{label} splits {splits}"] = _split_times(lambda splits=splits: call(splits))[1]
+    print("[chunk split sweep] alone in a CUDA graph of 10 (the wrapper picks " + f"{picked}): "
+          + "; ".join(f"{key} {ms:.4f} ms" for key, ms in rows.items()) + f" ({card})", flush=True)
+    return {"ms": rows[f"K1q int8 kv_end 2048 splits {picked}"], **rows}
 
 
 def mha_bwd(card: str) -> dict:

@@ -46,7 +46,7 @@ def test_the_registry_names_each_kernel_once():
     _modules()
     assert set(counters.KERNELS) == KERNELS
     assert set(counters.BODIES) == {"K1/K1d/K2 tensor_core", "K1/K1d/K2 fma", "K1q/K1r tensor_core", "K1q/K1r fma",
-                                    "K8/K8q tensor_core", "K8/K8q fma", "K7/K7q self"}
+                                    "K1q/K1r cluster", "K8/K8q tensor_core", "K8/K8q fma", "K7/K7q self"}
     groups = counters.functions()
     assert groups[("decode_kernel",)] == ("K6", "K6q", "K7", "K7q")
     assert sorted(k for kernels in groups.values() for k in kernels) == sorted(KERNELS)
@@ -59,6 +59,8 @@ def test_the_registry_names_each_kernel_once():
     ("void (anonymous namespace)::paged_write_quant_kernel<__nv_bfloat16, signed char>(QuantWriteParams)",
      ("K9q/K10q",)),
     ("void fwd_kernel<__half, __half, 128, true, 2, false>(Params)", ("K1", "K2", "K1d", "K1q", "K1r", "K8", "K8q")),
+    ("void (anonymous namespace)::chunk_fwd_kernel<__nv_bfloat16, signed char, 128, false>(ChunkParams)",
+     ("K1", "K2", "K1d", "K1q", "K1r", "K8", "K8q")),
     ("void flash_bwd_dq_kernel<float, 64, false>(BwdParams)", ("K4", "K4m")),
     ("void split_sum_kernel<__nv_bfloat16>(float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, int)", ("K5s",)),
     ("void (anonymous namespace)::add_rms_norm_kernel<__nv_bfloat16>(NormParams)", ("F1",)),
