@@ -354,6 +354,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
                 4352-row ring, the ring with 4 sinks, int8 / e4m3 / e5m2)
                 bit-identical, F1's h and F3 within 1 ulp (1e-6 row-relative
                 for F1 in fp32; the share of elements that differ printed);
+                F2's chunk form F2c (rope_chunk_kernel: a prefill chunk's
+                RoPE and cache write) at q [1,32,256,128] with 8 kv heads
+                (ModelConfig()'s and Mistral-7B's attention widths) over
+                every cache form (CHUNK_KINDS: dense, int8 / e4m3 / e5m2,
+                the ring with a chunk that wraps its end, with 4 sinks, and
+                pages of 128 and 64 rows, quantized, and 17c's paged ring)
+                at slots 0 and 7 by device scalar: q, rows, scales, table
+                and lengths bit-identical to plain, q to F2's rotation;
+                F1 and F3 also timed at a chunk's rows ([1,256,4096],
+                [1,256,11008 / 14336]);
                 F4 over phase 24(c)'s pool (plain, window, softcap, window +
                 sinks, int8 and e4m3 pools, fp16, fp32, a slot of length 0)
                 within REL_BAR of plain, ORACLE_BAR of the fp32 oracle,
@@ -369,7 +379,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
 Every serving phase (4-11, 16, 17, 23, 24) launches F1, F2 and F3 (GLUE)
 beside its attention kernels: the norms, RoPE (with the dense cache's row
 write) and the SwiGLU gate of every step and chunk run no gradient. Every
-engine run also launches S1 (SERVED): each request's first token is
+engine run also launches F2c, each prefill chunk's RoPE and cache write
+(one a layer a chunk: phases 5, 8, 11, 17 and 23 count it, and a traced
+replayed chunk holds one F2c record a layer and none of the write as plain
+PyTorch), and S1 (SERVED): each request's first token is
 picked by sample_tokens, and every step of a sampled decode block. 24(c)
 bars a replayed sampled step at SAMPLER_OPS_BAR device operations more
 than a greedy one. S1's row in the kernels line counts phases 5's and 8's
@@ -426,9 +439,10 @@ PEAK_FP32 = 67e12  # H100 SXM fp32 rate off the tensor cores
 # The decode step's glue kernels (csrc/fused.cu): every serving path with no
 # gradient launches them beside its attention kernels; training does not.
 GLUE = ("F1", "F2", "F3")
-# What every engine run launches beside its attention kernels: the glue, and S1 (csrc/sampling.cu), which picks
-# each request's first token and every token of a sampled decode step.
-SERVED = (*GLUE, "S1")
+# What every engine run launches beside its attention kernels: the glue, F2's chunk form F2c (each prefill chunk's
+# RoPE and cache write, one launch a layer), and S1 (csrc/sampling.cu), which picks each request's first token and
+# every token of a sampled decode step.
+SERVED = (*GLUE, "F2c", "S1")
 
 
 def log(msg: str) -> None:
@@ -1219,6 +1233,30 @@ def check_self_term(what: str, launches: dict, bodies: dict) -> None:
         raise RuntimeError(f"{what}: {bodies['K7/K7q self']} K7 / K7q launches with the self term of {paged}")
 
 
+def counting_chunks(eng, run):
+    """``run()`` with the prefill chunks this process runs on ``eng``
+    counted (each call of ``_prefill_chunk_step``): (its result, the count)."""
+    inner, ran = eng._prefill_chunk_step, [0]
+
+    def step(*args):
+        ran[0] += 1
+        return inner(*args)
+
+    eng._prefill_chunk_step = step
+    try:
+        return run(), ran[0]
+    finally:
+        eng._prefill_chunk_step = inner
+
+
+def check_chunk_rope(what: str, launches: dict, layers: int, chunks: int) -> None:
+    """Each prefill chunk of the run launched F2's chunk form (F2c: RoPE and
+    the cache write) once a layer, and the decode form F2 none for it."""
+    if not chunks or launches["F2c"] != layers * chunks:
+        raise RuntimeError(f"{what}: {launches['F2c']} F2c launches for {chunks} prefill chunks of {layers} layers; "
+                           "want one a layer a chunk")
+
+
 def replayed_tokens(what: str, eng, reqs) -> dict:
     """``eng.run(reqs)``'s tokens by id, the launch counts set to 0 just
     before the run. On the card ``warmup()`` first, so that every prefill
@@ -1351,7 +1389,11 @@ def hold_prefill_programs(label: str, eng, keys=None) -> None:
     key's, is traced: its kernel records must equal the launches it added to
     the counts (``traced_launches``), and it must hold no device operation
     of a cache read as plain PyTorch (``smoke_cases.CHUNK_GROUPS``' "cache
-    gathers and dequant": the kernels read the cache in place) and at most
+    gathers and dequant": the kernels read the cache in place), one F2c
+    record a layer (RoPE and the cache write), no F2 record and none of the
+    write's operations as plain PyTorch (``smoke_cases.WRITE_OPS``: the
+    positions' arange, the index assignments, the lengths' index_fill_, the
+    quantizer's abs and round), and at most
     one strided bf16 copy a layer (o's transpose: ``wo`` is read through its
     [H * D, M] view, not permuted into a copy); over a quantized dense cache
     or the ring in bf16 / fp16 its attention is one csrc/chunk_fwd_sm90.cu
@@ -1361,7 +1403,7 @@ def hold_prefill_programs(label: str, eng, keys=None) -> None:
     import numpy as np
     import torch
 
-    from flash_attention_tpu_torch.tools.smoke_cases import chunk_group
+    from flash_attention_tpu_torch.tools.smoke_cases import WRITE_OPS, chunk_group
 
     progs, slots = eng.prefill_programs, eng._slot_hi - eng._slot_lo
     keys = sorted(progs.built() if keys is None else keys, key=lambda key: (key[1], key[0]))
@@ -1419,6 +1461,11 @@ def hold_prefill_programs(label: str, eng, keys=None) -> None:
         if chunk_body != cfg.num_layers or old_body:
             raise RuntimeError(f"[{label}] the replayed {keys[-1]} chunk ran {chunk_body} chunk_fwd_kernel and "
                                f"{old_body} fwd_kernel records; want one chunk_fwd_kernel (K1q / K1r) a layer")
+    writes = sorted({n[:100] for n in names if any(op in n for op in WRITE_OPS)})
+    if traced.get("F2c", 0) != cfg.num_layers or traced.get("F2", 0) or writes:
+        raise RuntimeError(f"[{label}] the replayed {keys[-1]} chunk traced {traced.get('F2c', 0)} F2c and "
+                           f"{traced.get('F2', 0)} F2 records and the write operations {writes}; want one F2c a "
+                           "layer (RoPE and the cache write) and nothing else of the write")
     if reads or copies > cfg.num_layers:
         raise RuntimeError(f"[{label}] the replayed {keys[-1]} chunk ran {reads} cache gather or dequant operations "
                            f"(want 0) and {copies} strided bf16 copies (want at most one a layer, o's transpose): "
@@ -1791,14 +1838,16 @@ def serve_full_dense(card: str, label: str, cfg, params, *, used, ref: dict | No
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    done = eng.run([Request(id=100 + i, prompt=p, max_new_tokens=FULL_NEW_TOKENS) for i, p in enumerate(prompts)])
+    done, chunks = counting_chunks(eng, lambda: eng.run([Request(id=100 + i, prompt=p, max_new_tokens=FULL_NEW_TOKENS)
+                                                         for i, p in enumerate(prompts)]))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     bodies = read_bodies()
     log(f"[{label}] 10 requests on 8 slots: kernel launches {launches}, forward launches by body {bodies}; decode "
-        f"steps {eng.steps}")
+        f"steps {eng.steps}; prefill chunks {chunks}")
+    check_chunk_rope(f"[{label}] the main path", launches, cfg.num_layers, chunks)
     check_tensor_cores(f"[{label}] the main path", bodies, "K1q/K1r" if "K1q" in used else "K1/K1d/K2")
     for i in range(len(prompts)):
         toks = done[100 + i].tokens
@@ -2403,17 +2452,20 @@ def serve_full_paged(card: str, label: str, cfg, params, *, used, dense: dict, r
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_a = eng.run([Request(id=100 + i, prompt=p, max_new_tokens=FULL_NEW_TOKENS) for i, p in enumerate(prompts)])
+    run_a, chunks = counting_chunks(eng, lambda: eng.run([Request(id=100 + i, prompt=p, max_new_tokens=FULL_NEW_TOKENS)
+                                                          for i, p in enumerate(prompts)]))
     torch.cuda.synchronize()
     a_s = time.perf_counter() - t0
     a_decode = (eng.decode_tokens, eng.decode_time_s)
     shared = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, 1024))
     tails = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, 200)) for _ in range(9)]
     hits_before = eng.prefix_hits
-    solo = eng.run([Request(id=200, prompt=shared + tails[0], max_new_tokens=FULL_NEW_TOKENS)])
-    group = eng.run([Request(id=201 + i, prompt=shared + tails[1 + i], max_new_tokens=FULL_NEW_TOKENS) for i in range(8)])
+    (solo, group), chunks_b = counting_chunks(eng, lambda: (
+        eng.run([Request(id=200, prompt=shared + tails[0], max_new_tokens=FULL_NEW_TOKENS)]),
+        eng.run([Request(id=201 + i, prompt=shared + tails[1 + i], max_new_tokens=FULL_NEW_TOKENS) for i in range(8)])))
     torch.cuda.synchronize()
     launches = read_counts()
+    check_chunk_rope(f"[{label}] the paged main path", launches, cfg.num_layers, chunks + chunks_b)
     peak = torch.cuda.max_memory_allocated()
     hits_b = eng.prefix_hits - hits_before
     log(f"[{label}] runs A and B: kernel launches {launches}; decode steps {eng.steps}; prefix_hits in run B {hits_b}")
@@ -4403,6 +4455,7 @@ def _serve_masked(card: str, label: str, eng, prompts, *, used, new_tokens: int 
     if bad or not all(bool(torch.isfinite(x).all()) for x in last.values()) or len(last) != len(prompts):
         raise RuntimeError(f"[{label}] requests {bad} without {new_tokens} tokens, or non-finite prefill logits")
     check_launches(f"[{label}] the main path", launches, used)
+    check_chunk_rope(f"[{label}] the main path", launches, eng.cfg.num_layers, len(chunk_s))
     check_tensor_cores(f"[{label}] the main path", bodies)
     if "K7" in used:
         check_self_term(f"[{label}] the main path", launches, bodies)
@@ -5653,11 +5706,12 @@ def _served(eng, reqs, used, what: str) -> tuple[dict, dict, float]:
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    done = eng.run(reqs)
+    done, chunks = counting_chunks(eng, lambda: eng.run(reqs))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = read_counts()
     check_launches(what, launches, used)
+    check_chunk_rope(what, launches, eng.cfg.num_layers, chunks)
     return {rid: c.tokens for rid, c in done.items()}, {n: c for n, c in launches.items() if c}, secs
 
 
@@ -5816,7 +5870,7 @@ def _tp_gloo_rank(card: str, dense_tokens: dict, paged_tokens: dict) -> dict:
         out["s"][f"logits {run}"] = time.perf_counter() - t0
         launches = read_counts()
         check_launches(f"[sharded] (b) rank {rank} logits {run}", launches,
-                       ("K1", "K6", *GLUE) if path == "dense" else ("K7", "K8", "K9/K10", *GLUE))
+                       ("K1", "K6", *GLUE) if path == "dense" else ("K7", "K8", "K9/K10", *GLUE, "F2c"))
         out["launches"][f"logits {run}"] = {n: c for n, c in launches.items() if c}
         digests = [None] * TP_RANKS
         dist.all_gather_object(digests, _bits_digest(logits))
@@ -6619,6 +6673,16 @@ def _fused_row(card: str, key: str, name: str, source: str, replaces: str, call,
             "bound_by": bound_by, "library_ms": lib_ms}
 
 
+def _timed_line(card: str, key: str, name: str, call, plain, nbytes: float) -> None:
+    """A kernel timed as ``_fused_row`` times it, printed, not reported."""
+    ms, alone, host_us = _three_times(call)
+    plain_ms = cuda_ms(plain)
+    bound_ms, bound_by = bound(0.0, nbytes)
+    log(f"[fused] {key} {name}: kernel {ms:.4f} ms as a call, {alone:.4f} ms alone in a CUDA graph, host "
+        f"{host_us:.1f} us a call; plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.3f} "
+        f"MB) ({card})")
+
+
 def _fused_norm_act(card: str, gen) -> dict:
     """F1 and F3 in the three dtypes against their plain versions on the
     card: F1's x_new bit-identical and h within 1 ulp in 16 bits (1e-6 of
@@ -6669,6 +6733,15 @@ def _fused_norm_act(card: str, gen) -> dict:
             "models/transformer.py:103", lambda: swiglu_act(gate, up), lambda: swiglu_act_plain(gate, up),
             3 * gate.numel() * 2,
             err=float((swiglu_act(gate, up).float() - swiglu_act_plain(gate, up).float()).abs().max()))
+    # At a prefill chunk's rows: F1 runs twice a layer and once at the final norm, F3 once a layer.
+    x, delta = (torch_uniform((1, CHUNK_T, 4096), torch.bfloat16, gen) * 4 for _ in range(2))
+    _timed_line(card, "F1", "add_rms_norm_kernel at a chunk's rows, [1,256,4096] bf16",
+                lambda: add_rms_norm(x, delta, weight, 1e-5), lambda: add_rms_norm_plain(x, delta, weight, 1e-5),
+                (4 * x.numel() + 4096) * 2)
+    for width in (11008, 14336):
+        gate, up = (torch_uniform((1, CHUNK_T, width), torch.bfloat16, gen) * 8 for _ in range(2))
+        _timed_line(card, "F3", f"swiglu_act_kernel at a chunk's rows, [1,256,{width}] bf16",
+                    lambda: swiglu_act(gate, up), lambda: swiglu_act_plain(gate, up), 3 * gate.numel() * 2)
     return out
 
 
@@ -6750,6 +6823,144 @@ def _fused_rope(card: str, gen) -> dict:
                      "models/rope.py:19", lambda: rope(q, k, lengths, cache=cache, v=v),
                      lambda: rope_plain(q, k, lengths, cache=cache, v=v), nbytes, err=0.0)
     return {"F2": row}
+
+
+CHUNK_T = 256  # the served phases' prefill chunk
+# Phase 25's chunk-form caches: (rows a slot or page size, the chunk's start, ring, sinks, kv_quant, paged). The
+# ring kinds start where the chunk wraps the ring's end (4352 rows; with 4 sinks, 128 sink rows before a ring of
+# 4352); "ring + sinks from 0" straddles the sinks; the paged ring lays its table out as phase 17c's engine does.
+CHUNK_KINDS = {
+    "dense": (2048, 1792, False, 0, "none", False),
+    "int8": (2048, 1024, False, 0, "int8", False),
+    "fp8_e4m3": (2048, 256, False, 0, "fp8_e4m3", False),
+    "fp8_e5m2": (2048, 0, False, 0, "fp8_e5m2", False),
+    "ring": (RING_ROWS, RING_ROWS - 128, True, 0, "none", False),
+    "ring int8": (RING_ROWS, 2 * RING_ROWS - 64, True, 0, "int8", False),
+    "ring + sinks": (RING_ROWS + 128, SINKS + RING_ROWS - 128, True, SINKS, "none", False),
+    "ring + sinks from 0": (RING_ROWS + 128, 0, True, SINKS, "none", False),
+    "paged 128": (128, 1024, False, 0, "none", True),
+    "paged 64": (64, 1088, False, 0, "none", True),
+    "paged int8": (128, 512, False, 0, "int8", True),
+    "paged fp8_e4m3": (128, 1792, False, 0, "fp8_e4m3", True),
+    "paged fp8_e5m2": (64, 0, False, 0, "fp8_e5m2", True),
+    "paged ring + sinks": (128, 8960, False, 0, "none", True),
+}
+
+
+def _chunk_cache(kind: str, dtype, gen, rng):
+    """A filled cache of 8 slots, 8 kv heads, head_dim 128 of CHUNK_KINDS'
+    ``kind``: dense [8, 8, rows, 128], or one layer of a page pool over a
+    shuffled table (16 pages a slot, or 72 over 37 ring pages a slot with
+    the sinks' page); a quantized one from scaled rows. Returns (cache,
+    start, ring, sinks)."""
+    import torch
+
+    from flash_attention_tpu_torch.models.attention import KVCache
+    from flash_attention_tpu_torch.ops.paged import init_paged_model_cache
+    from flash_attention_tpu_torch.ops.quant import PAYLOADS, bits, quantize_values
+
+    rows, start, ring, sinks, mode, paged = CHUNK_KINDS[kind]
+    if paged:
+        per_slot = 72 if "ring" in kind else 16 * 128 // rows
+        table, pages = (_ring_table(rng, 8, per_slot, 36, sinks=True) if "ring" in kind else
+                        (_shuffled_table(rng, 8, per_slot, 1 + 8 * per_slot, dump_slot=False), 1 + 8 * per_slot))
+        model = init_paged_model_cache(1, num_pages=pages, num_slots=8, pages_per_slot=per_slot, kv_heads=8,
+                                       page_size=rows, head_dim=128, dtype=dtype, kv_quant=mode, device="cuda")
+        model.page_table.copy_(torch.from_numpy(table))
+        bufs = [(model.k_pool, model.k_scales), (model.v_pool, model.v_scales)]
+    else:
+        shape = (8, 8, rows, 128)
+        payload = PAYLOADS.get(mode, dtype)
+        scales = [torch.ones((*shape[:3], 1), device="cuda") if mode in PAYLOADS else None for _ in range(2)]
+        cache = KVCache(torch.empty(shape, dtype=payload, device="cuda"), torch.empty(shape, dtype=payload,
+                                                                                     device="cuda"),
+                        torch.arange(8, dtype=torch.int32, device="cuda") * 100, *scales)
+        bufs = [(cache.k, cache.k_scales), (cache.v, cache.v_scales)]
+    for buf, sc in bufs:
+        if sc is None:
+            buf.copy_(torch_uniform(buf.shape, dtype, gen))
+        else:
+            qt = quantize_values(scaled_rows(tuple(buf.shape), gen), buf.dtype)
+            bits(buf).copy_(bits(qt.values))
+            sc.copy_(qt.scales.reshape(sc.shape))
+    if paged:
+        model.lengths.copy_(torch.arange(8, dtype=torch.int32, device="cuda") * 100)
+        cache = model.layers()[0]
+    return cache, start, ring, sinks
+
+
+def _chunk_inputs(dtype, gen):
+    """A chunk's q [1, 32, 256, 128] and k, v [1, 8, 256, 128] as the
+    projection gives them ([B, T, H, D] transposed); k and v rows of scaled
+    magnitudes, so a row quantized with another's scale shows."""
+    q = torch_uniform((1, CHUNK_T, 32, 128), dtype, gen).transpose(1, 2)
+    k, v = (scaled_rows((1, CHUNK_T, 8, 128), gen).to(dtype).transpose(1, 2) for _ in range(2))
+    return q, k, v
+
+
+def _fused_rope_chunk(card: str, gen) -> dict:
+    """F2's chunk form (F2c, ``rope_chunk``) at ModelConfig()'s and
+    Mistral-7B's attention widths (q [1, 32, 256, 128], 8 kv heads) in the
+    three dtypes, over every CHUNK_KINDS cache at slots 0 and 7, each a
+    device scalar, against its plain version on the card: q, every cache
+    tensor (rows, scales, table) and the lengths bit for bit, q also bit
+    for bit with F2's decode form's rotation (``rope`` at the chunk's
+    positions); then timed (a call, alone in a CUDA graph, host µs) at
+    phase 5's chunk, and at 11a's, 17a's and 17c's forms, beside plain and
+    the bound. Returns F2c's kernels line."""
+    import numpy as np
+    import torch
+
+    from flash_attention_tpu_torch.ops.fused import rope, rope_chunk, rope_chunk_plain
+
+    rng = np.random.default_rng(24)
+    done = []
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        q, k, v = _chunk_inputs(dtype, gen)
+        for kind in CHUNK_KINDS:
+            cache, start, ring, sinks = _chunk_cache(kind, dtype, gen, rng)
+            positions = start + torch.arange(CHUNK_T, device="cuda")[None, None, :]
+            q_decode_form = rope(q, k, positions)[0]
+            for slot in (0, 7):
+                slot_t = torch.full((1,), slot, dtype=torch.int32, device="cuda")
+                a, b = _clone_cache(cache), _clone_cache(cache)
+                qa, a = rope_chunk(q, k, v, a, slot_t, start, ring=ring, sinks=sinks)
+                qb, b = rope_chunk_plain(q, k, v, b, slot_t, start, ring=ring, sinks=sinks)
+                same = [_bits_equal(x, y) for x, y in zip((qa, *a), (qb, *b)) if x is not None]
+                if not all(same) or not _bits_equal(qa, q_decode_form):
+                    raise RuntimeError(f"[fused] F2c {dtype} {kind} slot {slot}: q, cache tensors, lengths equal to "
+                                       f"plain {same}; q equal to F2's rotation {_bits_equal(qa, q_decode_form)}")
+                if int(a.lengths[slot]) != start + CHUNK_T or a.lengths is cache.lengths:
+                    raise RuntimeError(f"[fused] F2c {dtype} {kind} slot {slot}: lengths {a.lengths.tolist()}")
+            done.append(f"{str(dtype)[6:]} {kind}")
+            del cache, a, b
+    log(f"[fused] F2c (RoPE + the chunk's cache write) at q [1,32,256,128], 8 kv heads, slots 0 and 7 by device scalar, "
+        f"bit-identical to plain on the card (q, rows, scales, table, lengths) and q to F2's rotation: {done}")
+
+    q, k, v = _chunk_inputs(torch.bfloat16, gen)
+    slot_t = torch.full((1,), 7, dtype=torch.int32, device="cuda")
+    nbytes = (2 * 32 + 2 * 8 + 2 * 8) * CHUNK_T * 128 * 2 + 2 * 8 * 4 + 64 * 4  # q in + out, k, v in, K / V rows out
+    row = None
+    for kind, label in (("dense", "phase 5"), ("int8", "phase 11a"), ("ring", "phase 17a"),
+                        ("paged ring + sinks", "phase 17c")):
+        cache, start, ring, sinks = _chunk_cache(kind, torch.bfloat16, gen, rng)
+        quant = cache.k_scales is not None
+        form_bytes = nbytes - (2 * 8 * CHUNK_T * 128 * (1 if quant else 0)) + (2 * 8 * CHUNK_T * 4 if quant else 0)
+
+        def call(cache=cache, start=start, ring=ring, sinks=sinks):
+            return rope_chunk(q, k, v, cache, slot_t, start, ring=ring, sinks=sinks)
+
+        def plain(cache=cache, start=start, ring=ring, sinks=sinks):
+            return rope_chunk_plain(q, k, v, cache, slot_t, start, ring=ring, sinks=sinks)
+
+        name = f"rope_chunk_kernel, RoPE + the chunk's cache write ({kind}), q [1,32,256,128] bf16"
+        if row is None:
+            row = _fused_row(card, "F2c", name, "csrc/fused.cu", "models/attention.py:363", call, plain,
+                             form_bytes, err=0.0)
+        else:
+            _timed_line(card, "F2c", f"{name}, {label}'s form", call, plain, form_bytes)
+        del cache
+    return {"F2c": row}
 
 
 def _fused_self_term(card: str, gen) -> dict:
@@ -6843,8 +7054,9 @@ def phase_fused(card: str) -> dict:
     zero_counts()
     out = _fused_norm_act(card, gen)
     out.update(_fused_rope(card, gen))
+    out.update(_fused_rope_chunk(card, gen))
     counts = read_counts()
-    if any(counts[key] < 1 for key in GLUE):
+    if any(counts[key] < 1 for key in (*GLUE, "F2c")):
         raise RuntimeError(f"[fused] a glue kernel's counter did not rise: {counts}")
     out.update(_fused_self_term(card, gen))
     log(f"[fused] phase 25 took {time.perf_counter() - t0:.1f} s ({card})")
@@ -7266,7 +7478,7 @@ def main() -> None:
     lap("4")
     launches, params, dense = phase_full(card)
     k1["launches"], k6["launches"] = launches["K1"], launches["K6"]
-    glue_launches = {key: launches[key] for key in GLUE}
+    glue_launches = {key: launches[key] for key in (*GLUE, "F2c")}
     s1 = phase_sampling(card, params)
     s1["launches"] = launches["S1"]
     lap("5")

@@ -28,6 +28,11 @@
 //    It also writes the new lengths. A token's blocks: one for each 4 q
 //    heads (a pair a thread at head_dim 128), and one more for k and v,
 //    each head row one warp (the quantizer's absmax is a warp reduction).
+//    Its chunk form, rope_chunk_kernel (F2c), takes a prefill chunk: q and
+//    k rotated at start + t and the chunk's K / V rows written into the
+//    slot's rows of a dense cache, a rolling ring (with sinks) or a page
+//    pool through the slot's table row, quantized or not, with the slot's
+//    new length, in one launch a layer (its design: below).
 //  * F3 swiglu_act_kernel — silu(gate) * up in fp32, rounded to gate's type
 //    (the JAX package's models/transformer.py:103). Elementwise.
 //
@@ -311,6 +316,188 @@ cudaError_t launch_rope(const RopeParams& p, int tokens, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---- F2, the chunk form ----
+//
+// A prefill chunk's q [1, Hq, T, D] and k [1, Hkv, T, D] rotated at
+// positions start + t, and k (rotated, rounded to T) and v [1, Hkv, T, D]
+// written into the slot's rows of the cache, with the slot's new length,
+// in one launch: what the JAX package's jitted chunk step fuses
+// (models/attention.py:363-433 over the dense cache, ops/paged.py:488-546
+// over pages). The rotation is rope_kernel's arithmetic (the same angles,
+// cosf / sinf and _rn products), the quantizer store_row's (common.cuh's
+// row_scale and quantize), so q, the cache rows and their scales are the
+// plain version's bits.
+//
+// At phase 5's chunk (T 256, 32 q / 8 kv heads, D 128, bf16) the launch
+// moves ~6.3 MB, ~1.9 us at 3.35 TB/s: bytes bound it. So the design keeps
+// every access 16 bytes wide and many of them in flight: a block takes
+// CHUNK_TOKENS tokens x CHUNK_UNITS head rows (q heads, then k heads, then v
+// heads) and computes its tokens' cos / sin once into shared memory; a head
+// row is D / VEC threads, each holding 16 bytes of it, and every thread
+// issues all its loads before its first store. A quantized row's absmax is
+// a reduction over the row's threads (shuffles within an aligned group of
+// lanes, so a warp's rows are reduced at once).
+
+constexpr int CHUNK_THREADS = 256;
+constexpr int CHUNK_TOKENS = 8;  // tokens a block
+constexpr int CHUNK_UNITS = 8;   // head rows of each token a block
+
+enum ChunkShape : int {
+  kCT, kCQHeads, kCKvHeads, kCHeadDim,
+  kCQsh, kCQst, kCKsh, kCKst, kCVsh, kCVst,  // q / k / v strides (head, token), in elements
+  kCCsb, kCCsh, kCCsr, kCSsb, kCSsh, kCSsr,  // the cache's K / V and scale strides (slot or page, head, row)
+  kCRows, kCRing, kCSinks, kCStart, kCNewLen, kCSlots, kCTableStride, kCNumPages, kChunkShapeLen
+};
+
+struct ChunkParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* q_out;  // [1, Hq, T, D], contiguous
+  const float* freqs;
+  const int32_t* slot;     // [1], the slot (or the page table's row)
+  const int32_t* lengths;  // [slots]
+  int32_t* new_lengths;    // [slots]
+  void* k_cache;
+  void* v_cache;
+  float* k_scales;       // a quantized cache's, else nullptr
+  float* v_scales;
+  const int32_t* table;  // a paged cache's page table, else nullptr (a dense cache)
+  int64_t q_sh, q_st, k_sh, k_st, v_sh, v_st;
+  int64_t c_sb, c_sh, c_sr, s_sb, s_sh, s_sr, table_stride;
+  int t_len, hq, hkv, rows, ring, sinks, sinks_pad, start, new_len, slots, num_pages;
+};
+
+// The (K / V element, scale) offsets of head h's row for position pos: a
+// dense cache's row pos, a ring's ring_rows(pos), or a page table's page
+// (its physical id clamped as ops/paged._clamped clamps it).
+__device__ __forceinline__ int2 chunk_row(const ChunkParams& p, int slot, int pos) {
+  if (p.table != nullptr) {
+    const int phys = min(max(p.table[slot * p.table_stride + pos / p.rows], 0), p.num_pages - 1);
+    return make_int2(phys, pos % p.rows);
+  }
+  if (!p.ring) return make_int2(slot, pos);
+  if (p.sinks == 0) return make_int2(slot, pos % p.rows);
+  return make_int2(slot, pos < p.sinks ? pos : p.sinks_pad + (pos - p.sinks) % (p.rows - p.sinks_pad));
+}
+
+template <int N>
+__device__ __forceinline__ void store_bytes(void* dst, const void* src) {
+  if constexpr (N == 16) *static_cast<uint4*>(dst) = *static_cast<const uint4*>(src);
+  else if constexpr (N == 8) *static_cast<uint2*>(dst) = *static_cast<const uint2*>(src);
+  else *static_cast<uint32_t*>(dst) = *static_cast<const uint32_t*>(src);
+}
+
+// T: q / k / v type; P: the cache's element type (T, or a payload type).
+// Block (token tile x, unit group y).
+template <typename T, typename P, int D>
+__global__ void __launch_bounds__(CHUNK_THREADS) rope_chunk_kernel(const ChunkParams p) {
+  constexpr int VEC = 16 / sizeof(T);         // elements of a 16-byte access
+  constexpr int LANES = D / VEC;              // threads a head row
+  constexpr int RPP = CHUNK_THREADS / LANES;  // head rows a pass
+  constexpr int PASSES = CHUNK_TOKENS * CHUNK_UNITS / RPP;
+  static_assert(32 % LANES == 0 && (32 / LANES) <= CHUNK_TOKENS && PASSES * RPP == CHUNK_TOKENS * CHUNK_UNITS,
+                "a warp's rows must be of one unit");
+  __shared__ float s_cos[CHUNK_TOKENS][D / 2], s_sin[CHUNK_TOKENS][D / 2];
+  const int t0 = blockIdx.x * CHUNK_TOKENS, u0 = blockIdx.y * CHUNK_UNITS;
+  const int units = p.hq + 2 * p.hkv;
+  const int slot = *p.slot;
+  if (blockIdx.x == 0 && blockIdx.y == 0)
+    for (int i = threadIdx.x; i < p.slots; i += CHUNK_THREADS) p.new_lengths[i] = i == slot ? p.new_len : p.lengths[i];
+
+  // Every load first: each thread's 16 bytes of its row in each pass.
+  const int lane = threadIdx.x % LANES, e0 = lane * VEC;
+  uint4 raw[PASSES];
+#pragma unroll
+  for (int s = 0; s < PASSES; ++s) {
+    const int r = s * RPP + threadIdx.x / LANES;
+    const int u = u0 + r / CHUNK_TOKENS, t = t0 + r % CHUNK_TOKENS;
+    raw[s] = make_uint4(0u, 0u, 0u, 0u);
+    if (u < units && t < p.t_len) {
+      const T* src = u < p.hq            ? static_cast<const T*>(p.q) + u * p.q_sh + t * p.q_st
+                     : u < p.hq + p.hkv ? static_cast<const T*>(p.k) + (u - p.hq) * p.k_sh + t * p.k_st
+                                        : static_cast<const T*>(p.v) + (u - p.hq - p.hkv) * p.v_sh + t * p.v_st;
+      raw[s] = *reinterpret_cast<const uint4*>(src + e0);
+    }
+  }
+  if (u0 < p.hq + p.hkv) {  // the block rotates (uniform): its tokens' angles
+    for (int idx = threadIdx.x; idx < CHUNK_TOKENS * (D / 2); idx += CHUNK_THREADS) {
+      const int tt = idx / (D / 2), i = idx % (D / 2);
+      const float angle = __fmul_rn(static_cast<float>(p.start + t0 + tt), p.freqs[i]);
+      s_cos[tt][i] = cosf(angle);
+      s_sin[tt][i] = sinf(angle);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int s = 0; s < PASSES; ++s) {
+    const int r = s * RPP + threadIdx.x / LANES;
+    const int u = u0 + r / CHUNK_TOKENS, tt = r % CHUNK_TOKENS, t = t0 + tt;
+    if (u >= units) continue;  // uniform across the warp: its rows are of one unit
+    const bool valid = t < p.t_len, is_q = u < p.hq, is_v = u >= p.hq + p.hkv;
+    const T* in = reinterpret_cast<const T*>(&raw[s]);
+    alignas(16) T vals[VEC];
+    float x[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) x[j] = fat::to_float(in[j]);
+    if (!is_v) {
+#pragma unroll
+      for (int j = 0; j < VEC / 2; ++j) {
+        const int i = e0 / 2 + j;
+        const float c = s_cos[tt][i], sn = s_sin[tt][i];
+        const float x1 = x[2 * j], x2 = x[2 * j + 1];
+        vals[2 * j] = fat::from_float<T>(__fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, sn)));
+        vals[2 * j + 1] = fat::from_float<T>(__fadd_rn(__fmul_rn(x1, sn), __fmul_rn(x2, c)));
+      }
+      if (is_q) {
+        if (valid)
+          store_bytes<16>(static_cast<T*>(p.q_out) + (static_cast<int64_t>(u) * p.t_len + t) * D + e0, vals);
+        continue;
+      }
+      // The cache stores k as the model holds it, rounded to T.
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) x[j] = fat::to_float(vals[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) vals[j] = in[j];
+    }
+    const int h = is_v ? u - p.hq - p.hkv : u - p.hq;
+    const int2 at = chunk_row(p, slot, p.start + t);
+    P* dst = static_cast<P*>(is_v ? p.v_cache : p.k_cache) + at.x * p.c_sb + h * p.c_sh + at.y * p.c_sr + e0;
+    if constexpr (fat::is_payload<P>) {
+      float absmax = 0.f;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) absmax = fmaxf(absmax, fabsf(x[j]));
+#pragma unroll
+      for (int off = LANES / 2; off > 0; off >>= 1)
+        absmax = fmaxf(absmax, __shfl_xor_sync(fat::FULL_MASK, absmax, off));
+      const float sc = fat::row_scale(absmax, fat::payload_qmax<P>);
+      alignas(VEC) P codes[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) codes[j] = fat::quantize<P>(x[j], sc);
+      if (valid) {
+        store_bytes<VEC>(dst, codes);
+        if (lane == 0) (is_v ? p.v_scales : p.k_scales)[at.x * p.s_sb + h * p.s_sh + at.y * p.s_sr] = sc;
+      }
+    } else if (valid) {
+      store_bytes<16>(dst, vals);
+    }
+  }
+}
+
+struct ChunkLaunch {
+  ChunkParams p;
+  cudaStream_t stream;
+  template <typename T, typename P, int D>
+  cudaError_t launch() const {
+    const dim3 grid(static_cast<unsigned>((p.t_len + CHUNK_TOKENS - 1) / CHUNK_TOKENS),
+                    static_cast<unsigned>((p.hq + 2 * p.hkv + CHUNK_UNITS - 1) / CHUNK_UNITS));
+    rope_chunk_kernel<T, P, D><<<grid, CHUNK_THREADS, 0, stream>>>(p);
+    return cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 // F1. x, delta (or null), x_new (written when delta is given) and h
@@ -407,4 +594,68 @@ extern "C" int fat_rope(const void* q, const void* k, const void* v, void* q_out
       default: return cudaErrorInvalidValue;
     }
   }));
+}
+
+
+// F2's chunk form (T >= 1, batch 1). q, k, v [1, H, T, D] of `dtype` with
+// unit stride on D, 16-byte-aligned rows, at the shape's (head, token)
+// strides; q_out [1, Hq, T, D] contiguous; freqs [D / 2] fp32; slot [1]
+// int32 on the device; lengths, new_lengths [slots] int32. The cache: with
+// table null, a dense cache's K and V [slots, Hkv, rows, D] (ring: a
+// rolling one with `sinks`); with table [slots, pages_per_slot] int32 at
+// table_stride, a page pool [num_pages, Hkv, page_size = rows, D]; of
+// `payload` (dtype itself, or int8 / fp8 with k_scales, v_scales fp32), at
+// the shape's strides, rows 16-byte aligned. Positions start + t; the slot's
+// new length new_len. head_dim 32, 64 or 128. Returns a cudaError_t.
+extern "C" int fat_rope_chunk(const void* q, const void* k, const void* v, void* q_out, const float* freqs,
+                              const int32_t* slot, const int32_t* lengths, int32_t* new_lengths, void* k_cache,
+                              void* v_cache, float* k_scales, float* v_scales, const int32_t* table,
+                              const int64_t* shape, int32_t dtype, int32_t payload, void* stream) {
+  ChunkParams p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.q_out = q_out;
+  p.freqs = freqs;
+  p.slot = slot;
+  p.lengths = lengths;
+  p.new_lengths = new_lengths;
+  p.k_cache = k_cache;
+  p.v_cache = v_cache;
+  p.k_scales = k_scales;
+  p.v_scales = v_scales;
+  p.table = table;
+  p.q_sh = shape[kCQsh];
+  p.q_st = shape[kCQst];
+  p.k_sh = shape[kCKsh];
+  p.k_st = shape[kCKst];
+  p.v_sh = shape[kCVsh];
+  p.v_st = shape[kCVst];
+  p.c_sb = shape[kCCsb];
+  p.c_sh = shape[kCCsh];
+  p.c_sr = shape[kCCsr];
+  p.s_sb = shape[kCSsb];
+  p.s_sh = shape[kCSsh];
+  p.s_sr = shape[kCSsr];
+  p.table_stride = shape[kCTableStride];
+  p.t_len = static_cast<int>(shape[kCT]);
+  p.hq = static_cast<int>(shape[kCQHeads]);
+  p.hkv = static_cast<int>(shape[kCKvHeads]);
+  p.rows = static_cast<int>(shape[kCRows]);
+  p.ring = static_cast<int>(shape[kCRing]);
+  p.sinks = static_cast<int>(shape[kCSinks]);
+  p.sinks_pad = (p.sinks + 127) / 128 * 128;
+  p.start = static_cast<int>(shape[kCStart]);
+  p.new_len = static_cast<int>(shape[kCNewLen]);
+  p.slots = static_cast<int>(shape[kCSlots]);
+  p.num_pages = static_cast<int>(shape[kCNumPages]);
+  const bool quant = payload != dtype;
+  if (p.t_len < 1 || p.hq < 1 || p.hkv < 1 || p.rows < 1 || p.start < 0 || p.slots < 1 || q == nullptr ||
+      k == nullptr || v == nullptr || k_cache == nullptr || v_cache == nullptr || new_lengths == nullptr ||
+      lengths == nullptr || slot == nullptr || (quant && (k_scales == nullptr || v_scales == nullptr)) ||
+      (table != nullptr && (p.ring || p.num_pages < 1 || p.start % p.rows || p.t_len % p.rows)) ||
+      (p.sinks > 0 && (!p.ring || p.sinks_pad >= p.rows)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ChunkLaunch launcher{p, static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(fat::dispatch(dtype, payload, shape[kCHeadDim], launcher));
 }

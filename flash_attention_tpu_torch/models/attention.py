@@ -58,10 +58,10 @@ import torch
 import torch.distributed as dist
 
 from flash_attention_tpu_torch.models.rope import apply_rope
-from flash_attention_tpu_torch.ops.common import ceil_to, ring_layout, ring_rows, slot_index, slot_rows
+from flash_attention_tpu_torch.ops.common import ceil_to, ring_layout, ring_rows, slot_index
 from flash_attention_tpu_torch.ops.decode import decode_attention
 from flash_attention_tpu_torch.ops.flash_attention import cache_attention, flash_attention
-from flash_attention_tpu_torch.ops.fused import rope, write_row_plain
+from flash_attention_tpu_torch.ops.fused import rope, rope_chunk, write_row_plain
 from flash_attention_tpu_torch.ops.paged import (
     PagedKVCache,
     paged_decode_attention,
@@ -405,8 +405,11 @@ def attention_prefill_chunk(
     (the kernel's kv_len > q_len diagonal offset); the caller schedules
     chunks so ``start + T == kv_end``.
 
-    Over a rolling cache the chunk's rows go to their ring rows (a chunk may
-    wrap the ring's end) and the chunk attends the last min(kv_end, window +
+    The chunk's RoPE and its cache write (K / V rows, a quantized cache's
+    scales, the slot's length) are one launch on the card (F2c,
+    ``ops.fused.rope_chunk``), as XLA fuses them in the JAX package's jitted
+    chunk step. Over a rolling cache the chunk's rows go to their ring rows
+    (a chunk may wrap the ring's end) and the chunk attends the last min(kv_end, window +
     T) positions and, with sinks, the sink positions. The attention reads
     the slot of the cache where it lies (``ops.flash_attention.
     cache_attention``: K1, K1q over a quantized cache, K1r over the ring);
@@ -444,24 +447,10 @@ def attention_prefill_chunk(
     elif start + t > rows:
         raise ValueError(f"chunk rows [{start}, {start + t}) exceed the cache's {rows}")
     slot = slot_index(slot, cache.k.shape[0], x.device)
-    q, k, v = _project_qkv(params, cfg, x, start + torch.arange(t, device=x.device)[None, None, :])
-    # Write the chunk's K/V FIRST so the visible rows hold it.
-    kq, ks = _quantize_for_cache(cfg, k[0])
-    vq, vs = _quantize_for_cache(cfg, v[0])
-    writes = [(cache.k, kq), (cache.v, vq)]
-    if cache.quantized():
-        writes += [(cache.k_scales, ks), (cache.v_scales, vs)]
-    if cfg.rolling:
-        at = ring_rows(start + torch.arange(t, device=x.device), rows, sinks)
-        for buf, new in writes:
-            bits(buf)[slot_rows(buf, slot, at)] = bits(new.to(buf.dtype))[None]
-    else:
-        for buf, new in writes:
-            bits(buf)[slot, :, start:start + t] = bits(new.to(buf.dtype))[None]
-    # index_fill_ takes the length as a scalar argument: ``lengths[slot] =
-    # start + t`` would copy it from the host, which a capture refuses.
-    cache = cache._replace(lengths=cache.lengths.clone().index_fill_(0, slot.long(), start + t))
-
+    q, k, v = _qkv(params, cfg, x)
+    # RoPE, then the chunk's K/V written FIRST so the visible rows hold it,
+    # and the slot's length: one launch (F2c on the card).
+    q, cache = rope_chunk(q, k, v, cache, slot, start, theta=cfg.rope_theta, ring=cfg.rolling, sinks=sinks)
     o = cache_attention(q, cache.k, cache.v, slot, kv_end, k_scales=cache.k_scales, v_scales=cache.v_scales,
                         ring=cfg.rolling, sinks=sinks, **_masks(cfg))
     return _output_proj(params, o, x.dtype, tp_group), cache
@@ -512,8 +501,9 @@ def attention_prefill_chunk_paged(
     updated cache)."""
     _, t, _ = x.shape
     slot = slot_index(slot, paged_cache.page_table.shape[0], x.device)
-    q, k, v = _project_qkv(params, cfg, x, start + torch.arange(t, device=x.device)[None, None, :])
-    paged_cache = paged_write_prefill(paged_cache, k[0], v[0], slot, start + t, start=start)
+    q, k, v = _qkv(params, cfg, x)
+    # RoPE and the page write, lengths[slot] = start + t: one launch (F2c on the card).
+    q, paged_cache = rope_chunk(q, k, v, paged_cache, slot, start, theta=cfg.rope_theta)
     # K8 reads the slot's pages in place, from the window's first page (and
     # the sinks' page 0) up to the chunk's diagonal: over the paged ring the
     # pages below the band alias newer ones and are never read.

@@ -152,6 +152,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         ptr, ptr, ptr, ptr, ptr,  # K / V cache rows, their scales, new lengths
         shape, i32, i32, ptr,  # csrc/fused.cu's RopeShape array, dtype, payload, stream
     ]
+    lib.fat_rope_chunk.restype = c.c_int
+    lib.fat_rope_chunk.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,  # q, k, v, q_out, freqs
+        ptr, ptr, ptr,  # the slot (device int32), lengths, new lengths
+        ptr, ptr, ptr, ptr, ptr,  # K / V cache rows or pages, their scales, the page table (or null: dense)
+        shape, i32, i32, ptr,  # csrc/fused.cu's ChunkShape array, dtype, payload, stream
+    ]
     # W8A16 products (csrc/w8.cu): x, int8 weight, scales, out, the shape
     # array, dtype, stream; a W1 group launch: x, the (weight, scales, out)
     # pointers of each weight, the shape array, dtype, stream.

@@ -82,6 +82,7 @@ from flash_attention_tpu_torch.ops.decode import (
     scale_strides,
     split_buffers,
 )
+from flash_attention_tpu_torch.ops.fused import write_pages_plain
 from flash_attention_tpu_torch.ops.flash_attention import FWD_FUNCTIONS, flash_attention_plain, fwd_body, fwd_q_tile
 from flash_attention_tpu_torch.ops.merge import merge_two
 from flash_attention_tpu_torch.ops.quant import bits, payload_dtype, quantize_values
@@ -238,25 +239,10 @@ def paged_write_prefill(
     ``slot``: a host int, or a one-element tensor on the device (the
     prefill programs' slot): the table and the lengths are indexed with it
     on the device (``ops.common.slot_index``), so nothing reads it on the
-    host."""
-    page = cache.page_size
-    heads, t, d = k_new.shape
-    if t % page:
-        raise ValueError(f"prefill length {t} not a multiple of page_size {page}")
-    n = t // page
-    slot = slot_index(slot, cache.page_table.shape[0], cache.page_table.device)
-    phys = _clamped(cache.page_table[slot, start // page : start // page + n][0], cache.k_pages.shape[0])
-    writes = ((cache.k_pages, cache.k_scales, k_new), (cache.v_pages, cache.v_scales, v_new))
-    for pages, scales, new in writes:
-        if scales is not None:
-            # Per row, so quantizing all T rows at once is the JAX package's
-            # page-by-page scan (ops/paged.py:512-546) to the bit.
-            new, new_scales = quantize_values(new, pages.dtype)
-            scales[phys] = new_scales.reshape(heads, n, page).transpose(0, 1)
-        bits(pages)[phys] = bits(new.reshape(heads, n, page, d).transpose(0, 1).to(pages.dtype))
-    # index_fill_ takes the length as a scalar argument (an index assignment
-    # would copy it from the host, which a CUDA-graph capture refuses).
-    return cache._replace(lengths=cache.lengths.clone().index_fill_(0, slot.long(), true_len))
+    host. Plain PyTorch on any device (``ops.fused.write_pages_plain``);
+    the chunked prefill writes its pages through F2c
+    (``ops.fused.rope_chunk``), with its RoPE."""
+    return write_pages_plain(cache, k_new, v_new, slot, true_len, start)
 
 
 def paged_write_tokens_plain(cache: PagedModelCache, k_new, v_new, slots: torch.Tensor) -> torch.Tensor:

@@ -759,9 +759,18 @@ def decode_probe(card: str) -> dict:
 # (the payload's widen to fp32 and the round to bf16 around it are counted with the copies: their names are
 # those of the cache writes' copies and of every cast). "strided bf16 copies": ``einsum``'s permute of ``wo``
 # [H, D, M] (32 MB a layer) and of o, and the reshape of o's [B, T, H, D] transpose (2 MB a layer). The
-# attention group's pattern also matches chunk_fwd_kernel (K1q, K1r).
+# attention group's pattern also matches chunk_fwd_kernel (K1q, K1r). CHUNK_WRITE: the chunk's RoPE and cache write,
+# F2c's one launch a layer, or a tree's F2 rotation and the write as plain PyTorch after it (the positions' arange
+# and add, the quantizer's fills / abs / amax / divide / round / clamp, the ring's row arithmetic, the index
+# assignments, the lengths' clone (memcpy32_post) and index_fill_; the casts to fp32 and to the payload are counted
+# with the copies, whose names other operations share), so the two read as one line.
+CHUNK_WRITE = "RoPE and the cache write (F2c; or F2 and the write's index, quantizer and length operations)"
+WRITE_OPS = ("elementwise_kernel_with_index", "index_put", "index_fill", "AbsFunctor", "abs_kernel", "round_kernel")
 CHUNK_GROUPS = (("K1 / K1q / K1r / K8 (fwd_kernel, chunk_fwd_kernel)", ("fwd_kernel",)), ("W2", ("w8_gemm_kernel",)),
-                ("F1-F3", ("add_rms_norm_kernel", "rope_kernel", "swiglu_act_kernel")),
+                (CHUNK_WRITE, ("rope_kernel", "rope_chunk_kernel", *WRITE_OPS, "MaxOps", "MaxNanFunctor", "clamp",
+                               "remainder", "where_kernel", "DivFunctor", "div_true", "CompareEqFunctor",
+                               "CUDAFunctorOnSelf_add<long>", "FillFunctor<float>", "memcpy32_post")),
+                ("F1, F3", ("add_rms_norm_kernel", "swiglu_act_kernel")),
                 ("cuBLAS GEMMs", ("gemm", "nvjet", "xmma", "cutlass")),
                 ("cache gathers and dequant", ("index_kernel_impl<at::native::OpaqueType<1>",
                                                "index_kernel_impl<at::native::OpaqueType<2>", "indexSelect",
@@ -917,6 +926,61 @@ def ptxas_w8(card: str) -> None:
 def ptxas_sampling(card: str) -> None:
     """``ptxas_sm90`` for the sampler (csrc/sampling.cu: S1)."""
     _ptxas(card, ("sampling.cu",), "ptxas sampling")
+
+
+def unchanged_rope(card: str) -> dict:
+    """F2's decode form, which the chunk form must leave as it was, on
+    seeded bf16 inputs: q [8,32,1,128] and k [8,8,1,128] at phase 25's
+    decode positions with the row write into a dense [8,8,2048,128] cache,
+    an int8 one and the 4352-row ring with 4 sinks (q, k, every cache
+    tensor and the lengths), and the rotation alone over a 256-row chunk
+    from position 70000. Prints a hash of each one's output bytes and its
+    time, so two trees in one call can be held to the same bits; ``ms`` is
+    the dense write's call."""
+    import torch
+
+    import chip_smoke as cs
+    from flash_attention_tpu_torch.ops.fused import rope
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    positions = torch.tensor(cs.FUSED_POSITIONS, dtype=torch.int32, device="cuda")[:, None, None]
+    q = cs.torch_uniform((8, 1, 32, 128), torch.bfloat16, gen).transpose(1, 2)
+    k, v = (cs.torch_uniform((8, 1, 8, 128), torch.bfloat16, gen).transpose(1, 2) for _ in range(2))
+    out, times = {}, {}
+    for kind in ("dense", "int8", "rolling + sinks"):
+        cache, ring, sinks = cs._rope_cache(kind, torch.bfloat16, gen)
+        pos = positions.clamp(max=cache.k.shape[2] - 1) if not ring else positions
+        work = cs._clone_cache(cache)
+        got = rope(q, k, pos, cache=work, v=v, ring=ring, sinks=sinks)
+        out[kind] = _digest(got[0], got[1], *(t for t in got[2] if t is not None))
+        # Again into the written copy: the same rows, and fresh lengths each call.
+        times[kind] = cs.cuda_ms(lambda work=work, pos=pos, ring=ring, sinks=sinks: rope(
+            q, k, pos, cache=work, v=v, ring=ring, sinks=sinks))
+    qc, kc = (cs.torch_uniform((1, h, 256, 128), torch.bfloat16, gen) for h in (32, 8))
+    chunk_pos = 70000 + torch.arange(256, device="cuda")[None, None, :]
+    out["chunk rotation"] = _digest(*rope(qc, kc, chunk_pos))
+    times["chunk rotation"] = cs.cuda_ms(lambda: rope(qc, kc, chunk_pos))
+    print(f"[unchanged rope] F2's decode form, output hashes {out}; ms "
+          + ", ".join(f"{key} {t:.4f}" for key, t in times.items()) + f" ({card})", flush=True)
+    return {"ms": times["dense"], **times}
+
+
+def ptxas_fused(card: str) -> None:
+    """``ptxas_sm90`` for the glue (csrc/fused.cu: F1, F2, F2c, F3)."""
+    _ptxas(card, ("fused.cu",), "ptxas fused")
+
+
+def chunk_rope(card: str) -> dict:
+    """Phase 25's F2c part alone (``chip_smoke._fused_rope_chunk``): F2's
+    chunk form against its plain version over every cache form, then timed
+    at phase 5's, 11a's, 17a's and 17c's forms. ``ms`` is the call at phase
+    5's chunk."""
+    import torch
+
+    import chip_smoke as cs
+
+    row = cs._fused_rope_chunk(card, torch.Generator(device="cuda").manual_seed(25))["F2c"]
+    return {k: row[k] for k in ("ms", "plain_ms", "bound_ms")}
 
 
 def _ptxas(card: str, names, tag: str) -> None:

@@ -17,7 +17,7 @@ import flash_attention_tpu_torch as port
 from flash_attention_tpu_torch.ops import counters
 
 KERNELS = {"K1", "K2", "K1d", "K1q", "K1r", "K3", "K4", "K5", "K3m", "K4m", "K5m", "K5s", "K6", "K6q", "K7", "K7q", "K8", "K8q",
-           "K9/K10", "K9q/K10q", "PT", "PS", "F1", "F2", "F3", "W1", "W2", "S1"}
+           "K9/K10", "K9q/K10q", "PT", "PS", "F1", "F2", "F2c", "F3", "W1", "W2", "S1"}
 
 
 def _modules():
@@ -65,6 +65,7 @@ def test_the_registry_names_each_kernel_once():
     ("void split_sum_kernel<__nv_bfloat16>(float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, int)", ("K5s",)),
     ("void (anonymous namespace)::add_rms_norm_kernel<__nv_bfloat16>(NormParams)", ("F1",)),
     ("void (anonymous namespace)::rope_kernel<__nv_bfloat16, signed char>(RopeParams)", ("F2",)),
+    ("void (anonymous namespace)::rope_chunk_kernel<__nv_bfloat16, signed char, 128>(ChunkParams)", ("F2c",)),
     ("void (anonymous namespace)::swiglu_act_kernel<float>(float const*, float const*, float*, long)", ("F3",)),
     ("void (anonymous namespace)::w8_gemv_kernel<__nv_bfloat16, true, 1, true>(GemvParams)", ("W1",)),
     ("(anonymous namespace)::w8_gemv_fma_kernel(GemvParams)", ("W1",)),
